@@ -1,0 +1,23 @@
+"""tpu_sednn_torch — the PyTorch/CUDA port of `tpu_sednn` for NVIDIA Hopper.
+
+Mirrors the module paths and public names of the JAX package, which stays
+beside it as the reference.  Plain tensor code is PyTorch; every Pallas TPU
+kernel of a ported path is a hand-written CUDA kernel under `csrc/`, built
+with nvcc for sm_90a on first use (`ops/_build.py`).
+
+Subpackages ported so far
+-------------------------
+io        byte-exact codecs: wav, .norm, .wts, pfile
+dsp       framing, rDFT/irDFT, log-power spectrum, overlap-add ISTFT
+ops       hand-written Hopper kernels, their wrappers and plain versions
+model     MLP (JAX weight layout), init, eval forward, .wts interop
+enhance   offline/batched decode and the `python -m tpu_sednn_torch.enhance` CLI
+tools     make_pfile (wav -> LPS pfile featurizer on the STFT kernel)
+
+Entry points take `device=` and default to "cuda"; they raise when CUDA is
+asked for and absent, and never continue on the CPU unless asked to.
+"""
+
+from tpu_sednn_torch._device import resolve_device
+
+__version__ = "0.1.0"

@@ -1,0 +1,14 @@
+"""Byte-exact codecs for the reference's on-disk formats (numpy; own copies of
+`tpu_sednn.io`'s wav, .norm, .wts and pfile modules).  HTK and the ctypes
+loader of the native pfile library are not ported yet."""
+
+from tpu_sednn_torch.io.wts import load_wts, save_wts
+from tpu_sednn_torch.io.norm import load_norm, save_norm, compute_norm
+from tpu_sednn_torch.io.pfile import (
+    PfileInfo,
+    read_pfile_info,
+    read_pfile_frames,
+    read_pfile_utterances,
+    write_pfile,
+)
+from tpu_sednn_torch.io.wav import read_wav, write_wav

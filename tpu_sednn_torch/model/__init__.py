@@ -1,0 +1,10 @@
+from tpu_sednn_torch.model.mlp import (
+    MLP,
+    ModelConfig,
+    init_params,
+    forward_eval,
+    fold_eval_params,
+    params_from_wts,
+    params_to_wts,
+)
+from tpu_sednn_torch.model.convert import params_from_jax, params_to_numpy

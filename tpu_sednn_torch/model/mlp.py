@@ -1,0 +1,183 @@
+"""Feed-forward regression DNN — counterpart of tpu_sednn/model/mlp.py.
+
+The `MLP` module keeps the JAX package's weight layout: W[l] is (n_in, n_out)
+and a layer is `y = x @ W + b` on row-major batches (not nn.Linear's
+transposed layout), so `.wts` interop and the JAX pytree are straight copies.
+
+Ported for serving: `ModelConfig`, `init_params` (uniform / fanin / glorot
+from a torch.Generator), `forward_eval` (parity keep-prob weight scaling),
+`fold_eval_params`, `params_from_wts`, `params_to_wts`.  The training
+forward with dropout masks and the rand48 parity init come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from tpu_sednn_torch._device import resolve_device
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    layersizes: Tuple[int, ...] = (1548, 2048, 2048, 2048, 129)
+    hidden: str = "relu"  # "relu" | "sigmoid"
+    output: str = "linear"  # "linear" | "sigmoid" (mask head) | "softmax"
+    dropout_vis: float = 0.0  # visible_omit
+    dropout_hid: float = 0.0  # hid_omit
+    dropout_mode: str = "parity"  # "parity" | "inverted"
+    # carried over from the JAX package, where "default" selects bf16-input
+    # TPU matmuls; the port serves in float32 and reads neither field yet
+    precision: str = "default"
+    dropout_rng: str = "threefry"
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layersizes)
+
+    @property
+    def use_dropout(self) -> bool:
+        return self.dropout_vis > 0.0 or self.dropout_hid > 0.0
+
+    def with_dropout(self, vis: float, hid: float, mode: str = "parity") -> "ModelConfig":
+        return replace(self, dropout_vis=vis, dropout_hid=hid, dropout_mode=mode)
+
+
+class MLP(nn.Module):
+    """Weights w[l] (n_in, n_out) and biases b[l] (n_out,), float32."""
+
+    def __init__(self, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]):
+        super().__init__()
+        if len(weights) != len(biases):
+            raise ValueError("weights and biases must have the same number of layers")
+        for l, (w, b) in enumerate(zip(weights, biases)):
+            if w.dim() != 2 or b.shape != (w.shape[1],):
+                raise ValueError(f"layer {l}: shape mismatch {tuple(w.shape)} vs {tuple(b.shape)}")
+        self.w = nn.ParameterList(nn.Parameter(w.float(), requires_grad=False) for w in weights)
+        self.b = nn.ParameterList(nn.Parameter(b.float(), requires_grad=False) for b in biases)
+
+    @property
+    def layersizes(self) -> Tuple[int, ...]:
+        return (self.w[0].shape[0],) + tuple(w.shape[1] for w in self.w)
+
+    @property
+    def device(self) -> torch.device:
+        return self.w[0].device
+
+    def on(self, device: torch.device) -> "MLP":
+        """self if already on `device`, else a copy there (self is untouched)."""
+        if self.device == torch.device(device):
+            return self
+        return MLP([w.to(device) for w in self.w], [b.to(device) for b in self.b])
+
+    def forward(self, x: torch.Tensor, cfg: "ModelConfig") -> torch.Tensor:
+        return forward_eval(self, x, cfg)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "relu":
+        return torch.relu(x)
+    if name == "sigmoid":
+        return torch.sigmoid(x)
+    if name == "softmax":
+        return torch.softmax(x, dim=-1)
+    if name == "linear":
+        return x
+    raise ValueError(f"unknown activation {name}")
+
+
+def init_params(
+    generator: torch.Generator,
+    cfg: ModelConfig,
+    scheme: str = "glorot",
+    beta: float = 1.0,
+    w_range: Tuple[float, float] = (-0.1, 0.1),
+    b_range: Tuple[float, float] = (0.0, 0.0),
+    device: str | torch.device = "cuda",
+) -> MLP:
+    """Random init, drawn on the host from `generator` (so a seed gives the
+    same weights on every device), then moved to `device`.
+
+    scheme:
+      "uniform"  — U[w_range] for weights, U[b_range] for biases
+      "fanin"    — U(±beta/sqrt(n_in)), zero bias
+      "glorot"   — U(±beta*sqrt(6)/sqrt(n_in+n_out)), zero bias
+    """
+    dev = resolve_device(device)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=generator, dtype=torch.float32) * (hi - lo) + lo
+
+    ws: List[torch.Tensor] = []
+    bs: List[torch.Tensor] = []
+    sizes = cfg.layersizes
+    for i in range(1, len(sizes)):
+        n_in, n_out = sizes[i - 1], sizes[i]
+        if scheme == "uniform":
+            w = uniform((n_in, n_out), *w_range)
+            b = uniform((n_out,), *b_range)
+        elif scheme in ("fanin", "glorot"):
+            r = beta / np.sqrt(n_in) if scheme == "fanin" else beta * np.sqrt(6.0) / np.sqrt(n_in + n_out)
+            w = uniform((n_in, n_out), -r, r)
+            b = torch.zeros((n_out,), dtype=torch.float32)
+        else:
+            raise ValueError(f"unknown init scheme {scheme}")
+        ws.append(w.to(dev))
+        bs.append(b.to(dev))
+    return MLP(ws, bs)
+
+
+def _keep_probs(cfg: ModelConfig, n_layers: int) -> List[float]:
+    """Per-layer input keep-prob of parity dropout (1.0 when off)."""
+    if not (cfg.use_dropout and cfg.dropout_mode == "parity"):
+        return [1.0] * n_layers
+    return [1.0 - (cfg.dropout_vis if l == 0 else cfg.dropout_hid) for l in range(n_layers)]
+
+
+@torch.no_grad()
+def forward_eval(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Inference forward; (..., n_in) -> (..., n_out).
+
+    parity dropout mode: every layer's weights scaled by its input keep-prob
+    (layer 0 by 1-visible_omit, all others by 1-hid_omit), as the reference's
+    cv_bunch_single does; inverted mode needs no compensation.
+    """
+    n_layers = len(params.w)
+    h = x
+    for l, (w, b, keep) in enumerate(zip(params.w, params.b, _keep_probs(cfg, n_layers))):
+        if keep != 1.0:
+            w = w * keep
+        h = torch.matmul(h, w) + b
+        h = _act(cfg.hidden if l < n_layers - 1 else cfg.output, h)
+    return h
+
+
+def fold_eval_params(params: MLP, cfg: ModelConfig) -> Tuple[MLP, ModelConfig]:
+    """Fold the parity-mode inference compensation into the weights ONCE.
+
+    -> (params with W[l] * keep[l], cfg without dropout): numerically the
+    same forward_eval output, without rescaling the weights on every call.
+    """
+    keeps = _keep_probs(cfg, len(params.w))
+    if any(k != 1.0 for k in keeps):
+        params = MLP([w * k for w, k in zip(params.w, keeps)], list(params.b))
+    return params, replace(cfg, dropout_vis=0.0, dropout_hid=0.0)
+
+
+def params_from_wts(weights: Sequence[np.ndarray], biases: Sequence[np.ndarray],
+                    device: str | torch.device = "cuda") -> MLP:
+    """(weights, biases) as io.load_wts returns them -> MLP on `device`,
+    copied element for element."""
+    dev = resolve_device(device)
+    return MLP([torch.tensor(np.asarray(w, np.float32), device=dev) for w in weights],
+               [torch.tensor(np.asarray(b, np.float32), device=dev) for b in biases])
+
+
+def params_to_wts(params: MLP) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    return ([w.detach().cpu().numpy().astype(np.float32) for w in params.w],
+            [b.detach().cpu().numpy().astype(np.float32) for b in params.b])
