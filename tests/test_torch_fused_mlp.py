@@ -1,0 +1,230 @@
+"""The fused layer kernels' plain versions (what the wrappers run on CPU
+tensors) against the Pallas kernels of tpu_sednn.ops.fused_mlp in interpret
+mode with bf16=False, as tests/test_pallas_ops.py runs them: rtol/atol 1e-5
+(float32 sums in another order).  Also ops/train_step.py's per-bunch step
+against the JAX package's, and the source hashing of ops/_build.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpu_sednn.model as jm
+import tpu_sednn.ops.fused_mlp as jfm
+import tpu_sednn.ops.train_step as jts
+from tpu_sednn.train.step import OptConfig as JOpt, init_train_state as j_init
+import tpu_sednn_torch.model as tm
+import tpu_sednn_torch.ops.fused_mlp as tfm
+import tpu_sednn_torch.ops.train_step as tts
+from tpu_sednn_torch.ops import _build
+from tpu_sednn_torch.ops.philox import philox_mask
+from tpu_sednn_torch.train.step import OptConfig, init_train_state, reference_train_chunk
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ["linear", "relu", "sigmoid"])
+@pytest.mark.parametrize("shape", [(16, 256, 384), (8, 128, 128)])
+def test_fused_linear_act_matches_pallas(act, shape):
+    B, K, N = shape
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((B, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    want = jfm.fused_linear_act(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act=act,
+                                block_n=128, interpret=True, bf16=False)
+    args = [torch.from_numpy(a) for a in (x, w, b)]
+    before = tfm.fused_linear_act.launches
+    got = tfm.fused_linear_act(*args, act=act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert torch.equal(got, tfm.fused_linear_act_reference(*args, act=act))
+    np.testing.assert_allclose(tfm.fused_linear_act_reference(*args, act=act, dtype=torch.float64)
+                               .numpy(), np.asarray(want), **TOL)
+    assert tfm.fused_linear_act.launches == before  # a CPU tensor launches no kernel
+
+
+@pytest.mark.parametrize("shape", [(16, 100, 37), (8, 1548 // 4, 129)])  # the port pads nothing
+def test_fused_linear_act_unaligned_matches_jax(shape):
+    B, K, N = shape
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((B, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    want = jfm.fused_linear_act(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act="relu",
+                                interpret=True, bf16=False)
+    got = tfm.fused_linear_act(*(torch.from_numpy(a) for a in (x, w, b)), act="relu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_fused_linear_act_masks():
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((16, 40)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((40, 24)) * 0.1).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(24).astype(np.float32))
+    im, om = philox_mask(3, 16, 40, 0.1), philox_mask(4, 16, 24, 0.2)
+    want = torch.relu((x * im / 0.9) @ w + b) * om
+    # an explicit 0/1 tensor and the (key, omit) spec of the same stream agree
+    for kw in (dict(in_mask=im, out_mask=om), dict(in_mask=(3, 0.1), out_mask=(4, 0.2))):
+        got = tfm.fused_linear_act(x, w, b, "relu", in_scale=1 / 0.9, **kw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):
+        tfm.fused_linear_act(x, w, b, "tanh")
+    with pytest.raises(ValueError):
+        tfm.fused_linear_act(x, w.T.contiguous(), b)
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 384), (8, 128, 256)])
+def test_fused_bwd_update_matches_pallas(shape):
+    B, K, N = shape
+    rng = np.random.default_rng(2)
+    arrs = dict(dedx=rng.standard_normal((B, N)), yprev=rng.standard_normal((B, K)),
+                w=rng.standard_normal((K, N)) * 0.05, delta=rng.standard_normal((K, N)) * 0.01,
+                b=rng.standard_normal(N) * 0.1, db=rng.standard_normal(N) * 0.01)
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    m, lr, inv_n, wc = 0.7, 0.4, 1.0 / B, 1e-3
+    want = jfm.fused_bwd_update(*(jnp.asarray(arrs[k]) for k in ("dedx", "yprev", "w", "delta", "b", "db")),
+                                jnp.float32(m), jnp.float32(lr), jnp.float32(inv_n), jnp.float32(wc),
+                                block_k=128, block_n=128, interpret=True, bf16=False)
+    t = {k: torch.from_numpy(v.copy()) for k, v in arrs.items()}
+    pure = tfm.fused_bwd_update_reference(t["dedx"], t["yprev"], t["w"], t["delta"], t["b"], t["db"],
+                                          m, lr, inv_n, wc)
+    np.testing.assert_array_equal(t["w"].numpy(), arrs["w"])  # the plain version is pure
+    got = tfm.fused_bwd_update(t["dedx"], t["yprev"], t["w"], t["delta"], t["b"], t["db"],
+                               m, lr, inv_n, wc)
+    # the wrapper updates W, delta, b, delta_b in place and hands them back
+    assert got[0] is t["w"] and got[1] is t["delta"] and got[3] is t["b"] and got[4] is t["db"]
+    for g, p, wnt in zip(got, pure, want):
+        assert torch.equal(g, p)
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
+    # dedy uses W before the update
+    np.testing.assert_allclose(got[2].numpy(), arrs["dedx"] @ arrs["w"].T, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("deriv", ["relu", "sigmoid"])
+def test_fused_bwd_update_derivative_and_mask_options(deriv):
+    rng = np.random.default_rng(3)
+    B, K, N = 8, 20, 12
+    dedx = torch.from_numpy(rng.standard_normal((B, N)).astype(np.float32))
+    y = torch.from_numpy(rng.random((B, K)).astype(np.float32)) * philox_mask(5, B, K, 0.3)
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    zeros = lambda *s: torch.zeros(*s)  # noqa: E731
+    plain = tfm.fused_bwd_update_reference(dedx, y, w, zeros(K, N), zeros(N), zeros(N),
+                                           0.5, 1.0, 1 / B, 0.0)
+    fused = tfm.fused_bwd_update_reference(dedx, y, w, zeros(K, N), zeros(N), zeros(N),
+                                           0.5, 1.0, 1 / B, 0.0, deriv=deriv)
+    want = torch.where(y > 0, plain[2], torch.zeros(())) if deriv == "relu" else y * (1 - y) * plain[2]
+    np.testing.assert_allclose(fused[2].numpy(), want.numpy(), rtol=1e-6, atol=1e-7)
+    # in_mask masks y_prev on load: same as handing in the masked y_prev
+    raw = torch.from_numpy(rng.random((B, K)).astype(np.float32))
+    a = tfm.fused_bwd_update_reference(dedx, raw, w, zeros(K, N), zeros(N), zeros(N), 0.5, 1.0,
+                                       1 / B, 0.0, in_mask=(5, 0.3), in_scale=2.0)
+    b = tfm.fused_bwd_update_reference(dedx, raw * philox_mask(5, B, K, 0.3) * 2.0, w, zeros(K, N),
+                                       zeros(N), zeros(N), 0.5, 1.0, 1 / B, 0.0)
+    for u, v in zip(a, b):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError):
+        tfm.fused_bwd_update(dedx, y, w.clone(), zeros(K, N), zeros(N), zeros(N), 0.5, 1.0, 1 / B,
+                             0.0, in_mask=(5, 0.3), deriv=deriv)
+    with pytest.raises(TypeError):
+        tfm.fused_bwd_update(dedx.double(), y, w.clone(), zeros(K, N), zeros(N), zeros(N), 0.5, 1.0,
+                             1 / B, 0.0)
+
+
+def _params(sizes, seed=0):
+    p = jm.init_params(jax.random.key(seed), jm.ModelConfig(layersizes=sizes), "glorot")
+    return p, {"w": tuple(np.asarray(w) for w in p["w"]), "b": tuple(np.asarray(b) for b in p["b"])}
+
+
+@pytest.mark.parametrize("hidden,output", [("relu", "linear"), ("sigmoid", "sigmoid")])
+def test_fused_step_matches_pallas_step(hidden, output):
+    sizes = (128, 256, 256, 128)
+    jcfg = jm.ModelConfig(layersizes=sizes, hidden=hidden, output=output)
+    tcfg = tm.ModelConfig(layersizes=sizes, hidden=hidden, output=output)
+    opt = dict(lrate=0.5, momentum=0.6, weightcost=1e-4, bunchsize=16)
+    p, pn = _params(sizes)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((16, sizes[0])).astype(np.float32)
+    t = rng.standard_normal((16, sizes[-1])).astype(np.float32)
+    jst = jts.pallas_train_step(j_init(p), jnp.asarray(x), jnp.asarray(t), jcfg, JOpt(**opt),
+                                interpret=True, bf16=False)
+    st0 = init_train_state(tm.params_from_jax(pn, device="cpu"))
+    st = tts.pallas_train_step(st0, torch.from_numpy(x), torch.from_numpy(t), tcfg, OptConfig(**opt))
+    assert st is st0 and st.step == 1 and tts.pallas_train_step is tts.fused_train_step
+    for l in range(len(sizes) - 1):
+        np.testing.assert_allclose(st.params.w[l].numpy(), np.asarray(jst.params["w"][l]),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(st.deltas.b[l].numpy(), np.asarray(jst.deltas["b"][l]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("hidden,output", [("relu", "linear"), ("sigmoid", "linear"),
+                                           ("relu", "sigmoid")])
+def test_fused_chunk_unaligned_sizes_match_pallas_chunk(hidden, output):
+    sizes = (132, 256, 60)  # the JAX package zero-pads these; the port takes them as they are
+    jcfg = jm.ModelConfig(layersizes=sizes, hidden=hidden, output=output)
+    tcfg = tm.ModelConfig(layersizes=sizes, hidden=hidden, output=output)
+    opt = dict(lrate=0.5, momentum=0.5, weightcost=0.0, bunchsize=16)
+    p, pn = _params(sizes)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((52, sizes[0])).astype(np.float32)
+    t = rng.standard_normal((52, sizes[-1])).astype(np.float32)
+    jst = jts.make_pallas_train_chunk(jcfg, JOpt(**opt), interpret=True, bf16=False)(
+        j_init(p), jnp.asarray(x), jnp.asarray(t), jax.random.key(1))
+    st = tts.make_pallas_train_chunk(tcfg, OptConfig(**opt))(
+        init_train_state(tm.params_from_jax(pn, device="cpu")), torch.from_numpy(x),
+        torch.from_numpy(t), None)
+    assert st.step == int(jst.step) == 3
+    for l in range(len(sizes) - 1):
+        np.testing.assert_allclose(st.params.w[l].numpy(), np.asarray(jst.params["w"][l]),
+                                   rtol=2e-5, atol=2e-6)
+        np.testing.assert_allclose(st.params.b[l].numpy(), np.asarray(jst.params["b"][l]),
+                                   rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("mode", ["parity", "inverted"])
+def test_fused_step_with_dropout_matches_plain_step(mode):
+    """In parity mode the fused step is the plain step.  In inverted mode the
+    fused step, like the TPU chunk kernel, takes the derivative on the stored
+    masked-and-scaled activation and so leaves 1/(1-omit) out of the
+    backward: it equals the plain step only where no hidden mask scales."""
+    sizes = (39, 64, 64, 13)
+    hid = 0.2 if mode == "parity" else 0.0
+    tcfg = tm.ModelConfig(layersizes=sizes, dropout_vis=0.1, dropout_hid=hid, dropout_mode=mode)
+    opt = OptConfig(lrate=0.5, momentum=0.6, weightcost=1e-4, bunchsize=16)
+    _, pn = _params(sizes)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((32, sizes[0])).astype(np.float32))
+    t = torch.from_numpy(rng.standard_normal((32, sizes[-1])).astype(np.float32))
+    masks = [[philox_mask(10 * i + l, 16, sizes[l], 0.1 if l == 0 else 0.2) for l in range(3)]
+             for i in range(2)]
+    a = init_train_state(tm.params_from_jax(pn, device="cpu"))
+    for i in range(2):
+        tts.fused_train_step(a, x[16 * i:16 * i + 16], t[16 * i:16 * i + 16], tcfg, opt,
+                             dropout_masks=masks[i])
+    b = reference_train_chunk(init_train_state(tm.params_from_jax(pn, device="cpu")), x, t, tcfg,
+                              opt, dropout_masks=masks)
+    for u, v in zip(list(a.params.w) + list(a.deltas.b), list(b.params.w) + list(b.deltas.b)):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=2e-5, atol=2e-6)
+    with pytest.raises(ValueError, match="generator or explicit masks"):
+        tts.fused_train_step(a, x[:16], t[:16], tcfg, opt)
+
+
+def test_kernel_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    names = {p.name for p in _build.source_files("resident_chunk")}
+    assert names == {"resident_chunk.cu", "fused_mlp.cuh", "philox.cuh"}
+    assert {p.name for p in _build.source_files("fused_mlp")} == {"fused_mlp.cu", "fused_mlp.cuh",
+                                                                  "philox.cuh"}
+    assert [p.name for p in _build.source_files("stft_lps")] == ["stft_lps.cu"]
+    # editing a header alone moves every library that includes it, and no other
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _build.SRC_DIR.iterdir():
+        (src / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    before = {n: _build.library_path(n).name for n in ("stft_lps", "fused_mlp", "resident_chunk")}
+    (src / "philox.cuh").write_text((src / "philox.cuh").read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n).name for n in before}
+    assert after["stft_lps"] == before["stft_lps"]
+    assert after["fused_mlp"] != before["fused_mlp"]
+    assert after["resident_chunk"] != before["resident_chunk"]

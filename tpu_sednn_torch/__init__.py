@@ -7,10 +7,16 @@ with nvcc for sm_90a on first use (`ops/_build.py`).
 
 Subpackages ported so far
 -------------------------
-io        byte-exact codecs: wav, .norm, .wts, pfile
+config    TrainFlags: the key=value flags of the training command
+cli       `python -m tpu_sednn_torch.cli key=value ...`: one epoch + CV over pfiles
+io        byte-exact codecs: wav, .norm, .wts, pfile; loader of the native host library
+data      rand48, chunk planning and reading, on-device splice, prefetch
 dsp       framing, rDFT/irDFT, log-power spectrum, overlap-add ISTFT
 ops       hand-written Hopper kernels, their wrappers and plain versions
-model     MLP (JAX weight layout), init, eval forward, .wts interop
+model     MLP (JAX weight layout), init, train and eval forward, .wts interop
+train     plain torch train/CV steps, the epoch loop and its chunk engines
+recipes   the fine-tune recipe (momentum schedule, warm start per epoch)
+utils     Logger
 enhance   offline/batched decode and the `python -m tpu_sednn_torch.enhance` CLI
 tools     make_pfile (wav -> LPS pfile featurizer on the STFT kernel)
 

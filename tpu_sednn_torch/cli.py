@@ -1,0 +1,113 @@
+"""`python -m tpu_sednn_torch.cli key=value ...` — the BPtrain-compatible trainer,
+the port of `python -m tpu_sednn.cli`.
+
+One invocation = one epoch over the pfiles + a CV pass, exactly like the
+reference's BPtrain.cc:16-97: same flags, same file formats, same log
+lines — so the reference's Perl recipes port by swapping the executable.
+One key more: `device=cuda|cpu` (default cuda: the epoch runs on the card,
+with `engine=auto` on the hand-written CUDA chunk trainer, and raises when
+there is no card; `device=cpu` runs the plain torch trainer).
+
+NAT semantics: layersizes[0] == fea_dim*fea_context + fea_dim is enforced as
+in the reference (Interface.cc:395-399); dropoutflag gates parity dropout.
+
+If the environment variable TPU_SEDNN_TORCH_LAUNCH_REPORT names a file, the
+command writes the port's kernel launch counters there as JSON when it ends
+(`ops.launch_counts()`), so a caller can see which engine ran.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+from tpu_sednn_torch._device import resolve_device
+from tpu_sednn_torch.config import TrainFlags
+from tpu_sednn_torch.data.rand48 import Rand48
+from tpu_sednn_torch.io.wts import load_wts, save_wts
+from tpu_sednn_torch.model.mlp import ModelConfig, init_params_parity, params_from_wts, params_to_wts
+from tpu_sednn_torch.train.loop import train_epoch_pfile
+from tpu_sednn_torch.train.step import OptConfig, init_train_state
+from tpu_sednn_torch.utils.logging import Logger
+
+
+def run_epoch(flags: TrainFlags, logger: Logger | None = None) -> float:
+    """Returns the CV MSE (the scalar the recipe scrapes from the log)."""
+    flags.validate()
+    dev = resolve_device(flags.device)
+    log = logger or Logger(log_path=flags.log_file or None)
+    log.info(flags.echo())
+
+    cfg = ModelConfig(
+        layersizes=flags.layersizes,
+        hidden="relu",
+        output="linear",
+        dropout_vis=flags.visible_omit if flags.dropoutflag else 0.0,
+        dropout_hid=flags.hid_omit if flags.dropoutflag else 0.0,
+        dropout_mode="parity",
+    )
+    opt = OptConfig(
+        lrate=flags.lrate, momentum=flags.momentum,
+        weightcost=flags.weightcost, bunchsize=flags.bunchsize,
+    )
+
+    # srand48(seed) once; weight init consumes the stream first, then shuffles
+    # (Interface.cc:337-350) — reproduced via the same Rand48 instance.
+    rand = Rand48(flags.init_randem_seed)
+    if flags.initwts_file:
+        ws, bs = load_wts(flags.initwts_file, layersizes=list(flags.layersizes))
+        params = params_from_wts(ws, bs, device=dev)
+        log.info("Init weight file loaded.")
+    else:
+        log.info("Getting Randemed initial weights...")
+        params = init_params_parity(
+            rand, cfg,
+            flags.init_randem_weight_min, flags.init_randem_weight_max,
+            flags.init_randem_bias_min, flags.init_randem_bias_max,
+            device=dev,
+        )
+    state = init_train_state(params)
+
+    state, result = train_epoch_pfile(
+        state, cfg, opt,
+        fea_file=flags.fea_file, targ_file=flags.targ_file, norm_file=flags.norm_file,
+        fea_dim=flags.fea_dim, fea_context=flags.fea_context,
+        targ_offset=flags.targ_offset,
+        train_sent_range=flags.sent_range("train"),
+        cv_sent_range=flags.sent_range("cv"),
+        traincache=flags.traincache,
+        seed=flags.init_randem_seed,
+        nat=True,
+        logger=log,
+        rand=rand,
+        n_data_shards=flags.gpu_used,
+        engine=flags.engine,
+        cv_dump_path=flags.cv_out_file or None,
+        device_splice=None if flags.device_splice < 0 else bool(flags.device_splice),
+    )
+
+    if flags.outwts_file:
+        ws, bs = params_to_wts(state.params)
+        save_wts(flags.outwts_file, ws, bs,
+                 debug_txt=flags.weights_txt or None)
+        log.info("Saving over.")
+    return result.cv_mse
+
+
+def main(argv=None) -> int:
+    argv = argv if argv is not None else sys.argv[1:]
+    flags = TrainFlags.from_argv(argv)
+    run_epoch(flags)
+    report = os.environ.get("TPU_SEDNN_TORCH_LAUNCH_REPORT")
+    if report:
+        from tpu_sednn_torch.ops import launch_counts
+
+        with open(report, "w") as f:
+            json.dump(launch_counts(), f)
+    print("all finish!")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,493 @@
+// Device code of the fused MLP layer kernels for Hopper (sm_90a), shared by
+// fused_mlp.cu (kernels 1 and 2 on their own) and resident_chunk.cu (the
+// whole-chunk trainer, which enqueues the same kernels bunch after bunch).
+//
+// Replaces tpu_sednn/ops/fused_mlp.py:_fwd_kernel (fused_linear_act) and
+// :_bwd_kernel (fused_bwd_update), and the per-bunch body of
+// tpu_sednn/ops/resident_chunk.py:_resident_kernel.
+//
+// Bound.  A float32 layer at bunch 128 does 2*128*K*N FLOP per product (one
+// in the forward, two in the backward) against one pass over W in the
+// forward and one read + one write of W and of Delta in the backward:
+// 4*K*N bytes forward (64 FLOP/byte), 16*K*N bytes backward (32 FLOP/byte).
+// An H100 balances at 67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte in float32
+// without tensor cores, so both are operations-bound, narrowly; a TF32 or
+// bf16 tensor-core mode would be bytes-bound.  All products here are
+// float32 FMAs on shared-memory tiles (no tensor cores: they would change
+// the numerics the parity tests hold).
+//
+// What the design keeps out of device memory: no gradient matrix is ever
+// written (a block forms its G tile in registers and applies the momentum
+// update to the W and Delta tiles it owns, reading and writing each once);
+// bias, activation, the next layer's dropout mask and the output layer's
+// dedx are epilogues of the forward product; the activation derivative is
+// the epilogue of the dedy reduction.
+//
+// At a bunch of 128 the card is short of blocks, not of arithmetic: the
+// forward splits K over the grid (see fwd_k_chunk) and prefetches the next
+// tile into registers; measured times beside the bound are in PERF.md.
+//
+// Blocks of a grid run in no order, so the TPU kernel's accumulation of dedy
+// over a sequential grid axis becomes: each block writes its partial
+// dedx[:, n-tile] @ W_tile^T (formed from the W tile it loaded, so "W before
+// the update" holds by construction) to a scratch (n_tiles, M, K), and a
+// second small kernel sums the partials in a fixed order (deterministic; no
+// float atomics).
+//
+// True sizes throughout: K = 1548 and N = 129 are masked at the edges by the
+// kernels (16-byte loads where the row stride allows, scalar otherwise), so
+// nothing is padded to the TPU's 128-tiles.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace sednn {
+
+enum Act { kLinear = 0, kRelu = 1, kSigmoid = 2 };
+
+__device__ inline float4 ld4(const float* __restrict__ p, int row, int col, int ld, int nrows,
+                             int ncols, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row < nrows && col < ncols) {
+    const float* q = p + (long long)row * ld + col;
+    if (vec && col + 3 < ncols) {
+      v = *reinterpret_cast<const float4*>(q);
+    } else {
+      v.x = q[0];
+      if (col + 1 < ncols) v.y = q[1];
+      if (col + 2 < ncols) v.z = q[2];
+      if (col + 3 < ncols) v.w = q[3];
+    }
+  }
+  return v;
+}
+
+__device__ inline void st4(float* __restrict__ p, int row, int col, int ld, int nrows, int ncols,
+                           bool vec, float4 v) {
+  if (row < nrows && col < ncols) {
+    float* q = p + (long long)row * ld + col;
+    if (vec && col + 3 < ncols) {
+      *reinterpret_cast<float4*>(q) = v;
+    } else {
+      q[0] = v.x;
+      if (col + 1 < ncols) q[1] = v.y;
+      if (col + 2 < ncols) q[2] = v.z;
+      if (col + 3 < ncols) q[3] = v.w;
+    }
+  }
+}
+
+inline bool vec_ok(const void* p, int ld) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && ld % 4 == 0;
+}
+
+__device__ inline float act_fn(int act, float z) {
+  if (act == kRelu) return fmaxf(z, 0.0f);
+  if (act == kSigmoid) return 1.0f / (1.0f + expf(-z));
+  return z;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 1: y = act(x @ W + b), optional masks and the output layer's dedx.
+//   x (M, K) row stride K, masked on load by in_mask (the dropout of the
+//   net's input); W (K, N); y (M, N) = act(.) * out_mask (the dropout of the
+//   NEXT layer's input, so the stored activation is the masked one the
+//   backward needs).  If targ != nullptr also
+//   dedx = coef * (y - targ) [* y * (1 - y) for a sigmoid head].
+// One block: a 32 x 64 tile of y, 128 threads, 4 x 4 outputs a thread, K in
+// steps of 32 with the next step's loads in flight.  At a bunch of 128 the
+// tiles alone are too few blocks (128 for a 2048-wide layer, 12 for the
+// 129-wide one), so K is split over the grid as well (fwd_k_chunk): each
+// block then writes its partial sums to a scratch (chunks, M, N) and
+// fwd_sum_kernel adds them in chunk order and does the epilogue.
+// ---------------------------------------------------------------------------
+
+// What follows the product: bias, activation, the next layer's mask, and the
+// output layer's dedx.  Shared by fwd_kernel (K not split) and fwd_sum_kernel.
+struct FwdEpilogue {
+  const float* b;
+  float* y;
+  int M, N, act;
+  MaskSpec out_mask;
+  const float* targ;
+  float* dedx;
+  float coef;
+  bool vec_y, vec_t;
+};
+
+// s[0..3]: the products' sums for columns col..col+3 (col a multiple of 4) of `row`.
+__device__ inline void fwd_epilogue4(const FwdEpilogue& e, int row, int col, const float s[4]) {
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = act_fn(e.act, s[j] + (col + j < e.N ? e.b[col + j] : 0.0f));
+  if (e.out_mask.mode != 0) {
+    float mk[4];
+    mask4(e.out_mask, row, col, e.N, mk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] *= mk[j];
+  }
+  st4(e.y, row, col, e.N, e.M, e.N, e.vec_y, make_float4(v[0], v[1], v[2], v[3]));
+  if (e.targ != nullptr) {
+    const float4 tv = ld4(e.targ, row, col, e.N, e.M, e.N, e.vec_t);
+    const float tr[4] = {tv.x, tv.y, tv.z, tv.w};
+    float g[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      g[j] = e.coef * (v[j] - tr[j]);
+      if (e.act == kSigmoid) g[j] = g[j] * v[j] * (1.0f - v[j]);
+    }
+    st4(e.dedx, row, col, e.N, e.M, e.N, e.vec_y, make_float4(g[0], g[1], g[2], g[3]));
+  }
+}
+
+constexpr int kFwdBM = 32, kFwdBN = 64, kFwdBK = 32, kFwdThreads = 128;
+constexpr int kFwdALoads = kFwdBM * kFwdBK / 4 / kFwdThreads;  // float4 per thread and tile: 2
+constexpr int kFwdWLoads = kFwdBK * kFwdBN / 4 / kFwdThreads;  // 4
+
+__global__ void __launch_bounds__(kFwdThreads)
+fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int M, int K, int N,
+           MaskSpec in_mask, FwdEpilogue epi, float* __restrict__ part, int k_chunk, bool vec_x,
+           bool vec_w, bool vec_p) {
+  __shared__ __align__(16) float As[kFwdBK][kFwdBM + 4];  // x tile, transposed
+  __shared__ __align__(16) float Bs[kFwdBK][kFwdBN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kFwdBM, n0 = blockIdx.x * kFwdBN;
+  const int tm = tid / 16, tn = tid % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  // The next tile's x and W are loaded into registers while the current one
+  // is multiplied: with one block of four warps on an SM nothing else hides
+  // the latency of device memory.
+  float4 a_reg[kFwdALoads], w_reg[kFwdWLoads];
+  float a_mask[kFwdALoads][4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < kFwdALoads; ++r) {
+      const int idx = tid + r * kFwdThreads;
+      const int row = m0 + idx / (kFwdBK / 4), kk = k0 + (idx % (kFwdBK / 4)) * 4;
+      a_reg[r] = ld4(x, row, kk, K, M, K, vec_x);
+      if (in_mask.mode != 0) {
+        if (row < M && kk < K) {
+          mask4(in_mask, row, kk, K, a_mask[r]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a_mask[r][j] = 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kFwdWLoads; ++r) {
+      const int idx = tid + r * kFwdThreads;
+      w_reg[r] = ld4(w, k0 + idx / 16, n0 + (idx % 16) * 4, N, K, N, vec_w);
+    }
+  };
+  // this block's share of K: all of it, or chunk blockIdx.z when K is split
+  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
+  fetch(k_begin);
+  for (int k0 = k_begin; k0 < k_end; k0 += kFwdBK) {
+#pragma unroll
+    for (int r = 0; r < kFwdALoads; ++r) {
+      const int idx = tid + r * kFwdThreads;
+      const int ar = idx / (kFwdBK / 4), ak = (idx % (kFwdBK / 4)) * 4;
+      float4 a = a_reg[r];
+      if (in_mask.mode != 0) {
+        a.x *= a_mask[r][0]; a.y *= a_mask[r][1]; a.z *= a_mask[r][2]; a.w *= a_mask[r][3];
+      }
+      As[ak + 0][ar] = a.x;
+      As[ak + 1][ar] = a.y;
+      As[ak + 2][ar] = a.z;
+      As[ak + 3][ar] = a.w;
+    }
+#pragma unroll
+    for (int r = 0; r < kFwdWLoads; ++r) {
+      const int idx = tid + r * kFwdThreads;
+      *reinterpret_cast<float4*>(&Bs[idx / 16][(idx % 16) * 4]) = w_reg[r];
+    }
+    __syncthreads();
+    if (k0 + kFwdBK < k_end) fetch(k0 + kFwdBK);
+#pragma unroll
+    for (int k = 0; k < kFwdBK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[k][tm * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tn * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const int col = n0 + tn * 4;
+  if (col >= N) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + tm * 4 + i;
+    if (row >= M) continue;
+    if (part == nullptr) {
+      fwd_epilogue4(epi, row, col, acc[i]);
+    } else {
+      st4(part + (long long)blockIdx.z * M * N, row, col, N, M, N, vec_p,
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    }
+  }
+}
+
+// Adds the K-chunks' partial sums in chunk order, then the epilogue.
+__global__ void __launch_bounds__(256)
+fwd_sum_kernel(const float* __restrict__ part, int n_chunks, FwdEpilogue epi, bool vec_p) {
+  const int c4 = (epi.N + 3) / 4;
+  const long long n = (long long)epi.M * c4, stride = (long long)epi.M * epi.N;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int row = (int)(i / c4), col = (int)(i % c4) * 4;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int z = 0; z < n_chunks; ++z) {
+      const float4 p = ld4(part + z * stride, row, col, epi.N, epi.M, epi.N, vec_p);
+      s[0] += p.x; s[1] += p.y; s[2] += p.z; s[3] += p.w;
+    }
+    fwd_epilogue4(epi, row, col, s);
+  }
+}
+
+// How K is split over the grid: enough blocks to put about four on each of
+// the card's SMs (one block walks its K range with four warps, too few to
+// keep an SM's arithmetic busy), in chunks that are multiples of the K step.
+// A function of the shape alone.  -> the chunk length; *n_chunks the count.
+inline int fwd_k_chunk(int M, int K, int N, int* n_chunks) {
+  const int tiles = ((N + kFwdBN - 1) / kFwdBN) * ((M + kFwdBM - 1) / kFwdBM);
+  int want = (4 * 132 + tiles - 1) / tiles;
+  want = want < 1 ? 1 : (want > 16 ? 16 : want);
+  int chunk = ((K + want - 1) / want + kFwdBK - 1) / kFwdBK * kFwdBK;
+  if (chunk < kFwdBK) chunk = kFwdBK;
+  *n_chunks = K > 0 ? (K + chunk - 1) / chunk : 1;
+  return chunk;
+}
+
+// Scratch floats launch_fwd needs in `part` (0 when K is not split).
+inline long long fwd_scratch_floats(int M, int K, int N) {
+  int n_chunks;
+  fwd_k_chunk(M, K, N, &n_chunks);
+  return n_chunks > 1 ? (long long)n_chunks * M * N : 0;
+}
+
+inline cudaError_t launch_fwd(const float* x, const float* w, const float* b, float* y, int M,
+                              int K, int N, int act, const MaskSpec& in_mask,
+                              const MaskSpec& out_mask, const float* targ, float* dedx,
+                              float coef, float* part, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  int n_chunks;
+  const int k_chunk = fwd_k_chunk(M, K, N, &n_chunks);
+  if (n_chunks > 1 && part == nullptr) return cudaErrorInvalidValue;
+  FwdEpilogue epi;
+  epi.b = b;
+  epi.y = y;
+  epi.M = M;
+  epi.N = N;
+  epi.act = act;
+  epi.out_mask = out_mask;
+  epi.targ = targ;
+  epi.dedx = dedx;
+  epi.coef = coef;
+  epi.vec_y = vec_ok(y, N) && (dedx == nullptr || vec_ok(dedx, N));
+  epi.vec_t = targ != nullptr && vec_ok(targ, N);
+  float* scratch = n_chunks > 1 ? part : nullptr;
+  dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM, n_chunks);
+  fwd_kernel<<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch, k_chunk,
+                                               vec_ok(x, K), vec_ok(w, N), vec_ok(scratch, N));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_chunks == 1) return err;
+  const long long n = (long long)M * ((N + 3) / 4);
+  const int blocks = (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048);
+  fwd_sum_kernel<<<blocks, 256, 0, stream>>>(scratch, n_chunks, epi, vec_ok(scratch, N));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: one layer's backward and in-place momentum update.
+//   dedx (M, N), yprev (M, K) (masked on load by in_mask: the net's input),
+//   W, Delta (K, N), b, db (N,), scalars m, A, Bc:
+//     G      = yprev^T @ dedx
+//     Delta' = m*Delta - (A*G + Bc*W),  W' = W + Delta'      (in place)
+//     gb     = sum_rows dedx;  db' = m*db - A*gb,  b' = b + db'   (k-tile 0)
+//     part[nt] = dedx[:, n-tile] @ W_tile^T   (M, K), if part != nullptr
+// One block owns a 64 x 64 tile of W and Delta, 256 threads; it walks the M
+// rows in chunks of 32.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdBK = 64, kBwdBN = 64, kBwdMC = 32, kBwdThreads = 256;
+constexpr int kBwdWLd = kBwdBN + 4;  // padded: the dedy product reads W rows 16 apart
+
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, MaskSpec in_mask,
+           float* __restrict__ w, float* __restrict__ delta, float* __restrict__ b,
+           float* __restrict__ db, float* __restrict__ part, int M, int K, int N, float mom,
+           float A, float Bc, bool vec_d, bool vec_y, bool vec_w) {
+  __shared__ __align__(16) float Ws[kBwdBK][kBwdWLd];
+  __shared__ __align__(16) float Ys[kBwdMC][kBwdBK];
+  __shared__ __align__(16) float Ds[kBwdMC][kBwdBN];
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBwdBN, k0 = blockIdx.y * kBwdBK;
+  const int tk = tid / 16, tn = tid % 16;  // G: rows tk*4.., cols tn*4..
+  const int pm = tid / 16, pk = tid % 16;  // partial: rows pm*2.., cols pk + 16*j
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int idx = tid + r * kBwdThreads;
+    const int wr = idx / 16, wc = (idx % 16) * 4;
+    *reinterpret_cast<float4*>(&Ws[wr][wc]) = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
+  }
+  float g[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g[i][j] = 0.0f;
+  float gb = 0.0f;
+
+  for (int mc = 0; mc < M; mc += kBwdMC) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int idx = tid + r * kBwdThreads;
+      const int rr = idx / 16, cc = (idx % 16) * 4;
+      float4 yv = ld4(yprev, mc + rr, k0 + cc, K, M, K, vec_y);
+      if (in_mask.mode != 0 && mc + rr < M && k0 + cc < K) {
+        float mk[4];
+        mask4(in_mask, mc + rr, k0 + cc, K, mk);
+        yv.x *= mk[0]; yv.y *= mk[1]; yv.z *= mk[2]; yv.w *= mk[3];
+      }
+      *reinterpret_cast<float4*>(&Ys[rr][cc]) = yv;
+      *reinterpret_cast<float4*>(&Ds[rr][cc]) = ld4(dedx, mc + rr, n0 + cc, N, M, N, vec_d);
+    }
+    __syncthreads();  // also orders the Ws stores before their first use
+
+#pragma unroll 8
+    for (int r = 0; r < kBwdMC; ++r) {
+      const float4 yv = *reinterpret_cast<const float4*>(&Ys[r][tk * 4]);
+      const float4 dv = *reinterpret_cast<const float4*>(&Ds[r][tn * 4]);
+      const float yr[4] = {yv.x, yv.y, yv.z, yv.w};
+      const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) g[i][j] = fmaf(yr[i], dr[j], g[i][j]);
+    }
+    if (blockIdx.y == 0 && tid < kBwdBN) {
+#pragma unroll 8
+      for (int r = 0; r < kBwdMC; ++r) gb += Ds[r][tid];
+    }
+    if (part != nullptr) {
+      float p[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[i][j] = 0.0f;
+#pragma unroll 4
+      for (int n4 = 0; n4 < kBwdBN; n4 += 4) {
+        const float4 d0 = *reinterpret_cast<const float4*>(&Ds[pm * 2][n4]);
+        const float4 d1 = *reinterpret_cast<const float4*>(&Ds[pm * 2 + 1][n4]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 wv = *reinterpret_cast<const float4*>(&Ws[pk + 16 * j][n4]);
+          p[0][j] = fmaf(d0.x, wv.x, p[0][j]);
+          p[0][j] = fmaf(d0.y, wv.y, p[0][j]);
+          p[0][j] = fmaf(d0.z, wv.z, p[0][j]);
+          p[0][j] = fmaf(d0.w, wv.w, p[0][j]);
+          p[1][j] = fmaf(d1.x, wv.x, p[1][j]);
+          p[1][j] = fmaf(d1.y, wv.y, p[1][j]);
+          p[1][j] = fmaf(d1.z, wv.z, p[1][j]);
+          p[1][j] = fmaf(d1.w, wv.w, p[1][j]);
+        }
+      }
+      float* dst = part + (long long)blockIdx.x * M * K;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = mc + pm * 2 + i;
+        if (row >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kk = k0 + pk + 16 * j;
+          if (kk < K) dst[(long long)row * K + kk] = p[i][j];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // momentum update of the owned tile, from the W copy in shared memory
+  const int col = n0 + tn * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + tk * 4 + i;
+    if (kr >= K || col >= N) continue;
+    const float4 wv = *reinterpret_cast<const float4*>(&Ws[tk * 4 + i][tn * 4]);
+    const float4 dv = ld4(delta, kr, col, N, K, N, vec_w);
+    float4 nd, nw;
+    nd.x = mom * dv.x - (A * g[i][0] + Bc * wv.x);
+    nd.y = mom * dv.y - (A * g[i][1] + Bc * wv.y);
+    nd.z = mom * dv.z - (A * g[i][2] + Bc * wv.z);
+    nd.w = mom * dv.w - (A * g[i][3] + Bc * wv.w);
+    nw.x = wv.x + nd.x;
+    nw.y = wv.y + nd.y;
+    nw.z = wv.z + nd.z;
+    nw.w = wv.w + nd.w;
+    st4(delta, kr, col, N, K, N, vec_w, nd);
+    st4(w, kr, col, N, K, N, vec_w, nw);
+  }
+  if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N) {
+    const float ndb = mom * db[n0 + tid] - A * gb;
+    db[n0 + tid] = ndb;
+    b[n0 + tid] = b[n0 + tid] + ndb;
+  }
+}
+
+// dedy[m, k] = sum over the n-tiles of part[nt, m, k], in tile order; then
+// the activation derivative of the layer below, taken on its stored (masked)
+// activation y: relu -> y > 0 ? dedy : 0, sigmoid -> y * (1 - y) * dedy.
+__global__ void __launch_bounds__(256)
+reduce_dedy_kernel(const float* __restrict__ part, int n_tiles, const float* __restrict__ y,
+                   float* __restrict__ out, long long total, int deriv) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int t = 0; t < n_tiles; ++t) s += part[t * total + i];
+    if (deriv == kRelu) {
+      s = y[i] > 0.0f ? s : 0.0f;
+    } else if (deriv == kSigmoid) {
+      const float yv = y[i];
+      s = yv * (1.0f - yv) * s;
+    }
+    out[i] = s;
+  }
+}
+
+inline int bwd_n_tiles(int N) { return (N + kBwdBN - 1) / kBwdBN; }
+
+// part: scratch of bwd_n_tiles(N) * M * K floats, or nullptr with dedy ==
+// nullptr when the layer below needs no gradient (the first layer).
+inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
+                              float* w, float* delta, float* b, float* db, float* part,
+                              float* dedy, int deriv, int M, int K, int N, float mom, float A,
+                              float Bc, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
+  dim3 grid(bwd_n_tiles(N), (K + kBwdBK - 1) / kBwdBK);
+  bwd_kernel<<<grid, kBwdThreads, 0, stream>>>(
+      dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, vec_ok(dedx, N),
+      vec_ok(yprev, K), vec_ok(w, N) && vec_ok(delta, N));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return err;
+  const long long total = (long long)M * K;
+  const int blocks = (int)((total + 255) / 256 < 2048 ? (total + 255) / 256 : 2048);
+  reduce_dedy_kernel<<<blocks, 256, 0, stream>>>(part, bwd_n_tiles(N), yprev, dedy, total, deriv);
+  return cudaGetLastError();
+}
+
+}  // namespace sednn

@@ -1,0 +1,191 @@
+// Whole-chunk trainer and its dropout stream for Hopper (sm_90a).
+//
+// Replaces tpu_sednn/ops/resident_chunk.py:_resident_kernel (kernel 3: the
+// TPU kernel that trains a whole chunk in one launch with the state pinned
+// in on-chip memory) and the dropout bits it draws in the kernel
+// (:307-331) with their probe, the kernel of sample_resident_masks (:970;
+// kernel 4).
+//
+// An H100 block has 227 KB of shared memory and the card 50 MB of L2, so the
+// float32 state (W and Delta, 47 MB each at 1548-2048x3-129) lives in device
+// memory.  What stays out of device memory instead: no gradient matrix is
+// ever written, W and Delta are read once and written once per bunch in the
+// backward, and masks, pre-activations and the output layer's dedx never
+// exist as separate passes.  One call of resident_chunk_f32 enqueues, for
+// every bunch i < n_real and in order on one stream, the forward launches
+// (fused_mlp.cuh:fwd_kernel and, where K is split over the grid,
+// fwd_sum_kernel; the input's mask is generated while x is loaded, each
+// hidden layer's mask in the epilogue of the layer that feeds it, dedx in
+// the last layer's epilogue) and the backward launches
+// (bwd_kernel + reduce_dedy_kernel, last layer first).  A single stream keeps
+// the two orders the update rule needs: dedy of layer l uses W_l before its
+// update (one kernel does both), and the forward of bunch i+1 sees W after
+// bunch i.  No host synchronisation, no allocation.
+//
+// Bound: per bunch 2 * 128 * K*N FLOP for each product in float32 FMAs: three
+// a layer (forward, gradient, dedy) but two for the first, which has no layer
+// below to hand a dedy to; at 1548-2048x3-129 that is 8.27 GFLOP against 5
+// passes over W or Delta (forward read, backward read and write of both);
+// operations-bound on an H100 without tensor cores (see fused_mlp.cuh).
+//
+// Dropout stream: Philox4x32-10 (philox.cuh) keyed on
+// (seed + bunch*7919 + layer*104729) mod 2^32, counter = the element's
+// (row, column) in the global bunch.  The backward never regenerates a hidden
+// layer's mask: the stored activation is the masked one, and the derivative
+// is taken on it.
+
+#include "fused_mlp.cuh"
+
+using namespace sednn;
+
+namespace {
+
+constexpr unsigned kBunchStride = 7919u;
+constexpr unsigned kLayerStride = 104729u;
+constexpr int kMaxLayers = 16;
+
+struct Workspace {
+  long long ys[kMaxLayers];  // offset of the stored input of layer l (l >= 1)
+  long long out, dedx_a, dedx_b, part, total;
+};
+
+Workspace plan_workspace(const int* sizes, int L, int bunch) {
+  Workspace ws;
+  long long off = 0, max_w = 0, max_part = 0;
+  ws.ys[0] = -1;
+  for (int l = 1; l < L; ++l) {
+    ws.ys[l] = off;
+    off += (long long)bunch * sizes[l];
+  }
+  for (int l = 0; l <= L; ++l) max_w = sizes[l] > max_w ? sizes[l] : max_w;
+  for (int l = 0; l < L; ++l) {  // one scratch serves the forward's K chunks and the backward's N tiles
+    const long long f = fwd_scratch_floats(bunch, sizes[l], sizes[l + 1]);
+    const long long p = l > 0 ? (long long)bwd_n_tiles(sizes[l + 1]) * bunch * sizes[l] : 0;
+    max_part = f > max_part ? f : max_part;
+    max_part = p > max_part ? p : max_part;
+  }
+  ws.out = off;
+  off += (long long)bunch * sizes[L];
+  ws.dedx_a = off;
+  off += (long long)bunch * max_w;
+  ws.dedx_b = off;
+  off += (long long)bunch * max_w;
+  ws.part = off;
+  off += max_part;
+  ws.total = off;
+  return ws;
+}
+
+__global__ void mask_probe_kernel(float* __restrict__ out, int rows, int cols, MaskSpec spec) {
+  const int c4 = (cols + 3) / 4;
+  const long long n = (long long)rows * c4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int row = (int)(i / c4), col = (int)(i % c4) * 4;
+    float m[4];
+    mask4(spec, row, col, cols, m);
+    for (int j = 0; j < 4 && col + j < cols; ++j) out[(long long)row * cols + col + j] = m[j];
+  }
+}
+
+__global__ void philox_words_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                                    int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t* p = in + 6 * i;
+  uint32_t w[4];
+  philox4x32_10(p[0], p[1], p[2], p[3], p[4], p[5], w);
+  for (int j = 0; j < 4; ++j) out[4 * i + j] = w[j];
+}
+
+}  // namespace
+
+// Floats of workspace resident_chunk_f32 needs; sizes has L + 1 entries.
+extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunch) {
+  if (L < 1 || L > kMaxLayers) return -1;
+  return plan_workspace(sizes, L, bunch).total;
+}
+
+// Trains bunches 0..n_real-1 of x (rows of `bunch`, width sizes[0]) and t
+// (width sizes[L]) in place on w[l], d[l] (sizes[l], sizes[l+1]) and b[l],
+// db[l].  Rows at or past n_real * bunch are never read.  hidden/output: 0
+// linear, 1 relu, 2 sigmoid.  thr_vis/thr_hid: mask thresholds of the input
+// and of the hidden activations (0 = no dropout there), scale_*: factor on
+// kept elements.  Update: delta' = mom*delta - (A*G + Bc*w) with G the
+// gradient of (1/bunch)*sum((out-t)^2).  tallies[5] += launches of fwd_kernel,
+// bwd_kernel and reduce_dedy_kernel, the count of those that drew Philox
+// masks, and launches of fwd_sum_kernel (layers whose K is split).
+extern "C" int resident_chunk_f32(const float* x, const float* t, int n_real, int bunch,
+                                  const int* sizes, int L, float* const* w, float* const* d,
+                                  float* const* b, float* const* db, float* work, int hidden,
+                                  int output, unsigned thr_vis, unsigned thr_hid,
+                                  float scale_vis, float scale_hid, unsigned seed, float mom,
+                                  float A, float Bc, long long* tallies, void* stream_) {
+  if (L < 1 || L > kMaxLayers || bunch <= 0 || hidden < 0 || hidden > 2 || output < 0 ||
+      output > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const Workspace ws = plan_workspace(sizes, L, bunch);
+  const float coef = 2.0f / (float)bunch;
+  for (int i = 0; i < n_real; ++i) {
+    const float* xi = x + (long long)i * bunch * sizes[0];
+    const float* ti = t + (long long)i * bunch * sizes[L];
+    const unsigned key0 = seed + (unsigned)i * kBunchStride;
+    const MaskSpec in_mask =
+        thr_vis ? philox_mask(key0, thr_vis, scale_vis) : no_mask();
+    float* dedx = work + ws.dedx_a;
+    float* other = work + ws.dedx_b;
+    for (int l = 0; l < L; ++l) {
+      const bool last = l == L - 1;
+      const float* in = l == 0 ? xi : work + ws.ys[l];
+      float* out = last ? work + ws.out : work + ws.ys[l + 1];
+      const MaskSpec out_mask =
+          (!last && thr_hid)
+              ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid)
+              : no_mask();
+      const cudaError_t err =
+          launch_fwd(in, w[l], b[l], out, bunch, sizes[l], sizes[l + 1], last ? output : hidden,
+                     l == 0 ? in_mask : no_mask(), out_mask, last ? ti : nullptr,
+                     last ? dedx : nullptr, coef, work + ws.part, stream);
+      if (err != cudaSuccess) return (int)err;
+      tallies[0] += 1;
+      tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? 1 : 0;
+      tallies[4] += fwd_scratch_floats(bunch, sizes[l], sizes[l + 1]) > 0 ? 1 : 0;
+    }
+    for (int l = L - 1; l >= 0; --l) {
+      const float* yprev = l == 0 ? xi : work + ws.ys[l];
+      const cudaError_t err = launch_bwd(
+          dedx, yprev, l == 0 ? in_mask : no_mask(), w[l], d[l], b[l], db[l],
+          l > 0 ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, bunch, sizes[l],
+          sizes[l + 1], mom, A, Bc, stream);
+      if (err != cudaSuccess) return (int)err;
+      tallies[1] += 1;
+      tallies[2] += l > 0 ? 1 : 0;
+      tallies[3] += (l == 0 && in_mask.mode) ? 1 : 0;
+      float* tmp = dedx;
+      dedx = other;
+      other = tmp;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// out (rows, cols) = the 0/1 mask (times scale) of rows row0..row0+rows-1 of
+// the global bunch under `key`: the device function the trainer's kernels call.
+extern "C" int philox_mask_f32(float* out, int rows, int cols, int row0, unsigned key,
+                               unsigned threshold, float scale, void* stream) {
+  if (rows <= 0 || cols <= 0) return 0;
+  const long long n = (long long)rows * ((cols + 3) / 4);
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  mask_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      out, rows, cols, philox_mask(key, threshold, scale, row0));
+  return (int)cudaGetLastError();
+}
+
+// out[4*i..] = philox4x32_10(counter = in[6*i..6*i+3], key = in[6*i+4..6*i+5]):
+// the raw generator, for the known-answer vectors.
+extern "C" int philox_words_u32(const uint32_t* in, uint32_t* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  philox_words_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(in, out, n);
+  return (int)cudaGetLastError();
+}

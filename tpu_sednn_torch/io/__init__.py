@@ -1,6 +1,7 @@
 """Byte-exact codecs for the reference's on-disk formats (numpy; own copies of
-`tpu_sednn.io`'s wav, .norm, .wts and pfile modules).  HTK and the ctypes
-loader of the native pfile library are not ported yet."""
+`tpu_sednn.io`'s wav, .norm, .wts and pfile modules) and `native`, the
+port's own read-only ctypes loader of the shared host library.  HTK is not
+ported yet."""
 
 from tpu_sednn_torch.io.wts import load_wts, save_wts
 from tpu_sednn_torch.io.norm import load_norm, save_norm, compute_norm

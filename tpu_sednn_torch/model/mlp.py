@@ -4,17 +4,17 @@ The `MLP` module keeps the JAX package's weight layout: W[l] is (n_in, n_out)
 and a layer is `y = x @ W + b` on row-major batches (not nn.Linear's
 transposed layout), so `.wts` interop and the JAX pytree are straight copies.
 
-Ported for serving: `ModelConfig`, `init_params` (uniform / fanin / glorot
-from a torch.Generator), `forward_eval` (parity keep-prob weight scaling),
-`fold_eval_params`, `params_from_wts`, `params_to_wts`.  The training
-forward with dropout masks and the rand48 parity init come with the
-training slice.
+`ModelConfig`, `init_params` (uniform / fanin / glorot from a
+torch.Generator), `init_params_parity` (the reference's drand48 stream),
+the training `forward` (dropout on each layer's input: parity = mask without
+rescale, inverted = mask and 1/(1-omit)), `forward_eval` (parity keep-prob
+weight scaling), `fold_eval_params`, `params_from_wts`, `params_to_wts`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -130,6 +130,84 @@ def init_params(
         ws.append(w.to(dev))
         bs.append(b.to(dev))
     return MLP(ws, bs)
+
+
+def init_params_parity(rand: Any, cfg: ModelConfig, w_min: float, w_max: float,
+                       b_min: float, b_max: float,
+                       device: str | torch.device = "cuda") -> MLP:
+    """Bit-exact reference init: drand48 stream, weights then bias per layer
+    in file order (Interface.cc:338-350).  `rand` is a
+    tpu_sednn_torch.data.rand48.Rand48; it is advanced by the draws.
+
+    The reference fills its column-major (cur, prev) buffer sequentially; the
+    (prev, cur) row-major matrix has the same flat layout, so a straight
+    reshape reproduces it element for element.
+    """
+    dev = resolve_device(device)
+    ws, bs = [], []
+    sizes = cfg.layersizes
+    for i in range(1, len(sizes)):
+        n_in, n_out = sizes[i - 1], sizes[i]
+        ws.append(torch.from_numpy(rand.uniform(w_min, w_max, n_in * n_out)
+                                   .reshape(n_in, n_out)).to(dev))
+        bs.append(torch.from_numpy(rand.uniform(b_min, b_max, n_out)).to(dev))
+    return MLP(ws, bs)
+
+
+def dropout_omits(cfg: ModelConfig, n_layers: int) -> List[float]:
+    """Per-layer input omit probability at train time (0.0 when off)."""
+    if not cfg.use_dropout:
+        return [0.0] * n_layers
+    return [cfg.dropout_vis if l == 0 else cfg.dropout_hid for l in range(n_layers)]
+
+
+def _dropout_mask(generator: torch.Generator, shape, omit: float,
+                  device: torch.device) -> torch.Tensor:
+    """Reference mask: zero where uniform < omit (kernDropout, DevFunc.cu:34-45).
+    Drawn on the generator's device, then moved to `device`."""
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
+    return (u >= omit).to(torch.float32).to(device)
+
+
+def forward(
+    params: MLP,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    weights: Optional[Sequence[torch.Tensor]] = None,
+    biases: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Batched forward pass; (batch, n_in) -> (batch, n_out).
+
+    train=True applies dropout per cfg.dropout_mode to each layer's INPUT
+    (BP_GPU.cu:536-551); train=False is `forward_eval`.  dropout_masks:
+    optional per-layer explicit 0/1 masks (for parity testing against an
+    external reference); they override masks drawn from `generator`.
+    weights/biases: use these tensors instead of params.w / params.b (the
+    train step passes leaves that require grad, or a float64 copy).
+    """
+    if not train:
+        return forward_eval(params, x, cfg)
+    ws = list(params.w) if weights is None else list(weights)
+    bs = list(params.b) if biases is None else list(biases)
+    n_layers = len(ws)
+    omits = dropout_omits(cfg, n_layers)
+    if cfg.use_dropout and generator is None and dropout_masks is None:
+        raise ValueError("dropout training requires a generator or explicit masks")
+    h = x
+    for l, (w, b) in enumerate(zip(ws, bs)):
+        if omits[l] > 0.0:
+            mask = (dropout_masks[l] if dropout_masks is not None
+                    else _dropout_mask(generator, h.shape, omits[l], h.device))
+            h = h * mask.to(h.dtype)
+            if cfg.dropout_mode == "inverted":
+                h = h / (1.0 - omits[l])
+        h = torch.matmul(h, w) + b
+        h = _act(cfg.hidden if l < n_layers - 1 else cfg.output, h)
+    return h
 
 
 def _keep_probs(cfg: ModelConfig, n_layers: int) -> List[float]:

@@ -3,3 +3,45 @@ version and its launch counter.  Kernels are built on first use, never at
 import."""
 
 from tpu_sednn_torch.ops.stft_lps import stft_lps, stft_lps_reference
+from tpu_sednn_torch.ops.fused_mlp import (
+    fused_bwd_update,
+    fused_bwd_update_reference,
+    fused_linear_act,
+    fused_linear_act_reference,
+)
+
+KERNEL_SOURCES = ("stft_lps", "fused_mlp", "resident_chunk")  # csrc/<name>.cu
+
+
+def launch_counts() -> dict:
+    """Every launch counter of the port, as plain integers: the wrappers'
+    own counts, the kernel launches the chunk trainer's C entry point
+    enqueued (by kernel), and the calls of the plain chunk trainer."""
+    from tpu_sednn_torch.ops import resident_chunk
+    from tpu_sednn_torch.train.step import reference_train_chunk
+
+    return {
+        "stft_lps": stft_lps.launches,
+        "fused_linear_act": fused_linear_act.launches,
+        "fused_linear_act_sum": fused_linear_act.sum_launches,
+        "fused_bwd_update": fused_bwd_update.launches,
+        "fused_bwd_update_reduce": fused_bwd_update.reduce_launches,
+        "sample_resident_masks": resident_chunk.sample_resident_masks.launches,
+        "resident_chunk": resident_chunk.make_resident_train_chunk.launches,
+        "resident_chunk_kernels": dict(resident_chunk.kernel_launches),
+        "plain_train_chunk": reference_train_chunk.calls,
+    }
+
+
+def reset_launch_counts() -> None:
+    """Set every counter of `launch_counts` to 0."""
+    from tpu_sednn_torch.ops import resident_chunk
+    from tpu_sednn_torch.train.step import reference_train_chunk
+
+    stft_lps.launches = fused_linear_act.launches = fused_bwd_update.launches = 0
+    fused_linear_act.sum_launches = fused_bwd_update.reduce_launches = 0
+    resident_chunk.sample_resident_masks.launches = 0
+    resident_chunk.make_resident_train_chunk.launches = 0
+    for name in resident_chunk.kernel_launches:
+        resident_chunk.kernel_launches[name] = 0
+    reference_train_chunk.calls = 0

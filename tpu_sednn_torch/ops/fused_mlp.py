@@ -1,0 +1,249 @@
+"""The fused MLP layer kernels on hand-written CUDA (`csrc/fused_mlp.cu`) —
+the port of tpu_sednn/ops/fused_mlp.py:
+
+* `fused_linear_act`  — y = act(x @ W + b) (`_fwd_kernel`): bias and
+  activation in the product's epilogue, y written once; one launch, or two
+  when the batch is small and the kernel splits K over the grid (partial
+  sums to a scratch, then a summing launch that does the epilogue).  Two
+  optional fusions the chunk trainer uses: a dropout mask on x while it is
+  loaded (`in_mask`) and the dropout mask of the NEXT layer's input applied
+  to y in the epilogue (`out_mask`), each either an explicit 0/1 tensor or
+  `(key, omit)` for the Philox stream of ops/philox.py generated in the
+  kernel, with `*_scale` on the kept elements (1/(1-omit) in inverted mode).
+* `fused_bwd_update`  — one layer's backward and momentum update
+  (`_bwd_kernel`): dedy = dedx @ W^T with W BEFORE the update,
+  G = y_prev^T @ dedx, delta' = m*delta - c*(G/n + wc*W), W' = W + delta',
+  the bias likewise; W and delta read once and written once, no G in memory.
+
+Both take the true sizes (K = 1548, N = 129, any batch): nothing is padded.
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
+runs the plain version beside it (`*_reference`).  float32 only.
+`fused_bwd_update` writes W, delta, b and delta_b IN PLACE on both devices
+and returns them.  `<wrapper>.launches` counts launches of the wrapper's
+product kernel (fwd_kernel, bwd_kernel); the small second kernels count apart:
+`fused_linear_act.sum_launches` (fwd_sum_kernel, where K is split) and
+`fused_bwd_update.reduce_launches` (reduce_dedy_kernel).  The kernels
+are fp32-FMA-bound at the flagship shapes (csrc/fused_mlp.cuh says why).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple, Union
+
+import torch
+
+from tpu_sednn_torch.ops import _build
+from tpu_sednn_torch.ops.philox import mask_threshold, philox_mask
+
+ACTS = {"linear": 0, "relu": 1, "sigmoid": 2}
+MaskArg = Union[None, torch.Tensor, Tuple[int, float]]
+
+
+def _act(name: str, z: torch.Tensor) -> torch.Tensor:
+    if name == "relu":
+        return torch.relu(z)
+    if name == "sigmoid":
+        return torch.sigmoid(z)
+    if name == "linear":
+        return z
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def _mask_tensor(mask: MaskArg, shape, device) -> Optional[torch.Tensor]:
+    """An explicit mask as it is, a (key, omit) spec as its Philox tensor."""
+    if mask is None or isinstance(mask, torch.Tensor):
+        return mask
+    key, omit = mask
+    return philox_mask(int(key), shape[0], shape[1], float(omit), device=device)
+
+
+def fused_linear_act_reference(x, w, b, act: str = "linear", in_mask: MaskArg = None,
+                               in_scale: float = 1.0, out_mask: MaskArg = None,
+                               out_scale: float = 1.0, dtype: Optional[torch.dtype] = None):
+    """Plain torch version of `fused_linear_act`; products in `dtype`
+    (None = float32; torch.float64 gives the function free of float32
+    summation order), result returned as float32."""
+    dt = dtype or torch.float32
+    h = x.to(dt)
+    im = _mask_tensor(in_mask, x.shape, x.device)
+    if im is not None:
+        h = h * (im.to(dt) * in_scale)
+    y = _act(act, h @ w.to(dt) + b.to(dt))
+    om = _mask_tensor(out_mask, y.shape, x.device)
+    if om is not None:
+        y = y * (om.to(dt) * out_scale)
+    return y.to(torch.float32)
+
+
+def fused_bwd_update_reference(dedx, y_prev, w, delta, b, delta_b, momentum, lrate, inv_n,
+                               weightcost, in_mask: MaskArg = None, in_scale: float = 1.0,
+                               deriv: Optional[str] = None,
+                               dtype: Optional[torch.dtype] = None):
+    """Plain torch version of `fused_bwd_update`, pure: -> (w', delta',
+    dedy_prev, b', delta_b') as new float32 tensors.  deriv: None, "relu" or
+    "sigmoid" multiplies dedy_prev by that activation's derivative taken on
+    y_prev (where(y > 0) / y*(1-y))."""
+    dt = dtype or torch.float32
+    m, c = float(momentum), (1.0 - float(momentum)) * float(lrate)
+    dx, y, w_, d_ = dedx.to(dt), y_prev.to(dt), w.to(dt), delta.to(dt)
+    im = _mask_tensor(in_mask, y_prev.shape, y_prev.device)
+    if im is not None:
+        y = y * (im.to(dt) * in_scale)
+    dedy = dx @ w_.T
+    if deriv == "relu":
+        dedy = torch.where(y > 0, dedy, torch.zeros((), dtype=dt, device=dedy.device))
+    elif deriv == "sigmoid":
+        dedy = y * (1.0 - y) * dedy
+    elif deriv is not None:
+        raise ValueError(f"unknown derivative {deriv!r}")
+    new_delta = m * d_ - c * ((y.T @ dx) * float(inv_n) + float(weightcost) * w_)
+    new_db = m * delta_b.to(dt) - c * (dx.sum(dim=0) * float(inv_n))
+    f32 = torch.float32
+    return ((w_ + new_delta).to(f32), new_delta.to(f32), dedy.to(f32),
+            (b.to(dt) + new_db).to(f32), new_db.to(f32))
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_mlp")
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.fused_linear_act_f32.argtypes = [p, p, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, p,
+                                         p]
+    lib.fused_linear_act_f32.restype = ctypes.c_int
+    for fn in (lib.fused_fwd_scratch_floats, lib.fused_bwd_scratch_floats):
+        fn.argtypes = [i, i, i]
+        fn.restype = ctypes.c_longlong
+    lib.fused_bwd_update_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f, f, i, p, u, u, f,
+                                         i, p]
+    lib.fused_bwd_update_f32.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 expected, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _mask_args(name: str, mask: MaskArg, scale: float, shape, device):
+    """-> (mode, pointer, key, threshold, scale, tensor kept alive) for the C call."""
+    if mask is None:
+        return 0, None, 0, 0, 1.0, None
+    if isinstance(mask, torch.Tensor):
+        _check(name, mask, shape, device)
+        return 1, mask.data_ptr(), 0, 0, float(scale), mask
+    key, omit = mask
+    return 2, None, int(key) & 0xFFFFFFFF, mask_threshold(float(omit)), float(scale), None
+
+
+def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "linear",
+                     in_mask: MaskArg = None, in_scale: float = 1.0,
+                     out_mask: MaskArg = None, out_scale: float = 1.0) -> torch.Tensor:
+    """(B, K) @ (K, N) + (N,) -> act -> (B, N), any B, K, N."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} do not match")
+    (B, K), N = x.shape, w.shape[1]
+    if x.device.type == "cpu":
+        return fused_linear_act_reference(x, w, b, act, in_mask, in_scale, out_mask, out_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_linear_act runs on cuda or cpu tensors, got {x.device}")
+    _check("x", x, (B, K), x.device)
+    _check("w", w, (K, N), x.device)
+    _check("b", b, (N,), x.device)
+    im = _mask_args("in_mask", in_mask, in_scale, (B, K), x.device)
+    om = _mask_args("out_mask", out_mask, out_scale, (B, N), x.device)
+    y = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    # partial sums of the kernel's split over K (none for a large batch)
+    part = torch.empty(lib.fused_fwd_scratch_floats(B, K, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.fused_linear_act_f32(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, K, N, ACTS[act],
+            *im[:5], *om[:5], part.data_ptr() if part.numel() else None,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_linear_act kernel launch failed: CUDA error {rc}")
+    fused_linear_act.launches += 1
+    fused_linear_act.sum_launches += 1 if part.numel() else 0
+    return y
+
+
+fused_linear_act.launches = 0
+fused_linear_act.sum_launches = 0
+
+
+def fused_bwd_update(
+    dedx: torch.Tensor,     # (B, N) upstream gradient dE/dx of this layer
+    y_prev: torch.Tensor,   # (B, K) layer input (post-dropout, unless in_mask is given)
+    w: torch.Tensor,        # (K, N), updated in place
+    delta: torch.Tensor,    # (K, N) momentum buffer, updated in place
+    b: torch.Tensor,        # (N,), updated in place
+    delta_b: torch.Tensor,  # (N,), updated in place
+    momentum: float,
+    lrate: float,
+    inv_n: float,           # 1 / bunchsize
+    weightcost: float,
+    in_mask: MaskArg = None,
+    in_scale: float = 1.0,
+    deriv: Optional[str] = None,
+):
+    """-> (w, delta, dedy_prev, b, delta_b) with one read/write of W/delta.
+
+    Implements the reference rule delta' = m*delta - (1-m)*lr*(G/n + wc*W);
+    the kernel takes it as [m, A, B] = [m, (1-m)*lr/n, (1-m)*lr*wc], the
+    form `_scal_coefs` of the chunk trainer produces, so one kernel serves
+    both update rules.  dedy_prev uses W before the update; unless `deriv`
+    names an activation, the caller multiplies it by the derivative.
+    in_mask masks y_prev while it is loaded (the first layer's input); it
+    cannot be combined with `deriv`, which reads the stored y_prev.
+    """
+    if deriv not in (None, "relu", "sigmoid"):
+        raise ValueError(f"unknown derivative {deriv!r}")
+    if in_mask is not None and deriv is not None:
+        raise ValueError("deriv is taken on the stored y_prev: give y_prev masked, not in_mask")
+    if dedx.dim() != 2 or y_prev.dim() != 2 or dedx.shape[0] != y_prev.shape[0]:
+        raise ValueError(f"shapes {tuple(dedx.shape)} and {tuple(y_prev.shape)} do not match")
+    (B, N), K = dedx.shape, y_prev.shape[1]
+    dev = dedx.device
+    for name, t, shape in (("dedx", dedx, (B, N)), ("y_prev", y_prev, (B, K)), ("w", w, (K, N)),
+                           ("delta", delta, (K, N)), ("b", b, (N,)), ("delta_b", delta_b, (N,))):
+        _check(name, t, shape, dev)
+    if dev.type == "cpu":
+        w_, d_, dedy, b_, db_ = fused_bwd_update_reference(
+            dedx, y_prev, w, delta, b, delta_b, momentum, lrate, inv_n, weightcost,
+            in_mask, in_scale, deriv)
+        with torch.no_grad():
+            for dst, src in ((w, w_), (delta, d_), (b, b_), (delta_b, db_)):
+                dst.copy_(src)
+        return w, delta, dedy, b, delta_b
+    if dev.type != "cuda":
+        raise ValueError(f"fused_bwd_update runs on cuda or cpu tensors, got {dev}")
+    c = (1.0 - float(momentum)) * float(lrate)
+    im = _mask_args("in_mask", in_mask, in_scale, (B, K), dev)
+    lib = _lib()
+    part = torch.empty(lib.fused_bwd_scratch_floats(B, K, N), dtype=torch.float32, device=dev)
+    dedy = torch.empty((B, K), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fused_bwd_update_f32(
+            dedx.data_ptr(), y_prev.data_ptr(), w.data_ptr(), delta.data_ptr(), b.data_ptr(),
+            delta_b.data_ptr(), part.data_ptr(), dedy.data_ptr(), B, K, N, float(momentum),
+            c * float(inv_n), c * float(weightcost), *im[:5],
+            ACTS[deriv] if deriv else 0, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_bwd_update kernel launch failed: CUDA error {rc}")
+    fused_bwd_update.launches += 1
+    fused_bwd_update.reduce_launches += 1
+    return w, delta, dedy, b, delta_b
+
+
+fused_bwd_update.launches = 0
+fused_bwd_update.reduce_launches = 0

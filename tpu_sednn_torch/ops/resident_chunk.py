@@ -1,0 +1,369 @@
+"""Whole-chunk trainer on hand-written CUDA (`csrc/resident_chunk.cu`) — the
+port of tpu_sednn/ops/resident_chunk.py.
+
+The TPU kernel trains a whole chunk in one launch with all weights and
+momentum pinned in on-chip memory.  An H100 has no on-chip memory of that
+size, so here the float32 state stays in device memory and ONE C call per
+chunk enqueues, for every bunch, the fused forward launches (dropout mask,
+bias, activation and the output layer's dedx in the products' epilogues) and
+the fused backward + in-place update launches of csrc/fused_mlp.cuh: no
+gradient matrix is materialised, W and delta are read once and written once
+per bunch in the backward, and nothing synchronises with the host inside a
+chunk.
+
+Math is identical to train/step.py:reference_train_step (the quirk-exact
+update rule: dedx_L = (2/n)(out-t), raw-sum gradients, delta = m*delta -
+(1-m)*lr*(G/n + wc*W), partial bunch dropped) in float32, or to
+clean_train_step with rule="clean".  Dropout masks come from Philox4x32-10
+inside the kernels (parity semantics: mask without train-time rescale;
+"inverted" rescales), one stream per (seed, bunch, layer), the same seed
+formula as the TPU kernel but not its bits; `sample_resident_masks` exposes
+exactly that stream.  As in the TPU kernel, the activation derivative is
+taken on the stored masked activation (in inverted mode that leaves the
+1/(1-omit) factor out of the backward).
+
+Plain versions, beside the wrappers: `resident_train_chunk_reference` and
+`sample_resident_masks_reference` (bit-equal Philox, so a chunk trained WITH
+dropout is comparable between kernel and plain version).
+`make_resident_train_chunk.launches` counts calls of the C entry point,
+`kernel_launches` the kernel launches it enqueued, by kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tpu_sednn_torch._device import resolve_device
+from tpu_sednn_torch.model.mlp import ModelConfig, dropout_omits
+from tpu_sednn_torch.ops import _build
+from tpu_sednn_torch.ops.fused_mlp import ACTS
+from tpu_sednn_torch.ops.philox import mask_threshold, philox_mask
+from tpu_sednn_torch.train.step import OptConfig, TrainState
+
+# seed strides: distinct streams per (bunch, layer) mask
+_BUNCH_STRIDE = 7919
+_LAYER_STRIDE = 104729
+
+_mask_threshold = mask_threshold
+
+# kernel launches enqueued by the chunk trainer's C entry point, by kernel:
+# fwd_kernel, bwd_kernel, reduce_dedy_kernel, then the count of those launches
+# that drew dropout bits in the kernel, then fwd_sum_kernel (one for every
+# forward whose K is split over the grid)
+kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
+                                   "reduce_dedy": 0, "philox_mask": 0,
+                                   "fused_linear_act_sum": 0}
+
+
+def mask_key(seed: int, bunch_idx: int, layer_idx: int) -> int:
+    """The 32-bit Philox key of (seed, bunch, layer): the TPU kernel's int32
+    seed sum, defined mod 2**32."""
+    return (int(seed) + int(bunch_idx) * _BUNCH_STRIDE + int(layer_idx) * _LAYER_STRIDE) & 0xFFFFFFFF
+
+
+def _scal_coefs(rule: str, grad_n: int, out_dim: int, lrate, momentum,
+                weightcost) -> Tuple[float, float, float]:
+    """[m, A, B] for the generalized update delta' = m*delta - (A*g + B*w),
+    where g is the kernel's gradient of (1/grad_n)*sum((out-t)^2), in float32
+    arithmetic as the JAX package computes them.
+
+    parity: A = (1-m)*lr/grad_n, B = (1-m)*lr*wc — the reference's double-1/n
+    and (1-m) quirks.  clean: the kernel's g carries 2/grad_n;
+    clean_train_step's loss is the mean over ALL B*n_out elements, so scale
+    by 1/out_dim too.
+    """
+    f = np.float32
+    m, lr, wc = f(momentum), f(lrate), f(weightcost)
+    if rule == "parity":
+        a_coef = (f(1.0) - m) * lr * f(1.0 / grad_n)
+        b_coef = (f(1.0) - m) * lr * wc
+    else:
+        a_coef = lr * f(1.0 / out_dim)
+        b_coef = lr * wc
+    return float(m), float(a_coef), float(b_coef)
+
+
+def _dropout_setup(cfg: ModelConfig, n_layers: int):
+    omits = dropout_omits(cfg, n_layers)
+    scales = [1.0 / (1.0 - o) if (o > 0.0 and cfg.dropout_mode == "inverted") else 1.0
+              for o in omits]
+    return omits, scales
+
+
+@torch.no_grad()
+def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
+                                   targ_chunk: torch.Tensor, cfg: ModelConfig, bunch: int,
+                                   coefs: Sequence[float], seed: int,
+                                   n_real: Optional[int] = None,
+                                   dtype: Optional[torch.dtype] = None) -> TrainState:
+    """Plain torch version of the chunk trainer: a loop over the bunches with
+    the kernel's arithmetic written out (masks from `philox_mask`, bit-equal
+    to the kernel's; derivative on the stored masked activation; update
+    [m, A, B] = coefs).  Updates `state` in place and returns it.
+
+    dtype: carry the state and every product in this type through the chunk
+    (torch.float64: the function free of float32 rounding) and round to
+    float32 once at the end.
+    """
+    dt = dtype or torch.float32
+    m, a_coef, b_coef = (float(c) for c in coefs)
+    n_bunches = in_chunk.shape[0] // bunch
+    n_real = n_bunches if n_real is None else int(n_real)
+    ws = [w.data.to(dt) for w in state.params.w]
+    bs = [b.data.to(dt) for b in state.params.b]
+    dws = [d.data.to(dt) for d in state.deltas.w]
+    dbs = [d.data.to(dt) for d in state.deltas.b]
+    L = len(ws)
+    omits, scales = _dropout_setup(cfg, L)
+    dev = in_chunk.device
+    for i in range(n_real):
+        h = in_chunk[i * bunch:(i + 1) * bunch].to(dt)
+        t = targ_chunk[i * bunch:(i + 1) * bunch].to(dt)
+        ys = []
+        for l in range(L):
+            if omits[l] > 0.0:
+                mask = philox_mask(mask_key(seed, i, l), bunch, h.shape[1], omits[l], device=dev)
+                h = h * (mask.to(dt) * scales[l])
+            ys.append(h)
+            z = h @ ws[l] + bs[l]
+            act = cfg.hidden if l < L - 1 else cfg.output
+            h = torch.relu(z) if act == "relu" else torch.sigmoid(z) if act == "sigmoid" else z
+        out = h
+        dedx = (2.0 / bunch) * (out - t)
+        if cfg.output == "sigmoid":
+            dedx = dedx * out * (1.0 - out)
+        for l in range(L - 1, -1, -1):
+            dedy = dedx @ ws[l].T if l > 0 else None  # W before its update
+            g = ys[l].T @ dedx
+            dws[l] = m * dws[l] - (a_coef * g + b_coef * ws[l])
+            ws[l] = ws[l] + dws[l]
+            dbs[l] = m * dbs[l] - a_coef * dedx.sum(dim=0)
+            bs[l] = bs[l] + dbs[l]
+            if l > 0:
+                y = ys[l]
+                dedx = (torch.where(y > 0, dedy, torch.zeros((), dtype=dt, device=dev))
+                        if cfg.hidden == "relu" else y * (1.0 - y) * dedy)
+    for dst, src in zip(list(state.params.w) + list(state.params.b)
+                        + list(state.deltas.w) + list(state.deltas.b), ws + bs + dws + dbs):
+        dst.data.copy_(src.to(torch.float32))
+    state.step += n_real
+    return state
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("resident_chunk")
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+    lib.resident_workspace_floats.argtypes = [ip, i, i]
+    lib.resident_workspace_floats.restype = ctypes.c_longlong
+    lib.resident_chunk_f32.argtypes = [p, p, i, i, ip, i, pp, pp, pp, pp, p, i, i, u, u, f, f, u,
+                                       f, f, f, ctypes.POINTER(ctypes.c_longlong), p]
+    lib.resident_chunk_f32.restype = ctypes.c_int
+    lib.philox_mask_f32.argtypes = [p, i, i, i, u, u, f, p]
+    lib.philox_mask_f32.restype = ctypes.c_int
+    lib.philox_words_u32.argtypes = [p, p, i, p]
+    lib.philox_words_u32.restype = ctypes.c_int
+    return lib
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what}: not yet ported")
+
+
+def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
+                              bf16: bool = False,
+                              rule: str = "parity", sr_state: bool = False,
+                              tile_rows: int | None = None,
+                              sr_delta: bool = False,
+                              hbm_spill: int = 0):
+    """Chunk trainer: whole chunk, one C call, state updated in place.
+
+    Same contract as train.step.make_jit_train_chunk (partial bunch dropped;
+    any layer sizes, nothing padded), but takes an integer `seed` for the
+    in-kernel Philox dropout instead of a generator.  lrate/momentum/
+    weightcost may change from call to call (the recipe's momentum ramp).
+
+    rule: "parity" = the reference's quirk-exact update (double 1/n, (1-m));
+    "clean" = standard Polyak momentum on the mean-MSE gradient (matches
+    train.step.clean_train_step).
+
+    bf16: only False (float32 products) is implemented; a tensor-core mode
+    with its own tolerance is still to port.  sr_state, sr_delta, tile_rows <
+    bunchsize and hbm_spill are the TPU kernel's variants still to port and
+    raise NotImplementedError.  The TPU kernel's interpret and dedy_full have
+    no counterpart (a CPU state takes the plain version; dedy_full names a
+    scheduling choice of that kernel).
+
+    run(state, x, t, seed, lrate, momentum, weightcost, n_real=None): on a
+    CUDA state launches the kernels (or raises); on a CPU state runs
+    `resident_train_chunk_reference`.  Writes into `state` and returns it.
+    """
+    sizes = tuple(int(s) for s in cfg.layersizes)
+    bunch = opt.bunchsize
+    if bunch % 8:
+        raise ValueError(f"bunchsize {bunch} must be a multiple of 8")
+    if rule not in ("parity", "clean"):
+        raise ValueError(f"unknown rule {rule!r}")
+    if cfg.hidden not in ("relu", "sigmoid") or cfg.output not in ("linear", "sigmoid"):
+        raise ValueError(f"unsupported activations {cfg.hidden!r}/{cfg.output!r}")
+    if bf16:
+        _not_ported("bf16=True (tensor-core products)")
+    if sr_state or sr_delta:
+        _not_ported("sr_state / sr_delta (bf16 state with stochastic rounding)")
+    if tile_rows is not None and tile_rows != bunch:
+        _not_ported("tile_rows < bunchsize (row-tiled gradient accumulation)")
+    if hbm_spill:
+        _not_ported("hbm_spill")
+    L = len(sizes) - 1
+    omits, scales = _dropout_setup(cfg, L)
+    omit_vis, omit_hid = omits[0], (omits[1] if L > 1 else 0.0)
+    scale_vis, scale_hid = scales[0], (scales[1] if L > 1 else 1.0)
+
+    def run(state: TrainState, in_chunk: torch.Tensor, targ_chunk: torch.Tensor, seed,
+            lrate=opt.lrate, momentum=opt.momentum, weightcost=opt.weightcost,
+            n_real=None) -> TrainState:
+        """n_real: optional count of REAL bunches when `in_chunk` is padded
+        to a fixed capacity; rows at or past n_real * bunchsize are never
+        read.  None = all full bunches."""
+        n_bunches = in_chunk.shape[0] // bunch
+        if n_bunches == 0:
+            return state
+        nr = n_bunches if n_real is None else int(n_real)
+        if not 0 <= nr <= n_bunches:
+            raise ValueError(f"n_real {nr} outside [0, {n_bunches}]")
+        coefs = _scal_coefs(rule, bunch, sizes[-1], lrate, momentum, weightcost)
+        dev = state.device
+        if in_chunk.shape[1] != sizes[0] or targ_chunk.shape[1] != sizes[-1]:
+            raise ValueError(f"chunk widths {in_chunk.shape[1]}/{targ_chunk.shape[1]} do not "
+                             f"match the net {sizes[0]}/{sizes[-1]}")
+        if dev.type == "cpu":
+            return resident_train_chunk_reference(state, in_chunk, targ_chunk, cfg, bunch, coefs,
+                                                  int(seed), n_real=nr)
+        if dev.type != "cuda":
+            raise ValueError(f"the chunk trainer runs on cuda or cpu, got {dev}")
+        tensors = (list(state.params.w), list(state.deltas.w), list(state.params.b),
+                   list(state.deltas.b))
+        for group in tensors:
+            for l, a in enumerate(group):
+                want = (sizes[l], sizes[l + 1]) if a.dim() == 2 else (sizes[l + 1],)
+                if (tuple(a.shape) != want or a.dtype != torch.float32 or a.device != dev
+                        or not a.is_contiguous()):
+                    raise ValueError(f"state tensor of layer {l}: {tuple(a.shape)} {a.dtype} on "
+                                     f"{a.device}; expected float32 {want} on {dev}, contiguous")
+        for name, a in (("in_chunk", in_chunk), ("targ_chunk", targ_chunk)):
+            if a.dtype != torch.float32 or a.device != dev or not a.is_contiguous():
+                raise ValueError(f"{name}: float32, contiguous, on {dev} expected; got {a.dtype} "
+                                 f"on {a.device}")
+        if targ_chunk.shape[0] < nr * bunch:
+            raise ValueError("targ_chunk has fewer rows than n_real bunches")
+        lib = _lib()
+        c_sizes = (ctypes.c_int * (L + 1))(*sizes)
+        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, bunch), dtype=torch.float32,
+                           device=dev)
+        ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
+        tallies = (ctypes.c_longlong * len(kernel_launches))()
+        with torch.cuda.device(dev):
+            rc = lib.resident_chunk_f32(
+                in_chunk.data_ptr(), targ_chunk.data_ptr(), nr, bunch, c_sizes, L,
+                ptrs[0], ptrs[1], ptrs[2], ptrs[3], work.data_ptr(),
+                ACTS[cfg.hidden], ACTS[cfg.output],
+                mask_threshold(omit_vis) if omit_vis > 0.0 else 0,
+                mask_threshold(omit_hid) if omit_hid > 0.0 else 0,
+                scale_vis, scale_hid, int(seed) & 0xFFFFFFFF, *coefs, tallies,
+                torch.cuda.current_stream(dev).cuda_stream)
+        for name, n in zip(kernel_launches, tallies):
+            kernel_launches[name] += int(n)
+        if rc != 0:
+            raise RuntimeError(f"chunk trainer launch failed: CUDA error {rc}")
+        make_resident_train_chunk.launches += 1
+        state.step += nr
+        return state
+
+    return run
+
+
+make_resident_train_chunk.launches = 0
+
+
+def make_dp_resident_train_chunk(*args, **kwargs):
+    """The data-parallel chunk trainer (bunch_part row split, gradient
+    all-reduce before the in-place update) is still to port."""
+    _not_ported("make_dp_resident_train_chunk (data-parallel chunk trainer)")
+
+
+def _slice_rows(shape, device_idx: int, n_dev: int) -> Tuple[int, int, int, int]:
+    g_rows, width = int(shape[0]), int(shape[1])
+    if g_rows % n_dev:
+        raise ValueError(f"global rows {g_rows} not divisible by n_dev {n_dev}")
+    bs_local = g_rows // n_dev
+    return g_rows, width, bs_local, device_idx * bs_local
+
+
+def sample_resident_masks_reference(seed: int, bunch_idx: int, layer_idx: int, shape,
+                                    omit: float, device_idx: int = 0, n_dev: int = 1,
+                                    device: str | torch.device = "cpu") -> torch.Tensor:
+    """Plain torch version of `sample_resident_masks` (Philox in integer
+    tensor arithmetic, ops/philox.py), bit-equal to the kernel."""
+    _, width, bs_local, row0 = _slice_rows(shape, device_idx, n_dev)
+    return philox_mask(mask_key(seed, bunch_idx, layer_idx), bs_local, width, omit, row0=row0,
+                       device=device)
+
+
+def sample_resident_masks(seed: int, bunch_idx: int, layer_idx: int,
+                          shape, omit: float, device_idx: int = 0,
+                          n_dev: int = 1,
+                          device: str | torch.device = "cuda") -> torch.Tensor:
+    """The exact dropout mask the chunk trainer draws for (seed, bunch,
+    layer) — same key formula, threshold and device function — from a
+    standalone launch, so mask statistics (zero rate, stream collisions,
+    rank-slice identity) can be checked on the card.
+
+    `shape` is the GLOBAL bunch mask shape; with n_dev > 1 the returned mask
+    is rank `device_idx`'s rows [d*bs_local, (d+1)*bs_local) of it: a mask
+    element depends only on (key, global row, column), never on the number
+    of devices.  device="cuda" launches the kernel (or raises); "cpu" runs
+    the plain version.
+    """
+    _, width, bs_local, row0 = _slice_rows(shape, device_idx, n_dev)
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return sample_resident_masks_reference(seed, bunch_idx, layer_idx, shape, omit,
+                                               device_idx, n_dev)
+    out = torch.empty((bs_local, width), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().philox_mask_f32(out.data_ptr(), bs_local, width, row0,
+                                    mask_key(seed, bunch_idx, layer_idx), mask_threshold(omit),
+                                    1.0, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"philox mask kernel launch failed: CUDA error {rc}")
+    sample_resident_masks.launches += 1
+    return out
+
+
+sample_resident_masks.launches = 0
+
+
+def philox_words_on_device(counters_and_keys: torch.Tensor) -> torch.Tensor:
+    """(n, 6) int64 rows (c0, c1, c2, c3, k0, k1) on a CUDA device -> (n, 4)
+    int64 words of the kernels' philox4x32_10 device function; for the
+    known-answer vectors."""
+    if counters_and_keys.device.type != "cuda":
+        raise ValueError("philox_words_on_device needs a CUDA tensor; "
+                         "ops.philox.philox4x32_10 is the plain version")
+    dev = counters_and_keys.device
+    inp = (counters_and_keys & 0xFFFFFFFF).to(torch.int64)
+    # the C side reads uint32 words: pack the low 32 bits of each value
+    packed = torch.where(inp >= 2 ** 31, inp - 2 ** 32, inp).to(torch.int32).contiguous()
+    out = torch.empty((inp.shape[0], 4), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().philox_words_u32(packed.data_ptr(), out.data_ptr(), inp.shape[0],
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"philox words kernel launch failed: CUDA error {rc}")
+    return out.to(torch.int64) & 0xFFFFFFFF

@@ -1,0 +1,263 @@
+"""Plain torch training / evaluation steps — counterpart of tpu_sednn/train/step.py.
+
+Two modes:
+
+* **reference parity** (`reference_train_step` / `reference_train_chunk`):
+  the quirk-exact optimizer of `BP_GPU::train_bunch_single` +
+  `kernUpdatedelta` (the reference's DevFunc.cu:313-318):
+
+      dedx_L   = (2/n) * (out - targ)
+      G_W      = prev_y^T @ dedx          (raw sum over the bunch)
+      G_b      = sum_batch dedx
+      delta   <- m*delta - (1-m)*lr*(G/n + wc*W)       (note the double /n and
+      W       <- W + delta                              the (1-m) factor)
+
+  The gradient of  loss = (1/n) * sum((out-targ)^2)  is exactly G_W / G_b
+  above (including the dropout-mask chain), so parity mode is autograd plus
+  the custom momentum rule.  Further parity quirks honoured: the trailing
+  partial bunch is dropped, dropout does not rescale at train time, weight
+  cost acts on W and not on b, pure float32.
+
+* **clean** (`clean_train_step`): mean MSE, inverted dropout, standard Polyak
+  momentum.
+
+These are the plain versions the hand-written CUDA chunk trainer
+(ops/resident_chunk.py) is held against, and the trainer of the CPU and of
+`engine="xla"`.  State handling: a single step returns a NEW TrainState and
+leaves its input untouched; the chunk trainers update the state they are
+given IN PLACE (W and Delta are 47 MB each at the flagship width) and return
+it.  `init_train_state` clones the parameters it is given, so the caller's
+MLP is never written to.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from tpu_sednn_torch.model.mlp import MLP, ModelConfig, forward, forward_eval
+
+
+@dataclass
+class TrainState:
+    params: MLP
+    deltas: MLP  # momentum buffers, same structure as params
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+
+def init_train_state(params: MLP) -> TrainState:
+    """Zero momentum, step 0, and a COPY of `params` (chunk trainers write
+    into the state in place)."""
+    return TrainState(
+        params=MLP([w.detach().clone() for w in params.w], [b.detach().clone() for b in params.b]),
+        deltas=MLP([torch.zeros_like(w) for w in params.w], [torch.zeros_like(b) for b in params.b]),
+        step=0,
+    )
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lrate: float = 1.0
+    momentum: float = 0.5
+    weightcost: float = 0.0
+    bunchsize: int = 128
+
+
+# ---------------------------------------------------------------------------
+# reference-parity path
+# ---------------------------------------------------------------------------
+
+def _grads(state: TrainState, x, t, cfg: ModelConfig, generator, masks, mean: bool, dtype):
+    """(loss, dL/dW list, dL/db list) by autograd, for
+    L = sum((out-t)^2)/n (parity) or mean((out-t)^2) (clean), computed in
+    `dtype` (None = the state's float32)."""
+    cast = (lambda a: a) if dtype is None else (lambda a: a.to(dtype))
+    ws = [cast(w.detach()).clone().requires_grad_(True) for w in state.params.w]
+    bs = [cast(b.detach()).clone().requires_grad_(True) for b in state.params.b]
+    with torch.enable_grad():
+        out = forward(state.params, cast(x), cfg, train=True, generator=generator,
+                      dropout_masks=masks, weights=ws, biases=bs)
+        sq = (out - cast(t)) ** 2
+        loss = sq.mean() if mean else sq.sum() / x.shape[0]
+        grads = torch.autograd.grad(loss, ws + bs)
+    return loss.detach(), list(grads[: len(ws)]), list(grads[len(ws):])
+
+
+@torch.no_grad()
+def _apply(state: TrainState, g_w, g_b, upd_w, upd_b, inplace: bool) -> TrainState:
+    """delta', p' = upd(delta, p, g) on every tensor; a new state, or the
+    given one written in place."""
+    new_w, new_b, new_dw, new_db = [], [], [], []
+    for upd, ps, ds, gs, out_p, out_d in (
+            (upd_w, state.params.w, state.deltas.w, g_w, new_w, new_dw),
+            (upd_b, state.params.b, state.deltas.b, g_b, new_b, new_db)):
+        for p, d, g in zip(ps, ds, gs):
+            nd, npar = upd(d.data, p.data, g.to(p.dtype))
+            if inplace:
+                d.data.copy_(nd)
+                p.data.copy_(npar)
+            else:
+                out_d.append(nd)
+                out_p.append(npar)
+    if inplace:
+        state.step += 1
+        return state
+    return TrainState(params=MLP(new_w, new_b), deltas=MLP(new_dw, new_db),
+                      step=state.step + 1)
+
+
+def reference_train_step(
+    state: TrainState,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    cfg: ModelConfig,
+    opt: OptConfig,
+    generator: Optional[torch.Generator] = None,
+    dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    inplace: bool = False,
+    dtype: Optional[torch.dtype] = None,
+) -> TrainState:
+    """One bunch of SGD with the reference's exact update rule.
+
+    dtype: compute the gradient in this type (torch.float64 for a check that
+    is free of float32 summation order); the state stays float32.
+    """
+    n = x.shape[0]
+    _, g_w, g_b = _grads(state, x, t, cfg, generator, dropout_masks, False, dtype)
+    m, lr, wc = opt.momentum, opt.lrate, opt.weightcost
+
+    def upd_w(delta, w, g):
+        new_delta = m * delta - (1.0 - m) * lr * (g / n + wc * w)
+        return new_delta, w + new_delta
+
+    def upd_b(delta, b, g):
+        new_delta = m * delta - (1.0 - m) * lr * (g / n)  # weightcost=0 for bias
+        return new_delta, b + new_delta
+
+    return _apply(state, g_w, g_b, upd_w, upd_b, inplace)
+
+
+def reference_train_chunk(
+    state: TrainState,
+    in_chunk: torch.Tensor,
+    targ_chunk: torch.Tensor,
+    cfg: ModelConfig,
+    opt: OptConfig,
+    generator: Optional[torch.Generator] = None,
+    dropout_masks: Optional[Sequence[Sequence[Optional[torch.Tensor]]]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> TrainState:
+    """Train over a whole chunk, bunch by bunch; the trailing
+    `n % bunchsize` samples are skipped exactly like the reference
+    (BP_GPU.cu:315-318).  Updates `state` in place and returns it.
+
+    dropout_masks[i][l]: optional explicit mask of bunch i, layer l.
+    `reference_train_chunk.calls` counts calls that trained at least a bunch.
+    """
+    bs = opt.bunchsize
+    n_bunches = in_chunk.shape[0] // bs
+    if n_bunches == 0:  # chunk smaller than one bunch: all samples dropped
+        return state
+    reference_train_chunk.calls += 1
+    for i in range(n_bunches):
+        masks = dropout_masks[i] if dropout_masks is not None else None
+        reference_train_step(state, in_chunk[i * bs:(i + 1) * bs], targ_chunk[i * bs:(i + 1) * bs],
+                             cfg, opt, generator=generator, dropout_masks=masks, inplace=True,
+                             dtype=dtype)
+    return state
+
+
+reference_train_chunk.calls = 0
+
+
+def make_jit_train_chunk(cfg: ModelConfig, opt: OptConfig):
+    """The plain chunk trainer as a runner (there is nothing to compile in
+    the port; the name is the JAX package's).  Model config and bunchsize are
+    fixed; lrate/momentum/weightcost may change from call to call, as the
+    recipe's momentum ramp does.  `rng` is a torch.Generator for the dropout
+    masks (unused when dropout is off).  Updates `state` in place."""
+    bunchsize = opt.bunchsize
+
+    def run(state: TrainState, in_chunk, targ_chunk, rng,
+            lrate=opt.lrate, momentum=opt.momentum, weightcost=opt.weightcost):
+        dyn_opt = OptConfig(lrate=lrate, momentum=momentum, weightcost=weightcost,
+                            bunchsize=bunchsize)
+        return reference_train_chunk(state, in_chunk, targ_chunk, cfg, dyn_opt, generator=rng)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# clean path
+# ---------------------------------------------------------------------------
+
+def clean_train_step(
+    state: TrainState,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    cfg: ModelConfig,
+    opt: OptConfig,
+    generator: Optional[torch.Generator] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> Tuple[TrainState, torch.Tensor]:
+    """Modern training step: mean-MSE, Polyak momentum.
+
+    Returns (new_state, loss).  Expects cfg.dropout_mode == "inverted" when
+    dropout is enabled.  compute_dtype: the type the products are computed in
+    (None = float32, the mode the tests hold; the JAX package defaults to
+    bfloat16 on the TPU).
+    """
+    loss, g_w, g_b = _grads(state, x, t, cfg, generator, dropout_masks, True, compute_dtype)
+    m, lr, wc = opt.momentum, opt.lrate, opt.weightcost
+
+    def upd(with_wc):
+        def f(delta, p, g):
+            g = g + (wc * p if with_wc else 0.0)
+            new_delta = m * delta - lr * g
+            return new_delta, p + new_delta
+        return f
+
+    return _apply(state, g_w, g_b, upd(True), upd(False), False), loss.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# evaluation
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def cv_forward_and_sqerr(params: MLP, x: torch.Tensor, t: torch.Tensor, cfg: ModelConfig):
+    """(outputs, total squared error) for a CV batch — the outputs feed the
+    optional CV output dump (one "%f "-separated line per frame)."""
+    out = forward_eval(params, x, cfg)
+    return out, torch.sum((out - t) ** 2)
+
+
+@torch.no_grad()
+def cv_squared_error_masked(params: MLP, x: torch.Tensor, t: torch.Tensor,
+                            n_valid: int, cfg: ModelConfig) -> torch.Tensor:
+    """Squared error over the first n_valid rows of a capacity-padded CV
+    chunk (the device-splice path pads every chunk to fixed shapes; padded
+    rows hold garbage)."""
+    out = forward_eval(params, x, cfg)
+    mask = (torch.arange(x.shape[0], device=x.device) < int(n_valid))[:, None]
+    return torch.sum(torch.where(mask, (out - t) ** 2, torch.zeros((), device=x.device)))
+
+
+@torch.no_grad()
+def cv_squared_error(params: MLP, x: torch.Tensor, t: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Total squared error over a CV batch (the reference's CV metric).
+
+    BPtrain accumulates sum((out-targ)^2) over all CV samples and divides by
+    cv_total_samples at the end; the caller does the final division.  Forward
+    uses the parity inference path (weight-scaling when dropout is configured).
+    """
+    out = forward_eval(params, x, cfg)
+    return torch.sum((out - t) ** 2)
