@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); build the port's
-     CUDA kernels (csrc/stft_lps.cu, fused_mlp.cu, resident_chunk.cu) with
-     nvcc (sm_90a), one nvcc per source, all started together.
+     CUDA kernels (csrc/stft_lps.cu, fused_mlp.cu, resident_chunk.cu,
+     sr_update.cu, dropout_mask.cu) with nvcc (sm_90a), one nvcc per source,
+     all started together.
   2. kernel vs plain: the STFT-LPS kernel against its plain torch version on
      the card at 8 kHz, 16 kHz and the generic 11025 and 22050 Hz geometries
      (hop % 4 == 0 and != 0, win % 4 != 0; ragged
@@ -43,10 +44,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      MSE finite and falling, the chunk trainer launched once per chunk and
      the plain trainer never; engine=resident against engine=xla with
      dropout off; samples/s, ms per bunch, a profile of one full chunk.
-  9. a `kernels` JSON line: every ported kernel with its launches on the
-     main paths, error and times.  Each path (phases 3, 4, 8) is run with
-     the counts zeroed just before it and read just after; `launches` is the
-     total, `launches_by_path` the split.
+  9. stochastic rounding and the two standalone kernels (kernels group): the
+     rounding device function bit-equal to its plain version on zeros,
+     denormals, Inf, NaN, exact bfloat16 values and their neighbours, and
+     unbiased; sr_momentum_update (kernel 6) bit-equal to its plain version
+     at the 16 kHz layer shapes, float32 and bfloat16 gradients;
+     dropout_mask (kernel 5) bit-equal at four shapes, its zero rate, its
+     seed + block identity; kernels 1 and 2 on bfloat16 W / delta at the
+     four 16 kHz layer shapes (N = 257: 2-byte aligned rows); times beside
+     the bytes bounds.
+ 10. chunk trainer variants at 3084-2048x3-257 (kernels group): float32,
+     sr_delta and sr_state under both rules, and row tiles, against the
+     float64 plain version with the same Philox bits, at the limits of a
+     draw of inputs without a ReLU flip: a seeded draw is passed over (up to
+     eight) only if the float32 plain version misses the limits there too;
+     tile_rows 32 and 64 against the untiled run; hbm_spill=1 bit-equal to
+     the unspilled run; a wrong hyperparameter given to the sr_delta or the
+     sr_state trainer is refused; ms per bunch of each form beside its bound.
+ 11. in-memory training (main path, train group): a seeded corpus featurized
+     at 16 kHz on the STFT kernel -> build_training_arrays (> 16,384 x 3084)
+     -> train_epochs_arrays at 3084-2048x3-257, recipe schedule, parity
+     dropout: two epochs on engine=resident with sr_delta (CV MSE falling)
+     and on the float32 engine (final CV within SR_CV_FRACTION); one epoch
+     each of sr_state, hbm_spill=1, clean-rule row tiles, and engine=xla
+     with dropout_rng="tpu_prng" (kernel 5 on its path); sr_train_step at
+     full width (kernel 6 on its path); kill and resume through a checkpoint
+     equal to the straight run bit for bit.
+ 12. a `kernels` JSON line: every ported kernel and trainer form with its
+     launches on the main paths, error and times.  Each path (phases 3, 4,
+     8, 11) is run with the counts zeroed just before it and read just
+     after; `launches` is the total, `launches_by_path` the split.
 `--only serve,kernels,train` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
 non-zero without one.
@@ -845,6 +872,724 @@ def phase_resident(gen) -> dict:
                 rel_fro_err_one_bunch=worst["one"], shape=f"{BUNCH} x 1548-2048x3-129, per bunch")
 
 
+
+# ---------------------------------------------------------------------------
+# stochastic rounding, kernels 5 and 6, bfloat16 storage in kernels
+# 1 and 2, the chunk trainer's variants at the 16 kHz width, and the
+# in-memory training path
+# ---------------------------------------------------------------------------
+
+WIDE = (3084, 2048, 2048, 2048, 257)  # the 16 kHz net
+# A kernel that stores bfloat16 with stochastic rounding, against the float64
+# plain version rounded with the same bits: the two float32 values that are
+# rounded differ by float32 summation order (~1e-7 relative), so the rounding
+# decision differs for about that share over a bfloat16 ulp (2^-8 relative) of
+# the elements, and such an element is then off by one bfloat16 ulp.  Held: no
+# element further than one ulp beyond the float32 kernels' own tolerance
+# (|a - b| <= 2^-7 max(|a|, |b|) + KERNEL_REL_MAX max|want|: where m*delta and
+# A*G cancel, the float32 value itself is off by more than the small result's
+# ulp), and at most SR_DIFF_SHARE of the elements different at all.
+SR_DIFF_SHARE = 2e-3
+
+
+def _bits16(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int16)
+
+
+def _hold_sr(got: torch.Tensor, want: torch.Tensor, label: str, stats: dict) -> None:
+    """bfloat16 `got` against bfloat16 `want` rounded with the same bits."""
+    _check(got.dtype == torch.bfloat16 and want.dtype == torch.bfloat16 and got.shape == want.shape,
+           f"{label}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    _check(bool(torch.isfinite(g).all()), f"{label}: non-finite values")
+    differ = _bits16(got) != _bits16(want)
+    share = float(differ.float().mean())
+    far = (g - w).abs() > 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + KERNEL_REL_MAX * w.abs().max()
+    _check(not bool(far.any()), f"{label}: {int(far.sum())} elements further than one bfloat16 ulp "
+                                f"beyond the float32 tolerance")
+    _check(share <= SR_DIFF_SHARE, f"{label}: {share:.3g} of the elements differ (limit "
+                                   f"{SR_DIFF_SHARE})")
+    stats["share"] = max(stats.get("share", 0.0), share)
+    stats["n_diff"] = stats.get("n_diff", 0) + int(differ.sum())
+    stats["n"] = stats.get("n", 0) + differ.numel()
+    stats["abs"] = max(stats.get("abs", 0.0), float((g - w).abs().max()))
+
+
+def phase_sr(gen) -> dict:
+    """The rounding function, kernel 6 and kernel 5 against their plain versions."""
+    from tpu_sednn_torch.ops.dropout_mask import dropout_mask, dropout_mask_reference
+    from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, sr_bits,
+                                            sr_to_bf16_reference)
+    from tpu_sednn_torch.ops.sr_update import (sr_momentum_update, sr_momentum_update_reference,
+                                               sr_round_on_device)
+
+    # (i) the rounding function
+    exact = torch.tensor([0.0, -0.0, 1.0, -1.0, 1.5, -2.0, 0.0078125, 3.3895313892515355e38,
+                          1e-40, -1e-40, float("inf"), -float("inf"), float("nan")], device="cuda")
+    exact = sr_to_bf16_reference(exact, torch.zeros_like(exact, dtype=torch.int64)).float()
+    one_ulp = torch.nextafter(exact[:8], torch.full_like(exact[:8], float("inf")))
+    one_ulp = torch.cat([one_ulp, torch.nextafter(exact[:8], torch.full_like(exact[:8], -float("inf")))])
+    special = torch.tensor([1e-40, -1e-40, 2.0 ** -126, 3.4e38, -3.4e38], device="cuda")
+    vals = torch.cat([exact, one_ulp, special, _randn(gen, 4062).flatten() * 3.0,
+                      _randn(gen, 4096).flatten() * 1e-6]).reshape(-1, 64).contiguous()
+    n_exact = exact.numel()
+    for name, bits in (("zero bits", torch.zeros_like(vals, dtype=torch.int64)),
+                       ("all-ones bits", torch.full_like(vals, 0xFFFF, dtype=torch.int64)),
+                       ("random bits", torch.randint(0, 2 ** 16, vals.shape, generator=gen,
+                                                     device="cuda"))):
+        got, want = sr_round_on_device(vals, bits), sr_to_bf16_reference(vals, bits)
+        _check(torch.equal(_bits16(got), _bits16(want)), f"sr_bf16 with {name} differs from the plain "
+                                                         f"version")
+        # representable values come back unchanged whatever the bits (NaN stays NaN)
+        back = got.flatten()[:n_exact].float()
+        _check(torch.equal(back[:-1], exact[:-1]) and bool(torch.isnan(back[-1])),
+               f"sr_bf16 with {name} moved a value bfloat16 holds exactly")
+    for shift in (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT):
+        got = sr_round_on_device(vals, key=99, shift=shift)
+        want = sr_to_bf16_reference(vals, sr_bits(99, vals.shape[0], vals.shape[1], shift, "cuda"))
+        _check(torch.equal(_bits16(got), _bits16(want)), f"sr_bf16 on the stream (shift {shift}) "
+                                                         f"differs from the plain version")
+    # unbiased: a constant 0.3 of an ulp above 1.0, 8192 draws.  One draw has
+    # sd ulp * sqrt(0.3 * 0.7); nearest rounding would be 0.3 ulp off, 59 sigma
+    ulp, p, n_draw = 2.0 ** -7, 0.3, 8192
+    const = torch.full((64, 128), 1.0 + p * ulp, device="cuda")
+    worst_sigma = 0.0
+    for shift in (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT):
+        mean = float(sr_round_on_device(const, key=7, shift=shift).double().mean())
+        sigma = ulp * np.sqrt(p * (1 - p) / n_draw)
+        dev = abs(mean - float(const[0, 0].double())) / sigma
+        _check(dev <= 4.0, f"SR mean of {n_draw} draws off by {dev:.2f} sigma (shift {shift})")
+        worst_sigma = max(worst_sigma, dev)
+    print(f"[kernel] sr_bf16: {vals.numel()} values (zeros, denormals, +-Inf, NaN, exact bfloat16 "
+          f"values and their float32 neighbours, normals at two scales) x zero / all-ones / random "
+          f"/ stream bits bit-equal to the plain version; exact values unchanged; mean of "
+          f"{n_draw} draws of 1 + 0.3 ulp within {worst_sigma:.2f} sigma (nearest rounding: "
+          f"{p / np.sqrt(p * (1 - p) / n_draw):.0f} sigma)", flush=True)
+
+    # (ii) kernel 6
+    hyp = dict(momentum=0.9, lrate=0.02, weightcost=1e-4)
+    k6 = dict(n_diff=0, n=0, by_shape={})
+    for shape in ((3084, 2048), (2048, 2048), (2048, 257), (257,), (1300, 129)):
+        w = (_randn(gen, *shape) * 0.05).to(torch.bfloat16)
+        d = (_randn(gen, *shape) * 1e-4).to(torch.bfloat16)
+        for g_dtype in (torch.float32, torch.bfloat16):
+            g = (_randn(gen, *shape) * 0.01).to(g_dtype)
+            w2, d2 = sr_momentum_update(w, d, g, 1234, **hyp)
+            w_ref, d_ref = sr_momentum_update_reference(w, d, g, 1234, **hyp)
+            n_diff = int((_bits16(w2) != _bits16(w_ref)).sum() + (_bits16(d2) != _bits16(d_ref)).sum())
+            _check(n_diff == 0, f"sr_momentum_update {shape} g {g_dtype}: {n_diff} elements differ "
+                                f"from the plain version")
+            _check(w2.dtype == d2.dtype == torch.bfloat16 and w2.shape == w.shape, "kernel 6 outputs")
+            k6["n"] += 2 * w.numel()
+            k6["abs"] = max(k6.get("abs", 0.0), float((w2.float() - w_ref.float()).abs().max()))
+        # rows 512.. of a tall matrix draw from stream seed + 7919, rows 0..
+        if len(shape) == 2 and shape[0] > 512:
+            w3, d3 = sr_momentum_update(w[512:1024].contiguous(), d[512:1024].contiguous(),
+                                        g[512:1024].contiguous(), 1234 + 7919, **hyp)
+            _check(torch.equal(_bits16(w3), _bits16(w2[512:1024])) and
+                   torch.equal(_bits16(d3), _bits16(d2[512:1024])),
+                   f"sr_momentum_update {shape}: the second row block is not stream seed + 7919")
+    _check(not torch.equal(_bits16(sr_momentum_update(w, d, g, 1, **hyp)[1]),
+                           _bits16(sr_momentum_update(w, d, g, 2, **hyp)[1])),
+           "sr_momentum_update: two seeds gave the same rounding")
+    # sr_train_step hands the kernel bfloat16 gradients (the parameters' type): 10 bytes an
+    # element; a float32 gradient (12 bytes) is timed beside it
+    ms = plain = ms32 = n_el = 0.0
+    for l in range(4):
+        shape = (WIDE[l], WIDE[l + 1])
+        w = (_randn(gen, *shape) * 0.05).to(torch.bfloat16)
+        d = (_randn(gen, *shape) * 1e-4).to(torch.bfloat16)
+        g32 = _randn(gen, *shape) * 0.01
+        g = g32.to(torch.bfloat16)
+        t_k = _device_ms(lambda i: sr_momentum_update(w, d, g, i, **hyp))
+        t_32 = _device_ms(lambda i: sr_momentum_update(w, d, g32, i, **hyp))
+        t_p = _device_ms(lambda i: sr_momentum_update_reference(w, d, g, i, **hyp), reps=1)
+        k6["by_shape"][f"{shape[0]}x{shape[1]}"] = dict(ms=t_k, plain_ms=t_p, ms_float32_gradient=t_32)
+        ms, plain, ms32, n_el = ms + t_k, plain + t_p, ms32 + t_32, n_el + w.numel()
+    k6.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=10.0 * n_el / PEAK_BYTES_PER_S * 1e3,
+              bound_by="bytes", max_abs_err=k6.pop("abs"),
+              float32_gradient=dict(ms=ms32, bound_ms=12.0 * n_el / PEAK_BYTES_PER_S * 1e3),
+              shape="the four weight matrices of 3084-2048x3-257, bfloat16 gradient")
+    print(f"[kernel] sr_momentum_update: 5 shapes x float32 / bfloat16 gradient, {k6['n']} elements, "
+          f"{k6['n_diff']} differ from the plain version (bit-equal); row block 512.. is stream "
+          f"seed + 7919; the 16 kHz net's four matrices with the bfloat16 gradient of "
+          f"sr_train_step {ms:.4f} ms (plain {plain:.2f} ms with the host's share, no library "
+          f"call computes it), bound {k6['bound_ms']:.4f} ms ({10.0 * n_el / 1e6:.0f} MB: W, delta, "
+          f"g read, W, delta written, 2 bytes each); with a float32 gradient {ms32:.4f} ms, "
+          f"bound {k6['float32_gradient']['bound_ms']:.4f} ms ({12.0 * n_el / 1e6:.0f} MB)",
+          flush=True)
+
+    # (iii) kernel 5
+    k5 = dict(by_shape={})
+    worst = k5_abs = 0.0
+    for shape in ((128, 3084), (100, 1548), (1024, 2048), (1300, 257)):
+        for omit in (0.1, 0.2, 0.5):
+            m = dropout_mask(77, shape, omit)
+            ref = dropout_mask_reference(77, shape, omit, device="cuda")
+            _check(m.shape == shape and m.dtype == torch.float32 and torch.equal(m, ref),
+                   f"dropout_mask {shape} omit {omit} differs from the plain version")
+            k5_abs = max(k5_abs, float((m - ref).abs().max()))
+            zr = 1.0 - float(m.mean())
+            tol = 4.0 * np.sqrt(omit * (1 - omit) / m.numel())
+            _check(abs(zr - omit) <= tol, f"dropout_mask {shape}: zero rate {zr} vs {omit}")
+            worst = max(worst, abs(zr - omit) / tol)
+    tall = dropout_mask(77, (1300, 257), 0.2)
+    _check(torch.equal(tall[512:1024], dropout_mask(78, (512, 257), 0.2))
+           and torch.equal(tall[1024:], dropout_mask(79, (276, 257), 0.2)),
+           "dropout_mask: rows 512.. under seed s are not rows 0.. under s + 1")
+    _check(torch.equal(dropout_mask(-5, (64, 100), 0.2), dropout_mask(2 ** 32 - 5, (64, 100), 0.2))
+           and not torch.equal(dropout_mask(1, (64, 100), 0.2), dropout_mask(2, (64, 100), 0.2)),
+           "dropout_mask: seeds")
+    ms = plain = lib = nbytes = 0.0
+    for shape, omit, times in (((BUNCH, WIDE[0]), 0.1, 1), ((BUNCH, 2048), 0.2, 3)):
+        t_k = _device_ms(lambda i: dropout_mask(i, shape, omit), reps=50)
+        t_p = _device_ms(lambda i: dropout_mask_reference(i, shape, omit, device="cuda"), reps=1)
+        t_l = _device_ms(lambda i: (torch.rand(shape, device="cuda") >= omit).float(), reps=50)
+        k5["by_shape"][f"{shape[0]}x{shape[1]}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l)
+        ms, plain, lib = ms + times * t_k, plain + times * t_p, lib + times * t_l
+        nbytes += times * 4.0 * shape[0] * shape[1]
+    k5.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+              bound_by="bytes", max_abs_err=k5_abs,
+              shape="one bunch's four masks of 3084-2048x3-257: 128x3084 and 3 of 128x2048")
+    print(f"[kernel] dropout_mask: 4 shapes x omit 0.1 / 0.2 / 0.5 bit-equal to the plain version, "
+          f"zero rate within {worst:.2f} of 4 sigma; rows 512.. under seed s = rows 0.. under "
+          f"s + 1; one bunch's four masks {ms:.4f} ms (plain {plain:.2f} ms with the host's share, "
+          f"torch.rand >= omit {lib:.4f} ms), bound {k5['bound_ms']:.5f} ms (bytes written)",
+          flush=True)
+
+    # (iv) kernels 1 and 2 on bfloat16 storage, the four 16 kHz layer shapes
+    from tpu_sednn_torch.ops.fused_mlp import (fused_bwd_update, fused_bwd_update_reference,
+                                               fused_linear_act, fused_linear_act_reference)
+
+    f64, worst_f32, sr_stats = torch.float64, {}, {}
+    for l in range(4):
+        B, K, N = BUNCH, WIDE[l], WIDE[l + 1]
+        x, b = _randn(gen, B, K), _randn(gen, N, scale=0.1)
+        w16 = _randn(gen, K, N, scale=0.03).to(torch.bfloat16)
+        act = "relu" if l < 3 else "linear"
+        _hold(fused_linear_act(x, w16, b, act), fused_linear_act_reference(x, w16, b, act, dtype=f64),
+              f"fused_linear_act {B}x{K}x{N} on bfloat16 W", worst_f32)
+        dedx = _randn(gen, B, N, scale=0.02)
+        y_prev = torch.relu(_randn(gen, B, K))
+        db = _randn(gen, N, scale=0.003)
+        hyp2 = dict(momentum=0.54, lrate=1.0, inv_n=1.0 / B, weightcost=1e-4, sr_seed=4242 + l)
+        for mode, w0 in (("bfloat16 delta", w16.float()), ("bfloat16 W and delta", w16)):
+            d0 = _randn(gen, K, N, scale=0.003).to(torch.bfloat16)
+            want = fused_bwd_update_reference(dedx, y_prev, w0, d0, b, db, dtype=f64, **hyp2)
+            w2, d2, b2, db2 = w0.clone(), d0.clone(), b.clone(), db.clone()
+            got = fused_bwd_update(dedx, y_prev, w2, d2, b2, db2, **hyp2)
+            label = f"fused_bwd_update {B}x{K}x{N} on {mode}"
+            _check(got[0] is w2 and got[1] is d2 and d2.dtype == torch.bfloat16
+                   and w2.dtype == w0.dtype, f"{label}: not in place in its storage types")
+            _hold_sr(got[1], want[1], f"{label}, delta", sr_stats)
+            if w0.dtype == torch.bfloat16:
+                _hold_sr(got[0], want[0], f"{label}, W", sr_stats)
+            else:
+                _hold(got[0], want[0], f"{label}, W", worst_f32)
+            for name, i in (("dedy", 2), ("b", 3), ("delta_b", 4)):
+                _hold(got[i], want[i], f"{label}, {name}", worst_f32)
+    torch.cuda.synchronize()
+    print(f"[kernel] kernels 1 and 2 on bfloat16 storage, the four layers of 3084-2048x3-257 "
+          f"(N = 257: 2-byte aligned rows, scalar accesses): float32 outputs within "
+          f"{worst_f32['rel_max']:.3g} of max|want| / {worst_f32['rel_fro']:.3g} Frobenius of the "
+          f"float64 plain version; bfloat16 outputs: {sr_stats['n_diff']} of {sr_stats['n']} "
+          f"elements differ from the plain version rounded with the same bits, none by more than "
+          f"one bfloat16 ulp, worst share {sr_stats['share']:.3g} (limit {SR_DIFF_SHARE})",
+          flush=True)
+    return dict(k5=k5, k6=k6, bf16_storage=dict(share=sr_stats["share"], n_diff=sr_stats["n_diff"],
+                                                n=sr_stats["n"], **worst_f32))
+
+
+# Chunk trainer variants at 3084-2048x3-257 against the float64 plain version
+# with the same Philox bits, per tensor, relative Frobenius error of the
+# update after 3 bunches.
+#
+# ReLU flips decide how this is held.  A hidden pre-activation within float32
+# rounding of 0 is > 0 in one summation order and not in another; at this
+# width (128 x 6144 hidden units a bunch) about one draw of inputs in four has
+# such a unit in 3 bunches, and at lrate 1.0 the flipped dedy element changes
+# W, hence every later bunch: the update is then 1e-4 to 5e-2 off, where a
+# draw without a flip reads 2e-6.  The float32 plain version (plain torch)
+# flips against float64 in the same way.  So each comparison draws seeded
+# inputs up to WIDE_DRAWS times and must hold its limits on the first draw
+# that the float32 plain version itself holds against float64 with the same
+# limits: a draw is passed over only when the plain version fails them too
+# (its errors are printed beside the kernel's), and a kernel that misses the
+# limits where the plain version holds them fails the run.  The limits are
+# those of a draw without a flip, far below a flip's effect (and below the
+# deliberate faults'):
+# * float32 storage (and row tiles): WIDE_REL_FRO on every tensor.
+# * sr_delta: W, b and delta_b are float32 and W takes the unrounded step;
+#   the stored bfloat16 delta differs where the two float32 values straddle a
+#   rounding boundary (a share ~1e-4 of the elements, one ulp = 2^-8 relative
+#   each), and the next bunch's W inherits m times that: SR_DELTA_W_FRO,
+#   SR_DELTA_FRO.  After ONE bunch W, b and delta_b are the float32 trainer's
+#   (CHUNK_ONE_REL_FRO) and delta is held to SR_DELTA_ONE_FRO.
+# * sr_state: W itself is bfloat16.  Its 3-bunch update W - W0 is made of a
+#   few whole ulps of W (4e-3 |W|) on some elements, far larger than the
+#   float32 step, so one differing decision weighs much more against the
+#   update's norm, and the other tensors see that W in bunches 2 and 3:
+#   SR_STATE_W_FRO, SR_STATE_FRO (read 1.1e-2 and 5.6e-3 without a flip).
+#   After ONE bunch the forward has read the same bfloat16 W on both sides,
+#   so b and delta_b are the float32 trainer's and delta is sr_delta's; W is
+#   held to SR_STATE_ONE_W_FRO.  Wrong hyperparameters are refused there.
+WIDE_DRAWS = 8
+WIDE_REL_FRO = 2e-5
+SR_DELTA_W_FRO = 1e-4
+SR_DELTA_FRO = 3e-4
+SR_DELTA_ONE_FRO = 3e-4
+SR_STATE_W_FRO = 5e-2
+SR_STATE_FRO = 2e-2
+SR_STATE_ONE_W_FRO = 2e-3
+
+
+def phase_resident_wide() -> dict:
+    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.train.step import OptConfig, init_train_state
+
+    def cfg_of(**kw):
+        return ModelConfig(layersizes=WIDE, **kw)
+
+    mlp = init_params(torch.Generator().manual_seed(5), cfg_of(), scheme="glorot", device="cuda")
+    opt = OptConfig(lrate=1.0, momentum=0.5, weightcost=1e-5, bunchsize=BUNCH)
+    hyp = (opt.lrate, opt.momentum, opt.weightcost)
+    n_b = 3
+    f64 = torch.float64
+    drop = dict(dropout_vis=0.1, dropout_hid=0.2)
+
+    def draw(i):
+        """Seeded inputs number i: 3 bunches and a partial one."""
+        g = torch.Generator(device="cuda").manual_seed(3084 + i)
+        x = _randn(g, n_b * BUNCH + 40, WIDE[0])
+        return x, (x @ _randn(g, WIDE[0], WIDE[-1], scale=0.05)).contiguous()
+
+    def state_for(kw):
+        st = init_train_state(mlp)
+        rc._cast_state(st, torch.bfloat16 if kw.get("sr_state") else torch.float32,
+                       torch.bfloat16 if (kw.get("sr_state") or kw.get("sr_delta")) else torch.float32)
+        return st
+
+    def plain64(cfg, rule, kw, xs, ts, seed=17):
+        coefs = rc._scal_coefs(rule, BUNCH, WIDE[-1], *hyp)
+        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows")}
+        return rc.resident_train_chunk_reference(state_for(kw), xs, ts, cfg, BUNCH, coefs, seed,
+                                                 dtype=f64, **ref_kw)
+
+    def plain32(cfg, rule, kw, xs, ts, seed=17, h=None):
+        """The float32 plain version's errors by group against the float64 one."""
+        coefs = rc._scal_coefs(rule, BUNCH, WIDE[-1], *(h or hyp))
+        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows")}
+        got = rc.resident_train_chunk_reference(state_for(kw), xs, ts, cfg, BUNCH, coefs, seed,
+                                                **ref_kw)
+        return errs_by_group(got, plain64(cfg, rule, kw, xs, ts, seed), kw)
+
+    def errs_by_group(got, want, kw=None):
+        """Worst update error of (W, b, delta_w, delta_b), the update taken
+        from the state the variant starts from (W rounded to its storage)."""
+        for g in _state_tensors(got):
+            _check(bool(torch.isfinite(g.float()).all()), "non-finite state")
+        e = _update_errors(got, want, state_for(kw or {}))
+        return [max(e[4 * i:4 * i + 4]) for i in range(4)]
+
+    def hold(label, limits, compare, plain):
+        """compare(x, t) -> the kernel's errors by group; plain(x, t) -> the float32 plain
+        version's errors against float64, held to the same `limits`.  -> (errors, draw index)
+        of the first draw that holds.  A draw is passed over only if the plain version misses
+        the limits there too (a ReLU flip of float32); a miss of the kernel alone fails."""
+        def fmt(e):
+            return " ".join(f"{v:.2g}" for v in e)
+
+        def ok(e):
+            return all(err <= lim for err, lim in zip(e, limits))
+
+        seen = []
+        for i in range(WIDE_DRAWS):
+            e = compare(*draw(i))
+            if ok(e):
+                flips = "; ".join("draw %d read %s" % (j, s) for j, s in enumerate(seen))
+                print(f"[kernel] chunk trainer at 3084-2048x3-257, {label}: {n_b} bunches + a "
+                      f"partial one, worst update error W {e[0]:.3g} b {e[1]:.3g} delta_w {e[2]:.3g} "
+                      f"delta_b {e[3]:.3g} (limits {' '.join(f'{l:g}' for l in limits)}) on draw {i}"
+                      + (f" ({flips}: ReLU flips, the plain version misses the limits too)"
+                         if seen else ""), flush=True)
+                return e, i
+            e32 = plain(*draw(i))
+            _check(not ok(e32), f"{label}: draw {i} reads {fmt(e)} against the limits "
+                                f"{' '.join(f'{l:g}' for l in limits)}, which the float32 plain "
+                                f"version holds there ({fmt(e32)})")
+            seen.append(f"{fmt(e)}, the float32 plain version {fmt(e32)}")
+        _check(False, f"{label}: no draw of {WIDE_DRAWS} holds the limits {limits}: {seen}")
+
+    out = {}
+    f32_lim = (WIDE_REL_FRO,) * 4
+    srd_lim = (SR_DELTA_W_FRO, SR_DELTA_W_FRO, SR_DELTA_FRO, SR_DELTA_W_FRO)
+    srs_lim = (SR_STATE_W_FRO, SR_STATE_FRO, SR_STATE_FRO, SR_STATE_FRO)
+    cases = [
+        ("float32, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", {}, f32_lim),
+        ("sr_delta, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", dict(sr_delta=True), srd_lim),
+        ("sr_delta, clean", cfg_of(), "clean", dict(sr_delta=True), srd_lim),
+        ("sr_state, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", dict(sr_state=True), srs_lim),
+        ("sr_state, clean", cfg_of(), "clean", dict(sr_state=True), srs_lim),
+        ("tile_rows 64, clean, dropout 0.1/0.2 (inverted)",
+         cfg_of(dropout_mode="inverted", **drop), "clean", dict(tile_rows=64), f32_lim),
+    ]
+    for label, cfg, rule, kw, limits in cases:
+        run = rc.make_resident_train_chunk(cfg, opt, rule=rule, **kw)
+
+        def compare(x, t):
+            got = run(init_train_state(mlp), x, t, 17, *hyp)
+            want = plain64(cfg, rule, kw, x, t)
+            _check(got.step == want.step == n_b, f"{label}: steps {got.step}, {want.step}")
+            want_w = torch.bfloat16 if kw.get("sr_state") else torch.float32
+            want_d = torch.bfloat16 if (kw.get("sr_state") or kw.get("sr_delta")) else torch.float32
+            _check(all(w.dtype == want_w for w in got.params.w)
+                   and all(d.dtype == want_d for d in got.deltas.w)
+                   and all(b.dtype == torch.float32
+                           for b in list(got.params.b) + list(got.deltas.b)),
+                   f"{label}: storage types of the returned state")
+            return errs_by_group(got, want, kw)
+
+        out[label], _ = hold(label + " vs float64 plain with the same bits", limits, compare,
+                             lambda x, t: plain32(cfg, rule, kw, x, t))
+
+    # a second call takes the bfloat16 state as it is, with other hyperparameters
+    cfg = cfg_of(**drop)
+    sr_kw = dict(sr_delta=True)
+    run = rc.make_resident_train_chunk(cfg, opt, **sr_kw)
+
+    def two_plain(x, t, dtype):
+        st_p = state_for(sr_kw)
+        for seed, h in ((5, hyp), (6, (0.7, 0.9, 0.0))):
+            rc.resident_train_chunk_reference(st_p, x, t, cfg, BUNCH,
+                                              rc._scal_coefs("parity", BUNCH, WIDE[-1], *h), seed,
+                                              dtype=dtype, sr_delta=True)
+        return st_p
+
+    def two_calls(x, t):
+        st_k = run(init_train_state(mlp), x, t, 5, *hyp)
+        d_first = st_k.deltas.w[0]
+        run(st_k, x, t, 6, 0.7, 0.9, 0.0)
+        _check(st_k.deltas.w[0] is d_first and st_k.step == 2 * n_b,
+               "sr_delta: a second call did not take the bfloat16 state in place")
+        return errs_by_group(st_k, two_plain(x, t, f64), sr_kw)
+
+    hold("sr_delta, two calls, hyperparameters changed", srd_lim, two_calls,
+         lambda x, t: errs_by_group(two_plain(x, t, torch.float32), two_plain(x, t, f64), sr_kw))
+
+    # the limits bite: an sr_delta and an sr_state trainer given a wrong hyperparameter are
+    # refused by the one-bunch or the three-bunch limits, on a draw where the right ones pass both
+    for name, kw_sr, one_limits, three_limits in (
+            ("sr_delta", sr_kw, (CHUNK_ONE_REL_FRO, CHUNK_ONE_REL_FRO, SR_DELTA_ONE_FRO,
+                                 CHUNK_ONE_REL_FRO), srd_lim),
+            ("sr_state", dict(sr_state=True), (SR_STATE_ONE_W_FRO, CHUNK_ONE_REL_FRO,
+                                               SR_DELTA_ONE_FRO, CHUNK_ONE_REL_FRO), srs_lim)):
+        run_sr = rc.make_resident_train_chunk(cfg_of(), opt, rule="parity", **kw_sr)
+        limits = one_limits + three_limits
+
+        def one_and_three(h, run_sr=run_sr, kw_sr=kw_sr):
+            def compare(x, t):
+                one = errs_by_group(run_sr(init_train_state(mlp), x[:BUNCH], t[:BUNCH], 17, *h),
+                                    plain64(cfg_of(), "parity", kw_sr, x[:BUNCH], t[:BUNCH]), kw_sr)
+                three = errs_by_group(run_sr(init_train_state(mlp), x, t, 17, *h),
+                                      plain64(cfg_of(), "parity", kw_sr, x, t), kw_sr)
+                return one + three
+            return compare
+
+        def one_and_three_plain(x, t, kw_sr=kw_sr):
+            return (plain32(cfg_of(), "parity", kw_sr, x[:BUNCH], t[:BUNCH])
+                    + plain32(cfg_of(), "parity", kw_sr, x, t))
+
+        e, i_ok = hold(f"{name}, parity, after one bunch (first four) and after three", limits,
+                       one_and_three(hyp), one_and_three_plain)
+        out[f"{name}, parity, one bunch"] = e[:4]
+        for label, h in (("weightcost dropped", (opt.lrate, opt.momentum, 0.0)),
+                         ("momentum x 1.03", (opt.lrate, 1.03 * opt.momentum, opt.weightcost)),
+                         ("lrate x 1.001", (1.001 * opt.lrate, opt.momentum, opt.weightcost))):
+            f = one_and_three(h)(*draw(i_ok))
+            _check(any(err > lim for err, lim in zip(f, limits)),
+                   f"an {name} trainer with {label} passes the limits: {f}")
+            print(f"[kernel] {name} trainer with {label} (a deliberate fault) is refused: after one "
+                  f"bunch W {f[0]:.3g} (limit {one_limits[0]}) delta_w {f[2]:.3g} (limit "
+                  f"{one_limits[2]}), after three W {f[4]:.3g} (limit {three_limits[0]}) delta_w "
+                  f"{f[6]:.3g} (limit {three_limits[2]})", flush=True)
+
+    # row tiles against the untiled clean run (two kernels, two summation orders)
+    clean_run = rc.make_resident_train_chunk(cfg_of(), opt, rule="clean")
+    for tile in (32, 64):
+        tiled_run = rc.make_resident_train_chunk(cfg_of(), opt, rule="clean", tile_rows=tile)
+
+        def tiled_vs_untiled(x, t):
+            before = rc.kernel_launches["tiled_bwd_update"]
+            tiled = tiled_run(init_train_state(mlp), x, t, 17, *hyp)
+            n_tiled = rc.kernel_launches["tiled_bwd_update"] - before
+            _check(n_tiled == 4 * n_b * (BUNCH // tile) and tiled.step == n_b,
+                   f"tile_rows {tile}: {n_tiled} tiled backward launches, step {tiled.step}")
+            return errs_by_group(tiled, clean_run(init_train_state(mlp), x, t, 17, *hyp))
+
+        out[f"tile_rows {tile} vs untiled"], _ = hold(
+            f"clean rule, tile_rows {tile} (bunch 128, {4 * n_b * (BUNCH // tile)} accumulating "
+            f"backward launches) vs the untiled run", f32_lim, tiled_vs_untiled,
+            lambda x, t, tile=tile: plain32(cfg_of(), "clean", dict(tile_rows=tile), x, t))
+
+    # hbm_spill: the float32 trainer, bit for bit
+    x, t = draw(0)
+    plain_run = rc.make_resident_train_chunk(cfg, opt)(init_train_state(mlp), x, t, 17, *hyp)
+    spilled = rc.make_resident_train_chunk(cfg, opt, hbm_spill=1)(init_train_state(mlp), x, t, 17,
+                                                                   *hyp)
+    torch.cuda.synchronize()
+    spill_abs = 0.0
+    for a, b in zip(_state_tensors(spilled), _state_tensors(plain_run)):
+        _check(torch.equal(a, b), "hbm_spill=1 differs from the unspilled run")
+        spill_abs = max(spill_abs, float((a - b).abs().max()))
+    print(f"[kernel] chunk trainer, hbm_spill=1 equals the unspilled float32 run bit for bit "
+          f"(largest difference {spill_abs}; the state is in device memory either way)", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(257)
+    # ms per bunch, 50 bunches of dropout training in one call, by variant,
+    # in turns (f32, sr_delta, sr_state, spill, row tiles, then back)
+    n_t = 50
+    xt, tt = _randn(gen, n_t * BUNCH, WIDE[0]), _randn(gen, n_t * BUNCH, WIDE[-1])
+    small = (1e-3, 0.5, 0.0)
+    variants = [("f32", {}), ("sr_delta", dict(sr_delta=True)), ("sr_state", dict(sr_state=True)),
+                ("hbm_spill", dict(hbm_spill=1)), ("tile_rows", dict(rule="clean", tile_rows=64))]
+    runs = {n: (rc.make_resident_train_chunk(cfg, opt, **kw), init_train_state(mlp))
+            for n, kw in variants}
+    times = {n: [] for n, _ in variants}
+    for name in [n for n, _ in variants] + [n for n, _ in reversed(variants)]:
+        r, st = runs[name]
+        times[name].append(_time_ms(lambda: r(st, xt, tt, 3, *small), reps=3, warmup=1) / n_t)
+    kn = sum(a * b for a, b in zip(WIDE[:-1], WIDE[1:]))
+    flops = 2.0 * BUNCH * (3 * kn - WIDE[0] * WIDE[1])
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    io = 4.0 * BUNCH * (WIDE[0] + WIDE[-1])
+    # passes over the state: W read by the forward; W and delta read and written by the
+    # backward (row tiles read it again for every tile; the bound counts each once)
+    state_bytes = {"f32": 4.0 * 5 * kn, "hbm_spill": 4.0 * 5 * kn, "tile_rows": 4.0 * 5 * kn,
+                   "sr_delta": 4.0 * 3 * kn + 2.0 * 2 * kn, "sr_state": 2.0 * 5 * kn}
+    timing = {}
+    for name, kw in variants:
+        st = state_for(kw)
+        coefs = rc._scal_coefs(kw.get("rule", "parity"), BUNCH, WIDE[-1], *small)
+        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows")}
+        plain_ms = _time_ms(lambda: rc.resident_train_chunk_reference(
+            st, xt[:4 * BUNCH], tt[:4 * BUNCH], cfg, BUNCH, coefs, 3, **ref_kw), reps=1, warmup=1) / 4
+        t_bytes = (state_bytes[name] + io) / PEAK_BYTES_PER_S * 1e3
+        ms = float(np.mean(times[name]))
+        timing[name] = dict(ms=ms, ms_runs=times[name], plain_ms=plain_ms, library_ms=None,
+                            bound_ms=max(t_ops, t_bytes),
+                            bound_by="operations" if t_ops >= t_bytes else "bytes",
+                            bytes_ms=t_bytes, ops_ms=t_ops)
+        print(f"[kernel] chunk trainer at 3084-2048x3-257, {name}: {ms:.4f} ms per bunch "
+              f"({' '.join(f'{v:.4f}' for v in times[name])}; {flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"version {plain_ms:.2f} ms per bunch with the host's share, bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s: {t_ops:.4f}; "
+              f"{(state_bytes[name] + io) / 1e6:.0f} MB at 3.35 TB/s: {t_bytes:.4f})", flush=True)
+    return dict(errors=out, timing=timing, spill_max_abs=spill_abs)
+
+
+# Two epochs of the 16 kHz net through train_epochs_arrays, sr_delta against
+# the float32 engine from the same weights, data and seeds: final CV MSE
+# within this fraction (the JAX package's own control of bf16 momentum against
+# float32 held 2%).
+SR_CV_FRACTION = 0.02
+
+
+def phase_train_arrays(tmp: str, smi: str) -> dict:
+    """The in-memory training path at 3084-2048x3-257: a corpus featurized at
+    16 kHz on the STFT kernel -> build_training_arrays -> train_epochs_arrays."""
+    from tpu_sednn_torch.data import build_training_arrays
+    from tpu_sednn_torch.dsp.stft import StftConfig
+    from tpu_sednn_torch.io import compute_norm
+    from tpu_sednn_torch.model.mlp import MLP, ModelConfig, init_params
+    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
+    from tpu_sednn_torch.ops.sr_update import sr_train_step
+    from tpu_sednn_torch.ops.stft_lps import stft_lps
+    from tpu_sednn_torch.recipes import recipe_opt_schedule
+    from tpu_sednn_torch.train.loop import train_epochs_arrays
+    from tpu_sednn_torch.train.step import OptConfig, TrainState, init_train_state
+    from tpu_sednn_torch.utils.logging import Logger
+
+    reset_launch_counts()  # the path's run starts here (corpus set-up included)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(316)
+    sr, n_utt, n_cv = 16000, 36, 4
+    stft = StftConfig.for_rate(sr)
+    noisy, clean = [], []
+    for i in range(n_utt):
+        n = int(rng.uniform(8.0, 9.0) * sr)
+        sig = _speechlike(rng, n, sr)
+        noise = np.convolve(rng.standard_normal(n + 8), rng.uniform(-1, 1, 9), "valid")
+        noise *= np.sqrt(np.mean(sig ** 2) / (np.mean(noise ** 2) * 10 ** (rng.uniform(0, 15) / 10)))
+        both = np.stack([np.clip(sig + noise, -1, 1), sig]).astype(np.float32)
+        lps = stft_lps(torch.from_numpy(both).cuda(), stft).cpu().numpy()
+        noisy.append(lps[0])
+        clean.append(lps[1])
+    mean, istd = compute_norm(np.concatenate(noisy[:-n_cv]))
+    t_mean, t_istd = compute_norm(np.concatenate(clean[:-n_cv]))
+    kw = dict(fea_context=11, targ_offset=5, nat=True, mean=mean, inv_std=istd, targ_mean=t_mean,
+              targ_inv_std=t_istd)
+    x, t = build_training_arrays(noisy[:-n_cv], clean[:-n_cv], **kw)
+    x_cv, t_cv = build_training_arrays(noisy[-n_cv:], clean[-n_cv:], **kw)
+    n_stft = launch_counts()["stft_lps"]
+    _check(x.shape[1] == WIDE[0] and t.shape[1] == WIDE[-1] and x.shape[0] >= 16384
+           and n_stft == n_utt, f"arrays {x.shape} {t.shape}, {n_stft} stft_lps launches")
+    print(f"[arrays] corpus: {n_utt} noisy/clean pairs at 16 kHz featurized on the card "
+          f"({n_stft} stft_lps launches), build_training_arrays -> x {x.shape}, t {t.shape}, CV "
+          f"{x_cv.shape} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    cfg = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity")
+    mlp = init_params(torch.Generator().manual_seed(16), cfg, scheme="uniform",
+                      w_range=(-0.03, 0.03), device="cuda")
+    traincache = 8192  # two full chunks and a partial one
+    n_bunches = sum(min(traincache, x.shape[0] - st) // BUNCH for st in range(0, x.shape[0], traincache))
+    n_chunks = -(-x.shape[0] // traincache)
+
+    def sched(e):
+        return recipe_opt_schedule(e, 0.1, BUNCH)
+
+    quiet = Logger(stream=None)
+
+    def epochs(n_epochs, engine, engine_kwargs=None, cfg=cfg, state=None, sched=sched, **kw):
+        """-> (state, CV history, launch counts of this run alone, seconds)."""
+        before = launch_counts()
+        t0 = time.perf_counter()
+        st, res = train_epochs_arrays(state or init_train_state(mlp), cfg, sched, x, t, x_cv, t_cv,
+                                      n_epochs, seed=3, traincache=traincache, engine=engine,
+                                      engine_kwargs=engine_kwargs, logger=quiet, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = launch_counts()
+        d = {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
+        d.update({k: after["resident_chunk_kernels"][k] - before["resident_chunk_kernels"][k]
+                  for k in after["resident_chunk_kernels"]})
+        _check(all(np.isfinite(r.cv_mse) for r in res), f"{engine} {engine_kwargs}: CV not finite")
+        return st, [r.cv_mse for r in res], d, secs
+
+    def resident_counts(d, n_ep, label, tiles=1):
+        _check(d["resident_chunk"] == n_ep * n_chunks and d["plain_train_chunk"] == 0
+               and d["fused_bwd_update"] == 4 * n_ep * n_bunches * tiles,
+               f"{label}: {d} for {n_ep} epochs of {n_chunks} chunks, {n_bunches} bunches")
+
+    out = {}
+    st_sr, cv_sr, d_sr, s_sr = epochs(2, "resident", dict(sr_delta=True))
+    resident_counts(d_sr, 2, "sr_delta")
+    _check(d_sr["sr_bwd_update"] == d_sr["fused_bwd_update"] and d_sr["bf16_linear_act"] == 0
+           and st_sr.deltas.w[0].dtype == torch.bfloat16 and st_sr.params.w[0].dtype == torch.float32,
+           f"sr_delta epochs did not run the bfloat16-momentum form: {d_sr}")
+    _check(cv_sr[1] < cv_sr[0], f"sr_delta: CV MSE did not fall: {cv_sr}")
+    st_f, cv_f, d_f, s_f = epochs(2, "resident")
+    resident_counts(d_f, 2, "float32")
+    _check(d_f["sr_bwd_update"] == 0 and cv_f[1] < cv_f[0], f"float32 engine: {cv_f} {d_f}")
+    # sr_delta again, now that the path is warm (the first run above also paid for the
+    # first pinned buffers and workspaces): the host's samples/s of the two forms in turns
+    _, cv_sr2, d_sr2, s_sr2 = epochs(2, "resident", dict(sr_delta=True))
+    _check(cv_sr2 == cv_sr, f"sr_delta run again gives another CV history: {cv_sr2} vs {cv_sr}")
+    frac = abs(cv_sr[1] - cv_f[1]) / cv_f[1]
+    _check(frac <= SR_CV_FRACTION, f"sr_delta final CV {cv_sr[1]} vs float32 {cv_f[1]}: {frac:.3g} "
+                                   f"apart (limit {SR_CV_FRACTION})")
+    out.update(cv_sr_delta=cv_sr, cv_f32=cv_f, cv_fraction=frac,
+               samples_per_s=dict(sr_delta_first=2 * x.shape[0] / s_sr, f32=2 * x.shape[0] / s_f,
+                                  sr_delta_again=2 * x.shape[0] / s_sr2))
+    print(f"[arrays] train_epochs_arrays, 3084-2048x3-257, bunch {BUNCH}, parity dropout 0.1/0.2, "
+          f"recipe schedule, {x.shape[0]} samples, {n_chunks} chunks, {n_bunches} bunches an epoch, "
+          f"on {smi}: engine=resident sr_delta CV MSE {cv_sr[0]:.6f} -> {cv_sr[1]:.6f} "
+          f"({2 * x.shape[0] / s_sr:.0f} samples/s by the host, CV included, the path's first run; "
+          f"{2 * x.shape[0] / s_sr2:.0f} run again after the float32 one, same CV); float32 "
+          f"{cv_f[0]:.6f} -> {cv_f[1]:.6f} ({2 * x.shape[0] / s_f:.0f} samples/s); final CV "
+          f"{frac:.3g} apart (limit {SR_CV_FRACTION})", flush=True)
+
+    # the other forms, one epoch each
+    _, cv_ss, d_ss, _ = epochs(1, "resident", dict(sr_state=True))
+    resident_counts(d_ss, 1, "sr_state")
+    _check(d_ss["bf16_linear_act"] == d_ss["fused_linear_act"] > 0, f"sr_state: {d_ss}")
+    _, cv_sp, d_sp, _ = epochs(1, "resident", dict(hbm_spill=1))
+    resident_counts(d_sp, 1, "hbm_spill")
+    _check(cv_sp[0] == cv_f[0], f"hbm_spill=1 epoch CV {cv_sp[0]} is not the float32 engine's {cv_f[0]}")
+    clean_cfg = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2,
+                            dropout_mode="inverted")
+    _, cv_t, d_t, _ = epochs(1, "resident", dict(rule="clean", tile_rows=64), cfg=clean_cfg,
+                             sched=lambda e: OptConfig(lrate=0.1, momentum=0.5, bunchsize=BUNCH))
+    resident_counts(d_t, 1, "tile_rows", tiles=2)
+    _check(d_t["tiled_bwd_update"] == d_t["fused_bwd_update"], f"tile_rows: {d_t}")
+    # kernel 5 on its path: the plain trainer with masks from the Philox kernel
+    cfg5 = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity",
+                       dropout_rng="tpu_prng")
+    _, cv_x, d_x, s_x = epochs(1, "xla", cfg=cfg5)
+    _check(d_x["dropout_mask"] == 4 * n_bunches and d_x["resident_chunk"] == 0
+           and d_x["plain_train_chunk"] == n_chunks,
+           f"engine=xla with dropout_rng=tpu_prng: {d_x} for {n_bunches} bunches")
+    # the same trainer with torch.rand masks: only the generator of the masks differs.  After
+    # one epoch of 129 bunches the CV error still moves by several percent with the masks'
+    # realisation alone (the chunk trainer's epoch above reads 62.5 with its Philox stream,
+    # this trainer 57.4-57.8 with its two), hence 15%
+    _, cv_x3, d_x3, _ = epochs(1, "xla")
+    _check(d_x3["dropout_mask"] == 0 and abs(cv_x[0] - cv_x3[0]) <= 0.15 * cv_x3[0],
+           f"engine=xla epoch CV {cv_x[0]} with the Philox masks vs {cv_x3[0]} with torch.rand's")
+    out.update(cv_sr_state=cv_ss, cv_tile_rows=cv_t, cv_xla=cv_x, cv_xla_threefry=cv_x3)
+    print(f"[arrays] one epoch each: sr_state CV {cv_ss[0]:.6f}; hbm_spill=1 {cv_sp[0]:.6f} (the "
+          f"float32 engine's, exactly); clean rule tile_rows 64 {cv_t[0]:.6f}; engine=xla with "
+          f"dropout_rng=tpu_prng {cv_x[0]:.6f} ({d_x['dropout_mask']} dropout_mask launches, "
+          f"{x.shape[0] / s_x:.0f} samples/s), with torch.rand masks {cv_x3[0]:.6f} (limit: 15% "
+          f"apart)", flush=True)
+
+    # kernel 6 on its path: sr_train_step at full width, bfloat16 state
+    cfg6 = ModelConfig(layersizes=WIDE, dropout_mode="inverted")
+    st6 = init_train_state(mlp)
+    st6 = TrainState(params=MLP([w.data.bfloat16() for w in st6.params.w],
+                                [b.data.bfloat16() for b in st6.params.b]),
+                     deltas=MLP([d.data.bfloat16() for d in st6.deltas.w],
+                                [d.data.bfloat16() for d in st6.deltas.b]), step=0)
+    # the clean rule's step is lrate / 257 on the gradient of (1/128) sum((out - t)^2), the
+    # parity rule's (1 - m) * lrate / 128: lrate 0.05 is half the parity runs' step above
+    # (0.2, four times it and without dropout, diverges on these correlated inputs)
+    opt6 = OptConfig(lrate=0.05, momentum=0.5, weightcost=0.0, bunchsize=BUNCH)
+    xd, td = torch.from_numpy(x[:8 * BUNCH]).cuda(), torch.from_numpy(t[:8 * BUNCH]).cuda()
+    before = launch_counts()["sr_momentum_update"]
+    losses = []
+    for step in range(24):
+        i = step % 8
+        st6, loss = sr_train_step(st6, xd[i * BUNCH:(i + 1) * BUNCH], td[i * BUNCH:(i + 1) * BUNCH],
+                                  cfg6, opt6, None, 100 * step)
+        losses.append(float(loss))
+    n_k6 = launch_counts()["sr_momentum_update"] - before
+    first, last = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    _check(n_k6 == 24 * 8 and st6.params.w[0].dtype == torch.bfloat16 and np.isfinite(last)
+           and last < 0.95 * first, f"sr_train_step: {n_k6} launches, loss {first} -> {last}")
+    print(f"[arrays] sr_train_step at full width, bfloat16 state, 24 steps: mean loss of 8 steps "
+          f"{first:.4f} -> {last:.4f}; {n_k6} sr_momentum_update launches", flush=True)
+
+    # kill and resume: two epochs straight (st_f above) against one epoch,
+    # checkpoint, a fresh call that restores and runs the second
+    ck = os.path.join(tmp, "ckpt16k")
+    _, _, d_k, _ = epochs(1, "resident", ckpt_dir=ck)
+    st_r, cv_r, d_r, _ = epochs(2, "resident", ckpt_dir=ck)
+    resident_counts(d_r, 1, "the resumed call")  # it trained the second epoch only
+    _check(len(cv_r) == 2 and cv_r == cv_f, f"resumed CV history {cv_r} vs straight {cv_f}")
+    for a, b in zip(_state_tensors(st_r), _state_tensors(st_f)):
+        _check(torch.equal(a, b), "kill-and-resume differs from the straight run")
+    _check(st_r.step == st_f.step == 2 * n_bunches, f"steps {st_r.step}, {st_f.step}")
+    # a bfloat16 momentum survives the checkpoint
+    from tpu_sednn_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    save_checkpoint(os.path.join(tmp, "ckpt_sr"), 2, st_sr)
+    back, _, _ = restore_checkpoint(os.path.join(tmp, "ckpt_sr"), device="cuda")
+    for a, b in zip(_state_tensors(back), _state_tensors(st_sr)):
+        _check(a.dtype == b.dtype and torch.equal(a, b), "checkpoint changed the sr_delta state")
+    print(f"[arrays] kill and resume on the float32 engine: one epoch + checkpoint + restore + one "
+          f"epoch equals two epochs straight bit for bit (state and CV history); a bfloat16 "
+          f"momentum comes back from its checkpoint unchanged", flush=True)
+
+    total = launch_counts()
+    out["counts"] = {k: v for k, v in total.items() if isinstance(v, int)}
+    out["kernel_counts"] = total["resident_chunk_kernels"]
+    out["by_form"] = dict(sr_delta=d_sr["resident_chunk"] + d_sr2["resident_chunk"], f32=d_f["resident_chunk"] + d_k["resident_chunk"] + d_r["resident_chunk"],
+                          sr_state=d_ss["resident_chunk"], hbm_spill=d_sp["resident_chunk"],
+                          tile_rows=d_t["resident_chunk"])
+    out.update(n_samples=int(x.shape[0]), n_bunches=n_bunches, n_chunks=n_chunks)
+    return out
+
+
 def _speechlike(rng, n: int, sr: int) -> np.ndarray:
     """A voiced, amplitude-modulated harmonic signal with pauses: enough
     structure for the net to learn from."""
@@ -1145,8 +1890,12 @@ def main(argv=None) -> int:
             masks = phase_masks()
             resident = phase_resident(gen)
             torch.cuda.empty_cache()
+            sr = phase_sr(gen)
+            wide = phase_resident_wide()
+            torch.cuda.empty_cache()
         if "train" in groups:
             train = phase_train(tmp, smi)
+            arrays = phase_train_arrays(tmp, smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     if groups != {"serve", "kernels", "train"}:
         print(f"partial run (--only {args.only}): no kernels line, no final line", file=sys.stderr)
@@ -1157,45 +1906,94 @@ def main(argv=None) -> int:
                     ("fused_bwd_update", kc["fused_bwd_update"]), ("philox_mask", kc["philox_mask"]),
                     ("stft_lps", train["stft_launches"])):
         _check(n > 0, f"the training path never launched the {name} kernel")
+    ac, akc, forms = arrays["counts"], arrays["kernel_counts"], arrays["by_form"]
+    for name, n in (("dropout_mask", ac["dropout_mask"]), ("sr_momentum_update", ac["sr_momentum_update"]),
+                    ("resident_chunk (sr_delta)", forms["sr_delta"]),
+                    ("resident_chunk (sr_state)", forms["sr_state"]),
+                    ("resident_chunk (tile_rows)", forms["tile_rows"]),
+                    ("resident_chunk (hbm_spill)", forms["hbm_spill"]),
+                    ("resident_chunk (float32)", forms["f32"]),
+                    ("fused_linear_act", akc["fused_linear_act"]),
+                    ("fused_bwd_update", akc["fused_bwd_update"]), ("philox_mask", akc["philox_mask"]),
+                    ("stft_lps", ac["stft_lps"])):
+        _check(n > 0, f"the in-memory training path never launched the {name} kernel")
+
+    def by_path(train_n, arrays_n, make_pfile=0, serving=0):
+        return {"make_pfile": make_pfile, "serving": serving, "train": train_n,
+                "train_arrays": arrays_n}
+
+    def variant(name, form, timing_key, what):
+        return dict(name=f"resident_chunk_{name}", source="tpu_sednn_torch/csrc/resident_chunk.cu",
+                    replaces="tpu_sednn/ops/resident_chunk.py:169", route="cuda",
+                    launches=forms[form], launches_by_path=by_path(0, forms[form]),
+                    max_abs_err=None if what is None else max(wide["errors"][what]),
+                    max_abs_err_is="worst relative Frobenius error of a state tensor's update "
+                                   "against its comparison (3 bunches at 3084-2048x3-257)",
+                    shape=f"{BUNCH} x 3084-2048x3-257, per bunch", **wide["timing"][timing_key])
+
     t8 = kern[8000]
     kernels = [
         dict(name="stft_lps", source="tpu_sednn_torch/csrc/stft_lps.cu",
              replaces="tpu_sednn/ops/stft_pallas.py:34",
-             launches=n_featurizer + n_serving + train["stft_launches"],
-             launches_by_path={"make_pfile": n_featurizer, "serving": n_serving,
-                               "train": train["stft_launches"]},
+             launches=n_featurizer + n_serving + train["stft_launches"] + ac["stft_lps"],
+             launches_by_path=by_path(train["stft_launches"], ac["stft_lps"], n_featurizer,
+                                      n_serving),
              max_abs_err=kern["max_abs_err"], tol_ratio=kern["tol_ratio"], ms=t8["ms"],
              plain_ms=t8["plain_ms"], bound_ms=t8["bound_ms"], bound_by=t8["bound_by"],
              library_ms=t8["library_ms"], shape=t8["shape"], at_16k=kern[16000], route="cuda"),
         dict(name="fused_linear_act", source="tpu_sednn_torch/csrc/fused_mlp.cu",
              replaces="tpu_sednn/ops/fused_mlp.py:65",
-             launches=kc["fused_linear_act"] + tc["fused_linear_act"],
-             launches_by_path={"make_pfile": 0, "serving": 0,
-                               "train": kc["fused_linear_act"] + tc["fused_linear_act"]},
-             launches_of="fwd_kernel; its fwd_sum_kernel (K split over the grid) in sum_launches",
-             sum_launches=kc["fused_linear_act_sum"] + tc["fused_linear_act_sum"],
+             launches=kc["fused_linear_act"] + tc["fused_linear_act"] + akc["fused_linear_act"],
+             launches_by_path=by_path(kc["fused_linear_act"] + tc["fused_linear_act"],
+                                      akc["fused_linear_act"]),
+             launches_of="fwd_kernel; its fwd_sum_kernel (K split over the grid) in sum_launches; "
+                         "bf16_launches read bfloat16 weights (sr_state)",
+             sum_launches=kc["fused_linear_act_sum"] + tc["fused_linear_act_sum"]
+             + akc["fused_linear_act_sum"],
+             bf16_launches=akc["bf16_linear_act"], bf16_storage=sr["bf16_storage"],
              shape="one bunch of 128 through the four layers of 1548-2048x3-129",
              **{k: v for k, v in fused["fwd"].items() if k not in ("flops", "nbytes")}, route="cuda"),
         dict(name="fused_bwd_update", source="tpu_sednn_torch/csrc/fused_mlp.cu",
              replaces="tpu_sednn/ops/fused_mlp.py:108",
-             launches=kc["fused_bwd_update"] + tc["fused_bwd_update"],
-             launches_by_path={"make_pfile": 0, "serving": 0,
-                               "train": kc["fused_bwd_update"] + tc["fused_bwd_update"]},
+             launches=kc["fused_bwd_update"] + tc["fused_bwd_update"] + akc["fused_bwd_update"],
+             launches_by_path=by_path(kc["fused_bwd_update"] + tc["fused_bwd_update"],
+                                      akc["fused_bwd_update"]),
              launches_of="bwd_kernel; its reduce_dedy_kernel (no layer below the first) in "
-                         "reduce_launches",
-             reduce_launches=kc["reduce_dedy"] + tc["fused_bwd_update_reduce"],
+                         "reduce_launches; sr_launches stored bfloat16 with stochastic rounding, "
+                         "tiled_launches accumulated a row tile",
+             reduce_launches=kc["reduce_dedy"] + tc["fused_bwd_update_reduce"] + akc["reduce_dedy"],
+             sr_launches=akc["sr_bwd_update"], tiled_launches=akc["tiled_bwd_update"],
              shape="one bunch of 128 through the four layers of 1548-2048x3-129",
              library_ms=None,
              **{k: v for k, v in fused["bwd"].items() if k not in ("flops", "nbytes")}, route="cuda"),
         dict(name="resident_chunk", source="tpu_sednn_torch/csrc/resident_chunk.cu",
-             replaces="tpu_sednn/ops/resident_chunk.py:169", launches=tc["resident_chunk"],
-             launches_by_path={"make_pfile": 0, "serving": 0, "train": tc["resident_chunk"]},
+             replaces="tpu_sednn/ops/resident_chunk.py:169",
+             launches=tc["resident_chunk"] + forms["f32"],
+             launches_by_path=by_path(tc["resident_chunk"], forms["f32"]),
+             at_16k=wide["timing"]["f32"],
              ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"], **resident, route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",
-             replaces="tpu_sednn/ops/resident_chunk.py:970", launches=kc["philox_mask"],
-             launches_by_path={"make_pfile": 0, "serving": 0, "train": kc["philox_mask"]},
+             replaces="tpu_sednn/ops/resident_chunk.py:970",
+             launches=kc["philox_mask"] + akc["philox_mask"],
+             launches_by_path=by_path(kc["philox_mask"], akc["philox_mask"]),
              **masks, route="cuda"),
+        variant("sr_delta", "sr_delta", "sr_delta", "sr_delta, parity, dropout 0.1/0.2"),
+        variant("sr_state", "sr_state", "sr_state", "sr_state, parity, dropout 0.1/0.2"),
+        variant("tile_rows", "tile_rows", "tile_rows", "tile_rows 64 vs untiled"),
+        variant("hbm_spill", "hbm_spill", "hbm_spill", None),
+        dict(name="dropout_mask", source="tpu_sednn_torch/csrc/dropout_mask.cu",
+             replaces="tpu_sednn/ops/dropout_pallas.py:29", route="cuda",
+             launches=ac["dropout_mask"], launches_by_path=by_path(0, ac["dropout_mask"]),
+             **sr["k5"]),
+        dict(name="sr_momentum_update", source="tpu_sednn_torch/csrc/sr_update.cu",
+             replaces="tpu_sednn/ops/sr_update.py:29", route="cuda",
+             launches=ac["sr_momentum_update"],
+             launches_by_path=by_path(0, ac["sr_momentum_update"]), **sr["k6"]),
     ]
+    kernels[-3].update(max_abs_err=wide["spill_max_abs"],
+                       max_abs_err_is="largest absolute difference of a state tensor from the "
+                                      "unspilled float32 run (3 bunches at 3084-2048x3-257)")
+    print(f"[arrays] summary {json.dumps(arrays)}")
     print(f"[train] summary {json.dumps(train)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

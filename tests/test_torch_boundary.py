@@ -35,3 +35,25 @@ def test_checker_sees_the_difference(tmp_path):
                    "import numpy, jax.numpy as jnp\n")
     assert _top_level_imports(src) & FORBIDDEN == {"tpu_sednn", "jax"}
     assert len(FILES) > 15 and (ROOT / "chip_smoke.py") in FILES
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"tpu_sednn_torch/ops/sr_update.py", "tpu_sednn_torch/ops/dropout_mask.py",
+            "tpu_sednn_torch/utils/checkpoint.py", "tpu_sednn_torch/utils/profiling.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["sr_update", "dropout_mask", "fused_mlp", "resident_chunk",
+                                  "stft_lps"])
+def test_kernel_sources_are_listed_with_their_headers(name):
+    """Every csrc/<name>.cu is in KERNEL_SOURCES, and its library's name
+    hashes the headers it includes (so an edited header rebuilds it)."""
+    from tpu_sednn_torch.ops import KERNEL_SOURCES, _build
+
+    assert name in KERNEL_SOURCES
+    assert {p.stem for p in _build.SRC_DIR.glob("*.cu")} == set(KERNEL_SOURCES)
+    files = {p.name for p in _build.source_files(name)}
+    want = {"sr_update": {"sr_round.cuh", "philox.cuh", "vec4.cuh"},
+            "dropout_mask": {"philox.cuh"},
+            "fused_mlp": {"fused_mlp.cuh", "sr_round.cuh", "philox.cuh", "vec4.cuh"},
+            "resident_chunk": {"fused_mlp.cuh", "sr_round.cuh", "philox.cuh", "vec4.cuh"},
+            "stft_lps": set()}[name]
+    assert files == want | {f"{name}.cu"}
+    assert _build.library_path(name).parent == _build.BUILD_DIR

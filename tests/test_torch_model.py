@@ -105,3 +105,40 @@ def test_mlp_rejects_mismatched_shapes():
         tm.MLP([torch.zeros(4, 3)], [torch.zeros(4)])
     with pytest.raises(ValueError):
         tm.MLP([torch.zeros(4, 3)], [])
+
+
+def test_forward_with_bf16_products_matches_jax():
+    """compute_dtype=bfloat16: operands rounded to bfloat16, products summed
+    in float32, in both packages; rounded operands multiply exactly in
+    float32, so only the summation order differs (rtol/atol 1e-5)."""
+    jcfg, tcfg = jm.ModelConfig(layersizes=SIZES), tm.ModelConfig(layersizes=SIZES)
+    p = _jax_params(jcfg, seed=5)
+    x = _x(seed=6)
+    want = np.asarray(jm.forward(jax.tree.map(jax.numpy.asarray, p), x, jcfg, train=True,
+                                 compute_dtype=jax.numpy.bfloat16))
+    mlp = tm.params_from_jax(p, device="cpu")
+    got = tm.forward(mlp, torch.from_numpy(x), tcfg, train=True, compute_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    full = tm.forward(mlp, torch.from_numpy(x), tcfg, train=True).numpy()
+    assert 1e-4 < np.abs(got.numpy() - full).max() < 5e-2  # it did round the operands
+    ev = tm.forward_eval(mlp, torch.from_numpy(x), tcfg, compute_dtype=torch.bfloat16).numpy()
+    np.testing.assert_array_equal(ev, got.numpy())  # no dropout: train and eval agree
+
+
+def test_mlp_keeps_bfloat16_leaves_and_eval_widens_them():
+    cfg = tm.ModelConfig(layersizes=SIZES, dropout_vis=0.1, dropout_hid=0.2)
+    mlp = tm.params_from_jax(_jax_params(jm.ModelConfig(layersizes=SIZES)), device="cpu")
+    half = tm.MLP([w.data.bfloat16() for w in mlp.w], list(mlp.b))
+    assert half.w[0].dtype == torch.bfloat16 and half.b[0].dtype == torch.float32
+    assert tm.MLP([w.data.double() for w in mlp.w], list(mlp.b)).w[0].dtype == torch.float32
+    x = torch.from_numpy(_x())
+    got = tm.forward_eval(half, x, cfg)
+    assert got.dtype == torch.float32
+    # as the JAX package evaluates a bfloat16 weight: scaled in bfloat16, then widened
+    jp = {"w": tuple(jax.numpy.asarray(tm.params_to_numpy(half)["w"][l], jax.numpy.bfloat16)
+                     for l in range(3)),
+          "b": tuple(jax.numpy.asarray(b.numpy()) for b in mlp.b)}
+    want = np.asarray(jm.forward_eval(jp, x.numpy(), jm.ModelConfig(
+        layersizes=SIZES, dropout_vis=0.1, dropout_hid=0.2, precision="highest")), np.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -112,7 +112,9 @@ def test_cli_main_prints_all_finish_and_writes_the_launch_report(corpus, monkeyp
     assert counts["plain_train_chunk"] >= 2 and counts["resident_chunk"] == 0  # CPU: plain trainer
     assert set(counts["resident_chunk_kernels"]) == {"fused_linear_act", "fused_bwd_update",
                                                      "reduce_dedy", "philox_mask",
-                                                     "fused_linear_act_sum"}
+                                                     "fused_linear_act_sum", "sr_bwd_update",
+                                                     "tiled_bwd_update", "bf16_linear_act"}
+    assert counts["dropout_mask"] == 0 and counts["sr_momentum_update"] == 0
 
 
 def test_cli_module_runs_as_a_command(corpus):
@@ -159,7 +161,7 @@ def test_run_recipe_epoch_loop(corpus):
 
 
 @pytest.mark.parametrize("engine", ["xla", "resident", "auto"])
-def test_train_epochs_arrays(engine):
+def test_train_epochs_arrays(engine, tmp_path):
     from tpu_sednn_torch.model.mlp import ModelConfig, init_params
     from tpu_sednn_torch.train.loop import train_epochs_arrays
     from tpu_sednn_torch.train.step import OptConfig, init_train_state
@@ -182,6 +184,11 @@ def test_train_epochs_arrays(engine):
                                      logger=Logger(stream=None))
     np.testing.assert_allclose(st.params.w[0].numpy(), ref.params.w[0].numpy(), rtol=2e-5, atol=2e-6)
     assert res[-1].cv_mse == pytest.approx(res_x[-1].cv_mse, rel=1e-4)
-    for kw in (dict(ckpt_dir="x"), dict(profile_dir="x")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train_epochs_arrays(init_train_state(mlp), cfg, lambda e: opt, x, t, x, t, 1, **kw)
+    # ckpt_dir and profile_dir are served (tests/test_torch_checkpoint.py holds resume)
+    st_c, res_c = train_epochs_arrays(init_train_state(mlp), cfg, lambda e: opt, x, t, x[:32],
+                                      t[:32], n_epochs=3, seed=3, traincache=48, engine=engine,
+                                      logger=Logger(stream=None), ckpt_dir=str(tmp_path / "ck"),
+                                      profile_dir=str(tmp_path / "prof"))
+    assert torch.equal(st_c.params.w[0], st.params.w[0]) and res_c[-1].cv_mse == res[-1].cv_mse
+    assert os.path.exists(tmp_path / "prof" / "trace.json")
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_1.pt", "step_2.pt", "step_3.pt"]

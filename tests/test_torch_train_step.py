@@ -220,3 +220,73 @@ def test_train_state_conversion_round_trip_and_init_copies():
     assert st2.step == 0 and not any(bool(dl.any()) for dl in list(st2.deltas.w) + list(st2.deltas.b))
     st2.params.w[0].data.add_(1.0)  # the state owns a copy: the caller's MLP is untouched
     np.testing.assert_array_equal(mlp.w[0].numpy(), params["w"][0])
+
+
+@pytest.mark.parametrize("one_hot", [False, True])
+def test_softmax_xent_step_matches_jax(one_hot):
+    kw = dict(layersizes=(16, 32, 4), output="softmax")
+    jcfg, tcfg = jm.ModelConfig(precision="highest", **kw), tm.ModelConfig(**kw)
+    rng = np.random.default_rng(0)
+    p = jm.init_params(jax.random.key(0), jcfg, "glorot")
+    params = jax.tree.map(np.asarray, p)
+    deltas = {k: tuple(rng.standard_normal(a.shape).astype(np.float32) * 0.01 for a in v)
+              for k, v in params.items()}
+    labels = rng.integers(0, 4, 64).astype(np.int32)
+    x = rng.standard_normal((64, 16)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[labels] if one_hot else labels
+    opt = dict(lrate=0.5, momentum=0.5, weightcost=1e-3, bunchsize=64)
+    jst, jloss = jstep.softmax_xent_train_step(_jstate(params, deltas), jnp.asarray(x),
+                                               jnp.asarray(y), jcfg, jstep.OptConfig(**opt),
+                                               compute_dtype=None)
+    st0 = train_state_from_jax(params, deltas, 3, device="cpu")
+    st, loss = tstep.softmax_xent_train_step(st0, torch.from_numpy(x), torch.from_numpy(y), tcfg,
+                                             tstep.OptConfig(**opt))
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    _assert_state(st, jst.params, jst.deltas, 4)
+    assert st0.step == 3  # a single step leaves its input untouched
+    probs = tm.forward_eval(st.params, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(probs.sum(dim=-1).numpy(), 1.0, rtol=1e-5)
+    with pytest.raises(ValueError, match="softmax"):
+        tstep.softmax_xent_train_step(st0, torch.from_numpy(x), torch.from_numpy(y),
+                                      tm.ModelConfig(layersizes=(16, 32, 4)), tstep.OptConfig(**opt))
+
+
+def test_softmax_head_trains():
+    sizes = (16, 32, 4)
+    cfg = tm.ModelConfig(layersizes=sizes, output="softmax")
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((4, sizes[0])).astype(np.float32) * 2
+    labels = rng.integers(0, 4, 256)
+    x = torch.from_numpy((centers[labels] + rng.standard_normal((256, sizes[0])) * 0.3)
+                         .astype(np.float32))
+    y = torch.from_numpy(labels)
+    state = tstep.init_train_state(tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    opt = tstep.OptConfig(lrate=0.5, momentum=0.5, weightcost=0.0, bunchsize=256)
+    losses = []
+    for _ in range(30):
+        state, loss = tstep.softmax_xent_train_step(state, x, y, cfg, opt)
+        losses.append(float(loss))
+    assert losses[-1] < 0.3 * losses[0], losses[::10]
+    acc = float((tm.forward_eval(state.params, x, cfg).argmax(-1) == y).float().mean())
+    assert acc > 0.9, acc
+
+
+def test_clean_step_with_bf16_products_matches_jax():
+    """compute_dtype=bfloat16 in both packages: operands and cotangents pass
+    through bfloat16 roundings at the same places, the sums are float32.  A
+    float32 sum in another order can land on the other side of a bfloat16
+    rounding boundary, one bfloat16 ulp (2^-8 relative) on that gradient
+    element: rtol 8e-3 on the update, atol 1e-6."""
+    jcfg, tcfg, params, deltas, x, t, _ = _setup(mode="inverted", n=32)
+    opt = dict(lrate=0.1, momentum=0.9, weightcost=1e-4, bunchsize=32)
+    jst, jloss = jstep.clean_train_step(_jstate(params, deltas), jnp.asarray(x), jnp.asarray(t),
+                                        jcfg, jstep.OptConfig(**opt), compute_dtype=jnp.bfloat16)
+    st, loss = tstep.clean_train_step(train_state_from_jax(params, deltas, 3, device="cpu"),
+                                      torch.from_numpy(x), torch.from_numpy(t), tcfg,
+                                      tstep.OptConfig(**opt), compute_dtype=torch.bfloat16)
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-4)
+    _assert_state(st, jst.params, jst.deltas, 4, tol=dict(rtol=8e-3, atol=1e-6))
+    st32, _ = tstep.clean_train_step(train_state_from_jax(params, deltas, 3, device="cpu"),
+                                     torch.from_numpy(x), torch.from_numpy(t), tcfg,
+                                     tstep.OptConfig(**opt))
+    assert not torch.allclose(st.deltas.w[0], st32.deltas.w[0], rtol=1e-4, atol=1e-7)

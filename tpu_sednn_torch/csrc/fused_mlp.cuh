@@ -37,53 +37,29 @@
 // True sizes throughout: K = 1548 and N = 129 are masked at the edges by the
 // kernels (16-byte loads where the row stride allows, scalar otherwise), so
 // nothing is padded to the TPU's 128-tiles.
+//
+// Storage types.  Activations, biases and every sum are float32.  W (both
+// kernels) and Delta (the backward) are template parameters: float32, or
+// bfloat16 bit patterns that are widened as they are loaded (vec4.cuh) and,
+// in the backward, narrowed with stochastic rounding as they are stored
+// (sr_round.cuh): the TPU kernel's sr_delta and sr_state.  That halves two or
+// five of the passes over the state; while the products are float32 FMAs the
+// kernels stay operations-bound and it buys memory, not time.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "philox.cuh"
+#include "sr_round.cuh"
+#include "vec4.cuh"
 
 namespace sednn {
 
 enum Act { kLinear = 0, kRelu = 1, kSigmoid = 2 };
-
-__device__ inline float4 ld4(const float* __restrict__ p, int row, int col, int ld, int nrows,
-                             int ncols, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row < nrows && col < ncols) {
-    const float* q = p + (long long)row * ld + col;
-    if (vec && col + 3 < ncols) {
-      v = *reinterpret_cast<const float4*>(q);
-    } else {
-      v.x = q[0];
-      if (col + 1 < ncols) v.y = q[1];
-      if (col + 2 < ncols) v.z = q[2];
-      if (col + 3 < ncols) v.w = q[3];
-    }
-  }
-  return v;
-}
-
-__device__ inline void st4(float* __restrict__ p, int row, int col, int ld, int nrows, int ncols,
-                           bool vec, float4 v) {
-  if (row < nrows && col < ncols) {
-    float* q = p + (long long)row * ld + col;
-    if (vec && col + 3 < ncols) {
-      *reinterpret_cast<float4*>(q) = v;
-    } else {
-      q[0] = v.x;
-      if (col + 1 < ncols) q[1] = v.y;
-      if (col + 2 < ncols) q[2] = v.z;
-      if (col + 3 < ncols) q[3] = v.w;
-    }
-  }
-}
-
-inline bool vec_ok(const void* p, int ld) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && ld % 4 == 0;
-}
 
 __device__ inline float act_fn(int act, float z) {
   if (act == kRelu) return fmaxf(z, 0.0f);
@@ -148,8 +124,9 @@ constexpr int kFwdBM = 32, kFwdBN = 64, kFwdBK = 32, kFwdThreads = 128;
 constexpr int kFwdALoads = kFwdBM * kFwdBK / 4 / kFwdThreads;  // float4 per thread and tile: 2
 constexpr int kFwdWLoads = kFwdBK * kFwdBN / 4 / kFwdThreads;  // 4
 
+template <typename TW>  // storage of W: float or bf16_t (widened as it is loaded)
 __global__ void __launch_bounds__(kFwdThreads)
-fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int M, int K, int N,
+fwd_kernel(const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
            MaskSpec in_mask, FwdEpilogue epi, float* __restrict__ part, int k_chunk, bool vec_x,
            bool vec_w, bool vec_p) {
   __shared__ __align__(16) float As[kFwdBK][kFwdBM + 4];  // x tile, transposed
@@ -280,7 +257,8 @@ inline long long fwd_scratch_floats(int M, int K, int N) {
   return n_chunks > 1 ? (long long)n_chunks * M * N : 0;
 }
 
-inline cudaError_t launch_fwd(const float* x, const float* w, const float* b, float* y, int M,
+template <typename TW>
+inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
                               float coef, float* part, cudaStream_t stream) {
@@ -302,8 +280,9 @@ inline cudaError_t launch_fwd(const float* x, const float* w, const float* b, fl
   epi.vec_t = targ != nullptr && vec_ok(targ, N);
   float* scratch = n_chunks > 1 ? part : nullptr;
   dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM, n_chunks);
-  fwd_kernel<<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch, k_chunk,
-                                               vec_ok(x, K), vec_ok(w, N), vec_ok(scratch, N));
+  fwd_kernel<TW><<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch, k_chunk,
+                                                   vec_ok(x, K), vec_ok(w, N),
+                                                   vec_ok(scratch, N));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return err;
   const long long n = (long long)M * ((N + 3) / 4);
@@ -322,16 +301,36 @@ inline cudaError_t launch_fwd(const float* x, const float* w, const float* b, fl
 //     part[nt] = dedx[:, n-tile] @ W_tile^T   (M, K), if part != nullptr
 // One block owns a 64 x 64 tile of W and Delta, 256 threads; it walks the M
 // rows in chunks of 32.
+//
+// Storage (template): W and Delta float32; Delta bfloat16 (the TPU kernel's
+// sr_delta: Delta' is stored stochastically rounded, W takes the unrounded
+// float32 Delta'); or both bfloat16 (sr_state: W' = SR(W + Delta') too, a
+// second draw).  All arithmetic stays float32 on widened values; the bits are
+// sr_round.cuh's stream `sr_key`, counter = the element's (row, column) in W.
+//
+// Row-tiled accumulation (`flags`, float32 storage): a bunch that comes in
+// several row tiles accumulates its gradient INTO Delta.  kUpdFirst: this
+// launch applies the decay and the weight cost, Delta' = m*Delta - (A*G +
+// Bc*W); without it, Delta' = Delta - A*G.  kUpdApply: this launch lands the
+// step, W' = W + Delta'; without it W is left alone, so every tile's forward
+// and dedy see the W from before the bunch.  Both set is the plain update.
+// The bias follows the same flags.
 // ---------------------------------------------------------------------------
+
+constexpr int kUpdFirst = 1, kUpdApply = 2;
 
 constexpr int kBwdBK = 64, kBwdBN = 64, kBwdMC = 32, kBwdThreads = 256;
 constexpr int kBwdWLd = kBwdBN + 4;  // padded: the dedy product reads W rows 16 apart
 
+template <typename TW, typename TD>
 __global__ void __launch_bounds__(kBwdThreads)
 bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, MaskSpec in_mask,
-           float* __restrict__ w, float* __restrict__ delta, float* __restrict__ b,
+           TW* __restrict__ w, TD* __restrict__ delta, float* __restrict__ b,
            float* __restrict__ db, float* __restrict__ part, int M, int K, int N, float mom,
-           float A, float Bc, bool vec_d, bool vec_y, bool vec_w) {
+           float A, float Bc, uint32_t sr_key, int flags, bool vec_d, bool vec_y, bool vec_w,
+           bool vec_dl) {
+  constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
+  const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
   __shared__ __align__(16) float Ws[kBwdBK][kBwdWLd];
   __shared__ __align__(16) float Ys[kBwdMC][kBwdBK];
   __shared__ __align__(16) float Ds[kBwdMC][kBwdBN];
@@ -429,23 +428,24 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
     const int kr = k0 + tk * 4 + i;
     if (kr >= K || col >= N) continue;
     const float4 wv = *reinterpret_cast<const float4*>(&Ws[tk * 4 + i][tn * 4]);
-    const float4 dv = ld4(delta, kr, col, N, K, N, vec_w);
-    float4 nd, nw;
-    nd.x = mom * dv.x - (A * g[i][0] + Bc * wv.x);
-    nd.y = mom * dv.y - (A * g[i][1] + Bc * wv.y);
-    nd.z = mom * dv.z - (A * g[i][2] + Bc * wv.z);
-    nd.w = mom * dv.w - (A * g[i][3] + Bc * wv.w);
-    nw.x = wv.x + nd.x;
-    nw.y = wv.y + nd.y;
-    nw.z = wv.z + nd.z;
-    nw.w = wv.w + nd.w;
-    st4(delta, kr, col, N, K, N, vec_w, nd);
-    st4(w, kr, col, N, K, N, vec_w, nw);
+    const float4 dv = ld4(delta, kr, col, N, K, N, vec_dl);
+    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+    const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+    float nd[4], nw[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      nd[j] = first ? mom * dr[j] - (A * g[i][j] + Bc * wr[j]) : dr[j] - A * g[i][j];
+      nw[j] = wr[j] + nd[j];
+    }
+    uint32_t bits[4] = {0u, 0u, 0u, 0u};
+    if (kSr) sr_bits4(sr_key, kr, col, bits);
+    st4_sr(delta, kr, col, N, K, N, vec_dl, nd, bits, kSrDeltaShift);
+    if (apply) st4_sr(w, kr, col, N, K, N, vec_w, nw, bits, kSrWeightShift);
   }
   if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N) {
-    const float ndb = mom * db[n0 + tid] - A * gb;
+    const float ndb = first ? mom * db[n0 + tid] - A * gb : db[n0 + tid] - A * gb;
     db[n0 + tid] = ndb;
-    b[n0 + tid] = b[n0 + tid] + ndb;
+    if (apply) b[n0 + tid] = b[n0 + tid] + ndb;
   }
 }
 
@@ -473,15 +473,16 @@ inline int bwd_n_tiles(int N) { return (N + kBwdBN - 1) / kBwdBN; }
 
 // part: scratch of bwd_n_tiles(N) * M * K floats, or nullptr with dedy ==
 // nullptr when the layer below needs no gradient (the first layer).
+template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
-                              float* w, float* delta, float* b, float* db, float* part,
+                              TW* w, TD* delta, float* b, float* db, float* part,
                               float* dedy, int deriv, int M, int K, int N, float mom, float A,
-                              float Bc, cudaStream_t stream) {
+                              float Bc, uint32_t sr_key, int flags, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
   dim3 grid(bwd_n_tiles(N), (K + kBwdBK - 1) / kBwdBK);
-  bwd_kernel<<<grid, kBwdThreads, 0, stream>>>(
-      dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, vec_ok(dedx, N),
-      vec_ok(yprev, K), vec_ok(w, N) && vec_ok(delta, N));
+  bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
+      dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, sr_key, flags,
+      vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return err;
   const long long total = (long long)M * K;

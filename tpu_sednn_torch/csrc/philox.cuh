@@ -1,4 +1,6 @@
-// Philox4x32-10 and the dropout-mask device function of the chunk trainer.
+// Philox4x32-10 and the dropout-mask device function of the chunk trainer
+// (the standalone mask of dropout_mask.cu draws through it too; sr_round.cuh
+// takes its stochastic-rounding bits from the same generator).
 //
 // Replaces the TPU's in-kernel hardware PRNG of
 // tpu_sednn/ops/resident_chunk.py:_resident_kernel (:307-331) and the probe
@@ -56,7 +58,7 @@ struct MaskSpec {
   float scale;
 };
 
-inline MaskSpec no_mask() {
+__host__ __device__ inline MaskSpec no_mask() {
   MaskSpec s;
   s.mode = 0;
   s.ptr = nullptr;
@@ -68,7 +70,7 @@ inline MaskSpec no_mask() {
   return s;
 }
 
-inline MaskSpec philox_mask(uint32_t key, uint32_t threshold, float scale, int row0 = 0) {
+__host__ __device__ inline MaskSpec philox_mask(uint32_t key, uint32_t threshold, float scale, int row0 = 0) {
   MaskSpec s = no_mask();
   s.mode = 2;
   s.key = key;

@@ -11,7 +11,7 @@
 // memory.  What stays out of device memory instead: no gradient matrix is
 // ever written, W and Delta are read once and written once per bunch in the
 // backward, and masks, pre-activations and the output layer's dedx never
-// exist as separate passes.  One call of resident_chunk_f32 enqueues, for
+// exist as separate passes.  One call of resident_chunk_train enqueues, for
 // every bunch i < n_real and in order on one stream, the forward launches
 // (fused_mlp.cuh:fwd_kernel and, where K is split over the grid,
 // fwd_sum_kernel; the input's mask is generated while x is loaded, each
@@ -33,6 +33,22 @@
 // (row, column) in the global bunch.  The backward never regenerates a hidden
 // layer's mask: the stored activation is the masked one, and the derivative
 // is taken on it.
+//
+// Variants of the TPU kernel, all through the same launches:
+// * bfloat16 state with stochastic rounding (its sr_delta: Delta of the
+//   weight matrices bfloat16, W float32 and stepped by the unrounded Delta';
+//   its sr_state: W and Delta bfloat16, two draws an element).  The kernels
+//   are templated on the storage types (fused_mlp.cuh); the stream of
+//   (bunch i, layer l) is keyed seed + i*7919 + l*104729 + 1 (sr_round.cuh).
+//   Biases and their momentum stay float32.  With float32 products the
+//   trainer is operations-bound, so halving two or five of the passes over
+//   the state does not make it faster; it halves the state's memory.
+// * row tiles (its tile_rows < bunchsize, clean rule): a bunch of `accum`
+//   tiles of `tile` rows each; every tile runs its own forward and backward,
+//   the backward accumulating into Delta (kUpdFirst on tile 0, kUpdApply on
+//   the last), so W is the pre-bunch W for every tile.  dedx carries 2/bunch,
+//   the full bunch; dropout streams are keyed on the global tile index.
+// * its hbm_spill needs nothing here: the state is in device memory already.
 
 #include "fused_mlp.cuh"
 
@@ -49,6 +65,7 @@ struct Workspace {
   long long out, dedx_a, dedx_b, part, total;
 };
 
+// `bunch`: the rows one forward and backward work on (a row tile's).
 Workspace plan_workspace(const int* sizes, int L, int bunch) {
   Workspace ws;
   long long off = 0, max_w = 0, max_part = 0;
@@ -100,74 +117,115 @@ __global__ void philox_words_kernel(const uint32_t* __restrict__ in, uint32_t* _
 
 }  // namespace
 
-// Floats of workspace resident_chunk_f32 needs; sizes has L + 1 entries.
+// Floats of workspace resident_chunk_train needs for tiles of `bunch` rows;
+// sizes has L + 1 entries.
 extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunch) {
   if (L < 1 || L > kMaxLayers) return -1;
   return plan_workspace(sizes, L, bunch).total;
 }
 
-// Trains bunches 0..n_real-1 of x (rows of `bunch`, width sizes[0]) and t
-// (width sizes[L]) in place on w[l], d[l] (sizes[l], sizes[l+1]) and b[l],
-// db[l].  Rows at or past n_real * bunch are never read.  hidden/output: 0
-// linear, 1 relu, 2 sigmoid.  thr_vis/thr_hid: mask thresholds of the input
-// and of the hidden activations (0 = no dropout there), scale_*: factor on
-// kept elements.  Update: delta' = mom*delta - (A*G + Bc*w) with G the
-// gradient of (1/bunch)*sum((out-t)^2).  tallies[5] += launches of fwd_kernel,
-// bwd_kernel and reduce_dedy_kernel, the count of those that drew Philox
-// masks, and launches of fwd_sum_kernel (layers whose K is split).
-extern "C" int resident_chunk_f32(const float* x, const float* t, int n_real, int bunch,
-                                  const int* sizes, int L, float* const* w, float* const* d,
-                                  float* const* b, float* const* db, float* work, int hidden,
-                                  int output, unsigned thr_vis, unsigned thr_hid,
-                                  float scale_vis, float scale_hid, unsigned seed, float mom,
-                                  float A, float Bc, long long* tallies, void* stream_) {
-  if (L < 1 || L > kMaxLayers || bunch <= 0 || hidden < 0 || hidden > 2 || output < 0 ||
-      output > 2)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  const Workspace ws = plan_workspace(sizes, L, bunch);
-  const float coef = 2.0f / (float)bunch;
+namespace {
+
+template <typename TW, typename TD>
+int train_chunk(const float* x, const float* t, int n_real, int tile, int accum, const int* sizes,
+                int L, void* const* w, void* const* d, float* const* b, float* const* db,
+                float* work, int hidden, int output, unsigned thr_vis, unsigned thr_hid,
+                float scale_vis, float scale_hid, unsigned seed, float mom, float A, float Bc,
+                long long* tallies, cudaStream_t stream) {
+  constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
+  const Workspace ws = plan_workspace(sizes, L, tile);
+  const float coef = 2.0f / (float)(tile * accum);
   for (int i = 0; i < n_real; ++i) {
-    const float* xi = x + (long long)i * bunch * sizes[0];
-    const float* ti = t + (long long)i * bunch * sizes[L];
-    const unsigned key0 = seed + (unsigned)i * kBunchStride;
-    const MaskSpec in_mask =
-        thr_vis ? philox_mask(key0, thr_vis, scale_vis) : no_mask();
-    float* dedx = work + ws.dedx_a;
-    float* other = work + ws.dedx_b;
-    for (int l = 0; l < L; ++l) {
-      const bool last = l == L - 1;
-      const float* in = l == 0 ? xi : work + ws.ys[l];
-      float* out = last ? work + ws.out : work + ws.ys[l + 1];
-      const MaskSpec out_mask =
-          (!last && thr_hid)
-              ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid)
-              : no_mask();
-      const cudaError_t err =
-          launch_fwd(in, w[l], b[l], out, bunch, sizes[l], sizes[l + 1], last ? output : hidden,
-                     l == 0 ? in_mask : no_mask(), out_mask, last ? ti : nullptr,
-                     last ? dedx : nullptr, coef, work + ws.part, stream);
-      if (err != cudaSuccess) return (int)err;
-      tallies[0] += 1;
-      tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? 1 : 0;
-      tallies[4] += fwd_scratch_floats(bunch, sizes[l], sizes[l + 1]) > 0 ? 1 : 0;
-    }
-    for (int l = L - 1; l >= 0; --l) {
-      const float* yprev = l == 0 ? xi : work + ws.ys[l];
-      const cudaError_t err = launch_bwd(
-          dedx, yprev, l == 0 ? in_mask : no_mask(), w[l], d[l], b[l], db[l],
-          l > 0 ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, bunch, sizes[l],
-          sizes[l + 1], mom, A, Bc, stream);
-      if (err != cudaSuccess) return (int)err;
-      tallies[1] += 1;
-      tallies[2] += l > 0 ? 1 : 0;
-      tallies[3] += (l == 0 && in_mask.mode) ? 1 : 0;
-      float* tmp = dedx;
-      dedx = other;
-      other = tmp;
+    for (int j = 0; j < accum; ++j) {
+      const long long gi = (long long)i * accum + j;  // global tile index
+      const float* xi = x + gi * tile * sizes[0];
+      const float* ti = t + gi * tile * sizes[L];
+      const unsigned key0 = seed + (unsigned)gi * kBunchStride;
+      const MaskSpec in_mask = thr_vis ? philox_mask(key0, thr_vis, scale_vis) : no_mask();
+      const int flags = (j == 0 ? kUpdFirst : 0) | (j == accum - 1 ? kUpdApply : 0);
+      float* dedx = work + ws.dedx_a;
+      float* other = work + ws.dedx_b;
+      for (int l = 0; l < L; ++l) {
+        const bool last = l == L - 1;
+        const float* in = l == 0 ? xi : work + ws.ys[l];
+        float* out = last ? work + ws.out : work + ws.ys[l + 1];
+        const MaskSpec out_mask =
+            (!last && thr_hid)
+                ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid)
+                : no_mask();
+        const cudaError_t err = launch_fwd(
+            in, (const TW*)w[l], b[l], out, tile, sizes[l], sizes[l + 1], last ? output : hidden,
+            l == 0 ? in_mask : no_mask(), out_mask, last ? ti : nullptr, last ? dedx : nullptr,
+            coef, work + ws.part, stream);
+        if (err != cudaSuccess) return (int)err;
+        tallies[0] += 1;
+        tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? 1 : 0;
+        tallies[4] += fwd_scratch_floats(tile, sizes[l], sizes[l + 1]) > 0 ? 1 : 0;
+        tallies[7] += std::is_same<TW, float>::value ? 0 : 1;
+      }
+      for (int l = L - 1; l >= 0; --l) {
+        const float* yprev = l == 0 ? xi : work + ws.ys[l];
+        const unsigned sr_key =
+            seed + (unsigned)i * kBunchStride + (unsigned)l * kLayerStride + 1u;
+        const cudaError_t err = launch_bwd(
+            dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l],
+            l > 0 ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, tile, sizes[l],
+            sizes[l + 1], mom, A, Bc, sr_key, flags, stream);
+        if (err != cudaSuccess) return (int)err;
+        tallies[1] += 1;
+        tallies[2] += l > 0 ? 1 : 0;
+        tallies[3] += (l == 0 && in_mask.mode) ? 1 : 0;
+        tallies[5] += kSr ? 1 : 0;
+        tallies[6] += accum > 1 ? 1 : 0;
+        float* tmp = dedx;
+        dedx = other;
+        other = tmp;
+      }
     }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Trains bunches 0..n_real-1 of x (bunches of tile * accum rows, width
+// sizes[0]) and t (width sizes[L]) in place on w[l], d[l] (sizes[l],
+// sizes[l+1]) and b[l], db[l].  Rows at or past n_real * tile * accum are
+// never read.  Storage of w and d: float32, d bfloat16 (d_bf16), or both
+// bfloat16 (w_bf16 and d_bf16), bfloat16 stores stochastically rounded; b and
+// db float32.  accum > 1: each bunch in `accum` row tiles of `tile` rows,
+// the gradient accumulated into d and the step applied with the last tile
+// (float32 storage only).  hidden/output: 0 linear, 1 relu, 2 sigmoid.
+// thr_vis/thr_hid: mask thresholds of the input and of the hidden activations
+// (0 = no dropout there), scale_*: factor on kept elements.  Update: delta' =
+// mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
+// tallies[8] += launches of fwd_kernel, bwd_kernel and reduce_dedy_kernel,
+// the count of those that drew Philox masks, launches of fwd_sum_kernel
+// (layers whose K is split), bwd_kernel launches that rounded stochastically,
+// bwd_kernel launches of row-tiled bunches, fwd_kernel launches that read
+// bfloat16 weights.
+extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
+                                    int accum, const int* sizes, int L, void* const* w,
+                                    int w_bf16, void* const* d, int d_bf16, float* const* b,
+                                    float* const* db, float* work, int hidden, int output,
+                                    unsigned thr_vis, unsigned thr_hid, float scale_vis,
+                                    float scale_hid, unsigned seed, float mom, float A, float Bc,
+                                    long long* tallies, void* stream_) {
+  if (L < 1 || L > kMaxLayers || tile <= 0 || accum <= 0 || hidden < 0 || hidden > 2 ||
+      output < 0 || output > 2 || (w_bf16 && !d_bf16) || (accum > 1 && d_bf16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (w_bf16)
+    return train_chunk<bf16_t, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
+                                       hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
+                                       seed, mom, A, Bc, tallies, stream);
+  if (d_bf16)
+    return train_chunk<float, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
+                                      hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
+                                      seed, mom, A, Bc, tallies, stream);
+  return train_chunk<float, float>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work, hidden,
+                                   output, thr_vis, thr_hid, scale_vis, scale_hid, seed, mom, A,
+                                   Bc, tallies, stream);
 }
 
 // out (rows, cols) = the 0/1 mask (times scale) of rows row0..row0+rows-1 of

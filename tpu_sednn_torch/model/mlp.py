@@ -32,8 +32,15 @@ class ModelConfig:
     dropout_hid: float = 0.0  # hid_omit
     dropout_mode: str = "parity"  # "parity" | "inverted"
     # carried over from the JAX package, where "default" selects bf16-input
-    # TPU matmuls; the port serves in float32 and reads neither field yet
+    # TPU matmuls; the port computes float32 products in full float32 and
+    # does not read this field
     precision: str = "default"
+    # which generator draws the training masks of `forward`: "threefry" =
+    # torch.rand on the caller's generator (the JAX package's jax.random
+    # path); "tpu_prng" = the hand-written Philox kernel of
+    # ops/dropout_mask.py, seeded with one integer drawn from the generator
+    # (the JAX package's TPU hardware generator; the name is kept so that
+    # configurations carry over)
     dropout_rng: str = "threefry"
 
     @property
@@ -49,7 +56,9 @@ class ModelConfig:
 
 
 class MLP(nn.Module):
-    """Weights w[l] (n_in, n_out) and biases b[l] (n_out,), float32."""
+    """Weights w[l] (n_in, n_out) and biases b[l] (n_out,): float32, or
+    bfloat16 where they are given so (the stochastic-rounding trainers keep
+    weights and momentum in bfloat16); any other type is made float32."""
 
     def __init__(self, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]):
         super().__init__()
@@ -58,8 +67,11 @@ class MLP(nn.Module):
         for l, (w, b) in enumerate(zip(weights, biases)):
             if w.dim() != 2 or b.shape != (w.shape[1],):
                 raise ValueError(f"layer {l}: shape mismatch {tuple(w.shape)} vs {tuple(b.shape)}")
-        self.w = nn.ParameterList(nn.Parameter(w.float(), requires_grad=False) for w in weights)
-        self.b = nn.ParameterList(nn.Parameter(b.float(), requires_grad=False) for b in biases)
+        def keep(a):
+            return a if a.dtype == torch.bfloat16 else a.float()
+
+        self.w = nn.ParameterList(nn.Parameter(keep(w), requires_grad=False) for w in weights)
+        self.b = nn.ParameterList(nn.Parameter(keep(b), requires_grad=False) for b in biases)
 
     @property
     def layersizes(self) -> Tuple[int, ...]:
@@ -162,11 +174,37 @@ def dropout_omits(cfg: ModelConfig, n_layers: int) -> List[float]:
 
 
 def _dropout_mask(generator: torch.Generator, shape, omit: float,
-                  device: torch.device) -> torch.Tensor:
+                  device: torch.device, impl: str = "threefry") -> torch.Tensor:
     """Reference mask: zero where uniform < omit (kernDropout, DevFunc.cu:34-45).
-    Drawn on the generator's device, then moved to `device`."""
+    "threefry": torch.rand on the generator's device, then moved to `device`.
+    "tpu_prng": one integer seed from the generator, then the Philox mask of
+    ops/dropout_mask.py on `device` (its kernel on a CUDA device)."""
+    if impl == "tpu_prng":
+        from tpu_sednn_torch.ops.dropout_mask import dropout_mask
+
+        seed = int(torch.randint(-2**31, 2**31, (), generator=generator,
+                                 device=generator.device))  # one scalar
+        return dropout_mask(seed, tuple(shape), omit, device=device)
+    if impl != "threefry":
+        raise ValueError(f"unknown dropout_rng {impl!r}")
     u = torch.rand(tuple(shape), generator=generator, device=generator.device)
     return (u >= omit).to(torch.float32).to(device)
+
+
+def _matmul_bias(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """h @ w + b.  compute_dtype (torch.bfloat16): both operands rounded to
+    it, the products summed in float32, the result float32: the JAX
+    package's bf16-input product with float32 accumulation.  Rounded bfloat16
+    values multiply exactly in float32, so the float32 product of the rounded
+    operands is that function up to summation order, on either device; the
+    cotangents pass back through the same roundings.  Without it, a weight
+    stored in another type than h (bfloat16 state) is widened to h's."""
+    if compute_dtype is not None:
+        return torch.matmul(h.to(compute_dtype).float(), w.to(compute_dtype).float()) + b.float()
+    if w.dtype != h.dtype:
+        w, b = w.to(h.dtype), b.to(h.dtype)
+    return torch.matmul(h, w) + b
 
 
 def forward(
@@ -179,6 +217,7 @@ def forward(
     dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
     weights: Optional[Sequence[torch.Tensor]] = None,
     biases: Optional[Sequence[torch.Tensor]] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Batched forward pass; (batch, n_in) -> (batch, n_out).
 
@@ -188,9 +227,11 @@ def forward(
     external reference); they override masks drawn from `generator`.
     weights/biases: use these tensors instead of params.w / params.b (the
     train step passes leaves that require grad, or a float64 copy).
+    compute_dtype=torch.bfloat16: products of operands rounded to bfloat16,
+    summed in float32 (clean mode only; parity runs pure float32).
     """
     if not train:
-        return forward_eval(params, x, cfg)
+        return forward_eval(params, x, cfg, compute_dtype=compute_dtype)
     ws = list(params.w) if weights is None else list(weights)
     bs = list(params.b) if biases is None else list(biases)
     n_layers = len(ws)
@@ -201,11 +242,11 @@ def forward(
     for l, (w, b) in enumerate(zip(ws, bs)):
         if omits[l] > 0.0:
             mask = (dropout_masks[l] if dropout_masks is not None
-                    else _dropout_mask(generator, h.shape, omits[l], h.device))
+                    else _dropout_mask(generator, h.shape, omits[l], h.device, cfg.dropout_rng))
             h = h * mask.to(h.dtype)
             if cfg.dropout_mode == "inverted":
                 h = h / (1.0 - omits[l])
-        h = torch.matmul(h, w) + b
+        h = _matmul_bias(h, w, b, compute_dtype)
         h = _act(cfg.hidden if l < n_layers - 1 else cfg.output, h)
     return h
 
@@ -218,7 +259,8 @@ def _keep_probs(cfg: ModelConfig, n_layers: int) -> List[float]:
 
 
 @torch.no_grad()
-def forward_eval(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def forward_eval(params: MLP, x: torch.Tensor, cfg: ModelConfig, *,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Inference forward; (..., n_in) -> (..., n_out).
 
     parity dropout mode: every layer's weights scaled by its input keep-prob
@@ -229,8 +271,10 @@ def forward_eval(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     h = x
     for l, (w, b, keep) in enumerate(zip(params.w, params.b, _keep_probs(cfg, n_layers))):
         if keep != 1.0:
-            w = w * keep
-        h = torch.matmul(h, w) + b
+            # the factor in the weight's own type, as the JAX package's weak-typed
+            # scalar: for a bfloat16 weight it is rounded to bfloat16 first
+            w = w * torch.tensor(keep, dtype=w.dtype, device=w.device)
+        h = _matmul_bias(h, w, b, compute_dtype)
         h = _act(cfg.hidden if l < n_layers - 1 else cfg.output, h)
     return h
 

@@ -9,8 +9,15 @@ from tpu_sednn_torch.ops.fused_mlp import (
     fused_linear_act,
     fused_linear_act_reference,
 )
+from tpu_sednn_torch.ops.dropout_mask import dropout_mask, dropout_mask_reference
+from tpu_sednn_torch.ops.sr_update import (
+    sr_momentum_update,
+    sr_momentum_update_reference,
+    sr_train_step,
+)
 
-KERNEL_SOURCES = ("stft_lps", "fused_mlp", "resident_chunk")  # csrc/<name>.cu
+KERNEL_SOURCES = ("stft_lps", "fused_mlp", "resident_chunk", "sr_update",
+                  "dropout_mask")  # csrc/<name>.cu
 
 
 def launch_counts() -> dict:
@@ -21,6 +28,8 @@ def launch_counts() -> dict:
     from tpu_sednn_torch.train.step import reference_train_chunk
 
     return {
+        "dropout_mask": dropout_mask.launches,
+        "sr_momentum_update": sr_momentum_update.launches,
         "stft_lps": stft_lps.launches,
         "fused_linear_act": fused_linear_act.launches,
         "fused_linear_act_sum": fused_linear_act.sum_launches,
@@ -38,6 +47,7 @@ def reset_launch_counts() -> None:
     from tpu_sednn_torch.ops import resident_chunk
     from tpu_sednn_torch.train.step import reference_train_chunk
 
+    dropout_mask.launches = sr_momentum_update.launches = 0
     stft_lps.launches = fused_linear_act.launches = fused_bwd_update.launches = 0
     fused_linear_act.sum_launches = fused_bwd_update.reduce_launches = 0
     resident_chunk.sample_resident_masks.launches = 0

@@ -17,7 +17,12 @@ the port of tpu_sednn/ops/fused_mlp.py:
 
 Both take the true sizes (K = 1548, N = 129, any batch): nothing is padded.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
-runs the plain version beside it (`*_reference`).  float32 only.
+runs the plain version beside it (`*_reference`).  Activations, biases and
+all arithmetic are float32.  W may be stored bfloat16 (widened as it is
+loaded), and `fused_bwd_update` then stores W' and delta' bfloat16 with
+stochastic rounding (`sr_seed`: the stream of `csrc/sr_round.cuh`, whose bits
+the plain version draws too); delta alone may be bfloat16 with W float32, and
+W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 `fused_bwd_update` writes W, delta, b and delta_b IN PLACE on both devices
 and returns them.  `<wrapper>.launches` counts launches of the wrapper's
 product kernel (fwd_kernel, bwd_kernel); the small second kernels count apart:
@@ -35,9 +40,11 @@ from typing import Optional, Tuple, Union
 import torch
 
 from tpu_sednn_torch.ops import _build
-from tpu_sednn_torch.ops.philox import mask_threshold, philox_mask
+from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
+                                        philox_mask, sr_bits, sr_to_bf16_reference)
 
 ACTS = {"linear": 0, "relu": 1, "sigmoid": 2}
+_STORAGE = (torch.float32, torch.bfloat16)
 MaskArg = Union[None, torch.Tensor, Tuple[int, float]]
 
 
@@ -80,9 +87,12 @@ def fused_linear_act_reference(x, w, b, act: str = "linear", in_mask: MaskArg = 
 def fused_bwd_update_reference(dedx, y_prev, w, delta, b, delta_b, momentum, lrate, inv_n,
                                weightcost, in_mask: MaskArg = None, in_scale: float = 1.0,
                                deriv: Optional[str] = None,
-                               dtype: Optional[torch.dtype] = None):
+                               dtype: Optional[torch.dtype] = None,
+                               sr_seed: Optional[int] = None):
     """Plain torch version of `fused_bwd_update`, pure: -> (w', delta',
-    dedy_prev, b', delta_b') as new float32 tensors.  deriv: None, "relu" or
+    dedy_prev, b', delta_b') as new tensors, float32 but for a w' or delta'
+    whose input is bfloat16: that one is rounded from float32 with the bits of
+    stream `sr_seed`, as the kernel rounds it.  deriv: None, "relu" or
     "sigmoid" multiplies dedy_prev by that activation's derivative taken on
     y_prev (where(y > 0) / y*(1-y))."""
     dt = dtype or torch.float32
@@ -101,29 +111,36 @@ def fused_bwd_update_reference(dedx, y_prev, w, delta, b, delta_b, momentum, lra
     new_delta = m * d_ - c * ((y.T @ dx) * float(inv_n) + float(weightcost) * w_)
     new_db = m * delta_b.to(dt) - c * (dx.sum(dim=0) * float(inv_n))
     f32 = torch.float32
-    return ((w_ + new_delta).to(f32), new_delta.to(f32), dedy.to(f32),
-            (b.to(dt) + new_db).to(f32), new_db.to(f32))
+
+    def store(val, like, shift):
+        if like.dtype != torch.bfloat16:
+            return val.to(f32)
+        bits = sr_bits(int(sr_seed), val.shape[0], val.shape[1], shift, val.device)
+        return sr_to_bf16_reference(val.to(f32), bits)
+
+    return (store(w_ + new_delta, w, SR_WEIGHT_SHIFT), store(new_delta, delta, SR_DELTA_SHIFT),
+            dedy.to(f32), (b.to(dt) + new_db).to(f32), new_db.to(f32))
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.fused_linear_act_f32.argtypes = [p, p, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, p,
-                                         p]
+    lib.fused_linear_act_f32.argtypes = [p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f,
+                                         p, p]
     lib.fused_linear_act_f32.restype = ctypes.c_int
     for fn in (lib.fused_fwd_scratch_floats, lib.fused_bwd_scratch_floats):
         fn.argtypes = [i, i, i]
         fn.restype = ctypes.c_longlong
-    lib.fused_bwd_update_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f, f, i, p, u, u, f,
-                                         i, p]
+    lib.fused_bwd_update_f32.argtypes = [p, p, p, i, p, i, u, p, p, p, p, i, i, i, f, f, f, i, p,
+                                         u, u, f, i, p]
     lib.fused_bwd_update_f32.restype = ctypes.c_int
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 expected, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape, device, dtypes=(torch.float32,)) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: {' or '.join(str(d)[6:] for d in dtypes)} expected, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
@@ -146,7 +163,8 @@ def _mask_args(name: str, mask: MaskArg, scale: float, shape, device):
 def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "linear",
                      in_mask: MaskArg = None, in_scale: float = 1.0,
                      out_mask: MaskArg = None, out_scale: float = 1.0) -> torch.Tensor:
-    """(B, K) @ (K, N) + (N,) -> act -> (B, N), any B, K, N."""
+    """(B, K) @ (K, N) + (N,) -> act -> (B, N), any B, K, N.  w float32 or
+    bfloat16 (storage only: widened, the products are float32)."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -157,7 +175,7 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
     if x.device.type != "cuda":
         raise ValueError(f"fused_linear_act runs on cuda or cpu tensors, got {x.device}")
     _check("x", x, (B, K), x.device)
-    _check("w", w, (K, N), x.device)
+    _check("w", w, (K, N), x.device, _STORAGE)
     _check("b", b, (N,), x.device)
     im = _mask_args("in_mask", in_mask, in_scale, (B, K), x.device)
     om = _mask_args("out_mask", out_mask, out_scale, (B, N), x.device)
@@ -167,7 +185,8 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
     part = torch.empty(lib.fused_fwd_scratch_floats(B, K, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.fused_linear_act_f32(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, K, N, ACTS[act],
+            x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), b.data_ptr(),
+            y.data_ptr(), B, K, N, ACTS[act],
             *im[:5], *om[:5], part.data_ptr() if part.numel() else None,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -195,6 +214,7 @@ def fused_bwd_update(
     in_mask: MaskArg = None,
     in_scale: float = 1.0,
     deriv: Optional[str] = None,
+    sr_seed: Optional[int] = None,
 ):
     """-> (w, delta, dedy_prev, b, delta_b) with one read/write of W/delta.
 
@@ -205,6 +225,9 @@ def fused_bwd_update(
     names an activation, the caller multiplies it by the derivative.
     in_mask masks y_prev while it is loaded (the first layer's input); it
     cannot be combined with `deriv`, which reads the stored y_prev.
+    delta, or w and delta, may be bfloat16: their new values are then stored
+    with stochastic rounding from stream `sr_seed` (required), and a float32
+    w beside a bfloat16 delta takes the unrounded step.
     """
     if deriv not in (None, "relu", "sigmoid"):
         raise ValueError(f"unknown derivative {deriv!r}")
@@ -214,13 +237,21 @@ def fused_bwd_update(
         raise ValueError(f"shapes {tuple(dedx.shape)} and {tuple(y_prev.shape)} do not match")
     (B, N), K = dedx.shape, y_prev.shape[1]
     dev = dedx.device
-    for name, t, shape in (("dedx", dedx, (B, N)), ("y_prev", y_prev, (B, K)), ("w", w, (K, N)),
-                           ("delta", delta, (K, N)), ("b", b, (N,)), ("delta_b", delta_b, (N,))):
+    for name, t, shape in (("dedx", dedx, (B, N)), ("y_prev", y_prev, (B, K)), ("b", b, (N,)),
+                           ("delta_b", delta_b, (N,))):
         _check(name, t, shape, dev)
+    _check("w", w, (K, N), dev, _STORAGE)
+    _check("delta", delta, (K, N), dev, _STORAGE)
+    w_bf16, d_bf16 = w.dtype == torch.bfloat16, delta.dtype == torch.bfloat16
+    if w_bf16 and not d_bf16:
+        raise TypeError("bfloat16 w needs a bfloat16 delta (float32 w with bfloat16 delta is the "
+                        "other supported mix)")
+    if d_bf16 and sr_seed is None:
+        raise ValueError("bfloat16 storage is rounded stochastically: give sr_seed")
     if dev.type == "cpu":
         w_, d_, dedy, b_, db_ = fused_bwd_update_reference(
             dedx, y_prev, w, delta, b, delta_b, momentum, lrate, inv_n, weightcost,
-            in_mask, in_scale, deriv)
+            in_mask, in_scale, deriv, sr_seed=sr_seed)
         with torch.no_grad():
             for dst, src in ((w, w_), (delta, d_), (b, b_), (delta_b, db_)):
                 dst.copy_(src)
@@ -234,7 +265,8 @@ def fused_bwd_update(
     dedy = torch.empty((B, K), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fused_bwd_update_f32(
-            dedx.data_ptr(), y_prev.data_ptr(), w.data_ptr(), delta.data_ptr(), b.data_ptr(),
+            dedx.data_ptr(), y_prev.data_ptr(), w.data_ptr(), int(w_bf16), delta.data_ptr(),
+            int(d_bf16), int(sr_seed or 0) & 0xFFFFFFFF, b.data_ptr(),
             delta_b.data_ptr(), part.data_ptr(), dedy.data_ptr(), B, K, N, float(momentum),
             c * float(inv_n), c * float(weightcost), *im[:5],
             ACTS[deriv] if deriv else 0, torch.cuda.current_stream(dev).cuda_stream)

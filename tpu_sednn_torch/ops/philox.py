@@ -12,6 +12,13 @@ or the number of devices.  This file is bit-equal to the device function
 (int64 tensors hold the 32-bit words; 32x32-bit products are formed from
 16-bit halves so nothing overflows), which makes a chunk trained WITH
 dropout comparable between the kernel and its plain version.
+
+Stochastic rounding to bfloat16 (`csrc/sr_round.cuh`): `sr_to_bf16_reference`
+adds 16 random bits to the low half of the float32 bit pattern and drops the
+low half; `sr_bits` gives the words a kernel draws for element (row, col)
+of a stream (second key word SR_TAG; the low half rounds a momentum, the
+high half a weight), so a bfloat16 update is comparable element by element
+too.
 """
 
 from __future__ import annotations
@@ -53,15 +60,16 @@ def mask_threshold(omit: float) -> int:
 
 
 def philox_bits(key: int, rows: int, cols: int, row0: int = 0,
-                device: str | torch.device = "cpu") -> torch.Tensor:
+                device: str | torch.device = "cpu", key1: int = 0) -> torch.Tensor:
     """(rows, cols) int64 tensor of the 32-bit words of rows row0..row0+rows
-    of the stream `key`."""
+    of the stream `key` (second key word `key1`: 0 for the dropout streams)."""
     c4 = (cols + 3) // 4
     col = torch.arange(c4, dtype=torch.int64, device=device)[None, :].expand(rows, c4)
     row = (row0 + torch.arange(rows, dtype=torch.int64, device=device))[:, None].expand(rows, c4)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     k = torch.as_tensor(key & _MASK32, dtype=torch.int64, device=device)
-    words = philox4x32_10((col, row, zero, zero), (k, zero))
+    k1 = torch.as_tensor(key1 & _MASK32, dtype=torch.int64, device=device)
+    words = philox4x32_10((col, row, zero, zero), (k, k1))
     return torch.stack(words, dim=-1).reshape(rows, c4 * 4)[:, :cols]
 
 
@@ -70,3 +78,38 @@ def philox_mask(key: int, rows: int, cols: int, omit: float, row0: int = 0,
     """(rows, cols) float32 0/1 mask, P(0) = omit."""
     bits = philox_bits(key, rows, cols, row0, device)
     return (bits >= mask_threshold(omit)).to(torch.float32)
+
+
+SR_TAG = 0x53524E44  # second key word of every stochastic-rounding stream
+SR_DELTA_SHIFT, SR_WEIGHT_SHIFT = 0, 16
+
+
+def sr_bits(key: int, rows: int, cols: int, shift: int = SR_DELTA_SHIFT,
+            device: str | torch.device = "cpu") -> torch.Tensor:
+    """(rows, cols) int64 tensor of the 16-bit draws the kernels round
+    element (row, col) with under stream `key`: bits shift..shift+15 of the
+    element's word (SR_DELTA_SHIFT for a momentum, SR_WEIGHT_SHIFT for a
+    weight)."""
+    return (philox_bits(key, rows, cols, 0, device, key1=SR_TAG) >> shift) & 0xFFFF
+
+
+def sr_to_bf16_reference(val: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 with stochastic rounding, in integer tensor
+    arithmetic, bit-equal to the device function `sr_bf16`.
+
+    bits: integers of val's shape; their low 16 bits are added to the
+    float32 bit pattern, whose low half is then dropped.  The result moves
+    away from zero with probability (dropped fraction): unbiased.  A value
+    bfloat16 holds exactly comes back unchanged whatever the bits.  Inf and
+    NaN pass through (a NaN stays a NaN: the quiet bit is set).
+    """
+    if val.dtype != torch.float32:
+        raise TypeError(f"sr_to_bf16_reference rounds float32, got {val.dtype}")
+    u = val.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    top = ((u + (bits.to(torch.int64) & 0xFFFF)) >> 16) & 0xFFFF
+    non_finite = (u & 0x7F800000) == 0x7F800000
+    is_nan = non_finite & ((u & 0x007FFFFF) != 0)
+    kept = (u >> 16) | torch.where(is_nan, 0x40, 0)
+    top = torch.where(non_finite, kept, top)
+    signed = torch.where(top >= 0x8000, top - 0x10000, top).to(torch.int16)
+    return signed.view(torch.bfloat16)

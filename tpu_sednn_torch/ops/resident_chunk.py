@@ -22,11 +22,18 @@ exactly that stream.  As in the TPU kernel, the activation derivative is
 taken on the stored masked activation (in inverted mode that leaves the
 1/(1-omit) factor out of the backward).
 
+The TPU kernel's single-device variants are options of the same trainer:
+bfloat16 state with stochastic rounding (`sr_delta`: the weight matrices'
+momentum; `sr_state`: weights and momentum), row tiles that accumulate one
+bunch's gradient into the momentum (`tile_rows`), and `hbm_spill`, which has
+nothing to do on this card.  The data-parallel trainer and the tensor-core
+products (`bf16=True`) are still to port.
+
 Plain versions, beside the wrappers: `resident_train_chunk_reference` and
 `sample_resident_masks_reference` (bit-equal Philox, so a chunk trained WITH
-dropout is comparable between kernel and plain version).
-`make_resident_train_chunk.launches` counts calls of the C entry point,
-`kernel_launches` the kernel launches it enqueued, by kernel.
+dropout, or with stochastic rounding, is comparable between kernel and plain
+version).  `make_resident_train_chunk.launches` counts calls of the C entry
+point, `kernel_launches` the kernel launches it enqueued, by kernel and form.
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ import numpy as np
 import torch
 
 from tpu_sednn_torch._device import resolve_device
-from tpu_sednn_torch.model.mlp import ModelConfig, dropout_omits
+from tpu_sednn_torch.model.mlp import MLP, ModelConfig, dropout_omits
 from tpu_sednn_torch.ops import _build
 from tpu_sednn_torch.ops.fused_mlp import ACTS
-from tpu_sednn_torch.ops.philox import mask_threshold, philox_mask
+from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
+                                        philox_mask, sr_bits, sr_to_bf16_reference)
 from tpu_sednn_torch.train.step import OptConfig, TrainState
 
 # seed strides: distinct streams per (bunch, layer) mask
@@ -54,16 +62,34 @@ _mask_threshold = mask_threshold
 # kernel launches enqueued by the chunk trainer's C entry point, by kernel:
 # fwd_kernel, bwd_kernel, reduce_dedy_kernel, then the count of those launches
 # that drew dropout bits in the kernel, then fwd_sum_kernel (one for every
-# forward whose K is split over the grid)
+# forward whose K is split over the grid); then by form: bwd_kernel launches
+# that stored bfloat16 with stochastic rounding, bwd_kernel launches of
+# row-tiled bunches, fwd_kernel launches that read bfloat16 weights
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "reduce_dedy": 0, "philox_mask": 0,
-                                   "fused_linear_act_sum": 0}
+                                   "fused_linear_act_sum": 0, "sr_bwd_update": 0,
+                                   "tiled_bwd_update": 0, "bf16_linear_act": 0}
 
 
 def mask_key(seed: int, bunch_idx: int, layer_idx: int) -> int:
     """The 32-bit Philox key of (seed, bunch, layer): the TPU kernel's int32
     seed sum, defined mod 2**32."""
     return (int(seed) + int(bunch_idx) * _BUNCH_STRIDE + int(layer_idx) * _LAYER_STRIDE) & 0xFFFFFFFF
+
+
+def sr_key(seed: int, bunch_idx: int, layer_idx: int) -> int:
+    """The stochastic-rounding stream of (seed, bunch, layer): the mask
+    streams' formula plus one, as in the TPU kernel."""
+    return (mask_key(seed, bunch_idx, layer_idx) + 1) & 0xFFFFFFFF
+
+
+def spill_layer_order(padded_sizes) -> list:
+    """Layer indices in the order the TPU kernel's hbm_spill moves them out of
+    its on-chip memory: smallest padded W first, later layers preferred on
+    ties.  On this card every layer's state is in device memory already, so
+    the order decides nothing here; it is kept because it is public."""
+    L = len(padded_sizes) - 1
+    return sorted(range(L), key=lambda l: (padded_sizes[l] * padded_sizes[l + 1], -l))
 
 
 def _scal_coefs(rule: str, grad_n: int, out_dim: int, lrate, momentum,
@@ -95,12 +121,24 @@ def _dropout_setup(cfg: ModelConfig, n_layers: int):
     return omits, scales
 
 
+def _cast_state(state: TrainState, w_dtype: torch.dtype, d_dtype: torch.dtype) -> None:
+    """Bring the weight matrices and their momentum to the storage types a
+    variant keeps them in (rounding to nearest where that narrows; a state
+    already in them is left as it is).  Biases stay float32."""
+    if any(w.dtype != w_dtype for w in state.params.w):
+        state.params = MLP([w.data.to(w_dtype) for w in state.params.w], list(state.params.b))
+    if any(d.dtype != d_dtype for d in state.deltas.w):
+        state.deltas = MLP([d.data.to(d_dtype) for d in state.deltas.w], list(state.deltas.b))
+
+
 @torch.no_grad()
 def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
                                    targ_chunk: torch.Tensor, cfg: ModelConfig, bunch: int,
                                    coefs: Sequence[float], seed: int,
                                    n_real: Optional[int] = None,
-                                   dtype: Optional[torch.dtype] = None) -> TrainState:
+                                   dtype: Optional[torch.dtype] = None,
+                                   sr_state: bool = False, sr_delta: bool = False,
+                                   tile_rows: Optional[int] = None) -> TrainState:
     """Plain torch version of the chunk trainer: a loop over the bunches with
     the kernel's arithmetic written out (masks from `philox_mask`, bit-equal
     to the kernel's; derivative on the stored masked activation; update
@@ -108,10 +146,23 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
 
     dtype: carry the state and every product in this type through the chunk
     (torch.float64: the function free of float32 rounding) and round to
-    float32 once at the end.
+    the state's types once at the end.
+
+    sr_delta / sr_state: the weight matrices' momentum (and the weights) are
+    bfloat16 values throughout: each bunch's new value is rounded from
+    float32 by `sr_to_bf16_reference` with the kernel's bits (`sr_bits` of
+    `sr_key(seed, bunch, layer)`), so the rounding decisions are the
+    kernel's wherever the float32 values agree.  Under sr_delta W takes the
+    unrounded step.  The state must already be in those types.
+
+    tile_rows: each bunch in row tiles; tile 0 applies the decay and weight
+    cost, every tile adds its -A*g to the momentum, the step lands after
+    the last, masks are keyed on the global tile index.
     """
     dt = dtype or torch.float32
     m, a_coef, b_coef = (float(c) for c in coefs)
+    tile = bunch if tile_rows is None else int(tile_rows)
+    accum = bunch // tile
     n_bunches = in_chunk.shape[0] // bunch
     n_real = n_bunches if n_real is None else int(n_real)
     ws = [w.data.to(dt) for w in state.params.w]
@@ -121,36 +172,58 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
     L = len(ws)
     omits, scales = _dropout_setup(cfg, L)
     dev = in_chunk.device
+
+    def rounded(val, key, shift):
+        bits = sr_bits(key, val.shape[0], val.shape[1], shift, dev)
+        return sr_to_bf16_reference(val.to(torch.float32), bits).to(dt)
+
     for i in range(n_real):
-        h = in_chunk[i * bunch:(i + 1) * bunch].to(dt)
-        t = targ_chunk[i * bunch:(i + 1) * bunch].to(dt)
-        ys = []
-        for l in range(L):
-            if omits[l] > 0.0:
-                mask = philox_mask(mask_key(seed, i, l), bunch, h.shape[1], omits[l], device=dev)
-                h = h * (mask.to(dt) * scales[l])
-            ys.append(h)
-            z = h @ ws[l] + bs[l]
-            act = cfg.hidden if l < L - 1 else cfg.output
-            h = torch.relu(z) if act == "relu" else torch.sigmoid(z) if act == "sigmoid" else z
-        out = h
-        dedx = (2.0 / bunch) * (out - t)
-        if cfg.output == "sigmoid":
-            dedx = dedx * out * (1.0 - out)
-        for l in range(L - 1, -1, -1):
-            dedy = dedx @ ws[l].T if l > 0 else None  # W before its update
-            g = ys[l].T @ dedx
-            dws[l] = m * dws[l] - (a_coef * g + b_coef * ws[l])
-            ws[l] = ws[l] + dws[l]
-            dbs[l] = m * dbs[l] - a_coef * dedx.sum(dim=0)
-            bs[l] = bs[l] + dbs[l]
-            if l > 0:
-                y = ys[l]
-                dedx = (torch.where(y > 0, dedy, torch.zeros((), dtype=dt, device=dev))
-                        if cfg.hidden == "relu" else y * (1.0 - y) * dedy)
+        for j in range(accum):
+            gi = i * accum + j
+            h = in_chunk[gi * tile:(gi + 1) * tile].to(dt)
+            t = targ_chunk[gi * tile:(gi + 1) * tile].to(dt)
+            ys = []
+            for l in range(L):
+                if omits[l] > 0.0:
+                    mask = philox_mask(mask_key(seed, gi, l), tile, h.shape[1], omits[l],
+                                       device=dev)
+                    h = h * (mask.to(dt) * scales[l])
+                ys.append(h)
+                z = h @ ws[l] + bs[l]
+                act = cfg.hidden if l < L - 1 else cfg.output
+                h = torch.relu(z) if act == "relu" else torch.sigmoid(z) if act == "sigmoid" else z
+            out = h
+            dedx = (2.0 / bunch) * (out - t)
+            if cfg.output == "sigmoid":
+                dedx = dedx * out * (1.0 - out)
+            for l in range(L - 1, -1, -1):
+                dedy = dedx @ ws[l].T if l > 0 else None  # W before its update
+                g = ys[l].T @ dedx
+                gb = dedx.sum(dim=0)
+                if j == 0:
+                    nd = m * dws[l] - (a_coef * g + b_coef * ws[l])
+                    ndb = m * dbs[l] - a_coef * gb
+                else:
+                    nd = dws[l] - a_coef * g
+                    ndb = dbs[l] - a_coef * gb
+                if sr_state or sr_delta:
+                    dws[l] = rounded(nd, sr_key(seed, i, l), SR_DELTA_SHIFT)
+                else:
+                    dws[l] = nd
+                dbs[l] = ndb
+                if j == accum - 1:
+                    if sr_state:
+                        ws[l] = rounded(ws[l] + nd, sr_key(seed, i, l), SR_WEIGHT_SHIFT)
+                    else:
+                        ws[l] = ws[l] + nd
+                    bs[l] = bs[l] + ndb
+                if l > 0:
+                    y = ys[l]
+                    dedx = (torch.where(y > 0, dedy, torch.zeros((), dtype=dt, device=dev))
+                            if cfg.hidden == "relu" else y * (1.0 - y) * dedy)
     for dst, src in zip(list(state.params.w) + list(state.params.b)
                         + list(state.deltas.w) + list(state.deltas.b), ws + bs + dws + dbs):
-        dst.data.copy_(src.to(torch.float32))
+        dst.data.copy_(src.to(dst.dtype))
     state.step += n_real
     return state
 
@@ -162,9 +235,9 @@ def _lib() -> ctypes.CDLL:
     ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
     lib.resident_workspace_floats.argtypes = [ip, i, i]
     lib.resident_workspace_floats.restype = ctypes.c_longlong
-    lib.resident_chunk_f32.argtypes = [p, p, i, i, ip, i, pp, pp, pp, pp, p, i, i, u, u, f, f, u,
-                                       f, f, f, ctypes.POINTER(ctypes.c_longlong), p]
-    lib.resident_chunk_f32.restype = ctypes.c_int
+    lib.resident_chunk_train.argtypes = [p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, i, i, u, u,
+                                         f, f, u, f, f, f, ctypes.POINTER(ctypes.c_longlong), p]
+    lib.resident_chunk_train.restype = ctypes.c_int
     lib.philox_mask_f32.argtypes = [p, i, i, i, u, u, f, p]
     lib.philox_mask_f32.restype = ctypes.c_int
     lib.philox_words_u32.argtypes = [p, p, i, p]
@@ -193,12 +266,35 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
     "clean" = standard Polyak momentum on the mean-MSE gradient (matches
     train.step.clean_train_step).
 
+    sr_delta: the weight matrices' MOMENTUM stored bfloat16 (weights, biases
+    and every computed value stay float32; the weight step applies the
+    unrounded float32 delta) with stochastic rounding on the stored
+    recurrence.  sr_state: weights AND momentum stored bfloat16 (biases
+    float32), stochastic rounding on both stores.  Both are allowed with both
+    rules: the update formula is unchanged, but equality with the float32
+    trainer is lost to unbiased bfloat16-ulp rounding noise.  run() casts an
+    incoming float32 state where needed (the state object then holds new
+    bfloat16 tensors; a second call takes them as they are).  They are what
+    the JAX package trains the 16 kHz net with; on this card they halve the
+    state's memory and, with float32 products, are not faster (operations
+    bound).
+
+    tile_rows: stream each opt.bunchsize-row update batch through the kernels
+    in row tiles of this size, accumulating the gradient into the momentum
+    buffer and applying the weight step with the last tile: big update
+    batches (clean rule, float32 state) with a bounded activation workspace.
+    None = the whole bunch is one tile.
+
+    hbm_spill: the TPU kernel keeps this many layers' W and delta outside its
+    on-chip memory.  Here the whole state lives in device memory at every
+    size and there is nothing to stage: the kwarg is validated as the JAX
+    factory validates it and the run is the float32 trainer's, bit for bit.
+
     bf16: only False (float32 products) is implemented; a tensor-core mode
-    with its own tolerance is still to port.  sr_state, sr_delta, tile_rows <
-    bunchsize and hbm_spill are the TPU kernel's variants still to port and
-    raise NotImplementedError.  The TPU kernel's interpret and dedy_full have
-    no counterpart (a CPU state takes the plain version; dedy_full names a
-    scheduling choice of that kernel).
+    with its own tolerance is still to port, as is the data-parallel trainer.
+    The TPU kernel's interpret and dedy_full have no counterpart (a CPU state
+    takes the plain version; dedy_full names a scheduling choice of that
+    kernel).
 
     run(state, x, t, seed, lrate, momentum, weightcost, n_real=None): on a
     CUDA state launches the kernels (or raises); on a CPU state runs
@@ -214,12 +310,31 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         raise ValueError(f"unsupported activations {cfg.hidden!r}/{cfg.output!r}")
     if bf16:
         _not_ported("bf16=True (tensor-core products)")
-    if sr_state or sr_delta:
-        _not_ported("sr_state / sr_delta (bf16 state with stochastic rounding)")
-    if tile_rows is not None and tile_rows != bunch:
-        _not_ported("tile_rows < bunchsize (row-tiled gradient accumulation)")
-    if hbm_spill:
-        _not_ported("hbm_spill")
+    if sr_state and sr_delta:
+        raise ValueError("sr_state (bf16 weights+momentum) already implies "
+                         "bf16 momentum; sr_delta is mutually exclusive")
+    if not 0 <= hbm_spill <= len(sizes) - 1:
+        raise ValueError(f"hbm_spill {hbm_spill} out of range [0, {len(sizes)-1}]")
+    if hbm_spill and (sr_state or sr_delta):
+        raise ValueError("hbm_spill is the f32 hybrid-residency mode; the "
+                         "bf16 sr modes shrink the state instead — combine "
+                         "neither (they solve the same VMEM problem)")
+    tile = tile_rows if tile_rows is not None else bunch
+    if bunch % tile or tile % 8:
+        raise ValueError(f"tile_rows {tile} must divide bunchsize {bunch} "
+                         "and be a multiple of 8")
+    accum = bunch // tile
+    if accum > 1 and (rule != "clean" or sr_state or sr_delta):
+        raise ValueError("row-tiled gradient accumulation (tile_rows < "
+                         "bunchsize) is a clean-rule, fp32/bf16-state option; "
+                         "it accumulates INTO the momentum buffer, which must "
+                         "stay f32 (no sr_state/sr_delta)")
+    if accum > 1 and hbm_spill:
+        raise ValueError("hbm_spill with row-tiled accumulation would stream "
+                         "the spilled momentum from HBM once per TILE; "
+                         "unsupported — use one or the other")
+    w_dtype = torch.bfloat16 if sr_state else torch.float32
+    d_dtype = torch.bfloat16 if (sr_state or sr_delta) else torch.float32
     L = len(sizes) - 1
     omits, scales = _dropout_setup(cfg, L)
     omit_vis, omit_hid = omits[0], (omits[1] if L > 1 else 0.0)
@@ -242,20 +357,22 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         if in_chunk.shape[1] != sizes[0] or targ_chunk.shape[1] != sizes[-1]:
             raise ValueError(f"chunk widths {in_chunk.shape[1]}/{targ_chunk.shape[1]} do not "
                              f"match the net {sizes[0]}/{sizes[-1]}")
+        _cast_state(state, w_dtype, d_dtype)
         if dev.type == "cpu":
             return resident_train_chunk_reference(state, in_chunk, targ_chunk, cfg, bunch, coefs,
-                                                  int(seed), n_real=nr)
+                                                  int(seed), n_real=nr, sr_state=sr_state,
+                                                  sr_delta=sr_delta, tile_rows=tile)
         if dev.type != "cuda":
             raise ValueError(f"the chunk trainer runs on cuda or cpu, got {dev}")
         tensors = (list(state.params.w), list(state.deltas.w), list(state.params.b),
                    list(state.deltas.b))
-        for group in tensors:
+        for group, dtype in zip(tensors, (w_dtype, d_dtype, torch.float32, torch.float32)):
             for l, a in enumerate(group):
                 want = (sizes[l], sizes[l + 1]) if a.dim() == 2 else (sizes[l + 1],)
-                if (tuple(a.shape) != want or a.dtype != torch.float32 or a.device != dev
+                if (tuple(a.shape) != want or a.dtype != dtype or a.device != dev
                         or not a.is_contiguous()):
                     raise ValueError(f"state tensor of layer {l}: {tuple(a.shape)} {a.dtype} on "
-                                     f"{a.device}; expected float32 {want} on {dev}, contiguous")
+                                     f"{a.device}; expected {dtype} {want} on {dev}, contiguous")
         for name, a in (("in_chunk", in_chunk), ("targ_chunk", targ_chunk)):
             if a.dtype != torch.float32 or a.device != dev or not a.is_contiguous():
                 raise ValueError(f"{name}: float32, contiguous, on {dev} expected; got {a.dtype} "
@@ -264,14 +381,15 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
             raise ValueError("targ_chunk has fewer rows than n_real bunches")
         lib = _lib()
         c_sizes = (ctypes.c_int * (L + 1))(*sizes)
-        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, bunch), dtype=torch.float32,
+        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile), dtype=torch.float32,
                            device=dev)
         ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
         tallies = (ctypes.c_longlong * len(kernel_launches))()
         with torch.cuda.device(dev):
-            rc = lib.resident_chunk_f32(
-                in_chunk.data_ptr(), targ_chunk.data_ptr(), nr, bunch, c_sizes, L,
-                ptrs[0], ptrs[1], ptrs[2], ptrs[3], work.data_ptr(),
+            rc = lib.resident_chunk_train(
+                in_chunk.data_ptr(), targ_chunk.data_ptr(), nr, tile, accum, c_sizes, L,
+                ptrs[0], int(sr_state), ptrs[1], int(sr_state or sr_delta), ptrs[2], ptrs[3],
+                work.data_ptr(),
                 ACTS[cfg.hidden], ACTS[cfg.output],
                 mask_threshold(omit_vis) if omit_vis > 0.0 else 0,
                 mask_threshold(omit_hid) if omit_hid > 0.0 else 0,

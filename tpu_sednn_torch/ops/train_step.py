@@ -48,7 +48,8 @@ def fused_train_step(
         if omits[l] > 0.0:
             width = x.shape[1] if l == 0 else ws[l].shape[0]
             masks[l] = (dropout_masks[l] if dropout_masks is not None
-                        else _dropout_mask(generator, (n, width), omits[l], x.device))
+                        else _dropout_mask(generator, (n, width), omits[l], x.device,
+                                           cfg.dropout_rng))
     scale = [1.0 / (1.0 - o) if (o > 0.0 and cfg.dropout_mode == "inverted") else 1.0
              for o in omits]
 

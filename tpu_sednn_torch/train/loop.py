@@ -42,7 +42,8 @@ def _auto_engine(cfg: ModelConfig, opt: OptConfig, engine_kwargs: Optional[Dict]
     one layer's state outside on-chip memory) when the float32 state does
     not fit the TPU's on-chip memory.  The port keeps its state in device
     memory at every model size, so there is no ladder: the extra kwargs are
-    always empty."""
+    always empty.  The variants the ladder picks (sr_delta, hbm_spill) are
+    ported and can be asked for through engine_kwargs."""
     return ("resident" if torch.device(device).type == "cuda" else "xla"), {}
 
 
@@ -61,7 +62,8 @@ def make_chunk_runner(cfg: ModelConfig, opt: OptConfig, engine: str = "xla",
         version);
       * "auto"     — "resident" for a CUDA `device`, "xla" for the CPU.
     n_data_shards > 1 (data parallelism) is not yet ported.
-    engine_kwargs are forwarded to the resident factory.
+    engine_kwargs are forwarded to the resident factory (sr_delta, sr_state,
+    tile_rows, hbm_spill, rule).
     All runners share the signature
       run(state, x, t, rng, lrate, momentum, weightcost[, n_real]) -> state
     with `rng` a torch.Generator and the hyperparameters REQUIRED (the memo
@@ -318,44 +320,78 @@ def train_epochs_arrays(
 
     opt_schedule(epoch) supplies per-epoch lr/momentum (the Perl recipe's
     momentum ramp 0.5 -> 0.9).  Each epoch permutes the samples with a
-    generator seeded from (seed, epoch), so an epoch's order does not depend
-    on the epochs before it.  A non-finite CV error aborts immediately.
-    ckpt_dir (checkpoint and resume) and profile_dir (a profiler trace of the
-    run) are not yet ported and raise NotImplementedError.
+    generator seeded from (seed, epoch), so an epoch's order and dropout
+    stream do not depend on the epochs before it.  A non-finite CV error
+    aborts immediately.
+    profile_dir: capture a torch.profiler trace of the run (utils/profiling).
+
+    Crash recovery: when `ckpt_dir` is given, a checkpoint carrying params,
+    momentum and the CV history is written every `ckpt_every` epochs
+    (utils/checkpoint.py) and the call RESUMES from the newest one if
+    present; with the epoch-indexed generators a killed and resumed run
+    reproduces the uninterrupted final state exactly.
+
+    A trailing partial chunk goes to the trainer at its true size.  The JAX
+    recipe pads it to `traincache` rows and passes `n_real` so that one
+    compiled shape serves every chunk; nothing is compiled per shape here,
+    and the trained result is the same bit for bit, so the gather and copy
+    of the padding are saved.
     """
-    if ckpt_dir is not None:
-        raise NotImplementedError("ckpt_dir (utils/checkpoint.py): not yet ported")
-    if profile_dir is not None:
-        raise NotImplementedError("profile_dir (utils/profiling.py): not yet ported")
+    from tpu_sednn_torch.utils.profiling import trace
+
     log = logger or Logger()
     results: List[EpochResult] = []
     dev = state.device
+    start_epoch = 0
+    if ckpt_dir is not None:
+        from tpu_sednn_torch.utils.checkpoint import latest_step, restore_checkpoint
+
+        s = latest_step(ckpt_dir)
+        if s is not None:
+            state, extra, _ = restore_checkpoint(ckpt_dir, s, device=dev)
+            start_epoch = int(extra.get("epoch", s - 1)) + 1
+            for e, cv in enumerate(extra.get("cv_hist", [])):
+                results.append(EpochResult(e, float(cv), x.shape[0], 0.0, 0.0))
+            log.info(f"resumed from checkpoint {ckpt_dir} at epoch {start_epoch}")
     n = x.shape[0]
-    run_chunk = make_chunk_runner(cfg, opt_schedule(0), engine, device=dev,
-                                  **(engine_kwargs or {}))
+    opt0 = opt_schedule(0)
+    engine_kwargs = dict(engine_kwargs or {})
+    if engine == "auto":
+        engine, extra_kw = _auto_engine(cfg, opt0, engine_kwargs, dev)
+        engine_kwargs.update(extra_kw)
+    run_chunk = make_chunk_runner(cfg, opt0, engine, device=dev, **engine_kwargs)
     x_cv_d, t_cv_d = _to_device(x_cv, dev), _to_device(t_cv, dev)
-    for epoch in range(n_epochs):
-        t0 = time.time()
-        opt = opt_schedule(epoch)
-        # epoch-indexed stream: the same order whether or not earlier epochs ran
-        gen = torch.Generator().manual_seed(int(seed) * 1000003 + epoch)
-        perm = torch.randperm(n, generator=gen).numpy()
-        for st in range(0, n, traincache):
-            idx = perm[st: st + traincache]
-            state = run_chunk(
-                state, _to_device(x[idx], dev), _to_device(t[idx], dev), gen,
-                opt.lrate, opt.momentum, opt.weightcost,
+    with trace(profile_dir):
+        for epoch in range(start_epoch, n_epochs):
+            t0 = time.time()
+            opt = opt_schedule(epoch)
+            # epoch-indexed stream: the same order whether or not earlier epochs ran
+            gen = torch.Generator().manual_seed(int(seed) * 1000003 + epoch)
+            perm = torch.randperm(n, generator=gen).numpy()
+            for st in range(0, n, traincache):
+                idx = perm[st: st + traincache]
+                state = run_chunk(
+                    state, _to_device(x[idx], dev), _to_device(t[idx], dev), gen,
+                    opt.lrate, opt.momentum, opt.weightcost,
+                )
+            cv_mse = float(cv_squared_error(state.params, x_cv_d, t_cv_d, cfg)) / len(x_cv)
+            if not np.isfinite(cv_mse):
+                raise FloatingPointError(
+                    f"non-finite CV error at epoch {epoch} (diverged); "
+                    f"last checkpoint: {ckpt_dir or 'none'}")
+            dt = time.time() - t0
+            res = EpochResult(epoch, cv_mse, n, dt, n / max(dt, 1e-9))
+            results.append(res)
+            log.info(
+                f"epoch {epoch}: cv_mse={cv_mse:.6f} lr={opt.lrate} m={opt.momentum} "
+                f"({res.samples_per_sec:.0f} samples/s)"
             )
-        cv_mse = float(cv_squared_error(state.params, x_cv_d, t_cv_d, cfg)) / len(x_cv)
-        if not np.isfinite(cv_mse):
-            raise FloatingPointError(f"non-finite CV error at epoch {epoch} (diverged)")
-        dt = time.time() - t0
-        res = EpochResult(epoch, cv_mse, n, dt, n / max(dt, 1e-9))
-        results.append(res)
-        log.info(
-            f"epoch {epoch}: cv_mse={cv_mse:.6f} lr={opt.lrate} m={opt.momentum} "
-            f"({res.samples_per_sec:.0f} samples/s)"
-        )
-        if on_epoch is not None:
-            on_epoch(epoch, state, res)
+            if ckpt_dir is not None and ((epoch + 1) % ckpt_every == 0 or epoch == n_epochs - 1):
+                from tpu_sednn_torch.utils.checkpoint import save_checkpoint
+
+                save_checkpoint(ckpt_dir, epoch + 1, state,
+                                extra={"epoch": epoch,
+                                       "cv_hist": [float(r.cv_mse) for r in results]})
+            if on_epoch is not None:
+                on_epoch(epoch, state, res)
     return state, results

@@ -73,20 +73,48 @@ class OptConfig:
 # reference-parity path
 # ---------------------------------------------------------------------------
 
-def _grads(state: TrainState, x, t, cfg: ModelConfig, generator, masks, mean: bool, dtype):
+def _grads(state: TrainState, x, t, cfg: ModelConfig, generator, masks, mean: bool, dtype,
+           compute_dtype=None, loss_fn=None):
     """(loss, dL/dW list, dL/db list) by autograd, for
-    L = sum((out-t)^2)/n (parity) or mean((out-t)^2) (clean), computed in
-    `dtype` (None = the state's float32)."""
+    L = sum((out-t)^2)/n (parity) or mean((out-t)^2) (clean) or
+    loss_fn(out, t), computed in `dtype` (None = the state's own type).
+    compute_dtype: the type the products' operands are rounded to
+    (model.mlp.forward); the gradient of a leaf comes back in the leaf's type."""
     cast = (lambda a: a) if dtype is None else (lambda a: a.to(dtype))
     ws = [cast(w.detach()).clone().requires_grad_(True) for w in state.params.w]
     bs = [cast(b.detach()).clone().requires_grad_(True) for b in state.params.b]
     with torch.enable_grad():
         out = forward(state.params, cast(x), cfg, train=True, generator=generator,
-                      dropout_masks=masks, weights=ws, biases=bs)
-        sq = (out - cast(t)) ** 2
-        loss = sq.mean() if mean else sq.sum() / x.shape[0]
+                      dropout_masks=masks, weights=ws, biases=bs, compute_dtype=compute_dtype)
+        if loss_fn is not None:
+            loss = loss_fn(out, cast(t))
+        else:
+            sq = (out - cast(t)) ** 2
+            loss = sq.mean() if mean else sq.sum() / x.shape[0]
         grads = torch.autograd.grad(loss, ws + bs)
     return loss.detach(), list(grads[: len(ws)]), list(grads[len(ws):])
+
+
+def _split_compute_dtype(compute_dtype):
+    """-> (dtype, compute_dtype) for `_grads`: float64 means "everything in
+    float64" (the check free of float32 rounding), a narrower type means
+    "round the products' operands to it"."""
+    if compute_dtype in (None, torch.float32):
+        return None, None
+    if compute_dtype == torch.float64:
+        return compute_dtype, None
+    return None, compute_dtype
+
+
+def _polyak(opt: "OptConfig", with_wc: bool):
+    """The clean update of one tensor: delta' = m*delta - lr*(g [+ wc*p])."""
+    m, lr, wc = opt.momentum, opt.lrate, opt.weightcost
+
+    def f(delta, p, g):
+        g = g + (wc * p if with_wc else 0.0)
+        new_delta = m * delta - lr * g
+        return new_delta, p + new_delta
+    return f
 
 
 @torch.no_grad()
@@ -210,21 +238,52 @@ def clean_train_step(
     """Modern training step: mean-MSE, Polyak momentum.
 
     Returns (new_state, loss).  Expects cfg.dropout_mode == "inverted" when
-    dropout is enabled.  compute_dtype: the type the products are computed in
-    (None = float32, the mode the tests hold; the JAX package defaults to
-    bfloat16 on the TPU).
+    dropout is enabled.  compute_dtype: None = float32 products, the mode the
+    tests hold; torch.bfloat16 = operands rounded to bfloat16 and summed in
+    float32, the JAX package's default on the TPU; torch.float64 = everything
+    in float64.
     """
-    loss, g_w, g_b = _grads(state, x, t, cfg, generator, dropout_masks, True, compute_dtype)
-    m, lr, wc = opt.momentum, opt.lrate, opt.weightcost
+    dtype, cd = _split_compute_dtype(compute_dtype)
+    loss, g_w, g_b = _grads(state, x, t, cfg, generator, dropout_masks, True, dtype,
+                            compute_dtype=cd)
+    return (_apply(state, g_w, g_b, _polyak(opt, True), _polyak(opt, False), False),
+            loss.to(torch.float32))
 
-    def upd(with_wc):
-        def f(delta, p, g):
-            g = g + (wc * p if with_wc else 0.0)
-            new_delta = m * delta - lr * g
-            return new_delta, p + new_delta
-        return f
 
-    return _apply(state, g_w, g_b, upd(True), upd(False), False), loss.to(torch.float32)
+def softmax_xent_train_step(
+    state: TrainState,
+    x: torch.Tensor,
+    labels: torch.Tensor,
+    cfg: ModelConfig,
+    opt: OptConfig,
+    generator: Optional[torch.Generator] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Tuple[TrainState, torch.Tensor]:
+    """Softmax classification step — the working analog of the reference's
+    shipped-but-dead softmax kernels.
+
+    cfg.output must be "softmax"; `labels` is either integer class ids
+    (batch,) or one-hot / soft targets (batch, n_out).  Loss is the mean
+    cross-entropy from the logits via log_softmax; the update is the clean
+    Polyak-momentum rule.  compute_dtype as in `clean_train_step`.
+    """
+    from dataclasses import replace as _replace
+
+    if cfg.output != "softmax":
+        raise ValueError("softmax_xent_train_step requires cfg.output='softmax'")
+    logits_cfg = _replace(cfg, output="linear")
+    n_out = cfg.layersizes[-1]
+    t1h = (torch.nn.functional.one_hot(labels.long(), n_out).to(torch.float32)
+           if labels.dim() == 1 else labels)
+
+    def xent(logits, t):
+        return -torch.mean(torch.sum(t * torch.log_softmax(logits, dim=-1), dim=-1))
+
+    dtype, cd = _split_compute_dtype(compute_dtype)
+    loss, g_w, g_b = _grads(state, x, t1h, logits_cfg, generator, None, True, dtype,
+                            compute_dtype=cd, loss_fn=xent)
+    return (_apply(state, g_w, g_b, _polyak(opt, True), _polyak(opt, False), False),
+            loss.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
