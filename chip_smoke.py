@@ -24,26 +24,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      two utterances equal to the same decoder on the CPU; audio-s/s.  Then
      the `python -m tpu_sednn_torch.enhance` command on a wav, with a .wts
      and .norm the port wrote.
-  5. fused layer kernels (fused_linear_act, fused_bwd_update) against their
-     float64 plain versions at the four flagship layer shapes and at ragged
-     ones, with in-kernel and explicit dropout masks; their times, the plain
-     versions' and torch.addmm's beside the bound.
+  5. fused layer kernels (fused_linear_act, fused_bwd_update) with float32
+     products (bf16=False) against their float64 plain versions at the four
+     flagship layer shapes and at ragged ones, with in-kernel and explicit
+     dropout masks; their times, the plain versions' and torch.addmm's beside
+     the bound.  Then their tensor-core forms (bf16=True, the default) at the
+     four 8 kHz and four 16 kHz layer shapes and ragged ones, float32 and
+     bfloat16 W, against the float64 plain versions of the same rounded
+     operands; the float32-FMA form and truncated operands refused; times
+     beside the bytes bound and a bfloat16 torch.addmm.
   6. dropout stream: the device Philox against the Random123 known-answer
      vectors and, bit for bit, against its plain version; zero rate, stream
      distinctness and rank-slice identity of sample_resident_masks.
   7. chunk trainer at full width (1548-2048x3-129, bunch 128) against its
-     float64 plain version: rules parity and clean, dropout off / parity /
-     inverted, a sigmoid head, n_real below capacity, a partial bunch,
-     hyperparameters changed between calls; a deliberately wrong
-     hyperparameter is refused; ops/train_step's per-bunch step against it;
-     ms per bunch.
+     float64 plain version, float32 products: rules parity and clean, dropout
+     off / parity / inverted, a sigmoid head, n_real below capacity, a
+     partial bunch, hyperparameters changed between calls; a deliberately
+     wrong hyperparameter is refused; ops/train_step's per-bunch step against
+     it.  The same cases with tensor-core products (TC_ONE_REL_FRO), faults
+     refused, the per-bunch step bit-equal; ms per bunch of both forms.
   8. training (main path): a seeded speech-like corpus -> noisy and clean LPS
      pfiles with make_pfile on the card (> 120,000 frames), then
      `python -m tpu_sednn_torch.cli` twice (momentum 0.5, then 0.54 warm
-     started), dropout on, engine=auto: "all finish!", the .wts reloads, CV
-     MSE finite and falling, the chunk trainer launched once per chunk and
-     the plain trainer never; engine=resident against engine=xla with
-     dropout off; samples/s, ms per bunch, a profile of one full chunk.
+     started), dropout on, engine=auto (tensor-core products): "all
+     finish!", the .wts reloads, CV MSE finite and falling, the chunk trainer
+     launched once per chunk in its tensor-core form and the plain trainer
+     never; the same two epochs with float32 products (run_epoch,
+     bf16=False) end within TC_CV_FRACTION; engine=resident with float32
+     products and with tensor cores against engine=xla with dropout off;
+     samples/s, ms per bunch, a profile of one full chunk.
   9. stochastic rounding and the two standalone kernels (kernels group): the
      rounding device function bit-equal to its plain version on zeros,
      denormals, Inf, NaN, exact bfloat16 values and their neighbours, and
@@ -60,13 +69,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      eight) only if the float32 plain version misses the limits there too;
      tile_rows 32 and 64 against the untiled run; hbm_spill=1 bit-equal to
      the unspilled run; a wrong hyperparameter given to the sr_delta or the
-     sr_state trainer is refused; ms per bunch of each form beside its bound.
+     sr_state trainer is refused; the tensor-core float32-state, sr_delta and
+     sr_state forms against the float64 plain version of the same rounding,
+     faults refused; ms per bunch of each form beside its bound.
  11. in-memory training (main path, train group): a seeded corpus featurized
      at 16 kHz on the STFT kernel -> build_training_arrays (> 16,384 x 3084)
      -> train_epochs_arrays at 3084-2048x3-257, recipe schedule, parity
-     dropout: two epochs on engine=resident with sr_delta (CV MSE falling)
-     and on the float32 engine (final CV within SR_CV_FRACTION); one epoch
-     each of sr_state, hbm_spill=1, clean-rule row tiles, and engine=xla
+     dropout: two epochs on engine=auto with sr_delta (tensor cores; CV MSE
+     falling), on the float32 engine and on sr_delta with float32 products
+     (final CVs within SR_CV_FRACTION); one epoch each of sr_state (both
+     products), hbm_spill=1, clean-rule row tiles, and engine=xla
      with dropout_rng="tpu_prng" (kernel 5 on its path); sr_train_step at
      full width (kernel 6 on its path); kill and resume through a checkpoint
      equal to the straight run bit for bit.
@@ -94,6 +106,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12
 LPS_TOL = 1e-4  # atol and rtol, as tests/test_stft_pallas.py holds the Pallas kernel
 WAV_TOL = 2e-4  # card vs CPU decode, times max(1, peak |wav|): fp32 sums in another order
@@ -493,6 +506,36 @@ KERNEL_REL_FRO = 1e-5  # ||got - want||_F <= this * ||want||_F
 CHUNK_ONE_REL_FRO = 5e-5
 CHUNK_REL_FRO = 5e-3
 ENGINE_REL_FRO = 5e-2
+# The chunk trainer with tensor-core products (bf16=True) against the float64
+# plain version of the same rounding.  Each launch multiplies the same rounded
+# operands as the plain version (phase_tc_kernels holds every kernel to 1e-5),
+# but the trainer's activations are float32 sums and the plain version's
+# float64 ones; where the two round to different bfloat16 values (a share
+# ~1e-4 of a hidden layer's elements at first) the next layer's operand
+# differs by a whole ulp, 2^-8, and that difference grows layer by layer and
+# bunch by bunch.  The float32 plain version of the same rounding drifts from
+# float64 just so (read: 1e-3 to 3e-3 of the update after one bunch, 0.02 to
+# 0.09 after three), as the kernel does.  So:
+# * after ONE bunch every tensor's update is held to TC_ONE_REL_FRO (read:
+#   the kernel 2.6e-3 to 1e-2); that refuses the float32-product trainer
+#   (0.075-0.084) and an lrate or a momentum 10% off (0.1); sr_state's W,
+#   itself rounded stochastically, to TC_SR_STATE_ONE_W_FRO (read 0.025-0.047,
+#   the float32-product trainer 0.12-0.15);
+# * after three bunches to TC_THREE_REL_FRO, a bound on the drift only (the
+#   float32-product trainer reads 0.08-0.17 there too);
+# * the trainer against ops/train_step's per-bunch step with the same masks,
+#   which launches the same kernels one by one: bit for bit.
+# Kernels 1 and 2 themselves are held launch by launch in phase_tc_kernels.
+TC_ONE_REL_FRO = 3e-2
+TC_SR_STATE_ONE_W_FRO = 0.1
+TC_THREE_REL_FRO = 0.2
+# engine=resident with tensor-core products against engine=xla (plain float32
+# torch) over an epoch of ~20 sentences (98 bunches), dropout off: the same
+# drift plus the products' own difference; CV MSE relative and the update's
+# relative Frobenius error (read: 4.0e-4 and 0.047; the float32-product
+# trainer 2.0e-4 and 0.022 against ENGINE_REL_FRO).
+TC_ENGINE_CV = 5e-3
+TC_ENGINE_REL_FRO = 0.15
 
 
 def _err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -503,13 +546,14 @@ def _err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
             float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(w).clamp(min=1e-30)))
 
 
-def _hold(got, want, label: str, worst: dict) -> None:
+def _hold(got, want, label: str, worst: dict, tol_max: float = KERNEL_REL_MAX,
+          tol_fro: float = KERNEL_REL_FRO) -> None:
     _check(bool(torch.isfinite(got).all()), f"{label}: non-finite values")
     _check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
     rel_max, rel_fro = _err(got, want)
-    _check(rel_max <= KERNEL_REL_MAX and rel_fro <= KERNEL_REL_FRO,
-           f"{label}: max err {rel_max:.3g} of max|want| (tol {KERNEL_REL_MAX}), "
-           f"Frobenius {rel_fro:.3g} (tol {KERNEL_REL_FRO})")
+    _check(rel_max <= tol_max and rel_fro <= tol_fro,
+           f"{label}: max err {rel_max:.3g} of max|want| (tol {tol_max}), "
+           f"Frobenius {rel_fro:.3g} (tol {tol_fro})")
     worst["rel_max"] = max(worst.get("rel_max", 0.0), rel_max)
     worst["rel_fro"] = max(worst.get("rel_fro", 0.0), rel_fro)
     worst["abs"] = max(worst.get("abs", 0.0), float((got.double() - want.double()).abs().max()))
@@ -517,6 +561,79 @@ def _hold(got, want, label: str, worst: dict) -> None:
 
 def _randn(gen, *shape, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).contiguous()
+
+
+def _time_layers(gen, tc: bool, fwd_worst: dict, bwd_worst: dict) -> tuple[dict, dict]:
+    """Device times of kernels 1 and 2 in one product form (tc: tensor cores,
+    else float32) at the four flagship layer shapes, one bunch's worth of
+    each, beside the plain versions', a library call's and the bound; the
+    holds' worst errors go into the results.  Each call takes the next of
+    three weight sets, ~100 MB in all, so that W and delta come from device
+    memory and not from the 50 MB L2, as they do in a chunk, where every
+    launch touches another layer."""
+    from tpu_sednn_torch.ops.fused_mlp import (fused_bwd_update, fused_bwd_update_reference,
+                                               fused_linear_act, fused_linear_act_reference)
+    from tpu_sednn_torch.ops.philox import philox_mask
+
+    form = "tensor cores" if tc else "float32"
+    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0, by_shape={})
+    bwd = dict(ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0, by_shape={})
+    for l in range(4):
+        B, K, N = BUNCH, FLAGSHIP[l], FLAGSHIP[l + 1]
+        x, b = _randn(gen, B, K), _randn(gen, N, scale=0.1)
+        ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
+        deltas = [torch.zeros(K, N, device="cuda") for _ in range(3)]
+        act = "relu" if l < 3 else "linear"
+        dedx, db = _randn(gen, B, N, scale=0.02), torch.zeros(N, device="cuda")
+        hyp = dict(momentum=0.5, lrate=1e-3, inv_n=1.0 / B, weightcost=0.0, bf16=tc)
+        # the library call: one cuBLAS product on the operands as they are (float32), or on
+        # bfloat16 copies with a bfloat16 output for the tensor-core form
+        lx, lb, lws = (x, b, ws) if not tc else (x.bfloat16(), b.bfloat16(),
+                                                 [w.bfloat16() for w in ws])
+
+        def library(i):
+            y = torch.addmm(lb, lx, lws[i % 3])
+            return torch.relu(y) if act == "relu" else y
+
+        # masks as the training path gives them: in-kernel on the net's input
+        # and on every hidden activation
+        kw = dict(in_mask=(4, 0.1) if l == 0 else None, out_mask=(5, 0.2) if l < 3 else None)
+        kw_t = {k: None if v is None else philox_mask(v[0], B, K if k == "in_mask" else N, v[1],
+                                                      device="cuda") for k, v in kw.items()}
+        t_f = _device_ms(lambda i: fused_linear_act(x, ws[i % 3], b, act, bf16=tc, **kw))
+        t_fp = _device_ms(lambda i: fused_linear_act_reference(x, ws[i % 3], b, act, bf16=tc,
+                                                               **kw_t))
+        t_fl = _device_ms(library)
+        t_b = _device_ms(lambda i: fused_bwd_update(dedx, x, ws[i % 3], deltas[i % 3], b, db, **hyp))
+        t_bp = _device_ms(lambda i: fused_bwd_update_reference(dedx, x, ws[i % 3], deltas[i % 3], b,
+                                                               db, **hyp))
+        f_flops, f_bytes = 2.0 * B * K * N, 4.0 * (B * K + K * N + N + B * N)
+        b_flops = 4.0 * B * K * N + 4.0 * K * N
+        b_bytes = 4.0 * (B * N + B * K + 4 * K * N + 4 * N + B * K)
+        fwd["by_shape"][f"layer {l}, {B}x{K}x{N}"] = dict(ms=t_f, plain_ms=t_fp, library_ms=t_fl)
+        bwd["by_shape"][f"layer {l}, {B}x{K}x{N}"] = dict(ms=t_b, plain_ms=t_bp)
+        for acc, vals in ((fwd, dict(ms=t_f, plain_ms=t_fp, library_ms=t_fl, flops=f_flops,
+                                     nbytes=f_bytes)),
+                          (bwd, dict(ms=t_b, plain_ms=t_bp, flops=b_flops, nbytes=b_bytes))):
+            for k, v in vals.items():
+                acc[k] += v
+        print(f"[kernel] layer {l} {B}x{K}x{N}, {form}: fused_linear_act {t_f:.4f} ms (plain "
+              f"{t_fp:.4f}, {'bfloat16 ' if tc else ''}torch.addmm+act {t_fl:.4f}), "
+              f"{f_flops / t_f / 1e9:.2f} TFLOP/s; fused_bwd_update {t_b:.4f} ms (plain "
+              f"{t_bp:.4f}), {b_flops / t_b / 1e9:.2f} TFLOP/s", flush=True)
+    for acc, worst in ((fwd, fwd_worst), (bwd, bwd_worst)):
+        t_ops = acc.pop("flops") / (PEAK_BF16_FLOPS if tc else PEAK_FP32_FLOPS) * 1e3
+        t_bytes = acc.pop("nbytes") / PEAK_BYTES_PER_S * 1e3
+        acc.update(bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", max_abs_err=worst["abs"],
+                   rel_max_err=worst["rel_max"], rel_fro_err=worst["rel_fro"])
+    if tc:
+        fwd["library_is"] = ("torch.addmm on bfloat16 x, W and b (+ relu), output bfloat16: "
+                             "cuBLAS's bfloat16 product, not the same function")
+    print(f"[kernel] one bunch's four layers, {form}: fused_linear_act {fwd['ms']:.4f} ms (bound "
+          f"{fwd['bound_ms']:.4f} by {fwd['bound_by']}), fused_bwd_update {bwd['ms']:.4f} ms (bound "
+          f"{bwd['bound_ms']:.4f} by {bwd['bound_by']})", flush=True)
+    return fwd, bwd
 
 
 def phase_fused_kernels(gen) -> dict:
@@ -537,16 +654,16 @@ def phase_fused_kernels(gen) -> dict:
         for act in ("relu", "sigmoid", "linear"):
             for kw in ({}, {"in_mask": (11, 0.1), "out_mask": (12, 0.2), "out_scale": 1.25},
                        {"in_mask": im, "in_scale": 1.0 / 0.9, "out_mask": om}):
-                want = fused_linear_act_reference(x, w, b, act, dtype=f64, **kw)
-                _hold(fused_linear_act(x, w, b, act, **kw), want,
+                want = fused_linear_act_reference(x, w, b, act, dtype=f64, bf16=False, **kw)
+                _hold(fused_linear_act(x, w, b, act, bf16=False, **kw), want,
                       f"fused_linear_act {B}x{K}x{N} {act} {sorted(kw)}", fwd_worst)
-                _hold(fused_linear_act_reference(x, w, b, act, **kw), want,
+                _hold(fused_linear_act_reference(x, w, b, act, bf16=False, **kw), want,
                       f"float32 plain fused_linear_act {B}x{K}x{N}", plain_worst)
         dedx = _randn(gen, B, N, scale=0.02)
         y_prev = torch.relu(_randn(gen, B, K)) * philox_mask(13, B, K, 0.2, device="cuda")
         delta = _randn(gen, K, N, scale=0.003)
         db = _randn(gen, N, scale=0.003)
-        hyp = dict(momentum=0.54, lrate=1.0, inv_n=1.0 / B, weightcost=1e-4)
+        hyp = dict(momentum=0.54, lrate=1.0, inv_n=1.0 / B, weightcost=1e-4, bf16=False)
         for kw in ({}, {"deriv": "relu"}, {"deriv": "sigmoid"},
                    {"in_mask": (11, 0.1), "in_scale": 1.0 / 0.9}, {"in_mask": im}):
             want = fused_bwd_update_reference(dedx, y_prev, w, delta, b, db, dtype=f64,
@@ -569,57 +686,105 @@ def phase_fused_kernels(gen) -> dict:
           f"{bwd_worst['rel_fro']:.3g}; the float32 plain versions' own: "
           f"{plain_worst['rel_max']:.3g}, {plain_worst['rel_fro']:.3g}", flush=True)
 
-    # Device times at the four flagship layer shapes (one bunch's worth of each
-    # kernel).  Each call takes the next of three weight sets, ~100 MB in all,
-    # so that W and delta come from device memory and not from the 50 MB L2,
-    # as they do in a chunk, where every launch touches another layer.
-    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0, by_shape={})
-    bwd = dict(ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0, by_shape={})
-    for l, (B, K, N) in enumerate(layer_shapes):
-        x, b = _randn(gen, B, K), _randn(gen, N, scale=0.1)
-        ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
-        deltas = [torch.zeros(K, N, device="cuda") for _ in range(3)]
-        act = "relu" if l < 3 else "linear"
-        dedx, db = _randn(gen, B, N, scale=0.02), torch.zeros(N, device="cuda")
-        hyp = dict(momentum=0.5, lrate=1e-3, inv_n=1.0 / B, weightcost=0.0)
-
-        def library(i):
-            y = torch.addmm(b, x, ws[i % 3])
-            return torch.relu(y) if act == "relu" else y
-
-        # masks as the training path gives them: in-kernel on the net's input
-        # and on every hidden activation
-        kw = dict(in_mask=(4, 0.1) if l == 0 else None, out_mask=(5, 0.2) if l < 3 else None)
-        kw_t = {k: None if v is None else philox_mask(v[0], B, K if k == "in_mask" else N, v[1],
-                                                      device="cuda") for k, v in kw.items()}
-        t_f = _device_ms(lambda i: fused_linear_act(x, ws[i % 3], b, act, **kw))
-        t_fp = _device_ms(lambda i: fused_linear_act_reference(x, ws[i % 3], b, act, **kw_t))
-        t_fl = _device_ms(library)
-        t_b = _device_ms(lambda i: fused_bwd_update(dedx, x, ws[i % 3], deltas[i % 3], b, db, **hyp))
-        t_bp = _device_ms(lambda i: fused_bwd_update_reference(dedx, x, ws[i % 3], deltas[i % 3], b,
-                                                               db, **hyp))
-        f_flops, f_bytes = 2.0 * B * K * N, 4.0 * (B * K + K * N + N + B * N)
-        b_flops = 4.0 * B * K * N + 4.0 * K * N
-        b_bytes = 4.0 * (B * N + B * K + 4 * K * N + 4 * N + B * K)
-        fwd["by_shape"][f"layer {l}, {B}x{K}x{N}"] = dict(ms=t_f, plain_ms=t_fp, library_ms=t_fl)
-        bwd["by_shape"][f"layer {l}, {B}x{K}x{N}"] = dict(ms=t_b, plain_ms=t_bp)
-        for acc, vals in ((fwd, dict(ms=t_f, plain_ms=t_fp, library_ms=t_fl, flops=f_flops,
-                                     nbytes=f_bytes)),
-                          (bwd, dict(ms=t_b, plain_ms=t_bp, flops=b_flops, nbytes=b_bytes))):
-            for k, v in vals.items():
-                acc[k] += v
-        print(f"[kernel] layer {l} {B}x{K}x{N}: fused_linear_act {t_f:.4f} ms (plain {t_fp:.4f}, "
-              f"torch.addmm+act {t_fl:.4f}), {f_flops / t_f / 1e9:.2f} TFLOP/s; fused_bwd_update "
-              f"{t_b:.4f} ms (plain {t_bp:.4f}), {b_flops / t_b / 1e9:.2f} TFLOP/s", flush=True)
-    for acc, worst in ((fwd, fwd_worst), (bwd, bwd_worst)):
-        t_ops = acc["flops"] / PEAK_FP32_FLOPS * 1e3
-        t_bytes = acc["nbytes"] / PEAK_BYTES_PER_S * 1e3
-        acc.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   max_abs_err=worst["abs"], rel_max_err=worst["rel_max"], rel_fro_err=worst["rel_fro"])
-    print(f"[kernel] one bunch's four layers: fused_linear_act {fwd['ms']:.4f} ms (bound "
-          f"{fwd['bound_ms']:.4f} by {fwd['bound_by']}), fused_bwd_update {bwd['ms']:.4f} ms (bound "
-          f"{bwd['bound_ms']:.4f} by {bwd['bound_by']})", flush=True)
+    fwd, bwd = _time_layers(gen, False, fwd_worst, bwd_worst)
     return dict(fwd=fwd, bwd=bwd)
+
+
+# Kernels 1 and 2 with tensor-core products (bf16=True) against their float64
+# plain versions of the same rounded operands.  The products of bfloat16
+# values are exact on both sides, so only the float32 sums differ, and the
+# tensor cores' sums within a fragment are not IEEE round-to-nearest: held to
+# TC_REL_MAX of max|want| and TC_REL_FRO in Frobenius norm (read: at most
+# 1.7e-6, on W' - W, and 3.2e-7; the float32 forms read the same order).  The
+# products W' - W, delta' and dedy are held on themselves (W' would hide them
+# under W); b' and delta_b' have no product and keep the float32 limits.
+# Two deliberate faults must miss the limits by TC_FAULT times at least: the
+# float32-FMA form, and operands truncated to bfloat16 instead of rounded to
+# nearest (both about 2^-9 relative a product; read: 121 and 291 times).
+TC_REL_MAX = 1e-5
+TC_REL_FRO = 2e-6
+TC_FAULT = 10.0
+
+
+def _trunc_bf16(a: torch.Tensor) -> torch.Tensor:
+    """a cut to bfloat16 by dropping its low 16 bits (a fault: not rounded), as float32."""
+    return (a.float().contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+
+def phase_tc_kernels(gen) -> dict:
+    from tpu_sednn_torch.ops.fused_mlp import (fused_bwd_update, fused_bwd_update_reference,
+                                               fused_linear_act, fused_linear_act_reference)
+    from tpu_sednn_torch.ops.philox import philox_mask
+
+    f64, bf = torch.float64, torch.bfloat16
+    layers = ([(BUNCH, FLAGSHIP[l], FLAGSHIP[l + 1]) for l in range(4)]
+              + [(BUNCH, WIDE[l], WIDE[l + 1]) for l in range(4)])
+    ragged = [(8, 1548, 129), (136, 100, 37), (64, 3084, 2048), (32, 2048, 257)]
+    worst, faults, sr_stats = {}, dict(fma=np.inf, trunc=np.inf), {}
+
+    def fault(kind, got, want):
+        rel_max, rel_fro = _err(got, want)
+        faults[kind] = min(faults[kind], max(rel_max / TC_REL_MAX, rel_fro / TC_REL_FRO))
+
+    for B, K, N in layers + ragged:
+        x, b = _randn(gen, B, K), _randn(gen, N, scale=0.1)
+        w32 = _randn(gen, K, N, scale=0.03)
+        dedx = _randn(gen, B, N, scale=0.02)
+        y_prev = torch.relu(_randn(gen, B, K)) * philox_mask(13, B, K, 0.2, device="cuda")
+        db = _randn(gen, N, scale=0.003)
+        for w in (w32, w32.to(bf)):
+            store = "bfloat16 W" if w.dtype == bf else "float32 W"
+            for act in ("relu", "sigmoid", "linear"):
+                for kw in ({}, {"in_mask": (11, 0.1), "in_scale": 1.0 / 0.9, "out_mask": (12, 0.2),
+                                "out_scale": 1.25}):
+                    want = fused_linear_act_reference(x, w, b, act, dtype=f64, **kw)
+                    got = fused_linear_act(x, w, b, act, **kw)
+                    _hold(got, want, f"tensor-core fused_linear_act {B}x{K}x{N} {store} {act} "
+                                     f"{sorted(kw)}", worst, TC_REL_MAX, TC_REL_FRO)
+                    fault("fma", fused_linear_act(x, w, b, act, bf16=False, **kw), want)
+                    if not kw:
+                        fault("trunc", got, fused_linear_act_reference(
+                            _trunc_bf16(x), _trunc_bf16(w), b, act, dtype=f64, bf16=False))
+            d0 = _randn(gen, K, N, scale=0.003).to(w.dtype)
+            hyp = dict(momentum=0.54, lrate=1.0, inv_n=1.0 / B, weightcost=1e-4, sr_seed=4242)
+            for kw in ({}, {"deriv": "relu"}, {"in_mask": (11, 0.1), "in_scale": 1.0 / 0.9}):
+                want = fused_bwd_update_reference(dedx, y_prev, w, d0, b, db, dtype=f64, **hyp, **kw)
+                outs = {}
+                for tc in (True, False):
+                    w2, d2, b2, db2 = w.clone(), d0.clone(), b.clone(), db.clone()
+                    outs[tc] = fused_bwd_update(dedx, y_prev, w2, d2, b2, db2, bf16=tc, **hyp, **kw)
+                got = outs[True]
+                label = f"tensor-core fused_bwd_update {B}x{K}x{N} {store} {sorted(kw)}"
+                if w.dtype == bf:
+                    _hold_sr(got[0], want[0], f"{label}, W", sr_stats)
+                    _hold_sr(got[1], want[1], f"{label}, delta", sr_stats)
+                else:
+                    for name, g, wnt in (("W' - W", got[0] - w, want[0] - w),
+                                         ("delta", got[1], want[1])):
+                        _hold(g, wnt, f"{label}, {name}", worst, TC_REL_MAX, TC_REL_FRO)
+                    fault("fma", outs[False][1], want[1])
+                _hold(got[2], want[2], f"{label}, dedy", worst, TC_REL_MAX, TC_REL_FRO)
+                fault("fma", outs[False][2], want[2])
+                for name, i in (("b", 3), ("delta_b", 4)):
+                    _hold(got[i], want[i], f"{label}, {name}", {})
+        torch.cuda.synchronize()
+    _check(min(faults.values()) >= TC_FAULT,
+           f"tensor-core kernels: a deliberate fault passes within {TC_FAULT} x the limits: {faults}")
+    print(f"[kernel] tensor-core fused_linear_act and fused_bwd_update (bf16=True) vs float64 plain "
+          f"versions of the rounded operands, {len(layers)} layer shapes of 1548-2048x3-129 and "
+          f"3084-2048x3-257 and {len(ragged)} ragged ones, float32 and bfloat16 W, 3 activations, "
+          f"masks, derivatives: max err {worst['rel_max']:.3g} of max|want| (tol {TC_REL_MAX}), "
+          f"Frobenius {worst['rel_fro']:.3g} (tol {TC_REL_FRO}); bfloat16 stores: "
+          f"{sr_stats['n_diff']} of {sr_stats['n']} elements differ from the plain version rounded "
+          f"with the same bits, worst share {sr_stats['share']:.3g} (limit {SR_DIFF_SHARE}); "
+          f"deliberate faults miss the limits by {faults['fma']:.3g} x (float32 FMA products) and "
+          f"{faults['trunc']:.3g} x (operands truncated, not rounded), at least {TC_FAULT} x "
+          f"required", flush=True)
+
+    fwd, bwd = _time_layers(gen, True, worst, worst)
+    for acc in (fwd, bwd):
+        acc["fault_margin"] = min(faults.values())
+    return dict(fwd=fwd, bwd=bwd, sr=sr_stats)
 
 
 def phase_masks() -> dict:
@@ -743,11 +908,11 @@ def phase_resident(gen) -> dict:
     hyp = (opt.lrate, opt.momentum, opt.weightcost)
 
     def both(cfg, rule, t, seed=17, hyp=hyp):
-        run = rc.make_resident_train_chunk(cfg, opt, rule=rule)
+        run = rc.make_resident_train_chunk(cfg, opt, bf16=False, rule=rule)
         got = run(init_train_state(mlp), x, t, seed, *hyp)
         coefs = rc._scal_coefs(rule, BUNCH, FLAGSHIP[-1], *hyp)
         want = rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg, BUNCH, coefs,
-                                                 seed, dtype=f64)
+                                                 seed, dtype=f64, bf16=False)
         torch.cuda.synchronize()
         return run, got, want
 
@@ -768,12 +933,13 @@ def phase_resident(gen) -> dict:
         _check(got.step == n_b, f"{label}: {got.step} bunches trained, the partial one not dropped")
         errs = _hold_chunk(got, want, init, label, worst)
         coefs = rc._scal_coefs(rule, BUNCH, FLAGSHIP[-1], *hyp)
-        plain = rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg, BUNCH, coefs, 17)
+        plain = rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg, BUNCH, coefs, 17,
+                                                  bf16=False)
         p_errs = _update_errors(plain, want, init)
         # the first bunch alone, every tensor
         one = run(init_train_state(mlp), x[:BUNCH], t[:BUNCH], 17, *hyp)
         one_w = rc.resident_train_chunk_reference(init_train_state(mlp), x[:BUNCH], t[:BUNCH], cfg,
-                                                  BUNCH, coefs, 17, dtype=f64)
+                                                  BUNCH, coefs, 17, dtype=f64, bf16=False)
         e1 = _hold_chunk(one, one_w, init, f"{label}, one bunch", {}, tol=CHUNK_ONE_REL_FRO)
         worst["one"] = max(worst.get("one", 0.0), max(e1))
         held.setdefault("first", (run, want, one_w))
@@ -803,7 +969,7 @@ def phase_resident(gen) -> dict:
     # NaN here), and the state equals the trimmed run bit for bit (the kernels
     # are deterministic: no atomics)
     cfg = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
-    run = rc.make_resident_train_chunk(cfg, opt)
+    run = rc.make_resident_train_chunk(cfg, opt, bf16=False)
     xp = torch.cat([x[:n_b * BUNCH], torch.full((2 * BUNCH, FLAGSHIP[0]), float("nan"),
                                                 device="cuda")]).contiguous()
     tp = torch.cat([t_lin[:n_b * BUNCH], torch.full((2 * BUNCH, FLAGSHIP[-1]), float("nan"),
@@ -825,7 +991,7 @@ def phase_resident(gen) -> dict:
         run(st_k, x, t_lin, seed, *h)
         rc.resident_train_chunk_reference(st_p, x, t_lin, cfg, BUNCH,
                                           rc._scal_coefs("parity", BUNCH, FLAGSHIP[-1], *h), seed,
-                                          dtype=f64)
+                                          dtype=f64, bf16=False)
     _hold_chunk(st_k, st_p, init, "two calls, hyperparameters changed", worst)
     # the per-bunch step of ops/train_step.py launches the same kernels with
     # explicit masks: the same bits, so the same state bit for bit
@@ -834,7 +1000,7 @@ def phase_resident(gen) -> dict:
         masks = [rc.sample_resident_masks(17, i, l, (BUNCH, FLAGSHIP[l]), 0.1 if l == 0 else 0.2)
                  for l in range(4)]
         fused_train_step(st_s, x[i * BUNCH:(i + 1) * BUNCH], t_lin[i * BUNCH:(i + 1) * BUNCH],
-                         cfg, opt, dropout_masks=masks)
+                         cfg, opt, dropout_masks=masks, bf16=False)
     torch.cuda.synchronize()
     for a, b in zip(_state_tensors(st_s), _state_tensors(trimmed)):
         _check(torch.equal(a, b), "ops.train_step.fused_train_step differs from the chunk trainer")
@@ -845,31 +1011,99 @@ def phase_resident(gen) -> dict:
           f"bunches (tol {CHUNK_REL_FRO}: carried rounding, room for one ReLU flip), "
           f"{worst['one']:.3g} after one bunch (tol {CHUNK_ONE_REL_FRO})", flush=True)
 
+    # tensor-core products (bf16=True, the factory's default): the same cases against the
+    # float64 plain version of the same rounding (TC_ONE_REL_FRO, TC_THREE_REL_FRO)
+    tc_worst = {}
+    for label, cfg_c, rule, t in cases:
+        run_tc = rc.make_resident_train_chunk(cfg_c, opt, rule=rule)
+        coefs = rc._scal_coefs(rule, BUNCH, FLAGSHIP[-1], *hyp)
+        got = run_tc(init_train_state(mlp), x, t, 17, *hyp)
+        want = rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg_c, BUNCH, coefs, 17,
+                                                 dtype=f64)
+        errs = _hold_chunk(got, want, init, f"tensor cores, {label}", tc_worst, tol=TC_THREE_REL_FRO)
+        p_errs = _update_errors(rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg_c,
+                                                                  BUNCH, coefs, 17), want, init)
+        one = run_tc(init_train_state(mlp), x[:BUNCH], t[:BUNCH], 17, *hyp)
+        one_w = rc.resident_train_chunk_reference(init_train_state(mlp), x[:BUNCH], t[:BUNCH], cfg_c,
+                                                  BUNCH, coefs, 17, dtype=f64)
+        e1 = _hold_chunk(one, one_w, init, f"tensor cores, {label}, one bunch", {},
+                         tol=TC_ONE_REL_FRO)
+        tc_worst["one"] = max(tc_worst.get("one", 0.0), max(e1))
+        held.setdefault("tc", (run_tc, want, one_w))
+        print(f"[kernel] chunk trainer, tensor cores, {label}: {n_b} bunches + a partial one vs "
+              f"float64 plain, update error by layer W {' '.join(f'{e:.2g}' for e in errs[:4])}, "
+              f"delta_b {' '.join(f'{e:.2g}' for e in errs[12:])} (float32 plain version of the "
+              f"same rounding: W {' '.join(f'{e:.2g}' for e in p_errs[:4])}); after one bunch W "
+              f"{' '.join(f'{e:.2g}' for e in e1[:4])}", flush=True)
+    # the limits bite: the first case's trainer with float32 products, or with an lrate or a
+    # momentum 10% off, is refused by the one-bunch limit
+    run_tc, want, one_w = held["tc"]
+    f32_run = rc.make_resident_train_chunk(cases[0][1], opt, bf16=False, rule=cases[0][2])
+    for label, r, h in (("float32 products", f32_run, hyp),
+                        ("lrate x 1.1", run_tc, (1.1 * opt.lrate, opt.momentum, opt.weightcost)),
+                        ("momentum x 1.1", run_tc, (opt.lrate, 1.1 * opt.momentum, opt.weightcost))):
+        m1 = max(_update_errors(r(init_train_state(mlp), x[:BUNCH], t_lin[:BUNCH], 17, *h), one_w,
+                                init))
+        _check(m1 > TC_ONE_REL_FRO, f"a tensor-core chunk trainer with {label} passes the one-bunch "
+                                    f"limit: {m1:.3g}")
+        print(f"[kernel] tensor-core chunk trainer with {label} (a deliberate fault) is refused: "
+              f"update off by {m1:.3g} after one bunch (tol {TC_ONE_REL_FRO})", flush=True)
+    # the per-bunch step launches the same tensor-core kernels one by one: the same bits
+    cfg_d = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
+    chunk_tc = rc.make_resident_train_chunk(cfg_d, opt)(init_train_state(mlp), x[:n_b * BUNCH],
+                                                        t_lin[:n_b * BUNCH], 17, *hyp)
+    st_s = init_train_state(mlp)
+    for i in range(n_b):
+        masks = [rc.sample_resident_masks(17, i, l, (BUNCH, FLAGSHIP[l]), 0.1 if l == 0 else 0.2)
+                 for l in range(4)]
+        fused_train_step(st_s, x[i * BUNCH:(i + 1) * BUNCH], t_lin[i * BUNCH:(i + 1) * BUNCH],
+                         cfg_d, opt, dropout_masks=masks)
+    torch.cuda.synchronize()
+    for a, b in zip(_state_tensors(st_s), _state_tensors(chunk_tc)):
+        _check(torch.equal(a, b), "tensor cores: ops.train_step.fused_train_step differs from the "
+                                  "chunk trainer")
+    print(f"[kernel] chunk trainer, tensor cores: ops.train_step's per-bunch step (bf16=True, "
+          f"explicit masks) gives the same bits over {n_b} bunches; worst update error of any "
+          f"tensor {tc_worst['rel_fro']:.3g} after 3 bunches (tol {TC_THREE_REL_FRO}), "
+          f"{tc_worst['one']:.3g} after one (tol {TC_ONE_REL_FRO})", flush=True)
+
     # ms per bunch: 100 bunches of dropout training in one call
     n_t = 100
     xt, tt = _randn(gen, n_t * BUNCH, FLAGSHIP[0]), _randn(gen, n_t * BUNCH, FLAGSHIP[-1])
-    st = init_train_state(mlp)
     small = (1e-3, 0.5, 0.0)
-    ms = _time_ms(lambda: run(st, xt, tt, 3, *small), reps=3, warmup=1) / n_t
     coefs = rc._scal_coefs("parity", BUNCH, FLAGSHIP[-1], *small)
-    st = init_train_state(mlp)
-    plain_ms = _time_ms(lambda: rc.resident_train_chunk_reference(
-        st, xt[:10 * BUNCH], tt[:10 * BUNCH], cfg, BUNCH, coefs, 3), reps=2, warmup=1) / 10
     kn = sum(a * b for a, b in zip(FLAGSHIP[:-1], FLAGSHIP[1:]))
     # three products a layer (forward, gradient, dedy), two for the first: it
     # hands no dedy down; W read by the forward, W and delta read and written
     # by the backward; the bunch's x and t read once
     flops = 2.0 * BUNCH * (3 * kn - FLAGSHIP[0] * FLAGSHIP[1])
     nbytes = 4.0 * (5 * kn + BUNCH * (FLAGSHIP[0] + FLAGSHIP[-1]))
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    print(f"[kernel] chunk trainer {n_t} bunches of {BUNCH}, dropout on: {ms:.4f} ms per bunch "
-          f"({flops / ms / 1e9:.2f} TFLOP/s), plain float32 version {plain_ms:.4f} ms per bunch, "
-          f"bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s: {t_ops:.4f}; "
-          f"{nbytes / 1e6:.0f} MB at 3.35 TB/s: {t_bytes:.4f})", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                max_abs_err=worst["abs"], rel_fro_err=worst["rel_fro"],
-                rel_fro_err_one_bunch=worst["one"], shape=f"{BUNCH} x 1548-2048x3-129, per bunch")
+    out = {}
+    runs = {False: run, True: rc.make_resident_train_chunk(cfg, opt)}
+    times = {False: [], True: []}
+    for tc in (False, True, True, False):  # in turns
+        st = init_train_state(mlp)
+        times[tc].append(_time_ms(lambda: runs[tc](st, xt, tt, 3, *small), reps=3, warmup=1) / n_t)
+    for tc, w in ((False, worst), (True, tc_worst)):
+        st = init_train_state(mlp)
+        plain_ms = _time_ms(lambda: rc.resident_train_chunk_reference(
+            st, xt[:10 * BUNCH], tt[:10 * BUNCH], cfg, BUNCH, coefs, 3, bf16=tc), reps=2,
+            warmup=1) / 10
+        peak = PEAK_BF16_FLOPS if tc else PEAK_FP32_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        ms = float(np.mean(times[tc]))
+        print(f"[kernel] chunk trainer {n_t} bunches of {BUNCH}, dropout on, "
+              f"{'tensor-core' if tc else 'float32'} products: {ms:.4f} ms per bunch "
+              f"({' '.join(f'{v:.4f}' for v in times[tc])}; {flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"version {plain_ms:.4f} ms per bunch, bound {max(t_ops, t_bytes):.4f} ms "
+              f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s: {t_ops:.4f}; "
+              f"{nbytes / 1e6:.0f} MB at 3.35 TB/s: {t_bytes:.4f})", flush=True)
+        out[tc] = dict(ms=ms, ms_runs=times[tc], plain_ms=plain_ms, library_ms=None,
+                       bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       max_abs_err=w["abs"], rel_fro_err=w["rel_fro"],
+                       rel_fro_err_one_bunch=w["one"], shape=f"{BUNCH} x 1548-2048x3-129, per bunch")
+    return out
 
 
 
@@ -1067,12 +1301,14 @@ def phase_sr(gen) -> dict:
         x, b = _randn(gen, B, K), _randn(gen, N, scale=0.1)
         w16 = _randn(gen, K, N, scale=0.03).to(torch.bfloat16)
         act = "relu" if l < 3 else "linear"
-        _hold(fused_linear_act(x, w16, b, act), fused_linear_act_reference(x, w16, b, act, dtype=f64),
+        _hold(fused_linear_act(x, w16, b, act, bf16=False),
+              fused_linear_act_reference(x, w16, b, act, dtype=f64, bf16=False),
               f"fused_linear_act {B}x{K}x{N} on bfloat16 W", worst_f32)
         dedx = _randn(gen, B, N, scale=0.02)
         y_prev = torch.relu(_randn(gen, B, K))
         db = _randn(gen, N, scale=0.003)
-        hyp2 = dict(momentum=0.54, lrate=1.0, inv_n=1.0 / B, weightcost=1e-4, sr_seed=4242 + l)
+        hyp2 = dict(momentum=0.54, lrate=1.0, inv_n=1.0 / B, weightcost=1e-4, sr_seed=4242 + l,
+                    bf16=False)
         for mode, w0 in (("bfloat16 delta", w16.float()), ("bfloat16 W and delta", w16)):
             d0 = _randn(gen, K, N, scale=0.003).to(torch.bfloat16)
             want = fused_bwd_update_reference(dedx, y_prev, w0, d0, b, db, dtype=f64, **hyp2)
@@ -1172,14 +1408,14 @@ def phase_resident_wide() -> dict:
 
     def plain64(cfg, rule, kw, xs, ts, seed=17):
         coefs = rc._scal_coefs(rule, BUNCH, WIDE[-1], *hyp)
-        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows")}
+        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows", "bf16")}
         return rc.resident_train_chunk_reference(state_for(kw), xs, ts, cfg, BUNCH, coefs, seed,
                                                  dtype=f64, **ref_kw)
 
     def plain32(cfg, rule, kw, xs, ts, seed=17, h=None):
         """The float32 plain version's errors by group against the float64 one."""
         coefs = rc._scal_coefs(rule, BUNCH, WIDE[-1], *(h or hyp))
-        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows")}
+        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows", "bf16")}
         got = rc.resident_train_chunk_reference(state_for(kw), xs, ts, cfg, BUNCH, coefs, seed,
                                                 **ref_kw)
         return errs_by_group(got, plain64(cfg, rule, kw, xs, ts, seed), kw)
@@ -1225,14 +1461,26 @@ def phase_resident_wide() -> dict:
     f32_lim = (WIDE_REL_FRO,) * 4
     srd_lim = (SR_DELTA_W_FRO, SR_DELTA_W_FRO, SR_DELTA_FRO, SR_DELTA_W_FRO)
     srs_lim = (SR_STATE_W_FRO, SR_STATE_FRO, SR_STATE_FRO, SR_STATE_FRO)
+    f32 = dict(bf16=False)  # float32 products
+    tc = dict(bf16=True)  # tensor-core products
+    tc_lim = (TC_THREE_REL_FRO,) * 4
     cases = [
-        ("float32, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", {}, f32_lim),
-        ("sr_delta, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", dict(sr_delta=True), srd_lim),
-        ("sr_delta, clean", cfg_of(), "clean", dict(sr_delta=True), srd_lim),
-        ("sr_state, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", dict(sr_state=True), srs_lim),
-        ("sr_state, clean", cfg_of(), "clean", dict(sr_state=True), srs_lim),
+        ("float32, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", f32, f32_lim),
+        ("sr_delta, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", dict(sr_delta=True, **f32),
+         srd_lim),
+        ("sr_delta, clean", cfg_of(), "clean", dict(sr_delta=True, **f32), srd_lim),
+        ("sr_state, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", dict(sr_state=True, **f32),
+         srs_lim),
+        ("sr_state, clean", cfg_of(), "clean", dict(sr_state=True, **f32), srs_lim),
         ("tile_rows 64, clean, dropout 0.1/0.2 (inverted)",
-         cfg_of(dropout_mode="inverted", **drop), "clean", dict(tile_rows=64), f32_lim),
+         cfg_of(dropout_mode="inverted", **drop), "clean", dict(tile_rows=64, **f32), f32_lim),
+        ("tensor cores, float32 state, parity, dropout 0.1/0.2", cfg_of(**drop), "parity", tc,
+         tc_lim),
+        ("tensor cores, sr_delta, parity, dropout 0.1/0.2", cfg_of(**drop), "parity",
+         dict(sr_delta=True, **tc), tc_lim),
+        ("tensor cores, sr_delta, clean", cfg_of(), "clean", dict(sr_delta=True, **tc), tc_lim),
+        ("tensor cores, sr_state, parity, dropout 0.1/0.2", cfg_of(**drop), "parity",
+         dict(sr_state=True, **tc), tc_lim),
     ]
     for label, cfg, rule, kw, limits in cases:
         run = rc.make_resident_train_chunk(cfg, opt, rule=rule, **kw)
@@ -1255,7 +1503,7 @@ def phase_resident_wide() -> dict:
 
     # a second call takes the bfloat16 state as it is, with other hyperparameters
     cfg = cfg_of(**drop)
-    sr_kw = dict(sr_delta=True)
+    sr_kw = dict(sr_delta=True, **f32)
     run = rc.make_resident_train_chunk(cfg, opt, **sr_kw)
 
     def two_plain(x, t, dtype):
@@ -1263,7 +1511,7 @@ def phase_resident_wide() -> dict:
         for seed, h in ((5, hyp), (6, (0.7, 0.9, 0.0))):
             rc.resident_train_chunk_reference(st_p, x, t, cfg, BUNCH,
                                               rc._scal_coefs("parity", BUNCH, WIDE[-1], *h), seed,
-                                              dtype=dtype, sr_delta=True)
+                                              dtype=dtype, sr_delta=True, bf16=False)
         return st_p
 
     def two_calls(x, t):
@@ -1278,16 +1526,30 @@ def phase_resident_wide() -> dict:
          lambda x, t: errs_by_group(two_plain(x, t, torch.float32), two_plain(x, t, f64), sr_kw))
 
     # the limits bite: an sr_delta and an sr_state trainer given a wrong hyperparameter are
-    # refused by the one-bunch or the three-bunch limits, on a draw where the right ones pass both
-    for name, kw_sr, one_limits, three_limits in (
+    # refused by the one-bunch or the three-bunch limits, on a draw where the right ones pass both;
+    # the tensor-core forms (see TC_ONE_REL_FRO) by the one-bunch limits, given faults the size
+    # of those limits' room: float32 products, an lrate or a momentum 10% off
+    small_faults = (("weightcost dropped", (opt.lrate, opt.momentum, 0.0), {}),
+                    ("momentum x 1.03", (opt.lrate, 1.03 * opt.momentum, opt.weightcost), {}),
+                    ("lrate x 1.001", (1.001 * opt.lrate, opt.momentum, opt.weightcost), {}))
+    tc_faults = (("float32 products", hyp, dict(bf16=False)),
+                 ("lrate x 1.1", (1.1 * opt.lrate, opt.momentum, opt.weightcost), {}),
+                 ("momentum x 1.1", (opt.lrate, 1.1 * opt.momentum, opt.weightcost), {}))
+    for name, kw_sr, one_limits, three_limits, faults in (
             ("sr_delta", sr_kw, (CHUNK_ONE_REL_FRO, CHUNK_ONE_REL_FRO, SR_DELTA_ONE_FRO,
-                                 CHUNK_ONE_REL_FRO), srd_lim),
-            ("sr_state", dict(sr_state=True), (SR_STATE_ONE_W_FRO, CHUNK_ONE_REL_FRO,
-                                               SR_DELTA_ONE_FRO, CHUNK_ONE_REL_FRO), srs_lim)):
-        run_sr = rc.make_resident_train_chunk(cfg_of(), opt, rule="parity", **kw_sr)
+                                 CHUNK_ONE_REL_FRO), srd_lim, small_faults),
+            ("sr_state", dict(sr_state=True, **f32), (SR_STATE_ONE_W_FRO, CHUNK_ONE_REL_FRO,
+                                                      SR_DELTA_ONE_FRO, CHUNK_ONE_REL_FRO), srs_lim,
+             small_faults),
+            ("tensor-core sr_delta", dict(sr_delta=True, **tc), (TC_ONE_REL_FRO,) * 4, tc_lim,
+             tc_faults),
+            ("tensor-core sr_state", dict(sr_state=True, **tc),
+             (TC_SR_STATE_ONE_W_FRO,) + (TC_ONE_REL_FRO,) * 3, tc_lim, tc_faults)):
         limits = one_limits + three_limits
 
-        def one_and_three(h, run_sr=run_sr, kw_sr=kw_sr):
+        def one_and_three(h, kw_run=kw_sr, kw_sr=kw_sr):
+            run_sr = rc.make_resident_train_chunk(cfg_of(), opt, rule="parity", **kw_run)
+
             def compare(x, t):
                 one = errs_by_group(run_sr(init_train_state(mlp), x[:BUNCH], t[:BUNCH], 17, *h),
                                     plain64(cfg_of(), "parity", kw_sr, x[:BUNCH], t[:BUNCH]), kw_sr)
@@ -1303,21 +1565,19 @@ def phase_resident_wide() -> dict:
         e, i_ok = hold(f"{name}, parity, after one bunch (first four) and after three", limits,
                        one_and_three(hyp), one_and_three_plain)
         out[f"{name}, parity, one bunch"] = e[:4]
-        for label, h in (("weightcost dropped", (opt.lrate, opt.momentum, 0.0)),
-                         ("momentum x 1.03", (opt.lrate, 1.03 * opt.momentum, opt.weightcost)),
-                         ("lrate x 1.001", (1.001 * opt.lrate, opt.momentum, opt.weightcost))):
-            f = one_and_three(h)(*draw(i_ok))
+        for label, h, kw_fault in faults:
+            f = one_and_three(h, kw_run={**kw_sr, **kw_fault})(*draw(i_ok))
             _check(any(err > lim for err, lim in zip(f, limits)),
                    f"an {name} trainer with {label} passes the limits: {f}")
             print(f"[kernel] {name} trainer with {label} (a deliberate fault) is refused: after one "
-                  f"bunch W {f[0]:.3g} (limit {one_limits[0]}) delta_w {f[2]:.3g} (limit "
-                  f"{one_limits[2]}), after three W {f[4]:.3g} (limit {three_limits[0]}) delta_w "
-                  f"{f[6]:.3g} (limit {three_limits[2]})", flush=True)
+                  f"bunch W {f[0]:.3g} (limit {one_limits[0]}) b {f[1]:.3g} (limit {one_limits[1]}) "
+                  f"delta_w {f[2]:.3g} (limit {one_limits[2]}), after three W {f[4]:.3g} (limit "
+                  f"{three_limits[0]}) delta_w {f[6]:.3g} (limit {three_limits[2]})", flush=True)
 
     # row tiles against the untiled clean run (two kernels, two summation orders)
-    clean_run = rc.make_resident_train_chunk(cfg_of(), opt, rule="clean")
+    clean_run = rc.make_resident_train_chunk(cfg_of(), opt, rule="clean", **f32)
     for tile in (32, 64):
-        tiled_run = rc.make_resident_train_chunk(cfg_of(), opt, rule="clean", tile_rows=tile)
+        tiled_run = rc.make_resident_train_chunk(cfg_of(), opt, rule="clean", tile_rows=tile, **f32)
 
         def tiled_vs_untiled(x, t):
             before = rc.kernel_launches["tiled_bwd_update"]
@@ -1330,20 +1590,23 @@ def phase_resident_wide() -> dict:
         out[f"tile_rows {tile} vs untiled"], _ = hold(
             f"clean rule, tile_rows {tile} (bunch 128, {4 * n_b * (BUNCH // tile)} accumulating "
             f"backward launches) vs the untiled run", f32_lim, tiled_vs_untiled,
-            lambda x, t, tile=tile: plain32(cfg_of(), "clean", dict(tile_rows=tile), x, t))
+            lambda x, t, tile=tile: plain32(cfg_of(), "clean", dict(tile_rows=tile, **f32), x, t))
 
-    # hbm_spill: the float32 trainer, bit for bit
+    # hbm_spill: the unspilled trainer bit for bit, with either product
     x, t = draw(0)
-    plain_run = rc.make_resident_train_chunk(cfg, opt)(init_train_state(mlp), x, t, 17, *hyp)
-    spilled = rc.make_resident_train_chunk(cfg, opt, hbm_spill=1)(init_train_state(mlp), x, t, 17,
-                                                                   *hyp)
-    torch.cuda.synchronize()
     spill_abs = 0.0
-    for a, b in zip(_state_tensors(spilled), _state_tensors(plain_run)):
-        _check(torch.equal(a, b), "hbm_spill=1 differs from the unspilled run")
-        spill_abs = max(spill_abs, float((a - b).abs().max()))
-    print(f"[kernel] chunk trainer, hbm_spill=1 equals the unspilled float32 run bit for bit "
-          f"(largest difference {spill_abs}; the state is in device memory either way)", flush=True)
+    for prod in (f32, tc):
+        plain_run = rc.make_resident_train_chunk(cfg, opt, **prod)(init_train_state(mlp), x, t, 17,
+                                                                    *hyp)
+        spilled = rc.make_resident_train_chunk(cfg, opt, hbm_spill=1, **prod)(
+            init_train_state(mlp), x, t, 17, *hyp)
+        torch.cuda.synchronize()
+        for a, b in zip(_state_tensors(spilled), _state_tensors(plain_run)):
+            _check(torch.equal(a, b), f"hbm_spill=1 differs from the unspilled run ({prod})")
+            spill_abs = max(spill_abs, float((a - b).abs().max()))
+    print(f"[kernel] chunk trainer, hbm_spill=1 equals the unspilled run bit for bit with float32 "
+          f"and with tensor-core products (largest difference {spill_abs}; the state is in device "
+          f"memory either way)", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(257)
     # ms per bunch, 50 bunches of dropout training in one call, by variant,
@@ -1351,8 +1614,11 @@ def phase_resident_wide() -> dict:
     n_t = 50
     xt, tt = _randn(gen, n_t * BUNCH, WIDE[0]), _randn(gen, n_t * BUNCH, WIDE[-1])
     small = (1e-3, 0.5, 0.0)
-    variants = [("f32", {}), ("sr_delta", dict(sr_delta=True)), ("sr_state", dict(sr_state=True)),
-                ("hbm_spill", dict(hbm_spill=1)), ("tile_rows", dict(rule="clean", tile_rows=64))]
+    variants = [("f32", dict(f32)), ("sr_delta", dict(sr_delta=True, **f32)),
+                ("sr_state", dict(sr_state=True, **f32)), ("hbm_spill", dict(hbm_spill=1, **f32)),
+                ("tile_rows", dict(rule="clean", tile_rows=64, **f32)), ("tc_f32", dict(tc)),
+                ("tc_sr_delta", dict(sr_delta=True, **tc)),
+                ("tc_sr_state", dict(sr_state=True, **tc))]
     runs = {n: (rc.make_resident_train_chunk(cfg, opt, **kw), init_train_state(mlp))
             for n, kw in variants}
     times = {n: [] for n, _ in variants}
@@ -1361,7 +1627,6 @@ def phase_resident_wide() -> dict:
         times[name].append(_time_ms(lambda: r(st, xt, tt, 3, *small), reps=3, warmup=1) / n_t)
     kn = sum(a * b for a, b in zip(WIDE[:-1], WIDE[1:]))
     flops = 2.0 * BUNCH * (3 * kn - WIDE[0] * WIDE[1])
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
     io = 4.0 * BUNCH * (WIDE[0] + WIDE[-1])
     # passes over the state: W read by the forward; W and delta read and written by the
     # backward (row tiles read it again for every tile; the bound counts each once)
@@ -1370,11 +1635,12 @@ def phase_resident_wide() -> dict:
     timing = {}
     for name, kw in variants:
         st = state_for(kw)
+        t_ops = flops / (PEAK_BF16_FLOPS if kw["bf16"] else PEAK_FP32_FLOPS) * 1e3
         coefs = rc._scal_coefs(kw.get("rule", "parity"), BUNCH, WIDE[-1], *small)
-        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows")}
+        ref_kw = {k: v for k, v in kw.items() if k in ("sr_state", "sr_delta", "tile_rows", "bf16")}
         plain_ms = _time_ms(lambda: rc.resident_train_chunk_reference(
             st, xt[:4 * BUNCH], tt[:4 * BUNCH], cfg, BUNCH, coefs, 3, **ref_kw), reps=1, warmup=1) / 4
-        t_bytes = (state_bytes[name] + io) / PEAK_BYTES_PER_S * 1e3
+        t_bytes = (state_bytes[name.replace("tc_", "")] + io) / PEAK_BYTES_PER_S * 1e3
         ms = float(np.mean(times[name]))
         timing[name] = dict(ms=ms, ms_runs=times[name], plain_ms=plain_ms, library_ms=None,
                             bound_ms=max(t_ops, t_bytes),
@@ -1383,8 +1649,9 @@ def phase_resident_wide() -> dict:
         print(f"[kernel] chunk trainer at 3084-2048x3-257, {name}: {ms:.4f} ms per bunch "
               f"({' '.join(f'{v:.4f}' for v in times[name])}; {flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"version {plain_ms:.2f} ms per bunch with the host's share, bound "
-              f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s: {t_ops:.4f}; "
-              f"{(state_bytes[name] + io) / 1e6:.0f} MB at 3.35 TB/s: {t_bytes:.4f})", flush=True)
+              f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP at "
+              f"{'989' if kw['bf16'] else '67'} TFLOP/s: {t_ops:.4f}; "
+              f"{t_bytes * PEAK_BYTES_PER_S / 1e9:.0f} MB at 3.35 TB/s: {t_bytes:.4f})", flush=True)
     return dict(errors=out, timing=timing, spill_max_abs=spill_abs)
 
 
@@ -1472,43 +1739,62 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
                f"{label}: {d} for {n_ep} epochs of {n_chunks} chunks, {n_bunches} bunches")
 
     out = {}
-    st_sr, cv_sr, d_sr, s_sr = epochs(2, "resident", dict(sr_delta=True))
-    resident_counts(d_sr, 2, "sr_delta")
-    _check(d_sr["sr_bwd_update"] == d_sr["fused_bwd_update"] and d_sr["bf16_linear_act"] == 0
+    f32 = dict(bf16=False)  # the float32-product engine, pinned
+    # the JAX package's 16 kHz production configuration: engine=auto with sr_delta, which on
+    # the card is the chunk trainer with tensor-core products
+    st_sr, cv_sr, d_sr, s_sr = epochs(2, "auto", dict(sr_delta=True))
+    resident_counts(d_sr, 2, "sr_delta, tensor cores")
+    _check(d_sr["sr_bwd_update"] == d_sr["tc_bwd_update"] == d_sr["fused_bwd_update"]
+           and d_sr["tc_linear_act"] == d_sr["fused_linear_act"] and d_sr["bf16_linear_act"] == 0
            and st_sr.deltas.w[0].dtype == torch.bfloat16 and st_sr.params.w[0].dtype == torch.float32,
-           f"sr_delta epochs did not run the bfloat16-momentum form: {d_sr}")
+           f"engine=auto sr_delta epochs did not run the tensor-core bfloat16-momentum form: {d_sr}")
     _check(cv_sr[1] < cv_sr[0], f"sr_delta: CV MSE did not fall: {cv_sr}")
-    st_f, cv_f, d_f, s_f = epochs(2, "resident")
+    st_f, cv_f, d_f, s_f = epochs(2, "resident", f32)
     resident_counts(d_f, 2, "float32")
-    _check(d_f["sr_bwd_update"] == 0 and cv_f[1] < cv_f[0], f"float32 engine: {cv_f} {d_f}")
+    _check(d_f["sr_bwd_update"] == d_f["tc_bwd_update"] == 0 and cv_f[1] < cv_f[0],
+           f"float32 engine: {cv_f} {d_f}")
     # sr_delta again, now that the path is warm (the first run above also paid for the
     # first pinned buffers and workspaces): the host's samples/s of the two forms in turns
-    _, cv_sr2, d_sr2, s_sr2 = epochs(2, "resident", dict(sr_delta=True))
+    _, cv_sr2, d_sr2, s_sr2 = epochs(2, "auto", dict(sr_delta=True))
     _check(cv_sr2 == cv_sr, f"sr_delta run again gives another CV history: {cv_sr2} vs {cv_sr}")
-    frac = abs(cv_sr[1] - cv_f[1]) / cv_f[1]
-    _check(frac <= SR_CV_FRACTION, f"sr_delta final CV {cv_sr[1]} vs float32 {cv_f[1]}: {frac:.3g} "
-                                   f"apart (limit {SR_CV_FRACTION})")
-    out.update(cv_sr_delta=cv_sr, cv_f32=cv_f, cv_fraction=frac,
+    # the float32-product hold: sr_delta with float32 products against the float32 engine
+    _, cv_srf, d_srf, _ = epochs(2, "resident", dict(sr_delta=True, **f32))
+    _check(d_srf["sr_bwd_update"] == d_srf["fused_bwd_update"] and d_srf["tc_bwd_update"] == 0,
+           f"sr_delta, float32 products: {d_srf}")
+    frac = abs(cv_srf[1] - cv_f[1]) / cv_f[1]
+    frac_tc = abs(cv_sr[1] - cv_f[1]) / cv_f[1]
+    _check(frac <= SR_CV_FRACTION and frac_tc <= SR_CV_FRACTION,
+           f"final CV: sr_delta {cv_srf[1]} (float32 products) and {cv_sr[1]} (tensor cores) vs "
+           f"float32 {cv_f[1]}: {frac:.3g} and {frac_tc:.3g} apart (limit {SR_CV_FRACTION})")
+    out.update(cv_sr_delta=cv_sr, cv_f32=cv_f, cv_sr_delta_f32=cv_srf, cv_fraction=frac,
+               cv_fraction_tc=frac_tc,
                samples_per_s=dict(sr_delta_first=2 * x.shape[0] / s_sr, f32=2 * x.shape[0] / s_f,
                                   sr_delta_again=2 * x.shape[0] / s_sr2))
     print(f"[arrays] train_epochs_arrays, 3084-2048x3-257, bunch {BUNCH}, parity dropout 0.1/0.2, "
           f"recipe schedule, {x.shape[0]} samples, {n_chunks} chunks, {n_bunches} bunches an epoch, "
-          f"on {smi}: engine=resident sr_delta CV MSE {cv_sr[0]:.6f} -> {cv_sr[1]:.6f} "
+          f"on {smi}: engine=auto sr_delta (tensor cores) CV MSE {cv_sr[0]:.6f} -> {cv_sr[1]:.6f} "
           f"({2 * x.shape[0] / s_sr:.0f} samples/s by the host, CV included, the path's first run; "
           f"{2 * x.shape[0] / s_sr2:.0f} run again after the float32 one, same CV); float32 "
-          f"{cv_f[0]:.6f} -> {cv_f[1]:.6f} ({2 * x.shape[0] / s_f:.0f} samples/s); final CV "
-          f"{frac:.3g} apart (limit {SR_CV_FRACTION})", flush=True)
+          f"products and state {cv_f[0]:.6f} -> {cv_f[1]:.6f} ({2 * x.shape[0] / s_f:.0f} "
+          f"samples/s); sr_delta with float32 products {cv_srf[0]:.6f} -> {cv_srf[1]:.6f}; final "
+          f"CV of the tensor-core run {frac_tc:.3g} and of float32-product sr_delta {frac:.3g} apart "
+          f"from the float32 run's (limit {SR_CV_FRACTION})", flush=True)
 
     # the other forms, one epoch each
-    _, cv_ss, d_ss, _ = epochs(1, "resident", dict(sr_state=True))
+    _, cv_ss, d_ss, _ = epochs(1, "resident", dict(sr_state=True, **f32))
     resident_counts(d_ss, 1, "sr_state")
     _check(d_ss["bf16_linear_act"] == d_ss["fused_linear_act"] > 0, f"sr_state: {d_ss}")
-    _, cv_sp, d_sp, _ = epochs(1, "resident", dict(hbm_spill=1))
+    _, cv_sst, d_sst, _ = epochs(1, "resident", dict(sr_state=True))
+    resident_counts(d_sst, 1, "sr_state, tensor cores")
+    _check(d_sst["bf16_linear_act"] == d_sst["tc_linear_act"] == d_sst["fused_linear_act"] > 0
+           and abs(cv_sst[0] - cv_ss[0]) <= SR_CV_FRACTION * cv_ss[0],
+           f"sr_state, tensor cores: CV {cv_sst} vs {cv_ss} with float32 products, {d_sst}")
+    _, cv_sp, d_sp, _ = epochs(1, "resident", dict(hbm_spill=1, **f32))
     resident_counts(d_sp, 1, "hbm_spill")
     _check(cv_sp[0] == cv_f[0], f"hbm_spill=1 epoch CV {cv_sp[0]} is not the float32 engine's {cv_f[0]}")
     clean_cfg = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2,
                             dropout_mode="inverted")
-    _, cv_t, d_t, _ = epochs(1, "resident", dict(rule="clean", tile_rows=64), cfg=clean_cfg,
+    _, cv_t, d_t, _ = epochs(1, "resident", dict(rule="clean", tile_rows=64, **f32), cfg=clean_cfg,
                              sched=lambda e: OptConfig(lrate=0.1, momentum=0.5, bunchsize=BUNCH))
     resident_counts(d_t, 1, "tile_rows", tiles=2)
     _check(d_t["tiled_bwd_update"] == d_t["fused_bwd_update"], f"tile_rows: {d_t}")
@@ -1526,8 +1812,10 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     _, cv_x3, d_x3, _ = epochs(1, "xla")
     _check(d_x3["dropout_mask"] == 0 and abs(cv_x[0] - cv_x3[0]) <= 0.15 * cv_x3[0],
            f"engine=xla epoch CV {cv_x[0]} with the Philox masks vs {cv_x3[0]} with torch.rand's")
-    out.update(cv_sr_state=cv_ss, cv_tile_rows=cv_t, cv_xla=cv_x, cv_xla_threefry=cv_x3)
-    print(f"[arrays] one epoch each: sr_state CV {cv_ss[0]:.6f}; hbm_spill=1 {cv_sp[0]:.6f} (the "
+    out.update(cv_sr_state=cv_ss, cv_sr_state_tc=cv_sst, cv_tile_rows=cv_t, cv_xla=cv_x,
+               cv_xla_threefry=cv_x3)
+    print(f"[arrays] one epoch each: sr_state CV {cv_ss[0]:.6f} (tensor cores {cv_sst[0]:.6f}, "
+          f"limit {SR_CV_FRACTION} apart); hbm_spill=1 {cv_sp[0]:.6f} (the "
           f"float32 engine's, exactly); clean rule tile_rows 64 {cv_t[0]:.6f}; engine=xla with "
           f"dropout_rng=tpu_prng {cv_x[0]:.6f} ({d_x['dropout_mask']} dropout_mask launches, "
           f"{x.shape[0] / s_x:.0f} samples/s), with torch.rand masks {cv_x3[0]:.6f} (limit: 15% "
@@ -1562,8 +1850,8 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     # kill and resume: two epochs straight (st_f above) against one epoch,
     # checkpoint, a fresh call that restores and runs the second
     ck = os.path.join(tmp, "ckpt16k")
-    _, _, d_k, _ = epochs(1, "resident", ckpt_dir=ck)
-    st_r, cv_r, d_r, _ = epochs(2, "resident", ckpt_dir=ck)
+    _, _, d_k, _ = epochs(1, "resident", f32, ckpt_dir=ck)
+    st_r, cv_r, d_r, _ = epochs(2, "resident", f32, ckpt_dir=ck)
     resident_counts(d_r, 1, "the resumed call")  # it trained the second epoch only
     _check(len(cv_r) == 2 and cv_r == cv_f, f"resumed CV history {cv_r} vs straight {cv_f}")
     for a, b in zip(_state_tensors(st_r), _state_tensors(st_f)):
@@ -1583,9 +1871,12 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     total = launch_counts()
     out["counts"] = {k: v for k, v in total.items() if isinstance(v, int)}
     out["kernel_counts"] = total["resident_chunk_kernels"]
-    out["by_form"] = dict(sr_delta=d_sr["resident_chunk"] + d_sr2["resident_chunk"], f32=d_f["resident_chunk"] + d_k["resident_chunk"] + d_r["resident_chunk"],
+    out["by_form"] = dict(sr_delta=d_srf["resident_chunk"],
+                          f32=d_f["resident_chunk"] + d_k["resident_chunk"] + d_r["resident_chunk"],
                           sr_state=d_ss["resident_chunk"], hbm_spill=d_sp["resident_chunk"],
-                          tile_rows=d_t["resident_chunk"])
+                          tile_rows=d_t["resident_chunk"],
+                          tc_sr_delta=d_sr["resident_chunk"] + d_sr2["resident_chunk"],
+                          tc_sr_state=d_sst["resident_chunk"])
     out.update(n_samples=int(x.shape[0]), n_bunches=n_bunches, n_chunks=n_chunks)
     return out
 
@@ -1636,6 +1927,37 @@ def _run_train_cli(tmp, args, label):
     return cv[0], counts, wall, log
 
 
+def _epoch_in_process(tmp, args, label):
+    """One epoch of the training command's run_epoch in this process, with the
+    chunk trainer pinned to float32 products (engine_kwargs={"bf16": False}: the
+    command itself has no key for it) -> (CV MSE, launch counts of this run
+    alone)."""
+    from tpu_sednn_torch.cli import run_epoch
+    from tpu_sednn_torch.config import TrainFlags
+    from tpu_sednn_torch.ops import launch_counts
+    from tpu_sednn_torch.utils.logging import Logger
+
+    flags = TrainFlags.from_argv(args)
+    before = launch_counts()
+    cv = run_epoch(flags, logger=Logger(log_path=flags.log_file, stream=None),
+                   engine_kwargs={"bf16": False})
+    torch.cuda.synchronize()
+    after = launch_counts()
+    d = {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
+    d["resident_chunk_kernels"] = {k: after["resident_chunk_kernels"][k]
+                                   - before["resident_chunk_kernels"][k]
+                                   for k in after["resident_chunk_kernels"]}
+    _check(np.isfinite(cv), f"({label}) CV MSE not finite: {cv}")
+    return cv, d
+
+
+# The command's two tensor-core epochs against the same two epochs with float32
+# products, from the same weights and seeds: final CV MSE within this fraction
+# (SR_CV_FRACTION, the limit sr_delta is held to against float32; the JAX
+# package's own control of bfloat16 momentum against float32 held 2%).
+TC_CV_FRACTION = 0.02
+
+
 def phase_train(tmp: str, smi: str) -> dict:
     from tpu_sednn_torch.io import load_wts, write_wav
     from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
@@ -1684,6 +2006,17 @@ def phase_train(tmp: str, smi: str) -> dict:
     _check([w.shape for w in ws] == [(a, b) for a, b in zip(FLAGSHIP[:-1], FLAGSHIP[1:])]
            and all(np.isfinite(w).all() for w in ws + bs), "mlp.2.wts does not reload")
     _check(cv2 < cv1, f"CV MSE did not fall: {cv1} -> {cv2}")
+    # the same two epochs with float32 products, from the same weights and seeds
+    cv1_f, d1_f = _epoch_in_process(tmp, _train_args(
+        tmp, corpus, "f32.1", "", train_range, do + ["momentum=0.5", "init_randem_seed=27863875"]),
+        "float32 epoch 1")
+    cv2_f, d2_f = _epoch_in_process(tmp, _train_args(
+        tmp, corpus, "f32.2", f"{tmp}/f32.1.wts", train_range,
+        do + ["momentum=0.54", "init_randem_seed=27864220"]), "float32 epoch 2")
+    tc_frac = abs(cv2 - cv2_f) / cv2_f
+    _check(cv2_f < cv1_f and tc_frac <= TC_CV_FRACTION,
+           f"float32 products: CV {cv1_f} -> {cv2_f}; tensor cores {cv2}, {tc_frac:.3g} apart "
+           f"(limit {TC_CV_FRACTION})")
     header = next(l for l in log1.splitlines() if l.startswith("Training sentences have"))
     n_chunks, n_samples = int(header.split()[3]), int(header.split()[5])
     chunk_sizes = sorted(int(l.split()[-2]) for l in log1.splitlines()
@@ -1704,51 +2037,89 @@ def phase_train(tmp: str, smi: str) -> dict:
                and k["fused_bwd_update"] == 4 * n_bunches and k["reduce_dedy"] == 3 * n_bunches
                and k["philox_mask"] == 4 * n_bunches,
                f"{label}: kernel launches {k} for {n_bunches} bunches")
+        # engine=auto on the card: the tensor-core forms, every launch
+        _check(k["tc_linear_act"] == k["fused_linear_act"]
+               and k["tc_bwd_update"] == k["fused_bwd_update"],
+               f"{label}: engine=auto did not run the tensor-core forms: {k}")
+    for label, d in (("float32 epoch 1", d1_f), ("float32 epoch 2", d2_f)):
+        k = d["resident_chunk_kernels"]
+        _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
+               and k["tc_linear_act"] == k["tc_bwd_update"] == 0,
+               f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
     times = [float(l.split()[3]) for l in (log1 + log2).splitlines()
              if l.startswith("Total cost time:")]
     print(f"[train] python -m tpu_sednn_torch.cli, 1548-2048x3-129, dropout 0.1/0.2, engine=auto "
           f"on {smi}: {n_chunks} chunks {chunk_sizes}, {n_samples} samples, {n_bunches} bunches "
-          f"per epoch; CV MSE {cv1:.6f} -> {cv2:.6f}; epoch (read, train, CV) {times[0]:.1f} s and "
-          f"{times[1]:.1f} s = {n_samples / times[0]:.0f} and {n_samples / times[1]:.0f} samples/s; "
-          f"command wall {wall1:.1f} s and {wall2:.1f} s incl. start-up; chunk trainer launched "
-          f"{c1['resident_chunk']} + {c2['resident_chunk']} times, plain trainer 0 times",
-          flush=True)
+          f"per epoch, tensor-core products; CV MSE {cv1:.6f} -> {cv2:.6f}; epoch (read, train, CV) "
+          f"{times[0]:.1f} s and {times[1]:.1f} s = {n_samples / times[0]:.0f} and "
+          f"{n_samples / times[1]:.0f} samples/s; command wall {wall1:.1f} s and {wall2:.1f} s incl. "
+          f"start-up; chunk trainer launched {c1['resident_chunk']} + {c2['resident_chunk']} times, "
+          f"plain trainer 0 times; the same two epochs with float32 products (run_epoch, "
+          f"bf16=False): CV MSE {cv1_f:.6f} -> {cv2_f:.6f}, final CV {tc_frac:.3g} apart (limit "
+          f"{TC_CV_FRACTION})", flush=True)
 
-    # dropout off, a shorter range, both engines from the same weights
+    # dropout off, a shorter range, the engines from the same weights: the float32 chunk
+    # trainer (bf16=False, through run_epoch's engine_kwargs) and the tensor-core one (the
+    # command, engine=resident) against engine=xla (plain float32 torch)
     short = ["dropoutflag=0", "momentum=0.5", "init_randem_seed=11"]
-    cv_r, c_r, _, _ = _run_train_cli(
+    cv_r, c_r = _epoch_in_process(
         tmp, _train_args(tmp, corpus, "res", f"{tmp}/mlp.1.wts", "0-19", short + ["engine=resident"]),
-        "resident")
+        "resident, float32 products")
+    cv_t, c_t, _, _ = _run_train_cli(
+        tmp, _train_args(tmp, corpus, "res_tc", f"{tmp}/mlp.1.wts", "0-19",
+                         short + ["engine=resident"]), "resident, tensor cores")
     cv_x, c_x, _, _ = _run_train_cli(
         tmp, _train_args(tmp, corpus, "xla", f"{tmp}/mlp.1.wts", "0-19", short + ["engine=xla"]),
         "xla")
-    _check(c_r["resident_chunk"] == 1 and c_r["plain_train_chunk"] == 0
+    k_r, k_t = c_r["resident_chunk_kernels"], c_t["resident_chunk_kernels"]
+    _check(c_r["resident_chunk"] == c_t["resident_chunk"] == 1 and c_r["plain_train_chunk"] == 0
+           and c_t["plain_train_chunk"] == 0 and k_r["tc_bwd_update"] == 0
+           and k_t["tc_bwd_update"] == k_t["fused_bwd_update"] > 0
            and c_x["resident_chunk"] == 0 and c_x["plain_train_chunk"] == 1,
-           f"engines: resident run {c_r}, xla run {c_x}")
-    w_r, b_r = load_wts(f"{tmp}/res.wts", layersizes=list(FLAGSHIP))
+           f"engines: resident runs {c_r}, {c_t}, xla run {c_x}")
     w_x, b_x = load_wts(f"{tmp}/xla.wts", layersizes=list(FLAGSHIP))
     w_0, b_0 = load_wts(f"{tmp}/mlp.1.wts", layersizes=list(FLAGSHIP))
-    # held on the update, as the chunk trainer is above (biases start near 0,
-    # so a tolerance relative to the weights themselves would hide them)
-    upd_fro = max(float(np.linalg.norm(a - b) / np.linalg.norm(b - c))
-                  for a, b, c in zip(w_r + b_r, w_x + b_x, w_0 + b_0))
+
+    def upd_off(name):
+        """Worst relative Frobenius error of a tensor's update against engine=xla's: held
+        on the update, as the chunk trainer is above (biases start near 0, so a
+        tolerance relative to the weights themselves would hide them)."""
+        w_r, b_r = load_wts(f"{tmp}/{name}.wts", layersizes=list(FLAGSHIP))
+        return max(float(np.linalg.norm(a - b) / np.linalg.norm(b - c))
+                   for a, b, c in zip(w_r + b_r, w_x + b_x, w_0 + b_0))
+
+    upd_fro, upd_tc = upd_off("res"), upd_off("res_tc")
     _check(abs(cv_r - cv_x) <= 1e-3 * cv_x and upd_fro <= ENGINE_REL_FRO,
-           f"engine=resident vs engine=xla: CV {cv_r} vs {cv_x}, update off by {upd_fro}")
-    print(f"[train] dropout off, sentences 0-19: engine=resident CV MSE {cv_r:.6f}, engine=xla "
-          f"(plain torch on the card) {cv_x:.6f} (tol 1e-3 relative); the epoch's update of every "
-          f"tensor within {upd_fro:.3g} relative Frobenius (tol {ENGINE_REL_FRO}: two float32 "
-          f"summation orders, ReLU flips and carried rounding over "
-          f"{c_r['resident_chunk_kernels']['fused_bwd_update'] // 4} bunches)", flush=True)
-    train_counts = {k: c1[k] + c2[k] + c_r[k] + c_x[k] for k in
-                    ("resident_chunk", "fused_linear_act", "fused_linear_act_sum",
-                     "fused_bwd_update", "fused_bwd_update_reduce", "plain_train_chunk")}
-    kernel_counts = {k: sum(c["resident_chunk_kernels"][k] for c in (c1, c2, c_r, c_x))
+           f"engine=resident (float32) vs engine=xla: CV {cv_r} vs {cv_x}, update off by {upd_fro}")
+    _check(abs(cv_t - cv_x) <= TC_ENGINE_CV * cv_x and upd_tc <= TC_ENGINE_REL_FRO,
+           f"engine=resident (tensor cores) vs engine=xla: CV {cv_t} vs {cv_x}, update off by "
+           f"{upd_tc}")
+    print(f"[train] dropout off, sentences 0-19: engine=resident with float32 products CV MSE "
+          f"{cv_r:.6f}, engine=xla (plain torch on the card) {cv_x:.6f} (tol 1e-3 relative); the "
+          f"epoch's update of every tensor within {upd_fro:.3g} relative Frobenius (tol "
+          f"{ENGINE_REL_FRO}: two float32 summation orders, ReLU flips and carried rounding over "
+          f"{k_r['fused_bwd_update'] // 4} bunches); engine=resident with tensor-core products (the "
+          f"command) CV MSE {cv_t:.6f} (tol {TC_ENGINE_CV} relative), update within {upd_tc:.3g} "
+          f"(tol {TC_ENGINE_REL_FRO}: bfloat16 operands against float32 ones)", flush=True)
+    runs = (c1, c2, c_t, c_x, d1_f, d2_f, c_r)
+    train_counts = {k: sum(c[k] for c in runs) for k in
+                    ("resident_chunk", "fused_linear_act", "fused_linear_act_tc",
+                     "fused_linear_act_sum", "fused_bwd_update", "fused_bwd_update_tc",
+                     "fused_bwd_update_reduce", "plain_train_chunk")}
+    kernel_counts = {k: sum(c["resident_chunk_kernels"][k] for c in runs)
                      for k in c1["resident_chunk_kernels"]}
+    # chunk-trainer calls by product form: tensor cores (the command's engine=auto and
+    # engine=resident) and float32 (run_epoch with bf16=False)
+    by_form = dict(tc=c1["resident_chunk"] + c2["resident_chunk"] + c_t["resident_chunk"],
+                   f32=d1_f["resident_chunk"] + d2_f["resident_chunk"] + c_r["resident_chunk"])
 
     prof = _profile_chunk(corpus, train_range)
-    return dict(cv=[cv1, cv2], samples_per_s=[n_samples / t for t in times[:2]],
+    return dict(cv=[cv1, cv2], cv_f32=[cv1_f, cv2_f], tc_cv_fraction=tc_frac,
+                engine_update_off=dict(f32=upd_fro, tc=upd_tc),
+                samples_per_s=[n_samples / t for t in times[:2]],
                 epoch_seconds=times[:2], n_samples=n_samples, n_bunches=n_bunches,
-                stft_launches=n_stft, counts=train_counts, kernel_counts=kernel_counts, **prof)
+                stft_launches=n_stft, counts=train_counts, kernel_counts=kernel_counts,
+                by_form=by_form, **prof)
 
 
 def _profile_chunk(corpus: dict, train_range: str) -> dict:
@@ -1790,7 +2161,7 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     n_real = item[6] // BUNCH
     cfg = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
     opt = OptConfig(lrate=0.1, momentum=0.5, weightcost=0.0, bunchsize=BUNCH)
-    run = make_resident_train_chunk(cfg, opt)
+    run = make_resident_train_chunk(cfg, opt)  # tensor-core products, as engine=auto runs it
     state = init_train_state(init_params(torch.Generator().manual_seed(0), cfg, device="cuda"))
     run(state, x, t, 1, opt.lrate, opt.momentum, opt.weightcost, n_real=8)  # warm-up
     torch.cuda.synchronize()
@@ -1888,6 +2259,7 @@ def main(argv=None) -> int:
         if "kernels" in groups:
             fused = phase_fused_kernels(gen)
             masks = phase_masks()
+            tcres = phase_tc_kernels(gen)
             resident = phase_resident(gen)
             torch.cuda.empty_cache()
             sr = phase_sr(gen)
@@ -1901,10 +2273,14 @@ def main(argv=None) -> int:
         print(f"partial run (--only {args.only}): no kernels line, no final line", file=sys.stderr)
         return 2
 
-    kc, tc = train["kernel_counts"], train["counts"]
-    for name, n in (("resident_chunk", tc["resident_chunk"]), ("fused_linear_act", kc["fused_linear_act"]),
-                    ("fused_bwd_update", kc["fused_bwd_update"]), ("philox_mask", kc["philox_mask"]),
-                    ("stft_lps", train["stft_launches"])):
+    kc, tw, tforms = train["kernel_counts"], train["counts"], train["by_form"]
+    for name, n in (("resident_chunk (tensor cores)", tforms["tc"]),
+                    ("resident_chunk (float32 products)", tforms["f32"]),
+                    ("fused_linear_act", kc["fused_linear_act"]),
+                    ("fused_linear_act (tensor cores)", kc["tc_linear_act"]),
+                    ("fused_bwd_update", kc["fused_bwd_update"]),
+                    ("fused_bwd_update (tensor cores)", kc["tc_bwd_update"]),
+                    ("philox_mask", kc["philox_mask"]), ("stft_lps", train["stft_launches"])):
         _check(n > 0, f"the training path never launched the {name} kernel")
     ac, akc, forms = arrays["counts"], arrays["kernel_counts"], arrays["by_form"]
     for name, n in (("dropout_mask", ac["dropout_mask"]), ("sr_momentum_update", ac["sr_momentum_update"]),
@@ -1913,9 +2289,13 @@ def main(argv=None) -> int:
                     ("resident_chunk (tile_rows)", forms["tile_rows"]),
                     ("resident_chunk (hbm_spill)", forms["hbm_spill"]),
                     ("resident_chunk (float32)", forms["f32"]),
+                    ("resident_chunk (sr_delta, tensor cores)", forms["tc_sr_delta"]),
+                    ("resident_chunk (sr_state, tensor cores)", forms["tc_sr_state"]),
                     ("fused_linear_act", akc["fused_linear_act"]),
-                    ("fused_bwd_update", akc["fused_bwd_update"]), ("philox_mask", akc["philox_mask"]),
-                    ("stft_lps", ac["stft_lps"])):
+                    ("fused_linear_act (tensor cores)", akc["tc_linear_act"]),
+                    ("fused_bwd_update", akc["fused_bwd_update"]),
+                    ("fused_bwd_update (tensor cores)", akc["tc_bwd_update"]),
+                    ("philox_mask", akc["philox_mask"]), ("stft_lps", ac["stft_lps"])):
         _check(n > 0, f"the in-memory training path never launched the {name} kernel")
 
     def by_path(train_n, arrays_n, make_pfile=0, serving=0):
@@ -1931,6 +2311,22 @@ def main(argv=None) -> int:
                                    "against its comparison (3 bunches at 3084-2048x3-257)",
                     shape=f"{BUNCH} x 3084-2048x3-257, per bunch", **wide["timing"][timing_key])
 
+    def layer_launches(kernel, wrapper, form):
+        """(train, arrays) launches of kernel 1 or 2 in one product form: the chunk
+        trainer's tallies plus the wrapper's own counts; form "tc" or "f32"."""
+        tc_key = {"fused_linear_act": "tc_linear_act", "fused_bwd_update": "tc_bwd_update"}[kernel]
+        tr_tc, ar_tc = kc[tc_key] + tw[wrapper + "_tc"], akc[tc_key] + ac[wrapper + "_tc"]
+        if form == "tc":
+            return tr_tc, ar_tc
+        return kc[kernel] + tw[wrapper] - tr_tc, akc[kernel] + ac[wrapper] - ar_tc
+
+    def layer_row(name, kernel, form, source, replaces, timing, **more):
+        tr, ar = layer_launches(kernel, kernel, form)
+        return dict(name=name, source=source, replaces=replaces, launches=tr + ar,
+                    launches_by_path=by_path(tr, ar), route="cuda",
+                    shape="one bunch of 128 through the four layers of 1548-2048x3-129",
+                    **more, **timing)
+
     t8 = kern[8000]
     kernels = [
         dict(name="stft_lps", source="tpu_sednn_torch/csrc/stft_lps.cu",
@@ -1941,37 +2337,47 @@ def main(argv=None) -> int:
              max_abs_err=kern["max_abs_err"], tol_ratio=kern["tol_ratio"], ms=t8["ms"],
              plain_ms=t8["plain_ms"], bound_ms=t8["bound_ms"], bound_by=t8["bound_by"],
              library_ms=t8["library_ms"], shape=t8["shape"], at_16k=kern[16000], route="cuda"),
-        dict(name="fused_linear_act", source="tpu_sednn_torch/csrc/fused_mlp.cu",
-             replaces="tpu_sednn/ops/fused_mlp.py:65",
-             launches=kc["fused_linear_act"] + tc["fused_linear_act"] + akc["fused_linear_act"],
-             launches_by_path=by_path(kc["fused_linear_act"] + tc["fused_linear_act"],
-                                      akc["fused_linear_act"]),
-             launches_of="fwd_kernel; its fwd_sum_kernel (K split over the grid) in sum_launches; "
-                         "bf16_launches read bfloat16 weights (sr_state)",
-             sum_launches=kc["fused_linear_act_sum"] + tc["fused_linear_act_sum"]
-             + akc["fused_linear_act_sum"],
-             bf16_launches=akc["bf16_linear_act"], bf16_storage=sr["bf16_storage"],
-             shape="one bunch of 128 through the four layers of 1548-2048x3-129",
-             **{k: v for k, v in fused["fwd"].items() if k not in ("flops", "nbytes")}, route="cuda"),
-        dict(name="fused_bwd_update", source="tpu_sednn_torch/csrc/fused_mlp.cu",
-             replaces="tpu_sednn/ops/fused_mlp.py:108",
-             launches=kc["fused_bwd_update"] + tc["fused_bwd_update"] + akc["fused_bwd_update"],
-             launches_by_path=by_path(kc["fused_bwd_update"] + tc["fused_bwd_update"],
-                                      akc["fused_bwd_update"]),
-             launches_of="bwd_kernel; its reduce_dedy_kernel (no layer below the first) in "
-                         "reduce_launches; sr_launches stored bfloat16 with stochastic rounding, "
-                         "tiled_launches accumulated a row tile",
-             reduce_launches=kc["reduce_dedy"] + tc["fused_bwd_update_reduce"] + akc["reduce_dedy"],
-             sr_launches=akc["sr_bwd_update"], tiled_launches=akc["tiled_bwd_update"],
-             shape="one bunch of 128 through the four layers of 1548-2048x3-129",
-             library_ms=None,
-             **{k: v for k, v in fused["bwd"].items() if k not in ("flops", "nbytes")}, route="cuda"),
+        layer_row("fused_linear_act", "fused_linear_act", "f32", "tpu_sednn_torch/csrc/fused_mlp.cu",
+                  "tpu_sednn/ops/fused_mlp.py:65", fused["fwd"],
+                  launches_of="fwd_kernel (float32 products, bf16=False); its fwd_sum_kernel (K "
+                              "split over the grid, either form) in sum_launches; bf16_launches "
+                              "read bfloat16 weights (sr_state, either form)",
+                  sum_launches=kc["fused_linear_act_sum"] + tw["fused_linear_act_sum"]
+                  + akc["fused_linear_act_sum"],
+                  bf16_launches=akc["bf16_linear_act"], bf16_storage=sr["bf16_storage"]),
+        layer_row("fused_linear_act_tc", "fused_linear_act", "tc",
+                  "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:65",
+                  tcres["fwd"],
+                  launches_of="tc_fwd_kernel (tensor-core products, bf16=True, mma.sync m16n8k16)"),
+        layer_row("fused_bwd_update", "fused_bwd_update", "f32", "tpu_sednn_torch/csrc/fused_mlp.cu",
+                  "tpu_sednn/ops/fused_mlp.py:108", fused["bwd"],
+                  launches_of="bwd_kernel (float32 products, bf16=False); its reduce_dedy_kernel "
+                              "(no layer below the first, either form) in reduce_launches; "
+                              "sr_launches stored bfloat16 with stochastic rounding, tiled_launches "
+                              "accumulated a row tile (either form)",
+                  reduce_launches=kc["reduce_dedy"] + tw["fused_bwd_update_reduce"]
+                  + akc["reduce_dedy"],
+                  sr_launches=akc["sr_bwd_update"], tiled_launches=akc["tiled_bwd_update"],
+                  library_ms=None),
+        layer_row("fused_bwd_update_tc", "fused_bwd_update", "tc",
+                  "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:108",
+                  tcres["bwd"], library_ms=None,
+                  launches_of="tc_bwd_update (tensor-core products, bf16=True, mma.sync m16n8k16; "
+                              "the update on the unrounded W)"),
         dict(name="resident_chunk", source="tpu_sednn_torch/csrc/resident_chunk.cu",
              replaces="tpu_sednn/ops/resident_chunk.py:169",
-             launches=tc["resident_chunk"] + forms["f32"],
-             launches_by_path=by_path(tc["resident_chunk"], forms["f32"]),
-             at_16k=wide["timing"]["f32"],
-             ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"], **resident, route="cuda"),
+             launches=tforms["f32"] + forms["f32"],
+             launches_by_path=by_path(tforms["f32"], forms["f32"]),
+             launches_of="chunk-trainer calls with float32 products and state (bf16=False)",
+             at_16k=wide["timing"]["f32"], **resident[False], route="cuda"),
+        dict(name="resident_chunk_tc", source="tpu_sednn_torch/csrc/resident_chunk.cu",
+             replaces="tpu_sednn/ops/resident_chunk.py:169",
+             launches=tforms["tc"], launches_by_path=by_path(tforms["tc"], 0),
+             launches_of="chunk-trainer calls with tensor-core products and float32 state "
+                         "(bf16=True: engine=auto on the card)",
+             at_16k=wide["timing"]["tc_f32"],
+             ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"], **resident[True],
+             route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",
              replaces="tpu_sednn/ops/resident_chunk.py:970",
              launches=kc["philox_mask"] + akc["philox_mask"],
@@ -1981,6 +2387,10 @@ def main(argv=None) -> int:
         variant("sr_state", "sr_state", "sr_state", "sr_state, parity, dropout 0.1/0.2"),
         variant("tile_rows", "tile_rows", "tile_rows", "tile_rows 64 vs untiled"),
         variant("hbm_spill", "hbm_spill", "hbm_spill", None),
+        variant("sr_delta_tc", "tc_sr_delta", "tc_sr_delta",
+                "tensor cores, sr_delta, parity, dropout 0.1/0.2"),
+        variant("sr_state_tc", "tc_sr_state", "tc_sr_state",
+                "tensor cores, sr_state, parity, dropout 0.1/0.2"),
         dict(name="dropout_mask", source="tpu_sednn_torch/csrc/dropout_mask.cu",
              replaces="tpu_sednn/ops/dropout_pallas.py:29", route="cuda",
              launches=ac["dropout_mask"], launches_by_path=by_path(0, ac["dropout_mask"]),
@@ -1990,9 +2400,15 @@ def main(argv=None) -> int:
              launches=ac["sr_momentum_update"],
              launches_by_path=by_path(0, ac["sr_momentum_update"]), **sr["k6"]),
     ]
-    kernels[-3].update(max_abs_err=wide["spill_max_abs"],
-                       max_abs_err_is="largest absolute difference of a state tensor from the "
-                                      "unspilled float32 run (3 bunches at 3084-2048x3-257)")
+    spill = next(k for k in kernels if k["name"] == "resident_chunk_hbm_spill")
+    spill.update(max_abs_err=wide["spill_max_abs"],
+                 max_abs_err_is="largest absolute difference of a state tensor from the unspilled "
+                                "run, float32 and tensor-core products (3 bunches at "
+                                "3084-2048x3-257)")
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    for k in kernels:
+        _check(keys <= set(k), f"kernels line: {k['name']} lacks {keys - set(k)}")
     print(f"[arrays] summary {json.dumps(arrays)}")
     print(f"[train] summary {json.dumps(train)}")
     print(smi)

@@ -1,7 +1,8 @@
 """The fused layer kernels' plain versions (what the wrappers run on CPU
 tensors) against the Pallas kernels of tpu_sednn.ops.fused_mlp in interpret
-mode with bf16=False, as tests/test_pallas_ops.py runs them: rtol/atol 1e-5
-(float32 sums in another order).  Also ops/train_step.py's per-bunch step
+mode with bf16=False, as tests/test_pallas_ops.py runs them, both packages
+pinned to float32 products: rtol/atol 1e-5 (float32 sums in another order).
+tests/test_torch_tensor_core.py holds bf16=True.  Also ops/train_step.py's per-bunch step
 against the JAX package's, and the source hashing of ops/_build.py."""
 
 import jax
@@ -36,11 +37,12 @@ def test_fused_linear_act_matches_pallas(act, shape):
                                 block_n=128, interpret=True, bf16=False)
     args = [torch.from_numpy(a) for a in (x, w, b)]
     before = tfm.fused_linear_act.launches
-    got = tfm.fused_linear_act(*args, act=act)
+    got = tfm.fused_linear_act(*args, act=act, bf16=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert torch.equal(got, tfm.fused_linear_act_reference(*args, act=act))
-    np.testing.assert_allclose(tfm.fused_linear_act_reference(*args, act=act, dtype=torch.float64)
-                               .numpy(), np.asarray(want), **TOL)
+    assert torch.equal(got, tfm.fused_linear_act_reference(*args, act=act, bf16=False))
+    np.testing.assert_allclose(tfm.fused_linear_act_reference(*args, act=act, dtype=torch.float64,
+                                                              bf16=False).numpy(),
+                               np.asarray(want), **TOL)
     assert tfm.fused_linear_act.launches == before  # a CPU tensor launches no kernel
 
 
@@ -53,7 +55,7 @@ def test_fused_linear_act_unaligned_matches_jax(shape):
     b = (rng.standard_normal(N) * 0.1).astype(np.float32)
     want = jfm.fused_linear_act(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act="relu",
                                 interpret=True, bf16=False)
-    got = tfm.fused_linear_act(*(torch.from_numpy(a) for a in (x, w, b)), act="relu")
+    got = tfm.fused_linear_act(*(torch.from_numpy(a) for a in (x, w, b)), act="relu", bf16=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -66,7 +68,7 @@ def test_fused_linear_act_masks():
     want = torch.relu((x * im / 0.9) @ w + b) * om
     # an explicit 0/1 tensor and the (key, omit) spec of the same stream agree
     for kw in (dict(in_mask=im, out_mask=om), dict(in_mask=(3, 0.1), out_mask=(4, 0.2))):
-        got = tfm.fused_linear_act(x, w, b, "relu", in_scale=1 / 0.9, **kw)
+        got = tfm.fused_linear_act(x, w, b, "relu", in_scale=1 / 0.9, bf16=False, **kw)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError):
         tfm.fused_linear_act(x, w, b, "tanh")
@@ -88,10 +90,10 @@ def test_fused_bwd_update_matches_pallas(shape):
                                 block_k=128, block_n=128, interpret=True, bf16=False)
     t = {k: torch.from_numpy(v.copy()) for k, v in arrs.items()}
     pure = tfm.fused_bwd_update_reference(t["dedx"], t["yprev"], t["w"], t["delta"], t["b"], t["db"],
-                                          m, lr, inv_n, wc)
+                                          m, lr, inv_n, wc, bf16=False)
     np.testing.assert_array_equal(t["w"].numpy(), arrs["w"])  # the plain version is pure
     got = tfm.fused_bwd_update(t["dedx"], t["yprev"], t["w"], t["delta"], t["b"], t["db"],
-                               m, lr, inv_n, wc)
+                               m, lr, inv_n, wc, bf16=False)
     # the wrapper updates W, delta, b, delta_b in place and hands them back
     assert got[0] is t["w"] and got[1] is t["delta"] and got[3] is t["b"] and got[4] is t["db"]
     for g, p, wnt in zip(got, pure, want):
@@ -110,17 +112,17 @@ def test_fused_bwd_update_derivative_and_mask_options(deriv):
     w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
     zeros = lambda *s: torch.zeros(*s)  # noqa: E731
     plain = tfm.fused_bwd_update_reference(dedx, y, w, zeros(K, N), zeros(N), zeros(N),
-                                           0.5, 1.0, 1 / B, 0.0)
+                                           0.5, 1.0, 1 / B, 0.0, bf16=False)
     fused = tfm.fused_bwd_update_reference(dedx, y, w, zeros(K, N), zeros(N), zeros(N),
-                                           0.5, 1.0, 1 / B, 0.0, deriv=deriv)
+                                           0.5, 1.0, 1 / B, 0.0, deriv=deriv, bf16=False)
     want = torch.where(y > 0, plain[2], torch.zeros(())) if deriv == "relu" else y * (1 - y) * plain[2]
     np.testing.assert_allclose(fused[2].numpy(), want.numpy(), rtol=1e-6, atol=1e-7)
     # in_mask masks y_prev on load: same as handing in the masked y_prev
     raw = torch.from_numpy(rng.random((B, K)).astype(np.float32))
     a = tfm.fused_bwd_update_reference(dedx, raw, w, zeros(K, N), zeros(N), zeros(N), 0.5, 1.0,
-                                       1 / B, 0.0, in_mask=(5, 0.3), in_scale=2.0)
+                                       1 / B, 0.0, in_mask=(5, 0.3), in_scale=2.0, bf16=False)
     b = tfm.fused_bwd_update_reference(dedx, raw * philox_mask(5, B, K, 0.3) * 2.0, w, zeros(K, N),
-                                       zeros(N), zeros(N), 0.5, 1.0, 1 / B, 0.0)
+                                       zeros(N), zeros(N), 0.5, 1.0, 1 / B, 0.0, bf16=False)
     for u, v in zip(a, b):
         np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError):
@@ -149,7 +151,8 @@ def test_fused_step_matches_pallas_step(hidden, output):
     jst = jts.pallas_train_step(j_init(p), jnp.asarray(x), jnp.asarray(t), jcfg, JOpt(**opt),
                                 interpret=True, bf16=False)
     st0 = init_train_state(tm.params_from_jax(pn, device="cpu"))
-    st = tts.pallas_train_step(st0, torch.from_numpy(x), torch.from_numpy(t), tcfg, OptConfig(**opt))
+    st = tts.pallas_train_step(st0, torch.from_numpy(x), torch.from_numpy(t), tcfg, OptConfig(**opt),
+                               bf16=False)
     assert st is st0 and st.step == 1 and tts.pallas_train_step is tts.fused_train_step
     for l in range(len(sizes) - 1):
         np.testing.assert_allclose(st.params.w[l].numpy(), np.asarray(jst.params["w"][l]),
@@ -171,7 +174,7 @@ def test_fused_chunk_unaligned_sizes_match_pallas_chunk(hidden, output):
     t = rng.standard_normal((52, sizes[-1])).astype(np.float32)
     jst = jts.make_pallas_train_chunk(jcfg, JOpt(**opt), interpret=True, bf16=False)(
         j_init(p), jnp.asarray(x), jnp.asarray(t), jax.random.key(1))
-    st = tts.make_pallas_train_chunk(tcfg, OptConfig(**opt))(
+    st = tts.make_pallas_train_chunk(tcfg, OptConfig(**opt), bf16=False)(
         init_train_state(tm.params_from_jax(pn, device="cpu")), torch.from_numpy(x),
         torch.from_numpy(t), None)
     assert st.step == int(jst.step) == 3
@@ -201,7 +204,7 @@ def test_fused_step_with_dropout_matches_plain_step(mode):
     a = init_train_state(tm.params_from_jax(pn, device="cpu"))
     for i in range(2):
         tts.fused_train_step(a, x[16 * i:16 * i + 16], t[16 * i:16 * i + 16], tcfg, opt,
-                             dropout_masks=masks[i])
+                             dropout_masks=masks[i], bf16=False)
     b = reference_train_chunk(init_train_state(tm.params_from_jax(pn, device="cpu")), x, t, tcfg,
                               opt, dropout_masks=masks)
     for u, v in zip(list(a.params.w) + list(a.deltas.b), list(b.params.w) + list(b.deltas.b)):
@@ -212,7 +215,7 @@ def test_fused_step_with_dropout_matches_plain_step(mode):
 
 def test_kernel_library_hash_covers_included_headers(tmp_path, monkeypatch):
     names = {p.name for p in _build.source_files("resident_chunk")}
-    headers = {"fused_mlp.cuh", "philox.cuh", "sr_round.cuh", "vec4.cuh"}
+    headers = {"fused_mlp.cuh", "mma_bf16.cuh", "philox.cuh", "sr_round.cuh", "vec4.cuh"}
     assert names == {"resident_chunk.cu"} | headers
     assert {p.name for p in _build.source_files("fused_mlp")} == {"fused_mlp.cu"} | headers
     assert [p.name for p in _build.source_files("stft_lps")] == ["stft_lps.cu"]

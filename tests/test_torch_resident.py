@@ -1,5 +1,6 @@
 """The port's whole-chunk trainer on CPU tensors (its plain version) against
-tpu_sednn's resident kernel in interpret mode with bf16=False, dropout off:
+tpu_sednn's resident kernel in interpret mode, both pinned to float32
+products (bf16=False; tests/test_torch_tensor_core.py holds bf16=True), dropout off:
 rtol 2e-5 / atol 2e-6, the JAX package's own tolerance for this kernel
 (tests/test_resident_chunk.py).  With dropout on, against the plain parity
 chunk trainer fed the same Philox masks.  Also the Philox known-answer
@@ -59,7 +60,7 @@ def test_resident_matches_jax_resident_kernel(rule, hidden, output, sizes):
         j_init(p), jnp.asarray(x), jnp.asarray(t), jnp.int32(7))
     st0 = init_train_state(mlp)
     before = rc.make_resident_train_chunk.launches
-    st = rc.make_resident_train_chunk(tm.ModelConfig(**kw), OptConfig(**opt), rule=rule)(
+    st = rc.make_resident_train_chunk(tm.ModelConfig(**kw), OptConfig(**opt), bf16=False, rule=rule)(
         st0, torch.from_numpy(x), torch.from_numpy(t), 7)
     assert st is st0 and st.step == 3  # in place, partial bunch dropped
     assert rc.make_resident_train_chunk.launches == before  # a CPU state launches no kernel
@@ -71,7 +72,7 @@ def test_resident_n_real_padding_and_dynamic_hyperparameters_match_jax():
     p, mlp, x, t = _inputs(sizes, 64, seed=6)
     opt = dict(lrate=0.5, momentum=0.5, weightcost=0.0, bunchsize=16)
     jrun = j_make_resident(jm.ModelConfig(layersizes=sizes), JOpt(**opt), interpret=True, bf16=False)
-    run = rc.make_resident_train_chunk(tm.ModelConfig(layersizes=sizes), OptConfig(**opt))
+    run = rc.make_resident_train_chunk(tm.ModelConfig(layersizes=sizes), OptConfig(**opt), bf16=False)
     xg, tg = x.copy(), t.copy()
     xg[32:], tg[32:] = np.nan, np.nan  # rows past n_real * bunch are never read
     for mom in (0.5, 0.9):
@@ -98,7 +99,7 @@ def test_resident_clean_rule_matches_clean_step():
     for i in range(2):
         ref, _ = clean_train_step(ref, torch.from_numpy(x[16 * i:16 * i + 16]),
                                   torch.from_numpy(t[16 * i:16 * i + 16]), cfg, opt)
-    st = rc.make_resident_train_chunk(cfg, opt, rule="clean")(
+    st = rc.make_resident_train_chunk(cfg, opt, bf16=False, rule="clean")(
         init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), 0)
     for a, b in zip(list(st.params.w) + list(st.deltas.b), list(ref.params.w) + list(ref.deltas.b)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
@@ -113,11 +114,12 @@ def test_resident_with_dropout_matches_plain_chunk_fed_the_philox_masks(hidden):
     seed = 2**31 - 5  # seed + bunch*7919 + layer*104729 wraps past 2**31: the key is the sum mod 2**32
     masks = [[rc.sample_resident_masks_reference(seed, i, l, (16, sizes[l]), 0.1 if l == 0 else 0.2)
               for l in range(3)] for i in range(3)]
-    st = rc.make_resident_train_chunk(cfg, opt)(init_train_state(mlp), torch.from_numpy(x),
-                                                torch.from_numpy(t), seed)
+    st = rc.make_resident_train_chunk(cfg, opt, bf16=False)(init_train_state(mlp), torch.from_numpy(x),
+                                                            torch.from_numpy(t), seed)
     ref = reference_train_chunk(init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), cfg,
                                 opt, dropout_masks=masks)
-    nodrop = rc.make_resident_train_chunk(tm.ModelConfig(layersizes=sizes, hidden=hidden), opt)(
+    nodrop = rc.make_resident_train_chunk(tm.ModelConfig(layersizes=sizes, hidden=hidden), opt,
+                                          bf16=False)(
         init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), seed)
     for l in range(3):
         np.testing.assert_allclose(st.params.w[l].numpy(), ref.params.w[l].numpy(), **TOL)
@@ -126,7 +128,7 @@ def test_resident_with_dropout_matches_plain_chunk_fed_the_philox_masks(hidden):
     # float64 plain version: same function, state rounded to float32 at the end
     st64 = rc.resident_train_chunk_reference(
         init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), cfg, 16,
-        rc._scal_coefs("parity", 16, 13, 0.5, 0.6, 1e-4), seed, dtype=torch.float64)
+        rc._scal_coefs("parity", 16, 13, 0.5, 0.6, 1e-4), seed, dtype=torch.float64, bf16=False)
     assert st64.params.w[0].dtype == torch.float32
     np.testing.assert_allclose(st64.params.w[1].numpy(), st.params.w[1].numpy(), **TOL)
 
@@ -187,16 +189,21 @@ def test_mask_rate_streams_and_rank_slices(layer, omit, width):
 @pytest.mark.parametrize("kwargs", [dict(sr_state=True), dict(sr_delta=True), dict(tile_rows=8),
                                     dict(hbm_spill=1), dict(bf16=True)])
 def test_unported_variants_raise(kwargs):
-    """Of the TPU kernel's variants only the tensor-core products (bf16=True)
-    and the data-parallel trainer still raise; the others build a runner
-    (tests/test_torch_resident_variants.py holds what they compute)."""
+    """Of the TPU kernel's variants only the data-parallel trainer still
+    raises; every single-device one builds a runner, the tensor-core products
+    (bf16=True) included, and a CPU state launches no kernel
+    (tests/test_torch_resident_variants.py and tests/test_torch_tensor_core.py
+    hold what they compute)."""
     cfg, opt = tm.ModelConfig(layersizes=(16, 16, 16)), OptConfig(bunchsize=16)
+    rule = "clean" if "tile_rows" in kwargs else "parity"
+    run = rc.make_resident_train_chunk(cfg, opt, rule=rule, **kwargs)
+    assert callable(run)
     if "bf16" in kwargs:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            rc.make_resident_train_chunk(cfg, opt, **kwargs)
-    else:
-        rule = "clean" if "tile_rows" in kwargs else "parity"
-        assert callable(rc.make_resident_train_chunk(cfg, opt, rule=rule, **kwargs))
+        before = (rc.make_resident_train_chunk.launches, dict(rc.kernel_launches))
+        st = run(init_train_state(tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")),
+                 torch.zeros(32, 16), torch.zeros(32, 16), 0)
+        assert st.step == 2
+        assert (rc.make_resident_train_chunk.launches, dict(rc.kernel_launches)) == before
 
 
 def test_factory_guards():
@@ -225,9 +232,10 @@ def test_chunk_runner_engines_and_required_hyperparameters():
     xt, tt = torch.from_numpy(x), torch.from_numpy(t)
     gen = torch.Generator().manual_seed(0)
     hyp = (opt.lrate, opt.momentum, opt.weightcost)
-    runs = {e: make_chunk_runner(cfg, opt, e, device="cpu") for e in ("auto", "xla", "resident")}
+    runs = {e: make_chunk_runner(cfg, opt, e, device="cpu", bf16=False)  # float32 products
+            for e in ("auto", "xla", "resident")}
     assert runs["auto"] is runs["xla"]  # on the CPU "auto" is the plain trainer
-    assert make_chunk_runner(cfg, opt, "resident", device="cpu") is runs["resident"]  # memoized
+    assert make_chunk_runner(cfg, opt, "resident", device="cpu", bf16=False) is runs["resident"]
     a = runs["xla"](init_train_state(mlp), xt, tt, gen, *hyp)
     b = runs["resident"](init_train_state(mlp), xt, tt, gen, *hyp)
     assert a.step == b.step == 2

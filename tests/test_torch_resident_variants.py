@@ -1,6 +1,7 @@
 """The chunk trainer's single-device variants on CPU tensors (the plain
 version) against tpu_sednn.ops.resident_chunk.make_resident_train_chunk in
-interpret mode with bf16=False, on the same numpy-seeded inputs, at the JAX
+interpret mode, both pinned to float32 products (bf16=False;
+tests/test_torch_tensor_core.py holds bf16=True), on the same numpy-seeded inputs, at the JAX
 tests' own tolerances (tests/test_resident_chunk.py): row tiles rtol 2e-5 /
 atol 2e-6; sr_state rtol 3e-2 / atol 3e-3 and sr_delta rtol 2e-2 / atol 2e-4
 against the float32 kernel (bfloat16 rounding noise; the two packages draw
@@ -67,7 +68,7 @@ def test_row_tiles_match_jax_row_tiles_and_the_clean_step(tile):
     jst = j_make_resident(jcfg, JOpt(**opt), interpret=True, bf16=False, rule="clean",
                           tile_rows=tile)(j_init(p), jnp.asarray(x), jnp.asarray(t), jnp.int32(0))
     st = rc.make_resident_train_chunk(tm.ModelConfig(layersizes=sizes), OptConfig(**opt),
-                                      rule="clean", tile_rows=tile)(
+                                      bf16=False, rule="clean", tile_rows=tile)(
         init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), 0)
     assert st.step == 2  # 2 updates of 64 rows each
     _close(st, jst, TOL)
@@ -87,7 +88,7 @@ def test_row_tiles_key_their_masks_on_the_global_tile_index():
     opt = OptConfig(lrate=0.2, momentum=0.5, weightcost=0.0, bunchsize=32)
     _, mlp, x, t = _inputs(sizes, 64, seed=3)
     xt, tt = torch.from_numpy(x), torch.from_numpy(t)
-    st = rc.make_resident_train_chunk(cfg, opt, rule="clean", tile_rows=16)(
+    st = rc.make_resident_train_chunk(cfg, opt, bf16=False, rule="clean", tile_rows=16)(
         init_train_state(mlp), xt, tt, 21)
     # by hand: bunch i = tiles 2i and 2i + 1, each a 16-row bunch's gradient at 2/32,
     # masks of (seed, tile index): accumulate, then one step
@@ -135,7 +136,7 @@ def test_sr_variants_close_to_the_float32_jax_kernel(rule, hidden, mode, tol):
     j_sr = j_make_resident(jcfg, JOpt(**opt), interpret=True, bf16=False, rule=rule,
                            **{mode: True})(j_init(p), jx, jt, jnp.int32(3))
     run = rc.make_resident_train_chunk(tm.ModelConfig(layersizes=sizes, hidden=hidden),
-                                       OptConfig(**opt), rule=rule, **{mode: True})
+                                       OptConfig(**opt), bf16=False, rule=rule, **{mode: True})
     st = run(init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), 3)
     assert st.step == 3
     w_dtype = BF16 if mode == "sr_state" else F32
@@ -175,7 +176,7 @@ def test_sr_state_carried_across_from_jax_and_back():
     assert all(a.dtype == BF16 and torch.equal(a, b) for a, b in zip(again.w, st.params.w))
     # both packages train the carried state on; they stay in the same noise band
     run = rc.make_resident_train_chunk(tm.ModelConfig(layersizes=sizes), OptConfig(**opt),
-                                       sr_state=True)
+                                       bf16=False, sr_state=True)
     st = run(st, torch.from_numpy(x), torch.from_numpy(t), 2)
     jst2 = jrun(jst, jnp.asarray(x), jnp.asarray(t), jnp.int32(2))
     _close(st, jst2, dict(rtol=3e-2, atol=3e-3), flips=5e-3)
@@ -189,8 +190,9 @@ def test_sr_delta_stores_the_kernels_rounding_and_steps_unrounded():
     opt = OptConfig(lrate=0.3, momentum=0.6, weightcost=1e-4, bunchsize=16)
     _, mlp, x, t = _inputs(sizes, 16, seed=2)
     xt, tt = torch.from_numpy(x), torch.from_numpy(t)
-    f32 = rc.make_resident_train_chunk(cfg, opt)(init_train_state(mlp), xt, tt, 9)
-    sr = rc.make_resident_train_chunk(cfg, opt, sr_delta=True)(init_train_state(mlp), xt, tt, 9)
+    f32 = rc.make_resident_train_chunk(cfg, opt, bf16=False)(init_train_state(mlp), xt, tt, 9)
+    sr = rc.make_resident_train_chunk(cfg, opt, bf16=False, sr_delta=True)(init_train_state(mlp),
+                                                                           xt, tt, 9)
     for l in range(2):
         assert torch.equal(sr.params.w[l], f32.params.w[l])  # zero momentum in: W' = W + nd, unrounded
         nd = f32.deltas.w[l]
@@ -208,9 +210,10 @@ def test_hbm_spill_equals_the_unspilled_run(sizes, spill, hidden, output):
     opt = dict(lrate=0.2, momentum=0.7, weightcost=1e-3, bunchsize=32)
     p, mlp, x, t = _inputs(sizes, 96, seed=11)
     xt, tt = torch.from_numpy(x), torch.from_numpy(t)
-    full = rc.make_resident_train_chunk(tm.ModelConfig(**kw), OptConfig(**opt))(
+    full = rc.make_resident_train_chunk(tm.ModelConfig(**kw), OptConfig(**opt), bf16=False)(
         init_train_state(mlp), xt, tt, 3)
-    sp = rc.make_resident_train_chunk(tm.ModelConfig(**kw), OptConfig(**opt), hbm_spill=spill)(
+    sp = rc.make_resident_train_chunk(tm.ModelConfig(**kw), OptConfig(**opt), bf16=False,
+                                      hbm_spill=spill)(
         init_train_state(mlp), xt, tt, 3)
     for a, b in zip(list(sp.params.w) + list(sp.params.b) + list(sp.deltas.w) + list(sp.deltas.b),
                     list(full.params.w) + list(full.params.b) + list(full.deltas.w)
@@ -225,7 +228,7 @@ def test_hbm_spill_padded_capacity_and_clean_rule():
     sizes = (128, 128, 64)
     cfg, opt = tm.ModelConfig(layersizes=sizes), OptConfig(lrate=0.2, momentum=0.5, bunchsize=32)
     _, mlp, x, t = _inputs(sizes, 96, seed=12)
-    run = rc.make_resident_train_chunk(cfg, opt, rule="clean", hbm_spill=1)
+    run = rc.make_resident_train_chunk(cfg, opt, bf16=False, rule="clean", hbm_spill=1)
     a = run(init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), 5)
     xp = torch.cat([torch.from_numpy(x), torch.full((64, 128), float("nan"))])
     tp = torch.cat([torch.from_numpy(t), torch.full((64, 64), float("nan"))])
@@ -269,9 +272,16 @@ def test_factory_guards_raise_as_the_jax_factory_does(match, bunch, kw):
 
 
 def test_still_unported_and_state_checks():
+    """Only the data-parallel trainer still raises; bf16=True (every storage
+    form) builds a runner, and the CPU launches no kernel."""
     cfg, opt = tm.ModelConfig(layersizes=(16, 16, 16)), OptConfig(bunchsize=16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        rc.make_resident_train_chunk(cfg, opt, bf16=True)
+    mlp = tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    before = dict(rc.kernel_launches)
+    for kw in (dict(), dict(sr_delta=True), dict(sr_state=True), dict(hbm_spill=1)):
+        st = rc.make_resident_train_chunk(cfg, opt, bf16=True, **kw)(
+            init_train_state(mlp), torch.zeros(16, 16), torch.zeros(16, 16), 0)
+        assert st.step == 1
+    assert dict(rc.kernel_launches) == before
     with pytest.raises(NotImplementedError, match="not yet ported"):
         rc.make_dp_resident_train_chunk(cfg, opt, None, sr_delta=True)
     for name in ("sr_bwd_update", "tiled_bwd_update", "bf16_linear_act"):
@@ -286,10 +296,12 @@ def test_float64_plain_version_keeps_the_rounding_decisions():
     xt, tt = torch.from_numpy(x), torch.from_numpy(t)
     coefs = rc._scal_coefs("parity", 16, 13, 0.5, 0.6, 1e-4)
     for kw, w_dtype in ((dict(sr_delta=True), F32), (dict(sr_state=True), BF16)):
-        st32 = rc.make_resident_train_chunk(cfg, opt, **kw)(init_train_state(mlp), xt, tt, 7)
+        st32 = rc.make_resident_train_chunk(cfg, opt, bf16=False, **kw)(init_train_state(mlp), xt,
+                                                                         tt, 7)
         st64 = init_train_state(mlp)
         rc._cast_state(st64, w_dtype, BF16)
-        rc.resident_train_chunk_reference(st64, xt, tt, cfg, 16, coefs, 7, dtype=torch.float64, **kw)
+        rc.resident_train_chunk_reference(st64, xt, tt, cfg, 16, coefs, 7, dtype=torch.float64,
+                                          bf16=False, **kw)
         assert st64.params.w[0].dtype == w_dtype and st64.deltas.w[0].dtype == BF16
         for a, b in zip(st32.deltas.w, st64.deltas.w):
             share = float((a.view(torch.int16) != b.view(torch.int16)).float().mean())

@@ -1,8 +1,10 @@
 """The same tiny pfiles through `tpu_sednn.cli` and `tpu_sednn_torch.cli
 device=cpu`, dropout off: the same log lines, the CV MSE within 1e-4 relative
 and the `.wts` within rtol 2e-5 / atol 2e-6 (float32 sums in another order
-over a few dozen bunches); then the recipe's schedule and epoch loop, the
-train_epochs_arrays loop and the launch report."""
+over a few dozen bunches; the JAX command trains with float32 products on
+the CPU, so the port's resident engine is pinned to them, bf16=False); then
+the recipe's schedule and epoch loop, the train_epochs_arrays loop and the
+launch report."""
 
 import json
 import os
@@ -66,7 +68,9 @@ def _log_lines(path, drop=("Total cost time", "device:", "outwts_file", "log_fil
 def test_both_clis_give_the_same_epoch(corpus, extra):
     tmp = corpus[3]
     cv_j = j_run_epoch(JFlags.from_argv(_argv(corpus, "jax.1")))
-    cv_t = run_epoch(TrainFlags.from_argv(_argv(corpus, "torch.1", ("device=cpu",) + extra)))
+    f32 = {"bf16": False}
+    cv_t = run_epoch(TrainFlags.from_argv(_argv(corpus, "torch.1", ("device=cpu",) + extra)),
+                     engine_kwargs=f32)
     assert np.isfinite(cv_t) and cv_t == pytest.approx(cv_j, rel=1e-4)
     (wj, bj), (wt, bt) = load_wts(f"{tmp}/jax.1.wts"), load_wts(f"{tmp}/torch.1.wts", layersizes=LAYERS)
     for a, b in zip(wt + bt, wj + bj):
@@ -86,7 +90,8 @@ def test_both_clis_give_the_same_epoch(corpus, extra):
     warm = ("momentum=0.54", "init_randem_seed=352")
     cv_j2 = j_run_epoch(JFlags.from_argv(_argv(corpus, "jax.2", warm + (f"initwts_file={tmp}/jax.1.wts",))))
     cv_t2 = run_epoch(TrainFlags.from_argv(_argv(
-        corpus, "torch.2", warm + (f"initwts_file={tmp}/torch.1.wts", "device=cpu") + extra)))
+        corpus, "torch.2", warm + (f"initwts_file={tmp}/torch.1.wts", "device=cpu") + extra)),
+        engine_kwargs=f32)
     assert cv_t2 == pytest.approx(cv_j2, rel=1e-4) and cv_t2 < cv_t
     assert "Init weight file loaded." in _log_lines(f"{tmp}/torch.2.log")
 
@@ -96,7 +101,8 @@ def test_cli_dropout_epoch_cv_dump_and_weights_txt(corpus):
     extra = ("device=cpu", "dropoutflag=1", "visible_omit=0.1", "hid_omit=0.2",
              f"cv_out_file={tmp}/cv.txt", f"weights_txt={tmp}/w.txt")
     cv_x = run_epoch(TrainFlags.from_argv(_argv(corpus, "x", extra + ("engine=xla",))))
-    cv_r = run_epoch(TrainFlags.from_argv(_argv(corpus, "r", extra + ("engine=resident",))))
+    cv_r = run_epoch(TrainFlags.from_argv(_argv(corpus, "r", extra + ("engine=resident",))),
+                     engine_kwargs={"bf16": False})
     # two dropout streams (torch.Generator, Philox): same distribution, not the same bits
     assert np.isfinite(cv_x) and np.isfinite(cv_r) and cv_r == pytest.approx(cv_x, rel=0.2)
     rows = np.loadtxt(f"{tmp}/cv.txt")
@@ -113,7 +119,8 @@ def test_cli_main_prints_all_finish_and_writes_the_launch_report(corpus, monkeyp
     assert set(counts["resident_chunk_kernels"]) == {"fused_linear_act", "fused_bwd_update",
                                                      "reduce_dedy", "philox_mask",
                                                      "fused_linear_act_sum", "sr_bwd_update",
-                                                     "tiled_bwd_update", "bf16_linear_act"}
+                                                     "tiled_bwd_update", "bf16_linear_act",
+                                                     "tc_linear_act", "tc_bwd_update"}
     assert counts["dropout_mask"] == 0 and counts["sr_momentum_update"] == 0
 
 
@@ -174,9 +181,10 @@ def test_train_epochs_arrays(engine, tmp_path):
     t = (x @ rng.standard_normal((sizes[0], sizes[-1])).astype(np.float32) * 0.1)
     mlp = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     seen = []
+    f32 = {"bf16": False}  # float32 products, as the plain engine's
     st, res = train_epochs_arrays(init_train_state(mlp), cfg, lambda e: opt, x, t, x[:32], t[:32],
                                   n_epochs=3, seed=3, traincache=48, engine=engine,
-                                  logger=Logger(stream=None),
+                                  engine_kwargs=f32, logger=Logger(stream=None),
                                   on_epoch=lambda e, s, r: seen.append(e))
     assert seen == [0, 1, 2] and st.step == 18 and res[-1].cv_mse < res[0].cv_mse
     ref, res_x = train_epochs_arrays(init_train_state(mlp), cfg, lambda e: opt, x, t, x[:32], t[:32],
@@ -187,7 +195,8 @@ def test_train_epochs_arrays(engine, tmp_path):
     # ckpt_dir and profile_dir are served (tests/test_torch_checkpoint.py holds resume)
     st_c, res_c = train_epochs_arrays(init_train_state(mlp), cfg, lambda e: opt, x, t, x[:32],
                                       t[:32], n_epochs=3, seed=3, traincache=48, engine=engine,
-                                      logger=Logger(stream=None), ckpt_dir=str(tmp_path / "ck"),
+                                      engine_kwargs=f32, logger=Logger(stream=None),
+                                      ckpt_dir=str(tmp_path / "ck"),
                                       profile_dir=str(tmp_path / "prof"))
     assert torch.equal(st_c.params.w[0], st.params.w[0]) and res_c[-1].cv_mse == res[-1].cv_mse
     assert os.path.exists(tmp_path / "prof" / "trace.json")

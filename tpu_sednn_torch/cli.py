@@ -5,8 +5,11 @@ One invocation = one epoch over the pfiles + a CV pass, exactly like the
 reference's BPtrain.cc:16-97: same flags, same file formats, same log
 lines — so the reference's Perl recipes port by swapping the executable.
 One key more: `device=cuda|cpu` (default cuda: the epoch runs on the card,
-with `engine=auto` on the hand-written CUDA chunk trainer, and raises when
-there is no card; `device=cpu` runs the plain torch trainer).
+with `engine=auto` on the hand-written CUDA chunk trainer with tensor-core
+products, bf16=True, as the JAX command trains on its chip, and raises when
+there is no card; `device=cpu` runs the plain float32 torch trainer).
+`run_epoch(flags, engine_kwargs=...)` passes options to the chunk trainer
+(e.g. {"bf16": False}: float32 products).
 
 NAT semantics: layersizes[0] == fea_dim*fea_context + fea_dim is enforced as
 in the reference (Interface.cc:395-399); dropoutflag gates parity dropout.
@@ -32,8 +35,10 @@ from tpu_sednn_torch.train.step import OptConfig, init_train_state
 from tpu_sednn_torch.utils.logging import Logger
 
 
-def run_epoch(flags: TrainFlags, logger: Logger | None = None) -> float:
-    """Returns the CV MSE (the scalar the recipe scrapes from the log)."""
+def run_epoch(flags: TrainFlags, logger: Logger | None = None,
+              engine_kwargs: dict | None = None) -> float:
+    """Returns the CV MSE (the scalar the recipe scrapes from the log).
+    engine_kwargs: forwarded to the resident chunk trainer's factory."""
     flags.validate()
     dev = resolve_device(flags.device)
     log = logger or Logger(log_path=flags.log_file or None)
@@ -85,6 +90,7 @@ def run_epoch(flags: TrainFlags, logger: Logger | None = None) -> float:
         engine=flags.engine,
         cv_dump_path=flags.cv_out_file or None,
         device_splice=None if flags.device_splice < 0 else bool(flags.device_splice),
+        engine_kwargs=engine_kwargs,
     )
 
     if flags.outwts_file:

@@ -6,15 +6,22 @@
 // :_bwd_kernel (fused_bwd_update), and the per-bunch body of
 // tpu_sednn/ops/resident_chunk.py:_resident_kernel.
 //
-// Bound.  A float32 layer at bunch 128 does 2*128*K*N FLOP per product (one
-// in the forward, two in the backward) against one pass over W in the
-// forward and one read + one write of W and of Delta in the backward:
-// 4*K*N bytes forward (64 FLOP/byte), 16*K*N bytes backward (32 FLOP/byte).
-// An H100 balances at 67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte in float32
-// without tensor cores, so both are operations-bound, narrowly; a TF32 or
-// bf16 tensor-core mode would be bytes-bound.  All products here are
-// float32 FMAs on shared-memory tiles (no tensor cores: they would change
-// the numerics the parity tests hold).
+// Two forms of each kernel, as the TPU kernels' `bf16` flag selects:
+// * tensor-core products (bf16=True, the JAX kernels' default): tc_fwd_kernel
+//   and tc_bwd_kernel.  Both operands of every product are rounded to
+//   bfloat16 (to nearest even) as they are staged into shared memory, and
+//   mma.sync m16n8k16 sums the exact products in float32 (mma_bf16.cuh).
+//   Everything else stays float32: biases, the bias gradient, the update on
+//   the unrounded W, activations and their derivatives.
+// * float32 FMA products (bf16=False): fwd_kernel and bwd_kernel.
+//
+// Bound.  A layer at bunch 128 does 2*128*K*N FLOP per product (one in the
+// forward, two in the backward) against one pass over W in the forward and
+// one read + one write of W and of Delta in the backward: 4*K*N bytes
+// forward (64 FLOP/byte), 16*K*N bytes backward (32 FLOP/byte).  An H100
+// balances at 67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte in float32 without
+// tensor cores, so the FMA forms are operations-bound, narrowly; at 989
+// TFLOP/s bf16 (295 FLOP/byte) the tensor-core forms are bytes-bound.
 //
 // What the design keeps out of device memory: no gradient matrix is ever
 // written (a block forms its G tile in registers and applies the momentum
@@ -35,16 +42,17 @@
 // float atomics).
 //
 // True sizes throughout: K = 1548 and N = 129 are masked at the edges by the
-// kernels (16-byte loads where the row stride allows, scalar otherwise), so
-// nothing is padded to the TPU's 128-tiles.
+// kernels (16-byte loads where the row stride allows, scalar otherwise; the
+// tensor-core forms stage true zeros past every edge), so nothing is padded
+// to the TPU's 128-tiles.
 //
 // Storage types.  Activations, biases and every sum are float32.  W (both
 // kernels) and Delta (the backward) are template parameters: float32, or
 // bfloat16 bit patterns that are widened as they are loaded (vec4.cuh) and,
 // in the backward, narrowed with stochastic rounding as they are stored
 // (sr_round.cuh): the TPU kernel's sr_delta and sr_state.  That halves two or
-// five of the passes over the state; while the products are float32 FMAs the
-// kernels stay operations-bound and it buys memory, not time.
+// five of the passes over the state; with float32 products the kernels stay
+// operations-bound and it buys memory, not time.
 
 #pragma once
 
@@ -53,6 +61,7 @@
 
 #include <type_traits>
 
+#include "mma_bf16.cuh"
 #include "philox.cuh"
 #include "sr_round.cuh"
 #include "vec4.cuh"
@@ -236,12 +245,128 @@ fwd_sum_kernel(const float* __restrict__ part, int n_chunks, FwdEpilogue epi, bo
   }
 }
 
+// Kernel 1, tensor-core form: the same function with rne(x * in_mask) @
+// rne(W) in place of the float32 product (rne: rounded to bfloat16, to
+// nearest even; the mask and its scale are applied in float32 before the
+// rounding, as the TPU kernel scales h before its _dot rounds it).  One
+// block: a 64 x 64 tile of y, four warps of 32 x 32 (2 x 4 m16n8k16 tiles
+// each), K in steps of 32 staged as bfloat16 into shared memory (true zeros
+// past every edge) with the next step's loads in flight in registers; K is
+// split over the grid as in fwd_kernel.  The sums go through shared memory
+// to fwd_epilogue4, so both forms share one epilogue.
+constexpr int kTcBM = 64, kTcBN = 64, kTcBK = 32, kTcThreads = 128;
+constexpr int kTcALd = kTcBK + 8;  // bfloat16 row strides of 80 and 144 bytes: 16-byte
+constexpr int kTcBLd = kTcBN + 8;  // multiples whose eight rows ldmatrix reads hit all 32 banks
+constexpr int kTcCLd = kTcBN + 4;
+constexpr int kTcALoads = kTcBM * kTcBK / 4 / kTcThreads;  // float4 per thread and tile: 4
+constexpr int kTcWLoads = kTcBK * kTcBN / 4 / kTcThreads;  // 4
+
+template <typename TW>
+__global__ void __launch_bounds__(kTcThreads)
+tc_fwd_kernel(const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
+              MaskSpec in_mask, FwdEpilogue epi, float* __restrict__ part, int k_chunk, bool vec_x,
+              bool vec_w, bool vec_p) {
+  __shared__ __align__(16) bf16_t As[kTcBM][kTcALd];  // rne(x tile), (m, k)
+  __shared__ __align__(16) bf16_t Bs[kTcBK][kTcBLd];  // rne(W tile), (k, n)
+  __shared__ __align__(16) float Cs[kTcBM][kTcCLd];   // the sums, for the epilogue
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;  // the warp's 32 x 32 of the tile
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+  float4 a_reg[kTcALoads], w_reg[kTcWLoads];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < kTcALoads; ++r) {
+      const int idx = tid + r * kTcThreads;
+      const int row = m0 + idx / (kTcBK / 4), kk = k0 + (idx % (kTcBK / 4)) * 4;
+      float4 a = ld4(x, row, kk, K, M, K, vec_x);
+      if (in_mask.mode != 0 && row < M && kk < K) {
+        float mk[4];
+        mask4(in_mask, row, kk, K, mk);
+        a.x *= mk[0]; a.y *= mk[1]; a.z *= mk[2]; a.w *= mk[3];
+      }
+      a_reg[r] = a;
+    }
+#pragma unroll
+    for (int r = 0; r < kTcWLoads; ++r) {
+      const int idx = tid + r * kTcThreads;
+      w_reg[r] = ld4(w, k0 + idx / (kTcBN / 4), n0 + (idx % (kTcBN / 4)) * 4, N, K, N, vec_w);
+    }
+  };
+  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
+  fetch(k_begin);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTcBK) {
+#pragma unroll
+    for (int r = 0; r < kTcALoads; ++r) {
+      const int idx = tid + r * kTcThreads;
+      st_rne4(&As[idx / (kTcBK / 4)][(idx % (kTcBK / 4)) * 4], a_reg[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kTcWLoads; ++r) {
+      const int idx = tid + r * kTcThreads;
+      st_rne4(&Bs[idx / (kTcBN / 4)][(idx % (kTcBN / 4)) * 4], w_reg[r]);
+    }
+    __syncthreads();
+    if (k0 + kTcBK < k_end) fetch(k0 + kTcBK);
+#pragma unroll
+    for (int kk = 0; kk < kTcBK; kk += 16) {
+      uint32_t a[2][4], b[2][4];
+      load_a(a[0], &As[wm][kk], kTcALd, lane);
+      load_a(a[1], &As[wm + 16][kk], kTcALd, lane);
+      load_b_kn(b[0], &Bs[kk][wn], kTcBLd, lane);
+      load_b_kn(b[1], &Bs[kk][wn + 16], kTcBLd, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16_16816(acc[i][j], a[i], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
+    }
+    __syncthreads();
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = wm + i * 16 + g, col = wn + j * 8 + 2 * t;
+      Cs[row][col] = acc[i][j][0];
+      Cs[row][col + 1] = acc[i][j][1];
+      Cs[row + 8][col] = acc[i][j][2];
+      Cs[row + 8][col + 1] = acc[i][j][3];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kTcBM * kTcBN / 4 / kTcThreads; ++r) {
+    const int idx = tid + r * kTcThreads;
+    const int row = idx / (kTcBN / 4), col = (idx % (kTcBN / 4)) * 4;
+    if (m0 + row >= M || n0 + col >= N) continue;
+    const float4 v = *reinterpret_cast<const float4*>(&Cs[row][col]);
+    if (part == nullptr) {
+      const float s[4] = {v.x, v.y, v.z, v.w};
+      fwd_epilogue4(epi, m0 + row, n0 + col, s);
+    } else {
+      st4(part + (long long)blockIdx.z * M * N, m0 + row, n0 + col, N, M, N, vec_p, v);
+    }
+  }
+}
+
 // How K is split over the grid: enough blocks to put about four on each of
 // the card's SMs (one block walks its K range with four warps, too few to
-// keep an SM's arithmetic busy), in chunks that are multiples of the K step.
-// A function of the shape alone.  -> the chunk length; *n_chunks the count.
-inline int fwd_k_chunk(int M, int K, int N, int* n_chunks) {
-  const int tiles = ((N + kFwdBN - 1) / kFwdBN) * ((M + kFwdBM - 1) / kFwdBM);
+// keep an SM's arithmetic busy), in chunks that are multiples of the K step
+// (32 in both forms).  A function of the shape and the form (tc: the
+// tensor-core form's 64 x 64 tiles) alone.  -> the chunk length; *n_chunks
+// the count.
+inline int fwd_k_chunk(int M, int K, int N, bool tc, int* n_chunks) {
+  const int bm = tc ? kTcBM : kFwdBM, bn = tc ? kTcBN : kFwdBN;
+  const int tiles = ((N + bn - 1) / bn) * ((M + bm - 1) / bm);
   int want = (4 * 132 + tiles - 1) / tiles;
   want = want < 1 ? 1 : (want > 16 ? 16 : want);
   int chunk = ((K + want - 1) / want + kFwdBK - 1) / kFwdBK * kFwdBK;
@@ -251,20 +376,21 @@ inline int fwd_k_chunk(int M, int K, int N, int* n_chunks) {
 }
 
 // Scratch floats launch_fwd needs in `part` (0 when K is not split).
-inline long long fwd_scratch_floats(int M, int K, int N) {
+inline long long fwd_scratch_floats(int M, int K, int N, bool tc) {
   int n_chunks;
-  fwd_k_chunk(M, K, N, &n_chunks);
+  fwd_k_chunk(M, K, N, tc, &n_chunks);
   return n_chunks > 1 ? (long long)n_chunks * M * N : 0;
 }
 
+// tc: the tensor-core form (tc_fwd_kernel), else the float32 one (fwd_kernel).
 template <typename TW>
 inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
-                              float coef, float* part, cudaStream_t stream) {
+                              float coef, float* part, bool tc, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   int n_chunks;
-  const int k_chunk = fwd_k_chunk(M, K, N, &n_chunks);
+  const int k_chunk = fwd_k_chunk(M, K, N, tc, &n_chunks);
   if (n_chunks > 1 && part == nullptr) return cudaErrorInvalidValue;
   FwdEpilogue epi;
   epi.b = b;
@@ -279,10 +405,17 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
   epi.vec_y = vec_ok(y, N) && (dedx == nullptr || vec_ok(dedx, N));
   epi.vec_t = targ != nullptr && vec_ok(targ, N);
   float* scratch = n_chunks > 1 ? part : nullptr;
-  dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM, n_chunks);
-  fwd_kernel<TW><<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch, k_chunk,
-                                                   vec_ok(x, K), vec_ok(w, N),
-                                                   vec_ok(scratch, N));
+  if (tc) {
+    dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, n_chunks);
+    tc_fwd_kernel<TW><<<grid, kTcThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch,
+                                                       k_chunk, vec_ok(x, K), vec_ok(w, N),
+                                                       vec_ok(scratch, N));
+  } else {
+    dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM, n_chunks);
+    fwd_kernel<TW><<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch,
+                                                     k_chunk, vec_ok(x, K), vec_ok(w, N),
+                                                     vec_ok(scratch, N));
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return err;
   const long long n = (long long)M * ((N + 3) / 4);
@@ -319,6 +452,39 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
 
 constexpr int kUpdFirst = 1, kUpdApply = 2;
 
+// The in-place update of columns col..col+3 (col a multiple of 4) of row kr
+// of W and Delta, from the unrounded W the block loaded (wr) and G (gr):
+// Delta' = m*Delta - (A*G + Bc*W) with `first` (kUpdFirst), else Delta - A*G;
+// W' = W + Delta' with `apply` (kUpdApply); bfloat16 stores rounded
+// stochastically.  Shared by both forms of kernel 2, as is update_bias.
+template <typename TW, typename TD>
+__device__ inline void update_row4(TW* __restrict__ w, TD* __restrict__ delta, int kr, int col,
+                                   int K, int N, const float wr[4], const float gr[4], float mom,
+                                   float A, float Bc, uint32_t sr_key, bool first, bool apply,
+                                   bool vec_w, bool vec_dl) {
+  constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
+  const float4 dv = ld4(delta, kr, col, N, K, N, vec_dl);
+  const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+  float nd[4], nw[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    nd[j] = first ? mom * dr[j] - (A * gr[j] + Bc * wr[j]) : dr[j] - A * gr[j];
+    nw[j] = wr[j] + nd[j];
+  }
+  uint32_t bits[4] = {0u, 0u, 0u, 0u};
+  if (kSr) sr_bits4(sr_key, kr, col, bits);
+  st4_sr(delta, kr, col, N, K, N, vec_dl, nd, bits, kSrDeltaShift);
+  if (apply) st4_sr(w, kr, col, N, K, N, vec_w, nw, bits, kSrWeightShift);
+}
+
+// The bias of column n: db' = m*db - A*gb (first) or db - A*gb, b' = b + db' (apply).
+__device__ inline void update_bias(float* b, float* db, int n, float gb, float mom, float A,
+                                   bool first, bool apply) {
+  const float ndb = first ? mom * db[n] - A * gb : db[n] - A * gb;
+  db[n] = ndb;
+  if (apply) b[n] = b[n] + ndb;
+}
+
 constexpr int kBwdBK = 64, kBwdBN = 64, kBwdMC = 32, kBwdThreads = 256;
 constexpr int kBwdWLd = kBwdBN + 4;  // padded: the dedy product reads W rows 16 apart
 
@@ -329,7 +495,6 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
            float* __restrict__ db, float* __restrict__ part, int M, int K, int N, float mom,
            float A, float Bc, uint32_t sr_key, int flags, bool vec_d, bool vec_y, bool vec_w,
            bool vec_dl) {
-  constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
   const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
   __shared__ __align__(16) float Ws[kBwdBK][kBwdWLd];
   __shared__ __align__(16) float Ys[kBwdMC][kBwdBK];
@@ -428,25 +593,155 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
     const int kr = k0 + tk * 4 + i;
     if (kr >= K || col >= N) continue;
     const float4 wv = *reinterpret_cast<const float4*>(&Ws[tk * 4 + i][tn * 4]);
-    const float4 dv = ld4(delta, kr, col, N, K, N, vec_dl);
     const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-    const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
-    float nd[4], nw[4];
+    update_row4(w, delta, kr, col, K, N, wr, g[i], mom, A, Bc, sr_key, first, apply, vec_w,
+                vec_dl);
+  }
+  if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N)
+    update_bias(b, db, n0 + tid, gb, mom, A, first, apply);
+}
+
+// Kernel 2, tensor-core form: the same function with G = rne(yprev)^T @
+// rne(dedx) and part[nt] = rne(dedx[:, n-tile]) @ rne(W_tile)^T; the update
+// takes the UNROUNDED W and G's float32 sums, the bias its float32 dedx
+// (resident_chunk.py:465, 478 and 508).  So the block keeps its W tile twice
+// in shared memory: float32 for the update, rounded for the dedy product.
+// One block: the 64 x 64 tile of W and Delta, eight warps; M in chunks of 32
+// rows staged as bfloat16 (yprev masked in float32 first, true zeros past
+// M, K and N), dedx also as float32 for the bias sums.  G: each warp 16 x 32
+// (4 m16n8k16 tiles), A = yprev^T read with ldmatrix.trans.  part: each warp
+// 16 x 16 of the chunk's (32, 64) dedy partial, B = W^T read as it is
+// stored.  G goes through shared memory to the update code of bwd_kernel.
+constexpr int kTcMC = 32;
+constexpr int kTcWbLd = kBwdBN + 8;  // bfloat16 row stride of 144 bytes (see kTcBLd)
+
+struct TcBwdSmem {
+  float Ws[kBwdBK][kBwdWLd];     // W tile, float32: the update
+  bf16_t Wb[kBwdBK][kTcWbLd];    // rne(W tile): the dedy product
+  union {
+    struct {
+      bf16_t Yb[kTcMC][kTcWbLd];  // rne(masked yprev chunk), (m, k)
+      bf16_t Db[kTcMC][kTcWbLd];  // rne(dedx chunk), (m, n)
+      float Ds[kTcMC][kBwdWLd];   // dedx chunk, float32: the bias gradient
+    } loop;
+    float Gs[kBwdBK][kBwdWLd];    // G after the last chunk
+  } u;
+};
+
+template <typename TW, typename TD>
+__global__ void __launch_bounds__(kBwdThreads)
+tc_bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, MaskSpec in_mask,
+              TW* __restrict__ w, TD* __restrict__ delta, float* __restrict__ b,
+              float* __restrict__ db, float* __restrict__ part, int M, int K, int N, float mom,
+              float A, float Bc, uint32_t sr_key, int flags, bool vec_d, bool vec_y, bool vec_w,
+              bool vec_dl) {
+  const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
+  __shared__ __align__(16) TcBwdSmem sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kBwdBN, k0 = blockIdx.y * kBwdBK;
+  const int gk = (warp >> 1) * 16, gn = (warp & 1) * 32;  // the warp's G: rows of W, cols
+  const int pm = (warp >> 2) * 16, pk = (warp & 3) * 16;  // the warp's part: chunk rows, K cols
+
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      nd[j] = first ? mom * dr[j] - (A * g[i][j] + Bc * wr[j]) : dr[j] - A * g[i][j];
-      nw[j] = wr[j] + nd[j];
+  for (int r = 0; r < 4; ++r) {
+    const int idx = tid + r * kBwdThreads;
+    const int wr = idx / 16, wc = (idx % 16) * 4;
+    const float4 v = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
+    *reinterpret_cast<float4*>(&sm.Ws[wr][wc]) = v;
+    st_rne4(&sm.Wb[wr][wc], v);
+  }
+  float gacc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) gacc[j][c] = 0.0f;
+  float gb = 0.0f;
+
+  for (int mc = 0; mc < M; mc += kTcMC) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int idx = tid + r * kBwdThreads;
+      const int rr = idx / 16, cc = (idx % 16) * 4;
+      float4 yv = ld4(yprev, mc + rr, k0 + cc, K, M, K, vec_y);
+      if (in_mask.mode != 0 && mc + rr < M && k0 + cc < K) {
+        float mk[4];
+        mask4(in_mask, mc + rr, k0 + cc, K, mk);
+        yv.x *= mk[0]; yv.y *= mk[1]; yv.z *= mk[2]; yv.w *= mk[3];
+      }
+      st_rne4(&sm.u.loop.Yb[rr][cc], yv);
+      const float4 dv = ld4(dedx, mc + rr, n0 + cc, N, M, N, vec_d);
+      st_rne4(&sm.u.loop.Db[rr][cc], dv);
+      *reinterpret_cast<float4*>(&sm.u.loop.Ds[rr][cc]) = dv;
     }
-    uint32_t bits[4] = {0u, 0u, 0u, 0u};
-    if (kSr) sr_bits4(sr_key, kr, col, bits);
-    st4_sr(delta, kr, col, N, K, N, vec_dl, nd, bits, kSrDeltaShift);
-    if (apply) st4_sr(w, kr, col, N, K, N, vec_w, nw, bits, kSrWeightShift);
+    __syncthreads();  // also orders the W tile's stores before their first use
+
+#pragma unroll
+    for (int kk = 0; kk < kTcMC; kk += 16) {
+      uint32_t a[4], bb[2][4];
+      load_a_trans(a, &sm.u.loop.Yb[kk][gk], kTcWbLd, lane);
+      load_b_kn(bb[0], &sm.u.loop.Db[kk][gn], kTcWbLd, lane);
+      load_b_kn(bb[1], &sm.u.loop.Db[kk][gn + 16], kTcWbLd, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_bf16_16816(gacc[j], a, bb[j >> 1][(j & 1) * 2], bb[j >> 1][(j & 1) * 2 + 1]);
+    }
+    if (blockIdx.y == 0 && tid < kBwdBN) {
+#pragma unroll 8
+      for (int r = 0; r < kTcMC; ++r) gb += sm.u.loop.Ds[r][tid];
+    }
+    if (part != nullptr) {
+      float p[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) p[j][c] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kBwdBN; kk += 16) {
+        uint32_t a[4], bb[4];
+        load_a(a, &sm.u.loop.Db[pm][kk], kTcWbLd, lane);
+        load_b_nk(bb, &sm.Wb[pk][kk], kTcWbLd, lane);
+        mma_bf16_16816(p[0], a, bb[0], bb[1]);
+        mma_bf16_16816(p[1], a, bb[2], bb[3]);
+      }
+      float* dst = part + (long long)blockIdx.x * M * K;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = mc + pm + g + 8 * h, kk = k0 + pk + j * 8 + 2 * t;
+          if (row >= M) continue;
+          if (kk < K) dst[(long long)row * K + kk] = p[j][2 * h];
+          if (kk + 1 < K) dst[(long long)row * K + kk + 1] = p[j][2 * h + 1];
+        }
+    }
+    __syncthreads();
   }
-  if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N) {
-    const float ndb = first ? mom * db[n0 + tid] - A * gb : db[n0 + tid] - A * gb;
-    db[n0 + tid] = ndb;
-    if (apply) b[n0 + tid] = b[n0 + tid] + ndb;
+
+  // G to shared memory (over the chunks' buffers), then bwd_kernel's update
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int row = gk + g, col = gn + j * 8 + 2 * t;
+    sm.u.Gs[row][col] = gacc[j][0];
+    sm.u.Gs[row][col + 1] = gacc[j][1];
+    sm.u.Gs[row + 8][col] = gacc[j][2];
+    sm.u.Gs[row + 8][col + 1] = gacc[j][3];
   }
+  __syncthreads();
+  const int tk = tid / 16, tn = tid % 16;
+  const int col = n0 + tn * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + tk * 4 + i;
+    if (kr >= K || col >= N) continue;
+    const float4 wv = *reinterpret_cast<const float4*>(&sm.Ws[tk * 4 + i][tn * 4]);
+    const float4 gv = *reinterpret_cast<const float4*>(&sm.u.Gs[tk * 4 + i][tn * 4]);
+    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+    const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+    update_row4(w, delta, kr, col, K, N, wr, gr, mom, A, Bc, sr_key, first, apply, vec_w, vec_dl);
+  }
+  if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N)
+    update_bias(b, db, n0 + tid, gb, mom, A, first, apply);
 }
 
 // dedy[m, k] = sum over the n-tiles of part[nt, m, k], in tile order; then
@@ -472,17 +767,25 @@ reduce_dedy_kernel(const float* __restrict__ part, int n_tiles, const float* __r
 inline int bwd_n_tiles(int N) { return (N + kBwdBN - 1) / kBwdBN; }
 
 // part: scratch of bwd_n_tiles(N) * M * K floats, or nullptr with dedy ==
-// nullptr when the layer below needs no gradient (the first layer).
+// nullptr when the layer below needs no gradient (the first layer).  tc: the
+// tensor-core form (tc_bwd_kernel), else the float32 one (bwd_kernel).
 template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
                               TW* w, TD* delta, float* b, float* db, float* part,
                               float* dedy, int deriv, int M, int K, int N, float mom, float A,
-                              float Bc, uint32_t sr_key, int flags, cudaStream_t stream) {
+                              float Bc, uint32_t sr_key, int flags, bool tc,
+                              cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
   dim3 grid(bwd_n_tiles(N), (K + kBwdBK - 1) / kBwdBK);
-  bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
-      dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, sr_key, flags,
-      vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N));
+  if (tc) {
+    tc_bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
+        dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, sr_key, flags,
+        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N));
+  } else {
+    bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
+        dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, sr_key, flags,
+        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N));
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return err;
   const long long total = (long long)M * K;

@@ -22,11 +22,14 @@
 // update (one kernel does both), and the forward of bunch i+1 sees W after
 // bunch i.  No host synchronisation, no allocation.
 //
-// Bound: per bunch 2 * 128 * K*N FLOP for each product in float32 FMAs: three
-// a layer (forward, gradient, dedy) but two for the first, which has no layer
-// below to hand a dedy to; at 1548-2048x3-129 that is 8.27 GFLOP against 5
-// passes over W or Delta (forward read, backward read and write of both);
-// operations-bound on an H100 without tensor cores (see fused_mlp.cuh).
+// Bound: per bunch 2 * 128 * K*N FLOP for each product: three a layer
+// (forward, gradient, dedy) but two for the first, which has no layer below
+// to hand a dedy to; at 1548-2048x3-129 that is 8.27 GFLOP against 5 passes
+// over W or Delta (forward read, backward read and write of both).  With
+// float32 FMA products (bf16 == 0) operations-bound on an H100; with the
+// tensor-core products (bf16 != 0, the TPU kernel's default bf16=True)
+// bytes-bound (see fused_mlp.cuh).  Every storage form below runs with
+// either.
 //
 // Dropout stream: Philox4x32-10 (philox.cuh) keyed on
 // (seed + bunch*7919 + layer*104729) mod 2^32, counter = the element's
@@ -49,6 +52,8 @@
 //   the last), so W is the pre-bunch W for every tile.  dedx carries 2/bunch,
 //   the full bunch; dropout streams are keyed on the global tile index.
 // * its hbm_spill needs nothing here: the state is in device memory already.
+// * its bf16 products: the tensor-core forms of the two layer kernels
+//   (tc_fwd_kernel, tc_bwd_kernel), the same launches otherwise.
 
 #include "fused_mlp.cuh"
 
@@ -65,8 +70,9 @@ struct Workspace {
   long long out, dedx_a, dedx_b, part, total;
 };
 
-// `bunch`: the rows one forward and backward work on (a row tile's).
-Workspace plan_workspace(const int* sizes, int L, int bunch) {
+// `bunch`: the rows one forward and backward work on (a row tile's); tc: the
+// tensor-core forward, whose split of K differs.
+Workspace plan_workspace(const int* sizes, int L, int bunch, bool tc) {
   Workspace ws;
   long long off = 0, max_w = 0, max_part = 0;
   ws.ys[0] = -1;
@@ -76,7 +82,7 @@ Workspace plan_workspace(const int* sizes, int L, int bunch) {
   }
   for (int l = 0; l <= L; ++l) max_w = sizes[l] > max_w ? sizes[l] : max_w;
   for (int l = 0; l < L; ++l) {  // one scratch serves the forward's K chunks and the backward's N tiles
-    const long long f = fwd_scratch_floats(bunch, sizes[l], sizes[l + 1]);
+    const long long f = fwd_scratch_floats(bunch, sizes[l], sizes[l + 1], tc);
     const long long p = l > 0 ? (long long)bwd_n_tiles(sizes[l + 1]) * bunch * sizes[l] : 0;
     max_part = f > max_part ? f : max_part;
     max_part = p > max_part ? p : max_part;
@@ -117,11 +123,11 @@ __global__ void philox_words_kernel(const uint32_t* __restrict__ in, uint32_t* _
 
 }  // namespace
 
-// Floats of workspace resident_chunk_train needs for tiles of `bunch` rows;
-// sizes has L + 1 entries.
-extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunch) {
+// Floats of workspace resident_chunk_train needs for tiles of `bunch` rows
+// with products of the form bf16; sizes has L + 1 entries.
+extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunch, int bf16) {
   if (L < 1 || L > kMaxLayers) return -1;
-  return plan_workspace(sizes, L, bunch).total;
+  return plan_workspace(sizes, L, bunch, bf16 != 0).total;
 }
 
 namespace {
@@ -131,9 +137,9 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
                 int L, void* const* w, void* const* d, float* const* b, float* const* db,
                 float* work, int hidden, int output, unsigned thr_vis, unsigned thr_hid,
                 float scale_vis, float scale_hid, unsigned seed, float mom, float A, float Bc,
-                long long* tallies, cudaStream_t stream) {
+                bool tc, long long* tallies, cudaStream_t stream) {
   constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
-  const Workspace ws = plan_workspace(sizes, L, tile);
+  const Workspace ws = plan_workspace(sizes, L, tile, tc);
   const float coef = 2.0f / (float)(tile * accum);
   for (int i = 0; i < n_real; ++i) {
     for (int j = 0; j < accum; ++j) {
@@ -156,12 +162,13 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
         const cudaError_t err = launch_fwd(
             in, (const TW*)w[l], b[l], out, tile, sizes[l], sizes[l + 1], last ? output : hidden,
             l == 0 ? in_mask : no_mask(), out_mask, last ? ti : nullptr, last ? dedx : nullptr,
-            coef, work + ws.part, stream);
+            coef, work + ws.part, tc, stream);
         if (err != cudaSuccess) return (int)err;
         tallies[0] += 1;
         tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? 1 : 0;
-        tallies[4] += fwd_scratch_floats(tile, sizes[l], sizes[l + 1]) > 0 ? 1 : 0;
+        tallies[4] += fwd_scratch_floats(tile, sizes[l], sizes[l + 1], tc) > 0 ? 1 : 0;
         tallies[7] += std::is_same<TW, float>::value ? 0 : 1;
+        tallies[8] += tc ? 1 : 0;
       }
       for (int l = L - 1; l >= 0; --l) {
         const float* yprev = l == 0 ? xi : work + ws.ys[l];
@@ -170,9 +177,10 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
         const cudaError_t err = launch_bwd(
             dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l],
             l > 0 ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, tile, sizes[l],
-            sizes[l + 1], mom, A, Bc, sr_key, flags, stream);
+            sizes[l + 1], mom, A, Bc, sr_key, flags, tc, stream);
         if (err != cudaSuccess) return (int)err;
         tallies[1] += 1;
+        tallies[9] += tc ? 1 : 0;
         tallies[2] += l > 0 ? 1 : 0;
         tallies[3] += (l == 0 && in_mask.mode) ? 1 : 0;
         tallies[5] += kSr ? 1 : 0;
@@ -195,37 +203,41 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // bfloat16 (w_bf16 and d_bf16), bfloat16 stores stochastically rounded; b and
 // db float32.  accum > 1: each bunch in `accum` row tiles of `tile` rows,
 // the gradient accumulated into d and the step applied with the last tile
-// (float32 storage only).  hidden/output: 0 linear, 1 relu, 2 sigmoid.
+// (float32 storage only).  bf16 != 0: products of operands rounded to
+// bfloat16 on the tensor cores, else float32 products.  hidden/output: 0
+// linear, 1 relu, 2 sigmoid.
 // thr_vis/thr_hid: mask thresholds of the input and of the hidden activations
 // (0 = no dropout there), scale_*: factor on kept elements.  Update: delta' =
 // mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
-// tallies[8] += launches of fwd_kernel, bwd_kernel and reduce_dedy_kernel,
-// the count of those that drew Philox masks, launches of fwd_sum_kernel
-// (layers whose K is split), bwd_kernel launches that rounded stochastically,
-// bwd_kernel launches of row-tiled bunches, fwd_kernel launches that read
-// bfloat16 weights.
+// tallies[10] += launches of the forward and backward product kernels (either
+// form) and of reduce_dedy_kernel, the count of those that drew Philox masks,
+// launches of fwd_sum_kernel (layers whose K is split), backward launches
+// that rounded stochastically, backward launches of row-tiled bunches,
+// forward launches that read bfloat16 weights, forward and backward launches
+// of the tensor-core forms.
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,
                                     float* const* db, float* work, int hidden, int output,
                                     unsigned thr_vis, unsigned thr_hid, float scale_vis,
                                     float scale_hid, unsigned seed, float mom, float A, float Bc,
-                                    long long* tallies, void* stream_) {
+                                    int bf16, long long* tallies, void* stream_) {
   if (L < 1 || L > kMaxLayers || tile <= 0 || accum <= 0 || hidden < 0 || hidden > 2 ||
       output < 0 || output > 2 || (w_bf16 && !d_bf16) || (accum > 1 && d_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
+  const bool tc = bf16 != 0;
   if (w_bf16)
     return train_chunk<bf16_t, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
                                        hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
-                                       seed, mom, A, Bc, tallies, stream);
+                                       seed, mom, A, Bc, tc, tallies, stream);
   if (d_bf16)
     return train_chunk<float, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
                                       hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
-                                      seed, mom, A, Bc, tallies, stream);
+                                      seed, mom, A, Bc, tc, tallies, stream);
   return train_chunk<float, float>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work, hidden,
                                    output, thr_vis, thr_hid, scale_vis, scale_hid, seed, mom, A,
-                                   Bc, tallies, stream);
+                                   Bc, tc, tallies, stream);
 }
 
 // out (rows, cols) = the 0/1 mask (times scale) of rows row0..row0+rows-1 of

@@ -191,17 +191,27 @@ def _dropout_mask(generator: torch.Generator, shape, omit: float,
     return (u >= omit).to(torch.float32).to(device)
 
 
+def mm_operand(a: torch.Tensor, bf16: bool, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An operand of a product as the JAX package's `_dot` takes it: with
+    bf16, rounded to bfloat16 (to nearest even, as astype(jnp.bfloat16)),
+    then in `dtype`, where the products are summed.  Rounded bfloat16 values
+    multiply exactly in float32 or float64, so a product of such operands is
+    the bf16-input, wide-accumulation product up to summation order."""
+    return (a.to(torch.bfloat16) if bf16 else a).to(dtype)
+
+
 def _matmul_bias(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
     """h @ w + b.  compute_dtype (torch.bfloat16): both operands rounded to
-    it, the products summed in float32, the result float32: the JAX
-    package's bf16-input product with float32 accumulation.  Rounded bfloat16
-    values multiply exactly in float32, so the float32 product of the rounded
-    operands is that function up to summation order, on either device; the
-    cotangents pass back through the same roundings.  Without it, a weight
-    stored in another type than h (bfloat16 state) is widened to h's."""
+    it, the products summed in float32, the result float32 (`mm_operand`):
+    the JAX package's bf16-input product with float32 accumulation, on either
+    device; the cotangents pass back through the same roundings.  Without
+    it, a weight stored in another type than h (bfloat16 state) is widened
+    to h's."""
     if compute_dtype is not None:
-        return torch.matmul(h.to(compute_dtype).float(), w.to(compute_dtype).float()) + b.float()
+        if compute_dtype != torch.bfloat16:
+            raise ValueError(f"compute_dtype {compute_dtype}: only torch.bfloat16 rounds operands")
+        return torch.matmul(mm_operand(h, True), mm_operand(w, True)) + b.float()
     if w.dtype != h.dtype:
         w, b = w.to(h.dtype), b.to(h.dtype)
     return torch.matmul(h, w) + b

@@ -32,8 +32,10 @@ def launch_counts() -> dict:
         "sr_momentum_update": sr_momentum_update.launches,
         "stft_lps": stft_lps.launches,
         "fused_linear_act": fused_linear_act.launches,
+        "fused_linear_act_tc": fused_linear_act.tc_launches,
         "fused_linear_act_sum": fused_linear_act.sum_launches,
         "fused_bwd_update": fused_bwd_update.launches,
+        "fused_bwd_update_tc": fused_bwd_update.tc_launches,
         "fused_bwd_update_reduce": fused_bwd_update.reduce_launches,
         "sample_resident_masks": resident_chunk.sample_resident_masks.launches,
         "resident_chunk": resident_chunk.make_resident_train_chunk.launches,
@@ -50,6 +52,7 @@ def reset_launch_counts() -> None:
     dropout_mask.launches = sr_momentum_update.launches = 0
     stft_lps.launches = fused_linear_act.launches = fused_bwd_update.launches = 0
     fused_linear_act.sum_launches = fused_bwd_update.reduce_launches = 0
+    fused_linear_act.tc_launches = fused_bwd_update.tc_launches = 0
     resident_chunk.sample_resident_masks.launches = 0
     resident_chunk.make_resident_train_chunk.launches = 0
     for name in resident_chunk.kernel_launches:

@@ -17,18 +17,30 @@ the port of tpu_sednn/ops/fused_mlp.py:
 
 Both take the true sizes (K = 1548, N = 129, any batch): nothing is padded.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
-runs the plain version beside it (`*_reference`).  Activations, biases and
-all arithmetic are float32.  W may be stored bfloat16 (widened as it is
-loaded), and `fused_bwd_update` then stores W' and delta' bfloat16 with
+runs the plain version beside it (`*_reference`).
+
+`bf16` is the TPU kernels' flag, with their default True: both operands of
+every product are rounded to bfloat16 (to nearest even, as
+astype(jnp.bfloat16)) and the products summed in float32, on the tensor
+cores (tc_fwd_kernel, tc_bwd_kernel).  Everything else stays float32 and
+unrounded: biases, the bias gradient, wc*W and the step W + delta' on the
+unrounded W, the activation derivative.  bf16=False: float32 products
+(fwd_kernel, bwd_kernel).  On a CUDA tensor each value launches its own form
+or raises; neither falls back on the other.
+
+Activations and biases are float32.  W may be stored bfloat16 (widened as it
+is loaded), and `fused_bwd_update` then stores W' and delta' bfloat16 with
 stochastic rounding (`sr_seed`: the stream of `csrc/sr_round.cuh`, whose bits
 the plain version draws too); delta alone may be bfloat16 with W float32, and
 W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 `fused_bwd_update` writes W, delta, b and delta_b IN PLACE on both devices
 and returns them.  `<wrapper>.launches` counts launches of the wrapper's
-product kernel (fwd_kernel, bwd_kernel); the small second kernels count apart:
+product kernel (either form), `<wrapper>.tc_launches` those of its
+tensor-core form; the small second kernels count apart:
 `fused_linear_act.sum_launches` (fwd_sum_kernel, where K is split) and
-`fused_bwd_update.reduce_launches` (reduce_dedy_kernel).  The kernels
-are fp32-FMA-bound at the flagship shapes (csrc/fused_mlp.cuh says why).
+`fused_bwd_update.reduce_launches` (reduce_dedy_kernel).  The float32 forms
+are FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
+(csrc/fused_mlp.cuh says why).
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from tpu_sednn_torch.model.mlp import mm_operand
 from tpu_sednn_torch.ops import _build
 from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
                                         philox_mask, sr_bits, sr_to_bf16_reference)
@@ -66,18 +79,25 @@ def _mask_tensor(mask: MaskArg, shape, device) -> Optional[torch.Tensor]:
     return philox_mask(int(key), shape[0], shape[1], float(omit), device=device)
 
 
+def _masked(x, mask: Optional[torch.Tensor], scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """x * (mask * scale) computed in `dtype` (x as it is without a mask)."""
+    h = x.to(dtype)
+    return h if mask is None else h * (mask.to(dtype) * scale)
+
+
 def fused_linear_act_reference(x, w, b, act: str = "linear", in_mask: MaskArg = None,
                                in_scale: float = 1.0, out_mask: MaskArg = None,
-                               out_scale: float = 1.0, dtype: Optional[torch.dtype] = None):
+                               out_scale: float = 1.0, dtype: Optional[torch.dtype] = None,
+                               bf16: bool = True):
     """Plain torch version of `fused_linear_act`; products in `dtype`
     (None = float32; torch.float64 gives the function free of float32
-    summation order), result returned as float32."""
+    summation order), of the masked and scaled x and of W rounded to
+    bfloat16 first if bf16 (x is then masked and scaled in its own type,
+    as the kernel and the TPU kernel do before they round it); result
+    returned as float32."""
     dt = dtype or torch.float32
-    h = x.to(dt)
-    im = _mask_tensor(in_mask, x.shape, x.device)
-    if im is not None:
-        h = h * (im.to(dt) * in_scale)
-    y = _act(act, h @ w.to(dt) + b.to(dt))
+    h = _masked(x, _mask_tensor(in_mask, x.shape, x.device), in_scale, x.dtype if bf16 else dt)
+    y = _act(act, mm_operand(h, bf16, dt) @ mm_operand(w, bf16, dt) + b.to(dt))
     om = _mask_tensor(out_mask, y.shape, x.device)
     if om is not None:
         y = y * (om.to(dt) * out_scale)
@@ -88,27 +108,30 @@ def fused_bwd_update_reference(dedx, y_prev, w, delta, b, delta_b, momentum, lra
                                weightcost, in_mask: MaskArg = None, in_scale: float = 1.0,
                                deriv: Optional[str] = None,
                                dtype: Optional[torch.dtype] = None,
-                               sr_seed: Optional[int] = None):
+                               sr_seed: Optional[int] = None, bf16: bool = True):
     """Plain torch version of `fused_bwd_update`, pure: -> (w', delta',
     dedy_prev, b', delta_b') as new tensors, float32 but for a w' or delta'
     whose input is bfloat16: that one is rounded from float32 with the bits of
     stream `sr_seed`, as the kernel rounds it.  deriv: None, "relu" or
     "sigmoid" multiplies dedy_prev by that activation's derivative taken on
-    y_prev (where(y > 0) / y*(1-y))."""
+    y_prev (where(y > 0) / y*(1-y)).  bf16: the two products (dedy and G)
+    take their operands rounded to bfloat16; the update, the bias gradient
+    and the derivative take them as they are."""
     dt = dtype or torch.float32
     m, c = float(momentum), (1.0 - float(momentum)) * float(lrate)
-    dx, y, w_, d_ = dedx.to(dt), y_prev.to(dt), w.to(dt), delta.to(dt)
-    im = _mask_tensor(in_mask, y_prev.shape, y_prev.device)
-    if im is not None:
-        y = y * (im.to(dt) * in_scale)
-    dedy = dx @ w_.T
+    dx, w_, d_ = dedx.to(dt), w.to(dt), delta.to(dt)
+    y = _masked(y_prev, _mask_tensor(in_mask, y_prev.shape, y_prev.device), in_scale,
+                y_prev.dtype if bf16 else dt).to(dt)
+    dx_r = mm_operand(dx, bf16, dt)
+    dedy = dx_r @ mm_operand(w_, bf16, dt).T
     if deriv == "relu":
         dedy = torch.where(y > 0, dedy, torch.zeros((), dtype=dt, device=dedy.device))
     elif deriv == "sigmoid":
         dedy = y * (1.0 - y) * dedy
     elif deriv is not None:
         raise ValueError(f"unknown derivative {deriv!r}")
-    new_delta = m * d_ - c * ((y.T @ dx) * float(inv_n) + float(weightcost) * w_)
+    new_delta = m * d_ - c * ((mm_operand(y, bf16, dt).T @ dx_r) * float(inv_n)
+                              + float(weightcost) * w_)
     new_db = m * delta_b.to(dt) - c * (dx.sum(dim=0) * float(inv_n))
     f32 = torch.float32
 
@@ -127,13 +150,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.fused_linear_act_f32.argtypes = [p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f,
-                                         p, p]
+                                         p, i, p]
     lib.fused_linear_act_f32.restype = ctypes.c_int
+    lib.fused_fwd_scratch_floats.argtypes = [i, i, i, i]
+    lib.fused_bwd_scratch_floats.argtypes = [i, i, i]
     for fn in (lib.fused_fwd_scratch_floats, lib.fused_bwd_scratch_floats):
-        fn.argtypes = [i, i, i]
         fn.restype = ctypes.c_longlong
     lib.fused_bwd_update_f32.argtypes = [p, p, p, i, p, i, u, p, p, p, p, i, i, i, f, f, f, i, p,
-                                         u, u, f, i, p]
+                                         u, u, f, i, i, p]
     lib.fused_bwd_update_f32.restype = ctypes.c_int
     return lib
 
@@ -162,16 +186,20 @@ def _mask_args(name: str, mask: MaskArg, scale: float, shape, device):
 
 def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "linear",
                      in_mask: MaskArg = None, in_scale: float = 1.0,
-                     out_mask: MaskArg = None, out_scale: float = 1.0) -> torch.Tensor:
+                     out_mask: MaskArg = None, out_scale: float = 1.0,
+                     bf16: bool = True) -> torch.Tensor:
     """(B, K) @ (K, N) + (N,) -> act -> (B, N), any B, K, N.  w float32 or
-    bfloat16 (storage only: widened, the products are float32)."""
+    bfloat16 storage (widened as it is loaded).  bf16: products of operands
+    rounded to bfloat16, summed in float32 (the tensor-core form); False:
+    float32 products."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} do not match")
     (B, K), N = x.shape, w.shape[1]
     if x.device.type == "cpu":
-        return fused_linear_act_reference(x, w, b, act, in_mask, in_scale, out_mask, out_scale)
+        return fused_linear_act_reference(x, w, b, act, in_mask, in_scale, out_mask, out_scale,
+                                          bf16=bf16)
     if x.device.type != "cuda":
         raise ValueError(f"fused_linear_act runs on cuda or cpu tensors, got {x.device}")
     _check("x", x, (B, K), x.device)
@@ -182,21 +210,24 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     lib = _lib()
     # partial sums of the kernel's split over K (none for a large batch)
-    part = torch.empty(lib.fused_fwd_scratch_floats(B, K, N), dtype=torch.float32, device=x.device)
+    part = torch.empty(lib.fused_fwd_scratch_floats(B, K, N, int(bf16)), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.fused_linear_act_f32(
             x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), b.data_ptr(),
             y.data_ptr(), B, K, N, ACTS[act],
-            *im[:5], *om[:5], part.data_ptr() if part.numel() else None,
+            *im[:5], *om[:5], part.data_ptr() if part.numel() else None, int(bf16),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_linear_act kernel launch failed: CUDA error {rc}")
     fused_linear_act.launches += 1
+    fused_linear_act.tc_launches += 1 if bf16 else 0
     fused_linear_act.sum_launches += 1 if part.numel() else 0
     return y
 
 
 fused_linear_act.launches = 0
+fused_linear_act.tc_launches = 0
 fused_linear_act.sum_launches = 0
 
 
@@ -215,6 +246,7 @@ def fused_bwd_update(
     in_scale: float = 1.0,
     deriv: Optional[str] = None,
     sr_seed: Optional[int] = None,
+    bf16: bool = True,
 ):
     """-> (w, delta, dedy_prev, b, delta_b) with one read/write of W/delta.
 
@@ -228,6 +260,9 @@ def fused_bwd_update(
     delta, or w and delta, may be bfloat16: their new values are then stored
     with stochastic rounding from stream `sr_seed` (required), and a float32
     w beside a bfloat16 delta takes the unrounded step.
+    bf16: dedy_prev and G from operands rounded to bfloat16, summed in
+    float32 (the tensor-core form); the update takes the unrounded W.
+    False: float32 products.
     """
     if deriv not in (None, "relu", "sigmoid"):
         raise ValueError(f"unknown derivative {deriv!r}")
@@ -251,7 +286,7 @@ def fused_bwd_update(
     if dev.type == "cpu":
         w_, d_, dedy, b_, db_ = fused_bwd_update_reference(
             dedx, y_prev, w, delta, b, delta_b, momentum, lrate, inv_n, weightcost,
-            in_mask, in_scale, deriv, sr_seed=sr_seed)
+            in_mask, in_scale, deriv, sr_seed=sr_seed, bf16=bf16)
         with torch.no_grad():
             for dst, src in ((w, w_), (delta, d_), (b, b_), (delta_b, db_)):
                 dst.copy_(src)
@@ -269,13 +304,15 @@ def fused_bwd_update(
             int(d_bf16), int(sr_seed or 0) & 0xFFFFFFFF, b.data_ptr(),
             delta_b.data_ptr(), part.data_ptr(), dedy.data_ptr(), B, K, N, float(momentum),
             c * float(inv_n), c * float(weightcost), *im[:5],
-            ACTS[deriv] if deriv else 0, torch.cuda.current_stream(dev).cuda_stream)
+            ACTS[deriv] if deriv else 0, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_bwd_update kernel launch failed: CUDA error {rc}")
     fused_bwd_update.launches += 1
+    fused_bwd_update.tc_launches += 1 if bf16 else 0
     fused_bwd_update.reduce_launches += 1
     return w, delta, dedy, b, delta_b
 
 
 fused_bwd_update.launches = 0
+fused_bwd_update.tc_launches = 0
 fused_bwd_update.reduce_launches = 0

@@ -23,11 +23,13 @@ taken on the stored masked activation (in inverted mode that leaves the
 1/(1-omit) factor out of the backward).
 
 The TPU kernel's single-device variants are options of the same trainer:
+its products (`bf16`, default True as the JAX factory's: operands rounded to
+bfloat16, float32 sums, on the tensor cores; False: float32 products),
 bfloat16 state with stochastic rounding (`sr_delta`: the weight matrices'
 momentum; `sr_state`: weights and momentum), row tiles that accumulate one
 bunch's gradient into the momentum (`tile_rows`), and `hbm_spill`, which has
-nothing to do on this card.  The data-parallel trainer and the tensor-core
-products (`bf16=True`) are still to port.
+nothing to do on this card.  Every storage form runs with either product.
+The data-parallel trainer is still to port.
 
 Plain versions, beside the wrappers: `resident_train_chunk_reference` and
 `sample_resident_masks_reference` (bit-equal Philox, so a chunk trained WITH
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from tpu_sednn_torch._device import resolve_device
-from tpu_sednn_torch.model.mlp import MLP, ModelConfig, dropout_omits
+from tpu_sednn_torch.model.mlp import MLP, ModelConfig, dropout_omits, mm_operand
 from tpu_sednn_torch.ops import _build
 from tpu_sednn_torch.ops.fused_mlp import ACTS
 from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
@@ -64,11 +66,14 @@ _mask_threshold = mask_threshold
 # that drew dropout bits in the kernel, then fwd_sum_kernel (one for every
 # forward whose K is split over the grid); then by form: bwd_kernel launches
 # that stored bfloat16 with stochastic rounding, bwd_kernel launches of
-# row-tiled bunches, fwd_kernel launches that read bfloat16 weights
+# row-tiled bunches, fwd_kernel launches that read bfloat16 weights; the
+# forward and backward launches of the tensor-core forms (tc_fwd_kernel,
+# tc_bwd_kernel), counted in the first two as well
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "reduce_dedy": 0, "philox_mask": 0,
                                    "fused_linear_act_sum": 0, "sr_bwd_update": 0,
-                                   "tiled_bwd_update": 0, "bf16_linear_act": 0}
+                                   "tiled_bwd_update": 0, "bf16_linear_act": 0,
+                                   "tc_linear_act": 0, "tc_bwd_update": 0}
 
 
 def mask_key(seed: int, bunch_idx: int, layer_idx: int) -> int:
@@ -138,7 +143,8 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
                                    n_real: Optional[int] = None,
                                    dtype: Optional[torch.dtype] = None,
                                    sr_state: bool = False, sr_delta: bool = False,
-                                   tile_rows: Optional[int] = None) -> TrainState:
+                                   tile_rows: Optional[int] = None,
+                                   bf16: bool = True) -> TrainState:
     """Plain torch version of the chunk trainer: a loop over the bunches with
     the kernel's arithmetic written out (masks from `philox_mask`, bit-equal
     to the kernel's; derivative on the stored masked activation; update
@@ -158,6 +164,14 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
     tile_rows: each bunch in row tiles; tile 0 applies the decay and weight
     cost, every tile adds its -A*g to the momentum, the step lands after
     the last, masks are keyed on the global tile index.
+
+    bf16: the operands of the three products (forward, gradient, dedy) are
+    rounded to bfloat16 (`mm_operand`) and the products summed in `dtype`;
+    the update takes the unrounded W, the bias gradient the unrounded dedx.
+    The net's input is then masked and scaled in float32, as the kernel does
+    before it rounds it.  (The activations of later layers are `dtype`
+    values; where float32 and float64 sums round to different bfloat16
+    values, the difference grows from layer to layer: see chip_smoke.py.)
     """
     dt = dtype or torch.float32
     m, a_coef, b_coef = (float(c) for c in coefs)
@@ -180,16 +194,18 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
     for i in range(n_real):
         for j in range(accum):
             gi = i * accum + j
-            h = in_chunk[gi * tile:(gi + 1) * tile].to(dt)
+            h = in_chunk[gi * tile:(gi + 1) * tile]
+            h = h.to(h.dtype if bf16 else dt)
             t = targ_chunk[gi * tile:(gi + 1) * tile].to(dt)
             ys = []
             for l in range(L):
                 if omits[l] > 0.0:
                     mask = philox_mask(mask_key(seed, gi, l), tile, h.shape[1], omits[l],
                                        device=dev)
-                    h = h * (mask.to(dt) * scales[l])
+                    h = h * (mask.to(h.dtype) * scales[l])
+                h = h.to(dt)
                 ys.append(h)
-                z = h @ ws[l] + bs[l]
+                z = mm_operand(h, bf16, dt) @ mm_operand(ws[l], bf16, dt) + bs[l]
                 act = cfg.hidden if l < L - 1 else cfg.output
                 h = torch.relu(z) if act == "relu" else torch.sigmoid(z) if act == "sigmoid" else z
             out = h
@@ -197,8 +213,9 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
             if cfg.output == "sigmoid":
                 dedx = dedx * out * (1.0 - out)
             for l in range(L - 1, -1, -1):
-                dedy = dedx @ ws[l].T if l > 0 else None  # W before its update
-                g = ys[l].T @ dedx
+                dedx_r = mm_operand(dedx, bf16, dt)
+                dedy = dedx_r @ mm_operand(ws[l], bf16, dt).T if l > 0 else None  # pre-update W
+                g = mm_operand(ys[l], bf16, dt).T @ dedx_r
                 gb = dedx.sum(dim=0)
                 if j == 0:
                     nd = m * dws[l] - (a_coef * g + b_coef * ws[l])
@@ -233,10 +250,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("resident_chunk")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-    lib.resident_workspace_floats.argtypes = [ip, i, i]
+    lib.resident_workspace_floats.argtypes = [ip, i, i, i]
     lib.resident_workspace_floats.restype = ctypes.c_longlong
     lib.resident_chunk_train.argtypes = [p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, i, i, u, u,
-                                         f, f, u, f, f, f, ctypes.POINTER(ctypes.c_longlong), p]
+                                         f, f, u, f, f, f, i, ctypes.POINTER(ctypes.c_longlong), p]
     lib.resident_chunk_train.restype = ctypes.c_int
     lib.philox_mask_f32.argtypes = [p, i, i, i, u, u, f, p]
     lib.philox_mask_f32.restype = ctypes.c_int
@@ -250,7 +267,7 @@ def _not_ported(what: str):
 
 
 def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
-                              bf16: bool = False,
+                              bf16: bool = True,
                               rule: str = "parity", sr_state: bool = False,
                               tile_rows: int | None = None,
                               sr_delta: bool = False,
@@ -290,11 +307,14 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
     size and there is nothing to stage: the kwarg is validated as the JAX
     factory validates it and the run is the float32 trainer's, bit for bit.
 
-    bf16: only False (float32 products) is implemented; a tensor-core mode
-    with its own tolerance is still to port, as is the data-parallel trainer.
-    The TPU kernel's interpret and dedy_full have no counterpart (a CPU state
-    takes the plain version; dedy_full names a scheduling choice of that
-    kernel).
+    bf16: True (the JAX factory's default) rounds both operands of every
+    product to bfloat16 and sums in float32, on the tensor cores
+    (csrc/fused_mlp.cuh: tc_fwd_kernel, tc_bwd_kernel); biases, the bias
+    gradient and the update on the unrounded W stay float32.  False: float32
+    products.  Either runs with every storage form above.  The data-parallel
+    trainer is still to port.  The TPU kernel's interpret and dedy_full have
+    no counterpart (a CPU state takes the plain version; dedy_full names a
+    scheduling choice of that kernel).
 
     run(state, x, t, seed, lrate, momentum, weightcost, n_real=None): on a
     CUDA state launches the kernels (or raises); on a CPU state runs
@@ -308,8 +328,6 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         raise ValueError(f"unknown rule {rule!r}")
     if cfg.hidden not in ("relu", "sigmoid") or cfg.output not in ("linear", "sigmoid"):
         raise ValueError(f"unsupported activations {cfg.hidden!r}/{cfg.output!r}")
-    if bf16:
-        _not_ported("bf16=True (tensor-core products)")
     if sr_state and sr_delta:
         raise ValueError("sr_state (bf16 weights+momentum) already implies "
                          "bf16 momentum; sr_delta is mutually exclusive")
@@ -361,7 +379,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         if dev.type == "cpu":
             return resident_train_chunk_reference(state, in_chunk, targ_chunk, cfg, bunch, coefs,
                                                   int(seed), n_real=nr, sr_state=sr_state,
-                                                  sr_delta=sr_delta, tile_rows=tile)
+                                                  sr_delta=sr_delta, tile_rows=tile, bf16=bf16)
         if dev.type != "cuda":
             raise ValueError(f"the chunk trainer runs on cuda or cpu, got {dev}")
         tensors = (list(state.params.w), list(state.deltas.w), list(state.params.b),
@@ -381,8 +399,8 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
             raise ValueError("targ_chunk has fewer rows than n_real bunches")
         lib = _lib()
         c_sizes = (ctypes.c_int * (L + 1))(*sizes)
-        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile), dtype=torch.float32,
-                           device=dev)
+        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile, int(bf16)),
+                           dtype=torch.float32, device=dev)
         ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
         tallies = (ctypes.c_longlong * len(kernel_launches))()
         with torch.cuda.device(dev):
@@ -393,7 +411,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
                 ACTS[cfg.hidden], ACTS[cfg.output],
                 mask_threshold(omit_vis) if omit_vis > 0.0 else 0,
                 mask_threshold(omit_hid) if omit_hid > 0.0 else 0,
-                scale_vis, scale_hid, int(seed) & 0xFFFFFFFF, *coefs, tallies,
+                scale_vis, scale_hid, int(seed) & 0xFFFFFFFF, *coefs, int(bf16), tallies,
                 torch.cuda.current_stream(dev).cuda_stream)
         for name, n in zip(kernel_launches, tallies):
             kernel_launches[name] += int(n)

@@ -9,6 +9,9 @@ true layer sizes, so the JAX package's zero-padding to 128-aligned sizes
 (`_pad_state`) has no counterpart here.  On CPU tensors the wrappers run
 their plain versions, so this module is testable without a card.
 
+`bf16` (default True, as the JAX package's) goes to both wrappers: products
+of operands rounded to bfloat16 on the tensor cores; False: float32 products.
+
 The state is updated IN PLACE and returned.
 """
 
@@ -32,6 +35,7 @@ def fused_train_step(
     opt: OptConfig,
     generator: Optional[torch.Generator] = None,
     dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    bf16: bool = True,
 ) -> TrainState:
     """One bunch: forward with each layer's dropout mask fused into the
     launch that produces (or, for the net's input, loads) the activation,
@@ -61,7 +65,8 @@ def fused_train_step(
         h = fused_linear_act(
             h, ws[l], bs[l], act=cfg.output if last else cfg.hidden,
             in_mask=masks[0] if l == 0 else None, in_scale=scale[0] if l == 0 else 1.0,
-            out_mask=None if last else masks[l + 1], out_scale=1.0 if last else scale[l + 1])
+            out_mask=None if last else masks[l + 1], out_scale=1.0 if last else scale[l + 1],
+            bf16=bf16)
         if not last:
             ys.append(h)
     out = h
@@ -76,12 +81,12 @@ def fused_train_step(
             dedx.contiguous(), ys[l], ws[l], dws[l], bs[l], dbs[l],
             opt.momentum, opt.lrate, 1.0 / n, opt.weightcost,
             in_mask=masks[0] if l == 0 else None, in_scale=scale[0] if l == 0 else 1.0,
-            deriv=cfg.hidden if (l > 0 and cfg.hidden != "linear") else None)
+            deriv=cfg.hidden if (l > 0 and cfg.hidden != "linear") else None, bf16=bf16)
     state.step += 1
     return state
 
 
-def make_fused_train_chunk(cfg: ModelConfig, opt: OptConfig):
+def make_fused_train_chunk(cfg: ModelConfig, opt: OptConfig, bf16: bool = True):
     """Chunk trainer over `fused_train_step` (partial bunch dropped); a
     Python loop, two launches per layer and bunch.  The whole-chunk trainer
     of ops/resident_chunk.py enqueues the same kernels from one C call."""
@@ -91,7 +96,7 @@ def make_fused_train_chunk(cfg: ModelConfig, opt: OptConfig):
         dyn = OptConfig(lrate=lrate, momentum=momentum, weightcost=weightcost, bunchsize=bs)
         for i in range(in_chunk.shape[0] // bs):
             fused_train_step(state, in_chunk[i * bs:(i + 1) * bs], targ_chunk[i * bs:(i + 1) * bs],
-                             cfg, dyn, generator=rng)
+                             cfg, dyn, generator=rng, bf16=bf16)
         return state
 
     return run

@@ -36,7 +36,11 @@ def _auto_engine(cfg: ModelConfig, opt: OptConfig, engine_kwargs: Optional[Dict]
                  device: str | torch.device = "cuda") -> Tuple[str, Dict]:
     """engine="auto" resolution -> (engine, extra_engine_kwargs): "resident"
     (the hand-written CUDA chunk trainer) when the state lives on a CUDA
-    device, "xla" (the plain torch trainer) on the CPU.
+    device, "xla" (the plain float32 torch trainer) on the CPU, as the JAX
+    package resolves it on its chip and on the CPU.  "resident" takes the
+    factory's defaults, so on the card it trains with tensor-core products
+    (bf16=True, the JAX kernels' default and what the JAX package trains
+    with on its chip); engine_kwargs={"bf16": False} pins float32 products.
 
     The JAX package degrades here by a ladder of variants (bf16 momentum,
     one layer's state outside on-chip memory) when the float32 state does
@@ -60,10 +64,11 @@ def make_chunk_runner(cfg: ModelConfig, opt: OptConfig, engine: str = "xla",
       * "resident" — the whole-chunk trainer on the hand-written CUDA kernels
         (ops/resident_chunk.py; CUDA states only, a CPU state runs its plain
         version);
-      * "auto"     — "resident" for a CUDA `device`, "xla" for the CPU.
+      * "auto"     — "resident" for a CUDA `device` (with the factory's
+        defaults: bf16=True, tensor-core products), "xla" for the CPU.
     n_data_shards > 1 (data parallelism) is not yet ported.
-    engine_kwargs are forwarded to the resident factory (sr_delta, sr_state,
-    tile_rows, hbm_spill, rule).
+    engine_kwargs are forwarded to the resident factory (bf16, sr_delta,
+    sr_state, tile_rows, hbm_spill, rule); the plain engine ignores them.
     All runners share the signature
       run(state, x, t, rng, lrate, momentum, weightcost[, n_real]) -> state
     with `rng` a torch.Generator and the hyperparameters REQUIRED (the memo
