@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); build the port's
      CUDA kernels (csrc/stft_lps.cu, fused_mlp.cu, resident_chunk.cu,
-     sr_update.cu, dropout_mask.cu) with nvcc (sm_90a), one nvcc per source,
-     all started together.
+     sr_update.cu, dropout_mask.cu, rank_sum.cu) with nvcc (sm_90a), one nvcc
+     per source, all started together.
   2. kernel vs plain: the STFT-LPS kernel against its plain torch version on
      the card at 8 kHz, 16 kHz and the generic 11025 and 22050 Hz geometries
      (hop % 4 == 0 and != 0, win % 4 != 0; ragged
@@ -82,11 +82,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      with dropout_rng="tpu_prng" (kernel 5 on its path); sr_train_step at
      full width (kernel 6 on its path); kill and resume through a checkpoint
      equal to the straight run bit for bit.
- 12. a `kernels` JSON line: every ported kernel and trainer form with its
+ 12. data parallelism (main path, dp group): the DP forward, the
+     gradient-out backward, the update kernel and rank_sum against their
+     plain versions, with times; the DP chunk trainer on 4 and on 2 ranks of
+     this script sharing the card (gloo for the rendezvous, the sums on the
+     card through CUDA IPC) against the single-process trainer, replicas
+     bit-equal, three faults refused, pfile epochs on 4 ranks; then
+     `python -m torch.distributed.run --nproc_per_node=2 -m
+     tpu_sednn_torch.cli ... gpu_used=2` against gpu_used=1.
+ 13. a `kernels` JSON line: every ported kernel and trainer form with its
      launches on the main paths, error and times.  Each path (phases 3, 4,
-     8, 11) is run with the counts zeroed just before it and read just
+     8, 11, 12) is run with the counts zeroed just before it and read just
      after; `launches` is the total, `launches_by_path` the split.
-`--only serve,kernels,train` runs a subset while developing: it prints no
+`--only serve,kernels,train,dp` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
 non-zero without one.
 """
@@ -1893,6 +1901,32 @@ def _speechlike(rng, n: int, sr: int) -> np.ndarray:
     return (0.25 * sig * env / max(np.abs(sig).max(), 1e-9)).astype(np.float32)
 
 
+def _corpus_wavs(tmp: str, n_utt: int) -> tuple[list, list]:
+    """n_utt seeded speech-like utterances of ~10.2 s at 8 kHz with coloured
+    noise at 0-15 dB SNR, as wavs in tmp -> (noisy paths, clean paths)."""
+    from tpu_sednn_torch.io import write_wav
+
+    rng = np.random.default_rng(2024)
+    sr = 8000
+    noisy, clean = [], []
+    for i in range(n_utt):
+        n = int(rng.uniform(10.1, 10.4) * sr)
+        s = _speechlike(rng, n, sr)
+        noise = np.convolve(rng.standard_normal(n + 8), rng.uniform(-1, 1, 9), "valid")
+        snr = rng.uniform(0, 15)
+        noise *= np.sqrt(np.mean(s ** 2) / (np.mean(noise ** 2) * 10 ** (snr / 10)))
+        for kind, sig, paths in (("clean", s, clean), ("noisy", s + noise, noisy)):
+            path = os.path.join(tmp, f"{kind}{i}.wav")
+            write_wav(path, np.clip(sig, -1, 1).astype(np.float32), sr)
+            paths.append(path)
+    return noisy, clean
+
+
+def _corpus_paths(tmp: str, n_utt: int) -> dict:
+    return dict(fea=f"{tmp}/noisy.pfile", targ=f"{tmp}/clean.pfile", norm=f"{tmp}/noisy.norm",
+                cv_range=f"{n_utt - 10}-{n_utt - 1}")
+
+
 def _train_args(tmp, corpus, out, init, train_range, extra):
     return [f"fea_file={corpus['fea']}", f"targ_file={corpus['targ']}",
             f"norm_file={corpus['norm']}", f"outwts_file={tmp}/{out}.wts",
@@ -1927,11 +1961,11 @@ def _run_train_cli(tmp, args, label):
     return cv[0], counts, wall, log
 
 
-def _epoch_in_process(tmp, args, label):
+def _epoch_in_process(tmp, args, label, engine_kwargs=None):
     """One epoch of the training command's run_epoch in this process, with the
-    chunk trainer pinned to float32 products (engine_kwargs={"bf16": False}: the
-    command itself has no key for it) -> (CV MSE, launch counts of this run
-    alone)."""
+    chunk trainer pinned to float32 products unless engine_kwargs says
+    otherwise (default {"bf16": False}: the command itself has no key for it)
+    -> (CV MSE, launch counts of this run alone)."""
     from tpu_sednn_torch.cli import run_epoch
     from tpu_sednn_torch.config import TrainFlags
     from tpu_sednn_torch.ops import launch_counts
@@ -1940,7 +1974,7 @@ def _epoch_in_process(tmp, args, label):
     flags = TrainFlags.from_argv(args)
     before = launch_counts()
     cv = run_epoch(flags, logger=Logger(log_path=flags.log_file, stream=None),
-                   engine_kwargs={"bf16": False})
+                   engine_kwargs={"bf16": False} if engine_kwargs is None else engine_kwargs)
     torch.cuda.synchronize()
     after = launch_counts()
     d = {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
@@ -1959,28 +1993,16 @@ TC_CV_FRACTION = 0.02
 
 
 def phase_train(tmp: str, smi: str) -> dict:
-    from tpu_sednn_torch.io import load_wts, write_wav
+    from tpu_sednn_torch.io import load_wts
     from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
     from tpu_sednn_torch.tools import make_pfile
 
     # corpus: 200 utterances of 10.2 s at 8 kHz, speech-like + coloured noise at
     # 0-15 dB SNR -> ~127,000 frames; the first 190 train (> one full chunk of
     # 102400 samples = 800 bunches, then a ragged one), the last 10 are CV
-    rng = np.random.default_rng(2024)
-    sr, n_utt = 8000, 200
-    noisy, clean = [], []
-    for i in range(n_utt):
-        n = int(rng.uniform(10.1, 10.4) * sr)
-        s = _speechlike(rng, n, sr)
-        noise = np.convolve(rng.standard_normal(n + 8), rng.uniform(-1, 1, 9), "valid")
-        snr = rng.uniform(0, 15)
-        noise *= np.sqrt(np.mean(s ** 2) / (np.mean(noise ** 2) * 10 ** (snr / 10)))
-        for kind, sig, paths in (("clean", s, clean), ("noisy", s + noise, noisy)):
-            path = os.path.join(tmp, f"{kind}{i}.wav")
-            write_wav(path, np.clip(sig, -1, 1).astype(np.float32), sr)
-            paths.append(path)
-    corpus = dict(fea=f"{tmp}/noisy.pfile", targ=f"{tmp}/clean.pfile", norm=f"{tmp}/noisy.norm",
-                  cv_range=f"{n_utt - 10}-{n_utt - 1}")
+    n_utt = 200
+    noisy, clean = _corpus_wavs(tmp, n_utt)
+    corpus = _corpus_paths(tmp, n_utt)
     reset_launch_counts()  # the training path's run starts here (corpus set-up included)
     t0 = time.perf_counter()
     n_frames = make_pfile.build_pfile(noisy, corpus["fea"], corpus["norm"], device="cuda")
@@ -2224,16 +2246,782 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
                 trace_launches=[traced, launched], kernel_shares=shares)
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: the gradient-out backward and the update kernel, the
+# data-parallel chunk trainer on ranks that share the card (gloo), and the
+# command with gpu_used=2 under torchrun
+# ---------------------------------------------------------------------------
+
+# The data-parallel chunk trainer against the single-process chunk trainer
+# with the same seed, 1548-2048x3-129, parity dropout 0.1/0.2.  The forward is
+# the same launches on the same rows with the same masks (Philox keyed on the
+# global row, K split as for the global bunch), so a rank's activations are
+# the single-device trainer's bit for bit and the two differ only in the
+# order of G's float32 sums (a rank's rows, then the sum over the ranks).
+# After ONE bunch every tensor's update is within DP_ONE_REL_MAX of its
+# largest element; after three within DP_THREE_REL_FRO relative Frobenius,
+# both product forms (an H100 read 5.6e-6 and 4.7e-7 to 1.3e-6: the limits keep
+# about 20x and 80x).  sr_delta: delta_w one bfloat16 ulp apart where G's
+# order decides a rounding (held as phase_sr holds it after one bunch; after
+# three, where an ulp carried through m*delta can be several ulps of a small
+# new delta, by the share of elements apart, SR_DIFF_SHARE, and the update of
+# every tensor within SR_DELTA_FRO).  The three-bunch sr_delta run takes
+# float32 products: with tensor cores, W moved by a delta one ulp apart moves
+# activations across bfloat16 rounding boundaries from the second bunch on
+# (0.8% of delta_w[0] more than an ulp apart after three on an H100),
+# which would hide a wrong rounding stream.  The deliberately broken runs must miss
+# the same limits: the all-reduce skipped, every rank's masks at row 0 (one
+# bunch), every bunch's masks from bunch 0's stream, every bunch's
+# stochastic rounding from bunch 0's stream (three bunches).
+DP_ONE_REL_MAX = 1e-4
+DP_THREE_REL_FRO = 1e-4
+# the command with gpu_used=2 (torchrun, tensor cores, dropout on) against
+# gpu_used=1 on the same sentences, weights and seeds: final CV within
+# DP_CV_FRACTION, every tensor's update over the epoch within TC_ENGINE_REL_FRO
+DP_CV_FRACTION = 5e-3
+DP_CASES = ([(f"w{w}_{'tc' if tc else 'f32'}_{n}", w, tc, n, {}) for w in (2, 4)
+             for tc in (True, False) for n in (1, 3)]
+            + [(f"w{w}_{fault}", w, True, 1, {"fault": fault}) for w in (2, 4)
+               for fault in ("no_allreduce", "row0")]
+            + [(f"w{w}_mask_key", w, True, 3, {"fault": "mask_key"}) for w in (2, 4)]
+            + [("w2_sr_delta_1", 2, True, 1, {"sr_delta": True}),
+               ("w2_sr_delta_f32_3", 2, False, 3, {"sr_delta": True}),
+               ("w2_sr_key", 2, False, 3, {"sr_delta": True, "fault": "sr_key"})])
+DP_HYP = (1.0, 0.5, 1e-5)  # lrate, momentum, weightcost: phase_resident's
+
+
+def _dp_inputs():
+    """The DP holds' net, state and 3 bunches, the same in every process:
+    1548-2048x3-129, parity dropout 0.1/0.2, glorot weights from seed 3,
+    inputs and targets from numpy's seed 5."""
+    from tpu_sednn_torch.model.mlp import init_params
+    from tpu_sednn_torch.train.step import OptConfig
+
+    cfg = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
+    opt = OptConfig(lrate=DP_HYP[0], momentum=DP_HYP[1], weightcost=DP_HYP[2], bunchsize=BUNCH)
+    mlp = init_params(torch.Generator().manual_seed(3), cfg, scheme="glorot", device="cuda")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3 * BUNCH, FLAGSHIP[0])).astype(np.float32)
+    t = x @ (0.05 * rng.standard_normal((FLAGSHIP[0], FLAGSHIP[-1]))).astype(np.float32)
+    return cfg, opt, mlp, torch.from_numpy(x).cuda(), torch.from_numpy(t).cuda()
+
+
+def _state_bytes(state) -> list:
+    import hashlib
+
+    return [hashlib.sha256(a.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+            .hexdigest() for a in _state_tensors(state)]
+
+
+def dp_worker(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase_dp's runs (python3 chip_smoke.py --dp-worker RANK
+    WORLD DIR): the DP_CASES on the card, a timed run, and two pfile epochs
+    on all ranks; rank 0 writes the states and what it measured into DIR."""
+    import torch.distributed as dist
+
+    from tpu_sednn_torch.data.rand48 import Rand48
+    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.parallel import Mesh, all_reduce
+    from tpu_sednn_torch.train.loop import train_epoch_pfile
+    from tpu_sednn_torch.train.step import OptConfig, init_train_state
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", world_size=world,
+                            rank=rank)
+    groups = {world: None, 2: dist.new_group([0, 1])}
+    dev = torch.device("cuda", 0)
+    cfg, opt, mlp, x, t = _dp_inputs()
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = {k: tuple(v) if isinstance(v, list) else v for k, v in json.load(f)["epoch"].items()}
+    out = dict(hashes={}, timing={}, epochs={})
+    plain = (rc._all_reduce, rc._mask_row0, rc.mask_key, rc.sr_key)
+    for name, w, tc, n_b, extra in DP_CASES:
+        if rank >= w:
+            continue
+        if extra.get("fault") == "no_allreduce":
+            rc._all_reduce = lambda a, mesh: a
+        elif extra.get("fault") == "row0":
+            rc._mask_row0 = lambda mesh, tile: 0
+        elif extra.get("fault") == "mask_key":  # every bunch draws bunch 0's masks
+            rc.mask_key = lambda seed, bunch, layer: plain[2](seed, 0, layer)
+        elif extra.get("fault") == "sr_key":  # every bunch rounds with bunch 0's bits
+            rc.sr_key = lambda seed, bunch, layer: plain[3](seed, 0, layer)
+        run = rc.make_dp_resident_train_chunk(cfg, opt, Mesh(w, rank, dev, groups[w]), bf16=tc,
+                                              sr_delta=extra.get("sr_delta", False))
+        st = run(init_train_state(mlp), x[:n_b * BUNCH], t[:n_b * BUNCH], 17, *DP_HYP)
+        torch.cuda.synchronize()
+        rc._all_reduce, rc._mask_row0, rc.mask_key, rc.sr_key = plain
+        out["hashes"][name] = _state_bytes(st)
+        if rank == 0:
+            torch.save([a.cpu() for a in _state_tensors(st)] + [st.step],
+                       os.path.join(workdir, f"{name}.pt"))
+    # per bunch: wall time of a rank, and the sums on their own (host clock around each,
+    # the card synchronised before and after: staging copy, barrier, rank_sum)
+    n_t = 8
+    xt, tt = x.repeat(3, 1)[:n_t * BUNCH].contiguous(), t.repeat(3, 1)[:n_t * BUNCH].contiguous()
+    for w in (2, 4):
+        if rank >= w:
+            continue
+        spent = []
+
+        def timed(a, mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(a, mesh)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return a
+
+        run = rc.make_dp_resident_train_chunk(cfg, opt, Mesh(w, rank, dev, groups[w]))
+        st = init_train_state(mlp)
+        run(st, xt[:BUNCH], tt[:BUNCH], 3, 1e-3, 0.5, 0.0)  # warm-up
+        rc._all_reduce = timed
+        dist.barrier(groups[w])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(st, xt, tt, 4, 1e-3, 0.5, 0.0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_t
+        rc._all_reduce = plain[0]
+        out["timing"][w] = dict(bunch_ms=wall, allreduce_ms=sum(spent) * 1e3 / n_t,
+                                allreduce_mb=4.0 * sum(a * b + b for a, b in
+                                                       zip(FLAGSHIP[:-1], FLAGSHIP[1:])) / 1e6)
+    dist.barrier()
+    # the pfile epoch on all ranks (train_epoch_pfile, n_data_shards = world): float32
+    # products, and sr_delta with tensor cores; counts zeroed just before each
+    cfg_cmd = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
+    opt_cmd = OptConfig(lrate=0.1, momentum=0.5, weightcost=0.0, bunchsize=BUNCH)
+    for label, kw in (("f32", {"bf16": False}), ("sr_delta", {"sr_delta": True})):
+        from tpu_sednn_torch.model.mlp import init_params
+
+        st = init_train_state(init_params(torch.Generator().manual_seed(11), cfg_cmd,
+                                          scheme="glorot", device="cuda"))
+        reset_launch_counts()
+        _, res = train_epoch_pfile(st, cfg_cmd, opt_cmd, **job, rand=Rand48(11),
+                                   n_data_shards=world, engine="resident", engine_kwargs=kw)
+        torch.cuda.synchronize()
+        out["epochs"][label] = dict(cv=res.cv_mse, counts=launch_counts(),
+                                    samples=res.train_samples, seconds=res.seconds)
+    dist.barrier()
+    if rank == 0:
+        with open(os.path.join(workdir, "rank0.json"), "w") as f:
+            json.dump(out, f)
+    else:
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(dict(hashes=out["hashes"]), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_kernels(gen) -> dict:
+    """(a) the DP forward of a rank's rows (both product forms) and the
+    gradient-out backward against their float64 plain versions at the
+    per-launch limits, the update kernel (float32 and sr_delta delta) and
+    rank_sum bit-equal to their plain versions; then times at a rank's rows
+    of the flagship layers, beside the bounds."""
+    import ctypes
+
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.ops.fused_mlp import (dp_update, dp_update_reference, fused_bwd_grad_out,
+                                               fused_bwd_grad_out_reference,
+                                               fused_linear_act_reference)
+    from tpu_sednn_torch.ops.philox import philox_mask
+    from tpu_sednn_torch.ops.rank_sum import rank_sum, rank_sum_reference
+
+    f64, bf = torch.float64, torch.bfloat16
+    worst = {False: {}, True: {}}
+    kn = [(FLAGSHIP[l], FLAGSHIP[l + 1]) for l in range(4)]
+    cfg = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
+    fwd_worst = {False: {}, True: {}}
+    scratch_tallies = (ctypes.c_longlong * len(rc.kernel_launches))()  # not a path's launches
+    for M in (64, 32):  # rank 1's rows of a bunch of 128: masks at rows M.. of the global bunch
+        x, t = _randn(gen, M, FLAGSHIP[0]), _randn(gen, M, FLAGSHIP[-1])
+        ws1 = [_randn(gen, K, N, scale=0.03) for K, N in kn]
+        bs1 = [_randn(gen, N, scale=0.1) for _, N in kn]
+        for tc in (False, True):
+            tol = (TC_REL_MAX, TC_REL_FRO) if tc else (KERNEL_REL_MAX, KERNEL_REL_FRO)
+            fwd = rc.dp_tile_forward(cfg, M, BUNCH, tc, torch.device("cuda", 0))
+            ys, dedx = fwd(x, t, ws1, bs1, 77, M, 2.0 / BUNCH, scratch_tallies)
+            h = x  # each layer on the kernel's own input
+            for l, (K, N) in enumerate(kn):
+                want = fused_linear_act_reference(
+                    h, ws1[l], bs1[l], "relu" if l < 3 else "linear",
+                    in_mask=philox_mask(77, M, K, 0.1, row0=M, device="cuda") if l == 0 else None,
+                    out_mask=philox_mask(77 + (l + 1) * 104729, M, N, 0.2, row0=M, device="cuda")
+                    if l < 3 else None, dtype=f64, bf16=tc)
+                _hold(ys[l], want, f"DP forward {M} rows layer {l} {'tc' if tc else 'f32'}",
+                      fwd_worst[tc], *tol)
+                h = ys[l]
+            _hold(dedx[:M * FLAGSHIP[-1]].view(M, FLAGSHIP[-1]),
+                  (2.0 / BUNCH) * (ys[3].double() - t.double()), f"DP forward {M} rows dedx",
+                  fwd_worst[tc])
+    shapes = ([(M, FLAGSHIP[l], FLAGSHIP[l + 1]) for M in (64, 32) for l in range(4)]
+              + [(BUNCH, 1548, 129), (8, 2048, 129), (40, 100, 37)])
+    for M, K, N in shapes:
+        dedx = _randn(gen, M, N, scale=0.02)
+        y_prev = torch.relu(_randn(gen, M, K)) * philox_mask(13, M, K, 0.2, device="cuda")
+        w = _randn(gen, K, N, scale=0.03)
+        w0 = w.clone()
+        for tc in (False, True):
+            tol = (TC_REL_MAX, TC_REL_FRO) if tc else (KERNEL_REL_MAX, KERNEL_REL_FRO)
+            grads = {}
+            for kw in ({}, {"deriv": "relu"}, {"deriv": "sigmoid"},
+                       {"in_mask": (11, 0.1), "in_scale": 1.0 / 0.9, "mask_row0": M}):
+                label = f"fused_bwd_grad_out {M}x{K}x{N} {'tc' if tc else 'f32'} {sorted(kw)}"
+                g, dy = fused_bwd_grad_out(dedx, y_prev, w, bf16=tc, **kw)
+                grads.setdefault("plain", g)
+                g_w, dy_w = fused_bwd_grad_out_reference(dedx, y_prev, w, dtype=f64, bf16=tc, **kw)
+                _hold(g[:K * N], g_w[:K * N], f"{label}, G", worst[tc], *tol)
+                _hold(g[K * N:], g_w[K * N:], f"{label}, gb", worst[tc])  # a float32 sum: no rounding
+                _hold(dy, dy_w, f"{label}, dedy", worst[tc], *tol)
+            g1, none = fused_bwd_grad_out(dedx, y_prev, w, bf16=tc, with_dedy=False)
+            _check(none is None and torch.equal(g1, grads["plain"]),
+                   "the first layer's form (no dedy) differs")
+        _check(torch.equal(w, w0), "the gradient-out backward wrote to W")
+    torch.cuda.synchronize()
+    n_eq, upd_abs = 0, {False: 0.0, True: 0.0}
+    for K, N in [(FLAGSHIP[l], FLAGSHIP[l + 1]) for l in range(4)] + [(100, 37)]:
+        w, d = _randn(gen, K, N, scale=0.03), _randn(gen, K, N, scale=0.003)
+        b, db = _randn(gen, N, scale=0.1), _randn(gen, N, scale=0.003)
+        g = _randn(gen, K * N + N, scale=0.05)
+        for first, apply in ((True, True), (True, False), (False, True), (False, False)):
+            for dd in (d, d.to(bf)):
+                sr = 4242 if dd.dtype == bf else None
+                want = dp_update_reference(w, dd, b, db, g, 0.54, 2e-3, 3e-5, sr, first, apply)
+                got = dp_update(w.clone(), dd.clone(), b.clone(), db.clone(), g, 0.54, 2e-3, 3e-5,
+                                sr_seed=sr, first=first, apply=apply)
+                for name, a, e in zip(("w", "delta", "b", "delta_b"), got, want):
+                    _check(a.dtype == e.dtype and torch.equal(a.contiguous().view(torch.uint8),
+                                                              e.contiguous().view(torch.uint8)),
+                           f"dp_update {K}x{N} first={first} apply={apply} {dd.dtype}: {name} is "
+                           f"not bit-equal to the plain version")
+                    upd_abs[dd.dtype == bf] = max(upd_abs[dd.dtype == bf],
+                                                  float((a.double() - e.double()).abs().max()))
+                    n_eq += a.numel()
+    torch.cuda.synchronize()
+    # rank_sum: 1 to 16 sources, float4 and unaligned pointers, ragged sizes, in place
+    sum_abs, n_sum = 0.0, 0
+    for n_src in (1, 2, 4, 16):
+        for n in (FLAGSHIP[1] * FLAGSHIP[2] + FLAGSHIP[2], FLAGSHIP[3] * 129 + 129, 1001, 7):
+            bufs = [_randn(gen, n + 1, scale=1e-3) for _ in range(n_src)]
+            for off in (0, 1):
+                srcs = [a[off:off + n] for a in bufs]
+                want = rank_sum_reference(srcs, torch.empty(n, device="cuda"))
+                got = rank_sum(srcs, torch.empty(n, device="cuda"))
+                inplace = srcs[0].clone()
+                rank_sum([inplace] + srcs[1:], inplace)
+                for label, a in (("", got), (" in place", inplace)):
+                    _check(torch.equal(a, want), f"rank_sum of {n_src} x {n} (offset {off}){label} "
+                                                 "is not bit-equal to the plain version")
+                    sum_abs = max(sum_abs, float((a.double() - want.double()).abs().max()))
+                n_sum += 1
+        del bufs
+    torch.cuda.synchronize()
+    print(f"[dp] fused_bwd_grad_out (the gradient-out backward) vs float64 plain, {len(shapes)} "
+          f"shapes (a rank's 64 and 32 rows of the four flagship layers, ragged ones), 4 derivative "
+          f"and mask forms: float32 products max err {worst[False]['rel_max']:.3g} of max|want| "
+          f"(tol {KERNEL_REL_MAX}), Frobenius {worst[False]['rel_fro']:.3g} (tol {KERNEL_REL_FRO}); "
+          f"tensor cores {worst[True]['rel_max']:.3g} (tol {TC_REL_MAX}), "
+          f"{worst[True]['rel_fro']:.3g} (tol {TC_REL_FRO}); W untouched; dp_update (float32 and "
+          f"sr_delta delta, the four first/apply flags) bit-equal to its plain version ({n_eq} "
+          f"elements); the DP forward of a rank's 64 and 32 rows (masks at its rows) layer by "
+          f"layer vs float64 plain: float32 products {fwd_worst[False]['rel_max']:.3g} (tol "
+          f"{KERNEL_REL_MAX}), tensor cores {fwd_worst[True]['rel_max']:.3g} (tol {TC_REL_MAX}); "
+          f"rank_sum bit-equal to its plain version ({n_sum} cases, 1-16 sources)", flush=True)
+
+    # times at a rank's rows (64 of 2 ranks, 32 of 4), each call on the next of three
+    # weight sets (from device memory, not L2, as in a chunk)
+    from tpu_sednn_torch.ops.fused_mlp import _lib as fused_lib
+
+    ws = [[_randn(gen, K, N, scale=0.03) for K, N in kn] for _ in range(3)]
+    ds = [[torch.zeros(K, N, device="cuda") for K, N in kn] for _ in range(3)]
+    ds_bf = [[torch.zeros(K, N, device="cuda", dtype=bf) for K, N in kn] for _ in range(3)]
+    bs = [_randn(gen, N, scale=0.1) for _, N in kn]
+    dbs = [torch.zeros(N, device="cuda") for _, N in kn]
+    grads = [_randn(gen, K * N + N, scale=1e-3) for K, N in kn]
+    coefs = rc._scal_coefs("parity", BUNCH, FLAGSHIP[-1], 1e-3, 0.5, 0.0)
+    out = {}
+    for M in (64, 32):
+        res = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0) for key in
+               ("fwd", "fwd_f32", "grad_f32", "grad_tc", "update", "update_sr")}
+        x, t = _randn(gen, M, FLAGSHIP[0]), _randn(gen, M, FLAGSHIP[-1])
+        for key, tc in (("fwd", True), ("fwd_f32", False)):
+            fwd = rc.dp_tile_forward(cfg, M, BUNCH, tc, torch.device("cuda", 0))
+            res[key]["ms"] = _device_ms(lambda i: fwd(x, t, ws[i % 3], bs, 77, M, 2.0 / BUNCH,
+                                                      scratch_tallies))
+        for l, (K, N) in enumerate(kn):
+            dedx = _randn(gen, M, N, scale=0.02)
+            y = torch.relu(_randn(gen, M, K))
+            dedy = torch.empty(M, K, device="cuda")
+            scratch = torch.empty(fused_lib().fused_bwd_scratch_floats(M, K, N), device="cuda")
+            first = l == 0
+            kw = dict(deriv=None if first else "relu", with_dedy=not first, grad=grads[l],
+                      dedy=None if first else dedy, scratch=scratch)
+            for tc in (False, True):
+                key = "grad_tc" if tc else "grad_f32"
+                res[key]["ms"] += _device_ms(lambda i: fused_bwd_grad_out(
+                    dedx, y, ws[i % 3][l], bf16=tc, **kw))
+                res[key]["plain_ms"] += _device_ms(lambda i: fused_bwd_grad_out_reference(
+                    dedx, y, ws[i % 3][l], deriv=kw["deriv"], with_dedy=not first, bf16=tc))
+                res[key]["flops"] += 2.0 * M * K * N * (1 if first else 2)
+                res[key]["nbytes"] += 4.0 * (M * N + M * K + (K * N if not first else 0) + K * N
+                                             + N + (M * K if not first else 0))
+            for key, dl in (("update", ds), ("update_sr", ds_bf)):
+                sr = 99 if key == "update_sr" else None
+                res[key]["ms"] += _device_ms(lambda i: dp_update(
+                    ws[i % 3][l], dl[i % 3][l], bs[l], dbs[l], grads[l], *coefs, sr_seed=sr))
+                # the sr_delta plain version draws its bits in int64 tensor arithmetic: one
+                # call's launches are as many as the CUDA launch queue holds
+                res[key]["plain_ms"] += _device_ms(lambda i: dp_update_reference(
+                    ws[i % 3][l], dl[i % 3][l], bs[l], dbs[l], grads[l], *coefs, sr),
+                    reps=1 if sr else 5)
+                per = 20.0 if key == "update" else 16.0  # G, W, delta read, W, delta written
+                res[key]["nbytes"] += per * K * N + 20.0 * N
+                res[key]["flops"] += 6.0 * K * N
+            for key in ("fwd", "fwd_f32"):
+                res[key]["flops"] += 2.0 * M * K * N
+                res[key]["nbytes"] += 4.0 * (M * K + K * N + N + M * N)
+        for key in ("fwd", "fwd_f32"):
+            res[key]["nbytes"] += 4.0 * 2 * M * FLAGSHIP[-1]  # the targets read, dedx written
+        for key, r in res.items():
+            peak = PEAK_FP32_FLOPS if key in ("grad_f32", "fwd_f32") else PEAK_BF16_FLOPS
+            t_ops, t_bytes = r["flops"] / peak * 1e3, r["nbytes"] / PEAK_BYTES_PER_S * 1e3
+            r.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
+                     else "bytes", library_ms=None)
+        # the plain forward: the DP trainer's plain version of one tile's forward is the
+        # chunk trainer's; timed as fused_linear_act_reference through the four layers
+        from tpu_sednn_torch.ops.fused_mlp import fused_linear_act_reference
+
+        def plain_fwd(i):
+            h = x
+            for l in range(4):
+                h = fused_linear_act_reference(h, ws[i % 3][l], bs[l], "relu" if l < 3 else "linear",
+                                               in_mask=(77, 0.1) if l == 0 else None,
+                                               out_mask=(77 + (l + 1) * 104729, 0.2) if l < 3
+                                               else None)
+            return h
+
+        # its Philox masks too: one call at a time
+        res["fwd"]["plain_ms"] = res["fwd_f32"]["plain_ms"] = _device_ms(plain_fwd, reps=1)
+        print(f"[dp] a rank's {M} rows of a bunch of {BUNCH} ({BUNCH // M} ranks), the four layers: "
+              f"forward {res['fwd']['ms']:.4f} ms (bound {res['fwd']['bound_ms']:.4f}), "
+              f"gradient-out backward tensor cores {res['grad_tc']['ms']:.4f} ms (bound "
+              f"{res['grad_tc']['bound_ms']:.4f} by {res['grad_tc']['bound_by']}, plain "
+              f"{res['grad_tc']['plain_ms']:.4f}), float32 {res['grad_f32']['ms']:.4f} ms (bound "
+              f"{res['grad_f32']['bound_ms']:.4f} by {res['grad_f32']['bound_by']}), update "
+              f"{res['update']['ms']:.4f} ms (bound {res['update']['bound_ms']:.4f} by bytes, plain "
+              f"{res['update']['plain_ms']:.4f}), sr_delta update {res['update_sr']['ms']:.4f} ms "
+              f"(bound {res['update_sr']['bound_ms']:.4f})", flush=True)
+        out[M] = res
+    for tc in (False, True):
+        key = "grad_tc" if tc else "grad_f32"
+        for M in (64, 32):
+            out[M][key].update(max_abs_err=worst[tc]["abs"], rel_max_err=worst[tc]["rel_max"],
+                               rel_fro_err=worst[tc]["rel_fro"])
+    for M in (64, 32):
+        out[M]["update"]["max_abs_err"] = upd_abs[False]
+        out[M]["update_sr"]["max_abs_err"] = upd_abs[True]
+        out[M]["fwd"]["max_abs_err"] = fwd_worst[True]["abs"]
+        out[M]["fwd_f32"]["max_abs_err"] = fwd_worst[False]["abs"]
+    # rank_sum per bunch: the four layers' gradients (K*N + N floats) of 2 and 4 ranks
+    sums = {}
+    for n_src in (2, 4):
+        r = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0)
+        for K, N in kn:
+            n = K * N + N
+            stacked = _randn(gen, n_src, n, scale=1e-3)
+            srcs, dst = list(stacked.unbind(0)), torch.empty(n, device="cuda")
+            r["ms"] += _device_ms(lambda i: rank_sum(srcs, dst))
+            r["plain_ms"] += _device_ms(lambda i: rank_sum_reference(srcs, dst))
+            r["library_ms"] += _device_ms(lambda i: torch.sum(stacked, 0))
+            r["nbytes"] += 4.0 * (n_src + 1) * n
+        r.update(bound_ms=r["nbytes"] / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                 max_abs_err=sum_abs)
+        sums[n_src] = r
+    out["rank_sum"] = sums
+    print(f"[dp] rank_sum of a bunch's four gradients: 2 ranks {sums[2]['ms']:.4f} ms (bound "
+          f"{sums[2]['bound_ms']:.4f} by bytes, plain {sums[2]['plain_ms']:.4f}, torch.sum "
+          f"{sums[2]['library_ms']:.4f}), 4 ranks {sums[4]['ms']:.4f} ms (bound "
+          f"{sums[4]['bound_ms']:.4f})", flush=True)
+    return out
+
+
+def _dp_trainer_times() -> dict:
+    """One rank's data-parallel chunk trainer per bunch (2 ranks: 64 rows, 4:
+    32), both product forms: CUDA events around run() over 8 bunches in this
+    process, the sum stubbed (a rank alone: its forward, gradient-out
+    backward and update launches, nothing else); its plain version over 2
+    bunches as it runs, the host's share included.  The sums are timed in the
+    ranks' own run (phase_dp)."""
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.parallel import Mesh, local_rows
+    from tpu_sednn_torch.train.step import init_train_state
+
+    cfg, opt, mlp, x, t = _dp_inputs()
+    n_t, n_p = 8, 2
+    xt, tt = x.repeat(3, 1)[:n_t * BUNCH].contiguous(), t.repeat(3, 1)[:n_t * BUNCH].contiguous()
+    coefs = rc._scal_coefs("parity", BUNCH, FLAGSHIP[-1], 1e-3, 0.5, 0.0)
+    plain_sum, out = rc._all_reduce, {}
+    rc._all_reduce = lambda a, mesh: a
+    try:
+        for w in (2, 4):
+            mesh = Mesh(w, 0, torch.device("cuda", 0))
+            xl, tl = (local_rows(a[:n_p * BUNCH], BUNCH, mesh) for a in (xt, tt))
+            for tc in (True, False):
+                run = rc.make_dp_resident_train_chunk(cfg, opt, mesh, bf16=tc)
+                st = init_train_state(mlp)
+                ms = _device_ms(lambda i: run(st, xt, tt, 4 + i, 1e-3, 0.5, 0.0), reps=3) / n_t
+                sp = init_train_state(mlp)  # host-bound: timed as it runs, the host's share in
+                plain = _time_ms(lambda: rc.dp_resident_train_chunk_reference(
+                    sp, xl, tl, cfg, BUNCH, coefs, 4, mesh, bf16=tc), reps=1, warmup=1) / n_p
+                out[(w, tc)] = dict(ms=ms, plain_ms=plain)
+    finally:
+        rc._all_reduce = plain_sum
+    print("[dp] one rank's DP chunk trainer per bunch, alone (CUDA events around run(), the sum "
+          "stubbed): " + ", ".join(f"{w} ranks {'tc' if tc else 'f32'} {v['ms']:.4f} ms (plain "
+                                   f"{v['plain_ms']:.3f})" for (w, tc), v in out.items()),
+          flush=True)
+    return out
+
+
+def _dp_update_off(got: list, want, init) -> tuple[float, float, float]:
+    """(worst max|got - want| / max|want - init|, worst relative Frobenius
+    error of the update, largest |got - want|) over the state tensors."""
+    rel_max, rel_fro, abs_max = 0.0, 0.0, 0.0
+    for g, w, i0 in zip(got, _state_tensors(want), _state_tensors(init)):
+        g, w, upd = g.double().cuda(), w.double(), w.double() - i0.double()
+        rel_max = max(rel_max, float((g - w).abs().max() / upd.abs().max().clamp(min=1e-30)))
+        rel_fro = max(rel_fro, float(torch.linalg.vector_norm(g - w)
+                                     / torch.linalg.vector_norm(upd).clamp(min=1e-30)))
+        abs_max = max(abs_max, float((g - w).abs().max()))
+    return rel_max, rel_fro, abs_max
+
+
+def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
+    """(a) kernel holds and times, (b) the DP chunk trainer on 2 and 4 ranks
+    sharing the card (gloo) against the single-process trainer, (c) the
+    command with gpu_used=2 under torchrun against gpu_used=1."""
+    from tpu_sednn_torch.io import load_wts, save_wts
+    from tpu_sednn_torch.model.mlp import init_params, params_to_wts
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.tools import make_pfile
+    from tpu_sednn_torch.train.step import init_train_state
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    kern = _dp_kernels(gen)
+    torch.cuda.empty_cache()
+    alone = _dp_trainer_times()
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    # the corpus of phase_train, or a small one of the same kind
+    n_utt = 200 if train_ran else 40
+    corpus = _corpus_paths(tmp, n_utt)
+    if not train_ran:
+        noisy, clean = _corpus_wavs(tmp, n_utt)
+        make_pfile.build_pfile(noisy, corpus["fea"], corpus["norm"], device="cuda")
+        make_pfile.build_pfile(clean, corpus["targ"], f"{tmp}/clean.norm", normalize=True,
+                               device="cuda")
+    lo, hi = (int(v) for v in corpus["cv_range"].split("-"))
+
+    # (b) four ranks on the card, gloo; two of them again in a group of two
+    t0 = time.perf_counter()
+    workdir = os.path.join(tmp, "dp")
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump({"epoch": dict(fea_file=corpus["fea"], targ_file=corpus["targ"],
+                                 norm_file=corpus["norm"], fea_dim=129, fea_context=11,
+                                 targ_offset=5, train_sent_range=[0, 1], cv_sent_range=[lo, hi],
+                                 traincache=102400, seed=11)}, f)
+    world = 4
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+                               str(world), workdir], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        _check(p.returncode == 0, f"DP rank {r} of {world} failed (rc {p.returncode}):\n{o[-4000:]}")
+    t_spawn = time.perf_counter() - t0
+    with open(os.path.join(workdir, "rank0.json")) as f:
+        r0 = json.load(f)
+    hashes = [r0["hashes"]] + [json.load(open(os.path.join(workdir, f"rank{r}.json")))["hashes"]
+                                for r in range(1, world)]
+    cfg, opt, mlp, x, t = _dp_inputs()
+    init = init_train_state(mlp)
+    singles = {}
+    held = {}
+    for name, w, tc, n_b, extra in DP_CASES:
+        key = (tc, n_b, bool(extra.get("sr_delta")))
+        if key not in singles:
+            singles[key] = rc.make_resident_train_chunk(cfg, opt, bf16=tc,
+                                                        sr_delta=key[2])(
+                init_train_state(mlp), x[:n_b * BUNCH], t[:n_b * BUNCH], 17, *DP_HYP)
+            torch.cuda.synchronize()
+        single = singles[key]
+        saved = torch.load(os.path.join(workdir, f"{name}.pt"))
+        got, step = saved[:-1], saved[-1]
+        equal = all(hashes[r][name] == hashes[0][name] for r in range(w))
+        rel_max, rel_fro, abs_max = _dp_update_off(got, single, init)
+        held[name] = dict(rel_max=rel_max, rel_fro=rel_fro, abs=abs_max, replicas_equal=equal)
+        sr = bool(extra.get("sr_delta"))
+        three_tol = SR_DELTA_FRO if sr else DP_THREE_REL_FRO
+        if sr:  # the share of delta_w's bfloat16 values apart from the single-process run's
+            held[name]["sr_share"] = max(float((_bits16(got[8 + l].cuda())
+                                                != _bits16(single.deltas.w[l])).float().mean())
+                                         for l in range(4))
+        if "fault" in extra:
+            off, tol = (rel_max, DP_ONE_REL_MAX) if n_b == 1 else (rel_fro, three_tol)
+            _check(off > tol or (sr and held[name]["sr_share"] > SR_DIFF_SHARE),
+                   f"DP {name} (a deliberate fault) passes: update off by {off:.3g} (tol {tol})")
+            continue
+        _check(equal, f"DP {name}: the {w} replicas are not bit-equal")
+        _check(step == single.step == n_b, f"DP {name}: step {step}, single {single.step}")
+        if sr and n_b == 1:  # delta_w rounded stochastically: one ulp where G's order decides
+            sr_stats = {}
+            for l in range(4):
+                _hold_sr(got[8 + l].cuda(), single.deltas.w[l], f"DP {name} delta_w[{l}]", sr_stats)
+            rel_max, _, _ = _dp_update_off(got[:8], single, init)
+            held[name]["rel_max"] = rel_max
+        elif sr:
+            _check(held[name]["sr_share"] <= SR_DIFF_SHARE,
+                   f"DP {name}: {held[name]['sr_share']:.3g} of delta_w apart after {n_b} bunches "
+                   f"(limit {SR_DIFF_SHARE})")
+        if n_b == 1:
+            _check(rel_max <= DP_ONE_REL_MAX, f"DP {name}: update off the single-process trainer by "
+                                              f"{rel_max:.3g} of max|update| (tol {DP_ONE_REL_MAX})")
+        else:
+            _check(rel_fro <= three_tol, f"DP {name}: update off by {rel_fro:.3g} relative "
+                                         f"Frobenius after {n_b} bunches (tol {three_tol})")
+    print(f"[dp] chunk trainer on 2 and 4 ranks sharing the card (gloo), 1548-2048x3-129, parity "
+          f"dropout 0.1/0.2, against the single-process trainer with the same seed: after one "
+          f"bunch max|update| off by " + ", ".join(
+              f"{n} {held[n]['rel_max']:.2g}" for n in held if n.endswith("_1"))
+          + f" (tol {DP_ONE_REL_MAX}); after three, relative Frobenius " + ", ".join(
+              f"{n} {held[n]['rel_fro']:.2g}" for n in held if n.endswith("_3"))
+          + f" (tol {DP_THREE_REL_FRO}; sr_delta {SR_DELTA_FRO}); sr_delta one bunch "
+          f"{held['w2_sr_delta_1']['rel_max']:.2g}, delta_w bit-equal but a "
+          f"{held['w2_sr_delta_1']['sr_share']:.2g} share "
+          f"({held['w2_sr_delta_f32_3']['sr_share']:.2g} after three, float32 products); replicas bit-equal in every run; refused: "
+          + ", ".join(f"{n} {held[n]['rel_max']:.3g}" for n in held
+                      if "no_allreduce" in n or "row0" in n)
+          + " of max|update|, " + ", ".join(f"{n} {held[n]['rel_fro']:.3g}" for n in held
+                                              if "mask_key" in n or "sr_key" in n)
+          + f" relative Frobenius after three (w2_sr_key: {held['w2_sr_key']['sr_share']:.3g} of "
+            f"delta_w apart)", flush=True)
+    timing = {int(k): v for k, v in r0["timing"].items()}
+    for w, v in sorted(timing.items()):
+        print(f"[dp] {w} ranks sharing {smi}: {v['bunch_ms']:.3f} ms per bunch of {BUNCH} by the "
+              f"host clock, of which the sums on the card ({v['allreduce_mb']:.1f} MB a bunch from "
+              f"each rank: staging copy, synchronise, gloo barrier, rank_sum kernel "
+              f"{kern['rank_sum'][w]['ms']:.4f} ms) {v['allreduce_ms']:.3f} ms; one rank's "
+              f"trainer alone {alone[(w, True)]['ms']:.4f} ms (forward "
+              f"{kern[BUNCH // w]['fwd']['ms']:.4f}, gradient-out backward "
+              f"{kern[BUNCH // w]['grad_tc']['ms']:.4f}, update "
+              f"{kern[BUNCH // w]['update']['ms']:.4f} ms, each timed alone)", flush=True)
+    # the in-process epochs of the ranks: float32 products and sr_delta, against one process
+    from tpu_sednn_torch.data.rand48 import Rand48
+    from tpu_sednn_torch.train.loop import train_epoch_pfile
+    from tpu_sednn_torch.train.step import OptConfig
+    from tpu_sednn_torch.utils.logging import Logger
+
+    job = json.load(open(os.path.join(workdir, "job.json")))["epoch"]
+    job = {k: tuple(v) if isinstance(v, list) else v for k, v in job.items()}
+    epochs = {}
+    for label, kw, frac in (("f32", {"bf16": False}, 1e-3), ("sr_delta", {"sr_delta": True},
+                                                              SR_CV_FRACTION)):
+        cfg_cmd = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
+        st = init_train_state(init_params(torch.Generator().manual_seed(11), cfg_cmd,
+                                          scheme="glorot", device="cuda"))
+        _, res = train_epoch_pfile(st, cfg_cmd, OptConfig(lrate=0.1, momentum=0.5, weightcost=0.0,
+                                                          bunchsize=BUNCH), **job, rand=Rand48(11),
+                                   engine="resident", engine_kwargs=kw,
+                                   logger=Logger(stream=None))
+        dp = r0["epochs"][label]
+        off = abs(dp["cv"] - res.cv_mse) / res.cv_mse
+        c = dp["counts"]
+        n_bunches = c["dp_update"] // 4
+        _check(np.isfinite(dp["cv"]) and off <= frac and c["dp_resident_chunk"] >= 1
+               and n_bunches > 0 and c["fused_bwd_grad_out"] == 4 * n_bunches
+               and c["rank_sum"] == 4 * n_bunches
+               and c["resident_chunk"] == 0 and c["plain_train_chunk"] == 0,
+               f"DP pfile epoch ({label}) on {world} ranks: CV {dp['cv']} vs one process "
+               f"{res.cv_mse} ({off:.3g} apart, tol {frac}); counts {c}")
+        epochs[label] = dict(cv=dp["cv"], cv_one=res.cv_mse, off=off, counts=c)
+        print(f"[dp] train_epoch_pfile on {world} ranks (sentences 0-1, {n_bunches} bunches), "
+              f"{label}: CV {dp['cv']:.6f}, one process {res.cv_mse:.6f} ({off:.3g} apart, tol "
+              f"{frac}); rank 0 launched {c['fused_bwd_grad_out']} gradient-out backwards "
+              f"({c['fused_bwd_grad_out_tc']} tensor-core), {c['dp_update']} updates "
+              f"({c['dp_update_sr']} sr_delta), {c['rank_sum']} sums on the card", flush=True)
+    t_b = time.perf_counter() - t0
+
+    # (c) the command: torchrun, 2 ranks, gpu_used=2, tensor cores, dropout on, against
+    # gpu_used=1 on the same sentences from the same weights
+    t0 = time.perf_counter()
+    init_wts = f"{tmp}/mlp.1.wts"
+    if not os.path.exists(init_wts):
+        init_wts = f"{tmp}/dp_init.wts"
+        save_wts(init_wts, *params_to_wts(init_params(torch.Generator().manual_seed(5),
+                                                      _flagship_cfg(), device="cpu")))
+    common = ["dropoutflag=1", "momentum=0.5", "init_randem_seed=11", "engine=auto"]
+    report = os.path.join(tmp, "launches_dp2.json")
+    args2 = _train_args(tmp, corpus, "dp2", init_wts, "0-19", common + ["gpu_used=2"])
+    t_cmd = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node=2", "-m", "tpu_sednn_torch.cli"] + args2, cwd=ROOT,
+                          env=dict(os.environ, TPU_SEDNN_TORCH_LAUNCH_REPORT=report),
+                          capture_output=True, text=True, timeout=900)
+    wall2 = time.perf_counter() - t_cmd
+    _check(proc.returncode == 0, f"torchrun gpu_used=2 failed:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+    _check(proc.stdout.count("all finish!") == 1 and "backend gloo" in proc.stderr,
+           "torchrun gpu_used=2: not one 'all finish!' or no gloo backend line")
+    log2 = open(f"{tmp}/dp2.log").read()
+    cv2 = [float(l.rsplit(":", 1)[1]) for l in log2.splitlines() if l.startswith("CV over.")]
+    _check(len(cv2) == 1 and np.isfinite(cv2[0]), f"gpu_used=2: CV lines {cv2}")
+    cv1, c1 = _epoch_in_process(tmp, _train_args(tmp, corpus, "dp1", init_wts, "0-19", common),
+                                "gpu_used=1 twin", engine_kwargs={})
+    c2 = json.load(open(report))
+    chunk_sizes = [int(l.split()[-2]) for l in log2.splitlines() if l.startswith("Starting chunk")]
+    n_bunches = sum(c // BUNCH for c in chunk_sizes)
+    k2 = c2["resident_chunk_kernels"]
+    _check(c2["dp_resident_chunk"] == len(chunk_sizes) and c2["resident_chunk"] == 0
+           and c2["plain_train_chunk"] == 0 and c2["fused_bwd_grad_out_tc"] == 4 * n_bunches
+           and c2["fused_bwd_grad_out"] == 4 * n_bunches and c2["dp_update"] == 4 * n_bunches
+           and c2["rank_sum"] == 4 * n_bunches
+           and k2["tc_linear_act"] == k2["fused_linear_act"] == 4 * n_bunches
+           and k2["fused_bwd_update"] == 0 and c1["resident_chunk"] == len(chunk_sizes),
+           f"gpu_used=2 launches {c2} for {n_bunches} bunches; gpu_used=1 {c1}")
+    (w2, b2), (w1, b1), (w0, b0) = (load_wts(f, layersizes=list(FLAGSHIP)) for f in
+                                    (f"{tmp}/dp2.wts", f"{tmp}/dp1.wts", init_wts))
+    upd = max(float(np.linalg.norm(a - b) / np.linalg.norm(b - c))
+              for a, b, c in zip(w2 + b2, w1 + b1, w0 + b0))
+    cv_off = abs(cv2[0] - cv1) / cv1
+    _check(cv_off <= DP_CV_FRACTION and upd <= TC_ENGINE_REL_FRO,
+           f"gpu_used=2 vs gpu_used=1: CV {cv2[0]} vs {cv1} ({cv_off:.3g} apart, tol "
+           f"{DP_CV_FRACTION}), update off by {upd:.3g} (tol {TC_ENGINE_REL_FRO})")
+    secs = [float(l.split()[3]) for l in log2.splitlines() if l.startswith("Total cost time:")]
+    n_samples = int(next(l for l in log2.splitlines()
+                         if l.startswith("Training sentences have")).split()[5])
+    t_c = time.perf_counter() - t0
+    print(f"[dp] python -m torch.distributed.run --nproc_per_node=2 -m tpu_sednn_torch.cli ... "
+          f"gpu_used=2 (2 ranks sharing {smi}, gloo, tensor cores, parity dropout 0.1/0.2, "
+          f"sentences 0-19: {n_bunches} bunches): CV MSE {cv2[0]:.6f}, gpu_used=1 {cv1:.6f} "
+          f"({cv_off:.3g} apart, tol {DP_CV_FRACTION}); the epoch's update within {upd:.3g} "
+          f"relative Frobenius (tol {TC_ENGINE_REL_FRO}); epoch {secs[0]:.1f} s by rank 0's clock "
+          f"= {n_samples / secs[0]:.0f} samples/s, command wall {wall2:.1f} s; rank 0 launched "
+          f"{c2['fused_bwd_grad_out_tc']} tensor-core gradient-out backwards, {c2['dp_update']} "
+          f"updates, {c2['rank_sum']} sums on the card, {k2['tc_linear_act']} tensor-core "
+          f"forwards; [dp] phase (a) {t_a:.1f} s, "
+          f"(b) {t_b:.1f} s (the ranks' spawn and runs {t_spawn:.1f} s), (c) {t_c:.1f} s",
+          flush=True)
+    return dict(kern=kern, alone={f"{w}_{'tc' if tc else 'f32'}": v for (w, tc), v in alone.items()},
+                held=held, timing=timing, epochs=epochs,
+                cmd=dict(cv=cv2[0], cv_one=cv1, cv_off=cv_off, update_off=upd, counts=c2,
+                         n_bunches=n_bunches, epoch_s=secs[0], wall_s=wall2),
+                seconds=dict(a=t_a, b=t_b, c=t_c))
+
+
+def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path) -> list:
+    """The `kernels` line's rows of the data-parallel forms: the gradient-out
+    backward and the update kernel (times at a rank's 64 rows, 2 ranks, with
+    the 32 rows of 4 beside), rank_sum (a bunch's four sums, 2 ranks, 4
+    beside) and the DP chunk trainer per bunch and rank."""
+    k64, k32, held, timing = dp["kern"][64], dp["kern"][32], dp["held"], dp["timing"]
+    replaces = "tpu_sednn/ops/resident_chunk.py:169"
+    shape = "a rank's 64 rows of a bunch of 128 (2 ranks) through the four layers of 1548-2048x3-129"
+
+    def row(name, source, launches, timing_of, at32, **more):
+        return dict(name=name, source=source, replaces=replaces, route="cuda", launches=launches,
+                    launches_by_path=by_path(0, 0, train_dp=launches), shape=shape,
+                    at_32_rows=at32, **more, **timing_of)
+
+    def trainer(tc: bool) -> dict:
+        """One rank's trainer per bunch, timed as a whole with the sum stubbed; the
+        bound of its forward, gradient-out backward and update."""
+        form = "tc" if tc else "f32"
+        parts = [k64["fwd" if tc else "fwd_f32"], k64["grad_tc" if tc else "grad_f32"],
+                 k64["update"]]
+        peak = PEAK_BF16_FLOPS if tc else PEAK_FP32_FLOPS
+        t_ops = sum(p["flops"] for p in parts) / peak * 1e3
+        t_bytes = sum(p["nbytes"] for p in parts) / PEAK_BYTES_PER_S * 1e3
+        one = [h for n, h in held.items() if n.endswith(f"{form}_1")]
+        a2, a4 = dp["alone"][f"2_{form}"], dp["alone"][f"4_{form}"]
+        return dict(ms=a2["ms"], plain_ms=a2["plain_ms"], at_32_rows_ms=a4["ms"],
+                    bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
+                    else "bytes", library_ms=None, max_abs_err=max(h["abs"] for h in one),
+                    max_abs_err_is="largest absolute difference of a state tensor from the "
+                                   "single-process trainer after one bunch (2 and 4 ranks)",
+                    parts_ms={"forward": parts[0]["ms"], "grad_out": parts[1]["ms"],
+                              "update": parts[2]["ms"]},
+                    sums_ms_by_ranks={w: v["allreduce_ms"] for w, v in timing.items()},
+                    bunch_ms_by_ranks={w: v["bunch_ms"] for w, v in timing.items()},
+                    times_of="ms / plain_ms: one rank's run per bunch (2 ranks), CUDA events "
+                             "around run() with the sum stubbed; parts_ms each part alone; "
+                             "sums_ms and bunch_ms by the host clock in the ranks' own run "
+                             "(the sums on the card: staging copy, barrier, rank_sum)")
+
+    grad_f32 = dw["fused_bwd_grad_out"] - dw["fused_bwd_grad_out_tc"]
+    upd_f32 = dw["dp_update"] - dw["dp_update_sr"]
+    s2, s4 = dp["kern"]["rank_sum"][2], dp["kern"]["rank_sum"][4]
+    return [
+        row("fused_bwd_grad_out_tc", "tpu_sednn_torch/csrc/fused_mlp.cuh",
+            dw["fused_bwd_grad_out_tc"], k64["grad_tc"], k32["grad_tc"],
+            launches_of="tc_bwd_kernel in its gradient-out form (G and gb written, nothing "
+                        "updated), with reduce_dedy_kernel where a layer below takes dedy "
+                        f"({dw['fused_bwd_grad_out_reduce']} launches, either form)"),
+        row("fused_bwd_grad_out", "tpu_sednn_torch/csrc/fused_mlp.cuh", grad_f32,
+            k64["grad_f32"], k32["grad_f32"],
+            launches_of="bwd_kernel (float32 products) in its gradient-out form"),
+        row("dp_update", "tpu_sednn_torch/csrc/fused_mlp.cuh", upd_f32, k64["update"],
+            k32["update"], launches_of="update_kernel on float32 W and delta",
+            max_abs_err_is="largest difference read from the plain version (bit-equal held)"),
+        row("dp_update_sr", "tpu_sednn_torch/csrc/fused_mlp.cuh", dw["dp_update_sr"],
+            k64["update_sr"], k32["update_sr"],
+            launches_of="update_kernel on bfloat16 delta (sr_delta), stochastic rounding",
+            max_abs_err_is="largest difference read from the plain version with the same bits "
+                           "(bit-equal held)"),
+        dict(name="rank_sum", source="tpu_sednn_torch/csrc/rank_sum.cu",
+             replaces="tpu_sednn/ops/resident_chunk.py:223", route="cuda", launches=dw["rank_sum"],
+             launches_by_path=by_path(0, 0, train_dp=dw["rank_sum"]),
+             shape="the four gradients of 1548-2048x3-129 (K*N + N floats each) of 2 ranks, per "
+                   "bunch", launches_of="sums of a layer's gradient over ranks sharing the card",
+             max_abs_err_is="largest difference read from the plain version (bit-equal held)",
+             library_is="torch.sum over the ranks' gradients stacked (n_ranks, K*N + N)",
+             at_4_ranks={k: s4[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+             **{k: s2[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err")}),
+        row("resident_chunk_dp_tc", "tpu_sednn_torch/csrc/resident_chunk.cu", tc_runs,
+            trainer(True), None,
+            launches_of="data-parallel chunk-trainer runs with tensor-core products (the "
+                        "command's gpu_used=2 and the ranks' sr_delta epoch), rank 0's"),
+        row("resident_chunk_dp", "tpu_sednn_torch/csrc/resident_chunk.cu", f32_runs,
+            trainer(False), None,
+            launches_of="data-parallel chunk-trainer runs with float32 products, rank 0's"),
+    ]
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--only", default="", help="comma-separated subset of serve,kernels,train "
+    ap.add_argument("--only", default="", help="comma-separated subset of serve,kernels,train,dp "
                     "(for development: prints no kernels line and no final line, exits with 2)")
+    ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "WORLD", "DIR"),
+                    help="one rank of the dp phase's runs (started by the dp phase itself)")
     args = ap.parse_args(argv)
-    groups = set(filter(None, args.only.split(","))) or {"serve", "kernels", "train"}
-    if not groups <= {"serve", "kernels", "train"}:
+    everything = {"serve", "kernels", "train", "dp"}
+    groups = set(filter(None, args.only.split(","))) or everything
+    if not groups <= everything:
         ap.error(f"unknown group in --only {args.only!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU",
@@ -2242,6 +3030,8 @@ def main(argv=None) -> int:
     from tpu_sednn_torch import resolve_device
 
     resolve_device("cuda")
+    if args.dp_worker:
+        return dp_worker(int(args.dp_worker[0]), int(args.dp_worker[1]), args.dp_worker[2])
     t_start = time.perf_counter()
     smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -2268,8 +3058,11 @@ def main(argv=None) -> int:
         if "train" in groups:
             train = phase_train(tmp, smi)
             arrays = phase_train_arrays(tmp, smi)
+        if "dp" in groups:
+            torch.cuda.empty_cache()
+            dp = phase_dp(tmp, smi, train_ran="train" in groups)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    if groups != {"serve", "kernels", "train"}:
+    if groups != everything:
         print(f"partial run (--only {args.only}): no kernels line, no final line", file=sys.stderr)
         return 2
 
@@ -2297,10 +3090,31 @@ def main(argv=None) -> int:
                     ("fused_bwd_update (tensor cores)", akc["tc_bwd_update"]),
                     ("philox_mask", akc["philox_mask"]), ("stft_lps", ac["stft_lps"])):
         _check(n > 0, f"the in-memory training path never launched the {name} kernel")
+    # the data-parallel path: the command on 2 ranks and the ranks' pfile epochs (rank 0's
+    # counts, each run's zeroed just before it)
+    dp_runs = dict(cmd=dp["cmd"]["counts"], **{k: e["counts"] for k, e in dp["epochs"].items()})
+    dw = {k: sum(c[k] for c in dp_runs.values()) for k in
+          ("fused_bwd_grad_out", "fused_bwd_grad_out_tc", "fused_bwd_grad_out_reduce",
+           "dp_update", "dp_update_sr", "rank_sum")}
+    dkc = {k: sum(c["resident_chunk_kernels"][k] for c in dp_runs.values()) for k in kc}
+    dp_tc_runs = dp_runs["cmd"]["dp_resident_chunk"] + dp_runs["sr_delta"]["dp_resident_chunk"]
+    dp_f32_runs = dp_runs["f32"]["dp_resident_chunk"]
+    for name, n in (("fused_bwd_grad_out (tensor cores)", dw["fused_bwd_grad_out_tc"]),
+                    ("fused_bwd_grad_out (float32)",
+                     dw["fused_bwd_grad_out"] - dw["fused_bwd_grad_out_tc"]),
+                    ("dp_update", dw["dp_update"] - dw["dp_update_sr"]),
+                    ("dp_update (sr_delta)", dw["dp_update_sr"]),
+                    ("rank_sum", dw["rank_sum"]),
+                    ("the DP chunk trainer (tensor cores)", dp_tc_runs),
+                    ("the DP chunk trainer (float32 products)", dp_f32_runs),
+                    ("fused_linear_act (tensor cores)", dkc["tc_linear_act"]),
+                    ("fused_linear_act", dkc["fused_linear_act"] - dkc["tc_linear_act"]),
+                    ("philox_mask", dkc["philox_mask"])):
+        _check(n > 0, f"the data-parallel training path never launched the {name} kernel")
 
-    def by_path(train_n, arrays_n, make_pfile=0, serving=0):
+    def by_path(train_n, arrays_n, make_pfile=0, serving=0, train_dp=0):
         return {"make_pfile": make_pfile, "serving": serving, "train": train_n,
-                "train_arrays": arrays_n}
+                "train_arrays": arrays_n, "train_dp": train_dp}
 
     def variant(name, form, timing_key, what):
         return dict(name=f"resident_chunk_{name}", source="tpu_sednn_torch/csrc/resident_chunk.cu",
@@ -2312,18 +3126,19 @@ def main(argv=None) -> int:
                     shape=f"{BUNCH} x 3084-2048x3-257, per bunch", **wide["timing"][timing_key])
 
     def layer_launches(kernel, wrapper, form):
-        """(train, arrays) launches of kernel 1 or 2 in one product form: the chunk
-        trainer's tallies plus the wrapper's own counts; form "tc" or "f32"."""
+        """(train, arrays, train_dp) launches of kernel 1 or 2 in one product form: the
+        chunk trainers' tallies plus the wrapper's own counts; form "tc" or "f32"."""
         tc_key = {"fused_linear_act": "tc_linear_act", "fused_bwd_update": "tc_bwd_update"}[kernel]
         tr_tc, ar_tc = kc[tc_key] + tw[wrapper + "_tc"], akc[tc_key] + ac[wrapper + "_tc"]
         if form == "tc":
-            return tr_tc, ar_tc
-        return kc[kernel] + tw[wrapper] - tr_tc, akc[kernel] + ac[wrapper] - ar_tc
+            return tr_tc, ar_tc, dkc[tc_key]
+        return (kc[kernel] + tw[wrapper] - tr_tc, akc[kernel] + ac[wrapper] - ar_tc,
+                dkc[kernel] - dkc[tc_key])
 
     def layer_row(name, kernel, form, source, replaces, timing, **more):
-        tr, ar = layer_launches(kernel, kernel, form)
-        return dict(name=name, source=source, replaces=replaces, launches=tr + ar,
-                    launches_by_path=by_path(tr, ar), route="cuda",
+        tr, ar, dpn = layer_launches(kernel, kernel, form)
+        return dict(name=name, source=source, replaces=replaces, launches=tr + ar + dpn,
+                    launches_by_path=by_path(tr, ar, train_dp=dpn), route="cuda",
                     shape="one bunch of 128 through the four layers of 1548-2048x3-129",
                     **more, **timing)
 
@@ -2343,7 +3158,7 @@ def main(argv=None) -> int:
                               "split over the grid, either form) in sum_launches; bf16_launches "
                               "read bfloat16 weights (sr_state, either form)",
                   sum_launches=kc["fused_linear_act_sum"] + tw["fused_linear_act_sum"]
-                  + akc["fused_linear_act_sum"],
+                  + akc["fused_linear_act_sum"] + dkc["fused_linear_act_sum"],
                   bf16_launches=akc["bf16_linear_act"], bf16_storage=sr["bf16_storage"]),
         layer_row("fused_linear_act_tc", "fused_linear_act", "tc",
                   "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:65",
@@ -2380,8 +3195,9 @@ def main(argv=None) -> int:
              route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",
              replaces="tpu_sednn/ops/resident_chunk.py:970",
-             launches=kc["philox_mask"] + akc["philox_mask"],
-             launches_by_path=by_path(kc["philox_mask"], akc["philox_mask"]),
+             launches=kc["philox_mask"] + akc["philox_mask"] + dkc["philox_mask"],
+             launches_by_path=by_path(kc["philox_mask"], akc["philox_mask"],
+                                      train_dp=dkc["philox_mask"]),
              **masks, route="cuda"),
         variant("sr_delta", "sr_delta", "sr_delta", "sr_delta, parity, dropout 0.1/0.2"),
         variant("sr_state", "sr_state", "sr_state", "sr_state, parity, dropout 0.1/0.2"),
@@ -2400,6 +3216,7 @@ def main(argv=None) -> int:
              launches=ac["sr_momentum_update"],
              launches_by_path=by_path(0, ac["sr_momentum_update"]), **sr["k6"]),
     ]
+    kernels += _dp_rows(dp, dw, dp_tc_runs, dp_f32_runs, by_path)
     spill = next(k for k in kernels if k["name"] == "resident_chunk_hbm_spill")
     spill.update(max_abs_err=wide["spill_max_abs"],
                  max_abs_err_is="largest absolute difference of a state tensor from the unspilled "
@@ -2410,6 +3227,7 @@ def main(argv=None) -> int:
     for k in kernels:
         _check(keys <= set(k), f"kernels line: {k['name']} lacks {keys - set(k)}")
     print(f"[arrays] summary {json.dumps(arrays)}")
+    print(f"[dp] summary {json.dumps(dp)}")
     print(f"[train] summary {json.dumps(train)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

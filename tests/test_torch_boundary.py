@@ -41,7 +41,7 @@ def test_checker_sees_the_difference(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["sr_update", "dropout_mask", "fused_mlp", "resident_chunk",
-                                  "stft_lps"])
+                                  "stft_lps", "rank_sum"])
 def test_kernel_sources_are_listed_with_their_headers(name):
     """Every csrc/<name>.cu is in KERNEL_SOURCES, and its library's name
     hashes the headers it includes (so an edited header rebuilds it)."""
@@ -55,6 +55,6 @@ def test_kernel_sources_are_listed_with_their_headers(name):
             "fused_mlp": {"fused_mlp.cuh", "mma_bf16.cuh", "sr_round.cuh", "philox.cuh", "vec4.cuh"},
             "resident_chunk": {"fused_mlp.cuh", "mma_bf16.cuh", "sr_round.cuh", "philox.cuh",
                                "vec4.cuh"},
-            "stft_lps": set()}[name]
+            "stft_lps": set(), "rank_sum": set()}[name]
     assert files == want | {f"{name}.cu"}
     assert _build.library_path(name).parent == _build.BUILD_DIR

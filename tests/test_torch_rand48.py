@@ -87,5 +87,7 @@ def test_flags_validate():
         TrainFlags.from_argv(["layersizes=10,4,3", "fea_dim=5", "fea_context=3"]).validate()
     with pytest.raises(ValueError, match="format error"):
         TrainFlags.from_argv(["train_sent_range=5"]).sent_range("train")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TrainFlags.from_argv(["gpu_used=2"]).validate()
+    # data parallelism is ported: gpu_used > 1 validates (the command then
+    # checks that as many processes run), as the JAX flags do
+    TrainFlags.from_argv(["gpu_used=2"]).validate()
+    JFlags.from_argv(["gpu_used=2"]).validate()

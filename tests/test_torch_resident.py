@@ -208,8 +208,11 @@ def test_unported_variants_raise(kwargs):
 
 def test_factory_guards():
     cfg, opt = tm.ModelConfig(layersizes=(16, 16, 16)), OptConfig(bunchsize=16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        rc.make_dp_resident_train_chunk(cfg, opt, None)
+    from tpu_sednn_torch.parallel import Mesh, make_mesh
+
+    with pytest.raises(ValueError, match="power of two"):
+        rc.make_dp_resident_train_chunk(cfg, opt, Mesh(3, 0, torch.device("cpu")))
+    assert rc.make_dp_resident_train_chunk(cfg, opt, make_mesh())  # one rank, no process group
     with pytest.raises(ValueError):
         rc.make_resident_train_chunk(cfg, opt, rule="nope")
     with pytest.raises(ValueError):
@@ -244,7 +247,7 @@ def test_chunk_runner_engines_and_required_hyperparameters():
         runs["auto"](init_train_state(mlp), xt, tt, gen)
     with pytest.raises(ValueError):
         make_chunk_runner(cfg, opt, "nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="world size"):  # 2 shards need a group of 2 processes
         make_chunk_runner(cfg, opt, "xla", n_data_shards=2, device="cpu")
 
 

@@ -272,8 +272,9 @@ def test_factory_guards_raise_as_the_jax_factory_does(match, bunch, kw):
 
 
 def test_still_unported_and_state_checks():
-    """Only the data-parallel trainer still raises; bf16=True (every storage
-    form) builds a runner, and the CPU launches no kernel."""
+    """Nothing raises "not yet ported" any more: bf16=True (every storage
+    form) and the data-parallel trainer with sr_delta (on one rank) build
+    runners, and the CPU launches no kernel."""
     cfg, opt = tm.ModelConfig(layersizes=(16, 16, 16)), OptConfig(bunchsize=16)
     mlp = tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     before = dict(rc.kernel_launches)
@@ -282,8 +283,12 @@ def test_still_unported_and_state_checks():
             init_train_state(mlp), torch.zeros(16, 16), torch.zeros(16, 16), 0)
         assert st.step == 1
     assert dict(rc.kernel_launches) == before
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        rc.make_dp_resident_train_chunk(cfg, opt, None, sr_delta=True)
+    from tpu_sednn_torch.parallel import make_mesh
+
+    st = rc.make_dp_resident_train_chunk(cfg, opt, make_mesh(), sr_delta=True)(
+        init_train_state(mlp), torch.zeros(16, 16), torch.zeros(16, 16), 0)
+    assert st.step == 1 and st.deltas.w[0].dtype == torch.bfloat16
+    assert dict(rc.kernel_launches) == before
     for name in ("sr_bwd_update", "tiled_bwd_update", "bf16_linear_act"):
         assert rc.kernel_launches[name] == 0  # the CPU launches no kernel
 

@@ -135,7 +135,7 @@ def test_cli_module_runs_as_a_command(corpus):
 def test_cli_defaults_to_the_card_and_rejects_bad_flags(corpus):
     with pytest.raises(ValueError, match="layersizes"):
         run_epoch(TrainFlags.from_argv(["layersizes=10,4,3", "fea_dim=5", "fea_context=3"]))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="processes"):  # gpu_used=4 in one process
         run_epoch(TrainFlags.from_argv(_argv(corpus, "g", ("device=cpu", "gpu_used=4"))))
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the call would not raise")

@@ -15,6 +15,7 @@ dsp       framing, rDFT/irDFT, log-power spectrum, overlap-add ISTFT
 ops       hand-written Hopper kernels, their wrappers and plain versions
 model     MLP (JAX weight layout), init, train and eval forward, .wts interop
 train     plain torch train/CV steps, the epoch loop and its chunk engines
+parallel  data parallelism over torch.distributed: process group, mesh, host regroup
 recipes   the fine-tune recipe (momentum schedule, warm start per epoch)
 utils     Logger
 enhance   offline/batched decode and the `python -m tpu_sednn_torch.enhance` CLI

@@ -14,6 +14,17 @@ there is no card; `device=cpu` runs the plain float32 torch trainer).
 NAT semantics: layersizes[0] == fea_dim*fea_context + fea_dim is enforced as
 in the reference (Interface.cc:395-399); dropoutflag gates parity dropout.
 
+Data parallelism: gpu_used=N trains on N ranks, one process each, launched by
+torchrun:
+
+    python -m torch.distributed.run --nproc_per_node=N -m tpu_sednn_torch.cli ... gpu_used=N
+
+Each rank takes its rows of every bunch and the gradients are summed between
+the ranks before every update (parallel/mesh.py; the backend is nccl where
+every rank has a card of its own, gloo where ranks share a card or run on
+the CPU).  The number of processes must equal gpu_used.  Rank 0 alone writes
+the log, the .wts and the launch report and prints "all finish!".
+
 If the environment variable TPU_SEDNN_TORCH_LAUNCH_REPORT names a file, the
 command writes the port's kernel launch counters there as JSON when it ends
 (`ops.launch_counts()`), so a caller can see which engine ran.
@@ -24,6 +35,8 @@ from __future__ import annotations
 import json
 import os
 import sys
+
+import torch.distributed as dist
 
 from tpu_sednn_torch._device import resolve_device
 from tpu_sednn_torch.config import TrainFlags
@@ -40,8 +53,19 @@ def run_epoch(flags: TrainFlags, logger: Logger | None = None,
     """Returns the CV MSE (the scalar the recipe scrapes from the log).
     engine_kwargs: forwarded to the resident chunk trainer's factory."""
     flags.validate()
+    rank0 = True
+    if flags.gpu_used > 1:
+        from tpu_sednn_torch.parallel import initialize_distributed
+
+        initialize_distributed(device=flags.device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != flags.gpu_used:
+            raise ValueError(f"gpu_used={flags.gpu_used} needs as many processes, found {world}: "
+                             f"launch with python -m torch.distributed.run "
+                             f"--nproc_per_node={flags.gpu_used} -m tpu_sednn_torch.cli ...")
+        rank0 = dist.get_rank() == 0
     dev = resolve_device(flags.device)
-    log = logger or Logger(log_path=flags.log_file or None)
+    log = logger or Logger(log_path=flags.log_file or None, is_host0=rank0)
     log.info(flags.echo())
 
     cfg = ModelConfig(
@@ -93,7 +117,7 @@ def run_epoch(flags: TrainFlags, logger: Logger | None = None,
         engine_kwargs=engine_kwargs,
     )
 
-    if flags.outwts_file:
+    if flags.outwts_file and rank0:
         ws, bs = params_to_wts(state.params)
         save_wts(flags.outwts_file, ws, bs,
                  debug_txt=flags.weights_txt or None)
@@ -105,13 +129,17 @@ def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     flags = TrainFlags.from_argv(argv)
     run_epoch(flags)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if dist.is_initialized():
+        dist.destroy_process_group()
     report = os.environ.get("TPU_SEDNN_TORCH_LAUNCH_REPORT")
-    if report:
+    if report and rank0:
         from tpu_sednn_torch.ops import launch_counts
 
         with open(report, "w") as f:
             json.dump(launch_counts(), f)
-    print("all finish!")
+    if rank0:
+        print("all finish!")
     return 0
 
 

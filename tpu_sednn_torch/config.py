@@ -31,7 +31,7 @@ class TrainFlags:
     dropoutflag: int = 0
     traincache: int = 102400
     bunchsize: int = 128
-    gpu_used: int = 1  # number of data-parallel shards; only 1 is ported
+    gpu_used: int = 1  # data-parallel ranks (one process each, torchrun)
     init_randem_seed: int = 0
     momentum: float = 0.5
     weightcost: float = 0.0
@@ -101,9 +101,6 @@ class TrainFlags:
                 "feadim times (+ noise) context must be equal to layersizes[0] "
                 f"({self.layersizes[0]} != {expect})"
             )
-        if self.gpu_used > 1:
-            raise NotImplementedError(
-                f"gpu_used={self.gpu_used}: data parallelism is not yet ported")
 
     def echo(self) -> str:
         """Parameter echo in the reference's log style (Interface.cc:267-298)."""

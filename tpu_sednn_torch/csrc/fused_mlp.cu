@@ -2,7 +2,10 @@
 // (sm_90a); the device code, its bound and its design are in fused_mlp.cuh.
 //
 // Replaces tpu_sednn/ops/fused_mlp.py:fused_linear_act (_fwd_kernel) and
-// :fused_bwd_update (_bwd_kernel).  Every function launches on `stream`,
+// :fused_bwd_update (_bwd_kernel); the gradient-out backward and the update
+// kernel are the two halves kernel 2 is split into where the data-parallel
+// chunk trainer sums the gradient between them (the all-reduce of
+// tpu_sednn/ops/resident_chunk.py:_allreduce).  Every function launches on `stream`,
 // does not synchronise, allocates nothing and returns cudaGetLastError()
 // (0 on success).
 
@@ -13,7 +16,7 @@ using namespace sednn;
 namespace {
 
 MaskSpec make_mask(int mode, const float* ptr, int ld, unsigned key, unsigned threshold,
-                   float scale) {
+                   float scale, int row0 = 0) {
   MaskSpec s = no_mask();
   s.mode = mode;
   s.ptr = ptr;
@@ -21,6 +24,7 @@ MaskSpec make_mask(int mode, const float* ptr, int ld, unsigned key, unsigned th
   s.key = key;
   s.threshold = threshold;
   s.scale = scale;
+  s.row0 = row0;
   return s;
 }
 
@@ -83,11 +87,45 @@ extern "C" int fused_bwd_update_f32(const float* dedx, const float* yprev, void*
   const bool tc = bf16 != 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (w_bf16)
-    return (int)launch_bwd(dedx, yprev, im, (bf16_t*)w, (bf16_t*)delta, b, db, part, dedy, deriv,
-                           M, K, N, mom, A, Bc, sr_key, flags, tc, s);
+    return (int)launch_bwd(dedx, yprev, im, (bf16_t*)w, (bf16_t*)delta, b, db, nullptr, part,
+                           dedy, deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, s);
   if (d_bf16)
-    return (int)launch_bwd(dedx, yprev, im, (float*)w, (bf16_t*)delta, b, db, part, dedy, deriv,
-                           M, K, N, mom, A, Bc, sr_key, flags, tc, s);
-  return (int)launch_bwd(dedx, yprev, im, (float*)w, (float*)delta, b, db, part, dedy, deriv, M,
-                         K, N, mom, A, Bc, sr_key, flags, tc, s);
+    return (int)launch_bwd(dedx, yprev, im, (float*)w, (bf16_t*)delta, b, db, nullptr, part,
+                           dedy, deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, s);
+  return (int)launch_bwd(dedx, yprev, im, (float*)w, (float*)delta, b, db, nullptr, part, dedy,
+                         deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, s);
+}
+
+// The gradient-out form of fused_bwd_update_f32 (the data-parallel
+// trainer's): g (K*N + N floats) = G = yprev^T @ dedx row-major, then gb =
+// sum_rows(dedx); dedy as above from w, which is only read (float32).  The
+// input mask draws rows in_row0.. of its stream (this rank's rows of the
+// global bunch).  Nothing is updated.
+extern "C" int fused_bwd_grad_out_f32(const float* dedx, const float* yprev, const float* w,
+                                      float* g, float* part, float* dedy, int M, int K, int N,
+                                      int in_mode, const float* in_ptr, unsigned in_key,
+                                      unsigned in_thr, float in_scale, int in_row0, int deriv,
+                                      int bf16, void* stream) {
+  if (in_mode < 0 || in_mode > 2 || deriv < 0 || deriv > 2 || g == nullptr ||
+      (part == nullptr) != (dedy == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale, in_row0);
+  return (int)launch_bwd(dedx, yprev, im, (float*)w, (float*)nullptr, nullptr, nullptr, g, part,
+                         dedy, deriv, M, K, N, 0.0f, 0.0f, 0.0f, 0u, 0, bf16 != 0,
+                         (cudaStream_t)stream);
+}
+
+// The update from a given gradient g (K*N floats of G, then N of gb):
+// delta' = mom*delta - (A*G + Bc*w) with kUpdFirst (1) in flags, else delta -
+// A*G; w' = w + delta' with kUpdApply (2); db and b alike.  w float32; delta
+// float32 or bfloat16 (d_bf16: stored with stochastic rounding from stream
+// sr_key, w takes the unrounded step); b and db float32.  In place.
+extern "C" int dp_update_f32(float* w, void* delta, int d_bf16, float* b, float* db,
+                             const float* g, int K, int N, float mom, float A, float Bc,
+                             unsigned sr_key, int flags, void* stream) {
+  if (flags < 0 || flags > 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d_bf16)
+    return (int)launch_update(w, (bf16_t*)delta, b, db, g, K, N, mom, A, Bc, sr_key, flags, s);
+  return (int)launch_update(w, (float*)delta, b, db, g, K, N, mom, A, Bc, sr_key, flags, s);
 }

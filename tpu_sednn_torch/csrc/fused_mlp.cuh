@@ -53,6 +53,15 @@
 // (sr_round.cuh): the TPU kernel's sr_delta and sr_state.  That halves two or
 // five of the passes over the state; with float32 products the kernels stay
 // operations-bound and it buys memory, not time.
+//
+// Data parallelism (the TPU kernel's n_dev > 1, resident_chunk.py:_allreduce,
+// which sums each row block's gradient over the chips with remote copies from
+// inside the kernel): on this card the sum goes through a collective outside
+// the kernels, so the backward has a gradient-out form that writes G and gb
+// instead of applying them, and update_kernel applies the summed gradient
+// with the same update code.  That form writes G once and update_kernel reads
+// it back: two passes over K*N floats more than the fused update, the price of
+// a sum between the two.
 
 #pragma once
 
@@ -376,21 +385,26 @@ inline int fwd_k_chunk(int M, int K, int N, bool tc, int* n_chunks) {
 }
 
 // Scratch floats launch_fwd needs in `part` (0 when K is not split).
-inline long long fwd_scratch_floats(int M, int K, int N, bool tc) {
+inline long long fwd_scratch_floats(int M, int K, int N, bool tc, int plan_rows = 0) {
   int n_chunks;
-  fwd_k_chunk(M, K, N, tc, &n_chunks);
+  fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, tc, &n_chunks);
   return n_chunks > 1 ? (long long)n_chunks * M * N : 0;
 }
 
 // tc: the tensor-core form (tc_fwd_kernel), else the float32 one (fwd_kernel).
+// plan_rows > 0: split K as for that many rows (the data-parallel trainer
+// plans for the global tile, so a rank's rows are summed in the order the
+// single-device trainer sums them: each output's sum depends only on the
+// chunk boundaries), else as for M.
 template <typename TW>
 inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
-                              float coef, float* part, bool tc, cudaStream_t stream) {
+                              float coef, float* part, bool tc, cudaStream_t stream,
+                              int plan_rows = 0) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   int n_chunks;
-  const int k_chunk = fwd_k_chunk(M, K, N, tc, &n_chunks);
+  const int k_chunk = fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, tc, &n_chunks);
   if (n_chunks > 1 && part == nullptr) return cudaErrorInvalidValue;
   FwdEpilogue epi;
   epi.b = b;
@@ -448,6 +462,12 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
 // step, W' = W + Delta'; without it W is left alone, so every tile's forward
 // and dedy see the W from before the bunch.  Both set is the plain update.
 // The bias follows the same flags.
+//
+// Gradient out (gout != nullptr; the data-parallel trainer): the block
+// stores its G tile, and k-tile 0 its gb, into gout (K*N floats of G
+// row-major, then N of gb) and leaves W, Delta, b and db alone; dedy is
+// formed as above from the W it reads.  The sum over the ranks then goes
+// through a collective, and update_kernel applies it.
 // ---------------------------------------------------------------------------
 
 constexpr int kUpdFirst = 1, kUpdApply = 2;
@@ -456,7 +476,10 @@ constexpr int kUpdFirst = 1, kUpdApply = 2;
 // of W and Delta, from the unrounded W the block loaded (wr) and G (gr):
 // Delta' = m*Delta - (A*G + Bc*W) with `first` (kUpdFirst), else Delta - A*G;
 // W' = W + Delta' with `apply` (kUpdApply); bfloat16 stores rounded
-// stochastically.  Shared by both forms of kernel 2, as is update_bias.
+// stochastically.  Shared by both forms of kernel 2 and by update_kernel, as
+// is update_bias.  Written with the round-to-nearest intrinsics, which the
+// compiler does not contract into fused multiply-adds: one float32 operation
+// at a time, in the order the plain versions compute them.
 template <typename TW, typename TD>
 __device__ inline void update_row4(TW* __restrict__ w, TD* __restrict__ delta, int kr, int col,
                                    int K, int N, const float wr[4], const float gr[4], float mom,
@@ -468,8 +491,10 @@ __device__ inline void update_row4(TW* __restrict__ w, TD* __restrict__ delta, i
   float nd[4], nw[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    nd[j] = first ? mom * dr[j] - (A * gr[j] + Bc * wr[j]) : dr[j] - A * gr[j];
-    nw[j] = wr[j] + nd[j];
+    nd[j] = first ? __fsub_rn(__fmul_rn(mom, dr[j]),
+                              __fadd_rn(__fmul_rn(A, gr[j]), __fmul_rn(Bc, wr[j])))
+                  : __fsub_rn(dr[j], __fmul_rn(A, gr[j]));
+    nw[j] = __fadd_rn(wr[j], nd[j]);
   }
   uint32_t bits[4] = {0u, 0u, 0u, 0u};
   if (kSr) sr_bits4(sr_key, kr, col, bits);
@@ -480,21 +505,23 @@ __device__ inline void update_row4(TW* __restrict__ w, TD* __restrict__ delta, i
 // The bias of column n: db' = m*db - A*gb (first) or db - A*gb, b' = b + db' (apply).
 __device__ inline void update_bias(float* b, float* db, int n, float gb, float mom, float A,
                                    bool first, bool apply) {
-  const float ndb = first ? mom * db[n] - A * gb : db[n] - A * gb;
+  const float ndb = first ? __fsub_rn(__fmul_rn(mom, db[n]), __fmul_rn(A, gb))
+                          : __fsub_rn(db[n], __fmul_rn(A, gb));
   db[n] = ndb;
-  if (apply) b[n] = b[n] + ndb;
+  if (apply) b[n] = __fadd_rn(b[n], ndb);
 }
 
 constexpr int kBwdBK = 64, kBwdBN = 64, kBwdMC = 32, kBwdThreads = 256;
 constexpr int kBwdWLd = kBwdBN + 4;  // padded: the dedy product reads W rows 16 apart
 
+// gout: the gradient-out form (see above); nullptr: the in-place update.
 template <typename TW, typename TD>
 __global__ void __launch_bounds__(kBwdThreads)
 bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, MaskSpec in_mask,
            TW* __restrict__ w, TD* __restrict__ delta, float* __restrict__ b,
-           float* __restrict__ db, float* __restrict__ part, int M, int K, int N, float mom,
-           float A, float Bc, uint32_t sr_key, int flags, bool vec_d, bool vec_y, bool vec_w,
-           bool vec_dl) {
+           float* __restrict__ db, float* __restrict__ gout, float* __restrict__ part, int M,
+           int K, int N, float mom, float A, float Bc, uint32_t sr_key, int flags, bool vec_d,
+           bool vec_y, bool vec_w, bool vec_dl, bool vec_g) {
   const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
   __shared__ __align__(16) float Ws[kBwdBK][kBwdWLd];
   __shared__ __align__(16) float Ys[kBwdMC][kBwdBK];
@@ -504,11 +531,15 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
   const int tk = tid / 16, tn = tid % 16;  // G: rows tk*4.., cols tn*4..
   const int pm = tid / 16, pk = tid % 16;  // partial: rows pm*2.., cols pk + 16*j
 
+  // the W tile feeds the update and dedy: the gradient-out form of the first
+  // layer needs neither
+  if (gout == nullptr || part != nullptr) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int idx = tid + r * kBwdThreads;
-    const int wr = idx / 16, wc = (idx % 16) * 4;
-    *reinterpret_cast<float4*>(&Ws[wr][wc]) = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
+    for (int r = 0; r < 4; ++r) {
+      const int idx = tid + r * kBwdThreads;
+      const int wr = idx / 16, wc = (idx % 16) * 4;
+      *reinterpret_cast<float4*>(&Ws[wr][wc]) = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
+    }
   }
   float g[4][4];
 #pragma unroll
@@ -586,8 +617,16 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
     __syncthreads();
   }
 
-  // momentum update of the owned tile, from the W copy in shared memory
   const int col = n0 + tn * 4;
+  if (gout != nullptr) {  // gradient out: the tile of G and the bias gradient
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      st4(gout, k0 + tk * 4 + i, col, N, K, N, vec_g,
+          make_float4(g[i][0], g[i][1], g[i][2], g[i][3]));
+    if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N) gout[(long long)K * N + n0 + tid] = gb;
+    return;
+  }
+  // momentum update of the owned tile, from the W copy in shared memory
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kr = k0 + tk * 4 + i;
@@ -632,9 +671,9 @@ template <typename TW, typename TD>
 __global__ void __launch_bounds__(kBwdThreads)
 tc_bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, MaskSpec in_mask,
               TW* __restrict__ w, TD* __restrict__ delta, float* __restrict__ b,
-              float* __restrict__ db, float* __restrict__ part, int M, int K, int N, float mom,
-              float A, float Bc, uint32_t sr_key, int flags, bool vec_d, bool vec_y, bool vec_w,
-              bool vec_dl) {
+              float* __restrict__ db, float* __restrict__ gout, float* __restrict__ part, int M,
+              int K, int N, float mom, float A, float Bc, uint32_t sr_key, int flags, bool vec_d,
+              bool vec_y, bool vec_w, bool vec_dl, bool vec_g) {
   const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
   __shared__ __align__(16) TcBwdSmem sm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -643,13 +682,15 @@ tc_bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, M
   const int gk = (warp >> 1) * 16, gn = (warp & 1) * 32;  // the warp's G: rows of W, cols
   const int pm = (warp >> 2) * 16, pk = (warp & 3) * 16;  // the warp's part: chunk rows, K cols
 
+  if (gout == nullptr || part != nullptr) {  // as in bwd_kernel
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int idx = tid + r * kBwdThreads;
-    const int wr = idx / 16, wc = (idx % 16) * 4;
-    const float4 v = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
-    *reinterpret_cast<float4*>(&sm.Ws[wr][wc]) = v;
-    st_rne4(&sm.Wb[wr][wc], v);
+    for (int r = 0; r < 4; ++r) {
+      const int idx = tid + r * kBwdThreads;
+      const int wr = idx / 16, wc = (idx % 16) * 4;
+      const float4 v = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
+      *reinterpret_cast<float4*>(&sm.Ws[wr][wc]) = v;
+      st_rne4(&sm.Wb[wr][wc], v);
+    }
   }
   float gacc[4][4];
 #pragma unroll
@@ -730,6 +771,14 @@ tc_bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, M
   __syncthreads();
   const int tk = tid / 16, tn = tid % 16;
   const int col = n0 + tn * 4;
+  if (gout != nullptr) {  // gradient out, as in bwd_kernel
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      st4(gout, k0 + tk * 4 + i, col, N, K, N, vec_g,
+          *reinterpret_cast<const float4*>(&sm.u.Gs[tk * 4 + i][tn * 4]));
+    if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N) gout[(long long)K * N + n0 + tid] = gb;
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kr = k0 + tk * 4 + i;
@@ -742,6 +791,54 @@ tc_bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, M
   }
   if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N)
     update_bias(b, db, n0 + tid, gb, mom, A, first, apply);
+}
+
+// ---------------------------------------------------------------------------
+// The update from a given gradient (the data-parallel trainer's, after the
+// all-reduce of the gradient-out backward's G and gb):
+//   g: K*N floats of G (row-major) then N of gb; W (K, N) float32, Delta
+//   float32 or bfloat16 (sr_delta), b, db (N,):
+//   Delta' = m*Delta - (A*G + Bc*W) (kUpdFirst) or Delta - A*G,
+//   W' = W + Delta' (kUpdApply);  the bias alike (update_row4, update_bias).
+// Elementwise; a thread takes four neighbouring columns (one Philox call when
+// Delta is rounded stochastically, stream sr_key at the element's (row, col)
+// in W, as the backward kernels draw).  Bound: bytes, G, W and Delta read, W
+// and Delta written: 20 bytes an element in float32.
+// ---------------------------------------------------------------------------
+
+template <typename TD>
+__global__ void __launch_bounds__(256)
+update_kernel(float* __restrict__ w, TD* __restrict__ delta, float* __restrict__ b,
+              float* __restrict__ db, const float* __restrict__ g, int K, int N, float mom,
+              float A, float Bc, uint32_t sr_key, int flags, bool vec_w, bool vec_dl, bool vec_g) {
+  const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
+  const int c4 = (N + 3) / 4;
+  const long long n = (long long)K * c4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int kr = (int)(i / c4), col = (int)(i % c4) * 4;
+    const float4 wv = ld4(w, kr, col, N, K, N, vec_w);
+    const float4 gv = ld4(g, kr, col, N, K, N, vec_g);
+    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+    const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+    update_row4(w, delta, kr, col, K, N, wr, gr, mom, A, Bc, sr_key, first, apply, vec_w, vec_dl);
+  }
+  if (blockIdx.x == 0)
+    for (int c = threadIdx.x; c < N; c += blockDim.x)
+      update_bias(b, db, c, g[(long long)K * N + c], mom, A, first, apply);
+}
+
+template <typename TD>
+inline cudaError_t launch_update(float* w, TD* delta, float* b, float* db, const float* g, int K,
+                                 int N, float mom, float A, float Bc, uint32_t sr_key, int flags,
+                                 cudaStream_t stream) {
+  if (K <= 0 || N <= 0) return cudaSuccess;
+  const long long n = (long long)K * ((N + 3) / 4);
+  const int blocks = (int)((n + 255) / 256 < 4 * 132 * 8 ? (n + 255) / 256 : 4 * 132 * 8);
+  update_kernel<TD><<<blocks, 256, 0, stream>>>(w, delta, b, db, g, K, N, mom, A, Bc, sr_key,
+                                                flags, vec_ok(w, N), vec_ok(delta, N),
+                                                vec_ok(g, N));
+  return cudaGetLastError();
 }
 
 // dedy[m, k] = sum over the n-tiles of part[nt, m, k], in tile order; then
@@ -769,9 +866,11 @@ inline int bwd_n_tiles(int N) { return (N + kBwdBN - 1) / kBwdBN; }
 // part: scratch of bwd_n_tiles(N) * M * K floats, or nullptr with dedy ==
 // nullptr when the layer below needs no gradient (the first layer).  tc: the
 // tensor-core form (tc_bwd_kernel), else the float32 one (bwd_kernel).
+// gout: K*N + N floats for the gradient-out form (W is then only read, and
+// delta, b and db may be nullptr), or nullptr for the in-place update.
 template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
-                              TW* w, TD* delta, float* b, float* db, float* part,
+                              TW* w, TD* delta, float* b, float* db, float* gout, float* part,
                               float* dedy, int deriv, int M, int K, int N, float mom, float A,
                               float Bc, uint32_t sr_key, int flags, bool tc,
                               cudaStream_t stream) {
@@ -779,12 +878,12 @@ inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskS
   dim3 grid(bwd_n_tiles(N), (K + kBwdBK - 1) / kBwdBK);
   if (tc) {
     tc_bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
-        dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, sr_key, flags,
-        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N));
+        dedx, yprev, in_mask, w, delta, b, db, gout, part, M, K, N, mom, A, Bc, sr_key, flags,
+        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N), vec_ok(gout, N));
   } else {
     bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
-        dedx, yprev, in_mask, w, delta, b, db, part, M, K, N, mom, A, Bc, sr_key, flags,
-        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N));
+        dedx, yprev, in_mask, w, delta, b, db, gout, part, M, K, N, mom, A, Bc, sr_key, flags,
+        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N), vec_ok(gout, N));
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return err;

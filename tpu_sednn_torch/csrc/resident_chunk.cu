@@ -54,6 +54,14 @@
 // * its hbm_spill needs nothing here: the state is in device memory already.
 // * its bf16 products: the tensor-core forms of the two layer kernels
 //   (tc_fwd_kernel, tc_bwd_kernel), the same launches otherwise.
+// * its data-parallel form (n_dev > 1, make_dp_resident_train_chunk): a
+//   rank trains its rows of every global tile and the gradient is summed
+//   over the ranks before the update, so the chunk cannot be one C call: the
+//   Python loop (ops/resident_chunk.py) calls dp_chunk_forward for a tile,
+//   then for each layer, last first, the gradient-out backward, an
+//   all-reduce and the update kernel (fused_mlp.cu).  The forward is the
+//   same launches as here, with every mask drawn at the rank's rows row0..
+//   of the global tile.
 
 #include "fused_mlp.cuh"
 
@@ -132,6 +140,40 @@ extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunc
 
 namespace {
 
+// The forward of one tile of `tile` rows: layer l reads x (l == 0) or y[l-1]
+// and writes y[l] (the masked activation the next layer and the backward
+// read; y[L-1] is the net's output), and the last layer also writes dedx =
+// coef*(y - t).  Dropout: the input's mask in_mask, hidden layer l+1's the
+// stream key0 + (l+1)*kLayerStride; every mask draws the rows row0.. of the
+// global tile, so a rank of the data-parallel trainer draws its rows of the
+// single-device masks.  plan_rows: the rows K's split over the grid is planned
+// for (launch_fwd; 0: tile).  part: fwd_scratch_floats of the widest layer.
+template <typename TW>
+cudaError_t forward_tile(const float* x, const float* t, int tile, const int* sizes, int L,
+                         void* const* w, float* const* b, float* const* y, float* dedx,
+                         float* part, int hidden, int output, const MaskSpec& in_mask,
+                         unsigned key0, unsigned thr_hid, float scale_hid, int row0, float coef,
+                         int plan_rows, bool tc, long long* tallies, cudaStream_t stream) {
+  for (int l = 0; l < L; ++l) {
+    const bool last = l == L - 1;
+    const MaskSpec out_mask =
+        (!last && thr_hid)
+            ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid, row0)
+            : no_mask();
+    const cudaError_t err = launch_fwd(
+        l == 0 ? x : y[l - 1], (const TW*)w[l], b[l], y[l], tile, sizes[l], sizes[l + 1],
+        last ? output : hidden, l == 0 ? in_mask : no_mask(), out_mask, last ? t : nullptr,
+        last ? dedx : nullptr, coef, part, tc, stream, plan_rows);
+    if (err != cudaSuccess) return err;
+    tallies[0] += 1;
+    tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? 1 : 0;
+    tallies[4] += fwd_scratch_floats(tile, sizes[l], sizes[l + 1], tc, plan_rows) > 0 ? 1 : 0;
+    tallies[7] += std::is_same<TW, float>::value ? 0 : 1;
+    tallies[8] += tc ? 1 : 0;
+  }
+  return cudaSuccess;
+}
+
 template <typename TW, typename TD>
 int train_chunk(const float* x, const float* t, int n_real, int tile, int accum, const int* sizes,
                 int L, void* const* w, void* const* d, float* const* b, float* const* db,
@@ -141,6 +183,8 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
   constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
   const Workspace ws = plan_workspace(sizes, L, tile, tc);
   const float coef = 2.0f / (float)(tile * accum);
+  float* ys[kMaxLayers];
+  for (int l = 0; l < L; ++l) ys[l] = work + (l == L - 1 ? ws.out : ws.ys[l + 1]);
   for (int i = 0; i < n_real; ++i) {
     for (int j = 0; j < accum; ++j) {
       const long long gi = (long long)i * accum + j;  // global tile index
@@ -151,31 +195,16 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
       const int flags = (j == 0 ? kUpdFirst : 0) | (j == accum - 1 ? kUpdApply : 0);
       float* dedx = work + ws.dedx_a;
       float* other = work + ws.dedx_b;
-      for (int l = 0; l < L; ++l) {
-        const bool last = l == L - 1;
-        const float* in = l == 0 ? xi : work + ws.ys[l];
-        float* out = last ? work + ws.out : work + ws.ys[l + 1];
-        const MaskSpec out_mask =
-            (!last && thr_hid)
-                ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid)
-                : no_mask();
-        const cudaError_t err = launch_fwd(
-            in, (const TW*)w[l], b[l], out, tile, sizes[l], sizes[l + 1], last ? output : hidden,
-            l == 0 ? in_mask : no_mask(), out_mask, last ? ti : nullptr, last ? dedx : nullptr,
-            coef, work + ws.part, tc, stream);
-        if (err != cudaSuccess) return (int)err;
-        tallies[0] += 1;
-        tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? 1 : 0;
-        tallies[4] += fwd_scratch_floats(tile, sizes[l], sizes[l + 1], tc) > 0 ? 1 : 0;
-        tallies[7] += std::is_same<TW, float>::value ? 0 : 1;
-        tallies[8] += tc ? 1 : 0;
-      }
+      const cudaError_t ferr =
+          forward_tile<TW>(xi, ti, tile, sizes, L, w, b, ys, dedx, work + ws.part, hidden, output,
+                           in_mask, key0, thr_hid, scale_hid, 0, coef, 0, tc, tallies, stream);
+      if (ferr != cudaSuccess) return (int)ferr;
       for (int l = L - 1; l >= 0; --l) {
         const float* yprev = l == 0 ? xi : work + ws.ys[l];
         const unsigned sr_key =
             seed + (unsigned)i * kBunchStride + (unsigned)l * kLayerStride + 1u;
         const cudaError_t err = launch_bwd(
-            dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l],
+            dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l], nullptr,
             l > 0 ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, tile, sizes[l],
             sizes[l + 1], mom, A, Bc, sr_key, flags, tc, stream);
         if (err != cudaSuccess) return (int)err;
@@ -238,6 +267,47 @@ extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, 
   return train_chunk<float, float>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work, hidden,
                                    output, thr_vis, thr_hid, scale_vis, scale_hid, seed, mom, A,
                                    Bc, tc, tallies, stream);
+}
+
+// The data-parallel trainer's forward of one tile: this rank's `tile` rows
+// x (tile, sizes[0]) and t (tile, sizes[L]) of the global tile whose rows
+// row0.. they are (global_tile rows), float32 weights w[l] and biases b[l];
+// y[l] (tile, sizes[l+1]) receive the masked activations and the output, dedx
+// (tile, sizes[L]) = coef * (y[L-1] - t) [* y(1-y) for a sigmoid head], coef =
+// 2 / (the global bunch).  Masks as resident_chunk_train draws them for the
+// global tile index gi (key0 = seed + gi * 7919), at rows row0 + r, and K
+// split over the grid as for the global tile: a row's activations are the
+// single-device trainer's bit for bit.  part:
+// chunk_forward_scratch_floats(sizes, L, tile, global_tile, bf16) floats.
+// tallies as resident_chunk_train's (its forward entries).  The
+// gradient-out backward and the update of each layer are fused_mlp.cu's; the
+// sum between them is the caller's.
+extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int global_tile,
+                                const int* sizes, int L, void* const* w, float* const* b,
+                                float* const* y, float* dedx, float* part, int hidden,
+                                int output, unsigned thr_vis, unsigned thr_hid, float scale_vis,
+                                float scale_hid, unsigned key0, int row0, float coef, int bf16,
+                                long long* tallies, void* stream) {
+  if (L < 1 || L > kMaxLayers || tile <= 0 || global_tile < tile || row0 < 0 || hidden < 0 ||
+      hidden > 2 || output < 0 || output > 2)
+    return (int)cudaErrorInvalidValue;
+  const MaskSpec in_mask = thr_vis ? philox_mask(key0, thr_vis, scale_vis, row0) : no_mask();
+  const cudaError_t err = forward_tile<float>(
+      x, t, tile, sizes, L, w, b, y, dedx, part, hidden, output, in_mask, key0, thr_hid, scale_hid,
+      row0, coef, global_tile, bf16 != 0, tallies, (cudaStream_t)stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// Floats of `part` dp_chunk_forward needs for tiles of `tile` rows of
+// global tiles of `global_tile`.
+extern "C" long long chunk_forward_scratch_floats(const int* sizes, int L, int tile,
+                                                  int global_tile, int bf16) {
+  long long most = 0;
+  for (int l = 0; l < L; ++l) {
+    const long long f = fwd_scratch_floats(tile, sizes[l], sizes[l + 1], bf16 != 0, global_tile);
+    most = f > most ? f : most;
+  }
+  return most;
 }
 
 // out (rows, cols) = the 0/1 mask (times scale) of rows row0..row0+rows-1 of

@@ -4,12 +4,17 @@ import."""
 
 from tpu_sednn_torch.ops.stft_lps import stft_lps, stft_lps_reference
 from tpu_sednn_torch.ops.fused_mlp import (
+    dp_update,
+    dp_update_reference,
+    fused_bwd_grad_out,
+    fused_bwd_grad_out_reference,
     fused_bwd_update,
     fused_bwd_update_reference,
     fused_linear_act,
     fused_linear_act_reference,
 )
 from tpu_sednn_torch.ops.dropout_mask import dropout_mask, dropout_mask_reference
+from tpu_sednn_torch.ops.rank_sum import rank_sum, rank_sum_reference
 from tpu_sednn_torch.ops.sr_update import (
     sr_momentum_update,
     sr_momentum_update_reference,
@@ -17,13 +22,14 @@ from tpu_sednn_torch.ops.sr_update import (
 )
 
 KERNEL_SOURCES = ("stft_lps", "fused_mlp", "resident_chunk", "sr_update",
-                  "dropout_mask")  # csrc/<name>.cu
+                  "dropout_mask", "rank_sum")  # csrc/<name>.cu
 
 
 def launch_counts() -> dict:
     """Every launch counter of the port, as plain integers: the wrappers'
-    own counts, the kernel launches the chunk trainer's C entry point
-    enqueued (by kernel), and the calls of the plain chunk trainer."""
+    own counts, the kernel launches the chunk trainer's C entry points
+    enqueued (by kernel), the chunk trainer's runs (single-device and
+    data-parallel) on a card, and the calls of the plain chunk trainer."""
     from tpu_sednn_torch.ops import resident_chunk
     from tpu_sednn_torch.train.step import reference_train_chunk
 
@@ -37,8 +43,15 @@ def launch_counts() -> dict:
         "fused_bwd_update": fused_bwd_update.launches,
         "fused_bwd_update_tc": fused_bwd_update.tc_launches,
         "fused_bwd_update_reduce": fused_bwd_update.reduce_launches,
+        "fused_bwd_grad_out": fused_bwd_grad_out.launches,
+        "fused_bwd_grad_out_tc": fused_bwd_grad_out.tc_launches,
+        "fused_bwd_grad_out_reduce": fused_bwd_grad_out.reduce_launches,
+        "dp_update": dp_update.launches,
+        "dp_update_sr": dp_update.sr_launches,
+        "rank_sum": rank_sum.launches,
         "sample_resident_masks": resident_chunk.sample_resident_masks.launches,
         "resident_chunk": resident_chunk.make_resident_train_chunk.launches,
+        "dp_resident_chunk": resident_chunk.make_dp_resident_train_chunk.launches,
         "resident_chunk_kernels": dict(resident_chunk.kernel_launches),
         "plain_train_chunk": reference_train_chunk.calls,
     }
@@ -53,8 +66,12 @@ def reset_launch_counts() -> None:
     stft_lps.launches = fused_linear_act.launches = fused_bwd_update.launches = 0
     fused_linear_act.sum_launches = fused_bwd_update.reduce_launches = 0
     fused_linear_act.tc_launches = fused_bwd_update.tc_launches = 0
+    fused_bwd_grad_out.launches = fused_bwd_grad_out.tc_launches = 0
+    fused_bwd_grad_out.reduce_launches = dp_update.launches = dp_update.sr_launches = 0
+    rank_sum.launches = 0
     resident_chunk.sample_resident_masks.launches = 0
     resident_chunk.make_resident_train_chunk.launches = 0
+    resident_chunk.make_dp_resident_train_chunk.launches = 0
     for name in resident_chunk.kernel_launches:
         resident_chunk.kernel_launches[name] = 0
     reference_train_chunk.calls = 0

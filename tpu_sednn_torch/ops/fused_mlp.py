@@ -14,8 +14,14 @@ the port of tpu_sednn/ops/fused_mlp.py:
   (`_bwd_kernel`): dedy = dedx @ W^T with W BEFORE the update,
   G = y_prev^T @ dedx, delta' = m*delta - c*(G/n + wc*W), W' = W + delta',
   the bias likewise; W and delta read once and written once, no G in memory.
+* `fused_bwd_grad_out` and `dp_update` — the same backward split in two for
+  the data-parallel chunk trainer, which sums the gradient over the ranks
+  between them (the TPU kernel sums it with remote copies inside the kernel,
+  resident_chunk.py:_allreduce): the gradient-out form writes G and gb and
+  updates nothing; the update kernel applies a given gradient with the same
+  rule and the same arithmetic as the fused one.
 
-Both take the true sizes (K = 1548, N = 129, any batch): nothing is padded.
+All take the true sizes (K = 1548, N = 129, any batch): nothing is padded.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain version beside it (`*_reference`).
 
@@ -38,7 +44,9 @@ and returns them.  `<wrapper>.launches` counts launches of the wrapper's
 product kernel (either form), `<wrapper>.tc_launches` those of its
 tensor-core form; the small second kernels count apart:
 `fused_linear_act.sum_launches` (fwd_sum_kernel, where K is split) and
-`fused_bwd_update.reduce_launches` (reduce_dedy_kernel).  The float32 forms
+`fused_bwd_update.reduce_launches` (reduce_dedy_kernel), likewise
+`fused_bwd_grad_out.*`; `dp_update.sr_launches` counts the update's launches
+that rounded a bfloat16 delta stochastically.  The float32 forms
 are FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
 (csrc/fused_mlp.cuh says why).
 """
@@ -71,12 +79,13 @@ def _act(name: str, z: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {name!r}")
 
 
-def _mask_tensor(mask: MaskArg, shape, device) -> Optional[torch.Tensor]:
-    """An explicit mask as it is, a (key, omit) spec as its Philox tensor."""
+def _mask_tensor(mask: MaskArg, shape, device, row0: int = 0) -> Optional[torch.Tensor]:
+    """An explicit mask as it is, a (key, omit) spec as its Philox tensor
+    (rows row0.. of the stream)."""
     if mask is None or isinstance(mask, torch.Tensor):
         return mask
     key, omit = mask
-    return philox_mask(int(key), shape[0], shape[1], float(omit), device=device)
+    return philox_mask(int(key), shape[0], shape[1], float(omit), row0=row0, device=device)
 
 
 def _masked(x, mask: Optional[torch.Tensor], scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -104,6 +113,25 @@ def fused_linear_act_reference(x, w, b, act: str = "linear", in_mask: MaskArg = 
     return y.to(torch.float32)
 
 
+def _layer_grads(dedx, y_prev, w, in_mask: MaskArg, in_scale: float, mask_row0: int,
+                 deriv: Optional[str], dt: torch.dtype, bf16: bool):
+    """(G, gb, dedy) of one layer in `dt`, as kernel 2 forms them: G =
+    y^T @ dedx and dedy = dedx @ W^T (times `deriv`'s derivative on y) from
+    operands rounded to bfloat16 if bf16, gb = the rows' sum of dedx."""
+    dx = dedx.to(dt)
+    y = _masked(y_prev, _mask_tensor(in_mask, y_prev.shape, y_prev.device, mask_row0), in_scale,
+                y_prev.dtype if bf16 else dt).to(dt)
+    dx_r = mm_operand(dx, bf16, dt)
+    dedy = dx_r @ mm_operand(w.to(dt), bf16, dt).T
+    if deriv == "relu":
+        dedy = torch.where(y > 0, dedy, torch.zeros((), dtype=dt, device=dedy.device))
+    elif deriv == "sigmoid":
+        dedy = y * (1.0 - y) * dedy
+    elif deriv is not None:
+        raise ValueError(f"unknown derivative {deriv!r}")
+    return mm_operand(y, bf16, dt).T @ dx_r, dx.sum(dim=0), dedy
+
+
 def fused_bwd_update_reference(dedx, y_prev, w, delta, b, delta_b, momentum, lrate, inv_n,
                                weightcost, in_mask: MaskArg = None, in_scale: float = 1.0,
                                deriv: Optional[str] = None,
@@ -119,20 +147,10 @@ def fused_bwd_update_reference(dedx, y_prev, w, delta, b, delta_b, momentum, lra
     and the derivative take them as they are."""
     dt = dtype or torch.float32
     m, c = float(momentum), (1.0 - float(momentum)) * float(lrate)
-    dx, w_, d_ = dedx.to(dt), w.to(dt), delta.to(dt)
-    y = _masked(y_prev, _mask_tensor(in_mask, y_prev.shape, y_prev.device), in_scale,
-                y_prev.dtype if bf16 else dt).to(dt)
-    dx_r = mm_operand(dx, bf16, dt)
-    dedy = dx_r @ mm_operand(w_, bf16, dt).T
-    if deriv == "relu":
-        dedy = torch.where(y > 0, dedy, torch.zeros((), dtype=dt, device=dedy.device))
-    elif deriv == "sigmoid":
-        dedy = y * (1.0 - y) * dedy
-    elif deriv is not None:
-        raise ValueError(f"unknown derivative {deriv!r}")
-    new_delta = m * d_ - c * ((mm_operand(y, bf16, dt).T @ dx_r) * float(inv_n)
-                              + float(weightcost) * w_)
-    new_db = m * delta_b.to(dt) - c * (dx.sum(dim=0) * float(inv_n))
+    w_, d_ = w.to(dt), delta.to(dt)
+    g, gb, dedy = _layer_grads(dedx, y_prev, w_, in_mask, in_scale, 0, deriv, dt, bf16)
+    new_delta = m * d_ - c * (g * float(inv_n) + float(weightcost) * w_)
+    new_db = m * delta_b.to(dt) - c * (gb * float(inv_n))
     f32 = torch.float32
 
     def store(val, like, shift):
@@ -143,6 +161,42 @@ def fused_bwd_update_reference(dedx, y_prev, w, delta, b, delta_b, momentum, lra
 
     return (store(w_ + new_delta, w, SR_WEIGHT_SHIFT), store(new_delta, delta, SR_DELTA_SHIFT),
             dedy.to(f32), (b.to(dt) + new_db).to(f32), new_db.to(f32))
+
+
+def fused_bwd_grad_out_reference(dedx, y_prev, w, in_mask: MaskArg = None, in_scale: float = 1.0,
+                                 mask_row0: int = 0, deriv: Optional[str] = None,
+                                 with_dedy: bool = True, dtype: Optional[torch.dtype] = None,
+                                 bf16: bool = True):
+    """Plain torch version of `fused_bwd_grad_out` -> (grad, dedy_prev):
+    grad the flat float32 (K*N + N,) G then gb, dedy_prev float32 (None
+    without with_dedy); products in `dtype` (None = float32), of operands
+    rounded to bfloat16 if bf16."""
+    dt = dtype or torch.float32
+    g, gb, dedy = _layer_grads(dedx, y_prev, w, in_mask, in_scale, mask_row0, deriv, dt, bf16)
+    return (torch.cat([g.reshape(-1), gb]).to(torch.float32),
+            dedy.to(torch.float32) if with_dedy else None)
+
+
+def dp_update_reference(w, delta, b, delta_b, grad, momentum, a_coef, b_coef,
+                        sr_seed: Optional[int] = None, first: bool = True, apply: bool = True):
+    """Plain torch version of `dp_update`, pure: -> (w', delta', b', delta_b'),
+    one float32 operation at a time in the kernel's order (so the two agree
+    bit for bit on the same gradient); a bfloat16 delta' rounded
+    stochastically with the bits of stream `sr_seed`, as the kernel rounds
+    it, and w' taking the unrounded step."""
+    K, N = w.shape
+    f32 = torch.float32
+    m, a, c = (torch.tensor(float(v), dtype=f32, device=w.device)
+               for v in (momentum, a_coef, b_coef))
+    g, gb = grad[:K * N].reshape(K, N).to(f32), grad[K * N:].to(f32)
+    d, db = delta.to(f32), delta_b.to(f32)
+    nd = m * d - (a * g + c * w) if first else d - a * g
+    ndb = m * db - a * gb if first else db - a * gb
+    if delta.dtype == torch.bfloat16:
+        d_store = sr_to_bf16_reference(nd, sr_bits(int(sr_seed), K, N, SR_DELTA_SHIFT, w.device))
+    else:
+        d_store = nd
+    return (w + nd if apply else w.clone(), d_store, b + ndb if apply else b.clone(), ndb)
 
 
 @functools.lru_cache(maxsize=1)
@@ -159,6 +213,10 @@ def _lib() -> ctypes.CDLL:
     lib.fused_bwd_update_f32.argtypes = [p, p, p, i, p, i, u, p, p, p, p, i, i, i, f, f, f, i, p,
                                          u, u, f, i, i, p]
     lib.fused_bwd_update_f32.restype = ctypes.c_int
+    lib.fused_bwd_grad_out_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p, u, u, f, i, i, i, p]
+    lib.fused_bwd_grad_out_f32.restype = ctypes.c_int
+    lib.dp_update_f32.argtypes = [p, p, i, p, p, p, i, i, f, f, f, u, i, p]
+    lib.dp_update_f32.restype = ctypes.c_int
     return lib
 
 
@@ -316,3 +374,132 @@ def fused_bwd_update(
 fused_bwd_update.launches = 0
 fused_bwd_update.tc_launches = 0
 fused_bwd_update.reduce_launches = 0
+
+
+def fused_bwd_grad_out(
+    dedx: torch.Tensor,     # (B, N) upstream gradient dE/dx of this layer
+    y_prev: torch.Tensor,   # (B, K) layer input (post-dropout, unless in_mask is given)
+    w: torch.Tensor,        # (K, N) float32, read only
+    in_mask: MaskArg = None,
+    in_scale: float = 1.0,
+    mask_row0: int = 0,
+    deriv: Optional[str] = None,
+    with_dedy: bool = True,
+    bf16: bool = True,
+    grad: Optional[torch.Tensor] = None,
+    dedy: Optional[torch.Tensor] = None,
+    scratch: Optional[torch.Tensor] = None,
+):
+    """One layer's backward without its update: the gradient-out form of
+    `fused_bwd_update`, which the data-parallel chunk trainer runs so that
+    the gradient can be summed over the ranks before `dp_update` applies it.
+
+    -> (grad, dedy_prev).  grad: (K*N + N,) float32, G = y_prev^T @ dedx
+    row-major, then gb = the sum of dedx's rows.  dedy_prev: (B, K) = dedx @
+    W^T, times `deriv`'s derivative on y_prev, or None when with_dedy is False
+    (the first layer).  A (key, omit) in_mask draws rows mask_row0.. of its
+    Philox stream (a rank's rows of the global bunch).  bf16: products of
+    operands rounded to bfloat16, float32 sums (tensor cores); False: float32
+    products.  grad, dedy and scratch (the dedy partials,
+    fused_bwd_scratch_floats) may be given to be written into.
+    """
+    if deriv not in (None, "relu", "sigmoid"):
+        raise ValueError(f"unknown derivative {deriv!r}")
+    if in_mask is not None and deriv is not None:
+        raise ValueError("deriv is taken on the stored y_prev: give y_prev masked, not in_mask")
+    if dedx.dim() != 2 or y_prev.dim() != 2 or dedx.shape[0] != y_prev.shape[0]:
+        raise ValueError(f"shapes {tuple(dedx.shape)} and {tuple(y_prev.shape)} do not match")
+    (B, N), K = dedx.shape, y_prev.shape[1]
+    dev = dedx.device
+    for name, t, shape in (("dedx", dedx, (B, N)), ("y_prev", y_prev, (B, K)), ("w", w, (K, N))):
+        _check(name, t, shape, dev)
+    if dev.type == "cpu":
+        g, dy = fused_bwd_grad_out_reference(dedx, y_prev, w, in_mask, in_scale, mask_row0, deriv,
+                                             with_dedy, bf16=bf16)
+        if grad is not None:
+            grad.copy_(g)
+            g = grad
+        if dedy is not None and dy is not None:
+            dedy.copy_(dy)
+            dy = dedy
+        return g, dy
+    if dev.type != "cuda":
+        raise ValueError(f"fused_bwd_grad_out runs on cuda or cpu tensors, got {dev}")
+    im = _mask_args("in_mask", in_mask, in_scale, (B, K), dev)
+    lib = _lib()
+    grad = torch.empty(K * N + N, dtype=torch.float32, device=dev) if grad is None else grad
+    _check("grad", grad, (K * N + N,), dev)
+    part = None
+    if with_dedy:
+        dedy = torch.empty((B, K), dtype=torch.float32, device=dev) if dedy is None else dedy
+        _check("dedy", dedy, (B, K), dev)
+        n_part = lib.fused_bwd_scratch_floats(B, K, N)
+        part = torch.empty(n_part, dtype=torch.float32, device=dev) if scratch is None else scratch
+        if part.dtype != torch.float32 or part.device != dev or part.numel() < n_part:
+            raise ValueError(f"scratch: {n_part} float32 on {dev} needed")
+    else:
+        dedy = None
+    with torch.cuda.device(dev):
+        rc = lib.fused_bwd_grad_out_f32(
+            dedx.data_ptr(), y_prev.data_ptr(), w.data_ptr(), grad.data_ptr(),
+            None if part is None else part.data_ptr(), None if dedy is None else dedy.data_ptr(),
+            B, K, N, *im[:5], int(mask_row0), ACTS[deriv] if deriv else 0, int(bf16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_bwd_grad_out kernel launch failed: CUDA error {rc}")
+    fused_bwd_grad_out.launches += 1
+    fused_bwd_grad_out.tc_launches += 1 if bf16 else 0
+    fused_bwd_grad_out.reduce_launches += 1 if with_dedy else 0
+    return grad, dedy
+
+
+fused_bwd_grad_out.launches = 0
+fused_bwd_grad_out.tc_launches = 0
+fused_bwd_grad_out.reduce_launches = 0
+
+
+def dp_update(w: torch.Tensor, delta: torch.Tensor, b: torch.Tensor, delta_b: torch.Tensor,
+              grad: torch.Tensor, momentum: float, a_coef: float, b_coef: float,
+              sr_seed: Optional[int] = None, first: bool = True, apply: bool = True):
+    """The update from a given gradient, in place: grad (K*N + N,) as
+    `fused_bwd_grad_out` writes it (summed over the ranks by the data-parallel
+    trainer); delta' = m*delta - (A*G + B*W) (first) or delta - A*G, W' =
+    W + delta' (apply), the bias alike with gb: the chunk trainer's rule
+    [m, A, B] (`resident_chunk._scal_coefs`) and its row-tile flags.  w
+    float32; delta float32 or bfloat16 (then stored with stochastic rounding
+    from stream `sr_seed`, and w takes the unrounded step: sr_delta).
+    -> (w, delta, b, delta_b)."""
+    if w.dim() != 2:
+        raise ValueError(f"w: 2-D expected, got {tuple(w.shape)}")
+    (K, N), dev = w.shape, w.device
+    _check("w", w, (K, N), dev)
+    _check("delta", delta, (K, N), dev, _STORAGE)
+    for name, t, shape in (("b", b, (N,)), ("delta_b", delta_b, (N,)), ("grad", grad, (K * N + N,))):
+        _check(name, t, shape, dev)
+    d_bf16 = delta.dtype == torch.bfloat16
+    if d_bf16 and sr_seed is None:
+        raise ValueError("bfloat16 storage is rounded stochastically: give sr_seed")
+    if dev.type == "cpu":
+        new = dp_update_reference(w, delta, b, delta_b, grad, momentum, a_coef, b_coef, sr_seed,
+                                  first, apply)
+        with torch.no_grad():
+            for dst, src in zip((w, delta, b, delta_b), new):
+                dst.copy_(src)
+        return w, delta, b, delta_b
+    if dev.type != "cuda":
+        raise ValueError(f"dp_update runs on cuda or cpu tensors, got {dev}")
+    flags = (1 if first else 0) | (2 if apply else 0)  # kUpdFirst, kUpdApply
+    with torch.cuda.device(dev):
+        rc = _lib().dp_update_f32(
+            w.data_ptr(), delta.data_ptr(), int(d_bf16), b.data_ptr(), delta_b.data_ptr(),
+            grad.data_ptr(), K, N, float(momentum), float(a_coef), float(b_coef),
+            int(sr_seed or 0) & 0xFFFFFFFF, flags, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dp_update kernel launch failed: CUDA error {rc}")
+    dp_update.launches += 1
+    dp_update.sr_launches += 1 if d_bf16 else 0
+    return w, delta, b, delta_b
+
+
+dp_update.launches = 0
+dp_update.sr_launches = 0

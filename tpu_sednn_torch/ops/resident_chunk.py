@@ -29,13 +29,18 @@ bfloat16 state with stochastic rounding (`sr_delta`: the weight matrices'
 momentum; `sr_state`: weights and momentum), row tiles that accumulate one
 bunch's gradient into the momentum (`tile_rows`), and `hbm_spill`, which has
 nothing to do on this card.  Every storage form runs with either product.
-The data-parallel trainer is still to port.
+The data-parallel trainer (`make_dp_resident_train_chunk`) trains a rank's
+rows of every bunch and sums each layer's gradient over the ranks between
+the gradient-out backward and the update kernel (ops/fused_mlp.py), where
+the TPU kernel sums inside the kernel: with NCCL where each rank has a card,
+with the rank_sum kernel (ops/rank_sum.py) where the ranks share one.
 
 Plain versions, beside the wrappers: `resident_train_chunk_reference` and
 `sample_resident_masks_reference` (bit-equal Philox, so a chunk trained WITH
 dropout, or with stochastic rounding, is comparable between kernel and plain
 version).  `make_resident_train_chunk.launches` counts calls of the C entry
-point, `kernel_launches` the kernel launches it enqueued, by kernel and form.
+point, `kernel_launches` the kernel launches it enqueued, by kernel and form;
+`make_dp_resident_train_chunk.launches` the data-parallel runs on a card.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from tpu_sednn_torch.ops import _build
 from tpu_sednn_torch.ops.fused_mlp import ACTS
 from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
                                         philox_mask, sr_bits, sr_to_bf16_reference)
+from tpu_sednn_torch.parallel.mesh import Mesh, all_reduce, fence, local_rows
 from tpu_sednn_torch.train.step import OptConfig, TrainState
 
 # seed strides: distinct streams per (bunch, layer) mask
@@ -68,7 +74,10 @@ _mask_threshold = mask_threshold
 # that stored bfloat16 with stochastic rounding, bwd_kernel launches of
 # row-tiled bunches, fwd_kernel launches that read bfloat16 weights; the
 # forward and backward launches of the tensor-core forms (tc_fwd_kernel,
-# tc_bwd_kernel), counted in the first two as well
+# tc_bwd_kernel), counted in the first two as well.  The data-parallel
+# trainer's forward entry (dp_chunk_forward) tallies into the forward keys; its
+# backward and update launches are counted by their wrappers
+# (fused_bwd_grad_out, dp_update in ops/fused_mlp.py)
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "reduce_dedy": 0, "philox_mask": 0,
                                    "fused_linear_act_sum": 0, "sr_bwd_update": 0,
@@ -136,6 +145,23 @@ def _cast_state(state: TrainState, w_dtype: torch.dtype, d_dtype: torch.dtype) -
         state.deltas = MLP([d.data.to(d_dtype) for d in state.deltas.w], list(state.deltas.b))
 
 
+def _checked_state(state: TrainState, sizes, w_dtype: torch.dtype, d_dtype: torch.dtype):
+    """(W, delta, b, delta_b) lists of the state after checking what the
+    kernels read through raw pointers: shapes, storage types, the state's
+    device, contiguity."""
+    dev = state.device
+    tensors = (list(state.params.w), list(state.deltas.w), list(state.params.b),
+               list(state.deltas.b))
+    for group, dtype in zip(tensors, (w_dtype, d_dtype, torch.float32, torch.float32)):
+        for l, a in enumerate(group):
+            want = (sizes[l], sizes[l + 1]) if a.dim() == 2 else (sizes[l + 1],)
+            if (tuple(a.shape) != want or a.dtype != dtype or a.device != dev
+                    or not a.is_contiguous()):
+                raise ValueError(f"state tensor of layer {l}: {tuple(a.shape)} {a.dtype} on "
+                                 f"{a.device}; expected {dtype} {want} on {dev}, contiguous")
+    return tensors
+
+
 @torch.no_grad()
 def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
                                    targ_chunk: torch.Tensor, cfg: ModelConfig, bunch: int,
@@ -173,11 +199,25 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
     values; where float32 and float64 sums round to different bfloat16
     values, the difference grows from layer to layer: see chip_smoke.py.)
     """
+    tile = bunch if tile_rows is None else int(tile_rows)
+    return _chunk_reference(state, in_chunk, targ_chunk, cfg, tile, bunch // tile, bunch, coefs,
+                            seed, n_real, dtype, sr_state, sr_delta, bf16)
+
+
+@torch.no_grad()
+def _chunk_reference(state: TrainState, in_chunk: torch.Tensor, targ_chunk: torch.Tensor,
+                     cfg: ModelConfig, tile: int, accum: int, grad_n: int,
+                     coefs: Sequence[float], seed: int, n_real: Optional[int],
+                     dtype: Optional[torch.dtype], sr_state: bool, sr_delta: bool, bf16: bool,
+                     row0: int = 0, reduce=None) -> TrainState:
+    """The plain chunk trainer's loop, for one rank: bunches of `accum`
+    tiles of `tile` rows, dedx carrying 2/grad_n (the global bunch), masks
+    drawn at rows row0.. of the global tile, and each layer's gradient and
+    bias gradient passed through `reduce` (the sum over the ranks) before
+    the update.  A single device: row0 0, reduce None."""
     dt = dtype or torch.float32
     m, a_coef, b_coef = (float(c) for c in coefs)
-    tile = bunch if tile_rows is None else int(tile_rows)
-    accum = bunch // tile
-    n_bunches = in_chunk.shape[0] // bunch
+    n_bunches = in_chunk.shape[0] // (tile * accum)
     n_real = n_bunches if n_real is None else int(n_real)
     ws = [w.data.to(dt) for w in state.params.w]
     bs = [b.data.to(dt) for b in state.params.b]
@@ -201,7 +241,7 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
             for l in range(L):
                 if omits[l] > 0.0:
                     mask = philox_mask(mask_key(seed, gi, l), tile, h.shape[1], omits[l],
-                                       device=dev)
+                                       row0=row0, device=dev)
                     h = h * (mask.to(h.dtype) * scales[l])
                 h = h.to(dt)
                 ys.append(h)
@@ -209,7 +249,7 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
                 act = cfg.hidden if l < L - 1 else cfg.output
                 h = torch.relu(z) if act == "relu" else torch.sigmoid(z) if act == "sigmoid" else z
             out = h
-            dedx = (2.0 / bunch) * (out - t)
+            dedx = (2.0 / grad_n) * (out - t)
             if cfg.output == "sigmoid":
                 dedx = dedx * out * (1.0 - out)
             for l in range(L - 1, -1, -1):
@@ -217,6 +257,8 @@ def resident_train_chunk_reference(state: TrainState, in_chunk: torch.Tensor,
                 dedy = dedx_r @ mm_operand(ws[l], bf16, dt).T if l > 0 else None  # pre-update W
                 g = mm_operand(ys[l], bf16, dt).T @ dedx_r
                 gb = dedx.sum(dim=0)
+                if reduce is not None:
+                    g, gb = reduce(g), reduce(gb)
                 if j == 0:
                     nd = m * dws[l] - (a_coef * g + b_coef * ws[l])
                     ndb = m * dbs[l] - a_coef * gb
@@ -255,15 +297,16 @@ def _lib() -> ctypes.CDLL:
     lib.resident_chunk_train.argtypes = [p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, i, i, u, u,
                                          f, f, u, f, f, f, i, ctypes.POINTER(ctypes.c_longlong), p]
     lib.resident_chunk_train.restype = ctypes.c_int
+    lib.dp_chunk_forward.argtypes = [p, p, i, i, ip, i, pp, pp, pp, p, p, i, i, u, u, f, f, u, i,
+                                     f, i, ctypes.POINTER(ctypes.c_longlong), p]
+    lib.dp_chunk_forward.restype = ctypes.c_int
+    lib.chunk_forward_scratch_floats.argtypes = [ip, i, i, i, i]
+    lib.chunk_forward_scratch_floats.restype = ctypes.c_longlong
     lib.philox_mask_f32.argtypes = [p, i, i, i, u, u, f, p]
     lib.philox_mask_f32.restype = ctypes.c_int
     lib.philox_words_u32.argtypes = [p, p, i, p]
     lib.philox_words_u32.restype = ctypes.c_int
     return lib
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what}: not yet ported")
 
 
 def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
@@ -312,7 +355,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
     (csrc/fused_mlp.cuh: tc_fwd_kernel, tc_bwd_kernel); biases, the bias
     gradient and the update on the unrounded W stay float32.  False: float32
     products.  Either runs with every storage form above.  The data-parallel
-    trainer is still to port.  The TPU kernel's interpret and dedy_full have
+    form is `make_dp_resident_train_chunk`.  The TPU kernel's interpret and dedy_full have
     no counterpart (a CPU state takes the plain version; dedy_full names a
     scheduling choice of that kernel).
 
@@ -382,15 +425,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
                                                   sr_delta=sr_delta, tile_rows=tile, bf16=bf16)
         if dev.type != "cuda":
             raise ValueError(f"the chunk trainer runs on cuda or cpu, got {dev}")
-        tensors = (list(state.params.w), list(state.deltas.w), list(state.params.b),
-                   list(state.deltas.b))
-        for group, dtype in zip(tensors, (w_dtype, d_dtype, torch.float32, torch.float32)):
-            for l, a in enumerate(group):
-                want = (sizes[l], sizes[l + 1]) if a.dim() == 2 else (sizes[l + 1],)
-                if (tuple(a.shape) != want or a.dtype != dtype or a.device != dev
-                        or not a.is_contiguous()):
-                    raise ValueError(f"state tensor of layer {l}: {tuple(a.shape)} {a.dtype} on "
-                                     f"{a.device}; expected {dtype} {want} on {dev}, contiguous")
+        tensors = _checked_state(state, sizes, w_dtype, d_dtype)
         for name, a in (("in_chunk", in_chunk), ("targ_chunk", targ_chunk)):
             if a.dtype != torch.float32 or a.device != dev or not a.is_contiguous():
                 raise ValueError(f"{name}: float32, contiguous, on {dev} expected; got {a.dtype} "
@@ -427,10 +462,256 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
 make_resident_train_chunk.launches = 0
 
 
-def make_dp_resident_train_chunk(*args, **kwargs):
-    """The data-parallel chunk trainer (bunch_part row split, gradient
-    all-reduce before the in-place update) is still to port."""
-    _not_ported("make_dp_resident_train_chunk (data-parallel chunk trainer)")
+def _all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The data-parallel trainer's sum of a layer's gradient over the ranks."""
+    return all_reduce(t, mesh)
+
+
+def _mask_row0(mesh: Mesh, tile_local: int) -> int:
+    """The first row of the global tile that this rank's rows are: where its
+    masks start in their Philox streams."""
+    return mesh.index * tile_local
+
+
+@torch.no_grad()
+def dp_resident_train_chunk_reference(state: TrainState, in_local: torch.Tensor,
+                                      targ_local: torch.Tensor, cfg: ModelConfig, bunch: int,
+                                      coefs: Sequence[float], seed: int, mesh: Mesh,
+                                      n_real: Optional[int] = None,
+                                      dtype: Optional[torch.dtype] = None,
+                                      sr_delta: bool = False, tile_rows: Optional[int] = None,
+                                      bf16: bool = True) -> TrainState:
+    """Plain torch version of the data-parallel chunk trainer, for this rank:
+    `resident_train_chunk_reference`'s loop over this rank's rows
+    (`in_local`: its tile_rows / n_dev rows of every global tile, in order)
+    with dedx carrying 2/bunch (the GLOBAL bunch), every mask drawn at the
+    rank's rows of the global tile (`philox_mask(..., row0)`), and each
+    layer's gradient and bias gradient summed over the ranks
+    (torch.distributed all-reduce) before the update.  bunch and tile_rows
+    are global, as the factory takes them; dtype, sr_delta, bf16 as in
+    `resident_train_chunk_reference`.  Updates `state` in place."""
+    tile_g = bunch if tile_rows is None else int(tile_rows)
+    tile = tile_g // mesh.n_data
+    _chunk_reference(state, in_local, targ_local, cfg, tile, bunch // tile_g, bunch, coefs, seed,
+                     n_real, dtype, False, sr_delta, bf16, row0=_mask_row0(mesh, tile),
+                     reduce=lambda a: _all_reduce(a, mesh))
+    fence(mesh)
+    return state
+
+
+def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
+                    device: torch.device):
+    """The data-parallel trainer's forward of one tile on the card
+    (csrc/resident_chunk.cu:dp_chunk_forward); -> fwd(x, t, ws, bs, key0,
+    row0, coef, tallies).
+
+    fwd runs this rank's `tile` rows x, t of a global tile of `tile_g` rows
+    through the net (float32 weights ws, biases bs) with every mask of
+    stream key0 (hidden layer l's: key0 + l*104729) drawn at rows row0.. of
+    the global tile, and K split as for the global tile; -> (ys, dedx): each
+    layer's masked activation (the last: the net's output) and dedx =
+    coef * (out - t) [* out(1-out) for a sigmoid head], flat, in buffers
+    that the next call overwrites.  The launches are added to `tallies`, a
+    ctypes array laid out as kernel_launches."""
+    sizes = tuple(int(s) for s in cfg.layersizes)
+    L = len(sizes) - 1
+    lib = _lib()
+    c_sizes = (ctypes.c_int * (L + 1))(*sizes)
+    f32 = dict(dtype=torch.float32, device=device)
+    ys = [torch.empty((tile, sizes[l + 1]), **f32) for l in range(L)]
+    dedx = torch.empty(tile * max(sizes), **f32)
+    part = torch.empty(max(lib.chunk_forward_scratch_floats(c_sizes, L, tile, tile_g, int(bf16)), 1),
+                       **f32)
+    y_ptrs = (ctypes.c_void_p * L)(*[y.data_ptr() for y in ys])
+    omits, scales = _dropout_setup(cfg, L)
+    omit_hid, scale_hid = (omits[1], scales[1]) if L > 1 else (0.0, 1.0)
+    thr_vis = mask_threshold(omits[0]) if omits[0] > 0.0 else 0
+    thr_hid = mask_threshold(omit_hid) if omit_hid > 0.0 else 0
+
+    def fwd(x, t, ws, bs, key0: int, row0: int, coef: float, tallies):
+        if tuple(x.shape) != (tile, sizes[0]) or tuple(t.shape) != (tile, sizes[-1]):
+            raise ValueError(f"a tile's rows: x {tuple(x.shape)}, t {tuple(t.shape)}; expected "
+                             f"{tile} rows of {sizes[0]} and {sizes[-1]}")
+        w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in ws])
+        b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bs])
+        with torch.cuda.device(device):
+            rc = lib.dp_chunk_forward(
+                x.data_ptr(), t.data_ptr(), tile, tile_g, c_sizes, L, w_ptrs, b_ptrs, y_ptrs,
+                dedx.data_ptr(), part.data_ptr(), ACTS[cfg.hidden], ACTS[cfg.output], thr_vis,
+                thr_hid, scales[0], scale_hid, int(key0) & 0xFFFFFFFF, int(row0), float(coef),
+                int(bf16), tallies, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"data-parallel forward launch failed: CUDA error {rc}")
+        return ys, dedx
+
+    return fwd
+
+
+def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
+                                 bf16: bool = True, rule: str = "parity",
+                                 dedy_full: bool = False, pre_grouped: bool = False,
+                                 tile_rows: int | None = None, sr_delta: bool = False,
+                                 hbm_spill: int = 0):
+    """Data-parallel chunk trainer over a ("data",) mesh (parallel.make_mesh):
+    one rank per process, each holding a full replica of the state.
+
+    Each global bunch of opt.bunchsize rows is split bunch_part-style (rank d
+    takes rows [d*bs_local, (d+1)*bs_local) of every bunch, or of every
+    tile_rows tile); every rank runs the forward on its rows with the masks
+    of its rows of the global bunch (Philox keyed on the global row), dedx
+    carrying 2/(global bunch); per layer, last first, the gradient-out
+    backward writes this rank's G and gb (`fused_bwd_grad_out`), one
+    all-reduce sums them over the ranks, and the update kernel (`dp_update`)
+    applies the sum on every replica, so replicas stay bit-equal.  The TPU
+    kernel sums inside the kernel with remote copies between chips; here the
+    sum runs between the kernels (`parallel.all_reduce`): NCCL where each
+    rank has a card, the rank_sum kernel over CUDA IPC where the ranks share
+    one (ops/rank_sum.py).  With dropout on, a run
+    equals the single-device trainer with the same seed to reduction order,
+    for any number of ranks.
+
+    Same signature, defaults and checks as the JAX factory: n_dev a power of
+    two; local bunch and local tile multiples of 8; tile_rows (global rows
+    per tile, gradient accumulated into the momentum) a clean-rule option,
+    not with sr_delta or pre_grouped; hbm_spill not with sr_delta or row
+    tiles.  dedy_full and hbm_spill name choices of the TPU kernel's on-chip
+    memory and change nothing here.  sr_delta: bfloat16 momentum with
+    stochastic rounding from the single-device streams.
+
+    run(state, in_chunk, targ_chunk, seed, lrate, momentum, weightcost,
+    n_real=None): in_chunk the whole chunk (every rank holds it; this rank's
+    rows are taken at tile granularity), or with pre_grouped this rank's rows
+    of the host-regrouped chunk (`make_global_chunk`).  On a CUDA state the
+    kernels run (or raise); on a CPU state `dp_resident_train_chunk_reference`.
+    Writes into `state` and returns it.
+    """
+    sizes = tuple(int(s) for s in cfg.layersizes)
+    bunch, n_dev = opt.bunchsize, mesh.n_data
+    if n_dev < 1 or n_dev & (n_dev - 1):
+        raise ValueError(f"data mesh size {n_dev} must be a power of two")
+    if bunch % n_dev:
+        raise ValueError(f"bunchsize {bunch} not divisible by mesh data={n_dev}")
+    bs_local = bunch // n_dev
+    if bs_local % 8:
+        raise ValueError(f"local bunch {bs_local} must be a multiple of 8")
+    if rule not in ("parity", "clean"):
+        raise ValueError(f"unknown rule {rule!r}")
+    if cfg.hidden not in ("relu", "sigmoid") or cfg.output not in ("linear", "sigmoid"):
+        raise ValueError(f"unsupported activations {cfg.hidden!r}/{cfg.output!r}")
+    tile_g = tile_rows if tile_rows is not None else bunch
+    if bunch % tile_g or tile_g % n_dev:
+        raise ValueError(f"tile_rows {tile_g} must divide bunchsize {bunch} "
+                         f"and be divisible by mesh data={n_dev}")
+    tile = tile_g // n_dev
+    if tile % 8:
+        raise ValueError(f"local tile {tile} must be a multiple of 8")
+    accum = bunch // tile_g
+    if accum > 1 and rule != "clean":
+        raise ValueError("row-tiled gradient accumulation is a clean-rule "
+                         "option (parity is per-128 sequential semantics)")
+    if accum > 1 and pre_grouped:
+        raise ValueError("pre_grouped input regroups at bunch granularity; "
+                         "tile_rows < bunchsize needs the regroup of the whole chunk")
+    if accum > 1 and sr_delta:
+        raise ValueError("row-tiled accumulation rides in the momentum "
+                         "buffer, which must stay f32 (no sr_delta)")
+    if not 0 <= hbm_spill <= len(sizes) - 1:
+        raise ValueError(f"hbm_spill {hbm_spill} out of range [0, {len(sizes)-1}]")
+    if hbm_spill and (sr_delta or accum > 1):
+        raise ValueError("hbm_spill is the f32 hybrid mode; no sr_delta or "
+                         "row-tiled accumulation (same constraint as the "
+                         "single-chip factory)")
+    d_dtype = torch.bfloat16 if sr_delta else torch.float32
+    L = len(sizes) - 1
+    omits, scales = _dropout_setup(cfg, L)
+    omit_vis, scale_vis = omits[0], scales[0]
+    coef = float(np.float32(2.0) / np.float32(bunch))  # dedx's 2/n, as the C trainer forms it
+
+    def run_kernels(state, x, t, nr, seed, coefs):
+        from tpu_sednn_torch.ops.fused_mlp import _lib as fused_lib, dp_update, fused_bwd_grad_out
+
+        dev = state.device
+        row0 = _mask_row0(mesh, tile)
+        forward = dp_tile_forward(cfg, tile, tile_g, bf16, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        spare = torch.empty(tile * max(sizes), **f32)
+        grad = torch.empty(max(sizes[l] * sizes[l + 1] + sizes[l + 1] for l in range(L)), **f32)
+        scratch = torch.empty(max([fused_lib().fused_bwd_scratch_floats(tile, sizes[l], sizes[l + 1])
+                                   for l in range(1, L)] + [1]), **f32)
+        ws, ds, bs, dbs = (list(state.params.w), list(state.deltas.w), list(state.params.b),
+                           list(state.deltas.b))
+        tallies = (ctypes.c_longlong * len(kernel_launches))()
+        try:
+            for i in range(nr):
+                for j in range(accum):
+                    gi = i * accum + j
+                    xi, ti = x[gi * tile:(gi + 1) * tile], t[gi * tile:(gi + 1) * tile]
+                    key0 = mask_key(seed, gi, 0)
+                    ys, dedx = forward(xi, ti, ws, bs, key0, row0, coef, tallies)
+                    other = spare
+                    for l in range(L - 1, -1, -1):
+                        K, N = sizes[l], sizes[l + 1]
+                        g = grad[:K * N + N]
+                        fused_bwd_grad_out(
+                            dedx[:tile * N].view(tile, N), xi if l == 0 else ys[l - 1], ws[l],
+                            in_mask=(key0, omit_vis) if l == 0 and omit_vis > 0.0 else None,
+                            in_scale=scale_vis, mask_row0=row0,
+                            deriv=cfg.hidden if l > 0 else None, with_dedy=l > 0, bf16=bf16,
+                            grad=g, dedy=other[:tile * K].view(tile, K) if l > 0 else None,
+                            scratch=scratch)
+                        _all_reduce(g, mesh)
+                        dp_update(ws[l], ds[l], bs[l], dbs[l], g, *coefs,
+                                  sr_seed=sr_key(seed, i, l) if sr_delta else None,
+                                  first=j == 0, apply=j == accum - 1)
+                        dedx, other = other, dedx
+        finally:
+            for name, n in zip(kernel_launches, tallies):
+                kernel_launches[name] += int(n)
+
+    def run(state: TrainState, in_chunk: torch.Tensor, targ_chunk: torch.Tensor, seed,
+            lrate=opt.lrate, momentum=opt.momentum, weightcost=opt.weightcost,
+            n_real=None) -> TrainState:
+        """n_real: optional count of REAL bunches when the chunk is padded to
+        a fixed capacity; rows past them are never trained.  None = all full
+        bunches."""
+        n_bunches = in_chunk.shape[0] // (bs_local if pre_grouped else bunch)
+        if n_bunches == 0:
+            return state
+        nr = n_bunches if n_real is None else int(n_real)
+        if not 0 <= nr <= n_bunches:
+            raise ValueError(f"n_real {nr} outside [0, {n_bunches}]")
+        if in_chunk.shape[1] != sizes[0] or targ_chunk.shape[1] != sizes[-1]:
+            raise ValueError(f"chunk widths {in_chunk.shape[1]}/{targ_chunk.shape[1]} do not "
+                             f"match the net {sizes[0]}/{sizes[-1]}")
+        if targ_chunk.shape[0] < in_chunk.shape[0]:
+            raise ValueError("targ_chunk has fewer rows than in_chunk")
+        if pre_grouped:
+            x, t = in_chunk[:nr * bs_local], targ_chunk[:nr * bs_local]
+        else:  # this rank's rows of every global tile, at tile granularity
+            x, t = (local_rows(a[:nr * bunch], tile_g, mesh) for a in (in_chunk, targ_chunk))
+        coefs = _scal_coefs(rule, bunch, sizes[-1], lrate, momentum, weightcost)
+        dev = state.device
+        _cast_state(state, torch.float32, d_dtype)
+        if dev.type == "cpu":
+            return dp_resident_train_chunk_reference(state, x, t, cfg, bunch, coefs, int(seed),
+                                                     mesh, n_real=nr, sr_delta=sr_delta,
+                                                     tile_rows=tile_g, bf16=bf16)
+        if dev.type != "cuda":
+            raise ValueError(f"the chunk trainer runs on cuda or cpu, got {dev}")
+        _checked_state(state, sizes, torch.float32, d_dtype)
+        for name, a in (("in_chunk", x), ("targ_chunk", t)):
+            if a.dtype != torch.float32 or a.device != dev:
+                raise ValueError(f"{name}: float32 on {dev} expected; got {a.dtype} on {a.device}")
+        run_kernels(state, x.contiguous(), t.contiguous(), nr, int(seed) & 0xFFFFFFFF, coefs)
+        fence(mesh)
+        make_dp_resident_train_chunk.launches += 1
+        state.step += nr
+        return state
+
+    return run
+
+
+make_dp_resident_train_chunk.launches = 0
 
 
 def _slice_rows(shape, device_idx: int, n_dev: int) -> Tuple[int, int, int, int]:

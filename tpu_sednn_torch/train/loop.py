@@ -14,6 +14,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_sednn_torch.data.pipeline import plan_chunks, read_chunk_parity
 from tpu_sednn_torch.data.rand48 import Rand48
@@ -66,7 +67,13 @@ def make_chunk_runner(cfg: ModelConfig, opt: OptConfig, engine: str = "xla",
         version);
       * "auto"     — "resident" for a CUDA `device` (with the factory's
         defaults: bf16=True, tensor-core products), "xla" for the CPU.
-    n_data_shards > 1 (data parallelism) is not yet ported.
+    n_data_shards > 1 takes the data-parallel form of the engine over the
+    process group's ("data",) mesh (parallel.make_mesh; one rank per process,
+    n_data_shards ranks): the resident trainer's gradient-out backward,
+    all-reduce and update kernels (make_dp_resident_train_chunk), or the
+    plain trainer's autograd + all-reduce (parallel.make_dp_train_chunk).
+    pre_grouped marks chunk rows as already this rank's rows of the
+    bunch_part-regrouped chunk (the multi-process input pipeline).
     engine_kwargs are forwarded to the resident factory (bf16, sr_delta,
     sr_state, tile_rows, hbm_spill, rule); the plain engine ignores them.
     All runners share the signature
@@ -75,16 +82,43 @@ def make_chunk_runner(cfg: ModelConfig, opt: OptConfig, engine: str = "xla",
     ignores opt's dynamic fields, so defaults would silently come from
     whichever opt created the runner first).  Runners update `state` in place.
     """
-    if n_data_shards > 1 or pre_grouped:
-        raise NotImplementedError("n_data_shards > 1 (data parallelism): not yet ported")
     dev_type = torch.device(device).type
     if engine == "auto":
         engine, extra = _auto_engine(cfg, opt, engine_kwargs, device)
         engine_kwargs = {**engine_kwargs, **extra}
-    memo_key = (cfg, opt.bunchsize, engine, dev_type, tuple(sorted(engine_kwargs.items())))
+    memo_key = (cfg, opt.bunchsize, engine, n_data_shards, pre_grouped, dev_type,
+                tuple(sorted(engine_kwargs.items())))
     if memo_key in _RUNNER_MEMO:
         return _RUNNER_MEMO[memo_key]
-    if engine == "resident":
+    if n_data_shards > 1:
+        from tpu_sednn_torch.parallel import make_mesh
+
+        mesh = make_mesh(n_data=n_data_shards, devices=[device])
+        if engine == "resident":
+            from tpu_sednn_torch.ops.resident_chunk import make_dp_resident_train_chunk
+
+            run_dp = make_dp_resident_train_chunk(cfg, opt, mesh, pre_grouped=pre_grouped,
+                                                  **engine_kwargs)
+
+            def run(state, x, t, rng, lrate, momentum, weightcost, n_real=None):
+                seed = int(torch.randint(0, 2**31 - 1, (), generator=rng))
+                return run_dp(state, x, t, seed, lrate, momentum, weightcost, n_real=n_real)
+
+        elif engine == "xla":
+            from tpu_sednn_torch.parallel import make_dp_train_chunk
+
+            run_xla = make_dp_train_chunk(cfg, opt, mesh, pre_grouped=pre_grouped)
+
+            def run(state, x, t, rng, lrate, momentum, weightcost, n_real=None):
+                if n_real is not None:
+                    raise ValueError("the plain DP trainer takes trimmed chunks, not "
+                                     "n_real-padded ones")
+                return run_xla(state, x, t, rng, lrate, momentum, weightcost)
+        else:
+            raise ValueError(f"unknown engine {engine!r}")
+    elif pre_grouped:
+        raise ValueError("pre_grouped chunks need n_data_shards > 1")
+    elif engine == "resident":
         from tpu_sednn_torch.ops.resident_chunk import make_resident_train_chunk
 
         run_res = make_resident_train_chunk(cfg, opt, **engine_kwargs)
@@ -161,13 +195,28 @@ def train_epoch_pfile(
     the host->device transfer — with every chunk padded to fixed capacities
     (the resident engine's n_real skips the padded bunches).  Same math as
     read_chunk_parity.  None = auto: on for the resident engine on a CUDA
-    device with NAT.
+    device with NAT, off for data parallelism.
+
+    n_data_shards > 1: data parallelism over the process group (one rank per
+    process, torch.distributed joined by the caller; `cli` does it for
+    gpu_used > 1).  Every rank reads the same pfiles with the same Rand48
+    stream, so chunk order and scatter agree; each regroups the chunk's
+    bunch_part rows on the host and ships only its own
+    (parallel.make_global_chunk); the state is broadcast from rank 0 first.
+    The CV pass runs on rank 0's replica, and rank 0 alone logs; every rank
+    returns the same state and result.
     """
     log = logger or Logger()
     t0 = time.time()
     dev = state.device
+    mesh = None
     if n_data_shards > 1:
-        raise NotImplementedError("n_data_shards > 1 (data parallelism): not yet ported")
+        from tpu_sednn_torch.parallel import make_mesh, replicate
+
+        mesh = make_mesh(n_data=n_data_shards, devices=[dev])
+        replicate(state, mesh)
+        if mesh.index != 0:
+            log = Logger(is_host0=False)
     fea_info = read_pfile_info(fea_file, fea_dim)
     out_dim = int(state.params.b[-1].shape[0])
     targ_info = read_pfile_info(targ_file, out_dim)
@@ -190,9 +239,13 @@ def train_epoch_pfile(
     if resolved_engine == "auto":
         resolved_engine, _extra = _auto_engine(cfg, opt, engine_kwargs, dev)
         engine_kwargs = {**(engine_kwargs or {}), **_extra}
-    if device_splice is None:
+    if mesh is not None:
+        device_splice = False  # each rank ships its rows of the host-regrouped chunk
+    elif device_splice is None:
         device_splice = resolved_engine == "resident" and dev.type == "cuda" and nat
-    run_chunk = make_chunk_runner(cfg, opt, resolved_engine, device=dev, **(engine_kwargs or {}))
+    run_chunk = make_chunk_runner(cfg, opt, resolved_engine, n_data_shards=n_data_shards,
+                                  pre_grouped=mesh is not None, device=dev,
+                                  **(engine_kwargs or {}))
     rng = torch.Generator().manual_seed(int(seed))
 
     # host chunk prep runs one step ahead of device compute (single worker, so
@@ -240,16 +293,28 @@ def train_epoch_pfile(
                 mean, inv_std, rand, nat=nat,
             )
 
+        if mesh is not None:
+            from tpu_sednn_torch.parallel import bunch_part_regroup_host, make_global_chunk
+
+            def to_dev(a):
+                return make_global_chunk(
+                    bunch_part_regroup_host(np.asarray(a), opt.bunchsize, mesh.n_data), mesh)
+        else:
+            def to_dev(a):
+                return _to_device(a, dev)
+
         for i, (indata, targ) in enumerate(Prefetcher(chunk_order, read, depth=2)):
-            state = run_chunk(state, _to_device(indata, dev), _to_device(targ, dev), rng,
+            state = run_chunk(state, to_dev(indata), to_dev(targ), rng,
                               opt.lrate, opt.momentum, opt.weightcost)
             log.info(f"Starting chunk {i + 1} of {plan.total_chunks} containing {len(indata)} samples.")
 
-    # CV phase: unshuffled chunks, partial bunches included
+    # CV phase: unshuffled chunks, partial bunches included; with data
+    # parallelism on rank 0's replica only
     cv_plan = plan_chunks(fea_info.frames_before_sent, cv_sent_range, fea_context, traincache)
+    cv_here = mesh is None or mesh.index == 0
     sq_err = 0.0
     cv_params = state.params
-    dump_f = open(cv_dump_path, "w") if cv_dump_path else None
+    dump_f = open(cv_dump_path, "w") if cv_dump_path and cv_here else None
     if device_splice and dump_f is None and cv_plan.total_chunks > 0:
         # CV over the same on-device splice path: raw frames over the link
         # instead of spliced samples, padded to fixed capacities, garbage
@@ -274,7 +339,7 @@ def train_epoch_pfile(
                 *(_to_device(a, dev) for a in item[:6]), fea_context, targ_offset, nat)
             sq_err += float(cv_squared_error_masked(cv_params, x, tt, n_samples, cfg))
     else:
-        for ci in range(cv_plan.total_chunks):
+        for ci in range(cv_plan.total_chunks if cv_here else 0):
             indata, targ = read_chunk_parity(
                 fea_info, targ_info, cv_plan, ci, fea_context, targ_offset,
                 mean, inv_std, None, nat=nat,
@@ -292,6 +357,10 @@ def train_epoch_pfile(
     if dump_f is not None:
         dump_f.close()
     cv_mse = sq_err / max(cv_plan.total_samples, 1)
+    if mesh is not None:  # rank 0's CV to every rank
+        box = [cv_mse]
+        dist.broadcast_object_list(box, src=0, group=mesh.group)
+        cv_mse = float(box[0])
     dt = time.time() - t0
     log.info(f"CV over. squared error: {cv_mse:f}")
     log.info(f"Total cost time: {dt:.1f} s.")
