@@ -74,6 +74,10 @@ def test_enhance_cli_unported_flags_exit_nonzero(tmp_path, model, flag):
     with pytest.raises(SystemExit, match="not yet ported") as exc:
         t_enhance([str(tmp_path / "t"), wav] + flags + flag + ["--device", "cpu"])
     assert exc.value.code not in (0, None)
+    # the message names the module that will lift the rejection
+    module = {"--stream": "enhance/streaming.py", "--stream-device": "enhance/streaming.py",
+              "--quant": "model/quant.py", "--fuse-with": "enhance/fusion.py"}[flag[0]]
+    assert f"tpu_sednn_torch/{module}" in str(exc.value.code)
     assert not (tmp_path / "t").exists()
 
 

@@ -143,3 +143,164 @@ def test_cuda_requested_without_cuda_raises(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_pfile([wav], str(tmp_path / "a.pfile"), None)  # default device is cuda
     assert not (tmp_path / "a.pfile").exists()
+
+
+# ---------------------------------------------------------------------------
+# The kernel's FFT (csrc/stft_lps.cu) cannot run here; its arithmetic can.
+# _fft_emulation repeats the kernel's steps in float32 torch, in the kernel's
+# order, on the tables the wrapper hands it (ops/stft_lps.py:fft_tables): the
+# n_fft real samples windowed into m = 32 r complex points, lane l holding
+# z[l + 32 s], s < r; each lane's r-point FFT (radix-2 decimation in
+# frequency, out in bit-reversed order); the twiddles W_m^(l k); the 32-point
+# FFTs across the lanes (decimation in frequency, as the kernel's shuffles
+# do it); the split step into n_fft/2 + 1 bins, Z[m - k] taken from the lane
+# and slot where the kernel fetches it.
+# ---------------------------------------------------------------------------
+
+
+def _cmul(a, b):
+    return torch.stack([a[..., 0] * b[..., 0] - a[..., 1] * b[..., 1],
+                        a[..., 0] * b[..., 1] + a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _minus_i(d):
+    return torch.stack([d[..., 1], -d[..., 0]], dim=-1)
+
+
+def _brev(x, bits):
+    return int(format(x, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _fft_emulation(x: torch.Tensor, cfg) -> torch.Tensor:
+    """(n_samples,) float32 -> (n_frames, n_bins, 2) float32 spectrum, as the kernel forms it."""
+    from tpu_sednn_torch.ops.stft_lps import fft_tables
+
+    window, twiddle = (torch.from_numpy(a) for a in fft_tables(cfg))
+    n_fft, m = cfg.n_fft, cfg.n_fft // 2
+    r, lanes = m // 32, torch.arange(32)
+    rb = r.bit_length() - 1
+    w_r = twiddle[:r // 2]
+    w_lk = twiddle[r // 2:r // 2 + 32 * (r - 1)].reshape(max(r - 1, 0), 32, 2)
+    w_32 = twiddle[r // 2 + 32 * (r - 1):][:5 * 32].reshape(5, 32, 2)
+    w_split = twiddle[r // 2 + 32 * (r - 1) + 5 * 32:]
+    assert len(w_split) == 32 * r + 1, "the twiddle table holds more than the steps read"
+    frames = torch.zeros(cfg.n_frames(x.shape[-1]), n_fft)
+    frames[:, :cfg.win_len] = tstft.frame_signal(x, cfg) * window
+    z = torch.stack([frames[:, 0::2], frames[:, 1::2]], dim=-1)  # z[m] = (x[2m], x[2m+1])
+    a = [z[:, lanes + 32 * s] for s in range(r)]  # slot s: (frames, lane, 2)
+    h = r // 2
+    while h >= 1:  # 1. each lane's r-point FFT
+        for i in range(r):
+            if not i & h:
+                u, v = a[i], a[i + h]
+                a[i], a[i + h] = u + v, _cmul(u - v, w_r[(i & (h - 1)) * (r // (2 * h))])
+        h //= 2
+    for s in range(r):  # 2. the twiddles W_m^(l k1)
+        if _brev(s, rb):
+            a[s] = _cmul(a[s], w_lk[_brev(s, rb) - 1])
+    for st in range(5):  # 3. the 32-point FFTs across the lanes
+        h, lower = 16 >> st, (lanes & (16 >> st)) == 0
+        for s in range(r):
+            other = a[s][:, lanes ^ h]
+            a[s] = torch.where(lower[None, :, None], a[s] + other,
+                               _cmul(other - a[s], w_32[st]))
+    spec = torch.zeros(frames.shape[0], m + 1, 2)
+    k2 = torch.tensor([_brev(l, 5) for l in range(32)])
+    for s in range(r):  # 4. the split step: slot s of lane l holds Z[brev(s) + r brev5(l)]
+        k1 = _brev(s, rb)
+        src = k2.new_tensor([_brev((32 - k2[l].item()) % 32, 5) if k1 == 0 else 31 - l
+                             for l in range(32)])
+        zk, zm = a[s], a[_brev((r - k1) % r, rb)][:, src]
+        zc = torch.stack([zm[..., 0], -zm[..., 1]], dim=-1)
+        spec[:, k1 + r * k2] = 0.5 * (zk + zc) + _cmul(0.5 * _minus_i(zk - zc),
+                                                      w_split[s * 32:(s + 1) * 32])
+        if k1 == 0:  # bin m, from Z[0] too (lane 0)
+            zk0, zm0 = zk[:, 0], zm[:, 0]
+            zc0 = torch.stack([zk0[..., 0], -zk0[..., 1]], dim=-1)
+            spec[:, m] = 0.5 * (zm0 + zc0) + _cmul(0.5 * _minus_i(zm0 - zc0), w_split[32 * r])
+    return spec
+
+
+def _emulated_lps(x, cfg):
+    spec = _fft_emulation(x, cfg)
+    return torch.log(torch.clamp(spec[..., 0] ** 2 + spec[..., 1] ** 2, min=tstft.LPS_FLOOR))
+
+
+FFT_GEOMS = [(8000, 8000 * 2 + 77), (16000, 16000 * 2 + 111), (11025, 11025 * 2 + 100),
+             (22050, 22050 * 2 + 100)]
+GEOM_2048 = (44100, 44100 + 300)  # n_fft 2048, the kernel's largest (r = 32 slots a lane)
+
+
+@pytest.mark.parametrize("sr,n", FFT_GEOMS)
+def test_fft_emulation_matches_jax(sr, n):
+    """The kernel's float32 FFT arithmetic against the JAX package's Pallas
+    kernel (interpret mode; XLA where its geometry falls back) and against
+    the float64 plain version, at the tolerance tests/test_stft_pallas.py
+    holds the Pallas kernel to (atol = rtol = 1e-4); against the JAX dsp LPS
+    at that tolerance plus the dsp LPS's own distance from float64: its
+    float32 sums of win_len products are themselves off by up to 0.8 of the
+    tolerance in a bin at 22050 Hz (win_len 706)."""
+    jc, tc = _cfgs(sr)
+    x = _sig(n, sr, seed=sr)
+    got = _emulated_lps(torch.from_numpy(x), tc).numpy()
+    exact = stft_lps_reference(torch.from_numpy(x), tc).numpy()
+    pallas = np.asarray(stft_lps_pallas(jnp.asarray(x), jc, interpret=True))
+    dsp = np.asarray(jstft.stft_logpower(jnp.asarray(x), jc))
+    assert got.shape == pallas.shape == dsp.shape == (tc.n_frames(n), tc.n_bins)
+    np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, exact, rtol=1e-4, atol=1e-4)
+    excess = np.abs(got - dsp) - (1e-4 + 1e-4 * np.abs(dsp) + np.abs(dsp - exact))
+    assert excess.max() <= 0, f"off the JAX dsp LPS by {excess.max()} more than allowed"
+
+
+def test_fft_emulation_matches_jax_at_n_fft_2048():
+    """44.1 kHz (win_len 1411, n_fft 2048): the emulation against the
+    float64 plain version at atol = rtol = 1e-4, and against the JAX Pallas
+    kernel and dsp LPS at that tolerance plus each one's own distance from
+    float64: their float32 sums of 1411 products are off float64 by up to
+    1.02 of the tolerance in a bin (the FFT's float32 error here is about
+    0.35 of it)."""
+    sr, n = GEOM_2048
+    jc, tc = _cfgs(sr)
+    x = _sig(n, sr, seed=sr)
+    got = _emulated_lps(torch.from_numpy(x), tc).numpy()
+    exact = stft_lps_reference(torch.from_numpy(x), tc).numpy()
+    pallas = np.asarray(stft_lps_pallas(jnp.asarray(x), jc, interpret=True))
+    dsp = np.asarray(jstft.stft_logpower(jnp.asarray(x), jc))
+    assert got.shape == pallas.shape == dsp.shape == (tc.n_frames(n), tc.n_bins)
+    np.testing.assert_allclose(got, exact, rtol=1e-4, atol=1e-4)
+    for name, ref in (("Pallas kernel", pallas), ("dsp LPS", dsp)):
+        excess = np.abs(got - ref) - (1e-4 + 1e-4 * np.abs(ref) + np.abs(ref - exact))
+        assert excess.max() <= 0, f"off the JAX {name} by {excess.max()} more than allowed"
+
+
+@pytest.mark.parametrize("sr,n", FFT_GEOMS + [GEOM_2048])
+def test_fft_emulation_matches_numpy_rfft(sr, n):
+    """Re/im against numpy's float64 rfft of the windowed, zero-padded frames
+    at 1e-5 of the peak magnitude: an FFT's float32 error is O(log2(n_fft) u)
+    of the frame's norm."""
+    _, tc = _cfgs(sr)
+    x = _sig(n, sr, seed=sr + 1)
+    got = _fft_emulation(torch.from_numpy(x), tc).numpy()
+    frames = tstft.frame_signal(torch.from_numpy(x), tc).numpy().astype(np.float64)
+    want = np.fft.rfft(frames * tstft._window_np(tc).astype(np.float64), n=tc.n_fft, axis=-1)
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got[..., 0], want.real, rtol=0, atol=tol)
+    np.testing.assert_allclose(got[..., 1], want.imag, rtol=0, atol=tol)
+
+
+def test_fft_tables_refuse_what_the_kernel_cannot_transform():
+    from tpu_sednn_torch.ops.stft_lps import fft_tables
+
+    window, twiddle = fft_tables(tstft.StftConfig.for_rate(8000))
+    # r = 4: W_4 2, W_128^(l k) 32 x 3, the 32-point steps 5 x 32, the split 32 x 4 + 1
+    assert window.dtype == twiddle.dtype == np.float32 and twiddle.shape == (387, 2)
+    np.testing.assert_array_equal(twiddle[1], np.float32([np.cos(-np.pi / 2), -1.0]))  # W_4
+    np.testing.assert_array_equal(twiddle[-1], np.float32([-1.0, np.sin(-np.pi)]))  # T[m]
+    for cfg in (tstft.StftConfig(8000, 200, 80, 300),   # n_fft not a power of two
+                tstft.StftConfig(8000, 32, 16, 32),     # too short for a warp's 32 lanes
+                tstft.StftConfig(8000, 128, 64, 128),   # below 256: no rate gives it
+                tstft.StftConfig(96000, 4096, 1024, 4096),  # above 2048 (for_rate over 64 kHz)
+                tstft.StftConfig(8000, 300, 128, 256)):  # window longer than n_fft
+        with pytest.raises(ValueError, match="n_fft"):
+            fft_tables(cfg)

@@ -36,22 +36,28 @@ MaskSpec make_mask(int mode, const float* ptr, int ld, unsigned key, unsigned th
 // part: scratch of fused_fwd_scratch_floats(M, K, N, bf16) floats.  w_bf16 !=
 // 0: w is bfloat16 storage, widened as it is loaded; x, b and y are float32.
 // bf16 != 0: the tensor-core form, products of operands rounded to bfloat16
-// (to nearest even) summed in float32; else float32 products.
+// (to nearest even) summed in float32; else float32 products.  launched[3] +=
+// the launches of tc_fwd_kernel, fwd_kernel and fwd_sum_kernel.
 extern "C" int fused_linear_act_f32(const float* x, const void* w, int w_bf16, const float* b,
                                     float* y, int M, int K, int N, int act, int in_mode,
                                     const float* in_ptr, unsigned in_key, unsigned in_thr,
                                     float in_scale, int out_mode, const float* out_ptr,
                                     unsigned out_key, unsigned out_thr, float out_scale,
-                                    float* part, int bf16, void* stream) {
+                                    float* part, int bf16, int* launched, void* stream) {
   if (act < 0 || act > 2 || in_mode < 0 || in_mode > 2 || out_mode < 0 || out_mode > 2)
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale);
   const MaskSpec om = make_mask(out_mode, out_ptr, N, out_key, out_thr, out_scale);
-  if (w_bf16)
-    return (int)launch_fwd(x, (const bf16_t*)w, b, y, M, K, N, act, im, om, nullptr, nullptr,
-                           0.0f, part, bf16 != 0, (cudaStream_t)stream);
-  return (int)launch_fwd(x, (const float*)w, b, y, M, K, N, act, im, om, nullptr, nullptr, 0.0f,
-                         part, bf16 != 0, (cudaStream_t)stream);
+  FwdLaunched done;
+  const cudaError_t err =
+      w_bf16 ? launch_fwd(x, (const bf16_t*)w, b, y, M, K, N, act, im, om, nullptr, nullptr, 0.0f,
+                          part, bf16 != 0, &done, (cudaStream_t)stream)
+             : launch_fwd(x, (const float*)w, b, y, M, K, N, act, im, om, nullptr, nullptr, 0.0f,
+                          part, bf16 != 0, &done, (cudaStream_t)stream);
+  launched[0] += done.tc;
+  launched[1] += done.f32;
+  launched[2] += done.sum;
+  return (int)err;
 }
 
 // Scratch floats fused_linear_act_f32 needs in `part` (0: pass nullptr).

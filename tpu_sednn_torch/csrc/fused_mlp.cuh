@@ -31,8 +31,10 @@
 // the epilogue of the dedy reduction.
 //
 // At a bunch of 128 the card is short of blocks, not of arithmetic: the
-// forward splits K over the grid (see fwd_k_chunk) and prefetches the next
-// tile into registers; measured times beside the bound are in PERF.md.
+// float32 forward splits K over the grid (fwd_k_chunk) and sums the chunks
+// in a second launch; the tensor-core forward splits K within a thread-block
+// cluster and sums the chunks through distributed shared memory
+// (tc_fwd_kernel); measured times beside the bound are in PERF.md.
 //
 // Blocks of a grid run in no order, so the TPU kernel's accumulation of dedy
 // over a sequential grid axis becomes: each block writes its partial
@@ -65,8 +67,11 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -92,7 +97,8 @@ __device__ inline float act_fn(int act, float z) {
 //   NEXT layer's input, so the stored activation is the masked one the
 //   backward needs).  If targ != nullptr also
 //   dedx = coef * (y - targ) [* y * (1 - y) for a sigmoid head].
-// One block: a 32 x 64 tile of y, 128 threads, 4 x 4 outputs a thread, K in
+// Float32 form (fwd_kernel):
+// one block: a 32 x 64 tile of y, 128 threads, 4 x 4 outputs a thread, K in
 // steps of 32 with the next step's loads in flight.  At a bunch of 128 the
 // tiles alone are too few blocks (128 for a 2048-wide layer, 12 for the
 // 129-wide one), so K is split over the grid as well (fwd_k_chunk): each
@@ -101,7 +107,8 @@ __device__ inline float act_fn(int act, float z) {
 // ---------------------------------------------------------------------------
 
 // What follows the product: bias, activation, the next layer's mask, and the
-// output layer's dedx.  Shared by fwd_kernel (K not split) and fwd_sum_kernel.
+// output layer's dedx.  Shared by fwd_kernel (K not split), fwd_sum_kernel and
+// tc_fwd_kernel.
 struct FwdEpilogue {
   const float* b;
   float* y;
@@ -254,128 +261,13 @@ fwd_sum_kernel(const float* __restrict__ part, int n_chunks, FwdEpilogue epi, bo
   }
 }
 
-// Kernel 1, tensor-core form: the same function with rne(x * in_mask) @
-// rne(W) in place of the float32 product (rne: rounded to bfloat16, to
-// nearest even; the mask and its scale are applied in float32 before the
-// rounding, as the TPU kernel scales h before its _dot rounds it).  One
-// block: a 64 x 64 tile of y, four warps of 32 x 32 (2 x 4 m16n8k16 tiles
-// each), K in steps of 32 staged as bfloat16 into shared memory (true zeros
-// past every edge) with the next step's loads in flight in registers; K is
-// split over the grid as in fwd_kernel.  The sums go through shared memory
-// to fwd_epilogue4, so both forms share one epilogue.
-constexpr int kTcBM = 64, kTcBN = 64, kTcBK = 32, kTcThreads = 128;
-constexpr int kTcALd = kTcBK + 8;  // bfloat16 row strides of 80 and 144 bytes: 16-byte
-constexpr int kTcBLd = kTcBN + 8;  // multiples whose eight rows ldmatrix reads hit all 32 banks
-constexpr int kTcCLd = kTcBN + 4;
-constexpr int kTcALoads = kTcBM * kTcBK / 4 / kTcThreads;  // float4 per thread and tile: 4
-constexpr int kTcWLoads = kTcBK * kTcBN / 4 / kTcThreads;  // 4
-
-template <typename TW>
-__global__ void __launch_bounds__(kTcThreads)
-tc_fwd_kernel(const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
-              MaskSpec in_mask, FwdEpilogue epi, float* __restrict__ part, int k_chunk, bool vec_x,
-              bool vec_w, bool vec_p) {
-  __shared__ __align__(16) bf16_t As[kTcBM][kTcALd];  // rne(x tile), (m, k)
-  __shared__ __align__(16) bf16_t Bs[kTcBK][kTcBLd];  // rne(W tile), (k, n)
-  __shared__ __align__(16) float Cs[kTcBM][kTcCLd];   // the sums, for the epilogue
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;  // the warp's 32 x 32 of the tile
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
-
-  float4 a_reg[kTcALoads], w_reg[kTcWLoads];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < kTcALoads; ++r) {
-      const int idx = tid + r * kTcThreads;
-      const int row = m0 + idx / (kTcBK / 4), kk = k0 + (idx % (kTcBK / 4)) * 4;
-      float4 a = ld4(x, row, kk, K, M, K, vec_x);
-      if (in_mask.mode != 0 && row < M && kk < K) {
-        float mk[4];
-        mask4(in_mask, row, kk, K, mk);
-        a.x *= mk[0]; a.y *= mk[1]; a.z *= mk[2]; a.w *= mk[3];
-      }
-      a_reg[r] = a;
-    }
-#pragma unroll
-    for (int r = 0; r < kTcWLoads; ++r) {
-      const int idx = tid + r * kTcThreads;
-      w_reg[r] = ld4(w, k0 + idx / (kTcBN / 4), n0 + (idx % (kTcBN / 4)) * 4, N, K, N, vec_w);
-    }
-  };
-  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
-  fetch(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += kTcBK) {
-#pragma unroll
-    for (int r = 0; r < kTcALoads; ++r) {
-      const int idx = tid + r * kTcThreads;
-      st_rne4(&As[idx / (kTcBK / 4)][(idx % (kTcBK / 4)) * 4], a_reg[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kTcWLoads; ++r) {
-      const int idx = tid + r * kTcThreads;
-      st_rne4(&Bs[idx / (kTcBN / 4)][(idx % (kTcBN / 4)) * 4], w_reg[r]);
-    }
-    __syncthreads();
-    if (k0 + kTcBK < k_end) fetch(k0 + kTcBK);
-#pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
-      uint32_t a[2][4], b[2][4];
-      load_a(a[0], &As[wm][kk], kTcALd, lane);
-      load_a(a[1], &As[wm + 16][kk], kTcALd, lane);
-      load_b_kn(b[0], &Bs[kk][wn], kTcBLd, lane);
-      load_b_kn(b[1], &Bs[kk][wn + 16], kTcBLd, lane);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16_16816(acc[i][j], a[i], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
-    }
-    __syncthreads();
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = wm + i * 16 + g, col = wn + j * 8 + 2 * t;
-      Cs[row][col] = acc[i][j][0];
-      Cs[row][col + 1] = acc[i][j][1];
-      Cs[row + 8][col] = acc[i][j][2];
-      Cs[row + 8][col + 1] = acc[i][j][3];
-    }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kTcBM * kTcBN / 4 / kTcThreads; ++r) {
-    const int idx = tid + r * kTcThreads;
-    const int row = idx / (kTcBN / 4), col = (idx % (kTcBN / 4)) * 4;
-    if (m0 + row >= M || n0 + col >= N) continue;
-    const float4 v = *reinterpret_cast<const float4*>(&Cs[row][col]);
-    if (part == nullptr) {
-      const float s[4] = {v.x, v.y, v.z, v.w};
-      fwd_epilogue4(epi, m0 + row, n0 + col, s);
-    } else {
-      st4(part + (long long)blockIdx.z * M * N, m0 + row, n0 + col, N, M, N, vec_p, v);
-    }
-  }
-}
-
-// How K is split over the grid: enough blocks to put about four on each of
-// the card's SMs (one block walks its K range with four warps, too few to
-// keep an SM's arithmetic busy), in chunks that are multiples of the K step
-// (32 in both forms).  A function of the shape and the form (tc: the
-// tensor-core form's 64 x 64 tiles) alone.  -> the chunk length; *n_chunks
-// the count.
-inline int fwd_k_chunk(int M, int K, int N, bool tc, int* n_chunks) {
-  const int bm = tc ? kTcBM : kFwdBM, bn = tc ? kTcBN : kFwdBN;
-  const int tiles = ((N + bn - 1) / bn) * ((M + bm - 1) / bm);
+// How K is split over the grid for fwd_kernel: enough blocks to put about
+// four on each of the card's SMs (one block walks its K range with four
+// warps, too few to keep an SM's arithmetic busy), in chunks that are
+// multiples of the K step (32).  A function of the shape alone.  -> the chunk
+// length; *n_chunks the count.
+inline int fwd_k_chunk(int M, int K, int N, int* n_chunks) {
+  const int tiles = ((N + kFwdBN - 1) / kFwdBN) * ((M + kFwdBM - 1) / kFwdBM);
   int want = (4 * 132 + tiles - 1) / tiles;
   want = want < 1 ? 1 : (want > 16 ? 16 : want);
   int chunk = ((K + want - 1) / want + kFwdBK - 1) / kFwdBK * kFwdBK;
@@ -384,28 +276,497 @@ inline int fwd_k_chunk(int M, int K, int N, bool tc, int* n_chunks) {
   return chunk;
 }
 
-// Scratch floats launch_fwd needs in `part` (0 when K is not split).
+// Kernel 1, tensor-core form: the same function with rne(x * in_mask) @
+// rne(W) in place of the float32 product (rne: rounded to bfloat16, to
+// nearest even; the mask and its scale are applied in float32 before the
+// rounding, as the TPU kernel scales h before its _dot rounds it), float32
+// sums on mma.sync m16n8k16.
+//
+// Bound: bytes.  A bunch of 128 rows does 256 FLOP per element of W, 64 per
+// byte of float32 W, under the 295 FLOP/byte at which the tensor cores would
+// limit; so every W tile is read from device memory once, and enough of them
+// are in flight to keep the memory busy:
+// * one block owns ALL the rows of its tile (up to kTcFwdBM = 128: a bunch,
+//   or a data-parallel rank's 64 or 32) and a BN-column slice of W (BN = 64
+//   or 128, tc_fwd_bn); x is read once per column slice, from L2;
+// * K is split over the blocks of one thread-block cluster (up to 16, along
+//   the grid's z; above 8 only for the narrow layers' few column slices,
+//   with the non-portable cluster size): each block multiplies its K chunk,
+//   keeps its partial tile in shared memory, and after cluster.sync() sums
+//   its share of the tile's rows over every block's partial through
+//   distributed shared memory, in cluster-rank order (each output's sum
+//   depends only on the chunk boundaries and that order), and runs
+//   fwd_epilogue4 on the sums.  No scratch in device memory and no second
+//   launch.  The split is sized so that every cluster of the grid is
+//   resident at once (tc_fwd_k_chunk);
+// * operands arrive through a ring of kTcFwdStages stages filled by the
+//   Tensor Memory Accelerator: one 2-D tile copy for x's (128, 32) and one
+//   for W's (32, BN) a step, zero-filled past every edge, completing on the
+//   slot's mbarrier.  (cp.async from every thread was measured first:
+//   starting the copies stalled each step on the SM's load queue, and one
+//   1-D bulk copy a row was slower still.)  A tensor map needs rows whose
+//   stride is a multiple of 16 bytes: W at N = 129 or 257 (float32) goes by
+//   4-byte cp.async copies, and at odd N in bfloat16 (2-byte aligned)
+//   through registers; so does x if K % 4 != 0;
+// * step s+1 is rounded to bfloat16 (the mask applied first), two values an
+//   instruction (st_cvt4), into one of two tiles while step s is multiplied
+//   from the other: one barrier a step.
+// Warps: 32 x 32 tiles of the block's (128, BN), each 2 x 4 m16n8k16 tiles
+// (larger warp tiles, fewer warps, were measured slower: the rounding pass
+// and the ldmatrix / mma chains are latency-bound at one block an SM);
+// warps whose rows lie past the tile's skip their work.  Where the time goes
+// (PERF.md): a step's rounding and its products take about as long as each
+// other and the copies rarely keep them waiting; what comes before the loop
+// (the first tiles' latency) and after it (two cluster barriers and the sum
+// through distributed shared memory; one bulk copy between the blocks in
+// place of the remote loads was no faster) costs about as much as the loop
+// at these sizes.
+constexpr int kTcFwdBM = 128, kTcFwdBK = 32, kTcFwdStages = 4, kTcFwdMaxCluster = 16;
+constexpr int kTcFwdALd = kTcFwdBK + 8;  // bfloat16 row stride of 80 bytes: an odd multiple of
+                                         // 16, so ldmatrix's eight rows hit all 32 banks
+
+template <typename TW, int BN>
+struct TcFwdTile {
+  static constexpr int kWM = 32, kWN = 32;  // a warp's tile (see above)
+  static constexpr int kWarps = (kTcFwdBM / kWM) * (BN / kWN), kThreads = 32 * kWarps;
+  static constexpr int kBLd = BN + 8;  // bfloat16: an odd multiple of 16 bytes
+  static constexpr int kPLd = BN + 4;
+  struct alignas(128) Stage {     // the tensor copies' boxes, dense
+    float x[kTcFwdBM][kTcFwdBK];  // x rows of the step, as stored
+    TW w[kTcFwdBK][BN];           // W rows of the step, as stored
+  };
+  struct alignas(128) Smem {
+    union {
+      Stage ring[kTcFwdStages];
+      float part[kTcFwdBM][kPLd];  // the block's partial sums, after the K loop
+    } u;
+    bf16_t a[2][kTcFwdBM][kTcFwdALd];  // rne(x * mask), (m, k)
+    bf16_t b[2][kTcFwdBK][kBLd];       // rne(W), (k, n)
+    uint64_t full[kTcFwdStages];       // a ring slot's bulk copies have landed
+  };
+};
+
+__device__ inline void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// mbarriers and the Tensor Memory Accelerator's 2-D tile copy.
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ inline void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity) : "memory");
+}
+// The box of `map` at (c0 inner, c1 outer) into shared memory at dst
+// (128-byte aligned), completing on bar; past the tensor's edges it writes zeros.
+__device__ inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                   uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ inline float4 widen4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ inline float4 widen4(const bf16_t* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xFFFF0000u),
+                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xFFFF0000u));
+}
+
+// x_tma / w_tma: the operand goes by tensor copies (tmx, tmw), else by
+// cp.async: 4-byte copies for float32 (x when K % 4 != 0, W when N % 4 != 0),
+// registers for bfloat16 W at an odd N.
+template <typename TW, int BN>
+__global__ void __launch_bounds__(TcFwdTile<TW, BN>::kThreads)
+tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+              const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
+              MaskSpec in_mask, FwdEpilogue epi, int k_chunk, bool x_tma, bool w_tma) {
+  namespace cg = cooperative_groups;
+  using T = TcFwdTile<TW, BN>;
+  constexpr int kThreads = T::kThreads, kS = kTcFwdStages;
+  extern __shared__ unsigned char tc_fwd_smem[];
+  typename T::Smem& sm = *reinterpret_cast<typename T::Smem*>(
+      (reinterpret_cast<uintptr_t>(tc_fwd_smem) + 127) & ~(uintptr_t)127);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kTcFwdBM;
+  const int rows = min(kTcFwdBM, M - m0);      // the tile's rows
+  constexpr int kWM = T::kWM, kWN = T::kWN;
+  const int rows_pad = (rows + kWM - 1) / kWM * kWM;  // whole warp bands
+  const int wm = (warp / (BN / kWN)) * kWM, wn = (warp % (BN / kWN)) * kWN;
+  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + kTcFwdBK - 1) / kTcFwdBK : 0;
+  const bool any_tma = x_tma || w_tma, all_tma = x_tma && w_tma;
+
+  // step `step`'s x and W into ring slot `slot`: thread 0 posts the tensor
+  // copies' bytes on the slot's mbarrier and starts them; every thread starts
+  // its cp.async copies of an operand that has no tensor map (zero-filled
+  // past the edges)
+  auto load_stage = [&](int slot, int step) {
+    typename T::Stage& st = sm.u.ring[slot];
+    const int k0 = k_begin + step * kTcFwdBK;
+    if (any_tma && tid == 0) {  // the slot's bytes; a copy may land first (the phase waits)
+      mbar_arrive_expect_tx(&sm.full[slot], (x_tma ? (uint32_t)sizeof(st.x) : 0u) +
+                                                (w_tma ? (uint32_t)sizeof(st.w) : 0u));
+      if (x_tma) tma_load_2d(&st.x[0][0], &tmx, k0, m0, &sm.full[slot]);
+    }
+    if (w_tma && tid == 32) tma_load_2d(&st.w[0][0], &tmw, n0, k0, &sm.full[slot]);
+    if (!x_tma) {
+      for (int idx = tid; idx < kTcFwdBM * kTcFwdBK; idx += kThreads) {
+        const int row = idx / kTcFwdBK, c = idx % kTcFwdBK;
+        if (row >= rows_pad) continue;
+        const bool in = row < rows && k0 + c < K;
+        cp_async4(&st.x[row][c], in ? x + (long long)(m0 + row) * K + k0 + c : x, in ? 4 : 0);
+      }
+    }
+    if (!w_tma) {
+      for (int idx = tid; idx < kTcFwdBK * BN; idx += kThreads) {
+        const int kr = idx / BN, c = idx % BN;
+        const bool in = k0 + kr < K && n0 + c < N;
+        if constexpr (std::is_same<TW, bf16_t>::value) {  // 2-byte aligned: registers
+          st.w[kr][c] = in ? w[(long long)(k0 + kr) * N + n0 + c] : (TW)0;
+        } else {
+          cp_async4(&st.w[kr][c], in ? w + (long long)(k0 + kr) * N + n0 + c : w, in ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  // wait until step `step` is in its slot, seen by every thread
+  auto wait_stage = [&](int step) {
+    if (any_tma) mbar_wait(&sm.full[step % kS], (step / kS) & 1);
+    if (!all_tma) {
+      cp_async_wait<kS - 2>();
+      __syncthreads();
+    }
+  };
+
+  // the step's operands, rounded: x masked in float32 first
+  auto convert = [&](int slot, int buf, int step) {
+    const typename T::Stage& st = sm.u.ring[slot];
+    const int k0 = k_begin + step * kTcFwdBK;
+#pragma unroll
+    for (int r = 0; r < kTcFwdBM * kTcFwdBK / 4 / kThreads; ++r) {
+      const int idx = tid + r * kThreads, row = idx / (kTcFwdBK / 4);
+      const int c = (idx % (kTcFwdBK / 4)) * 4;
+      if (row >= rows_pad) continue;
+      float4 v = *reinterpret_cast<const float4*>(&st.x[row][c]);
+      if (in_mask.mode != 0 && row < rows && k0 + c < K) {
+        float mk[4];
+        mask4(in_mask, m0 + row, k0 + c, K, mk);
+        v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+      }
+      st_cvt4(&sm.a[buf][row][c], v);
+    }
+#pragma unroll
+    for (int r = 0; r < kTcFwdBK * BN / 4 / kThreads; ++r) {
+      const int idx = tid + r * kThreads, kr = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+      st_cvt4(&sm.b[buf][kr][c], widen4(&st.w[kr][c]));
+    }
+  };
+
+  float acc[kWM / 16][kWN / 8][4];
+#pragma unroll
+  for (int i = 0; i < kWM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+  auto mma_step = [&](int buf) {
+    if (wm >= rows_pad) return;
+#pragma unroll
+    for (int kk = 0; kk < kTcFwdBK; kk += 16) {
+      uint32_t a[kWM / 16][4], b[kWN / 16][4];
+#pragma unroll
+      for (int i = 0; i < kWM / 16; ++i) load_a(a[i], &sm.a[buf][wm + 16 * i][kk], kTcFwdALd, lane);
+#pragma unroll
+      for (int j = 0; j < kWN / 16; ++j)
+        load_b_kn(b[j], &sm.b[buf][kk][wn + 16 * j], T::kBLd, lane);
+#pragma unroll
+      for (int i = 0; i < kWM / 16; ++i)
+#pragma unroll
+        for (int j = 0; j < kWN / 8; ++j)
+          mma_bf16_16816(acc[i][j], a[i], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
+    }
+  };
+
+  // The pipeline: kS - 1 steps in flight; step s+1 is rounded while step s
+  // is multiplied (two bfloat16 buffers), one barrier a step.  Ring slot
+  // (s - 1) % kS is refilled at step s: its rounding was two steps ago.
+  if (any_tma) {
+    if (tid == 0) {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) mbar_init(&sm.full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int s = 0; s < kS - 1; ++s) {
+    if (s < n_steps) load_stage(s, s);
+    if (!all_tma) cp_async_commit();  // one group per step, empty or not: the wait counts steps
+  }
+  if (n_steps > 0) {
+    wait_stage(0);
+    convert(0, 0, 0);
+  }
+  __syncthreads();
+  for (int s = 0; s < n_steps; ++s) {
+    const int ahead = s + kS - 1;
+    if (ahead < n_steps) load_stage(ahead % kS, ahead);
+    if (!all_tma) cp_async_commit();
+    if (s + 1 < n_steps) {
+      wait_stage(s + 1);
+      convert((s + 1) % kS, (s + 1) & 1, s + 1);
+    }
+    mma_step(s & 1);
+    __syncthreads();
+  }
+  if (!all_tma) cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial tile takes its place
+
+  const int g = lane >> 2, t = lane & 3;
+  if (wm < rows_pad) {
+#pragma unroll
+    for (int i = 0; i < kWM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < kWN / 8; ++j) {
+        const int row = wm + i * 16 + g, col = wn + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(&sm.u.part[row][col]) = make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(&sm.u.part[row + 8][col]) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+  }
+  cluster.sync();  // every block's partial tile is complete
+
+  // this block's share of the rows, summed over the cluster in rank order
+  const int n_ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int per = (rows + n_ranks - 1) / n_ranks, r0 = rank * per, r1 = min(rows, r0 + per);
+  for (int idx = tid; idx < (r1 > r0 ? r1 - r0 : 0) * (BN / 4); idx += kThreads) {
+    const int row = r0 + idx / (BN / 4), col = (idx % (BN / 4)) * 4;
+    if (n0 + col >= N) continue;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q0 = 0; q0 < n_ranks; q0 += 8) {
+      float4 p[8];  // eight ranks' partials first, so the reads overlap
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q0 + q < n_ranks)
+          p[q] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(&sm.u.part[row][col], q0 + q));
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q0 + q < n_ranks) {
+          s[0] += p[q].x; s[1] += p[q].y; s[2] += p[q].z; s[3] += p[q].w;
+        }
+    }
+    fwd_epilogue4(epi, m0 + row, n0 + col, s);
+  }
+  cluster.sync();  // no block leaves while another still reads its partial tile
+}
+
+// The column slice of the tensor-core forward: 128 for wide layers, 64 for
+// narrow ones (N = 129 and 257: fewer empty columns in the last slice).
+inline int tc_fwd_bn(int N) { return N > 512 ? 128 : 64; }
+
+constexpr int kTcFwdMaxDevices = 64;
+
+// Per library (static: a function-local static of an inline function would
+// be one object for the whole process, a unique symbol shared by every
+// library that includes this header, though each has its own kernel to set
+// up) and per device (a function attribute holds for the current device
+// only): raises tc_fwd_kernel<TW, BN>'s shared memory once, and -> how many
+// clusters of `size` blocks the card holds at once (cached).
+template <typename TW, int BN>
+static cudaError_t tc_fwd_clusters(int size, int* clusters) {
+  static bool attr_set[kTcFwdMaxDevices] = {};
+  static int cached[kTcFwdMaxDevices][kTcFwdMaxCluster + 1] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kTcFwdMaxDevices) return cudaErrorInvalidDevice;
+  const size_t smem = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(tc_fwd_kernel<TW, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess)  // clusters above 8 blocks (the narrow layers' few column slices)
+      err = cudaFuncSetAttribute(tc_fwd_kernel<TW, BN>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  if (cached[dev][size] == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, 1, size);
+    cfg.blockDim = dim3(TcFwdTile<TW, BN>::kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = size;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, tc_fwd_kernel<TW, BN>, &cfg);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;  // such a cluster cannot be placed
+    cached[dev][size] = n;
+  }
+  *clusters = cached[dev][size];
+  return cudaSuccess;
+}
+
+// How the tensor-core forward splits K: into as many chunks of whole K steps
+// as make the grid fill the blocks the card holds at once, at most
+// kTcFwdMaxCluster, and fewer where every cluster of the grid could not then
+// be resident at once (a second wave of clusters would double the time).
+// A function of (M, K, N) and the card alone, and of K, N and the card
+// while M fits one row tile (M <= 128): a data-parallel rank's rows are
+// summed as the single-device trainer sums them.  -> the chunk; *n_chunks.
+template <typename TW, int BN>
+static cudaError_t tc_fwd_k_chunk(int M, int K, int N, int* chunk, int* n_chunks) {
+  const int tiles = ((N + BN - 1) / BN) * ((M + kTcFwdBM - 1) / kTcFwdBM);
+  int one = 0;
+  cudaError_t err = tc_fwd_clusters<TW, BN>(1, &one);  // blocks the card holds at once
+  if (err != cudaSuccess) return err;
+  int c = (one + tiles - 1) / tiles;
+  c = c < 1 ? 1 : (c > kTcFwdMaxCluster ? kTcFwdMaxCluster : c);
+  for (;; --c) {
+    *chunk = ((K + c - 1) / c + kTcFwdBK - 1) / kTcFwdBK * kTcFwdBK;
+    if (*chunk < kTcFwdBK) *chunk = kTcFwdBK;
+    *n_chunks = K > 0 ? (K + *chunk - 1) / *chunk : 1;
+    if (*n_chunks == 1) return cudaSuccess;
+    int fit = 0;
+    err = tc_fwd_clusters<TW, BN>(*n_chunks, &fit);
+    if (err != cudaSuccess) return err;
+    if (tiles <= fit) return cudaSuccess;
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point query
+// (the libraries link the runtime only).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The tensor map of a row-major (rows, cols) array at p, read in boxes of
+// (box_rows, box_cols), zeros past its edges.
+static cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* p,
+                                 int rows, int cols, int elem_bytes, int box_rows, int box_cols) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = (EncodeTiledFn)fn;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (cuuint64_t)elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(p), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename TW, int BN>
+static cudaError_t launch_tc_fwd_bn(const float* x, const TW* w, int M, int K, int N,
+                                    const MaskSpec& in_mask, const FwdEpilogue& epi,
+                                    int plan_rows, cudaStream_t stream) {
+  int k_chunk, n_chunks;
+  cudaError_t err =
+      tc_fwd_k_chunk<TW, BN>(plan_rows > 0 ? plan_rows : M, K, N, &k_chunk, &n_chunks);
+  if (err != cudaSuccess) return err;
+  // tensor maps where the rows' stride is a multiple of 16 bytes
+  CUtensorMap tmx = {}, tmw = {};
+  const bool x_tma = (reinterpret_cast<uintptr_t>(x) & 15u) == 0 && K % 4 == 0;
+  const bool w_tma = (reinterpret_cast<uintptr_t>(w) & 15u) == 0 &&
+                     ((long long)N * (long long)sizeof(TW)) % 16 == 0;
+  if (x_tma) {
+    err = tensor_map_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, M, K, 4, kTcFwdBM, kTcFwdBK);
+    if (err != cudaSuccess) return err;
+  }
+  if (w_tma) {
+    err = tensor_map_2d(&tmw,
+                        sizeof(TW) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+                        w, K, N, (int)sizeof(TW), kTcFwdBK, BN);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + kTcFwdBM - 1) / kTcFwdBM, n_chunks);
+  cfg.blockDim = dim3(TcFwdTile<TW, BN>::kThreads);
+  cfg.dynamicSmemBytes = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = n_chunks;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, tc_fwd_kernel<TW, BN>, tmx, tmw, x, w, M, K, N, in_mask, epi,
+                            k_chunk, x_tma, w_tma);
+}
+
+template <typename TW>
+static cudaError_t launch_tc_fwd(const float* x, const TW* w, int M, int K, int N,
+                                 const MaskSpec& in_mask, const FwdEpilogue& epi, int plan_rows,
+                                 cudaStream_t stream) {
+  if (tc_fwd_bn(N) == 128)
+    return launch_tc_fwd_bn<TW, 128>(x, w, M, K, N, in_mask, epi, plan_rows, stream);
+  return launch_tc_fwd_bn<TW, 64>(x, w, M, K, N, in_mask, epi, plan_rows, stream);
+}
+
+// Scratch floats launch_fwd needs in `part`: the float32 form's K chunks (0
+// when K is not split); the tensor-core form needs none.
 inline long long fwd_scratch_floats(int M, int K, int N, bool tc, int plan_rows = 0) {
+  if (tc) return 0;
   int n_chunks;
-  fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, tc, &n_chunks);
+  fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, &n_chunks);
   return n_chunks > 1 ? (long long)n_chunks * M * N : 0;
 }
 
-// tc: the tensor-core form (tc_fwd_kernel), else the float32 one (fwd_kernel).
-// plan_rows > 0: split K as for that many rows (the data-parallel trainer
-// plans for the global tile, so a rank's rows are summed in the order the
-// single-device trainer sums them: each output's sum depends only on the
-// chunk boundaries), else as for M.
+// The kernels one launch_fwd launched, each counted right after its launch.
+struct FwdLaunched {
+  int tc = 0;   // tc_fwd_kernel
+  int f32 = 0;  // fwd_kernel
+  int sum = 0;  // fwd_sum_kernel
+};
+
+// tc: the tensor-core form (tc_fwd_kernel: one launch, K split within a
+// cluster), else the float32 one (fwd_kernel, and fwd_sum_kernel where K is
+// split over the grid).  plan_rows > 0: split K as for that many rows (the
+// data-parallel trainer plans for the global tile, so a rank's rows are
+// summed in the order the single-device trainer sums them: each output's sum
+// depends only on the chunk boundaries), else as for M.  *launched += what
+// was launched.
 template <typename TW>
 inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
-                              float coef, float* part, bool tc, cudaStream_t stream,
-                              int plan_rows = 0) {
+                              float coef, float* part, bool tc, FwdLaunched* launched,
+                              cudaStream_t stream, int plan_rows = 0) {
   if (M <= 0 || N <= 0) return cudaSuccess;
-  int n_chunks;
-  const int k_chunk = fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, tc, &n_chunks);
-  if (n_chunks > 1 && part == nullptr) return cudaErrorInvalidValue;
   FwdEpilogue epi;
   epi.b = b;
   epi.y = y;
@@ -418,24 +779,28 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
   epi.coef = coef;
   epi.vec_y = vec_ok(y, N) && (dedx == nullptr || vec_ok(dedx, N));
   epi.vec_t = targ != nullptr && vec_ok(targ, N);
-  float* scratch = n_chunks > 1 ? part : nullptr;
   if (tc) {
-    dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, n_chunks);
-    tc_fwd_kernel<TW><<<grid, kTcThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch,
-                                                       k_chunk, vec_ok(x, K), vec_ok(w, N),
-                                                       vec_ok(scratch, N));
-  } else {
-    dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM, n_chunks);
-    fwd_kernel<TW><<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch,
-                                                     k_chunk, vec_ok(x, K), vec_ok(w, N),
-                                                     vec_ok(scratch, N));
+    const cudaError_t err = launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, stream);
+    if (err == cudaSuccess) launched->tc += 1;
+    return err;
   }
+  int n_chunks;
+  const int k_chunk = fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, &n_chunks);
+  if (n_chunks > 1 && part == nullptr) return cudaErrorInvalidValue;
+  float* scratch = n_chunks > 1 ? part : nullptr;
+  dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM, n_chunks);
+  fwd_kernel<TW><<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch, k_chunk,
+                                                   vec_ok(x, K), vec_ok(w, N), vec_ok(scratch, N));
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks == 1) return err;
+  if (err != cudaSuccess) return err;
+  launched->f32 += 1;
+  if (n_chunks == 1) return cudaSuccess;
   const long long n = (long long)M * ((N + 3) / 4);
   const int blocks = (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048);
   fwd_sum_kernel<<<blocks, 256, 0, stream>>>(scratch, n_chunks, epi, vec_ok(scratch, N));
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) launched->sum += 1;
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -652,7 +1017,7 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
 // 16 x 16 of the chunk's (32, 64) dedy partial, B = W^T read as it is
 // stored.  G goes through shared memory to the update code of bwd_kernel.
 constexpr int kTcMC = 32;
-constexpr int kTcWbLd = kBwdBN + 8;  // bfloat16 row stride of 144 bytes (see kTcBLd)
+constexpr int kTcWbLd = kBwdBN + 8;  // bfloat16 row stride of 144 bytes (see TcFwdTile)
 
 struct TcBwdSmem {
   float Ws[kBwdBK][kBwdWLd];     // W tile, float32: the update

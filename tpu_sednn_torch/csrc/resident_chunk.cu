@@ -14,13 +14,13 @@
 // exist as separate passes.  One call of resident_chunk_train enqueues, for
 // every bunch i < n_real and in order on one stream, the forward launches
 // (fused_mlp.cuh:fwd_kernel and, where K is split over the grid,
-// fwd_sum_kernel; the input's mask is generated while x is loaded, each
-// hidden layer's mask in the epilogue of the layer that feeds it, dedx in
-// the last layer's epilogue) and the backward launches
-// (bwd_kernel + reduce_dedy_kernel, last layer first).  A single stream keeps
-// the two orders the update rule needs: dedy of layer l uses W_l before its
-// update (one kernel does both), and the forward of bunch i+1 sees W after
-// bunch i.  No host synchronisation, no allocation.
+// fwd_sum_kernel; or tc_fwd_kernel alone; the input's mask is generated
+// while x is loaded, each hidden layer's mask in the epilogue of the layer
+// that feeds it, dedx in the last layer's epilogue) and the backward
+// launches (bwd_kernel + reduce_dedy_kernel, last layer first).  A single
+// stream keeps the two orders the update rule needs: dedy of layer l uses
+// W_l before its update (one kernel does both), and the forward of bunch i+1
+// sees W after bunch i.  No host synchronisation, no allocation.
 //
 // Bound: per bunch 2 * 128 * K*N FLOP for each product: three a layer
 // (forward, gradient, dedy) but two for the first, which has no layer below
@@ -160,16 +160,18 @@ cudaError_t forward_tile(const float* x, const float* t, int tile, const int* si
         (!last && thr_hid)
             ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid, row0)
             : no_mask();
+    FwdLaunched done;
     const cudaError_t err = launch_fwd(
         l == 0 ? x : y[l - 1], (const TW*)w[l], b[l], y[l], tile, sizes[l], sizes[l + 1],
         last ? output : hidden, l == 0 ? in_mask : no_mask(), out_mask, last ? t : nullptr,
-        last ? dedx : nullptr, coef, part, tc, stream, plan_rows);
+        last ? dedx : nullptr, coef, part, tc, &done, stream, plan_rows);
     if (err != cudaSuccess) return err;
-    tallies[0] += 1;
-    tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? 1 : 0;
-    tallies[4] += fwd_scratch_floats(tile, sizes[l], sizes[l + 1], tc, plan_rows) > 0 ? 1 : 0;
-    tallies[7] += std::is_same<TW, float>::value ? 0 : 1;
-    tallies[8] += tc ? 1 : 0;
+    const int products = done.tc + done.f32;
+    tallies[0] += products;
+    tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? products : 0;
+    tallies[4] += done.sum;
+    tallies[7] += std::is_same<TW, float>::value ? 0 : products;
+    tallies[8] += done.tc;
   }
   return cudaSuccess;
 }
@@ -240,10 +242,10 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
 // tallies[10] += launches of the forward and backward product kernels (either
 // form) and of reduce_dedy_kernel, the count of those that drew Philox masks,
-// launches of fwd_sum_kernel (layers whose K is split), backward launches
-// that rounded stochastically, backward launches of row-tiled bunches,
-// forward launches that read bfloat16 weights, forward and backward launches
-// of the tensor-core forms.
+// launches of fwd_sum_kernel (float32-product layers whose K is split),
+// backward launches that rounded stochastically, backward launches of
+// row-tiled bunches, forward launches that read bfloat16 weights, forward and
+// backward launches of the tensor-core forms.
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,

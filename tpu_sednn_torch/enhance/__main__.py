@@ -70,11 +70,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.stream > 0 or args.stream_device:
         raise SystemExit("--stream/--stream-device: streaming decode is not yet "
-                         "ported (ROADMAP A9)")
+                         "ported (its module: tpu_sednn_torch/enhance/streaming.py)")
     if args.quant != "none":
-        raise SystemExit("--quant int8: int8 serving is not yet ported (ROADMAP A10)")
+        raise SystemExit("--quant int8: int8 serving is not yet ported "
+                         "(its module: tpu_sednn_torch/model/quant.py)")
     if args.fuse_with:
-        raise SystemExit("--fuse-with: head-fusion decode is not yet ported (ROADMAP A9)")
+        raise SystemExit("--fuse-with: head-fusion decode is not yet ported "
+                         "(its module: tpu_sednn_torch/enhance/fusion.py)")
 
     from tpu_sednn_torch._device import resolve_device
     from tpu_sednn_torch.dsp import StftConfig

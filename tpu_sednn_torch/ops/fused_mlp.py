@@ -2,9 +2,11 @@
 the port of tpu_sednn/ops/fused_mlp.py:
 
 * `fused_linear_act`  — y = act(x @ W + b) (`_fwd_kernel`): bias and
-  activation in the product's epilogue, y written once; one launch, or two
-  when the batch is small and the kernel splits K over the grid (partial
-  sums to a scratch, then a summing launch that does the epilogue).  Two
+  activation in the product's epilogue, y written once.  The tensor-core
+  form is one launch: K is split over the blocks of a thread-block cluster,
+  which sum their partial tiles through distributed shared memory.  The
+  float32 form splits K over the grid when the batch is small (partial sums
+  to a scratch, then a summing launch that does the epilogue).  Two
   optional fusions the chunk trainer uses: a dropout mask on x while it is
   loaded (`in_mask`) and the dropout mask of the NEXT layer's input applied
   to y in the epilogue (`out_mask`), each either an explicit 0/1 tensor or
@@ -43,7 +45,8 @@ W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 and returns them.  `<wrapper>.launches` counts launches of the wrapper's
 product kernel (either form), `<wrapper>.tc_launches` those of its
 tensor-core form; the small second kernels count apart:
-`fused_linear_act.sum_launches` (fwd_sum_kernel, where K is split) and
+`fused_linear_act.sum_launches` (fwd_sum_kernel, where the float32 form
+splits K; the tensor-core form never launches it) and
 `fused_bwd_update.reduce_launches` (reduce_dedy_kernel), likewise
 `fused_bwd_grad_out.*`; `dp_update.sr_launches` counts the update's launches
 that rounded a bfloat16 delta stochastically.  The float32 forms
@@ -204,7 +207,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.fused_linear_act_f32.argtypes = [p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f,
-                                         p, i, p]
+                                         p, i, p, p]
     lib.fused_linear_act_f32.restype = ctypes.c_int
     lib.fused_fwd_scratch_floats.argtypes = [i, i, i, i]
     lib.fused_bwd_scratch_floats.argtypes = [i, i, i]
@@ -267,20 +270,22 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
     om = _mask_args("out_mask", out_mask, out_scale, (B, N), x.device)
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     lib = _lib()
-    # partial sums of the kernel's split over K (none for a large batch)
+    # partial sums of the float32 form's split over K (none for a large batch or
+    # for the tensor-core form)
     part = torch.empty(lib.fused_fwd_scratch_floats(B, K, N, int(bf16)), dtype=torch.float32,
                        device=x.device)
+    launched = (ctypes.c_int * 3)()  # tc_fwd_kernel, fwd_kernel, fwd_sum_kernel
     with torch.cuda.device(x.device):
         rc = lib.fused_linear_act_f32(
             x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), b.data_ptr(),
             y.data_ptr(), B, K, N, ACTS[act],
-            *im[:5], *om[:5], part.data_ptr() if part.numel() else None, int(bf16),
+            *im[:5], *om[:5], part.data_ptr() if part.numel() else None, int(bf16), launched,
             torch.cuda.current_stream(x.device).cuda_stream)
+    fused_linear_act.launches += launched[0] + launched[1]
+    fused_linear_act.tc_launches += launched[0]
+    fused_linear_act.sum_launches += launched[2]
     if rc != 0:
         raise RuntimeError(f"fused_linear_act kernel launch failed: CUDA error {rc}")
-    fused_linear_act.launches += 1
-    fused_linear_act.tc_launches += 1 if bf16 else 0
-    fused_linear_act.sum_launches += 1 if part.numel() else 0
     return y
 
 

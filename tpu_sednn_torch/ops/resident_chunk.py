@@ -70,7 +70,8 @@ _mask_threshold = mask_threshold
 # kernel launches enqueued by the chunk trainer's C entry point, by kernel:
 # fwd_kernel, bwd_kernel, reduce_dedy_kernel, then the count of those launches
 # that drew dropout bits in the kernel, then fwd_sum_kernel (one for every
-# forward whose K is split over the grid); then by form: bwd_kernel launches
+# float32-product forward whose K is split over the grid; the tensor-core
+# forward sums its K split inside the kernel); then by form: bwd_kernel launches
 # that stored bfloat16 with stochastic rounding, bwd_kernel launches of
 # row-tiled bunches, fwd_kernel launches that read bfloat16 weights; the
 # forward and backward launches of the tensor-core forms (tc_fwd_kernel,
