@@ -32,8 +32,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      the bound.  Then their tensor-core forms (bf16=True, the default) at the
      four 8 kHz and four 16 kHz layer shapes and ragged ones, float32 and
      bfloat16 W, against the float64 plain versions of the same rounded
-     operands; the float32-FMA form and truncated operands refused; times
-     beside the bytes bound and a bfloat16 torch.addmm.
+     operands; the float32-FMA form and truncated operands refused, and no
+     reduce_dedy_kernel launched by the tensor-core backward; times beside
+     the bytes bound and a bfloat16 torch.addmm; the tensor-core backward's
+     plan (split, stripes) and, layer by layer, its time by part (the fused
+     update, the gradient alone, with dedy, reduce_dedy_kernel traced).
   6. dropout stream: the device Philox against the Random123 known-answer
      vectors and, bit for bit, against its plain version; zero rate, stream
      distinctness and rank-slice identity of sample_resident_masks.
@@ -531,6 +534,16 @@ CHUNK_REL_FRO = 5e-3
 # 1548-2048x3-129 read 6.0e-3 with two flips), so it is held per draw beside
 # the float32 plain version's own distance from float64.
 TWO_CALL_DRAWS = 4
+# Every other fixed-limit hold of the chunk trainer (the cases after one and
+# after three bunches, both product forms) reads up to RESIDENT_DRAWS draws of
+# inputs seeded on their own (RESIDENT_SEED + draw), not the shared generator:
+# a change of summation order elsewhere (a kernel's, or an earlier phase's
+# draws) moves a bfloat16-product trainer's chaotic path, and one ReLU flip can
+# then miss a fixed limit.  A draw is passed over only where the float32 plain
+# version of the same rounding misses that limit against float64 too; the
+# kernel missing it alone fails, and some draw must hold.
+RESIDENT_DRAWS = 4
+RESIDENT_SEED = 3100
 ENGINE_REL_FRO = 5e-2
 # The chunk trainer with tensor-core products (bf16=True) against the float64
 # plain version of the same rounding.  Each launch multiplies the same rounded
@@ -589,6 +602,51 @@ def _randn(gen, *shape, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).contiguous()
 
 
+def _traced_ms(fn, reps: int = 20) -> dict:
+    """{kernel name: device ms per call of fn(i)} from one torch.profiler trace
+    of `reps` calls (a share, not a time to report on its own: a trace can
+    lose records, so every other time here is taken with CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def _bwd_breakdown(l: int, dedx, x, ws, deltas, b, db, hyp: dict) -> dict:
+    """The tensor-core backward of one layer split by what it does: the fused
+    update (fused_bwd_update), the gradient alone (fused_bwd_grad_out without
+    dedy: G and gb written, nothing updated) and with dedy, each timed with
+    CUDA events; and the device time of reduce_dedy_kernel in a traced run of
+    the fused update (0 where none launches).  update share = fused -
+    gradient with dedy; dedy share = gradient with dedy - gradient alone."""
+    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_grad_out, fused_bwd_update
+
+    B, N = dedx.shape
+    K = x.shape[1]
+    grad = torch.empty(K * N + N, device="cuda")
+    dedy = torch.empty(B, K, device="cuda")
+    deriv = "relu" if l > 0 else None
+    upd = lambda i: fused_bwd_update(dedx, x, ws[i % 3], deltas[i % 3], b, db, **hyp)  # noqa: E731
+    t_g0 = _device_ms(lambda i: fused_bwd_grad_out(dedx, x, ws[i % 3], with_dedy=False, grad=grad))
+    t_g1 = _device_ms(lambda i: fused_bwd_grad_out(dedx, x, ws[i % 3], deriv="relu", grad=grad,
+                                                   dedy=dedy))
+    traced = _traced_ms(upd)
+    t_red = sum(v for k, v in traced.items() if "reduce_dedy" in k)
+    return dict(grad_ms=t_g0, grad_dedy_ms=t_g1, reduce_ms_traced=t_red,
+                traced={k[:60]: v for k, v in traced.items()}, deriv=deriv)
+
+
 def _time_layers(gen, tc: bool, fwd_worst: dict, bwd_worst: dict,
                  net: tuple = FLAGSHIP) -> tuple[dict, dict]:
     """Device times of kernels 1 and 2 in one product form (tc: tensor cores,
@@ -641,6 +699,17 @@ def _time_layers(gen, tc: bool, fwd_worst: dict, bwd_worst: dict,
             ms=t_f, plain_ms=t_fp, library_ms=t_fl, bound_ms=f_bytes / PEAK_BYTES_PER_S * 1e3 if tc
             else max(f_flops / PEAK_FP32_FLOPS, f_bytes / PEAK_BYTES_PER_S) * 1e3)
         bwd["by_shape"][f"layer {l}, {B}x{K}x{N}"] = dict(ms=t_b, plain_ms=t_bp)
+        if tc:
+            parts = _bwd_breakdown(l, dedx, x, ws, deltas, b, db, hyp)
+            bwd["by_shape"][f"layer {l}, {B}x{K}x{N}"].update(
+                {k: v for k, v in parts.items() if k.endswith("_ms") or k.endswith("traced")})
+            print(f"[kernel] layer {l} {B}x{K}x{N}, tensor-core backward by part: fused update "
+                  f"{t_b:.4f} ms; gradient alone (G, gb) {parts['grad_ms']:.4f}, with dedy "
+                  f"{parts['grad_dedy_ms']:.4f} (update share {t_b - parts['grad_dedy_ms']:.4f}, "
+                  f"dedy share {parts['grad_dedy_ms'] - parts['grad_ms']:.4f}); reduce_dedy_kernel "
+                  f"{parts['reduce_ms_traced']:.4f} ms in a traced run of the fused update "
+                  f"(kernels traced: {', '.join(f'{k} {v:.4f}' for k, v in parts['traced'].items())})",
+                  flush=True)
         for acc, vals in ((fwd, dict(ms=t_f, plain_ms=t_fp, library_ms=t_fl, flops=f_flops,
                                      nbytes=f_bytes)),
                           (bwd, dict(ms=t_b, plain_ms=t_bp, flops=b_flops, nbytes=b_bytes))):
@@ -659,6 +728,15 @@ def _time_layers(gen, tc: bool, fwd_worst: dict, bwd_worst: dict,
     if tc:
         fwd["library_is"] = ("torch.addmm on bfloat16 x, W and b (+ relu), output bfloat16: "
                              "cuBLAS's bfloat16 product, not the same function")
+        sums = {k: sum(v[k] for v in bwd["by_shape"].values())
+                for k in ("grad_ms", "grad_dedy_ms", "reduce_ms_traced")}
+        bwd["parts_ms"] = dict(sums, update_share=bwd["ms"] - sums["grad_dedy_ms"],
+                               dedy_share=sums["grad_dedy_ms"] - sums["grad_ms"])
+        print(f"[kernel] one bunch's four layers of {'-'.join(map(str, net))}, tensor-core backward "
+              f"by part: fused update {bwd['ms']:.4f} ms, gradient alone {sums['grad_ms']:.4f}, with "
+              f"dedy {sums['grad_dedy_ms']:.4f}, reduce_dedy_kernel {sums['reduce_ms_traced']:.4f} "
+              f"(traced); by layer "
+              f"{' '.join('%.4f' % v['ms'] for v in bwd['by_shape'].values())}", flush=True)
     print(f"[kernel] one bunch's four layers of {'-'.join(map(str, net))}, {form}: "
           f"fused_linear_act {fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f} by "
           f"{fwd['bound_by']}, {'bfloat16 ' if tc else ''}torch.addmm+act "
@@ -744,6 +822,9 @@ def _trunc_bf16(a: torch.Tensor) -> torch.Tensor:
 
 
 def phase_tc_kernels(gen) -> dict:
+    import ctypes
+
+    from tpu_sednn_torch.ops.fused_mlp import _lib as fused_lib
     from tpu_sednn_torch.ops.fused_mlp import (fused_bwd_update, fused_bwd_update_reference,
                                                fused_linear_act, fused_linear_act_reference)
     from tpu_sednn_torch.ops.philox import philox_mask
@@ -784,7 +865,10 @@ def phase_tc_kernels(gen) -> dict:
                 outs = {}
                 for tc in (True, False):
                     w2, d2, b2, db2 = w.clone(), d0.clone(), b.clone(), db.clone()
+                    reduced = fused_bwd_update.reduce_launches
                     outs[tc] = fused_bwd_update(dedx, y_prev, w2, d2, b2, db2, bf16=tc, **hyp, **kw)
+                    _check(not tc or fused_bwd_update.reduce_launches == reduced,
+                           "the tensor-core backward launched reduce_dedy_kernel")
                 got = outs[True]
                 label = f"tensor-core fused_bwd_update {B}x{K}x{N} {store} {sorted(kw)}"
                 if w.dtype == bf:
@@ -813,7 +897,23 @@ def phase_tc_kernels(gen) -> dict:
           f"{faults['trunc']:.3g} x (operands truncated, not rounded), at least {TC_FAULT} x "
           f"required", flush=True)
 
+    # how the tensor-core backward lays a layer out on this card (tc_bwd_split)
+    plans = {}
+    rank_rows = [(M, K, N) for M in (64, 32) for _, K, N in layers[:4]]
+    for B, K, N in layers + rank_rows:
+        for dedy in (1, 0):
+            out = (ctypes.c_int * 3)()
+            _check(fused_lib().fused_bwd_tc_plan(B, K, N, dedy, out) == 0,
+                   "fused_bwd_tc_plan failed")
+            plans[f"{B}x{K}x{N}{'' if dedy else ', no dedy'}"] = dict(split=out[0], stripes=out[1],
+                                                                       rows=out[2])
+    print("[kernel] tensor-core backward plan (split of N over a stripe's blocks: the cluster that "
+          "sums dedy; stripes of W's rows; their rows) with a row of bias blocks beside: "
+          + "; ".join(f"{k}: {v['split']} x {v['stripes']} of {v['rows']}" for k, v in plans.items()),
+          flush=True)
+
     fwd, bwd = _time_layers(gen, True, worst, worst)
+    bwd["plans"] = plans
     torch.cuda.empty_cache()
     # a generator of its own: the later phases draw the inputs they always drew
     fwd["at_16k"], bwd["at_16k"] = _time_layers(torch.Generator(device="cuda").manual_seed(16000),
@@ -912,20 +1012,6 @@ def _update_errors(got, want, init) -> list:
     return out
 
 
-def _hold_chunk(got, want, init, label: str, worst: dict, tol: float = CHUNK_REL_FRO) -> list:
-    """Chunk trainer vs plain version, per tensor, on the update (see the
-    tolerances' comment at the top of this section); -> the errors."""
-    names = [f"{k}[{l}]" for k in ("w", "b", "delta_w", "delta_b") for l in range(4)]
-    errs = _update_errors(got, want, init)
-    for name, g, w, e in zip(names, _state_tensors(got), _state_tensors(want), errs):
-        _check(bool(torch.isfinite(g).all()), f"{label} {name}: non-finite")
-        _check(e <= tol, f"{label} {name}: update off by {e:.3g} relative Frobenius (tol {tol})")
-        worst["abs"] = max(worst.get("abs", 0.0), float((g.double() - w.double()).abs().max()))
-    worst["rel_fro"] = max(worst.get("rel_fro", 0.0), max(errs))
-    _check(got.step == want.step, f"{label}: step {got.step} vs {want.step}")
-    return errs
-
-
 def phase_resident(gen) -> dict:
     from tpu_sednn_torch.model.mlp import init_params
     from tpu_sednn_torch.ops import resident_chunk as rc
@@ -939,46 +1025,83 @@ def phase_resident(gen) -> dict:
     x = _randn(gen, n_b * BUNCH + 40, FLAGSHIP[0])  # 3 bunches and a partial one
     proj = _randn(gen, FLAGSHIP[0], FLAGSHIP[-1], scale=0.05)
     t_lin = (x @ proj).contiguous()
-    t_sig = torch.sigmoid(t_lin).contiguous()
     f64, worst = torch.float64, {}
     hyp = (opt.lrate, opt.momentum, opt.weightcost)
 
-    def both(cfg, rule, t, seed=17, hyp=hyp):
-        run = rc.make_resident_train_chunk(cfg, opt, bf16=False, rule=rule)
-        got = run(init_train_state(mlp), x, t, seed, *hyp)
-        coefs = rc._scal_coefs(rule, BUNCH, FLAGSHIP[-1], *hyp)
-        want = rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg, BUNCH, coefs,
-                                                 seed, dtype=f64, bf16=False)
-        torch.cuda.synchronize()
-        return run, got, want
-
     init = init_train_state(mlp)
+
+    def draw(i):
+        """Draw i of a fixed-limit hold's inputs, seeded on its own (3 bunches and a
+        partial one): -> x, a linear target, a sigmoid one."""
+        g = torch.Generator(device="cuda").manual_seed(RESIDENT_SEED + i)
+        xd = _randn(g, n_b * BUNCH + 40, FLAGSHIP[0])
+        td = (xd @ _randn(g, FLAGSHIP[0], FLAGSHIP[-1], scale=0.05)).contiguous()
+        return xd, td, torch.sigmoid(td).contiguous()
+
+    def held_on_draws(label, cfg, rule, sig, bf16, tol3, tol1, worst_d):
+        """The chunk trainer of (cfg, rule) against its float64 plain version after
+        three bunches (tol3) and after one (tol1), on RESIDENT_DRAWS draws of its own:
+        the first draw that holds both is taken; a draw is passed over only where the
+        float32 plain version of the same rounding misses there too, and one must
+        hold.  -> (runner, x, t, want, one bunch's want, errors, the plain version's
+        errors, errors after one bunch)."""
+        run = rc.make_resident_train_chunk(cfg, opt, bf16=bf16, rule=rule)
+        coefs = rc._scal_coefs(rule, BUNCH, FLAGSHIP[-1], *hyp)
+        passed_over = []
+        for i in range(RESIDENT_DRAWS):
+            xd, tl, ts = draw(i)
+            td = ts if sig else tl
+
+            def ref(n, dt):
+                return rc.resident_train_chunk_reference(init_train_state(mlp), xd[:n], td[:n], cfg,
+                                                         BUNCH, coefs, 17, dtype=dt, bf16=bf16)
+
+            got = run(init_train_state(mlp), xd, td, 17, *hyp)
+            one = run(init_train_state(mlp), xd[:BUNCH], td[:BUNCH], 17, *hyp)
+            want, plain = ref(len(xd), f64), ref(len(xd), None)
+            one_w, one_p = ref(BUNCH, f64), ref(BUNCH, None)
+            torch.cuda.synchronize()
+            _check(got.step == n_b, f"{label}: {got.step} bunches trained, the partial one not dropped")
+            for st in (got, one):
+                _check(all(bool(torch.isfinite(a).all()) for a in _state_tensors(st)),
+                       f"{label}, draw {i}: non-finite state")
+            errs, p_errs = _update_errors(got, want, init), _update_errors(plain, want, init)
+            e1, p1 = _update_errors(one, one_w, init), _update_errors(one_p, one_w, init)
+            if max(errs) <= tol3 and max(e1) <= tol1:
+                worst_d["rel_fro"] = max(worst_d.get("rel_fro", 0.0), max(errs))
+                worst_d["one"] = max(worst_d.get("one", 0.0), max(e1))
+                worst_d["abs"] = max([worst_d.get("abs", 0.0)] + [
+                    float((a.double() - b.double()).abs().max())
+                    for a, b in zip(_state_tensors(got), _state_tensors(want))])
+                worst_d["passed_over"] = worst_d.get("passed_over", 0) + len(passed_over)
+                if passed_over:
+                    print(f"[kernel] chunk trainer, {label}: draws passed over where the float32 "
+                          f"plain version misses too (draw, kernel / plain after 3 bunches, after "
+                          f"one): {passed_over}", flush=True)
+                return run, xd, td, want, one_w, errs, p_errs, e1
+            _check(max(p_errs) > tol3 or max(p1) > tol1,
+                   f"{label}, draw {i}: update off by {max(errs):.3g} after three bunches (tol "
+                   f"{tol3}), {max(e1):.3g} after one (tol {tol1}), which the float32 plain "
+                   f"version holds there ({max(p_errs):.3g}, {max(p1):.3g})")
+            passed_over.append((i, f"{max(errs):.3g} / {max(p_errs):.3g}",
+                                f"{max(e1):.3g} / {max(p1):.3g}"))
+        _check(False, f"{label}: no draw of {RESIDENT_DRAWS} holds the limits: {passed_over}")
+
     cases = [
-        ("parity, dropout off", _flagship_cfg(), "parity", t_lin),
-        ("clean, dropout off", _flagship_cfg(), "clean", t_lin),
+        ("parity, dropout off", _flagship_cfg(), "parity", False),
+        ("clean, dropout off", _flagship_cfg(), "clean", False),
         ("parity, dropout 0.1/0.2 (parity mode)",
-         _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2), "parity", t_lin),
+         _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2), "parity", False),
         ("clean, dropout 0.1/0.2 (inverted mode)",
-         _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2, dropout_mode="inverted"), "clean", t_lin),
+         _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2, dropout_mode="inverted"), "clean", False),
         ("parity, sigmoid head, dropout 0.1/0.2",
-         _flagship_cfg(output="sigmoid", dropout_vis=0.1, dropout_hid=0.2), "parity", t_sig),
+         _flagship_cfg(output="sigmoid", dropout_vis=0.1, dropout_hid=0.2), "parity", True),
     ]
     held = {}
-    for label, cfg, rule, t in cases:
-        run, got, want = both(cfg, rule, t)
-        _check(got.step == n_b, f"{label}: {got.step} bunches trained, the partial one not dropped")
-        errs = _hold_chunk(got, want, init, label, worst)
-        coefs = rc._scal_coefs(rule, BUNCH, FLAGSHIP[-1], *hyp)
-        plain = rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg, BUNCH, coefs, 17,
-                                                  bf16=False)
-        p_errs = _update_errors(plain, want, init)
-        # the first bunch alone, every tensor
-        one = run(init_train_state(mlp), x[:BUNCH], t[:BUNCH], 17, *hyp)
-        one_w = rc.resident_train_chunk_reference(init_train_state(mlp), x[:BUNCH], t[:BUNCH], cfg,
-                                                  BUNCH, coefs, 17, dtype=f64, bf16=False)
-        e1 = _hold_chunk(one, one_w, init, f"{label}, one bunch", {}, tol=CHUNK_ONE_REL_FRO)
-        worst["one"] = max(worst.get("one", 0.0), max(e1))
-        held.setdefault("first", (run, want, one_w))
+    for label, cfg, rule, sig in cases:
+        run, xd, td, want, one_w, errs, p_errs, e1 = held_on_draws(
+            label, cfg, rule, sig, False, CHUNK_REL_FRO, CHUNK_ONE_REL_FRO, worst)
+        held.setdefault("first", (run, xd, td, want, one_w))
         print(f"[kernel] chunk trainer, {label}: {n_b} bunches + a partial one vs float64 plain, "
               f"update error by layer W {' '.join(f'{e:.2g}' for e in errs[:4])}, delta_b "
               f"{' '.join(f'{e:.2g}' for e in errs[12:])} (float32 plain version's own: W "
@@ -986,14 +1109,14 @@ def phase_resident(gen) -> dict:
               f"{' '.join(f'{e:.2g}' for e in e1[:4])}", flush=True)
 
     # the limits bite: the first case's trainer given a wrong hyperparameter
-    # must be refused by the one-bunch or the three-bunch limit
-    run, want, one_w = held["first"]
+    # must be refused by the one-bunch or the three-bunch limit (on its draw)
+    run, xd, td, want, one_w = held["first"]
     for label, h in (("weightcost dropped", (opt.lrate, opt.momentum, 0.0)),
                      ("momentum x 1.03", (opt.lrate, 1.03 * opt.momentum, opt.weightcost)),
                      ("lrate x 1.001", (1.001 * opt.lrate, opt.momentum, opt.weightcost))):
-        m1 = max(_update_errors(run(init_train_state(mlp), x[:BUNCH], t_lin[:BUNCH], 17, *h),
+        m1 = max(_update_errors(run(init_train_state(mlp), xd[:BUNCH], td[:BUNCH], 17, *h),
                                 one_w, init))
-        m3 = max(_update_errors(run(init_train_state(mlp), x, t_lin, 17, *h), want, init))
+        m3 = max(_update_errors(run(init_train_state(mlp), xd, td, 17, *h), want, init))
         _check(m1 > CHUNK_ONE_REL_FRO or m3 > CHUNK_REL_FRO,
                f"a chunk trainer with {label} passes the limits: {m1:.3g} after one bunch, "
                f"{m3:.3g} after three")
@@ -1074,37 +1197,27 @@ def phase_resident(gen) -> dict:
           f"{worst['one']:.3g} after one bunch (tol {CHUNK_ONE_REL_FRO})", flush=True)
 
     # tensor-core products (bf16=True, the factory's default): the same cases against the
-    # float64 plain version of the same rounding (TC_ONE_REL_FRO, TC_THREE_REL_FRO)
+    # float64 plain version of the same rounding (TC_ONE_REL_FRO, TC_THREE_REL_FRO), on
+    # draws of their own
     tc_worst = {}
-    for label, cfg_c, rule, t in cases:
-        run_tc = rc.make_resident_train_chunk(cfg_c, opt, rule=rule)
-        coefs = rc._scal_coefs(rule, BUNCH, FLAGSHIP[-1], *hyp)
-        got = run_tc(init_train_state(mlp), x, t, 17, *hyp)
-        want = rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg_c, BUNCH, coefs, 17,
-                                                 dtype=f64)
-        errs = _hold_chunk(got, want, init, f"tensor cores, {label}", tc_worst, tol=TC_THREE_REL_FRO)
-        p_errs = _update_errors(rc.resident_train_chunk_reference(init_train_state(mlp), x, t, cfg_c,
-                                                                  BUNCH, coefs, 17), want, init)
-        one = run_tc(init_train_state(mlp), x[:BUNCH], t[:BUNCH], 17, *hyp)
-        one_w = rc.resident_train_chunk_reference(init_train_state(mlp), x[:BUNCH], t[:BUNCH], cfg_c,
-                                                  BUNCH, coefs, 17, dtype=f64)
-        e1 = _hold_chunk(one, one_w, init, f"tensor cores, {label}, one bunch", {},
-                         tol=TC_ONE_REL_FRO)
-        tc_worst["one"] = max(tc_worst.get("one", 0.0), max(e1))
-        held.setdefault("tc", (run_tc, want, one_w))
+    for label, cfg_c, rule, sig in cases:
+        run_tc, xd, td, want, one_w, errs, p_errs, e1 = held_on_draws(
+            f"tensor cores, {label}", cfg_c, rule, sig, True, TC_THREE_REL_FRO, TC_ONE_REL_FRO,
+            tc_worst)
+        held.setdefault("tc", (run_tc, xd, td, one_w))
         print(f"[kernel] chunk trainer, tensor cores, {label}: {n_b} bunches + a partial one vs "
               f"float64 plain, update error by layer W {' '.join(f'{e:.2g}' for e in errs[:4])}, "
               f"delta_b {' '.join(f'{e:.2g}' for e in errs[12:])} (float32 plain version of the "
               f"same rounding: W {' '.join(f'{e:.2g}' for e in p_errs[:4])}); after one bunch W "
               f"{' '.join(f'{e:.2g}' for e in e1[:4])}", flush=True)
     # the limits bite: the first case's trainer with float32 products, or with an lrate or a
-    # momentum 10% off, is refused by the one-bunch limit
-    run_tc, want, one_w = held["tc"]
+    # momentum 10% off, is refused by the one-bunch limit (on its draw)
+    run_tc, xd, td, one_w = held["tc"]
     f32_run = rc.make_resident_train_chunk(cases[0][1], opt, bf16=False, rule=cases[0][2])
     for label, r, h in (("float32 products", f32_run, hyp),
                         ("lrate x 1.1", run_tc, (1.1 * opt.lrate, opt.momentum, opt.weightcost)),
                         ("momentum x 1.1", run_tc, (opt.lrate, 1.1 * opt.momentum, opt.weightcost))):
-        m1 = max(_update_errors(r(init_train_state(mlp), x[:BUNCH], t_lin[:BUNCH], 17, *h), one_w,
+        m1 = max(_update_errors(r(init_train_state(mlp), xd[:BUNCH], td[:BUNCH], 17, *h), one_w,
                                 init))
         _check(m1 > TC_ONE_REL_FRO, f"a tensor-core chunk trainer with {label} passes the one-bunch "
                                     f"limit: {m1:.3g}")
@@ -2105,11 +2218,11 @@ def phase_train(tmp: str, smi: str) -> dict:
         _check(c["resident_chunk"] == n_chunks and c["plain_train_chunk"] == 0,
                f"{label}: chunk trainer launched {c['resident_chunk']} times for {n_chunks} "
                f"chunks, plain trainer {c['plain_train_chunk']} times")
-        # per bunch: 4 tc_fwd_kernel (K split within a cluster: no fwd_sum_kernel),
-        # 4 bwd_kernel, 3 reduce_dedy_kernel (none below the first layer); 3
-        # forwards and the first layer's backward and forward draw masks
+        # per bunch: 4 tc_fwd_kernel (K split within a cluster: no fwd_sum_kernel)
+        # and 4 tc_bwd_kernel (dedy summed within a cluster: no reduce_dedy_kernel),
+        # 8 launches; 3 forwards and the first layer's backward and forward draw masks
         _check(k["fused_linear_act"] == 4 * n_bunches and k["fused_linear_act_sum"] == 0
-               and k["fused_bwd_update"] == 4 * n_bunches and k["reduce_dedy"] == 3 * n_bunches
+               and k["fused_bwd_update"] == 4 * n_bunches and k["reduce_dedy"] == 0
                and k["philox_mask"] == 4 * n_bunches,
                f"{label}: kernel launches {k} for {n_bunches} bunches")
         # engine=auto on the card: the tensor-core forms, every launch
@@ -2118,9 +2231,11 @@ def phase_train(tmp: str, smi: str) -> dict:
                f"{label}: engine=auto did not run the tensor-core forms: {k}")
     for label, d in (("float32 epoch 1", d1_f), ("float32 epoch 2", d2_f)):
         # per bunch: 4 fwd_kernel each with its fwd_sum_kernel (the float32 form
-        # splits K over the grid at every flagship layer)
+        # splits K over the grid at every flagship layer), 4 bwd_kernel and 3
+        # reduce_dedy_kernel (none below the first layer)
         k = d["resident_chunk_kernels"]
         _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
+               and k["reduce_dedy"] == 3 * n_bunches
                and k["fused_linear_act"] == k["fused_linear_act_sum"] == 4 * n_bunches
                and k["tc_linear_act"] == k["tc_bwd_update"] == 0,
                f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
@@ -2267,7 +2382,10 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
             run(state, x, t, 3 + attempt, opt.lrate, opt.momentum, opt.weightcost, n_real=n_real)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
-        launched = sum(kernel_launches[k] - before[k] for k in kernel_launches if k != "philox_mask")
+        # the kernels launched: the two product kernels and the two second kernels (the
+        # other keys count subsets of these by form)
+        launched = sum(kernel_launches[k] - before[k] for k in
+                       ("fused_linear_act", "fused_bwd_update", "fused_linear_act_sum", "reduce_dedy"))
         kernels = sorted((e for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                          key=lambda e: -dev_us(e))
@@ -2525,7 +2643,10 @@ def _dp_kernels(gen) -> dict:
             for kw in ({}, {"deriv": "relu"}, {"deriv": "sigmoid"},
                        {"in_mask": (11, 0.1), "in_scale": 1.0 / 0.9, "mask_row0": M}):
                 label = f"fused_bwd_grad_out {M}x{K}x{N} {'tc' if tc else 'f32'} {sorted(kw)}"
+                reduced = fused_bwd_grad_out.reduce_launches
                 g, dy = fused_bwd_grad_out(dedx, y_prev, w, bf16=tc, **kw)
+                _check(not tc or fused_bwd_grad_out.reduce_launches == reduced,
+                       "the tensor-core gradient-out backward launched reduce_dedy_kernel")
                 grads.setdefault("plain", g)
                 g_w, dy_w = fused_bwd_grad_out_reference(dedx, y_prev, w, dtype=f64, bf16=tc, **kw)
                 _hold(g[:K * N], g_w[:K * N], f"{label}, G", worst[tc], *tol)
@@ -2624,7 +2745,8 @@ def _dp_kernels(gen) -> dict:
             dedx = _randn(gen, M, N, scale=0.02)
             y = torch.relu(_randn(gen, M, K))
             dedy = torch.empty(M, K, device="cuda")
-            scratch = torch.empty(fused_lib().fused_bwd_scratch_floats(M, K, N), device="cuda")
+            # the float32 form's dedy partials (the tensor-core form takes none)
+            scratch = torch.empty(fused_lib().fused_bwd_scratch_floats(M, K, N, 0), device="cuda")
             first = l == 0
             kw = dict(deriv=None if first else "relu", with_dedy=not first, grad=grads[l],
                       dedy=None if first else dedy, scratch=scratch)
@@ -3052,8 +3174,8 @@ def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path) -> list:
         row("fused_bwd_grad_out_tc", "tpu_sednn_torch/csrc/fused_mlp.cuh",
             dw["fused_bwd_grad_out_tc"], k64["grad_tc"], k32["grad_tc"],
             launches_of="tc_bwd_kernel in its gradient-out form (G and gb written, nothing "
-                        "updated), with reduce_dedy_kernel where a layer below takes dedy "
-                        f"({dw['fused_bwd_grad_out_reduce']} launches, either form)"),
+                        "updated; dedy summed in the kernel: no reduce_dedy_kernel; the float32 "
+                        f"form's reduce_dedy_kernel launches: {dw['fused_bwd_grad_out_reduce']})"),
         row("fused_bwd_grad_out", "tpu_sednn_torch/csrc/fused_mlp.cuh", grad_f32,
             k64["grad_f32"], k32["grad_f32"],
             launches_of="bwd_kernel (float32 products) in its gradient-out form"),
@@ -3248,7 +3370,8 @@ def main(argv=None) -> int:
         layer_row("fused_bwd_update", "fused_bwd_update", "f32", "tpu_sednn_torch/csrc/fused_mlp.cu",
                   "tpu_sednn/ops/fused_mlp.py:108", fused["bwd"],
                   launches_of="bwd_kernel (float32 products, bf16=False); its reduce_dedy_kernel "
-                              "(no layer below the first, either form) in reduce_launches; "
+                              "(no layer below the first; the float32 form only) in "
+                              "reduce_launches; "
                               "sr_launches stored bfloat16 with stochastic rounding, tiled_launches "
                               "accumulated a row tile (either form)",
                   reduce_launches=kc["reduce_dedy"] + tw["fused_bwd_update_reduce"]
@@ -3258,8 +3381,12 @@ def main(argv=None) -> int:
         layer_row("fused_bwd_update_tc", "fused_bwd_update", "tc",
                   "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:108",
                   tcres["bwd"], library_ms=None,
-                  launches_of="tc_bwd_update (tensor-core products, bf16=True, mma.sync m16n8k16; "
-                              "the update on the unrounded W)"),
+                  launches_of="tc_bwd_kernel (tensor-core products, bf16=True, mma.sync "
+                              "m16n8k16; a block streams a stripe of W's rows over a range of N "
+                              "through a TMA ring fed by a producer warp, applies the update on "
+                              "the unrounded W a chunk at a time, and dedy is summed within a "
+                              "thread-block cluster through distributed shared memory: one "
+                              "launch a layer, no reduce_dedy_kernel)"),
         dict(name="resident_chunk", source="tpu_sednn_torch/csrc/resident_chunk.cu",
              replaces="tpu_sednn/ops/resident_chunk.py:169",
              launches=tforms["f32"] + forms["f32"],

@@ -354,3 +354,108 @@ def test_chunk_runner_passes_bf16_and_auto_stays_plain_on_the_cpu():
     assert not torch.equal(st[True].params.w[0], st[False].params.w[0])
     assert make_chunk_runner(cfg, opt, "auto", device="cpu") is make_chunk_runner(cfg, opt, "xla",
                                                                                   device="cpu")
+
+
+# The tensor-core backward's decomposition (csrc/fused_mlp.cuh:tc_bwd_kernel),
+# emulated in float32: N in chunks of TC_BWD_BN columns, split into `split`
+# ranges of whole chunks (the blocks of a cluster); G's chunk summed over the
+# rows in two chains, the even and the odd 16-row steps of every 128 rows,
+# added at the end; each range's dedy summed over its chunks in order; the
+# ranges' partials summed in rank order; then the derivative; gb summed row by
+# row.  The kernel may pick any split from 1 to 8 (tc_bwd_split: the card's
+# occupancy), so every one is held.
+TC_BWD_BN = 64
+TC_BWD_SPLITS = (1, 2, 3, 4, 5, 8)
+
+
+def _tc_bwd_emulation(dedx, y_prev, w, split, deriv=None):
+    """-> (G, gb, dedy) as the kernel sums them, float32."""
+    r = lambda a: a.float().to(torch.bfloat16).float()  # noqa: E731
+    dx, yr, wr = r(dedx), r(y_prev), r(w)
+    (M, N), K = dedx.shape, y_prev.shape[1]
+    n_chunks = -(-N // TC_BWD_BN)
+    per = -(-n_chunks // split)
+    chains = [[m0 for m0 in range(0, M, 16) if (m0 % 128) // 16 % 2 == p] for p in (0, 1)]
+    g = torch.zeros(K, N)
+    parts = []
+    for rank in range(split):
+        part = torch.zeros(M, K)
+        for c in range(rank * per, min(n_chunks, (rank + 1) * per)):
+            cols = slice(c * TC_BWD_BN, min(N, (c + 1) * TC_BWD_BN))
+            acc = [torch.zeros(K, cols.stop - cols.start) for _ in chains]
+            for a, rows in zip(acc, chains):
+                for m0 in rows:
+                    a += yr[m0:m0 + 16].T @ dx[m0:m0 + 16, cols]
+            g[:, cols] = acc[0] + acc[1]
+            part = part + dx[:, cols] @ wr[:, cols].T
+        parts.append(part)
+    dedy = torch.zeros(M, K)
+    for part in parts:
+        dedy = dedy + part
+    if deriv == "relu":
+        dedy = torch.where(y_prev > 0, dedy, torch.zeros(()))
+    elif deriv == "sigmoid":
+        dedy = y_prev * (1.0 - y_prev) * dedy
+    gb = torch.zeros(N)
+    for m in range(M):
+        gb = gb + dedx[m]
+    return g, gb, dedy
+
+
+@pytest.fixture(scope="module")
+def _bwd_jax_cases():
+    """The inputs and JAX outputs of test_fused_bwd_update_matches_pallas_bf16's
+    shapes, computed once for every split."""
+    cases = {}
+    for B, K, N in [(16, 256, 384), (8, 128, 256)]:
+        rng = np.random.default_rng(2)
+        arrs = dict(dedx=rng.standard_normal((B, N)), yprev=rng.standard_normal((B, K)),
+                    w=rng.standard_normal((K, N)) * 0.05, delta=rng.standard_normal((K, N)) * 0.01,
+                    b=rng.standard_normal(N) * 0.1, db=rng.standard_normal(N) * 0.01)
+        arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+        hyp = (0.7, 0.4, 1.0 / B, 1e-3)
+        want = jfm.fused_bwd_update(
+            *(jnp.asarray(arrs[k]) for k in ("dedx", "yprev", "w", "delta", "b", "db")),
+            *(jnp.float32(h) for h in hyp), block_k=128, block_n=128, interpret=True, bf16=True)
+        cases[(B, K, N)] = (arrs, hyp, [np.asarray(a) for a in want])
+    return cases
+
+
+@pytest.mark.parametrize("split", TC_BWD_SPLITS)
+@pytest.mark.parametrize("shape", [(16, 256, 384), (8, 128, 256)])
+def test_tc_bwd_sum_order_matches_pallas_bf16(_bwd_jax_cases, shape, split):
+    """The kernel's order of sums, with its update arithmetic (A = c/n, Bc =
+    c*wc, one float32 operation at a time), against the JAX kernel."""
+    arrs, (m, lr, inv_n, wc), want = _bwd_jax_cases[shape]
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    g, gb, dedy = _tc_bwd_emulation(t["dedx"], t["yprev"], t["w"], split)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    c = (1.0 - m) * lr
+    a_c, b_c, mom = f32(c * inv_n), f32(c * wc), f32(m)
+    nd = mom * t["delta"] - (a_c * g + b_c * t["w"])
+    ndb = mom * t["db"] - a_c * gb
+    got = (t["w"] + nd, nd, dedy, t["b"] + ndb, ndb)
+    errs = [_rel(got[0].numpy() - arrs["w"], want[0] - arrs["w"])]
+    errs += [_rel(a.numpy(), b) for a, b in zip(got[1:], want[1:])]
+    assert max(errs) <= TOL_ONE, f"split {split} {shape}: {errs}"
+
+
+@pytest.mark.parametrize("split", (1, 4, 8))
+@pytest.mark.parametrize("M,K,N,deriv", [(128, 2048, 2048, "relu"), (136, 1548, 129, "sigmoid")])
+def test_tc_bwd_sum_order_matches_float64_plain(M, K, N, deriv, split):
+    """One full 2048-wide layer (and a ragged one, rows past 128): the
+    emulation against the port's float64 plain version of the same rounded
+    operands; the float32-product function misses it."""
+    rng = np.random.default_rng(5)
+    dedx = torch.from_numpy((rng.standard_normal((M, N)) * 0.02).astype(np.float32))
+    y_prev = torch.from_numpy(np.maximum(rng.standard_normal((M, K)), 0).astype(np.float32))
+    if deriv == "sigmoid":
+        y_prev = torch.sigmoid(y_prev)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.03).astype(np.float32))
+    grad, dy = tfm.fused_bwd_grad_out_reference(dedx, y_prev, w, deriv=deriv, dtype=torch.float64)
+    g, gb, dedy = _tc_bwd_emulation(dedx, y_prev, w, split, deriv)
+    for name, got, want in (("G", g.reshape(-1), grad[:K * N]), ("gb", gb, grad[K * N:]),
+                            ("dedy", dedy, dy)):
+        assert _rel(got.numpy(), want.numpy()) <= TOL_ONE, name
+    _, dy32 = tfm.fused_bwd_grad_out_reference(dedx, y_prev, w, deriv=deriv, bf16=False)
+    assert _rel(dy32.numpy(), dy.numpy()) >= MISS * TOL_ONE

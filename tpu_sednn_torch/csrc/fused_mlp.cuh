@@ -28,7 +28,7 @@
 // update to the W and Delta tiles it owns, reading and writing each once);
 // bias, activation, the next layer's dropout mask and the output layer's
 // dedx are epilogues of the forward product; the activation derivative is
-// the epilogue of the dedy reduction.
+// the epilogue of the dedy sum.
 //
 // At a bunch of 128 the card is short of blocks, not of arithmetic: the
 // float32 forward splits K over the grid (fwd_k_chunk) and sums the chunks
@@ -37,11 +37,14 @@
 // (tc_fwd_kernel); measured times beside the bound are in PERF.md.
 //
 // Blocks of a grid run in no order, so the TPU kernel's accumulation of dedy
-// over a sequential grid axis becomes: each block writes its partial
-// dedx[:, n-tile] @ W_tile^T (formed from the W tile it loaded, so "W before
-// the update" holds by construction) to a scratch (n_tiles, M, K), and a
-// second small kernel sums the partials in a fixed order (deterministic; no
-// float atomics).
+// over a sequential grid axis becomes, in the float32 backward: each block
+// writes its partial dedx[:, n-tile] @ W_tile^T (formed from the W tile it
+// loaded, so "W before the update" holds by construction) to a scratch
+// (n_tiles, M, K), and a second small kernel sums the partials in a fixed
+// order (deterministic; no float atomics).  The tensor-core backward
+// (tc_bwd_kernel) needs neither: a block owns a stripe of W's rows over a
+// range of N, sums its stripe of dedy in registers, and a thread-block
+// cluster sums the ranges' stripes through distributed shared memory.
 //
 // True sizes throughout: K = 1548 and N = 129 are masked at the edges by the
 // kernels (16-byte loads where the row stride allows, scalar otherwise; the
@@ -810,9 +813,15 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
 //     G      = yprev^T @ dedx
 //     Delta' = m*Delta - (A*G + Bc*W),  W' = W + Delta'      (in place)
 //     gb     = sum_rows dedx;  db' = m*db - A*gb,  b' = b + db'   (k-tile 0)
-//     part[nt] = dedx[:, n-tile] @ W_tile^T   (M, K), if part != nullptr
-// One block owns a 64 x 64 tile of W and Delta, 256 threads; it walks the M
-// rows in chunks of 32.
+//     dedy   = (dedx @ W^T) * deriv(yprev)   with W before the update
+// Replaces tpu_sednn/ops/fused_mlp.py:_bwd_kernel (and the backward half of
+// resident_chunk.py:_resident_kernel's bunch).  Two forms:
+// * float32 products (bwd_kernel): one block owns a 64 x 64 tile of W and
+//   Delta, 256 threads, walking the M rows in chunks of 32, and writes
+//   part[nt] = dedx[:, n-tile] @ W_tile^T (M, K); reduce_dedy_kernel sums the
+//   n-tiles and applies the derivative.  Operations-bound (FMA).
+// * tensor-core products (tc_bwd_kernel, below): one launch, dedy summed in
+//   the kernel; bytes-bound, and its design is about W's and Delta's bytes.
 //
 // Storage (template): W and Delta float32; Delta bfloat16 (the TPU kernel's
 // sr_delta: Delta' is stored stochastically rounded, W takes the unrounded
@@ -845,14 +854,14 @@ constexpr int kUpdFirst = 1, kUpdApply = 2;
 // is update_bias.  Written with the round-to-nearest intrinsics, which the
 // compiler does not contract into fused multiply-adds: one float32 operation
 // at a time, in the order the plain versions compute them.
+// update4: the same with Delta's old values given (dr), as the tensor-core
+// backward has them in shared memory already.
 template <typename TW, typename TD>
-__device__ inline void update_row4(TW* __restrict__ w, TD* __restrict__ delta, int kr, int col,
-                                   int K, int N, const float wr[4], const float gr[4], float mom,
-                                   float A, float Bc, uint32_t sr_key, bool first, bool apply,
-                                   bool vec_w, bool vec_dl) {
+__device__ inline void update4(TW* __restrict__ w, TD* __restrict__ delta, int kr, int col, int K,
+                               int N, const float wr[4], const float dr[4], const float gr[4],
+                               float mom, float A, float Bc, uint32_t sr_key, bool first,
+                               bool apply, bool vec_w, bool vec_dl) {
   constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
-  const float4 dv = ld4(delta, kr, col, N, K, N, vec_dl);
-  const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
   float nd[4], nw[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -865,6 +874,16 @@ __device__ inline void update_row4(TW* __restrict__ w, TD* __restrict__ delta, i
   if (kSr) sr_bits4(sr_key, kr, col, bits);
   st4_sr(delta, kr, col, N, K, N, vec_dl, nd, bits, kSrDeltaShift);
   if (apply) st4_sr(w, kr, col, N, K, N, vec_w, nw, bits, kSrWeightShift);
+}
+
+template <typename TW, typename TD>
+__device__ inline void update_row4(TW* __restrict__ w, TD* __restrict__ delta, int kr, int col,
+                                   int K, int N, const float wr[4], const float gr[4], float mom,
+                                   float A, float Bc, uint32_t sr_key, bool first, bool apply,
+                                   bool vec_w, bool vec_dl) {
+  const float4 dv = ld4(delta, kr, col, N, K, N, vec_dl);
+  const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+  update4(w, delta, kr, col, K, N, wr, dr, gr, mom, A, Bc, sr_key, first, apply, vec_w, vec_dl);
 }
 
 // The bias of column n: db' = m*db - A*gb (first) or db - A*gb, b' = b + db' (apply).
@@ -1005,157 +1024,471 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
     update_bias(b, db, n0 + tid, gb, mom, A, first, apply);
 }
 
-// Kernel 2, tensor-core form: the same function with G = rne(yprev)^T @
-// rne(dedx) and part[nt] = rne(dedx[:, n-tile]) @ rne(W_tile)^T; the update
-// takes the UNROUNDED W and G's float32 sums, the bias its float32 dedx
-// (resident_chunk.py:465, 478 and 508).  So the block keeps its W tile twice
-// in shared memory: float32 for the update, rounded for the dedy product.
-// One block: the 64 x 64 tile of W and Delta, eight warps; M in chunks of 32
-// rows staged as bfloat16 (yprev masked in float32 first, true zeros past
-// M, K and N), dedx also as float32 for the bias sums.  G: each warp 16 x 32
-// (4 m16n8k16 tiles), A = yprev^T read with ldmatrix.trans.  part: each warp
-// 16 x 16 of the chunk's (32, 64) dedy partial, B = W^T read as it is
-// stored.  G goes through shared memory to the update code of bwd_kernel.
-constexpr int kTcMC = 32;
-constexpr int kTcWbLd = kBwdBN + 8;  // bfloat16 row stride of 144 bytes (see TcFwdTile)
+// Kernel 2, tensor-core form (tc_bwd_kernel): the same function with G =
+// rne(yprev)^T @ rne(dedx) and dedy = rne(dedx) @ rne(W)^T, float32 sums on
+// mma.sync m16n8k16; the update takes the UNROUNDED W and G's float32 sums,
+// the bias its float32 dedx (resident_chunk.py:465, 478 and 508).
+//
+// Bound: bytes.  At a bunch of 128 a layer does 4*128*K*N FLOP (G and dedy)
+// against one read and one write of W and of Delta, 16*K*N bytes in float32:
+// 32 FLOP a byte, far under the 295 at which the tensor cores would limit.
+// So the design moves W and Delta once, keeps bytes in flight, and keeps
+// everything else out of device memory:
+// * a block owns a stripe of BK rows of W and Delta (BK = 64, 32, 16 at up to
+//   128, 256, 512 rows of dedx: the stripe's dedy lives in registers) and a
+//   range of N, which it streams in chunks of kTcBwdBN columns.  For each
+//   chunk it forms G's (BK, chunk) tile over all M rows and applies the
+//   momentum update to that tile at once: W and Delta are read once and
+//   written once and no gradient is stored;
+// * the stripe's dedy (M, BK) is summed over the block's chunks in registers
+//   (chunk order) with W from before the update (a chunk's W is rounded for
+//   dedy before it is stepped);
+// * the TPU kernel sums dedy over a sequential grid axis (fused_mlp.py:108;
+//   resident_chunk.py:437-462 walks stripes of W rows across all of N); a
+//   Hopper grid runs in no order, so N is split over the blocks of a
+//   thread-block cluster (up to 8, along the grid's x, sized so that every
+//   cluster of the grid is resident at once: tc_bwd_split; a second wave of
+//   clusters was measured slower), and each block sums its share of dedy's
+//   rows over the cluster's partial stripes through distributed shared memory
+//   in rank order, then applies the activation derivative and writes dedy
+//   once.  No scratch in device memory, no second launch, no atomics: every
+//   output's sum depends only on the split, a function of (K, N, BK) and the
+//   card;
+// * operands arrive through a ring of kTcBwdStages stages filled by the
+//   Tensor Memory Accelerator (one 2-D tile copy each for dedx's (128, BN),
+//   W's (BK, BN) and Delta's (BK, BN) a step, zeros past every edge,
+//   completing on the slot's `full` mbarrier).  One producer warp issues them
+//   and waits on the slot's `empty` mbarrier for the compute warps to release
+//   it; issued from a compute warp, the copies held every warp at the step's
+//   barrier (measured: a third of a step).  So Delta's read is in flight with
+//   W's and dedx's, ahead of the products.  A tensor map needs rows whose
+//   stride is a multiple of 16 bytes: at N = 129 or 257 the float32 operands
+//   go by 4-byte cp.async and bfloat16 W or Delta through registers, from the
+//   compute warps;
+// * the stripe of yprev (M, BK) is loaded once, masked (in_mask: Philox on
+//   layer 0's input) and rounded into shared memory, and each G warp keeps
+//   its A fragments of it in registers for the whole launch; each step rounds
+//   the chunk of dedx (and W for dedy) to bfloat16 for the products;
+// * the update goes through shared memory in row order (G's chunk written
+//   there from the fragments): eight threads a 128-byte row, so the shared
+//   loads meet no bank conflict and the global stores are whole lines (from
+//   the fragments' layout, 16 rows a warp instruction, it took twice as long);
+// * the bias gradient: a last row of blocks sums dedx's columns over the rows
+//   in order and updates the bias (or stores gb), so no stripe's block is
+//   slower for it.
+// Rows past 128 (M up to 512) come as further steps of the same chunk: G
+// accumulates over them and the update waits for the last; W is then read
+// again from L2 for the update.
+// Warps (8 compute + 1 producer): G's (BK, BN) tile in (16, 16 * kGN16) tiles,
+// A = yprev^T held in registers, B = rounded dedx read with ldmatrix.trans,
+// two accumulator chains (even and odd 16-row steps) added at the end; dedy's
+// 16-row tiles, warp w owning rows 16w.. of each 128 rows, B = W^T read as it
+// is stored.  What bounds it now (PERF.md): shared memory traffic (the tensor
+// copies' writes, the rounding pass, the fragments' loads) and the fixed cost
+// of a launch (the yprev stripe's load, the cluster's dedy sum), not device
+// memory.
+//
+// Storage (template): W and Delta float32; Delta bfloat16 (sr_delta); or both
+// bfloat16 (sr_state), widened as they are read from the stage and narrowed
+// with stochastic rounding by update4, as in bwd_kernel.  Row-tile flags and
+// the gradient-out form (gout != nullptr: G and gb written, W only read, and
+// not at all where no dedy is asked for) as in bwd_kernel.
+constexpr int kTcBwdBN = 64, kTcBwdStages = 2, kTcBwdSubM = 128;
+constexpr int kTcBwdCompute = 256;                      // the compute warps' threads (8 warps)
+constexpr int kTcBwdThreads = kTcBwdCompute + 32;       // and one producer warp
+constexpr int kTcBwdMaxCluster = 8;
+constexpr int kTcBwdDLd = kTcBwdBN + 8;  // bfloat16 row stride of 144 bytes (see TcFwdTile)
 
-struct TcBwdSmem {
-  float Ws[kBwdBK][kBwdWLd];     // W tile, float32: the update
-  bf16_t Wb[kBwdBK][kTcWbLd];    // rne(W tile): the dedy product
-  union {
-    struct {
-      bf16_t Yb[kTcMC][kTcWbLd];  // rne(masked yprev chunk), (m, k)
-      bf16_t Db[kTcMC][kTcWbLd];  // rne(dedx chunk), (m, n)
-      float Ds[kTcMC][kBwdWLd];   // dedx chunk, float32: the bias gradient
-    } loop;
-    float Gs[kBwdBK][kBwdWLd];    // G after the last chunk
-  } u;
+template <typename TW, typename TD, int BK>
+struct TcBwdTile {
+  static constexpr int kMT = 64 / BK;                   // 128-row groups of dedy a warp holds
+  static constexpr int kMaxM = kTcBwdSubM * kMT;        // rows of dedx a launch takes
+  static constexpr int kYLd = BK + 8;                   // bfloat16: an odd multiple of 16 bytes
+  static constexpr int kPLd = BK + 4;
+  // G's chunk (BK, BN): a warp takes 16 rows and kGN16 16-column tiles of it
+  static constexpr int kGPerRow = 8 / (BK / 16);  // warps that share 16 rows of G
+  static constexpr int kGN16 = kTcBwdBN / 16 >= kGPerRow ? kTcBwdBN / 16 / kGPerRow : 1;
+  static constexpr int kGWarps = (BK / 16) * (kTcBwdBN / 16 / kGN16);
+  struct alignas(128) Stage {  // the tensor copies' boxes, dense
+    float d[kTcBwdSubM][kTcBwdBN];  // dedx rows of the step, as stored
+    TW w[BK][kTcBwdBN];             // W rows of the stripe, as stored
+    TD dl[BK][kTcBwdBN];            // Delta rows of the stripe, as stored
+  };
+  struct alignas(128) Smem {
+    union {
+      Stage ring[kTcBwdStages];
+      float part[kMaxM][kPLd];  // the block's partial dedy stripe, after the loop
+    } u;
+    bf16_t y[kMaxM][kYLd];                  // rne(masked yprev stripe), (m, k)
+    bf16_t db[kTcBwdSubM][kTcBwdDLd];       // rne(dedx chunk), (m, n)
+    bf16_t wb[BK][kTcBwdDLd];               // rne(W chunk), (k, n)
+    float g[BK][kTcBwdBN + 4];              // G's chunk, for the update in row order
+    uint64_t full[kTcBwdStages];            // a ring slot's tensor copies have landed
+    uint64_t empty[kTcBwdStages];           // the compute warps are done with a ring slot
+  };
+  static_assert(sizeof(Smem) + 128 <= 232448, "shared memory of tc_bwd_kernel");
 };
 
-template <typename TW, typename TD>
-__global__ void __launch_bounds__(kBwdThreads)
-tc_bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, MaskSpec in_mask,
-              TW* __restrict__ w, TD* __restrict__ delta, float* __restrict__ b,
-              float* __restrict__ db, float* __restrict__ gout, float* __restrict__ part, int M,
-              int K, int N, float mom, float A, float Bc, uint32_t sr_key, int flags, bool vec_d,
-              bool vec_y, bool vec_w, bool vec_dl, bool vec_g) {
-  const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
-  __shared__ __align__(16) TcBwdSmem sm;
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// a barrier of the compute warps alone (named barrier 1), the producer warp not waited for
+__device__ inline void tc_bwd_compute_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kTcBwdCompute) : "memory");
+}
+
+// d_tma / w_tma / l_tma: dedx, W, Delta go by tensor copies (tmd, tmw, tml),
+// which the producer warp issues, else by cp.async (float32) or registers
+// (bfloat16) from the compute warps.  gridDim.x splits N (the cluster, where
+// dedy != nullptr); gridDim.y - 1 rows of blocks take the stripes of BK rows
+// of W, and the last row the bias: the column sums of dedx over its range.
+template <typename TW, typename TD, int BK>
+__global__ void __launch_bounds__(kTcBwdThreads, 1)
+tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ CUtensorMap tmw,
+              const __grid_constant__ CUtensorMap tml, const float* __restrict__ dedx,
+              const float* __restrict__ yprev, MaskSpec in_mask, TW* __restrict__ w,
+              TD* __restrict__ delta, float* __restrict__ b, float* __restrict__ db,
+              float* __restrict__ gout, float* __restrict__ dedy, int deriv, int M, int K, int N,
+              float mom, float A, float Bc, uint32_t sr_key, int flags, bool d_tma, bool w_tma,
+              bool l_tma, bool vec_y, bool vec_w, bool vec_dl, bool vec_g, bool vec_dy) {
+  namespace cg = cooperative_groups;
+  using T = TcBwdTile<TW, TD, BK>;
+  constexpr int kS = kTcBwdStages, BN = kTcBwdBN, kC = kTcBwdCompute, kSub = kTcBwdSubM;
+  // passes of the compute threads over a (BK, BN) tile, four columns a thread
+  constexpr int kQuadIters = BK * BN / 4 >= kC ? BK * BN / 4 / kC : 1;
+  extern __shared__ unsigned char tc_bwd_smem[];
+  typename T::Smem& sm = *reinterpret_cast<typename T::Smem*>(
+      (reinterpret_cast<uintptr_t>(tc_bwd_smem) + 127) & ~(uintptr_t)127);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kBwdBN, k0 = blockIdx.y * kBwdBK;
-  const int gk = (warp >> 1) * 16, gn = (warp & 1) * 32;  // the warp's G: rows of W, cols
-  const int pm = (warp >> 2) * 16, pk = (warp & 3) * 16;  // the warp's part: chunk rows, K cols
+  const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
+  const bool update = gout == nullptr, with_dedy = dedy != nullptr;
+  const int rank = blockIdx.x, n_ranks = gridDim.x;
+  const int n_chunks = (N + BN - 1) / BN, per = (n_chunks + n_ranks - 1) / n_ranks;
+  const int c0 = min(n_chunks, rank * per), c1 = min(n_chunks, c0 + per);
 
-  if (gout == nullptr || part != nullptr) {  // as in bwd_kernel
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int idx = tid + r * kBwdThreads;
-      const int wr = idx / 16, wc = (idx % 16) * 4;
-      const float4 v = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
-      *reinterpret_cast<float4*>(&sm.Ws[wr][wc]) = v;
-      st_rne4(&sm.Wb[wr][wc], v);
-    }
-  }
-  float gacc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) gacc[j][c] = 0.0f;
-  float gb = 0.0f;
-
-  for (int mc = 0; mc < M; mc += kTcMC) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int idx = tid + r * kBwdThreads;
-      const int rr = idx / 16, cc = (idx % 16) * 4;
-      float4 yv = ld4(yprev, mc + rr, k0 + cc, K, M, K, vec_y);
-      if (in_mask.mode != 0 && mc + rr < M && k0 + cc < K) {
-        float mk[4];
-        mask4(in_mask, mc + rr, k0 + cc, K, mk);
-        yv.x *= mk[0]; yv.y *= mk[1]; yv.z *= mk[2]; yv.w *= mk[3];
-      }
-      st_rne4(&sm.u.loop.Yb[rr][cc], yv);
-      const float4 dv = ld4(dedx, mc + rr, n0 + cc, N, M, N, vec_d);
-      st_rne4(&sm.u.loop.Db[rr][cc], dv);
-      *reinterpret_cast<float4*>(&sm.u.loop.Ds[rr][cc]) = dv;
-    }
-    __syncthreads();  // also orders the W tile's stores before their first use
-
-#pragma unroll
-    for (int kk = 0; kk < kTcMC; kk += 16) {
-      uint32_t a[4], bb[2][4];
-      load_a_trans(a, &sm.u.loop.Yb[kk][gk], kTcWbLd, lane);
-      load_b_kn(bb[0], &sm.u.loop.Db[kk][gn], kTcWbLd, lane);
-      load_b_kn(bb[1], &sm.u.loop.Db[kk][gn + 16], kTcWbLd, lane);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mma_bf16_16816(gacc[j], a, bb[j >> 1][(j & 1) * 2], bb[j >> 1][(j & 1) * 2 + 1]);
-    }
-    if (blockIdx.y == 0 && tid < kBwdBN) {
+  if (blockIdx.y == gridDim.y - 1) {  // the bias of columns c0 * BN..: dedx's rows summed in order
+    const int n1 = min(N, c1 * BN);
+    for (int n = c0 * BN + tid; n < n1; n += kTcBwdThreads) {
+      float s = 0.0f;
 #pragma unroll 8
-      for (int r = 0; r < kTcMC; ++r) gb += sm.u.loop.Ds[r][tid];
-    }
-    if (part != nullptr) {
-      float p[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) p[j][c] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < kBwdBN; kk += 16) {
-        uint32_t a[4], bb[4];
-        load_a(a, &sm.u.loop.Db[pm][kk], kTcWbLd, lane);
-        load_b_nk(bb, &sm.Wb[pk][kk], kTcWbLd, lane);
-        mma_bf16_16816(p[0], a, bb[0], bb[1]);
-        mma_bf16_16816(p[1], a, bb[2], bb[3]);
+      for (int m = 0; m < M; ++m) s += __ldg(dedx + (long long)m * N + n);
+      if (update) {
+        update_bias(b, db, n, s, mom, A, first, apply);
+      } else {
+        gout[(long long)K * N + n] = s;
       }
-      float* dst = part + (long long)blockIdx.x * M * K;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = mc + pm + g + 8 * h, kk = k0 + pk + j * 8 + 2 * t;
-          if (row >= M) continue;
-          if (kk < K) dst[(long long)row * K + kk] = p[j][2 * h];
-          if (kk + 1 < K) dst[(long long)row * K + kk + 1] = p[j][2 * h + 1];
-        }
     }
-    __syncthreads();
+    return;  // the whole cluster of bias blocks leaves: none of them waits on the others
   }
 
-  // G to shared memory (over the chunks' buffers), then bwd_kernel's update
+  const int k0 = blockIdx.y * BK;
+  const int subs = (M + kSub - 1) / kSub, m16 = (M + 15) / 16 * 16;
+  const int n_steps = (c1 - c0) * subs;
+  const int d_rows = min(kSub, m16);  // rows of dedx's tensor copy, as the host sizes it
+  const bool need_w = update || with_dedy;
+  const bool any_tma = d_tma || (need_w && w_tma) || (update && l_tma);
+  const bool all_tma = d_tma && (!need_w || w_tma) && (!update || l_tma);
+  // step `step` is chunk c0 + step / subs, rows (step % subs) * 128..: dedx
+  // always; W where the step rounds it for dedy (a chunk's first rows) or
+  // updates it (its last), Delta where it updates
+  auto ld_w = [&](int j) { return (with_dedy && j == 0) || (update && j == subs - 1); };
+  auto ld_l = [&](int j) { return update && j == subs - 1; };
+
+  if (any_tma && tid == 0) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int row = gk + g, col = gn + j * 8 + 2 * t;
-    sm.u.Gs[row][col] = gacc[j][0];
-    sm.u.Gs[row][col + 1] = gacc[j][1];
-    sm.u.Gs[row + 8][col] = gacc[j][2];
-    sm.u.Gs[row + 8][col + 1] = gacc[j][3];
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int tk = tid / 16, tn = tid % 16;
-  const int col = n0 + tn * 4;
-  if (gout != nullptr) {  // gradient out, as in bwd_kernel
+
+  if (warp == kTcBwdCompute / 32) {
+    // the producer: one lane keeps kS steps of tensor copies in flight, each
+    // into a slot the compute warps have released (the bytes are posted even
+    // where a step has none, so that its phase completes)
+    if (lane == 0 && any_tma) {
+      for (int step = 0; step < n_steps; ++step) {
+        const int slot = step % kS, j = step % subs;
+        const int n0 = (c0 + step / subs) * BN, m0 = j * kSub;
+        if (step >= kS) mbar_wait(&sm.empty[slot], (step / kS - 1) & 1);
+        typename T::Stage& st = sm.u.ring[slot];
+        const bool lw = ld_w(j) && w_tma, ll = ld_l(j) && l_tma;
+        mbar_arrive_expect_tx(&sm.full[slot], (d_tma ? (uint32_t)(d_rows * BN * 4) : 0u) +
+                                                  (lw ? (uint32_t)sizeof(st.w) : 0u) +
+                                                  (ll ? (uint32_t)sizeof(st.dl) : 0u));
+        if (d_tma) tma_load_2d(&st.d[0][0], &tmd, n0, m0, &sm.full[slot]);
+        if (lw) tma_load_2d(&st.w[0][0], &tmw, n0, k0, &sm.full[slot]);
+        if (ll) tma_load_2d(&st.dl[0][0], &tml, n0, k0, &sm.full[slot]);
+      }
+    }
+  } else {
+    // the compute warps.  The operands without a tensor map, by their own copies:
+    auto load_by_hand = [&](int slot, int step) {
+      typename T::Stage& st = sm.u.ring[slot];
+      const int j = step % subs, n0 = (c0 + step / subs) * BN, m0 = j * kSub;
+      if (!d_tma) {
+        const int rows_pad = min(kSub, m16 - m0);
+        for (int idx = tid; idx < rows_pad * BN; idx += kC) {
+          const int row = idx / BN, c = idx % BN;
+          const bool in = m0 + row < M && n0 + c < N;
+          cp_async4(&st.d[row][c], in ? dedx + (long long)(m0 + row) * N + n0 + c : dedx,
+                    in ? 4 : 0);
+        }
+      }
+      auto by_hand = [&](auto* dst, const auto* src) {  // (BK, BN) of a W-shaped operand
+        using E = typename std::remove_cv<typename std::remove_pointer<decltype(src)>::type>::type;
+        for (int idx = tid; idx < BK * BN; idx += kC) {
+          const int kr = idx / BN, c = idx % BN;
+          const bool in = k0 + kr < K && n0 + c < N;
+          if constexpr (std::is_same<E, bf16_t>::value) {  // 2-byte aligned: registers
+            dst[idx] = in ? src[(long long)(k0 + kr) * N + n0 + c] : (E)0;
+          } else {
+            cp_async4(&dst[idx], in ? src + (long long)(k0 + kr) * N + n0 + c : src, in ? 4 : 0);
+          }
+        }
+      };
+      if (ld_w(j) && !w_tma) by_hand(&st.w[0][0], (const TW*)w);
+      if (ld_l(j) && !l_tma) by_hand(&st.dl[0][0], (const TD*)delta);
+    };
+    if (!all_tma) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      st4(gout, k0 + tk * 4 + i, col, N, K, N, vec_g,
-          *reinterpret_cast<const float4*>(&sm.u.Gs[tk * 4 + i][tn * 4]));
-    if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N) gout[(long long)K * N + n0 + tid] = gb;
-    return;
-  }
+      for (int s = 0; s < kS - 1; ++s) {
+        if (s < n_steps) load_by_hand(s, s);
+        cp_async_commit();  // one group per step, empty or not: the wait counts steps
+      }
+    }
+
+    // the stripe of yprev, masked in float32 and rounded; zeros past M (to 16 rows) and K
+    auto y4 = [&](int row, int col) {  // 16 bytes at (row, col) of yprev, zeros past its edges
+      if (vec_y && row < M && col + 3 < K)
+        return __ldg(reinterpret_cast<const float4*>(yprev + (long long)row * K + col));
+      return ld4(yprev, row, col, K, M, K, false);
+    };
+    constexpr int kYIters = kSub * BK / 4 / kC;  // float4 of 128 rows of the stripe a thread takes
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + tk * 4 + i;
-    if (kr >= K || col >= N) continue;
-    const float4 wv = *reinterpret_cast<const float4*>(&sm.Ws[tk * 4 + i][tn * 4]);
-    const float4 gv = *reinterpret_cast<const float4*>(&sm.u.Gs[tk * 4 + i][tn * 4]);
-    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-    const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
-    update_row4(w, delta, kr, col, K, N, wr, gr, mom, A, Bc, sr_key, first, apply, vec_w, vec_dl);
+    for (int jj = 0; jj < T::kMT; ++jj) {
+      if (n_steps == 0 || jj * kSub >= m16) continue;
+      float4 yv[kYIters];
+#pragma unroll
+      for (int r = 0; r < kYIters; ++r) {  // the loads all in flight at once
+        const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4);
+        yv[r] = row < m16 ? y4(row, k0 + (idx % (BK / 4)) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int r = 0; r < kYIters; ++r) {
+        const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+        if (row >= m16) continue;
+        float4 v = yv[r];
+        if (in_mask.mode != 0 && row < M && k0 + c < K) {
+          float mk[4];
+          mask4(in_mask, row, k0 + c, K, mk);
+          v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+        }
+        st_cvt4(&sm.y[row][c], v);
+      }
+    }
+
+    // this warp's tile of G's chunk (warps below kGWarps): rows gm.., cols gn..
+    // (kGN16 * 16 of them); its A operand, rne(yprev)^T of rows gm.., is the
+    // same at every step: held in registers (reloaded a step only where M
+    // takes more than one step a chunk).  Its dedy: rows dm.. of each 128
+    // rows, all of the stripe's columns.
+    constexpr int kGN16 = T::kGN16;
+    const bool g_warp = warp < T::kGWarps;
+    const int gm = (warp / (BN / 16 / kGN16)) * 16, gn = (warp % (BN / 16 / kGN16)) * 16 * kGN16;
+    const int dm = warp * 16;
+    uint32_t ya[kSub / 16][4];
+    float gacc[2][2 * kGN16][4];  // [even / odd 16-row step][n8 tile]: two chains half as deep
+    float dacc[T::kMT][BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2 * kGN16; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gacc[i][h][c] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < T::kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dacc[i][j][c] = 0.0f;
+
+    for (int s = 0; s < n_steps; ++s) {
+      if (!all_tma) {
+        const int ahead = s + kS - 1;  // its slot was released by the barrier that ended step s - 1
+        if (ahead < n_steps) load_by_hand(ahead % kS, ahead);
+        cp_async_commit();
+      }
+      if (any_tma) mbar_wait(&sm.full[s % kS], (s / kS) & 1);
+      if (!all_tma) {
+        cp_async_wait<kS - 1>();
+        tc_bwd_compute_sync();
+      }
+      const typename T::Stage& st = sm.u.ring[s % kS];
+      const int j = s % subs, n0 = (c0 + s / subs) * BN;
+      const int rows_pad = min(kSub, m16 - j * kSub);  // this step's rows, whole m16 tiles
+
+      // the step's operands rounded
+#pragma unroll
+      for (int r = 0; r < kSub * BN / 4 / kC; ++r) {
+        const int idx = tid + r * kC, row = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+        if (row < rows_pad)
+          st_cvt4(&sm.db[row][c], *reinterpret_cast<const float4*>(&st.d[row][c]));
+      }
+      if (with_dedy && j == 0) {
+#pragma unroll
+        for (int r = 0; r < kQuadIters; ++r) {
+          const int idx = tid + r * kC, kr = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+          if (kr < BK) st_cvt4(&sm.wb[kr][c], widen4(&st.w[kr][c]));
+        }
+      }
+      tc_bwd_compute_sync();
+
+      // G's chunk over this step's rows: rne(yprev)^T @ rne(dedx)
+      if (g_warp) {
+        if (s == 0 || subs > 1) {
+#pragma unroll
+          for (int q = 0; q < kSub / 16; ++q)
+            if (q * 16 < rows_pad) load_a_trans(ya[q], &sm.y[j * kSub + q * 16][gm], T::kYLd, lane);
+        }
+#pragma unroll
+        for (int q = 0; q < kSub / 16; ++q) {
+          if (q * 16 >= rows_pad) continue;
+#pragma unroll
+          for (int n16 = 0; n16 < kGN16; ++n16) {
+            uint32_t bb[4];
+            load_b_kn(bb, &sm.db[q * 16][gn + n16 * 16], kTcBwdDLd, lane);
+            mma_bf16_16816(gacc[q & 1][2 * n16], ya[q], bb[0], bb[1]);
+            mma_bf16_16816(gacc[q & 1][2 * n16 + 1], ya[q], bb[2], bb[3]);
+          }
+        }
+      }
+      // dedy's rows of this warp in this step: rne(dedx) @ rne(W)^T, summed over the chunks
+      if (with_dedy && dm < rows_pad) {
+#pragma unroll
+        for (int jj = 0; jj < T::kMT; ++jj) {
+          if (jj != j) continue;
+#pragma unroll
+          for (int kk = 0; kk < BN; kk += 16) {
+            uint32_t a[4];
+            load_a(a, &sm.db[dm][kk], kTcBwdDLd, lane);
+#pragma unroll
+            for (int p = 0; p < BK / 16; ++p) {
+              uint32_t bb[4];
+              load_b_nk(bb, &sm.wb[p * 16][kk], kTcBwdDLd, lane);
+              mma_bf16_16816(dacc[jj][2 * p], a, bb[0], bb[1]);
+              mma_bf16_16816(dacc[jj][2 * p + 1], a, bb[2], bb[3]);
+            }
+          }
+        }
+      }
+
+      if (j == subs - 1) {
+        // the chunk's G is complete: through shared memory to the update (or
+        // the store) in row order, eight threads a row of the chunk: 16-byte
+        // shared loads without bank conflicts and whole 128-byte rows stored
+        if (g_warp) {
+#pragma unroll
+          for (int h = 0; h < 2 * kGN16; ++h) {
+            const int col = gn + h * 8 + 2 * t;
+            *reinterpret_cast<float2*>(&sm.g[gm + g][col]) =
+                make_float2(gacc[0][h][0] + gacc[1][h][0], gacc[0][h][1] + gacc[1][h][1]);
+            *reinterpret_cast<float2*>(&sm.g[gm + g + 8][col]) =
+                make_float2(gacc[0][h][2] + gacc[1][h][2], gacc[0][h][3] + gacc[1][h][3]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) gacc[0][h][e] = gacc[1][h][e] = 0.0f;
+          }
+        }
+        tc_bwd_compute_sync();
+#pragma unroll
+        for (int r = 0; r < kQuadIters; ++r) {
+          const int idx = tid + r * kC, kl = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+          const int kr = k0 + kl, col = n0 + c;
+          if (kl >= BK || kr >= K || col >= N) continue;
+          const float4 gv = *reinterpret_cast<const float4*>(&sm.g[kl][c]);
+          if (!update) {
+            st4(gout, kr, col, N, K, N, vec_g, gv);
+            continue;
+          }
+          const float4 wv = widen4(&st.w[kl][c]), dv = widen4(&st.dl[kl][c]);
+          const float wr[4] = {wv.x, wv.y, wv.z, wv.w}, dr[4] = {dv.x, dv.y, dv.z, dv.w};
+          const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+          update4(w, delta, kr, col, K, N, wr, dr, gr, mom, A, Bc, sr_key, first, apply, vec_w,
+                  vec_dl);
+        }
+      }
+      tc_bwd_compute_sync();  // the slot and the rounded operands are free for the next steps
+      if (any_tma && tid == 0) mbar_arrive(&sm.empty[s % kS]);
+    }
+    if (!all_tma) cp_async_wait<0>();
+    tc_bwd_compute_sync();  // the ring is free: the partial stripe takes its place
+
+    if (with_dedy) {
+#pragma unroll
+      for (int jj = 0; jj < T::kMT; ++jj) {
+        const int row = jj * kSub + dm + g;
+        if (jj * kSub + dm >= m16) continue;
+#pragma unroll
+        for (int n8 = 0; n8 < BK / 8; ++n8) {
+          const int col = n8 * 8 + 2 * t;
+          *reinterpret_cast<float2*>(&sm.u.part[row][col]) =
+              make_float2(dacc[jj][n8][0], dacc[jj][n8][1]);
+          *reinterpret_cast<float2*>(&sm.u.part[row + 8][col]) =
+              make_float2(dacc[jj][n8][2], dacc[jj][n8][3]);
+        }
+      }
+    }
   }
-  if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N)
-    update_bias(b, db, n0 + tid, gb, mom, A, first, apply);
+  if (!with_dedy) return;
+
+  // this block's share of dedy's rows, summed over the cluster in rank order,
+  // then the derivative of the layer below on its stored activation (fetched
+  // before the barrier)
+  constexpr int kOutIters = T::kMaxM * BK / 4 / kC;
+  const int per_r = (M + n_ranks - 1) / n_ranks, r0 = min(M, rank * per_r);
+  const int r1 = min(M, r0 + per_r), n_out = tid < kC ? (r1 - r0) * (BK / 4) : 0;
+  float4 yd[kOutIters];
+#pragma unroll
+  for (int r = 0; r < kOutIters; ++r) {
+    const int idx = tid + r * kC, row = r0 + idx / (BK / 4), col = k0 + (idx % (BK / 4)) * 4;
+    yd[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (deriv != kLinear && idx < n_out) {
+      if (vec_y && col + 3 < K)
+        yd[r] = __ldg(reinterpret_cast<const float4*>(yprev + (long long)row * K + col));
+      else
+        yd[r] = ld4(yprev, row, col, K, M, K, false);
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's partial stripe is complete
+#pragma unroll
+  for (int r = 0; r < kOutIters; ++r) {
+    const int idx = tid + r * kC;
+    const int row = r0 + idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+    if (idx >= n_out || k0 + c >= K) continue;
+    float4 p[kTcBwdMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kTcBwdMaxCluster; ++q)
+      if (q < n_ranks)
+        p[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(&sm.u.part[row][c], q));
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; q < kTcBwdMaxCluster; ++q)
+      if (q < n_ranks) {
+        v[0] += p[q].x; v[1] += p[q].y; v[2] += p[q].z; v[3] += p[q].w;
+      }
+    if (deriv != kLinear) {
+      const float yr[4] = {yd[r].x, yd[r].y, yd[r].z, yd[r].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = deriv == kRelu ? (yr[e] > 0.0f ? v[e] : 0.0f) : yr[e] * (1.0f - yr[e]) * v[e];
+    }
+    st4(dedy, row, k0 + c, K, M, K, vec_dy, make_float4(v[0], v[1], v[2], v[3]));
+  }
+  cluster.sync();  // no block leaves while another still reads its partial stripe
 }
 
 // ---------------------------------------------------------------------------
@@ -1228,34 +1561,208 @@ reduce_dedy_kernel(const float* __restrict__ part, int n_tiles, const float* __r
 
 inline int bwd_n_tiles(int N) { return (N + kBwdBN - 1) / kBwdBN; }
 
-// part: scratch of bwd_n_tiles(N) * M * K floats, or nullptr with dedy ==
-// nullptr when the layer below needs no gradient (the first layer).  tc: the
-// tensor-core form (tc_bwd_kernel), else the float32 one (bwd_kernel).
-// gout: K*N + N floats for the gradient-out form (W is then only read, and
-// delta, b and db may be nullptr), or nullptr for the in-place update.
+// Scratch floats launch_bwd needs in `part` for dedy: the float32 form's
+// partials (bwd_n_tiles(N) of (M, K)); the tensor-core form needs none.
+inline long long bwd_scratch_floats(int M, int K, int N, bool tc) {
+  return tc ? 0 : (long long)bwd_n_tiles(N) * M * K;
+}
+
+// Per library and per device, as tc_fwd_clusters: raises tc_bwd_kernel<TW,
+// TD, BK>'s shared memory once, and -> how many clusters of `size` blocks the
+// card holds at once (cached).
+template <typename TW, typename TD, int BK>
+static cudaError_t tc_bwd_clusters(int size, int* clusters) {
+  static bool attr_set[kTcFwdMaxDevices] = {};
+  static int cached[kTcFwdMaxDevices][kTcBwdMaxCluster + 1] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kTcFwdMaxDevices) return cudaErrorInvalidDevice;
+  const size_t smem = sizeof(typename TcBwdTile<TW, TD, BK>::Smem) + 128;  // + its alignment
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(tc_bwd_kernel<TW, TD, BK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  if (cached[dev][size] == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(size, 1, 1);
+    cfg.blockDim = dim3(kTcBwdThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = size;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, tc_bwd_kernel<TW, TD, BK>, &cfg);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;  // such a cluster cannot be placed
+    cached[dev][size] = n;
+  }
+  *clusters = cached[dev][size];
+  return cudaSuccess;
+}
+
+// How the tensor-core backward splits N over the blocks of a stripe: into
+// as many ranges of whole chunks as make the grid (the stripes and the row of
+// bias blocks) fill the blocks the card holds at once, none of them empty;
+// where dedy is summed across the split (`cluster`), at most kTcBwdMaxCluster
+// and fewer where every cluster of the grid could not then be resident at
+// once.  A function of (K, N, BK, cluster) and the card alone: a
+// data-parallel rank's rows (M <= 256, BK = 64) are summed as the
+// single-device trainer sums them.  -> *split.
+template <typename TW, typename TD, int BK>
+static cudaError_t tc_bwd_split(int K, int N, bool cluster, int* split) {
+  const int rows = (K + BK - 1) / BK + 1, n_chunks = (N + kTcBwdBN - 1) / kTcBwdBN;
+  int one = 0;
+  cudaError_t err = tc_bwd_clusters<TW, TD, BK>(1, &one);  // blocks the card holds at once
+  if (err != cudaSuccess) return err;
+  const int most = cluster && n_chunks > kTcBwdMaxCluster ? kTcBwdMaxCluster : n_chunks;
+  int s = one / rows;
+  s = s < 1 ? 1 : (s > most ? most : s);
+  for (;; --s) {
+    const int per = (n_chunks + s - 1) / s;
+    if ((n_chunks + per - 1) / per < s) continue;  // a range would hold no chunk
+    if (s == 1 || !cluster) break;
+    int fit = 0;
+    err = tc_bwd_clusters<TW, TD, BK>(s, &fit);
+    if (err != cudaSuccess) return err;
+    if (rows <= fit) break;
+  }
+  *split = s;
+  return cudaSuccess;
+}
+
+template <typename TW, typename TD, int BK>
+static cudaError_t launch_tc_bwd_bk(const float* dedx, const float* yprev,
+                                    const MaskSpec& in_mask, TW* w, TD* delta, float* b,
+                                    float* db, float* gout, float* dedy, int deriv, int M, int K,
+                                    int N, float mom, float A, float Bc, uint32_t sr_key,
+                                    int flags, cudaStream_t stream) {
+  const bool update = gout == nullptr, need_w = update || dedy != nullptr;
+  int split = 1;
+  cudaError_t err = tc_bwd_split<TW, TD, BK>(K, N, dedy != nullptr, &split);
+  if (err != cudaSuccess) return err;
+  // tensor maps where the rows' stride is a multiple of 16 bytes
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
+  CUtensorMap tmd = {}, tmw = {}, tml = {};
+  const bool d_tma = aligned(dedx) && N % 4 == 0;
+  const bool w_tma = need_w && aligned(w) && ((long long)N * (long long)sizeof(TW)) % 16 == 0;
+  const bool l_tma = update && aligned(delta) && ((long long)N * (long long)sizeof(TD)) % 16 == 0;
+  auto type_of = [](int bytes) {
+    return bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT16;
+  };
+  if (d_tma) {  // a rank's 32 or 64 rows copy no 128-row box of zeros
+    const int d_rows = M < kTcBwdSubM ? (M + 15) / 16 * 16 : kTcBwdSubM;
+    err = tensor_map_2d(&tmd, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dedx, M, N, 4, d_rows, kTcBwdBN);
+    if (err != cudaSuccess) return err;
+  }
+  if (w_tma) {
+    err = tensor_map_2d(&tmw, type_of(sizeof(TW)), w, K, N, (int)sizeof(TW), BK, kTcBwdBN);
+    if (err != cudaSuccess) return err;
+  }
+  if (l_tma) {
+    err = tensor_map_2d(&tml, type_of(sizeof(TD)), delta, K, N, (int)sizeof(TD), BK, kTcBwdBN);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (K + BK - 1) / BK + 1, 1);  // the stripes, then the bias
+  cfg.blockDim = dim3(kTcBwdThreads);
+  cfg.dynamicSmemBytes = sizeof(typename TcBwdTile<TW, TD, BK>::Smem) + 128;  // + its alignment
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = dedy != nullptr ? split : 1;  // dedy is summed across the split
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, tc_bwd_kernel<TW, TD, BK>, tmd, tmw, tml, dedx, yprev, in_mask,
+                            w, delta, b, db, gout, dedy, deriv, M, K, N, mom, A, Bc, sr_key,
+                            flags, d_tma, w_tma, l_tma, vec_ok(yprev, K), vec_ok(w, N),
+                            vec_ok(delta, N), vec_ok(gout, N), vec_ok(dedy, K));
+}
+
+// The tensor-core backward's plan for M rows: out[0] the split of N (the
+// cluster, where dedy is summed), out[1] the stripes, out[2] their rows (BK).
+template <typename TW, typename TD>
+static cudaError_t tc_bwd_plan(int M, int K, int N, bool with_dedy, int out[3]) {
+  out[2] = M <= TcBwdTile<TW, TD, 64>::kMaxM ? 64 : (M <= TcBwdTile<TW, TD, 32>::kMaxM ? 32 : 16);
+  out[1] = (K + out[2] - 1) / out[2];
+  if (out[2] == 64) return tc_bwd_split<TW, TD, 64>(K, N, with_dedy, &out[0]);
+  if (out[2] == 32) return tc_bwd_split<TW, TD, 32>(K, N, with_dedy, &out[0]);
+  return tc_bwd_split<TW, TD, 16>(K, N, with_dedy, &out[0]);
+}
+
+// Rows of dedx the tensor-core backward takes: the stripe's dedy lives in
+// registers (32 a thread), so the stripe narrows as M grows (BK = 64, 32, 16
+// up to 128, 256, 512 rows).
+constexpr int kTcBwdMaxRows = 512;
+
+template <typename TW, typename TD>
+static cudaError_t launch_tc_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
+                                 TW* w, TD* delta, float* b, float* db, float* gout, float* dedy,
+                                 int deriv, int M, int K, int N, float mom, float A, float Bc,
+                                 uint32_t sr_key, int flags, cudaStream_t stream) {
+  if (M <= TcBwdTile<TW, TD, 64>::kMaxM)
+    return launch_tc_bwd_bk<TW, TD, 64>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
+                                        M, K, N, mom, A, Bc, sr_key, flags, stream);
+  if (M <= TcBwdTile<TW, TD, 32>::kMaxM)
+    return launch_tc_bwd_bk<TW, TD, 32>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
+                                        M, K, N, mom, A, Bc, sr_key, flags, stream);
+  static_assert(TcBwdTile<float, float, 16>::kMaxM == kTcBwdMaxRows, "rows of tc_bwd_kernel");
+  if (M <= kTcBwdMaxRows)
+    return launch_tc_bwd_bk<TW, TD, 16>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
+                                        M, K, N, mom, A, Bc, sr_key, flags, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The kernels one launch_bwd launched, each counted right after its launch.
+struct BwdLaunched {
+  int tc = 0;      // tc_bwd_kernel
+  int f32 = 0;     // bwd_kernel
+  int reduce = 0;  // reduce_dedy_kernel
+};
+
+// dedy: (M, K), or nullptr when the layer below needs no gradient (the first
+// layer).  tc: the tensor-core form (tc_bwd_kernel: one launch, dedy summed in
+// the kernel, `part` unused), else the float32 one (bwd_kernel, and
+// reduce_dedy_kernel over `part`, bwd_scratch_floats of scratch, where dedy is
+// asked for).  gout: K*N + N floats for the gradient-out form (W is then only
+// read, and delta, b and db may be nullptr), or nullptr for the in-place
+// update.  *launched += what was launched.
 template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
                               TW* w, TD* delta, float* b, float* db, float* gout, float* part,
                               float* dedy, int deriv, int M, int K, int N, float mom, float A,
                               float Bc, uint32_t sr_key, int flags, bool tc,
-                              cudaStream_t stream) {
+                              BwdLaunched* launched, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
-  dim3 grid(bwd_n_tiles(N), (K + kBwdBK - 1) / kBwdBK);
   if (tc) {
-    tc_bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
-        dedx, yprev, in_mask, w, delta, b, db, gout, part, M, K, N, mom, A, Bc, sr_key, flags,
-        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N), vec_ok(gout, N));
-  } else {
-    bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
-        dedx, yprev, in_mask, w, delta, b, db, gout, part, M, K, N, mom, A, Bc, sr_key, flags,
-        vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N), vec_ok(gout, N));
+    const cudaError_t err = launch_tc_bwd(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
+                                          M, K, N, mom, A, Bc, sr_key, flags, stream);
+    if (err == cudaSuccess) launched->tc += 1;
+    return err;
   }
+  if ((part == nullptr) != (dedy == nullptr)) return cudaErrorInvalidValue;
+  dim3 grid(bwd_n_tiles(N), (K + kBwdBK - 1) / kBwdBK);
+  bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
+      dedx, yprev, in_mask, w, delta, b, db, gout, part, M, K, N, mom, A, Bc, sr_key, flags,
+      vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N), vec_ok(gout, N));
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || part == nullptr) return err;
+  if (err != cudaSuccess) return err;
+  launched->f32 += 1;
+  if (part == nullptr) return cudaSuccess;
   const long long total = (long long)M * K;
   const int blocks = (int)((total + 255) / 256 < 2048 ? (total + 255) / 256 : 2048);
   reduce_dedy_kernel<<<blocks, 256, 0, stream>>>(part, bwd_n_tiles(N), yprev, dedy, total, deriv);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) launched->reduce += 1;
+  return err;
 }
 
 }  // namespace sednn

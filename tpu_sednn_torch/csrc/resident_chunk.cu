@@ -17,10 +17,14 @@
 // fwd_sum_kernel; or tc_fwd_kernel alone; the input's mask is generated
 // while x is loaded, each hidden layer's mask in the epilogue of the layer
 // that feeds it, dedx in the last layer's epilogue) and the backward
-// launches (bwd_kernel + reduce_dedy_kernel, last layer first).  A single
-// stream keeps the two orders the update rule needs: dedy of layer l uses
-// W_l before its update (one kernel does both), and the forward of bunch i+1
-// sees W after bunch i.  No host synchronisation, no allocation.
+// launches, last layer first: tc_bwd_kernel alone (dedy summed inside the
+// kernel, across a thread-block cluster, with the derivative in its
+// epilogue), or bwd_kernel + reduce_dedy_kernel for float32 products.  So a
+// tensor-core bunch of L layers is 2L launches and the workspace holds no
+// dedy partials.  A single stream keeps the two orders the update rule
+// needs: dedy of layer l uses W_l before its update (one kernel does both),
+// and the forward of bunch i+1 sees W after bunch i.  No host
+// synchronisation, no allocation.
 //
 // Bound: per bunch 2 * 128 * K*N FLOP for each product: three a layer
 // (forward, gradient, dedy) but two for the first, which has no layer below
@@ -53,7 +57,7 @@
 //   the full bunch; dropout streams are keyed on the global tile index.
 // * its hbm_spill needs nothing here: the state is in device memory already.
 // * its bf16 products: the tensor-core forms of the two layer kernels
-//   (tc_fwd_kernel, tc_bwd_kernel), the same launches otherwise.
+//   (tc_fwd_kernel, tc_bwd_kernel), one launch each a layer.
 // * its data-parallel form (n_dev > 1, make_dp_resident_train_chunk): a
 //   rank trains its rows of every global tile and the gradient is summed
 //   over the ranks before the update, so the chunk cannot be one C call: the
@@ -89,9 +93,9 @@ Workspace plan_workspace(const int* sizes, int L, int bunch, bool tc) {
     off += (long long)bunch * sizes[l];
   }
   for (int l = 0; l <= L; ++l) max_w = sizes[l] > max_w ? sizes[l] : max_w;
-  for (int l = 0; l < L; ++l) {  // one scratch serves the forward's K chunks and the backward's N tiles
+  for (int l = 0; l < L; ++l) {  // one scratch serves the float32 forms' K chunks and N tiles
     const long long f = fwd_scratch_floats(bunch, sizes[l], sizes[l + 1], tc);
-    const long long p = l > 0 ? (long long)bwd_n_tiles(sizes[l + 1]) * bunch * sizes[l] : 0;
+    const long long p = l > 0 ? bwd_scratch_floats(bunch, sizes[l], sizes[l + 1], tc) : 0;
     max_part = f > max_part ? f : max_part;
     max_part = p > max_part ? p : max_part;
   }
@@ -205,17 +209,19 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
         const float* yprev = l == 0 ? xi : work + ws.ys[l];
         const unsigned sr_key =
             seed + (unsigned)i * kBunchStride + (unsigned)l * kLayerStride + 1u;
+        BwdLaunched done;
         const cudaError_t err = launch_bwd(
             dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l], nullptr,
-            l > 0 ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, tile, sizes[l],
-            sizes[l + 1], mom, A, Bc, sr_key, flags, tc, stream);
+            l > 0 && !tc ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, tile,
+            sizes[l], sizes[l + 1], mom, A, Bc, sr_key, flags, tc, &done, stream);
         if (err != cudaSuccess) return (int)err;
-        tallies[1] += 1;
-        tallies[9] += tc ? 1 : 0;
-        tallies[2] += l > 0 ? 1 : 0;
-        tallies[3] += (l == 0 && in_mask.mode) ? 1 : 0;
-        tallies[5] += kSr ? 1 : 0;
-        tallies[6] += accum > 1 ? 1 : 0;
+        const int products = done.tc + done.f32;
+        tallies[1] += products;
+        tallies[9] += done.tc;
+        tallies[2] += done.reduce;
+        tallies[3] += (l == 0 && in_mask.mode) ? products : 0;
+        tallies[5] += kSr ? products : 0;
+        tallies[6] += accum > 1 ? products : 0;
         float* tmp = dedx;
         dedx = other;
         other = tmp;
@@ -241,7 +247,8 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // (0 = no dropout there), scale_*: factor on kept elements.  Update: delta' =
 // mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
 // tallies[10] += launches of the forward and backward product kernels (either
-// form) and of reduce_dedy_kernel, the count of those that drew Philox masks,
+// form) and of reduce_dedy_kernel (float32 products only), the count of the
+// product launches that drew Philox masks,
 // launches of fwd_sum_kernel (float32-product layers whose K is split),
 // backward launches that rounded stochastically, backward launches of
 // row-tiled bunches, forward launches that read bfloat16 weights, forward and

@@ -55,7 +55,7 @@ import torch
 from tpu_sednn_torch._device import resolve_device
 from tpu_sednn_torch.model.mlp import MLP, ModelConfig, dropout_omits, mm_operand
 from tpu_sednn_torch.ops import _build
-from tpu_sednn_torch.ops.fused_mlp import ACTS
+from tpu_sednn_torch.ops.fused_mlp import ACTS, _check_tc_rows
 from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
                                         philox_mask, sr_bits, sr_to_bf16_reference)
 from tpu_sednn_torch.parallel.mesh import Mesh, all_reduce, fence, local_rows
@@ -68,8 +68,10 @@ _LAYER_STRIDE = 104729
 _mask_threshold = mask_threshold
 
 # kernel launches enqueued by the chunk trainer's C entry point, by kernel:
-# fwd_kernel, bwd_kernel, reduce_dedy_kernel, then the count of those launches
-# that drew dropout bits in the kernel, then fwd_sum_kernel (one for every
+# the forward and backward product kernels (either form), reduce_dedy_kernel
+# (float32 products only: the tensor-core backward sums dedy inside the
+# kernel), then the count of the product launches that drew dropout bits in
+# the kernel, then fwd_sum_kernel (one for every
 # float32-product forward whose K is split over the grid; the tensor-core
 # forward sums its K split inside the kernel); then by form: bwd_kernel launches
 # that stored bfloat16 with stochastic rounding, bwd_kernel launches of
@@ -433,6 +435,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
                                  f"on {a.device}")
         if targ_chunk.shape[0] < nr * bunch:
             raise ValueError("targ_chunk has fewer rows than n_real bunches")
+        _check_tc_rows(tile, bf16)
         lib = _lib()
         c_sizes = (ctypes.c_int * (L + 1))(*sizes)
         work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile, int(bf16)),
@@ -637,8 +640,10 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
         f32 = dict(dtype=torch.float32, device=dev)
         spare = torch.empty(tile * max(sizes), **f32)
         grad = torch.empty(max(sizes[l] * sizes[l + 1] + sizes[l + 1] for l in range(L)), **f32)
-        scratch = torch.empty(max([fused_lib().fused_bwd_scratch_floats(tile, sizes[l], sizes[l + 1])
-                                   for l in range(1, L)] + [1]), **f32)
+        # the float32 form's dedy partials; the tensor-core form sums dedy in the kernel
+        scratch = None if bf16 else torch.empty(
+            max([fused_lib().fused_bwd_scratch_floats(tile, sizes[l], sizes[l + 1], 0)
+                 for l in range(1, L)] + [1]), **f32)
         ws, ds, bs, dbs = (list(state.params.w), list(state.deltas.w), list(state.params.b),
                            list(state.deltas.b))
         tallies = (ctypes.c_longlong * len(kernel_launches))()
