@@ -46,7 +46,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      partial bunch, hyperparameters changed between calls; a deliberately
      wrong hyperparameter is refused; ops/train_step's per-bunch step against
      it.  The same cases with tensor-core products (TC_ONE_REL_FRO), faults
-     refused, the per-bunch step bit-equal; ms per bunch of both forms.
+     refused; the chunk trainer's chain of programmatic dependent launches
+     bit-equal to the standalone wrappers launched one by one (float32 state
+     and sr_delta, the same masks and rounding streams) and its `pdl` tally
+     at 2 L n_real - 1 a call; ms per bunch of both forms.
   8. training (main path): a seeded speech-like corpus -> noisy and clean LPS
      pfiles with make_pfile on the card (> 120,000 frames), then
      `python -m tpu_sednn_torch.cli` twice (momentum 0.5, then 0.54 warm
@@ -56,7 +59,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      never; the same two epochs with float32 products (run_epoch,
      bf16=False) end within TC_CV_FRACTION; engine=resident with float32
      products and with tensor cores against engine=xla with dropout off;
-     samples/s, ms per bunch, a profile of one full chunk.
+     samples/s, ms per bunch; one full chunk (800 bunches) trained twice
+     from the same state, bit for bit equal, the host's own cost a bunch
+     (100 bunches enqueued behind a spin kernel), and a trace of 200 bunches
+     with the device's busy time as the union of the kernels' intervals
+     (with programmatic dependent launches they overlap).
   9. stochastic rounding and the two standalone kernels (kernels group): the
      rounding device function bit-equal to its plain version on zeros,
      denormals, Inf, NaN, exact bfloat16 values and their neighbours, and
@@ -75,7 +82,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the unspilled run; a wrong hyperparameter given to the sr_delta or the
      sr_state trainer is refused; the tensor-core float32-state, sr_delta and
      sr_state forms against the float64 plain version of the same rounding,
-     faults refused; ms per bunch of each form beside its bound.
+     faults refused; ms per bunch of each form beside its bound.  Then
+     chain_times: the tensor-core chunk trainer at 8 kHz and 16 kHz sr_delta
+     timed whole, with the device alone and the host's own cost a bunch.
  11. in-memory training (main path, train group): a seeded corpus featurized
      at 16 kHz on the STFT kernel -> build_training_arrays (> 16,384 x 3084)
      -> train_epochs_arrays at 3084-2048x3-257, recipe schedule, parity
@@ -99,7 +108,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      8, 11, 12) is run with the counts zeroed just before it and read just
      after; `launches` is the total, `launches_by_path` the split.
 `--only serve,kernels,train,dp` runs a subset while developing: it prints no
-`kernels` line and no final line and exits with code 2.  The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
+`kernels` line and no final line and exits with code 2.  `--chain-times`
+only times the chunk trainer's chain (chain_times), with `--package-root
+DIR` the package of another checkout (A/B runs in one call); exits with 2.
+The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
 non-zero without one.
 """
 
@@ -146,6 +158,43 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 _SPIN = {}  # cycles of torch.cuda._sleep per millisecond, measured once
 
 
+def _spin_per_ms() -> float:
+    """Cycles of torch.cuda._sleep a millisecond on this card (measured once)."""
+    if not _SPIN:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN["per_ms"] = 20_000_000 / start.elapsed_time(end)
+    return _SPIN["per_ms"]
+
+
+def _host_ms(fn) -> float:
+    """The host's own time of fn(), by the host clock, while a spin kernel
+    holds the card: no launch waits for the device or for a free slot of
+    CUDA's launch queue (fn must enqueue fewer launches than the queue holds,
+    about 1,024).  A run whose spin ended first is taken again, spinning longer."""
+    fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.Event()
+    spin_ms, host = 50.0, 0.0
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_ms * _spin_per_ms()))
+        held.record()
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        in_time = not held.query()
+        torch.cuda.synchronize()
+        if in_time:
+            return host
+        spin_ms *= 4.0
+    _check(False, f"the host took longer than a {spin_ms / 4.0:.0f} ms spin to enqueue "
+                  f"({host:.1f} ms)")
+
+
 def _device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     """Mean device time of fn(i), i = 0..reps-1, with the host's time per call
     left out: a spin kernel holds the card while all `reps` calls are
@@ -159,12 +208,7 @@ def _device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         fn(i)
     torch.cuda.synchronize()
     start, end, held = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    if not _SPIN:
-        start.record()
-        torch.cuda._sleep(20_000_000)
-        end.record()
-        end.synchronize()
-        _SPIN["per_ms"] = 20_000_000 / start.elapsed_time(end)
+    _spin_per_ms()
     t0 = time.perf_counter()
     fn(warmup)
     hold_ms = 2.0 * reps * (time.perf_counter() - t0) * 1e3 + 1.0
@@ -911,9 +955,23 @@ def phase_tc_kernels(gen) -> dict:
           "sums dedy; stripes of W's rows; their rows) with a row of bias blocks beside: "
           + "; ".join(f"{k}: {v['split']} x {v['stripes']} of {v['rows']}" for k, v in plans.items()),
           flush=True)
+    # whether a block of the chunk trainer's next launch can start beside one of the
+    # launch before it (programmatic dependent launches): by shared memory (each block
+    # also reserves 1 KB)
+    smem = (ctypes.c_int * 5)()
+    fused_lib().fused_tc_smem_bytes(smem)
+    per_sm = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_multiprocessor", 0)
+    pairs = {f"{a} + {b}": smem[i] + smem[j] + 2048 <= per_sm
+             for a, b, i, j in (("fwd", "fwd", 1, 1), ("fwd", "bwd", 1, 4), ("bwd", "bwd", 4, 4))}
+    print(f"[kernel] dynamic shared memory a block: tc_fwd_kernel {smem[0]} / {smem[1]} bytes (128- "
+          f"/ 64-column slices), tc_bwd_kernel {smem[2]} / {smem[3]} / {smem[4]} bytes (stripes of "
+          f"64 / 32 / 16 rows); an SM holds {per_sm}: the smallest of each pair fit one SM "
+          f"together: {pairs}", flush=True)
 
     fwd, bwd = _time_layers(gen, True, worst, worst)
     bwd["plans"] = plans
+    bwd["smem_bytes"] = dict(fwd_128=smem[0], fwd_64=smem[1], bwd_64=smem[2], bwd_32=smem[3],
+                             bwd_16=smem[4], per_sm=per_sm, fit_together=pairs)
     torch.cuda.empty_cache()
     # a generator of its own: the later phases draw the inputs they always drew
     fwd["at_16k"], bwd["at_16k"] = _time_layers(torch.Generator(device="cuda").manual_seed(16000),
@@ -1010,6 +1068,39 @@ def _update_errors(got, want, init) -> list:
         err = torch.linalg.vector_norm(g.double() - w.double())
         out.append(float(err / torch.linalg.vector_norm(dw).clamp(min=1e-30)))
     return out
+
+
+def _sr_delta_steps(state, x, t, opt, seed: int, n_b: int):
+    """n_b bunches of the sr_delta chunk trainer (1548-2048x3-129, relu, parity
+    dropout 0.1/0.2, tensor cores) stepped through the standalone wrappers
+    fused_linear_act and fused_bwd_update, which never take the programmatic
+    dependent launch attribute: the trainer's masks (sample_resident_masks)
+    and stochastic-rounding streams (resident_chunk.sr_key).  In place."""
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_update, fused_linear_act
+
+    rc._cast_state(state, torch.float32, torch.bfloat16)
+    ws, bs, dws, dbs = state.params.w, state.params.b, state.deltas.w, state.deltas.b
+    L = len(ws)
+    for i in range(n_b):
+        xi, ti = x[i * BUNCH:(i + 1) * BUNCH], t[i * BUNCH:(i + 1) * BUNCH]
+        masks = [rc.sample_resident_masks(seed, i, l, (BUNCH, FLAGSHIP[l]), 0.1 if l == 0 else 0.2)
+                 for l in range(L)]
+        ys, h = [xi], xi
+        for l in range(L):
+            last = l == L - 1
+            h = fused_linear_act(h, ws[l], bs[l], act="linear" if last else "relu",
+                                 in_mask=masks[0] if l == 0 else None,
+                                 out_mask=None if last else masks[l + 1])
+            ys.append(h)
+        dedx = (2.0 / BUNCH) * (h - ti)
+        for l in range(L - 1, -1, -1):
+            _, _, dedx, _, _ = fused_bwd_update(
+                dedx.contiguous(), ys[l], ws[l], dws[l], bs[l], dbs[l], opt.momentum, opt.lrate,
+                1.0 / BUNCH, opt.weightcost, in_mask=masks[0] if l == 0 else None,
+                deriv="relu" if l > 0 else None, sr_seed=rc.sr_key(seed, i, l))
+        state.step += 1
+    return state
 
 
 def phase_resident(gen) -> dict:
@@ -1223,23 +1314,41 @@ def phase_resident(gen) -> dict:
                                     f"limit: {m1:.3g}")
         print(f"[kernel] tensor-core chunk trainer with {label} (a deliberate fault) is refused: "
               f"update off by {m1:.3g} after one bunch (tol {TC_ONE_REL_FRO})", flush=True)
-    # the per-bunch step launches the same tensor-core kernels one by one: the same bits
+    # the chunk trainer's chain of programmatic dependent launches against the same
+    # kernels launched one by one through the standalone wrappers, which never take the
+    # attribute (ops.train_step's per-bunch step; for sr_delta the wrappers with the
+    # trainer's rounding streams), with the trainer's masks: the same bits, so no launch
+    # of the chain read an operand before it was written (a race would show here); and
+    # the chain's dependent launches counted: every launch of a call but its first
     cfg_d = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
-    chunk_tc = rc.make_resident_train_chunk(cfg_d, opt)(init_train_state(mlp), x[:n_b * BUNCH],
-                                                        t_lin[:n_b * BUNCH], 17, *hyp)
-    st_s = init_train_state(mlp)
-    for i in range(n_b):
-        masks = [rc.sample_resident_masks(17, i, l, (BUNCH, FLAGSHIP[l]), 0.1 if l == 0 else 0.2)
-                 for l in range(4)]
-        fused_train_step(st_s, x[i * BUNCH:(i + 1) * BUNCH], t_lin[i * BUNCH:(i + 1) * BUNCH],
-                         cfg_d, opt, dropout_masks=masks)
-    torch.cuda.synchronize()
-    for a, b in zip(_state_tensors(st_s), _state_tensors(chunk_tc)):
-        _check(torch.equal(a, b), "tensor cores: ops.train_step.fused_train_step differs from the "
-                                  "chunk trainer")
-    print(f"[kernel] chunk trainer, tensor cores: ops.train_step's per-bunch step (bf16=True, "
-          f"explicit masks) gives the same bits over {n_b} bunches; worst update error of any "
-          f"tensor {tc_worst['rel_fro']:.3g} after 3 bunches (tol {TC_THREE_REL_FRO}), "
+    for label, kw, steps in (("float32 state", {}, "ops.train_step"),
+                             ("sr_delta", dict(sr_delta=True), "fused_linear_act and "
+                              "fused_bwd_update with its rounding streams")):
+        pdl0 = rc.kernel_launches["pdl"]
+        chunk_tc = rc.make_resident_train_chunk(cfg_d, opt, **kw)(
+            init_train_state(mlp), x[:n_b * BUNCH], t_lin[:n_b * BUNCH], 17, *hyp)
+        n_pdl = rc.kernel_launches["pdl"] - pdl0
+        _check(n_pdl == 2 * 4 * n_b - 1, f"tensor cores, {label}: {n_pdl} programmatic dependent "
+                                          f"launches in a call of {n_b} bunches, not {8 * n_b - 1}")
+        st_s = init_train_state(mlp)
+        if kw:
+            _sr_delta_steps(st_s, x, t_lin, opt, 17, n_b)
+        else:
+            for i in range(n_b):
+                masks = [rc.sample_resident_masks(17, i, l, (BUNCH, FLAGSHIP[l]),
+                                                  0.1 if l == 0 else 0.2) for l in range(4)]
+                fused_train_step(st_s, x[i * BUNCH:(i + 1) * BUNCH],
+                                 t_lin[i * BUNCH:(i + 1) * BUNCH], cfg_d, opt, dropout_masks=masks)
+        torch.cuda.synchronize()
+        for a, b in zip(_state_tensors(st_s), _state_tensors(chunk_tc)):
+            _check(torch.equal(a, b), f"tensor cores, {label}: the standalone wrappers' steps "
+                                      f"differ from the chunk trainer")
+        print(f"[kernel] chunk trainer, tensor cores, {label}: its chain ({n_pdl} programmatic "
+              f"dependent launches in {n_b} bunches) gives the same bits as the standalone "
+              f"wrappers launched one by one ({steps}; explicit masks) over {n_b} bunches",
+              flush=True)
+    print(f"[kernel] chunk trainer, tensor cores: worst update error of any tensor "
+          f"{tc_worst['rel_fro']:.3g} after 3 bunches (tol {TC_THREE_REL_FRO}), "
           f"{tc_worst['one']:.3g} after one (tol {TC_ONE_REL_FRO})", flush=True)
 
     # ms per bunch: 100 bunches of dropout training in one call
@@ -1280,6 +1389,50 @@ def phase_resident(gen) -> dict:
                        rel_fro_err_one_bunch=w["one"], shape=f"{BUNCH} x 1548-2048x3-129, per bunch")
     return out
 
+
+
+def chain_times(tag: str = "chain") -> dict:
+    """The tensor-core chunk trainer's chain of launches timed three ways: at
+    8 kHz (1548-2048x3-129, parity dropout 0.1/0.2, 100 bunches a call) and
+    at 16 kHz with sr_delta (3084-2048x3-257, 50 bunches), the two forms the
+    command and the in-memory path run.  ms: CUDA events around whole calls,
+    in turns with the other form (the trainer's time a bunch, as the kernels
+    line gives it); device_ms: the same calls enqueued behind a spin kernel,
+    so the host's share is hidden; host_ms: the host's own time a bunch to
+    enqueue them, by the host clock, with the launch queue never full.  Uses
+    the package's public entry points only, so that another checkout of it
+    can be timed by this script (--chain-times --package-root DIR)."""
+    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.train.step import OptConfig, init_train_state
+
+    opt = OptConfig(lrate=1.0, momentum=0.5, weightcost=1e-5, bunchsize=BUNCH)
+    small = (1e-3, 0.5, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    forms = {}
+    for name, sizes, n_t, kw in (("8k", FLAGSHIP, 100, {}), ("16k_sr_delta", WIDE, 50,
+                                                            dict(sr_delta=True))):
+        cfg = ModelConfig(layersizes=sizes, dropout_vis=0.1, dropout_hid=0.2)
+        mlp = init_params(torch.Generator().manual_seed(5), cfg, scheme="glorot", device="cuda")
+        run = rc.make_resident_train_chunk(cfg, opt, **kw)
+        xt, tt = _randn(gen, n_t * BUNCH, sizes[0]), _randn(gen, n_t * BUNCH, sizes[-1])
+        forms[name] = (run, init_train_state(mlp), xt, tt, n_t)
+    ms = {name: [] for name in forms}
+    for name in list(forms) + list(reversed(forms)):  # in turns
+        run, st, xt, tt, n_t = forms[name]
+        ms[name].append(_time_ms(lambda: run(st, xt, tt, 3, *small), reps=3, warmup=1) / n_t)
+    out = {}
+    for name, (run, st, xt, tt, n_t) in forms.items():
+        dev = _device_ms(lambda i: run(st, xt, tt, 3 + i, *small), reps=1, warmup=1) / n_t
+        host = _host_ms(lambda: run(st, xt, tt, 7, *small)) / n_t
+        out[name] = dict(ms=float(np.mean(ms[name])), ms_runs=ms[name], device_ms=dev,
+                         host_ms=host, bunches=n_t)
+        print(f"[{tag}] chunk trainer, tensor cores, {name}: {out[name]['ms']:.4f} ms a bunch "
+              f"({' '.join(f'{v:.4f}' for v in ms[name])}; CUDA events around calls of {n_t} "
+              f"bunches), device alone {dev:.4f} ms a bunch (the calls held behind a spin kernel), "
+              f"the host's own cost {host:.4f} ms a bunch ({host / dev:.2f} of the device's)",
+              flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2225,10 +2378,14 @@ def phase_train(tmp: str, smi: str) -> dict:
                and k["fused_bwd_update"] == 4 * n_bunches and k["reduce_dedy"] == 0
                and k["philox_mask"] == 4 * n_bunches,
                f"{label}: kernel launches {k} for {n_bunches} bunches")
-        # engine=auto on the card: the tensor-core forms, every launch
+        # engine=auto on the card: the tensor-core forms, every launch; each chunk's
+        # launches but its first programmatic dependent ones
         _check(k["tc_linear_act"] == k["fused_linear_act"]
                and k["tc_bwd_update"] == k["fused_bwd_update"],
                f"{label}: engine=auto did not run the tensor-core forms: {k}")
+        _check(k["pdl"] == 8 * n_bunches - n_chunks,
+               f"{label}: {k['pdl']} programmatic dependent launches, not 8 x {n_bunches} bunches "
+               f"- {n_chunks} chunks")
     for label, d in (("float32 epoch 1", d1_f), ("float32 epoch 2", d2_f)):
         # per bunch: 4 fwd_kernel each with its fwd_sum_kernel (the float32 form
         # splits K over the grid at every flagship layer), 4 bwd_kernel and 3
@@ -2237,7 +2394,7 @@ def phase_train(tmp: str, smi: str) -> dict:
         _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
                and k["reduce_dedy"] == 3 * n_bunches
                and k["fused_linear_act"] == k["fused_linear_act_sum"] == 4 * n_bunches
-               and k["tc_linear_act"] == k["tc_bwd_update"] == 0,
+               and k["tc_linear_act"] == k["tc_bwd_update"] == k["pdl"] == 0,
                f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
     times = [float(l.split()[3]) for l in (log1 + log2).splitlines()
              if l.startswith("Total cost time:")]
@@ -2247,6 +2404,8 @@ def phase_train(tmp: str, smi: str) -> dict:
           f"{times[0]:.1f} s and {times[1]:.1f} s = {n_samples / times[0]:.0f} and "
           f"{n_samples / times[1]:.0f} samples/s; command wall {wall1:.1f} s and {wall2:.1f} s incl. "
           f"start-up; chunk trainer launched {c1['resident_chunk']} + {c2['resident_chunk']} times, "
+          f"its kernels {c1['resident_chunk_kernels']['pdl']} + "
+          f"{c2['resident_chunk_kernels']['pdl']} times as programmatic dependent launches, "
           f"plain trainer 0 times; the same two epochs with float32 products (run_epoch, "
           f"bf16=False): CV MSE {cv1_f:.6f} -> {cv2_f:.6f}, final CV {tc_frac:.3g} apart (limit "
           f"{TC_CV_FRACTION})", flush=True)
@@ -2266,8 +2425,9 @@ def phase_train(tmp: str, smi: str) -> dict:
         "xla")
     k_r, k_t = c_r["resident_chunk_kernels"], c_t["resident_chunk_kernels"]
     _check(c_r["resident_chunk"] == c_t["resident_chunk"] == 1 and c_r["plain_train_chunk"] == 0
-           and c_t["plain_train_chunk"] == 0 and k_r["tc_bwd_update"] == 0
+           and c_t["plain_train_chunk"] == 0 and k_r["tc_bwd_update"] == k_r["pdl"] == 0
            and k_t["tc_bwd_update"] == k_t["fused_bwd_update"] > 0
+           and k_t["pdl"] == k_t["tc_linear_act"] + k_t["tc_bwd_update"] - 1
            and c_x["resident_chunk"] == 0 and c_x["plain_train_chunk"] == 1,
            f"engines: resident runs {c_r}, {c_t}, xla run {c_x}")
     w_x, b_x = load_wts(f"{tmp}/xla.wts", layersizes=list(FLAGSHIP))
@@ -2315,10 +2475,28 @@ def phase_train(tmp: str, smi: str) -> dict:
                 by_form=by_form, **prof)
 
 
+def _kernel_spans(prof) -> list:
+    """(start, end) in microseconds of every kernel a torch.profiler trace holds,
+    sorted: from its events, else from its Chrome trace."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    if not spans:
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            with open(f"{tmp}/trace.json") as f:
+                events = json.load(f).get("traceEvents", [])
+        spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") == "kernel" and float(e.get("dur", 0)) > 0]
+    return sorted(spans)
+
+
 def _profile_chunk(corpus: dict, train_range: str) -> dict:
     """One full chunk (800 bunches) in this process, as train_epoch_pfile
     runs it: host read, host->device copy, on-device splice, chunk trainer —
-    timed, then the trainer traced by torch.profiler."""
+    timed twice from the same state (bit for bit equal), the host's own cost a
+    bunch, then 200 bunches of the trainer traced by torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2328,7 +2506,7 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     from tpu_sednn_torch.data.rand48 import Rand48
     from tpu_sednn_torch.io import load_norm, read_pfile_info
     from tpu_sednn_torch.model.mlp import init_params
-    from tpu_sednn_torch.ops.resident_chunk import make_resident_train_chunk
+    from tpu_sednn_torch.ops.resident_chunk import kernel_launches, make_resident_train_chunk
     from tpu_sednn_torch.train.loop import _to_device
     from tpu_sednn_torch.train.step import OptConfig, init_train_state
 
@@ -2340,7 +2518,7 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     t0 = time.perf_counter()
     item = read_chunk_indexed(fea_info, targ_info, plan, 0, 11, mean, istd, Rand48(1),
                               frames_cap=caps[0], samples_cap=caps[1], seg_cap=caps[2])
-    host_ms = (time.perf_counter() - t0) * 1e3
+    host_read_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dev_item = [_to_device(a, torch.device("cuda", 0)) for a in item[:6]]
@@ -2355,69 +2533,121 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     cfg = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
     opt = OptConfig(lrate=0.1, momentum=0.5, weightcost=0.0, bunchsize=BUNCH)
     run = make_resident_train_chunk(cfg, opt)  # tensor-core products, as engine=auto runs it
-    state = init_train_state(init_params(torch.Generator().manual_seed(0), cfg, device="cuda"))
+
+    def fresh():
+        return init_train_state(init_params(torch.Generator().manual_seed(0), cfg, device="cuda"))
+
+    def pdl_of(fn):
+        """fn()'s programmatic dependent launches, by the trainer's tally."""
+        before = kernel_launches["pdl"]
+        fn()
+        return kernel_launches["pdl"] - before
+
+    state = fresh()
     run(state, x, t, 1, opt.lrate, opt.momentum, opt.weightcost, n_real=8)  # warm-up
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(state, x, t, 2, opt.lrate, opt.momentum, opt.weightcost, n_real=n_real)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    train_ms = (time.perf_counter() - t0) * 1e3
+    # the whole chunk twice from the same state: bit for bit the same (no launch of the
+    # chain reads an operand before it is written, or the bits would vary from run to run)
+    states, train_runs = [], []
+    for _ in range(2):
+        st = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_pdl = pdl_of(lambda: run(st, x, t, 2, opt.lrate, opt.momentum, opt.weightcost,
+                                   n_real=n_real))
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        train_runs.append((time.perf_counter() - t0) * 1e3)
+        _check(n_pdl == 8 * n_real - 1, f"a chunk of {n_real} bunches: {n_pdl} programmatic "
+                                         f"dependent launches, not {8 * n_real - 1}")
+        states.append(st)
+    for a, b in zip(_state_tensors(states[0]), _state_tensors(states[1])):
+        _check(torch.equal(a, b), f"two runs of a chunk of {n_real} bunches from the same state "
+                                  f"differ")
+    train_ms = min(train_runs)
+    # the host's own cost a bunch: 100 bunches enqueued behind a spin kernel, by the host clock
+    n_host = 100
+    host_ms = _host_ms(lambda: run(state, x, t, 4, opt.lrate, opt.momentum, opt.weightcost,
+                                   n_real=n_host)) / n_host
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # The tracer can lose records (a few at the end of a trace, at times most
-    # of them), so a trace is kept when it holds 99.9% of the launches the
-    # trainer tallied; else it is taken again, three times at most, and the
-    # fullest is shown with what it lacks.  The trace is a measurement: the
-    # times above stand without it.
-    from tpu_sednn_torch.ops.resident_chunk import kernel_launches
-
-    best = None
-    for attempt in range(3):
+    # The trace: 200 bunches (1,600 launches).  The tracer can lose a few kernels'
+    # records, so a trace is taken again, five times at most, until it holds every
+    # launch, and the fullest is shown with what it lacks.  With programmatic dependent
+    # launches kernels overlap (a launch's blocks start, and wait, while the launch
+    # before it finishes), so the device is busy for the union of the kernels'
+    # intervals, not for the sum of their times.  A lost record can only hide busy
+    # time: from an incomplete trace the idle shares are upper bounds.
+    n_trace, best = 200, None
+    for attempt in range(5):
         before = dict(kernel_launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run(state, x, t, 3 + attempt, opt.lrate, opt.momentum, opt.weightcost, n_real=n_real)
+            run(state, x, t, 5 + attempt, opt.lrate, opt.momentum, opt.weightcost, n_real=n_trace)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
         # the kernels launched: the two product kernels and the two second kernels (the
         # other keys count subsets of these by form)
         launched = sum(kernel_launches[k] - before[k] for k in
                        ("fused_linear_act", "fused_bwd_update", "fused_linear_act_sum", "reduce_dedy"))
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                         key=lambda e: -dev_us(e))
-        traced = sum(e.count for e in kernels)
-        if best is None or traced > best[0]:
-            best = (traced, kernels, traced_ms)
-        if traced >= 0.999 * launched:
+        spans = _kernel_spans(prof)
+        if best is None or len(spans) > len(best[0]):
+            kernels = sorted((e for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                             key=lambda e: -dev_us(e))
+            best = (spans, kernels, traced_ms, attempt)
+        if len(spans) >= launched:
             break
-    traced, kernels, traced_ms = best
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    total = host_ms + h2d_ms + splice_ms + train_ms
+    spans, kernels, traced_ms, attempt = best
+    union_us, overlap_us, reach = 0.0, 0.0, None
+    for a, b in spans:  # sorted by start
+        if reach is None or a > reach:
+            union_us += b - a
+            reach = b
+        else:
+            union_us += max(b - reach, 0.0)
+            overlap_us += min(b, reach) - a
+            reach = max(reach, b)
+    busy_ms, sum_ms = union_us / 1e3, sum(b - a for a, b in spans) / 1e3
+    span_ms = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    complete = len(spans) >= launched
+    total = host_read_ms + h2d_ms + splice_ms + train_ms
     print(f"[train] one full chunk in process ({item[6]} samples, {n_real} bunches): host read + "
-          f"index tables {host_ms:.1f} ms, host->device {h2d_mb:.0f} MB in {h2d_ms:.1f} ms "
+          f"index tables {host_read_ms:.1f} ms, host->device {h2d_mb:.0f} MB in {h2d_ms:.1f} ms "
           f"({100 * h2d_ms / total:.2f}% of the chunk's {total:.0f} ms when nothing overlaps), "
           f"on-device splice {splice_ms:.1f} ms, chunk trainer {train_ms:.1f} ms = "
-          f"{train_ms / n_real:.4f} ms per bunch, {n_real * BUNCH / train_ms * 1e3:.0f} samples/s "
-          f"(its launches enqueued in {enqueue_ms:.1f} ms)", flush=True)
-    complete = traced >= 0.999 * launched
-    print(f"[train] profile of that chunk's trainer (trace {attempt + 1}, {traced} of {launched} "
-          f"kernel launches in it{'' if complete else ': INCOMPLETE, idle share not measured'}): "
-          f"traced {traced_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / traced_ms:.1f}%), idle {max(traced_ms - busy_ms, 0):.1f} ms "
-          f"({100 * max(traced_ms - busy_ms, 0) / traced_ms:.1f}%)")
+          f"{train_ms / n_real:.4f} ms per bunch ({' '.join(f'{v:.1f}' for v in train_runs)} ms, two "
+          f"runs from the same state, bit for bit equal; {n_pdl} programmatic dependent launches "
+          f"each), {n_real * BUNCH / train_ms * 1e3:.0f} samples/s; its launches enqueued in "
+          f"{enqueue_ms:.1f} ms ({enqueue_ms / n_real:.4f} ms a bunch, held back by CUDA's launch "
+          f"queue), the host's own cost {host_ms:.4f} ms a bunch ({n_host} bunches enqueued behind "
+          f"a spin kernel)", flush=True)
+    print(f"[train] profile of {n_trace} bunches of that chunk's trainer (trace {attempt + 1}, "
+          f"{len(spans)} of {launched} kernel launches in it"
+          f"{'' if complete else ': records lost, so the idle shares are upper bounds'}): "
+          f"traced {traced_ms:.1f} "
+          f"ms wall, kernels from the first's start to the last's end {span_ms:.1f} ms, device "
+          f"busy (the union of the kernels' intervals) {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / traced_ms:.1f}% of the wall ({100 * busy_ms / max(span_ms, 1e-9):.1f}% "
+          f"of the span), idle {100 * max(traced_ms - busy_ms, 0) / traced_ms:.1f}% of the wall "
+          f"({100 * max(span_ms - busy_ms, 0) / max(span_ms, 1e-9):.1f}% of the span); the "
+          f"kernels' times sum to {sum_ms:.1f} ms, {overlap_us / 1e3:.1f} ms of it overlapping")
     shares = {}
-    for e in kernels[:6] if busy_ms > 0 else []:
-        shares[e.key[:60]] = dev_us(e) / 1e3 / busy_ms
-        print(f"[train]   {dev_us(e) / 1e3:8.2f} ms ({100 * dev_us(e) / 1e3 / busy_ms:4.1f}%) "
-              f"x{e.count:<5d} {e.key[:90]}")
+    for e in kernels[:6] if sum_ms > 0 else []:
+        shares[e.key[:60]] = dev_us(e) / 1e3 / sum_ms
+        print(f"[train]   {dev_us(e) / 1e3:8.2f} ms ({100 * dev_us(e) / 1e3 / sum_ms:4.1f}% of the "
+              f"sum) x{e.count:<5d} {e.key[:90]}")
     return dict(chunk_ms_per_bunch=train_ms / n_real, chunk_samples_per_s=n_real * BUNCH / train_ms * 1e3,
-                h2d_ms=h2d_ms, h2d_share=h2d_ms / total, host_ms=host_ms, splice_ms=splice_ms,
-                idle_share=max(traced_ms - busy_ms, 0) / traced_ms if complete else None,
-                trace_launches=[traced, launched], kernel_shares=shares)
+                chunk_runs_ms=train_runs, chunk_pdl_launches=n_pdl,
+                enqueue_ms_per_bunch=enqueue_ms / n_real, host_ms_per_bunch=host_ms,
+                h2d_ms=h2d_ms, h2d_share=h2d_ms / total, host_ms=host_read_ms, splice_ms=splice_ms,
+                idle_share=max(traced_ms - busy_ms, 0) / traced_ms if spans else None,
+                idle_share_of_span=max(span_ms - busy_ms, 0) / span_ms if spans else None,
+                idle_shares_are_upper_bounds=not complete,
+                overlap_ms=overlap_us / 1e3, trace_launches=[len(spans), launched],
+                trace_bunches=n_trace, kernel_shares=shares)
 
 
 # ---------------------------------------------------------------------------
@@ -3216,7 +3446,15 @@ def main(argv=None) -> int:
                     "(for development: prints no kernels line and no final line, exits with 2)")
     ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "WORLD", "DIR"),
                     help="one rank of the dp phase's runs (started by the dp phase itself)")
+    ap.add_argument("--chain-times", action="store_true",
+                    help="only build and time the tensor-core chunk trainer's chain (chain_times; "
+                         "prints no final line, exits with 2)")
+    ap.add_argument("--package-root", default="",
+                    help="import tpu_sednn_torch from this directory, e.g. an unpacked checkout "
+                         "of another commit, to time it with --chain-times beside this one")
     args = ap.parse_args(argv)
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     everything = {"serve", "kernels", "train", "dp"}
     groups = set(filter(None, args.only.split(","))) or everything
     if not groups <= everything:
@@ -3232,6 +3470,14 @@ def main(argv=None) -> int:
         return dp_worker(int(args.dp_worker[0]), int(args.dp_worker[1]), args.dp_worker[2])
     t_start = time.perf_counter()
     smi = phase_device()
+    if args.chain_times:
+        import tpu_sednn_torch
+
+        times = chain_times()
+        print(smi)
+        print(json.dumps({"chain_times": times,
+                          "package": os.path.dirname(tpu_sednn_torch.__file__)}))
+        return 2
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3252,6 +3498,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             sr = phase_sr(gen)
             wide = phase_resident_wide()
+            torch.cuda.empty_cache()
+            chains = chain_times()
             torch.cuda.empty_cache()
         if "train" in groups:
             train = phase_train(tmp, smi)
@@ -3288,6 +3536,11 @@ def main(argv=None) -> int:
                     ("fused_bwd_update (tensor cores)", akc["tc_bwd_update"]),
                     ("philox_mask", akc["philox_mask"]), ("stft_lps", ac["stft_lps"])):
         _check(n > 0, f"the in-memory training path never launched the {name} kernel")
+    # every tensor-core launch of a call but its first is a programmatic dependent one
+    tc_calls = forms["tc_sr_delta"] + forms["tc_sr_state"]
+    _check(0 < akc["pdl"] <= akc["tc_linear_act"] + akc["tc_bwd_update"] - tc_calls,
+           f"the in-memory path's programmatic dependent launches: {akc['pdl']} of "
+           f"{akc['tc_linear_act'] + akc['tc_bwd_update']} tensor-core launches in {tc_calls} calls")
     # the data-parallel path: the command on 2 ranks and the ranks' pfile epochs (rank 0's
     # counts, each run's zeroed just before it)
     dp_runs = dict(cmd=dp["cmd"]["counts"], **{k: e["counts"] for k, e in dp["epochs"].items()})
@@ -3399,7 +3652,11 @@ def main(argv=None) -> int:
              launches_of="chunk-trainer calls with tensor-core products and float32 state "
                          "(bf16=True: engine=auto on the card)",
              at_16k=wide["timing"]["tc_f32"],
-             ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"], **resident[True],
+             ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"],
+             pdl_launches=kc["pdl"] + akc["pdl"],
+             pdl_launches_of="the chain's programmatic dependent launches on the training paths "
+                             "(every tensor-core launch of a call but its first)",
+             host_ms_per_bunch=train["host_ms_per_bunch"], chain_times=chains, **resident[True],
              route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",
              replaces="tpu_sednn/ops/resident_chunk.py:970",

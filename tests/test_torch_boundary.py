@@ -52,9 +52,10 @@ def test_kernel_sources_are_listed_with_their_headers(name):
     files = {p.name for p in _build.source_files(name)}
     want = {"sr_update": {"sr_round.cuh", "philox.cuh", "vec4.cuh"},
             "dropout_mask": {"philox.cuh"},
-            "fused_mlp": {"fused_mlp.cuh", "mma_bf16.cuh", "sr_round.cuh", "philox.cuh", "vec4.cuh"},
-            "resident_chunk": {"fused_mlp.cuh", "mma_bf16.cuh", "sr_round.cuh", "philox.cuh",
-                               "vec4.cuh"},
+            "fused_mlp": {"fused_mlp.cuh", "mma_bf16.cuh", "pdl.cuh", "sr_round.cuh",
+                          "philox.cuh", "vec4.cuh"},
+            "resident_chunk": {"fused_mlp.cuh", "mma_bf16.cuh", "pdl.cuh", "sr_round.cuh",
+                               "philox.cuh", "vec4.cuh"},
             "stft_lps": set(), "rank_sum": set()}[name]
     assert files == want | {f"{name}.cu"}
     assert _build.library_path(name).parent == _build.BUILD_DIR

@@ -215,7 +215,8 @@ def test_fused_step_with_dropout_matches_plain_step(mode):
 
 def test_kernel_library_hash_covers_included_headers(tmp_path, monkeypatch):
     names = {p.name for p in _build.source_files("resident_chunk")}
-    headers = {"fused_mlp.cuh", "mma_bf16.cuh", "philox.cuh", "sr_round.cuh", "vec4.cuh"}
+    headers = {"fused_mlp.cuh", "mma_bf16.cuh", "pdl.cuh", "philox.cuh", "sr_round.cuh",
+               "vec4.cuh"}
     assert names == {"resident_chunk.cu"} | headers
     assert {p.name for p in _build.source_files("fused_mlp")} == {"fused_mlp.cu"} | headers
     assert [p.name for p in _build.source_files("stft_lps")] == ["stft_lps.cu"]

@@ -80,6 +80,18 @@ extern "C" int fused_bwd_tc_plan(int M, int K, int N, int with_dedy, int* out) {
   return (int)tc_bwd_plan<float, float>(M, K, N, with_dedy != 0, out);
 }
 
+// The dynamic shared memory a block of each tensor-core kernel asks for, in
+// bytes: out[0], out[1] tc_fwd_kernel with 128- and 64-column slices (float32
+// W); out[2..4] tc_bwd_kernel with stripes of 64, 32, 16 rows (float32 W and
+// Delta).  Whether two such blocks can share an SM follows from these.
+extern "C" void fused_tc_smem_bytes(int* out) {
+  out[0] = (int)sizeof(TcFwdTile<float, 128>::Smem) + 128;
+  out[1] = (int)sizeof(TcFwdTile<float, 64>::Smem) + 128;
+  out[2] = (int)sizeof(TcBwdTile<float, float, 64>::Smem) + 128;
+  out[3] = (int)sizeof(TcBwdTile<float, float, 32>::Smem) + 128;
+  out[4] = (int)sizeof(TcBwdTile<float, float, 16>::Smem) + 128;
+}
+
 // In place: delta' = mom*delta - (A*G + Bc*w), w' = w + delta', G = yprev^T @ dedx;
 // db' = mom*db - A*sum_rows(dedx), b' = b + db'.  dedy (M, K) = dedx @ w^T with
 // w BEFORE the update, times the derivative `deriv` (0 none, 1 relu, 2 sigmoid)

@@ -79,6 +79,7 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "pdl.cuh"
 #include "philox.cuh"
 #include "sr_round.cuh"
 #include "vec4.cuh"
@@ -365,6 +366,12 @@ __device__ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes) : "memory");
 }
+// expects `bytes` more on the barrier's phase without arriving: the first half of a
+// slot whose arrival comes with its second half
+__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
 __device__ inline void mbar_wait(uint64_t* bar, int parity) {
   asm volatile(
       "{\n.reg .pred P1;\nLAB_WAIT:\n"
@@ -382,6 +389,11 @@ __device__ inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, in
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar)) : "memory");
 }
 
+// the tensor map's descriptor into the cache ahead of the first copy
+__device__ inline void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 __device__ inline float4 widen4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ inline float4 widen4(const bf16_t* p) {
   const uint2 r = *reinterpret_cast<const uint2*>(p);
@@ -391,12 +403,16 @@ __device__ inline float4 widen4(const bf16_t* p) {
 
 // x_tma / w_tma: the operand goes by tensor copies (tmx, tmw), else by
 // cp.async: 4-byte copies for float32 (x when K % 4 != 0, W when N % 4 != 0),
-// registers for bfloat16 W at an odd N.
+// registers for bfloat16 W at an odd N.  early (pdl.cuh): with kEarlyW the
+// W half of the first kTcFwdStages - 1 steps is loaded before
+// griddepcontrol.wait, beside the mbarriers' set-up; x and every store come
+// after it.
 template <typename TW, int BN>
 __global__ void __launch_bounds__(TcFwdTile<TW, BN>::kThreads)
 tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
               const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
-              MaskSpec in_mask, FwdEpilogue epi, int k_chunk, bool x_tma, bool w_tma) {
+              MaskSpec in_mask, FwdEpilogue epi, int k_chunk, bool x_tma, bool w_tma,
+              int early) {
   namespace cg = cooperative_groups;
   using T = TcFwdTile<TW, BN>;
   constexpr int kThreads = T::kThreads, kS = kTcFwdStages;
@@ -414,20 +430,26 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
   const int n_steps = k_end > k_begin ? (k_end - k_begin + kTcFwdBK - 1) / kTcFwdBK : 0;
   const bool any_tma = x_tma || w_tma, all_tma = x_tma && w_tma;
 
-  // step `step`'s x and W into ring slot `slot`: thread 0 posts the tensor
-  // copies' bytes on the slot's mbarrier and starts them; every thread starts
-  // its cp.async copies of an operand that has no tensor map (zero-filled
-  // past the edges)
-  auto load_stage = [&](int slot, int step) {
+  // step `step`'s x and / or W into ring slot `slot`: thread 0 posts the
+  // tensor copies' bytes on the slot's mbarrier and starts them; every
+  // thread starts its cp.async copies of an operand that has no tensor map
+  // (zero-filled past the edges).  The slot's one arrival comes with its x,
+  // which is never loaded before its W: a W loaded ahead only adds its bytes
+  auto load_stage = [&](int slot, int step, bool with_x, bool with_w) {
     typename T::Stage& st = sm.u.ring[slot];
     const int k0 = k_begin + step * kTcFwdBK;
+    const bool tx = with_x && x_tma, tw = with_w && w_tma;
     if (any_tma && tid == 0) {  // the slot's bytes; a copy may land first (the phase waits)
-      mbar_arrive_expect_tx(&sm.full[slot], (x_tma ? (uint32_t)sizeof(st.x) : 0u) +
-                                                (w_tma ? (uint32_t)sizeof(st.w) : 0u));
-      if (x_tma) tma_load_2d(&st.x[0][0], &tmx, k0, m0, &sm.full[slot]);
+      const uint32_t bytes =
+          (tx ? (uint32_t)sizeof(st.x) : 0u) + (tw ? (uint32_t)sizeof(st.w) : 0u);
+      if (with_x)
+        mbar_arrive_expect_tx(&sm.full[slot], bytes);
+      else
+        mbar_expect_tx(&sm.full[slot], bytes);
+      if (tx) tma_load_2d(&st.x[0][0], &tmx, k0, m0, &sm.full[slot]);
     }
-    if (w_tma && tid == 32) tma_load_2d(&st.w[0][0], &tmw, n0, k0, &sm.full[slot]);
-    if (!x_tma) {
+    if (tw && tid == 32) tma_load_2d(&st.w[0][0], &tmw, n0, k0, &sm.full[slot]);
+    if (with_x && !x_tma) {
       for (int idx = tid; idx < kTcFwdBM * kTcFwdBK; idx += kThreads) {
         const int row = idx / kTcFwdBK, c = idx % kTcFwdBK;
         if (row >= rows_pad) continue;
@@ -435,7 +457,7 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
         cp_async4(&st.x[row][c], in ? x + (long long)(m0 + row) * K + k0 + c : x, in ? 4 : 0);
       }
     }
-    if (!w_tma) {
+    if (with_w && !w_tma) {
       for (int idx = tid; idx < kTcFwdBK * BN; idx += kThreads) {
         const int kr = idx / BN, c = idx % BN;
         const bool in = k0 + kr < K && n0 + c < N;
@@ -510,17 +532,28 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
   // The pipeline: kS - 1 steps in flight; step s+1 is rounded while step s
   // is multiplied (two bfloat16 buffers), one barrier a step.  Ring slot
   // (s - 1) % kS is refilled at step s: its rounding was two steps ago.
+  // Before the wait: the mbarriers, the tensor maps, and W where the plan
+  // allows (uncommitted cp.async copies of it join step 0's group)
   if (any_tma) {
     if (tid == 0) {
 #pragma unroll
       for (int i = 0; i < kS; ++i) mbar_init(&sm.full[i], 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (x_tma) prefetch_tensormap(&tmx);
+      if (w_tma) prefetch_tensormap(&tmw);
     }
     __syncthreads();
   }
+  const bool early_w = (early & kEarlyW) != 0;
+  if (early_w) {
+#pragma unroll
+    for (int s = 0; s < kS - 1; ++s)
+      if (s < n_steps) load_stage(s, s, false, true);
+  }
+  grid_dep_wait();  // every thread, a block without steps too: it stores the epilogue
 #pragma unroll
   for (int s = 0; s < kS - 1; ++s) {
-    if (s < n_steps) load_stage(s, s);
+    if (s < n_steps) load_stage(s, s, true, !early_w);
     if (!all_tma) cp_async_commit();  // one group per step, empty or not: the wait counts steps
   }
   if (n_steps > 0) {
@@ -530,7 +563,7 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
   __syncthreads();
   for (int s = 0; s < n_steps; ++s) {
     const int ahead = s + kS - 1;
-    if (ahead < n_steps) load_stage(ahead % kS, ahead);
+    if (ahead < n_steps) load_stage(ahead % kS, ahead, true, true);
     if (!all_tma) cp_async_commit();
     if (s + 1 < n_steps) {
       wait_stage(s + 1);
@@ -541,6 +574,7 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
   }
   if (!all_tma) cp_async_wait<0>();
   __syncthreads();  // the ring is free: the partial tile takes its place
+  grid_dep_launch_dependents();  // the next launch's prologue overlaps the cluster sum
 
   const int g = lane >> 2, t = lane & 3;
   if (wm < rows_pad) {
@@ -691,10 +725,12 @@ static cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, con
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// pdl: a programmatic dependent launch that reads before its wait what
+// `early` names (pdl.cuh).
 template <typename TW, int BN>
 static cudaError_t launch_tc_fwd_bn(const float* x, const TW* w, int M, int K, int N,
                                     const MaskSpec& in_mask, const FwdEpilogue& epi,
-                                    int plan_rows, cudaStream_t stream) {
+                                    int plan_rows, bool pdl, int early, cudaStream_t stream) {
   int k_chunk, n_chunks;
   cudaError_t err =
       tc_fwd_k_chunk<TW, BN>(plan_rows > 0 ? plan_rows : M, K, N, &k_chunk, &n_chunks);
@@ -720,24 +756,20 @@ static cudaError_t launch_tc_fwd_bn(const float* x, const TW* w, int M, int K, i
   cfg.blockDim = dim3(TcFwdTile<TW, BN>::kThreads);
   cfg.dynamicSmemBytes = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = n_chunks;
+  cudaLaunchAttribute attr[2];
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cluster_launch_attrs(attr, 1, n_chunks, pdl);
   return cudaLaunchKernelEx(&cfg, tc_fwd_kernel<TW, BN>, tmx, tmw, x, w, M, K, N, in_mask, epi,
-                            k_chunk, x_tma, w_tma);
+                            k_chunk, x_tma, w_tma, early);
 }
 
 template <typename TW>
 static cudaError_t launch_tc_fwd(const float* x, const TW* w, int M, int K, int N,
                                  const MaskSpec& in_mask, const FwdEpilogue& epi, int plan_rows,
-                                 cudaStream_t stream) {
+                                 bool pdl, int early, cudaStream_t stream) {
   if (tc_fwd_bn(N) == 128)
-    return launch_tc_fwd_bn<TW, 128>(x, w, M, K, N, in_mask, epi, plan_rows, stream);
-  return launch_tc_fwd_bn<TW, 64>(x, w, M, K, N, in_mask, epi, plan_rows, stream);
+    return launch_tc_fwd_bn<TW, 128>(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
+  return launch_tc_fwd_bn<TW, 64>(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
 }
 
 // Scratch floats launch_fwd needs in `part`: the float32 form's K chunks (0
@@ -754,6 +786,7 @@ struct FwdLaunched {
   int tc = 0;   // tc_fwd_kernel
   int f32 = 0;  // fwd_kernel
   int sum = 0;  // fwd_sum_kernel
+  int pdl = 0;  // tc_fwd_kernel as a programmatic dependent launch
 };
 
 // tc: the tensor-core form (tc_fwd_kernel: one launch, K split within a
@@ -761,14 +794,16 @@ struct FwdLaunched {
 // split over the grid).  plan_rows > 0: split K as for that many rows (the
 // data-parallel trainer plans for the global tile, so a rank's rows are
 // summed in the order the single-device trainer sums them: each output's sum
-// depends only on the chunk boundaries), else as for M.  *launched += what
-// was launched.
+// depends only on the chunk boundaries), else as for M.  pdl, early: the
+// tensor-core form as a programmatic dependent launch (launch_tc_fwd_bn); the
+// float32 form takes neither.  *launched += what was launched.
 template <typename TW>
 inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
                               float coef, float* part, bool tc, FwdLaunched* launched,
-                              cudaStream_t stream, int plan_rows = 0) {
+                              cudaStream_t stream, int plan_rows = 0, bool pdl = false,
+                              int early = 0) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   FwdEpilogue epi;
   epi.b = b;
@@ -783,8 +818,12 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
   epi.vec_y = vec_ok(y, N) && (dedx == nullptr || vec_ok(dedx, N));
   epi.vec_t = targ != nullptr && vec_ok(targ, N);
   if (tc) {
-    const cudaError_t err = launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, stream);
-    if (err == cudaSuccess) launched->tc += 1;
+    const cudaError_t err =
+        launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
+    if (err == cudaSuccess) {
+      launched->tc += 1;
+      launched->pdl += pdl ? 1 : 0;
+    }
     return err;
   }
   int n_chunks;
@@ -1142,6 +1181,10 @@ __device__ inline void tc_bwd_compute_sync() {
 // (bfloat16) from the compute warps.  gridDim.x splits N (the cluster, where
 // dedy != nullptr); gridDim.y - 1 rows of blocks take the stripes of BK rows
 // of W, and the last row the bias: the column sums of dedx over its range.
+// early (pdl.cuh): before griddepcontrol.wait, beside the mbarriers' set-up,
+// the first ring steps' W (kEarlyW) and Delta (kEarlyDelta) and the yprev
+// stripe (kEarlyYprev); dedx (the bias blocks' reads too) and every store
+// come after it.
 template <typename TW, typename TD, int BK>
 __global__ void __launch_bounds__(kTcBwdThreads, 1)
 tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ CUtensorMap tmw,
@@ -1150,7 +1193,8 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
               TD* __restrict__ delta, float* __restrict__ b, float* __restrict__ db,
               float* __restrict__ gout, float* __restrict__ dedy, int deriv, int M, int K, int N,
               float mom, float A, float Bc, uint32_t sr_key, int flags, bool d_tma, bool w_tma,
-              bool l_tma, bool vec_y, bool vec_w, bool vec_dl, bool vec_g, bool vec_dy) {
+              bool l_tma, bool vec_y, bool vec_w, bool vec_dl, bool vec_g, bool vec_dy,
+              int early) {
   namespace cg = cooperative_groups;
   using T = TcBwdTile<TW, TD, BK>;
   constexpr int kS = kTcBwdStages, BN = kTcBwdBN, kC = kTcBwdCompute, kSub = kTcBwdSubM;
@@ -1168,6 +1212,7 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
   const int c0 = min(n_chunks, rank * per), c1 = min(n_chunks, c0 + per);
 
   if (blockIdx.y == gridDim.y - 1) {  // the bias of columns c0 * BN..: dedx's rows summed in order
+    grid_dep_wait();
     const int n1 = min(N, c1 * BN);
     for (int n = c0 * BN + tid; n < n1; n += kTcBwdThreads) {
       float s = 0.0f;
@@ -1194,6 +1239,9 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
   // updates it (its last), Delta where it updates
   auto ld_w = [&](int j) { return (with_dedy && j == 0) || (update && j == subs - 1); };
   auto ld_l = [&](int j) { return update && j == subs - 1; };
+  // what the plan lets this launch read before its wait
+  const bool early_w = (early & kEarlyW) != 0, early_l = (early & kEarlyDelta) != 0;
+  const bool early_y = (early & kEarlyYprev) != 0;
 
   if (any_tma && tid == 0) {
 #pragma unroll
@@ -1202,20 +1250,40 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
       mbar_init(&sm.empty[i], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (d_tma) prefetch_tensormap(&tmd);
+    if (need_w && w_tma) prefetch_tensormap(&tmw);
+    if (update && l_tma) prefetch_tensormap(&tml);
   }
   __syncthreads();
 
   if (warp == kTcBwdCompute / 32) {
     // the producer: one lane keeps kS steps of tensor copies in flight, each
     // into a slot the compute warps have released (the bytes are posted even
-    // where a step has none, so that its phase completes)
+    // where a step has none, so that its phase completes).  The first kS
+    // steps' W and Delta go before the wait where the plan allows: they add
+    // their bytes, and the step's one arrival comes with its dedx
+    auto w_early = [&](int step) { return step < kS && early_w && ld_w(step % subs) && w_tma; };
+    auto l_early = [&](int step) { return step < kS && early_l && ld_l(step % subs) && l_tma; };
+    if (lane == 0 && any_tma) {
+      for (int step = 0; step < min(kS, n_steps); ++step) {
+        const bool lw = w_early(step), ll = l_early(step);
+        if (!lw && !ll) continue;
+        typename T::Stage& st = sm.u.ring[step];
+        const int n0 = (c0 + step / subs) * BN;
+        mbar_expect_tx(&sm.full[step],
+                       (lw ? (uint32_t)sizeof(st.w) : 0u) + (ll ? (uint32_t)sizeof(st.dl) : 0u));
+        if (lw) tma_load_2d(&st.w[0][0], &tmw, n0, k0, &sm.full[step]);
+        if (ll) tma_load_2d(&st.dl[0][0], &tml, n0, k0, &sm.full[step]);
+      }
+    }
+    grid_dep_wait();
     if (lane == 0 && any_tma) {
       for (int step = 0; step < n_steps; ++step) {
         const int slot = step % kS, j = step % subs;
         const int n0 = (c0 + step / subs) * BN, m0 = j * kSub;
         if (step >= kS) mbar_wait(&sm.empty[slot], (step / kS - 1) & 1);
         typename T::Stage& st = sm.u.ring[slot];
-        const bool lw = ld_w(j) && w_tma, ll = ld_l(j) && l_tma;
+        const bool lw = ld_w(j) && w_tma && !w_early(step), ll = ld_l(j) && l_tma && !l_early(step);
         mbar_arrive_expect_tx(&sm.full[slot], (d_tma ? (uint32_t)(d_rows * BN * 4) : 0u) +
                                                   (lw ? (uint32_t)sizeof(st.w) : 0u) +
                                                   (ll ? (uint32_t)sizeof(st.dl) : 0u));
@@ -1225,11 +1293,12 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
       }
     }
   } else {
-    // the compute warps.  The operands without a tensor map, by their own copies:
-    auto load_by_hand = [&](int slot, int step) {
+    // the compute warps.  The operands without a tensor map, by their own
+    // copies (dedx, W, Delta as `parts` asks: 1, 2, 4):
+    auto load_by_hand = [&](int slot, int step, int parts) {
       typename T::Stage& st = sm.u.ring[slot];
       const int j = step % subs, n0 = (c0 + step / subs) * BN, m0 = j * kSub;
-      if (!d_tma) {
+      if (!d_tma && (parts & 1)) {
         const int rows_pad = min(kSub, m16 - m0);
         for (int idx = tid; idx < rows_pad * BN; idx += kC) {
           const int row = idx / BN, c = idx % BN;
@@ -1250,15 +1319,16 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
           }
         }
       };
-      if (ld_w(j) && !w_tma) by_hand(&st.w[0][0], (const TW*)w);
-      if (ld_l(j) && !l_tma) by_hand(&st.dl[0][0], (const TD*)delta);
+      if (ld_w(j) && !w_tma && (parts & 2)) by_hand(&st.w[0][0], (const TW*)w);
+      if (ld_l(j) && !l_tma && (parts & 4)) by_hand(&st.dl[0][0], (const TD*)delta);
     };
-    if (!all_tma) {
+    // before the wait, W and Delta of the first kS - 1 steps where the plan
+    // allows (uncommitted: they join step 0's group)
+    const int early_parts = (early_w ? 2 : 0) | (early_l ? 4 : 0);
+    if (!all_tma && early_parts != 0) {
 #pragma unroll
-      for (int s = 0; s < kS - 1; ++s) {
-        if (s < n_steps) load_by_hand(s, s);
-        cp_async_commit();  // one group per step, empty or not: the wait counts steps
-      }
+      for (int s = 0; s < kS - 1; ++s)
+        if (s < n_steps) load_by_hand(s, s, early_parts);
     }
 
     // the stripe of yprev, masked in float32 and rounded; zeros past M (to 16 rows) and K
@@ -1268,28 +1338,40 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
       return ld4(yprev, row, col, K, M, K, false);
     };
     constexpr int kYIters = kSub * BK / 4 / kC;  // float4 of 128 rows of the stripe a thread takes
+    auto load_stripe = [&]() {
 #pragma unroll
-    for (int jj = 0; jj < T::kMT; ++jj) {
-      if (n_steps == 0 || jj * kSub >= m16) continue;
-      float4 yv[kYIters];
+      for (int jj = 0; jj < T::kMT; ++jj) {
+        if (n_steps == 0 || jj * kSub >= m16) continue;
+        float4 yv[kYIters];
 #pragma unroll
-      for (int r = 0; r < kYIters; ++r) {  // the loads all in flight at once
-        const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4);
-        yv[r] = row < m16 ? y4(row, k0 + (idx % (BK / 4)) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int r = 0; r < kYIters; ++r) {
-        const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4), c = (idx % (BK / 4)) * 4;
-        if (row >= m16) continue;
-        float4 v = yv[r];
-        if (in_mask.mode != 0 && row < M && k0 + c < K) {
-          float mk[4];
-          mask4(in_mask, row, k0 + c, K, mk);
-          v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+        for (int r = 0; r < kYIters; ++r) {  // the loads all in flight at once
+          const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4);
+          yv[r] = row < m16 ? y4(row, k0 + (idx % (BK / 4)) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         }
-        st_cvt4(&sm.y[row][c], v);
+#pragma unroll
+        for (int r = 0; r < kYIters; ++r) {
+          const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+          if (row >= m16) continue;
+          float4 v = yv[r];
+          if (in_mask.mode != 0 && row < M && k0 + c < K) {
+            float mk[4];
+            mask4(in_mask, row, k0 + c, K, mk);
+            v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+          }
+          st_cvt4(&sm.y[row][c], v);
+        }
+      }
+    };
+    if (early_y) load_stripe();
+    grid_dep_wait();
+    if (!all_tma) {
+#pragma unroll
+      for (int s = 0; s < kS - 1; ++s) {
+        if (s < n_steps) load_by_hand(s, s, 1 | (6 & ~early_parts));
+        cp_async_commit();  // one group per step, empty or not: the wait counts steps
       }
     }
+    if (!early_y) load_stripe();
 
     // this warp's tile of G's chunk (warps below kGWarps): rows gm.., cols gn..
     // (kGN16 * 16 of them); its A operand, rne(yprev)^T of rows gm.., is the
@@ -1319,7 +1401,7 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
     for (int s = 0; s < n_steps; ++s) {
       if (!all_tma) {
         const int ahead = s + kS - 1;  // its slot was released by the barrier that ended step s - 1
-        if (ahead < n_steps) load_by_hand(ahead % kS, ahead);
+        if (ahead < n_steps) load_by_hand(ahead % kS, ahead, 7);
         cp_async_commit();
       }
       if (any_tma) mbar_wait(&sm.full[s % kS], (s / kS) & 1);
@@ -1425,6 +1507,7 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
     }
     if (!all_tma) cp_async_wait<0>();
     tc_bwd_compute_sync();  // the ring is free: the partial stripe takes its place
+    grid_dep_launch_dependents();  // the next launch's prologue overlaps the cluster sum
 
     if (with_dedy) {
 #pragma unroll
@@ -1637,12 +1720,14 @@ static cudaError_t tc_bwd_split(int K, int N, bool cluster, int* split) {
   return cudaSuccess;
 }
 
+// pdl: a programmatic dependent launch that reads before its wait what
+// `early` names (pdl.cuh).
 template <typename TW, typename TD, int BK>
 static cudaError_t launch_tc_bwd_bk(const float* dedx, const float* yprev,
                                     const MaskSpec& in_mask, TW* w, TD* delta, float* b,
                                     float* db, float* gout, float* dedy, int deriv, int M, int K,
                                     int N, float mom, float A, float Bc, uint32_t sr_key,
-                                    int flags, cudaStream_t stream) {
+                                    int flags, bool pdl, int early, cudaStream_t stream) {
   const bool update = gout == nullptr, need_w = update || dedy != nullptr;
   int split = 1;
   cudaError_t err = tc_bwd_split<TW, TD, BK>(K, N, dedy != nullptr, &split);
@@ -1674,17 +1759,13 @@ static cudaError_t launch_tc_bwd_bk(const float* dedx, const float* yprev,
   cfg.blockDim = dim3(kTcBwdThreads);
   cfg.dynamicSmemBytes = sizeof(typename TcBwdTile<TW, TD, BK>::Smem) + 128;  // + its alignment
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = dedy != nullptr ? split : 1;  // dedy is summed across the split
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr[2];
+  cfg.attrs = attr;  // dedy is summed across the split
+  cfg.numAttrs = cluster_launch_attrs(attr, dedy != nullptr ? split : 1, 1, pdl);
   return cudaLaunchKernelEx(&cfg, tc_bwd_kernel<TW, TD, BK>, tmd, tmw, tml, dedx, yprev, in_mask,
                             w, delta, b, db, gout, dedy, deriv, M, K, N, mom, A, Bc, sr_key,
                             flags, d_tma, w_tma, l_tma, vec_ok(yprev, K), vec_ok(w, N),
-                            vec_ok(delta, N), vec_ok(gout, N), vec_ok(dedy, K));
+                            vec_ok(delta, N), vec_ok(gout, N), vec_ok(dedy, K), early);
 }
 
 // The tensor-core backward's plan for M rows: out[0] the split of N (the
@@ -1707,17 +1788,18 @@ template <typename TW, typename TD>
 static cudaError_t launch_tc_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
                                  TW* w, TD* delta, float* b, float* db, float* gout, float* dedy,
                                  int deriv, int M, int K, int N, float mom, float A, float Bc,
-                                 uint32_t sr_key, int flags, cudaStream_t stream) {
+                                 uint32_t sr_key, int flags, bool pdl, int early,
+                                 cudaStream_t stream) {
   if (M <= TcBwdTile<TW, TD, 64>::kMaxM)
     return launch_tc_bwd_bk<TW, TD, 64>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                        M, K, N, mom, A, Bc, sr_key, flags, stream);
+                                        M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
   if (M <= TcBwdTile<TW, TD, 32>::kMaxM)
     return launch_tc_bwd_bk<TW, TD, 32>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                        M, K, N, mom, A, Bc, sr_key, flags, stream);
+                                        M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
   static_assert(TcBwdTile<float, float, 16>::kMaxM == kTcBwdMaxRows, "rows of tc_bwd_kernel");
   if (M <= kTcBwdMaxRows)
     return launch_tc_bwd_bk<TW, TD, 16>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                        M, K, N, mom, A, Bc, sr_key, flags, stream);
+                                        M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1726,6 +1808,7 @@ struct BwdLaunched {
   int tc = 0;      // tc_bwd_kernel
   int f32 = 0;     // bwd_kernel
   int reduce = 0;  // reduce_dedy_kernel
+  int pdl = 0;     // tc_bwd_kernel as a programmatic dependent launch
 };
 
 // dedy: (M, K), or nullptr when the layer below needs no gradient (the first
@@ -1734,18 +1817,24 @@ struct BwdLaunched {
 // reduce_dedy_kernel over `part`, bwd_scratch_floats of scratch, where dedy is
 // asked for).  gout: K*N + N floats for the gradient-out form (W is then only
 // read, and delta, b and db may be nullptr), or nullptr for the in-place
-// update.  *launched += what was launched.
+// update.  pdl, early: the tensor-core form as a programmatic dependent launch
+// (launch_tc_bwd_bk); the float32 form takes neither.  *launched += what was
+// launched.
 template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
                               TW* w, TD* delta, float* b, float* db, float* gout, float* part,
                               float* dedy, int deriv, int M, int K, int N, float mom, float A,
                               float Bc, uint32_t sr_key, int flags, bool tc,
-                              BwdLaunched* launched, cudaStream_t stream) {
+                              BwdLaunched* launched, cudaStream_t stream, bool pdl = false,
+                              int early = 0) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
   if (tc) {
     const cudaError_t err = launch_tc_bwd(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                          M, K, N, mom, A, Bc, sr_key, flags, stream);
-    if (err == cudaSuccess) launched->tc += 1;
+                                          M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
+    if (err == cudaSuccess) {
+      launched->tc += 1;
+      launched->pdl += pdl ? 1 : 0;
+    }
     return err;
   }
   if ((part == nullptr) != (dedy == nullptr)) return cudaErrorInvalidValue;

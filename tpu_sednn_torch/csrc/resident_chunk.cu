@@ -26,6 +26,15 @@
 // and the forward of bunch i+1 sees W after bunch i.  No host
 // synchronisation, no allocation.
 //
+// The tensor-core chain overlaps its launches (Hopper's programmatic
+// dependent launch, pdl.cuh): every launch after the call's first may start
+// while the one before it finishes, and loads before its griddepcontrol.wait
+// the operands that launch does not write, as the plan of
+// ops/resident_chunk.py:early_read_plan names them: the forward of layer
+// l >= 1 its W (the forward of layer 0 follows the backward that just wrote
+// W_0), every backward its W, Delta and yprev.  Only x and dedx come from the
+// launch just before.  The float32-product chain launches as before.
+//
 // Bound: per bunch 2 * 128 * K*N FLOP for each product: three a layer
 // (forward, gradient, dedy) but two for the first, which has no layer below
 // to hand a dedy to; at 1548-2048x3-129 that is 8.27 GFLOP against 5 passes
@@ -144,6 +153,14 @@ extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunc
 
 namespace {
 
+// The flags early_read_plan (ops/resident_chunk.py) gives a programmatic
+// dependent launch of the chain: the forward (direction 0) or the backward
+// (1) of layer l, not the call's first launch.  plan: 4 * L ints, (direction
+// * L + l) * 2 + (1 for the call's first launch).
+inline int early_flags(const int* plan, int L, int direction, int l) {
+  return plan[(direction * L + l) * 2];
+}
+
 // The forward of one tile of `tile` rows: layer l reads x (l == 0) or y[l-1]
 // and writes y[l] (the masked activation the next layer and the backward
 // read; y[L-1] is the net's output), and the last layer also writes dedx =
@@ -152,24 +169,33 @@ namespace {
 // global tile, so a rank of the data-parallel trainer draws its rows of the
 // single-device masks.  plan_rows: the rows K's split over the grid is planned
 // for (launch_fwd; 0: tile).  part: fwd_scratch_floats of the widest layer.
+// plan (tensor cores; nullptr: none): the chain's early-read flags
+// (early_flags), every launch a programmatic dependent one but the call's
+// first; *first: this tile's forward begins the call (cleared by its first
+// launch).
 template <typename TW>
 cudaError_t forward_tile(const float* x, const float* t, int tile, const int* sizes, int L,
                          void* const* w, float* const* b, float* const* y, float* dedx,
                          float* part, int hidden, int output, const MaskSpec& in_mask,
                          unsigned key0, unsigned thr_hid, float scale_hid, int row0, float coef,
-                         int plan_rows, bool tc, long long* tallies, cudaStream_t stream) {
+                         int plan_rows, bool tc, const int* plan, bool* first,
+                         long long* tallies, cudaStream_t stream) {
   for (int l = 0; l < L; ++l) {
     const bool last = l == L - 1;
     const MaskSpec out_mask =
         (!last && thr_hid)
             ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid, row0)
             : no_mask();
+    const bool pdl = tc && plan != nullptr && !*first;
     FwdLaunched done;
     const cudaError_t err = launch_fwd(
         l == 0 ? x : y[l - 1], (const TW*)w[l], b[l], y[l], tile, sizes[l], sizes[l + 1],
         last ? output : hidden, l == 0 ? in_mask : no_mask(), out_mask, last ? t : nullptr,
-        last ? dedx : nullptr, coef, part, tc, &done, stream, plan_rows);
+        last ? dedx : nullptr, coef, part, tc, &done, stream, plan_rows, pdl,
+        pdl ? early_flags(plan, L, 0, l) : 0);
     if (err != cudaSuccess) return err;
+    *first = false;
+    tallies[10] += done.pdl;
     const int products = done.tc + done.f32;
     tallies[0] += products;
     tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? products : 0;
@@ -185,12 +211,13 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
                 int L, void* const* w, void* const* d, float* const* b, float* const* db,
                 float* work, int hidden, int output, unsigned thr_vis, unsigned thr_hid,
                 float scale_vis, float scale_hid, unsigned seed, float mom, float A, float Bc,
-                bool tc, long long* tallies, cudaStream_t stream) {
+                bool tc, const int* plan, long long* tallies, cudaStream_t stream) {
   constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
   const Workspace ws = plan_workspace(sizes, L, tile, tc);
   const float coef = 2.0f / (float)(tile * accum);
   float* ys[kMaxLayers];
   for (int l = 0; l < L; ++l) ys[l] = work + (l == L - 1 ? ws.out : ws.ys[l + 1]);
+  bool first = true;  // the call's first launch: no programmatic dependent launch
   for (int i = 0; i < n_real; ++i) {
     for (int j = 0; j < accum; ++j) {
       const long long gi = (long long)i * accum + j;  // global tile index
@@ -203,18 +230,22 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
       float* other = work + ws.dedx_b;
       const cudaError_t ferr =
           forward_tile<TW>(xi, ti, tile, sizes, L, w, b, ys, dedx, work + ws.part, hidden, output,
-                           in_mask, key0, thr_hid, scale_hid, 0, coef, 0, tc, tallies, stream);
+                           in_mask, key0, thr_hid, scale_hid, 0, coef, 0, tc, plan, &first,
+                           tallies, stream);
       if (ferr != cudaSuccess) return (int)ferr;
       for (int l = L - 1; l >= 0; --l) {
         const float* yprev = l == 0 ? xi : work + ws.ys[l];
         const unsigned sr_key =
             seed + (unsigned)i * kBunchStride + (unsigned)l * kLayerStride + 1u;
+        const bool pdl = tc && plan != nullptr;  // a forward came first
         BwdLaunched done;
         const cudaError_t err = launch_bwd(
             dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l], nullptr,
             l > 0 && !tc ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, tile,
-            sizes[l], sizes[l + 1], mom, A, Bc, sr_key, flags, tc, &done, stream);
+            sizes[l], sizes[l + 1], mom, A, Bc, sr_key, flags, tc, &done, stream, pdl,
+            pdl ? early_flags(plan, L, 1, l) : 0);
         if (err != cudaSuccess) return (int)err;
+        tallies[10] += done.pdl;
         const int products = done.tc + done.f32;
         tallies[1] += products;
         tallies[9] += done.tc;
@@ -241,41 +272,47 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // db float32.  accum > 1: each bunch in `accum` row tiles of `tile` rows,
 // the gradient accumulated into d and the step applied with the last tile
 // (float32 storage only).  bf16 != 0: products of operands rounded to
-// bfloat16 on the tensor cores, else float32 products.  hidden/output: 0
-// linear, 1 relu, 2 sigmoid.
+// bfloat16 on the tensor cores, else float32 products; then every launch
+// after the call's first is a programmatic dependent launch (pdl.cuh) that
+// reads before its wait what plan (early_read_plan(L, accum), 4 * L ints)
+// allows it.  A refused launch returns its error: there is no other chain.
+// hidden/output: 0 linear, 1 relu, 2 sigmoid.
 // thr_vis/thr_hid: mask thresholds of the input and of the hidden activations
 // (0 = no dropout there), scale_*: factor on kept elements.  Update: delta' =
 // mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
-// tallies[10] += launches of the forward and backward product kernels (either
+// tallies[11] += launches of the forward and backward product kernels (either
 // form) and of reduce_dedy_kernel (float32 products only), the count of the
 // product launches that drew Philox masks,
 // launches of fwd_sum_kernel (float32-product layers whose K is split),
 // backward launches that rounded stochastically, backward launches of
 // row-tiled bunches, forward launches that read bfloat16 weights, forward and
-// backward launches of the tensor-core forms.
+// backward launches of the tensor-core forms, and the programmatic dependent
+// launches among them (2 L n_real accum - 1 a tensor-core call).
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,
                                     float* const* db, float* work, int hidden, int output,
                                     unsigned thr_vis, unsigned thr_hid, float scale_vis,
                                     float scale_hid, unsigned seed, float mom, float A, float Bc,
-                                    int bf16, long long* tallies, void* stream_) {
+                                    int bf16, const int* plan, long long* tallies,
+                                    void* stream_) {
   if (L < 1 || L > kMaxLayers || tile <= 0 || accum <= 0 || hidden < 0 || hidden > 2 ||
-      output < 0 || output > 2 || (w_bf16 && !d_bf16) || (accum > 1 && d_bf16))
+      output < 0 || output > 2 || (w_bf16 && !d_bf16) || (accum > 1 && d_bf16) ||
+      plan == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
   const bool tc = bf16 != 0;
   if (w_bf16)
     return train_chunk<bf16_t, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
                                        hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
-                                       seed, mom, A, Bc, tc, tallies, stream);
+                                       seed, mom, A, Bc, tc, plan, tallies, stream);
   if (d_bf16)
     return train_chunk<float, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
                                       hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
-                                      seed, mom, A, Bc, tc, tallies, stream);
+                                      seed, mom, A, Bc, tc, plan, tallies, stream);
   return train_chunk<float, float>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work, hidden,
                                    output, thr_vis, thr_hid, scale_vis, scale_hid, seed, mom, A,
-                                   Bc, tc, tallies, stream);
+                                   Bc, tc, plan, tallies, stream);
 }
 
 // The data-parallel trainer's forward of one tile: this rank's `tile` rows
@@ -301,9 +338,10 @@ extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int gl
       hidden > 2 || output < 0 || output > 2)
     return (int)cudaErrorInvalidValue;
   const MaskSpec in_mask = thr_vis ? philox_mask(key0, thr_vis, scale_vis, row0) : no_mask();
+  bool first = true;
   const cudaError_t err = forward_tile<float>(
       x, t, tile, sizes, L, w, b, y, dedx, part, hidden, output, in_mask, key0, thr_hid, scale_hid,
-      row0, coef, global_tile, bf16 != 0, tallies, (cudaStream_t)stream);
+      row0, coef, global_tile, bf16 != 0, nullptr, &first, tallies, (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

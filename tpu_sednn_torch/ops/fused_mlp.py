@@ -227,6 +227,8 @@ def _lib() -> ctypes.CDLL:
     lib.fused_bwd_grad_out_f32.restype = ctypes.c_int
     lib.fused_bwd_tc_plan.argtypes = [i, i, i, i, p]
     lib.fused_bwd_tc_plan.restype = ctypes.c_int
+    lib.fused_tc_smem_bytes.argtypes = [p]
+    lib.fused_tc_smem_bytes.restype = None
     lib.dp_update_f32.argtypes = [p, p, i, p, p, p, i, i, f, f, f, u, i, p]
     lib.dp_update_f32.restype = ctypes.c_int
     return lib

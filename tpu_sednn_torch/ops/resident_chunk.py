@@ -9,7 +9,10 @@ bias, activation and the output layer's dedx in the products' epilogues) and
 the fused backward + in-place update launches of csrc/fused_mlp.cuh: no
 gradient matrix is materialised, W and delta are read once and written once
 per bunch in the backward, and nothing synchronises with the host inside a
-chunk.
+chunk.  With tensor-core products every launch after a call's first is a
+programmatic dependent launch: it starts while the launch before it ends and
+loads, before it waits for that launch, the operands `early_read_plan`
+allows it (the C code decides no hazard of its own).
 
 Math is identical to train/step.py:reference_train_step (the quirk-exact
 update rule: dedx_L = (2/n)(out-t), raw-sum gradients, delta = m*delta -
@@ -77,15 +80,65 @@ _mask_threshold = mask_threshold
 # that stored bfloat16 with stochastic rounding, bwd_kernel launches of
 # row-tiled bunches, fwd_kernel launches that read bfloat16 weights; the
 # forward and backward launches of the tensor-core forms (tc_fwd_kernel,
-# tc_bwd_kernel), counted in the first two as well.  The data-parallel
-# trainer's forward entry (dp_chunk_forward) tallies into the forward keys; its
-# backward and update launches are counted by their wrappers
-# (fused_bwd_grad_out, dp_update in ops/fused_mlp.py)
+# tc_bwd_kernel), counted in the first two as well; and the programmatic
+# dependent launches among those (every tensor-core launch of a call but its
+# first: 2 L n_real accum - 1 a call; early_read_plan).  The data-parallel
+# trainer's forward entry (dp_chunk_forward) tallies into the forward keys
+# (it launches nothing as a dependent launch); its backward and update
+# launches are counted by their wrappers (fused_bwd_grad_out, dp_update in
+# ops/fused_mlp.py)
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "reduce_dedy": 0, "philox_mask": 0,
                                    "fused_linear_act_sum": 0, "sr_bwd_update": 0,
                                    "tiled_bwd_update": 0, "bf16_linear_act": 0,
-                                   "tc_linear_act": 0, "tc_bwd_update": 0}
+                                   "tc_linear_act": 0, "tc_bwd_update": 0, "pdl": 0}
+
+# early_read_plan's bits (csrc/pdl.cuh): the operand groups a launch of the
+# tensor-core chain may read before its griddepcontrol.wait
+EARLY_W = 1      # the layer's W and b
+EARLY_DELTA = 2  # the layer's delta and delta_b
+EARLY_YPREV = 4  # the backward's yprev, the layer's input
+
+
+def plan_index(direction: int, layer: int, first: bool, n_layers: int) -> int:
+    """Where early_read_plan keeps a launch's flags: direction 0 for the
+    forward of `layer`, 1 for its backward; first for the first launch of a
+    call."""
+    return (direction * n_layers + layer) * 2 + int(first)
+
+
+def early_read_plan(n_layers: int, accum: int) -> list:
+    """The chunk trainer's hazard rule for its chain of tensor-core launches,
+    as 4 * n_layers ints of EARLY_* bits at `plan_index`: the operand groups
+    each launch may read before it waits for the launch just before it.
+
+    A call enqueues, for every tile of `accum` tiles of every bunch, the
+    forwards of layers 0..L-1, then the backwards of layers L-1..0.  Every
+    launch after the call's first is a programmatic dependent launch: it may
+    start when every block of the launch before it has passed its own wait,
+    so every launch before that one has completed and its writes are
+    visible (csrc/pdl.cuh).  The rule: a launch may read an operand early
+    only if the launch just before it does not write it.
+    * The call's first launch reads nothing early.
+    * The forward of layer l >= 1 follows the forward of layer l-1, which
+      writes only y[l-1] (this forward's x, read after the wait): W_l early.
+    * The forward of layer 0 follows the backward of layer 0 of the tile
+      before, which writes W_0 and b_0 where that tile ends a bunch: before
+      every bunch's first tile (with row tiles the other tiles could read
+      W_0 early, but one flag serves every tile): nothing early.
+    * The backward of layer l follows the forward of the last layer (which
+      writes the output and dedx) or the backward of layer l+1 (which
+      writes layer l+1's state and dedx, this launch's dedx): its W, b,
+      delta, delta_b and yprev (x or y[l-1]) early; dedx after the wait.
+    Writes wait in every launch, so nothing a launch reads early is written
+    before the launch completes."""
+    if n_layers < 1 or accum < 1:
+        raise ValueError(f"a chain of {n_layers} layers and {accum} tiles a bunch")
+    plan = [0] * (4 * n_layers)
+    for l in range(n_layers):
+        plan[plan_index(0, l, False, n_layers)] = EARLY_W if l > 0 else 0
+        plan[plan_index(1, l, False, n_layers)] = EARLY_W | EARLY_DELTA | EARLY_YPREV
+    return plan
 
 
 def mask_key(seed: int, bunch_idx: int, layer_idx: int) -> int:
@@ -290,25 +343,30 @@ def _chunk_reference(state: TrainState, in_chunk: torch.Tensor, targ_chunk: torc
     return state
 
 
+def _c_api() -> Dict[str, tuple]:
+    """csrc/resident_chunk.cu's entry points: name -> (argtypes, restype)."""
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+    llp, ll = ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong
+    return {
+        "resident_workspace_floats": ([ip, i, i, i], ll),
+        # ..., bf16, plan (early_read_plan), tallies, stream
+        "resident_chunk_train": ([p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, i, i, u, u, f, f,
+                                  u, f, f, f, i, ip, llp, p], i),
+        "dp_chunk_forward": ([p, p, i, i, ip, i, pp, pp, pp, p, p, i, i, u, u, f, f, u, i, f, i,
+                              llp, p], i),
+        "chunk_forward_scratch_floats": ([ip, i, i, i, i], ll),
+        "philox_mask_f32": ([p, i, i, i, u, u, f, p], i),
+        "philox_words_u32": ([p, p, i, p], i),
+    }
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("resident_chunk")
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-    lib.resident_workspace_floats.argtypes = [ip, i, i, i]
-    lib.resident_workspace_floats.restype = ctypes.c_longlong
-    lib.resident_chunk_train.argtypes = [p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, i, i, u, u,
-                                         f, f, u, f, f, f, i, ctypes.POINTER(ctypes.c_longlong), p]
-    lib.resident_chunk_train.restype = ctypes.c_int
-    lib.dp_chunk_forward.argtypes = [p, p, i, i, ip, i, pp, pp, pp, p, p, i, i, u, u, f, f, u, i,
-                                     f, i, ctypes.POINTER(ctypes.c_longlong), p]
-    lib.dp_chunk_forward.restype = ctypes.c_int
-    lib.chunk_forward_scratch_floats.argtypes = [ip, i, i, i, i]
-    lib.chunk_forward_scratch_floats.restype = ctypes.c_longlong
-    lib.philox_mask_f32.argtypes = [p, i, i, i, u, u, f, p]
-    lib.philox_mask_f32.restype = ctypes.c_int
-    lib.philox_words_u32.argtypes = [p, p, i, p]
-    lib.philox_words_u32.restype = ctypes.c_int
+    for name, (argtypes, restype) in _c_api().items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = restype
     return lib
 
 
@@ -441,6 +499,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile, int(bf16)),
                            dtype=torch.float32, device=dev)
         ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
+        plan = (ctypes.c_int * (4 * L))(*early_read_plan(L, accum))
         tallies = (ctypes.c_longlong * len(kernel_launches))()
         with torch.cuda.device(dev):
             rc = lib.resident_chunk_train(
@@ -450,7 +509,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
                 ACTS[cfg.hidden], ACTS[cfg.output],
                 mask_threshold(omit_vis) if omit_vis > 0.0 else 0,
                 mask_threshold(omit_hid) if omit_hid > 0.0 else 0,
-                scale_vis, scale_hid, int(seed) & 0xFFFFFFFF, *coefs, int(bf16), tallies,
+                scale_vis, scale_hid, int(seed) & 0xFFFFFFFF, *coefs, int(bf16), plan, tallies,
                 torch.cuda.current_stream(dev).cuda_stream)
         for name, n in zip(kernel_launches, tallies):
             kernel_launches[name] += int(n)
