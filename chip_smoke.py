@@ -95,7 +95,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      with dropout_rng="tpu_prng" (kernel 5 on its path); sr_train_step at
      full width (kernel 6 on its path); kill and resume through a checkpoint
      equal to the straight run bit for bit.
- 12. data parallelism (main path, dp group): the DP forward, the
+ 12. the multi-condition recipe (main path, recipe group):
+     tpu_sednn_torch.recipes.multi_condition's non-small default on the
+     card (1548-2048x3-129 at 8 kHz, PSM head, parity dropout 0.1/0.2, bunch
+     128, 120 utterances x 6 SNRs x white/pink/babble, 15 epochs on the
+     tensor-core chunk trainer), scored on those families and on factory and
+     siren: the stage times (corpus, featurize, targets, train with
+     samples/s, eval), CV falling, every eval number finite, the 0 dB clip's
+     SNR and STOI above the noisy input's; run.json + mlp.final.wts reloaded
+     by load_run_dir decode that clip bit for bit as the recipe's final state
+     and score exactly the recipe's block.  Then the on-device sample builder
+     (data/device_pipeline.py on the STFT kernel) on the corpus's first 16
+     pairs against its CPU plain version (X rtol/atol 1e-4, T atol 2e-2 and
+     rtol 1e-4, each plus the element's float32 rounding bound).
+ 13. data parallelism (main path, dp group): the DP forward, the
      gradient-out backward, the update kernel and rank_sum against their
      plain versions, with times; the DP chunk trainer on 4 and on 2 ranks of
      this script sharing the card (gloo for the rendezvous, the sums on the
@@ -103,11 +116,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit-equal, three faults refused, pfile epochs on 4 ranks; then
      `python -m torch.distributed.run --nproc_per_node=2 -m
      tpu_sednn_torch.cli ... gpu_used=2` against gpu_used=1.
- 13. a `kernels` JSON line: every ported kernel and trainer form with its
+ 14. a `kernels` JSON line: every ported kernel and trainer form with its
      launches on the main paths, error and times.  Each path (phases 3, 4,
-     8, 11, 12) is run with the counts zeroed just before it and read just
-     after; `launches` is the total, `launches_by_path` the split.
-`--only serve,kernels,train,dp` runs a subset while developing: it prints no
+     8, 11, 12, 13) is run with the counts zeroed just before it and read
+     just after; `launches` is the total, `launches_by_path` the split.
+`--only serve,kernels,train,recipe,dp` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  `--chain-times`
 only times the chunk trainer's chain (chain_times), with `--package-root
 DIR` the package of another checkout (A/B runs in one call); exits with 2.
@@ -233,22 +246,17 @@ def _device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times)) if times else last
 
 
-def _lps_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor, cfg) -> tuple[float, float]:
-    """(max |got - want|, max |got - want| / tol): `got` is a float32 LPS of
-    signal(s) x, `want` the plain version's (stft_lps_reference, float64 sums).
-
-    tol = LPS_TOL + LPS_TOL * |want| + the float32 rounding bound.  A float32
-    sum of win products, in any order, is within gamma = win*u / (1 - win*u)
-    (u = 2^-24) times the sum of the products' magnitudes of the exact sum;
-    that bounds the error dp of the power p = re^2 + im^2, and the LPS then
-    moves by at most ln(p) - ln(p - dp).  The bound is ~1e-3 in typical bins
-    and large only where a strong tone's leakage cancels to a small p, where
-    ln magnifies the rounding of any float32 summation order."""
+def _lps_slack(x: torch.Tensor, cfg) -> torch.Tensor:
+    """The float32 rounding bound of an LPS of signal(s) x, float64, shaped
+    as the LPS.  A float32 sum of win products, in any order, is within
+    gamma = win*u / (1 - win*u) (u = 2^-24) times the sum of the products'
+    magnitudes of the exact sum; that bounds the error dp of the power p =
+    re^2 + im^2, and the LPS then moves by at most ln(p) - ln(p - dp).  The
+    bound is ~1e-3 in typical bins and large only where a strong tone's
+    leakage cancels to a small p, where ln magnifies the rounding of any
+    float32 summation order."""
     from tpu_sednn_torch.dsp.stft import LPS_FLOOR, frame_signal, rdft_on
 
-    got, want = got.to(x.device), want.to(x.device, torch.float64)
-    _check(got.shape == want.shape, f"LPS shape {tuple(got.shape)} vs {tuple(want.shape)}")
-    _check(bool(torch.isfinite(got).all()), f"non-finite LPS at {cfg.sample_rate} Hz")
     frames = frame_signal(x, cfg).double()
     cos_m, sin_m = (m.double() for m in rdft_on(cfg, x.device))
     re, im = frames @ cos_m, frames @ sin_m
@@ -257,7 +265,17 @@ def _lps_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor, cfg) -> tup
     e_re, e_im = gamma * (frames.abs() @ cos_m.abs()), gamma * (frames.abs() @ sin_m.abs())
     p = re * re + im * im
     dp = (2 * re.abs() + e_re) * e_re + (2 * im.abs() + e_im) * e_im + 3 * u * p
-    slack = torch.log(p.clamp(min=LPS_FLOOR)) - torch.log((p - dp).clamp(min=LPS_FLOOR))
+    return torch.log(p.clamp(min=LPS_FLOOR)) - torch.log((p - dp).clamp(min=LPS_FLOOR))
+
+
+def _lps_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor, cfg) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / tol): `got` is a float32 LPS of
+    signal(s) x, `want` the plain version's (stft_lps_reference, float64 sums);
+    tol = LPS_TOL + LPS_TOL * |want| + the float32 rounding bound (_lps_slack)."""
+    got, want = got.to(x.device), want.to(x.device, torch.float64)
+    _check(got.shape == want.shape, f"LPS shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    _check(bool(torch.isfinite(got).all()), f"non-finite LPS at {cfg.sample_rate} Hz")
+    slack = _lps_slack(x, cfg)
     diff = (got.double() - want).abs()
     ratio = diff / (LPS_TOL + LPS_TOL * want.abs() + slack)
     return float(diff.max()), float(ratio.max())
@@ -3126,6 +3144,184 @@ def _dp_update_off(got: list, want, init) -> tuple[float, float, float]:
     return rel_max, rel_fro, abs_max
 
 
+# ---------------------------------------------------------------------------
+# the multi-condition recipe (main path), at its non-small default
+# ---------------------------------------------------------------------------
+
+RECIPE_EVAL_KINDS = ("factory", "siren")  # unseen families beside the three trained on
+RECIPE_BUILDER_PAIRS = 16  # corpus pairs the on-device sample builder is held on
+# The sample builder against its CPU plain version: X at atol 1e-4 + rtol 1e-4
+# and T (raw clean LPS) at atol 2e-2 + rtol 1e-4, tests/test_device_pipeline.py
+# :43-47's limits, each plus the element's float32 rounding bound (_lps_slack;
+# times inv_std in X, whose NAT columns average the first 6 frames' bounds):
+# in a bin far below its frame's energy ln magnifies the rounding of any
+# float32 summation order (on an H100 11 of 224,460 X elements read up to
+# 0.0019, and a T element 0.0229, each within its bound)
+RECIPE_X_TOL, RECIPE_T_TOL = (1e-4, 1e-4), (2e-2, 1e-4)  # (atol, rtol)
+
+
+def _hold_builder(card: list, plain: list, pairs: list, cfg, inv_std, mc) -> dict:
+    """Hold the sample builder's (X, T) blocks on the card against its plain
+    version's: -> for X and T the largest difference, the largest ratio to
+    the limit (must be <= 1) and the elements beyond the fixed limit alone."""
+    from tpu_sednn_torch.data.device_pipeline import splice_device
+
+    istd = torch.as_tensor(inv_std, dtype=torch.float64, device="cuda")
+    out = {k: dict(err=0.0, ratio=0.0, beyond_fixed=0) for k in ("x", "t")}
+    for (xc, tc), (xp, tp), (noisy, clean) in zip(card, plain, pairs):
+        _check(xc.shape == xp.shape and tc.shape == tp.shape and xc.is_cuda,
+               f"sample shapes {tuple(xc.shape)} / {tuple(xp.shape)}")
+        n = xc.shape[0]
+        s_n = _lps_slack(torch.from_numpy(noisy).cuda(), cfg) * istd
+        s_x = splice_device(s_n, mc.fea_context)[:n]
+        s_x = torch.cat([s_x, s_n[:6].mean(dim=0).expand(n, -1)], dim=1)
+        s_t = _lps_slack(torch.from_numpy(clean).cuda(), cfg)[mc.targ_offset: mc.targ_offset + n]
+        for key, got, want, slack, (atol, rtol) in (("x", xc, xp, s_x, RECIPE_X_TOL),
+                                                   ("t", tc, tp, s_t, RECIPE_T_TOL)):
+            want = want.cuda().double()
+            diff, fixed = (got.double() - want).abs(), atol + rtol * want.abs()
+            o = out[key]
+            o["err"] = max(o["err"], float(diff.max()))
+            o["ratio"] = max(o["ratio"], float((diff / (fixed + slack)).max()))
+            o["beyond_fixed"] += int((diff > fixed).sum())
+    for key, o in out.items():
+        _check(o["ratio"] <= 1.0, f"sample builder {key.upper()} off its plain version by "
+                                  f"{o['ratio']:.3g} of the limit")
+    return out
+
+
+def _finite_numbers(tree, path="eval") -> list:
+    """[(path, value)] of every number in a nested dict of results that is not finite."""
+    if isinstance(tree, dict):
+        return [bad for k, v in tree.items() for bad in _finite_numbers(v, f"{path}.{k}")]
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return [] if np.isfinite(tree) else [(path, tree)]
+    return []
+
+
+def phase_recipe(tmp: str, smi: str) -> dict:
+    """The multi-condition recipe (main path): python -m
+    tpu_sednn_torch.recipes.multi_condition's non-small default run on the
+    card, 1548-2048x3-129 at 8 kHz, PSM head, parity dropout 0.1/0.2, bunch
+    128, 120 utterances x 6 SNRs x white/pink/babble, 15 epochs, scored on
+    the trained families and on factory and siren; then the on-device sample
+    builder (data/device_pipeline.py, the STFT kernel) on the recipe's first
+    corpus pairs.  Launch counts run from just before the recipe to just after
+    the builder."""
+    from tpu_sednn_torch.data.device_pipeline import streaming_sample_batches
+    from tpu_sednn_torch.data.mixing import synth_corpus
+    from tpu_sednn_torch.enhance import enhance_waveform
+    from tpu_sednn_torch.model import ModelConfig
+    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
+    from tpu_sednn_torch.recipes import load_run_dir
+    from tpu_sednn_torch.recipes import multi_condition as tmc
+    from tpu_sednn_torch.utils.checkpoint import restore_checkpoint
+    from tpu_sednn_torch.utils.logging import Logger
+
+    out_dir = os.path.join(tmp, "recipe")
+    metrics = os.path.join(tmp, "recipe_metrics.jsonl")
+    mc = tmc.MultiConditionConfig(out_dir=out_dir, eval_noise_kinds=RECIPE_EVAL_KINDS)
+    _check(mc.device == "cuda" and mc.hidden == (2048,) * 3 and mc.head == "psm"
+           and mc.sample_rate == 8000 and mc.n_epochs == 15 and mc.n_utts == 120,
+           f"the recipe's non-small default changed: {mc}")
+    reset_launch_counts()  # the path's run starts here
+    t0 = time.perf_counter()
+    res = tmc.run_multi_condition(mc, logger=Logger(stream=sys.stdout, metrics_path=metrics))
+    wall = time.perf_counter() - t0
+    after_recipe = launch_counts()
+    stages = {r["stage"]: r["seconds"] for r in map(json.loads, open(metrics))
+              if r.get("event") == "stage"}
+    _check(list(stages) == ["corpus", "featurize", "targets", "train", "eval"],
+           f"recipe stages {list(stages)}")
+    print(f"[recipe] {wall:.1f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+          + f"; training {res['train_samples_per_sec']:.0f} samples/s (the epoch loop by the "
+          f"host clock, CV included); {smi}", flush=True)
+
+    cv = res["cv_hist"]
+    _check(len(cv) == mc.n_epochs and cv[-1] < cv[0], f"recipe CV did not fall: {cv}")
+    bad = _finite_numbers(res["eval"])
+    _check(not bad, f"recipe eval numbers not finite: {bad}")
+    s0 = res["eval"]["synthetic_0dB"]
+    _check(s0["snr_enh"] > s0["snr_noisy"] and s0["stoi_enh"] > s0["stoi_noisy"],
+           f"recipe did not improve the 0 dB clip: {s0}")
+    gen = res["eval"]["noise_generalization"]
+    _check(set(gen["per_kind"]) == set(mc.noise_kinds) | set(RECIPE_EVAL_KINDS),
+           f"noise families scored: {sorted(gen['per_kind'])}")
+    print(f"[recipe] CV {cv[0]:.4f} -> {cv[-1]:.4f}; synthetic 0 dB SNR {s0['snr_noisy']:.2f} -> "
+          f"{s0['snr_enh']:.2f} dB, STOI {s0['stoi_noisy']:.4f} -> {s0['stoi_enh']:.4f}, PESQ(est) "
+          f"{s0['pesq_noisy']:.3f} -> {s0['pesq_enh']:.3f}, CSIG/CBAK/COVL {s0['csig_enh']:.3f} / "
+          f"{s0['cbak_enh']:.3f} / {s0['covl_enh']:.3f}; LSD gain seen {gen['seen']['lsd_gain']:+.3f}"
+          f" dB, unseen {gen['unseen']['lsd_gain']:+.3f} dB", flush=True)
+
+    # the run dir decodes as the recipe did: run.json + mlp.final.wts + fea.norm through
+    # load_run_dir against the recipe's final state (its last checkpoint) and config
+    params, mcfg, ecfg, mean, istd, tn, gv = load_run_dir(out_dir, device="cuda")
+    state, extra, _ = restore_checkpoint(os.path.join(out_dir, "ckpt"), device="cuda")
+    want_mcfg = ModelConfig(layersizes=tuple(extra["layersizes"]), dropout_vis=mc.dropout[0],
+                            dropout_hid=mc.dropout[1], dropout_mode="parity", output="sigmoid")
+    _check(extra["cv_hist"] == cv and ecfg == tmc._enhance_config(mc) and mcfg == want_mcfg
+           and mcfg.layersizes == FLAGSHIP and tn is None and gv is None,
+           f"the run dir's decode config differs from the recipe's: {mcfg}, {ecfg}")
+    _check(all(torch.equal(a, b) for a, b in zip(list(params.w) + list(params.b),
+                                                 list(state.params.w) + list(state.params.b))),
+           "mlp.final.wts differs from the recipe's final state")
+    _, cl, nz = tmc.synthetic_eval_clips(mc)[0]
+    again = enhance_waveform(params, mcfg, ecfg, nz, mean, istd, device="cuda")
+    own = enhance_waveform(state.params, mcfg, ecfg, nz, mean, istd, device="cuda")
+    _check(np.array_equal(again, own), "the reloaded decoder's 0 dB clip differs from the recipe's")
+    rescored = tmc.score_synthetic(cl, nz, again, mc.sample_rate)
+    _check(rescored == s0, f"the reloaded decoder scores {rescored}, the recipe {s0}")
+    print("[recipe] run.json + mlp.final.wts + fea.norm reload through load_run_dir into the "
+          "recipe's decode config; the 0 dB clip decodes bit for bit as the recipe's final state "
+          "does and scores exactly the recipe's synthetic_0dB block", flush=True)
+
+    # module 7: the recipe corpus's first pairs -> samples on the card (the STFT kernel)
+    n_pairs = RECIPE_BUILDER_PAIRS
+    cleans, noisys = synth_corpus(mc.seed, n_pairs, sr=mc.sample_rate, snrs=mc.snrs,
+                                  noise_kinds=mc.noise_kinds)
+    pairs = list(zip(noisys, cleans))
+    kw = dict(cfg=ecfg.stft, fea_context=mc.fea_context, targ_offset=mc.targ_offset, nat=True)
+    stft_before = launch_counts()["stft_lps"]
+    t1 = time.perf_counter()
+    card = [(x, t) for x, t in streaming_sample_batches(pairs, mean, istd, device="cuda", **kw)]
+    torch.cuda.synchronize()
+    builder_s = time.perf_counter() - t1
+    n_stft_builder = launch_counts()["stft_lps"] - stft_before
+    counts = launch_counts()
+    t1 = time.perf_counter()
+    plain = list(streaming_sample_batches(pairs, mean, istd, device="cpu", **kw))
+    plain_s = time.perf_counter() - t1
+    _check(len(card) == len(plain) == n_pairs and n_stft_builder == 2 * n_pairs,
+           f"{len(card)} / {len(plain)} sample blocks, {n_stft_builder} stft_lps launches")
+    held = _hold_builder(card, plain, pairs, ecfg.stft, istd, mc)
+    hx, ht = held["x"], held["t"]
+    n_samples = sum(x.shape[0] for x, _ in card)
+    print(f"[recipe] on-device sample builder: {n_pairs} corpus pairs -> {n_samples} samples of "
+          f"{card[0][0].shape[1]} + {card[0][1].shape[1]} on the card ({n_stft_builder} stft_lps "
+          f"launches, {builder_s * 1e3:.1f} ms by the host clock; the CPU plain version "
+          f"{plain_s * 1e3:.1f} ms); max |x - plain| {hx['err']:.3g}, {hx['ratio']:.3f} of atol "
+          f"1e-4 + rtol 1e-4 + the float32 rounding bound ({hx['beyond_fixed']} elements beyond "
+          f"the fixed part alone); max |t - plain| {ht['err']:.3g}, {ht['ratio']:.3f} of atol 2e-2 "
+          f"+ rtol 1e-4 + the bound ({ht['beyond_fixed']} beyond the fixed part)", flush=True)
+
+    kc = counts["resident_chunk_kernels"]
+    _check(counts["resident_chunk"] > 0 and kc["tc_linear_act"] > 0 and kc["tc_bwd_update"] > 0
+           and kc["philox_mask"] > 0 and counts["plain_train_chunk"] == 0
+           and after_recipe["stft_lps"] == 0,
+           f"recipe path launches {counts}")
+    print(f"[recipe] launches: chunk trainer {counts['resident_chunk']} calls (tensor cores; the "
+          f"plain trainer {counts['plain_train_chunk']}), {kc['tc_linear_act']} tc_fwd, "
+          f"{kc['tc_bwd_update']} tc_bwd, {kc['philox_mask']} with masks, {kc['pdl']} dependent; "
+          f"stft_lps {counts['stft_lps']}", flush=True)
+    return dict(counts={k: v for k, v in counts.items() if isinstance(v, int)}, kernel_counts=kc,
+                stages=stages, wall_s=wall, cv_hist=cv, synthetic_0dB=s0,
+                synthetic_5dB=res["eval"]["synthetic_5dB"],
+                noise_generalization={k: gen[k] for k in ("seen", "unseen", "gap")},
+                train_samples_per_sec=res["train_samples_per_sec"],
+                builder=dict(pairs=n_pairs, samples=n_samples, ms=builder_s * 1e3,
+                             plain_ms=plain_s * 1e3, held=held))
+
+
 def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
     """(a) kernel holds and times, (b) the DP chunk trainer on 2 and 4 ranks
     sharing the card (gloo) against the single-process trainer, (c) the
@@ -3442,8 +3638,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--only", default="", help="comma-separated subset of serve,kernels,train,dp "
-                    "(for development: prints no kernels line and no final line, exits with 2)")
+    ap.add_argument("--only", default="", help="comma-separated subset of serve,kernels,train,"
+                    "recipe,dp (for development: prints no kernels line and no final line, "
+                    "exits with 2)")
     ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "WORLD", "DIR"),
                     help="one rank of the dp phase's runs (started by the dp phase itself)")
     ap.add_argument("--chain-times", action="store_true",
@@ -3455,7 +3652,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
-    everything = {"serve", "kernels", "train", "dp"}
+    everything = {"serve", "kernels", "train", "recipe", "dp"}
     groups = set(filter(None, args.only.split(","))) or everything
     if not groups <= everything:
         ap.error(f"unknown group in --only {args.only!r}")
@@ -3504,6 +3701,9 @@ def main(argv=None) -> int:
         if "train" in groups:
             train = phase_train(tmp, smi)
             arrays = phase_train_arrays(tmp, smi)
+        if "recipe" in groups:
+            torch.cuda.empty_cache()
+            recipe = phase_recipe(tmp, smi)
         if "dp" in groups:
             torch.cuda.empty_cache()
             dp = phase_dp(tmp, smi, train_ran="train" in groups)
@@ -3563,9 +3763,20 @@ def main(argv=None) -> int:
                     ("philox_mask", dkc["philox_mask"])):
         _check(n > 0, f"the data-parallel training path never launched the {name} kernel")
 
-    def by_path(train_n, arrays_n, make_pfile=0, serving=0, train_dp=0):
+    # the recipe's path: the chunk trainer in its tensor-core form and the STFT kernel
+    rc, rkc = recipe["counts"], recipe["kernel_counts"]
+    for name, n in (("resident_chunk (tensor cores)", rc["resident_chunk"]),
+                    ("fused_linear_act (tensor cores)", rkc["tc_linear_act"]),
+                    ("fused_bwd_update (tensor cores)", rkc["tc_bwd_update"]),
+                    ("philox_mask", rkc["philox_mask"]), ("stft_lps", rc["stft_lps"])):
+        _check(n > 0, f"the recipe path never launched the {name} kernel")
+    _check(rkc["fused_linear_act"] == rkc["tc_linear_act"]
+           and rkc["fused_bwd_update"] == rkc["tc_bwd_update"],
+           f"the recipe path launched float32-product layer kernels: {rkc}")
+
+    def by_path(train_n, arrays_n, make_pfile=0, serving=0, train_dp=0, recipe=0):
         return {"make_pfile": make_pfile, "serving": serving, "train": train_n,
-                "train_arrays": arrays_n, "train_dp": train_dp}
+                "train_arrays": arrays_n, "train_dp": train_dp, "recipe": recipe}
 
     def variant(name, form, timing_key, what):
         return dict(name=f"resident_chunk_{name}", source="tpu_sednn_torch/csrc/resident_chunk.cu",
@@ -3577,19 +3788,20 @@ def main(argv=None) -> int:
                     shape=f"{BUNCH} x 3084-2048x3-257, per bunch", **wide["timing"][timing_key])
 
     def layer_launches(kernel, wrapper, form):
-        """(train, arrays, train_dp) launches of kernel 1 or 2 in one product form: the
-        chunk trainers' tallies plus the wrapper's own counts; form "tc" or "f32"."""
+        """(train, arrays, train_dp, recipe) launches of kernel 1 or 2 in one product
+        form: the chunk trainers' tallies plus the wrapper's own counts; form "tc" or
+        "f32"."""
         tc_key = {"fused_linear_act": "tc_linear_act", "fused_bwd_update": "tc_bwd_update"}[kernel]
         tr_tc, ar_tc = kc[tc_key] + tw[wrapper + "_tc"], akc[tc_key] + ac[wrapper + "_tc"]
         if form == "tc":
-            return tr_tc, ar_tc, dkc[tc_key]
+            return tr_tc, ar_tc, dkc[tc_key], rkc[tc_key]
         return (kc[kernel] + tw[wrapper] - tr_tc, akc[kernel] + ac[wrapper] - ar_tc,
-                dkc[kernel] - dkc[tc_key])
+                dkc[kernel] - dkc[tc_key], rkc[kernel] - rkc[tc_key])
 
     def layer_row(name, kernel, form, source, replaces, timing, **more):
-        tr, ar, dpn = layer_launches(kernel, kernel, form)
-        return dict(name=name, source=source, replaces=replaces, launches=tr + ar + dpn,
-                    launches_by_path=by_path(tr, ar, train_dp=dpn), route="cuda",
+        tr, ar, dpn, rcn = layer_launches(kernel, kernel, form)
+        return dict(name=name, source=source, replaces=replaces, launches=tr + ar + dpn + rcn,
+                    launches_by_path=by_path(tr, ar, train_dp=dpn, recipe=rcn), route="cuda",
                     shape="one bunch of 128 through the four layers of 1548-2048x3-129",
                     **more, **timing)
 
@@ -3597,9 +3809,10 @@ def main(argv=None) -> int:
     kernels = [
         dict(name="stft_lps", source="tpu_sednn_torch/csrc/stft_lps.cu",
              replaces="tpu_sednn/ops/stft_pallas.py:34",
-             launches=n_featurizer + n_serving + train["stft_launches"] + ac["stft_lps"],
+             launches=n_featurizer + n_serving + train["stft_launches"] + ac["stft_lps"]
+             + rc["stft_lps"],
              launches_by_path=by_path(train["stft_launches"], ac["stft_lps"], n_featurizer,
-                                      n_serving),
+                                      n_serving, recipe=rc["stft_lps"]),
              max_abs_err=kern["max_abs_err"], tol_ratio=kern["tol_ratio"], ms=t8["ms"],
              plain_ms=t8["plain_ms"], bound_ms=t8["bound_ms"], bound_by=t8["bound_by"],
              library_ms=t8["library_ms"], dft_floor_ms=t8["dft_floor_ms"], shape=t8["shape"],
@@ -3648,21 +3861,23 @@ def main(argv=None) -> int:
              at_16k=wide["timing"]["f32"], **resident[False], route="cuda"),
         dict(name="resident_chunk_tc", source="tpu_sednn_torch/csrc/resident_chunk.cu",
              replaces="tpu_sednn/ops/resident_chunk.py:169",
-             launches=tforms["tc"], launches_by_path=by_path(tforms["tc"], 0),
+             launches=tforms["tc"] + rc["resident_chunk"],
+             launches_by_path=by_path(tforms["tc"], 0, recipe=rc["resident_chunk"]),
              launches_of="chunk-trainer calls with tensor-core products and float32 state "
                          "(bf16=True: engine=auto on the card)",
              at_16k=wide["timing"]["tc_f32"],
              ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"],
-             pdl_launches=kc["pdl"] + akc["pdl"],
+             pdl_launches=kc["pdl"] + akc["pdl"] + rkc["pdl"],
              pdl_launches_of="the chain's programmatic dependent launches on the training paths "
                              "(every tensor-core launch of a call but its first)",
              host_ms_per_bunch=train["host_ms_per_bunch"], chain_times=chains, **resident[True],
              route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",
              replaces="tpu_sednn/ops/resident_chunk.py:970",
-             launches=kc["philox_mask"] + akc["philox_mask"] + dkc["philox_mask"],
+             launches=kc["philox_mask"] + akc["philox_mask"] + dkc["philox_mask"]
+             + rkc["philox_mask"],
              launches_by_path=by_path(kc["philox_mask"], akc["philox_mask"],
-                                      train_dp=dkc["philox_mask"]),
+                                      train_dp=dkc["philox_mask"], recipe=rkc["philox_mask"]),
              **masks, route="cuda"),
         variant("sr_delta", "sr_delta", "sr_delta", "sr_delta, parity, dropout 0.1/0.2"),
         variant("sr_state", "sr_state", "sr_state", "sr_state, parity, dropout 0.1/0.2"),
@@ -3692,6 +3907,7 @@ def main(argv=None) -> int:
     for k in kernels:
         _check(keys <= set(k), f"kernels line: {k['name']} lacks {keys - set(k)}")
     print(f"[arrays] summary {json.dumps(arrays)}")
+    print(f"[recipe] summary {json.dumps(recipe)}")
     print(f"[dp] summary {json.dumps(dp)}")
     print(f"[train] summary {json.dumps(train)}")
     print(smi)

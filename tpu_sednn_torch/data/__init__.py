@@ -7,3 +7,11 @@ from tpu_sednn_torch.data.pipeline import (
     build_training_arrays,
     read_chunk_parity,
 )
+from tpu_sednn_torch.data.mixing import mix_at_snr, synth_speech, synth_noise
+from tpu_sednn_torch.data.masks import (
+    irm_from_clean_noise,
+    ibm_from_clean_noise,
+    irm_from_lps,
+    ibm_from_lps,
+    psm_from_stft,
+)
