@@ -23,8 +23,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      64 x 32 s at 16 kHz, random glorot weights from a seed with parity
      dropout 0.1/0.2 folded in; output finite, of the right shape, its first
      two utterances equal to the same decoder on the CPU; audio-s/s.  Then
-     the `python -m tpu_sednn_torch.enhance` command on a wav, with a .wts
-     and .norm the port wrote.
+     the serving modes at the full width of both nets (8 kHz: the lps head,
+     NAT, the featurizer's .norm; 16 kHz: a psm head with a target norm),
+     each run with every launch count zeroed just before it and held to
+     launch no kernel of the port, as the JAX decode reaches no Pallas kernel:
+     [stream] StreamingEnhancer and DeviceStreamingEnhancer at block 1 and 8
+     on seeded chunkings against the offline card decode (max err 5e-5),
+     scan_blocks against push (1e-6), the step's time (CUDA events), push
+     per block, scan_blocks audio-s/s, real-time factor, algorithmic latency;
+     [quant] int8 weights and one layer's int32 accumulators (1 to 640 rows)
+     bit-equal to the CPU plain version, the int8 forward within 1e-6 of the
+     CPU's and under 2% of float32, the int8 decode under 0.5 dB LSD of
+     float32, int8 device streams at blocks 1 and 8, int8 and float32
+     serving audio-s/s and parameter bytes; [fusion] two full-width models:
+     weights (1, 0) against the single model (1e-6), the fused serving
+     decoder against the eager fused decode (rtol 1e-4, atol 1e-5), its
+     audio-s/s.  Then the `python -m tpu_sednn_torch.enhance` command on a
+     wav in its five modes (offline, --stream 8, --stream 8 --stream-device,
+     --quant int8, --fuse-with a run dir), the five at once, with a .wts and
+     .norm the port wrote, each against the in-process decode of its mode.
   5. fused layer kernels (fused_linear_act, fused_bwd_update) with float32
      products (bf16=False) against their float64 plain versions at the four
      flagship layer shapes and at ragged ones, with in-kernel and explicit
@@ -438,16 +455,22 @@ def phase_featurizer(tmp: str, gen_np) -> tuple[list, str, int]:
     return wavs, nf, launched
 
 
-def _serving_model(sr: int, gen_seed: int):
+def _serving_model(sr: int, gen_seed: int, head: str = "lps"):
+    """A full-width net (d*11 + d)-2048x3-d with random glorot weights from a
+    seed, parity dropout 0.1/0.2, context 11, offset 5, NAT; the lps head, or
+    a mask head (sigmoid output, mask floor 0.05)."""
     from tpu_sednn_torch.dsp import StftConfig
     from tpu_sednn_torch.enhance import EnhanceConfig
     from tpu_sednn_torch.model import ModelConfig, init_params
 
     stft = StftConfig.for_rate(sr)
     d = stft.n_bins
+    mask = head != "lps"
     mcfg = ModelConfig(layersizes=(d * 11 + d, 2048, 2048, 2048, d), hidden="relu",
-                       output="linear", dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity")
-    ecfg = EnhanceConfig(stft=stft, fea_context=11, targ_offset=5, nat=True, head="lps")
+                       output="sigmoid" if mask else "linear", dropout_vis=0.1, dropout_hid=0.2,
+                       dropout_mode="parity")
+    ecfg = EnhanceConfig(stft=stft, fea_context=11, targ_offset=5, nat=True, head=head,
+                         mask_floor=0.05 if mask else 0.0)
     mlp = init_params(torch.Generator().manual_seed(gen_seed), mcfg, scheme="glorot",
                       device="cuda")
     return mlp, mcfg, ecfg
@@ -532,31 +555,457 @@ def _profile(label: str, fn, *args, top: int = 8) -> None:
               f"x{e.count:<4d} {e.key[:90]}")
 
 
-def phase_cli(tmp: str, wavs: list, norm_8k: str) -> None:
-    from tpu_sednn_torch.enhance import make_serving_decoder
-    from tpu_sednn_torch.io import load_norm, read_wav, save_wts
-    from tpu_sednn_torch.model import params_to_wts
+# ---------------------------------------------------------------------------
+# serving modes: streaming (host and device state), int8, head fusion.  No
+# kernel of the port lies on these paths (the JAX decode computes its STFT,
+# forward and int8 product in XLA); each is run with every launch count
+# zeroed just before it and read just after, and must launch none.
+# ---------------------------------------------------------------------------
 
-    mlp, mcfg, ecfg = _serving_model(8000, 0)
+STREAM_TOL = 5e-5  # streaming vs the offline card decode, max |diff| (tests/test_streaming.py)
+SCAN_TOL = 1e-6  # scan_blocks vs push, max |diff|
+QUANT_CARD_REL = 1e-6  # card int8 forward vs its CPU plain version, relative Frobenius
+QUANT_F32_REL = 0.02  # int8 vs float32 forward, relative Frobenius (tests/test_quant.py)
+QUANT_LSD_DB = 0.5  # int8 vs float32 decode of a 2 s clip, LSD (tests/test_quant.py)
+QUANT_STREAM_REL = 0.05  # int8 vs float32 stream, relative (tests/test_streaming.py)
+# int8 stream vs int8 decode, relative Frobenius: per-row scales make them equal but
+# where float32 order (GEMMs of other shapes) moves a row's quantization across a
+# rounding boundary; a quarter of the int8-vs-float32 difference (0.0036 on the card)
+QUANT_STREAM_OF_INT8 = 1e-3
+FUSION_SINGLE_TOL = 1e-6  # weights (1, 0) vs the single-model decode, max |diff|
+FUSION_RTOL, FUSION_ATOL = 1e-4, 1e-5  # fused serving decoder vs the eager fused decode
+
+
+def _launches_total() -> int:
+    """Every launch counter of the port, summed (ops.launch_counts)."""
+    from tpu_sednn_torch.ops import launch_counts
+
+    counts = launch_counts()
+    return sum(sum(v.values()) if isinstance(v, dict) else v for v in counts.values())
+
+
+def _none_launched(path: str) -> int:
+    """The launches since the counts were zeroed (checked to be 0)."""
+    from tpu_sednn_torch.ops import launch_counts
+
+    total = _launches_total()
+    _check(total == 0, f"the {path} path launched a kernel of the port: {launch_counts()}")
+    return total
+
+
+def _serve_clip(sr: int, n: int, seed: int) -> np.ndarray:
+    """n samples of a seeded speech-like signal over coloured noise, clipped
+    to [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    s = _speechlike(rng, n, sr)
+    noise = np.convolve(rng.standard_normal(n + 8), rng.uniform(-1, 1, 9), "valid")
+    noise *= 0.3 * np.sqrt(np.mean(s ** 2) / np.mean(noise ** 2))
+    return np.clip(s + noise, -1, 1).astype(np.float32)
+
+
+def _serve_mode_model(sr: int, norm_8k: str):
+    """The modes' full-width model at sr -> (mlp, mcfg, ecfg, mean, inv_std,
+    target_norm): at 8 kHz the lps head with NAT and the featurizer's .norm;
+    at 16 kHz a psm head with a target norm (the mask heads take it and do not
+    use it, as in the JAX package) and the .norm of a seeded clip."""
+    from tpu_sednn_torch.dsp import stft_logpower
+    from tpu_sednn_torch.io import compute_norm, load_norm
+
+    if sr == 8000:
+        mlp, mcfg, ecfg = _serving_model(8000, 0)
+        mean, istd = load_norm(norm_8k, ecfg.stft.n_bins)
+        return mlp, mcfg, ecfg, mean, istd, None
+    mlp, mcfg, ecfg = _serving_model(16000, 1, head="psm")
+    d = ecfg.stft.n_bins
+    with torch.inference_mode():  # set-up, the STFT matmuls
+        lps = stft_logpower(torch.from_numpy(_serve_clip(sr, 8 * sr, 71)).cuda(), ecfg.stft)
+    mean, istd = compute_norm(lps.cpu().numpy())
+    return mlp, mcfg, ecfg, mean, istd, (np.full(d, 0.3, np.float32), np.full(d, 0.7, np.float32))
+
+
+def _chunked(x: np.ndarray, seed: int) -> list:
+    """x cut into seeded chunks of 1-899 samples (tests/test_streaming.py)."""
+    rng = np.random.default_rng(seed)
+    out, i = [], 0
+    while i < len(x):
+        n = int(rng.integers(1, 900))
+        out.append(x[i : i + n])
+        i += n
+    return out
+
+
+def phase_stream(norm_8k: str, smi: str) -> dict:
+    """StreamingEnhancer and DeviceStreamingEnhancer at block 1 and 8 on the
+    card, at the full width of both nets, against the offline card decode;
+    scan_blocks against push; step times, throughput, real-time factor and
+    algorithmic latency."""
+    from tpu_sednn_torch.enhance import (DeviceStreamingEnhancer, StreamingEnhancer,
+                                         enhance_waveform)
+    from tpu_sednn_torch.ops import reset_launch_counts
+
+    res, launched = {}, 0
+    for sr in (8000, 16000):
+        mlp, mcfg, ecfg, mean, istd, tn = _serve_mode_model(sr, norm_8k)
+        hop, ms_per_sample = ecfg.stft.hop, 1e3 / sr
+        wav = _serve_clip(sr, 3 * sr + 517 if sr == 8000 else 2 * sr + 333, 80 + sr // 8000)
+        ref = enhance_waveform(mlp, mcfg, ecfg, wav, mean, istd, target_norm=tn, device="cuda")
+        out = res[sr] = {"net": f"{mcfg.layersizes[0]}-2048x3-{mcfg.layersizes[-1]}",
+                         "head": ecfg.head}
+        for B in (1, 8):
+            for cls in (StreamingEnhancer, DeviceStreamingEnhancer):
+                se = cls(mlp, mcfg, ecfg, mean, istd, target_norm=tn, block_frames=B,
+                         device="cuda")
+                reset_launch_counts()  # the streaming path's run starts here
+                got = np.concatenate([se.push(c) for c in _chunked(wav, 5 + B)] + [se.flush()])
+                torch.cuda.synchronize()
+                # and ends here
+                launched += _none_launched(f"streaming ({cls.__name__}, block {B})")
+                err = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+                _check(err < STREAM_TOL, f"{cls.__name__} block {B} at {sr} Hz vs offline "
+                                         f"decode: shape {got.shape} vs {ref.shape}, max err {err}")
+                out[f"{cls.__name__}_b{B}_max_abs_err"] = err
+            # device state: scan_blocks against push, then the timings
+            n_blocks = 96
+            step_in = B * hop
+            long = _serve_clip(sr, (n_blocks + 16) * step_in + 4 * sr, 90 + B)
+            se1, se2 = (DeviceStreamingEnhancer(mlp, mcfg, ecfg, mean, istd, target_norm=tn,
+                                                block_frames=B, device="cuda") for _ in range(2))
+            prime = se1._n_prime + 2 * step_in  # primes and leaves whole blocks only
+            reset_launch_counts()
+            _check(np.array_equal(se1.push(long[:prime]), se2.push(long[:prime])), "primed pushes")
+            blocks = long[prime : prime + n_blocks * step_in].reshape(n_blocks, step_in)
+            push_ms, pushed = [], []
+            for b in blocks:
+                t0 = time.perf_counter()
+                pushed.append(se1.push(b))
+                push_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            scanned = se2.scan_blocks(blocks)
+            scan_s = time.perf_counter() - t0
+            launched += _none_launched(f"device streaming (block {B})")
+            serr = float(np.abs(scanned.ravel() - np.concatenate(pushed)).max())
+            _check(serr <= SCAN_TOL, f"scan_blocks vs push at block {B}, {sr} Hz: max err {serr}")
+            # the step alone, CUDA events around each of 64 steps of a primed carry
+            steps = torch.from_numpy(blocks[:64].copy()).cuda()
+            events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                      for _ in range(len(steps))]
+            with torch.inference_mode():
+                carry = se2._carry
+                for i, (a, b) in enumerate(events):
+                    a.record()
+                    carry, _ = se2._step(carry, steps[i])
+                    b.record()
+                torch.cuda.synchronize()
+            step_ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+            block_ms = step_in * ms_per_sample
+            out[f"b{B}"] = dict(
+                scan_vs_push_max_abs_err=serr, step_ms=step_ms,
+                push_ms_median=float(np.median(push_ms)), block_audio_ms=block_ms,
+                rtf_step=step_ms / block_ms, rtf_push=float(np.median(push_ms)) / block_ms,
+                scan_blocks=n_blocks, scan_audio_s_per_s=n_blocks * step_in / sr / scan_s,
+                latency_samples=se1.algorithmic_latency_samples,
+                latency_ms=se1.algorithmic_latency_samples * ms_per_sample)
+            r = out[f"b{B}"]
+            print(f"[stream] {out['net']} ({ecfg.head}) @ {sr} Hz, block {B}: host and device "
+                  f"state vs offline decode max err {out[f'StreamingEnhancer_b{B}_max_abs_err']:.3g}"
+                  f" / {out[f'DeviceStreamingEnhancer_b{B}_max_abs_err']:.3g} (tol {STREAM_TOL:g})"
+                  f"; scan_blocks vs push {serr:.3g}; step {step_ms:.4f} ms (CUDA events, median "
+                  f"of 64), push {r['push_ms_median']:.4f} ms a block (host clock, copies "
+                  f"included), RTF {r['rtf_step']:.4f} (step) / {r['rtf_push']:.4f} (push) of a "
+                  f"{block_ms:g} ms block; scan_blocks {r['scan_audio_s_per_s']:.1f} audio-s/s "
+                  f"over {n_blocks} blocks; algorithmic latency {r['latency_samples']} samples "
+                  f"= {r['latency_ms']:g} ms; on {smi}", flush=True)
+        if sr == 8000:
+            _check(out["b8"]["latency_samples"] == 1792, "8 kHz flagship latency at block 8")
+        del mlp
+        torch.cuda.empty_cache()
+    res["launches"] = launched
+    return res
+
+
+def _param_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _serving_rate(decode, wavs, secs: float) -> tuple[float, list]:
+    """(audio-s/s, ms of each of 5 batches): median of 5 timed batches after one."""
+    decode(wavs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode(wavs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return wavs.shape[0] * secs / float(np.median(times)), [t * 1e3 for t in times]
+
+
+def phase_quant(norm_8k: str, smi: str) -> dict:
+    """int8 serving on the card at both widths: the quantized weights and one
+    layer's int32 accumulators bit-equal to the CPU plain version's, the
+    int8 forward against the CPU's and against float32, the int8 decode's
+    LSD from the float32 decode, and int8 beside float32 serving audio-s/s."""
+    from tpu_sednn_torch.dsp import stft_logpower
+    from tpu_sednn_torch.enhance import DeviceStreamingEnhancer, make_serving_decoder
+    from tpu_sednn_torch.metrics.quality import lsd
+    from tpu_sednn_torch.model import fold_eval_params, forward_eval
+    from tpu_sednn_torch.model.quant import (_int8_matmul, _quantize_rows, forward_eval_int8,
+                                             quantize_params_int8)
+    from tpu_sednn_torch.ops import reset_launch_counts
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    res, launched = {}, 0
+    for sr, secs in ((8000, 64.0), (16000, 32.0)):
+        mlp, mcfg, ecfg, mean, istd, tn = _serve_mode_model(sr, norm_8k)
+        folded, ecf = fold_eval_params(mlp, mcfg)
+        reset_launch_counts()  # the int8 path's runs start here
+        qg = quantize_params_int8(folded)
+        qc = quantize_params_int8(folded.on("cpu"))
+        for name in ("wq", "sw"):
+            for l, (a, b) in enumerate(zip(getattr(qg, name), getattr(qc, name))):
+                _check((a is None) == (b is None) and (a is None or torch.equal(a.cpu(), b)),
+                       f"card vs CPU quantized {name}[{l}] at {sr} Hz")
+        acc_rows = []
+        for rows in (1, 8, 17, 640):
+            for l in (0, 1):
+                k = mcfg.layersizes[l]
+                x = torch.randn(rows, k, generator=gen, device="cuda") * (3.0 if l == 0 else 1.0)
+                xq, sx = _quantize_rows(x)
+                xqc, sxc = _quantize_rows(x.cpu())
+                _check(torch.equal(xq.cpu(), xqc) and torch.equal(sx.cpu(), sxc),
+                       f"card vs CPU row quantization, {rows} rows, layer {l}")
+                acc = _int8_matmul(xq, qg.wq[l])
+                _check(acc.dtype == torch.int32 and acc.is_cuda
+                       and torch.equal(acc.cpu(), _int8_matmul(xqc, qc.wq[l])),
+                       f"card vs CPU int32 accumulators, {rows} rows, layer {l} at {sr} Hz")
+            acc_rows.append(rows)
+        x = torch.randn(256, mcfg.layersizes[0], generator=gen, device="cuda")
+        with torch.inference_mode():
+            out = forward_eval_int8(qg, x, ecf)
+            out_cpu = forward_eval_int8(qc, x.cpu(), ecf)
+            ref = forward_eval(mlp, x, mcfg)
+        rel_cpu = float(torch.linalg.norm(out.cpu() - out_cpu) / torch.linalg.norm(out_cpu))
+        rel_f32 = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
+        _check(rel_cpu <= QUANT_CARD_REL, f"card vs CPU int8 forward at {sr} Hz: {rel_cpu}")
+        _check(rel_f32 < QUANT_F32_REL, f"int8 vs float32 forward at {sr} Hz: {rel_f32}")
+        clip = _serve_clip(sr, 2 * sr, 60 + sr // 8000)[None]
+        f32_dec = make_serving_decoder(mlp, mcfg, ecfg, mean, istd, target_norm=tn, device="cuda")
+        q_dec = make_serving_decoder(mlp, mcfg, ecfg, mean, istd, target_norm=tn, quant="int8",
+                                     device="cuda")
+        with torch.inference_mode():
+            a, b = f32_dec(clip)[0], q_dec(clip)[0]
+            d_lsd = lsd(stft_logpower(a, ecfg.stft).cpu().numpy(),
+                        stft_logpower(b, ecfg.stft).cpu().numpy())
+        _check(bool(torch.isfinite(b).all()) and d_lsd < QUANT_LSD_DB,
+               f"int8 vs float32 decode at {sr} Hz: LSD {d_lsd} dB")
+        # int8 streaming, device state, blocks of 1 and 8 rows: against the int8 offline
+        # decode (QUANT_STREAM_OF_INT8) and the float32 stream (QUANT_STREAM_REL)
+        stream_err = {}
+        for B in (1, 8):
+            outs = []
+            for quant in ("int8", "none"):
+                se = DeviceStreamingEnhancer(mlp, mcfg, ecfg, mean, istd, target_norm=tn,
+                                             block_frames=B, quant=quant, device="cuda")
+                outs.append(np.concatenate([se.push(c) for c in _chunked(clip[0], B)]
+                                           + [se.flush()]))
+            q_off = b.cpu().numpy()
+            off = float(np.linalg.norm(outs[0] - q_off) / np.linalg.norm(q_off))
+            off_max = float(np.abs(outs[0] - q_off).max() / np.abs(q_off).max())
+            rel = float(np.linalg.norm(outs[0] - outs[1]) / np.linalg.norm(outs[1]))
+            _check(off <= QUANT_STREAM_OF_INT8 and rel < QUANT_STREAM_REL,
+                   f"int8 stream, block {B}, at {sr} Hz: vs the int8 decode {off} "
+                   f"(max {off_max} of its peak), vs the float32 stream {rel}")
+            stream_err[B] = dict(vs_int8_decode_rel=off, vs_int8_decode_max_of_peak=off_max,
+                                 vs_f32_stream_rel=rel)
+        layout = None
+        if sr == 8000:  # the int8 product of layer 1 for a batch's rows, W in both layouts
+            rows = 64 * ecfg.stft.n_frames(int(secs * sr))
+            xq = torch.randint(-127, 128, (rows, 2048), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            w_cm, w_rm = qg.wq[1], qg.wq[1].contiguous()
+            _check(w_cm.stride() == (1, 2048), f"int8 weights stored {w_cm.stride()}")
+            ms_cm = _device_ms(lambda i: torch._int_mm(xq, w_cm), reps=5)
+            ms_rm = _device_ms(lambda i: torch._int_mm(xq, w_rm), reps=5)
+            ops = 2.0 * rows * 2048 * 2048
+            layout = dict(rows=rows, col_major_ms=ms_cm, row_major_ms=ms_rm,
+                          col_major_tops=ops / ms_cm / 1e9, row_major_tops=ops / ms_rm / 1e9)
+            print(f"[quant] int8 product {rows} x 2048 x 2048 (torch._int_mm): W column-major "
+                  f"{ms_cm:.3f} ms ({layout['col_major_tops']:.1f} TOP/s), row-major {ms_rm:.3f} "
+                  f"ms ({layout['row_major_tops']:.1f} TOP/s); on {smi}", flush=True)
+            del xq
+        batch, n = 64, int(secs * sr)
+        wavs = torch.from_numpy(np.stack([_serve_clip(sr, n, 200 + i) for i in range(4)]))
+        wavs = wavs.repeat(batch // 4, 1).cuda()
+        rate_q, ms_q = _serving_rate(q_dec, wavs, secs)
+        rate_f, ms_f = _serving_rate(f32_dec, wavs, secs)
+        torch.cuda.synchronize()
+        launched += _none_launched(f"int8 serving ({sr} Hz)")  # and end here
+        f32_bytes = _param_bytes(list(folded.w) + list(folded.b))
+        q_bytes = _param_bytes(qg.wq + qg.sw + qg.w_f32 + qg.b)
+        res[sr] = dict(net=f"{mcfg.layersizes[0]}-2048x3-{mcfg.layersizes[-1]}",
+                       int32_rows_held=acc_rows, fwd_rel_vs_cpu=rel_cpu, fwd_rel_vs_f32=rel_f32,
+                       decode_lsd_db=d_lsd, stream_int8=stream_err, int8_product=layout,
+                       batch=batch, seconds=secs,
+                       int8_audio_s_per_s=rate_q, f32_audio_s_per_s=rate_f,
+                       int8_ms_per_batch=ms_q, f32_ms_per_batch=ms_f,
+                       int8_param_bytes=q_bytes, f32_param_bytes=f32_bytes)
+        print(f"[quant] {res[sr]['net']} @ {sr} Hz: int8 weights and int32 accumulators "
+              f"(rows {acc_rows}, layers 0 and 1) bit-equal to the CPU plain version; int8 "
+              f"forward vs CPU {rel_cpu:.3g} (tol {QUANT_CARD_REL:g}), vs float32 {rel_f32:.4f} "
+              f"(tol {QUANT_F32_REL:g}); decode LSD vs float32 {d_lsd:.4f} dB (tol "
+              f"{QUANT_LSD_DB:g}); int8 device stream, blocks 1 / 8, vs the int8 decode "
+              f"{stream_err[1]['vs_int8_decode_rel']:.3g} / "
+              f"{stream_err[8]['vs_int8_decode_rel']:.3g} (tol {QUANT_STREAM_OF_INT8:g}; max "
+              f"{stream_err[1]['vs_int8_decode_max_of_peak']:.3g} / "
+              f"{stream_err[8]['vs_int8_decode_max_of_peak']:.3g} of its peak), vs the float32 stream "
+              f"{stream_err[1]['vs_f32_stream_rel']:.4f} / {stream_err[8]['vs_f32_stream_rel']:.4f}"
+              f" (tol {QUANT_STREAM_REL:g}); serving {batch} x {secs:g} s: int8 {rate_q:.1f} audio-s/s, "
+              f"float32 {rate_f:.1f} (medians of 5); params int8 {q_bytes / 1e6:.2f} MB, "
+              f"float32 {f32_bytes / 1e6:.2f} MB; on {smi}", flush=True)
+        _profile(f"int8 serving {res[sr]['net']} @ {sr} Hz", q_dec, wavs)
+        del wavs, f32_dec, q_dec, mlp, folded, qg
+        torch.cuda.empty_cache()
+    res["launches"] = launched
+    return res
+
+
+def _fusion_models(norm_8k: str) -> tuple:
+    """Two full-width 8 kHz models as load_run_dir gives them: the lps
+    flagship and a psm head of other weights, the same .norm."""
+    from tpu_sednn_torch.io import load_norm
+
+    out = []
+    for seed, head in ((0, "lps"), (2, "psm")):
+        mlp, mcfg, ecfg = _serving_model(8000, seed, head=head)
+        mean, istd = load_norm(norm_8k, ecfg.stft.n_bins)
+        out.append((mlp, mcfg, ecfg, mean, istd, None, None))
+    return tuple(out)
+
+
+def phase_fusion(norm_8k: str, smi: str) -> dict:
+    """Head fusion of two full-width 8 kHz models on the card: weights (1, 0)
+    against the single-model decode, the fused serving decoder against the
+    eager fused decode, and the fused decoder's audio-s/s."""
+    from tpu_sednn_torch.enhance import (enhance_waveform, enhance_waveform_fused,
+                                         make_fused_serving_decoder, make_serving_decoder)
+    from tpu_sednn_torch.ops import reset_launch_counts
+
+    a, b = _fusion_models(norm_8k)
+    clip = _serve_clip(8000, 4 * 8000 + 77, 51)
+    reset_launch_counts()  # the fusion path's run starts here
+    single = enhance_waveform(a[0], a[1], a[2], clip, a[3], a[4], device="cuda")
+    e10 = float(np.abs(enhance_waveform_fused((a, b), clip, (1.0, 0.0), device="cuda")
+                       - single).max())
+    s10 = float(np.abs(make_fused_serving_decoder((a, b), (1.0, 0.0), device="cuda")(clip[None])
+                       .cpu().numpy()[0]
+                       - make_serving_decoder(*a[:5], device="cuda")(clip[None]).cpu().numpy()[0])
+                .max())
+    _check(max(e10, s10) <= FUSION_SINGLE_TOL,
+           f"fusion weights (1, 0) vs the single model: eager {e10}, serving {s10}")
+    w = (0.65, 0.35)
+    eager = enhance_waveform_fused((a, b), clip, w, device="cuda")
+    dec = make_fused_serving_decoder((a, b), w, device="cuda")
+    got = dec(clip[None]).cpu().numpy()[0]
+    excess = float((np.abs(got - eager) - (FUSION_ATOL + FUSION_RTOL * np.abs(eager))).max())
+    ferr = float(np.abs(got - eager).max())
+    _check(excess <= 0 and np.isfinite(got).all(),
+           f"fused serving decoder vs eager fused decode: max err {ferr}")
+    batch, secs = 64, 64.0
+    wavs = torch.from_numpy(np.stack([_serve_clip(8000, int(secs * 8000), 300 + i)
+                                      for i in range(4)]))
+    wavs = wavs.repeat(batch // 4, 1).cuda()
+    rate, ms = _serving_rate(dec, wavs, secs)
+    torch.cuda.synchronize()
+    launched = _none_launched("fusion")  # and ends here
+    res = dict(nets="1548-2048x3-129 (lps) + 1548-2048x3-129 (psm)", weights=list(w),
+               endpoint_eager_max_abs_err=e10, endpoint_serving_max_abs_err=s10,
+               serving_vs_eager_max_abs_err=ferr, batch=batch, seconds=secs,
+               audio_s_per_s=rate, ms_per_batch=ms, launches=launched)
+    print(f"[fusion] two full-width 8 kHz models (lps + psm), weights {w}: (1, 0) vs single "
+          f"model eager {e10:.3g} / serving {s10:.3g} (tol {FUSION_SINGLE_TOL:g}); fused serving "
+          f"decoder vs eager {ferr:.3g} (rtol {FUSION_RTOL:g}, atol {FUSION_ATOL:g}); "
+          f"{batch} x {secs:g} s: {rate:.1f} audio-s/s (median of 5) on {smi}", flush=True)
+    _profile("fused serving, two 1548-2048x3-129 @ 8000 Hz", dec, wavs)
+    del wavs, dec
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_cli(tmp: str, wavs: list, norm_8k: str, smi: str) -> dict:
+    """`python -m tpu_sednn_torch.enhance --device cuda` on a wav in each of
+    its five modes (offline, --stream 8, --stream 8 --stream-device, --quant
+    int8, --fuse-with a run dir), the five commands at once; each output
+    against the in-process decode of the same mode after the same 16-bit
+    rounding, within 2 int16 LSB."""
+    import shutil
+
+    from tpu_sednn_torch.enhance import (DeviceStreamingEnhancer, StreamingEnhancer,
+                                         enhance_waveform_fused, make_serving_decoder)
+    from tpu_sednn_torch.io import read_wav, save_wts
+    from tpu_sednn_torch.model import params_to_wts
+    from tpu_sednn_torch.recipes import load_run_dir
+
+    model_a, model_b = _fusion_models(norm_8k)
+    mlp, mcfg, ecfg, mean, istd = model_a[:5]
     wts = os.path.join(tmp, "flagship.wts")
     save_wts(wts, *params_to_wts(mlp))
-    out_dir = os.path.join(tmp, "enh")
-    cmd = [sys.executable, "-m", "tpu_sednn_torch.enhance", out_dir, wavs[0], "--wts", wts,
-           "--norm", norm_8k, "--visible-omit", "0.1", "--hid-omit", "0.2", "--device", "cuda"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    _check(proc.returncode == 0, f"enhance command failed:\n{proc.stdout}\n{proc.stderr}")
-    y, sr = read_wav(os.path.join(out_dir, "utt0_enh.wav"))
+    run_b = os.path.join(tmp, "run_b")  # the fusion partner as a trained run dir
+    os.makedirs(run_b, exist_ok=True)
+    save_wts(os.path.join(run_b, "mlp.final.wts"), *params_to_wts(model_b[0]))
+    shutil.copy(norm_8k, os.path.join(run_b, "fea.norm"))
+    with open(os.path.join(run_b, "run.json"), "w") as f:
+        json.dump({"head": "psm", "sample_rate": 8000, "fea_context": 11, "targ_offset": 5,
+                   "nat": True, "dropout": [0.1, 0.2], "mask_floor": 0.05}, f)
     x, _ = read_wav(wavs[0])
-    mean, istd = load_norm(norm_8k, ecfg.stft.n_bins)
-    ref = make_serving_decoder(mlp, mcfg, ecfg, mean, istd, device="cuda")(x[None])[0]
-    ref = np.clip(np.round(ref.cpu().numpy() * 32768.0), -32768, 32767) / 32768.0
-    err = float(np.abs(y - ref).max())
-    _check(sr == 8000 and y.shape == x.shape and err <= 2 / 32768,
-           f"enhance command output vs serving decoder: max err {err} (tol 2 int16 LSB)")
-    print(f"[cli] python -m tpu_sednn_torch.enhance --device cuda on {len(x) / sr:.1f} s: "
-          f"{proc.stdout.strip()} ({time.perf_counter() - t0:.1f} s incl. start-up); "
-          f"vs serving decoder max err {err:.3g}", flush=True)
+
+    def serve(quant):
+        dec = make_serving_decoder(mlp, mcfg, ecfg, mean, istd, quant=quant, device="cuda")
+        return dec(x[None])[0].cpu().numpy()
+
+    def stream(cls):
+        se = cls(mlp, mcfg, ecfg, mean, istd, block_frames=8, device="cuda")
+        return np.concatenate([se.push(x), se.flush()])
+
+    modes = {
+        "offline": ([], lambda: serve("none")),
+        "stream": (["--stream", "8"], lambda: stream(StreamingEnhancer)),
+        "stream_device": (["--stream", "8", "--stream-device"],
+                          lambda: stream(DeviceStreamingEnhancer)),
+        "int8": (["--quant", "int8"], lambda: serve("int8")),
+        "fusion": (["--fuse-with", run_b], lambda: enhance_waveform_fused(
+            (model_a, load_run_dir(run_b, device="cuda")), x, (0.65, 0.35), device="cuda")),
+    }
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, (flags, _) in modes.items():
+            cmd = [sys.executable, "-m", "tpu_sednn_torch.enhance", os.path.join(tmp, f"enh_{name}"),
+                   wavs[0], "--wts", wts, "--norm", norm_8k, "--visible-omit", "0.1",
+                   "--hid-omit", "0.2", "--device", "cuda"] + flags
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)
+        outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    errs = {}
+    for name, (_, decode) in modes.items():
+        stdout, stderr = outs[name]
+        _check(procs[name].returncode == 0, f"enhance command ({name}) failed:\n{stdout}\n{stderr}")
+        y, sr = read_wav(os.path.join(tmp, f"enh_{name}", "utt0_enh.wav"))
+        ref = np.clip(np.round(decode() * 32768.0), -32768, 32767) / 32768.0
+        errs[name] = err = float(np.abs(y - ref).max()) if y.shape == x.shape else float("inf")
+        _check(sr == 8000 and err <= 2 / 32768,
+               f"enhance command ({name}) vs the in-process decode: max err {err} "
+               f"(tol 2 int16 LSB)")
+    print(f"[cli] python -m tpu_sednn_torch.enhance --device cuda on {len(x) / 8000:.1f} s, five "
+          f"modes at once ({wall:.1f} s incl. start-up): {outs['offline'][0].strip()}; vs the "
+          f"in-process decode of each mode, max err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f"; on {smi}", flush=True)
+    return dict(wall_s=wall, max_abs_err=errs)
 
 
 # ---------------------------------------------------------------------------
@@ -3682,11 +4131,14 @@ def main(argv=None) -> int:
             kern = phase_kernel_vs_plain(gen)
             wavs, norm_8k, n_featurizer = phase_featurizer(tmp, np.random.default_rng(7))
             serving, n_serving = phase_serving(gen, norm_8k, smi)
-            phase_cli(tmp, wavs, norm_8k)
+            modes = dict(stream=phase_stream(norm_8k, smi), quant=phase_quant(norm_8k, smi),
+                         fusion=phase_fusion(norm_8k, smi))
+            cli = phase_cli(tmp, wavs, norm_8k, smi)
             # the serving decode computes re/im by matmul for the noisy phase, as
             # the JAX decode does, so only the featurizer's path runs this kernel
             _check(n_featurizer > 0, "the featurizer path never launched the stft_lps kernel")
             print(f"[serving] summary {json.dumps(serving)}")
+            print(f"[modes] summary {json.dumps(dict(modes, cli=cli))}")
         if "kernels" in groups:
             fused = phase_fused_kernels(gen)
             masks = phase_masks()
@@ -3775,8 +4227,10 @@ def main(argv=None) -> int:
            f"the recipe path launched float32-product layer kernels: {rkc}")
 
     def by_path(train_n, arrays_n, make_pfile=0, serving=0, train_dp=0, recipe=0):
+        # the streaming, int8 and fusion paths launch no kernel (checked in their phases)
         return {"make_pfile": make_pfile, "serving": serving, "train": train_n,
-                "train_arrays": arrays_n, "train_dp": train_dp, "recipe": recipe}
+                "train_arrays": arrays_n, "train_dp": train_dp, "recipe": recipe,
+                **{f"serving_{k}": m["launches"] for k, m in modes.items()}}
 
     def variant(name, form, timing_key, what):
         return dict(name=f"resident_chunk_{name}", source="tpu_sednn_torch/csrc/resident_chunk.cu",

@@ -1,8 +1,9 @@
 """The port's commands against the JAX package's, on the CPU: the enhance
 command on the same .wts/.norm/wav (within 2 int16 LSB: the wavs are
 quantized to 16 bits after fp32 decodes that differ in summation order),
-make_pfile (same header, frames within 1e-4), and the flags whose decode is
-not ported yet (exit non-zero, never ignored)."""
+make_pfile (same header, frames within 1e-4), the streaming, int8 and
+fusion modes and the combinations both commands refuse, and the packages'
+exports."""
 
 import os
 
@@ -66,19 +67,80 @@ def test_enhance_cli_matches_jax(tmp_path, model, extra):
     np.testing.assert_allclose(yt, yj, rtol=0, atol=2 * LSB)
 
 
+@pytest.fixture
+def run_b(tmp_path):
+    """A second trained run dir (mlp.final.wts, fea.norm, run.json) for --fuse-with."""
+    import json
+
+    d = 129
+    run = tmp_path / "run_b"
+    run.mkdir()
+    ws, bs = gen_rand_net([d * 3 + d, 32, d], seed=1)
+    save_wts(str(run / "mlp.final.wts"), ws, bs)
+    rng = np.random.default_rng(1)
+    save_norm(str(run / "fea.norm"), rng.normal(size=d).astype(np.float32),
+              rng.uniform(0.5, 2.0, d).astype(np.float32))
+    (run / "run.json").write_text(json.dumps({"head": "psm", "sample_rate": SR, "fea_context": 3,
+                                              "targ_offset": 1, "nat": True, "mask_floor": 0.05}))
+    return str(run)
+
+
+# the int8 decodes' int32 products are exact in both packages, but float32
+# summation order can move a row's quantization across a rounding boundary
+MODE_ATOL = {"--quant": 1e-3}
+
+
 @pytest.mark.parametrize("flag", [["--stream", "4"], ["--stream", "4", "--stream-device"],
                                   ["--stream-device"], ["--quant", "int8"],
                                   ["--fuse-with", "run_b"]])
-def test_enhance_cli_unported_flags_exit_nonzero(tmp_path, model, flag):
+def test_enhance_cli_unported_flags_exit_nonzero(tmp_path, model, run_b, flag):
+    """The four decode modes (once refused here) run with --device cpu and
+    write the JAX command's wavs: streaming (host and device state) and
+    fusion within the offline decode's 2 LSB, int8 within 1e-3; a lone
+    --stream-device is the offline decode, as in the JAX command."""
     flags, wav = model
-    with pytest.raises(SystemExit, match="not yet ported") as exc:
-        t_enhance([str(tmp_path / "t"), wav] + flags + flag + ["--device", "cpu"])
-    assert exc.value.code not in (0, None)
-    # the message names the module that will lift the rejection
-    module = {"--stream": "enhance/streaming.py", "--stream-device": "enhance/streaming.py",
-              "--quant": "model/quant.py", "--fuse-with": "enhance/fusion.py"}[flag[0]]
-    assert f"tpu_sednn_torch/{module}" in str(exc.value.code)
+    flag = [run_b if f == "run_b" else f for f in flag]
+    out_j, out_t = str(tmp_path / "j"), str(tmp_path / "t")
+    assert j_enhance([out_j, wav] + flags + flag) == 0
+    assert t_enhance([out_t, wav] + flags + flag + ["--device", "cpu"]) == 0
+    yj, srj = read_wav(os.path.join(out_j, "in_enh.wav"))
+    yt, srt = read_wav(os.path.join(out_t, "in_enh.wav"))
+    assert srj == srt == SR and yj.shape == yt.shape
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=MODE_ATOL.get(flag[0], 2 * LSB))
+    if flag == ["--stream-device"]:
+        assert t_enhance([str(tmp_path / "o"), wav] + flags + ["--device", "cpu"]) == 0
+        np.testing.assert_array_equal(read_wav(os.path.join(str(tmp_path / "o"), "in_enh.wav"))[0],
+                                      yt)
+
+
+@pytest.mark.parametrize("flag,match", [(["--stream", "4"], "offline f32"),
+                                        (["--quant", "int8"], "offline f32"),
+                                        (["--fuse-alpha", "1.5"], "outside"),
+                                        (["--fuse-alpha", "-0.1"], "outside")])
+def test_enhance_cli_rejects_what_jax_rejects(tmp_path, model, run_b, flag, match):
+    flags, wav = model
+    argv = [wav] + flags + ["--fuse-with", run_b] + flag
+    for cmd, extra in ((j_enhance, []), (t_enhance, ["--device", "cpu"])):
+        with pytest.raises(SystemExit, match=match) as exc:
+            cmd([str(tmp_path / "t")] + argv + extra)
+        assert exc.value.code not in (0, None)
     assert not (tmp_path / "t").exists()
+
+
+@pytest.mark.parametrize("pkg", ["enhance", "model", "io", "tools", "parallel"])
+def test_port_exports_equal_jax(pkg):
+    """Every public name of a JAX package's __init__ is exported by the
+    port's; only the tensor-parallel trainer is still missing."""
+    import importlib
+    import inspect
+
+    def names(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))}
+
+    missing = (names(importlib.import_module(f"tpu_sednn.{pkg}"))
+               - names(importlib.import_module(f"tpu_sednn_torch.{pkg}")))
+    assert missing == ({"make_auto_sharded_train_chunk"} if pkg == "parallel" else set())
 
 
 def test_enhance_cli_rejects_wrong_rate_and_missing_cuda(tmp_path, model):

@@ -4,13 +4,17 @@
         --wts mlp.wts --norm fea.norm [--layersizes 1548,2048,2048,2048,129]
         [--context 11] [--targ-offset 5] [--head lps|irm|ibm|psm] [--sr 8000]
         [--targ-norm targ.norm] [--mask-floor 0.05] [--no-nat]
-        [--device cuda|cpu]
+        [--quant int8] [--stream BLOCK_FRAMES [--stream-device]]
+        [--fuse-with RUN_DIR --fuse-alpha 0.65] [--device cuda|cpu]
 
 Each input produces out_dir/<name>_enh.wav.  The flags and output names are
-the JAX command's; --device (default cuda) picks where the decode runs and
-fails if CUDA is asked for and absent.  --stream, --stream-device,
---quant int8 and --fuse-with are accepted for compatibility but their
-decodes are not ported yet: they exit non-zero.
+the JAX command's: --stream decodes through StreamingEnhancer (with
+--stream-device, DeviceStreamingEnhancer; without --stream that flag is
+ignored, as in the JAX command), --quant int8 serves the w8a8 forward
+(model/quant.py), --fuse-with blends the primary model's enhanced
+log-spectra with a second trained run dir's (enhance/fusion.py; alpha =
+weight on the primary).  --device (default cuda) picks where the decode
+runs and fails if CUDA is asked for and absent.
 """
 
 from __future__ import annotations
@@ -56,27 +60,33 @@ def main(argv=None) -> int:
     ap.add_argument("--hid-omit", type=float, default=0.0,
                     help="hid_omit the model was trained with")
     ap.add_argument("--quant", choices=["none", "int8"], default="none",
-                    help="int8 serving: not yet ported")
+                    help="int8: w8a8 dynamic-quantized serving forward "
+                         "(model/quant.py; int32 products)")
     ap.add_argument("--stream", type=int, default=0, metavar="BLOCK_FRAMES",
-                    help="streaming decode: not yet ported (0 = offline decode)")
+                    help="decode through the causal StreamingEnhancer in "
+                         "blocks of this many frames (0 = offline decode); "
+                         "output equals the offline decode to float32 "
+                         "rounding, gv/smoothing must be off")
     ap.add_argument("--stream-device", action="store_true",
-                    help="device-state streaming decode: not yet ported")
+                    help="with --stream: keep the rolling streaming state in "
+                         "device tensors (DeviceStreamingEnhancer; requires "
+                         "targ_offset < context-1)")
     ap.add_argument("--fuse-with", default=None, metavar="RUN_DIR",
-                    help="head-fusion decode: not yet ported")
+                    help="head-fusion decode: blend this trained run dir's "
+                         "enhanced log-spectra with the primary model's "
+                         "(enhance.fusion; same sample rate required)")
     ap.add_argument("--fuse-alpha", type=float, default=0.65,
-                    help="weight on the primary model in a --fuse-with blend")
+                    help="weight on the PRIMARY model in a --fuse-with blend "
+                         "(1-alpha on --fuse-with)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the decode runs (default cuda; no fall back)")
     args = ap.parse_args(argv)
-    if args.stream > 0 or args.stream_device:
-        raise SystemExit("--stream/--stream-device: streaming decode is not yet "
-                         "ported (its module: tpu_sednn_torch/enhance/streaming.py)")
-    if args.quant != "none":
-        raise SystemExit("--quant int8: int8 serving is not yet ported "
-                         "(its module: tpu_sednn_torch/model/quant.py)")
-    if args.fuse_with:
-        raise SystemExit("--fuse-with: head-fusion decode is not yet ported "
-                         "(its module: tpu_sednn_torch/enhance/fusion.py)")
+    if args.fuse_with and (args.stream > 0 or args.quant != "none"):
+        raise SystemExit("--fuse-with is an offline f32 decode "
+                         "(no --stream/--quant)")
+    if args.fuse_with and not 0.0 <= args.fuse_alpha <= 1.0:
+        raise SystemExit(f"--fuse-alpha {args.fuse_alpha} outside [0, 1] "
+                         "(the blend is convex)")
 
     from tpu_sednn_torch._device import resolve_device
     from tpu_sednn_torch.dsp import StftConfig
@@ -111,6 +121,11 @@ def main(argv=None) -> int:
         dropout_vis=args.visible_omit, dropout_hid=args.hid_omit,
         dropout_mode="parity",
     )
+    fuse_model = None
+    if args.fuse_with:  # the fusion partner, loaded once for every input
+        from tpu_sednn_torch.recipes.artifact import load_run_dir
+
+        fuse_model = load_run_dir(args.fuse_with, device=device)
     os.makedirs(args.out_dir, exist_ok=True)
     for path in args.wavs:
         x, sr = read_wav(path)
@@ -132,8 +147,36 @@ def main(argv=None) -> int:
             mask_smooth=args.mask_smooth, gv_mode=args.gv_mode,
             min_gain_db=args.min_gain_db, max_gain_db=args.max_gain_db,
         )
-        y = enhance_waveform(params, mcfg, enh_cfg, x, mean, inv_std,
-                             target_norm=target_norm, gv_ref=gv_ref, device=device)
+        if args.stream > 0:
+            from tpu_sednn_torch.enhance.streaming import (
+                DeviceStreamingEnhancer, StreamingEnhancer,
+            )
+
+            cls = DeviceStreamingEnhancer if args.stream_device else StreamingEnhancer
+            se = cls(params, mcfg, enh_cfg, mean, inv_std, target_norm=target_norm,
+                     block_frames=args.stream, quant=args.quant, device=device)
+            y = np.concatenate([se.push(x), se.flush()])
+        elif args.quant == "int8":
+            from tpu_sednn_torch.enhance.decode import make_serving_decoder
+
+            dec = make_serving_decoder(params, mcfg, enh_cfg, mean, inv_std,
+                                       target_norm=target_norm, gv_ref=gv_ref,
+                                       quant="int8", device=device)
+            y = dec(x[None, :])[0].cpu().numpy()
+        elif args.fuse_with:
+            from tpu_sednn_torch.enhance.fusion import enhance_waveform_fused
+
+            if fuse_model[2].stft.sample_rate != sr:
+                raise SystemExit(
+                    f"--fuse-with model is {fuse_model[2].stft.sample_rate} Hz, "
+                    f"input is {sr} Hz")
+            model_a = (params, mcfg, enh_cfg, mean, inv_std, target_norm, gv_ref)
+            a = args.fuse_alpha
+            y = enhance_waveform_fused((model_a, fuse_model), x, (a, 1.0 - a),
+                                       device=device)
+        else:
+            y = enhance_waveform(params, mcfg, enh_cfg, x, mean, inv_std,
+                                 target_norm=target_norm, gv_ref=gv_ref, device=device)
         out = os.path.join(
             args.out_dir,
             os.path.splitext(os.path.basename(path))[0] + "_enh.wav",

@@ -62,19 +62,22 @@ def enhance_lps(
     inv_std: torch.Tensor,
     target_norm: Tuple[torch.Tensor, torch.Tensor] | None = None,
     gv_ref: torch.Tensor | None = None,
+    forward_fn=None,
 ) -> torch.Tensor:
     """Noisy LPS (..., n_frames, d) -> enhanced LPS (..., n_frames, d).
 
     target_norm=(targ_mean, targ_inv_std) if the model was trained on
     normalized targets; gv_ref: per-dim clean-LPS global variance
-    (compute_gv) for enh_cfg.gv_mode != "off".
+    (compute_gv) for enh_cfg.gv_mode != "off".  forward_fn(params, x, cfg):
+    another inference forward (the int8 one, model/quant.py); default
+    forward_eval.
     """
     normed = (noisy_lps - mean) * inv_std
     x = _splice(normed, enh_cfg.fea_context, enh_cfg.targ_offset)
     if enh_cfg.nat:
         est = normed[..., : enh_cfg.nat_frames, :].mean(dim=-2, keepdim=True)
         x = torch.cat([x, est.expand_as(normed)], dim=-1)
-    out = forward_eval(params, x, model_cfg)
+    out = (forward_fn or forward_eval)(params, x, model_cfg)
     return finalize_lps(out, noisy_lps, enh_cfg, target_norm=target_norm, gv_ref=gv_ref)
 
 
@@ -174,17 +177,21 @@ def make_serving_decoder(
     inv_std: np.ndarray,
     target_norm: Tuple[np.ndarray, np.ndarray] | None = None,
     gv_ref: np.ndarray | None = None,
+    quant: str = "none",
     device: str | torch.device = "cuda",
 ):
     """Build a batched wav->wav enhancement closure for serving.
 
     The parity keep-prob scaling is folded into the weights once
     (fold_eval_params), and weights and normalization / GV constants are put
-    on `device` once.  Returns decode(wavs: (batch, n_samples) array or
-    tensor) -> (batch, n_samples) float32 tensor on `device`.
+    on `device` once.  quant="int8": the folded weights are quantized once
+    and the forward is w8a8 with int32 products (model/quant.py).  Returns
+    decode(wavs: (batch, n_samples) array or tensor) -> (batch, n_samples)
+    float32 tensor on `device`.
     """
     dev = resolve_device(device)
     folded, eval_cfg = fold_eval_params(params.on(dev), model_cfg)
+    folded, fwd = quantize_for_serving(folded, quant)
     mean_d, istd_d = _as_tensor(mean, dev), _as_tensor(inv_std, dev)
     tn = None if target_norm is None else tuple(_as_tensor(a, dev) for a in target_norm)
     gv = None if gv_ref is None else _as_tensor(gv_ref, dev)
@@ -196,10 +203,23 @@ def make_serving_decoder(
         re, im = stft_real_imag(x, cfg)
         noisy_lps = torch.log(torch.clamp(re * re + im * im, min=LPS_FLOOR))
         enh = enhance_lps(folded, eval_cfg, enh_cfg, noisy_lps, mean_d, istd_d,
-                          target_norm=tn, gv_ref=gv)
+                          target_norm=tn, gv_ref=gv, forward_fn=fwd)
         return reconstruct_from_lps(enh, re, im, cfg, n_samples=x.shape[-1])
 
     return decode
+
+
+def quantize_for_serving(folded: MLP, quant: str):
+    """-> (params, forward_fn) for a serving mode: "none" keeps the folded
+    float32 params and forward_eval; "int8" quantizes them once
+    (quantize_params_int8) and serves with forward_eval_int8."""
+    if quant == "none":
+        return folded, None
+    if quant == "int8":
+        from tpu_sednn_torch.model.quant import forward_eval_int8, quantize_params_int8
+
+        return quantize_params_int8(folded), forward_eval_int8
+    raise ValueError(f"unknown quant mode {quant!r}")
 
 
 def make_bucketed_decoder(
@@ -210,6 +230,7 @@ def make_bucketed_decoder(
     inv_std: np.ndarray,
     target_norm: Tuple[np.ndarray, np.ndarray] | None = None,
     gv_ref: np.ndarray | None = None,
+    quant: str = "none",
     bucket_seconds: Tuple[float, ...] = (2.0, 4.0, 8.0, 16.0, 32.0),
     batch: int = 8,
     device: str | torch.device = "cuda",
@@ -222,14 +243,15 @@ def make_bucketed_decoder(
     row 0), and outputs are trimmed back to the true lengths.  Outputs equal
     the per-utterance decode except within the trailing edge region, the
     final window plus the splice lookahead, where the decode sees zeros
-    instead of edge replication.
+    instead of edge replication.  quant: as make_serving_decoder's.
 
     Returns decode_many(wavs: sequence of 1-D arrays) -> list of enhanced
     1-D numpy arrays in the same order.
     """
     buckets = sorted(int(round(s * enh_cfg.stft.sample_rate)) for s in bucket_seconds)
     dec = make_serving_decoder(params, model_cfg, enh_cfg, mean, inv_std,
-                               target_norm=target_norm, gv_ref=gv_ref, device=device)
+                               target_norm=target_norm, gv_ref=gv_ref, quant=quant,
+                               device=device)
 
     def decode_many(wavs) -> list:
         wavs = [np.asarray(w, np.float32).ravel() for w in wavs]

@@ -11,7 +11,13 @@ from tpu_sednn_torch.model.mlp import (
 )
 from tpu_sednn_torch.model.convert import (
     params_from_jax,
+    quant_params_from_jax,
     params_to_numpy,
     train_state_from_jax,
     train_state_to_numpy,
+)
+from tpu_sednn_torch.model.quant import (
+    QuantParams,
+    forward_eval_int8,
+    quantize_params_int8,
 )

@@ -11,7 +11,8 @@ so) cross exactly: numpy has no bfloat16 of its own, so a leaf comes in as the
 array `np.asarray` makes of a JAX bfloat16 array (dtype named "bfloat16", two
 bytes an element; its bit patterns are copied) and goes out as float32, the
 exact widening (`jnp.asarray(a, jnp.bfloat16)` gives the same bits back).  No
-value is rounded either way.
+value is rounded either way.  An int8 serving model (the JAX QuantParams)
+crosses field by field (`quant_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -70,3 +71,22 @@ def train_state_to_numpy(state) -> Tuple[Dict, Dict, int]:
     """TrainState -> (params, deltas, step): the JAX layout as float32 numpy
     arrays, as `params_to_numpy`."""
     return params_to_numpy(state.params), params_to_numpy(state.deltas), int(state.step)
+
+
+def quant_params_from_jax(wq: Sequence, sw: Sequence, w_f32: Sequence, b: Sequence,
+                          skip_last: bool = True, device: str | torch.device = "cuda"):
+    """The fields of a JAX QuantParams as numpy leaves (None placeholders
+    kept) -> the port's QuantParams on `device`: int8 weights stay int8, the
+    scales, float weights and biases float32, element for element."""
+    from tpu_sednn_torch._device import resolve_device
+    from tpu_sednn_torch.model.quant import QuantParams, _col_major
+
+    dev = resolve_device(device)
+
+    def on(a, dtype):
+        return None if a is None else torch.tensor(np.asarray(a, dtype), device=dev)
+
+    return QuantParams(wq=tuple(None if a is None else _col_major(on(a, np.int8)) for a in wq),
+                       sw=tuple(on(a, np.float32) for a in sw),
+                       w_f32=tuple(on(a, np.float32) for a in w_f32),
+                       b=tuple(on(a, np.float32) for a in b), skip_last=bool(skip_last))
