@@ -133,10 +133,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit-equal, three faults refused, pfile epochs on 4 ranks; then
      `python -m torch.distributed.run --nproc_per_node=2 -m
      tpu_sednn_torch.cli ... gpu_used=2` against gpu_used=1.
- 14. a `kernels` JSON line: every ported kernel and trainer form with its
+ 14. tensor parallelism (main path, dp group): make_auto_sharded_train_chunk
+     on 4 ranks of this script sharing the card (gloo; the sums and the
+     column gathers on the card, rank_sum), 1548-2048x3-128 (the 8 kHz net,
+     head cut to a width 2 and 4 divide) on 1 x 2 and 2 x 2 sharded and
+     1548-2048x3-129 on 2 x 2 whole, parity dropout: after 2 bunches against
+     the single-process reference_train_chunk (rtol 1e-5 / atol 1e-6), the
+     16-bunch drift, every rank's state bit-equal, a skipped "model" sum
+     refused, the 129-wide head refused to shard; ms a bunch and the
+     collectives' share.
+ 15. the recipe's data-parallel branch (main path, dp group): `python -m
+     torch.distributed.run --nproc_per_node=2 -m
+     tpu_sednn_torch.recipes.multi_condition --small --device cuda` against
+     one rank on the plain trainer over the same bunches (CV history and
+     weights at _hold_parity's limits), rank 0 alone writing the run dir,
+     which reloads; the same command on one rank for its times.
+ 16. a `kernels` JSON line: every ported kernel and trainer form with its
      launches on the main paths, error and times.  Each path (phases 3, 4,
-     8, 11, 12, 13) is run with the counts zeroed just before it and read
-     just after; `launches` is the total, `launches_by_path` the split.
+     8, 11, 12, 13, 14, 15) is run with the counts zeroed just before it and
+     read just after; `launches` is the total, `launches_by_path` the split.
 `--only serve,kernels,train,recipe,dp` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  `--chain-times`
 only times the chunk trainer's chain (chain_times), with `--package-root
@@ -4003,11 +4018,427 @@ def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
                 seconds=dict(a=t_a, b=t_b, c=t_c))
 
 
-def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path) -> list:
+# ---------------------------------------------------------------------------
+# tensor parallelism and the recipe's data-parallel branch (main paths, dp group)
+# ---------------------------------------------------------------------------
+
+# the 8 kHz net with its head cut to 128 outputs, the nearest width that
+# n_model 2 and 4 divide: the JAX package refuses to model-shard the 129-wide
+# head (and the 257-wide one), and so does the port
+TP_SIZES = FLAGSHIP[:-1] + (128,)
+TP_BUNCHES = 16
+TP_HYP = (0.1, 0.5, 0.0)  # lrate, momentum, weightcost
+# after 2 bunches against the single-process plain trainer on the card:
+# tests/test_parallel.py's limits for the JAX trainer (rtol, atol), each
+# element within them of the plain trainer's float32 run or of its float64
+# one.  At these widths a pre-activation within float32 rounding of 0 takes
+# its sign from the order of a sum: on an H100 the 1 x 2 run read 1.18e-5 off
+# the float32 plain run, 1,423 of its elements within the limit of the
+# float64 run alone, while the 2 x 2 run read 7.5e-9 off the float32 run, so
+# neither run alone is the reference; a missing sum misses both by far
+TP_TOL = (1e-5, 1e-6)
+# (name, layer sizes, mesh (n_data, n_model), shard_model_axis)
+TP_RUNS = (("1x2", TP_SIZES, (1, 2), True), ("2x2", TP_SIZES, (2, 2), True),
+           ("2x2_whole", FLAGSHIP, (2, 2), False))
+TP_SEED = 17  # the dropout generator's seed
+
+
+def _tp_inputs(sizes):
+    """The net, state and 16 bunches of a [tp] run, the same in every
+    process: parity dropout 0.1/0.2, glorot weights from seed 3, inputs and
+    targets from numpy's seed 5."""
+    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
+    from tpu_sednn_torch.train.step import OptConfig
+
+    cfg = ModelConfig(layersizes=sizes, dropout_vis=0.1, dropout_hid=0.2)
+    opt = OptConfig(lrate=TP_HYP[0], momentum=TP_HYP[1], weightcost=TP_HYP[2], bunchsize=BUNCH)
+    mlp = init_params(torch.Generator().manual_seed(3), cfg, scheme="glorot", device="cuda")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((TP_BUNCHES * BUNCH, sizes[0])).astype(np.float32)
+    t = x @ (0.05 * rng.standard_normal((sizes[0], sizes[-1]))).astype(np.float32)
+    return cfg, opt, mlp, torch.from_numpy(x).cuda(), torch.from_numpy(t).cuda()
+
+
+def _tp_sums_a_chunk(n_layers: int, n_bunches: int, n_data: int, sharded: bool) -> int:
+    """rank_sum launches of one rank's tensor-parallel chunk on a shared
+    card: per bunch a gather of each layer's columns and a sum of dedy below
+    each layer but the first over "model", one sum of the gradients over
+    "data"; at the chunk's end a gather of each of the 4 L state tensors."""
+    per_bunch = (2 * n_layers - 1 if sharded else 0) + (n_data > 1)
+    return n_bunches * per_bunch + (4 * n_layers if sharded else 0)
+
+
+def tp_worker(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase_tp's runs (python3 chip_smoke.py --tp-worker RANK
+    WORLD DIR): each TP_RUNS run for 2 bunches and then for 16 (timed, the
+    collectives timed on their own), a run with the "model" sum of dedy
+    skipped, and the full 129-wide net asked to shard its head; rank 0
+    writes the states and what it measured into DIR."""
+    import torch.distributed as dist
+
+    import tpu_sednn_torch.parallel.mesh as pm
+    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
+    from tpu_sednn_torch.parallel import Mesh, make_auto_sharded_train_chunk, make_mesh
+    from tpu_sednn_torch.train.step import init_train_state
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", world_size=world,
+                            rank=rank)
+    dev = torch.device("cuda", 0)
+    pair = dist.new_group([0, 1])  # the 1 x 2 mesh of ranks 0 and 1
+    meshes = {"1x2": (Mesh(1, 0, dev, n_model=2, model_index=rank, model_group=pair), pair),
+              "2x2": (make_mesh(2, 2, devices=[dev]), None)}
+    plain_sum, plain_gather = pm.all_reduce, pm.all_gather_cols
+    out = dict(hashes={}, timing={})
+
+    def save(st, name):
+        out["hashes"][name] = _state_bytes(st)
+        if rank == 0:
+            torch.save([a.cpu() for a in _state_tensors(st)] + [st.step],
+                       os.path.join(workdir, f"{name}.pt"))
+
+    reset_launch_counts()  # the path's runs start here
+    for name, sizes, shape, shard in TP_RUNS:
+        mesh, barrier_group = meshes[f"{shape[0]}x{shape[1]}"]
+        if rank >= shape[0] * shape[1]:
+            continue
+        cfg, opt, mlp, x, t = _tp_inputs(sizes)
+        run = make_auto_sharded_train_chunk(cfg, opt, mesh, shard_model_axis=shard)
+        st = run(init_train_state(mlp), x[:2 * BUNCH], t[:2 * BUNCH],
+                 torch.Generator().manual_seed(TP_SEED), *TP_HYP)
+        torch.cuda.synchronize()
+        save(st, f"{name}_2")
+        spent = []
+
+        def timed(fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent.append(time.perf_counter() - t0)
+                return r
+            return call
+
+        st = init_train_state(mlp)
+        pm.all_reduce, pm.all_gather_cols = timed(plain_sum), timed(plain_gather)
+        dist.barrier(group=barrier_group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(st, x, t, torch.Generator().manual_seed(TP_SEED), *TP_HYP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pm.all_reduce, pm.all_gather_cols = plain_sum, plain_gather
+        save(st, f"{name}_{TP_BUNCHES}")
+        out["timing"][name] = dict(bunch_ms=wall * 1e3 / TP_BUNCHES,
+                                   collectives_ms=sum(spent) * 1e3 / TP_BUNCHES)
+    out["counts"] = launch_counts()
+    # the deliberately broken run: dedy not summed over "model" (1 x 2, 2 bunches)
+    if rank < 2:
+        cfg, opt, mlp, x, t = _tp_inputs(TP_SIZES)
+        pm.all_reduce = lambda a, m, axis="data": a if axis == "model" else plain_sum(a, m, axis)
+        st = make_auto_sharded_train_chunk(cfg, opt, meshes["1x2"][0])(
+            init_train_state(mlp), x[:2 * BUNCH], t[:2 * BUNCH],
+            torch.Generator().manual_seed(TP_SEED), *TP_HYP)
+        torch.cuda.synchronize()
+        pm.all_reduce = plain_sum
+        save(st, "fault_no_model_sum")
+    # the 129-wide head cannot be sharded over 2 model ranks, as in JAX
+    cfg, opt, mlp, x, t = _tp_inputs(FLAGSHIP)
+    try:
+        make_auto_sharded_train_chunk(cfg, opt, meshes["2x2"][0])(
+            init_train_state(mlp), x[:BUNCH], t[:BUNCH], torch.Generator(), *TP_HYP)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    dist.barrier()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out if rank == 0 else dict(hashes=out["hashes"]), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _other_launches(counts: dict) -> dict:
+    """Every launch counter but rank_sum's that is not 0: the tensor-parallel
+    and the recipe's data-parallel paths launch no other kernel (the recipe
+    featurizes by matmuls, as the JAX recipe does with its XLA STFT)."""
+    flat = dict(counts, **{f"resident_chunk_kernels.{k}": v
+                           for k, v in counts.get("resident_chunk_kernels", {}).items()})
+    return {k: v for k, v in flat.items() if isinstance(v, int) and v and k != "rank_sum"}
+
+
+def _tp_hold(got: list, want, want64) -> dict:
+    """assert_allclose's hold of the state tensors against two references,
+    the plain trainer's float32 run and its float64 one: per element
+    |got - want| / (atol + rtol |want|) for each, the smaller of the two
+    must be <= 1.  -> the largest |got - want| (float32), the largest ratio
+    to the float32 run alone, the largest held ratio, and the elements held
+    by the float64 run alone."""
+    rtol, atol = TP_TOL
+    out = dict(max_abs_err=0.0, ratio_f32=0.0, tol_ratio=0.0, by_f64_alone=0)
+    for g, w, w64 in zip(got, _state_tensors(want), _state_tensors(want64)):
+        g = g.cuda().double()
+        r32, r64 = ((g - a.double()).abs() / (atol + rtol * a.double().abs()) for a in (w, w64))
+        out["max_abs_err"] = max(out["max_abs_err"], float((g - w.double()).abs().max()))
+        out["ratio_f32"] = max(out["ratio_f32"], float(r32.max()))
+        out["tol_ratio"] = max(out["tol_ratio"], float(torch.minimum(r32, r64).max()))
+        out["by_f64_alone"] += int(((r32 > 1.0) & (r64 <= 1.0)).sum())
+    return out
+
+
+def phase_tp(tmp: str, smi: str) -> dict:
+    """The tensor-parallel trainer (parallel.make_auto_sharded_train_chunk) on
+    4 ranks of this script sharing the card (gloo; the sums and the column
+    gathers on the card through CUDA IPC, rank_sum): 1548-2048x3-128 on 1 x 2
+    and on 2 x 2 with the model axis sharded, 1548-2048x3-129 on 2 x 2
+    unsharded, parity dropout 0.1/0.2, bunch 128, lrate 0.1, momentum 0.5;
+    each after 2 bunches against the single-process reference_train_chunk on
+    the card (rtol 1e-5 / atol 1e-6) and after 16 (the drift printed), every
+    rank's state bit-equal, a skipped "model" sum refused, the 129-wide head
+    refused to shard; ms a bunch, the collectives' share, rank_sum launches.
+    Each element is held against the plain trainer's float32 run or its
+    float64 run (TP_TOL's comment says why)."""
+    from tpu_sednn_torch.train.step import OptConfig, init_train_state, reference_train_chunk
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(tmp, "tp")
+    os.makedirs(workdir, exist_ok=True)
+    world = 4
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+                               str(world), workdir], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        _check(p.returncode == 0, f"TP rank {r} of {world} failed (rc {p.returncode}):\n{o[-4000:]}")
+    t_spawn = time.perf_counter() - t0
+    r0 = json.load(open(os.path.join(workdir, "rank0.json")))
+    hashes = [r0["hashes"]] + [json.load(open(os.path.join(workdir, f"rank{r}.json")))["hashes"]
+                               for r in range(1, world)]
+    held, refs, single_ms = {}, {}, {}
+    for name, sizes, (n_data, n_model), shard in TP_RUNS:
+        cfg, opt, mlp, x, t = _tp_inputs(sizes)
+        ranks = n_data * n_model
+        for n_b in (2, TP_BUNCHES):
+            key = f"{name}_{n_b}"
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = reference_train_chunk(init_train_state(mlp), x[:n_b * BUNCH], t[:n_b * BUNCH],
+                                         cfg, opt, generator=torch.Generator().manual_seed(TP_SEED))
+            torch.cuda.synchronize()
+            single_ms[sizes] = (time.perf_counter() - t1) * 1e3 / n_b  # the 16-bunch run's stays
+            want64 = reference_train_chunk(init_train_state(mlp), x[:n_b * BUNCH],
+                                           t[:n_b * BUNCH], cfg, opt,
+                                           generator=torch.Generator().manual_seed(TP_SEED),
+                                           dtype=torch.float64)
+            refs[(sizes, n_b)] = want, want64
+            saved = torch.load(os.path.join(workdir, f"{key}.pt"))
+            got, step = saved[:-1], saved[-1]
+            equal = all(hashes[r][key] == hashes[0][key] for r in range(ranks))
+            _check(equal, f"TP {key}: the {ranks} ranks' states are not bit-equal")
+            _check(step == want.step == n_b, f"TP {key}: step {step}, single {want.step}")
+            held[key] = _tp_hold(got, want, want64)
+            held[key]["update_rel_fro"] = _dp_update_off(got, want, init_train_state(mlp))[1]
+            held[key]["update_rel_fro_f64"] = _dp_update_off(got, want64, init_train_state(mlp))[1]
+            if n_b == 2:
+                h = held[key]
+                _check(h["tol_ratio"] <= 1.0,
+                       f"TP {key}: off the single-process trainer by {h['max_abs_err']:.3g}: "
+                       f"{h['tol_ratio']:.3g} of rtol {TP_TOL[0]} / atol {TP_TOL[1]} against its "
+                       f"float32 and float64 runs")
+    fault = torch.load(os.path.join(workdir, "fault_no_model_sum.pt"))[:-1]
+    f_ratio = _tp_hold(fault, *refs[(TP_SIZES, 2)])["tol_ratio"]
+    _check(f_ratio > 1.0, f"TP with the model sum of dedy skipped passes the hold ({f_ratio:.3g})")
+    _check(r0["refused"] is not None and "not divisible by mesh model=2" in r0["refused"],
+           f"the 129-wide head on 2 model ranks was not refused: {r0['refused']}")
+    counts = r0["counts"]
+    want_sums = sum(_tp_sums_a_chunk(len(s) - 1, n_b, n_data, shard)
+                    for _, s, (n_data, _), shard in TP_RUNS for n_b in (2, TP_BUNCHES))
+    _check(counts["rank_sum"] == want_sums and not _other_launches(counts),
+           f"TP launches on rank 0: rank_sum {counts['rank_sum']}, expected {want_sums}; {counts}")
+    timing = r0["timing"]
+    print(f"[tp] make_auto_sharded_train_chunk on ranks sharing {smi} (gloo; sums and column "
+          f"gathers on the card), parity dropout 0.1/0.2, bunch {BUNCH}: after 2 bunches against "
+          f"the single-process plain trainer (float32 run; each element held against it or "
+          f"its float64 run) " + ", ".join(
+              f"{n} {held[n + '_2']['max_abs_err']:.3g} ({held[n + '_2']['ratio_f32']:.3g} of "
+              f"rtol/atol against float32 alone, {held[n + '_2']['tol_ratio']:.3g} held, "
+              f"{held[n + '_2']['by_f64_alone']} elements by float64 alone)" for n, *_ in TP_RUNS)
+          + f"; after {TP_BUNCHES} bunches the update's relative Frobenius drift from float32 / "
+            f"float64 " + ", ".join(
+              f"{n} {held[f'{n}_{TP_BUNCHES}']['update_rel_fro']:.3g} / "
+              f"{held[f'{n}_{TP_BUNCHES}']['update_rel_fro_f64']:.3g}" for n, *_ in TP_RUNS)
+          + f"; every rank's state bit-equal; refused: the model sum skipped ({f_ratio:.3g} of "
+            f"the limit), the 129-wide head on 2 model ranks", flush=True)
+    for n, sizes, (n_data, n_model), shard in TP_RUNS:
+        v = timing[n]
+        print(f"[tp] {n} ({'-'.join(map(str, sizes))}, {'sharded' if shard else 'whole'}): "
+              f"{v['bunch_ms']:.3f} ms a bunch by the host clock, the collectives "
+              f"{v['collectives_ms']:.3f} ms of it ({v['collectives_ms'] / v['bunch_ms']:.1%}; "
+              f"staging copy, synchronise, gloo barrier, rank_sum); the single-process plain "
+              f"trainer {single_ms[sizes]:.3f} ms a bunch", flush=True)
+    print(f"[tp] rank 0 launched rank_sum {counts['rank_sum']} times ({want_sums} expected), no "
+          f"other kernel of the port; "
+          f"phase {time.perf_counter() - t0:.1f} s (the ranks' spawn and runs {t_spawn:.1f} s)",
+          flush=True)
+    return dict(held=held, fault_tol_ratio=f_ratio, timing=timing,
+                single_ms={"-".join(map(str, k)): v for k, v in single_ms.items()},
+                counts={k: v for k, v in counts.items() if isinstance(v, int)},
+                refused=r0["refused"], seconds=time.perf_counter() - t0)
+
+
+# the recipe on 2 ranks against one rank on the plain trainer over the same
+# bunches: _hold_parity's limits (tests/test_torch_multi_condition.py), CV
+# history rtol and each weight's relative Frobenius error; the CPU test of the
+# same comparison (tests/test_torch_recipe_dp.py) reads 8.4e-8 and 3.3e-7 and
+# holds 1e-5
+RECIPE_DP_CV_RTOL = 1e-4
+RECIPE_DP_WTS_FRO = 1e-4
+
+
+def _recipe_command(work: str, sub: str, nproc: int) -> dict:
+    """python -m tpu_sednn_torch.recipes.multi_condition --small --device
+    cuda, under torchrun with nproc ranks (or alone for 1), in work/sub:
+    -> its wall time, output, stage times, results and launch report."""
+    d = os.path.join(work, sub)
+    os.makedirs(d)
+    report = os.path.join(d, "launches.json")
+    pre = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}"] if nproc > 1 else [sys.executable])
+    env = dict(os.environ, TPU_SEDNN_TORCH_LAUNCH_REPORT=report,
+               PYTHONPATH=os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run(pre + ["-m", "tpu_sednn_torch.recipes.multi_condition", "--small",
+                                 "--device", "cuda", "--metrics", "m.jsonl"],
+                          cwd=d, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"the recipe on {nproc} rank(s) failed:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+    stages = {r["stage"]: r["seconds"] for r in map(json.loads, open(os.path.join(d, "m.jsonl")))
+              if r.get("event") == "stage"}
+    _check(list(stages) == ["corpus", "featurize", "targets", "train", "eval"],
+           f"recipe stages on {nproc} rank(s): {list(stages)}")
+    log = proc.stderr.splitlines()
+    n_train = int(next(l for l in log if " train / " in l).split()[1])
+    return dict(dir=os.path.join(d, "mc_run_small"), wall_s=wall, log=log, stages=stages,
+                n_train=n_train, counts=json.load(open(report)),
+                results=json.load(open(os.path.join(d, "mc_run_small", "results.json"))))
+
+
+def phase_recipe_dp(tmp: str, smi: str) -> dict:
+    """The recipe's data-parallel branch (main path): python -m
+    torch.distributed.run --nproc_per_node=2 -m
+    tpu_sednn_torch.recipes.multi_condition --small --device cuda (2 ranks
+    sharing the card, gloo, the plain data-parallel trainer, the sums on the
+    card) against the same configuration on one rank on the plain trainer
+    over the same bunches (in process: the samples beyond the last whole
+    bunch put last in each epoch's order), CV history and weights at
+    RECIPE_DP_CV_RTOL / RECIPE_DP_WTS_FRO; rank 0 alone logged and wrote the
+    run dir, which reloads; then the same command on one rank (the
+    tensor-core chunk trainer) for its times.  Stage times and samples/s."""
+    from dataclasses import replace
+
+    from tpu_sednn_torch.enhance import enhance_waveform
+    from tpu_sednn_torch.io import load_wts
+    from tpu_sednn_torch.recipes import load_run_dir
+    from tpu_sednn_torch.recipes import multi_condition as tmc
+    from tpu_sednn_torch.utils.checkpoint import restore_checkpoint
+    from tpu_sednn_torch.utils.logging import Logger
+
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "recipe_dp")
+    two = _recipe_command(work, "two", 2)
+    mc = tmc.command_config(small=True, device="cuda")
+    log = two["log"]
+    _check(any("backend gloo" in l for l in log)
+           and any("[mc] data-parallel over 2 ranks" in l for l in log)
+           and sum("[mc] done" in l for l in log) == 1,
+           "torchrun 2 ranks: no gloo line, no data-parallel line, or not one '[mc] done'")
+    n_whole = two["n_train"] - two["n_train"] % mc.bunchsize
+    n_bunches = mc.n_epochs * n_whole // mc.bunchsize
+    c2 = two["counts"]
+    _check(c2["rank_sum"] == n_bunches and not _other_launches(c2),
+           f"recipe on 2 ranks: {n_bunches} bunches, launches {c2}")
+    files = sorted(os.listdir(two["dir"]))
+    _check({"ckpt", "fea.norm", "gv.txt", "mlp.final.wts", "results.json", "run.json"}
+           <= set(files), f"the 2-rank run dir holds {files}")
+    params, mcfg, ecfg, mean, istd, tn, gv = load_run_dir(two["dir"], device="cuda")
+    state, extra, _ = restore_checkpoint(os.path.join(two["dir"], "ckpt"), device="cuda")
+    _check(all(torch.equal(a, b) for a, b in zip(list(params.w) + list(params.b),
+                                                 list(state.params.w) + list(state.params.b)))
+           and extra["cv_hist"] == two["results"]["cv_hist"],
+           "the 2-rank run's mlp.final.wts or CV history differs from its last checkpoint")
+    _, _, nz = tmc.synthetic_eval_clips(mc)[0]
+    _check(np.isfinite(enhance_waveform(params, mcfg, ecfg, nz, mean, istd, device="cuda")).all(),
+           "the 2-rank run dir decodes to non-finite samples")
+
+    # one rank on the plain trainer over the same bunches, in process
+    real = tmc._epoch_permutation
+
+    def tail_last(seed, epoch, n, device):
+        whole = n - n % mc.bunchsize
+        return torch.cat([real(seed, epoch, whole, "cpu"), torch.arange(whole, n)]).to(device)
+
+    tmc._epoch_permutation = tail_last
+    try:
+        t1 = time.perf_counter()
+        one = tmc.run_multi_condition(replace(mc, out_dir=os.path.join(work, "one_plain"),
+                                              engine="xla"), Logger(stream=None))
+        one_s = time.perf_counter() - t1
+    finally:
+        tmc._epoch_permutation = real
+    cv2, cv1 = np.array(two["results"]["cv_hist"]), np.array(one["cv_hist"])
+    cv_off = float(np.max(np.abs(cv2 - cv1) / np.abs(cv1)))
+    (w2, b2), (w1, b1) = (load_wts(os.path.join(d, "mlp.final.wts"))
+                          for d in (two["dir"], os.path.join(work, "one_plain")))
+    wts_off = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(w2 + b2, w1 + b1))
+    _check(cv_off <= RECIPE_DP_CV_RTOL and wts_off <= RECIPE_DP_WTS_FRO,
+           f"recipe on 2 ranks vs one rank: CV {cv2} vs {cv1} ({cv_off:.3g} apart, tol "
+           f"{RECIPE_DP_CV_RTOL}), weights {wts_off:.3g} apart (tol {RECIPE_DP_WTS_FRO})")
+    _check(cv2[-1] < cv2[0], f"recipe on 2 ranks: CV did not fall: {cv2}")
+
+    # the same command on one rank: the tensor-core chunk trainer, for its times
+    cmd1 = _recipe_command(work, "one", 1)
+    cv_cmd1 = cmd1["results"]["cv_hist"]
+    _check(cv_cmd1[-1] < cv_cmd1[0] and np.isfinite(cv_cmd1).all(),
+           f"the recipe on one rank: CV did not fall: {cv_cmd1}")
+    for label, r in (("2 ranks (torchrun, gloo, plain data-parallel trainer)", two),
+                     ("1 rank (the command alone, tensor-core chunk trainer)", cmd1)):
+        print(f"[recipe-dp] --small on {label}: wall {r['wall_s']:.1f} s; "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in r["stages"].items())
+              + f"; training {r['results']['train_samples_per_sec']:.0f} samples/s; CV "
+              f"{r['results']['cv_hist'][0]:.4f} -> {r['results']['cv_hist'][-1]:.4f}; {smi}",
+              flush=True)
+    print(f"[recipe-dp] 2 ranks against one rank on the plain trainer over the same bunches (in "
+          f"process, {one_s:.1f} s): CV history {cv_off:.3g} apart (tol {RECIPE_DP_CV_RTOL}), "
+          f"mlp.final.wts {wts_off:.3g} relative Frobenius (tol {RECIPE_DP_WTS_FRO}); rank 0 alone "
+          f"logged and wrote the run dir, which reloads through load_run_dir as the last "
+          f"checkpoint; rank 0 launched rank_sum {c2['rank_sum']} times ({n_bunches} bunches) and "
+          f"no other kernel of the port; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(counts={k: v for k, v in c2.items() if isinstance(v, int)}, n_bunches=n_bunches,
+                cv_hist=cv2.tolist(), cv_one=cv1.tolist(), cv_off=cv_off, wts_off=wts_off,
+                two=dict(wall_s=two["wall_s"], stages=two["stages"],
+                         train_samples_per_sec=two["results"]["train_samples_per_sec"]),
+                one_cmd=dict(wall_s=cmd1["wall_s"], stages=cmd1["stages"], cv_hist=cv_cmd1,
+                             train_samples_per_sec=cmd1["results"]["train_samples_per_sec"]),
+                seconds=time.perf_counter() - t0)
+
+
+def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path, tp_sums: int,
+             recipe_dp_sums: int) -> list:
     """The `kernels` line's rows of the data-parallel forms: the gradient-out
     backward and the update kernel (times at a rank's 64 rows, 2 ranks, with
     the 32 rows of 4 beside), rank_sum (a bunch's four sums, 2 ranks, 4
-    beside) and the DP chunk trainer per bunch and rank."""
+    beside; its launches on the tensor-parallel path and on the recipe's
+    data-parallel branch beside the DP trainer's) and the DP chunk trainer per
+    bunch and rank."""
     k64, k32, held, timing = dp["kern"][64], dp["kern"][32], dp["held"], dp["timing"]
     replaces = "tpu_sednn/ops/resident_chunk.py:169"
     shape = "a rank's 64 rows of a bunch of 128 (2 ranks) through the four layers of 1548-2048x3-129"
@@ -4063,10 +4494,15 @@ def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path) -> list:
             max_abs_err_is="largest difference read from the plain version with the same bits "
                            "(bit-equal held)"),
         dict(name="rank_sum", source="tpu_sednn_torch/csrc/rank_sum.cu",
-             replaces="tpu_sednn/ops/resident_chunk.py:223", route="cuda", launches=dw["rank_sum"],
-             launches_by_path=by_path(0, 0, train_dp=dw["rank_sum"]),
+             replaces="tpu_sednn/ops/resident_chunk.py:223", route="cuda",
+             launches=dw["rank_sum"] + tp_sums + recipe_dp_sums,
+             launches_by_path=by_path(0, 0, train_dp=dw["rank_sum"], train_tp=tp_sums,
+                                      recipe_dp=recipe_dp_sums),
              shape="the four gradients of 1548-2048x3-129 (K*N + N floats each) of 2 ranks, per "
-                   "bunch", launches_of="sums of a layer's gradient over ranks sharing the card",
+                   "bunch", launches_of="sums over ranks sharing the card: a layer's gradient "
+                                        "(train_dp), the gradients, dedy and the column gathers "
+                                        "of the tensor-parallel trainer (train_tp), the plain "
+                                        "data-parallel trainer's gradients (recipe_dp)",
              max_abs_err_is="largest difference read from the plain version (bit-equal held)",
              library_is="torch.sum over the ranks' gradients stacked (n_ranks, K*N + N)",
              at_4_ranks={k: s4[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
@@ -4092,6 +4528,8 @@ def main(argv=None) -> int:
                     "exits with 2)")
     ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "WORLD", "DIR"),
                     help="one rank of the dp phase's runs (started by the dp phase itself)")
+    ap.add_argument("--tp-worker", nargs=3, metavar=("RANK", "WORLD", "DIR"),
+                    help="one rank of the tp phase's runs (started by the tp phase itself)")
     ap.add_argument("--chain-times", action="store_true",
                     help="only build and time the tensor-core chunk trainer's chain (chain_times; "
                          "prints no final line, exits with 2)")
@@ -4114,6 +4552,8 @@ def main(argv=None) -> int:
     resolve_device("cuda")
     if args.dp_worker:
         return dp_worker(int(args.dp_worker[0]), int(args.dp_worker[1]), args.dp_worker[2])
+    if args.tp_worker:
+        return tp_worker(int(args.tp_worker[0]), int(args.tp_worker[1]), args.tp_worker[2])
     t_start = time.perf_counter()
     smi = phase_device()
     if args.chain_times:
@@ -4159,6 +4599,9 @@ def main(argv=None) -> int:
         if "dp" in groups:
             torch.cuda.empty_cache()
             dp = phase_dp(tmp, smi, train_ran="train" in groups)
+            torch.cuda.empty_cache()
+            tp = phase_tp(tmp, smi)
+            recipe_dp = phase_recipe_dp(tmp, smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     if groups != everything:
         print(f"partial run (--only {args.only}): no kernels line, no final line", file=sys.stderr)
@@ -4226,10 +4669,19 @@ def main(argv=None) -> int:
            and rkc["fused_bwd_update"] == rkc["tc_bwd_update"],
            f"the recipe path launched float32-product layer kernels: {rkc}")
 
-    def by_path(train_n, arrays_n, make_pfile=0, serving=0, train_dp=0, recipe=0):
+    # the tensor-parallel and the recipe's data-parallel paths: the sums (and the
+    # tensor-parallel column gathers) on the card, and no other kernel
+    tp_n, rdp = tp["counts"], recipe_dp["counts"]
+    for name, n in (("tensor-parallel training", tp_n["rank_sum"]),
+                    ("the recipe's data-parallel branch", rdp["rank_sum"])):
+        _check(n > 0, f"{name} never launched the rank_sum kernel")
+
+    def by_path(train_n, arrays_n, make_pfile=0, serving=0, train_dp=0, recipe=0, train_tp=0,
+                recipe_dp=0):
         # the streaming, int8 and fusion paths launch no kernel (checked in their phases)
         return {"make_pfile": make_pfile, "serving": serving, "train": train_n,
                 "train_arrays": arrays_n, "train_dp": train_dp, "recipe": recipe,
+                "train_tp": train_tp, "recipe_dp": recipe_dp,
                 **{f"serving_{k}": m["launches"] for k, m in modes.items()}}
 
     def variant(name, form, timing_key, what):
@@ -4350,7 +4802,8 @@ def main(argv=None) -> int:
              launches=ac["sr_momentum_update"],
              launches_by_path=by_path(0, ac["sr_momentum_update"]), **sr["k6"]),
     ]
-    kernels += _dp_rows(dp, dw, dp_tc_runs, dp_f32_runs, by_path)
+    kernels += _dp_rows(dp, dw, dp_tc_runs, dp_f32_runs, by_path, tp_n["rank_sum"],
+                        rdp["rank_sum"])
     spill = next(k for k in kernels if k["name"] == "resident_chunk_hbm_spill")
     spill.update(max_abs_err=wide["spill_max_abs"],
                  max_abs_err_is="largest absolute difference of a state tensor from the unspilled "
@@ -4363,6 +4816,8 @@ def main(argv=None) -> int:
     print(f"[arrays] summary {json.dumps(arrays)}")
     print(f"[recipe] summary {json.dumps(recipe)}")
     print(f"[dp] summary {json.dumps(dp)}")
+    print(f"[tp] summary {json.dumps(tp)}")
+    print(f"[recipe-dp] summary {json.dumps(recipe_dp)}")
     print(f"[train] summary {json.dumps(train)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

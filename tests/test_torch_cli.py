@@ -93,7 +93,7 @@ MODE_ATOL = {"--quant": 1e-3}
 @pytest.mark.parametrize("flag", [["--stream", "4"], ["--stream", "4", "--stream-device"],
                                   ["--stream-device"], ["--quant", "int8"],
                                   ["--fuse-with", "run_b"]])
-def test_enhance_cli_unported_flags_exit_nonzero(tmp_path, model, run_b, flag):
+def test_enhance_cli_modes_equal_the_jax_command(tmp_path, model, run_b, flag):
     """The four decode modes (once refused here) run with --device cpu and
     write the JAX command's wavs: streaming (host and device state) and
     fusion within the offline decode's 2 LSB, int8 within 1e-3; a lone
@@ -130,7 +130,7 @@ def test_enhance_cli_rejects_what_jax_rejects(tmp_path, model, run_b, flag, matc
 @pytest.mark.parametrize("pkg", ["enhance", "model", "io", "tools", "parallel"])
 def test_port_exports_equal_jax(pkg):
     """Every public name of a JAX package's __init__ is exported by the
-    port's; only the tensor-parallel trainer is still missing."""
+    port's."""
     import importlib
     import inspect
 
@@ -140,7 +140,7 @@ def test_port_exports_equal_jax(pkg):
 
     missing = (names(importlib.import_module(f"tpu_sednn.{pkg}"))
                - names(importlib.import_module(f"tpu_sednn_torch.{pkg}")))
-    assert missing == ({"make_auto_sharded_train_chunk"} if pkg == "parallel" else set())
+    assert missing == set()
 
 
 def test_enhance_cli_rejects_wrong_rate_and_missing_cuda(tmp_path, model):

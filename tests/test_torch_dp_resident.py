@@ -308,7 +308,7 @@ def test_one_rank_dp_is_the_single_device_trainer(bf16):
     rank's own gradient: the DP plain version equals the single-device one
     bit for bit, dropout and stochastic rounding included, and a CPU state
     launches no kernel."""
-    mesh = make_mesh()
+    mesh = make_mesh(devices=["cpu"])
     assert mesh.shape == {"data": 1, "model": 1} and mesh.index == 0
     p, x, t = _data(DROP)
     mlp = tm.params_from_jax({"w": tuple(np.asarray(w) for w in p["w"]),

@@ -13,7 +13,9 @@ on the CPU, against tpu_sednn/recipes/multi_condition.py.
 (c) a run killed after 2 epochs (ckpt_every=1) and resumed gives the
     uninterrupted run's cv_hist bit for bit;
 (d) the chunk trainer's padded last chunk with n_real (its plain version on
-    the CPU) trains as the plain trainer's trimmed chunks.
+    the CPU) trains as the plain trainer's trimmed chunks;
+(e) under a process group (simulated on rank 0) the recipe takes the JAX
+    recipe's data-parallel branch where the group's size divides the bunch.
 """
 
 import json
@@ -249,13 +251,44 @@ def test_stage_times_go_to_the_metrics_stream(tmp_path):
         ["corpus", "featurize", "targets", "train", "eval"]
 
 
-def test_data_parallel_group_raises(tmp_path, monkeypatch):
+@pytest.mark.parametrize("world,taken", [(2, True), (3, False)])
+def test_data_parallel_group_takes_the_dp_branch(tmp_path, monkeypatch, world, taken):
+    """Under a process group whose size divides the bunch the recipe trains
+    with parallel.make_dp_train_chunk on the samples trimmed to whole
+    bunches (the JAX recipe's branch); otherwise on the single-device
+    trainer.  The group is simulated on rank 0 (the 2-rank runs are in
+    tests/test_torch_recipe_dp.py)."""
     import torch.distributed as dist
 
+    import tpu_sednn_torch.parallel as tpar
+
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(ValueError, match="ROADMAP A3"):
-        _run(tmp_path, "dp", n_utts=4, hidden=(16,), n_epochs=1)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: world)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(dist, "barrier", lambda group=None: None)
+    monkeypatch.setattr(tpar, "make_mesh", lambda n_data, devices: tpar.Mesh(n_data, 0, devices[0]))
+    monkeypatch.setattr(tpar, "replicate", lambda tree, mesh: tree)
+    chunks = []
+
+    def dp_trainer(cfg, opt, mesh):
+        assert mesh.n_data == world and opt.bunchsize == 32
+
+        def run(state, x, t, rng, lrate, momentum, weightcost):
+            chunks.append(x.shape[0])
+            return state
+        return run
+
+    monkeypatch.setattr(tpar, "make_dp_train_chunk", dp_trainer)
+    lines = []
+    _run(tmp_path, "dp", logger=_Lines(lines), n_utts=4, snrs=(0.0,), noise_kinds=("white",),
+         fea_context=3, targ_offset=1, hidden=(16,), n_epochs=2, bunchsize=32, head="ibm",
+         traincache=64)
+    n = int(next(l for l in lines if " train / " in l).split()[1])
+    assert any(f"data-parallel over {world} ranks" in l for l in lines) == taken
+    if taken:  # every chunk whole bunches, the epoch the trimmed samples
+        assert all(c % 32 == 0 for c in chunks) and sum(chunks) == 2 * (n - n % 32)
+    else:
+        assert chunks == []
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -141,17 +141,29 @@ def _assert_state(port, jst, tol=TOL, keys=("w", "b", "dw", "db")):
 
 
 def test_mesh_shapes_and_guards():
-    mesh = make_mesh()
+    mesh = make_mesh(devices=["cpu"])
     assert mesh.shape == {"data": 1, "model": 1} and mesh.index == 0
-    assert make_mesh(devices=["cpu"]).device == torch.device("cpu")
+    assert mesh.device == torch.device("cpu")
+    one = make_mesh(n_data=1, n_model=1, devices=["cpu"])  # a 1 x 1 mesh of one rank
+    assert one.shape == {"data": 1, "model": 1} and (one.index, one.model_index) == (0, 0)
     with pytest.raises(ValueError, match="world size"):
-        make_mesh(n_data=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_mesh(n_data=1, n_model=2)
+        make_mesh(n_data=2, devices=["cpu"])
+    with pytest.raises(ValueError, match="1 x 2 must hold the world size 1"):
+        make_mesh(n_data=1, n_model=2, devices=["cpu"])
     # a single process joins no group; asking nccl for ranks on the CPU raises before joining
     assert initialize_distributed(device="cpu") is None
     with pytest.raises(ValueError, match="nccl"):
         initialize_distributed(device="cpu", backend="nccl", world_size=2, rank=0)
+
+
+def test_make_mesh_defaults_to_the_card():
+    """With no devices the mesh takes the current card, and raises where
+    there is none (no fall back to the CPU)."""
+    if torch.cuda.is_available():
+        assert make_mesh().device == torch.device("cuda", torch.cuda.current_device())
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -257,7 +269,7 @@ def test_replicate_and_runner_guards_on_one_rank():
     cfg, opt = tm.ModelConfig(layersizes=SIZES), OptConfig(**OPT)
     _, ws, bs = _params(SIZES)
     st = init_train_state(_mlp(ws, bs))
-    assert replicate(st, make_mesh()) is st  # one rank: nothing to send
+    assert replicate(st, make_mesh(devices=["cpu"])) is st  # one rank: nothing to send
     with pytest.raises(ValueError, match="world size"):
         make_chunk_runner(cfg, opt, "resident", n_data_shards=2, device="cpu")
     with pytest.raises(ValueError, match="pre_grouped"):

@@ -212,7 +212,7 @@ def test_factory_guards():
 
     with pytest.raises(ValueError, match="power of two"):
         rc.make_dp_resident_train_chunk(cfg, opt, Mesh(3, 0, torch.device("cpu")))
-    assert rc.make_dp_resident_train_chunk(cfg, opt, make_mesh())  # one rank, no process group
+    assert rc.make_dp_resident_train_chunk(cfg, opt, make_mesh(devices=["cpu"]))  # one rank, no process group
     with pytest.raises(ValueError):
         rc.make_resident_train_chunk(cfg, opt, rule="nope")
     with pytest.raises(ValueError):

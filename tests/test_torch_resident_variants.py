@@ -285,7 +285,7 @@ def test_still_unported_and_state_checks():
     assert dict(rc.kernel_launches) == before
     from tpu_sednn_torch.parallel import make_mesh
 
-    st = rc.make_dp_resident_train_chunk(cfg, opt, make_mesh(), sr_delta=True)(
+    st = rc.make_dp_resident_train_chunk(cfg, opt, make_mesh(devices=["cpu"]), sr_delta=True)(
         init_train_state(mlp), torch.zeros(16, 16), torch.zeros(16, 16), 0)
     assert st.step == 1 and st.deltas.w[0].dtype == torch.bfloat16
     assert dict(rc.kernel_launches) == before

@@ -32,8 +32,6 @@ command writes the port's kernel launch counters there as JSON when it ends
 
 from __future__ import annotations
 
-import json
-import os
 import sys
 
 import torch.distributed as dist
@@ -132,13 +130,10 @@ def main(argv=None) -> int:
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
     if dist.is_initialized():
         dist.destroy_process_group()
-    report = os.environ.get("TPU_SEDNN_TORCH_LAUNCH_REPORT")
-    if report and rank0:
-        from tpu_sednn_torch.ops import launch_counts
-
-        with open(report, "w") as f:
-            json.dump(launch_counts(), f)
     if rank0:
+        from tpu_sednn_torch.ops import write_launch_report
+
+        write_launch_report()
         print("all finish!")
     return 0
 

@@ -57,6 +57,19 @@ def launch_counts() -> dict:
     }
 
 
+def write_launch_report() -> None:
+    """If the environment variable TPU_SEDNN_TORCH_LAUNCH_REPORT names a
+    file, write `launch_counts()` there as JSON (the commands call this as
+    they end, so a caller can see which kernels ran)."""
+    import json
+    import os
+
+    path = os.environ.get("TPU_SEDNN_TORCH_LAUNCH_REPORT")
+    if path:
+        with open(path, "w") as f:
+            json.dump(launch_counts(), f)
+
+
 def reset_launch_counts() -> None:
     """Set every counter of `launch_counts` to 0."""
     from tpu_sednn_torch.ops import resident_chunk

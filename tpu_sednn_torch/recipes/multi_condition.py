@@ -11,6 +11,18 @@ epochs -> external decode), collapsed into one program on the card:
 Runnable:  python -m tpu_sednn_torch.recipes.multi_condition [--small | --psm-full]
            [--device cuda|cpu] [--metrics FILE]
            (device cuda by default; raises without one)
+Data-parallel: python -m torch.distributed.run --nproc_per_node=N
+           -m tpu_sednn_torch.recipes.multi_condition ...
+
+Under a process group of more than one rank (use_dp_mesh, N dividing the
+bunch size) the recipe takes the JAX recipe's data-parallel branch: the
+samples are trimmed to whole bunches before the epoch permutations, the
+state is broadcast from rank 0, and the plain data-parallel trainer
+(parallel.make_dp_train_chunk) trains every rank's rows of each bunch.
+Every rank builds the corpus and the features itself; rank 0 alone writes
+the run dir (norms, checkpoints, mlp.final.wts, run.json, results.json)
+and scores it, and the other ranks wait for it at a barrier.  A resumed run
+restores the checkpoint onto every rank.
 
 The corpus, the targets and the scores are host numpy, as in the JAX
 package; features, training and decode run on `device`.  On a CUDA device
@@ -18,6 +30,9 @@ package; features, training and decode run on `device`.  On a CUDA device
 (ops/resident_chunk.py: tensor-core products, in-kernel Philox dropout).
 Every random draw of the run sits in one small function of this module
 (`_init_params`, `_epoch_permutation`, `_chunk_rng`), seeded from mc.seed.
+If the environment variable TPU_SEDNN_TORCH_LAUNCH_REPORT names a file, the
+command writes the port's kernel launch counters there as JSON when it ends
+(rank 0's, `ops.launch_counts()`).
 """
 
 from __future__ import annotations
@@ -51,9 +66,10 @@ class MultiConditionConfig:
     dropout: Tuple[float, float] = (0.1, 0.2)
     seed: int = 0
     ckpt_every: int = 5  # checkpoint (params+momentum) every N epochs
-    # the JAX recipe's data-parallel branch (more than one device visible);
-    # not ported: with a torch.distributed group of more than one rank the
-    # run raises rather than train on one rank alone
+    # the JAX recipe's data-parallel branch: under a torch.distributed group
+    # of more than one rank whose size divides bunchsize, the plain
+    # data-parallel trainer (parallel.make_dp_train_chunk) on the samples
+    # trimmed to whole bunches, whatever `engine` says
     use_dp_mesh: bool = True
     # samples per trainer call (the reference's traincache, finetune_...pl:
     # 65): bounds the transient device footprint of each chunk's gather.
@@ -195,11 +211,9 @@ def run_multi_condition(mc: MultiConditionConfig, logger: Optional[Logger] = Non
 
     log = logger or Logger()
     dev = resolve_device(mc.device)
-    if (mc.use_dp_mesh and dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise ValueError(
-            "the multi-condition recipe's data-parallel branch is not ported "
-            "(ROADMAP A3); run it on one rank, or set use_dp_mesh=False")
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    rank0 = not grouped or dist.get_rank() == 0  # the one rank that writes files
     os.makedirs(mc.out_dir, exist_ok=True)
     t_start = t_stage = time.time()
     enh_cfg = _enhance_config(mc)
@@ -241,13 +255,14 @@ def run_multi_condition(mc: MultiConditionConfig, logger: Optional[Logger] = Non
     mean, inv_std = compute_norm(np.concatenate(tr_noisy))
     t_mean, t_inv_std = (compute_norm(np.concatenate(tr_clean))
                          if target_norm else (None, None))
-    save_norm(os.path.join(mc.out_dir, "fea.norm"), mean, inv_std)
-    if target_norm:
-        # needed to denormalize at decode (demo_gate / enhance CLI)
-        save_norm(os.path.join(mc.out_dir, "targ.norm"), t_mean, t_inv_std)
     # clean-corpus global variance for decode-time GV equalization (TASLP'15)
     gv_ref = np.concatenate(tr_clean).var(axis=0)
-    np.savetxt(os.path.join(mc.out_dir, "gv.txt"), gv_ref)
+    if rank0:
+        save_norm(os.path.join(mc.out_dir, "fea.norm"), mean, inv_std)
+        if target_norm:
+            # needed to denormalize at decode (demo_gate / enhance CLI)
+            save_norm(os.path.join(mc.out_dir, "targ.norm"), t_mean, t_inv_std)
+        np.savetxt(os.path.join(mc.out_dir, "gv.txt"), gv_ref)
 
     if mc.head == "psm":
         targets_all = _psm_targets(cleans, noisys, cfg_stft)
@@ -276,23 +291,41 @@ def run_multi_condition(mc: MultiConditionConfig, logger: Optional[Logger] = Non
              f"head {mc.head}")
     stage("targets")
 
-    # 2. model + single-device chunk trainer
+    # 2. model + trainer: data-parallel over the process group's ranks, or
+    #    the single-device chunk trainer
     sizes = (d * mc.fea_context + d, *mc.hidden, d)
     mcfg = ModelConfig(layersizes=sizes, dropout_vis=mc.dropout[0],
                        dropout_hid=mc.dropout[1], dropout_mode="parity",
                        output="sigmoid" if mask_head else "linear")
-    state = init_train_state(_init_params(mcfg, mc.seed, dev))
+    params = _init_params(mcfg, mc.seed, dev)
     opt0 = recipe_opt_schedule(0, mc.lrate, mc.bunchsize)
-    ekw = dict(mc.engine_kwargs or {})
-    resolved = mc.engine
-    if resolved == "auto":
-        resolved, extra = _auto_engine(mcfg, opt0, ekw, dev)
-        ekw.update(extra)
-    run = make_chunk_runner(mcfg, opt0, resolved, device=dev, **ekw)
-    # the chunk trainer: pad the final partial chunk to traincache rows and
-    # pass n_real, as the JAX recipe does for its one compiled shape
-    pad_chunks = resolved == "resident"
-    log.info(f"[mc] single-device training on {dev} (engine={resolved} {ekw if ekw else ''})")
+    use_dp = (mc.use_dp_mesh and world > 1 and mc.bunchsize % world == 0
+              and len(x) >= mc.bunchsize)
+    if use_dp:
+        from tpu_sednn_torch.parallel import make_dp_train_chunk, make_mesh, replicate
+
+        # the trainer drops the partial bunch regardless (BP_GPU.cu:315-318
+        # semantics), so trim to whole bunches up front, as the JAX recipe
+        # does: the epoch permutations run over the trimmed samples
+        n_whole = (len(x) // mc.bunchsize) * mc.bunchsize
+        x, t = x[:n_whole], t[:n_whole]
+        mesh = make_mesh(n_data=world, devices=[dev])
+        state = init_train_state(replicate(params, mesh))
+        run = make_dp_train_chunk(mcfg, opt0, mesh)
+        pad_chunks = False
+        log.info(f"[mc] data-parallel over {world} ranks on {dev}")
+    else:
+        state = init_train_state(params)
+        ekw = dict(mc.engine_kwargs or {})
+        resolved = mc.engine
+        if resolved == "auto":
+            resolved, extra = _auto_engine(mcfg, opt0, ekw, dev)
+            ekw.update(extra)
+        run = make_chunk_runner(mcfg, opt0, resolved, device=dev, **ekw)
+        # the chunk trainer: pad the final partial chunk to traincache rows and
+        # pass n_real, as the JAX recipe does for its one compiled shape
+        pad_chunks = resolved == "resident"
+        log.info(f"[mc] single-device training on {dev} (engine={resolved} {ekw if ekw else ''})")
 
     # samples stay on the device; each chunk is gathered there
     xj = torch.from_numpy(x).to(dev)
@@ -306,6 +339,8 @@ def run_multi_condition(mc: MultiConditionConfig, logger: Optional[Logger] = Non
     ckpt_dir = os.path.join(mc.out_dir, "ckpt")
     cv_hist: List[float] = []
     start_epoch = 0
+    if world > 1:
+        dist.barrier()  # rank 0's files of a run before are all written
     if latest_step(ckpt_dir) is not None:
         state, extra, _ = restore_checkpoint(ckpt_dir, device=dev)
         start_epoch = int(extra.get("epoch", -1)) + 1
@@ -338,7 +373,7 @@ def run_multi_condition(mc: MultiConditionConfig, logger: Optional[Logger] = Non
             raise FloatingPointError(f"[mc] diverged at epoch {epoch} (cv={cv})")
         cv_hist.append(cv)
         log.info(f"[mc] epoch {epoch}: cv_mse={cv:.4f} momentum={opt.momentum}")
-        if (epoch + 1) % mc.ckpt_every == 0 or epoch == mc.n_epochs - 1:
+        if rank0 and ((epoch + 1) % mc.ckpt_every == 0 or epoch == mc.n_epochs - 1):
             save_checkpoint(ckpt_dir, epoch + 1, state,
                             extra={"epoch": epoch, "cv_hist": cv_hist,
                                    "layersizes": list(sizes)})
@@ -350,6 +385,11 @@ def run_multi_condition(mc: MultiConditionConfig, logger: Optional[Logger] = Non
                        if n_run_epochs > 0 else 0.0)
     del xj, tj, xcj, tcj
     stage("train")
+
+    if not rank0:  # rank 0 alone writes the run dir and scores it: wait for it
+        dist.barrier()
+        return {"cv_hist": cv_hist, "train_samples_per_sec": samples_per_sec,
+                "audio_seconds": audio_seconds, "eval": {}}
 
     # 4. export weights + a run manifest so standalone re-scoring
     #    (recipes/demo_gate.py CLI, enhance CLI) reconstructs the exact
@@ -410,6 +450,8 @@ def run_multi_condition(mc: MultiConditionConfig, logger: Optional[Logger] = Non
         json.dump(results, f, indent=2)
     log.info(f"[mc] done in {results['total_seconds']:.0f}s; "
              f"{samples_per_sec:.0f} samples/s during training")
+    if world > 1:
+        dist.barrier()
     return results
 
 
@@ -551,6 +593,26 @@ def _noise_generalization_eval(params, mcfg, enh_cfg, mean, inv_std,
     return out
 
 
+def command_config(small: bool = False, psm_full: bool = False,
+                   device: str = "cuda") -> MultiConditionConfig:
+    """The configuration the command runs for --small / --psm-full."""
+    mc = MultiConditionConfig(
+        out_dir="mc_run_small" if small else "mc_run",
+        n_utts=24 if small else 120,
+        hidden=(512, 512) if small else (2048, 2048, 2048),
+        n_epochs=6 if small else 15,
+        snrs=(0.0, 5.0) if small else (-5.0, 0.0, 5.0, 10.0, 15.0, 20.0),
+        noise_kinds=("white",) if small else ("white", "pink", "babble"),
+        device=device,
+    )
+    if psm_full:
+        from tpu_sednn_torch.data.mixing import NOISE_KINDS
+
+        mc = replace(mc, out_dir="mc_psm_full", head="psm", n_utts=2000, variants=2, n_epochs=22,
+                     hidden=(2048, 2048, 2048), noise_kinds=NOISE_KINDS, ckpt_every=8)
+    return mc
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -564,22 +626,20 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics", default=None,
                     help="append the stage times as JSON lines to this file")
     args = ap.parse_args(argv)
-    small = args.small
-    mc = MultiConditionConfig(
-        out_dir="mc_run_small" if small else "mc_run",
-        n_utts=24 if small else 120,
-        hidden=(512, 512) if small else (2048, 2048, 2048),
-        n_epochs=6 if small else 15,
-        snrs=(0.0, 5.0) if small else (-5.0, 0.0, 5.0, 10.0, 15.0, 20.0),
-        noise_kinds=("white",) if small else ("white", "pink", "babble"),
-        device=args.device,
-    )
-    if args.psm_full:
-        from tpu_sednn_torch.data.mixing import NOISE_KINDS
+    mc = command_config(args.small, args.psm_full, args.device)
+    import torch.distributed as dist
 
-        mc = replace(mc, out_dir="mc_psm_full", head="psm", n_utts=2000, variants=2, n_epochs=22,
-                     hidden=(2048, 2048, 2048), noise_kinds=NOISE_KINDS, ckpt_every=8)
-    run_multi_condition(mc, Logger(metrics_path=args.metrics))
+    from tpu_sednn_torch.parallel import initialize_distributed
+
+    initialize_distributed(device=args.device)  # WORLD_SIZE > 1: torchrun's ranks
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    run_multi_condition(mc, Logger(metrics_path=args.metrics, is_host0=rank0))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if rank0:
+        from tpu_sednn_torch.ops import write_launch_report
+
+        write_launch_report()
     return 0
 
 
