@@ -44,16 +44,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      .norm the port wrote, each against the in-process decode of its mode.
   5. fused layer kernels (fused_linear_act, fused_bwd_update) with float32
      products (bf16=False) against their float64 plain versions at the four
-     flagship layer shapes and at ragged ones, with in-kernel and explicit
-     dropout masks; their times, the plain versions' and torch.addmm's beside
-     the bound.  Then their tensor-core forms (bf16=True, the default) at the
-     four 8 kHz and four 16 kHz layer shapes and ragged ones, float32 and
-     bfloat16 W, against the float64 plain versions of the same rounded
-     operands; the float32-FMA form and truncated operands refused, and no
-     reduce_dedy_kernel launched by the tensor-core backward; times beside
-     the bytes bound and a bfloat16 torch.addmm; the tensor-core backward's
-     plan (split, stripes) and, layer by layer, its time by part (the fused
-     update, the gradient alone, with dedy, reduce_dedy_kernel traced).
+     flagship layer shapes and at ragged ones up to 512 rows (the backward's
+     16-, 32- and 64-row stripes), with in-kernel and explicit dropout masks,
+     the backward also on bfloat16 delta and bfloat16 W and delta; no
+     reduce_dedy_kernel launched, and more rows than the backward takes
+     refused in both forms; their times at 8 and 16 kHz, the plain versions'
+     and torch.addmm's beside the bound.  Then their tensor-core forms
+     (bf16=True, the default) at the four 8 kHz and four 16 kHz layer shapes
+     and ragged ones, float32 and bfloat16 W, against the float64 plain
+     versions of the same rounded operands; the float32-FMA form and
+     truncated operands refused; times beside the bytes bound and a bfloat16
+     torch.addmm.  For both forms the backward's plan (split, stripes) and,
+     layer by layer, its time by part (the fused update, the gradient alone,
+     with dedy, reduce_dedy_kernel traced).
   6. dropout stream: the device Philox against the Random123 known-answer
      vectors and, bit for bit, against its plain version; zero rate, stream
      distinctness and rank-slice identity of sample_resident_masks.
@@ -154,8 +157,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      read just after; `launches` is the total, `launches_by_path` the split.
 `--only serve,kernels,train,recipe,dp` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  `--chain-times`
-only times the chunk trainer's chain (chain_times), with `--package-root
-DIR` the package of another checkout (A/B runs in one call); exits with 2.
+only times the chunk trainer's chain (chain_times), `--bwd-times` only the
+backward (bwd_times), with `--package-root DIR` the package of another
+checkout (A/B runs in one call); both exit with 2.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
 non-zero without one.
 """
@@ -1150,12 +1154,13 @@ def _traced_ms(fn, reps: int = 20) -> dict:
 
 
 def _bwd_breakdown(l: int, dedx, x, ws, deltas, b, db, hyp: dict) -> dict:
-    """The tensor-core backward of one layer split by what it does: the fused
-    update (fused_bwd_update), the gradient alone (fused_bwd_grad_out without
-    dedy: G and gb written, nothing updated) and with dedy, each timed with
-    CUDA events; and the device time of reduce_dedy_kernel in a traced run of
-    the fused update (0 where none launches).  update share = fused -
-    gradient with dedy; dedy share = gradient with dedy - gradient alone."""
+    """The backward of one layer, in the product form hyp["bf16"] names, split
+    by what it does: the fused update (fused_bwd_update), the gradient alone
+    (fused_bwd_grad_out without dedy: G and gb written, nothing updated) and
+    with dedy, each timed with CUDA events; and the device time of
+    reduce_dedy_kernel in a traced run of the fused update (0 where none
+    launches).  update share = fused - gradient with dedy; dedy share =
+    gradient with dedy - gradient alone."""
     from tpu_sednn_torch.ops.fused_mlp import fused_bwd_grad_out, fused_bwd_update
 
     B, N = dedx.shape
@@ -1163,10 +1168,12 @@ def _bwd_breakdown(l: int, dedx, x, ws, deltas, b, db, hyp: dict) -> dict:
     grad = torch.empty(K * N + N, device="cuda")
     dedy = torch.empty(B, K, device="cuda")
     deriv = "relu" if l > 0 else None
+    tc = hyp["bf16"]
     upd = lambda i: fused_bwd_update(dedx, x, ws[i % 3], deltas[i % 3], b, db, **hyp)  # noqa: E731
-    t_g0 = _device_ms(lambda i: fused_bwd_grad_out(dedx, x, ws[i % 3], with_dedy=False, grad=grad))
+    t_g0 = _device_ms(lambda i: fused_bwd_grad_out(dedx, x, ws[i % 3], with_dedy=False, grad=grad,
+                                                   bf16=tc))
     t_g1 = _device_ms(lambda i: fused_bwd_grad_out(dedx, x, ws[i % 3], deriv="relu", grad=grad,
-                                                   dedy=dedy))
+                                                   dedy=dedy, bf16=tc))
     traced = _traced_ms(upd)
     t_red = sum(v for k, v in traced.items() if "reduce_dedy" in k)
     return dict(grad_ms=t_g0, grad_dedy_ms=t_g1, reduce_ms_traced=t_red,
@@ -1225,17 +1232,16 @@ def _time_layers(gen, tc: bool, fwd_worst: dict, bwd_worst: dict,
             ms=t_f, plain_ms=t_fp, library_ms=t_fl, bound_ms=f_bytes / PEAK_BYTES_PER_S * 1e3 if tc
             else max(f_flops / PEAK_FP32_FLOPS, f_bytes / PEAK_BYTES_PER_S) * 1e3)
         bwd["by_shape"][f"layer {l}, {B}x{K}x{N}"] = dict(ms=t_b, plain_ms=t_bp)
-        if tc:
-            parts = _bwd_breakdown(l, dedx, x, ws, deltas, b, db, hyp)
-            bwd["by_shape"][f"layer {l}, {B}x{K}x{N}"].update(
-                {k: v for k, v in parts.items() if k.endswith("_ms") or k.endswith("traced")})
-            print(f"[kernel] layer {l} {B}x{K}x{N}, tensor-core backward by part: fused update "
-                  f"{t_b:.4f} ms; gradient alone (G, gb) {parts['grad_ms']:.4f}, with dedy "
-                  f"{parts['grad_dedy_ms']:.4f} (update share {t_b - parts['grad_dedy_ms']:.4f}, "
-                  f"dedy share {parts['grad_dedy_ms'] - parts['grad_ms']:.4f}); reduce_dedy_kernel "
-                  f"{parts['reduce_ms_traced']:.4f} ms in a traced run of the fused update "
-                  f"(kernels traced: {', '.join(f'{k} {v:.4f}' for k, v in parts['traced'].items())})",
-                  flush=True)
+        parts = _bwd_breakdown(l, dedx, x, ws, deltas, b, db, hyp)
+        bwd["by_shape"][f"layer {l}, {B}x{K}x{N}"].update(
+            {k: v for k, v in parts.items() if k.endswith("_ms") or k.endswith("traced")})
+        print(f"[kernel] layer {l} {B}x{K}x{N}, {form} backward by part: fused update "
+              f"{t_b:.4f} ms; gradient alone (G, gb) {parts['grad_ms']:.4f}, with dedy "
+              f"{parts['grad_dedy_ms']:.4f} (update share {t_b - parts['grad_dedy_ms']:.4f}, "
+              f"dedy share {parts['grad_dedy_ms'] - parts['grad_ms']:.4f}); reduce_dedy_kernel "
+              f"{parts['reduce_ms_traced']:.4f} ms in a traced run of the fused update "
+              f"(kernels traced: {', '.join(f'{k} {v:.4f}' for k, v in parts['traced'].items())})",
+              flush=True)
         for acc, vals in ((fwd, dict(ms=t_f, plain_ms=t_fp, library_ms=t_fl, flops=f_flops,
                                      nbytes=f_bytes)),
                           (bwd, dict(ms=t_b, plain_ms=t_bp, flops=b_flops, nbytes=b_bytes))):
@@ -1254,15 +1260,15 @@ def _time_layers(gen, tc: bool, fwd_worst: dict, bwd_worst: dict,
     if tc:
         fwd["library_is"] = ("torch.addmm on bfloat16 x, W and b (+ relu), output bfloat16: "
                              "cuBLAS's bfloat16 product, not the same function")
-        sums = {k: sum(v[k] for v in bwd["by_shape"].values())
-                for k in ("grad_ms", "grad_dedy_ms", "reduce_ms_traced")}
-        bwd["parts_ms"] = dict(sums, update_share=bwd["ms"] - sums["grad_dedy_ms"],
-                               dedy_share=sums["grad_dedy_ms"] - sums["grad_ms"])
-        print(f"[kernel] one bunch's four layers of {'-'.join(map(str, net))}, tensor-core backward "
-              f"by part: fused update {bwd['ms']:.4f} ms, gradient alone {sums['grad_ms']:.4f}, with "
-              f"dedy {sums['grad_dedy_ms']:.4f}, reduce_dedy_kernel {sums['reduce_ms_traced']:.4f} "
-              f"(traced); by layer "
-              f"{' '.join('%.4f' % v['ms'] for v in bwd['by_shape'].values())}", flush=True)
+    sums = {k: sum(v[k] for v in bwd["by_shape"].values())
+            for k in ("grad_ms", "grad_dedy_ms", "reduce_ms_traced")}
+    bwd["parts_ms"] = dict(sums, update_share=bwd["ms"] - sums["grad_dedy_ms"],
+                           dedy_share=sums["grad_dedy_ms"] - sums["grad_ms"])
+    print(f"[kernel] one bunch's four layers of {'-'.join(map(str, net))}, {form} backward "
+          f"by part: fused update {bwd['ms']:.4f} ms, gradient alone {sums['grad_ms']:.4f}, with "
+          f"dedy {sums['grad_dedy_ms']:.4f}, reduce_dedy_kernel {sums['reduce_ms_traced']:.4f} "
+          f"(traced); by layer "
+          f"{' '.join('%.4f' % v['ms'] for v in bwd['by_shape'].values())}", flush=True)
     print(f"[kernel] one bunch's four layers of {'-'.join(map(str, net))}, {form}: "
           f"fused_linear_act {fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f} by "
           f"{fwd['bound_by']}, {'bfloat16 ' if tc else ''}torch.addmm+act "
@@ -1272,6 +1278,47 @@ def _time_layers(gen, tc: bool, fwd_worst: dict, bwd_worst: dict,
     return fwd, bwd
 
 
+def bwd_times() -> dict:
+    """Only the backward's device times, for comparing two checkouts in one call
+    (--bwd-times, with --package-root for the other): fused_bwd_update of one
+    bunch's four layers at 8 and 16 kHz in both product forms, and the float32
+    gradient-out backward of a rank's 64 rows of the 8 kHz layers (dedy below
+    the first), each call on the next of three weight sets, by CUDA events."""
+    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_grad_out, fused_bwd_update
+
+    gen = torch.Generator(device="cuda").manual_seed(1313)
+    out = {}
+    for tag, net in (("8k", FLAGSHIP), ("16k", WIDE)):
+        for tc in (False, True):
+            by_layer = []
+            for l in range(4):
+                K, N = net[l], net[l + 1]
+                x, dedx = _randn(gen, BUNCH, K), _randn(gen, BUNCH, N, scale=0.02)
+                ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
+                deltas = [torch.zeros(K, N, device="cuda") for _ in range(3)]
+                b, db = _randn(gen, N, scale=0.1), torch.zeros(N, device="cuda")
+                hyp = dict(momentum=0.5, lrate=1e-3, inv_n=1.0 / BUNCH, weightcost=0.0, bf16=tc)
+                by_layer.append(_device_ms(lambda i: fused_bwd_update(
+                    dedx, x, ws[i % 3], deltas[i % 3], b, db, **hyp)))
+                del ws, deltas
+            out[f"{tag}_{'tc' if tc else 'f32'}"] = dict(ms=sum(by_layer), by_layer=by_layer)
+            torch.cuda.empty_cache()
+    by_layer = []
+    for l in range(4):
+        K, N, M = FLAGSHIP[l], FLAGSHIP[l + 1], 64
+        dedx, y = _randn(gen, M, N, scale=0.02), torch.relu(_randn(gen, M, K))
+        ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
+        grad, dedy = torch.empty(K * N + N, device="cuda"), torch.empty(M, K, device="cuda")
+        kw = dict(deriv=None if l == 0 else "relu", with_dedy=l > 0, grad=grad,
+                  dedy=None if l == 0 else dedy, bf16=False)
+        by_layer.append(_device_ms(lambda i: fused_bwd_grad_out(dedx, y, ws[i % 3], **kw)))
+    out["dp64_f32_grad_out"] = dict(ms=sum(by_layer), by_layer=by_layer)
+    for k, v in out.items():
+        print(f"[bwd-times] {k}: {v['ms']:.4f} ms (by layer "
+              f"{' '.join('%.4f' % t for t in v['by_layer'])})", flush=True)
+    return out
+
+
 def phase_fused_kernels(gen) -> dict:
     from tpu_sednn_torch.ops.fused_mlp import (fused_bwd_update, fused_bwd_update_reference,
                                                fused_linear_act, fused_linear_act_reference)
@@ -1279,8 +1326,12 @@ def phase_fused_kernels(gen) -> dict:
 
     f64 = torch.float64
     layer_shapes = [(BUNCH, FLAGSHIP[l], FLAGSHIP[l + 1]) for l in range(4)]
-    ragged = [(8, 1548, 129), (136, 1548, 129), (136, 100, 37), (24, 2048, 2048)]
-    fwd_worst, bwd_worst, plain_worst = {}, {}, {}
+    # the backward's stripes narrow past 128 and 256 rows (64, 32, 16 rows of W): shapes at
+    # each, held in every storage form too
+    ragged = [(8, 1548, 129), (136, 1548, 129), (136, 100, 37), (24, 2048, 2048),
+              (256, 2048, 2048), (512, 1548, 129)]
+    fwd_worst, bwd_worst, plain_worst, sr_stats = {}, {}, {}, {}
+    reduced = fused_bwd_update.reduce_launches
     for B, K, N in layer_shapes + ragged:
         x = _randn(gen, B, K)
         w = _randn(gen, K, N, scale=0.03)
@@ -1312,17 +1363,55 @@ def phase_fused_kernels(gen) -> dict:
             for name, g, wnt, pl in zip(("w", "delta", "dedy", "b", "delta_b"), got, want, plain):
                 _hold(g, wnt, f"fused_bwd_update {B}x{K}x{N} {sorted(kw)} {name}", bwd_worst)
                 _hold(pl, wnt, f"float32 plain fused_bwd_update {name}", plain_worst)
+        if B > BUNCH or N % 4:  # bfloat16 delta (sr_delta), bfloat16 W and delta (sr_state)
+            for mode, w0 in (("bfloat16 delta", w), ("bfloat16 W and delta", w.bfloat16())):
+                d0 = delta.bfloat16()
+                kw = dict(hyp, deriv="relu", sr_seed=4343)
+                want = fused_bwd_update_reference(dedx, y_prev, w0, d0, b, db, dtype=f64, **kw)
+                got = fused_bwd_update(dedx, y_prev, w0.clone(), d0.clone(), b.clone(), db.clone(),
+                                       **kw)
+                label = f"fused_bwd_update {B}x{K}x{N} on {mode}"
+                _hold_sr(got[1], want[1], f"{label}, delta", sr_stats)
+                if w0.dtype == torch.bfloat16:
+                    _hold_sr(got[0], want[0], f"{label}, W", sr_stats)
+                else:
+                    _hold(got[0], want[0], f"{label}, W", bwd_worst)
+                for name, i in (("dedy", 2), ("b", 3), ("delta_b", 4)):
+                    _hold(got[i], want[i], f"{label}, {name}", bwd_worst)
         torch.cuda.synchronize()
+    _check(fused_bwd_update.reduce_launches == reduced,
+           "the float32 backward launched a second kernel (reduce_dedy_kernel)")
+    # above the rows its registers hold, the backward refuses a card tensor (either form)
+    from tpu_sednn_torch.ops.fused_mlp import BWD_MAX_ROWS, fused_bwd_grad_out
+
+    M, K, N = BWD_MAX_ROWS + 8, 64, 64
+    big = [_randn(gen, *shape) for shape in ((M, N), (M, K), (K, N), (K, N), (N,), (N,))]
+    for tc in (False, True):
+        for call in (lambda: fused_bwd_update(*big, 0.5, 1.0, 1.0 / M, 0.0, bf16=tc),
+                     lambda: fused_bwd_grad_out(big[0], big[1], big[2], bf16=tc)):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise RuntimeError(f"the backward took {M} rows (bf16={tc}); at most {BWD_MAX_ROWS}")
     print(f"[kernel] fused_linear_act vs float64 plain, {len(layer_shapes + ragged)} shapes x 3 "
           f"activations x 3 mask modes: max err {fwd_worst['rel_max']:.3g} of max|want| (tol "
           f"{KERNEL_REL_MAX}), Frobenius {fwd_worst['rel_fro']:.3g} (tol {KERNEL_REL_FRO}); "
           f"tolerance: a float32 sum of <= 2048 products against the exact sum", flush=True)
     print(f"[kernel] fused_bwd_update vs float64 plain (W, delta, b, delta_b after the in-place "
-          f"update, dedy from the pre-update W): max err {bwd_worst['rel_max']:.3g}, Frobenius "
+          f"update, dedy from the pre-update W), up to {BWD_MAX_ROWS} rows (stripes of 64, 32 "
+          f"and 16 rows): max err {bwd_worst['rel_max']:.3g}, Frobenius "
           f"{bwd_worst['rel_fro']:.3g}; the float32 plain versions' own: "
-          f"{plain_worst['rel_max']:.3g}, {plain_worst['rel_fro']:.3g}", flush=True)
+          f"{plain_worst['rel_max']:.3g}, {plain_worst['rel_fro']:.3g}; bfloat16 stores: "
+          f"{sr_stats['n_diff']} of {sr_stats['n']} elements differ from the plain version "
+          f"rounded with the same bits, worst share {sr_stats['share']:.3g} (limit "
+          f"{SR_DIFF_SHARE}); no reduce_dedy_kernel; {M} rows refused in both forms", flush=True)
 
     fwd, bwd = _time_layers(gen, False, fwd_worst, bwd_worst)
+    torch.cuda.empty_cache()
+    # a generator of its own: the later phases draw the inputs they always drew
+    fwd["at_16k"], bwd["at_16k"] = _time_layers(torch.Generator(device="cuda").manual_seed(16001),
+                                                False, fwd_worst, bwd_worst, net=WIDE)
     return dict(fwd=fwd, bwd=bwd)
 
 
@@ -1423,37 +1512,40 @@ def phase_tc_kernels(gen) -> dict:
           f"{faults['trunc']:.3g} x (operands truncated, not rounded), at least {TC_FAULT} x "
           f"required", flush=True)
 
-    # how the tensor-core backward lays a layer out on this card (tc_bwd_split)
+    # how the backward lays a layer out on this card, in either product form (bwd_split)
     plans = {}
     rank_rows = [(M, K, N) for M in (64, 32) for _, K, N in layers[:4]]
-    for B, K, N in layers + rank_rows:
+    for B, K, N in layers + rank_rows + [(256, 2048, 2048), (512, 1548, 129)]:
         for dedy in (1, 0):
-            out = (ctypes.c_int * 3)()
-            _check(fused_lib().fused_bwd_tc_plan(B, K, N, dedy, out) == 0,
-                   "fused_bwd_tc_plan failed")
-            plans[f"{B}x{K}x{N}{'' if dedy else ', no dedy'}"] = dict(split=out[0], stripes=out[1],
-                                                                       rows=out[2])
-    print("[kernel] tensor-core backward plan (split of N over a stripe's blocks: the cluster that "
-          "sums dedy; stripes of W's rows; their rows) with a row of bias blocks beside: "
+            for tc in (1, 0):
+                out = (ctypes.c_int * 3)()
+                _check(fused_lib().fused_bwd_plan(B, K, N, dedy, tc, out) == 0,
+                       "fused_bwd_plan failed")
+                plans[f"{'tc' if tc else 'f32'} {B}x{K}x{N}{'' if dedy else ', no dedy'}"] = dict(
+                    split=out[0], stripes=out[1], rows=out[2])
+    print("[kernel] backward plan (split of N over a stripe's blocks: the cluster that sums dedy; "
+          "stripes of W's rows; their rows), tensor cores with a row of bias blocks beside: "
           + "; ".join(f"{k}: {v['split']} x {v['stripes']} of {v['rows']}" for k, v in plans.items()),
           flush=True)
     # whether a block of the chunk trainer's next launch can start beside one of the
     # launch before it (programmatic dependent launches): by shared memory (each block
     # also reserves 1 KB)
-    smem = (ctypes.c_int * 5)()
+    smem = (ctypes.c_int * 8)()
     fused_lib().fused_tc_smem_bytes(smem)
     per_sm = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_multiprocessor", 0)
     pairs = {f"{a} + {b}": smem[i] + smem[j] + 2048 <= per_sm
              for a, b, i, j in (("fwd", "fwd", 1, 1), ("fwd", "bwd", 1, 4), ("bwd", "bwd", 4, 4))}
     print(f"[kernel] dynamic shared memory a block: tc_fwd_kernel {smem[0]} / {smem[1]} bytes (128- "
-          f"/ 64-column slices), tc_bwd_kernel {smem[2]} / {smem[3]} / {smem[4]} bytes (stripes of "
-          f"64 / 32 / 16 rows); an SM holds {per_sm}: the smallest of each pair fit one SM "
-          f"together: {pairs}", flush=True)
+          f"/ 64-column slices), stripe_bwd_kernel {smem[2]} / {smem[3]} / {smem[4]} bytes with "
+          f"tensor cores, {smem[5]} / {smem[6]} / {smem[7]} with float32 products (stripes of 64 / "
+          f"32 / 16 rows); an SM holds {per_sm}: the smallest of each pair fit one SM together: "
+          f"{pairs}", flush=True)
 
     fwd, bwd = _time_layers(gen, True, worst, worst)
     bwd["plans"] = plans
     bwd["smem_bytes"] = dict(fwd_128=smem[0], fwd_64=smem[1], bwd_64=smem[2], bwd_32=smem[3],
-                             bwd_16=smem[4], per_sm=per_sm, fit_together=pairs)
+                             bwd_16=smem[4], f32_bwd_64=smem[5], f32_bwd_32=smem[6],
+                             f32_bwd_16=smem[7], per_sm=per_sm, fit_together=pairs)
     torch.cuda.empty_cache()
     # a generator of its own: the later phases draw the inputs they always drew
     fwd["at_16k"], bwd["at_16k"] = _time_layers(torch.Generator(device="cuda").manual_seed(16000),
@@ -2854,7 +2946,7 @@ def phase_train(tmp: str, smi: str) -> dict:
                f"{label}: chunk trainer launched {c['resident_chunk']} times for {n_chunks} "
                f"chunks, plain trainer {c['plain_train_chunk']} times")
         # per bunch: 4 tc_fwd_kernel (K split within a cluster: no fwd_sum_kernel)
-        # and 4 tc_bwd_kernel (dedy summed within a cluster: no reduce_dedy_kernel),
+        # and 4 stripe_bwd_kernel<true> (dedy summed within a cluster: no reduce_dedy_kernel),
         # 8 launches; 3 forwards and the first layer's backward and forward draw masks
         _check(k["fused_linear_act"] == 4 * n_bunches and k["fused_linear_act_sum"] == 0
                and k["fused_bwd_update"] == 4 * n_bunches and k["reduce_dedy"] == 0
@@ -2870,11 +2962,11 @@ def phase_train(tmp: str, smi: str) -> dict:
                f"- {n_chunks} chunks")
     for label, d in (("float32 epoch 1", d1_f), ("float32 epoch 2", d2_f)):
         # per bunch: 4 fwd_kernel each with its fwd_sum_kernel (the float32 form
-        # splits K over the grid at every flagship layer), 4 bwd_kernel and 3
-        # reduce_dedy_kernel (none below the first layer)
+        # splits K over the grid at every flagship layer) and 4 stripe_bwd_kernel
+        # (dedy summed within a cluster: no reduce_dedy_kernel)
         k = d["resident_chunk_kernels"]
         _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
-               and k["reduce_dedy"] == 3 * n_bunches
+               and k["reduce_dedy"] == 0
                and k["fused_linear_act"] == k["fused_linear_act_sum"] == 4 * n_bunches
                and k["tc_linear_act"] == k["tc_bwd_update"] == k["pdl"] == 0,
                f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
@@ -3357,8 +3449,8 @@ def _dp_kernels(gen) -> dict:
                 label = f"fused_bwd_grad_out {M}x{K}x{N} {'tc' if tc else 'f32'} {sorted(kw)}"
                 reduced = fused_bwd_grad_out.reduce_launches
                 g, dy = fused_bwd_grad_out(dedx, y_prev, w, bf16=tc, **kw)
-                _check(not tc or fused_bwd_grad_out.reduce_launches == reduced,
-                       "the tensor-core gradient-out backward launched reduce_dedy_kernel")
+                _check(fused_bwd_grad_out.reduce_launches == reduced,
+                       "the gradient-out backward launched reduce_dedy_kernel")
                 grads.setdefault("plain", g)
                 g_w, dy_w = fused_bwd_grad_out_reference(dedx, y_prev, w, dtype=f64, bf16=tc, **kw)
                 _hold(g[:K * N], g_w[:K * N], f"{label}, G", worst[tc], *tol)
@@ -3421,8 +3513,6 @@ def _dp_kernels(gen) -> dict:
 
     # times at a rank's rows (64 of 2 ranks, 32 of 4), each call on the next of three
     # weight sets (from device memory, not L2, as in a chunk)
-    from tpu_sednn_torch.ops.fused_mlp import _lib as fused_lib
-
     ws = [[_randn(gen, K, N, scale=0.03) for K, N in kn] for _ in range(3)]
     ds = [[torch.zeros(K, N, device="cuda") for K, N in kn] for _ in range(3)]
     ds_bf = [[torch.zeros(K, N, device="cuda", dtype=bf) for K, N in kn] for _ in range(3)]
@@ -3457,11 +3547,9 @@ def _dp_kernels(gen) -> dict:
             dedx = _randn(gen, M, N, scale=0.02)
             y = torch.relu(_randn(gen, M, K))
             dedy = torch.empty(M, K, device="cuda")
-            # the float32 form's dedy partials (the tensor-core form takes none)
-            scratch = torch.empty(fused_lib().fused_bwd_scratch_floats(M, K, N, 0), device="cuda")
             first = l == 0
             kw = dict(deriv=None if first else "relu", with_dedy=not first, grad=grads[l],
-                      dedy=None if first else dedy, scratch=scratch)
+                      dedy=None if first else dedy)
             for tc in (False, True):
                 key = "grad_tc" if tc else "grad_f32"
                 res[key]["ms"] += _device_ms(lambda i: fused_bwd_grad_out(
@@ -4479,12 +4567,13 @@ def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path, tp_sums: 
     return [
         row("fused_bwd_grad_out_tc", "tpu_sednn_torch/csrc/fused_mlp.cuh",
             dw["fused_bwd_grad_out_tc"], k64["grad_tc"], k32["grad_tc"],
-            launches_of="tc_bwd_kernel in its gradient-out form (G and gb written, nothing "
-                        "updated; dedy summed in the kernel: no reduce_dedy_kernel; the float32 "
-                        f"form's reduce_dedy_kernel launches: {dw['fused_bwd_grad_out_reduce']})"),
+            launches_of="stripe_bwd_kernel<true, ...> (tensor-core products) in its gradient-out "
+                        "form (G and gb written, nothing updated; dedy summed in the kernel; "
+                        f"reduce_dedy_kernel launches: {dw['fused_bwd_grad_out_reduce']})"),
         row("fused_bwd_grad_out", "tpu_sednn_torch/csrc/fused_mlp.cuh", grad_f32,
             k64["grad_f32"], k32["grad_f32"],
-            launches_of="bwd_kernel (float32 products) in its gradient-out form"),
+            launches_of="stripe_bwd_kernel<false, ...> (float32 FMA products) in its "
+                        "gradient-out form, one launch a layer (redesigned PR 13)"),
         row("dp_update", "tpu_sednn_torch/csrc/fused_mlp.cuh", upd_f32, k64["update"],
             k32["update"], launches_of="update_kernel on float32 W and delta",
             max_abs_err_is="largest difference read from the plain version (bit-equal held)"),
@@ -4533,6 +4622,9 @@ def main(argv=None) -> int:
     ap.add_argument("--chain-times", action="store_true",
                     help="only build and time the tensor-core chunk trainer's chain (chain_times; "
                          "prints no final line, exits with 2)")
+    ap.add_argument("--bwd-times", action="store_true",
+                    help="only build and time the backward (bwd_times; prints no final line, "
+                         "exits with 2)")
     ap.add_argument("--package-root", default="",
                     help="import tpu_sednn_torch from this directory, e.g. an unpacked checkout "
                          "of another commit, to time it with --chain-times beside this one")
@@ -4562,6 +4654,14 @@ def main(argv=None) -> int:
         times = chain_times()
         print(smi)
         print(json.dumps({"chain_times": times,
+                          "package": os.path.dirname(tpu_sednn_torch.__file__)}))
+        return 2
+    if args.bwd_times:
+        import tpu_sednn_torch
+
+        times = bwd_times()
+        print(smi)
+        print(json.dumps({"bwd_times": times,
                           "package": os.path.dirname(tpu_sednn_torch.__file__)}))
         return 2
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -4741,11 +4841,11 @@ def main(argv=None) -> int:
                                   ("ms", "plain_ms", "bound_ms", "library_ms")} for M in (64, 32)}),
         layer_row("fused_bwd_update", "fused_bwd_update", "f32", "tpu_sednn_torch/csrc/fused_mlp.cu",
                   "tpu_sednn/ops/fused_mlp.py:108", fused["bwd"],
-                  launches_of="bwd_kernel (float32 products, bf16=False); its reduce_dedy_kernel "
-                              "(no layer below the first; the float32 form only) in "
-                              "reduce_launches; "
-                              "sr_launches stored bfloat16 with stochastic rounding, tiled_launches "
-                              "accumulated a row tile (either form)",
+                  launches_of="stripe_bwd_kernel<false, ...> (float32 FMA products, bf16=False; "
+                              "redesigned PR 13 on the tensor-core form's stripes and cluster: one "
+                              "launch a layer, dedy summed in the kernel; reduce_launches, once "
+                              "a second kernel's, 0); sr_launches stored bfloat16 with stochastic "
+                              "rounding, tiled_launches accumulated a row tile (either form)",
                   reduce_launches=kc["reduce_dedy"] + tw["fused_bwd_update_reduce"]
                   + akc["reduce_dedy"],
                   sr_launches=akc["sr_bwd_update"], tiled_launches=akc["tiled_bwd_update"],
@@ -4753,7 +4853,7 @@ def main(argv=None) -> int:
         layer_row("fused_bwd_update_tc", "fused_bwd_update", "tc",
                   "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:108",
                   tcres["bwd"], library_ms=None,
-                  launches_of="tc_bwd_kernel (tensor-core products, bf16=True, mma.sync "
+                  launches_of="stripe_bwd_kernel<true, ...> (tensor-core products, bf16=True, mma.sync "
                               "m16n8k16; a block streams a stripe of W's rows over a range of N "
                               "through a TMA ring fed by a producer warp, applies the update on "
                               "the unrounded W a chunk at a time, and dedy is summed within a "

@@ -133,6 +133,136 @@ def test_fused_bwd_update_derivative_and_mask_options(deriv):
                              1 / B, 0.0)
 
 
+def _padded(a: np.ndarray, shape) -> np.ndarray:
+    """a in the corner of zeros of `shape` (the Pallas kernel tiles by 128)."""
+    out = np.zeros(shape, np.float32)
+    out[tuple(slice(0, n) for n in a.shape)] = a
+    return out
+
+
+@pytest.mark.parametrize("N", [129, 257])  # the 8 and 16 kHz heads' widths
+@pytest.mark.parametrize("M", [128, 256, 512])  # where the card's stripes narrow: 64, 32, 16 rows
+def test_f32_bwd_at_the_stripe_rows_matches_pallas(M, N):
+    """fused_bwd_update and fused_bwd_grad_out with float32 products (the
+    plain versions, which a CPU tensor takes) at the rows and widths of the
+    card's stripe shapes, against the Pallas kernel in interpret mode on the
+    same arrays zero-padded to its 128-multiples (the padding adds exact
+    zeros).  The gradient-out form is read off a JAX update with m = 0, lr =
+    1, inv_n = 1, wc = 0 and delta = 0: delta' = -G, delta_b' = -gb."""
+    K = 100
+    Kp, Np = 128, -(-N // 128) * 128
+    rng = np.random.default_rng(M + N)
+    arrs = dict(dedx=rng.standard_normal((M, N)) * 0.02,
+                yprev=np.maximum(rng.standard_normal((M, K)), 0),
+                w=rng.standard_normal((K, N)) * 0.05, delta=rng.standard_normal((K, N)) * 0.01,
+                b=rng.standard_normal(N) * 0.1, db=rng.standard_normal(N) * 0.01)
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    shapes = dict(dedx=(M, Np), yprev=(M, Kp), w=(Kp, Np), delta=(Kp, Np), b=(Np,), db=(Np,))
+    padded = {k: jnp.asarray(_padded(v, shapes[k])) for k, v in arrs.items()}
+    names = ("dedx", "yprev", "w", "delta", "b", "db")
+    cut = ((slice(K), slice(N)), (slice(K), slice(N)), (slice(M), slice(K)), (slice(N),),
+           (slice(N),))
+
+    def jax_bwd(delta, db, *hyp):
+        out = jfm.fused_bwd_update(padded["dedx"], padded["yprev"], padded["w"], delta,
+                                   padded["b"], db, *(jnp.float32(h) for h in hyp), block_k=128,
+                                   block_n=128, interpret=True, bf16=False)
+        return [np.asarray(a)[c] for a, c in zip(out, cut)]
+
+    hyp = (0.7, 0.4, 1.0 / M, 1e-3)
+    want = jax_bwd(padded["delta"], padded["db"], *hyp)
+    t = {k: torch.from_numpy(v.copy()) for k, v in arrs.items()}
+    got = tfm.fused_bwd_update(*(t[k] for k in names), *hyp, bf16=False)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), wnt, **TOL)
+
+    zeros = jnp.zeros_like(padded["delta"])
+    _, neg_g, dedy, _, neg_gb = jax_bwd(zeros, jnp.zeros_like(padded["db"]), 0.0, 1.0, 1.0, 0.0)
+    grad, dy = tfm.fused_bwd_grad_out(*(torch.from_numpy(arrs[k]) for k in ("dedx", "yprev", "w")),
+                                      bf16=False)
+    np.testing.assert_allclose(grad[:K * N].reshape(K, N).numpy(), -neg_g, **TOL)
+    np.testing.assert_allclose(grad[K * N:].numpy(), -neg_gb, **TOL)
+    np.testing.assert_allclose(dy.numpy(), dedy, **TOL)
+
+
+# The float32 backward's decomposition on the card (csrc/fused_mlp.cuh:
+# stripe_bwd_kernel<false, ...>), emulated in float32: a stripe of BK = 64, 32
+# or 16 rows of W for up to 128, 256, 512 rows; N in chunks of BWD_BN columns, split into `split` ranges of whole
+# chunks (a cluster's blocks); G's chunk summed row by row in 64 / BK groups,
+# group q over rows q * s.. of each step of up to 128 rows (s = the step's
+# rows / groups, rounded up), the groups added in order; dedy summed column by
+# column within each chunk, the chunks' sums added in order within a range and
+# the ranges' partials added in float64 and rounded once, then the derivative;
+# gb summed row by row.  The kernel may pick any split from 1 to 8 (bwd_split: the card's
+# occupancy).
+BWD_BN = 64
+
+
+def _f32_bwd_emulation(dedx, y_prev, w, split, bk, deriv=None):
+    """-> (G, gb, dedy) as the float32 kernel sums them (FMA rounding aside)."""
+    (M, N), K = dedx.shape, y_prev.shape[1]
+    groups = 64 // bk
+    g_parts = [torch.zeros(K, N) for _ in range(groups)]
+    for j0 in range(0, M, 128):
+        rows = min(128, M - j0)
+        share = -(-rows // groups)
+        for m in range(rows):
+            g_parts[m // share] += y_prev[j0 + m][:, None] * dedx[j0 + m][None, :]
+    g = g_parts[0]
+    for part in g_parts[1:]:
+        g = g + part
+    n_chunks = -(-N // BWD_BN)
+    per = -(-n_chunks // split)
+    dedy = torch.zeros(M, K, dtype=torch.float64)
+    for rank in range(split):
+        part = torch.zeros(M, K)
+        for c in range(rank * per, min(n_chunks, (rank + 1) * per)):
+            chunk = torch.zeros(M, K)
+            for n in range(c * BWD_BN, min(N, (c + 1) * BWD_BN)):
+                chunk += dedx[:, n][:, None] * w[:, n][None, :]
+            part = part + chunk
+        dedy = dedy + part.double()
+    dedy = dedy.float()
+    if deriv == "relu":
+        dedy = torch.where(y_prev > 0, dedy, torch.zeros(()))
+    gb = torch.zeros(N)
+    for m in range(M):
+        gb = gb + dedx[m]
+    return g, gb, dedy
+
+
+@pytest.mark.parametrize("split", (1, 3, 8))
+@pytest.mark.parametrize("M,bk", [(128, 64), (64, 64), (136, 32), (512, 16)])
+def test_f32_bwd_sum_order_matches_float64_plain(M, bk, split):
+    """The float32 kernel's order of sums against the port's float64 plain
+    version, at each stripe width (rows past 128 come as further steps of a
+    chunk), at the rtol/atol of the JAX comparisons."""
+    K, N = 100, 257
+    rng = np.random.default_rng(7)
+    dedx = torch.from_numpy((rng.standard_normal((M, N)) * 0.02).astype(np.float32))
+    y_prev = torch.from_numpy(np.maximum(rng.standard_normal((M, K)), 0).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.03).astype(np.float32))
+    grad, dy = tfm.fused_bwd_grad_out_reference(dedx, y_prev, w, deriv="relu",
+                                                dtype=torch.float64, bf16=False)
+    g, gb, dedy = _f32_bwd_emulation(dedx, y_prev, w, split, bk, "relu")
+    for got, want in ((g.reshape(-1), grad[:K * N]), (gb, grad[K * N:]), (dedy, dy)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_bwd_rows_past_the_kernels_cap_are_refused():
+    """Above BWD_MAX_ROWS a card tensor is refused before any launch (either
+    product form); a CPU tensor takes any rows (the plain version)."""
+    tfm._check_bwd_rows(tfm.BWD_MAX_ROWS)
+    with pytest.raises(ValueError, match="at most 512 rows"):
+        tfm._check_bwd_rows(tfm.BWD_MAX_ROWS + 1)
+    M, K, N = tfm.BWD_MAX_ROWS + 8, 8, 12
+    rng = np.random.default_rng(4)
+    dedx, y = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((M, N), (M, K)))
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    grad, dy = tfm.fused_bwd_grad_out(dedx, y, w, bf16=False)
+    torch.testing.assert_close(dy, dedx @ w.T)
+
+
 def _params(sizes, seed=0):
     p = jm.init_params(jax.random.key(seed), jm.ModelConfig(layersizes=sizes), "glorot")
     return p, {"w": tuple(np.asarray(w) for w in p["w"]), "b": tuple(np.asarray(b) for b in p["b"])}

@@ -2,7 +2,8 @@
 (csrc/resident_chunk.cu:train_chunk, csrc/pdl.cuh): the hazard rule that
 `ops/resident_chunk.py:early_read_plan` encodes, held against a brute-force
 simulation of the chain's reads and writes, and the C interface that carries
-the plan to the kernels.
+the plan to the kernels (with the ctypes bindings of every entry point of
+csrc/resident_chunk.cu and csrc/fused_mlp.cu).
 
 The TPU kernel (tpu_sednn/ops/resident_chunk.py:_resident_kernel) trains a
 chunk in one launch and has no chain, so there is no JAX counterpart to hold
@@ -16,6 +17,7 @@ from pathlib import Path
 
 import pytest
 
+import tpu_sednn_torch.ops.fused_mlp as fm
 import tpu_sednn_torch.ops.resident_chunk as rc
 
 CSRC = Path(rc.__file__).resolve().parent.parent / "csrc"
@@ -129,12 +131,18 @@ def _ctype(decl: str):
         return {"int": ctypes.POINTER(ctypes.c_int),
                 "long long": ctypes.POINTER(ctypes.c_longlong)}.get(base, ctypes.c_void_p)
     return {"int": ctypes.c_int, "unsigned": ctypes.c_uint, "float": ctypes.c_float,
-            "long long": ctypes.c_longlong}[decl]
+            "long long": ctypes.c_longlong, "void": None}[decl]
+
+
+def _c_api(name: str):
+    """(argtypes, restype) the port binds to entry point `name`."""
+    return {**rc._c_api(), **fm._c_api()}[name]
 
 
 def _c_signature(name: str):
-    """(restype, [(type, name)]) of csrc/resident_chunk.cu's entry point."""
-    src = (CSRC / "resident_chunk.cu").read_text()
+    """(restype, [(type, name)]) of the entry point in csrc/resident_chunk.cu
+    or csrc/fused_mlp.cu."""
+    src = (CSRC / ("resident_chunk.cu" if name in rc._c_api() else "fused_mlp.cu")).read_text()
     m = re.search(r'extern "C" ([\w ]+?) ' + name + r"\(([^)]*)\)", src)
     assert m, name
     params = []
@@ -145,10 +153,10 @@ def _c_signature(name: str):
     return m.group(1), params
 
 
-@pytest.mark.parametrize("name", sorted(rc._c_api()))
+@pytest.mark.parametrize("name", sorted(rc._c_api()) + sorted(fm._c_api()))
 def test_argtypes_match_the_c_entry_points(name):
     restype, params = _c_signature(name)
-    argtypes, want_restype = rc._c_api()[name]
+    argtypes, want_restype = _c_api(name)
     assert [_ctype(t) for t, _ in params] == argtypes
     assert _ctype(restype) is want_restype
 

@@ -356,13 +356,13 @@ def test_chunk_runner_passes_bf16_and_auto_stays_plain_on_the_cpu():
                                                                                   device="cpu")
 
 
-# The tensor-core backward's decomposition (csrc/fused_mlp.cuh:tc_bwd_kernel),
+# The tensor-core backward's decomposition (csrc/fused_mlp.cuh:stripe_bwd_kernel<true>),
 # emulated in float32: N in chunks of TC_BWD_BN columns, split into `split`
 # ranges of whole chunks (the blocks of a cluster); G's chunk summed over the
 # rows in two chains, the even and the odd 16-row steps of every 128 rows,
 # added at the end; each range's dedy summed over its chunks in order; the
 # ranges' partials summed in rank order; then the derivative; gb summed row by
-# row.  The kernel may pick any split from 1 to 8 (tc_bwd_split: the card's
+# row.  The kernel may pick any split from 1 to 8 (bwd_split: the card's
 # occupancy), so every one is held.
 TC_BWD_BN = 64
 TC_BWD_SPLITS = (1, 2, 3, 4, 5, 8)

@@ -65,48 +65,46 @@ extern "C" long long fused_fwd_scratch_floats(int M, int K, int N, int bf16) {
   return fwd_scratch_floats(M, K, N, bf16 != 0);
 }
 
-// Scratch floats fused_bwd_update_f32 and fused_bwd_grad_out_f32 need in
-// `part` for their dedy output: the float32 form's partials; 0 (pass
-// nullptr) for the tensor-core form (bf16 != 0), which sums dedy in the kernel.
-extern "C" long long fused_bwd_scratch_floats(int M, int K, int N, int bf16) {
-  return bwd_scratch_floats(M, K, N, bf16 != 0);
+// The backward's plan for (M, K, N), float32 state, with or without dedy, in
+// the product form bf16 names: out[0] the split of N over a stripe's blocks
+// (a cluster where dedy is summed), out[1] the stripes, out[2] a stripe's
+// rows.  On the current device; 0 or a CUDA error (cudaErrorInvalidValue
+// above the rows the kernel takes).
+extern "C" int fused_bwd_plan(int M, int K, int N, int with_dedy, int bf16, int* out) {
+  return (int)(bf16 ? bwd_plan<true, float, float>(M, K, N, with_dedy != 0, out)
+                    : bwd_plan<false, float, float>(M, K, N, with_dedy != 0, out));
 }
 
-// The tensor-core backward's plan for (M, K, N), float32 state, with or
-// without dedy: out[0] the split of N over a stripe's blocks (a cluster where
-// dedy is summed), out[1] the stripes, out[2] a stripe's rows.  On the
-// current device; 0 or a CUDA error.
-extern "C" int fused_bwd_tc_plan(int M, int K, int N, int with_dedy, int* out) {
-  return (int)tc_bwd_plan<float, float>(M, K, N, with_dedy != 0, out);
-}
-
-// The dynamic shared memory a block of each tensor-core kernel asks for, in
-// bytes: out[0], out[1] tc_fwd_kernel with 128- and 64-column slices (float32
-// W); out[2..4] tc_bwd_kernel with stripes of 64, 32, 16 rows (float32 W and
-// Delta).  Whether two such blocks can share an SM follows from these.
+// The dynamic shared memory a block of each stripe-and-cluster kernel asks
+// for, in bytes: out[0], out[1] tc_fwd_kernel with 128- and 64-column slices
+// (float32 W); out[2..4] stripe_bwd_kernel's tensor-core form with stripes of
+// 64, 32, 16 rows (float32 W and Delta); out[5..7] its float32 form alike.
+// Whether two such blocks can share an SM follows from these.
 extern "C" void fused_tc_smem_bytes(int* out) {
   out[0] = (int)sizeof(TcFwdTile<float, 128>::Smem) + 128;
   out[1] = (int)sizeof(TcFwdTile<float, 64>::Smem) + 128;
-  out[2] = (int)sizeof(TcBwdTile<float, float, 64>::Smem) + 128;
-  out[3] = (int)sizeof(TcBwdTile<float, float, 32>::Smem) + 128;
-  out[4] = (int)sizeof(TcBwdTile<float, float, 16>::Smem) + 128;
+  out[2] = (int)sizeof(BwdTile<true, float, float, 64>::Smem) + 128;
+  out[3] = (int)sizeof(BwdTile<true, float, float, 32>::Smem) + 128;
+  out[4] = (int)sizeof(BwdTile<true, float, float, 16>::Smem) + 128;
+  out[5] = (int)sizeof(BwdTile<false, float, float, 64>::Smem) + 128;
+  out[6] = (int)sizeof(BwdTile<false, float, float, 32>::Smem) + 128;
+  out[7] = (int)sizeof(BwdTile<false, float, float, 16>::Smem) + 128;
 }
 
 // In place: delta' = mom*delta - (A*G + Bc*w), w' = w + delta', G = yprev^T @ dedx;
 // db' = mom*db - A*sum_rows(dedx), b' = b + db'.  dedy (M, K) = dedx @ w^T with
 // w BEFORE the update, times the derivative `deriv` (0 none, 1 relu, 2 sigmoid)
-// evaluated on yprev; pass dedy == nullptr (and part == nullptr) to skip it.
+// evaluated on yprev; pass dedy == nullptr to skip it.
 // Storage of w and delta: float32 both (w_bf16 == d_bf16 == 0), delta
 // bfloat16 (d_bf16), or both bfloat16; bfloat16 stores are stochastically
 // rounded with the stream sr_key (sr_round.cuh).  b and db are float32.
 // bf16 != 0: the tensor-core form (G and dedy from operands rounded to
-// bfloat16, the update on the unrounded w; one launch, part unused), else
-// float32 products (part: fused_bwd_scratch_floats where dedy is asked for).
-// launched[3] += the launches of tc_bwd_kernel, bwd_kernel and
-// reduce_dedy_kernel.
+// bfloat16, the update on the unrounded w), else float32 products; either is
+// one launch of stripe_bwd_kernel, at most kBwdMaxRows (512) rows.
+// launched[2] += the launches of its tensor-core and its float32 form.
 extern "C" int fused_bwd_update_f32(const float* dedx, const float* yprev, void* w, int w_bf16,
                                     void* delta, int d_bf16, unsigned sr_key, float* b,
-                                    float* db, float* part, float* dedy, int M, int K, int N,
+                                    float* db, float* dedy, int M, int K, int N,
                                     float mom, float A, float Bc, int in_mode,
                                     const float* in_ptr, unsigned in_key, unsigned in_thr,
                                     float in_scale, int deriv, int bf16, int* launched,
@@ -120,17 +118,16 @@ extern "C" int fused_bwd_update_f32(const float* dedx, const float* yprev, void*
   BwdLaunched done;
   cudaError_t err;
   if (w_bf16)
-    err = launch_bwd(dedx, yprev, im, (bf16_t*)w, (bf16_t*)delta, b, db, nullptr, part, dedy,
+    err = launch_bwd(dedx, yprev, im, (bf16_t*)w, (bf16_t*)delta, b, db, nullptr, dedy,
                      deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, &done, s);
   else if (d_bf16)
-    err = launch_bwd(dedx, yprev, im, (float*)w, (bf16_t*)delta, b, db, nullptr, part, dedy,
+    err = launch_bwd(dedx, yprev, im, (float*)w, (bf16_t*)delta, b, db, nullptr, dedy,
                      deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, &done, s);
   else
-    err = launch_bwd(dedx, yprev, im, (float*)w, (float*)delta, b, db, nullptr, part, dedy,
+    err = launch_bwd(dedx, yprev, im, (float*)w, (float*)delta, b, db, nullptr, dedy,
                      deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, &done, s);
   launched[0] += done.tc;
   launched[1] += done.f32;
-  launched[2] += done.reduce;
   return (int)err;
 }
 
@@ -138,10 +135,9 @@ extern "C" int fused_bwd_update_f32(const float* dedx, const float* yprev, void*
 // trainer's): g (K*N + N floats) = G = yprev^T @ dedx row-major, then gb =
 // sum_rows(dedx); dedy as above from w, which is only read (float32; not at
 // all without dedy).  The input mask draws rows in_row0.. of its stream (this
-// rank's rows of the global bunch).  Nothing is updated.  part and launched
-// as above.
+// rank's rows of the global bunch).  Nothing is updated.  launched as above.
 extern "C" int fused_bwd_grad_out_f32(const float* dedx, const float* yprev, const float* w,
-                                      float* g, float* part, float* dedy, int M, int K, int N,
+                                      float* g, float* dedy, int M, int K, int N,
                                       int in_mode, const float* in_ptr, unsigned in_key,
                                       unsigned in_thr, float in_scale, int in_row0, int deriv,
                                       int bf16, int* launched, void* stream) {
@@ -150,11 +146,10 @@ extern "C" int fused_bwd_grad_out_f32(const float* dedx, const float* yprev, con
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale, in_row0);
   BwdLaunched done;
   const cudaError_t err =
-      launch_bwd(dedx, yprev, im, (float*)w, (float*)nullptr, nullptr, nullptr, g, part, dedy,
+      launch_bwd(dedx, yprev, im, (float*)w, (float*)nullptr, nullptr, nullptr, g, dedy,
                  deriv, M, K, N, 0.0f, 0.0f, 0.0f, 0u, 0, bf16 != 0, &done, (cudaStream_t)stream);
   launched[0] += done.tc;
   launched[1] += done.f32;
-  launched[2] += done.reduce;
   return (int)err;
 }
 

@@ -8,12 +8,13 @@
 //
 // Two forms of each kernel, as the TPU kernels' `bf16` flag selects:
 // * tensor-core products (bf16=True, the JAX kernels' default): tc_fwd_kernel
-//   and tc_bwd_kernel.  Both operands of every product are rounded to
+//   and stripe_bwd_kernel<true, ...>.  Both operands of every product are rounded to
 //   bfloat16 (to nearest even) as they are staged into shared memory, and
 //   mma.sync m16n8k16 sums the exact products in float32 (mma_bf16.cuh).
 //   Everything else stays float32: biases, the bias gradient, the update on
 //   the unrounded W, activations and their derivatives.
-// * float32 FMA products (bf16=False): fwd_kernel and bwd_kernel.
+// * float32 FMA products (bf16=False): fwd_kernel and stripe_bwd_kernel<false,
+//   ...>: the backward's two forms are one kernel with a product policy.
 //
 // Bound.  A layer at bunch 128 does 2*128*K*N FLOP per product (one in the
 // forward, two in the backward) against one pass over W in the forward and
@@ -37,14 +38,11 @@
 // (tc_fwd_kernel); measured times beside the bound are in PERF.md.
 //
 // Blocks of a grid run in no order, so the TPU kernel's accumulation of dedy
-// over a sequential grid axis becomes, in the float32 backward: each block
-// writes its partial dedx[:, n-tile] @ W_tile^T (formed from the W tile it
-// loaded, so "W before the update" holds by construction) to a scratch
-// (n_tiles, M, K), and a second small kernel sums the partials in a fixed
-// order (deterministic; no float atomics).  The tensor-core backward
-// (tc_bwd_kernel) needs neither: a block owns a stripe of W's rows over a
-// range of N, sums its stripe of dedy in registers, and a thread-block
-// cluster sums the ranges' stripes through distributed shared memory.
+// over a sequential grid axis becomes, in the backward (stripe_bwd_kernel,
+// both product forms): a block owns a stripe of W's rows over a range of N,
+// sums its stripe of dedy in registers, and a thread-block cluster sums the
+// ranges' stripes through distributed shared memory in rank order
+// (deterministic; no scratch, no second launch, no float atomics).
 //
 // True sizes throughout: K = 1548 and N = 129 are masked at the edges by the
 // kernels (16-byte loads where the row stride allows, scalar otherwise; the
@@ -851,16 +849,12 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
 //   W, Delta (K, N), b, db (N,), scalars m, A, Bc:
 //     G      = yprev^T @ dedx
 //     Delta' = m*Delta - (A*G + Bc*W),  W' = W + Delta'      (in place)
-//     gb     = sum_rows dedx;  db' = m*db - A*gb,  b' = b + db'   (k-tile 0)
+//     gb     = sum_rows dedx;  db' = m*db - A*gb,  b' = b + db'   (bias blocks)
 //     dedy   = (dedx @ W^T) * deriv(yprev)   with W before the update
 // Replaces tpu_sednn/ops/fused_mlp.py:_bwd_kernel (and the backward half of
-// resident_chunk.py:_resident_kernel's bunch).  Two forms:
-// * float32 products (bwd_kernel): one block owns a 64 x 64 tile of W and
-//   Delta, 256 threads, walking the M rows in chunks of 32, and writes
-//   part[nt] = dedx[:, n-tile] @ W_tile^T (M, K); reduce_dedy_kernel sums the
-//   n-tiles and applies the derivative.  Operations-bound (FMA).
-// * tensor-core products (tc_bwd_kernel, below): one launch, dedy summed in
-//   the kernel; bytes-bound, and its design is about W's and Delta's bytes.
+// resident_chunk.py:_resident_kernel's bunch): stripe_bwd_kernel, below, one
+// launch a layer with dedy summed in the kernel, with float32 FMA products
+// (operations-bound) or tensor-core products (bytes-bound).
 //
 // Storage (template): W and Delta float32; Delta bfloat16 (the TPU kernel's
 // sr_delta: Delta' is stored stochastically rounded, W takes the unrounded
@@ -876,8 +870,8 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
 // and dedy see the W from before the bunch.  Both set is the plain update.
 // The bias follows the same flags.
 //
-// Gradient out (gout != nullptr; the data-parallel trainer): the block
-// stores its G tile, and k-tile 0 its gb, into gout (K*N floats of G
+// Gradient out (gout != nullptr; the data-parallel trainer): a block stores
+// its G tiles, and the bias blocks gb, into gout (K*N floats of G
 // row-major, then N of gb) and leaves W, Delta, b and db alone; dedy is
 // formed as above from the W it reads.  The sum over the ranks then goes
 // through a collective, and update_kernel applies it.
@@ -889,12 +883,12 @@ constexpr int kUpdFirst = 1, kUpdApply = 2;
 // of W and Delta, from the unrounded W the block loaded (wr) and G (gr):
 // Delta' = m*Delta - (A*G + Bc*W) with `first` (kUpdFirst), else Delta - A*G;
 // W' = W + Delta' with `apply` (kUpdApply); bfloat16 stores rounded
-// stochastically.  Shared by both forms of kernel 2 and by update_kernel, as
-// is update_bias.  Written with the round-to-nearest intrinsics, which the
-// compiler does not contract into fused multiply-adds: one float32 operation
-// at a time, in the order the plain versions compute them.
-// update4: the same with Delta's old values given (dr), as the tensor-core
-// backward has them in shared memory already.
+// stochastically.  update4 takes Delta's old values given (dr), as the
+// backward has them in shared memory already; update_row4 reads them
+// (update_kernel).  Both, and update_bias, are written with the
+// round-to-nearest intrinsics, which the compiler does not contract into fused
+// multiply-adds: one float32 operation at a time, in the order the plain
+// versions compute them.
 template <typename TW, typename TD>
 __device__ inline void update4(TW* __restrict__ w, TD* __restrict__ delta, int kr, int col, int K,
                                int N, const float wr[4], const float dr[4], const float gr[4],
@@ -934,166 +928,43 @@ __device__ inline void update_bias(float* b, float* db, int n, float gb, float m
   if (apply) b[n] = __fadd_rn(b[n], ndb);
 }
 
-constexpr int kBwdBK = 64, kBwdBN = 64, kBwdMC = 32, kBwdThreads = 256;
-constexpr int kBwdWLd = kBwdBN + 4;  // padded: the dedy product reads W rows 16 apart
-
-// gout: the gradient-out form (see above); nullptr: the in-place update.
-template <typename TW, typename TD>
-__global__ void __launch_bounds__(kBwdThreads)
-bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, MaskSpec in_mask,
-           TW* __restrict__ w, TD* __restrict__ delta, float* __restrict__ b,
-           float* __restrict__ db, float* __restrict__ gout, float* __restrict__ part, int M,
-           int K, int N, float mom, float A, float Bc, uint32_t sr_key, int flags, bool vec_d,
-           bool vec_y, bool vec_w, bool vec_dl, bool vec_g) {
-  const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
-  __shared__ __align__(16) float Ws[kBwdBK][kBwdWLd];
-  __shared__ __align__(16) float Ys[kBwdMC][kBwdBK];
-  __shared__ __align__(16) float Ds[kBwdMC][kBwdBN];
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kBwdBN, k0 = blockIdx.y * kBwdBK;
-  const int tk = tid / 16, tn = tid % 16;  // G: rows tk*4.., cols tn*4..
-  const int pm = tid / 16, pk = tid % 16;  // partial: rows pm*2.., cols pk + 16*j
-
-  // the W tile feeds the update and dedy: the gradient-out form of the first
-  // layer needs neither
-  if (gout == nullptr || part != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int idx = tid + r * kBwdThreads;
-      const int wr = idx / 16, wc = (idx % 16) * 4;
-      *reinterpret_cast<float4*>(&Ws[wr][wc]) = ld4(w, k0 + wr, n0 + wc, N, K, N, vec_w);
-    }
-  }
-  float g[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) g[i][j] = 0.0f;
-  float gb = 0.0f;
-
-  for (int mc = 0; mc < M; mc += kBwdMC) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int idx = tid + r * kBwdThreads;
-      const int rr = idx / 16, cc = (idx % 16) * 4;
-      float4 yv = ld4(yprev, mc + rr, k0 + cc, K, M, K, vec_y);
-      if (in_mask.mode != 0 && mc + rr < M && k0 + cc < K) {
-        float mk[4];
-        mask4(in_mask, mc + rr, k0 + cc, K, mk);
-        yv.x *= mk[0]; yv.y *= mk[1]; yv.z *= mk[2]; yv.w *= mk[3];
-      }
-      *reinterpret_cast<float4*>(&Ys[rr][cc]) = yv;
-      *reinterpret_cast<float4*>(&Ds[rr][cc]) = ld4(dedx, mc + rr, n0 + cc, N, M, N, vec_d);
-    }
-    __syncthreads();  // also orders the Ws stores before their first use
-
-#pragma unroll 8
-    for (int r = 0; r < kBwdMC; ++r) {
-      const float4 yv = *reinterpret_cast<const float4*>(&Ys[r][tk * 4]);
-      const float4 dv = *reinterpret_cast<const float4*>(&Ds[r][tn * 4]);
-      const float yr[4] = {yv.x, yv.y, yv.z, yv.w};
-      const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) g[i][j] = fmaf(yr[i], dr[j], g[i][j]);
-    }
-    if (blockIdx.y == 0 && tid < kBwdBN) {
-#pragma unroll 8
-      for (int r = 0; r < kBwdMC; ++r) gb += Ds[r][tid];
-    }
-    if (part != nullptr) {
-      float p[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) p[i][j] = 0.0f;
-#pragma unroll 4
-      for (int n4 = 0; n4 < kBwdBN; n4 += 4) {
-        const float4 d0 = *reinterpret_cast<const float4*>(&Ds[pm * 2][n4]);
-        const float4 d1 = *reinterpret_cast<const float4*>(&Ds[pm * 2 + 1][n4]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 wv = *reinterpret_cast<const float4*>(&Ws[pk + 16 * j][n4]);
-          p[0][j] = fmaf(d0.x, wv.x, p[0][j]);
-          p[0][j] = fmaf(d0.y, wv.y, p[0][j]);
-          p[0][j] = fmaf(d0.z, wv.z, p[0][j]);
-          p[0][j] = fmaf(d0.w, wv.w, p[0][j]);
-          p[1][j] = fmaf(d1.x, wv.x, p[1][j]);
-          p[1][j] = fmaf(d1.y, wv.y, p[1][j]);
-          p[1][j] = fmaf(d1.z, wv.z, p[1][j]);
-          p[1][j] = fmaf(d1.w, wv.w, p[1][j]);
-        }
-      }
-      float* dst = part + (long long)blockIdx.x * M * K;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = mc + pm * 2 + i;
-        if (row >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kk = k0 + pk + 16 * j;
-          if (kk < K) dst[(long long)row * K + kk] = p[i][j];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int col = n0 + tn * 4;
-  if (gout != nullptr) {  // gradient out: the tile of G and the bias gradient
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      st4(gout, k0 + tk * 4 + i, col, N, K, N, vec_g,
-          make_float4(g[i][0], g[i][1], g[i][2], g[i][3]));
-    if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N) gout[(long long)K * N + n0 + tid] = gb;
-    return;
-  }
-  // momentum update of the owned tile, from the W copy in shared memory
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + tk * 4 + i;
-    if (kr >= K || col >= N) continue;
-    const float4 wv = *reinterpret_cast<const float4*>(&Ws[tk * 4 + i][tn * 4]);
-    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-    update_row4(w, delta, kr, col, K, N, wr, g[i], mom, A, Bc, sr_key, first, apply, vec_w,
-                vec_dl);
-  }
-  if (blockIdx.y == 0 && tid < kBwdBN && n0 + tid < N)
-    update_bias(b, db, n0 + tid, gb, mom, A, first, apply);
-}
-
-// Kernel 2, tensor-core form (tc_bwd_kernel): the same function with G =
-// rne(yprev)^T @ rne(dedx) and dedy = rne(dedx) @ rne(W)^T, float32 sums on
-// mma.sync m16n8k16; the update takes the UNROUNDED W and G's float32 sums,
-// the bias its float32 dedx (resident_chunk.py:465, 478 and 508).
+// The backward kernel (stripe_bwd_kernel): G = yprev^T @ dedx, dedy = dedx @
+// W^T, the update, one launch a layer, in either product form, as the policy
+// kTc selects:
+// * tensor-core products (kTc): G = rne(yprev)^T @ rne(dedx) and dedy =
+//   rne(dedx) @ rne(W)^T, float32 sums on mma.sync m16n8k16; the update takes
+//   the UNROUNDED W and G's float32 sums, the bias its float32 dedx
+//   (resident_chunk.py:465, 478 and 508);
+// * float32 FMA products (!kTc): the same sums of float32 products, each
+//   output's in a fixed order (below).
 //
-// Bound: bytes.  At a bunch of 128 a layer does 4*128*K*N FLOP (G and dedy)
-// against one read and one write of W and of Delta, 16*K*N bytes in float32:
-// 32 FLOP a byte, far under the 295 at which the tensor cores would limit.
+// Bound.  At a bunch of 128 a layer does 4*128*K*N FLOP (G and dedy) against
+// one read and one write of W and of Delta, 16*K*N bytes in float32: 32 FLOP
+// a byte.  That is far under the 295 at which the tensor cores would limit
+// (bytes-bound) and over the 20 of the FP32 pipe (operations-bound, narrowly).
 // So the design moves W and Delta once, keeps bytes in flight, and keeps
 // everything else out of device memory:
 // * a block owns a stripe of BK rows of W and Delta (BK = 64, 32, 16 at up to
-//   128, 256, 512 rows of dedx: the stripe's dedy lives in registers) and a
-//   range of N, which it streams in chunks of kTcBwdBN columns.  For each
-//   chunk it forms G's (BK, chunk) tile over all M rows and applies the
-//   momentum update to that tile at once: W and Delta are read once and
+//   128, 256, 512 rows of dedx: the stripe's dedy lives in registers, 32 a
+//   thread) and a range of N, which it streams in chunks of kBwdBN columns.
+//   For each chunk it forms G's (BK, chunk) tile over all M rows and applies
+//   the momentum update to that tile at once: W and Delta are read once and
 //   written once and no gradient is stored;
 // * the stripe's dedy (M, BK) is summed over the block's chunks in registers
-//   (chunk order) with W from before the update (a chunk's W is rounded for
+//   (chunk order) with W from before the update (a chunk's W is taken for
 //   dedy before it is stepped);
 // * the TPU kernel sums dedy over a sequential grid axis (fused_mlp.py:108;
 //   resident_chunk.py:437-462 walks stripes of W rows across all of N); a
 //   Hopper grid runs in no order, so N is split over the blocks of a
 //   thread-block cluster (up to 8, along the grid's x, sized so that every
-//   cluster of the grid is resident at once: tc_bwd_split; a second wave of
+//   cluster of the grid is resident at once: bwd_split; a second wave of
 //   clusters was measured slower), and each block sums its share of dedy's
 //   rows over the cluster's partial stripes through distributed shared memory
 //   in rank order, then applies the activation derivative and writes dedy
 //   once.  No scratch in device memory, no second launch, no atomics: every
 //   output's sum depends only on the split, a function of (K, N, BK) and the
 //   card;
-// * operands arrive through a ring of kTcBwdStages stages filled by the
+// * operands arrive through a ring of kBwdStages stages filled by the
 //   Tensor Memory Accelerator (one 2-D tile copy each for dedx's (128, BN),
 //   W's (BK, BN) and Delta's (BK, BN) a step, zeros past every edge,
 //   completing on the slot's `full` mbarrier).  One producer warp issues them
@@ -1104,12 +975,12 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
 //   stride is a multiple of 16 bytes: at N = 129 or 257 the float32 operands
 //   go by 4-byte cp.async and bfloat16 W or Delta through registers, from the
 //   compute warps;
-// * the stripe of yprev (M, BK) is loaded once, masked (in_mask: Philox on
-//   layer 0's input) and rounded into shared memory, and each G warp keeps
-//   its A fragments of it in registers for the whole launch; each step rounds
-//   the chunk of dedx (and W for dedy) to bfloat16 for the products;
+// * the stripe of yprev (M, BK) is loaded once and masked (in_mask: Philox on
+//   layer 0's input) into shared memory: rounded to bfloat16 for the tensor
+//   cores, each G warp then keeping its A fragments of it in registers for
+//   the whole launch, or as it is (float32) for the FMA products;
 // * the update goes through shared memory in row order (G's chunk written
-//   there from the fragments): eight threads a 128-byte row, so the shared
+//   there from the accumulators): eight threads a 128-byte row, so the shared
 //   loads meet no bank conflict and the global stores are whole lines (from
 //   the fragments' layout, 16 rows a warp instruction, it took twice as long);
 // * the bias gradient: a last row of blocks sums dedx's columns over the rows
@@ -1118,62 +989,94 @@ bwd_kernel(const float* __restrict__ dedx, const float* __restrict__ yprev, Mask
 // Rows past 128 (M up to 512) come as further steps of the same chunk: G
 // accumulates over them and the update waits for the last; W is then read
 // again from L2 for the update.
-// Warps (8 compute + 1 producer): G's (BK, BN) tile in (16, 16 * kGN16) tiles,
-// A = yprev^T held in registers, B = rounded dedx read with ldmatrix.trans,
-// two accumulator chains (even and odd 16-row steps) added at the end; dedy's
-// 16-row tiles, warp w owning rows 16w.. of each 128 rows, B = W^T read as it
-// is stored.  What bounds it now (PERF.md): shared memory traffic (the tensor
-// copies' writes, the rounding pass, the fragments' loads) and the fixed cost
-// of a launch (the yprev stripe's load, the cluster's dedy sum), not device
-// memory.
+// Warps (8 compute + 1 producer), tensor cores: G's (BK, BN) tile in (16, 16
+// * kGN16) tiles, A = yprev^T held in registers, B = rounded dedx read with
+// ldmatrix.trans, two accumulator chains (even and odd 16-row steps) added at
+// the end; dedy's 16-row tiles, warp w owning rows 16w.. of each 128 rows, B
+// = W^T read as it is stored.  Each step rounds the chunk of dedx (and W for
+// dedy) to bfloat16 first.  What bounds it now (PERF.md): shared memory
+// traffic (the tensor copies' writes, the rounding pass, the fragments'
+// loads) and the fixed cost of a launch (the yprev stripe's load, the
+// cluster's dedy sum), not device memory.
+// FMA products: every compute thread holds a 4 x 4 tile of G's chunk (four
+// rows of the stripe, four neighbouring columns; a row of 64 columns is 16
+// threads) and sums it over its group's rows of the step (the rows split in
+// 64 / BK groups of threads where BK < 64, whose tiles are added in group
+// order at the chunk's end); a row of yprev and of dedx are one float4 load
+// each, broadcast within the warp, for 16 FMAs.  dedy: every thread holds
+// BK / 8 rows x 4 columns of the stripe a step (columns kl + BK/4 * c, so a
+// warp's loads of W's rows meet no bank conflict), 32 accumulators in all,
+// summed over the chunk's n in order into a partial that is then added to the
+// sum over the chunks (the chains of the two-launch form this kernel
+// replaced), from W's chunk widened once into a padded float32 tile: four
+// float4 of W and BK / 8 of dedx for 4 * 4 * BK / 8 FMAs; the cluster adds its
+// ranks' partials in float64 and rounds once.
+// What bounds it (PERF.md, PR 13): shared memory.  An SM's shared memory
+// delivers 32 floats a clock against 128 FMAs, and these tiles load one float
+// for every 2 to 2.7 FMAs; 8 x 8 tiles (4 FMAs a float) reach 59% of the FP32
+// pipe in a loop alone but need 64 accumulators beside dedy's 32, more than
+// the 168 registers 9 warps leave a thread: the variants that had them
+// (spilling, or without the producer warp at 255 registers) took 0.42-0.51
+// ms for a bunch's four 8 kHz layers against this form's 0.38.  A cluster of
+// 4 blocks a stripe does not fit 33 stripe rows on the card, so a 2048-row
+// layer runs on 3 x 33 blocks.
 //
 // Storage (template): W and Delta float32; Delta bfloat16 (sr_delta); or both
 // bfloat16 (sr_state), widened as they are read from the stage and narrowed
-// with stochastic rounding by update4, as in bwd_kernel.  Row-tile flags and
-// the gradient-out form (gout != nullptr: G and gb written, W only read, and
-// not at all where no dedy is asked for) as in bwd_kernel.
-constexpr int kTcBwdBN = 64, kTcBwdStages = 2, kTcBwdSubM = 128;
-constexpr int kTcBwdCompute = 256;                      // the compute warps' threads (8 warps)
-constexpr int kTcBwdThreads = kTcBwdCompute + 32;       // and one producer warp
-constexpr int kTcBwdMaxCluster = 8;
-constexpr int kTcBwdDLd = kTcBwdBN + 8;  // bfloat16 row stride of 144 bytes (see TcFwdTile)
+// with stochastic rounding by update4.  Row-tile flags and the gradient-out
+// form (gout != nullptr: G and gb written, W only read, and not at all where
+// no dedy is asked for) as above.
+constexpr int kBwdBN = 64, kBwdStages = 2, kBwdSubM = 128;
+constexpr int kBwdCompute = 256;                    // the compute warps' threads (8 warps)
+constexpr int kBwdThreads = kBwdCompute + 32;       // and one producer warp
+constexpr int kBwdMaxCluster = 8;
+constexpr int kBwdDLd = kBwdBN + 8;  // bfloat16 row stride of 144 bytes (see TcFwdTile)
 
-template <typename TW, typename TD, int BK>
-struct TcBwdTile {
-  static constexpr int kMT = 64 / BK;                   // 128-row groups of dedy a warp holds
-  static constexpr int kMaxM = kTcBwdSubM * kMT;        // rows of dedx a launch takes
-  static constexpr int kYLd = BK + 8;                   // bfloat16: an odd multiple of 16 bytes
+template <bool kTc, typename TW, typename TD, int BK>
+struct BwdTile {
+  static constexpr int kMT = 64 / BK;                // 128-row groups of dedy a thread holds
+  static constexpr int kMaxM = kBwdSubM * kMT;       // rows of dedx a launch takes
+  static constexpr int kYLd = BK + 8;                // bfloat16: an odd multiple of 16 bytes
   static constexpr int kPLd = BK + 4;
-  // G's chunk (BK, BN): a warp takes 16 rows and kGN16 16-column tiles of it
+  // tensor cores: G's chunk (BK, BN): a warp takes 16 rows and kGN16 16-column tiles of it
   static constexpr int kGPerRow = 8 / (BK / 16);  // warps that share 16 rows of G
-  static constexpr int kGN16 = kTcBwdBN / 16 >= kGPerRow ? kTcBwdBN / 16 / kGPerRow : 1;
-  static constexpr int kGWarps = (BK / 16) * (kTcBwdBN / 16 / kGN16);
+  static constexpr int kGN16 = kBwdBN / 16 >= kGPerRow ? kBwdBN / 16 / kGPerRow : 1;
+  static constexpr int kGWarps = (BK / 16) * (kBwdBN / 16 / kGN16);
+  // FMA: groups of threads that split a step's rows for G, each a whole (BK, BN) tile
+  static constexpr int kGGroups = kTc ? 1 : 64 / BK;
   struct alignas(128) Stage {  // the tensor copies' boxes, dense
-    float d[kTcBwdSubM][kTcBwdBN];  // dedx rows of the step, as stored
-    TW w[BK][kTcBwdBN];             // W rows of the stripe, as stored
-    TD dl[BK][kTcBwdBN];            // Delta rows of the stripe, as stored
+    float d[kBwdSubM][kBwdBN];  // dedx rows of the step, as stored
+    TW w[BK][kBwdBN];           // W rows of the stripe, as stored
+    TD dl[BK][kBwdBN];          // Delta rows of the stripe, as stored
+  };
+  struct TcOperands {
+    bf16_t y[kMaxM][kYLd];              // rne(masked yprev stripe), (m, k)
+    bf16_t db[kBwdSubM][kBwdDLd];       // rne(dedx chunk), (m, n)
+    bf16_t wb[BK][kBwdDLd];             // rne(W chunk), (k, n)
+  };
+  struct FmaOperands {
+    float y[kMaxM][BK];                 // masked yprev stripe, (m, k)
+    float wf[BK][kBwdBN + 4];           // W chunk widened, (k, n), for dedy
   };
   struct alignas(128) Smem {
     union {
-      Stage ring[kTcBwdStages];
+      Stage ring[kBwdStages];
       float part[kMaxM][kPLd];  // the block's partial dedy stripe, after the loop
     } u;
-    bf16_t y[kMaxM][kYLd];                  // rne(masked yprev stripe), (m, k)
-    bf16_t db[kTcBwdSubM][kTcBwdDLd];       // rne(dedx chunk), (m, n)
-    bf16_t wb[BK][kTcBwdDLd];               // rne(W chunk), (k, n)
-    float g[BK][kTcBwdBN + 4];              // G's chunk, for the update in row order
-    uint64_t full[kTcBwdStages];            // a ring slot's tensor copies have landed
-    uint64_t empty[kTcBwdStages];           // the compute warps are done with a ring slot
+    typename std::conditional<kTc, TcOperands, FmaOperands>::type op;
+    float g[kGGroups * BK][kBwdBN + 4];  // G's chunk (a tile a group), for the update in row order
+    uint64_t full[kBwdStages];           // a ring slot's tensor copies have landed
+    uint64_t empty[kBwdStages];          // the compute warps are done with a ring slot
   };
-  static_assert(sizeof(Smem) + 128 <= 232448, "shared memory of tc_bwd_kernel");
+  static_assert(sizeof(Smem) + 128 <= 232448, "shared memory of stripe_bwd_kernel");
 };
 
 __device__ inline void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 // a barrier of the compute warps alone (named barrier 1), the producer warp not waited for
-__device__ inline void tc_bwd_compute_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kTcBwdCompute) : "memory");
+__device__ inline void bwd_compute_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kBwdCompute) : "memory");
 }
 
 // d_tma / w_tma / l_tma: dedx, W, Delta go by tensor copies (tmd, tmw, tml),
@@ -1185,24 +1088,24 @@ __device__ inline void tc_bwd_compute_sync() {
 // the first ring steps' W (kEarlyW) and Delta (kEarlyDelta) and the yprev
 // stripe (kEarlyYprev); dedx (the bias blocks' reads too) and every store
 // come after it.
-template <typename TW, typename TD, int BK>
-__global__ void __launch_bounds__(kTcBwdThreads, 1)
-tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ CUtensorMap tmw,
-              const __grid_constant__ CUtensorMap tml, const float* __restrict__ dedx,
-              const float* __restrict__ yprev, MaskSpec in_mask, TW* __restrict__ w,
-              TD* __restrict__ delta, float* __restrict__ b, float* __restrict__ db,
-              float* __restrict__ gout, float* __restrict__ dedy, int deriv, int M, int K, int N,
-              float mom, float A, float Bc, uint32_t sr_key, int flags, bool d_tma, bool w_tma,
-              bool l_tma, bool vec_y, bool vec_w, bool vec_dl, bool vec_g, bool vec_dy,
-              int early) {
+template <bool kTc, typename TW, typename TD, int BK>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+stripe_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ CUtensorMap tmw,
+                  const __grid_constant__ CUtensorMap tml, const float* __restrict__ dedx,
+                  const float* __restrict__ yprev, MaskSpec in_mask, TW* __restrict__ w,
+                  TD* __restrict__ delta, float* __restrict__ b, float* __restrict__ db,
+                  float* __restrict__ gout, float* __restrict__ dedy, int deriv, int M, int K,
+                  int N, float mom, float A, float Bc, uint32_t sr_key, int flags, bool d_tma,
+                  bool w_tma, bool l_tma, bool vec_y, bool vec_w, bool vec_dl, bool vec_g,
+                  bool vec_dy, int early) {
   namespace cg = cooperative_groups;
-  using T = TcBwdTile<TW, TD, BK>;
-  constexpr int kS = kTcBwdStages, BN = kTcBwdBN, kC = kTcBwdCompute, kSub = kTcBwdSubM;
+  using T = BwdTile<kTc, TW, TD, BK>;
+  constexpr int kS = kBwdStages, BN = kBwdBN, kC = kBwdCompute, kSub = kBwdSubM;
   // passes of the compute threads over a (BK, BN) tile, four columns a thread
   constexpr int kQuadIters = BK * BN / 4 >= kC ? BK * BN / 4 / kC : 1;
-  extern __shared__ unsigned char tc_bwd_smem[];
+  extern __shared__ unsigned char bwd_smem[];
   typename T::Smem& sm = *reinterpret_cast<typename T::Smem*>(
-      (reinterpret_cast<uintptr_t>(tc_bwd_smem) + 127) & ~(uintptr_t)127);
+      (reinterpret_cast<uintptr_t>(bwd_smem) + 127) & ~(uintptr_t)127);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const bool first = (flags & kUpdFirst) != 0, apply = (flags & kUpdApply) != 0;
@@ -1214,7 +1117,7 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
   if (blockIdx.y == gridDim.y - 1) {  // the bias of columns c0 * BN..: dedx's rows summed in order
     grid_dep_wait();
     const int n1 = min(N, c1 * BN);
-    for (int n = c0 * BN + tid; n < n1; n += kTcBwdThreads) {
+    for (int n = c0 * BN + tid; n < n1; n += kBwdThreads) {
       float s = 0.0f;
 #pragma unroll 8
       for (int m = 0; m < M; ++m) s += __ldg(dedx + (long long)m * N + n);
@@ -1235,7 +1138,7 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
   const bool any_tma = d_tma || (need_w && w_tma) || (update && l_tma);
   const bool all_tma = d_tma && (!need_w || w_tma) && (!update || l_tma);
   // step `step` is chunk c0 + step / subs, rows (step % subs) * 128..: dedx
-  // always; W where the step rounds it for dedy (a chunk's first rows) or
+  // always; W where the step takes it for dedy (a chunk's first rows) or
   // updates it (its last), Delta where it updates
   auto ld_w = [&](int j) { return (with_dedy && j == 0) || (update && j == subs - 1); };
   auto ld_l = [&](int j) { return update && j == subs - 1; };
@@ -1256,7 +1159,7 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
   }
   __syncthreads();
 
-  if (warp == kTcBwdCompute / 32) {
+  if (warp == kBwdCompute / 32) {
     // the producer: one lane keeps kS steps of tensor copies in flight, each
     // into a slot the compute warps have released (the bytes are posted even
     // where a step has none, so that its phase completes).  The first kS
@@ -1331,7 +1234,8 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
         if (s < n_steps) load_by_hand(s, s, early_parts);
     }
 
-    // the stripe of yprev, masked in float32 and rounded; zeros past M (to 16 rows) and K
+    // the stripe of yprev, masked in float32 (and rounded for the tensor
+    // cores); zeros past M (to 16 rows) and K
     auto y4 = [&](int row, int col) {  // 16 bytes at (row, col) of yprev, zeros past its edges
       if (vec_y && row < M && col + 3 < K)
         return __ldg(reinterpret_cast<const float4*>(yprev + (long long)row * K + col));
@@ -1358,7 +1262,11 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
             mask4(in_mask, row, k0 + c, K, mk);
             v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
           }
-          st_cvt4(&sm.y[row][c], v);
+          if constexpr (kTc) {
+            st_cvt4(&sm.op.y[row][c], v);
+          } else {
+            *reinterpret_cast<float4*>(&sm.op.y[row][c]) = v;
+          }
         }
       }
     };
@@ -1372,18 +1280,27 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
       }
     }
     if (!early_y) load_stripe();
+    if constexpr (!kTc) bwd_compute_sync();  // the stripe's rows are read by every thread
 
-    // this warp's tile of G's chunk (warps below kGWarps): rows gm.., cols gn..
-    // (kGN16 * 16 of them); its A operand, rne(yprev)^T of rows gm.., is the
-    // same at every step: held in registers (reloaded a step only where M
-    // takes more than one step a chunk).  Its dedy: rows dm.. of each 128
-    // rows, all of the stripe's columns.
+    // tensor cores: this warp's tile of G's chunk (warps below kGWarps): rows
+    // gm.., cols gn.. (kGN16 * 16 of them); its A operand, rne(yprev)^T of
+    // rows gm.., is the same at every step: held in registers (reloaded a
+    // step only where M takes more than one step a chunk).  Its dedy: rows
+    // dm.. of each 128 rows, all of the stripe's columns.
     constexpr int kGN16 = T::kGN16;
     const bool g_warp = warp < T::kGWarps;
     const int gm = (warp / (BN / 16 / kGN16)) * 16, gn = (warp % (BN / 16 / kGN16)) * 16 * kGN16;
     const int dm = warp * 16;
     uint32_t ya[kSub / 16][4];
     float gacc[2][2 * kGN16][4];  // [even / odd 16-row step][n8 tile]: two chains half as deep
+    // FMA: this thread's 4 x 4 tile of G's chunk, rows fk.. of the stripe and
+    // cols fn.., over its group's share of each step's rows; its dedy: rows
+    // fdm * kDM.. of each 128 rows, columns kl + BK / 4 * c
+    constexpr int kDM = BK / 8;
+    const int fn = (tid % 16) * 4, fk = ((tid / 16) % (BK / 4)) * 4, fgrp = tid / (4 * BK);
+    const int kl = tid % (BK / 4), fdm = tid / (BK / 4);
+    float facc[4][4];
+    // dedy: tensor cores [128-row group][n8 tile][fragment], FMA [128-row group][row][column]
     float dacc[T::kMT][BK / 8][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -1391,6 +1308,10 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
       for (int h = 0; h < 2 * kGN16; ++h)
 #pragma unroll
         for (int c = 0; c < 4; ++c) gacc[i][h][c] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) facc[i][c] = 0.0f;
 #pragma unroll
     for (int i = 0; i < T::kMT; ++i)
 #pragma unroll
@@ -1407,63 +1328,126 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
       if (any_tma) mbar_wait(&sm.full[s % kS], (s / kS) & 1);
       if (!all_tma) {
         cp_async_wait<kS - 1>();
-        tc_bwd_compute_sync();
+        bwd_compute_sync();
       }
       const typename T::Stage& st = sm.u.ring[s % kS];
       const int j = s % subs, n0 = (c0 + s / subs) * BN;
       const int rows_pad = min(kSub, m16 - j * kSub);  // this step's rows, whole m16 tiles
+      const int rows = min(kSub, M - j * kSub);        // and as they are
 
-      // the step's operands rounded
+      if constexpr (kTc) {
+        // the step's operands rounded
 #pragma unroll
-      for (int r = 0; r < kSub * BN / 4 / kC; ++r) {
-        const int idx = tid + r * kC, row = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
-        if (row < rows_pad)
-          st_cvt4(&sm.db[row][c], *reinterpret_cast<const float4*>(&st.d[row][c]));
-      }
-      if (with_dedy && j == 0) {
-#pragma unroll
-        for (int r = 0; r < kQuadIters; ++r) {
-          const int idx = tid + r * kC, kr = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
-          if (kr < BK) st_cvt4(&sm.wb[kr][c], widen4(&st.w[kr][c]));
+        for (int r = 0; r < kSub * BN / 4 / kC; ++r) {
+          const int idx = tid + r * kC, row = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+          if (row < rows_pad)
+            st_cvt4(&sm.op.db[row][c], *reinterpret_cast<const float4*>(&st.d[row][c]));
         }
-      }
-      tc_bwd_compute_sync();
-
-      // G's chunk over this step's rows: rne(yprev)^T @ rne(dedx)
-      if (g_warp) {
-        if (s == 0 || subs > 1) {
+        if (with_dedy && j == 0) {
 #pragma unroll
-          for (int q = 0; q < kSub / 16; ++q)
-            if (q * 16 < rows_pad) load_a_trans(ya[q], &sm.y[j * kSub + q * 16][gm], T::kYLd, lane);
-        }
-#pragma unroll
-        for (int q = 0; q < kSub / 16; ++q) {
-          if (q * 16 >= rows_pad) continue;
-#pragma unroll
-          for (int n16 = 0; n16 < kGN16; ++n16) {
-            uint32_t bb[4];
-            load_b_kn(bb, &sm.db[q * 16][gn + n16 * 16], kTcBwdDLd, lane);
-            mma_bf16_16816(gacc[q & 1][2 * n16], ya[q], bb[0], bb[1]);
-            mma_bf16_16816(gacc[q & 1][2 * n16 + 1], ya[q], bb[2], bb[3]);
+          for (int r = 0; r < kQuadIters; ++r) {
+            const int idx = tid + r * kC, kr = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+            if (kr < BK) st_cvt4(&sm.op.wb[kr][c], widen4(&st.w[kr][c]));
           }
         }
-      }
-      // dedy's rows of this warp in this step: rne(dedx) @ rne(W)^T, summed over the chunks
-      if (with_dedy && dm < rows_pad) {
+        bwd_compute_sync();
+
+        // G's chunk over this step's rows: rne(yprev)^T @ rne(dedx)
+        if (g_warp) {
+          if (s == 0 || subs > 1) {
 #pragma unroll
-        for (int jj = 0; jj < T::kMT; ++jj) {
-          if (jj != j) continue;
+            for (int q = 0; q < kSub / 16; ++q)
+              if (q * 16 < rows_pad)
+                load_a_trans(ya[q], &sm.op.y[j * kSub + q * 16][gm], T::kYLd, lane);
+          }
 #pragma unroll
-          for (int kk = 0; kk < BN; kk += 16) {
-            uint32_t a[4];
-            load_a(a, &sm.db[dm][kk], kTcBwdDLd, lane);
+          for (int q = 0; q < kSub / 16; ++q) {
+            if (q * 16 >= rows_pad) continue;
 #pragma unroll
-            for (int p = 0; p < BK / 16; ++p) {
+            for (int n16 = 0; n16 < kGN16; ++n16) {
               uint32_t bb[4];
-              load_b_nk(bb, &sm.wb[p * 16][kk], kTcBwdDLd, lane);
-              mma_bf16_16816(dacc[jj][2 * p], a, bb[0], bb[1]);
-              mma_bf16_16816(dacc[jj][2 * p + 1], a, bb[2], bb[3]);
+              load_b_kn(bb, &sm.op.db[q * 16][gn + n16 * 16], kBwdDLd, lane);
+              mma_bf16_16816(gacc[q & 1][2 * n16], ya[q], bb[0], bb[1]);
+              mma_bf16_16816(gacc[q & 1][2 * n16 + 1], ya[q], bb[2], bb[3]);
             }
+          }
+        }
+        // dedy's rows of this warp in this step: rne(dedx) @ rne(W)^T, summed over the chunks
+        if (with_dedy && dm < rows_pad) {
+#pragma unroll
+          for (int jj = 0; jj < T::kMT; ++jj) {
+            if (jj != j) continue;
+#pragma unroll
+            for (int kk = 0; kk < BN; kk += 16) {
+              uint32_t a[4];
+              load_a(a, &sm.op.db[dm][kk], kBwdDLd, lane);
+#pragma unroll
+              for (int p = 0; p < BK / 16; ++p) {
+                uint32_t bb[4];
+                load_b_nk(bb, &sm.op.wb[p * 16][kk], kBwdDLd, lane);
+                mma_bf16_16816(dacc[jj][2 * p], a, bb[0], bb[1]);
+                mma_bf16_16816(dacc[jj][2 * p + 1], a, bb[2], bb[3]);
+              }
+            }
+          }
+        }
+      } else {
+        // W's chunk widened for dedy, once a chunk (kept through its steps)
+        if (with_dedy && j == 0) {
+#pragma unroll
+          for (int r = 0; r < kQuadIters; ++r) {
+            const int idx = tid + r * kC, kr = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+            if (kr < BK) *reinterpret_cast<float4*>(&sm.op.wf[kr][c]) = widen4(&st.w[kr][c]);
+          }
+          bwd_compute_sync();
+        }
+        // G's chunk over this group's share of the step's rows, in row order
+        const int share = (rows + T::kGGroups - 1) / T::kGGroups;
+        const int r1 = min(rows, (fgrp + 1) * share);
+#pragma unroll 4
+        for (int m = fgrp * share; m < r1; ++m) {
+          const float4 yv = *reinterpret_cast<const float4*>(&sm.op.y[j * kSub + m][fk]);
+          const float4 dv = *reinterpret_cast<const float4*>(&st.d[m][fn]);
+          const float yr[4] = {yv.x, yv.y, yv.z, yv.w}, dr[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) facc[i][c] = fmaf(yr[i], dr[c], facc[i][c]);
+        }
+        // dedy's rows of this thread in this step: dedx @ W^T, the chunk's n in order
+        // into a partial, which is then added to the sum over the chunks
+        if (with_dedy && fdm * kDM < rows) {
+#pragma unroll
+          for (int jj = 0; jj < T::kMT; ++jj) {
+            if (jj != j) continue;
+            float dp[kDM][4];
+#pragma unroll
+            for (int i = 0; i < kDM; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) dp[i][c] = 0.0f;
+#pragma unroll 2
+            for (int n = 0; n < BN; n += 4) {
+              float4 wv[4];
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                wv[c] = *reinterpret_cast<const float4*>(&sm.op.wf[kl + (BK / 4) * c][n]);
+#pragma unroll
+              for (int i = 0; i < kDM; ++i) {
+                const float4 dv = *reinterpret_cast<const float4*>(&st.d[fdm * kDM + i][n]);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  float a = dp[i][c];
+                  a = fmaf(dv.x, wv[c].x, a);
+                  a = fmaf(dv.y, wv[c].y, a);
+                  a = fmaf(dv.z, wv[c].z, a);
+                  dp[i][c] = fmaf(dv.w, wv[c].w, a);
+                }
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < kDM; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) dacc[jj][i][c] += dp[i][c];
           }
         }
       }
@@ -1472,55 +1456,79 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
         // the chunk's G is complete: through shared memory to the update (or
         // the store) in row order, eight threads a row of the chunk: 16-byte
         // shared loads without bank conflicts and whole 128-byte rows stored
-        if (g_warp) {
+        if constexpr (kTc) {
+          if (g_warp) {
 #pragma unroll
-          for (int h = 0; h < 2 * kGN16; ++h) {
-            const int col = gn + h * 8 + 2 * t;
-            *reinterpret_cast<float2*>(&sm.g[gm + g][col]) =
-                make_float2(gacc[0][h][0] + gacc[1][h][0], gacc[0][h][1] + gacc[1][h][1]);
-            *reinterpret_cast<float2*>(&sm.g[gm + g + 8][col]) =
-                make_float2(gacc[0][h][2] + gacc[1][h][2], gacc[0][h][3] + gacc[1][h][3]);
+            for (int h = 0; h < 2 * kGN16; ++h) {
+              const int col = gn + h * 8 + 2 * t;
+              *reinterpret_cast<float2*>(&sm.g[gm + g][col]) =
+                  make_float2(gacc[0][h][0] + gacc[1][h][0], gacc[0][h][1] + gacc[1][h][1]);
+              *reinterpret_cast<float2*>(&sm.g[gm + g + 8][col]) =
+                  make_float2(gacc[0][h][2] + gacc[1][h][2], gacc[0][h][3] + gacc[1][h][3]);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) gacc[0][h][e] = gacc[1][h][e] = 0.0f;
+              for (int e = 0; e < 4; ++e) gacc[0][h][e] = gacc[1][h][e] = 0.0f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            *reinterpret_cast<float4*>(&sm.g[fgrp * BK + fk + i][fn]) =
+                make_float4(facc[i][0], facc[i][1], facc[i][2], facc[i][3]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) facc[i][c] = 0.0f;
           }
         }
-        tc_bwd_compute_sync();
+        bwd_compute_sync();
 #pragma unroll
         for (int r = 0; r < kQuadIters; ++r) {
-          const int idx = tid + r * kC, kl = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
-          const int kr = k0 + kl, col = n0 + c;
-          if (kl >= BK || kr >= K || col >= N) continue;
-          const float4 gv = *reinterpret_cast<const float4*>(&sm.g[kl][c]);
+          const int idx = tid + r * kC, kl4 = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+          const int kr = k0 + kl4, col = n0 + c;
+          if (kl4 >= BK || kr >= K || col >= N) continue;
+          float4 gv = *reinterpret_cast<const float4*>(&sm.g[kl4][c]);
+#pragma unroll
+          for (int q = 1; q < T::kGGroups; ++q) {  // the groups' tiles, in group order
+            const float4 p = *reinterpret_cast<const float4*>(&sm.g[q * BK + kl4][c]);
+            gv.x += p.x; gv.y += p.y; gv.z += p.z; gv.w += p.w;
+          }
           if (!update) {
             st4(gout, kr, col, N, K, N, vec_g, gv);
             continue;
           }
-          const float4 wv = widen4(&st.w[kl][c]), dv = widen4(&st.dl[kl][c]);
+          const float4 wv = widen4(&st.w[kl4][c]), dv = widen4(&st.dl[kl4][c]);
           const float wr[4] = {wv.x, wv.y, wv.z, wv.w}, dr[4] = {dv.x, dv.y, dv.z, dv.w};
           const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
           update4(w, delta, kr, col, K, N, wr, dr, gr, mom, A, Bc, sr_key, first, apply, vec_w,
                   vec_dl);
         }
       }
-      tc_bwd_compute_sync();  // the slot and the rounded operands are free for the next steps
+      bwd_compute_sync();  // the slot and the step's operands are free for the next steps
       if (any_tma && tid == 0) mbar_arrive(&sm.empty[s % kS]);
     }
     if (!all_tma) cp_async_wait<0>();
-    tc_bwd_compute_sync();  // the ring is free: the partial stripe takes its place
+    bwd_compute_sync();  // the ring is free: the partial stripe takes its place
     grid_dep_launch_dependents();  // the next launch's prologue overlaps the cluster sum
 
     if (with_dedy) {
 #pragma unroll
       for (int jj = 0; jj < T::kMT; ++jj) {
-        const int row = jj * kSub + dm + g;
-        if (jj * kSub + dm >= m16) continue;
+        if constexpr (kTc) {
+          const int row = jj * kSub + dm + g;
+          if (jj * kSub + dm >= m16) continue;
 #pragma unroll
-        for (int n8 = 0; n8 < BK / 8; ++n8) {
-          const int col = n8 * 8 + 2 * t;
-          *reinterpret_cast<float2*>(&sm.u.part[row][col]) =
-              make_float2(dacc[jj][n8][0], dacc[jj][n8][1]);
-          *reinterpret_cast<float2*>(&sm.u.part[row + 8][col]) =
-              make_float2(dacc[jj][n8][2], dacc[jj][n8][3]);
+          for (int n8 = 0; n8 < BK / 8; ++n8) {
+            const int col = n8 * 8 + 2 * t;
+            *reinterpret_cast<float2*>(&sm.u.part[row][col]) =
+                make_float2(dacc[jj][n8][0], dacc[jj][n8][1]);
+            *reinterpret_cast<float2*>(&sm.u.part[row + 8][col]) =
+                make_float2(dacc[jj][n8][2], dacc[jj][n8][3]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kDM; ++i) {
+            const int row = jj * kSub + fdm * kDM + i;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) sm.u.part[row][kl + (BK / 4) * c] = dacc[jj][i][c];
+          }
         }
       }
     }
@@ -1552,17 +1560,31 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
     const int idx = tid + r * kC;
     const int row = r0 + idx / (BK / 4), c = (idx % (BK / 4)) * 4;
     if (idx >= n_out || k0 + c >= K) continue;
-    float4 p[kTcBwdMaxCluster];
+    float4 p[kBwdMaxCluster];
 #pragma unroll
-    for (int q = 0; q < kTcBwdMaxCluster; ++q)
+    for (int q = 0; q < kBwdMaxCluster; ++q)
       if (q < n_ranks)
         p[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(&sm.u.part[row][c], q));
     float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if constexpr (kTc) {
 #pragma unroll
-    for (int q = 0; q < kTcBwdMaxCluster; ++q)
-      if (q < n_ranks) {
-        v[0] += p[q].x; v[1] += p[q].y; v[2] += p[q].z; v[3] += p[q].w;
-      }
+      for (int q = 0; q < kBwdMaxCluster; ++q)
+        if (q < n_ranks) {
+          v[0] += p[q].x; v[1] += p[q].y; v[2] += p[q].z; v[3] += p[q].w;
+        }
+    } else {
+      // float32 products: the ranks' partials added in float64 and rounded once, so
+      // that dedy does not hang on how the split associates its sum (the wide
+      // trainer holds of chip_smoke.py are that sensitive, PERF.md, PR 13)
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int q = 0; q < kBwdMaxCluster; ++q)
+        if (q < n_ranks) {
+          s[0] += p[q].x; s[1] += p[q].y; s[2] += p[q].z; s[3] += p[q].w;
+        }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = (float)s[e];
+    }
     if (deriv != kLinear) {
       const float yr[4] = {yd[r].x, yd[r].y, yd[r].z, yd[r].w};
 #pragma unroll
@@ -1573,6 +1595,7 @@ tc_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant__ C
   }
   cluster.sync();  // no block leaves while another still reads its partial stripe
 }
+
 
 // ---------------------------------------------------------------------------
 // The update from a given gradient (the data-parallel trainer's, after the
@@ -1622,48 +1645,20 @@ inline cudaError_t launch_update(float* w, TD* delta, float* b, float* db, const
   return cudaGetLastError();
 }
 
-// dedy[m, k] = sum over the n-tiles of part[nt, m, k], in tile order; then
-// the activation derivative of the layer below, taken on its stored (masked)
-// activation y: relu -> y > 0 ? dedy : 0, sigmoid -> y * (1 - y) * dedy.
-__global__ void __launch_bounds__(256)
-reduce_dedy_kernel(const float* __restrict__ part, int n_tiles, const float* __restrict__ y,
-                   float* __restrict__ out, long long total, int deriv) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int t = 0; t < n_tiles; ++t) s += part[t * total + i];
-    if (deriv == kRelu) {
-      s = y[i] > 0.0f ? s : 0.0f;
-    } else if (deriv == kSigmoid) {
-      const float yv = y[i];
-      s = yv * (1.0f - yv) * s;
-    }
-    out[i] = s;
-  }
-}
-
-inline int bwd_n_tiles(int N) { return (N + kBwdBN - 1) / kBwdBN; }
-
-// Scratch floats launch_bwd needs in `part` for dedy: the float32 form's
-// partials (bwd_n_tiles(N) of (M, K)); the tensor-core form needs none.
-inline long long bwd_scratch_floats(int M, int K, int N, bool tc) {
-  return tc ? 0 : (long long)bwd_n_tiles(N) * M * K;
-}
-
-// Per library and per device, as tc_fwd_clusters: raises tc_bwd_kernel<TW,
-// TD, BK>'s shared memory once, and -> how many clusters of `size` blocks the
-// card holds at once (cached).
-template <typename TW, typename TD, int BK>
-static cudaError_t tc_bwd_clusters(int size, int* clusters) {
+// Per library and per device, as tc_fwd_clusters: raises stripe_bwd_kernel<kTc,
+// TW, TD, BK>'s shared memory once, and -> how many clusters of `size` blocks
+// the card holds at once (cached).
+template <bool kTc, typename TW, typename TD, int BK>
+static cudaError_t bwd_clusters(int size, int* clusters) {
   static bool attr_set[kTcFwdMaxDevices] = {};
-  static int cached[kTcFwdMaxDevices][kTcBwdMaxCluster + 1] = {};
+  static int cached[kTcFwdMaxDevices][kBwdMaxCluster + 1] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kTcFwdMaxDevices) return cudaErrorInvalidDevice;
-  const size_t smem = sizeof(typename TcBwdTile<TW, TD, BK>::Smem) + 128;  // + its alignment
+  const size_t smem = sizeof(typename BwdTile<kTc, TW, TD, BK>::Smem) + 128;  // + its alignment
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(tc_bwd_kernel<TW, TD, BK>,
+    err = cudaFuncSetAttribute(stripe_bwd_kernel<kTc, TW, TD, BK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
@@ -1671,7 +1666,7 @@ static cudaError_t tc_bwd_clusters(int size, int* clusters) {
   if (cached[dev][size] == 0) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(size, 1, 1);
-    cfg.blockDim = dim3(kTcBwdThreads);
+    cfg.blockDim = dim3(kBwdThreads);
     cfg.dynamicSmemBytes = smem;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1681,7 +1676,7 @@ static cudaError_t tc_bwd_clusters(int size, int* clusters) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, tc_bwd_kernel<TW, TD, BK>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, stripe_bwd_kernel<kTc, TW, TD, BK>, &cfg);
     if (err != cudaSuccess) return err;
     if (n < 1) return cudaErrorInvalidConfiguration;  // such a cluster cannot be placed
     cached[dev][size] = n;
@@ -1690,21 +1685,21 @@ static cudaError_t tc_bwd_clusters(int size, int* clusters) {
   return cudaSuccess;
 }
 
-// How the tensor-core backward splits N over the blocks of a stripe: into
-// as many ranges of whole chunks as make the grid (the stripes and the row of
-// bias blocks) fill the blocks the card holds at once, none of them empty;
-// where dedy is summed across the split (`cluster`), at most kTcBwdMaxCluster
-// and fewer where every cluster of the grid could not then be resident at
-// once.  A function of (K, N, BK, cluster) and the card alone: a
-// data-parallel rank's rows (M <= 256, BK = 64) are summed as the
+// How the backward splits N over the blocks of a stripe: into as many ranges
+// of whole chunks as make the grid (the stripes and the row of bias blocks)
+// fill the blocks the card holds at once, none of them empty; where dedy is
+// summed across the split (`cluster`), at most kBwdMaxCluster and fewer where
+// every cluster of the grid could not then be resident at once.  A function
+// of (K, N, BK, cluster), the product form and the card alone: a
+// data-parallel rank's rows (M <= 128, BK = 64) are summed as the
 // single-device trainer sums them.  -> *split.
-template <typename TW, typename TD, int BK>
-static cudaError_t tc_bwd_split(int K, int N, bool cluster, int* split) {
-  const int rows = (K + BK - 1) / BK + 1, n_chunks = (N + kTcBwdBN - 1) / kTcBwdBN;
+template <bool kTc, typename TW, typename TD, int BK>
+static cudaError_t bwd_split(int K, int N, bool cluster, int* split) {
+  const int rows = (K + BK - 1) / BK + 1, n_chunks = (N + kBwdBN - 1) / kBwdBN;
   int one = 0;
-  cudaError_t err = tc_bwd_clusters<TW, TD, BK>(1, &one);  // blocks the card holds at once
+  cudaError_t err = bwd_clusters<kTc, TW, TD, BK>(1, &one);  // blocks the card holds at once
   if (err != cudaSuccess) return err;
-  const int most = cluster && n_chunks > kTcBwdMaxCluster ? kTcBwdMaxCluster : n_chunks;
+  const int most = cluster && n_chunks > kBwdMaxCluster ? kBwdMaxCluster : n_chunks;
   int s = one / rows;
   s = s < 1 ? 1 : (s > most ? most : s);
   for (;; --s) {
@@ -1712,7 +1707,7 @@ static cudaError_t tc_bwd_split(int K, int N, bool cluster, int* split) {
     if ((n_chunks + per - 1) / per < s) continue;  // a range would hold no chunk
     if (s == 1 || !cluster) break;
     int fit = 0;
-    err = tc_bwd_clusters<TW, TD, BK>(s, &fit);
+    err = bwd_clusters<kTc, TW, TD, BK>(s, &fit);
     if (err != cudaSuccess) return err;
     if (rows <= fit) break;
   }
@@ -1722,15 +1717,15 @@ static cudaError_t tc_bwd_split(int K, int N, bool cluster, int* split) {
 
 // pdl: a programmatic dependent launch that reads before its wait what
 // `early` names (pdl.cuh).
-template <typename TW, typename TD, int BK>
-static cudaError_t launch_tc_bwd_bk(const float* dedx, const float* yprev,
-                                    const MaskSpec& in_mask, TW* w, TD* delta, float* b,
-                                    float* db, float* gout, float* dedy, int deriv, int M, int K,
-                                    int N, float mom, float A, float Bc, uint32_t sr_key,
-                                    int flags, bool pdl, int early, cudaStream_t stream) {
+template <bool kTc, typename TW, typename TD, int BK>
+static cudaError_t launch_bwd_bk(const float* dedx, const float* yprev, const MaskSpec& in_mask,
+                                 TW* w, TD* delta, float* b, float* db, float* gout, float* dedy,
+                                 int deriv, int M, int K, int N, float mom, float A, float Bc,
+                                 uint32_t sr_key, int flags, bool pdl, int early,
+                                 cudaStream_t stream) {
   const bool update = gout == nullptr, need_w = update || dedy != nullptr;
   int split = 1;
-  cudaError_t err = tc_bwd_split<TW, TD, BK>(K, N, dedy != nullptr, &split);
+  cudaError_t err = bwd_split<kTc, TW, TD, BK>(K, N, dedy != nullptr, &split);
   if (err != cudaSuccess) return err;
   // tensor maps where the rows' stride is a multiple of 16 bytes
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
@@ -1742,115 +1737,111 @@ static cudaError_t launch_tc_bwd_bk(const float* dedx, const float* yprev,
     return bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT16;
   };
   if (d_tma) {  // a rank's 32 or 64 rows copy no 128-row box of zeros
-    const int d_rows = M < kTcBwdSubM ? (M + 15) / 16 * 16 : kTcBwdSubM;
-    err = tensor_map_2d(&tmd, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dedx, M, N, 4, d_rows, kTcBwdBN);
+    const int d_rows = M < kBwdSubM ? (M + 15) / 16 * 16 : kBwdSubM;
+    err = tensor_map_2d(&tmd, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dedx, M, N, 4, d_rows, kBwdBN);
     if (err != cudaSuccess) return err;
   }
   if (w_tma) {
-    err = tensor_map_2d(&tmw, type_of(sizeof(TW)), w, K, N, (int)sizeof(TW), BK, kTcBwdBN);
+    err = tensor_map_2d(&tmw, type_of(sizeof(TW)), w, K, N, (int)sizeof(TW), BK, kBwdBN);
     if (err != cudaSuccess) return err;
   }
   if (l_tma) {
-    err = tensor_map_2d(&tml, type_of(sizeof(TD)), delta, K, N, (int)sizeof(TD), BK, kTcBwdBN);
+    err = tensor_map_2d(&tml, type_of(sizeof(TD)), delta, K, N, (int)sizeof(TD), BK, kBwdBN);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (K + BK - 1) / BK + 1, 1);  // the stripes, then the bias
-  cfg.blockDim = dim3(kTcBwdThreads);
-  cfg.dynamicSmemBytes = sizeof(typename TcBwdTile<TW, TD, BK>::Smem) + 128;  // + its alignment
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = sizeof(typename BwdTile<kTc, TW, TD, BK>::Smem) + 128;  // + alignment
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
   cfg.attrs = attr;  // dedy is summed across the split
   cfg.numAttrs = cluster_launch_attrs(attr, dedy != nullptr ? split : 1, 1, pdl);
-  return cudaLaunchKernelEx(&cfg, tc_bwd_kernel<TW, TD, BK>, tmd, tmw, tml, dedx, yprev, in_mask,
-                            w, delta, b, db, gout, dedy, deriv, M, K, N, mom, A, Bc, sr_key,
-                            flags, d_tma, w_tma, l_tma, vec_ok(yprev, K), vec_ok(w, N),
+  return cudaLaunchKernelEx(&cfg, stripe_bwd_kernel<kTc, TW, TD, BK>, tmd, tmw, tml, dedx, yprev,
+                            in_mask, w, delta, b, db, gout, dedy, deriv, M, K, N, mom, A, Bc,
+                            sr_key, flags, d_tma, w_tma, l_tma, vec_ok(yprev, K), vec_ok(w, N),
                             vec_ok(delta, N), vec_ok(gout, N), vec_ok(dedy, K), early);
 }
 
-// The tensor-core backward's plan for M rows: out[0] the split of N (the
-// cluster, where dedy is summed), out[1] the stripes, out[2] their rows (BK).
-template <typename TW, typename TD>
-static cudaError_t tc_bwd_plan(int M, int K, int N, bool with_dedy, int out[3]) {
-  out[2] = M <= TcBwdTile<TW, TD, 64>::kMaxM ? 64 : (M <= TcBwdTile<TW, TD, 32>::kMaxM ? 32 : 16);
-  out[1] = (K + out[2] - 1) / out[2];
-  if (out[2] == 64) return tc_bwd_split<TW, TD, 64>(K, N, with_dedy, &out[0]);
-  if (out[2] == 32) return tc_bwd_split<TW, TD, 32>(K, N, with_dedy, &out[0]);
-  return tc_bwd_split<TW, TD, 16>(K, N, with_dedy, &out[0]);
+// Rows of dedx the backward takes: the stripe's dedy lives in registers (32 a
+// thread), so the stripe narrows as M grows (BK = 64, 32, 16 up to 128, 256,
+// 512 rows).
+constexpr int kBwdMaxRows = 512;
+static_assert(BwdTile<true, float, float, 16>::kMaxM == kBwdMaxRows, "rows of stripe_bwd_kernel");
+
+// The stripe's rows for M rows of dedx (0: more than the kernel takes).
+inline int bwd_stripe_rows(int M) {
+  return M <= kBwdSubM ? 64 : (M <= 2 * kBwdSubM ? 32 : (M <= kBwdMaxRows ? 16 : 0));
 }
 
-// Rows of dedx the tensor-core backward takes: the stripe's dedy lives in
-// registers (32 a thread), so the stripe narrows as M grows (BK = 64, 32, 16
-// up to 128, 256, 512 rows).
-constexpr int kTcBwdMaxRows = 512;
+// The backward's plan for M rows in one product form: out[0] the split of N
+// (the cluster, where dedy is summed), out[1] the stripes, out[2] their rows
+// (BK).
+template <bool kTc, typename TW, typename TD>
+static cudaError_t bwd_plan(int M, int K, int N, bool with_dedy, int out[3]) {
+  out[2] = bwd_stripe_rows(M);
+  if (out[2] == 0) return cudaErrorInvalidValue;
+  out[1] = (K + out[2] - 1) / out[2];
+  if (out[2] == 64) return bwd_split<kTc, TW, TD, 64>(K, N, with_dedy, &out[0]);
+  if (out[2] == 32) return bwd_split<kTc, TW, TD, 32>(K, N, with_dedy, &out[0]);
+  return bwd_split<kTc, TW, TD, 16>(K, N, with_dedy, &out[0]);
+}
 
-template <typename TW, typename TD>
-static cudaError_t launch_tc_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
-                                 TW* w, TD* delta, float* b, float* db, float* gout, float* dedy,
-                                 int deriv, int M, int K, int N, float mom, float A, float Bc,
-                                 uint32_t sr_key, int flags, bool pdl, int early,
-                                 cudaStream_t stream) {
-  if (M <= TcBwdTile<TW, TD, 64>::kMaxM)
-    return launch_tc_bwd_bk<TW, TD, 64>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                        M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
-  if (M <= TcBwdTile<TW, TD, 32>::kMaxM)
-    return launch_tc_bwd_bk<TW, TD, 32>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                        M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
-  static_assert(TcBwdTile<float, float, 16>::kMaxM == kTcBwdMaxRows, "rows of tc_bwd_kernel");
-  if (M <= kTcBwdMaxRows)
-    return launch_tc_bwd_bk<TW, TD, 16>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                        M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
-  return cudaErrorInvalidValue;
+template <bool kTc, typename TW, typename TD>
+static cudaError_t launch_bwd_form(const float* dedx, const float* yprev, const MaskSpec& in_mask,
+                                   TW* w, TD* delta, float* b, float* db, float* gout,
+                                   float* dedy, int deriv, int M, int K, int N, float mom,
+                                   float A, float Bc, uint32_t sr_key, int flags, bool pdl,
+                                   int early, cudaStream_t stream) {
+  switch (bwd_stripe_rows(M)) {
+    case 64:
+      return launch_bwd_bk<kTc, TW, TD, 64>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy,
+                                            deriv, M, K, N, mom, A, Bc, sr_key, flags, pdl,
+                                            early, stream);
+    case 32:
+      return launch_bwd_bk<kTc, TW, TD, 32>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy,
+                                            deriv, M, K, N, mom, A, Bc, sr_key, flags, pdl,
+                                            early, stream);
+    case 16:
+      return launch_bwd_bk<kTc, TW, TD, 16>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy,
+                                            deriv, M, K, N, mom, A, Bc, sr_key, flags, pdl,
+                                            early, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The kernels one launch_bwd launched, each counted right after its launch.
 struct BwdLaunched {
-  int tc = 0;      // tc_bwd_kernel
-  int f32 = 0;     // bwd_kernel
-  int reduce = 0;  // reduce_dedy_kernel
-  int pdl = 0;     // tc_bwd_kernel as a programmatic dependent launch
+  int tc = 0;   // stripe_bwd_kernel, tensor-core products
+  int f32 = 0;  // stripe_bwd_kernel, float32 FMA products
+  int pdl = 0;  // the tensor-core form as a programmatic dependent launch
 };
 
-// dedy: (M, K), or nullptr when the layer below needs no gradient (the first
-// layer).  tc: the tensor-core form (tc_bwd_kernel: one launch, dedy summed in
-// the kernel, `part` unused), else the float32 one (bwd_kernel, and
-// reduce_dedy_kernel over `part`, bwd_scratch_floats of scratch, where dedy is
-// asked for).  gout: K*N + N floats for the gradient-out form (W is then only
-// read, and delta, b and db may be nullptr), or nullptr for the in-place
-// update.  pdl, early: the tensor-core form as a programmatic dependent launch
-// (launch_tc_bwd_bk); the float32 form takes neither.  *launched += what was
+// One launch of stripe_bwd_kernel.  dedy: (M, K), or nullptr when the layer
+// below needs no gradient (the first layer).  tc: the tensor-core products,
+// else float32 FMA ones.  gout: K*N + N floats for the gradient-out form (W
+// is then only read, and delta, b and db may be nullptr), or nullptr for the
+// in-place update.  At most kBwdMaxRows rows (else cudaErrorInvalidValue).
+// pdl, early: the tensor-core form as a programmatic dependent launch
+// (launch_bwd_bk); the float32 chain takes neither.  *launched += what was
 // launched.
 template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
-                              TW* w, TD* delta, float* b, float* db, float* gout, float* part,
-                              float* dedy, int deriv, int M, int K, int N, float mom, float A,
-                              float Bc, uint32_t sr_key, int flags, bool tc,
-                              BwdLaunched* launched, cudaStream_t stream, bool pdl = false,
-                              int early = 0) {
+                              TW* w, TD* delta, float* b, float* db, float* gout, float* dedy,
+                              int deriv, int M, int K, int N, float mom, float A, float Bc,
+                              uint32_t sr_key, int flags, bool tc, BwdLaunched* launched,
+                              cudaStream_t stream, bool pdl = false, int early = 0) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
-  if (tc) {
-    const cudaError_t err = launch_tc_bwd(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv,
-                                          M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
-    if (err == cudaSuccess) {
-      launched->tc += 1;
-      launched->pdl += pdl ? 1 : 0;
-    }
-    return err;
+  const cudaError_t err =
+      tc ? launch_bwd_form<true>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv, M, K,
+                                 N, mom, A, Bc, sr_key, flags, pdl, early, stream)
+         : launch_bwd_form<false>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv, M, K,
+                                  N, mom, A, Bc, sr_key, flags, false, 0, stream);
+  if (err == cudaSuccess) {
+    (tc ? launched->tc : launched->f32) += 1;
+    launched->pdl += tc && pdl ? 1 : 0;
   }
-  if ((part == nullptr) != (dedy == nullptr)) return cudaErrorInvalidValue;
-  dim3 grid(bwd_n_tiles(N), (K + kBwdBK - 1) / kBwdBK);
-  bwd_kernel<TW, TD><<<grid, kBwdThreads, 0, stream>>>(
-      dedx, yprev, in_mask, w, delta, b, db, gout, part, M, K, N, mom, A, Bc, sr_key, flags,
-      vec_ok(dedx, N), vec_ok(yprev, K), vec_ok(w, N), vec_ok(delta, N), vec_ok(gout, N));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  launched->f32 += 1;
-  if (part == nullptr) return cudaSuccess;
-  const long long total = (long long)M * K;
-  const int blocks = (int)((total + 255) / 256 < 2048 ? (total + 255) / 256 : 2048);
-  reduce_dedy_kernel<<<blocks, 256, 0, stream>>>(part, bwd_n_tiles(N), yprev, dedy, total, deriv);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) launched->reduce += 1;
   return err;
 }
 

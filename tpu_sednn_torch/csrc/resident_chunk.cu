@@ -17,14 +17,14 @@
 // fwd_sum_kernel; or tc_fwd_kernel alone; the input's mask is generated
 // while x is loaded, each hidden layer's mask in the epilogue of the layer
 // that feeds it, dedx in the last layer's epilogue) and the backward
-// launches, last layer first: tc_bwd_kernel alone (dedy summed inside the
-// kernel, across a thread-block cluster, with the derivative in its
-// epilogue), or bwd_kernel + reduce_dedy_kernel for float32 products.  So a
-// tensor-core bunch of L layers is 2L launches and the workspace holds no
-// dedy partials.  A single stream keeps the two orders the update rule
-// needs: dedy of layer l uses W_l before its update (one kernel does both),
-// and the forward of bunch i+1 sees W after bunch i.  No host
-// synchronisation, no allocation.
+// launches, last layer first: stripe_bwd_kernel in either product form
+// (dedy summed inside the kernel, across a thread-block cluster, with the
+// derivative in its epilogue).  So a tensor-core bunch of L layers is 2L
+// launches, a float32-product one 2L plus a fwd_sum_kernel for each forward
+// that splits K, and the workspace holds no dedy partials.  A single stream
+// keeps the two orders the update rule needs: dedy of layer l uses W_l before
+// its update (one kernel does both), and the forward of bunch i+1 sees W
+// after bunch i.  No host synchronisation, no allocation.
 //
 // The tensor-core chain overlaps its launches (Hopper's programmatic
 // dependent launch, pdl.cuh): every launch after the call's first may start
@@ -66,7 +66,8 @@
 //   the full bunch; dropout streams are keyed on the global tile index.
 // * its hbm_spill needs nothing here: the state is in device memory already.
 // * its bf16 products: the tensor-core forms of the two layer kernels
-//   (tc_fwd_kernel, tc_bwd_kernel), one launch each a layer.
+//   (tc_fwd_kernel, stripe_bwd_kernel's tensor-core form), one launch each a
+//   layer.
 // * its data-parallel form (n_dev > 1, make_dp_resident_train_chunk): a
 //   rank trains its rows of every global tile and the gradient is summed
 //   over the ranks before the update, so the chunk cannot be one C call: the
@@ -95,18 +96,16 @@ struct Workspace {
 // tensor-core forward, whose split of K differs.
 Workspace plan_workspace(const int* sizes, int L, int bunch, bool tc) {
   Workspace ws;
-  long long off = 0, max_w = 0, max_part = 0;
+  long long off = 0, max_w = 0, max_part = 0;  // part: the float32 forward's K chunks
   ws.ys[0] = -1;
   for (int l = 1; l < L; ++l) {
     ws.ys[l] = off;
     off += (long long)bunch * sizes[l];
   }
   for (int l = 0; l <= L; ++l) max_w = sizes[l] > max_w ? sizes[l] : max_w;
-  for (int l = 0; l < L; ++l) {  // one scratch serves the float32 forms' K chunks and N tiles
+  for (int l = 0; l < L; ++l) {
     const long long f = fwd_scratch_floats(bunch, sizes[l], sizes[l + 1], tc);
-    const long long p = l > 0 ? bwd_scratch_floats(bunch, sizes[l], sizes[l + 1], tc) : 0;
     max_part = f > max_part ? f : max_part;
-    max_part = p > max_part ? p : max_part;
   }
   ws.out = off;
   off += (long long)bunch * sizes[L];
@@ -241,7 +240,7 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
         BwdLaunched done;
         const cudaError_t err = launch_bwd(
             dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l], nullptr,
-            l > 0 && !tc ? work + ws.part : nullptr, l > 0 ? other : nullptr, hidden, tile,
+            l > 0 ? other : nullptr, hidden, tile,
             sizes[l], sizes[l + 1], mom, A, Bc, sr_key, flags, tc, &done, stream, pdl,
             pdl ? early_flags(plan, L, 1, l) : 0);
         if (err != cudaSuccess) return (int)err;
@@ -249,7 +248,6 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
         const int products = done.tc + done.f32;
         tallies[1] += products;
         tallies[9] += done.tc;
-        tallies[2] += done.reduce;
         tallies[3] += (l == 0 && in_mask.mode) ? products : 0;
         tallies[5] += kSr ? products : 0;
         tallies[6] += accum > 1 ? products : 0;
@@ -281,7 +279,8 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // (0 = no dropout there), scale_*: factor on kept elements.  Update: delta' =
 // mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
 // tallies[11] += launches of the forward and backward product kernels (either
-// form) and of reduce_dedy_kernel (float32 products only), the count of the
+// form), nothing at [2] (the reduce_dedy key, which stays in the layout the
+// callers read: the backward sums dedy in the kernel), the count of the
 // product launches that drew Philox masks,
 // launches of fwd_sum_kernel (float32-product layers whose K is split),
 // backward launches that rounded stochastically, backward launches of

@@ -16,11 +16,10 @@ the port of tpu_sednn/ops/fused_mlp.py:
   (`_bwd_kernel`): dedy = dedx @ W^T with W BEFORE the update,
   G = y_prev^T @ dedx, delta' = m*delta - c*(G/n + wc*W), W' = W + delta',
   the bias likewise; W and delta read once and written once, no G in memory.
-  The tensor-core form is one launch: a block streams a stripe of W's rows
-  over a range of N, and dedy is summed over the ranges within a
-  thread-block cluster (no dedy scratch, no second launch; at most
-  TC_BWD_MAX_ROWS rows).  The float32 form writes dedy partials to a scratch
-  and sums them in a second launch (reduce_dedy_kernel).
+  Both product forms are one launch of one kernel (stripe_bwd_kernel): a
+  block streams a stripe of W's rows over a range of N, and dedy is summed
+  over the ranges within a thread-block cluster (no dedy scratch, no second
+  launch; at most BWD_MAX_ROWS rows on the card).
 * `fused_bwd_grad_out` and `dp_update` — the same backward split in two for
   the data-parallel chunk trainer, which sums the gradient over the ranks
   between them (the TPU kernel sums it with remote copies inside the kernel,
@@ -35,11 +34,12 @@ runs the plain version beside it (`*_reference`).
 `bf16` is the TPU kernels' flag, with their default True: both operands of
 every product are rounded to bfloat16 (to nearest even, as
 astype(jnp.bfloat16)) and the products summed in float32, on the tensor
-cores (tc_fwd_kernel, tc_bwd_kernel).  Everything else stays float32 and
-unrounded: biases, the bias gradient, wc*W and the step W + delta' on the
-unrounded W, the activation derivative.  bf16=False: float32 products
-(fwd_kernel, bwd_kernel).  On a CUDA tensor each value launches its own form
-or raises; neither falls back on the other.
+cores (tc_fwd_kernel, stripe_bwd_kernel's tensor-core form).  Everything
+else stays float32 and unrounded: biases, the bias gradient, wc*W and the
+step W + delta' on the unrounded W, the activation derivative.  bf16=False:
+float32 products (fwd_kernel, stripe_bwd_kernel's FMA form).  On a CUDA
+tensor each value launches its own form or raises; neither falls back on the
+other.
 
 Activations and biases are float32.  W may be stored bfloat16 (widened as it
 is loaded), and `fused_bwd_update` then stores W' and delta' bfloat16 with
@@ -49,13 +49,13 @@ W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 `fused_bwd_update` writes W, delta, b and delta_b IN PLACE on both devices
 and returns them.  `<wrapper>.launches` counts launches of the wrapper's
 product kernel (either form), `<wrapper>.tc_launches` those of its
-tensor-core form; the small second kernels count apart:
-`fused_linear_act.sum_launches` (fwd_sum_kernel, where the float32 form
-splits K; the tensor-core form never launches it) and
-`fused_bwd_update.reduce_launches` (reduce_dedy_kernel, likewise the
-float32 form's only), likewise `fused_bwd_grad_out.*`; each is counted
-where the C entry point reports the launch; `dp_update.sr_launches` counts the update's launches
-that rounded a bfloat16 delta stochastically.  The float32 forms
+tensor-core form; `fused_linear_act.sum_launches` counts apart the
+float32 forward's second kernel (fwd_sum_kernel, where it splits K; the
+tensor-core form never launches it); each is counted where the C entry
+point reports the launch.  `fused_bwd_update.reduce_launches` and
+`fused_bwd_grad_out.reduce_launches` stay 0: the backward launches no second
+kernel in either form.  `dp_update.sr_launches` counts the update's
+launches that rounded a bfloat16 delta stochastically.  The float32 forms
 are FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
 (csrc/fused_mlp.cuh says why).
 """
@@ -208,29 +208,29 @@ def dp_update_reference(w, delta, b, delta_b, grad, momentum, a_coef, b_coef,
     return (w + nd if apply else w.clone(), d_store, b + ndb if apply else b.clone(), ndb)
 
 
+def _c_api() -> dict:
+    """csrc/fused_mlp.cu's entry points: name -> (argtypes, restype)."""
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    ip, ll = ctypes.POINTER(ctypes.c_int), ctypes.c_longlong
+    return {
+        "fused_linear_act_f32": ([p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, p, i,
+                                  ip, p], i),
+        "fused_fwd_scratch_floats": ([i, i, i, i], ll),
+        "fused_bwd_update_f32": ([p, p, p, i, p, i, u, p, p, p, i, i, i, f, f, f, i, p, u, u, f,
+                                  i, i, ip, p], i),
+        "fused_bwd_grad_out_f32": ([p, p, p, p, p, i, i, i, i, p, u, u, f, i, i, i, ip, p], i),
+        "fused_bwd_plan": ([i, i, i, i, i, ip], i),
+        "fused_tc_smem_bytes": ([ip], None),
+        "dp_update_f32": ([p, p, i, p, p, p, i, i, f, f, f, u, i, p], i),
+    }
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp")
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.fused_linear_act_f32.argtypes = [p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f,
-                                         p, i, p, p]
-    lib.fused_linear_act_f32.restype = ctypes.c_int
-    lib.fused_fwd_scratch_floats.argtypes = [i, i, i, i]
-    lib.fused_bwd_scratch_floats.argtypes = [i, i, i, i]
-    for fn in (lib.fused_fwd_scratch_floats, lib.fused_bwd_scratch_floats):
-        fn.restype = ctypes.c_longlong
-    lib.fused_bwd_update_f32.argtypes = [p, p, p, i, p, i, u, p, p, p, p, i, i, i, f, f, f, i, p,
-                                         u, u, f, i, i, p, p]
-    lib.fused_bwd_update_f32.restype = ctypes.c_int
-    lib.fused_bwd_grad_out_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p, u, u, f, i, i, i, p,
-                                           p]
-    lib.fused_bwd_grad_out_f32.restype = ctypes.c_int
-    lib.fused_bwd_tc_plan.argtypes = [i, i, i, i, p]
-    lib.fused_bwd_tc_plan.restype = ctypes.c_int
-    lib.fused_tc_smem_bytes.argtypes = [p]
-    lib.fused_tc_smem_bytes.restype = None
-    lib.dp_update_f32.argtypes = [p, p, i, p, p, p, i, i, f, f, f, u, i, p]
-    lib.dp_update_f32.restype = ctypes.c_int
+    for name, (argtypes, restype) in _c_api().items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = restype
     return lib
 
 
@@ -256,22 +256,22 @@ def _mask_args(name: str, mask: MaskArg, scale: float, shape, device):
     return 2, None, int(key) & 0xFFFFFFFF, mask_threshold(float(omit)), float(scale), None
 
 
-# Rows of dedx the tensor-core backward takes: it keeps a stripe of dedy in
-# registers, narrower as the rows grow (csrc/fused_mlp.cuh:kTcBwdMaxRows).
-TC_BWD_MAX_ROWS = 512
+# Rows of dedx the backward kernel takes on the card, in either product form:
+# it keeps a stripe of dedy in registers, narrower as the rows grow
+# (csrc/fused_mlp.cuh:kBwdMaxRows).  The plain version on the CPU takes any.
+BWD_MAX_ROWS = 512
 
 
-def _check_tc_rows(rows: int, bf16: bool) -> None:
-    if bf16 and rows > TC_BWD_MAX_ROWS:
-        raise ValueError(f"the tensor-core backward takes at most {TC_BWD_MAX_ROWS} rows, got "
-                         f"{rows}: use row tiles (tile_rows) or bf16=False")
+def _check_bwd_rows(rows: int) -> None:
+    if rows > BWD_MAX_ROWS:
+        raise ValueError(f"the backward kernel takes at most {BWD_MAX_ROWS} rows, got {rows}: "
+                         f"use row tiles (tile_rows)")
 
 
 def _count(wrapper, launched) -> None:
     """Add a backward call's launches, as the C entry point reports them."""
     wrapper.launches += launched[0] + launched[1]
     wrapper.tc_launches += launched[0]
-    wrapper.reduce_launches += launched[2]
 
 
 def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "linear",
@@ -385,21 +385,16 @@ def fused_bwd_update(
         return w, delta, dedy, b, delta_b
     if dev.type != "cuda":
         raise ValueError(f"fused_bwd_update runs on cuda or cpu tensors, got {dev}")
-    _check_tc_rows(B, bf16)
+    _check_bwd_rows(B)
     c = (1.0 - float(momentum)) * float(lrate)
     im = _mask_args("in_mask", in_mask, in_scale, (B, K), dev)
-    lib = _lib()
-    # the float32 form's dedy partials (none for the tensor-core form)
-    part = torch.empty(lib.fused_bwd_scratch_floats(B, K, N, int(bf16)), dtype=torch.float32,
-                       device=dev)
     dedy = torch.empty((B, K), dtype=torch.float32, device=dev)
-    launched = (ctypes.c_int * 3)()  # tc_bwd_kernel, bwd_kernel, reduce_dedy_kernel
+    launched = (ctypes.c_int * 2)()  # stripe_bwd_kernel: tensor-core, float32 form
     with torch.cuda.device(dev):
-        rc = lib.fused_bwd_update_f32(
+        rc = _lib().fused_bwd_update_f32(
             dedx.data_ptr(), y_prev.data_ptr(), w.data_ptr(), int(w_bf16), delta.data_ptr(),
             int(d_bf16), int(sr_seed or 0) & 0xFFFFFFFF, b.data_ptr(),
-            delta_b.data_ptr(), part.data_ptr() if part.numel() else None, dedy.data_ptr(), B, K,
-            N, float(momentum), c * float(inv_n), c * float(weightcost), *im[:5],
+            delta_b.data_ptr(), dedy.data_ptr(), B, K, N, float(momentum), c * float(inv_n), c * float(weightcost), *im[:5],
             ACTS[deriv] if deriv else 0, int(bf16), launched,
             torch.cuda.current_stream(dev).cuda_stream)
     _count(fused_bwd_update, launched)
@@ -425,7 +420,6 @@ def fused_bwd_grad_out(
     bf16: bool = True,
     grad: Optional[torch.Tensor] = None,
     dedy: Optional[torch.Tensor] = None,
-    scratch: Optional[torch.Tensor] = None,
 ):
     """One layer's backward without its update: the gradient-out form of
     `fused_bwd_update`, which the data-parallel chunk trainer runs so that
@@ -437,9 +431,7 @@ def fused_bwd_grad_out(
     (the first layer).  A (key, omit) in_mask draws rows mask_row0.. of its
     Philox stream (a rank's rows of the global bunch).  bf16: products of
     operands rounded to bfloat16, float32 sums (tensor cores); False: float32
-    products.  grad, dedy and scratch (the float32 form's dedy partials,
-    fused_bwd_scratch_floats; the tensor-core form takes none) may be given
-    to be written into.
+    products.  grad and dedy may be given to be written into.
     """
     if deriv not in (None, "relu", "sigmoid"):
         raise ValueError(f"unknown derivative {deriv!r}")
@@ -463,28 +455,20 @@ def fused_bwd_grad_out(
         return g, dy
     if dev.type != "cuda":
         raise ValueError(f"fused_bwd_grad_out runs on cuda or cpu tensors, got {dev}")
-    _check_tc_rows(B, bf16)
+    _check_bwd_rows(B)
     im = _mask_args("in_mask", in_mask, in_scale, (B, K), dev)
-    lib = _lib()
     grad = torch.empty(K * N + N, dtype=torch.float32, device=dev) if grad is None else grad
     _check("grad", grad, (K * N + N,), dev)
-    part = None
     if with_dedy:
         dedy = torch.empty((B, K), dtype=torch.float32, device=dev) if dedy is None else dedy
         _check("dedy", dedy, (B, K), dev)
-        n_part = lib.fused_bwd_scratch_floats(B, K, N, int(bf16))
-        if n_part:  # the float32 form's dedy partials
-            part = (torch.empty(n_part, dtype=torch.float32, device=dev) if scratch is None
-                    else scratch)
-            if part.dtype != torch.float32 or part.device != dev or part.numel() < n_part:
-                raise ValueError(f"scratch: {n_part} float32 on {dev} needed")
     else:
         dedy = None
-    launched = (ctypes.c_int * 3)()  # tc_bwd_kernel, bwd_kernel, reduce_dedy_kernel
+    launched = (ctypes.c_int * 2)()  # stripe_bwd_kernel: tensor-core, float32 form
     with torch.cuda.device(dev):
-        rc = lib.fused_bwd_grad_out_f32(
+        rc = _lib().fused_bwd_grad_out_f32(
             dedx.data_ptr(), y_prev.data_ptr(), w.data_ptr(), grad.data_ptr(),
-            None if part is None else part.data_ptr(), None if dedy is None else dedy.data_ptr(),
+            None if dedy is None else dedy.data_ptr(),
             B, K, N, *im[:5], int(mask_row0), ACTS[deriv] if deriv else 0, int(bf16), launched,
             torch.cuda.current_stream(dev).cuda_stream)
     _count(fused_bwd_grad_out, launched)

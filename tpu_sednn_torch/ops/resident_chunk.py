@@ -58,7 +58,7 @@ import torch
 from tpu_sednn_torch._device import resolve_device
 from tpu_sednn_torch.model.mlp import MLP, ModelConfig, dropout_omits, mm_operand
 from tpu_sednn_torch.ops import _build
-from tpu_sednn_torch.ops.fused_mlp import ACTS, _check_tc_rows
+from tpu_sednn_torch.ops.fused_mlp import ACTS, _check_bwd_rows
 from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
                                         philox_mask, sr_bits, sr_to_bf16_reference)
 from tpu_sednn_torch.parallel.mesh import Mesh, all_reduce, fence, local_rows
@@ -71,16 +71,16 @@ _LAYER_STRIDE = 104729
 _mask_threshold = mask_threshold
 
 # kernel launches enqueued by the chunk trainer's C entry point, by kernel:
-# the forward and backward product kernels (either form), reduce_dedy_kernel
-# (float32 products only: the tensor-core backward sums dedy inside the
-# kernel), then the count of the product launches that drew dropout bits in
-# the kernel, then fwd_sum_kernel (one for every
+# the forward and backward product kernels (either form), "reduce_dedy" (0:
+# the backward sums dedy inside the kernel in both forms; the key keeps the
+# tallies' layout), then the count of the product launches that drew dropout
+# bits in the kernel, then fwd_sum_kernel (one for every
 # float32-product forward whose K is split over the grid; the tensor-core
-# forward sums its K split inside the kernel); then by form: bwd_kernel launches
-# that stored bfloat16 with stochastic rounding, bwd_kernel launches of
-# row-tiled bunches, fwd_kernel launches that read bfloat16 weights; the
+# forward sums its K split inside the kernel); then by form: backward launches
+# that stored bfloat16 with stochastic rounding, backward launches of
+# row-tiled bunches, forward launches that read bfloat16 weights; the
 # forward and backward launches of the tensor-core forms (tc_fwd_kernel,
-# tc_bwd_kernel), counted in the first two as well; and the programmatic
+# stripe_bwd_kernel's tensor-core form), counted in the first two as well; and the programmatic
 # dependent launches among those (every tensor-core launch of a call but its
 # first: 2 L n_real accum - 1 a call; early_read_plan).  The data-parallel
 # trainer's forward entry (dp_chunk_forward) tallies into the forward keys
@@ -413,7 +413,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
 
     bf16: True (the JAX factory's default) rounds both operands of every
     product to bfloat16 and sums in float32, on the tensor cores
-    (csrc/fused_mlp.cuh: tc_fwd_kernel, tc_bwd_kernel); biases, the bias
+    (csrc/fused_mlp.cuh: tc_fwd_kernel, stripe_bwd_kernel); biases, the bias
     gradient and the update on the unrounded W stay float32.  False: float32
     products.  Either runs with every storage form above.  The data-parallel
     form is `make_dp_resident_train_chunk`.  The TPU kernel's interpret and dedy_full have
@@ -493,7 +493,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
                                  f"on {a.device}")
         if targ_chunk.shape[0] < nr * bunch:
             raise ValueError("targ_chunk has fewer rows than n_real bunches")
-        _check_tc_rows(tile, bf16)
+        _check_bwd_rows(tile)
         lib = _lib()
         c_sizes = (ctypes.c_int * (L + 1))(*sizes)
         work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile, int(bf16)),
@@ -691,7 +691,7 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
     coef = float(np.float32(2.0) / np.float32(bunch))  # dedx's 2/n, as the C trainer forms it
 
     def run_kernels(state, x, t, nr, seed, coefs):
-        from tpu_sednn_torch.ops.fused_mlp import _lib as fused_lib, dp_update, fused_bwd_grad_out
+        from tpu_sednn_torch.ops.fused_mlp import dp_update, fused_bwd_grad_out
 
         dev = state.device
         row0 = _mask_row0(mesh, tile)
@@ -699,10 +699,6 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
         f32 = dict(dtype=torch.float32, device=dev)
         spare = torch.empty(tile * max(sizes), **f32)
         grad = torch.empty(max(sizes[l] * sizes[l + 1] + sizes[l + 1] for l in range(L)), **f32)
-        # the float32 form's dedy partials; the tensor-core form sums dedy in the kernel
-        scratch = None if bf16 else torch.empty(
-            max([fused_lib().fused_bwd_scratch_floats(tile, sizes[l], sizes[l + 1], 0)
-                 for l in range(1, L)] + [1]), **f32)
         ws, ds, bs, dbs = (list(state.params.w), list(state.deltas.w), list(state.params.b),
                            list(state.deltas.b))
         tallies = (ctypes.c_longlong * len(kernel_launches))()
@@ -722,8 +718,7 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
                             in_mask=(key0, omit_vis) if l == 0 and omit_vis > 0.0 else None,
                             in_scale=scale_vis, mask_row0=row0,
                             deriv=cfg.hidden if l > 0 else None, with_dedy=l > 0, bf16=bf16,
-                            grad=g, dedy=other[:tile * K].view(tile, K) if l > 0 else None,
-                            scratch=scratch)
+                            grad=g, dedy=other[:tile * K].view(tile, K) if l > 0 else None)
                         _all_reduce(g, mesh)
                         dp_update(ws[l], ds[l], bs[l], dbs[l], g, *coefs,
                                   sr_seed=sr_key(seed, i, l) if sr_delta else None,
