@@ -67,9 +67,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      wrong hyperparameter is refused; ops/train_step's per-bunch step against
      it.  The same cases with tensor-core products (TC_ONE_REL_FRO), faults
      refused; the chunk trainer's chain of programmatic dependent launches
-     bit-equal to the standalone wrappers launched one by one (float32 state
-     and sr_delta, the same masks and rounding streams) and its `pdl` tally
-     at 2 L n_real - 1 a call; ms per bunch of both forms.
+     bit-equal to the standalone wrappers launched one by one (tensor cores
+     with float32 state and sr_delta, and float32 products; the same masks
+     and rounding streams) and its `pdl` tally at 2 L n_real - 1 a call; ms
+     per bunch of both forms.
   8. training (main path): a seeded speech-like corpus -> noisy and clean LPS
      pfiles with make_pfile on the card (> 120,000 frames), then
      `python -m tpu_sednn_torch.cli` twice (momentum 0.5, then 0.54 warm
@@ -104,7 +105,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      sr_state forms against the float64 plain version of the same rounding,
      faults refused; ms per bunch of each form beside its bound.  Then
      chain_times: the tensor-core chunk trainer at 8 kHz and 16 kHz sr_delta
-     timed whole, with the device alone and the host's own cost a bunch.
+     and the float32 one at 8 kHz timed whole, with the device alone and the
+     host's own cost a bunch.
  11. in-memory training (main path, train group): a seeded corpus featurized
      at 16 kHz on the STFT kernel -> build_training_arrays (> 16,384 x 3084)
      -> train_epochs_arrays at 3084-2048x3-257, recipe schedule, parity
@@ -158,8 +160,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 `--only serve,kernels,train,recipe,dp` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  `--chain-times`
 only times the chunk trainer's chain (chain_times), `--bwd-times` only the
-backward (bwd_times), with `--package-root DIR` the package of another
-checkout (A/B runs in one call); both exit with 2.
+backward (bwd_times), `--fwd-times` only the float32 forward (fwd_times, with
+SHA-256 digests of its outputs), with `--package-root DIR` the package of
+another checkout (A/B runs in one call); all three exit with 2.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
 non-zero without one.
 """
@@ -1319,6 +1322,191 @@ def bwd_times() -> dict:
     return out
 
 
+def _fwd_digests() -> dict:
+    """SHA-256 digests of the float32 forward's outputs on seeded inputs, for
+    holding two checkouts bit for bit (fwd_times): fused_linear_act's y (bf16=False)
+    at every layer shape of the 8 and 16 kHz nets and at phase_fused_kernels' ragged
+    shapes, three activations x no mask / Philox masks / explicit masks, float32 and
+    bfloat16 W; and dp_tile_forward's activations and dedx (a rank's 64 rows at
+    both offsets and the whole 128-row tile, both nets, a linear and a sigmoid
+    head, dropout on).  -> {group: hex digest}, each group's inputs seeded on
+    their own."""
+    import ctypes
+    import hashlib
+
+    from tpu_sednn_torch.model.mlp import ModelConfig
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.ops.fused_mlp import fused_linear_act
+    from tpu_sednn_torch.ops.philox import philox_mask
+
+    def digest(tensors) -> str:
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    shapes = sorted({(BUNCH, net[l], net[l + 1]) for net in (FLAGSHIP, WIDE) for l in range(4)})
+    shapes += [(8, 1548, 129), (136, 1548, 129), (136, 100, 37), (24, 2048, 2048),
+               (256, 2048, 2048), (512, 1548, 129)]
+    for n, (B, K, N) in enumerate(shapes):
+        gen = torch.Generator(device="cuda").manual_seed(7100 + n)
+        x, w, b = _randn(gen, B, K), _randn(gen, K, N, scale=0.03), _randn(gen, N, scale=0.1)
+        im = philox_mask(11, B, K, 0.1, device="cuda")
+        om = philox_mask(12, B, N, 0.2, device="cuda")
+        ys = []
+        for wt in (w, w.bfloat16()):
+            for act in ("relu", "sigmoid", "linear"):
+                for kw in ({}, {"in_mask": (11, 0.1), "out_mask": (12, 0.2), "out_scale": 1.25},
+                           {"in_mask": im, "in_scale": 1.0 / 0.9, "out_mask": om}):
+                    ys.append(fused_linear_act(x, wt, b, act, bf16=False, **kw))
+        out[f"fused_linear_act {B}x{K}x{N}"] = digest(ys)
+    for n, (sizes, head, tile) in enumerate((s, h, t) for s in (FLAGSHIP, WIDE)
+                                            for h in ("linear", "sigmoid") for t in (64, 128)):
+        cfg = ModelConfig(layersizes=sizes, output=head, dropout_vis=0.1, dropout_hid=0.2)
+        gen = torch.Generator(device="cuda").manual_seed(7200 + n)
+        ws = [_randn(gen, a, c, scale=0.03) for a, c in zip(sizes[:-1], sizes[1:])]
+        bs = [_randn(gen, c, scale=0.1) for c in sizes[1:]]
+        x, t = _randn(gen, BUNCH, sizes[0]), _randn(gen, BUNCH, sizes[-1])
+        fwd = rc.dp_tile_forward(cfg, tile, BUNCH, False, torch.device("cuda"))
+        tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
+        got = []
+        for row0 in range(0, BUNCH, tile):
+            ys, dedx = fwd(x[row0:row0 + tile].contiguous(), t[row0:row0 + tile].contiguous(),
+                           ws, bs, 31 + n, row0, 2.0 / BUNCH, tallies)
+            got += [y.clone() for y in ys] + [dedx[:tile * sizes[-1]].clone()]
+        out[f"dp_tile_forward {'-'.join(map(str, sizes))} {head} head, {tile} of {BUNCH} rows"] = \
+            digest(got)
+    return out
+
+
+def _fwd_block_profile(gen) -> dict:
+    """Where a float32 forward's blocks run and for how long, from a package
+    whose fused_mlp library records it (a copy of the kernel that writes, for
+    each block, its SM (%smid) and %globaltimer at its start, after its K
+    loop and at its end into a device array that a C entry f32_fwd_prof(out,
+    n) copies out and f32_fwd_prof_clear() zeroes): one launch of the 8 kHz
+    2048-deep layer and of layer 0 with its input mask, each -> the blocks,
+    the SMs used, how many hold 1, 2, 3 .. blocks, the most blocks an SM runs
+    at once, and the K loop's and the rest's microseconds.  {} where the
+    library records nothing (the shipped kernel)."""
+    import ctypes
+
+    from tpu_sednn_torch.ops import fused_mlp
+
+    lib = fused_mlp._lib()
+    if not hasattr(lib, "f32_fwd_prof"):
+        return {}
+    lib.f32_fwd_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    out = {}
+    for K, N, kw in ((2048, 2048, {}), (1548, 2048, dict(in_mask=(4, 0.1)))):
+        x, w, b = _randn(gen, BUNCH, K), _randn(gen, K, N, scale=0.03), _randn(gen, N, scale=0.1)
+        fused_mlp.fused_linear_act(x, w, b, "relu", bf16=False, **kw)
+        torch.cuda.synchronize()
+        lib.f32_fwd_prof_clear()
+        fused_mlp.fused_linear_act(x, w, b, "relu", bf16=False, **kw)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (8192 * 4))()
+        lib.f32_fwd_prof(ctypes.addressof(buf), 8192)
+        a = np.array(buf, dtype=np.uint64).reshape(-1, 4)
+        a = a[a[:, 1] > 0]
+        sm, t = a[:, 0].astype(np.int64), (a[:, 1:] - a[:, 1].min()) / 1e3  # us
+        most = 0
+        for s in np.unique(sm):
+            ev = sorted([(v, 1) for v in t[sm == s, 0]] + [(v, -1) for v in t[sm == s, 2]])
+            most = max(most, int(max(np.cumsum([d for _, d in ev]))))
+        per_sm = np.bincount(sm, minlength=torch.cuda.get_device_properties(0).multi_processor_count)
+        out[f"{BUNCH}x{K}x{N}{' masked' if kw else ''}"] = dict(
+            blocks=int(len(a)), sms=int((per_sm > 0).sum()), sms_holding=np.bincount(per_sm).tolist(),
+            most_at_once=most, span_us=float(t[:, 2].max()), loop_us_mean=float((t[:, 1] - t[:, 0]).mean()),
+            loop_us_max=float((t[:, 1] - t[:, 0]).max()), rest_us_mean=float((t[:, 2] - t[:, 1]).mean()),
+            rest_us_max=float((t[:, 2] - t[:, 1]).max()))
+        print(f"[fwd-times] blocks of {BUNCH}x{K}x{N}{' masked' if kw else ''}: "
+              f"{json.dumps(out[list(out)[-1]])}", flush=True)
+    return out
+
+
+def fwd_times() -> dict:
+    """Only the float32 forward, for comparing two checkouts in one call
+    (--fwd-times, with --package-root for the other): fused_linear_act with
+    float32 products (bf16=False) of one bunch at each layer of the 8 and 16 kHz
+    nets with the training path's masks, each call on the next of three weight
+    sets, by CUDA events, beside torch.addmm + act and the bound; the
+    data-parallel forward of a rank's 64 rows planned for the global 128
+    (dp_tile_forward, the whole 8 kHz net); the kernels of an 8 kHz bunch's
+    forward by name in a traced run (_traced_ms: a share, not a time); and
+    _fwd_digests; _fwd_block_profile where the package records one.  Public
+    entry points only (and fused_mlp's library where it records a profile)."""
+    import ctypes
+
+    from tpu_sednn_torch.model.mlp import ModelConfig
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.ops.fused_mlp import fused_linear_act
+
+    gen = torch.Generator(device="cuda").manual_seed(1414)
+    out = {}
+    for tag, net in (("8k", FLAGSHIP), ("16k", WIDE)):
+        by_layer, lib, flops, layers = [], [], 0.0, []
+        for l in range(4):
+            K, N = net[l], net[l + 1]
+            x, b = _randn(gen, BUNCH, K), _randn(gen, N, scale=0.1)
+            ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
+            act = "relu" if l < 3 else "linear"
+            kw = dict(in_mask=(4, 0.1) if l == 0 else None, out_mask=(5, 0.2) if l < 3 else None)
+            by_layer.append(_device_ms(lambda i: fused_linear_act(x, ws[i % 3], b, act, bf16=False,
+                                                                  **kw)))
+            if l == 0:  # what the input mask costs
+                l0_nomask = _device_ms(lambda i: fused_linear_act(x, ws[i % 3], b, act, bf16=False))
+
+            def library(i):
+                y = torch.addmm(b, x, ws[i % 3])
+                return torch.relu(y) if act == "relu" else y
+
+            lib.append(_device_ms(library))
+            flops += 2.0 * BUNCH * K * N
+            layers.append((x, ws, b, act, kw))
+        out[tag] = dict(ms=sum(by_layer), by_layer=by_layer, library_ms=sum(lib),
+                        library_by_layer=lib, bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                        bound_by="operations", layer0_without_mask_ms=l0_nomask)
+        if tag == "8k":
+            def bunch(i):
+                for x, ws, b, act, kw in layers:
+                    fused_linear_act(x, ws[i % 3], b, act, bf16=False, **kw)
+
+            out[tag]["traced"] = {k[:80]: v for k, v in _traced_ms(bunch).items()}
+        del layers
+        torch.cuda.empty_cache()
+    cfg = ModelConfig(layersizes=FLAGSHIP, dropout_vis=0.1, dropout_hid=0.2)
+    fwd = rc.dp_tile_forward(cfg, 64, BUNCH, False, torch.device("cuda"))
+    ws = [[_randn(gen, a, c, scale=0.03) for a, c in zip(FLAGSHIP[:-1], FLAGSHIP[1:])]
+          for _ in range(3)]
+    bs = [_randn(gen, c, scale=0.1) for c in FLAGSHIP[1:]]
+    x, t = _randn(gen, 64, FLAGSHIP[0]), _randn(gen, 64, FLAGSHIP[-1])
+    tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
+    out["dp64"] = dict(ms=_device_ms(lambda i: fwd(x, t, ws[i % 3], bs, 9, 64, 2.0 / BUNCH,
+                                                     tallies)))
+    del ws
+    torch.cuda.empty_cache()
+    for k in ("8k", "16k"):
+        v = out[k]
+        print(f"[fwd-times] {k} f32 fused_linear_act, one bunch's four layers: {v['ms']:.4f} ms "
+              f"(by layer {' '.join('%.4f' % t for t in v['by_layer'])}; layer 0 without its mask "
+              f"{v['layer0_without_mask_ms']:.4f}), {v['ms'] / v['bound_ms']:.2f}"
+              f" x its bound {v['bound_ms']:.4f} ms (operations); torch.addmm+act "
+              f"{v['library_ms']:.4f} (by layer {' '.join('%.4f' % t for t in v['library_by_layer'])})",
+              flush=True)
+    out["blocks"] = _fwd_block_profile(gen)
+    print(f"[fwd-times] 8k kernels traced (ms a bunch): "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in out['8k']['traced'].items())}", flush=True)
+    print(f"[fwd-times] dp_tile_forward, a rank's 64 rows of 128, 1548-2048x3-129: "
+          f"{out['dp64']['ms']:.4f} ms", flush=True)
+    out["digests"] = _fwd_digests()
+    for k, v in out["digests"].items():
+        print(f"[fwd-times] digest {k}: {v}", flush=True)
+    return out
+
+
 def phase_fused_kernels(gen) -> dict:
     from tpu_sednn_torch.ops.fused_mlp import (fused_bwd_update, fused_bwd_update_reference,
                                                fused_linear_act, fused_linear_act_reference)
@@ -1332,6 +1520,7 @@ def phase_fused_kernels(gen) -> dict:
               (256, 2048, 2048), (512, 1548, 129)]
     fwd_worst, bwd_worst, plain_worst, sr_stats = {}, {}, {}, {}
     reduced = fused_bwd_update.reduce_launches
+    fwd_calls, fwd0 = 0, (fused_linear_act.launches, fused_linear_act.sum_launches)
     for B, K, N in layer_shapes + ragged:
         x = _randn(gen, B, K)
         w = _randn(gen, K, N, scale=0.03)
@@ -1344,6 +1533,7 @@ def phase_fused_kernels(gen) -> dict:
                 want = fused_linear_act_reference(x, w, b, act, dtype=f64, bf16=False, **kw)
                 _hold(fused_linear_act(x, w, b, act, bf16=False, **kw), want,
                       f"fused_linear_act {B}x{K}x{N} {act} {sorted(kw)}", fwd_worst)
+                fwd_calls += 1
                 _hold(fused_linear_act_reference(x, w, b, act, bf16=False, **kw), want,
                       f"float32 plain fused_linear_act {B}x{K}x{N}", plain_worst)
         dedx = _randn(gen, B, N, scale=0.02)
@@ -1381,6 +1571,11 @@ def phase_fused_kernels(gen) -> dict:
         torch.cuda.synchronize()
     _check(fused_bwd_update.reduce_launches == reduced,
            "the float32 backward launched a second kernel (reduce_dedy_kernel)")
+    # the float32 forward: one launch a call, no second kernel (fwd_sum_kernel)
+    _check(fused_linear_act.launches - fwd0[0] == fwd_calls
+           and fused_linear_act.sum_launches == fwd0[1],
+           f"the float32 forward launched {fused_linear_act.launches - fwd0[0]} kernels in "
+           f"{fwd_calls} calls, {fused_linear_act.sum_launches - fwd0[1]} second kernels")
     # above the rows its registers hold, the backward refuses a card tensor (either form)
     from tpu_sednn_torch.ops.fused_mlp import BWD_MAX_ROWS, fused_bwd_grad_out
 
@@ -1395,7 +1590,8 @@ def phase_fused_kernels(gen) -> dict:
                 continue
             raise RuntimeError(f"the backward took {M} rows (bf16={tc}); at most {BWD_MAX_ROWS}")
     print(f"[kernel] fused_linear_act vs float64 plain, {len(layer_shapes + ragged)} shapes x 3 "
-          f"activations x 3 mask modes: max err {fwd_worst['rel_max']:.3g} of max|want| (tol "
+          f"activations x 3 mask modes, one launch a call: max err {fwd_worst['rel_max']:.3g} of "
+          f"max|want| (tol "
           f"{KERNEL_REL_MAX}), Frobenius {fwd_worst['rel_fro']:.3g} (tol {KERNEL_REL_FRO}); "
           f"tolerance: a float32 sum of <= 2048 products against the exact sum", flush=True)
     print(f"[kernel] fused_bwd_update vs float64 plain (W, delta, b, delta_b after the in-place "
@@ -1407,7 +1603,29 @@ def phase_fused_kernels(gen) -> dict:
           f"rounded with the same bits, worst share {sr_stats['share']:.3g} (limit "
           f"{SR_DIFF_SHARE}); no reduce_dedy_kernel; {M} rows refused in both forms", flush=True)
 
+    # the float32 forward's plan: fwd_k_chunk's chunks are a cluster's blocks (up to 16);
+    # every cluster size the main path asks for must be placeable on the card
+    import ctypes
+
+    from tpu_sednn_torch.ops.fused_mlp import _lib as fused_lib
+
+    plans = {}
+    for B, K, N, rows in ([(BUNCH, FLAGSHIP[l], FLAGSHIP[l + 1], 0) for l in range(4)]
+                          + [(BUNCH, WIDE[0], WIDE[1], 0), (BUNCH, WIDE[3], WIDE[4], 0),
+                             (64, FLAGSHIP[0], FLAGSHIP[1], BUNCH), (64, FLAGSHIP[3], FLAGSHIP[4], BUNCH)]):
+        out = (ctypes.c_int * 5)()
+        _check(fused_lib().fused_f32_fwd_plan(B, K, N, rows, out) == 0 and out[4] >= 1,
+               f"the float32 forward's plan at {B}x{K}x{N}: {list(out)}")
+        plans[f"{B}x{K}x{N}" + (f" planned for {rows}" if rows else "")] = dict(
+            chunk=out[0], chunks=out[1], blocks=out[2], resident_blocks=out[3],
+            resident_clusters=out[4])
+    print("[kernel] float32 forward plan (chunk of K, chunks = a cluster's blocks, the grid's "
+          "blocks; the blocks and clusters the card holds at once): "
+          + "; ".join(f"{k}: {v['chunks']} x {v['chunk']}, {v['blocks']} blocks ({v['resident_blocks']}"
+                      f" / {v['resident_clusters']} clusters at once)" for k, v in plans.items()),
+          flush=True)
     fwd, bwd = _time_layers(gen, False, fwd_worst, bwd_worst)
+    fwd["plans"] = plans
     torch.cuda.empty_cache()
     # a generator of its own: the later phases draw the inputs they always drew
     fwd["at_16k"], bwd["at_16k"] = _time_layers(torch.Generator(device="cuda").manual_seed(16001),
@@ -1530,7 +1748,7 @@ def phase_tc_kernels(gen) -> dict:
     # whether a block of the chunk trainer's next launch can start beside one of the
     # launch before it (programmatic dependent launches): by shared memory (each block
     # also reserves 1 KB)
-    smem = (ctypes.c_int * 8)()
+    smem = (ctypes.c_int * 9)()
     fused_lib().fused_tc_smem_bytes(smem)
     per_sm = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_multiprocessor", 0)
     pairs = {f"{a} + {b}": smem[i] + smem[j] + 2048 <= per_sm
@@ -1538,14 +1756,15 @@ def phase_tc_kernels(gen) -> dict:
     print(f"[kernel] dynamic shared memory a block: tc_fwd_kernel {smem[0]} / {smem[1]} bytes (128- "
           f"/ 64-column slices), stripe_bwd_kernel {smem[2]} / {smem[3]} / {smem[4]} bytes with "
           f"tensor cores, {smem[5]} / {smem[6]} / {smem[7]} with float32 products (stripes of 64 / "
-          f"32 / 16 rows); an SM holds {per_sm}: the smallest of each pair fit one SM together: "
-          f"{pairs}", flush=True)
+          f"32 / 16 rows), f32_fwd_kernel {smem[8]}; an SM holds {per_sm}: the smallest of each "
+          f"pair fit one SM together: {pairs}", flush=True)
 
     fwd, bwd = _time_layers(gen, True, worst, worst)
     bwd["plans"] = plans
     bwd["smem_bytes"] = dict(fwd_128=smem[0], fwd_64=smem[1], bwd_64=smem[2], bwd_32=smem[3],
                              bwd_16=smem[4], f32_bwd_64=smem[5], f32_bwd_32=smem[6],
-                             f32_bwd_16=smem[7], per_sm=per_sm, fit_together=pairs)
+                             f32_bwd_16=smem[7], f32_fwd=smem[8], per_sm=per_sm,
+                             fit_together=pairs)
     torch.cuda.empty_cache()
     # a generator of its own: the later phases draw the inputs they always drew
     fwd["at_16k"], bwd["at_16k"] = _time_layers(torch.Generator(device="cuda").manual_seed(16000),
@@ -1895,29 +2114,32 @@ def phase_resident(gen) -> dict:
     # of the chain read an operand before it was written (a race would show here); and
     # the chain's dependent launches counted: every launch of a call but its first
     cfg_d = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
-    for label, kw, steps in (("float32 state", {}, "ops.train_step"),
-                             ("sr_delta", dict(sr_delta=True), "fused_linear_act and "
-                              "fused_bwd_update with its rounding streams")):
+    # (and the float32-product chain, bf16=False, against the wrappers' float32 forms)
+    for label, kw, steps in (("tensor cores, float32 state", {}, "ops.train_step"),
+                             ("tensor cores, sr_delta", dict(sr_delta=True), "fused_linear_act and "
+                              "fused_bwd_update with its rounding streams"),
+                             ("float32 products", dict(bf16=False), "ops.train_step")):
         pdl0 = rc.kernel_launches["pdl"]
         chunk_tc = rc.make_resident_train_chunk(cfg_d, opt, **kw)(
             init_train_state(mlp), x[:n_b * BUNCH], t_lin[:n_b * BUNCH], 17, *hyp)
         n_pdl = rc.kernel_launches["pdl"] - pdl0
-        _check(n_pdl == 2 * 4 * n_b - 1, f"tensor cores, {label}: {n_pdl} programmatic dependent "
-                                          f"launches in a call of {n_b} bunches, not {8 * n_b - 1}")
+        _check(n_pdl == 2 * 4 * n_b - 1, f"{label}: {n_pdl} programmatic dependent launches in a "
+                                          f"call of {n_b} bunches, not {8 * n_b - 1}")
         st_s = init_train_state(mlp)
-        if kw:
+        if kw.get("sr_delta"):
             _sr_delta_steps(st_s, x, t_lin, opt, 17, n_b)
         else:
             for i in range(n_b):
                 masks = [rc.sample_resident_masks(17, i, l, (BUNCH, FLAGSHIP[l]),
                                                   0.1 if l == 0 else 0.2) for l in range(4)]
                 fused_train_step(st_s, x[i * BUNCH:(i + 1) * BUNCH],
-                                 t_lin[i * BUNCH:(i + 1) * BUNCH], cfg_d, opt, dropout_masks=masks)
+                                 t_lin[i * BUNCH:(i + 1) * BUNCH], cfg_d, opt, dropout_masks=masks,
+                                 bf16=kw.get("bf16", True))
         torch.cuda.synchronize()
         for a, b in zip(_state_tensors(st_s), _state_tensors(chunk_tc)):
-            _check(torch.equal(a, b), f"tensor cores, {label}: the standalone wrappers' steps "
-                                      f"differ from the chunk trainer")
-        print(f"[kernel] chunk trainer, tensor cores, {label}: its chain ({n_pdl} programmatic "
+            _check(torch.equal(a, b), f"{label}: the standalone wrappers' steps differ from the "
+                                      f"chunk trainer")
+        print(f"[kernel] chunk trainer, {label}: its chain ({n_pdl} programmatic "
               f"dependent launches in {n_b} bunches) gives the same bits as the standalone "
               f"wrappers launched one by one ({steps}; explicit masks) over {n_b} bunches",
               flush=True)
@@ -1966,10 +2188,12 @@ def phase_resident(gen) -> dict:
 
 
 def chain_times(tag: str = "chain") -> dict:
-    """The tensor-core chunk trainer's chain of launches timed three ways: at
-    8 kHz (1548-2048x3-129, parity dropout 0.1/0.2, 100 bunches a call) and
-    at 16 kHz with sr_delta (3084-2048x3-257, 50 bunches), the two forms the
-    command and the in-memory path run.  ms: CUDA events around whole calls,
+    """The chunk trainer's chain of launches timed three ways: with tensor-core
+    products at 8 kHz (1548-2048x3-129, parity dropout 0.1/0.2, 100 bunches a
+    call) and at 16 kHz with sr_delta (3084-2048x3-257, 50 bunches), the two
+    forms the command and the in-memory path run, and with float32 products
+    (bf16=False) at 8 kHz (50 bunches: the two-launch forward's 12 launches a
+    bunch must fit CUDA's launch queue for host_ms).  ms: CUDA events around whole calls,
     in turns with the other form (the trainer's time a bunch, as the kernels
     line gives it); device_ms: the same calls enqueued behind a spin kernel,
     so the host's share is hidden; host_ms: the host's own time a bunch to
@@ -1984,8 +2208,9 @@ def chain_times(tag: str = "chain") -> dict:
     small = (1e-3, 0.5, 0.0)
     gen = torch.Generator(device="cuda").manual_seed(4242)
     forms = {}
-    for name, sizes, n_t, kw in (("8k", FLAGSHIP, 100, {}), ("16k_sr_delta", WIDE, 50,
-                                                            dict(sr_delta=True))):
+    for name, sizes, n_t, kw in (("8k", FLAGSHIP, 100, {}),
+                                 ("16k_sr_delta", WIDE, 50, dict(sr_delta=True)),
+                                 ("8k_f32", FLAGSHIP, 50, dict(bf16=False))):
         cfg = ModelConfig(layersizes=sizes, dropout_vis=0.1, dropout_hid=0.2)
         mlp = init_params(torch.Generator().manual_seed(5), cfg, scheme="glorot", device="cuda")
         run = rc.make_resident_train_chunk(cfg, opt, **kw)
@@ -2001,7 +2226,8 @@ def chain_times(tag: str = "chain") -> dict:
         host = _host_ms(lambda: run(st, xt, tt, 7, *small)) / n_t
         out[name] = dict(ms=float(np.mean(ms[name])), ms_runs=ms[name], device_ms=dev,
                          host_ms=host, bunches=n_t)
-        print(f"[{tag}] chunk trainer, tensor cores, {name}: {out[name]['ms']:.4f} ms a bunch "
+        form = "float32 products" if name.endswith("f32") else "tensor cores"
+        print(f"[{tag}] chunk trainer, {form}, {name}: {out[name]['ms']:.4f} ms a bunch "
               f"({' '.join(f'{v:.4f}' for v in ms[name])}; CUDA events around calls of {n_t} "
               f"bunches), device alone {dev:.4f} ms a bunch (the calls held behind a spin kernel), "
               f"the host's own cost {host:.4f} ms a bunch ({host / dev:.2f} of the device's)",
@@ -2636,8 +2862,10 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
         return st, [r.cv_mse for r in res], d, secs
 
     def resident_counts(d, n_ep, label, tiles=1):
+        # every launch of a call but its first a programmatic dependent one, either form
         _check(d["resident_chunk"] == n_ep * n_chunks and d["plain_train_chunk"] == 0
-               and d["fused_bwd_update"] == 4 * n_ep * n_bunches * tiles,
+               and d["fused_bwd_update"] == 4 * n_ep * n_bunches * tiles
+               and d["pdl"] == d["fused_linear_act"] + d["fused_bwd_update"] - d["resident_chunk"],
                f"{label}: {d} for {n_ep} epochs of {n_chunks} chunks, {n_bunches} bunches")
 
     out = {}
@@ -2961,14 +3189,14 @@ def phase_train(tmp: str, smi: str) -> dict:
                f"{label}: {k['pdl']} programmatic dependent launches, not 8 x {n_bunches} bunches "
                f"- {n_chunks} chunks")
     for label, d in (("float32 epoch 1", d1_f), ("float32 epoch 2", d2_f)):
-        # per bunch: 4 fwd_kernel each with its fwd_sum_kernel (the float32 form
-        # splits K over the grid at every flagship layer) and 4 stripe_bwd_kernel
-        # (dedy summed within a cluster: no reduce_dedy_kernel)
+        # per bunch: 4 f32_fwd_kernel (K split within a cluster: no fwd_sum_kernel) and 4
+        # stripe_bwd_kernel<false> (dedy summed within a cluster: no reduce_dedy_kernel), 8
+        # launches; each chunk's launches but its first programmatic dependent ones
         k = d["resident_chunk_kernels"]
         _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
-               and k["reduce_dedy"] == 0
-               and k["fused_linear_act"] == k["fused_linear_act_sum"] == 4 * n_bunches
-               and k["tc_linear_act"] == k["tc_bwd_update"] == k["pdl"] == 0,
+               and k["reduce_dedy"] == 0 and k["fused_linear_act"] == 4 * n_bunches
+               and k["fused_linear_act_sum"] == 0 and k["tc_linear_act"] == k["tc_bwd_update"] == 0
+               and k["pdl"] == 8 * n_bunches - n_chunks,
                f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
     times = [float(l.split()[3]) for l in (log1 + log2).splitlines()
              if l.startswith("Total cost time:")]
@@ -2999,7 +3227,8 @@ def phase_train(tmp: str, smi: str) -> dict:
         "xla")
     k_r, k_t = c_r["resident_chunk_kernels"], c_t["resident_chunk_kernels"]
     _check(c_r["resident_chunk"] == c_t["resident_chunk"] == 1 and c_r["plain_train_chunk"] == 0
-           and c_t["plain_train_chunk"] == 0 and k_r["tc_bwd_update"] == k_r["pdl"] == 0
+           and c_t["plain_train_chunk"] == 0 and k_r["tc_bwd_update"] == 0
+           and k_r["pdl"] == k_r["fused_linear_act"] + k_r["fused_bwd_update"] - 1
            and k_t["tc_bwd_update"] == k_t["fused_bwd_update"] > 0
            and k_t["pdl"] == k_t["tc_linear_act"] + k_t["tc_bwd_update"] - 1
            and c_x["resident_chunk"] == 0 and c_x["plain_train_chunk"] == 1,
@@ -3138,6 +3367,20 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     for a, b in zip(_state_tensors(states[0]), _state_tensors(states[1])):
         _check(torch.equal(a, b), f"two runs of a chunk of {n_real} bunches from the same state "
                                   f"differ")
+    # the float32-product chain (bf16=False) alike: twice from the same state, bit for bit
+    run_f32, f32_runs = make_resident_train_chunk(cfg, opt, bf16=False), []
+    for _ in range(2):
+        st = fresh()
+        n_pdl_f32 = pdl_of(lambda: run_f32(st, x, t, 2, opt.lrate, opt.momentum, opt.weightcost,
+                                           n_real=n_real))
+        _check(n_pdl_f32 == 8 * n_real - 1, f"float32 products, a chunk of {n_real} bunches: "
+                                             f"{n_pdl_f32} programmatic dependent launches")
+        f32_runs.append(st)
+    torch.cuda.synchronize()
+    for a, b in zip(_state_tensors(f32_runs[0]), _state_tensors(f32_runs[1])):
+        _check(torch.equal(a, b), f"two float32-product runs of a chunk of {n_real} bunches from "
+                                  f"the same state differ")
+    del f32_runs
     train_ms = min(train_runs)
     # the host's own cost a bunch: 100 bunches enqueued behind a spin kernel, by the host clock
     n_host = 100
@@ -3194,7 +3437,9 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
           f"on-device splice {splice_ms:.1f} ms, chunk trainer {train_ms:.1f} ms = "
           f"{train_ms / n_real:.4f} ms per bunch ({' '.join(f'{v:.1f}' for v in train_runs)} ms, two "
           f"runs from the same state, bit for bit equal; {n_pdl} programmatic dependent launches "
-          f"each), {n_real * BUNCH / train_ms * 1e3:.0f} samples/s; its launches enqueued in "
+          f"each; the float32-product chain's two runs bit for bit equal too, {n_pdl_f32} "
+          f"dependent launches each), {n_real * BUNCH / train_ms * 1e3:.0f} samples/s; its "
+          f"launches enqueued in "
           f"{enqueue_ms:.1f} ms ({enqueue_ms / n_real:.4f} ms a bunch, held back by CUDA's launch "
           f"queue), the host's own cost {host_ms:.4f} ms a bunch ({n_host} bunches enqueued behind "
           f"a spin kernel)", flush=True)
@@ -4625,6 +4870,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd-times", action="store_true",
                     help="only build and time the backward (bwd_times; prints no final line, "
                          "exits with 2)")
+    ap.add_argument("--fwd-times", action="store_true",
+                    help="only build, time and digest the float32 forward (fwd_times; prints no "
+                         "final line, exits with 2)")
     ap.add_argument("--package-root", default="",
                     help="import tpu_sednn_torch from this directory, e.g. an unpacked checkout "
                          "of another commit, to time it with --chain-times beside this one")
@@ -4662,6 +4910,14 @@ def main(argv=None) -> int:
         times = bwd_times()
         print(smi)
         print(json.dumps({"bwd_times": times,
+                          "package": os.path.dirname(tpu_sednn_torch.__file__)}))
+        return 2
+    if args.fwd_times:
+        import tpu_sednn_torch
+
+        times = fwd_times()
+        print(smi)
+        print(json.dumps({"fwd_times": times,
                           "package": os.path.dirname(tpu_sednn_torch.__file__)}))
         return 2
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -4731,11 +4987,11 @@ def main(argv=None) -> int:
                     ("fused_bwd_update (tensor cores)", akc["tc_bwd_update"]),
                     ("philox_mask", akc["philox_mask"]), ("stft_lps", ac["stft_lps"])):
         _check(n > 0, f"the in-memory training path never launched the {name} kernel")
-    # every tensor-core launch of a call but its first is a programmatic dependent one
-    tc_calls = forms["tc_sr_delta"] + forms["tc_sr_state"]
-    _check(0 < akc["pdl"] <= akc["tc_linear_act"] + akc["tc_bwd_update"] - tc_calls,
+    # every launch of a call but its first is a programmatic dependent one, either form
+    calls = sum(forms.values())
+    _check(0 < akc["pdl"] <= akc["fused_linear_act"] + akc["fused_bwd_update"] - calls,
            f"the in-memory path's programmatic dependent launches: {akc['pdl']} of "
-           f"{akc['tc_linear_act'] + akc['tc_bwd_update']} tensor-core launches in {tc_calls} calls")
+           f"{akc['fused_linear_act'] + akc['fused_bwd_update']} launches in {calls} calls")
     # the data-parallel path: the command on 2 ranks and the ranks' pfile epochs (rank 0's
     # counts, each run's zeroed just before it)
     dp_runs = dict(cmd=dp["cmd"]["counts"], **{k: e["counts"] for k, e in dp["epochs"].items()})
@@ -4825,11 +5081,16 @@ def main(argv=None) -> int:
              at_16k=kern[16000], route="cuda"),
         layer_row("fused_linear_act", "fused_linear_act", "f32", "tpu_sednn_torch/csrc/fused_mlp.cu",
                   "tpu_sednn/ops/fused_mlp.py:65", fused["fwd"],
-                  launches_of="fwd_kernel (float32 products, bf16=False); its fwd_sum_kernel (K "
-                              "split over the grid; the float32 form only) in sum_launches; "
-                              "bf16_launches read bfloat16 weights (sr_state, either form)",
+                  launches_of="f32_fwd_kernel (float32 FMA products, bf16=False; on the "
+                              "tensor-core forward's cluster split: one launch a layer, "
+                              "fwd_k_chunk's chunks summed through distributed shared memory in "
+                              "order, bit-equal to the two-launch form; sum_launches, once its "
+                              "fwd_sum_kernel's, 0); bf16_launches read bfloat16 weights "
+                              "(sr_state, either form)",
                   sum_launches=kc["fused_linear_act_sum"] + tw["fused_linear_act_sum"]
                   + akc["fused_linear_act_sum"] + dkc["fused_linear_act_sum"],
+                  dp_forward={M: {k: dp["kern"][M]["fwd_f32"][k] for k in
+                                  ("ms", "plain_ms", "bound_ms", "library_ms")} for M in (64, 32)},
                   bf16_launches=akc["bf16_linear_act"], bf16_storage=sr["bf16_storage"]),
         layer_row("fused_linear_act_tc", "fused_linear_act", "tc",
                   "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:65",
@@ -4875,7 +5136,7 @@ def main(argv=None) -> int:
              ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"],
              pdl_launches=kc["pdl"] + akc["pdl"] + rkc["pdl"],
              pdl_launches_of="the chain's programmatic dependent launches on the training paths "
-                             "(every tensor-core launch of a call but its first)",
+                             "(every launch of a call but its first, either product form)",
              host_ms_per_bunch=train["host_ms_per_bunch"], chain_times=chains, **resident[True],
              route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",

@@ -5,6 +5,8 @@ pinned to float32 products: rtol/atol 1e-5 (float32 sums in another order).
 tests/test_torch_tensor_core.py holds bf16=True.  Also ops/train_step.py's per-bunch step
 against the JAX package's, and the source hashing of ops/_build.py."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,6 +249,91 @@ def test_f32_bwd_sum_order_matches_float64_plain(M, bk, split):
     g, gb, dedy = _f32_bwd_emulation(dedx, y_prev, w, split, bk, "relu")
     for got, want in ((g.reshape(-1), grad[:K * N]), (gb, grad[K * N:]), (dedy, dy)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# The float32 forward's order of sums on the card (csrc/fused_mlp.cuh:
+# f32_fwd_kernel), which its redesign kept bit for bit from the two-launch form
+# it replaced: K in the chunks of fwd_k_chunk (mirrored by _fwd_k_chunk; the
+# DP forward plans them for the global tile's rows), each chunk's sum taken
+# by one thread with fmaf for k ascending from 0.0f (emulated: the exact
+# product plus the running sum in float64, rounded to float32 at each step),
+# the chunks' sums added in order from 0.0f, then bias, activation and the
+# next layer's mask.
+def _fwd_k_chunk(M, K, N):
+    """-> (chunk, n_chunks) as csrc/fused_mlp.cuh:fwd_k_chunk gives them."""
+    tiles = -(-N // 64) * -(-M // 32)  # kFwdPlanBN, kFwdPlanBM
+    want = min(max(-(-(4 * 132) // tiles), 1), 16)
+    chunk = max(-(-(-(-K // want)) // 32) * 32, 32)  # whole steps of kFwdBK
+    return chunk, (-(-K // chunk) if K > 0 else 1)
+
+
+def _f32_fwd_emulation(x, w, b, act, plan_rows=None, in_mask=None, in_scale=1.0, out_mask=None,
+                       out_scale=1.0):
+    """-> y as the float32 kernel sums it (explicit 0/1 masks)."""
+    (M, K), N = x.shape, w.shape[1]
+    h = x if in_mask is None else x * (in_mask * in_scale)
+    chunk, n_chunks = _fwd_k_chunk(plan_rows or M, K, N)
+    h64, w64 = h.double(), w.double()
+    s = torch.zeros(M, N)
+    for c in range(n_chunks):
+        acc = torch.zeros(M, N)
+        for k in range(c * chunk, min(K, (c + 1) * chunk)):
+            acc = (acc.double() + h64[:, k:k + 1] * w64[k:k + 1, :]).float()
+        s = acc if n_chunks == 1 else s + acc
+    y = tfm._act(act, s + b)
+    return y if out_mask is None else y * (out_mask * out_scale)
+
+
+@pytest.mark.parametrize("K,N", [(1548 // 4, 129), (384, 256)])  # 128-aligned: the Pallas kernel
+@pytest.mark.parametrize("M", [8, 64, 128, 136, 512])
+def test_f32_fwd_sum_order_matches_float64_plain_and_jax(M, K, N):
+    """The float32 forward's chunked order of sums against the port's float64
+    plain version and the JAX fused_linear_act (interpret mode where its
+    shapes are 128-aligned, its XLA form elsewhere), at the JAX comparisons'
+    rtol/atol; with masks (and a DP rank's rows planned for 128) against the
+    float64 plain version."""
+    rng = np.random.default_rng(M + K)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    want = jfm.fused_linear_act(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act="relu",
+                                interpret=True, bf16=False)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    got = _f32_fwd_emulation(xt, wt, bt, "relu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), tfm.fused_linear_act_reference(
+        xt, wt, bt, "relu", dtype=torch.float64, bf16=False).numpy(), **TOL)
+    im, om = philox_mask(3, M, K, 0.1), philox_mask(4, M, N, 0.2)
+    kw = dict(in_mask=im, in_scale=1 / 0.9, out_mask=om, out_scale=1.25)
+    want = tfm.fused_linear_act_reference(xt, wt, bt, "sigmoid", dtype=torch.float64, bf16=False,
+                                          **kw)
+    for plan_rows in (None, 128):
+        got = _f32_fwd_emulation(xt, wt, bt, "sigmoid", plan_rows, **kw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("K,N,n_chunks,chunk", [(1548, 2048, 5, 320), (2048, 2048, 5, 416),
+                                                (3084, 2048, 5, 640), (2048, 129, 16, 128),
+                                                (2048, 257, 16, 128)])
+def test_f32_fwd_chunks_at_the_flagship_layers(K, N, n_chunks, chunk):
+    """fwd_k_chunk's chunks at a bunch of 128 through the 8 and 16 kHz nets'
+    layers (a cluster of f32_fwd_kernel is that many blocks, at most 16), the
+    same for a DP rank's 64 rows planned for 128, and one chunk at a batch
+    that fills the card's SMs alone."""
+    assert _fwd_k_chunk(128, K, N) == (chunk, n_chunks)
+    assert _fwd_k_chunk(-(-528 // -(-N // 64)) * 32, K, N)[1] == 1
+
+
+def test_f32_fwd_chunk_mirror_matches_the_kernel_source():
+    """_fwd_k_chunk's constants are the kernel's."""
+    src = (Path(tfm.__file__).resolve().parent.parent / "csrc" / "fused_mlp.cuh").read_text()
+    assert "constexpr int kFwdPlanBM = 32, kFwdPlanBN = 64, kFwdBK = 32;" in src
+    body = src[src.index("inline int fwd_k_chunk("):]
+    body = body[:body.index("\n}\n")]
+    assert "int want = (4 * 132 + tiles - 1) / tiles;" in body
+    assert "want = want < 1 ? 1 : (want > 16 ? 16 : want);" in body
+    for gone in ("fwd_sum_kernel", "fwd_scratch_floats"):
+        assert gone not in src
 
 
 def test_bwd_rows_past_the_kernels_cap_are_refused():

@@ -24,12 +24,20 @@ CSRC = Path(rc.__file__).resolve().parent.parent / "csrc"
 GROUPS = (rc.EARLY_W, rc.EARLY_DELTA, rc.EARLY_YPREV)
 CASES = [(L, accum) for L in (1, 2, 3, 4) for accum in (1, 2, 3)]
 N_BUNCHES = 3
+# The kernels each product form launches for a layer's forward (direction 0)
+# and backward (1): one launch each way in both forms (csrc/fused_mlp.cuh:
+# launch_fwd, launch_bwd; each sums its split of K or N inside the kernel),
+# which is why one plan serves both chains.
+FORMS = {"tc": ("tc_fwd_kernel", "stripe_bwd_kernel<true>"),
+         "f32": ("f32_fwd_kernel", "stripe_bwd_kernel<false>")}
 
 
-def _chain(L: int, accum: int, n_bunches: int) -> list:
-    """Every launch of one call, in stream order, with what it reads and
-    writes by buffer: `groups` the operand groups it may read early (bit ->
-    buffers), `late` what it reads only after its wait, `writes`."""
+def _chain(L: int, accum: int, n_bunches: int, form: str = "tc") -> list:
+    """Every launch of one call of the `form` chain, in stream order, with what
+    it reads and writes by buffer: `groups` the operand groups it may read
+    early (bit -> buffers), `late` what it reads only after its wait,
+    `writes`."""
+    fwd_kernel, bwd_kernel = FORMS[form]
     launches = []
     for i in range(n_bunches):
         for j in range(accum):
@@ -40,13 +48,13 @@ def _chain(L: int, accum: int, n_bunches: int) -> list:
 
             for l in range(L):
                 launches.append(dict(
-                    dir=0, layer=l, groups={rc.EARLY_W: {("W", l), ("b", l)}}, late={inp(l)},
-                    writes={("y", l)} | ({"dedx_a"} if l == L - 1 else set())))
+                    kernel=fwd_kernel, dir=0, layer=l, groups={rc.EARLY_W: {("W", l), ("b", l)}},
+                    late={inp(l)}, writes={("y", l)} | ({"dedx_a"} if l == L - 1 else set())))
             cur, other = "dedx_a", "dedx_b"
             for l in range(L - 1, -1, -1):
                 writes = {("D", l), ("db", l)} | ({("W", l), ("b", l)} if apply else set())
                 launches.append(dict(
-                    dir=1, layer=l, late={cur},
+                    kernel=bwd_kernel, dir=1, layer=l, late={cur},
                     groups={rc.EARLY_W: {("W", l), ("b", l)}, rc.EARLY_DELTA: {("D", l), ("db", l)},
                             rc.EARLY_YPREV: {inp(l)}},
                     writes=writes | ({other} if l > 0 else set())))
@@ -56,12 +64,12 @@ def _chain(L: int, accum: int, n_bunches: int) -> list:
     return launches
 
 
-def _simulated_plan(L: int, accum: int, n_bunches: int) -> list:
+def _simulated_plan(L: int, accum: int, n_bunches: int, form: str = "tc") -> list:
     """The plan the rule gives on the simulated chain: for each (direction,
     layer, first) the groups that no launch of that kind finds written by
     the launch just before it (0 where the call has no such launch)."""
     allowed = {}
-    launches = _chain(L, accum, n_bunches)
+    launches = _chain(L, accum, n_bunches, form)
     for n, launch in enumerate(launches):
         ok = 0
         if n > 0:
@@ -73,9 +81,28 @@ def _simulated_plan(L: int, accum: int, n_bunches: int) -> list:
     return [allowed.get(k, 0) for k in range(4 * L)]
 
 
+@pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("L,accum", CASES)
-def test_plan_matches_simulated_chain(L, accum):
-    assert rc.early_read_plan(L, accum) == _simulated_plan(L, accum, N_BUNCHES)
+def test_plan_matches_simulated_chain(L, accum, form):
+    """The one plan is the rule's on the chain of either product form: the
+    same launches (2 L a tile, every one after the call's first a dependent
+    one), so the same flags."""
+    chain = _chain(L, accum, N_BUNCHES, form)
+    assert len(chain) == 2 * L * accum * N_BUNCHES
+    assert {c["kernel"] for c in chain} == set(FORMS[form])
+    assert rc.early_read_plan(L, accum) == _simulated_plan(L, accum, N_BUNCHES, form)
+
+
+def test_both_product_forms_take_the_plan():
+    """The chunk trainer gates no dependent launch on the product form, and the
+    layer launchers count a dependent launch of either form."""
+    src = (CSRC / "resident_chunk.cu").read_text()
+    assert "const bool pdl = plan != nullptr && !*first;" in src  # a forward
+    assert "const bool pdl = plan != nullptr;  // a forward came first" in src  # a backward
+    assert "tc && plan" not in src
+    fm_src = (CSRC / "fused_mlp.cuh").read_text()
+    assert fm_src.count("launched->pdl += pdl ? 1 : 0;") == 2  # launch_fwd, launch_bwd
+    assert "tc && pdl" not in fm_src
 
 
 @pytest.mark.parametrize("L,accum", CASES)

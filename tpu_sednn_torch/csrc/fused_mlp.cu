@@ -33,17 +33,17 @@ MaskSpec make_mask(int mode, const float* ptr, int ld, unsigned key, unsigned th
 // y (M, N) = act(mask_in(x) (M, K) @ w (K, N) + b) * mask_out.  act: 0 linear,
 // 1 relu, 2 sigmoid.  Mask modes: 0 none, 1 a 0/1 float tensor (in: (M, K),
 // out: (M, N)), 2 Philox from (key, threshold); kept elements times scale.
-// part: scratch of fused_fwd_scratch_floats(M, K, N, bf16) floats.  w_bf16 !=
-// 0: w is bfloat16 storage, widened as it is loaded; x, b and y are float32.
-// bf16 != 0: the tensor-core form, products of operands rounded to bfloat16
-// (to nearest even) summed in float32; else float32 products.  launched[3] +=
-// the launches of tc_fwd_kernel, fwd_kernel and fwd_sum_kernel.
+// w_bf16 != 0: w is bfloat16 storage, widened as it is loaded; x, b and y are
+// float32.  bf16 != 0: the tensor-core form, products of operands rounded to
+// bfloat16 (to nearest even) summed in float32; else float32 products.
+// Either is one launch.  launched[2] += the launches of tc_fwd_kernel and
+// f32_fwd_kernel.
 extern "C" int fused_linear_act_f32(const float* x, const void* w, int w_bf16, const float* b,
                                     float* y, int M, int K, int N, int act, int in_mode,
                                     const float* in_ptr, unsigned in_key, unsigned in_thr,
                                     float in_scale, int out_mode, const float* out_ptr,
                                     unsigned out_key, unsigned out_thr, float out_scale,
-                                    float* part, int bf16, int* launched, void* stream) {
+                                    int bf16, int* launched, void* stream) {
   if (act < 0 || act > 2 || in_mode < 0 || in_mode > 2 || out_mode < 0 || out_mode > 2)
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale);
@@ -51,18 +51,20 @@ extern "C" int fused_linear_act_f32(const float* x, const void* w, int w_bf16, c
   FwdLaunched done;
   const cudaError_t err =
       w_bf16 ? launch_fwd(x, (const bf16_t*)w, b, y, M, K, N, act, im, om, nullptr, nullptr, 0.0f,
-                          part, bf16 != 0, &done, (cudaStream_t)stream)
+                          bf16 != 0, &done, (cudaStream_t)stream)
              : launch_fwd(x, (const float*)w, b, y, M, K, N, act, im, om, nullptr, nullptr, 0.0f,
-                          part, bf16 != 0, &done, (cudaStream_t)stream);
+                          bf16 != 0, &done, (cudaStream_t)stream);
   launched[0] += done.tc;
   launched[1] += done.f32;
-  launched[2] += done.sum;
   return (int)err;
 }
 
-// Scratch floats fused_linear_act_f32 needs in `part` (0: pass nullptr).
-extern "C" long long fused_fwd_scratch_floats(int M, int K, int N, int bf16) {
-  return fwd_scratch_floats(M, K, N, bf16 != 0);
+// The float32 forward's plan for (M, K, N) with float32 W, K split as for
+// plan_rows rows (0: M): out[0] the chunk length, out[1] the chunks (the
+// blocks of a cluster), out[2] the grid's blocks, out[3] the blocks the card
+// holds at once, out[4] the clusters.  On the current device; 0 or a CUDA error.
+extern "C" int fused_f32_fwd_plan(int M, int K, int N, int plan_rows, int* out) {
+  return (int)f32_fwd_plan<float>(M, K, N, plan_rows, out);
 }
 
 // The backward's plan for (M, K, N), float32 state, with or without dedy, in
@@ -78,8 +80,9 @@ extern "C" int fused_bwd_plan(int M, int K, int N, int with_dedy, int bf16, int*
 // The dynamic shared memory a block of each stripe-and-cluster kernel asks
 // for, in bytes: out[0], out[1] tc_fwd_kernel with 128- and 64-column slices
 // (float32 W); out[2..4] stripe_bwd_kernel's tensor-core form with stripes of
-// 64, 32, 16 rows (float32 W and Delta); out[5..7] its float32 form alike.
-// Whether two such blocks can share an SM follows from these.
+// 64, 32, 16 rows (float32 W and Delta); out[5..7] its float32 form alike;
+// out[8] f32_fwd_kernel (float32 W).  Whether two such blocks can share an SM
+// follows from these.
 extern "C" void fused_tc_smem_bytes(int* out) {
   out[0] = (int)sizeof(TcFwdTile<float, 128>::Smem) + 128;
   out[1] = (int)sizeof(TcFwdTile<float, 64>::Smem) + 128;
@@ -89,6 +92,7 @@ extern "C" void fused_tc_smem_bytes(int* out) {
   out[5] = (int)sizeof(BwdTile<false, float, float, 64>::Smem) + 128;
   out[6] = (int)sizeof(BwdTile<false, float, float, 32>::Smem) + 128;
   out[7] = (int)sizeof(BwdTile<false, float, float, 16>::Smem) + 128;
+  out[8] = (int)F32FwdTile<float>::kSmemBytes;
 }
 
 // In place: delta' = mom*delta - (A*G + Bc*w), w' = w + delta', G = yprev^T @ dedx;

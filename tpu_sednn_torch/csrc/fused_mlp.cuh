@@ -13,8 +13,10 @@
 //   mma.sync m16n8k16 sums the exact products in float32 (mma_bf16.cuh).
 //   Everything else stays float32: biases, the bias gradient, the update on
 //   the unrounded W, activations and their derivatives.
-// * float32 FMA products (bf16=False): fwd_kernel and stripe_bwd_kernel<false,
-//   ...>: the backward's two forms are one kernel with a product policy.
+// * float32 FMA products (bf16=False): f32_fwd_kernel and
+//   stripe_bwd_kernel<false, ...>: the backward's two forms are one kernel
+//   with a product policy; the forward's float32 form is a sibling of
+//   tc_fwd_kernel on the same cluster split and DSMEM sum.
 //
 // Bound.  A layer at bunch 128 does 2*128*K*N FLOP per product (one in the
 // forward, two in the backward) against one pass over W in the forward and
@@ -31,11 +33,11 @@
 // dedx are epilogues of the forward product; the activation derivative is
 // the epilogue of the dedy sum.
 //
-// At a bunch of 128 the card is short of blocks, not of arithmetic: the
-// float32 forward splits K over the grid (fwd_k_chunk) and sums the chunks
-// in a second launch; the tensor-core forward splits K within a thread-block
-// cluster and sums the chunks through distributed shared memory
-// (tc_fwd_kernel); measured times beside the bound are in PERF.md.
+// At a bunch of 128 the card is short of blocks, not of arithmetic: both
+// forwards split K within a thread-block cluster and sum the chunks through
+// distributed shared memory, one launch a layer (tc_fwd_kernel,
+// f32_fwd_kernel; the float32 form's chunks are fwd_k_chunk's, the order its
+// sums keep); measured times beside the bound are in PERF.md.
 //
 // Blocks of a grid run in no order, so the TPU kernel's accumulation of dedy
 // over a sequential grid axis becomes, in the backward (stripe_bwd_kernel,
@@ -99,18 +101,12 @@ __device__ inline float act_fn(int act, float z) {
 //   NEXT layer's input, so the stored activation is the masked one the
 //   backward needs).  If targ != nullptr also
 //   dedx = coef * (y - targ) [* y * (1 - y) for a sigmoid head].
-// Float32 form (fwd_kernel):
-// one block: a 32 x 64 tile of y, 128 threads, 4 x 4 outputs a thread, K in
-// steps of 32 with the next step's loads in flight.  At a bunch of 128 the
-// tiles alone are too few blocks (128 for a 2048-wide layer, 12 for the
-// 129-wide one), so K is split over the grid as well (fwd_k_chunk): each
-// block then writes its partial sums to a scratch (chunks, M, N) and
-// fwd_sum_kernel adds them in chunk order and does the epilogue.
+// Two forms, each one launch a layer: f32_fwd_kernel (float32 products) and
+// tc_fwd_kernel (tensor-core products), below.
 // ---------------------------------------------------------------------------
 
 // What follows the product: bias, activation, the next layer's mask, and the
-// output layer's dedx.  Shared by fwd_kernel (K not split), fwd_sum_kernel and
-// tc_fwd_kernel.
+// output layer's dedx.  Shared by both forms of kernel 1.
 struct FwdEpilogue {
   const float* b;
   float* y;
@@ -147,129 +143,18 @@ __device__ inline void fwd_epilogue4(const FwdEpilogue& e, int row, int col, con
   }
 }
 
-constexpr int kFwdBM = 32, kFwdBN = 64, kFwdBK = 32, kFwdThreads = 128;
-constexpr int kFwdALoads = kFwdBM * kFwdBK / 4 / kFwdThreads;  // float4 per thread and tile: 2
-constexpr int kFwdWLoads = kFwdBK * kFwdBN / 4 / kFwdThreads;  // 4
+// The float32 form's split of K, which defines the order of its sums: the
+// output in tiles of kFwdPlanBM x kFwdPlanBN (the two-launch form's, which
+// split K over its grid), and enough chunks to put about four such tiles on
+// each of the card's 132 SMs, at most 16, in chunks that are multiples of the
+// K step (32).  A function of the shape alone, whatever tile f32_fwd_kernel
+// uses: every output of a layer is the sum over these chunks in order of each
+// chunk's sum, so the sums do not move when the kernel's tiles do.  -> the
+// chunk length; *n_chunks the count.
+constexpr int kFwdPlanBM = 32, kFwdPlanBN = 64, kFwdBK = 32;
 
-template <typename TW>  // storage of W: float or bf16_t (widened as it is loaded)
-__global__ void __launch_bounds__(kFwdThreads)
-fwd_kernel(const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
-           MaskSpec in_mask, FwdEpilogue epi, float* __restrict__ part, int k_chunk, bool vec_x,
-           bool vec_w, bool vec_p) {
-  __shared__ __align__(16) float As[kFwdBK][kFwdBM + 4];  // x tile, transposed
-  __shared__ __align__(16) float Bs[kFwdBK][kFwdBN];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kFwdBM, n0 = blockIdx.x * kFwdBN;
-  const int tm = tid / 16, tn = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  // The next tile's x and W are loaded into registers while the current one
-  // is multiplied: with one block of four warps on an SM nothing else hides
-  // the latency of device memory.
-  float4 a_reg[kFwdALoads], w_reg[kFwdWLoads];
-  float a_mask[kFwdALoads][4];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < kFwdALoads; ++r) {
-      const int idx = tid + r * kFwdThreads;
-      const int row = m0 + idx / (kFwdBK / 4), kk = k0 + (idx % (kFwdBK / 4)) * 4;
-      a_reg[r] = ld4(x, row, kk, K, M, K, vec_x);
-      if (in_mask.mode != 0) {
-        if (row < M && kk < K) {
-          mask4(in_mask, row, kk, K, a_mask[r]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a_mask[r][j] = 0.0f;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kFwdWLoads; ++r) {
-      const int idx = tid + r * kFwdThreads;
-      w_reg[r] = ld4(w, k0 + idx / 16, n0 + (idx % 16) * 4, N, K, N, vec_w);
-    }
-  };
-  // this block's share of K: all of it, or chunk blockIdx.z when K is split
-  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
-  fetch(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += kFwdBK) {
-#pragma unroll
-    for (int r = 0; r < kFwdALoads; ++r) {
-      const int idx = tid + r * kFwdThreads;
-      const int ar = idx / (kFwdBK / 4), ak = (idx % (kFwdBK / 4)) * 4;
-      float4 a = a_reg[r];
-      if (in_mask.mode != 0) {
-        a.x *= a_mask[r][0]; a.y *= a_mask[r][1]; a.z *= a_mask[r][2]; a.w *= a_mask[r][3];
-      }
-      As[ak + 0][ar] = a.x;
-      As[ak + 1][ar] = a.y;
-      As[ak + 2][ar] = a.z;
-      As[ak + 3][ar] = a.w;
-    }
-#pragma unroll
-    for (int r = 0; r < kFwdWLoads; ++r) {
-      const int idx = tid + r * kFwdThreads;
-      *reinterpret_cast<float4*>(&Bs[idx / 16][(idx % 16) * 4]) = w_reg[r];
-    }
-    __syncthreads();
-    if (k0 + kFwdBK < k_end) fetch(k0 + kFwdBK);
-#pragma unroll
-    for (int k = 0; k < kFwdBK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[k][tm * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tn * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const int col = n0 + tn * 4;
-  if (col >= N) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + tm * 4 + i;
-    if (row >= M) continue;
-    if (part == nullptr) {
-      fwd_epilogue4(epi, row, col, acc[i]);
-    } else {
-      st4(part + (long long)blockIdx.z * M * N, row, col, N, M, N, vec_p,
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    }
-  }
-}
-
-// Adds the K-chunks' partial sums in chunk order, then the epilogue.
-__global__ void __launch_bounds__(256)
-fwd_sum_kernel(const float* __restrict__ part, int n_chunks, FwdEpilogue epi, bool vec_p) {
-  const int c4 = (epi.N + 3) / 4;
-  const long long n = (long long)epi.M * c4, stride = (long long)epi.M * epi.N;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int row = (int)(i / c4), col = (int)(i % c4) * 4;
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int z = 0; z < n_chunks; ++z) {
-      const float4 p = ld4(part + z * stride, row, col, epi.N, epi.M, epi.N, vec_p);
-      s[0] += p.x; s[1] += p.y; s[2] += p.z; s[3] += p.w;
-    }
-    fwd_epilogue4(epi, row, col, s);
-  }
-}
-
-// How K is split over the grid for fwd_kernel: enough blocks to put about
-// four on each of the card's SMs (one block walks its K range with four
-// warps, too few to keep an SM's arithmetic busy), in chunks that are
-// multiples of the K step (32).  A function of the shape alone.  -> the chunk
-// length; *n_chunks the count.
 inline int fwd_k_chunk(int M, int K, int N, int* n_chunks) {
-  const int tiles = ((N + kFwdBN - 1) / kFwdBN) * ((M + kFwdBM - 1) / kFwdBM);
+  const int tiles = ((N + kFwdPlanBN - 1) / kFwdPlanBN) * ((M + kFwdPlanBM - 1) / kFwdPlanBM);
   int want = (4 * 132 + tiles - 1) / tiles;
   want = want < 1 ? 1 : (want > 16 ? 16 : want);
   int chunk = ((K + want - 1) / want + kFwdBK - 1) / kFwdBK * kFwdBK;
@@ -399,6 +284,43 @@ __device__ inline float4 widen4(const bf16_t* p) {
                      __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xFFFF0000u));
 }
 
+// The end of both forwards where K is split over a cluster: with every
+// block's partial tile written to its shared memory (`part`, row stride ld),
+// cluster.sync(); this block's share of the tile's `rows` rows summed over
+// the cluster's partials in rank (chunk) order from 0.0f, eight ranks' loads
+// in flight at once (each output's sum depends only on the chunk boundaries
+// and that order), and fwd_epilogue4 on the sums; cluster.sync() again, so
+// that no block leaves while another still reads its partial tile.
+template <int BN, int kThreads>
+__device__ inline void fwd_cluster_sum(const float* part, int ld, int rows, int m0, int n0,
+                                       const FwdEpilogue& epi) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's partial tile is complete
+  const int n_ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int per = (rows + n_ranks - 1) / n_ranks, r0 = rank * per, r1 = min(rows, r0 + per);
+  for (int idx = threadIdx.x; idx < (r1 > r0 ? r1 - r0 : 0) * (BN / 4); idx += kThreads) {
+    const int row = r0 + idx / (BN / 4), col = (idx % (BN / 4)) * 4;
+    if (n0 + col >= epi.N) continue;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q0 = 0; q0 < n_ranks; q0 += 8) {
+      float4 p[8];  // eight ranks' partials first, so the reads overlap
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q0 + q < n_ranks)
+          p[q] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(part + row * ld + col, q0 + q));
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q0 + q < n_ranks) {
+          s[0] += p[q].x; s[1] += p[q].y; s[2] += p[q].z; s[3] += p[q].w;
+        }
+    }
+    fwd_epilogue4(epi, m0 + row, n0 + col, s);
+  }
+  cluster.sync();  // no block leaves while another still reads its partial tile
+}
+
 // x_tma / w_tma: the operand goes by tensor copies (tmx, tmw), else by
 // cp.async: 4-byte copies for float32 (x when K % 4 != 0, W when N % 4 != 0),
 // registers for bfloat16 W at an odd N.  early (pdl.cuh): with kEarlyW the
@@ -411,13 +333,11 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
               const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
               MaskSpec in_mask, FwdEpilogue epi, int k_chunk, bool x_tma, bool w_tma,
               int early) {
-  namespace cg = cooperative_groups;
   using T = TcFwdTile<TW, BN>;
   constexpr int kThreads = T::kThreads, kS = kTcFwdStages;
   extern __shared__ unsigned char tc_fwd_smem[];
   typename T::Smem& sm = *reinterpret_cast<typename T::Smem*>(
       (reinterpret_cast<uintptr_t>(tc_fwd_smem) + 127) & ~(uintptr_t)127);
-  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kTcFwdBM;
   const int rows = min(kTcFwdBM, M - m0);      // the tile's rows
@@ -586,36 +506,237 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
             make_float2(acc[i][j][2], acc[i][j][3]);
       }
   }
-  cluster.sync();  // every block's partial tile is complete
-
-  // this block's share of the rows, summed over the cluster in rank order
-  const int n_ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int per = (rows + n_ranks - 1) / n_ranks, r0 = rank * per, r1 = min(rows, r0 + per);
-  for (int idx = tid; idx < (r1 > r0 ? r1 - r0 : 0) * (BN / 4); idx += kThreads) {
-    const int row = r0 + idx / (BN / 4), col = (idx % (BN / 4)) * 4;
-    if (n0 + col >= N) continue;
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int q0 = 0; q0 < n_ranks; q0 += 8) {
-      float4 p[8];  // eight ranks' partials first, so the reads overlap
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < n_ranks)
-          p[q] = *reinterpret_cast<const float4*>(
-              cluster.map_shared_rank(&sm.u.part[row][col], q0 + q));
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < n_ranks) {
-          s[0] += p[q].x; s[1] += p[q].y; s[2] += p[q].z; s[3] += p[q].w;
-        }
-    }
-    fwd_epilogue4(epi, m0 + row, n0 + col, s);
-  }
-  cluster.sync();  // no block leaves while another still reads its partial tile
+  fwd_cluster_sum<BN, kThreads>(&sm.u.part[0][0], T::kPLd, rows, m0, n0, epi);
 }
 
 // The column slice of the tensor-core forward: 128 for wide layers, 64 for
 // narrow ones (N = 129 and 257: fewer empty columns in the last slice).
 inline int tc_fwd_bn(int N) { return N > 512 ? 128 : 64; }
+
+// Kernel 1, float32 form (f32_fwd_kernel): act(mask_in(x) @ W + b) with
+// float32 FMA products, one launch a layer, on tc_fwd_kernel's cluster split.
+//
+// Bound: operations, narrowly (a bunch of 128 does 64 FLOP a byte of float32
+// W against the FP32 pipe's 20).  At a bunch of 128 the output tiles alone
+// are too few blocks for the card, so K is split, into fwd_k_chunk's chunks
+// (5 at the 1548- to 3084-deep layers of width 2048, 16 at the heads: the
+// split that defines the sums' order).  The chunks of one output tile are the
+// blocks of a thread-block cluster along the grid's z (up to 16, above 8 with
+// the non-portable cluster size): each block sums its chunk into registers,
+// keeps its partial tile in shared memory, and fwd_cluster_sum adds the
+// partials in chunk order from 0.0f through distributed shared memory.  No
+// scratch in device memory, no second launch.  Every output is summed as the
+// two-launch form this replaced summed it, bit for bit: one thread a chunk's
+// sum, fmaf(x * mask, w, acc) for k ascending from 0.0f (zeros past K, as
+// there); the chunks' sums added in order from 0.0f; a K that is not split
+// (one chunk) handed to the epilogue as it is.
+// * a block: 64 x 64 outputs, 128 threads, each 8 rows (tm + 8 i) by 4
+//   neighbouring columns.  At a 2048-wide layer that is 2 x 32 x 5 = 320
+//   blocks on 3 x 132 slots (shared memory fits three an SM; clusters of 5
+//   leave 8 SMs empty: 72 SMs hold 3 blocks, 52 hold 2, measured), where
+//   128-row tiles would give 160: two blocks on some SMs, one on the rest;
+// * x and W come through a ring of kF32FwdStages stages of 32 k, filled by
+//   tensor copies that thread 0 issues (zeros past every edge).  x's box is
+//   swizzled by 128 bytes (f32_fwd_x), so the 8 rows a warp reads at one k
+//   lie in 8 different bank groups.  For each 4 k a thread reads a float4 of
+//   x from each of its 8 rows and a float4 of W a k: 12 floats for 32 FMAs a
+//   k.  An SM's shared memory gives 32 floats a clock (a warp's 16-byte load
+//   takes four wavefronts whatever it broadcasts) against 128 FMAs, so the
+//   loop is held by shared memory at two thirds of the FP32 pipe's rate, and
+//   runs at about that (PERF.md).  8 x 8 tiles would balance the two,
+//   but at a bunch of 128 they leave 5 warps an SM, too few to hide a shared
+//   load's latency: they ran 28% slower (measured, variants of this kernel);
+// * in_mask: each stage's x is masked in place in float32 (one pass and a
+//   barrier) before the products, as the two-launch form masked it;
+// * W without a tensor map (N * sizeof(TW) % 16 != 0: N = 129, 257) goes by
+//   4-byte cp.async (float32) or through registers (bfloat16), and x without
+//   one (K % 4 != 0) by 4-byte cp.async into its swizzled places;
+// * dependent launches (pdl.cuh) as tc_fwd_kernel's: with kEarlyW the W half
+//   of the first kF32FwdStages - 1 steps before griddepcontrol.wait; x and
+//   every store after it; launch_dependents after the K loop.
+constexpr int kF32FwdBM = 64, kF32FwdBN = 64, kF32FwdStages = 4, kF32FwdThreads = 128;
+
+template <typename TW>
+struct F32FwdTile {
+  struct alignas(1024) Stage {     // the tensor copies' boxes; x's swizzle repeats every 1 KB
+    float x[kF32FwdBM][kFwdBK];    // x rows of the step, swizzled (f32_fwd_x)
+    TW w[kFwdBK][kF32FwdBN];       // W rows of the step, as stored
+  };
+  struct alignas(1024) Smem {
+    union {
+      Stage ring[kF32FwdStages];
+      float part[kF32FwdBM][kF32FwdBN + 4];  // the block's partial sums, after the K loop
+    } u;
+    uint64_t full[kF32FwdStages];  // a ring slot's copies have landed
+  };
+  static constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + its alignment
+};
+
+// Where x's (row r, column c) of a step lies in its stage: the tensor copy's
+// 128-byte swizzle puts the 16-byte chunk c / 4 of row r at chunk (c / 4) ^ (r % 8).
+__device__ inline int f32_fwd_x(int r, int c) {
+  return r * kFwdBK + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
+// x_tma / w_tma: the operand goes by tensor copies (tmx, tmw), else by
+// cp.async or registers (above); early: pdl.cuh's bits (kEarlyW).
+template <typename TW>
+__global__ void __launch_bounds__(kF32FwdThreads, 3)
+f32_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+               const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
+               MaskSpec in_mask, FwdEpilogue epi, int k_chunk, bool x_tma, bool w_tma,
+               int early) {
+  using T = F32FwdTile<TW>;
+  constexpr int BM = kF32FwdBM, BN = kF32FwdBN, BK = kFwdBK, kS = kF32FwdStages;
+  constexpr int kThreads = kF32FwdThreads;
+  extern __shared__ unsigned char f32_fwd_smem[];
+  // aligned by an offset from the array itself, not through an integer, so
+  // that the compiler keeps it in the shared space: shared loads (LDS), where
+  // a generic pointer would make every operand load a generic one
+  typename T::Smem& sm = *reinterpret_cast<typename T::Smem*>(
+      f32_fwd_smem + ((1024u - (smem_addr(f32_fwd_smem) & 1023u)) & 1023u));
+  const int tid = threadIdx.x, tm = tid % 8, tn = tid / 8;  // rows tm + 8 i, columns 4 tn..
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const bool any_tma = x_tma || w_tma, all_tma = x_tma && w_tma;
+
+  // step `step`'s x and / or W into ring slot `slot`, as tc_fwd_kernel's
+  // load_stage: the slot's one arrival comes with its x
+  auto load_stage = [&](int slot, int step, bool with_x, bool with_w) {
+    typename T::Stage& st = sm.u.ring[slot];
+    const int k0 = k_begin + step * BK;
+    const bool tx = with_x && x_tma, tw = with_w && w_tma;
+    if (any_tma && tid == 0) {
+      const uint32_t bytes =
+          (tx ? (uint32_t)sizeof(st.x) : 0u) + (tw ? (uint32_t)sizeof(st.w) : 0u);
+      if (with_x)
+        mbar_arrive_expect_tx(&sm.full[slot], bytes);
+      else
+        mbar_expect_tx(&sm.full[slot], bytes);
+      if (tx) tma_load_2d(&st.x[0][0], &tmx, k0, m0, &sm.full[slot]);
+      if (tw) tma_load_2d(&st.w[0][0], &tmw, n0, k0, &sm.full[slot]);
+    }
+    if (with_x && !x_tma) {
+      for (int idx = tid; idx < BM * BK; idx += kThreads) {
+        const int r = idx / BK, c = idx % BK;
+        const bool in = m0 + r < M && k0 + c < K;
+        cp_async4(&st.x[0][0] + f32_fwd_x(r, c), in ? x + (long long)(m0 + r) * K + k0 + c : x,
+                  in ? 4 : 0);
+      }
+    }
+    if (with_w && !w_tma) {
+      for (int idx = tid; idx < BK * BN; idx += kThreads) {
+        const int kr = idx / BN, c = idx % BN;
+        const bool in = k0 + kr < K && n0 + c < N;
+        if constexpr (std::is_same<TW, bf16_t>::value) {  // 2-byte aligned: registers
+          st.w[kr][c] = in ? w[(long long)(k0 + kr) * N + n0 + c] : (TW)0;
+        } else {
+          cp_async4(&st.w[kr][c], in ? w + (long long)(k0 + kr) * N + n0 + c : w, in ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  // Before the wait: the mbarriers, the tensor maps, and W where the plan
+  // allows (uncommitted cp.async copies of it join step 0's group)
+  if (any_tma) {
+    if (tid == 0) {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) mbar_init(&sm.full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (x_tma) prefetch_tensormap(&tmx);
+      if (w_tma) prefetch_tensormap(&tmw);
+    }
+    __syncthreads();
+  }
+  const bool early_w = (early & kEarlyW) != 0;
+  if (early_w) {
+#pragma unroll
+    for (int s = 0; s < kS - 1; ++s)
+      if (s < n_steps) load_stage(s, s, false, true);
+  }
+  grid_dep_wait();  // every thread, a block without steps too: it stores the epilogue
+#pragma unroll
+  for (int s = 0; s < kS - 1; ++s) {
+    if (s < n_steps) load_stage(s, s, true, !early_w);
+    if (!all_tma) cp_async_commit();  // one group per step, empty or not: the wait counts steps
+  }
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  // kS - 1 steps in flight; step s + kS - 1 goes into the slot step s - 1
+  // was read from, which the barrier ending step s - 1 has released
+  for (int s = 0; s < n_steps; ++s) {
+    const int ahead = s + kS - 1;
+    if (ahead < n_steps) load_stage(ahead % kS, ahead, true, true);
+    if (!all_tma) cp_async_commit();
+    if (any_tma) mbar_wait(&sm.full[s % kS], (s / kS) & 1);
+    if (!all_tma) {
+      cp_async_wait<kS - 1>();
+      __syncthreads();
+    }
+    float* xs = &sm.u.ring[s % kS].x[0][0];
+    const TW* ws = &sm.u.ring[s % kS].w[0][0];
+    if (in_mask.mode != 0) {  // x * mask in float32, in place
+      const int k0 = k_begin + s * BK;
+      for (int idx = tid; idx < BM * BK / 4; idx += kThreads) {
+        const int r = idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+        if (m0 + r >= M || k0 + c >= K) continue;
+        float mk[4];
+        mask4(in_mask, m0 + r, k0 + c, K, mk);
+        float4* p = reinterpret_cast<float4*>(xs + f32_fwd_x(r, c));
+        float4 v = *p;
+        v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+        *p = v;
+      }
+      // the slot's next tensor copy (step s + kS) comes after these stores
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 4; ++kk) {
+      float4 xv[8];  // rows tm + 8 i, k = 4 kk..4 kk + 3 (row % 8 == tm: chunk kk ^ tm)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xs + (tm + 8 * i) * BK + ((kk ^ tm) << 2));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 wv = widen4(ws + (4 * kk + j) * BN + 4 * tn);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = j == 0 ? xv[i].x : (j == 1 ? xv[i].y : (j == 2 ? xv[i].z : xv[i].w));
+          acc[i][0] = fmaf(a, wv.x, acc[i][0]);
+          acc[i][1] = fmaf(a, wv.y, acc[i][1]);
+          acc[i][2] = fmaf(a, wv.z, acc[i][2]);
+          acc[i][3] = fmaf(a, wv.w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // the slot is free for step s + kS
+  }
+  if (!all_tma) cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial tile takes its place
+  grid_dep_launch_dependents();  // the next launch's prologue overlaps the cluster sum
+
+  if (gridDim.z == 1) {  // K not split: the chunk's sums are the outputs'
+    const int col = n0 + 4 * tn;
+    if (col >= N) return;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (m0 + tm + 8 * i < M) fwd_epilogue4(epi, m0 + tm + 8 * i, col, acc[i]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    *reinterpret_cast<float4*>(&sm.u.part[tm + 8 * i][4 * tn]) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  fwd_cluster_sum<BN, kThreads>(&sm.u.part[0][0], BN + 4, min(BM, M - m0), m0, n0, epi);
+}
 
 constexpr int kTcFwdMaxDevices = 64;
 
@@ -623,30 +744,44 @@ constexpr int kTcFwdMaxDevices = 64;
 // be one object for the whole process, a unique symbol shared by every
 // library that includes this header, though each has its own kernel to set
 // up) and per device (a function attribute holds for the current device
-// only): raises tc_fwd_kernel<TW, BN>'s shared memory once, and -> how many
-// clusters of `size` blocks the card holds at once (cached).
-template <typename TW, int BN>
-static cudaError_t tc_fwd_clusters(int size, int* clusters) {
+// only): raises the shared memory of tc_fwd_kernel<TW, BN> (kTc) or of
+// f32_fwd_kernel<TW> once, and -> how many clusters of `size` blocks along z
+// the card holds at once (cached; cudaErrorInvalidConfiguration where not one
+// such cluster can be placed).
+template <bool kTc, typename TW, int BN>
+static cudaError_t fwd_clusters(int size, int* clusters) {
   static bool attr_set[kTcFwdMaxDevices] = {};
   static int cached[kTcFwdMaxDevices][kTcFwdMaxCluster + 1] = {};
+  const void* kernel;
+  int threads;
+  size_t smem;
+  if constexpr (kTc) {
+    kernel = (const void*)tc_fwd_kernel<TW, BN>;
+    threads = TcFwdTile<TW, BN>::kThreads;
+    smem = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
+  } else {
+    kernel = (const void*)f32_fwd_kernel<TW>;
+    threads = kF32FwdThreads;
+    smem = F32FwdTile<TW>::kSmemBytes;
+  }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kTcFwdMaxDevices) return cudaErrorInvalidDevice;
-  const size_t smem = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(tc_fwd_kernel<TW, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)  // clusters above 8 blocks (the narrow layers' few column slices)
-      err = cudaFuncSetAttribute(tc_fwd_kernel<TW, BN>,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && !kTc)  // all of the SM's shared memory: three blocks an SM
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
   if (cached[dev][size] == 0) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(1, 1, size);
-    cfg.blockDim = dim3(TcFwdTile<TW, BN>::kThreads);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -656,7 +791,7 @@ static cudaError_t tc_fwd_clusters(int size, int* clusters) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, tc_fwd_kernel<TW, BN>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (n < 1) return cudaErrorInvalidConfiguration;  // such a cluster cannot be placed
     cached[dev][size] = n;
@@ -676,7 +811,7 @@ template <typename TW, int BN>
 static cudaError_t tc_fwd_k_chunk(int M, int K, int N, int* chunk, int* n_chunks) {
   const int tiles = ((N + BN - 1) / BN) * ((M + kTcFwdBM - 1) / kTcFwdBM);
   int one = 0;
-  cudaError_t err = tc_fwd_clusters<TW, BN>(1, &one);  // blocks the card holds at once
+  cudaError_t err = fwd_clusters<true, TW, BN>(1, &one);  // blocks the card holds at once
   if (err != cudaSuccess) return err;
   int c = (one + tiles - 1) / tiles;
   c = c < 1 ? 1 : (c > kTcFwdMaxCluster ? kTcFwdMaxCluster : c);
@@ -686,7 +821,7 @@ static cudaError_t tc_fwd_k_chunk(int M, int K, int N, int* chunk, int* n_chunks
     *n_chunks = K > 0 ? (K + *chunk - 1) / *chunk : 1;
     if (*n_chunks == 1) return cudaSuccess;
     int fit = 0;
-    err = tc_fwd_clusters<TW, BN>(*n_chunks, &fit);
+    err = fwd_clusters<true, TW, BN>(*n_chunks, &fit);
     if (err != cudaSuccess) return err;
     if (tiles <= fit) return cudaSuccess;
   }
@@ -700,9 +835,11 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // The tensor map of a row-major (rows, cols) array at p, read in boxes of
-// (box_rows, box_cols), zeros past its edges.
+// (box_rows, box_cols), zeros past its edges, each box row `swizzle`d in
+// shared memory (none: as stored).
 static cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* p,
-                                 int rows, int cols, int elem_bytes, int box_rows, int box_cols) {
+                                 int rows, int cols, int elem_bytes, int box_rows, int box_cols,
+                                 CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -718,7 +855,7 @@ static cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, con
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(map, type, 2, const_cast<void*>(p), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -770,38 +907,79 @@ static cudaError_t launch_tc_fwd(const float* x, const TW* w, int M, int K, int 
   return launch_tc_fwd_bn<TW, 64>(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
 }
 
-// Scratch floats launch_fwd needs in `part`: the float32 form's K chunks (0
-// when K is not split); the tensor-core form needs none.
-inline long long fwd_scratch_floats(int M, int K, int N, bool tc, int plan_rows = 0) {
-  if (tc) return 0;
-  int n_chunks;
-  fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, &n_chunks);
-  return n_chunks > 1 ? (long long)n_chunks * M * N : 0;
+// pdl: a programmatic dependent launch that reads before its wait what
+// `early` names (pdl.cuh).  K split into fwd_k_chunk's chunks for plan_rows
+// rows (0: M), one cluster of blocks an output tile.
+template <typename TW>
+static cudaError_t launch_f32_fwd(const float* x, const TW* w, int M, int K, int N,
+                                  const MaskSpec& in_mask, const FwdEpilogue& epi, int plan_rows,
+                                  bool pdl, int early, cudaStream_t stream) {
+  int n_chunks, fit = 0;
+  const int k_chunk = fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, &n_chunks);
+  cudaError_t err = fwd_clusters<false, TW, kF32FwdBN>(n_chunks, &fit);
+  if (err != cudaSuccess) return err;
+  // tensor maps where the rows' stride is a multiple of 16 bytes
+  CUtensorMap tmx = {}, tmw = {};
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
+  const bool x_tma = K > 0 && aligned(x) && K % 4 == 0;
+  const bool w_tma = K > 0 && aligned(w) && ((long long)N * (long long)sizeof(TW)) % 16 == 0;
+  if (x_tma) {
+    err = tensor_map_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, M, K, 4, kF32FwdBM, kFwdBK,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  }
+  if (w_tma) {
+    err = tensor_map_2d(&tmw,
+                        sizeof(TW) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+                        w, K, N, (int)sizeof(TW), kFwdBK, kF32FwdBN);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kF32FwdBN - 1) / kF32FwdBN, (M + kF32FwdBM - 1) / kF32FwdBM, n_chunks);
+  cfg.blockDim = dim3(kF32FwdThreads);
+  cfg.dynamicSmemBytes = F32FwdTile<TW>::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster_launch_attrs(attr, 1, n_chunks, pdl);
+  return cudaLaunchKernelEx(&cfg, f32_fwd_kernel<TW>, tmx, tmw, x, w, M, K, N, in_mask, epi,
+                            k_chunk, x_tma, w_tma, early);
+}
+
+// The float32 forward's plan for (M, K, N), K split as for plan_rows rows (0:
+// M): out[0] the chunk length, out[1] the chunks (a cluster's blocks), out[2]
+// the grid's blocks, out[3] the blocks of f32_fwd_kernel the card holds at
+// once, out[4] the clusters of out[1] blocks it holds at once.
+template <typename TW>
+static cudaError_t f32_fwd_plan(int M, int K, int N, int plan_rows, int out[5]) {
+  out[0] = fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, &out[1]);
+  out[2] = ((N + kF32FwdBN - 1) / kF32FwdBN) * ((M + kF32FwdBM - 1) / kF32FwdBM) * out[1];
+  const cudaError_t err = fwd_clusters<false, TW, kF32FwdBN>(1, &out[3]);
+  return err != cudaSuccess ? err : fwd_clusters<false, TW, kF32FwdBN>(out[1], &out[4]);
 }
 
 // The kernels one launch_fwd launched, each counted right after its launch.
 struct FwdLaunched {
   int tc = 0;   // tc_fwd_kernel
-  int f32 = 0;  // fwd_kernel
-  int sum = 0;  // fwd_sum_kernel
-  int pdl = 0;  // tc_fwd_kernel as a programmatic dependent launch
+  int f32 = 0;  // f32_fwd_kernel
+  int pdl = 0;  // either as a programmatic dependent launch
 };
 
-// tc: the tensor-core form (tc_fwd_kernel: one launch, K split within a
-// cluster), else the float32 one (fwd_kernel, and fwd_sum_kernel where K is
-// split over the grid).  plan_rows > 0: split K as for that many rows (the
-// data-parallel trainer plans for the global tile, so a rank's rows are
-// summed in the order the single-device trainer sums them: each output's sum
-// depends only on the chunk boundaries), else as for M.  pdl, early: the
-// tensor-core form as a programmatic dependent launch (launch_tc_fwd_bn); the
-// float32 form takes neither.  *launched += what was launched.
+// tc: the tensor-core form (tc_fwd_kernel), else the float32 one
+// (f32_fwd_kernel); either is one launch, K split within a cluster.
+// plan_rows > 0: split K as for that many rows (the data-parallel trainer
+// plans for the global tile, so a rank's rows are summed in the order the
+// single-device trainer sums them: each output's sum depends only on the
+// chunk boundaries), else as for M.  pdl, early: a programmatic dependent
+// launch that reads before its wait what `early` names (pdl.cuh).
+// *launched += what was launched.
 template <typename TW>
 inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
-                              float coef, float* part, bool tc, FwdLaunched* launched,
-                              cudaStream_t stream, int plan_rows = 0, bool pdl = false,
-                              int early = 0) {
+                              float coef, bool tc, FwdLaunched* launched, cudaStream_t stream,
+                              int plan_rows = 0, bool pdl = false, int early = 0) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   FwdEpilogue epi;
   epi.b = b;
@@ -815,31 +993,13 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
   epi.coef = coef;
   epi.vec_y = vec_ok(y, N) && (dedx == nullptr || vec_ok(dedx, N));
   epi.vec_t = targ != nullptr && vec_ok(targ, N);
-  if (tc) {
-    const cudaError_t err =
-        launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
-    if (err == cudaSuccess) {
-      launched->tc += 1;
-      launched->pdl += pdl ? 1 : 0;
-    }
-    return err;
+  const cudaError_t err =
+      tc ? launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream)
+         : launch_f32_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
+  if (err == cudaSuccess) {
+    (tc ? launched->tc : launched->f32) += 1;
+    launched->pdl += pdl ? 1 : 0;
   }
-  int n_chunks;
-  const int k_chunk = fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, &n_chunks);
-  if (n_chunks > 1 && part == nullptr) return cudaErrorInvalidValue;
-  float* scratch = n_chunks > 1 ? part : nullptr;
-  dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM, n_chunks);
-  fwd_kernel<TW><<<grid, kFwdThreads, 0, stream>>>(x, w, M, K, N, in_mask, epi, scratch, k_chunk,
-                                                   vec_ok(x, K), vec_ok(w, N), vec_ok(scratch, N));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  launched->f32 += 1;
-  if (n_chunks == 1) return cudaSuccess;
-  const long long n = (long long)M * ((N + 3) / 4);
-  const int blocks = (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048);
-  fwd_sum_kernel<<<blocks, 256, 0, stream>>>(scratch, n_chunks, epi, vec_ok(scratch, N));
-  err = cudaGetLastError();
-  if (err == cudaSuccess) launched->sum += 1;
   return err;
 }
 
@@ -1645,7 +1805,7 @@ inline cudaError_t launch_update(float* w, TD* delta, float* b, float* db, const
   return cudaGetLastError();
 }
 
-// Per library and per device, as tc_fwd_clusters: raises stripe_bwd_kernel<kTc,
+// Per library and per device, as fwd_clusters: raises stripe_bwd_kernel<kTc,
 // TW, TD, BK>'s shared memory once, and -> how many clusters of `size` blocks
 // the card holds at once (cached).
 template <bool kTc, typename TW, typename TD, int BK>
@@ -1815,7 +1975,7 @@ static cudaError_t launch_bwd_form(const float* dedx, const float* yprev, const 
 struct BwdLaunched {
   int tc = 0;   // stripe_bwd_kernel, tensor-core products
   int f32 = 0;  // stripe_bwd_kernel, float32 FMA products
-  int pdl = 0;  // the tensor-core form as a programmatic dependent launch
+  int pdl = 0;  // either form as a programmatic dependent launch
 };
 
 // One launch of stripe_bwd_kernel.  dedy: (M, K), or nullptr when the layer
@@ -1823,9 +1983,8 @@ struct BwdLaunched {
 // else float32 FMA ones.  gout: K*N + N floats for the gradient-out form (W
 // is then only read, and delta, b and db may be nullptr), or nullptr for the
 // in-place update.  At most kBwdMaxRows rows (else cudaErrorInvalidValue).
-// pdl, early: the tensor-core form as a programmatic dependent launch
-// (launch_bwd_bk); the float32 chain takes neither.  *launched += what was
-// launched.
+// pdl, early: a programmatic dependent launch (launch_bwd_bk), either form.
+// *launched += what was launched.
 template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskSpec& in_mask,
                               TW* w, TD* delta, float* b, float* db, float* gout, float* dedy,
@@ -1837,10 +1996,10 @@ inline cudaError_t launch_bwd(const float* dedx, const float* yprev, const MaskS
       tc ? launch_bwd_form<true>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv, M, K,
                                  N, mom, A, Bc, sr_key, flags, pdl, early, stream)
          : launch_bwd_form<false>(dedx, yprev, in_mask, w, delta, b, db, gout, dedy, deriv, M, K,
-                                  N, mom, A, Bc, sr_key, flags, false, 0, stream);
+                                  N, mom, A, Bc, sr_key, flags, pdl, early, stream);
   if (err == cudaSuccess) {
     (tc ? launched->tc : launched->f32) += 1;
-    launched->pdl += tc && pdl ? 1 : 0;
+    launched->pdl += pdl ? 1 : 0;
   }
   return err;
 }

@@ -13,27 +13,27 @@
 // backward, and masks, pre-activations and the output layer's dedx never
 // exist as separate passes.  One call of resident_chunk_train enqueues, for
 // every bunch i < n_real and in order on one stream, the forward launches
-// (fused_mlp.cuh:fwd_kernel and, where K is split over the grid,
-// fwd_sum_kernel; or tc_fwd_kernel alone; the input's mask is generated
-// while x is loaded, each hidden layer's mask in the epilogue of the layer
-// that feeds it, dedx in the last layer's epilogue) and the backward
-// launches, last layer first: stripe_bwd_kernel in either product form
-// (dedy summed inside the kernel, across a thread-block cluster, with the
-// derivative in its epilogue).  So a tensor-core bunch of L layers is 2L
-// launches, a float32-product one 2L plus a fwd_sum_kernel for each forward
-// that splits K, and the workspace holds no dedy partials.  A single stream
-// keeps the two orders the update rule needs: dedy of layer l uses W_l before
-// its update (one kernel does both), and the forward of bunch i+1 sees W
-// after bunch i.  No host synchronisation, no allocation.
+// (fused_mlp.cuh:f32_fwd_kernel or tc_fwd_kernel, K split within a
+// thread-block cluster; the input's mask is generated while x is loaded, each
+// hidden layer's mask in the epilogue of the layer that feeds it, dedx in the
+// last layer's epilogue) and the backward launches, last layer first:
+// stripe_bwd_kernel in either product form (dedy summed inside the kernel,
+// across a thread-block cluster, with the derivative in its epilogue).  So a
+// bunch of L layers is 2L launches in either product form, and the workspace
+// holds no partial sums.  A single stream keeps the two orders the update
+// rule needs: dedy of layer l uses W_l before its update (one kernel does
+// both), and the forward of bunch i+1 sees W after bunch i.  No host
+// synchronisation, no allocation.
 //
-// The tensor-core chain overlaps its launches (Hopper's programmatic
-// dependent launch, pdl.cuh): every launch after the call's first may start
-// while the one before it finishes, and loads before its griddepcontrol.wait
-// the operands that launch does not write, as the plan of
+// The chain overlaps its launches in both product forms (Hopper's
+// programmatic dependent launch, pdl.cuh): every launch after the call's
+// first may start while the one before it finishes, and loads before its
+// griddepcontrol.wait the operands that launch does not write, as the plan of
 // ops/resident_chunk.py:early_read_plan names them: the forward of layer
 // l >= 1 its W (the forward of layer 0 follows the backward that just wrote
 // W_0), every backward its W, Delta and yprev.  Only x and dedx come from the
-// launch just before.  The float32-product chain launches as before.
+// launch just before.  The two forms launch the same chain, so one plan
+// serves both.
 //
 // Bound: per bunch 2 * 128 * K*N FLOP for each product: three a layer
 // (forward, gradient, dedy) but two for the first, which has no layer below
@@ -89,32 +89,25 @@ constexpr int kMaxLayers = 16;
 
 struct Workspace {
   long long ys[kMaxLayers];  // offset of the stored input of layer l (l >= 1)
-  long long out, dedx_a, dedx_b, part, total;
+  long long out, dedx_a, dedx_b, total;
 };
 
-// `bunch`: the rows one forward and backward work on (a row tile's); tc: the
-// tensor-core forward, whose split of K differs.
-Workspace plan_workspace(const int* sizes, int L, int bunch, bool tc) {
+// `bunch`: the rows one forward and backward work on (a row tile's).
+Workspace plan_workspace(const int* sizes, int L, int bunch) {
   Workspace ws;
-  long long off = 0, max_w = 0, max_part = 0;  // part: the float32 forward's K chunks
+  long long off = 0, max_w = 0;
   ws.ys[0] = -1;
   for (int l = 1; l < L; ++l) {
     ws.ys[l] = off;
     off += (long long)bunch * sizes[l];
   }
   for (int l = 0; l <= L; ++l) max_w = sizes[l] > max_w ? sizes[l] : max_w;
-  for (int l = 0; l < L; ++l) {
-    const long long f = fwd_scratch_floats(bunch, sizes[l], sizes[l + 1], tc);
-    max_part = f > max_part ? f : max_part;
-  }
   ws.out = off;
   off += (long long)bunch * sizes[L];
   ws.dedx_a = off;
   off += (long long)bunch * max_w;
   ws.dedx_b = off;
   off += (long long)bunch * max_w;
-  ws.part = off;
-  off += max_part;
   ws.total = off;
   return ws;
 }
@@ -144,10 +137,10 @@ __global__ void philox_words_kernel(const uint32_t* __restrict__ in, uint32_t* _
 }  // namespace
 
 // Floats of workspace resident_chunk_train needs for tiles of `bunch` rows
-// with products of the form bf16; sizes has L + 1 entries.
-extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunch, int bf16) {
+// (either product form); sizes has L + 1 entries.
+extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunch) {
   if (L < 1 || L > kMaxLayers) return -1;
-  return plan_workspace(sizes, L, bunch, bf16 != 0).total;
+  return plan_workspace(sizes, L, bunch).total;
 }
 
 namespace {
@@ -166,31 +159,30 @@ inline int early_flags(const int* plan, int L, int direction, int l) {
 // coef*(y - t).  Dropout: the input's mask in_mask, hidden layer l+1's the
 // stream key0 + (l+1)*kLayerStride; every mask draws the rows row0.. of the
 // global tile, so a rank of the data-parallel trainer draws its rows of the
-// single-device masks.  plan_rows: the rows K's split over the grid is planned
-// for (launch_fwd; 0: tile).  part: fwd_scratch_floats of the widest layer.
-// plan (tensor cores; nullptr: none): the chain's early-read flags
+// single-device masks.  plan_rows: the rows K's split is planned for
+// (launch_fwd; 0: tile).  plan (nullptr: none): the chain's early-read flags
 // (early_flags), every launch a programmatic dependent one but the call's
 // first; *first: this tile's forward begins the call (cleared by its first
 // launch).
 template <typename TW>
 cudaError_t forward_tile(const float* x, const float* t, int tile, const int* sizes, int L,
                          void* const* w, float* const* b, float* const* y, float* dedx,
-                         float* part, int hidden, int output, const MaskSpec& in_mask,
-                         unsigned key0, unsigned thr_hid, float scale_hid, int row0, float coef,
-                         int plan_rows, bool tc, const int* plan, bool* first,
-                         long long* tallies, cudaStream_t stream) {
+                         int hidden, int output, const MaskSpec& in_mask, unsigned key0,
+                         unsigned thr_hid, float scale_hid, int row0, float coef, int plan_rows,
+                         bool tc, const int* plan, bool* first, long long* tallies,
+                         cudaStream_t stream) {
   for (int l = 0; l < L; ++l) {
     const bool last = l == L - 1;
     const MaskSpec out_mask =
         (!last && thr_hid)
             ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid, row0)
             : no_mask();
-    const bool pdl = tc && plan != nullptr && !*first;
+    const bool pdl = plan != nullptr && !*first;
     FwdLaunched done;
     const cudaError_t err = launch_fwd(
         l == 0 ? x : y[l - 1], (const TW*)w[l], b[l], y[l], tile, sizes[l], sizes[l + 1],
         last ? output : hidden, l == 0 ? in_mask : no_mask(), out_mask, last ? t : nullptr,
-        last ? dedx : nullptr, coef, part, tc, &done, stream, plan_rows, pdl,
+        last ? dedx : nullptr, coef, tc, &done, stream, plan_rows, pdl,
         pdl ? early_flags(plan, L, 0, l) : 0);
     if (err != cudaSuccess) return err;
     *first = false;
@@ -198,7 +190,6 @@ cudaError_t forward_tile(const float* x, const float* t, int tile, const int* si
     const int products = done.tc + done.f32;
     tallies[0] += products;
     tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? products : 0;
-    tallies[4] += done.sum;
     tallies[7] += std::is_same<TW, float>::value ? 0 : products;
     tallies[8] += done.tc;
   }
@@ -212,7 +203,7 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
                 float scale_vis, float scale_hid, unsigned seed, float mom, float A, float Bc,
                 bool tc, const int* plan, long long* tallies, cudaStream_t stream) {
   constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
-  const Workspace ws = plan_workspace(sizes, L, tile, tc);
+  const Workspace ws = plan_workspace(sizes, L, tile);
   const float coef = 2.0f / (float)(tile * accum);
   float* ys[kMaxLayers];
   for (int l = 0; l < L; ++l) ys[l] = work + (l == L - 1 ? ws.out : ws.ys[l + 1]);
@@ -228,15 +219,14 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
       float* dedx = work + ws.dedx_a;
       float* other = work + ws.dedx_b;
       const cudaError_t ferr =
-          forward_tile<TW>(xi, ti, tile, sizes, L, w, b, ys, dedx, work + ws.part, hidden, output,
-                           in_mask, key0, thr_hid, scale_hid, 0, coef, 0, tc, plan, &first,
-                           tallies, stream);
+          forward_tile<TW>(xi, ti, tile, sizes, L, w, b, ys, dedx, hidden, output, in_mask, key0,
+                           thr_hid, scale_hid, 0, coef, 0, tc, plan, &first, tallies, stream);
       if (ferr != cudaSuccess) return (int)ferr;
       for (int l = L - 1; l >= 0; --l) {
         const float* yprev = l == 0 ? xi : work + ws.ys[l];
         const unsigned sr_key =
             seed + (unsigned)i * kBunchStride + (unsigned)l * kLayerStride + 1u;
-        const bool pdl = tc && plan != nullptr;  // a forward came first
+        const bool pdl = plan != nullptr;  // a forward came first
         BwdLaunched done;
         const cudaError_t err = launch_bwd(
             dedx, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l], nullptr,
@@ -270,23 +260,24 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // db float32.  accum > 1: each bunch in `accum` row tiles of `tile` rows,
 // the gradient accumulated into d and the step applied with the last tile
 // (float32 storage only).  bf16 != 0: products of operands rounded to
-// bfloat16 on the tensor cores, else float32 products; then every launch
-// after the call's first is a programmatic dependent launch (pdl.cuh) that
-// reads before its wait what plan (early_read_plan(L, accum), 4 * L ints)
-// allows it.  A refused launch returns its error: there is no other chain.
+// bfloat16 on the tensor cores, else float32 products.  In either form every
+// launch after the call's first is a programmatic dependent launch (pdl.cuh)
+// that reads before its wait what plan (early_read_plan(L, accum), 4 * L
+// ints) allows it.  A refused launch returns its error: there is no other
+// chain.
 // hidden/output: 0 linear, 1 relu, 2 sigmoid.
 // thr_vis/thr_hid: mask thresholds of the input and of the hidden activations
 // (0 = no dropout there), scale_*: factor on kept elements.  Update: delta' =
 // mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
 // tallies[11] += launches of the forward and backward product kernels (either
-// form), nothing at [2] (the reduce_dedy key, which stays in the layout the
-// callers read: the backward sums dedy in the kernel), the count of the
-// product launches that drew Philox masks,
-// launches of fwd_sum_kernel (float32-product layers whose K is split),
-// backward launches that rounded stochastically, backward launches of
-// row-tiled bunches, forward launches that read bfloat16 weights, forward and
-// backward launches of the tensor-core forms, and the programmatic dependent
-// launches among them (2 L n_real accum - 1 a tensor-core call).
+// form), nothing at [2] and [4] (the reduce_dedy and fused_linear_act_sum
+// keys, which stay in the layout the callers read: both layer kernels sum
+// their split inside the kernel), the count of the product launches that drew
+// Philox masks, backward launches that rounded stochastically, backward
+// launches of row-tiled bunches, forward launches that read bfloat16 weights,
+// forward and backward launches of the tensor-core forms, and the
+// programmatic dependent launches among all of them (2 L n_real accum - 1 a
+// call).
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,
@@ -322,15 +313,14 @@ extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, 
 // 2 / (the global bunch).  Masks as resident_chunk_train draws them for the
 // global tile index gi (key0 = seed + gi * 7919), at rows row0 + r, and K
 // split over the grid as for the global tile: a row's activations are the
-// single-device trainer's bit for bit.  part:
-// chunk_forward_scratch_floats(sizes, L, tile, global_tile, bf16) floats.
+// single-device trainer's bit for bit.  Every launch is an ordinary one.
 // tallies as resident_chunk_train's (its forward entries).  The
 // gradient-out backward and the update of each layer are fused_mlp.cu's; the
 // sum between them is the caller's.
 extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int global_tile,
                                 const int* sizes, int L, void* const* w, float* const* b,
-                                float* const* y, float* dedx, float* part, int hidden,
-                                int output, unsigned thr_vis, unsigned thr_hid, float scale_vis,
+                                float* const* y, float* dedx, int hidden, int output,
+                                unsigned thr_vis, unsigned thr_hid, float scale_vis,
                                 float scale_hid, unsigned key0, int row0, float coef, int bf16,
                                 long long* tallies, void* stream) {
   if (L < 1 || L > kMaxLayers || tile <= 0 || global_tile < tile || row0 < 0 || hidden < 0 ||
@@ -339,21 +329,9 @@ extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int gl
   const MaskSpec in_mask = thr_vis ? philox_mask(key0, thr_vis, scale_vis, row0) : no_mask();
   bool first = true;
   const cudaError_t err = forward_tile<float>(
-      x, t, tile, sizes, L, w, b, y, dedx, part, hidden, output, in_mask, key0, thr_hid, scale_hid,
-      row0, coef, global_tile, bf16 != 0, nullptr, &first, tallies, (cudaStream_t)stream);
+      x, t, tile, sizes, L, w, b, y, dedx, hidden, output, in_mask, key0, thr_hid, scale_hid, row0,
+      coef, global_tile, bf16 != 0, nullptr, &first, tallies, (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
-// Floats of `part` dp_chunk_forward needs for tiles of `tile` rows of
-// global tiles of `global_tile`.
-extern "C" long long chunk_forward_scratch_floats(const int* sizes, int L, int tile,
-                                                  int global_tile, int bf16) {
-  long long most = 0;
-  for (int l = 0; l < L; ++l) {
-    const long long f = fwd_scratch_floats(tile, sizes[l], sizes[l + 1], bf16 != 0, global_tile);
-    most = f > most ? f : most;
-  }
-  return most;
 }
 
 // out (rows, cols) = the 0/1 mask (times scale) of rows row0..row0+rows-1 of

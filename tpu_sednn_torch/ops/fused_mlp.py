@@ -2,12 +2,11 @@
 the port of tpu_sednn/ops/fused_mlp.py:
 
 * `fused_linear_act`  — y = act(x @ W + b) (`_fwd_kernel`): bias and
-  activation in the product's epilogue, y written once.  The tensor-core
-  form is one launch: K is split over the blocks of a thread-block cluster,
-  which sum their partial tiles through distributed shared memory.  The
-  float32 form splits K over the grid when the batch is small (partial sums
-  to a scratch, then a summing launch that does the epilogue).  Two
-  optional fusions the chunk trainer uses: a dropout mask on x while it is
+  activation in the product's epilogue, y written once.  Both product forms
+  are one launch: K is split over the blocks of a thread-block cluster, which
+  sum their partial tiles through distributed shared memory (the float32
+  form's split is `fwd_k_chunk`'s, so its sums keep one order whatever its
+  tiles).  Two optional fusions the chunk trainer uses: a dropout mask on x while it is
   loaded (`in_mask`) and the dropout mask of the NEXT layer's input applied
   to y in the epilogue (`out_mask`), each either an explicit 0/1 tensor or
   `(key, omit)` for the Philox stream of ops/philox.py generated in the
@@ -37,7 +36,7 @@ astype(jnp.bfloat16)) and the products summed in float32, on the tensor
 cores (tc_fwd_kernel, stripe_bwd_kernel's tensor-core form).  Everything
 else stays float32 and unrounded: biases, the bias gradient, wc*W and the
 step W + delta' on the unrounded W, the activation derivative.  bf16=False:
-float32 products (fwd_kernel, stripe_bwd_kernel's FMA form).  On a CUDA
+float32 products (f32_fwd_kernel, stripe_bwd_kernel's FMA form).  On a CUDA
 tensor each value launches its own form or raises; neither falls back on the
 other.
 
@@ -49,12 +48,10 @@ W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 `fused_bwd_update` writes W, delta, b and delta_b IN PLACE on both devices
 and returns them.  `<wrapper>.launches` counts launches of the wrapper's
 product kernel (either form), `<wrapper>.tc_launches` those of its
-tensor-core form; `fused_linear_act.sum_launches` counts apart the
-float32 forward's second kernel (fwd_sum_kernel, where it splits K; the
-tensor-core form never launches it); each is counted where the C entry
-point reports the launch.  `fused_bwd_update.reduce_launches` and
-`fused_bwd_grad_out.reduce_launches` stay 0: the backward launches no second
-kernel in either form.  `dp_update.sr_launches` counts the update's
+tensor-core form; each is counted where the C entry point reports the
+launch.  `fused_linear_act.sum_launches`, `fused_bwd_update.reduce_launches`
+and `fused_bwd_grad_out.reduce_launches` stay 0: no layer kernel launches a
+second kernel in either form.  `dp_update.sr_launches` counts the update's
 launches that rounded a bfloat16 delta stochastically.  The float32 forms
 are FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
 (csrc/fused_mlp.cuh says why).
@@ -211,14 +208,14 @@ def dp_update_reference(w, delta, b, delta_b, grad, momentum, a_coef, b_coef,
 def _c_api() -> dict:
     """csrc/fused_mlp.cu's entry points: name -> (argtypes, restype)."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    ip, ll = ctypes.POINTER(ctypes.c_int), ctypes.c_longlong
+    ip = ctypes.POINTER(ctypes.c_int)
     return {
-        "fused_linear_act_f32": ([p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, p, i,
-                                  ip, p], i),
-        "fused_fwd_scratch_floats": ([i, i, i, i], ll),
+        "fused_linear_act_f32": ([p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, i, ip,
+                                  p], i),
         "fused_bwd_update_f32": ([p, p, p, i, p, i, u, p, p, p, i, i, i, f, f, f, i, p, u, u, f,
                                   i, i, ip, p], i),
         "fused_bwd_grad_out_f32": ([p, p, p, p, p, i, i, i, i, p, u, u, f, i, i, i, ip, p], i),
+        "fused_f32_fwd_plan": ([i, i, i, i, ip], i),
         "fused_bwd_plan": ([i, i, i, i, i, ip], i),
         "fused_tc_smem_bytes": ([ip], None),
         "dp_update_f32": ([p, p, i, p, p, p, i, i, f, f, f, u, i, p], i),
@@ -298,21 +295,14 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
     im = _mask_args("in_mask", in_mask, in_scale, (B, K), x.device)
     om = _mask_args("out_mask", out_mask, out_scale, (B, N), x.device)
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    # partial sums of the float32 form's split over K (none for a large batch or
-    # for the tensor-core form)
-    part = torch.empty(lib.fused_fwd_scratch_floats(B, K, N, int(bf16)), dtype=torch.float32,
-                       device=x.device)
-    launched = (ctypes.c_int * 3)()  # tc_fwd_kernel, fwd_kernel, fwd_sum_kernel
+    launched = (ctypes.c_int * 2)()  # tc_fwd_kernel, f32_fwd_kernel
     with torch.cuda.device(x.device):
-        rc = lib.fused_linear_act_f32(
+        rc = _lib().fused_linear_act_f32(
             x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), b.data_ptr(),
-            y.data_ptr(), B, K, N, ACTS[act],
-            *im[:5], *om[:5], part.data_ptr() if part.numel() else None, int(bf16), launched,
+            y.data_ptr(), B, K, N, ACTS[act], *im[:5], *om[:5], int(bf16), launched,
             torch.cuda.current_stream(x.device).cuda_stream)
     fused_linear_act.launches += launched[0] + launched[1]
     fused_linear_act.tc_launches += launched[0]
-    fused_linear_act.sum_launches += launched[2]
     if rc != 0:
         raise RuntimeError(f"fused_linear_act kernel launch failed: CUDA error {rc}")
     return y

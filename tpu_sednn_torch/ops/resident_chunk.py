@@ -9,7 +9,7 @@ bias, activation and the output layer's dedx in the products' epilogues) and
 the fused backward + in-place update launches of csrc/fused_mlp.cuh: no
 gradient matrix is materialised, W and delta are read once and written once
 per bunch in the backward, and nothing synchronises with the host inside a
-chunk.  With tensor-core products every launch after a call's first is a
+chunk.  In both product forms every launch after a call's first is a
 programmatic dependent launch: it starts while the launch before it ends and
 loads, before it waits for that launch, the operands `early_read_plan`
 allows it (the C code decides no hazard of its own).
@@ -72,21 +72,20 @@ _mask_threshold = mask_threshold
 
 # kernel launches enqueued by the chunk trainer's C entry point, by kernel:
 # the forward and backward product kernels (either form), "reduce_dedy" (0:
-# the backward sums dedy inside the kernel in both forms; the key keeps the
-# tallies' layout), then the count of the product launches that drew dropout
-# bits in the kernel, then fwd_sum_kernel (one for every
-# float32-product forward whose K is split over the grid; the tensor-core
-# forward sums its K split inside the kernel); then by form: backward launches
-# that stored bfloat16 with stochastic rounding, backward launches of
-# row-tiled bunches, forward launches that read bfloat16 weights; the
-# forward and backward launches of the tensor-core forms (tc_fwd_kernel,
-# stripe_bwd_kernel's tensor-core form), counted in the first two as well; and the programmatic
-# dependent launches among those (every tensor-core launch of a call but its
-# first: 2 L n_real accum - 1 a call; early_read_plan).  The data-parallel
-# trainer's forward entry (dp_chunk_forward) tallies into the forward keys
-# (it launches nothing as a dependent launch); its backward and update
-# launches are counted by their wrappers (fused_bwd_grad_out, dp_update in
-# ops/fused_mlp.py)
+# the backward sums dedy inside the kernel in both forms), then the count of
+# the product launches that drew dropout bits in the kernel, then
+# "fused_linear_act_sum" (0: the forward sums its K split inside the kernel in
+# both forms; the two zero keys keep the tallies' layout); then by form:
+# backward launches that stored bfloat16 with stochastic rounding, backward
+# launches of row-tiled bunches, forward launches that read bfloat16 weights;
+# the forward and backward launches of the tensor-core forms (tc_fwd_kernel,
+# stripe_bwd_kernel's tensor-core form), counted in the first two as well; and
+# the programmatic dependent launches (every launch of a call but its first,
+# in either product form: 2 L n_real accum - 1 a call; early_read_plan).  The
+# data-parallel trainer's forward entry (dp_chunk_forward) tallies into the
+# forward keys (it launches nothing as a dependent launch); its backward and
+# update launches are counted by their wrappers (fused_bwd_grad_out,
+# dp_update in ops/fused_mlp.py)
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "reduce_dedy": 0, "philox_mask": 0,
                                    "fused_linear_act_sum": 0, "sr_bwd_update": 0,
@@ -94,7 +93,7 @@ kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "tc_linear_act": 0, "tc_bwd_update": 0, "pdl": 0}
 
 # early_read_plan's bits (csrc/pdl.cuh): the operand groups a launch of the
-# tensor-core chain may read before its griddepcontrol.wait
+# chain may read before its griddepcontrol.wait
 EARLY_W = 1      # the layer's W and b
 EARLY_DELTA = 2  # the layer's delta and delta_b
 EARLY_YPREV = 4  # the backward's yprev, the layer's input
@@ -108,17 +107,19 @@ def plan_index(direction: int, layer: int, first: bool, n_layers: int) -> int:
 
 
 def early_read_plan(n_layers: int, accum: int) -> list:
-    """The chunk trainer's hazard rule for its chain of tensor-core launches,
-    as 4 * n_layers ints of EARLY_* bits at `plan_index`: the operand groups
+    """The chunk trainer's hazard rule for its chain of launches, as
+    4 * n_layers ints of EARLY_* bits at `plan_index`: the operand groups
     each launch may read before it waits for the launch just before it.
 
     A call enqueues, for every tile of `accum` tiles of every bunch, the
-    forwards of layers 0..L-1, then the backwards of layers L-1..0.  Every
-    launch after the call's first is a programmatic dependent launch: it may
-    start when every block of the launch before it has passed its own wait,
-    so every launch before that one has completed and its writes are
-    visible (csrc/pdl.cuh).  The rule: a launch may read an operand early
-    only if the launch just before it does not write it.
+    forwards of layers 0..L-1, then the backwards of layers L-1..0: one
+    launch each in either product form (tensor cores or float32 FMAs), so
+    one plan serves both.  Every launch after the call's first is a
+    programmatic dependent launch: it may start when every block of the
+    launch before it has passed its own wait, so every launch before that
+    one has completed and its writes are visible (csrc/pdl.cuh).  The rule:
+    a launch may read an operand early only if the launch just before it
+    does not write it.
     * The call's first launch reads nothing early.
     * The forward of layer l >= 1 follows the forward of layer l-1, which
       writes only y[l-1] (this forward's x, read after the wait): W_l early.
@@ -349,13 +350,12 @@ def _c_api() -> Dict[str, tuple]:
     ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
     llp, ll = ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong
     return {
-        "resident_workspace_floats": ([ip, i, i, i], ll),
+        "resident_workspace_floats": ([ip, i, i], ll),
         # ..., bf16, plan (early_read_plan), tallies, stream
         "resident_chunk_train": ([p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, i, i, u, u, f, f,
                                   u, f, f, f, i, ip, llp, p], i),
-        "dp_chunk_forward": ([p, p, i, i, ip, i, pp, pp, pp, p, p, i, i, u, u, f, f, u, i, f, i,
-                              llp, p], i),
-        "chunk_forward_scratch_floats": ([ip, i, i, i, i], ll),
+        "dp_chunk_forward": ([p, p, i, i, ip, i, pp, pp, pp, p, i, i, u, u, f, f, u, i, f, i, llp,
+                              p], i),
         "philox_mask_f32": ([p, i, i, i, u, u, f, p], i),
         "philox_words_u32": ([p, p, i, p], i),
     }
@@ -496,8 +496,8 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         _check_bwd_rows(tile)
         lib = _lib()
         c_sizes = (ctypes.c_int * (L + 1))(*sizes)
-        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile, int(bf16)),
-                           dtype=torch.float32, device=dev)
+        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile), dtype=torch.float32,
+                           device=dev)
         ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
         plan = (ctypes.c_int * (4 * L))(*early_read_plan(L, accum))
         tallies = (ctypes.c_longlong * len(kernel_launches))()
@@ -583,8 +583,6 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
     f32 = dict(dtype=torch.float32, device=device)
     ys = [torch.empty((tile, sizes[l + 1]), **f32) for l in range(L)]
     dedx = torch.empty(tile * max(sizes), **f32)
-    part = torch.empty(max(lib.chunk_forward_scratch_floats(c_sizes, L, tile, tile_g, int(bf16)), 1),
-                       **f32)
     y_ptrs = (ctypes.c_void_p * L)(*[y.data_ptr() for y in ys])
     omits, scales = _dropout_setup(cfg, L)
     omit_hid, scale_hid = (omits[1], scales[1]) if L > 1 else (0.0, 1.0)
@@ -600,7 +598,7 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
         with torch.cuda.device(device):
             rc = lib.dp_chunk_forward(
                 x.data_ptr(), t.data_ptr(), tile, tile_g, c_sizes, L, w_ptrs, b_ptrs, y_ptrs,
-                dedx.data_ptr(), part.data_ptr(), ACTS[cfg.hidden], ACTS[cfg.output], thr_vis,
+                dedx.data_ptr(), ACTS[cfg.hidden], ACTS[cfg.output], thr_vis,
                 thr_hid, scales[0], scale_hid, int(key0) & 0xFFFFFFFF, int(row0), float(coef),
                 int(bf16), tallies, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
