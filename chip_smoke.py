@@ -59,7 +59,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      with dedy, reduce_dedy_kernel traced).
   6. dropout stream: the device Philox against the Random123 known-answer
      vectors and, bit for bit, against its plain version; zero rate, stream
-     distinctness and rank-slice identity of sample_resident_masks.
+     distinctness and rank-slice identity of sample_resident_masks.  The
+     chunk trainer's input-mask table (input_mask_bits_kernel, one launch a
+     call) bit-equal to its plain version at K 1548, 3084, 129 and 33, tiles
+     of 128 and 64 rows, and on a whole 800-tile call; the layer-0 wrappers
+     reading a table bit-equal to their Philox draw; a call with input
+     dropout and no table refused; the draw's time beside its bound.
   7. chunk trainer at full width (1548-2048x3-129, bunch 128) against its
      float64 plain version, float32 products: rules parity and clean, dropout
      off / parity / inverted, a sigmoid head, n_real below capacity, a
@@ -69,8 +74,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      refused; the chunk trainer's chain of programmatic dependent launches
      bit-equal to the standalone wrappers launched one by one (tensor cores
      with float32 state and sr_delta, and float32 products; the same masks
-     and rounding streams) and its `pdl` tally at 2 L n_real - 1 a call; ms
-     per bunch of both forms.
+     and rounding streams) and its `pdl` tally at 2 L n_real - 1 a call, the
+     input masks drawn by one launch a call and by no layer kernel; ms per
+     bunch of both forms; SHA-256 digests of the state after an 800-bunch
+     call in both forms (CHUNK_DIGEST_FORMS, for comparing two checkouts).
   8. training (main path): a seeded speech-like corpus -> noisy and clean LPS
      pfiles with make_pfile on the card (> 120,000 frames), then
      `python -m tpu_sednn_torch.cli` twice (momentum 0.5, then 0.54 warm
@@ -81,7 +88,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      bf16=False) end within TC_CV_FRACTION; engine=resident with float32
      products and with tensor cores against engine=xla with dropout off;
      samples/s, ms per bunch; one full chunk (800 bunches) trained twice
-     from the same state, bit for bit equal, the host's own cost a bunch
+     from the same state, bit for bit equal (their state digests printed),
+     the host's own cost a bunch
      (100 bunches enqueued behind a spin kernel), and a trace of 200 bunches
      with the device's busy time as the union of the kernels' intervals
      (with programmatic dependent launches they overlap).
@@ -103,7 +111,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the unspilled run; a wrong hyperparameter given to the sr_delta or the
      sr_state trainer is refused; the tensor-core float32-state, sr_delta and
      sr_state forms against the float64 plain version of the same rounding,
-     faults refused; ms per bunch of each form beside its bound.  Then
+     faults refused; ms per bunch of each form beside its bound; state
+     digests of the sr_delta, sr_state, hbm_spill and tile_rows=64 forms
+     after a 100-bunch call.  Then
      chain_times: the tensor-core chunk trainer at 8 kHz and 16 kHz sr_delta
      and the float32 one at 8 kHz timed whole, with the device alone and the
      host's own cost a bunch.
@@ -161,8 +171,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 `kernels` line and no final line and exits with code 2.  `--chain-times`
 only times the chunk trainer's chain (chain_times), `--bwd-times` only the
 backward (bwd_times), `--fwd-times` only the float32 forward (fwd_times, with
-SHA-256 digests of its outputs), with `--package-root DIR` the package of
-another checkout (A/B runs in one call); all three exit with 2.
+SHA-256 digests of its outputs), `--mask-times` only the input mask's share
+of layer 0 and of the chains, with the chunk trainer's state digests
+(mask_times), with `--package-root DIR` the package of another checkout (A/B
+runs in one call); all four exit with 2.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
 non-zero without one.
 """
@@ -1834,12 +1846,118 @@ def phase_masks() -> dict:
     print(f"[kernel] philox mask {shape}: kernel {ms:.4f} ms, plain (int64 tensor arithmetic, more "
           f"launches than can be enqueued ahead: the host's share is in it) {plain_ms:.4f} ms, torch.rand >= omit {library_ms:.4f} ms, bound "
           f"{nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms (bytes: the mask written once)", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes", max_abs_err=mask_err,
-                shape=f"{shape[0]}x{shape[1]}",
-                times_of="one standalone launch of sample_resident_masks at this shape; `launches` "
-                         "counts the trainer's forward and backward launches that drew masks "
-                         "in the kernel")
+    probe = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                 shape=f"{shape[0]}x{shape[1]}")
+    return dict(_phase_mask_table(), max_abs_err=mask_err, probe=probe)
+
+
+# the card's 32-bit integer multiply rate: 64 results a clock an SM, half its
+# FP32 FMA rate (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), at the clock of PEAK_FP32_FLOPS
+PEAK_IMAD_PER_S = PEAK_FP32_FLOPS / 4.0
+# a Philox4x32-10 call: ten rounds of two 32 x 32 -> 64-bit products, each
+# two 32-bit multiply results
+PHILOX_IMADS = 40
+
+
+def _mask_table_bound(n_tiles: int, tile: int, K: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one draw of a call's input-mask
+    table: the table written once, against the Philox calls the rows need
+    (ceil(K / 4) a row) on the integer multipliers."""
+    t_bytes = 4.0 * n_tiles * tile * ((K + 31) // 32) / PEAK_BYTES_PER_S * 1e3
+    t_ops = PHILOX_IMADS * n_tiles * tile * ((K + 3) // 4) / PEAK_IMAD_PER_S * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _phase_mask_table() -> dict:
+    """The chunk trainer's input-mask table (input_mask_bits_kernel): bit-equal
+    to its plain version at K 1548, 3084, 129 and 33, tiles of 128 and 64
+    rows (accum 1 and 2), omit 0.1 and 0.5, and on a whole 800-tile call of
+    the 8 kHz net; the layer-0 wrappers reading a table bit-equal to the same
+    wrappers drawing Philox, both product forms, at both nets' layer-0
+    shapes; a chunk-trainer call with input dropout and no table refused;
+    the draw's time on an 800-tile call at 8 and 16 kHz beside its plain
+    version's, torch.rand >= omit (a yardstick: not the same bits) and the
+    bound."""
+    import ctypes
+
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_update, fused_linear_act
+    from tpu_sednn_torch.ops.philox import mask_threshold, philox_mask_words
+
+    seed, n_held = 2**31 - 5, 0
+    for K in (1548, 3084, 129, 33):
+        for accum in (1, 2):
+            for omit in (0.1, 0.5):
+                tile = BUNCH // accum
+                got = rc.input_mask_bits(seed, 3 * accum, tile, K, omit)
+                want = rc.input_mask_bits_reference(seed, 3 * accum, tile, K, omit, device="cuda")
+                _check(torch.equal(got, want), f"input mask table K {K}, tiles of {tile}, omit "
+                                               f"{omit}: the kernel differs from its plain version")
+                n_held += got.numel()
+    n_tiles = 800
+    got = rc.input_mask_bits(seed, n_tiles, BUNCH, FLAGSHIP[0], 0.1)
+    want = rc.input_mask_bits_reference(seed, n_tiles, BUNCH, FLAGSHIP[0], 0.1, device="cuda")
+    _check(torch.equal(got, want), "the 800-tile input mask table differs from its plain version")
+    n_held += got.numel()
+    del got, want
+    # the layer-0 wrappers: a table read gives the bits a Philox draw gives
+    gen = torch.Generator(device="cuda").manual_seed(1777)
+    for K in (FLAGSHIP[0], 3084):
+        N = 2048
+        x, w, b = _randn(gen, BUNCH, K), _randn(gen, K, N, scale=0.03), _randn(gen, N, scale=0.1)
+        dedx = _randn(gen, BUNCH, N, scale=0.02)
+        table = philox_mask_words(4, BUNCH, K, 0.1, device="cuda")
+        for tc in (True, False):
+            ys = [fused_linear_act(x, w, b, "relu", in_mask=m, in_scale=1.25, out_mask=(5, 0.2),
+                                   bf16=tc) for m in (table, (4, 0.1))]
+            _check(torch.equal(ys[0], ys[1]), f"layer 0 {BUNCH}x{K}x{N} bf16={tc}: the forward "
+                                              f"reading a table differs from the Philox draw")
+            outs = []
+            for m in (table, (4, 0.1)):
+                st = [w.clone(), torch.zeros_like(w), b.clone(), torch.zeros_like(b)]
+                outs.append(fused_bwd_update(dedx, x, *st, 0.5, 1e-3, 1.0 / BUNCH, 1e-5,
+                                             in_mask=m, bf16=tc))
+            _check(all(torch.equal(u, v) for u, v in zip(*outs)),
+                   f"layer 0 {BUNCH}x{K}x{N} bf16={tc}: the backward reading a table differs "
+                   f"from the Philox draw")
+    # no fallback: a call with input dropout and no table is refused before it launches
+    c_sizes = (ctypes.c_int * 2)(8, 8)
+    nulls = (ctypes.c_void_p * 1)(None)
+    plan = (ctypes.c_int * 4)(*rc.early_read_plan(1, 1))
+    tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
+    err = rc._lib().resident_chunk_train(None, None, 1, 8, 1, c_sizes, 1, nulls, 0, nulls, 0, nulls,
+                                         nulls, None, None, 1, 0, mask_threshold(0.1), 0, 1.0, 1.0,
+                                         7, 0.5, 0.1, 0.0, 1, plan, tallies, None)
+    _check(err != 0 and not any(tallies), f"a chunk-trainer call with input dropout and no table: "
+                                          f"error {err}, tallies {list(tallies)}")
+    out = {}
+    for tag, K in (("8k", FLAGSHIP[0]), ("16k", 3084)):
+        ms = _device_ms(lambda i: rc.input_mask_bits(seed + i, n_tiles, BUNCH, K, 0.1))
+        plain_ms = _time_ms(lambda: rc.input_mask_bits_reference(seed, n_tiles, BUNCH, K, 0.1,
+                                                                 device="cuda"), reps=1, warmup=0)
+        library_ms = _device_ms(lambda i: torch.rand(n_tiles * BUNCH, K, device="cuda") >= 0.1)
+        bound_ms, bound_by = _mask_table_bound(n_tiles, BUNCH, K)
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, shape=f"{n_tiles} tiles x {BUNCH} x {K}")
+        print(f"[kernel] input mask table, {n_tiles} tiles x {BUNCH} rows x {K} columns (one "
+              f"call's draw): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (int64 tensor "
+              f"arithmetic, a tile at a time, the host's share in it), torch.rand >= omit "
+              f"{library_ms:.4f} ms (not the same bits), bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{PHILOX_IMADS} 32-bit multiplies a Philox call at {PEAK_IMAD_PER_S / 1e12:.2f} T/s, "
+              f"the table's bytes at 3.35 TB/s)", flush=True)
+    print(f"[kernel] input mask table: the draw kernel bit-equal to its plain version "
+          f"({n_held} words: 16 shapes and an 800-tile call); the layer-0 forward and backward "
+          f"reading a table bit-equal to their Philox draw (both forms, both nets); a call "
+          f"with input dropout and no table refused (error {err})", flush=True)
+    return dict(out["8k"], at_16k=out["16k"],
+                times_of="one launch of input_mask_bits_kernel drawing the input masks of an "
+                         "800-tile chunk-trainer call (8 kHz; at_16k: 16 kHz); probe: one "
+                         "standalone launch of sample_resident_masks; `launches` counts the draw "
+                         "kernel's launches and the layer kernels' launches that drew Philox "
+                         "masks in the kernel (hidden layers; the data-parallel forward's input)",
+                library_is="torch.rand >= omit over the same elements: not the same bits")
 
 
 def _flagship_cfg(**kw):
@@ -2119,12 +2237,17 @@ def phase_resident(gen) -> dict:
                              ("tensor cores, sr_delta", dict(sr_delta=True), "fused_linear_act and "
                               "fused_bwd_update with its rounding streams"),
                              ("float32 products", dict(bf16=False), "ops.train_step")):
-        pdl0 = rc.kernel_launches["pdl"]
+        before = dict(rc.kernel_launches)
         chunk_tc = rc.make_resident_train_chunk(cfg_d, opt, **kw)(
             init_train_state(mlp), x[:n_b * BUNCH], t_lin[:n_b * BUNCH], 17, *hyp)
-        n_pdl = rc.kernel_launches["pdl"] - pdl0
+        n_pdl, n_table, n_in_philox = (rc.kernel_launches[k] - before[k] for k in
+                                       ("pdl", "input_mask_table", "input_mask_philox"))
         _check(n_pdl == 2 * 4 * n_b - 1, f"{label}: {n_pdl} programmatic dependent launches in a "
                                           f"call of {n_b} bunches, not {8 * n_b - 1}")
+        # the input masks drawn once, by the draw kernel, and read by layer 0's two kernels
+        _check(n_table == 1 and n_in_philox == 0,
+               f"{label}: {n_table} draw launches, {n_in_philox} layer-0 launches that drew the "
+               f"input mask by Philox in a call (want 1 and 0)")
         st_s = init_train_state(mlp)
         if kw.get("sr_delta"):
             _sr_delta_steps(st_s, x, t_lin, opt, 17, n_b)
@@ -2140,7 +2263,8 @@ def phase_resident(gen) -> dict:
             _check(torch.equal(a, b), f"{label}: the standalone wrappers' steps differ from the "
                                       f"chunk trainer")
         print(f"[kernel] chunk trainer, {label}: its chain ({n_pdl} programmatic "
-              f"dependent launches in {n_b} bunches) gives the same bits as the standalone "
+              f"dependent launches in {n_b} bunches; the input masks drawn by {n_table} launch "
+              f"into their bit table, which layer 0 reads) gives the same bits as the standalone "
               f"wrappers launched one by one ({steps}; explicit masks) over {n_b} bunches",
               flush=True)
     print(f"[kernel] chunk trainer, tensor cores: worst update error of any tensor "
@@ -2183,6 +2307,12 @@ def phase_resident(gen) -> dict:
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        max_abs_err=w["abs"], rel_fro_err=w["rel_fro"],
                        rel_fro_err_one_bunch=w["one"], shape=f"{BUNCH} x 1548-2048x3-129, per bunch")
+    # digests of the state after an 800-bunch call, for holding two checkouts bit for bit
+    digests = _chunk_digests(("8k_tc", "8k_f32"))
+    for tc, name in ((True, "8k_tc"), (False, "8k_f32")):
+        out[tc]["state_digest"] = digests[name]
+        print(f"[kernel] chunk trainer state digest {name} (one call of 800 bunches, "
+              f"CHUNK_DIGEST_FORMS): {digests[name]}", flush=True)
     return out
 
 
@@ -2235,6 +2365,168 @@ def chain_times(tag: str = "chain") -> dict:
     return out
 
 
+def _state_digest(state) -> str:
+    """SHA-256 of a trainer state's W, delta, b and delta_b, in that order, as
+    float32 bytes (a bfloat16 tensor widens exactly)."""
+    import hashlib
+
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for group in (state.params.w, state.deltas.w, state.params.b, state.deltas.b):
+        for a in group:
+            h.update(a.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _chunk_digests(names) -> dict:
+    """{name: SHA-256 of the state} after ONE call of the chunk trainer in each
+    form of CHUNK_DIGEST_FORMS named, on seeded inputs: glorot weights of seed
+    5, parity dropout 0.1/0.2, bunches of 128 drawn from a card generator
+    seeded per form, dropout seed 3.  Public entry points only, so that
+    another checkout's package gives comparable digests (--mask-times
+    --package-root)."""
+    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.train.step import OptConfig, init_train_state
+
+    opt = OptConfig(lrate=1e-3, momentum=0.5, weightcost=1e-5, bunchsize=BUNCH)
+    out = {}
+    for n, (name, sizes, n_b, kw) in enumerate(CHUNK_DIGEST_FORMS):
+        if name not in names:
+            continue
+        cfg = ModelConfig(layersizes=sizes, dropout_vis=0.1, dropout_hid=0.2)
+        st = init_train_state(init_params(torch.Generator().manual_seed(5), cfg, scheme="glorot",
+                                          device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(9100 + n)
+        x, t = _randn(gen, n_b * BUNCH, sizes[0]), _randn(gen, n_b * BUNCH, sizes[-1])
+        rc.make_resident_train_chunk(cfg, opt, **kw)(st, x, t, 3)
+        _check(all(bool(torch.isfinite(a.float()).all()) for a in _state_tensors(st)),
+               f"chunk digest {name}: the state is not finite")
+        out[name] = _state_digest(st)
+        del x, t, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def mask_times() -> dict:
+    """The input mask's share of the chunk trainer, for comparing two checkouts
+    in one call (--mask-times, with --package-root for the other).
+    * layer 0 alone: fused_linear_act (with the hidden layer's out_mask) and
+      fused_bwd_update at 128 x 1548 x 2048 and 128 x 3084 x 2048, tensor-core
+      and float32 products, with no input mask, with the Philox input mask
+      drawn in the kernel, and, where the package has the packed bit table
+      (ops/philox.py:philox_mask_words), with the table's bits (its outputs
+      held bit-equal to the Philox form's); each call on the next of three
+      weight sets, by CUDA events (_device_ms);
+    * the chains a bunch (CUDA events around whole calls, in turns): tensor
+      cores at 8 kHz (100 bunches), float32 products at 8 kHz and tensor
+      cores with sr_delta at 16 kHz (50 bunches), each with the input's
+      dropout 0.1 and 0 (the hidden layers' 0.2 in both); layer 1 alone, and
+      one rank of 2's data-parallel trainer (the sum stubbed), which keep
+      their masks as they were;
+    * the state digests of every form of CHUNK_DIGEST_FORMS and
+      _fwd_digests."""
+    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
+    from tpu_sednn_torch.ops import philox
+    from tpu_sednn_torch.ops import resident_chunk as rc
+    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_update, fused_linear_act
+    from tpu_sednn_torch.train.step import OptConfig, init_train_state
+
+    has_bits = hasattr(philox, "philox_mask_words")
+    gen = torch.Generator(device="cuda").manual_seed(1515)
+    out = {"layer0": {}, "chains": {}, "has_bits": has_bits}
+    for tag, net in (("8k", FLAGSHIP), ("16k", WIDE)):
+        K, N = net[0], net[1]
+        x, b = _randn(gen, BUNCH, K), _randn(gen, N, scale=0.1)
+        ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
+        deltas = [torch.zeros(K, N, device="cuda") for _ in range(3)]
+        dedx, db = _randn(gen, BUNCH, N, scale=0.02), torch.zeros(N, device="cuda")
+        masks = {"off": None, "philox": (4, 0.1)}
+        if has_bits:
+            masks["bits"] = philox.philox_mask_words(4, BUNCH, K, 0.1, device="cuda")
+            for tc in (True, False):
+                ys = [fused_linear_act(x, ws[0], b, "relu", in_mask=masks[k], out_mask=(5, 0.2),
+                                       bf16=tc) for k in ("philox", "bits")]
+                _check(torch.equal(ys[0], ys[1]), f"{tag} layer 0, bf16={tc}: the bit table's "
+                                                  f"forward differs from the Philox one")
+        for tc in (True, False):
+            row = {}
+            for name, m in masks.items():
+                row[f"fwd_{name}"] = _device_ms(lambda i: fused_linear_act(
+                    x, ws[i % 3], b, "relu", in_mask=m, out_mask=(5, 0.2), bf16=tc))
+                row[f"bwd_{name}"] = _device_ms(lambda i: fused_bwd_update(
+                    dedx, x, ws[i % 3], deltas[i % 3], b, db, 0.5, 1e-3, 1.0 / BUNCH, 0.0,
+                    in_mask=m, bf16=tc))
+            out["layer0"][f"{tag}_{'tc' if tc else 'f32'}"] = row
+            print(f"[mask-times] layer 0 {BUNCH}x{K}x{N} {'tc' if tc else 'f32'}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + " ms", flush=True)
+        del ws, deltas
+        torch.cuda.empty_cache()
+    # a layer without an input mask (layer 1: 2048 x 2048, the hidden mask in its epilogue),
+    # which a change to layer 0's masking must leave as it was
+    x, b = _randn(gen, BUNCH, 2048), _randn(gen, 2048, scale=0.1)
+    ws = [_randn(gen, 2048, 2048, scale=0.03) for _ in range(3)]
+    for tc in (True, False):
+        out["layer0"][f"8k_{'tc' if tc else 'f32'}"]["fwd_layer1"] = _device_ms(
+            lambda i: fused_linear_act(x, ws[i % 3], b, "relu", out_mask=(6, 0.2), bf16=tc))
+    del ws
+    if has_bits:  # the draw of an 800-tile call's tables
+        out["draw_ms"] = {tag: _device_ms(lambda i: rc.input_mask_bits(9 + i, 800, BUNCH, K, 0.1))
+                          for tag, K in (("8k", FLAGSHIP[0]), ("16k", WIDE[0]))}
+    print(f"[mask-times] layer 1 {BUNCH}x2048x2048 forward: tc "
+          f"{out['layer0']['8k_tc']['fwd_layer1']:.4f}, f32 "
+          f"{out['layer0']['8k_f32']['fwd_layer1']:.4f} ms; the draw of an 800-tile call "
+          f"{out.get('draw_ms')}", flush=True)
+    # one rank's data-parallel trainer a bunch (2 ranks, the sum stubbed): its layer-0
+    # forward and gradient-out backward still draw the input mask by Philox
+    from tpu_sednn_torch.parallel import Mesh
+
+    dcfg, dopt, dmlp, dx, dt = _dp_inputs()
+    dx, dt = dx.repeat(3, 1)[:8 * BUNCH].contiguous(), dt.repeat(3, 1)[:8 * BUNCH].contiguous()
+    plain_sum, rc._all_reduce = rc._all_reduce, lambda a, mesh: a
+    try:
+        out["dp2"] = {}
+        for tc in (True, False):
+            run = rc.make_dp_resident_train_chunk(dcfg, dopt, Mesh(2, 0, torch.device("cuda", 0)),
+                                                  bf16=tc)
+            st = init_train_state(dmlp)
+            out["dp2"]["tc" if tc else "f32"] = _device_ms(
+                lambda i: run(st, dx, dt, 4 + i, 1e-3, 0.5, 0.0), reps=3) / 8
+    finally:
+        rc._all_reduce = plain_sum
+    print(f"[mask-times] one rank of 2's data-parallel trainer a bunch (the sum stubbed): tc "
+          f"{out['dp2']['tc']:.4f}, f32 {out['dp2']['f32']:.4f} ms", flush=True)
+    opt = OptConfig(lrate=1.0, momentum=0.5, weightcost=1e-5, bunchsize=BUNCH)
+    small = (1e-3, 0.5, 0.0)
+    forms = {}
+    for name, sizes, n_t, kw in (("8k_tc", FLAGSHIP, 100, {}),
+                                 ("8k_f32", FLAGSHIP, 50, dict(bf16=False)),
+                                 ("16k_tc_sr_delta", WIDE, 50, dict(sr_delta=True))):
+        xt, tt = _randn(gen, n_t * BUNCH, sizes[0]), _randn(gen, n_t * BUNCH, sizes[-1])
+        for vis in (0.1, 0.0):
+            cfg = ModelConfig(layersizes=sizes, dropout_vis=vis, dropout_hid=0.2)
+            mlp = init_params(torch.Generator().manual_seed(5), cfg, scheme="glorot",
+                              device="cuda")
+            forms[f"{name}_vis{vis}"] = (rc.make_resident_train_chunk(cfg, opt, **kw),
+                                         init_train_state(mlp), xt, tt, n_t)
+    ms = {name: [] for name in forms}
+    for name in list(forms) + list(reversed(forms)):  # in turns
+        run, st, xt, tt, n_t = forms[name]
+        ms[name].append(_time_ms(lambda: run(st, xt, tt, 3, *small), reps=3, warmup=1) / n_t)
+    for name in forms:
+        out["chains"][name] = dict(ms=float(np.mean(ms[name])), ms_runs=ms[name])
+        print(f"[mask-times] chain {name}: {out['chains'][name]['ms']:.4f} ms a bunch "
+              f"({' '.join(f'{v:.4f}' for v in ms[name])})", flush=True)
+    del forms
+    torch.cuda.empty_cache()
+    out["chunk_digests"] = _chunk_digests([f[0] for f in CHUNK_DIGEST_FORMS])
+    out["fwd_digests"] = _fwd_digests()
+    for group in ("chunk_digests", "fwd_digests"):
+        for k, v in out[group].items():
+            print(f"[mask-times] digest {k}: {v}", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # stochastic rounding, kernels 5 and 6, bfloat16 storage in kernels
 # 1 and 2, the chunk trainer's variants at the 16 kHz width, and the
@@ -2242,6 +2534,14 @@ def chain_times(tag: str = "chain") -> dict:
 # ---------------------------------------------------------------------------
 
 WIDE = (3084, 2048, 2048, 2048, 257)  # the 16 kHz net
+# The chunk-trainer forms whose state digests two checkouts must share
+# (_chunk_digests): (name, net, bunches in the call, make_resident_train_chunk's
+# keywords)
+CHUNK_DIGEST_FORMS = (("8k_tc", FLAGSHIP, 800, {}), ("8k_f32", FLAGSHIP, 800, dict(bf16=False)),
+                      ("16k_sr_delta", WIDE, 100, dict(sr_delta=True)),
+                      ("16k_sr_state", WIDE, 100, dict(sr_state=True)),
+                      ("16k_hbm_spill", WIDE, 100, dict(bf16=False, hbm_spill=1)),
+                      ("16k_tile_rows_64", WIDE, 100, dict(rule="clean", tile_rows=64)))
 # A kernel that stores bfloat16 with stochastic rounding, against the float64
 # plain version rounded with the same bits: the two float32 values that are
 # rounded differ by float32 summation order (~1e-7 relative), so the rounding
@@ -2780,7 +3080,12 @@ def phase_resident_wide() -> dict:
               f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP at "
               f"{'989' if kw['bf16'] else '67'} TFLOP/s: {t_ops:.4f}; "
               f"{t_bytes * PEAK_BYTES_PER_S / 1e9:.0f} MB at 3.35 TB/s: {t_bytes:.4f})", flush=True)
-    return dict(errors=out, timing=timing, spill_max_abs=spill_abs)
+    digests = _chunk_digests(("16k_sr_delta", "16k_sr_state", "16k_hbm_spill",
+                              "16k_tile_rows_64"))
+    for name, d in digests.items():
+        print(f"[kernel] chunk trainer state digest {name} (one call of 100 bunches, "
+              f"CHUNK_DIGEST_FORMS): {d}", flush=True)
+    return dict(errors=out, timing=timing, spill_max_abs=spill_abs, state_digests=digests)
 
 
 # Two epochs of the 16 kHz net through train_epochs_arrays, sr_delta against
@@ -2865,7 +3170,8 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
         # every launch of a call but its first a programmatic dependent one, either form
         _check(d["resident_chunk"] == n_ep * n_chunks and d["plain_train_chunk"] == 0
                and d["fused_bwd_update"] == 4 * n_ep * n_bunches * tiles
-               and d["pdl"] == d["fused_linear_act"] + d["fused_bwd_update"] - d["resident_chunk"],
+               and d["pdl"] == d["fused_linear_act"] + d["fused_bwd_update"] - d["resident_chunk"]
+               and d["input_mask_table"] == d["resident_chunk"] and d["input_mask_philox"] == 0,
                f"{label}: {d} for {n_ep} epochs of {n_chunks} chunks, {n_bunches} bunches")
 
     out = {}
@@ -3175,10 +3481,13 @@ def phase_train(tmp: str, smi: str) -> dict:
                f"chunks, plain trainer {c['plain_train_chunk']} times")
         # per bunch: 4 tc_fwd_kernel (K split within a cluster: no fwd_sum_kernel)
         # and 4 stripe_bwd_kernel<true> (dedy summed within a cluster: no reduce_dedy_kernel),
-        # 8 launches; 3 forwards and the first layer's backward and forward draw masks
+        # 8 launches; the 3 forwards that write a hidden activation draw its mask by Philox;
+        # each chunk's input masks are drawn by one input_mask_bits_kernel into their bit
+        # table, which the first layer's forward and backward read (no Philox there)
         _check(k["fused_linear_act"] == 4 * n_bunches and k["fused_linear_act_sum"] == 0
                and k["fused_bwd_update"] == 4 * n_bunches and k["reduce_dedy"] == 0
-               and k["philox_mask"] == 4 * n_bunches,
+               and k["philox_mask"] == 3 * n_bunches and k["input_mask_table"] == n_chunks
+               and k["input_mask_philox"] == 0,
                f"{label}: kernel launches {k} for {n_bunches} bunches")
         # engine=auto on the card: the tensor-core forms, every launch; each chunk's
         # launches but its first programmatic dependent ones
@@ -3196,7 +3505,8 @@ def phase_train(tmp: str, smi: str) -> dict:
         _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
                and k["reduce_dedy"] == 0 and k["fused_linear_act"] == 4 * n_bunches
                and k["fused_linear_act_sum"] == 0 and k["tc_linear_act"] == k["tc_bwd_update"] == 0
-               and k["pdl"] == 8 * n_bunches - n_chunks,
+               and k["pdl"] == 8 * n_bunches - n_chunks and k["input_mask_table"] == n_chunks
+               and k["input_mask_philox"] == 0,
                f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
     times = [float(l.split()[3]) for l in (log1 + log2).splitlines()
              if l.startswith("Total cost time:")]
@@ -3380,6 +3690,9 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     for a, b in zip(_state_tensors(f32_runs[0]), _state_tensors(f32_runs[1])):
         _check(torch.equal(a, b), f"two float32-product runs of a chunk of {n_real} bunches from "
                                   f"the same state differ")
+    digests = dict(tc=_state_digest(states[0]), f32=_state_digest(f32_runs[0]))
+    print(f"[train] state digests after the full chunk ({n_real} bunches of the corpus): tensor "
+          f"cores {digests['tc']}, float32 products {digests['f32']}", flush=True)
     del f32_runs
     train_ms = min(train_runs)
     # the host's own cost a bunch: 100 bunches enqueued behind a spin kernel, by the host clock
@@ -3408,7 +3721,8 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
         # the kernels launched: the two product kernels and the two second kernels (the
         # other keys count subsets of these by form)
         launched = sum(kernel_launches[k] - before[k] for k in
-                       ("fused_linear_act", "fused_bwd_update", "fused_linear_act_sum", "reduce_dedy"))
+                       ("fused_linear_act", "fused_bwd_update", "fused_linear_act_sum", "reduce_dedy",
+                        "input_mask_table"))
         spans = _kernel_spans(prof)
         if best is None or len(spans) > len(best[0]):
             kernels = sorted((e for e in prof.key_averages()
@@ -3466,7 +3780,7 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
                 idle_share_of_span=max(span_ms - busy_ms, 0) / span_ms if spans else None,
                 idle_shares_are_upper_bounds=not complete,
                 overlap_ms=overlap_us / 1e3, trace_launches=[len(spans), launched],
-                trace_bunches=n_trace, kernel_shares=shares)
+                trace_bunches=n_trace, kernel_shares=shares, state_digests=digests)
 
 
 # ---------------------------------------------------------------------------
@@ -4104,6 +4418,7 @@ def phase_recipe(tmp: str, smi: str) -> dict:
     kc = counts["resident_chunk_kernels"]
     _check(counts["resident_chunk"] > 0 and kc["tc_linear_act"] > 0 and kc["tc_bwd_update"] > 0
            and kc["philox_mask"] > 0 and counts["plain_train_chunk"] == 0
+           and kc["input_mask_table"] == counts["resident_chunk"] and kc["input_mask_philox"] == 0
            and after_recipe["stft_lps"] == 0,
            f"recipe path launches {counts}")
     print(f"[recipe] launches: chunk trainer {counts['resident_chunk']} calls (tensor cores; the "
@@ -4873,6 +5188,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fwd-times", action="store_true",
                     help="only build, time and digest the float32 forward (fwd_times; prints no "
                          "final line, exits with 2)")
+    ap.add_argument("--mask-times", action="store_true",
+                    help="only build and time the input mask's share of layer 0 and of the "
+                         "chains, with the chunk trainer's state digests (mask_times; prints no "
+                         "final line, exits with 2)")
     ap.add_argument("--package-root", default="",
                     help="import tpu_sednn_torch from this directory, e.g. an unpacked checkout "
                          "of another commit, to time it with --chain-times beside this one")
@@ -4918,6 +5237,14 @@ def main(argv=None) -> int:
         times = fwd_times()
         print(smi)
         print(json.dumps({"fwd_times": times,
+                          "package": os.path.dirname(tpu_sednn_torch.__file__)}))
+        return 2
+    if args.mask_times:
+        import tpu_sednn_torch
+
+        times = mask_times()
+        print(smi)
+        print(json.dumps({"mask_times": times,
                           "package": os.path.dirname(tpu_sednn_torch.__file__)}))
         return 2
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -4970,7 +5297,8 @@ def main(argv=None) -> int:
                     ("fused_linear_act (tensor cores)", kc["tc_linear_act"]),
                     ("fused_bwd_update", kc["fused_bwd_update"]),
                     ("fused_bwd_update (tensor cores)", kc["tc_bwd_update"]),
-                    ("philox_mask", kc["philox_mask"]), ("stft_lps", train["stft_launches"])):
+                    ("philox_mask", kc["philox_mask"]), ("input_mask_bits", kc["input_mask_table"]),
+                    ("stft_lps", train["stft_launches"])):
         _check(n > 0, f"the training path never launched the {name} kernel")
     ac, akc, forms = arrays["counts"], arrays["kernel_counts"], arrays["by_form"]
     for name, n in (("dropout_mask", ac["dropout_mask"]), ("sr_momentum_update", ac["sr_momentum_update"]),
@@ -4985,7 +5313,8 @@ def main(argv=None) -> int:
                     ("fused_linear_act (tensor cores)", akc["tc_linear_act"]),
                     ("fused_bwd_update", akc["fused_bwd_update"]),
                     ("fused_bwd_update (tensor cores)", akc["tc_bwd_update"]),
-                    ("philox_mask", akc["philox_mask"]), ("stft_lps", ac["stft_lps"])):
+                    ("philox_mask", akc["philox_mask"]), ("input_mask_bits", akc["input_mask_table"]),
+                    ("stft_lps", ac["stft_lps"])):
         _check(n > 0, f"the in-memory training path never launched the {name} kernel")
     # every launch of a call but its first is a programmatic dependent one, either form
     calls = sum(forms.values())
@@ -5019,7 +5348,8 @@ def main(argv=None) -> int:
     for name, n in (("resident_chunk (tensor cores)", rc["resident_chunk"]),
                     ("fused_linear_act (tensor cores)", rkc["tc_linear_act"]),
                     ("fused_bwd_update (tensor cores)", rkc["tc_bwd_update"]),
-                    ("philox_mask", rkc["philox_mask"]), ("stft_lps", rc["stft_lps"])):
+                    ("philox_mask", rkc["philox_mask"]), ("input_mask_bits", rkc["input_mask_table"]),
+                    ("stft_lps", rc["stft_lps"])):
         _check(n > 0, f"the recipe path never launched the {name} kernel")
     _check(rkc["fused_linear_act"] == rkc["tc_linear_act"]
            and rkc["fused_bwd_update"] == rkc["tc_bwd_update"],
@@ -5141,10 +5471,18 @@ def main(argv=None) -> int:
              route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",
              replaces="tpu_sednn/ops/resident_chunk.py:970",
-             launches=kc["philox_mask"] + akc["philox_mask"] + dkc["philox_mask"]
-             + rkc["philox_mask"],
-             launches_by_path=by_path(kc["philox_mask"], akc["philox_mask"],
-                                      train_dp=dkc["philox_mask"], recipe=rkc["philox_mask"]),
+             launches=sum(c[k] for c in (kc, akc, dkc, rkc)
+                          for k in ("philox_mask", "input_mask_table")),
+             launches_by_path=by_path(*(c["philox_mask"] + c["input_mask_table"] for c in (kc, akc)),
+                                      train_dp=dkc["philox_mask"] + dkc["input_mask_table"],
+                                      recipe=rkc["philox_mask"] + rkc["input_mask_table"]),
+             draw_source="tpu_sednn_torch/csrc/resident_chunk.cu:input_mask_bits_kernel",
+             draw_launches_by_path=by_path(kc["input_mask_table"], akc["input_mask_table"],
+                                           train_dp=dkc["input_mask_table"],
+                                           recipe=rkc["input_mask_table"]),
+             input_mask_philox_by_path=by_path(kc["input_mask_philox"], akc["input_mask_philox"],
+                                               train_dp=dkc["input_mask_philox"],
+                                               recipe=rkc["input_mask_philox"]),
              **masks, route="cuda"),
         variant("sr_delta", "sr_delta", "sr_delta", "sr_delta, parity, dropout 0.1/0.2"),
         variant("sr_state", "sr_state", "sr_state", "sr_state, parity, dropout 0.1/0.2"),

@@ -120,7 +120,8 @@ def test_cli_main_prints_all_finish_and_writes_the_launch_report(corpus, monkeyp
                                                      "reduce_dedy", "philox_mask",
                                                      "fused_linear_act_sum", "sr_bwd_update",
                                                      "tiled_bwd_update", "bf16_linear_act",
-                                                     "tc_linear_act", "tc_bwd_update", "pdl"}
+                                                     "tc_linear_act", "tc_bwd_update", "pdl",
+                                                     "input_mask_table", "input_mask_philox"}
     assert counts["dropout_mask"] == 0 and counts["sr_momentum_update"] == 0
 
 

@@ -15,8 +15,11 @@ using namespace sednn;
 
 namespace {
 
+// ld: the operand's width (its columns); a mode-3 table has mask_words(ld)
+// words a row.
 MaskSpec make_mask(int mode, const float* ptr, int ld, unsigned key, unsigned threshold,
                    float scale, int row0 = 0) {
+  if (mode == 3) return table_mask((const uint32_t*)ptr, mask_words(ld), scale);
   MaskSpec s = no_mask();
   s.mode = mode;
   s.ptr = ptr;
@@ -32,7 +35,9 @@ MaskSpec make_mask(int mode, const float* ptr, int ld, unsigned key, unsigned th
 
 // y (M, N) = act(mask_in(x) (M, K) @ w (K, N) + b) * mask_out.  act: 0 linear,
 // 1 relu, 2 sigmoid.  Mask modes: 0 none, 1 a 0/1 float tensor (in: (M, K),
-// out: (M, N)), 2 Philox from (key, threshold); kept elements times scale.
+// out: (M, N)), 2 Philox from (key, threshold), 3 (in only) a packed table of
+// keep bits at in_ptr, (M, ceil(K / 32)) 32-bit words (philox.cuh); kept
+// elements times scale.
 // w_bf16 != 0: w is bfloat16 storage, widened as it is loaded; x, b and y are
 // float32.  bf16 != 0: the tensor-core form, products of operands rounded to
 // bfloat16 (to nearest even) summed in float32; else float32 products.
@@ -44,7 +49,7 @@ extern "C" int fused_linear_act_f32(const float* x, const void* w, int w_bf16, c
                                     float in_scale, int out_mode, const float* out_ptr,
                                     unsigned out_key, unsigned out_thr, float out_scale,
                                     int bf16, int* launched, void* stream) {
-  if (act < 0 || act > 2 || in_mode < 0 || in_mode > 2 || out_mode < 0 || out_mode > 2)
+  if (act < 0 || act > 2 || in_mode < 0 || in_mode > 3 || out_mode < 0 || out_mode > 2)
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale);
   const MaskSpec om = make_mask(out_mode, out_ptr, N, out_key, out_thr, out_scale);
@@ -113,7 +118,7 @@ extern "C" int fused_bwd_update_f32(const float* dedx, const float* yprev, void*
                                     const float* in_ptr, unsigned in_key, unsigned in_thr,
                                     float in_scale, int deriv, int bf16, int* launched,
                                     void* stream) {
-  if (in_mode < 0 || in_mode > 2 || deriv < 0 || deriv > 2 || (w_bf16 && !d_bf16))
+  if (in_mode < 0 || in_mode > 3 || deriv < 0 || deriv > 2 || (w_bf16 && !d_bf16))
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale);
   const int flags = kUpdFirst | kUpdApply;
@@ -145,7 +150,7 @@ extern "C" int fused_bwd_grad_out_f32(const float* dedx, const float* yprev, con
                                       int in_mode, const float* in_ptr, unsigned in_key,
                                       unsigned in_thr, float in_scale, int in_row0, int deriv,
                                       int bf16, int* launched, void* stream) {
-  if (in_mode < 0 || in_mode > 2 || deriv < 0 || deriv > 2 || g == nullptr)
+  if (in_mode < 0 || in_mode > 3 || deriv < 0 || deriv > 2 || g == nullptr)
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale, in_row0);
   BwdLaunched done;

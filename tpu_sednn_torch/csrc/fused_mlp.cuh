@@ -97,7 +97,8 @@ __device__ inline float act_fn(int act, float z) {
 // ---------------------------------------------------------------------------
 // Kernel 1: y = act(x @ W + b), optional masks and the output layer's dedx.
 //   x (M, K) row stride K, masked on load by in_mask (the dropout of the
-//   net's input); W (K, N); y (M, N) = act(.) * out_mask (the dropout of the
+//   net's input: Philox drawn in the kernel, or in the chunk trainer a table
+//   of keep bits drawn once a call, philox.cuh); W (K, N); y (M, N) = act(.) * out_mask (the dropout of the
 //   NEXT layer's input, so the stored activation is the masked one the
 //   backward needs).  If targ != nullptr also
 //   dedx = coef * (y - targ) [* y * (1 - y) for a sigmoid head].
@@ -397,19 +398,42 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
     }
   };
 
+  // A table mask (mode 3): a step is one word of each of the tile's rows
+  // (k_begin and the step are multiples of 32), and a thread's words of the
+  // next step are loaded while this one converts, so that the table's latency
+  // hides behind a step's products (loaded further ahead, they ran slower).
+  constexpr int kXIters = kTcFwdBM * kTcFwdBK / 4 / kThreads;  // float4s of x a thread converts
+  const bool table = in_mask.mode == 3;
+  uint32_t words[kXIters];  // the words of the next step to convert
+  auto load_words = [&](int step) {
+    const int k0 = k_begin + step * kTcFwdBK;
+#pragma unroll
+    for (int r = 0; r < kXIters; ++r) {
+      const int row = (tid + r * kThreads) / (kTcFwdBK / 4);
+      words[r] = table && step < n_steps && row < rows ? mask_word(in_mask, m0 + row, k0) : 0u;
+    }
+  };
+
   // the step's operands, rounded: x masked in float32 first
   auto convert = [&](int slot, int buf, int step) {
     const typename T::Stage& st = sm.u.ring[slot];
     const int k0 = k_begin + step * kTcFwdBK;
+    uint32_t cur[kXIters];
 #pragma unroll
-    for (int r = 0; r < kTcFwdBM * kTcFwdBK / 4 / kThreads; ++r) {
+    for (int r = 0; r < kXIters; ++r) cur[r] = words[r];
+    if (table) load_words(step + 1);
+#pragma unroll
+    for (int r = 0; r < kXIters; ++r) {
       const int idx = tid + r * kThreads, row = idx / (kTcFwdBK / 4);
       const int c = (idx % (kTcFwdBK / 4)) * 4;
       if (row >= rows_pad) continue;
       float4 v = *reinterpret_cast<const float4*>(&st.x[row][c]);
       if (in_mask.mode != 0 && row < rows && k0 + c < K) {
         float mk[4];
-        mask4(in_mask, m0 + row, k0 + c, K, mk);
+        if (table)
+          mask4_word(in_mask, cur[r], k0 + c, K, mk);
+        else
+          mask4(in_mask, m0 + row, k0 + c, K, mk);
         v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
       }
       st_cvt4(&sm.a[buf][row][c], v);
@@ -474,6 +498,7 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
     if (s < n_steps) load_stage(s, s, true, !early_w);
     if (!all_tma) cp_async_commit();  // one group per step, empty or not: the wait counts steps
   }
+  if (table) load_words(0);
   if (n_steps > 0) {
     wait_stage(0);
     convert(0, 0, 0);
@@ -547,7 +572,9 @@ inline int tc_fwd_bn(int N) { return N > 512 ? 128 : 64; }
 //   but at a bunch of 128 they leave 5 warps an SM, too few to hide a shared
 //   load's latency: they ran 28% slower (measured, variants of this kernel);
 // * in_mask: each stage's x is masked in place in float32 (one pass and a
-//   barrier) before the products, as the two-launch form masked it;
+//   barrier) before the products, as the two-launch form masked it (a
+//   table's words loaded a step ahead; the pass and its barrier stay, and
+//   cost layer 0 about 0.009 ms at 8 kHz on an H100: PERF.md);
 // * W without a tensor map (N * sizeof(TW) % 16 != 0: N = 129, 257) goes by
 //   4-byte cp.async (float32) or through registers (bfloat16), and x without
 //   one (K % 4 != 0) by 4-byte cp.async into its swizzled places;
@@ -579,8 +606,11 @@ __device__ inline int f32_fwd_x(int r, int c) {
 }
 
 // x_tma / w_tma: the operand goes by tensor copies (tmx, tmw), else by
-// cp.async or registers (above); early: pdl.cuh's bits (kEarlyW).
-template <typename TW>
+// cp.async or registers (above); early: pdl.cuh's bits (kEarlyW).  kTable:
+// in_mask is a table (mode 3), whose words take registers through the K
+// loop and whose pass is unrolled: an instance of its own, so that the other
+// layers' code is as it was without tables.
+template <typename TW, bool kTable>
 __global__ void __launch_bounds__(kF32FwdThreads, 3)
 f32_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
                const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
@@ -669,6 +699,22 @@ f32_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ 
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
+  // A table mask (mode 3): a step is one word of each of the tile's rows
+  // (k_begin and BK are multiples of 32), and a thread's words of the next
+  // step are loaded while this one's products run, so that the table's
+  // latency hides behind them.
+  constexpr int kXIters = BM * BK / 4 / kThreads;  // float4s of x a thread masks
+  [[maybe_unused]] uint32_t words[kXIters];
+  auto load_words = [&](int step) {
+    const int k0 = k_begin + step * BK;
+#pragma unroll
+    for (int j = 0; j < kXIters; ++j) {
+      const int r = (tid + j * kThreads) / (BK / 4);
+      words[j] = step < n_steps && m0 + r < M ? mask_word(in_mask, m0 + r, k0) : 0u;
+    }
+  };
+  if constexpr (kTable) load_words(0);
+
   // kS - 1 steps in flight; step s + kS - 1 goes into the slot step s - 1
   // was read from, which the barrier ending step s - 1 has released
   for (int s = 0; s < n_steps; ++s) {
@@ -684,15 +730,33 @@ f32_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ 
     const TW* ws = &sm.u.ring[s % kS].w[0][0];
     if (in_mask.mode != 0) {  // x * mask in float32, in place
       const int k0 = k_begin + s * BK;
-      for (int idx = tid; idx < BM * BK / 4; idx += kThreads) {
-        const int r = idx / (BK / 4), c = (idx % (BK / 4)) * 4;
-        if (m0 + r >= M || k0 + c >= K) continue;
-        float mk[4];
-        mask4(in_mask, m0 + r, k0 + c, K, mk);
-        float4* p = reinterpret_cast<float4*>(xs + f32_fwd_x(r, c));
-        float4 v = *p;
-        v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
-        *p = v;
+      if constexpr (kTable) {
+        uint32_t cur[kXIters];
+#pragma unroll
+        for (int j = 0; j < kXIters; ++j) cur[j] = words[j];
+        load_words(s + 1);
+#pragma unroll
+        for (int j = 0; j < kXIters; ++j) {
+          const int idx = tid + j * kThreads, r = idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+          if (m0 + r >= M || k0 + c >= K) continue;
+          float mk[4];
+          mask4_word(in_mask, cur[j], k0 + c, K, mk);
+          float4* p = reinterpret_cast<float4*>(xs + f32_fwd_x(r, c));
+          float4 v = *p;
+          v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+          *p = v;
+        }
+      } else {
+        for (int idx = tid; idx < BM * BK / 4; idx += kThreads) {
+          const int r = idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+          if (m0 + r >= M || k0 + c >= K) continue;
+          float mk[4];
+          mask4(in_mask, m0 + r, k0 + c, K, mk);
+          float4* p = reinterpret_cast<float4*>(xs + f32_fwd_x(r, c));
+          float4 v = *p;
+          v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+          *p = v;
+        }
       }
       // the slot's next tensor copy (step s + kS) comes after these stores
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -745,10 +809,10 @@ constexpr int kTcFwdMaxDevices = 64;
 // library that includes this header, though each has its own kernel to set
 // up) and per device (a function attribute holds for the current device
 // only): raises the shared memory of tc_fwd_kernel<TW, BN> (kTc) or of
-// f32_fwd_kernel<TW> once, and -> how many clusters of `size` blocks along z
-// the card holds at once (cached; cudaErrorInvalidConfiguration where not one
-// such cluster can be placed).
-template <bool kTc, typename TW, int BN>
+// f32_fwd_kernel<TW, kTable> once, and -> how many clusters of `size` blocks
+// along z the card holds at once (cached; cudaErrorInvalidConfiguration where
+// not one such cluster can be placed).
+template <bool kTc, typename TW, int BN, bool kTable = false>
 static cudaError_t fwd_clusters(int size, int* clusters) {
   static bool attr_set[kTcFwdMaxDevices] = {};
   static int cached[kTcFwdMaxDevices][kTcFwdMaxCluster + 1] = {};
@@ -760,7 +824,7 @@ static cudaError_t fwd_clusters(int size, int* clusters) {
     threads = TcFwdTile<TW, BN>::kThreads;
     smem = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
   } else {
-    kernel = (const void*)f32_fwd_kernel<TW>;
+    kernel = (const void*)f32_fwd_kernel<TW, kTable>;
     threads = kF32FwdThreads;
     smem = F32FwdTile<TW>::kSmemBytes;
   }
@@ -916,7 +980,9 @@ static cudaError_t launch_f32_fwd(const float* x, const TW* w, int M, int K, int
                                   bool pdl, int early, cudaStream_t stream) {
   int n_chunks, fit = 0;
   const int k_chunk = fwd_k_chunk(plan_rows > 0 ? plan_rows : M, K, N, &n_chunks);
-  cudaError_t err = fwd_clusters<false, TW, kF32FwdBN>(n_chunks, &fit);
+  const bool table = in_mask.mode == 3;
+  cudaError_t err = table ? fwd_clusters<false, TW, kF32FwdBN, true>(n_chunks, &fit)
+                          : fwd_clusters<false, TW, kF32FwdBN, false>(n_chunks, &fit);
   if (err != cudaSuccess) return err;
   // tensor maps where the rows' stride is a multiple of 16 bytes
   CUtensorMap tmx = {}, tmw = {};
@@ -943,7 +1009,10 @@ static cudaError_t launch_f32_fwd(const float* x, const TW* w, int M, int K, int
   cudaLaunchAttribute attr[2];
   cfg.attrs = attr;
   cfg.numAttrs = cluster_launch_attrs(attr, 1, n_chunks, pdl);
-  return cudaLaunchKernelEx(&cfg, f32_fwd_kernel<TW>, tmx, tmw, x, w, M, K, N, in_mask, epi,
+  if (table)
+    return cudaLaunchKernelEx(&cfg, f32_fwd_kernel<TW, true>, tmx, tmw, x, w, M, K, N, in_mask,
+                              epi, k_chunk, x_tma, w_tma, early);
+  return cudaLaunchKernelEx(&cfg, f32_fwd_kernel<TW, false>, tmx, tmw, x, w, M, K, N, in_mask, epi,
                             k_chunk, x_tma, w_tma, early);
 }
 
@@ -1135,8 +1204,10 @@ __device__ inline void update_bias(float* b, float* db, int n, float gb, float m
 //   stride is a multiple of 16 bytes: at N = 129 or 257 the float32 operands
 //   go by 4-byte cp.async and bfloat16 W or Delta through registers, from the
 //   compute warps;
-// * the stripe of yprev (M, BK) is loaded once and masked (in_mask: Philox on
-//   layer 0's input) into shared memory: rounded to bfloat16 for the tensor
+// * the stripe of yprev (M, BK) is loaded once and masked (in_mask, layer
+//   0's input: Philox, or a table's words loaded with the stripe; the two
+//   kinds take separate loops, so the Philox form's is as it was) into
+//   shared memory: rounded to bfloat16 for the tensor
 //   cores, each G warp then keeping its A fragments of it in registers for
 //   the whole launch, or as it is (float32) for the FMA products;
 // * the update goes through shared memory in row order (G's chunk written
@@ -1402,32 +1473,48 @@ stripe_bwd_kernel(const __grid_constant__ CUtensorMap tmd, const __grid_constant
       return ld4(yprev, row, col, K, M, K, false);
     };
     constexpr int kYIters = kSub * BK / 4 / kC;  // float4 of 128 rows of the stripe a thread takes
+    // the stripe's rows jj * kSub.., masked, rounded for the tensor cores and
+    // stored; with `table` (mode 3) the table's words are loaded with them,
+    // so that their latency is the stripe's
+    auto load_sub = [&](int jj, auto table) {
+      float4 yv[kYIters];
+      [[maybe_unused]] uint32_t yw[kYIters];  // with `table` only
+#pragma unroll
+      for (int r = 0; r < kYIters; ++r) {  // the loads all in flight at once
+        const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4);
+        const int col = k0 + (idx % (BK / 4)) * 4;
+        yv[r] = row < m16 ? y4(row, col) : make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (decltype(table)::value)
+          yw[r] = row < M && col < K ? mask_word(in_mask, row, col) : 0u;
+      }
+#pragma unroll
+      for (int r = 0; r < kYIters; ++r) {
+        const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+        if (row >= m16) continue;
+        float4 v = yv[r];
+        if (in_mask.mode != 0 && row < M && k0 + c < K) {
+          float mk[4];
+          if constexpr (decltype(table)::value)
+            mask4_word(in_mask, yw[r], k0 + c, K, mk);
+          else
+            mask4(in_mask, row, k0 + c, K, mk);
+          v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+        }
+        if constexpr (kTc) {
+          st_cvt4(&sm.op.y[row][c], v);
+        } else {
+          *reinterpret_cast<float4*>(&sm.op.y[row][c]) = v;
+        }
+      }
+    };
     auto load_stripe = [&]() {
 #pragma unroll
       for (int jj = 0; jj < T::kMT; ++jj) {
         if (n_steps == 0 || jj * kSub >= m16) continue;
-        float4 yv[kYIters];
-#pragma unroll
-        for (int r = 0; r < kYIters; ++r) {  // the loads all in flight at once
-          const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4);
-          yv[r] = row < m16 ? y4(row, k0 + (idx % (BK / 4)) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int r = 0; r < kYIters; ++r) {
-          const int idx = tid + r * kC, row = jj * kSub + idx / (BK / 4), c = (idx % (BK / 4)) * 4;
-          if (row >= m16) continue;
-          float4 v = yv[r];
-          if (in_mask.mode != 0 && row < M && k0 + c < K) {
-            float mk[4];
-            mask4(in_mask, row, k0 + c, K, mk);
-            v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
-          }
-          if constexpr (kTc) {
-            st_cvt4(&sm.op.y[row][c], v);
-          } else {
-            *reinterpret_cast<float4*>(&sm.op.y[row][c]) = v;
-          }
-        }
+        if (in_mask.mode == 3)
+          load_sub(jj, std::true_type());
+        else
+          load_sub(jj, std::false_type());
       }
     };
     if (early_y) load_stripe();

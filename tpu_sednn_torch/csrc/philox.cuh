@@ -14,6 +14,21 @@
 // the number of devices cannot change it.  One call yields the four words of
 // four neighbouring columns, which is what a thread's float4 holds.
 // tpu_sednn_torch/ops/philox.py is the bit-equal plain version.
+//
+// A kernel either draws those bits itself (MaskSpec mode 2) or reads them
+// from a table that one launch drew before (mode 3: bit b of word w of a row
+// is the keep of column 32 w + b; columns at or past the width read 0).  Who
+// draws which way:
+// * the chunk trainer's input mask (resident_chunk.cu:train_chunk): one
+//   launch of input_mask_bits_kernel draws a call's tables, one a tile, and
+//   the layer-0 forward and backward of each tile read its table (mode 3):
+//   the bits are drawn once a call, not once in every column tile of x that
+//   the forward's blocks load and every split of the backward's stripes;
+// * every hidden layer's mask: in the epilogue of the forward that writes
+//   the activation (mode 2), which already draws each element once;
+// * the data-parallel forward (dp_chunk_forward), the gradient-out backward,
+//   the standalone wrappers (fused_linear_act, fused_bwd_update with a
+//   (key, omit) mask), dropout_mask.cu and the probe: mode 2.
 
 #pragma once
 
@@ -46,11 +61,14 @@ __host__ __device__ inline void philox4x32_10(uint32_t c0, uint32_t c1, uint32_t
 
 // How a kernel masks a (rows, cols) operand.  mode 0: no mask.  mode 1: read
 // 0/1 floats from ptr (row stride ld) — the explicit-mask tests.  mode 2:
-// generate with Philox from (key, row0 + row, col).  Kept elements are
+// generate with Philox from (key, row0 + row, col).  mode 3: read the keep
+// bits from the packed table `bits` (ld words a row, ceil(cols / 32); row0
+// unused: the pointer is at the operand's first row).  Kept elements are
 // multiplied by `scale` (1 in parity mode, 1/(1-omit) in inverted mode).
 struct MaskSpec {
   int mode;
   const float* ptr;
+  const uint32_t* bits;
   int ld;
   uint32_t key;
   uint32_t threshold;
@@ -62,6 +80,7 @@ __host__ __device__ inline MaskSpec no_mask() {
   MaskSpec s;
   s.mode = 0;
   s.ptr = nullptr;
+  s.bits = nullptr;
   s.ld = 0;
   s.key = 0;
   s.threshold = 0;
@@ -80,8 +99,53 @@ __host__ __device__ inline MaskSpec philox_mask(uint32_t key, uint32_t threshold
   return s;
 }
 
+// The packed table of a (rows, cols) operand's keep bits: `words` per row.
+__host__ __device__ inline MaskSpec table_mask(const uint32_t* bits, int words, float scale) {
+  MaskSpec s = no_mask();
+  s.mode = 3;
+  s.bits = bits;
+  s.ld = words;
+  s.scale = scale;
+  return s;
+}
+
+// Words a row of a packed keep-bit table of `cols` columns holds.
+__host__ __device__ inline int mask_words(int cols) { return (cols + 31) / 32; }
+
+// The keep bits of columns col..col+3 of `row` under a Philox mask (mode 2's
+// decision): bit j for column col + j, 0 at or past ncols.
+__device__ inline unsigned philox_keep4(uint32_t key, uint32_t threshold, int row, int col,
+                                        int ncols) {
+  uint32_t w[4];
+  philox4x32_10((uint32_t)(col >> 2), (uint32_t)row, 0u, 0u, key, 0u, w);
+  unsigned keep = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) keep |= (w[j] >= threshold && col + j < ncols) ? 1u << j : 0u;
+  return keep;
+}
+
+// Mode 3: the table word holding columns col..col+3 of `row`.  A kernel loads
+// the words early with this (with its operand, or a step ahead) and applies
+// them with mask4_word, so that the load's latency hides behind other work:
+// read where it is used, the table cost the forwards as much as the Philox
+// draw it replaces (PERF.md).
+__device__ inline uint32_t mask_word(const MaskSpec& s, int row, int col) {
+  return __ldg(s.bits + (long long)row * s.ld + (col >> 5));
+}
+
+// Mode 3's factors for columns col..col+3 (col a multiple of 4: the 4 bits lie
+// in one word) from `word`, the table word that holds them.
+__device__ inline void mask4_word(const MaskSpec& s, uint32_t word, int col, int ncols,
+                                  float m[4]) {
+  word >>= col & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m[j] = ((word >> j) & 1u) && col + j < ncols ? s.scale : 0.0f;
+}
+
 // Factors for columns col..col+3 of `row` (col a multiple of 4): 0 or scale.
-// Columns at or past ncols get 0.  Only called when s.mode != 0.
+// Columns at or past ncols get 0.  Only called when s.mode is 1 or 2: the
+// kernels that take a table (the layer-0 forwards and the backward) read it
+// through mask_word and mask4_word.
 __device__ inline void mask4(const MaskSpec& s, int row, int col, int ncols, float m[4]) {
   if (s.mode == 2) {
     uint32_t w[4];

@@ -14,9 +14,10 @@
 // exist as separate passes.  One call of resident_chunk_train enqueues, for
 // every bunch i < n_real and in order on one stream, the forward launches
 // (fused_mlp.cuh:f32_fwd_kernel or tc_fwd_kernel, K split within a
-// thread-block cluster; the input's mask is generated while x is loaded, each
-// hidden layer's mask in the epilogue of the layer that feeds it, dedx in the
-// last layer's epilogue) and the backward launches, last layer first:
+// thread-block cluster; the input's mask is read from the call's bit table
+// while x is loaded, each hidden layer's mask drawn in the epilogue of the
+// layer that feeds it, dedx in the last layer's epilogue) and the backward
+// launches, last layer first:
 // stripe_bwd_kernel in either product form (dedy summed inside the kernel,
 // across a thread-block cluster, with the derivative in its epilogue).  So a
 // bunch of L layers is 2L launches in either product form, and the workspace
@@ -46,9 +47,13 @@
 //
 // Dropout stream: Philox4x32-10 (philox.cuh) keyed on
 // (seed + bunch*7919 + layer*104729) mod 2^32, counter = the element's
-// (row, column) in the global bunch.  The backward never regenerates a hidden
-// layer's mask: the stored activation is the masked one, and the derivative
-// is taken on it.
+// (row, column) in the global bunch.  The input's masks of a call are drawn
+// once, before its chain, by one launch of input_mask_bits_kernel into a
+// table of keep bits (32 columns a word, one table a tile), which the layer-0
+// forward and backward read: drawn in those kernels, every column tile of
+// the forward and every split of the backward would draw all of x again.
+// The backward never regenerates a hidden layer's mask: the stored
+// activation is the masked one, and the derivative is taken on it.
 //
 // Variants of the TPU kernel, all through the same launches:
 // * bfloat16 state with stochastic rounding (its sr_delta: Delta of the
@@ -74,8 +79,9 @@
 //   Python loop (ops/resident_chunk.py) calls dp_chunk_forward for a tile,
 //   then for each layer, last first, the gradient-out backward, an
 //   all-reduce and the update kernel (fused_mlp.cu).  The forward is the
-//   same launches as here, with every mask drawn at the rank's rows row0..
-//   of the global tile.
+//   same launches as here, with every mask drawn by Philox in the kernels
+//   (the input's too: no bit table) at the rank's rows row0.. of the global
+//   tile.
 
 #include "fused_mlp.cuh"
 
@@ -124,6 +130,63 @@ __global__ void mask_probe_kernel(float* __restrict__ out, int rows, int cols, M
   }
 }
 
+// The chunk trainer's input masks of a call, drawn once: for global tile gi
+// < n_tiles, row r < tile and word w < words = mask_words(K),
+//   out[(gi * tile + r) * words + w] bit b = the keep of column 32 w + b of
+//   row r under key seed + gi * kBunchStride (mode 2's decision; 0 at or
+//   past K),
+// which the tile's layer-0 forward and backward read (MaskSpec mode 3).
+// Replaces the input's share of the TPU kernel's in-kernel bits
+// (tpu_sednn/ops/resident_chunk.py:315-319: the net's input mask drawn once
+// a bunch).  A block takes a row at a time (a grid-stride loop over the
+// rows, its tile and row within it stepped without a division), a thread a
+// Philox call of the row (4 columns, one nibble), and 8 neighbouring lanes
+// join their nibbles into a word by three xor shuffles: no atomics, each word
+// written once by one lane, a warp's 4 words side by side.  Bound: the Philox
+// calls (ceil(K / 4) a row, 20 32x32 -> 64-bit products each) on the
+// integer multipliers; the table itself (4 bytes for 32 columns) is a small
+// share of that time.
+__global__ void input_mask_bits_kernel(uint32_t* __restrict__ out, int n_tiles, int tile, int K,
+                                       unsigned seed, unsigned threshold) {
+  const int words = mask_words(K), calls = 8 * words;
+  const int rows = n_tiles * tile;  // the launcher checks that it fits
+  int gi = blockIdx.x / tile, r = blockIdx.x % tile;
+  const int gi_step = gridDim.x / tile, r_step = gridDim.x % tile;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const unsigned key = seed + (unsigned)gi * kBunchStride;
+    uint32_t* row_out = out + (long long)row * words;
+    // every lane of a warp takes the same trips (blockDim.x is a multiple of
+    // 32), so the shuffles see all 32
+    for (int t = threadIdx.x; t - (int)(threadIdx.x & 31) < calls; t += blockDim.x) {
+      const int sub = t & 7;
+      unsigned v = t < calls ? philox_keep4(key, threshold, r, 4 * t, K) << (4 * sub) : 0u;
+      v |= __shfl_xor_sync(0xffffffffu, v, 1);
+      v |= __shfl_xor_sync(0xffffffffu, v, 2);
+      v |= __shfl_xor_sync(0xffffffffu, v, 4);
+      if (t < calls && sub == 0) row_out[t >> 3] = v;
+    }
+    gi += gi_step;
+    r += r_step;
+    if (r >= tile) {
+      r -= tile;
+      ++gi;
+    }
+  }
+}
+
+// Launches input_mask_bits_kernel on `stream`: a row's calls in one block
+// where they fit (up to 1024 threads: K <= 4096), some 16 blocks an SM.
+cudaError_t launch_input_mask_bits(uint32_t* out, int n_tiles, int tile, int K, unsigned seed,
+                                   unsigned threshold, cudaStream_t stream) {
+  const long long rows = (long long)n_tiles * tile;
+  if (n_tiles < 0 || tile <= 0 || K <= 0 || rows > 0x7FFFFFFFll) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  const int calls = 8 * mask_words(K), threads = calls < 1024 ? (calls + 31) / 32 * 32 : 1024;
+  const int blocks = (int)(rows < 132 * 16 ? rows : 132 * 16);
+  input_mask_bits_kernel<<<blocks, threads, 0, stream>>>(out, n_tiles, tile, K, seed, threshold);
+  return cudaGetLastError();
+}
+
 __global__ void philox_words_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                                     int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -143,6 +206,14 @@ extern "C" long long resident_workspace_floats(const int* sizes, int L, int bunc
   return plan_workspace(sizes, L, bunch).total;
 }
 
+// Words of the input-mask table resident_chunk_train reads for a call of
+// n_tiles tiles (n_real * accum) of `tile` rows of width K: n_tiles * tile *
+// ceil(K / 32).
+extern "C" long long resident_mask_words(int n_tiles, int tile, int K) {
+  if (n_tiles < 0 || tile <= 0 || K <= 0) return -1;
+  return (long long)n_tiles * tile * mask_words(K);
+}
+
 namespace {
 
 // The flags early_read_plan (ops/resident_chunk.py) gives a programmatic
@@ -156,10 +227,12 @@ inline int early_flags(const int* plan, int L, int direction, int l) {
 // The forward of one tile of `tile` rows: layer l reads x (l == 0) or y[l-1]
 // and writes y[l] (the masked activation the next layer and the backward
 // read; y[L-1] is the net's output), and the last layer also writes dedx =
-// coef*(y - t).  Dropout: the input's mask in_mask, hidden layer l+1's the
-// stream key0 + (l+1)*kLayerStride; every mask draws the rows row0.. of the
-// global tile, so a rank of the data-parallel trainer draws its rows of the
-// single-device masks.  plan_rows: the rows K's split is planned for
+// coef*(y - t).  Dropout: the input's mask in_mask (the single-device
+// trainer's: the tile's rows of the call's bit table, mode 3; the
+// data-parallel forward's: Philox drawn in the kernel, mode 2), hidden layer
+// l+1's the stream key0 + (l+1)*kLayerStride drawn in the epilogue of layer
+// l; every Philox mask draws the rows row0.. of the global tile, so a rank of
+// the data-parallel trainer draws its rows of the single-device masks.  plan_rows: the rows K's split is planned for
 // (launch_fwd; 0: tile).  plan (nullptr: none): the chain's early-read flags
 // (early_flags), every launch a programmatic dependent one but the call's
 // first; *first: this tile's forward begins the call (cleared by its first
@@ -189,7 +262,8 @@ cudaError_t forward_tile(const float* x, const float* t, int tile, const int* si
     tallies[10] += done.pdl;
     const int products = done.tc + done.f32;
     tallies[0] += products;
-    tallies[3] += (l == 0 && in_mask.mode) || out_mask.mode ? products : 0;
+    tallies[3] += (l == 0 && in_mask.mode == 2) || out_mask.mode == 2 ? products : 0;
+    tallies[12] += l == 0 && in_mask.mode == 2 ? products : 0;
     tallies[7] += std::is_same<TW, float>::value ? 0 : products;
     tallies[8] += done.tc;
   }
@@ -199,14 +273,26 @@ cudaError_t forward_tile(const float* x, const float* t, int tile, const int* si
 template <typename TW, typename TD>
 int train_chunk(const float* x, const float* t, int n_real, int tile, int accum, const int* sizes,
                 int L, void* const* w, void* const* d, float* const* b, float* const* db,
-                float* work, int hidden, int output, unsigned thr_vis, unsigned thr_hid,
-                float scale_vis, float scale_hid, unsigned seed, float mom, float A, float Bc,
-                bool tc, const int* plan, long long* tallies, cudaStream_t stream) {
+                float* work, uint32_t* mask_bits, int hidden, int output, unsigned thr_vis,
+                unsigned thr_hid, float scale_vis, float scale_hid, unsigned seed, float mom,
+                float A, float Bc, bool tc, const int* plan, long long* tallies,
+                cudaStream_t stream) {
   constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
   const Workspace ws = plan_workspace(sizes, L, tile);
   const float coef = 2.0f / (float)(tile * accum);
   float* ys[kMaxLayers];
   for (int l = 0; l < L; ++l) ys[l] = work + (l == L - 1 ? ws.out : ws.ys[l + 1]);
+  // The input's masks of every tile of the call, drawn once into mask_bits
+  // by an ordinary launch before the chain: the chain's first launch follows
+  // it in stream order and every later launch starts after that one, so any
+  // launch of the chain may read the table, before its wait too.
+  const int words = mask_words(sizes[0]);
+  if (thr_vis && n_real > 0) {
+    const cudaError_t err = launch_input_mask_bits(mask_bits, n_real * accum, tile, sizes[0],
+                                                   seed, thr_vis, stream);
+    if (err != cudaSuccess) return (int)err;
+    tallies[11] += 1;
+  }
   bool first = true;  // the call's first launch: no programmatic dependent launch
   for (int i = 0; i < n_real; ++i) {
     for (int j = 0; j < accum; ++j) {
@@ -214,7 +300,8 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
       const float* xi = x + gi * tile * sizes[0];
       const float* ti = t + gi * tile * sizes[L];
       const unsigned key0 = seed + (unsigned)gi * kBunchStride;
-      const MaskSpec in_mask = thr_vis ? philox_mask(key0, thr_vis, scale_vis) : no_mask();
+      const MaskSpec in_mask =
+          thr_vis ? table_mask(mask_bits + gi * tile * words, words, scale_vis) : no_mask();
       const int flags = (j == 0 ? kUpdFirst : 0) | (j == accum - 1 ? kUpdApply : 0);
       float* dedx = work + ws.dedx_a;
       float* other = work + ws.dedx_b;
@@ -238,7 +325,8 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
         const int products = done.tc + done.f32;
         tallies[1] += products;
         tallies[9] += done.tc;
-        tallies[3] += (l == 0 && in_mask.mode) ? products : 0;
+        tallies[3] += (l == 0 && in_mask.mode == 2) ? products : 0;
+        tallies[12] += (l == 0 && in_mask.mode == 2) ? products : 0;
         tallies[5] += kSr ? products : 0;
         tallies[6] += accum > 1 ? products : 0;
         float* tmp = dedx;
@@ -267,42 +355,50 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // chain.
 // hidden/output: 0 linear, 1 relu, 2 sigmoid.
 // thr_vis/thr_hid: mask thresholds of the input and of the hidden activations
-// (0 = no dropout there), scale_*: factor on kept elements.  Update: delta' =
-// mom*delta - (A*G + Bc*w) with G the gradient of (1/bunch)*sum((out-t)^2).
-// tallies[11] += launches of the forward and backward product kernels (either
+// (0 = no dropout there), scale_*: factor on kept elements.  With thr_vis the
+// call first draws the input's masks of its n_real * accum tiles into
+// mask_bits (resident_mask_words(n_real * accum, tile, sizes[0]) words, which
+// the caller allocates; nullptr is refused) by one launch of
+// input_mask_bits_kernel, and the layer-0 kernels of each tile read its rows.
+// Update: delta' = mom*delta - (A*G + Bc*w) with G the gradient of
+// (1/bunch)*sum((out-t)^2).
+// tallies[13] += launches of the forward and backward product kernels (either
 // form), nothing at [2] and [4] (the reduce_dedy and fused_linear_act_sum
 // keys, which stay in the layout the callers read: both layer kernels sum
 // their split inside the kernel), the count of the product launches that drew
-// Philox masks, backward launches that rounded stochastically, backward
-// launches of row-tiled bunches, forward launches that read bfloat16 weights,
-// forward and backward launches of the tensor-core forms, and the
+// Philox masks in the kernel, backward launches that rounded stochastically,
+// backward launches of row-tiled bunches, forward launches that read bfloat16
+// weights, forward and backward launches of the tensor-core forms, the
 // programmatic dependent launches among all of them (2 L n_real accum - 1 a
-// call).
+// call), the launches of input_mask_bits_kernel (one a call with thr_vis),
+// and the layer-0 launches that drew the input's mask by Philox in the
+// kernel (0 here; the data-parallel forward's).
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,
-                                    float* const* db, float* work, int hidden, int output,
-                                    unsigned thr_vis, unsigned thr_hid, float scale_vis,
-                                    float scale_hid, unsigned seed, float mom, float A, float Bc,
-                                    int bf16, const int* plan, long long* tallies,
-                                    void* stream_) {
+                                    float* const* db, float* work, void* mask_bits, int hidden,
+                                    int output, unsigned thr_vis, unsigned thr_hid,
+                                    float scale_vis, float scale_hid, unsigned seed, float mom,
+                                    float A, float Bc, int bf16, const int* plan,
+                                    long long* tallies, void* stream_) {
   if (L < 1 || L > kMaxLayers || tile <= 0 || accum <= 0 || hidden < 0 || hidden > 2 ||
       output < 0 || output > 2 || (w_bf16 && !d_bf16) || (accum > 1 && d_bf16) ||
-      plan == nullptr)
+      plan == nullptr || (thr_vis && n_real > 0 && mask_bits == nullptr))
     return (int)cudaErrorInvalidValue;
+  uint32_t* bits = (uint32_t*)mask_bits;
   cudaStream_t stream = (cudaStream_t)stream_;
   const bool tc = bf16 != 0;
   if (w_bf16)
     return train_chunk<bf16_t, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
-                                       hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
-                                       seed, mom, A, Bc, tc, plan, tallies, stream);
+                                       bits, hidden, output, thr_vis, thr_hid, scale_vis,
+                                       scale_hid, seed, mom, A, Bc, tc, plan, tallies, stream);
   if (d_bf16)
     return train_chunk<float, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
-                                      hidden, output, thr_vis, thr_hid, scale_vis, scale_hid,
-                                      seed, mom, A, Bc, tc, plan, tallies, stream);
-  return train_chunk<float, float>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work, hidden,
-                                   output, thr_vis, thr_hid, scale_vis, scale_hid, seed, mom, A,
-                                   Bc, tc, plan, tallies, stream);
+                                      bits, hidden, output, thr_vis, thr_hid, scale_vis,
+                                      scale_hid, seed, mom, A, Bc, tc, plan, tallies, stream);
+  return train_chunk<float, float>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work, bits,
+                                   hidden, output, thr_vis, thr_hid, scale_vis, scale_hid, seed,
+                                   mom, A, Bc, tc, plan, tallies, stream);
 }
 
 // The data-parallel trainer's forward of one tile: this rank's `tile` rows
@@ -344,6 +440,16 @@ extern "C" int philox_mask_f32(float* out, int rows, int cols, int row0, unsigne
   mask_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
       out, rows, cols, philox_mask(key, threshold, scale, row0));
   return (int)cudaGetLastError();
+}
+
+// out (n_tiles, tile, ceil(K / 32) words) = the input-mask table
+// resident_chunk_train draws for a call of n_tiles tiles under `seed` (the
+// tile gi's under key seed + gi * 7919) and threshold: one launch of
+// input_mask_bits_kernel.
+extern "C" int input_mask_bits_u32(void* out, int n_tiles, int tile, int K, unsigned seed,
+                                   unsigned threshold, void* stream) {
+  return (int)launch_input_mask_bits((uint32_t*)out, n_tiles, tile, K, seed, threshold,
+                                     (cudaStream_t)stream);
 }
 
 // out[4*i..] = philox4x32_10(counter = in[6*i..6*i+3], key = in[6*i+4..6*i+5]):

@@ -50,6 +50,7 @@ def launch_counts() -> dict:
         "dp_update_sr": dp_update.sr_launches,
         "rank_sum": rank_sum.launches,
         "sample_resident_masks": resident_chunk.sample_resident_masks.launches,
+        "input_mask_bits": resident_chunk.input_mask_bits.launches,
         "resident_chunk": resident_chunk.make_resident_train_chunk.launches,
         "dp_resident_chunk": resident_chunk.make_dp_resident_train_chunk.launches,
         "resident_chunk_kernels": dict(resident_chunk.kernel_launches),
@@ -83,6 +84,7 @@ def reset_launch_counts() -> None:
     fused_bwd_grad_out.reduce_launches = dp_update.launches = dp_update.sr_launches = 0
     rank_sum.launches = 0
     resident_chunk.sample_resident_masks.launches = 0
+    resident_chunk.input_mask_bits.launches = 0
     resident_chunk.make_resident_train_chunk.launches = 0
     resident_chunk.make_dp_resident_train_chunk.launches = 0
     for name in resident_chunk.kernel_launches:

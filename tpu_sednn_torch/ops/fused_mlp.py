@@ -10,7 +10,10 @@ the port of tpu_sednn/ops/fused_mlp.py:
   loaded (`in_mask`) and the dropout mask of the NEXT layer's input applied
   to y in the epilogue (`out_mask`), each either an explicit 0/1 tensor or
   `(key, omit)` for the Philox stream of ops/philox.py generated in the
-  kernel, with `*_scale` on the kept elements (1/(1-omit) in inverted mode).
+  kernel, with `*_scale` on the kept elements (1/(1-omit) in inverted mode);
+  `in_mask` may also be a packed int32 table of keep bits
+  (ops/philox.py:philox_mask_words), which the chunk trainer's layer-0
+  kernels read instead of drawing the bits themselves.
 * `fused_bwd_update`  — one layer's backward and momentum update
   (`_bwd_kernel`): dedy = dedx @ W^T with W BEFORE the update,
   G = y_prev^T @ dedx, delta' = m*delta - c*(G/n + wc*W), W' = W + delta',
@@ -68,7 +71,8 @@ import torch
 from tpu_sednn_torch.model.mlp import mm_operand
 from tpu_sednn_torch.ops import _build
 from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
-                                        philox_mask, sr_bits, sr_to_bf16_reference)
+                                        mask_words, philox_mask, sr_bits, sr_to_bf16_reference,
+                                        unpack_mask_words)
 
 ACTS = {"linear": 0, "relu": 1, "sigmoid": 2}
 _STORAGE = (torch.float32, torch.bfloat16)
@@ -86,8 +90,13 @@ def _act(name: str, z: torch.Tensor) -> torch.Tensor:
 
 
 def _mask_tensor(mask: MaskArg, shape, device, row0: int = 0) -> Optional[torch.Tensor]:
-    """An explicit mask as it is, a (key, omit) spec as its Philox tensor
-    (rows row0.. of the stream)."""
+    """An explicit mask as it is, a packed int32 table of keep bits unpacked,
+    a (key, omit) spec as its Philox tensor (rows row0.. of the stream)."""
+    if isinstance(mask, torch.Tensor) and mask.dtype == torch.int32:
+        if tuple(mask.shape) != (shape[0], mask_words(shape[1])):
+            raise ValueError(f"a table of keep bits of shape {tuple(mask.shape)} for {tuple(shape)}; "
+                             f"expected {(shape[0], mask_words(shape[1]))}")
+        return unpack_mask_words(mask, shape[1])
     if mask is None or isinstance(mask, torch.Tensor):
         return mask
     key, omit = mask
@@ -243,9 +252,14 @@ def _check(name: str, t: torch.Tensor, shape, device, dtypes=(torch.float32,)) -
 
 
 def _mask_args(name: str, mask: MaskArg, scale: float, shape, device):
-    """-> (mode, pointer, key, threshold, scale, tensor kept alive) for the C call."""
+    """-> (mode, pointer, key, threshold, scale, tensor kept alive) for the C call:
+    mode 1 a float32 0/1 tensor, 2 a (key, omit) Philox spec, 3 a packed int32
+    table of keep bits, (rows, mask_words(cols))."""
     if mask is None:
         return 0, None, 0, 0, 1.0, None
+    if isinstance(mask, torch.Tensor) and mask.dtype == torch.int32:
+        _check(name, mask, (shape[0], mask_words(shape[1])), device, (torch.int32,))
+        return 3, mask.data_ptr(), 0, 0, float(scale), mask
     if isinstance(mask, torch.Tensor):
         _check(name, mask, shape, device)
         return 1, mask.data_ptr(), 0, 0, float(scale), mask
@@ -284,6 +298,8 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} do not match")
     (B, K), N = x.shape, w.shape[1]
+    if isinstance(out_mask, torch.Tensor) and out_mask.dtype == torch.int32:
+        raise ValueError("out_mask: a packed table of keep bits is taken for in_mask only")
     if x.device.type == "cpu":
         return fused_linear_act_reference(x, w, b, act, in_mask, in_scale, out_mask, out_scale,
                                           bf16=bf16)

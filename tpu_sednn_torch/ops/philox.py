@@ -12,6 +12,8 @@ or the number of devices.  This file is bit-equal to the device function
 (int64 tensors hold the 32-bit words; 32x32-bit products are formed from
 16-bit halves so nothing overflows), which makes a chunk trained WITH
 dropout comparable between the kernel and its plain version.
+`philox_mask_words` packs a mask 32 columns to a 32-bit word, as the chunk
+trainer's draw kernel stores its input masks.
 
 Stochastic rounding to bfloat16 (`csrc/sr_round.cuh`): `sr_to_bf16_reference`
 adds 16 random bits to the low half of the float32 bit pattern and drops the
@@ -78,6 +80,43 @@ def philox_mask(key: int, rows: int, cols: int, omit: float, row0: int = 0,
     """(rows, cols) float32 0/1 mask, P(0) = omit."""
     bits = philox_bits(key, rows, cols, row0, device)
     return (bits >= mask_threshold(omit)).to(torch.float32)
+
+
+def mask_words(cols: int) -> int:
+    """Words a row of a packed keep-bit table of `cols` columns holds:
+    ceil(cols / 32) (csrc/philox.cuh:mask_words)."""
+    return (int(cols) + 31) // 32
+
+
+def pack_mask_words(keep: torch.Tensor) -> torch.Tensor:
+    """(rows, cols) 0/1 or bool -> (rows, mask_words(cols)) int32 table: bit b
+    of word w of a row is element 32 w + b (0 past cols), the 32-bit word
+    held in an int32 as its bit pattern."""
+    rows, cols = keep.shape
+    words = mask_words(cols)
+    bits = torch.zeros((rows, words * 32), dtype=torch.int64, device=keep.device)
+    bits[:, :cols] = keep.to(torch.int64)
+    weights = torch.ones((), dtype=torch.int64, device=keep.device) << torch.arange(
+        32, dtype=torch.int64, device=keep.device)
+    packed = (bits.reshape(rows, words, 32) * weights).sum(dim=-1)
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
+
+
+def unpack_mask_words(table: torch.Tensor, cols: int) -> torch.Tensor:
+    """The (rows, cols) float32 0/1 mask of a packed table (pack_mask_words)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=table.device)
+    bits = (table.to(torch.int64)[:, :, None] >> shifts) & 1
+    return bits.reshape(table.shape[0], -1)[:, :cols].to(torch.float32)
+
+
+def philox_mask_words(key: int, rows: int, cols: int, omit: float, row0: int = 0,
+                      device: str | torch.device = "cpu") -> torch.Tensor:
+    """`philox_mask` packed: (rows, mask_words(cols)) int32, bit b of word w
+    of row r the keep of column 32 w + b (0 past cols) — the table the chunk
+    trainer's draw kernel writes for a tile and the layer-0 kernels read
+    (csrc/philox.cuh, mode 3)."""
+    bits = philox_bits(key, rows, cols, row0, device)
+    return pack_mask_words(bits >= mask_threshold(omit))
 
 
 SR_TAG = 0x53524E44  # second key word of every stochastic-rounding stream

@@ -18,12 +18,15 @@ Math is identical to train/step.py:reference_train_step (the quirk-exact
 update rule: dedx_L = (2/n)(out-t), raw-sum gradients, delta = m*delta -
 (1-m)*lr*(G/n + wc*W), partial bunch dropped) in float32, or to
 clean_train_step with rule="clean".  Dropout masks come from Philox4x32-10
-inside the kernels (parity semantics: mask without train-time rescale;
-"inverted" rescales), one stream per (seed, bunch, layer), the same seed
-formula as the TPU kernel but not its bits; `sample_resident_masks` exposes
-exactly that stream.  As in the TPU kernel, the activation derivative is
-taken on the stored masked activation (in inverted mode that leaves the
-1/(1-omit) factor out of the backward).
+on the card (parity semantics: mask without train-time rescale; "inverted"
+rescales), one stream per (seed, bunch, layer), the same seed formula as the
+TPU kernel but not its bits; `sample_resident_masks` exposes exactly that
+stream.  A call draws the input's masks of all its tiles once, by one launch
+(`input_mask_bits`: 32 columns a 32-bit word), before its chain, and the
+layer-0 forward and backward read them; each hidden layer's mask is drawn
+in the epilogue of the forward that writes that activation.  As in the TPU
+kernel, the activation derivative is taken on the stored masked activation
+(in inverted mode that leaves the 1/(1-omit) factor out of the backward).
 
 The TPU kernel's single-device variants are options of the same trainer:
 its products (`bf16`, default True as the JAX factory's: operands rounded to
@@ -60,7 +63,8 @@ from tpu_sednn_torch.model.mlp import MLP, ModelConfig, dropout_omits, mm_operan
 from tpu_sednn_torch.ops import _build
 from tpu_sednn_torch.ops.fused_mlp import ACTS, _check_bwd_rows
 from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_threshold,
-                                        philox_mask, sr_bits, sr_to_bf16_reference)
+                                        mask_words, philox_mask, philox_mask_words, sr_bits,
+                                        sr_to_bf16_reference)
 from tpu_sednn_torch.parallel.mesh import Mesh, all_reduce, fence, local_rows
 from tpu_sednn_torch.train.step import OptConfig, TrainState
 
@@ -73,7 +77,7 @@ _mask_threshold = mask_threshold
 # kernel launches enqueued by the chunk trainer's C entry point, by kernel:
 # the forward and backward product kernels (either form), "reduce_dedy" (0:
 # the backward sums dedy inside the kernel in both forms), then the count of
-# the product launches that drew dropout bits in the kernel, then
+# the product launches that drew dropout bits by Philox in the kernel, then
 # "fused_linear_act_sum" (0: the forward sums its K split inside the kernel in
 # both forms; the two zero keys keep the tallies' layout); then by form:
 # backward launches that stored bfloat16 with stochastic rounding, backward
@@ -81,16 +85,22 @@ _mask_threshold = mask_threshold
 # the forward and backward launches of the tensor-core forms (tc_fwd_kernel,
 # stripe_bwd_kernel's tensor-core form), counted in the first two as well; and
 # the programmatic dependent launches (every launch of a call but its first,
-# in either product form: 2 L n_real accum - 1 a call; early_read_plan).  The
-# data-parallel trainer's forward entry (dp_chunk_forward) tallies into the
-# forward keys (it launches nothing as a dependent launch); its backward and
-# update launches are counted by their wrappers (fused_bwd_grad_out,
-# dp_update in ops/fused_mlp.py)
+# in either product form: 2 L n_real accum - 1 a call; early_read_plan); the
+# launches of the kernel that draws a call's input masks into their bit table
+# ("input_mask_table", input_mask_bits_kernel: one a call with dropout on the
+# input); and the layer-0 product launches that drew the input's mask by
+# Philox in the kernel ("input_mask_philox": 0 on the single-device trainer,
+# which reads the table).  The data-parallel
+# trainer's forward entry (dp_chunk_forward) tallies into the forward keys (it
+# launches nothing as a dependent launch, and draws its input masks in the
+# kernel); its backward and update launches are counted by their wrappers
+# (fused_bwd_grad_out, dp_update in ops/fused_mlp.py)
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "reduce_dedy": 0, "philox_mask": 0,
                                    "fused_linear_act_sum": 0, "sr_bwd_update": 0,
                                    "tiled_bwd_update": 0, "bf16_linear_act": 0,
-                                   "tc_linear_act": 0, "tc_bwd_update": 0, "pdl": 0}
+                                   "tc_linear_act": 0, "tc_bwd_update": 0, "pdl": 0,
+                                   "input_mask_table": 0, "input_mask_philox": 0}
 
 # early_read_plan's bits (csrc/pdl.cuh): the operand groups a launch of the
 # chain may read before its griddepcontrol.wait
@@ -132,7 +142,9 @@ def early_read_plan(n_layers: int, accum: int) -> list:
       writes layer l+1's state and dedx, this launch's dedx): its W, b,
       delta, delta_b and yprev (x or y[l-1]) early; dedx after the wait.
     Writes wait in every launch, so nothing a launch reads early is written
-    before the launch completes."""
+    before the launch completes.  The input masks' bit table is written by
+    an ordinary launch before the call's first, so every launch may read it,
+    early or not: it is in no group."""
     if n_layers < 1 or accum < 1:
         raise ValueError(f"a chain of {n_layers} layers and {accum} tiles a bunch")
     plan = [0] * (4 * n_layers)
@@ -351,12 +363,14 @@ def _c_api() -> Dict[str, tuple]:
     llp, ll = ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong
     return {
         "resident_workspace_floats": ([ip, i, i], ll),
-        # ..., bf16, plan (early_read_plan), tallies, stream
-        "resident_chunk_train": ([p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, i, i, u, u, f, f,
-                                  u, f, f, f, i, ip, llp, p], i),
+        "resident_mask_words": ([i, i, i], ll),
+        # ..., work, mask_bits, ..., bf16, plan (early_read_plan), tallies, stream
+        "resident_chunk_train": ([p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, p, i, i, u, u, f,
+                                  f, u, f, f, f, i, ip, llp, p], i),
         "dp_chunk_forward": ([p, p, i, i, ip, i, pp, pp, pp, p, i, i, u, u, f, f, u, i, f, i, llp,
                               p], i),
         "philox_mask_f32": ([p, i, i, i, u, u, f, p], i),
+        "input_mask_bits_u32": ([p, i, i, i, u, u, p], i),
         "philox_words_u32": ([p, p, i, p], i),
     }
 
@@ -498,6 +512,9 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         c_sizes = (ctypes.c_int * (L + 1))(*sizes)
         work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile), dtype=torch.float32,
                            device=dev)
+        # the input masks' bit table, drawn by the call's first launch (none without dropout)
+        bits = (torch.empty(lib.resident_mask_words(nr * accum, tile, sizes[0]), dtype=torch.int32,
+                            device=dev) if omit_vis > 0.0 else None)
         ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
         plan = (ctypes.c_int * (4 * L))(*early_read_plan(L, accum))
         tallies = (ctypes.c_longlong * len(kernel_launches))()
@@ -505,7 +522,7 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
             rc = lib.resident_chunk_train(
                 in_chunk.data_ptr(), targ_chunk.data_ptr(), nr, tile, accum, c_sizes, L,
                 ptrs[0], int(sr_state), ptrs[1], int(sr_state or sr_delta), ptrs[2], ptrs[3],
-                work.data_ptr(),
+                work.data_ptr(), None if bits is None else bits.data_ptr(),
                 ACTS[cfg.hidden], ACTS[cfg.output],
                 mask_threshold(omit_vis) if omit_vis > 0.0 else 0,
                 mask_threshold(omit_hid) if omit_hid > 0.0 else 0,
@@ -822,6 +839,46 @@ def sample_resident_masks(seed: int, bunch_idx: int, layer_idx: int,
 
 
 sample_resident_masks.launches = 0
+
+
+def input_mask_bits_reference(seed: int, n_tiles: int, tile: int, width: int, omit: float,
+                              device: str | torch.device = "cpu") -> torch.Tensor:
+    """Plain torch version of `input_mask_bits`: (n_tiles, tile,
+    ceil(width / 32)) int32, tile gi's rows the packed Philox mask of stream
+    mask_key(seed, gi, 0) (ops/philox.py:philox_mask_words)."""
+    out = torch.empty((int(n_tiles), int(tile), mask_words(width)), dtype=torch.int32,
+                      device=device)
+    for gi in range(int(n_tiles)):
+        out[gi] = philox_mask_words(mask_key(seed, gi, 0), tile, width, omit, device=device)
+    return out
+
+
+def input_mask_bits(seed: int, n_tiles: int, tile: int, width: int, omit: float,
+                    device: str | torch.device = "cuda") -> torch.Tensor:
+    """The input masks the chunk trainer draws for a call of n_tiles tiles
+    (n_real * accum) of `tile` rows under `seed`, as the table its layer-0
+    kernels read: (n_tiles, tile, ceil(width / 32)) int32, bit b of word w
+    of a row the keep of column 32 w + b (0 past width) under the tile's
+    stream mask_key(seed, gi, 0), threshold mask_threshold(omit).  One
+    launch of csrc/resident_chunk.cu:input_mask_bits_kernel, the kernel the
+    trainer launches; device="cpu" runs the plain version."""
+    if int(n_tiles) < 0 or int(tile) <= 0 or int(width) <= 0:
+        raise ValueError(f"a table of {n_tiles} tiles of {tile} rows of width {width}")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return input_mask_bits_reference(seed, n_tiles, tile, width, omit)
+    out = torch.empty((int(n_tiles), int(tile), mask_words(width)), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().input_mask_bits_u32(out.data_ptr(), int(n_tiles), int(tile), int(width),
+                                        int(seed) & 0xFFFFFFFF, mask_threshold(omit),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"input mask bits kernel launch failed: CUDA error {rc}")
+    input_mask_bits.launches += 1
+    return out
+
+
+input_mask_bits.launches = 0
 
 
 def philox_words_on_device(counters_and_keys: torch.Tensor) -> torch.Tensor:
