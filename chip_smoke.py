@@ -1386,11 +1386,25 @@ def _fwd_digests() -> dict:
         got = []
         for row0 in range(0, BUNCH, tile):
             ys, dedx = fwd(x[row0:row0 + tile].contiguous(), t[row0:row0 + tile].contiguous(),
-                           ws, bs, 31 + n, row0, 2.0 / BUNCH, tallies)
+                           ws, bs, 31 + n, row0, 2.0 / BUNCH, tallies,
+                           *_dp_input_table(rc, 31 + n, tile, sizes[0], 0.1, row0))
             got += [y.clone() for y in ys] + [dedx[:tile * sizes[-1]].clone()]
         out[f"dp_tile_forward {'-'.join(map(str, sizes))} {head} head, {tile} of {BUNCH} rows"] = \
             digest(got)
     return out
+
+
+def _dp_input_table(rc, key0: int, tile: int, K: int, omit: float, row0: int) -> tuple:
+    """(the rank's rows of the input-mask table of one tile under key0, at
+    row0) where the package's data-parallel forward reads the input's mask
+    from a table (input_mask_bits takes row0), else () (it draws Philox in
+    the kernel): the extra argument of dp_tile_forward's fwd, so that two
+    checkouts run the same forward."""
+    import inspect
+
+    if "row0" not in inspect.signature(rc.input_mask_bits).parameters:
+        return ()
+    return (rc.input_mask_bits(key0, 1, tile, K, omit, row0=row0)[0],)
 
 
 def _fwd_block_profile(gen) -> dict:
@@ -1496,8 +1510,9 @@ def fwd_times() -> dict:
     bs = [_randn(gen, c, scale=0.1) for c in FLAGSHIP[1:]]
     x, t = _randn(gen, 64, FLAGSHIP[0]), _randn(gen, 64, FLAGSHIP[-1])
     tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
+    bits = _dp_input_table(rc, 9, 64, FLAGSHIP[0], 0.1, 64)
     out["dp64"] = dict(ms=_device_ms(lambda i: fwd(x, t, ws[i % 3], bs, 9, 64, 2.0 / BUNCH,
-                                                     tallies)))
+                                                     tallies, *bits)))
     del ws
     torch.cuda.empty_cache()
     for k in ("8k", "16k"):
@@ -1873,13 +1888,15 @@ def _mask_table_bound(n_tiles: int, tile: int, K: int) -> tuple:
 def _phase_mask_table() -> dict:
     """The chunk trainer's input-mask table (input_mask_bits_kernel): bit-equal
     to its plain version at K 1548, 3084, 129 and 33, tiles of 128 and 64
-    rows (accum 1 and 2), omit 0.1 and 0.5, and on a whole 800-tile call of
-    the 8 kHz net; the layer-0 wrappers reading a table bit-equal to the same
-    wrappers drawing Philox, both product forms, at both nets' layer-0
-    shapes; a chunk-trainer call with input dropout and no table refused;
-    the draw's time on an 800-tile call at 8 and 16 kHz beside its plain
-    version's, torch.rand >= omit (a yardstick: not the same bits) and the
-    bound."""
+    rows (accum 1 and 2), omit 0.1 and 0.5, at the data-parallel ranks'
+    rows (row0 > 0, 2 and 4 ranks; their tables stacked bit-equal to the
+    single-device table), and on a whole 800-tile call of the 8 kHz net; the
+    layer-0 wrappers reading a table bit-equal to the same wrappers drawing
+    Philox, both product forms, at both nets' layer-0 shapes; a chunk-trainer
+    call and a data-parallel forward with input dropout and no table
+    refused; the draw's time on an 800-tile call at 8 and 16 kHz beside its
+    plain version's, torch.rand >= omit (a yardstick: not the same bits)
+    and the bound, and one rank of 2's draw beside its bound."""
     import ctypes
 
     from tpu_sednn_torch.ops import resident_chunk as rc
@@ -1896,6 +1913,25 @@ def _phase_mask_table() -> dict:
                 _check(torch.equal(got, want), f"input mask table K {K}, tiles of {tile}, omit "
                                                f"{omit}: the kernel differs from its plain version")
                 n_held += got.numel()
+    # a data-parallel rank's rows (row0 = rank * local tile): bit-equal to the plain version,
+    # and the ranks' tables stacked are the single-device table of the global tile
+    n_ranks_held = 0
+    for K in (1548, 3084, 129):
+        whole = rc.input_mask_bits(seed, 6, BUNCH, K, 0.1)
+        for n_dev in (2, 4):
+            tile = BUNCH // n_dev
+            parts = [rc.input_mask_bits(seed, 6, tile, K, 0.1, row0=d * tile) for d in range(n_dev)]
+            for d, part in enumerate(parts):
+                want = rc.input_mask_bits_reference(seed, 6, tile, K, 0.1, device="cuda",
+                                                    row0=d * tile)
+                _check(torch.equal(part, want), f"input mask table K {K}, rank {d} of {n_dev} (row0 "
+                                                f"{d * tile}): the kernel differs from its plain "
+                                                f"version")
+                n_held += part.numel()
+            _check(torch.equal(torch.cat(parts, dim=1), whole),
+                   f"input mask table K {K}: the {n_dev} ranks' tables stacked differ from the "
+                   f"single-device table")
+            n_ranks_held += 1
     n_tiles = 800
     got = rc.input_mask_bits(seed, n_tiles, BUNCH, FLAGSHIP[0], 0.1)
     want = rc.input_mask_bits_reference(seed, n_tiles, BUNCH, FLAGSHIP[0], 0.1, device="cuda")
@@ -1932,6 +1968,12 @@ def _phase_mask_table() -> dict:
                                          7, 0.5, 0.1, 0.0, 1, plan, tallies, None)
     _check(err != 0 and not any(tallies), f"a chunk-trainer call with input dropout and no table: "
                                           f"error {err}, tallies {list(tallies)}")
+    # and so is a data-parallel forward with input dropout and no table
+    err_dp = rc._lib().dp_chunk_forward(None, None, 8, 16, c_sizes, 1, nulls, nulls, nulls, None,
+                                        1, 0, mask_threshold(0.1), 0, 1.0, 1.0, None, 7, 8, 0.1, 1,
+                                        tallies, None)
+    _check(err_dp != 0 and not any(tallies), f"a data-parallel forward with input dropout and no "
+                                             f"table: error {err_dp}, tallies {list(tallies)}")
     out = {}
     for tag, K in (("8k", FLAGSHIP[0]), ("16k", 3084)):
         ms = _device_ms(lambda i: rc.input_mask_bits(seed + i, n_tiles, BUNCH, K, 0.1))
@@ -1947,16 +1989,28 @@ def _phase_mask_table() -> dict:
               f"{library_ms:.4f} ms (not the same bits), bound {bound_ms:.4f} ms ({bound_by}: "
               f"{PHILOX_IMADS} 32-bit multiplies a Philox call at {PEAK_IMAD_PER_S / 1e12:.2f} T/s, "
               f"the table's bytes at 3.35 TB/s)", flush=True)
+    # one rank of 2's draw of an 800-tile call: its 64 rows of each tile, at row0 64
+    ms = _device_ms(lambda i: rc.input_mask_bits(seed + i, n_tiles, BUNCH // 2, FLAGSHIP[0], 0.1,
+                                                 row0=BUNCH // 2))
+    bound_ms, bound_by = _mask_table_bound(n_tiles, BUNCH // 2, FLAGSHIP[0])
+    out["dp2"] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                      shape=f"{n_tiles} tiles x {BUNCH // 2} x {FLAGSHIP[0]} (rank 1 of 2)")
+    print(f"[kernel] input mask table, one rank of 2 ({n_tiles} tiles x {BUNCH // 2} rows at row0 "
+          f"{BUNCH // 2} x {FLAGSHIP[0]} columns): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
     print(f"[kernel] input mask table: the draw kernel bit-equal to its plain version "
-          f"({n_held} words: 16 shapes and an 800-tile call); the layer-0 forward and backward "
-          f"reading a table bit-equal to their Philox draw (both forms, both nets); a call "
-          f"with input dropout and no table refused (error {err})", flush=True)
-    return dict(out["8k"], at_16k=out["16k"],
+          f"({n_held} words: 16 shapes, 18 data-parallel ranks' rows at row0 > 0 and an 800-tile "
+          f"call); {n_ranks_held} sets of 2 or 4 ranks' tables stacked bit-equal to the "
+          f"single-device table; the layer-0 forward and backward reading a table bit-equal to "
+          f"their Philox draw (both forms, both nets); a chunk-trainer call and a data-parallel "
+          f"forward with input dropout and no table refused (errors {err}, {err_dp})", flush=True)
+    return dict(out["8k"], at_16k=out["16k"], dp_rank_of_2=out["dp2"],
                 times_of="one launch of input_mask_bits_kernel drawing the input masks of an "
-                         "800-tile chunk-trainer call (8 kHz; at_16k: 16 kHz); probe: one "
-                         "standalone launch of sample_resident_masks; `launches` counts the draw "
-                         "kernel's launches and the layer kernels' launches that drew Philox "
-                         "masks in the kernel (hidden layers; the data-parallel forward's input)",
+                         "800-tile chunk-trainer call (8 kHz; at_16k: 16 kHz; dp_rank_of_2: one "
+                         "data-parallel rank's 64 rows of each tile); probe: one standalone "
+                         "launch of sample_resident_masks; `launches` counts the draw kernel's "
+                         "launches and the layer kernels' launches that drew Philox masks in the "
+                         "kernel (hidden layers)",
                 library_is="torch.rand >= omit over the same elements: not the same bits")
 
 
@@ -2421,10 +2475,18 @@ def mask_times() -> dict:
     * the chains a bunch (CUDA events around whole calls, in turns): tensor
       cores at 8 kHz (100 bunches), float32 products at 8 kHz and tensor
       cores with sr_delta at 16 kHz (50 bunches), each with the input's
-      dropout 0.1 and 0 (the hidden layers' 0.2 in both); layer 1 alone, and
-      one rank of 2's data-parallel trainer (the sum stubbed), which keep
-      their masks as they were;
-    * the state digests of every form of CHUNK_DIGEST_FORMS and
+      dropout 0.1 and 0 (the hidden layers' 0.2 in both); layer 1 alone,
+      which keeps its masks as they were;
+    * the data-parallel trainer at one rank of 2's 64 rows: layer 0 alone
+      (fused_linear_act and the gradient-out backward's first-layer form,
+      1548 x 2048, both product forms) with no input mask, with the Philox
+      mask at row 64 and with the rank's table; its whole forward
+      (dp_tile_forward) with input dropout 0.1 and 0, the package's own way
+      (a table where it takes one); one rank's trainer a bunch (the sum
+      stubbed, 8 bunches a call);
+    * the state digests of every form of CHUNK_DIGEST_FORMS, of one call of
+      the data-parallel trainer for each rank of 2 (the sum stubbed, 8
+      bunches, parity dropout 0.1/0.2, both product forms) and
       _fwd_digests."""
     from tpu_sednn_torch.model.mlp import ModelConfig, init_params
     from tpu_sednn_torch.ops import philox
@@ -2477,20 +2539,69 @@ def mask_times() -> dict:
           f"{out['layer0']['8k_tc']['fwd_layer1']:.4f}, f32 "
           f"{out['layer0']['8k_f32']['fwd_layer1']:.4f} ms; the draw of an 800-tile call "
           f"{out.get('draw_ms')}", flush=True)
-    # one rank's data-parallel trainer a bunch (2 ranks, the sum stubbed): its layer-0
-    # forward and gradient-out backward still draw the input mask by Philox
+    out["dp2_layer0"], out["dp2_forward"], out["dp2"], out["dp_digests"] = {}, {}, {}, {}
+    # one rank of 2's layer 0 (its 64 rows of 128): the forward (K split for the 64 rows, not
+    # for the global tile as the trainer's) and the gradient-out backward's first-layer form
+    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_grad_out
+
+    M, K, N = BUNCH // 2, FLAGSHIP[0], FLAGSHIP[1]
+    x, b = _randn(gen, M, K), _randn(gen, N, scale=0.1)
+    ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
+    dedx, grad = _randn(gen, M, N, scale=0.02), torch.empty(K * N + N, device="cuda")
+    dp_masks = {"off": ({}, {}), "philox": ({"in_mask": (4, 0.1)},
+                                            {"in_mask": (4, 0.1), "mask_row0": M}),
+                "table": ({"in_mask": philox.philox_mask_words(4, M, K, 0.1, row0=M,
+                                                               device="cuda")},) * 2}
+    for tc in (True, False):
+        row = {}
+        for name, (fkw, bkw) in dp_masks.items():
+            row[f"fwd_{name}"] = _device_ms(lambda i: fused_linear_act(
+                x, ws[i % 3], b, "relu", out_mask=(5, 0.2), bf16=tc, **fkw))
+            row[f"bwd_{name}"] = _device_ms(lambda i: fused_bwd_grad_out(
+                dedx, x, ws[i % 3], with_dedy=False, grad=grad, bf16=tc, **bkw))
+        out["dp2_layer0"]["tc" if tc else "f32"] = row
+        print(f"[mask-times] data-parallel layer 0, a rank's {M}x{K}x{N} "
+              f"{'tc' if tc else 'f32'}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + " ms", flush=True)
+    del ws
+    # one rank of 2's whole forward (dp_tile_forward, rank 1's rows at row0 64), input dropout
+    # 0.1 (the package's own way of masking the input) and 0
+    import ctypes
+
+    dws = [[_randn(gen, a, c, scale=0.03) for a, c in zip(FLAGSHIP[:-1], FLAGSHIP[1:])]
+           for _ in range(3)]
+    dbs = [_randn(gen, c, scale=0.1) for c in FLAGSHIP[1:]]
+    xt, tt = _randn(gen, M, FLAGSHIP[0]), _randn(gen, M, FLAGSHIP[-1])
+    tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
+    for tc in (True, False):
+        for vis in (0.1, 0.0):
+            fcfg = ModelConfig(layersizes=FLAGSHIP, dropout_vis=vis, dropout_hid=0.2)
+            fwd = rc.dp_tile_forward(fcfg, M, BUNCH, tc, torch.device("cuda"))
+            bits = _dp_input_table(rc, 9, M, FLAGSHIP[0], vis, M) if vis > 0.0 else ()
+            out["dp2_forward"][f"{'tc' if tc else 'f32'}_vis{vis}"] = _device_ms(
+                lambda i: fwd(xt, tt, dws[i % 3], dbs, 9, M, 2.0 / BUNCH, tallies, *bits))
+    print(f"[mask-times] data-parallel forward, a rank's {M} rows of {BUNCH}, "
+          f"1548-2048x3-129: " + ", ".join(f"{k} {v:.4f}" for k, v in out["dp2_forward"].items())
+          + " ms", flush=True)
+    del dws
+    # one rank of 2's data-parallel trainer (the sum stubbed): the state after one call of 8
+    # bunches (ranks 0 and 1) and a bunch's time (rank 0)
     from tpu_sednn_torch.parallel import Mesh
 
     dcfg, dopt, dmlp, dx, dt = _dp_inputs()
     dx, dt = dx.repeat(3, 1)[:8 * BUNCH].contiguous(), dt.repeat(3, 1)[:8 * BUNCH].contiguous()
     plain_sum, rc._all_reduce = rc._all_reduce, lambda a, mesh: a
     try:
-        out["dp2"] = {}
         for tc in (True, False):
-            run = rc.make_dp_resident_train_chunk(dcfg, dopt, Mesh(2, 0, torch.device("cuda", 0)),
-                                                  bf16=tc)
+            form = "tc" if tc else "f32"
+            for rank in (1, 0):  # rank 0's run is timed below
+                run = rc.make_dp_resident_train_chunk(
+                    dcfg, dopt, Mesh(2, rank, torch.device("cuda", 0)), bf16=tc)
+                st = init_train_state(dmlp)
+                run(st, dx, dt, 3, 1e-3, 0.5, 0.0)
+                out["dp_digests"][f"dp2_rank{rank}_{form}"] = _state_digest(st)
             st = init_train_state(dmlp)
-            out["dp2"]["tc" if tc else "f32"] = _device_ms(
+            out["dp2"][form] = _device_ms(
                 lambda i: run(st, dx, dt, 4 + i, 1e-3, 0.5, 0.0), reps=3) / 8
     finally:
         rc._all_reduce = plain_sum
@@ -2521,7 +2632,7 @@ def mask_times() -> dict:
     torch.cuda.empty_cache()
     out["chunk_digests"] = _chunk_digests([f[0] for f in CHUNK_DIGEST_FORMS])
     out["fwd_digests"] = _fwd_digests()
-    for group in ("chunk_digests", "fwd_digests"):
+    for group in ("chunk_digests", "dp_digests", "fwd_digests"):
         for k, v in out[group].items():
             print(f"[mask-times] digest {k}: {v}", flush=True)
     return out
@@ -3952,11 +4063,13 @@ def dp_worker(rank: int, world: int, workdir: str) -> int:
 
 
 def _dp_kernels(gen) -> dict:
-    """(a) the DP forward of a rank's rows (both product forms) and the
-    gradient-out backward against their float64 plain versions at the
-    per-launch limits, the update kernel (float32 and sr_delta delta) and
-    rank_sum bit-equal to their plain versions; then times at a rank's rows
-    of the flagship layers, beside the bounds."""
+    """(a) the DP forward of a rank's rows (both product forms; the input's
+    mask read from the rank's rows of its table) and the gradient-out
+    backward against their float64 plain versions at the per-launch limits,
+    the gradient-out backward reading the rank's table bit-equal to its
+    Philox draw at the rank's rows, the update kernel (float32 and sr_delta
+    delta) and rank_sum bit-equal to their plain versions; then times at a
+    rank's rows of the flagship layers, beside the bounds."""
     import ctypes
 
     from tpu_sednn_torch.ops import resident_chunk as rc
@@ -3972,14 +4085,17 @@ def _dp_kernels(gen) -> dict:
     cfg = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
     fwd_worst = {False: {}, True: {}}
     scratch_tallies = (ctypes.c_longlong * len(rc.kernel_launches))()  # not a path's launches
-    for M in (64, 32):  # rank 1's rows of a bunch of 128: masks at rows M.. of the global bunch
+    # rank 1's rows of a bunch of 128 (of 2 ranks: 64, of 4: 32): its rows of the input's
+    # mask table, drawn at row0 = M (tile 0 under seed 77: key 77)
+    dp_bits = {M: rc.input_mask_bits(77, 1, M, FLAGSHIP[0], 0.1, row0=M)[0] for M in (64, 32)}
+    for M in (64, 32):  # masks at rows M.. of the global bunch
         x, t = _randn(gen, M, FLAGSHIP[0]), _randn(gen, M, FLAGSHIP[-1])
         ws1 = [_randn(gen, K, N, scale=0.03) for K, N in kn]
         bs1 = [_randn(gen, N, scale=0.1) for _, N in kn]
         for tc in (False, True):
             tol = (TC_REL_MAX, TC_REL_FRO) if tc else (KERNEL_REL_MAX, KERNEL_REL_FRO)
             fwd = rc.dp_tile_forward(cfg, M, BUNCH, tc, torch.device("cuda", 0))
-            ys, dedx = fwd(x, t, ws1, bs1, 77, M, 2.0 / BUNCH, scratch_tallies)
+            ys, dedx = fwd(x, t, ws1, bs1, 77, M, 2.0 / BUNCH, scratch_tallies, dp_bits[M])
             h = x  # each layer on the kernel's own input
             for l, (K, N) in enumerate(kn):
                 want = fused_linear_act_reference(
@@ -4000,23 +4116,30 @@ def _dp_kernels(gen) -> dict:
         y_prev = torch.relu(_randn(gen, M, K)) * philox_mask(13, M, K, 0.2, device="cuda")
         w = _randn(gen, K, N, scale=0.03)
         w0 = w.clone()
+        table = rc.input_mask_bits(11, 1, M, K, 0.1, row0=M)[0]  # the rank's rows, row0 = M
         for tc in (False, True):
             tol = (TC_REL_MAX, TC_REL_FRO) if tc else (KERNEL_REL_MAX, KERNEL_REL_FRO)
             grads = {}
-            for kw in ({}, {"deriv": "relu"}, {"deriv": "sigmoid"},
-                       {"in_mask": (11, 0.1), "in_scale": 1.0 / 0.9, "mask_row0": M}):
-                label = f"fused_bwd_grad_out {M}x{K}x{N} {'tc' if tc else 'f32'} {sorted(kw)}"
+            for name, kw in (("plain", {}), ("relu", {"deriv": "relu"}),
+                             ("sigmoid", {"deriv": "sigmoid"}),
+                             ("philox", {"in_mask": (11, 0.1), "in_scale": 1.0 / 0.9,
+                                         "mask_row0": M}),
+                             ("table", {"in_mask": table, "in_scale": 1.0 / 0.9})):
+                label = f"fused_bwd_grad_out {M}x{K}x{N} {'tc' if tc else 'f32'} {name}"
                 reduced = fused_bwd_grad_out.reduce_launches
                 g, dy = fused_bwd_grad_out(dedx, y_prev, w, bf16=tc, **kw)
                 _check(fused_bwd_grad_out.reduce_launches == reduced,
                        "the gradient-out backward launched reduce_dedy_kernel")
-                grads.setdefault("plain", g)
+                grads[name] = (g, dy)
                 g_w, dy_w = fused_bwd_grad_out_reference(dedx, y_prev, w, dtype=f64, bf16=tc, **kw)
                 _hold(g[:K * N], g_w[:K * N], f"{label}, G", worst[tc], *tol)
                 _hold(g[K * N:], g_w[K * N:], f"{label}, gb", worst[tc])  # a float32 sum: no rounding
                 _hold(dy, dy_w, f"{label}, dedy", worst[tc], *tol)
+            _check(all(torch.equal(a, b) for a, b in zip(grads["table"], grads["philox"])),
+                   f"fused_bwd_grad_out {M}x{K}x{N} bf16={tc}: reading the rank's table differs "
+                   f"from the Philox draw at its rows")
             g1, none = fused_bwd_grad_out(dedx, y_prev, w, bf16=tc, with_dedy=False)
-            _check(none is None and torch.equal(g1, grads["plain"]),
+            _check(none is None and torch.equal(g1, grads["plain"][0]),
                    "the first layer's form (no dedy) differs")
         _check(torch.equal(w, w0), "the gradient-out backward wrote to W")
     torch.cuda.synchronize()
@@ -4059,8 +4182,8 @@ def _dp_kernels(gen) -> dict:
         del bufs
     torch.cuda.synchronize()
     print(f"[dp] fused_bwd_grad_out (the gradient-out backward) vs float64 plain, {len(shapes)} "
-          f"shapes (a rank's 64 and 32 rows of the four flagship layers, ragged ones), 4 derivative "
-          f"and mask forms: float32 products max err {worst[False]['rel_max']:.3g} of max|want| "
+          f"shapes (a rank's 64 and 32 rows of the four flagship layers, ragged ones), 5 derivative "
+          f"and mask forms (the rank's table read bit-equal to the Philox draw): float32 products max err {worst[False]['rel_max']:.3g} of max|want| "
           f"(tol {KERNEL_REL_MAX}), Frobenius {worst[False]['rel_fro']:.3g} (tol {KERNEL_REL_FRO}); "
           f"tensor cores {worst[True]['rel_max']:.3g} (tol {TC_REL_MAX}), "
           f"{worst[True]['rel_fro']:.3g} (tol {TC_REL_FRO}); W untouched; dp_update (float32 and "
@@ -4089,7 +4212,7 @@ def _dp_kernels(gen) -> dict:
         for key, tc in (("fwd", True), ("fwd_f32", False)):
             fwd = rc.dp_tile_forward(cfg, M, BUNCH, tc, torch.device("cuda", 0))
             res[key]["ms"] = _device_ms(lambda i: fwd(x, t, ws[i % 3], bs, 77, M, 2.0 / BUNCH,
-                                                      scratch_tallies))
+                                                      scratch_tallies, dp_bits[M]))
 
         def library_fwd(i, x_in, wl, bl):
             """The four layers as torch.addmm + act (the yardstick of row 1)."""
@@ -4434,6 +4557,21 @@ def phase_recipe(tmp: str, smi: str) -> dict:
                              plain_ms=plain_s * 1e3, held=held))
 
 
+def _dp_mask_counts(c: dict, label: str) -> None:
+    """A data-parallel run with input dropout (rank 0's launch_counts, zeroed
+    just before it) draws its rows of a call's input masks once a call into
+    their table (input_mask_table one a call) and no layer-0 launch draws
+    them by Philox: not the forward, not the gradient-out backward
+    (input_mask_philox, fused_bwd_grad_out_philox 0)."""
+    k = c["resident_chunk_kernels"]
+    _check(k["input_mask_table"] == c["dp_resident_chunk"] == c["input_mask_bits"] > 0
+           and k["input_mask_philox"] == 0 and c["fused_bwd_grad_out_philox"] == 0,
+           f"{label}: {k['input_mask_table']} input-mask draws, {c['input_mask_bits']} launches "
+           f"of the draw, in {c['dp_resident_chunk']} calls; layer-0 launches that drew Philox "
+           f"{k['input_mask_philox']} (the gradient-out backward's "
+           f"{c['fused_bwd_grad_out_philox']})")
+
+
 def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
     """(a) kernel holds and times, (b) the DP chunk trainer on 2 and 4 ranks
     sharing the card (gloo) against the single-process trainer, (c) the
@@ -4591,6 +4729,7 @@ def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
                and c["resident_chunk"] == 0 and c["plain_train_chunk"] == 0,
                f"DP pfile epoch ({label}) on {world} ranks: CV {dp['cv']} vs one process "
                f"{res.cv_mse} ({off:.3g} apart, tol {frac}); counts {c}")
+        _dp_mask_counts(c, f"DP pfile epoch ({label}) on {world} ranks")
         epochs[label] = dict(cv=dp["cv"], cv_one=res.cv_mse, off=off, counts=c)
         print(f"[dp] train_epoch_pfile on {world} ranks (sentences 0-1, {n_bunches} bunches), "
               f"{label}: CV {dp['cv']:.6f}, one process {res.cv_mse:.6f} ({off:.3g} apart, tol "
@@ -4636,6 +4775,7 @@ def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
            and k2["tc_linear_act"] == k2["fused_linear_act"] == 4 * n_bunches
            and k2["fused_bwd_update"] == 0 and c1["resident_chunk"] == len(chunk_sizes),
            f"gpu_used=2 launches {c2} for {n_bunches} bunches; gpu_used=1 {c1}")
+    _dp_mask_counts(c2, "torchrun gpu_used=2")
     (w2, b2), (w1, b1), (w0, b0) = (load_wts(f, layersizes=list(FLAGSHIP)) for f in
                                     (f"{tmp}/dp2.wts", f"{tmp}/dp1.wts", init_wts))
     upd = max(float(np.linalg.norm(a - b) / np.linalg.norm(b - c))
@@ -5340,7 +5480,8 @@ def main(argv=None) -> int:
                     ("the DP chunk trainer (float32 products)", dp_f32_runs),
                     ("fused_linear_act (tensor cores)", dkc["tc_linear_act"]),
                     ("fused_linear_act", dkc["fused_linear_act"] - dkc["tc_linear_act"]),
-                    ("philox_mask", dkc["philox_mask"])):
+                    ("philox_mask", dkc["philox_mask"]),
+                    ("input_mask_bits", dkc["input_mask_table"])):
         _check(n > 0, f"the data-parallel training path never launched the {name} kernel")
 
     # the recipe's path: the chunk trainer in its tensor-core form and the STFT kernel

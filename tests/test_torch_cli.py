@@ -127,10 +127,11 @@ def test_enhance_cli_rejects_what_jax_rejects(tmp_path, model, run_b, flag, matc
     assert not (tmp_path / "t").exists()
 
 
-@pytest.mark.parametrize("pkg", ["enhance", "model", "io", "tools", "parallel"])
+@pytest.mark.parametrize("pkg", ["", "enhance", "model", "io", "tools", "parallel", "data", "dsp",
+                                 "metrics", "ops", "recipes", "train", "utils"])
 def test_port_exports_equal_jax(pkg):
-    """Every public name of a JAX package's __init__ is exported by the
-    port's."""
+    """Every public name of a JAX package's __init__ (every package that has
+    one; "" the top level) is exported by the port's."""
     import importlib
     import inspect
 
@@ -138,8 +139,9 @@ def test_port_exports_equal_jax(pkg):
         return {n for n in dir(mod) if not n.startswith("_")
                 and not inspect.ismodule(getattr(mod, n))}
 
-    missing = (names(importlib.import_module(f"tpu_sednn.{pkg}"))
-               - names(importlib.import_module(f"tpu_sednn_torch.{pkg}")))
+    sub = f".{pkg}" if pkg else ""
+    missing = (names(importlib.import_module(f"tpu_sednn{sub}"))
+               - names(importlib.import_module(f"tpu_sednn_torch{sub}")))
     assert missing == set()
 
 

@@ -21,6 +21,10 @@ result independent of the device count, since its interpret-mode bits are
 degenerate.  The two deliberately broken runs (no all-reduce; every rank's
 masks at row 0) are refused by the same holds.  The gradient-out backward and
 the update kernel's plain versions are held against the JAX fused backward.
+The card's loop, in which each rank's layer-0 forward and gradient-out
+backward read its rows of a call's input-mask table, is stepped through the
+wrappers' plain versions for 2 and 4 ranks in one process and held to the
+single-process trainer at the same limits.
 """
 
 import jax
@@ -38,6 +42,7 @@ from tpu_sednn.train.step import OptConfig as JOpt, init_train_state as j_init
 import tpu_sednn_torch.model as tm
 import tpu_sednn_torch.ops.fused_mlp as tfm
 import tpu_sednn_torch.ops.resident_chunk as rc
+from tpu_sednn_torch.ops.philox import philox_mask
 from tpu_sednn_torch.parallel import Mesh, make_mesh
 from tpu_sednn_torch.train.step import OptConfig, init_train_state
 
@@ -385,3 +390,76 @@ def test_dp_update_plain_version_is_one_float32_operation_at_a_time():
     assert (d4.float() - torch.from_numpy(nd)).abs().max() <= torch.from_numpy(nd).abs().max() / 64
     with pytest.raises(ValueError, match="sr_seed"):
         tfm.dp_update(w.clone(), d.to(torch.bfloat16), b.clone(), db.clone(), grad, m, a, c)
+
+
+def _dp_loop_through_the_tables(cfg, opt, mlp, x, t, seed, n_dev):
+    """The card's loop of the data-parallel trainer (ops/resident_chunk.py:
+    make_dp_resident_train_chunk) stepped through the wrappers on the CPU,
+    every rank in this process: rank d draws its rows of the call's input-mask
+    table (input_mask_bits at row0 = d * tile, one draw a call), its layer-0
+    forward and gradient-out backward read tile gi's rows of it, each hidden
+    layer's mask is drawn at its rows of the global tile, dedx carries
+    2/bunch, and the ranks' gradients are summed in rank order before
+    dp_update applies them to the one state."""
+    sizes, L, n = cfg.layersizes, len(cfg.layersizes) - 1, opt.bunchsize
+    tile = n // n_dev
+    ws, bs = [w.clone() for w in mlp.w], [b.clone() for b in mlp.b]
+    ds, dbs = [torch.zeros_like(w) for w in ws], [torch.zeros_like(b) for b in bs]
+    n_b = x.shape[0] // n
+    tables = [rc.input_mask_bits(seed, n_b, tile, sizes[0], cfg.dropout_vis, device="cpu",
+                                 row0=d * tile) for d in range(n_dev)]
+    coef = float(np.float32(2.0) / np.float32(n))
+    coefs = rc._scal_coefs("parity", n, sizes[-1], opt.lrate, opt.momentum, opt.weightcost)
+    for gi in range(n_b):
+        grads = [[None] * L for _ in range(n_dev)]
+        for d in range(n_dev):
+            rows = slice(gi * n + d * tile, gi * n + (d + 1) * tile)
+            ys, h = [], torch.from_numpy(x[rows])
+            for l in range(L):
+                ys.append(h)
+                hid = l < L - 1
+                out_mask = (philox_mask(rc.mask_key(seed, gi, l + 1), tile, sizes[l + 1],
+                                        cfg.dropout_hid, row0=d * tile) if hid else None)
+                h = tfm.fused_linear_act(h, ws[l], bs[l], cfg.hidden if hid else cfg.output,
+                                         in_mask=tables[d][gi] if l == 0 else None,
+                                         out_mask=out_mask, bf16=False)
+            dedx = coef * (h - torch.from_numpy(t[rows]))
+            for l in range(L - 1, -1, -1):
+                grads[d][l], dedx = tfm.fused_bwd_grad_out(
+                    dedx, ys[l], ws[l], in_mask=tables[d][gi] if l == 0 else None,
+                    deriv=cfg.hidden if l > 0 else None, with_dedy=l > 0, bf16=False)
+        for l in range(L):
+            g = grads[0][l].clone()
+            for d in range(1, n_dev):
+                g += grads[d][l]
+            tfm.dp_update(ws[l], ds[l], bs[l], dbs[l], g, *coefs)
+    return ws, bs, ds, dbs
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_the_card_loop_with_the_ranks_tables_equals_the_single_process_trainer(n_dev):
+    """The DP trainer's path on the card, with dropout on, run through the
+    layer wrappers' plain versions: each rank's table holds its rows of the
+    single-device masks, so the ranks together train the single-process
+    trainer's chunk to reduction order (TOL), as the spawned ranks do
+    (test_dp_resident_dropout_equals_the_single_process_trainer)."""
+    p, x, t = _data(DROP)
+    mlp = tm.params_from_jax({"w": tuple(np.asarray(w) for w in p["w"]),
+                              "b": tuple(np.asarray(b) for b in p["b"])}, device="cpu")
+    cfg = tm.ModelConfig(layersizes=DROP["sizes"], **DROP["cfg"])
+    got = _dp_loop_through_the_tables(cfg, OptConfig(**DROP["opt"]), mlp, x, t, DROP["seed"],
+                                      n_dev)
+    st = _port_single(DROP)
+    for name, g_group, s_group in zip(("w", "b", "dw", "db"), got,
+                                      (st.params.w, st.params.b, st.deltas.w, st.deltas.b)):
+        for l, (g, s) in enumerate(zip(g_group, s_group)):
+            np.testing.assert_allclose(g.numpy(), s.numpy(), err_msg=f"{name}{l}", **TOL)
+    # a rank that drew its table at row 0 (every rank the same rows) is refused by the hold
+    draw = rc.input_mask_bits
+    try:
+        rc.input_mask_bits = lambda *a, row0=0, **k: draw(*a, row0=0, **k)
+        bad = _dp_loop_through_the_tables(cfg, OptConfig(**DROP["opt"]), mlp, x, t,
+                                          DROP["seed"], n_dev)
+    finally:
+        rc.input_mask_bits = draw
+    assert not np.allclose(bad[0][0].numpy(), st.params.w[0].numpy(), **TOL)

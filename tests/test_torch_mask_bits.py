@@ -205,3 +205,44 @@ def test_the_draw_raises_without_a_card_and_refuses_bad_shapes():
     assert rc.input_mask_bits(SEED, 0, TILE, 33, 0.1, device="cpu").shape == (0, TILE, 2)
     assert rc.input_mask_bits.launches == 0  # the CPU runs the plain version
     assert {"input_mask_table", "input_mask_philox"} <= set(rc.kernel_launches)
+
+
+# The data-parallel trainer's tables: a rank draws its rows of the call's
+# tables (row0 = rank * local tile), which must be exactly the rows the JAX
+# package's DP contract gives a device (tpu_sednn/ops/resident_chunk.py:
+# sample_resident_masks with device_idx: the global tile's mask, the device's
+# bunch_part rows).
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+@pytest.mark.parametrize("K", [129, 33])
+def test_a_ranks_table_holds_its_rows_of_the_global_masks(K, n_dev):
+    tile_g, omit, n_tiles = 32, 0.2, 3
+    tile = tile_g // n_dev
+    tables = [rc.input_mask_bits(SEED, n_tiles, tile, K, omit, device="cpu", row0=d * tile)
+              for d in range(n_dev)]
+    whole = rc.input_mask_bits_reference(SEED, n_tiles, tile_g, K, omit)
+    # the ranks' tables stacked are the single-device table of the global tile
+    assert torch.equal(torch.cat(tables, dim=1), whole)
+    for d, table in enumerate(tables):
+        assert torch.equal(table, rc.input_mask_bits_reference(SEED, n_tiles, tile, K, omit,
+                                                               row0=d * tile))
+        for gi in range(n_tiles):
+            mask = unpack_mask_words(table[gi], K)
+            assert torch.equal(mask, rc.sample_resident_masks_reference(
+                SEED, gi, 0, (tile_g, K), omit, device_idx=d, n_dev=n_dev))
+            assert torch.equal(mask, _jax_keep(gi, tile_g, K, omit)[d * tile:(d + 1) * tile]
+                               .to(torch.float32))
+    # and the ranks' rows differ from one another
+    assert len({t.numpy().tobytes() for t in tables}) == n_dev
+
+
+def test_a_negative_row0_is_refused():
+    for draw in (rc.input_mask_bits, rc.input_mask_bits_reference):
+        with pytest.raises(ValueError, match="row -1"):
+            draw(SEED, 2, TILE, 33, 0.1, device="cpu", row0=-1)
+    with pytest.raises(ValueError, match="row -8"):  # before any launch
+        rc.input_mask_bits(SEED, 2, TILE, 33, 0.1, device="cuda", row0=-8)
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the card's draw would not raise")
+    with pytest.raises(RuntimeError):
+        rc.input_mask_bits(SEED, 2, TILE, 33, 0.1, device="cuda", row0=TILE)

@@ -98,7 +98,8 @@ def test_resident_clean_rule_matches_clean_step():
     ref = init_train_state(mlp)
     for i in range(2):
         ref, _ = clean_train_step(ref, torch.from_numpy(x[16 * i:16 * i + 16]),
-                                  torch.from_numpy(t[16 * i:16 * i + 16]), cfg, opt)
+                                  torch.from_numpy(t[16 * i:16 * i + 16]), cfg, opt,
+                                  compute_dtype=None)
     st = rc.make_resident_train_chunk(cfg, opt, bf16=False, rule="clean")(
         init_train_state(mlp), torch.from_numpy(x), torch.from_numpy(t), 0)
     for a, b in zip(list(st.params.w) + list(st.deltas.b), list(ref.params.w) + list(ref.deltas.b)):

@@ -137,7 +137,7 @@ def test_clean_step_matches_jax(hidden, output):
     opt = dict(lrate=0.2, momentum=0.7, weightcost=1e-3, bunchsize=16)
     st, loss = tstep.clean_train_step(train_state_from_jax(params, deltas, 0, device="cpu"),
                                       torch.from_numpy(x), torch.from_numpy(t), tcfg,
-                                      tstep.OptConfig(**opt))
+                                      tstep.OptConfig(**opt), compute_dtype=None)
     jst, jloss = jstep.clean_train_step(_jstate(params, deltas, 0), jnp.asarray(x), jnp.asarray(t),
                                         jcfg, jstep.OptConfig(**opt), compute_dtype=None)
     _assert_state(st, jst.params, jst.deltas, 1)
@@ -240,7 +240,7 @@ def test_softmax_xent_step_matches_jax(one_hot):
                                                compute_dtype=None)
     st0 = train_state_from_jax(params, deltas, 3, device="cpu")
     st, loss = tstep.softmax_xent_train_step(st0, torch.from_numpy(x), torch.from_numpy(y), tcfg,
-                                             tstep.OptConfig(**opt))
+                                             tstep.OptConfig(**opt), compute_dtype=None)
     assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
     _assert_state(st, jst.params, jst.deltas, 4)
     assert st0.step == 3  # a single step leaves its input untouched
@@ -264,7 +264,7 @@ def test_softmax_head_trains():
     opt = tstep.OptConfig(lrate=0.5, momentum=0.5, weightcost=0.0, bunchsize=256)
     losses = []
     for _ in range(30):
-        state, loss = tstep.softmax_xent_train_step(state, x, y, cfg, opt)
+        state, loss = tstep.softmax_xent_train_step(state, x, y, cfg, opt, compute_dtype=None)
         losses.append(float(loss))
     assert losses[-1] < 0.3 * losses[0], losses[::10]
     acc = float((tm.forward_eval(state.params, x, cfg).argmax(-1) == y).float().mean())
@@ -288,5 +288,36 @@ def test_clean_step_with_bf16_products_matches_jax():
     _assert_state(st, jst.params, jst.deltas, 4, tol=dict(rtol=8e-3, atol=1e-6))
     st32, _ = tstep.clean_train_step(train_state_from_jax(params, deltas, 3, device="cpu"),
                                      torch.from_numpy(x), torch.from_numpy(t), tcfg,
-                                     tstep.OptConfig(**opt))
+                                     tstep.OptConfig(**opt), compute_dtype=None)
+    assert not torch.allclose(st.deltas.w[0], st32.deltas.w[0], rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("step", ["clean", "softmax_xent"])
+def test_steps_called_with_their_defaults_match_jax_defaults(step):
+    """Neither package told its products: both default to bfloat16 operands
+    with float32 sums, so a call with the defaults is the same function.
+    Held as test_clean_step_with_bf16_products_matches_jax (rtol 8e-3 on the
+    update, atol 1e-6; the loss 1e-4), and apart from the float32 step."""
+    if step == "clean":
+        jcfg, tcfg, params, deltas, x, t, _ = _setup(mode="inverted", n=32)
+        y = t
+    else:
+        kw = dict(layersizes=(16, 32, 4), output="softmax")
+        jcfg, tcfg = jm.ModelConfig(precision="highest", **kw), tm.ModelConfig(**kw)
+        rng = np.random.default_rng(5)
+        params = jax.tree.map(np.asarray, jm.init_params(jax.random.key(5), jcfg, "glorot"))
+        deltas = {k: tuple(rng.standard_normal(a.shape).astype(np.float32) * 0.01 for a in v)
+                  for k, v in params.items()}
+        x = rng.standard_normal((64, 16)).astype(np.float32)
+        y = rng.integers(0, 4, 64).astype(np.int32)
+    opt = dict(lrate=0.1, momentum=0.9, weightcost=1e-4, bunchsize=x.shape[0])
+    j_step, t_step = (getattr(m, f"{step}_train_step") for m in (jstep, tstep))
+    jst, jloss = j_step(_jstate(params, deltas), jnp.asarray(x), jnp.asarray(y), jcfg,
+                        jstep.OptConfig(**opt))
+    args = (torch.from_numpy(x), torch.from_numpy(y), tcfg, tstep.OptConfig(**opt))
+    st, loss = t_step(train_state_from_jax(params, deltas, 3, device="cpu"), *args)
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-4)
+    _assert_state(st, jst.params, jst.deltas, 4, tol=dict(rtol=8e-3, atol=1e-6))
+    st32, _ = t_step(train_state_from_jax(params, deltas, 3, device="cpu"), *args,
+                     compute_dtype=None)
     assert not torch.allclose(st.deltas.w[0], st32.deltas.w[0], rtol=1e-4, atol=1e-7)

@@ -19,16 +19,19 @@
 // from a table that one launch drew before (mode 3: bit b of word w of a row
 // is the keep of column 32 w + b; columns at or past the width read 0).  Who
 // draws which way:
-// * the chunk trainer's input mask (resident_chunk.cu:train_chunk): one
+// * the chunk trainers' input mask (resident_chunk.cu:train_chunk, and the
+//   data-parallel loop of ops/resident_chunk.py at a rank's rows): one
 //   launch of input_mask_bits_kernel draws a call's tables, one a tile, and
-//   the layer-0 forward and backward of each tile read its table (mode 3):
-//   the bits are drawn once a call, not once in every column tile of x that
-//   the forward's blocks load and every split of the backward's stripes;
+//   the layer-0 forward and backward of each tile (dp_chunk_forward and the
+//   gradient-out backward in the data-parallel form) read its table (mode
+//   3): the bits are drawn once a call, not once in every column tile of x
+//   that the forward's blocks load and every split of the backward's
+//   stripes;
 // * every hidden layer's mask: in the epilogue of the forward that writes
 //   the activation (mode 2), which already draws each element once;
-// * the data-parallel forward (dp_chunk_forward), the gradient-out backward,
-//   the standalone wrappers (fused_linear_act, fused_bwd_update with a
-//   (key, omit) mask), dropout_mask.cu and the probe: mode 2.
+// * the standalone wrappers given a (key, omit) mask (fused_linear_act,
+//   fused_bwd_update, fused_bwd_grad_out), dropout_mask.cu and the probe:
+//   mode 2.
 
 #pragma once
 

@@ -79,9 +79,11 @@
 //   Python loop (ops/resident_chunk.py) calls dp_chunk_forward for a tile,
 //   then for each layer, last first, the gradient-out backward, an
 //   all-reduce and the update kernel (fused_mlp.cu).  The forward is the
-//   same launches as here, with every mask drawn by Philox in the kernels
-//   (the input's too: no bit table) at the rank's rows row0.. of the global
-//   tile.
+//   same launches as here, at the rank's rows row0.. of the global tile: the
+//   loop draws the rank's rows of a call's input masks once, by one launch
+//   of input_mask_bits_kernel at row0, into a bit table that each tile's
+//   layer-0 forward and gradient-out backward read; each hidden layer's mask
+//   is drawn in the epilogue at row0 + r, as here.
 
 #include "fused_mlp.cuh"
 
@@ -133,9 +135,12 @@ __global__ void mask_probe_kernel(float* __restrict__ out, int rows, int cols, M
 // The chunk trainer's input masks of a call, drawn once: for global tile gi
 // < n_tiles, row r < tile and word w < words = mask_words(K),
 //   out[(gi * tile + r) * words + w] bit b = the keep of column 32 w + b of
-//   row r under key seed + gi * kBunchStride (mode 2's decision; 0 at or
-//   past K),
+//   row row0 + r under key seed + gi * kBunchStride (mode 2's decision; 0
+//   at or past K),
 // which the tile's layer-0 forward and backward read (MaskSpec mode 3).
+// row0: 0 for the single-device trainer; a data-parallel rank's first row of
+// the global tile, so that its table holds its rows of the single-device
+// masks.
 // Replaces the input's share of the TPU kernel's in-kernel bits
 // (tpu_sednn/ops/resident_chunk.py:315-319: the net's input mask drawn once
 // a bunch).  A block takes a row at a time (a grid-stride loop over the
@@ -146,8 +151,8 @@ __global__ void mask_probe_kernel(float* __restrict__ out, int rows, int cols, M
 // calls (ceil(K / 4) a row, 20 32x32 -> 64-bit products each) on the
 // integer multipliers; the table itself (4 bytes for 32 columns) is a small
 // share of that time.
-__global__ void input_mask_bits_kernel(uint32_t* __restrict__ out, int n_tiles, int tile, int K,
-                                       unsigned seed, unsigned threshold) {
+__global__ void input_mask_bits_kernel(uint32_t* __restrict__ out, int n_tiles, int tile,
+                                       int row0, int K, unsigned seed, unsigned threshold) {
   const int words = mask_words(K), calls = 8 * words;
   const int rows = n_tiles * tile;  // the launcher checks that it fits
   int gi = blockIdx.x / tile, r = blockIdx.x % tile;
@@ -159,7 +164,7 @@ __global__ void input_mask_bits_kernel(uint32_t* __restrict__ out, int n_tiles, 
     // 32), so the shuffles see all 32
     for (int t = threadIdx.x; t - (int)(threadIdx.x & 31) < calls; t += blockDim.x) {
       const int sub = t & 7;
-      unsigned v = t < calls ? philox_keep4(key, threshold, r, 4 * t, K) << (4 * sub) : 0u;
+      unsigned v = t < calls ? philox_keep4(key, threshold, row0 + r, 4 * t, K) << (4 * sub) : 0u;
       v |= __shfl_xor_sync(0xffffffffu, v, 1);
       v |= __shfl_xor_sync(0xffffffffu, v, 2);
       v |= __shfl_xor_sync(0xffffffffu, v, 4);
@@ -176,14 +181,17 @@ __global__ void input_mask_bits_kernel(uint32_t* __restrict__ out, int n_tiles, 
 
 // Launches input_mask_bits_kernel on `stream`: a row's calls in one block
 // where they fit (up to 1024 threads: K <= 4096), some 16 blocks an SM.
-cudaError_t launch_input_mask_bits(uint32_t* out, int n_tiles, int tile, int K, unsigned seed,
-                                   unsigned threshold, cudaStream_t stream) {
+cudaError_t launch_input_mask_bits(uint32_t* out, int n_tiles, int tile, int row0, int K,
+                                   unsigned seed, unsigned threshold, cudaStream_t stream) {
   const long long rows = (long long)n_tiles * tile;
-  if (n_tiles < 0 || tile <= 0 || K <= 0 || rows > 0x7FFFFFFFll) return cudaErrorInvalidValue;
+  if (n_tiles < 0 || tile <= 0 || row0 < 0 || K <= 0 || rows > 0x7FFFFFFFll ||
+      (long long)row0 + tile > 0x7FFFFFFFll)
+    return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   const int calls = 8 * mask_words(K), threads = calls < 1024 ? (calls + 31) / 32 * 32 : 1024;
   const int blocks = (int)(rows < 132 * 16 ? rows : 132 * 16);
-  input_mask_bits_kernel<<<blocks, threads, 0, stream>>>(out, n_tiles, tile, K, seed, threshold);
+  input_mask_bits_kernel<<<blocks, threads, 0, stream>>>(out, n_tiles, tile, row0, K, seed,
+                                                          threshold);
   return cudaGetLastError();
 }
 
@@ -227,12 +235,11 @@ inline int early_flags(const int* plan, int L, int direction, int l) {
 // The forward of one tile of `tile` rows: layer l reads x (l == 0) or y[l-1]
 // and writes y[l] (the masked activation the next layer and the backward
 // read; y[L-1] is the net's output), and the last layer also writes dedx =
-// coef*(y - t).  Dropout: the input's mask in_mask (the single-device
-// trainer's: the tile's rows of the call's bit table, mode 3; the
-// data-parallel forward's: Philox drawn in the kernel, mode 2), hidden layer
-// l+1's the stream key0 + (l+1)*kLayerStride drawn in the epilogue of layer
-// l; every Philox mask draws the rows row0.. of the global tile, so a rank of
-// the data-parallel trainer draws its rows of the single-device masks.  plan_rows: the rows K's split is planned for
+// coef*(y - t).  Dropout: the input's mask in_mask (in both trainers the
+// tile's rows of the call's bit table, mode 3), hidden layer l+1's the stream
+// key0 + (l+1)*kLayerStride drawn in the epilogue of layer l at the rows
+// row0.. of the global tile, so a rank of the data-parallel trainer draws
+// its rows of the single-device masks.  plan_rows: the rows K's split is planned for
 // (launch_fwd; 0: tile).  plan (nullptr: none): the chain's early-read flags
 // (early_flags), every launch a programmatic dependent one but the call's
 // first; *first: this tile's forward begins the call (cleared by its first
@@ -288,7 +295,7 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
   // launch of the chain may read the table, before its wait too.
   const int words = mask_words(sizes[0]);
   if (thr_vis && n_real > 0) {
-    const cudaError_t err = launch_input_mask_bits(mask_bits, n_real * accum, tile, sizes[0],
+    const cudaError_t err = launch_input_mask_bits(mask_bits, n_real * accum, tile, 0, sizes[0],
                                                    seed, thr_vis, stream);
     if (err != cudaSuccess) return (int)err;
     tallies[11] += 1;
@@ -372,7 +379,7 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // programmatic dependent launches among all of them (2 L n_real accum - 1 a
 // call), the launches of input_mask_bits_kernel (one a call with thr_vis),
 // and the layer-0 launches that drew the input's mask by Philox in the
-// kernel (0 here; the data-parallel forward's).
+// kernel (0: both trainers read the table).
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,
@@ -409,20 +416,25 @@ extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, 
 // 2 / (the global bunch).  Masks as resident_chunk_train draws them for the
 // global tile index gi (key0 = seed + gi * 7919), at rows row0 + r, and K
 // split over the grid as for the global tile: a row's activations are the
-// single-device trainer's bit for bit.  Every launch is an ordinary one.
-// tallies as resident_chunk_train's (its forward entries).  The
-// gradient-out backward and the update of each layer are fused_mlp.cu's; the
-// sum between them is the caller's.
+// single-device trainer's bit for bit.  The input's mask is read from
+// mask_bits (tile rows of mask_words(sizes[0]) words: the tile's rows of the
+// table input_mask_bits_u32 draws at row0, mode 3); with thr_vis a nullptr
+// is refused.  Every launch is an ordinary one.  tallies as
+// resident_chunk_train's (its forward entries).  The gradient-out backward
+// and the update of each layer are fused_mlp.cu's; the sum between them is
+// the caller's.
 extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int global_tile,
                                 const int* sizes, int L, void* const* w, float* const* b,
                                 float* const* y, float* dedx, int hidden, int output,
                                 unsigned thr_vis, unsigned thr_hid, float scale_vis,
-                                float scale_hid, unsigned key0, int row0, float coef, int bf16,
-                                long long* tallies, void* stream) {
+                                float scale_hid, const void* mask_bits, unsigned key0, int row0,
+                                float coef, int bf16, long long* tallies, void* stream) {
   if (L < 1 || L > kMaxLayers || tile <= 0 || global_tile < tile || row0 < 0 || hidden < 0 ||
-      hidden > 2 || output < 0 || output > 2)
+      hidden > 2 || output < 0 || output > 2 || (thr_vis && mask_bits == nullptr))
     return (int)cudaErrorInvalidValue;
-  const MaskSpec in_mask = thr_vis ? philox_mask(key0, thr_vis, scale_vis, row0) : no_mask();
+  const MaskSpec in_mask =
+      thr_vis ? table_mask((const uint32_t*)mask_bits, mask_words(sizes[0]), scale_vis)
+              : no_mask();
   bool first = true;
   const cudaError_t err = forward_tile<float>(
       x, t, tile, sizes, L, w, b, y, dedx, hidden, output, in_mask, key0, thr_hid, scale_hid, row0,
@@ -444,11 +456,13 @@ extern "C" int philox_mask_f32(float* out, int rows, int cols, int row0, unsigne
 
 // out (n_tiles, tile, ceil(K / 32) words) = the input-mask table
 // resident_chunk_train draws for a call of n_tiles tiles under `seed` (the
-// tile gi's under key seed + gi * 7919) and threshold: one launch of
+// tile gi's under key seed + gi * 7919) and threshold, at the rows row0.. of
+// each global tile (0: the single-device trainer's table; a data-parallel
+// rank's first row: its rows of that table): one launch of
 // input_mask_bits_kernel.
-extern "C" int input_mask_bits_u32(void* out, int n_tiles, int tile, int K, unsigned seed,
-                                   unsigned threshold, void* stream) {
-  return (int)launch_input_mask_bits((uint32_t*)out, n_tiles, tile, K, seed, threshold,
+extern "C" int input_mask_bits_u32(void* out, int n_tiles, int tile, int row0, int K,
+                                   unsigned seed, unsigned threshold, void* stream) {
+  return (int)launch_input_mask_bits((uint32_t*)out, n_tiles, tile, row0, K, seed, threshold,
                                      (cudaStream_t)stream);
 }
 

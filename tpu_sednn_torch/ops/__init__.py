@@ -21,6 +21,11 @@ from tpu_sednn_torch.ops.sr_update import (
     sr_train_step,
 )
 
+# the JAX package's names for the same two functions (tpu_sednn/ops/stft_pallas.py,
+# tpu_sednn/ops/dropout_pallas.py)
+stft_lps_pallas = stft_lps
+dropout_mask_pallas = dropout_mask
+
 KERNEL_SOURCES = ("stft_lps", "fused_mlp", "resident_chunk", "sr_update",
                   "dropout_mask", "rank_sum")  # csrc/<name>.cu
 
@@ -46,6 +51,7 @@ def launch_counts() -> dict:
         "fused_bwd_grad_out": fused_bwd_grad_out.launches,
         "fused_bwd_grad_out_tc": fused_bwd_grad_out.tc_launches,
         "fused_bwd_grad_out_reduce": fused_bwd_grad_out.reduce_launches,
+        "fused_bwd_grad_out_philox": fused_bwd_grad_out.philox_launches,
         "dp_update": dp_update.launches,
         "dp_update_sr": dp_update.sr_launches,
         "rank_sum": rank_sum.launches,
@@ -82,6 +88,7 @@ def reset_launch_counts() -> None:
     fused_linear_act.tc_launches = fused_bwd_update.tc_launches = 0
     fused_bwd_grad_out.launches = fused_bwd_grad_out.tc_launches = 0
     fused_bwd_grad_out.reduce_launches = dp_update.launches = dp_update.sr_launches = 0
+    fused_bwd_grad_out.philox_launches = 0
     rank_sum.launches = 0
     resident_chunk.sample_resident_masks.launches = 0
     resident_chunk.input_mask_bits.launches = 0

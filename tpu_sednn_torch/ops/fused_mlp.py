@@ -54,7 +54,9 @@ product kernel (either form), `<wrapper>.tc_launches` those of its
 tensor-core form; each is counted where the C entry point reports the
 launch.  `fused_linear_act.sum_launches`, `fused_bwd_update.reduce_launches`
 and `fused_bwd_grad_out.reduce_launches` stay 0: no layer kernel launches a
-second kernel in either form.  `dp_update.sr_launches` counts the update's
+second kernel in either form.  `fused_bwd_grad_out.philox_launches` counts
+the launches that drew a (key, omit) input mask by Philox in the kernel (the
+data-parallel trainer gives a table: 0 there).  `dp_update.sr_launches` counts the update's
 launches that rounded a bfloat16 delta stochastically.  The float32 forms
 are FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
 (csrc/fused_mlp.cuh says why).
@@ -435,7 +437,9 @@ def fused_bwd_grad_out(
     row-major, then gb = the sum of dedx's rows.  dedy_prev: (B, K) = dedx @
     W^T, times `deriv`'s derivative on y_prev, or None when with_dedy is False
     (the first layer).  A (key, omit) in_mask draws rows mask_row0.. of its
-    Philox stream (a rank's rows of the global bunch).  bf16: products of
+    Philox stream (a rank's rows of the global bunch); an int32 table (the
+    data-parallel trainer's: its rows of a call's table, input_mask_bits at
+    the rank's row0) is read as it is, mask_row0 unused.  bf16: products of
     operands rounded to bfloat16, float32 sums (tensor cores); False: float32
     products.  grad and dedy may be given to be written into.
     """
@@ -478,6 +482,7 @@ def fused_bwd_grad_out(
             B, K, N, *im[:5], int(mask_row0), ACTS[deriv] if deriv else 0, int(bf16), launched,
             torch.cuda.current_stream(dev).cuda_stream)
     _count(fused_bwd_grad_out, launched)
+    fused_bwd_grad_out.philox_launches += launched[0] + launched[1] if im[0] == 2 else 0
     if rc != 0:
         raise RuntimeError(f"fused_bwd_grad_out kernel launch failed: CUDA error {rc}")
     return grad, dedy
@@ -486,6 +491,7 @@ def fused_bwd_grad_out(
 fused_bwd_grad_out.launches = 0
 fused_bwd_grad_out.tc_launches = 0
 fused_bwd_grad_out.reduce_launches = 0
+fused_bwd_grad_out.philox_launches = 0
 
 
 def dp_update(w: torch.Tensor, delta: torch.Tensor, b: torch.Tensor, delta_b: torch.Tensor,

@@ -22,7 +22,8 @@ on the card (parity semantics: mask without train-time rescale; "inverted"
 rescales), one stream per (seed, bunch, layer), the same seed formula as the
 TPU kernel but not its bits; `sample_resident_masks` exposes exactly that
 stream.  A call draws the input's masks of all its tiles once, by one launch
-(`input_mask_bits`: 32 columns a 32-bit word), before its chain, and the
+(`input_mask_bits`: 32 columns a 32-bit word; a data-parallel rank its rows
+of them), before its chain, and the
 layer-0 forward and backward read them; each hidden layer's mask is drawn
 in the epilogue of the forward that writes that activation.  As in the TPU
 kernel, the activation derivative is taken on the stored masked activation
@@ -89,12 +90,14 @@ _mask_threshold = mask_threshold
 # launches of the kernel that draws a call's input masks into their bit table
 # ("input_mask_table", input_mask_bits_kernel: one a call with dropout on the
 # input); and the layer-0 product launches that drew the input's mask by
-# Philox in the kernel ("input_mask_philox": 0 on the single-device trainer,
-# which reads the table).  The data-parallel
-# trainer's forward entry (dp_chunk_forward) tallies into the forward keys (it
-# launches nothing as a dependent launch, and draws its input masks in the
-# kernel); its backward and update launches are counted by their wrappers
-# (fused_bwd_grad_out, dp_update in ops/fused_mlp.py)
+# Philox in the kernel ("input_mask_philox": 0 on both trainers, which read
+# the table).  The data-parallel trainer's loop tallies into the same keys:
+# its forward entry (dp_chunk_forward) the forward keys (it launches nothing
+# as a dependent launch), its draw of a call's table "input_mask_table", and
+# the layer-0 gradient-out backwards that drew a (key, omit) mask by Philox
+# (fused_bwd_grad_out.philox_launches) "input_mask_philox"; its backward and
+# update launches are counted by their wrappers (fused_bwd_grad_out,
+# dp_update in ops/fused_mlp.py)
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
                                    "reduce_dedy": 0, "philox_mask": 0,
                                    "fused_linear_act_sum": 0, "sr_bwd_update": 0,
@@ -367,10 +370,11 @@ def _c_api() -> Dict[str, tuple]:
         # ..., work, mask_bits, ..., bf16, plan (early_read_plan), tallies, stream
         "resident_chunk_train": ([p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, p, i, i, u, u, f,
                                   f, u, f, f, f, i, ip, llp, p], i),
-        "dp_chunk_forward": ([p, p, i, i, ip, i, pp, pp, pp, p, i, i, u, u, f, f, u, i, f, i, llp,
-                              p], i),
+        # ..., scale_vis, scale_hid, mask_bits (the tile's rows of the rank's table), key0, ...
+        "dp_chunk_forward": ([p, p, i, i, ip, i, pp, pp, pp, p, i, i, u, u, f, f, p, u, i, f, i,
+                              llp, p], i),
         "philox_mask_f32": ([p, i, i, i, u, u, f, p], i),
-        "input_mask_bits_u32": ([p, i, i, i, u, u, p], i),
+        "input_mask_bits_u32": ([p, i, i, i, i, u, u, p], i),
         "philox_words_u32": ([p, p, i, p], i),
     }
 
@@ -583,12 +587,15 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
                     device: torch.device):
     """The data-parallel trainer's forward of one tile on the card
     (csrc/resident_chunk.cu:dp_chunk_forward); -> fwd(x, t, ws, bs, key0,
-    row0, coef, tallies).
+    row0, coef, tallies, in_bits=None).
 
     fwd runs this rank's `tile` rows x, t of a global tile of `tile_g` rows
-    through the net (float32 weights ws, biases bs) with every mask of
-    stream key0 (hidden layer l's: key0 + l*104729) drawn at rows row0.. of
-    the global tile, and K split as for the global tile; -> (ys, dedx): each
+    through the net (float32 weights ws, biases bs) with the input's mask
+    read from in_bits (the tile's (tile, mask_words(width)) int32 rows of the
+    table `input_mask_bits` draws at row0; required with input dropout,
+    refused without) and hidden layer l's mask of stream key0 + l*104729
+    drawn at rows row0.. of the global tile, and K split as for the global
+    tile; -> (ys, dedx): each
     layer's masked activation (the last: the net's output) and dedx =
     coef * (out - t) [* out(1-out) for a sigmoid head], flat, in buffers
     that the next call overwrites.  The launches are added to `tallies`, a
@@ -606,18 +613,24 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
     thr_vis = mask_threshold(omits[0]) if omits[0] > 0.0 else 0
     thr_hid = mask_threshold(omit_hid) if omit_hid > 0.0 else 0
 
-    def fwd(x, t, ws, bs, key0: int, row0: int, coef: float, tallies):
+    def fwd(x, t, ws, bs, key0: int, row0: int, coef: float, tallies,
+            in_bits: Optional[torch.Tensor] = None):
         if tuple(x.shape) != (tile, sizes[0]) or tuple(t.shape) != (tile, sizes[-1]):
             raise ValueError(f"a tile's rows: x {tuple(x.shape)}, t {tuple(t.shape)}; expected "
                              f"{tile} rows of {sizes[0]} and {sizes[-1]}")
+        if (in_bits is None) != (thr_vis == 0):
+            raise ValueError("the input's mask table is given with input dropout, and only then")
+        if in_bits is not None:
+            _check_table(in_bits, (tile, mask_words(sizes[0])), x.device)
         w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in ws])
         b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bs])
         with torch.cuda.device(device):
             rc = lib.dp_chunk_forward(
                 x.data_ptr(), t.data_ptr(), tile, tile_g, c_sizes, L, w_ptrs, b_ptrs, y_ptrs,
                 dedx.data_ptr(), ACTS[cfg.hidden], ACTS[cfg.output], thr_vis,
-                thr_hid, scales[0], scale_hid, int(key0) & 0xFFFFFFFF, int(row0), float(coef),
-                int(bf16), tallies, torch.cuda.current_stream(device).cuda_stream)
+                thr_hid, scales[0], scale_hid, None if in_bits is None else in_bits.data_ptr(),
+                int(key0) & 0xFFFFFFFF, int(row0), float(coef), int(bf16), tallies,
+                torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"data-parallel forward launch failed: CUDA error {rc}")
         return ys, dedx
@@ -636,8 +649,10 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
     Each global bunch of opt.bunchsize rows is split bunch_part-style (rank d
     takes rows [d*bs_local, (d+1)*bs_local) of every bunch, or of every
     tile_rows tile); every rank runs the forward on its rows with the masks
-    of its rows of the global bunch (Philox keyed on the global row), dedx
-    carrying 2/(global bunch); per layer, last first, the gradient-out
+    of its rows of the global bunch (Philox keyed on the global row; the
+    input's drawn once a call into a bit table at the rank's rows, which
+    the layer-0 forward and gradient-out backward read), dedx carrying
+    2/(global bunch); per layer, last first, the gradient-out
     backward writes this rank's G and gb (`fused_bwd_grad_out`), one
     all-reduce sums them over the ranks, and the update kernel (`dp_update`)
     applies the sum on every replica, so replicas stay bit-equal.  The TPU
@@ -717,23 +732,32 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
         ws, ds, bs, dbs = (list(state.params.w), list(state.deltas.w), list(state.params.b),
                            list(state.deltas.b))
         tallies = (ctypes.c_longlong * len(kernel_launches))()
+        table_key, philox_key = (list(kernel_launches).index(k) for k in
+                                 ("input_mask_table", "input_mask_philox"))
         try:
+            # this rank's rows of the call's input masks, drawn once by an ordinary launch
+            # before the first forward (none without input dropout or without a bunch)
+            bits = (input_mask_bits(seed, nr * accum, tile, sizes[0], omit_vis, row0=row0,
+                                    device=dev) if omit_vis > 0.0 and nr > 0 else None)
+            tallies[table_key] += bits is not None
             for i in range(nr):
                 for j in range(accum):
                     gi = i * accum + j
                     xi, ti = x[gi * tile:(gi + 1) * tile], t[gi * tile:(gi + 1) * tile]
                     key0 = mask_key(seed, gi, 0)
-                    ys, dedx = forward(xi, ti, ws, bs, key0, row0, coef, tallies)
+                    in_bits = None if bits is None else bits[gi]
+                    ys, dedx = forward(xi, ti, ws, bs, key0, row0, coef, tallies, in_bits)
                     other = spare
                     for l in range(L - 1, -1, -1):
                         K, N = sizes[l], sizes[l + 1]
                         g = grad[:K * N + N]
+                        drew = fused_bwd_grad_out.philox_launches
                         fused_bwd_grad_out(
                             dedx[:tile * N].view(tile, N), xi if l == 0 else ys[l - 1], ws[l],
-                            in_mask=(key0, omit_vis) if l == 0 and omit_vis > 0.0 else None,
-                            in_scale=scale_vis, mask_row0=row0,
+                            in_mask=in_bits if l == 0 else None, in_scale=scale_vis,
                             deriv=cfg.hidden if l > 0 else None, with_dedy=l > 0, bf16=bf16,
                             grad=g, dedy=other[:tile * K].view(tile, K) if l > 0 else None)
+                        tallies[philox_key] += fused_bwd_grad_out.philox_launches - drew
                         _all_reduce(g, mesh)
                         dp_update(ws[l], ds[l], bs[l], dbs[l], g, *coefs,
                                   sr_seed=sr_key(seed, i, l) if sr_delta else None,
@@ -841,36 +865,52 @@ def sample_resident_masks(seed: int, bunch_idx: int, layer_idx: int,
 sample_resident_masks.launches = 0
 
 
+def _check_table_shape(n_tiles: int, tile: int, width: int, row0: int) -> None:
+    if int(n_tiles) < 0 or int(tile) <= 0 or int(width) <= 0 or int(row0) < 0:
+        raise ValueError(f"a table of {n_tiles} tiles of {tile} rows from row {row0} of width "
+                         f"{width}")
+
+
+def _check_table(bits: torch.Tensor, shape, device: torch.device) -> None:
+    if (bits.dtype != torch.int32 or tuple(bits.shape) != tuple(shape) or bits.device != device
+            or not bits.is_contiguous()):
+        raise ValueError(f"a mask table: int32 {tuple(shape)}, contiguous, on {device} expected; "
+                         f"got {bits.dtype} {tuple(bits.shape)} on {bits.device}")
+
+
 def input_mask_bits_reference(seed: int, n_tiles: int, tile: int, width: int, omit: float,
-                              device: str | torch.device = "cpu") -> torch.Tensor:
+                              device: str | torch.device = "cpu", row0: int = 0) -> torch.Tensor:
     """Plain torch version of `input_mask_bits`: (n_tiles, tile,
     ceil(width / 32)) int32, tile gi's rows the packed Philox mask of stream
-    mask_key(seed, gi, 0) (ops/philox.py:philox_mask_words)."""
+    mask_key(seed, gi, 0) at rows row0.. (ops/philox.py:philox_mask_words)."""
+    _check_table_shape(n_tiles, tile, width, row0)
     out = torch.empty((int(n_tiles), int(tile), mask_words(width)), dtype=torch.int32,
                       device=device)
     for gi in range(int(n_tiles)):
-        out[gi] = philox_mask_words(mask_key(seed, gi, 0), tile, width, omit, device=device)
+        out[gi] = philox_mask_words(mask_key(seed, gi, 0), tile, width, omit, row0=int(row0),
+                                    device=device)
     return out
 
 
 def input_mask_bits(seed: int, n_tiles: int, tile: int, width: int, omit: float,
-                    device: str | torch.device = "cuda") -> torch.Tensor:
+                    device: str | torch.device = "cuda", row0: int = 0) -> torch.Tensor:
     """The input masks the chunk trainer draws for a call of n_tiles tiles
     (n_real * accum) of `tile` rows under `seed`, as the table its layer-0
     kernels read: (n_tiles, tile, ceil(width / 32)) int32, bit b of word w
-    of a row the keep of column 32 w + b (0 past width) under the tile's
-    stream mask_key(seed, gi, 0), threshold mask_threshold(omit).  One
-    launch of csrc/resident_chunk.cu:input_mask_bits_kernel, the kernel the
-    trainer launches; device="cpu" runs the plain version."""
-    if int(n_tiles) < 0 or int(tile) <= 0 or int(width) <= 0:
-        raise ValueError(f"a table of {n_tiles} tiles of {tile} rows of width {width}")
+    of row r the keep of column 32 w + b (0 past width) at row row0 + r of
+    the tile's stream mask_key(seed, gi, 0), threshold mask_threshold(omit).
+    row0: 0 for the single-device trainer; a data-parallel rank's first row
+    of the global tile (its rows of that trainer's table).  One launch of
+    csrc/resident_chunk.cu:input_mask_bits_kernel, the kernel both trainers
+    launch; device="cpu" runs the plain version."""
+    _check_table_shape(n_tiles, tile, width, row0)
     dev = resolve_device(device)
     if dev.type == "cpu":
-        return input_mask_bits_reference(seed, n_tiles, tile, width, omit)
+        return input_mask_bits_reference(seed, n_tiles, tile, width, omit, row0=row0)
     out = torch.empty((int(n_tiles), int(tile), mask_words(width)), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().input_mask_bits_u32(out.data_ptr(), int(n_tiles), int(tile), int(width),
-                                        int(seed) & 0xFFFFFFFF, mask_threshold(omit),
+        rc = _lib().input_mask_bits_u32(out.data_ptr(), int(n_tiles), int(tile), int(row0),
+                                        int(width), int(seed) & 0xFFFFFFFF, mask_threshold(omit),
                                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"input mask bits kernel launch failed: CUDA error {rc}")

@@ -232,16 +232,15 @@ def clean_train_step(
     cfg: ModelConfig,
     opt: OptConfig,
     generator: Optional[torch.Generator] = None,
-    compute_dtype: Optional[torch.dtype] = None,
+    compute_dtype: Optional[torch.dtype] = torch.bfloat16,
     dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> Tuple[TrainState, torch.Tensor]:
-    """Modern training step: mean-MSE, Polyak momentum.
+    """Modern training step: mean-MSE, Polyak momentum, bfloat16 products.
 
     Returns (new_state, loss).  Expects cfg.dropout_mode == "inverted" when
-    dropout is enabled.  compute_dtype: None = float32 products, the mode the
-    tests hold; torch.bfloat16 = operands rounded to bfloat16 and summed in
-    float32, the JAX package's default on the TPU; torch.float64 = everything
-    in float64.
+    dropout is enabled.  compute_dtype: torch.bfloat16 (the default, as the
+    JAX package's) = operands rounded to bfloat16 and summed in float32;
+    None = float32 products; torch.float64 = everything in float64.
     """
     dtype, cd = _split_compute_dtype(compute_dtype)
     loss, g_w, g_b = _grads(state, x, t, cfg, generator, dropout_masks, True, dtype,
@@ -257,7 +256,7 @@ def softmax_xent_train_step(
     cfg: ModelConfig,
     opt: OptConfig,
     generator: Optional[torch.Generator] = None,
-    compute_dtype: Optional[torch.dtype] = None,
+    compute_dtype: Optional[torch.dtype] = torch.bfloat16,
 ) -> Tuple[TrainState, torch.Tensor]:
     """Softmax classification step — the working analog of the reference's
     shipped-but-dead softmax kernels.
@@ -265,7 +264,8 @@ def softmax_xent_train_step(
     cfg.output must be "softmax"; `labels` is either integer class ids
     (batch,) or one-hot / soft targets (batch, n_out).  Loss is the mean
     cross-entropy from the logits via log_softmax; the update is the clean
-    Polyak-momentum rule.  compute_dtype as in `clean_train_step`.
+    Polyak-momentum rule.  compute_dtype as in `clean_train_step` (default
+    bfloat16 products, as the JAX package's).
     """
     from dataclasses import replace as _replace
 
