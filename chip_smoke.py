@@ -99,9 +99,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      unbiased; sr_momentum_update (kernel 6) bit-equal to its plain version
      at the 16 kHz layer shapes, float32 and bfloat16 gradients;
      dropout_mask (kernel 5) bit-equal at four shapes, its zero rate, its
-     seed + block identity; kernels 1 and 2 on bfloat16 W / delta at the
-     four 16 kHz layer shapes (N = 257: 2-byte aligned rows); times beside
-     the bytes bounds.
+     seed + block identity; its batches (dropout_masks, one launch up to 64
+     masks): mixed shapes, row0 > 0, omit 0 and 1 bit-equal to the plain
+     version, a group of 8 16 kHz bunches' 32 masks equal to 32 single
+     draws, more than 64 masks in launches of at most 64; one bunch's four
+     masks and a group's in one launch beside their bounds; kernels 1 and 2
+     on bfloat16 W / delta at the four 16 kHz layer shapes (N = 257: 2-byte
+     aligned rows); times beside the bytes bounds.
  10. chunk trainer variants at 3084-2048x3-257 (kernels group): float32,
      sr_delta and sr_state under both rules, and row tiles, against the
      float64 plain version with the same Philox bits, at the limits of a
@@ -124,7 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      falling), on the float32 engine and on sr_delta with float32 products
      (final CVs within SR_CV_FRACTION); one epoch each of sr_state (both
      products), hbm_spill=1, clean-rule row tiles, and engine=xla
-     with dropout_rng="tpu_prng" (kernel 5 on its path); sr_train_step at
+     with dropout_rng="tpu_prng" (kernel 5 on its path: one launch a group of
+     8 bunches' masks, counted); sr_train_step at
      full width (kernel 6 on its path); kill and resume through a checkpoint
      equal to the straight run bit for bit.
  12. the multi-condition recipe (main path, recipe group):
@@ -172,7 +177,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 only times the chunk trainer's chain (chain_times), `--bwd-times` only the
 backward (bwd_times), `--fwd-times` only the float32 forward (fwd_times, with
 SHA-256 digests of its outputs), `--mask-times` only the input mask's share
-of layer 0 and of the chains, with the chunk trainer's state digests
+of layer 0 and of the chains, with the chunk trainer's state digests, and
+kernel 5's times with the tpu_prng plain trainer's time and state digest
 (mask_times), with `--package-root DIR` the package of another checkout (A/B
 runs in one call); all four exit with 2.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
@@ -2484,10 +2490,11 @@ def mask_times() -> dict:
       (dp_tile_forward) with input dropout 0.1 and 0, the package's own way
       (a table where it takes one); one rank's trainer a bunch (the sum
       stubbed, 8 bunches a call);
+    * kernel 5 and the plain trainer on its masks (_dropout_mask_times);
     * the state digests of every form of CHUNK_DIGEST_FORMS, of one call of
       the data-parallel trainer for each rank of 2 (the sum stubbed, 8
-      bunches, parity dropout 0.1/0.2, both product forms) and
-      _fwd_digests."""
+      bunches, parity dropout 0.1/0.2, both product forms), of the plain
+      trainer on kernel 5's masks, and _fwd_digests."""
     from tpu_sednn_torch.model.mlp import ModelConfig, init_params
     from tpu_sednn_torch.ops import philox
     from tpu_sednn_torch.ops import resident_chunk as rc
@@ -2630,12 +2637,73 @@ def mask_times() -> dict:
               f"({' '.join(f'{v:.4f}' for v in ms[name])})", flush=True)
     del forms
     torch.cuda.empty_cache()
+    out.update(_dropout_mask_times())
     out["chunk_digests"] = _chunk_digests([f[0] for f in CHUNK_DIGEST_FORMS])
     out["fwd_digests"] = _fwd_digests()
-    for group in ("chunk_digests", "dp_digests", "fwd_digests"):
+    for group in ("chunk_digests", "dp_digests", "fwd_digests", "xla_digests"):
         for k, v in out[group].items():
             print(f"[mask-times] digest {k}: {v}", flush=True)
     return out
+
+
+XLA_CHUNK_BUNCHES = 64  # a chunk of the in-memory path's 8192-sample traincache
+XLA_RUNS = 5  # timed calls: the host-driven trainer's time a call spreads by 10-40%
+
+
+def _dropout_mask_times() -> dict:
+    """Kernel 5 for comparing two checkouts (mask_times): a 16 kHz bunch's four
+    masks as four single launches (dropout_mask, either package) and, where
+    the package draws batches (dropout_masks), in one launch, and a group of
+    MASK_GROUP bunches' masks in one; the plain trainer on its masks
+    (engine="xla", dropout_rng="tpu_prng") through one chunk of
+    XLA_CHUNK_BUNCHES bunches at 3084-2048x3-257: ms a bunch and samples/s
+    (CUDA events around whole calls, the host's share in them: the trainer is
+    host-driven), its launches, and the SHA-256 digest of its state after the
+    first call."""
+    import importlib
+
+    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
+    from tpu_sednn_torch.ops import launch_counts
+    from tpu_sednn_torch.train.loop import make_chunk_runner
+    from tpu_sednn_torch.train.step import OptConfig, init_train_state
+
+    dm = importlib.import_module("tpu_sednn_torch.ops.dropout_mask")
+    shapes, omits = [(BUNCH, w) for w in WIDE[:-1]], [0.1, 0.2, 0.2, 0.2]
+    times = dict(four_launches=_device_ms(lambda i: [dm.dropout_mask(4 * i + l, sh, o) for l, (sh, o)
+                                                     in enumerate(zip(shapes, omits))], reps=50))
+    if hasattr(dm, "dropout_masks"):
+        times["one_launch"] = _device_ms(lambda i: dm.dropout_masks(
+            [4 * i + l for l in range(4)], shapes, omits), reps=50)
+        times["group_one_launch"] = _device_ms(lambda i: dm.dropout_masks(*_group_batch(i)),
+                                               reps=20)
+    print("[mask-times] kernel 5, a 16 kHz bunch's four masks: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()) + " ms", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    cfg = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity",
+                      dropout_rng="tpu_prng")
+    mlp = init_params(torch.Generator().manual_seed(16), cfg, scheme="uniform",
+                      w_range=(-0.03, 0.03), device="cuda")
+    n = XLA_CHUNK_BUNCHES * BUNCH
+    x, t = _randn(gen, n, WIDE[0]), _randn(gen, n, WIDE[-1], scale=0.5)
+    run = make_chunk_runner(cfg, OptConfig(lrate=0.1, momentum=0.5, bunchsize=BUNCH),
+                            engine="xla", device="cuda")
+    st = init_train_state(mlp)
+    before = launch_counts()["dropout_mask"]
+    run(st, x, t, torch.Generator().manual_seed(7), 0.1, 0.5, 0.0)
+    torch.cuda.synchronize()
+    launches = launch_counts()["dropout_mask"] - before
+    _check(all(bool(torch.isfinite(a).all()) for a in _state_tensors(st)),
+           "the plain trainer's state is not finite after a chunk")
+    digest = _state_digest(st)
+    runs = [_time_ms(lambda: run(st, x, t, torch.Generator().manual_seed(8), 0.1, 0.5, 0.0),
+                     reps=1, warmup=0) / XLA_CHUNK_BUNCHES for _ in range(XLA_RUNS)]
+    ms = float(np.median(runs))
+    print(f"[mask-times] engine=xla, dropout_rng=tpu_prng, a chunk of {XLA_CHUNK_BUNCHES} bunches at "
+          f"3084-2048x3-257: {ms:.4f} ms a bunch ({' '.join(f'{v:.4f}' for v in runs)}), "
+          f"{BUNCH / ms * 1e3:.0f} samples/s, {launches} dropout_mask launches", flush=True)
+    return dict(dropout_mask=times, xla_tpu_prng=dict(ms=ms, ms_runs=runs, launches=launches,
+                                                      samples_per_s=BUNCH / ms * 1e3),
+                xla_digests={"xla_tpu_prng_16k": digest})
 
 
 # ---------------------------------------------------------------------------
@@ -2821,14 +2889,14 @@ def phase_sr(gen) -> dict:
         k5["by_shape"][f"{shape[0]}x{shape[1]}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l)
         ms, plain, lib = ms + times * t_k, plain + times * t_p, lib + times * t_l
         nbytes += times * 4.0 * shape[0] * shape[1]
-    k5.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-              bound_by="bytes", max_abs_err=k5_abs,
-              shape="one bunch's four masks of 3084-2048x3-257: 128x3084 and 3 of 128x2048")
+    k5["four_launches"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
     print(f"[kernel] dropout_mask: 4 shapes x omit 0.1 / 0.2 / 0.5 bit-equal to the plain version, "
           f"zero rate within {worst:.2f} of 4 sigma; rows 512.. under seed s = rows 0.. under "
-          f"s + 1; one bunch's four masks {ms:.4f} ms (plain {plain:.2f} ms with the host's share, "
-          f"torch.rand >= omit {lib:.4f} ms), bound {k5['bound_ms']:.5f} ms (bytes written)",
-          flush=True)
+          f"s + 1; one bunch's four masks as four launches {ms:.4f} ms (plain {plain:.2f} ms with "
+          f"the host's share, torch.rand >= omit {lib:.4f} ms), bound "
+          f"{k5['four_launches']['bound_ms']:.5f} ms (bytes written)", flush=True)
+    k5.update(_phase_mask_batches(k5_abs))
 
     # (iv) kernels 1 and 2 on bfloat16 storage, the four 16 kHz layer shapes
     from tpu_sednn_torch.ops.fused_mlp import (fused_bwd_update, fused_bwd_update_reference,
@@ -2873,6 +2941,120 @@ def phase_sr(gen) -> dict:
           flush=True)
     return dict(k5=k5, k6=k6, bf16_storage=dict(share=sr_stats["share"], n_diff=sr_stats["n_diff"],
                                                 n=sr_stats["n"], **worst_f32))
+
+
+def _masks_bound(shapes) -> tuple:
+    """(bound ms, "bytes" or "operations") of drawing float32 masks of these
+    shapes: each written once, against their Philox calls (ceil(D / 4) a
+    row) on the integer multipliers."""
+    t_bytes = sum(4.0 * B * D for B, D in shapes) / PEAK_BYTES_PER_S * 1e3
+    t_ops = PHILOX_IMADS * sum(B * ((D + 3) // 4) for B, D in shapes) / PEAK_IMAD_PER_S * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _group_batch(i: int = 0) -> tuple:
+    """(seeds, shapes, omits) of MASK_GROUP bunches' masks of 3084-2048x3-257,
+    parity dropout 0.1 / 0.2: what the in-memory path's plain trainer draws
+    in one launch; seeds from 1000 + 64 i."""
+    from tpu_sednn_torch.train.step import MASK_GROUP
+
+    n = 4 * MASK_GROUP
+    return ([1000 + 64 * i + j for j in range(n)], [(BUNCH, WIDE[j % 4]) for j in range(n)],
+            [0.1 if j % 4 == 0 else 0.2 for j in range(n)])
+
+
+def _phase_mask_batches(k5_abs: float) -> dict:
+    """Kernel 5's batches (dropout_masks): bit-equal to the plain version for a
+    batch of mixed shapes, row0 > 0, omit 0 and 1 and rows past 512; a group
+    of MASK_GROUP 16 kHz bunches' masks in one launch equal to as many single
+    draws; a batch of more than MAX_MASKS masks split into launches of at
+    most MAX_MASKS; the times of one bunch's four masks and of a group in one
+    launch beside their bounds."""
+    from tpu_sednn_torch.ops.dropout_mask import (MAX_MASKS, dropout_mask, dropout_masks,
+                                                  dropout_masks_reference)
+    from tpu_sednn_torch.train.step import MASK_GROUP
+
+    def batch_held(batch, label):
+        seeds, shapes, omits, row0s = (list(c) for c in zip(*batch))
+        n0 = dropout_mask.launches
+        got = dropout_masks(seeds, shapes, omits, row0s)
+        launches = dropout_mask.launches - n0
+        want = dropout_masks_reference(seeds, shapes, omits, row0s, device="cuda")
+        for g, w, (seed, shape, omit, row0) in zip(got, want, batch):
+            _check(g.shape == shape and g.dtype == torch.float32 and torch.equal(g, w),
+                   f"dropout_masks ({label}): mask {shape} at row0 {row0}, omit {omit}, differs "
+                   f"from the plain version")
+        return got, launches
+
+    # mixed: the four shapes at row0 0 and > 0, omit 0 and 1, rows past 512, D % 4 != 0
+    mixed = [(77, (128, 3084), 0.1, 0), (78, (100, 1548), 0.2, 300), (79, (1024, 2048), 0.5, 0),
+             (80, (1300, 257), 0.2, 700), (81, (64, 2048), 0.0, 64), (82, (64, 3084), 1.0, 1000),
+             (2 ** 32 - 1, (600, 37), 0.3, 511), (-7, (3, 5), 0.2, 509)]
+    got, launches = batch_held(mixed, "mixed")
+    _check(launches == 1 and bool(got[4].all()) and not got[5].any(),
+           f"dropout_masks (mixed): {launches} launches; omit 0 / 1 not all kept / dropped")
+    for g, (seed, shape, omit, row0) in zip(got, mixed):
+        if row0:
+            _check(torch.equal(g, dropout_mask(seed, (row0 + shape[0], shape[1]), omit)[row0:]),
+                   f"dropout_masks: rows {row0}.. of a {shape} mask are not the full mask's rows")
+    # a group of bunches: one launch, equal to the single draws the trainer made before
+    seeds, shapes, omits = _group_batch()
+    n0 = dropout_mask.launches
+    group = dropout_masks(seeds, shapes, omits)
+    _check(dropout_mask.launches == n0 + 1, "a group of bunches' masks took more than one launch")
+    for g, seed, shape, omit in zip(group, seeds, shapes, omits):
+        _check(torch.equal(g, dropout_mask(seed, shape, omit)),
+               f"dropout_masks: a group's mask {shape} differs from its single draw")
+    # batches of 1.6 and 5.6 million Philox calls, below and above eight full waves, so that
+    # a thread makes two and eight of them on an H100, at widths not a multiple of 4 and of
+    # fewer than 256 calls a row
+    for k, widths in ((3, (1031,)), (8, (1031, 37, 257, 3084))):
+        batch_held([(900 + i, (2000 + 500 * (k // 8) + 7 * i, widths[i % len(widths)]),
+                     0.1 * (i % 5), 513 * i) for i in range(k)], f"{k} large masks")
+    # more masks than a launch takes
+    n_big = 2 * MAX_MASKS + 22
+    big = [(5000 + i, (1 + (37 * i) % 700, 1 + (53 * i) % 300), (i % 11) / 10.0, (97 * i) % 900)
+           for i in range(n_big)]
+    _, launches = batch_held(big, f"{n_big} masks")
+    _check(launches == -(-n_big // MAX_MASKS),
+           f"dropout_masks: {n_big} masks took {launches} launches, not {-(-n_big // MAX_MASKS)}")
+    print(f"[kernel] dropout_masks: a batch of {len(mixed)} (the four shapes, row0 up to 1000, "
+          f"omit 0 and 1, rows past 512) bit-equal to the plain version in one launch, its row0 "
+          f"masks the rows of the full masks; batches of 1.6 and 5.6 million Philox calls at "
+          f"ragged widths bit-equal; {len(group)} masks of {MASK_GROUP} 16 kHz bunches in "
+          f"one launch equal to {len(group)} single draws; {n_big} masks in {launches} launches "
+          f"(at most {MAX_MASKS} a launch) bit-equal", flush=True)
+
+    # times: a 16 kHz bunch's four masks and a group of bunches, one launch each
+    b_seeds, b_shapes, b_omits = seeds[:4], shapes[:4], omits[:4]
+    out = {}
+    for name, (sh, fn, plain_fn, reps) in {
+            "one_bunch": (b_shapes, lambda i: dropout_masks([s + 64 * i for s in b_seeds], b_shapes,
+                                                            b_omits),
+                          lambda i: dropout_masks_reference(b_seeds, b_shapes, b_omits,
+                                                            device="cuda"), 50),
+            "group": (shapes, lambda i: dropout_masks(*_group_batch(i)),
+                      lambda i: dropout_masks_reference(*_group_batch(i), device="cuda"), 20)}.items():
+        elems = sum(B * D for B, D in sh)
+        bound, by = _masks_bound(sh)
+        out[name] = dict(ms=_device_ms(fn, reps=reps), plain_ms=_device_ms(plain_fn, reps=1),
+                         library_ms=_device_ms(lambda i: (torch.rand(elems, device="cuda")
+                                                          >= 0.2).float(), reps=reps),
+                         bound_ms=bound, bound_by=by, masks=len(sh), mbytes=4.0 * elems / 1e6)
+    one, grp = out["one_bunch"], out["group"]
+    print(f"[kernel] dropout_masks one launch: a 16 kHz bunch's 4 masks ({one['mbytes']:.2f} MB) "
+          f"{one['ms']:.4f} ms, bound {one['bound_ms']:.5f} ms ({one['bound_by']}); "
+          f"{MASK_GROUP} bunches' {grp['masks']} masks ({grp['mbytes']:.1f} MB) {grp['ms']:.4f} ms "
+          f"= {grp['ms'] / MASK_GROUP:.5f} a bunch, bound {grp['bound_ms']:.5f} ms "
+          f"({grp['bound_by']}, {grp['bound_ms'] / grp['ms']:.0%} reached); plain {one['plain_ms']:.2f}"
+          f" / {grp['plain_ms']:.2f} ms with the host's share; torch.rand >= omit over the same "
+          f"elements {one['library_ms']:.4f} / {grp['library_ms']:.4f} ms", flush=True)
+    return dict(ms=grp["ms"], plain_ms=grp["plain_ms"], library_ms=grp["library_ms"],
+                bound_ms=grp["bound_ms"], bound_by=grp["bound_by"], max_abs_err=k5_abs,
+                ms_per_bunch=grp["ms"] / MASK_GROUP, one_bunch=one,
+                shape=f"{MASK_GROUP} bunches' masks of 3084-2048x3-257 in one launch "
+                      f"(128x3084 and 3 of 128x2048 a bunch), what the in-memory path's plain "
+                      f"trainer draws at once")
 
 
 # Chunk trainer variants at 3084-2048x3-257 against the float64 plain version
@@ -3253,7 +3435,9 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     mlp = init_params(torch.Generator().manual_seed(16), cfg, scheme="uniform",
                       w_range=(-0.03, 0.03), device="cuda")
     traincache = 8192  # two full chunks and a partial one
-    n_bunches = sum(min(traincache, x.shape[0] - st) // BUNCH for st in range(0, x.shape[0], traincache))
+    chunk_bunches = [min(traincache, x.shape[0] - st) // BUNCH
+                     for st in range(0, x.shape[0], traincache)]
+    n_bunches = sum(chunk_bunches)
     n_chunks = -(-x.shape[0] // traincache)
 
     def sched(e):
@@ -3349,9 +3533,14 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     cfg5 = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity",
                        dropout_rng="tpu_prng")
     _, cv_x, d_x, s_x = epochs(1, "xla", cfg=cfg5)
-    _check(d_x["dropout_mask"] == 4 * n_bunches and d_x["resident_chunk"] == 0
-           and d_x["plain_train_chunk"] == n_chunks,
-           f"engine=xla with dropout_rng=tpu_prng: {d_x} for {n_bunches} bunches")
+    # the plain trainer draws the masks of MASK_GROUP bunches (4 a bunch) with one launch
+    from tpu_sednn_torch.train.step import MASK_GROUP
+
+    mask_launches = sum(-(-nb // MASK_GROUP) for nb in chunk_bunches)
+    _check(d_x["dropout_mask"] == mask_launches and d_x["dropout_mask_masks"] == 4 * n_bunches
+           and d_x["resident_chunk"] == 0 and d_x["plain_train_chunk"] == n_chunks,
+           f"engine=xla with dropout_rng=tpu_prng: {d_x} for {chunk_bunches} bunches a chunk "
+           f"({mask_launches} dropout_mask launches of {4 * n_bunches} masks expected)")
     # the same trainer with torch.rand masks: only the generator of the masks differs.  After
     # one epoch of 129 bunches the CV error still moves by several percent with the masks'
     # realisation alone (the chunk trainer's epoch above reads 62.5 with its Philox stream,
@@ -3360,11 +3549,14 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     _check(d_x3["dropout_mask"] == 0 and abs(cv_x[0] - cv_x3[0]) <= 0.15 * cv_x3[0],
            f"engine=xla epoch CV {cv_x[0]} with the Philox masks vs {cv_x3[0]} with torch.rand's")
     out.update(cv_sr_state=cv_ss, cv_sr_state_tc=cv_sst, cv_tile_rows=cv_t, cv_xla=cv_x,
-               cv_xla_threefry=cv_x3)
+               cv_xla_threefry=cv_x3,
+               xla_tpu_prng=dict(dropout_mask=d_x["dropout_mask"], masks=d_x["dropout_mask_masks"],
+                                 samples_per_s=x.shape[0] / s_x))
     print(f"[arrays] one epoch each: sr_state CV {cv_ss[0]:.6f} (tensor cores {cv_sst[0]:.6f}, "
           f"limit {SR_CV_FRACTION} apart); hbm_spill=1 {cv_sp[0]:.6f} (the "
           f"float32 engine's, exactly); clean rule tile_rows 64 {cv_t[0]:.6f}; engine=xla with "
-          f"dropout_rng=tpu_prng {cv_x[0]:.6f} ({d_x['dropout_mask']} dropout_mask launches, "
+          f"dropout_rng=tpu_prng {cv_x[0]:.6f} ({d_x['dropout_mask']} dropout_mask launches "
+          f"for {d_x['dropout_mask_masks']} masks, "
           f"{x.shape[0] / s_x:.0f} samples/s), with torch.rand masks {cv_x3[0]:.6f} (limit: 15% "
           f"apart)", flush=True)
 
@@ -3682,7 +3874,7 @@ def phase_train(tmp: str, smi: str) -> dict:
     train_counts = {k: sum(c[k] for c in runs) for k in
                     ("resident_chunk", "fused_linear_act", "fused_linear_act_tc",
                      "fused_linear_act_sum", "fused_bwd_update", "fused_bwd_update_tc",
-                     "fused_bwd_update_reduce", "plain_train_chunk")}
+                     "fused_bwd_update_reduce", "plain_train_chunk", "dropout_mask")}
     kernel_counts = {k: sum(c["resident_chunk_kernels"][k] for c in runs)
                      for k in c1["resident_chunk_kernels"]}
     # chunk-trainer calls by product form: tensor cores (the command's engine=auto and
@@ -5330,7 +5522,8 @@ def main(argv=None) -> int:
                          "final line, exits with 2)")
     ap.add_argument("--mask-times", action="store_true",
                     help="only build and time the input mask's share of layer 0 and of the "
-                         "chains, with the chunk trainer's state digests (mask_times; prints no "
+                         "chains, with the chunk trainer's state digests, and the standalone "
+                         "dropout mask with the tpu_prng plain trainer (mask_times; prints no "
                          "final line, exits with 2)")
     ap.add_argument("--package-root", default="",
                     help="import tpu_sednn_torch from this directory, e.g. an unpacked checkout "
@@ -5456,6 +5649,11 @@ def main(argv=None) -> int:
                     ("philox_mask", akc["philox_mask"]), ("input_mask_bits", akc["input_mask_table"]),
                     ("stft_lps", ac["stft_lps"])):
         _check(n > 0, f"the in-memory training path never launched the {name} kernel")
+    # kernel 5 runs on the in-memory path's tpu_prng epoch alone
+    _check(ac["dropout_mask"] == arrays["xla_tpu_prng"]["dropout_mask"]
+           and ac["dropout_mask_masks"] == arrays["xla_tpu_prng"]["masks"] and tw["dropout_mask"] == 0,
+           f"dropout_mask launches: {ac['dropout_mask']} on the in-memory path (its tpu_prng epoch "
+           f"{arrays['xla_tpu_prng']['dropout_mask']}), {tw['dropout_mask']} on the command's")
     # every launch of a call but its first is a programmatic dependent one, either form
     calls = sum(forms.values())
     _check(0 < akc["pdl"] <= akc["fused_linear_act"] + akc["fused_bwd_update"] - calls,
@@ -5486,6 +5684,8 @@ def main(argv=None) -> int:
 
     # the recipe's path: the chunk trainer in its tensor-core form and the STFT kernel
     rc, rkc = recipe["counts"], recipe["kernel_counts"]
+    _check(rc["dropout_mask"] == 0 and all(c["dropout_mask"] == 0 for c in dp_runs.values()),
+           "the recipe's or the data-parallel path launched dropout_mask")
     for name, n in (("resident_chunk (tensor cores)", rc["resident_chunk"]),
                     ("fused_linear_act (tensor cores)", rkc["tc_linear_act"]),
                     ("fused_bwd_update (tensor cores)", rkc["tc_bwd_update"]),
@@ -5636,7 +5836,10 @@ def main(argv=None) -> int:
         dict(name="dropout_mask", source="tpu_sednn_torch/csrc/dropout_mask.cu",
              replaces="tpu_sednn/ops/dropout_pallas.py:29", route="cuda",
              launches=ac["dropout_mask"], launches_by_path=by_path(0, ac["dropout_mask"]),
-             **sr["k5"]),
+             launches_of="dropout_mask_kernel launches, each a batch of up to 64 masks: on the "
+                         "in-memory path the plain trainer (engine=xla, dropout_rng=tpu_prng) "
+                         "draws 8 bunches' masks a launch",
+             masks_by_path=by_path(0, ac["dropout_mask_masks"]), **sr["k5"]),
         dict(name="sr_momentum_update", source="tpu_sednn_torch/csrc/sr_update.cu",
              replaces="tpu_sednn/ops/sr_update.py:29", route="cuda",
              launches=ac["sr_momentum_update"],

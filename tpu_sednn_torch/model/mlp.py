@@ -191,6 +191,49 @@ def _dropout_mask(generator: torch.Generator, shape, omit: float,
     return (u >= omit).to(torch.float32).to(device)
 
 
+def _dropout_masks(generator: torch.Generator, shapes, omits: Sequence[float],
+                   device: torch.device, impl: str = "threefry",
+                   row0s: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """The masks `_dropout_mask` draws one after another for (shapes[i],
+    omits[i]), bit for bit, from the same generator.  "tpu_prng": one seed
+    per mask in that order, then one `dropout_masks` call (one kernel launch
+    per 64 masks on a CUDA device); with row0s, mask i is rows row0s[i]..
+    of the mask its seed keys.  "threefry": the torch.rand draws in turn;
+    torch.rand has no row offset, so it takes no row0s."""
+    if impl == "tpu_prng":
+        from tpu_sednn_torch.ops.dropout_mask import dropout_masks
+
+        seeds = [int(torch.randint(-2**31, 2**31, (), generator=generator,
+                                   device=generator.device)) for _ in shapes]  # one scalar each
+        return dropout_masks(seeds, [tuple(s) for s in shapes], omits, row0s, device=device)
+    if impl != "threefry":
+        raise ValueError(f"unknown dropout_rng {impl!r}")
+    if row0s is not None:
+        raise ValueError("threefry masks are drawn whole: no row0s")
+    return [_dropout_mask(generator, s, o, device) for s, o in zip(shapes, omits)]
+
+
+def _bunch_masks(generator: torch.Generator, cfg: ModelConfig, rows: int,
+                 widths: Sequence[int], device: torch.device, n_bunches: int = 1,
+                 row0: int = 0) -> List[List[Optional[torch.Tensor]]]:
+    """The training masks of `n_bunches` bunches in the order `forward`
+    draws them, bunch after bunch: [bunch][layer], layer l's input (rows,
+    widths[l]), None where its omit is 0; all drawn by one `_dropout_masks`
+    call.  row0 > 0 (tpu_prng only): rows row0.. of each bunch's masks."""
+    omits = dropout_omits(cfg, len(widths))
+    drawn = [l for l, o in enumerate(omits) if o > 0.0]
+    flat = iter(_dropout_masks(generator, [(rows, widths[l]) for l in drawn] * n_bunches,
+                               [omits[l] for l in drawn] * n_bunches, device, cfg.dropout_rng,
+                               [row0] * (len(drawn) * n_bunches) if row0 else None))
+    out = []
+    for _ in range(n_bunches):
+        masks: List[Optional[torch.Tensor]] = [None] * len(widths)
+        for l in drawn:
+            masks[l] = next(flat)
+        out.append(masks)
+    return out
+
+
 def mm_operand(a: torch.Tensor, bf16: bool, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """An operand of a product as the JAX package's `_dot` takes it: with
     bf16, rounded to bfloat16 (to nearest even, as astype(jnp.bfloat16)),
@@ -248,12 +291,13 @@ def forward(
     omits = dropout_omits(cfg, n_layers)
     if cfg.use_dropout and generator is None and dropout_masks is None:
         raise ValueError("dropout training requires a generator or explicit masks")
+    if cfg.use_dropout and dropout_masks is None:  # the generator serves nothing else here
+        dropout_masks = _bunch_masks(generator, cfg, x.shape[0],
+                                     [x.shape[1]] + [w.shape[0] for w in ws[1:]], x.device)[0]
     h = x
     for l, (w, b) in enumerate(zip(ws, bs)):
         if omits[l] > 0.0:
-            mask = (dropout_masks[l] if dropout_masks is not None
-                    else _dropout_mask(generator, h.shape, omits[l], h.device, cfg.dropout_rng))
-            h = h * mask.to(h.dtype)
+            h = h * dropout_masks[l].to(h.dtype)
             if cfg.dropout_mode == "inverted":
                 h = h / (1.0 - omits[l])
         h = _matmul_bias(h, w, b, compute_dtype)

@@ -32,14 +32,16 @@ KERNEL_SOURCES = ("stft_lps", "fused_mlp", "resident_chunk", "sr_update",
 
 def launch_counts() -> dict:
     """Every launch counter of the port, as plain integers: the wrappers'
-    own counts, the kernel launches the chunk trainer's C entry points
-    enqueued (by kernel), the chunk trainer's runs (single-device and
-    data-parallel) on a card, and the calls of the plain chunk trainer."""
+    own counts (and the masks the dropout mask launches wrote), the
+    kernel launches the chunk trainer's C entry points enqueued (by
+    kernel), the chunk trainer's runs (single-device and data-parallel) on
+    a card, and the calls of the plain chunk trainer."""
     from tpu_sednn_torch.ops import resident_chunk
     from tpu_sednn_torch.train.step import reference_train_chunk
 
     return {
         "dropout_mask": dropout_mask.launches,
+        "dropout_mask_masks": dropout_mask.masks,
         "sr_momentum_update": sr_momentum_update.launches,
         "stft_lps": stft_lps.launches,
         "fused_linear_act": fused_linear_act.launches,
@@ -82,7 +84,7 @@ def reset_launch_counts() -> None:
     from tpu_sednn_torch.ops import resident_chunk
     from tpu_sednn_torch.train.step import reference_train_chunk
 
-    dropout_mask.launches = sr_momentum_update.launches = 0
+    dropout_mask.launches = dropout_mask.masks = sr_momentum_update.launches = 0
     stft_lps.launches = fused_linear_act.launches = fused_bwd_update.launches = 0
     fused_linear_act.sum_launches = fused_bwd_update.reduce_launches = 0
     fused_linear_act.tc_launches = fused_bwd_update.tc_launches = 0

@@ -21,9 +21,9 @@ from typing import Optional, Sequence
 
 import torch
 
-from tpu_sednn_torch.model.mlp import ModelConfig, _dropout_mask, dropout_omits
+from tpu_sednn_torch.model.mlp import ModelConfig, _bunch_masks, dropout_omits
 from tpu_sednn_torch.ops.fused_mlp import fused_bwd_update, fused_linear_act
-from tpu_sednn_torch.train.step import OptConfig, TrainState
+from tpu_sednn_torch.train.step import OptConfig, TrainState, grouped_masks
 
 
 @torch.no_grad()
@@ -47,13 +47,11 @@ def fused_train_step(
     omits = dropout_omits(cfg, n_layers)
     if cfg.use_dropout and generator is None and dropout_masks is None:
         raise ValueError("dropout training requires a generator or explicit masks")
-    masks = [None] * n_layers
-    for l in range(n_layers):
-        if omits[l] > 0.0:
-            width = x.shape[1] if l == 0 else ws[l].shape[0]
-            masks[l] = (dropout_masks[l] if dropout_masks is not None
-                        else _dropout_mask(generator, (n, width), omits[l], x.device,
-                                           cfg.dropout_rng))
+    if dropout_masks is not None:
+        masks = [dropout_masks[l] if omits[l] > 0.0 else None for l in range(n_layers)]
+    else:
+        masks = _bunch_masks(generator, cfg, n, [x.shape[1]] + [w.shape[0] for w in ws[1:]],
+                             x.device)[0]
     scale = [1.0 / (1.0 - o) if (o > 0.0 and cfg.dropout_mode == "inverted") else 1.0
              for o in omits]
 
@@ -89,14 +87,19 @@ def fused_train_step(
 def make_fused_train_chunk(cfg: ModelConfig, opt: OptConfig, bf16: bool = True):
     """Chunk trainer over `fused_train_step` (partial bunch dropped); a
     Python loop, two launches per layer and bunch.  The whole-chunk trainer
-    of ops/resident_chunk.py enqueues the same kernels from one C call."""
+    of ops/resident_chunk.py enqueues the same kernels from one C call.
+    The masks are drawn as `reference_train_chunk` draws them, MASK_GROUP
+    bunches at a time."""
     def run(state: TrainState, in_chunk, targ_chunk, rng,
             lrate=opt.lrate, momentum=opt.momentum, weightcost=opt.weightcost):
         bs = opt.bunchsize
         dyn = OptConfig(lrate=lrate, momentum=momentum, weightcost=weightcost, bunchsize=bs)
-        for i in range(in_chunk.shape[0] // bs):
+        n_bunches = in_chunk.shape[0] // bs
+        grouped = grouped_masks(rng, cfg, state, bs, n_bunches, in_chunk.device)
+        for i in range(n_bunches):
             fused_train_step(state, in_chunk[i * bs:(i + 1) * bs], targ_chunk[i * bs:(i + 1) * bs],
-                             cfg, dyn, generator=rng, bf16=bf16)
+                             cfg, dyn, dropout_masks=next(grouped) if grouped is not None else None,
+                             bf16=bf16)
         return state
 
     return run

@@ -51,7 +51,8 @@ import torch
 import torch.distributed as dist
 
 from tpu_sednn_torch._device import resolve_device
-from tpu_sednn_torch.model.mlp import MLP, ModelConfig, _act, _dropout_mask, dropout_omits
+from tpu_sednn_torch.model.mlp import (MLP, ModelConfig, _act, _bunch_masks, _dropout_mask,
+                                         dropout_omits)
 from tpu_sednn_torch.train.step import OptConfig, TrainState, _apply, _grads
 
 
@@ -312,11 +313,16 @@ def fence(mesh: Mesh) -> None:
 
 def _rank_masks(cfg: ModelConfig, rng, bunch: int, mesh: Mesh, device) -> Optional[list]:
     """A bunch's dropout masks as the single-process trainer draws them (the
-    global bunch at full width, layer by layer from `rng`), sliced to this
-    rank's rows of the bunch; None without dropout."""
+    global bunch at full width, layer by layer from `rng`), at this rank's
+    rows of the bunch; None without dropout.  tpu_prng draws only those rows
+    (row0 = the rank's first), all layers in one `_dropout_masks` call;
+    threefry draws the whole masks and slices them."""
     if not cfg.use_dropout:
         return None
     local = bunch // mesh.n_data
+    if cfg.dropout_rng == "tpu_prng":
+        return _bunch_masks(rng, cfg, local, cfg.layersizes[:-1], device,
+                            row0=mesh.index * local)[0]
     rows = slice(mesh.index * local, (mesh.index + 1) * local)
     omits = dropout_omits(cfg, len(cfg.layersizes) - 1)
     return [None if o == 0.0 else _dropout_mask(rng, (bunch, n), o, device, cfg.dropout_rng)[rows]

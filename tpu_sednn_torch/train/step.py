@@ -37,7 +37,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from tpu_sednn_torch.model.mlp import MLP, ModelConfig, forward, forward_eval
+from tpu_sednn_torch.model.mlp import MLP, ModelConfig, _bunch_masks, forward, forward_eval
 
 
 @dataclass
@@ -185,7 +185,9 @@ def reference_train_chunk(
     `n % bunchsize` samples are skipped exactly like the reference
     (BP_GPU.cu:315-318).  Updates `state` in place and returns it.
 
-    dropout_masks[i][l]: optional explicit mask of bunch i, layer l.
+    dropout_masks[i][l]: optional explicit mask of bunch i, layer l.  Else,
+    with dropout and a generator, the masks are drawn MASK_GROUP bunches at
+    a time (`grouped_masks`): the masks of a draw bunch by bunch.
     `reference_train_chunk.calls` counts calls that trained at least a bunch.
     """
     bs = opt.bunchsize
@@ -193,15 +195,40 @@ def reference_train_chunk(
     if n_bunches == 0:  # chunk smaller than one bunch: all samples dropped
         return state
     reference_train_chunk.calls += 1
-    for i in range(n_bunches):
-        masks = dropout_masks[i] if dropout_masks is not None else None
+    if dropout_masks is None:
+        dropout_masks = grouped_masks(generator, cfg, state, bs, n_bunches, in_chunk.device)
+    masks = iter(dropout_masks) if dropout_masks is not None else None
+    for i in range(n_bunches):  # the generator serves only the masks drawn above
         reference_train_step(state, in_chunk[i * bs:(i + 1) * bs], targ_chunk[i * bs:(i + 1) * bs],
-                             cfg, opt, generator=generator, dropout_masks=masks, inplace=True,
-                             dtype=dtype)
+                             cfg, opt, dropout_masks=next(masks) if masks is not None else None,
+                             inplace=True, dtype=dtype)
     return state
 
 
 reference_train_chunk.calls = 0
+
+# Bunches whose dropout masks one draw covers: with tpu_prng at
+# 3084-2048x3-257, 8 bunches are 32 masks (one launch of at most 64) and
+# 37.8 MB, a write of four times a launch's fixed cost, so the launch is
+# bound by its bytes and not by that cost; more would hold more memory
+# for little.  threefry's torch.rand draws gain nothing from the group and
+# lose nothing by it.
+MASK_GROUP = 8
+
+
+def grouped_masks(generator: Optional[torch.Generator], cfg: ModelConfig, state: TrainState,
+                  rows: int, n_bunches: int, device: torch.device):
+    """An iterator over the dropout masks of `n_bunches` bunches of `rows`
+    rows, bunch by bunch ([layer], None where a layer's omit is 0), drawn
+    MASK_GROUP bunches at a time, each group when its first bunch is
+    reached: the masks `forward` would draw from `generator` bunch after
+    bunch.  None without dropout or without a generator."""
+    if generator is None or not cfg.use_dropout:
+        return None
+    widths = [w.shape[0] for w in state.params.w]
+    return (masks for i in range(0, n_bunches, MASK_GROUP)
+            for masks in _bunch_masks(generator, cfg, rows, widths, device,
+                                      n_bunches=min(MASK_GROUP, n_bunches - i)))
 
 
 def make_jit_train_chunk(cfg: ModelConfig, opt: OptConfig):
