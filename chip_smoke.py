@@ -46,10 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      products (bf16=False) against their float64 plain versions at the four
      flagship layer shapes and at ragged ones up to 512 rows (the backward's
      16-, 32- and 64-row stripes), with in-kernel and explicit dropout masks,
-     the backward also on bfloat16 delta and bfloat16 W and delta; no
-     reduce_dedy_kernel launched, and more rows than the backward takes
-     refused in both forms; their times at 8 and 16 kHz, the plain versions'
-     and torch.addmm's beside the bound.  Then their tensor-core forms
+     the backward also on bfloat16 delta and bfloat16 W and delta; more
+     rows than the backward takes refused in both forms; their times at 8
+     and 16 kHz, the plain versions' and torch.addmm's beside the bound.  Then their tensor-core forms
      (bf16=True, the default) at the four 8 kHz and four 16 kHz layer shapes
      and ragged ones, float32 and bfloat16 W, against the float64 plain
      versions of the same rounded operands; the float32-FMA form and
@@ -1552,8 +1551,7 @@ def phase_fused_kernels(gen) -> dict:
     ragged = [(8, 1548, 129), (136, 1548, 129), (136, 100, 37), (24, 2048, 2048),
               (256, 2048, 2048), (512, 1548, 129)]
     fwd_worst, bwd_worst, plain_worst, sr_stats = {}, {}, {}, {}
-    reduced = fused_bwd_update.reduce_launches
-    fwd_calls, fwd0 = 0, (fused_linear_act.launches, fused_linear_act.sum_launches)
+    fwd_calls, fwd0 = 0, fused_linear_act.launches
     for B, K, N in layer_shapes + ragged:
         x = _randn(gen, B, K)
         w = _randn(gen, K, N, scale=0.03)
@@ -1602,13 +1600,10 @@ def phase_fused_kernels(gen) -> dict:
                 for name, i in (("dedy", 2), ("b", 3), ("delta_b", 4)):
                     _hold(got[i], want[i], f"{label}, {name}", bwd_worst)
         torch.cuda.synchronize()
-    _check(fused_bwd_update.reduce_launches == reduced,
-           "the float32 backward launched a second kernel (reduce_dedy_kernel)")
-    # the float32 forward: one launch a call, no second kernel (fwd_sum_kernel)
-    _check(fused_linear_act.launches - fwd0[0] == fwd_calls
-           and fused_linear_act.sum_launches == fwd0[1],
-           f"the float32 forward launched {fused_linear_act.launches - fwd0[0]} kernels in "
-           f"{fwd_calls} calls, {fused_linear_act.sum_launches - fwd0[1]} second kernels")
+    # the float32 forward: one launch a call
+    _check(fused_linear_act.launches - fwd0 == fwd_calls,
+           f"the float32 forward launched {fused_linear_act.launches - fwd0} kernels in "
+           f"{fwd_calls} calls")
     # above the rows its registers hold, the backward refuses a card tensor (either form)
     from tpu_sednn_torch.ops.fused_mlp import BWD_MAX_ROWS, fused_bwd_grad_out
 
@@ -1634,7 +1629,7 @@ def phase_fused_kernels(gen) -> dict:
           f"{plain_worst['rel_max']:.3g}, {plain_worst['rel_fro']:.3g}; bfloat16 stores: "
           f"{sr_stats['n_diff']} of {sr_stats['n']} elements differ from the plain version "
           f"rounded with the same bits, worst share {sr_stats['share']:.3g} (limit "
-          f"{SR_DIFF_SHARE}); no reduce_dedy_kernel; {M} rows refused in both forms", flush=True)
+          f"{SR_DIFF_SHARE}); {M} rows refused in both forms", flush=True)
 
     # the float32 forward's plan: fwd_k_chunk's chunks are a cluster's blocks (up to 16);
     # every cluster size the main path asks for must be placeable on the card
@@ -1731,10 +1726,7 @@ def phase_tc_kernels(gen) -> dict:
                 outs = {}
                 for tc in (True, False):
                     w2, d2, b2, db2 = w.clone(), d0.clone(), b.clone(), db.clone()
-                    reduced = fused_bwd_update.reduce_launches
                     outs[tc] = fused_bwd_update(dedx, y_prev, w2, d2, b2, db2, bf16=tc, **hyp, **kw)
-                    _check(not tc or fused_bwd_update.reduce_launches == reduced,
-                           "the tensor-core backward launched reduce_dedy_kernel")
                 got = outs[True]
                 label = f"tensor-core fused_bwd_update {B}x{K}x{N} {store} {sorted(kw)}"
                 if w.dtype == bf:
@@ -3787,8 +3779,8 @@ def phase_train(tmp: str, smi: str) -> dict:
         # 8 launches; the 3 forwards that write a hidden activation draw its mask by Philox;
         # each chunk's input masks are drawn by one input_mask_bits_kernel into their bit
         # table, which the first layer's forward and backward read (no Philox there)
-        _check(k["fused_linear_act"] == 4 * n_bunches and k["fused_linear_act_sum"] == 0
-               and k["fused_bwd_update"] == 4 * n_bunches and k["reduce_dedy"] == 0
+        _check(k["fused_linear_act"] == 4 * n_bunches
+               and k["fused_bwd_update"] == 4 * n_bunches
                and k["philox_mask"] == 3 * n_bunches and k["input_mask_table"] == n_chunks
                and k["input_mask_philox"] == 0,
                f"{label}: kernel launches {k} for {n_bunches} bunches")
@@ -3806,8 +3798,8 @@ def phase_train(tmp: str, smi: str) -> dict:
         # launches; each chunk's launches but its first programmatic dependent ones
         k = d["resident_chunk_kernels"]
         _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
-               and k["reduce_dedy"] == 0 and k["fused_linear_act"] == 4 * n_bunches
-               and k["fused_linear_act_sum"] == 0 and k["tc_linear_act"] == k["tc_bwd_update"] == 0
+               and k["fused_linear_act"] == 4 * n_bunches
+               and k["tc_linear_act"] == k["tc_bwd_update"] == 0
                and k["pdl"] == 8 * n_bunches - n_chunks and k["input_mask_table"] == n_chunks
                and k["input_mask_philox"] == 0,
                f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
@@ -3873,8 +3865,8 @@ def phase_train(tmp: str, smi: str) -> dict:
     runs = (c1, c2, c_t, c_x, d1_f, d2_f, c_r)
     train_counts = {k: sum(c[k] for c in runs) for k in
                     ("resident_chunk", "fused_linear_act", "fused_linear_act_tc",
-                     "fused_linear_act_sum", "fused_bwd_update", "fused_bwd_update_tc",
-                     "fused_bwd_update_reduce", "plain_train_chunk", "dropout_mask")}
+                     "fused_bwd_update", "fused_bwd_update_tc", "plain_train_chunk",
+                     "dropout_mask")}
     kernel_counts = {k: sum(c["resident_chunk_kernels"][k] for c in runs)
                      for k in c1["resident_chunk_kernels"]}
     # chunk-trainer calls by product form: tensor cores (the command's engine=auto and
@@ -4021,11 +4013,10 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
             run(state, x, t, 5 + attempt, opt.lrate, opt.momentum, opt.weightcost, n_real=n_trace)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
-        # the kernels launched: the two product kernels and the two second kernels (the
+        # the kernels launched: the two product kernels and the input masks' draw (the
         # other keys count subsets of these by form)
         launched = sum(kernel_launches[k] - before[k] for k in
-                       ("fused_linear_act", "fused_bwd_update", "fused_linear_act_sum", "reduce_dedy",
-                        "input_mask_table"))
+                       ("fused_linear_act", "fused_bwd_update", "input_mask_table"))
         spans = _kernel_spans(prof)
         if best is None or len(spans) > len(best[0]):
             kernels = sorted((e for e in prof.key_averages()
@@ -4318,10 +4309,7 @@ def _dp_kernels(gen) -> dict:
                                          "mask_row0": M}),
                              ("table", {"in_mask": table, "in_scale": 1.0 / 0.9})):
                 label = f"fused_bwd_grad_out {M}x{K}x{N} {'tc' if tc else 'f32'} {name}"
-                reduced = fused_bwd_grad_out.reduce_launches
                 g, dy = fused_bwd_grad_out(dedx, y_prev, w, bf16=tc, **kw)
-                _check(fused_bwd_grad_out.reduce_launches == reduced,
-                       "the gradient-out backward launched reduce_dedy_kernel")
                 grads[name] = (g, dy)
                 g_w, dy_w = fused_bwd_grad_out_reference(dedx, y_prev, w, dtype=f64, bf16=tc, **kw)
                 _hold(g[:K * N], g_w[:K * N], f"{label}, G", worst[tc], *tol)
@@ -5460,8 +5448,7 @@ def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path, tp_sums: 
         row("fused_bwd_grad_out_tc", "tpu_sednn_torch/csrc/fused_mlp.cuh",
             dw["fused_bwd_grad_out_tc"], k64["grad_tc"], k32["grad_tc"],
             launches_of="stripe_bwd_kernel<true, ...> (tensor-core products) in its gradient-out "
-                        "form (G and gb written, nothing updated; dedy summed in the kernel; "
-                        f"reduce_dedy_kernel launches: {dw['fused_bwd_grad_out_reduce']})"),
+                        "form (G and gb written, nothing updated; dedy summed in the kernel)"),
         row("fused_bwd_grad_out", "tpu_sednn_torch/csrc/fused_mlp.cuh", grad_f32,
             k64["grad_f32"], k32["grad_f32"],
             launches_of="stripe_bwd_kernel<false, ...> (float32 FMA products) in its "
@@ -5663,8 +5650,8 @@ def main(argv=None) -> int:
     # counts, each run's zeroed just before it)
     dp_runs = dict(cmd=dp["cmd"]["counts"], **{k: e["counts"] for k, e in dp["epochs"].items()})
     dw = {k: sum(c[k] for c in dp_runs.values()) for k in
-          ("fused_bwd_grad_out", "fused_bwd_grad_out_tc", "fused_bwd_grad_out_reduce",
-           "dp_update", "dp_update_sr", "rank_sum")}
+          ("fused_bwd_grad_out", "fused_bwd_grad_out_tc", "dp_update", "dp_update_sr",
+           "rank_sum")}
     dkc = {k: sum(c["resident_chunk_kernels"][k] for c in dp_runs.values()) for k in kc}
     dp_tc_runs = dp_runs["cmd"]["dp_resident_chunk"] + dp_runs["sr_delta"]["dp_resident_chunk"]
     dp_f32_runs = dp_runs["f32"]["dp_resident_chunk"]
@@ -5755,11 +5742,8 @@ def main(argv=None) -> int:
                   launches_of="f32_fwd_kernel (float32 FMA products, bf16=False; on the "
                               "tensor-core forward's cluster split: one launch a layer, "
                               "fwd_k_chunk's chunks summed through distributed shared memory in "
-                              "order, bit-equal to the two-launch form; sum_launches, once its "
-                              "fwd_sum_kernel's, 0); bf16_launches read bfloat16 weights "
-                              "(sr_state, either form)",
-                  sum_launches=kc["fused_linear_act_sum"] + tw["fused_linear_act_sum"]
-                  + akc["fused_linear_act_sum"] + dkc["fused_linear_act_sum"],
+                              "order, bit-equal to the two-launch form); bf16_launches read "
+                              "bfloat16 weights (sr_state, either form)",
                   dp_forward={M: {k: dp["kern"][M]["fwd_f32"][k] for k in
                                   ("ms", "plain_ms", "bound_ms", "library_ms")} for M in (64, 32)},
                   bf16_launches=akc["bf16_linear_act"], bf16_storage=sr["bf16_storage"]),
@@ -5775,11 +5759,9 @@ def main(argv=None) -> int:
                   "tpu_sednn/ops/fused_mlp.py:108", fused["bwd"],
                   launches_of="stripe_bwd_kernel<false, ...> (float32 FMA products, bf16=False; "
                               "redesigned PR 13 on the tensor-core form's stripes and cluster: one "
-                              "launch a layer, dedy summed in the kernel; reduce_launches, once "
-                              "a second kernel's, 0); sr_launches stored bfloat16 with stochastic "
-                              "rounding, tiled_launches accumulated a row tile (either form)",
-                  reduce_launches=kc["reduce_dedy"] + tw["fused_bwd_update_reduce"]
-                  + akc["reduce_dedy"],
+                              "launch a layer, dedy summed in the kernel); sr_launches stored "
+                              "bfloat16 with stochastic rounding, tiled_launches accumulated a row "
+                              "tile (either form)",
                   sr_launches=akc["sr_bwd_update"], tiled_launches=akc["tiled_bwd_update"],
                   library_ms=None),
         layer_row("fused_bwd_update_tc", "fused_bwd_update", "tc",

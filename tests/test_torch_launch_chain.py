@@ -207,3 +207,16 @@ def test_plan_bits_and_index_match_the_kernels():
     assert "return plan[(direction * L + l) * 2];" in src
     assert rc.plan_index(1, 2, False, 4) == (1 * 4 + 2) * 2
     assert "pdl" in rc.kernel_launches
+
+
+def test_tally_indices_are_the_kernel_launches_keys():
+    """resident_chunk.cu's enum Tally lists kernel_launches' keys in order,
+    so the C code's tallies land under the keys that name them."""
+    src = (CSRC / "resident_chunk.cu").read_text()
+    m = re.search(r"enum Tally : int \{([^}]*)\}", src)
+    assert m
+    names = [n.strip() for n in m.group(1).split(",")]
+    want = ["k" + "".join(p.capitalize() for p in key.split("_")) for key in rc.kernel_launches]
+    assert names == want + ["kTallies"]
+    used = set(re.findall(r"tallies\[(\w+)\]", src))
+    assert used <= set(want) and "kTallies" not in used

@@ -117,8 +117,7 @@ def test_cli_main_prints_all_finish_and_writes_the_launch_report(corpus, monkeyp
     counts = json.load(open(f"{tmp}/launches.json"))
     assert counts["plain_train_chunk"] >= 2 and counts["resident_chunk"] == 0  # CPU: plain trainer
     assert set(counts["resident_chunk_kernels"]) == {"fused_linear_act", "fused_bwd_update",
-                                                     "reduce_dedy", "philox_mask",
-                                                     "fused_linear_act_sum", "sr_bwd_update",
+                                                     "philox_mask", "sr_bwd_update",
                                                      "tiled_bwd_update", "bf16_linear_act",
                                                      "tc_linear_act", "tc_bwd_update", "pdl",
                                                      "input_mask_table", "input_mask_philox"}

@@ -95,6 +95,22 @@ constexpr unsigned kBunchStride = 7919u;
 constexpr unsigned kLayerStride = 104729u;
 constexpr int kMaxLayers = 16;
 
+// the tallies' indices: ops/resident_chunk.py's kernel_launches keys, in order
+enum Tally : int {
+  kFusedLinearAct,
+  kFusedBwdUpdate,
+  kPhiloxMask,
+  kSrBwdUpdate,
+  kTiledBwdUpdate,
+  kBf16LinearAct,
+  kTcLinearAct,
+  kTcBwdUpdate,
+  kPdl,
+  kInputMaskTable,
+  kInputMaskPhilox,
+  kTallies
+};
+
 struct Workspace {
   long long ys[kMaxLayers];  // offset of the stored input of layer l (l >= 1)
   long long out, dedx_a, dedx_b, total;
@@ -266,13 +282,13 @@ cudaError_t forward_tile(const float* x, const float* t, int tile, const int* si
         pdl ? early_flags(plan, L, 0, l) : 0);
     if (err != cudaSuccess) return err;
     *first = false;
-    tallies[10] += done.pdl;
+    tallies[kPdl] += done.pdl;
     const int products = done.tc + done.f32;
-    tallies[0] += products;
-    tallies[3] += (l == 0 && in_mask.mode == 2) || out_mask.mode == 2 ? products : 0;
-    tallies[12] += l == 0 && in_mask.mode == 2 ? products : 0;
-    tallies[7] += std::is_same<TW, float>::value ? 0 : products;
-    tallies[8] += done.tc;
+    tallies[kFusedLinearAct] += products;
+    tallies[kPhiloxMask] += (l == 0 && in_mask.mode == 2) || out_mask.mode == 2 ? products : 0;
+    tallies[kInputMaskPhilox] += l == 0 && in_mask.mode == 2 ? products : 0;
+    tallies[kBf16LinearAct] += std::is_same<TW, float>::value ? 0 : products;
+    tallies[kTcLinearAct] += done.tc;
   }
   return cudaSuccess;
 }
@@ -298,7 +314,7 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
     const cudaError_t err = launch_input_mask_bits(mask_bits, n_real * accum, tile, 0, sizes[0],
                                                    seed, thr_vis, stream);
     if (err != cudaSuccess) return (int)err;
-    tallies[11] += 1;
+    tallies[kInputMaskTable] += 1;
   }
   bool first = true;  // the call's first launch: no programmatic dependent launch
   for (int i = 0; i < n_real; ++i) {
@@ -328,14 +344,14 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
             sizes[l], sizes[l + 1], mom, A, Bc, sr_key, flags, tc, &done, stream, pdl,
             pdl ? early_flags(plan, L, 1, l) : 0);
         if (err != cudaSuccess) return (int)err;
-        tallies[10] += done.pdl;
+        tallies[kPdl] += done.pdl;
         const int products = done.tc + done.f32;
-        tallies[1] += products;
-        tallies[9] += done.tc;
-        tallies[3] += (l == 0 && in_mask.mode == 2) ? products : 0;
-        tallies[12] += (l == 0 && in_mask.mode == 2) ? products : 0;
-        tallies[5] += kSr ? products : 0;
-        tallies[6] += accum > 1 ? products : 0;
+        tallies[kFusedBwdUpdate] += products;
+        tallies[kTcBwdUpdate] += done.tc;
+        tallies[kPhiloxMask] += (l == 0 && in_mask.mode == 2) ? products : 0;
+        tallies[kInputMaskPhilox] += (l == 0 && in_mask.mode == 2) ? products : 0;
+        tallies[kSrBwdUpdate] += kSr ? products : 0;
+        tallies[kTiledBwdUpdate] += accum > 1 ? products : 0;
         float* tmp = dedx;
         dedx = other;
         other = tmp;
@@ -369,17 +385,15 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // input_mask_bits_kernel, and the layer-0 kernels of each tile read its rows.
 // Update: delta' = mom*delta - (A*G + Bc*w) with G the gradient of
 // (1/bunch)*sum((out-t)^2).
-// tallies[13] += launches of the forward and backward product kernels (either
-// form), nothing at [2] and [4] (the reduce_dedy and fused_linear_act_sum
-// keys, which stay in the layout the callers read: both layer kernels sum
-// their split inside the kernel), the count of the product launches that drew
-// Philox masks in the kernel, backward launches that rounded stochastically,
-// backward launches of row-tiled bunches, forward launches that read bfloat16
-// weights, forward and backward launches of the tensor-core forms, the
-// programmatic dependent launches among all of them (2 L n_real accum - 1 a
-// call), the launches of input_mask_bits_kernel (one a call with thr_vis),
-// and the layer-0 launches that drew the input's mask by Philox in the
-// kernel (0: both trainers read the table).
+// tallies (kTallies of them, enum Tally) += launches of the forward and
+// backward product kernels (either form), the count of the product launches
+// that drew Philox masks in the kernel, backward launches that rounded
+// stochastically, backward launches of row-tiled bunches, forward launches
+// that read bfloat16 weights, forward and backward launches of the
+// tensor-core forms, the programmatic dependent launches among all of them
+// (2 L n_real accum - 1 a call), the launches of input_mask_bits_kernel (one
+// a call with thr_vis), and the layer-0 launches that drew the input's mask
+// by Philox in the kernel (0: both trainers read the table).
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,

@@ -20,6 +20,7 @@ import torch
 from tpu_sednn_torch._device import resolve_device
 from tpu_sednn_torch.dsp.stft import LPS_FLOOR, StftConfig, reconstruct_from_lps, stft_real_imag
 from tpu_sednn_torch.model.mlp import MLP, ModelConfig, fold_eval_params, forward_eval
+from tpu_sednn_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -72,13 +73,20 @@ def enhance_lps(
     another inference forward (the int8 one, model/quant.py); default
     forward_eval.
     """
+    x = _features(noisy_lps, mean, inv_std, enh_cfg)
+    out = (forward_fn or forward_eval)(params, x, model_cfg)
+    return finalize_lps(out, noisy_lps, enh_cfg, target_norm=target_norm, gv_ref=gv_ref)
+
+
+def _features(noisy_lps: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor,
+              enh_cfg: EnhanceConfig) -> torch.Tensor:
+    """The net's input: the normalised LPS spliced, with the NAT estimate."""
     normed = (noisy_lps - mean) * inv_std
     x = _splice(normed, enh_cfg.fea_context, enh_cfg.targ_offset)
     if enh_cfg.nat:
         est = normed[..., : enh_cfg.nat_frames, :].mean(dim=-2, keepdim=True)
         x = torch.cat([x, est.expand_as(normed)], dim=-1)
-    out = (forward_fn or forward_eval)(params, x, model_cfg)
-    return finalize_lps(out, noisy_lps, enh_cfg, target_norm=target_norm, gv_ref=gv_ref)
+    return x
 
 
 def finalize_lps(
@@ -197,14 +205,21 @@ def make_serving_decoder(
     gv = None if gv_ref is None else _as_tensor(gv_ref, dev)
     cfg = enh_cfg.stft
 
+    # enhance_lps written out stage by stage, each stage in its own span (utils/profiling)
     @torch.inference_mode()
     def decode(wavs) -> torch.Tensor:
-        x = torch.as_tensor(wavs, dtype=torch.float32, device=dev)
-        re, im = stft_real_imag(x, cfg)
-        noisy_lps = torch.log(torch.clamp(re * re + im * im, min=LPS_FLOOR))
-        enh = enhance_lps(folded, eval_cfg, enh_cfg, noisy_lps, mean_d, istd_d,
-                          target_norm=tn, gv_ref=gv, forward_fn=fwd)
-        return reconstruct_from_lps(enh, re, im, cfg, n_samples=x.shape[-1])
+        with span("sednn.decode"):
+            with span("sednn.decode.stft"):
+                x = torch.as_tensor(wavs, dtype=torch.float32, device=dev)
+                re, im = stft_real_imag(x, cfg)
+                noisy_lps = torch.log(torch.clamp(re * re + im * im, min=LPS_FLOOR))
+            with span("sednn.decode.features"):
+                feats = _features(noisy_lps, mean_d, istd_d, enh_cfg)
+            with span("sednn.decode.forward"):
+                out = (fwd or forward_eval)(folded, feats, eval_cfg)
+            with span("sednn.decode.istft"):
+                enh = finalize_lps(out, noisy_lps, enh_cfg, target_norm=tn, gv_ref=gv)
+                return reconstruct_from_lps(enh, re, im, cfg, n_samples=x.shape[-1])
 
     return decode
 

@@ -46,13 +46,10 @@ def launch_counts() -> dict:
         "stft_lps": stft_lps.launches,
         "fused_linear_act": fused_linear_act.launches,
         "fused_linear_act_tc": fused_linear_act.tc_launches,
-        "fused_linear_act_sum": fused_linear_act.sum_launches,
         "fused_bwd_update": fused_bwd_update.launches,
         "fused_bwd_update_tc": fused_bwd_update.tc_launches,
-        "fused_bwd_update_reduce": fused_bwd_update.reduce_launches,
         "fused_bwd_grad_out": fused_bwd_grad_out.launches,
         "fused_bwd_grad_out_tc": fused_bwd_grad_out.tc_launches,
-        "fused_bwd_grad_out_reduce": fused_bwd_grad_out.reduce_launches,
         "fused_bwd_grad_out_philox": fused_bwd_grad_out.philox_launches,
         "dp_update": dp_update.launches,
         "dp_update_sr": dp_update.sr_launches,
@@ -86,10 +83,9 @@ def reset_launch_counts() -> None:
 
     dropout_mask.launches = dropout_mask.masks = sr_momentum_update.launches = 0
     stft_lps.launches = fused_linear_act.launches = fused_bwd_update.launches = 0
-    fused_linear_act.sum_launches = fused_bwd_update.reduce_launches = 0
     fused_linear_act.tc_launches = fused_bwd_update.tc_launches = 0
     fused_bwd_grad_out.launches = fused_bwd_grad_out.tc_launches = 0
-    fused_bwd_grad_out.reduce_launches = dp_update.launches = dp_update.sr_launches = 0
+    dp_update.launches = dp_update.sr_launches = 0
     fused_bwd_grad_out.philox_launches = 0
     rank_sum.launches = 0
     resident_chunk.sample_resident_masks.launches = 0

@@ -52,12 +52,11 @@ W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 and returns them.  `<wrapper>.launches` counts launches of the wrapper's
 product kernel (either form), `<wrapper>.tc_launches` those of its
 tensor-core form; each is counted where the C entry point reports the
-launch.  `fused_linear_act.sum_launches`, `fused_bwd_update.reduce_launches`
-and `fused_bwd_grad_out.reduce_launches` stay 0: no layer kernel launches a
-second kernel in either form.  `fused_bwd_grad_out.philox_launches` counts
-the launches that drew a (key, omit) input mask by Philox in the kernel (the
-data-parallel trainer gives a table: 0 there).  `dp_update.sr_launches` counts the update's
-launches that rounded a bfloat16 delta stochastically.  The float32 forms
+launch (one launch a layer in either form).
+`fused_bwd_grad_out.philox_launches` counts the launches that drew a (key,
+omit) input mask by Philox in the kernel (the data-parallel trainer gives a
+table: 0 there).  `dp_update.sr_launches` counts the update's launches that
+rounded a bfloat16 delta stochastically.  The float32 forms
 are FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
 (csrc/fused_mlp.cuh says why).
 """
@@ -328,7 +327,6 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
 
 fused_linear_act.launches = 0
 fused_linear_act.tc_launches = 0
-fused_linear_act.sum_launches = 0
 
 
 def fused_bwd_update(
@@ -413,7 +411,6 @@ def fused_bwd_update(
 
 fused_bwd_update.launches = 0
 fused_bwd_update.tc_launches = 0
-fused_bwd_update.reduce_launches = 0
 
 
 def fused_bwd_grad_out(
@@ -490,7 +487,6 @@ def fused_bwd_grad_out(
 
 fused_bwd_grad_out.launches = 0
 fused_bwd_grad_out.tc_launches = 0
-fused_bwd_grad_out.reduce_launches = 0
 fused_bwd_grad_out.philox_launches = 0
 
 

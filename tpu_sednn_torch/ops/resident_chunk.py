@@ -68,6 +68,7 @@ from tpu_sednn_torch.ops.philox import (SR_DELTA_SHIFT, SR_WEIGHT_SHIFT, mask_th
                                         sr_to_bf16_reference)
 from tpu_sednn_torch.parallel.mesh import Mesh, all_reduce, fence, local_rows
 from tpu_sednn_torch.train.step import OptConfig, TrainState
+from tpu_sednn_torch.utils.profiling import span
 
 # seed strides: distinct streams per (bunch, layer) mask
 _BUNCH_STRIDE = 7919
@@ -76,13 +77,11 @@ _LAYER_STRIDE = 104729
 _mask_threshold = mask_threshold
 
 # kernel launches enqueued by the chunk trainer's C entry point, by kernel:
-# the forward and backward product kernels (either form), "reduce_dedy" (0:
-# the backward sums dedy inside the kernel in both forms), then the count of
-# the product launches that drew dropout bits by Philox in the kernel, then
-# "fused_linear_act_sum" (0: the forward sums its K split inside the kernel in
-# both forms; the two zero keys keep the tallies' layout); then by form:
-# backward launches that stored bfloat16 with stochastic rounding, backward
-# launches of row-tiled bunches, forward launches that read bfloat16 weights;
+# the forward and backward product kernels (either form, one launch a layer),
+# then the count of the product launches that drew dropout bits by Philox in
+# the kernel; then by form: backward launches that stored bfloat16 with
+# stochastic rounding, backward launches of row-tiled bunches, forward
+# launches that read bfloat16 weights;
 # the forward and backward launches of the tensor-core forms (tc_fwd_kernel,
 # stripe_bwd_kernel's tensor-core form), counted in the first two as well; and
 # the programmatic dependent launches (every launch of a call but its first,
@@ -97,10 +96,10 @@ _mask_threshold = mask_threshold
 # the layer-0 gradient-out backwards that drew a (key, omit) mask by Philox
 # (fused_bwd_grad_out.philox_launches) "input_mask_philox"; its backward and
 # update launches are counted by their wrappers (fused_bwd_grad_out,
-# dp_update in ops/fused_mlp.py)
+# dp_update in ops/fused_mlp.py).  The keys are in the order of
+# csrc/resident_chunk.cu's enum Tally, the indices the C code writes.
 kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
-                                   "reduce_dedy": 0, "philox_mask": 0,
-                                   "fused_linear_act_sum": 0, "sr_bwd_update": 0,
+                                   "philox_mask": 0, "sr_bwd_update": 0,
                                    "tiled_bwd_update": 0, "bf16_linear_act": 0,
                                    "tc_linear_act": 0, "tc_bwd_update": 0, "pdl": 0,
                                    "input_mask_table": 0, "input_mask_philox": 0}
@@ -486,39 +485,43 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         """n_real: optional count of REAL bunches when `in_chunk` is padded
         to a fixed capacity; rows at or past n_real * bunchsize are never
         read.  None = all full bunches."""
-        n_bunches = in_chunk.shape[0] // bunch
-        if n_bunches == 0:
-            return state
-        nr = n_bunches if n_real is None else int(n_real)
-        if not 0 <= nr <= n_bunches:
-            raise ValueError(f"n_real {nr} outside [0, {n_bunches}]")
-        coefs = _scal_coefs(rule, bunch, sizes[-1], lrate, momentum, weightcost)
-        dev = state.device
-        if in_chunk.shape[1] != sizes[0] or targ_chunk.shape[1] != sizes[-1]:
-            raise ValueError(f"chunk widths {in_chunk.shape[1]}/{targ_chunk.shape[1]} do not "
-                             f"match the net {sizes[0]}/{sizes[-1]}")
-        _cast_state(state, w_dtype, d_dtype)
+        with span("sednn.chunk.prepare"):
+            n_bunches = in_chunk.shape[0] // bunch
+            if n_bunches == 0:
+                return state
+            nr = n_bunches if n_real is None else int(n_real)
+            if not 0 <= nr <= n_bunches:
+                raise ValueError(f"n_real {nr} outside [0, {n_bunches}]")
+            coefs = _scal_coefs(rule, bunch, sizes[-1], lrate, momentum, weightcost)
+            dev = state.device
+            if in_chunk.shape[1] != sizes[0] or targ_chunk.shape[1] != sizes[-1]:
+                raise ValueError(f"chunk widths {in_chunk.shape[1]}/{targ_chunk.shape[1]} do not "
+                                 f"match the net {sizes[0]}/{sizes[-1]}")
+            _cast_state(state, w_dtype, d_dtype)
+            if dev.type == "cuda":
+                tensors = _checked_state(state, sizes, w_dtype, d_dtype)
+                for name, a in (("in_chunk", in_chunk), ("targ_chunk", targ_chunk)):
+                    if a.dtype != torch.float32 or a.device != dev or not a.is_contiguous():
+                        raise ValueError(f"{name}: float32, contiguous, on {dev} expected; got "
+                                         f"{a.dtype} on {a.device}")
+                if targ_chunk.shape[0] < nr * bunch:
+                    raise ValueError("targ_chunk has fewer rows than n_real bunches")
+                _check_bwd_rows(tile)
         if dev.type == "cpu":
             return resident_train_chunk_reference(state, in_chunk, targ_chunk, cfg, bunch, coefs,
                                                   int(seed), n_real=nr, sr_state=sr_state,
                                                   sr_delta=sr_delta, tile_rows=tile, bf16=bf16)
         if dev.type != "cuda":
             raise ValueError(f"the chunk trainer runs on cuda or cpu, got {dev}")
-        tensors = _checked_state(state, sizes, w_dtype, d_dtype)
-        for name, a in (("in_chunk", in_chunk), ("targ_chunk", targ_chunk)):
-            if a.dtype != torch.float32 or a.device != dev or not a.is_contiguous():
-                raise ValueError(f"{name}: float32, contiguous, on {dev} expected; got {a.dtype} "
-                                 f"on {a.device}")
-        if targ_chunk.shape[0] < nr * bunch:
-            raise ValueError("targ_chunk has fewer rows than n_real bunches")
-        _check_bwd_rows(tile)
-        lib = _lib()
-        c_sizes = (ctypes.c_int * (L + 1))(*sizes)
-        work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile), dtype=torch.float32,
-                           device=dev)
-        # the input masks' bit table, drawn by the call's first launch (none without dropout)
-        bits = (torch.empty(lib.resident_mask_words(nr * accum, tile, sizes[0]), dtype=torch.int32,
-                            device=dev) if omit_vis > 0.0 else None)
+        with span("sednn.chunk.alloc"):
+            lib = _lib()
+            c_sizes = (ctypes.c_int * (L + 1))(*sizes)
+            work = torch.empty(lib.resident_workspace_floats(c_sizes, L, tile),
+                               dtype=torch.float32, device=dev)
+            # the input masks' bit table, drawn by the call's first launch (none without dropout)
+            bits = (torch.empty(lib.resident_mask_words(nr * accum, tile, sizes[0]),
+                                dtype=torch.int32, device=dev) if omit_vis > 0.0 else None)
+        # no span encloses the launches: see utils/profiling.py
         ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
         plan = (ctypes.c_int * (4 * L))(*early_read_plan(L, accum))
         tallies = (ctypes.c_longlong * len(kernel_launches))()

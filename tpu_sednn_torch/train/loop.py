@@ -397,7 +397,10 @@ def train_epochs_arrays(
     generator seeded from (seed, epoch), so an epoch's order and dropout
     stream do not depend on the epochs before it.  A non-finite CV error
     aborts immediately.
-    profile_dir: capture a torch.profiler trace of the run (utils/profiling).
+    profile_dir: capture a torch.profiler trace of the run (utils/profiling:
+    trace), written as a Chrome trace `trace.json` there; it carries the
+    program's `sednn.*` spans (the chunk trainer's host stages) beside the
+    device's operations.
 
     Crash recovery: when `ckpt_dir` is given, a checkpoint carrying params,
     momentum and the CV history is written every `ckpt_every` epochs
