@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); build the port's
      CUDA kernels (csrc/stft_lps.cu, fused_mlp.cu, resident_chunk.cu,
-     sr_update.cu, dropout_mask.cu, rank_sum.cu) with nvcc (sm_90a), one nvcc
+     sr_update.cu, dropout_mask.cu, rank_sum.cu, lstm_cell.cu) with nvcc (sm_90a), one nvcc
      per source, all started together.
   2. kernel vs plain: the STFT-LPS kernel (an FFT in each warp's registers)
      against its plain torch version on the card at 8 kHz, 16 kHz
@@ -167,11 +167,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      one rank on the plain trainer over the same bunches (CV history and
      weights at _hold_parity's limits), rank 0 alone writing the run dir,
      which reloads; the same command on one rank for its times.
- 16. a `kernels` JSON line: every ported kernel and trainer form with its
+ 16. the causal CRN (crn group): the LSTM cell kernel (csrc/lstm_cell.cu),
+     as lstm_steps runs it, one step from h = 0 (whose product adds exact
+     zeros), against its plain version at (64, 4096) and at a ragged width,
+     bit for bit where sigmoid and tanh agree, else within 4 float32 ulps;
+     one LSTM layer of 1024 units over 799 steps of a batch of 64 (the input
+     projection and the steps, enqueued by one C call) against a float64
+     step loop and against torch.nn.LSTM (cuDNN, TF32 off: the library
+     column), with its time, the library's and the plain step loop's;
+     one make_crn_decoder call on 64 x 8 s at 16 kHz at the published
+     widths: lstm_cell launched 2 x 799 times, the kernels the profiler
+     puts inside the recurrence's span, and the stages' device times; the
+     cell kernel's mean device time there beside its bytes bound, the plain
+     cell's and aten's _thnn_fused_lstm_cell's (the library column).
+ 17. a `kernels` JSON line: every ported kernel and trainer form with its
      launches on the main paths, error and times.  Each path (phases 3, 4,
-     8, 11, 12, 13, 14, 15) is run with the counts zeroed just before it and
-     read just after; `launches` is the total, `launches_by_path` the split.
-`--only serve,kernels,train,recipe,dp` runs a subset while developing: it prints no
+     8, 11, 12, 13, 14, 15, 16) is run with the counts zeroed just before it
+     and read just after; `launches` is the total, `launches_by_path` the split.
+`--only serve,kernels,train,recipe,dp,crn` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  `--chain-times`
 only times the chunk trainer's chain (chain_times), `--bwd-times` only the
 backward (bwd_times), `--fwd-times` only the float32 forward (fwd_times, with
@@ -5490,6 +5503,157 @@ def _recipe_command(work: str, sub: str, nproc: int) -> dict:
                 results=json.load(open(os.path.join(d, "mc_run_small", "results.json"))))
 
 
+LSTM_CELL_ULPS = 4  # expf / tanhf against PyTorch's: the same functions, else a few ulps
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in float32 units in the last place (same signs)."""
+    ia, ib = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max())
+
+
+def _lstm_layer64(proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """The step loop of model/crn.py:lstm_layer in float64 plain torch."""
+    T, B, G = proj.shape
+    H = G // 4
+    h, c = proj.new_zeros(B, H), proj.new_zeros(B, H)
+    out = []
+    for t in range(T):
+        g = proj[t] + h @ w_hh
+        c = torch.sigmoid(g[:, H:2 * H]) * c + torch.sigmoid(g[:, :H]) * torch.tanh(g[:, 2 * H:3 * H])
+        h = torch.sigmoid(g[:, 3 * H:]) * torch.tanh(c)
+        out.append(h)
+    return torch.stack(out)
+
+
+def phase_crn(smi: str) -> dict:
+    """Phase 16: the CRN's cell kernel, one LSTM layer and a decode call."""
+    from tpu_sednn_torch.dsp.stft import StftConfig
+    from tpu_sednn_torch.enhance.decode import make_crn_decoder
+    from tpu_sednn_torch.model import crn
+    from tpu_sednn_torch.model.crn import CRNConfig, init_crn
+    from tpu_sednn_torch.ops import (launch_counts, lstm_cell_reference, lstm_steps,
+                                     lstm_steps_reference, reset_launch_counts)
+
+    gen = torch.Generator(device="cuda").manual_seed(2201)
+    B, H, T = 64, 1024, 799
+    out: dict = {}
+    # the kernel against its plain version, on the same card tensors: one step of lstm_steps
+    # from h = 0, whose product adds exact zeros onto the gates
+    for b, h in ((B, H), (3, 30)):
+        gates = torch.randn(b, 4 * h, generator=gen, device="cuda") * 3
+        c0 = torch.randn(b, h, generator=gen, device="cuda")
+        w = torch.randn(h, 4 * h, generator=gen, device="cuda")
+        c1, hs, c2, h2 = c0.clone(), torch.zeros(2, b, h, device="cuda"), c0.clone(), torch.empty(
+            b, h, device="cuda")
+        lstm_steps(gates.clone().view(1, b, 4 * h), w, hs, c1)
+        lstm_cell_reference(gates, c2, h2)
+        torch.cuda.synchronize()
+        ulps = max(_ulps(c1, c2), _ulps(hs[1], h2))
+        equal = bool(torch.equal(c1, c2) and torch.equal(hs[1], h2))
+        _check(ulps <= LSTM_CELL_ULPS, f"lstm_cell at ({b}, {4 * h}): {ulps} ulps off its plain version")
+        out[f"cell_{b}x{4 * h}"] = dict(bit_equal=equal, max_ulps=ulps)
+    gates = torch.randn(B, 4 * H, generator=gen, device="cuda")
+    c, hb, zero = torch.zeros(B, H, device="cuda"), torch.empty(B, H, device="cuda"), \
+        torch.zeros_like(gates)
+    out["cell"] = dict(
+        plain_ms=_device_ms(lambda i: lstm_cell_reference(gates, c, hb), reps=50),
+        # the library's cell update adds its two gate inputs: the second is zero here
+        library_ms=_device_ms(lambda i: torch.ops.aten._thnn_fused_lstm_cell(gates, zero, c),
+                              reps=200),
+        bound_ms=4 * B * 7 * H / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+    # one LSTM layer: the projection and 799 steps, the port's loop against float64 and cuDNN
+    r = 1.0 / H ** 0.5
+    w_ih, w_hh, bias = ((torch.rand(*s, generator=gen, device="cuda") * 2 - 1) * r
+                        for s in ((H, 4 * H), (H, 4 * H), (4 * H,)))
+    z = torch.randn(T, B, H, generator=gen, device="cuda")
+
+    def layer(step=crn.lstm_layer):
+        return step(torch.addmm(bias, z.view(T * B, H), w_ih).view(T, B, 4 * H), w_hh)
+
+    def plain_step(proj, w):
+        hs = proj.new_zeros(T + 1, B, H)
+        lstm_steps_reference(proj, w, hs, proj.new_zeros(B, H))
+        return hs[1:]
+
+    with torch.inference_mode():
+        got = layer()
+        want = _lstm_layer64(torch.addmm(bias.double(), z.view(T * B, H).double(),
+                                         w_ih.double()).view(T, B, 4 * H), w_hh.double())
+        lib_lstm = torch.nn.LSTM(H, H).cuda()
+        with torch.no_grad():
+            lib_lstm.weight_ih_l0.copy_(w_ih.T)
+            lib_lstm.weight_hh_l0.copy_(w_hh.T)
+            lib_lstm.bias_ih_l0.copy_(bias)
+            lib_lstm.bias_hh_l0.zero_()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib_out = lib_lstm(z)[0]
+            lib_ms = _time_ms(lambda: lib_lstm(z), reps=5)
+        layer_err = float((got.double() - want).abs().max() / want.abs().max())
+        lib_err = float((lib_out.double() - want).abs().max() / want.abs().max())
+        _check(layer_err < 1e-4, f"one LSTM layer {layer_err:.2e} off the float64 step loop")
+        out["layer"] = dict(
+            shape=f"{T} steps, batch {B}, {H} units, input {H}", err=layer_err,
+            library_err=lib_err, ms=_time_ms(layer, reps=5),
+            plain_ms=_time_ms(lambda: layer(plain_step), reps=3),
+            library_ms=lib_ms,
+            bound_ms=(2 * T * B * H * 4 * H * 2 / PEAK_FP32_FLOPS
+                      + T * 4 * B * 7 * H / PEAK_BYTES_PER_S) * 1e3)
+        del lib_lstm, got, want, lib_out
+    # one decode call at the published widths
+    cfg = CRNConfig()
+    params = init_crn(torch.Generator().manual_seed(2202), cfg, device="cuda")
+    decode = make_crn_decoder(params, StftConfig(16000, 320, 160, 320), device="cuda")
+    wavs = 0.1 * torch.randn(64, 128000, generator=gen, device="cuda")
+    decode(wavs)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    enh = decode(wavs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _check(bool(torch.isfinite(enh).all()) and enh.shape == wavs.shape, "CRN decode output")
+    _check(counts["lstm_cell"] == 2 * T, f"lstm_cell launched {counts['lstm_cell']} times in a "
+                                         f"decode of 64 x 8 s (want {2 * T})")
+    others = {k: v for k, v in counts.items() if k != "lstm_cell"
+              and (any(v.values()) if isinstance(v, dict) else v)}
+    _check(not others, f"the CRN decode launched other kernels of the port: {others}")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode(wavs)
+        torch.cuda.synchronize()
+    events = prof.events()
+    labels = {e.name for e in events if e.device_type == DeviceType.CPU and e.is_user_annotation}
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in dev if e.name in labels}
+    kernels = [e for e in dev if e.name not in labels]
+    a, b = spans["sednn.decode.crn.lstm"]
+    inside = [e for e in kernels if a <= e.time_range.start < b]
+    names: dict = {}
+    for e in inside:
+        key = "lstm_cell_kernel" if "lstm_cell" in e.name else e.name[:60]
+        names[key] = names.get(key, 0) + 1
+    cell_events = [e for e in inside if "lstm_cell" in e.name]
+    out["cell"]["ms"] = sum(e.time_range.end - e.time_range.start for e in cell_events) / (
+        1e3 * max(1, len(cell_events)))
+    out["decode"] = dict(
+        launches=counts["lstm_cell"], kernels_in_lstm_span=len(inside), kernels_by_name=names,
+        stage_ms={k: (v[1] - v[0]) / 1e3 for k, v in spans.items()},
+        request_ms=_time_ms(lambda: decode(wavs), reps=5))
+    # a step: cuBLAS's product (a GEMM, and a split-K reduction where cuBLAS splits K) and
+    # the cell; besides them a layer's projection and its zeroed state
+    gemm = ("gemm", "sgemm", "splitKreduce")
+    steps = {k: v for k, v in names.items() if v >= 2 * T}
+    _check(names.get("lstm_cell_kernel") == 2 * T
+           and all(k == "lstm_cell_kernel" or any(g in k for g in gemm) for k in steps)
+           and len(inside) - sum(steps.values()) <= 16,
+           f"the recurrence's span holds {len(inside)} kernels for {2 * T} steps: {names}")
+    print(f"[crn] {json.dumps(out)}", flush=True)
+    print(f"[crn] {smi}", flush=True)
+    return out
+
+
 def phase_recipe_dp(tmp: str, smi: str) -> dict:
     """The recipe's data-parallel branch (main path): python -m
     torch.distributed.run --nproc_per_node=2 -m
@@ -5682,7 +5846,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default="", help="comma-separated subset of serve,kernels,train,"
-                    "recipe,dp (for development: prints no kernels line and no final line, "
+                    "recipe,dp,crn (for development: prints no kernels line and no final line, "
                     "exits with 2)")
     ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "WORLD", "DIR"),
                     help="one rank of the dp phase's runs (started by the dp phase itself)")
@@ -5708,7 +5872,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
-    everything = {"serve", "kernels", "train", "recipe", "dp"}
+    everything = {"serve", "kernels", "train", "recipe", "dp", "crn"}
     groups = set(filter(None, args.only.split(","))) or everything
     if not groups <= everything:
         ap.error(f"unknown group in --only {args.only!r}")
@@ -5795,6 +5959,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             tp = phase_tp(tmp, smi)
             recipe_dp = phase_recipe_dp(tmp, smi)
+        if "crn" in groups:
+            torch.cuda.empty_cache()
+            crn = phase_crn(smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     if groups != everything:
         print(f"partial run (--only {args.only}): no kernels line, no final line", file=sys.stderr)
@@ -6022,6 +6189,13 @@ def main(argv=None) -> int:
     ]
     kernels += _dp_rows(dp, dw, dp_tc_runs, dp_f32_runs, by_path, tp_n["rank_sum"],
                         rdp["rank_sum"])
+    kernels.append(dict(name="lstm_cell", source="tpu_sednn_torch/csrc/lstm_cell.cu",
+                        replaces=None, route="cuda", launches=crn["decode"]["launches"],
+                        launches_of="one make_crn_decoder call, 64 x 8 s at 16 kHz (2 x 799 steps)",
+                        max_abs_err=None, max_ulps=crn["cell_64x4096"]["max_ulps"],
+                        shape="(64, 4096) gates, one step", ms_is="mean device time of the "
+                        "kernel in the traced decode call",
+                        layer=crn["layer"], decode=crn["decode"], **crn["cell"]))
     spill = next(k for k in kernels if k["name"] == "resident_chunk_hbm_spill")
     spill.update(max_abs_err=wide["spill_max_abs"],
                  max_abs_err_is="largest absolute difference of a state tensor from the unspilled "

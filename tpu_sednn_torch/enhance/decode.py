@@ -19,6 +19,7 @@ import torch
 
 from tpu_sednn_torch._device import resolve_device
 from tpu_sednn_torch.dsp.stft import LPS_FLOOR, StftConfig, reconstruct_from_lps, stft_real_imag
+from tpu_sednn_torch.model import crn
 from tpu_sednn_torch.model.mlp import MLP, ModelConfig, fold_eval_params, forward_eval
 from tpu_sednn_torch.utils.profiling import span
 
@@ -220,6 +221,48 @@ def make_serving_decoder(
             with span("sednn.decode.istft"):
                 enh = finalize_lps(out, noisy_lps, enh_cfg, target_norm=tn, gv_ref=gv)
                 return reconstruct_from_lps(enh, re, im, cfg, n_samples=x.shape[-1])
+
+    return decode
+
+
+def make_crn_decoder(params: "crn.CRN", stft_cfg: StftConfig,
+                     device: str | torch.device = "cuda", *, encoder=crn.crn_encoder,
+                     lstm=crn.crn_lstm, decoder=crn.crn_decoder):
+    """Build a batched wav->wav enhancement closure for the causal CRN
+    (model/crn.py), as make_serving_decoder does for the MLP: batch norm is
+    folded into the (de)convolutions once, and the net takes the noisy STFT
+    magnitude of whole utterances (no normalisation, splice or NAT).  Its
+    enhanced magnitude m becomes the log power log(max(m^2, LPS_FLOOR)) and
+    is overlap-added with the noisy phase.  The net's three stages are
+    model/crn.py's unless others are given with their signatures (each takes
+    the folded CRN first).  Returns decode(wavs: (batch, n_samples) array or
+    tensor, magnitude=False) -> the (batch, n_samples) float32 tensor on
+    `device`, or with magnitude=True (that, the net's (batch, frames,
+    n_bins) enhanced magnitude)."""
+    if stft_cfg.n_bins != params.cfg.n_bins:
+        raise ValueError(f"the STFT gives {stft_cfg.n_bins} bins, the CRN takes "
+                         f"{params.cfg.n_bins}")
+    dev = resolve_device(device)
+    folded = crn.fold_eval_crn(params.on(dev))
+
+    # each stage in its own span (utils/profiling)
+    @torch.inference_mode()
+    def decode(wavs, magnitude: bool = False):
+        with span("sednn.decode"):
+            with span("sednn.decode.stft"):
+                x = torch.as_tensor(wavs, dtype=torch.float32, device=dev)
+                re, im = stft_real_imag(x, stft_cfg)
+                mag = torch.sqrt(re * re + im * im)
+            with span("sednn.decode.crn.encoder"):
+                skips = encoder(folded, mag)
+            with span("sednn.decode.crn.lstm"):
+                h = lstm(folded, skips[-1])
+            with span("sednn.decode.crn.decoder"):
+                est = decoder(folded, h, skips)
+            with span("sednn.decode.istft"):
+                enh = torch.log(torch.clamp(est * est, min=LPS_FLOOR))
+                wav = reconstruct_from_lps(enh, re, im, stft_cfg, n_samples=x.shape[-1])
+        return (wav, est) if magnitude else wav
 
     return decode
 

@@ -15,6 +15,7 @@ from tpu_sednn_torch.ops.fused_mlp import (
 )
 from tpu_sednn_torch.ops.dropout_mask import dropout_mask, dropout_mask_reference
 from tpu_sednn_torch.ops.rank_sum import rank_sum, rank_sum_reference
+from tpu_sednn_torch.ops.lstm_cell import lstm_cell_reference, lstm_steps, lstm_steps_reference
 from tpu_sednn_torch.ops.sr_update import (
     sr_momentum_update,
     sr_momentum_update_reference,
@@ -27,7 +28,7 @@ stft_lps_pallas = stft_lps
 dropout_mask_pallas = dropout_mask
 
 KERNEL_SOURCES = ("stft_lps", "fused_mlp", "resident_chunk", "sr_update",
-                  "dropout_mask", "rank_sum")  # csrc/<name>.cu
+                  "dropout_mask", "rank_sum", "lstm_cell")  # csrc/<name>.cu
 
 
 def launch_counts() -> dict:
@@ -56,6 +57,7 @@ def launch_counts() -> dict:
         "dp_update": dp_update.launches,
         "dp_update_sr": dp_update.sr_launches,
         "rank_sum": rank_sum.launches,
+        "lstm_cell": lstm_steps.launches,
         "sample_resident_masks": resident_chunk.sample_resident_masks.launches,
         "input_mask_bits": resident_chunk.input_mask_bits.launches,
         "resident_chunk": resident_chunk.make_resident_train_chunk.launches,
@@ -90,7 +92,7 @@ def reset_launch_counts() -> None:
     fused_bwd_update.dedx_casts = fused_bwd_grad_out.dedx_casts = 0
     dp_update.launches = dp_update.sr_launches = 0
     fused_bwd_grad_out.philox_launches = 0
-    rank_sum.launches = 0
+    rank_sum.launches = lstm_steps.launches = 0
     resident_chunk.sample_resident_masks.launches = 0
     resident_chunk.input_mask_bits.launches = 0
     resident_chunk.make_resident_train_chunk.launches = 0

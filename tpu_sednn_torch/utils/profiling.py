@@ -7,10 +7,14 @@ profiler records and one shared null context otherwise:
 
   sednn.chunk.prepare   the chunk trainer's argument checks and state casts
   sednn.chunk.alloc     its workspace and input-mask table
-  sednn.decode          a call of enhance/decode.py:make_serving_decoder's decode
-  sednn.decode.stft     the STFT and the noisy log power
+  sednn.decode          a call of enhance/decode.py:make_serving_decoder's decode,
+                        or of make_crn_decoder's
+  sednn.decode.stft     the STFT and the noisy log power (the CRN's: magnitude)
   sednn.decode.features normalisation, splice and the NAT estimate
   sednn.decode.forward  the net's forward
+  sednn.decode.crn.encoder  the CRN's convolutions (model/crn.py:crn_encoder)
+  sednn.decode.crn.lstm     its LSTM layers: projections, steps, cell kernels
+  sednn.decode.crn.decoder  its transposed convolutions with the skips
   sednn.decode.istft    the enhanced LPS and the overlap-add
 
 The profiler keeps a range in the time base of its device activity, so a
