@@ -167,19 +167,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      one rank on the plain trainer over the same bunches (CV history and
      weights at _hold_parity's limits), rank 0 alone writing the run dir,
      which reloads; the same command on one rank for its times.
- 16. the causal CRN (crn group): the LSTM cell kernel (csrc/lstm_cell.cu),
-     as lstm_steps runs it, one step from h = 0 (whose product adds exact
-     zeros), against its plain version at (64, 4096) and at a ragged width,
-     bit for bit where sigmoid and tanh agree, else within 4 float32 ulps;
-     one LSTM layer of 1024 units over 799 steps of a batch of 64 (the input
-     projection and the steps, enqueued by one C call) against a float64
-     step loop and against torch.nn.LSTM (cuDNN, TF32 off: the library
-     column), with its time, the library's and the plain step loop's;
-     one make_crn_decoder call on 64 x 8 s at 16 kHz at the published
-     widths: lstm_cell launched 2 x 799 times, the kernels the profiler
-     puts inside the recurrence's span, and the stages' device times; the
-     cell kernel's mean device time there beside its bytes bound, the plain
-     cell's and aten's _thnn_fused_lstm_cell's (the library column).
+ 16. the causal CRN (crn group): the persistent LSTM kernel
+     (csrc/lstm_cell.cu) as lstm_steps runs it, one step from h = 0 (whose
+     product adds exact zeros) bit-equal to the plain cell at (64, 1024),
+     (3, 5), (24, 1024), (64, 1000), (100, 1024) and plans that stream
+     W_hh (64, 1056), (16, 2048), (8, 4096); those layers over a few steps
+     against a float64 step loop; a grid that cannot be resident, a pass
+     wider than a stage's row and too little shared memory refused at once;
+     one LSTM layer of 1024 units over 799 steps of a batch of 64 against
+     the float64 loop and torch.nn.LSTM (cuDNN, TF32 off: the library
+     column), with its time, the library's and the plain step loop's (each
+     the projection and the steps), and the steps' alone; one
+     make_crn_decoder call on
+     64 x 8 s at 16 kHz at the published widths: one launch a layer (both
+     with W_hh resident), the kernels the profiler puts inside the
+     recurrence's span (no step's product), and the stages' device times.
  17. a `kernels` JSON line: every ported kernel and trainer form with its
      launches on the main paths, error and times.  Each path (phases 3, 4,
      8, 11, 12, 13, 14, 15, 16) is run with the counts zeroed just before it
@@ -5503,15 +5505,6 @@ def _recipe_command(work: str, sub: str, nproc: int) -> dict:
                 results=json.load(open(os.path.join(d, "mc_run_small", "results.json"))))
 
 
-LSTM_CELL_ULPS = 4  # expf / tanhf against PyTorch's: the same functions, else a few ulps
-
-
-def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest distance in float32 units in the last place (same signs)."""
-    ia, ib = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
-    return int((ia - ib).abs().max())
-
-
 def _lstm_layer64(proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """The step loop of model/crn.py:lstm_layer in float64 plain torch."""
     T, B, G = proj.shape
@@ -5526,21 +5519,36 @@ def _lstm_layer64(proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
+LSTM_LAYER_ERR = 1e-5  # a layer's h against float64, over its peak (a cuBLAS step loop read 1.4e-6)
+
+
+def _lstm_weights(gen, H: int):
+    r = 1.0 / H ** 0.5
+    return ((torch.rand(*s, generator=gen, device="cuda") * 2 - 1) * r
+            for s in ((H, 4 * H), (H, 4 * H), (4 * H,)))
+
+
 def phase_crn(smi: str) -> dict:
-    """Phase 16: the CRN's cell kernel, one LSTM layer and a decode call."""
+    """Phase 16: the CRN's persistent LSTM kernel, one LSTM layer and a decode call."""
     from tpu_sednn_torch.dsp.stft import StftConfig
     from tpu_sednn_torch.enhance.decode import make_crn_decoder
     from tpu_sednn_torch.model import crn
     from tpu_sednn_torch.model.crn import CRNConfig, init_crn
-    from tpu_sednn_torch.ops import (launch_counts, lstm_cell_reference, lstm_steps,
+    from tpu_sednn_torch.ops import (launch_counts, lstm_cell_reference, lstm_plan, lstm_steps,
                                      lstm_steps_reference, reset_launch_counts)
+    from tpu_sednn_torch.ops import lstm_cell
 
     gen = torch.Generator(device="cuda").manual_seed(2201)
     B, H, T = 64, 1024, 799
-    out: dict = {}
-    # the kernel against its plain version, on the same card tensors: one step of lstm_steps
-    # from h = 0, whose product adds exact zeros onto the gates
-    for b, h in ((B, H), (3, 30)):
+    sms, smem = lstm_cell.card_limits(torch.cuda.current_device())
+    out: dict = {"card": dict(sms=sms, smem_optin=smem)}
+    # the kernel against its plain cell, on the same card tensors: one step of lstm_steps from
+    # h = 0, whose product adds exact zeros onto the gates; ragged and streamed plans too: 1, 2,
+    # 4 and 7 chunks a launch, 2 passes over k of which the first is a stage's width (1056), 4
+    # (2048), 8 passes over k and 2 over columns (4096)
+    shapes = ((B, H), (3, 5), (24, 1024), (64, 1000), (100, 1024), (64, 1056), (16, 2048),
+              (8, 4096))
+    for b, h in shapes:
         gates = torch.randn(b, 4 * h, generator=gen, device="cuda") * 3
         c0 = torch.randn(b, h, generator=gen, device="cuda")
         w = torch.randn(h, 4 * h, generator=gen, device="cuda")
@@ -5549,23 +5557,51 @@ def phase_crn(smi: str) -> dict:
         lstm_steps(gates.clone().view(1, b, 4 * h), w, hs, c1)
         lstm_cell_reference(gates, c2, h2)
         torch.cuda.synchronize()
-        ulps = max(_ulps(c1, c2), _ulps(hs[1], h2))
-        equal = bool(torch.equal(c1, c2) and torch.equal(hs[1], h2))
-        _check(ulps <= LSTM_CELL_ULPS, f"lstm_cell at ({b}, {4 * h}): {ulps} ulps off its plain version")
-        out[f"cell_{b}x{4 * h}"] = dict(bit_equal=equal, max_ulps=ulps)
-    gates = torch.randn(B, 4 * H, generator=gen, device="cuda")
-    c, hb, zero = torch.zeros(B, H, device="cuda"), torch.empty(B, H, device="cuda"), \
-        torch.zeros_like(gates)
-    out["cell"] = dict(
-        plain_ms=_device_ms(lambda i: lstm_cell_reference(gates, c, hb), reps=50),
-        # the library's cell update adds its two gate inputs: the second is zero here
-        library_ms=_device_ms(lambda i: torch.ops.aten._thnn_fused_lstm_cell(gates, zero, c),
-                              reps=200),
-        bound_ms=4 * B * 7 * H / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
-    # one LSTM layer: the projection and 799 steps, the port's loop against float64 and cuDNN
-    r = 1.0 / H ** 0.5
-    w_ih, w_hh, bias = ((torch.rand(*s, generator=gen, device="cuda") * 2 - 1) * r
-                        for s in ((H, 4 * H), (H, 4 * H), (4 * H,)))
+        _check(torch.equal(c1, c2) and torch.equal(hs[1], h2),
+               f"lstm_steps at ({b}, {h}), one step from h = 0, differs from lstm_cell_reference")
+        out[f"cell_{b}x{h}"] = dict(bit_equal=True, resident=lstm_plan(b, h, sms, smem).resident)
+    for b, h in ((64, 1056), (16, 2048), (8, 4096)):
+        _check(not lstm_plan(b, h, sms, smem).resident, f"({b}, {h}) should stream W_hh")
+    # ragged and streamed layers over a few steps against float64
+    for b, h, t in ((3, 5, 40), (24, 1024, 60), (64, 1000, 60), (100, 1024, 60),
+                    (64, 1056, 60), (16, 2048, 30), (8, 4096, 20)):
+        w_ih, w_hh, bias = _lstm_weights(gen, h)
+        proj = torch.addmm(bias, torch.randn(t * b, h, generator=gen, device="cuda"),
+                           w_ih).view(t, b, 4 * h)
+        want = _lstm_layer64(proj.double(), w_hh.double())
+        got = crn.lstm_layer(proj.clone(), w_hh)
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        _check(err < LSTM_LAYER_ERR, f"an LSTM layer at ({b}, {h}) over {t} steps {err:.2e} off "
+                                     "the float64 step loop")
+        out[f"layer_{b}x{h}x{t}"] = err
+    # plans the C entry refuses at once, after which the next layer runs: a grid that cannot
+    # be resident (the plan for a card of 512 SMs: 512 blocks of 2 units at H = 1024,
+    # cudaErrorCooperativeLaunchTooLarge), a pass wider than a stage's row (that plan at
+    # H = 2048) and too little shared memory (cudaErrorInvalidValue)
+    def refused(width, plan, **change):
+        plan = plan._replace(**change)
+        proj = torch.randn(4, 8, 4 * width, device="cuda")
+        w = torch.randn(width, 4 * width, device="cuda")
+        hs, c = torch.zeros(5, 8, width, device="cuda"), torch.zeros(8, width, device="cuda")
+        flags = torch.zeros(plan.grid, dtype=torch.int32, device="cuda")
+        t0 = time.perf_counter()
+        rc = lstm_cell._lib().lstm_steps_f32(
+            proj.data_ptr(), w.data_ptr(), hs.data_ptr(), c.data_ptr(), flags.data_ptr(), 4, 8, 0,
+            8, width, plan.units, plan.col_groups, plan.k_passes, plan.col_passes, plan.ring,
+            plan.grid, plan.smem, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return rc, time.perf_counter() - t0
+
+    wide = lstm_plan(8, H, 512, smem)
+    rc, refused_s = refused(H, wide)
+    _check(rc == 720 and refused_s < 5, f"a grid of 512 blocks returned {rc} in {refused_s:.1f} s")
+    rc_wide, _ = refused(2 * H, wide, h=2 * H, grid=2 * wide.grid, k_chunk=2 * H)
+    rc_smem, _ = refused(H, lstm_plan(8, H, sms, smem), smem=16384)
+    _check(rc_wide == 1 and rc_smem == 1, f"a pass wider than a stage's row returned {rc_wide}, "
+                                          f"too little shared memory {rc_smem} (want 1, 1)")
+    out["not_resident"] = dict(rc=rc, s=refused_s, wide_pass_rc=rc_wide, small_smem_rc=rc_smem)
+    # one LSTM layer: the projection and 799 steps, the kernel against float64 and cuDNN
+    w_ih, w_hh, bias = _lstm_weights(gen, H)
     z = torch.randn(T, B, H, generator=gen, device="cuda")
 
     def layer(step=crn.lstm_layer):
@@ -5591,14 +5627,19 @@ def phase_crn(smi: str) -> dict:
             lib_ms = _time_ms(lambda: lib_lstm(z), reps=5)
         layer_err = float((got.double() - want).abs().max() / want.abs().max())
         lib_err = float((lib_out.double() - want).abs().max() / want.abs().max())
-        _check(layer_err < 1e-4, f"one LSTM layer {layer_err:.2e} off the float64 step loop")
+        _check(layer_err < LSTM_LAYER_ERR, f"one LSTM layer {layer_err:.2e} off the float64 step loop")
+        proj = torch.addmm(bias, z.view(T * B, H), w_ih).view(T, B, 4 * H)
+        hs0, c0 = proj.new_zeros(T + 1, B, H), proj.new_zeros(B, H)
+        steps_ms = _time_ms(lambda: lstm_steps(proj, w_hh, hs0, c0), reps=5)
         out["layer"] = dict(
             shape=f"{T} steps, batch {B}, {H} units, input {H}", err=layer_err,
-            library_err=lib_err, ms=_time_ms(layer, reps=5),
-            plain_ms=_time_ms(lambda: layer(plain_step), reps=3),
+            library_err=lib_err, ms=_time_ms(layer, reps=5), steps_ms=steps_ms,
+            step_us=steps_ms / T * 1e3, plain_ms=_time_ms(lambda: layer(plain_step), reps=3),
             library_ms=lib_ms,
             bound_ms=(2 * T * B * H * 4 * H * 2 / PEAK_FP32_FLOPS
-                      + T * 4 * B * 7 * H / PEAK_BYTES_PER_S) * 1e3)
+                      + T * 4 * B * 7 * H / PEAK_BYTES_PER_S) * 1e3,
+            steps_bound_ms=2 * T * B * H * 4 * H / PEAK_FP32_FLOPS * 1e3, bound_by="operations",
+            plan=lstm_plan(B, H, sms, smem)._asdict())
         del lib_lstm, got, want, lib_out
     # one decode call at the published widths
     cfg = CRNConfig()
@@ -5612,9 +5653,11 @@ def phase_crn(smi: str) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     _check(bool(torch.isfinite(enh).all()) and enh.shape == wavs.shape, "CRN decode output")
-    _check(counts["lstm_cell"] == 2 * T, f"lstm_cell launched {counts['lstm_cell']} times in a "
-                                         f"decode of 64 x 8 s (want {2 * T})")
-    others = {k: v for k, v in counts.items() if k != "lstm_cell"
+    lstm_keys = ("lstm_steps", "lstm_steps_resident", "lstm_steps_streamed")
+    _check([counts[k] for k in lstm_keys] == [2, 2, 0],
+           f"a decode of 64 x 8 s ran {[counts[k] for k in lstm_keys]} LSTM launches, resident "
+           "and streamed layers (want 2, 2, 0)")
+    others = {k: v for k, v in counts.items() if k not in lstm_keys
               and (any(v.values()) if isinstance(v, dict) else v)}
     _check(not others, f"the CRN decode launched other kernels of the port: {others}")
     from torch.autograd import DeviceType
@@ -5632,23 +5675,19 @@ def phase_crn(smi: str) -> dict:
     inside = [e for e in kernels if a <= e.time_range.start < b]
     names: dict = {}
     for e in inside:
-        key = "lstm_cell_kernel" if "lstm_cell" in e.name else e.name[:60]
-        names[key] = names.get(key, 0) + 1
-    cell_events = [e for e in inside if "lstm_cell" in e.name]
-    out["cell"]["ms"] = sum(e.time_range.end - e.time_range.start for e in cell_events) / (
-        1e3 * max(1, len(cell_events)))
+        names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+    lstm_events = [e for e in inside if "lstm_layer_kernel" in e.name]
+    kernel_ms = [(e.time_range.end - e.time_range.start) / 1e3 for e in lstm_events]
     out["decode"] = dict(
-        launches=counts["lstm_cell"], kernels_in_lstm_span=len(inside), kernels_by_name=names,
-        stage_ms={k: (v[1] - v[0]) / 1e3 for k, v in spans.items()},
+        launches=counts["lstm_steps"], kernels_in_lstm_span=len(inside), kernels_by_name=names,
+        lstm_kernel_ms=kernel_ms, stage_ms={k: (v[1] - v[0]) / 1e3 for k, v in spans.items()},
         request_ms=_time_ms(lambda: decode(wavs), reps=5))
-    # a step: cuBLAS's product (a GEMM, and a split-K reduction where cuBLAS splits K) and
-    # the cell; besides them a layer's projection and its zeroed state
-    gemm = ("gemm", "sgemm", "splitKreduce")
-    steps = {k: v for k, v in names.items() if v >= 2 * T}
-    _check(names.get("lstm_cell_kernel") == 2 * T
-           and all(k == "lstm_cell_kernel" or any(g in k for g in gemm) for k in steps)
-           and len(inside) - sum(steps.values()) <= 16,
-           f"the recurrence's span holds {len(inside)} kernels for {2 * T} steps: {names}")
+    # the span: the two layers' kernels, their two input projections (one GEMM each, no split-K
+    # reduction) and the zeroed state; no step's product
+    gemms = sum(v for k, v in names.items() if "gemm" in k.lower())
+    _check(len(lstm_events) == 2 and gemms <= 2 and not any("splitK" in k for k in names)
+           and len(inside) <= 16,
+           f"the recurrence's span holds {len(inside)} kernels: {names}")
     print(f"[crn] {json.dumps(out)}", flush=True)
     print(f"[crn] {smi}", flush=True)
     return out
@@ -6189,13 +6228,19 @@ def main(argv=None) -> int:
     ]
     kernels += _dp_rows(dp, dw, dp_tc_runs, dp_f32_runs, by_path, tp_n["rank_sum"],
                         rdp["rank_sum"])
-    kernels.append(dict(name="lstm_cell", source="tpu_sednn_torch/csrc/lstm_cell.cu",
+    ly = crn["layer"]
+    kernels.append(dict(name="lstm_steps", source="tpu_sednn_torch/csrc/lstm_cell.cu",
                         replaces=None, route="cuda", launches=crn["decode"]["launches"],
-                        launches_of="one make_crn_decoder call, 64 x 8 s at 16 kHz (2 x 799 steps)",
-                        max_abs_err=None, max_ulps=crn["cell_64x4096"]["max_ulps"],
-                        shape="(64, 4096) gates, one step", ms_is="mean device time of the "
-                        "kernel in the traced decode call",
-                        layer=crn["layer"], decode=crn["decode"], **crn["cell"]))
+                        launches_of="one make_crn_decoder call, 64 x 8 s at 16 kHz (one a layer)",
+                        max_abs_err=None, max_rel_err=ly["err"],
+                        shape="a layer at (64, 1024): its input projection and 799 steps",
+                        ms=ly["ms"],
+                        ms_is="device time of a whole layer, the input projection and "
+                              "lstm_steps, as the plain version and cuDNN's are timed (CUDA "
+                              "events); the steps alone are layer.steps_ms",
+                        plain_ms=ly["plain_ms"], library_ms=ly["library_ms"],
+                        bound_ms=ly["bound_ms"], bound_by=ly["bound_by"],
+                        layer=ly, decode=crn["decode"]))
     spill = next(k for k in kernels if k["name"] == "resident_chunk_hbm_spill")
     spill.update(max_abs_err=wide["spill_max_abs"],
                  max_abs_err_is="largest absolute difference of a state tensor from the unspilled "

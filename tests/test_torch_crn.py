@@ -27,7 +27,8 @@ from tpu_sednn_torch.enhance.decode import make_crn_decoder
 from tpu_sednn_torch.model import crn
 from tpu_sednn_torch.model.crn import CRNConfig, crn_forward_eval, fold_eval_crn, init_crn
 from tpu_sednn_torch.ops import (KERNEL_SOURCES, _build, launch_counts, lstm_cell_reference,
-                                 lstm_steps)
+                                 lstm_plan, lstm_steps, lstm_steps_reference)
+from tpu_sednn_torch.ops.lstm_cell import LstmPlan, run_plan
 
 TOL = 1e-5
 SMALL = CRNConfig(channels=(2, 4, 4, 8, 8), lstm_hidden=32)
@@ -214,7 +215,8 @@ def test_one_step_from_zero_h_is_the_cell_update(B, H):
     torch.testing.assert_close(c.double(), c64, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(hs[1].double(), torch.sigmoid(o) * torch.tanh(c64), rtol=1e-6,
                                atol=1e-6)
-    assert launch_counts()["lstm_cell"] == 0  # the plain version launches nothing
+    counts = launch_counts()  # the plain version launches nothing
+    assert counts["lstm_steps"] == counts["lstm_steps_resident"] == counts["lstm_steps_streamed"] == 0
 
 
 def test_lstm_steps_refuses_bad_arguments():
@@ -229,8 +231,8 @@ def test_lstm_steps_refuses_bad_arguments():
 
 
 def test_a_step_is_one_cell_update(monkeypatch):
-    """The recurrence updates the cell once a step of each layer: 2 x 799
-    launches for 8 s utterances on a card."""
+    """The plain recurrence updates the cell once a step of each layer (on
+    a card one kernel launch runs a layer's steps, 2 a decode)."""
     cell_mod = importlib.import_module("tpu_sednn_torch.ops.lstm_cell")  # the package exports
     calls = []
     monkeypatch.setattr(cell_mod, "lstm_cell_reference", lambda g, c, h: calls.append(g.shape)
@@ -278,8 +280,98 @@ def test_kernel_source_is_listed_and_its_c_signature_bound():
     assert "lstm_cell" in KERNEL_SOURCES
     assert [p.name for p in _build.source_files("lstm_cell")] == ["lstm_cell.cu"]
     src = (_build.SRC_DIR / "lstm_cell.cu").read_text()
-    assert re.findall(r'extern "C" int (\w+)', src) == ["lstm_steps_f32"]
+    assert re.findall(r'extern "C" int (\w+)', src) == ["lstm_card_limits", "lstm_steps_f32"]
     sig = re.search(r'extern "C" int lstm_steps_f32\(([^)]*)\)', src).group(1)
-    assert [int("*" in p) for p in sig.split(",")] == [1, 1, 1, 1, 0, 0, 0, 1]
-    assert _build.LINK_FLAGS["lstm_cell"] == ("-lcublas",)
+    # proj, w_hh, hs, c, flags; T, B, row0, rows, H; the plan's units, col_groups, k_passes,
+    # col_passes, ring, grid, smem; stream
+    assert [int("*" in p) for p in sig.split(",")] == [1] * 5 + [0] * 12 + [1]
+    sig = re.search(r'extern "C" int lstm_card_limits\(([^)]*)\)', src).group(1)
+    assert [int("*" in p) for p in sig.split(",")] == [1, 1]
+    # the step's product is the kernel's own: no cuBLAS, nothing linked besides the runtime
+    assert not re.search(r"#include <cublas|cublas\w*\(", src) and not hasattr(_build, "LINK_FLAGS")
     assert Path(_build.library_path("lstm_cell")).name.startswith("liblstm_cell-")
+
+
+H100 = (132, 232448)  # SMs and the shared memory a block may opt in to
+PLANS = {  # (B, H) on an H100 -> the plan
+    "crn-16k": ((64, 1024), LstmPlan(h=1024, units=8, col_groups=4, grid=128, k_chunk=1024,
+                                     k_passes=1, col_passes=1, ring=3, rows=64, launches=1,
+                                     smem=206912, resident=True)),
+    "tiny": ((2, 32), LstmPlan(h=32, units=2, col_groups=1, grid=16, k_chunk=32, k_passes=1,
+                               col_passes=1, ring=3, rows=2, launches=1, smem=204880, resident=True)),
+    "h5": ((3, 5), LstmPlan(h=8, units=2, col_groups=1, grid=4, k_chunk=8, k_passes=1,
+                            col_passes=1, ring=3, rows=3, launches=1, smem=204888, resident=True)),
+    "h8": ((3, 8), LstmPlan(h=8, units=2, col_groups=1, grid=4, k_chunk=8, k_passes=1,
+                            col_passes=1, ring=3, rows=3, launches=1, smem=204888, resident=True)),
+    "ragged": ((100, 1000), LstmPlan(h=1000, units=8, col_groups=4, grid=125, k_chunk=1000,
+                                     k_passes=1, col_passes=1, ring=3, rows=100, launches=1,
+                                     smem=208064, resident=True)),
+    "streamed": ((64, 2048), LstmPlan(h=2048, units=16, col_groups=8, grid=128, k_chunk=512,
+                                      k_passes=4, col_passes=1, ring=3, rows=64, launches=1,
+                                      smem=225344, resident=False)),
+    "streamed-1056": ((64, 1056), LstmPlan(h=1056, units=8, col_groups=4, grid=132,
+                                           k_chunk=1024, k_passes=2, col_passes=1, ring=3,
+                                           rows=64, launches=1, smem=215104, resident=False)),
+    "two-col-passes": ((64, 4096), LstmPlan(h=4096, units=32, col_groups=8, grid=128,
+                                            k_chunk=512, k_passes=8, col_passes=2, ring=3,
+                                            rows=64, launches=1, smem=229440, resident=False)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_lstm_plan_is_pinned(name):
+    """The kernel's plan at the CRN's (64, 1024) on an H100: 128 blocks of 8
+    units, W_hh in registers, a ring of 3 stages of 16 x 1024 floats, one
+    launch; the small widths the CPU tests and TINY use; H = 1056 streams
+    W_hh over 2 passes over k (the first as wide as a stage's row, the rows
+    not), H = 2048 over 4, H = 4096 over 8 and 2 passes over columns."""
+    shape, want = PLANS[name]
+    assert lstm_plan(*shape, *H100) == want
+
+
+@pytest.mark.parametrize("sms,smem", [H100, (114, 232448), (16, 232448)])  # SXM, PCIe, few SMs
+def test_lstm_plan_fits_the_card(sms, smem):
+    """Over many shapes: every block resident (one an SM), every unit owned,
+    k covered by the passes, 2 to 4 ring stages, shared memory within the
+    card's, the batch's rows over the launches."""
+    for B in (1, 3, 8, 9, 64, 100, 1000, 20000):
+        for H in (1, 5, 8, 32, 257, 1000, 1024, 1056, 1057, 2048, 3000):
+            p = lstm_plan(B, H, sms, smem)
+            assert p.grid <= sms and p.grid * p.units >= p.h >= H and p.h % 4 == 0
+            assert p.units == 2 * p.col_groups * p.col_passes and p.col_groups in (1, 2, 4, 8)
+            assert p.k_passes * 512 * 8 // p.col_groups >= p.h
+            assert p.k_chunk == min(512 * 8 // p.col_groups, p.h) <= 1024  # a stage's row
+            assert 2 <= p.ring <= 4 and p.smem <= smem
+            assert p.launches == -(-B // p.rows) and p.rows <= B
+            assert p.resident == (p.k_passes == 1 and p.col_passes == 1)
+    with pytest.raises(ValueError):
+        lstm_plan(0, 8, sms, smem)
+
+
+@pytest.mark.parametrize("B,H,offset", [(3, 5, 0), (2, 8, 1), (4, 12, 0)])
+def test_run_plan_pads_to_the_kernels_width(B, H, offset):
+    """Where H is not a multiple of 4 or a tensor is not 16-byte aligned the
+    launch sees zero-padded copies of width plan.h: the padded units' h and
+    c stay 0 and the real ones are the plain step loop's."""
+    gen = torch.Generator().manual_seed(23)
+    T = 6
+    proj, w_hh = torch.randn(T, B, 4 * H, generator=gen), torch.randn(H, 4 * H, generator=gen)
+    c0 = torch.randn(B, H, generator=gen)
+    plan = lstm_plan(B, H, *H100)
+    seen = []
+
+    def launch(p, pp, ww, hh, cc):
+        assert p is plan and pp.shape == (T, B, 4 * p.h) and ww.shape == (p.h, 4 * p.h)
+        seen.append(pp.data_ptr() != given.data_ptr())
+        lstm_steps_reference(pp, ww, hh, cc)
+        assert not hh[:, :, H:].any() and not cc[:, H:].any()
+
+    store = torch.zeros((T + 1) * B * H + offset)
+    hs = store[offset:].view(T + 1, B, H)
+    c, given = c0.clone(), proj.clone()
+    run_plan(plan, given, w_hh, hs, c, launch=launch)
+    want_hs, want_c = torch.zeros(T + 1, B, H), c0.clone()
+    lstm_steps_reference(proj.clone(), w_hh, want_hs, want_c)
+    assert seen == [H % 4 != 0 or offset != 0]
+    torch.testing.assert_close(hs, want_hs, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(c, want_c, rtol=1e-6, atol=1e-6)

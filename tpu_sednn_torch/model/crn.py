@@ -39,9 +39,9 @@ float32 products do and needs no cuDNN setting: cuDNN, asked for the same
 convolutions on an H100, chose FFT kernels for some of them, whose rounding
 is relative to a whole tile's magnitude, at the same speed.  Each LSTM
 layer's input projection is one product over all frames, and the
-recurrence is the port's own step loop (`lstm_layer`): a product onto the
-step's slice of the projection and one launch of the hand-written cell
-kernel a step, a layer's steps enqueued by one C call (ops/lstm_cell.py).
+recurrence (`lstm_layer`) is one launch a layer of the port's persistent
+LSTM kernel, which runs every step's product and cell update with W_hh
+held on the SMs (ops/lstm_cell.py).
 """
 
 from __future__ import annotations
@@ -233,10 +233,10 @@ def crn_encoder(params: CRN, mag: torch.Tensor) -> List[torch.Tensor]:
 
 def lstm_layer(proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """One LSTM layer's recurrence from zero h and c: proj (T, B, 4H), the
-    layer's input projection z W_ih + b, is overwritten by the gates; -> h
-    (T, B, H).  A step is h[t-1] W_hh added onto proj[t] in place (cuBLAS)
-    and the cell kernel, which updates c and writes h[t] (ops/lstm_cell.py:
-    lstm_steps)."""
+    layer's input projection z W_ih + b (the plain version leaves the gates
+    in it); -> h (T, B, H).  A step is the gates proj[t] + h[t-1] W_hh and
+    the cell update; on a card one kernel launch runs all T steps
+    (ops/lstm_cell.py:lstm_steps)."""
     T, B, G = proj.shape
     hs = proj.new_zeros(T + 1, B, G // 4)
     lstm_steps(proj, w_hh, hs, proj.new_zeros(B, G // 4))

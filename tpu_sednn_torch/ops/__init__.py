@@ -15,7 +15,12 @@ from tpu_sednn_torch.ops.fused_mlp import (
 )
 from tpu_sednn_torch.ops.dropout_mask import dropout_mask, dropout_mask_reference
 from tpu_sednn_torch.ops.rank_sum import rank_sum, rank_sum_reference
-from tpu_sednn_torch.ops.lstm_cell import lstm_cell_reference, lstm_steps, lstm_steps_reference
+from tpu_sednn_torch.ops.lstm_cell import (
+    lstm_cell_reference,
+    lstm_plan,
+    lstm_steps,
+    lstm_steps_reference,
+)
 from tpu_sednn_torch.ops.sr_update import (
     sr_momentum_update,
     sr_momentum_update_reference,
@@ -57,7 +62,9 @@ def launch_counts() -> dict:
         "dp_update": dp_update.launches,
         "dp_update_sr": dp_update.sr_launches,
         "rank_sum": rank_sum.launches,
-        "lstm_cell": lstm_steps.launches,
+        "lstm_steps": lstm_steps.launches,
+        "lstm_steps_resident": lstm_steps.resident_layers,
+        "lstm_steps_streamed": lstm_steps.streamed_layers,
         "sample_resident_masks": resident_chunk.sample_resident_masks.launches,
         "input_mask_bits": resident_chunk.input_mask_bits.launches,
         "resident_chunk": resident_chunk.make_resident_train_chunk.launches,
@@ -93,6 +100,7 @@ def reset_launch_counts() -> None:
     dp_update.launches = dp_update.sr_launches = 0
     fused_bwd_grad_out.philox_launches = 0
     rank_sum.launches = lstm_steps.launches = 0
+    lstm_steps.resident_layers = lstm_steps.streamed_layers = 0
     resident_chunk.sample_resident_masks.launches = 0
     resident_chunk.input_mask_bits.launches = 0
     resident_chunk.make_resident_train_chunk.launches = 0

@@ -30,8 +30,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the libraries a source links besides the CUDA runtime
-LINK_FLAGS = {"lstm_cell": ("-lcublas",)}
 
 
 def _nvcc() -> str:
@@ -71,14 +69,13 @@ def library_path(name: str) -> Path:
     for path in source_files(name):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str, path: Path):
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu"),
-           *LINK_FLAGS.get(name, ())]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
     return tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
