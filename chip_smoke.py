@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.  Which
+kernels of the port a path runs is read from a torch.profiler trace taken in
+the process that ran it (a command's own, through run_traced_module): the
+launches of every kernel of csrc/, each what the path must launch (a kernel
+expected absent absent, the others short by no more than the records the
+tracer loses, TRACE_LOSS), traced again until they read so (_until_counts):
   1. device: the card's name and power limit (nvidia-smi); build the port's
      CUDA kernels (csrc/stft_lps.cu, fused_mlp.cu, resident_chunk.cu,
      sr_update.cu, dropout_mask.cu, rank_sum.cu, lstm_cell.cu) with nvcc (sm_90a), one nvcc
@@ -17,16 +22,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      64 x 64 s / 8 kHz and 64 x 32 s / 16 kHz, beside the kernel's bound on
      an H100 SXM (bytes; the direct DFT's operations floor beside it).
   3. featurizer (main path): `tools.make_pfile` on 8 seeded noisy wavs with
-     --device cuda, against build_pfile(device="cpu") on the same wavs.
+     --device cuda, against build_pfile(device="cpu") on the same wavs; the
+     STFT kernel once an utterance, and no other kernel of the port, in a
+     trace of it.
   4. serving (main path): make_serving_decoder at full width,
      1548-2048x3-129 on 64 x 64 s at 8 kHz and 3084-2048x3-257 on
      64 x 32 s at 16 kHz, random glorot weights from a seed with parity
      dropout 0.1/0.2 folded in; output finite, of the right shape, its first
      two utterances equal to the same decoder on the CPU; audio-s/s.  Then
      the serving modes at the full width of both nets (8 kHz: the lps head,
-     NAT, the featurizer's .norm; 16 kHz: a psm head with a target norm),
-     each run with every launch count zeroed just before it and held to
-     launch no kernel of the port, as the JAX decode reaches no Pallas kernel:
+     NAT, the featurizer's .norm; 16 kHz: a psm head with a target norm; no
+     kernel of the port lies on them, as the JAX decode reaches no Pallas one):
      [stream] StreamingEnhancer and DeviceStreamingEnhancer at block 1 and 8
      on seeded chunkings against the offline card decode (max err 5e-5),
      scan_blocks against push (1e-6), the step's time (CUDA events), push
@@ -73,18 +79,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      refused; the chunk trainer's chain of programmatic dependent launches
      bit-equal to the standalone wrappers launched one by one (tensor cores
      with float32 state and sr_delta, and float32 products; the same masks
-     and rounding streams) and its `pdl` tally at 2 L n_real - 1 a call, the
-     input masks drawn by one launch a call and by no layer kernel; ms per
-     bunch of both forms; SHA-256 digests of the state after an 800-bunch
-     call in both forms (CHUNK_DIGEST_FORMS, for comparing two checkouts).
+     and rounding streams); a traced call of either form runs a forward and
+     a backward a layer a bunch and one draw of the input masks, and no cast
+     of dedx;
+     ms per bunch of both forms; SHA-256 digests of the state after an
+     800-bunch call in both forms (CHUNK_DIGEST_FORMS, for comparing two
+     checkouts).
   8. training (main path): a seeded speech-like corpus -> noisy and clean LPS
      pfiles with make_pfile on the card (> 120,000 frames), then
      `python -m tpu_sednn_torch.cli` twice (momentum 0.5, then 0.54 warm
      started), dropout on, engine=auto (tensor-core products): "all
-     finish!", the .wts reloads, CV MSE finite and falling, the chunk trainer
-     launched once per chunk in its tensor-core form and the plain trainer
-     never; the same two epochs with float32 products (run_epoch,
-     bf16=False) end within TC_CV_FRACTION; engine=resident with float32
+     finish!", the .wts reloads, CV MSE finite and falling; the same two
+     epochs with float32 products (run_epoch, bf16=False) end within
+     TC_CV_FRACTION; engine=resident with float32
      products and with tensor cores against engine=xla with dropout off;
      samples/s, ms per bunch; one full chunk (800 bunches) trained twice
      from the same state, bit for bit equal (their state digests printed),
@@ -101,8 +108,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      seed + block identity; its batches (dropout_masks, one launch up to 64
      masks): mixed shapes, row0 > 0, omit 0 and 1 bit-equal to the plain
      version, a group of 8 16 kHz bunches' 32 masks equal to 32 single
-     draws, more than 64 masks in launches of at most 64; one bunch's four
-     masks and a group's in one launch beside their bounds; kernels 1 and 2
+     draws, more than 64 masks bit-equal; one bunch's four masks and a
+     group's in one batch beside their bounds; kernels 1 and 2
      on bfloat16 W / delta at the four 16 kHz layer shapes (N = 257: 2-byte
      aligned rows); times beside the bytes bounds.
  10. chunk trainer variants at 3084-2048x3-257 (kernels group): float32,
@@ -127,10 +134,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      falling), on the float32 engine and on sr_delta with float32 products
      (final CVs within SR_CV_FRACTION); one epoch each of sr_state (both
      products), hbm_spill=1, clean-rule row tiles, and engine=xla
-     with dropout_rng="tpu_prng" (kernel 5 on its path: one launch a group of
-     8 bunches' masks, counted); sr_train_step at
+     with dropout_rng="tpu_prng" (kernel 5 on its path: one batch a group of
+     8 bunches' masks); sr_train_step at
      full width (kernel 6 on its path); kill and resume through a checkpoint
-     equal to the straight run bit for bit.
+     equal to the straight run bit for bit.  Each traced: the chunk trainer's
+     forms their product kernels (tc_fwd_kernel or f32_fwd_kernel,
+     stripe_bwd_kernel) a layer a bunch or row tile and one input-mask draw
+     a call, engine=xla one dropout_mask_kernel a group under tpu_prng and
+     none under torch.rand, sr_train_step one sr_update_kernel a tensor a
+     step.
  12. the multi-condition recipe (main path, recipe group):
      tpu_sednn_torch.recipes.multi_condition's non-small default on the
      card (1548-2048x3-129 at 8 kHz, PSM head, parity dropout 0.1/0.2, bunch
@@ -143,7 +155,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      and score exactly the recipe's block.  Then the on-device sample builder
      (data/device_pipeline.py on the STFT kernel) on the corpus's first 16
      pairs against its CPU plain version (X rtol/atol 1e-4, T atol 2e-2 and
-     rtol 1e-4, each plus the element's float32 rounding bound).
+     rtol 1e-4, each plus the element's float32 rounding bound).  The
+     recipe's trace holds the tensor-core chunk trainer's kernels and no
+     other kernel of the port.
  13. data parallelism (main path, dp group): the DP forward, the
      gradient-out backward, the update kernel and rank_sum against their
      plain versions, with times; the DP chunk trainer on 4 and on 2 ranks of
@@ -151,7 +165,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      card through CUDA IPC) against the single-process trainer, replicas
      bit-equal, three faults refused, pfile epochs on 4 ranks; then
      `python -m torch.distributed.run --nproc_per_node=2 -m
-     tpu_sednn_torch.cli ... gpu_used=2` against gpu_used=1.
+     tpu_sednn_torch.cli ... gpu_used=2` against gpu_used=1.  Rank 0's
+     traces of the pfile epochs and of the command hold the DP chunk
+     trainer's kernels a layer a bunch: its forward, the gradient-out
+     stripe_bwd_kernel, rank_sum_kernel and update_kernel.
  14. tensor parallelism (main path, dp group): make_auto_sharded_train_chunk
      on 4 ranks of this script sharing the card (gloo; the sums and the
      column gathers on the card, rank_sum), 1548-2048x3-128 (the 8 kHz net,
@@ -160,13 +177,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      the single-process reference_train_chunk (rtol 1e-5 / atol 1e-6), the
      16-bunch drift, every rank's state bit-equal, a skipped "model" sum
      refused, the 129-wide head refused to shard; ms a bunch and the
-     collectives' share.
+     collectives' share.  Rank 0's trace of each 2-bunch run holds the
+     rank_sum_kernel launches of its sums and gathers and no other kernel.
  15. the recipe's data-parallel branch (main path, dp group): `python -m
      torch.distributed.run --nproc_per_node=2 -m
      tpu_sednn_torch.recipes.multi_condition --small --device cuda` against
      one rank on the plain trainer over the same bunches (CV history and
      weights at _hold_parity's limits), rank 0 alone writing the run dir,
-     which reloads; the same command on one rank for its times.
+     which reloads; the same command on one rank for its times.  Rank 0's
+     trace of the 2-rank command holds one rank_sum_kernel a bunch and no
+     other kernel of the port; the 1-rank command's, the tensor-core chunk
+     trainer's kernels.
  16. the causal CRN (crn group): the persistent LSTM kernel
      (csrc/lstm_cell.cu) as lstm_steps runs it, one step from h = 0 (whose
      product adds exact zeros) bit-equal to the plain cell at (64, 1024),
@@ -179,22 +200,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      column), with its time, the library's and the plain step loop's (each
      the projection and the steps), and the steps' alone; one
      make_crn_decoder call on
-     64 x 8 s at 16 kHz at the published widths: one launch a layer (both
-     with W_hh resident), the kernels the profiler puts inside the
-     recurrence's span (no step's product), and the stages' device times.
- 17. a `kernels` JSON line: every ported kernel and trainer form with its
-     launches on the main paths, error and times.  Each path (phases 3, 4,
-     8, 11, 12, 13, 14, 15, 16) is run with the counts zeroed just before it
-     and read just after; `launches` is the total, `launches_by_path` the split.
+     64 x 8 s at 16 kHz at the published widths: the kernels the profiler
+     puts inside the recurrence's span (one lstm_layer_kernel a layer, no
+     step's product; no other kernel of the port in the decode), and the
+     stages' device times.
+ 17. a `kernels` JSON line: every ported kernel and trainer form with the
+     kernel it runs, its error and its times (kernel, plain version,
+     library, bound).
 `--only serve,kernels,train,recipe,dp,crn` runs a subset while developing: it prints no
 `kernels` line and no final line and exits with code 2.  `--chain-times`
-only times the chunk trainer's chain (chain_times), `--bwd-times` only the
-backward (bwd_times), `--fwd-times` only the float32 forward (fwd_times, with
-SHA-256 digests of its outputs), `--mask-times` only the input mask's share
-of layer 0 and of the chains, with the chunk trainer's state digests, and
-kernel 5's times with the tpu_prng plain trainer's time and state digest
-(mask_times), with `--package-root DIR` the package of another checkout (A/B
-runs in one call); all four exit with 2.
+only times the chunk trainer's chain (chain_times), and with `--package-root
+DIR` times the package of another checkout (an A/B run in one call of the
+chain forms no benchmark cell times: float32 products, sr_delta); it exits
+with 2.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card; exits
 non-zero without one.
 """
@@ -468,11 +486,12 @@ def phase_kernel_vs_plain(gen) -> dict:
     return timings
 
 
-def phase_featurizer(tmp: str, gen_np) -> tuple[list, str, int]:
+def phase_featurizer(tmp: str, gen_np) -> tuple[list, str]:
+    """make_pfile --device cuda on 8 seeded wavs against build_pfile on the
+    CPU, and the STFT kernel among the kernels of a traced run of it."""
     from tpu_sednn_torch.dsp import StftConfig
     from tpu_sednn_torch.io import (load_norm, read_pfile_info, read_pfile_utterances, read_wav,
                                     write_wav)
-    from tpu_sednn_torch.ops.stft_lps import stft_lps
     from tpu_sednn_torch.tools import make_pfile
 
     sr, wavs = 8000, []
@@ -484,12 +503,12 @@ def phase_featurizer(tmp: str, gen_np) -> tuple[list, str, int]:
         path = os.path.join(tmp, f"utt{i}.wav")
         write_wav(path, x, sr)
         wavs.append(path)
-    stft_lps.launches = 0  # the featurizer path's run starts here
     pf, nf = os.path.join(tmp, "gpu.pfile"), os.path.join(tmp, "gpu.norm")
-    rc = make_pfile.main([pf, nf] + wavs + ["--device", "cuda"])
+    args = [pf, nf] + wavs + ["--device", "cuda"]
+    want = _port(stft_lps_kernel=len(wavs))  # one launch an utterance, no other kernel
+    got, rc = _kernel_counts(lambda: make_pfile.main(args), want)
     _check(rc == 0, f"make_pfile exited {rc}")
-    launched = stft_lps.launches  # and ends here
-    _check(launched == len(wavs), f"stft_lps launched {launched} times for {len(wavs)} wavs")
+    _check(_reads(got, want), f"make_pfile's traced run: {got}, want {want}")
     pc, nc = os.path.join(tmp, "cpu.pfile"), os.path.join(tmp, "cpu.norm")
     make_pfile.build_pfile(wavs, pc, nc, device="cpu")
     d = 129
@@ -504,9 +523,10 @@ def phase_featurizer(tmp: str, gen_np) -> tuple[list, str, int]:
     for a, b in zip(load_norm(nf, d), load_norm(nc, d)):
         _check(np.allclose(a, b, rtol=1e-4, atol=1e-5), "card vs CPU .norm")
     print(f"[featurizer] make_pfile --device cuda: {len(wavs)} wavs, {info_g.num_frames} frames, "
-          f"{launched} kernel launches; max |card - cpu| {err:.3g}, {worst:.3f} of the "
+          f"one stft_lps_kernel an utterance and no other kernel of the port in a traced run; "
+          f"max |card - cpu| {err:.3g}, {worst:.3f} of the "
           f"tolerance", flush=True)
-    return wavs, nf, launched
+    return wavs, nf
 
 
 def _serving_model(sr: int, gen_seed: int, head: str = "lps"):
@@ -530,12 +550,12 @@ def _serving_model(sr: int, gen_seed: int, head: str = "lps"):
     return mlp, mcfg, ecfg
 
 
-def phase_serving(gen, norm_8k: str, smi: str) -> tuple[dict, int]:
+def phase_serving(gen, norm_8k: str, smi: str) -> dict:
     from tpu_sednn_torch.enhance import make_serving_decoder
     from tpu_sednn_torch.io import compute_norm, load_norm
-    from tpu_sednn_torch.ops.stft_lps import stft_lps, stft_lps_reference
+    from tpu_sednn_torch.ops.stft_lps import stft_lps_reference
 
-    results, launched = {}, 0
+    results = {}
     for sr, secs, seed in [(8000, 64.0, 0), (16000, 32.0, 1)]:
         mlp, mcfg, ecfg = _serving_model(sr, seed)
         batch, n = 64, int(secs * sr)
@@ -545,11 +565,9 @@ def phase_serving(gen, norm_8k: str, smi: str) -> tuple[dict, int]:
         else:
             lps = stft_lps_reference(wavs[:4], ecfg.stft)  # set-up, off the path
             mean, istd = compute_norm(lps.reshape(-1, ecfg.stft.n_bins).cpu().numpy())
-        stft_lps.launches = 0  # the serving path's run starts here
         decode = make_serving_decoder(mlp, mcfg, ecfg, mean, istd, device="cuda")
         out = decode(wavs)
         torch.cuda.synchronize()
-        launched += stft_lps.launches  # and ends here
         _check(out.shape == wavs.shape and out.is_cuda, f"decode output {tuple(out.shape)}")
         _check(bool(torch.isfinite(out).all()), f"non-finite enhanced wav at {sr} Hz")
         times = []
@@ -577,7 +595,7 @@ def phase_serving(gen, norm_8k: str, smi: str) -> tuple[dict, int]:
         _profile(f"{name} @ {sr} Hz", decode, wavs)
         del out, wavs, decode
         torch.cuda.empty_cache()
-    return results, launched
+    return results
 
 
 def _profile(label: str, fn, *args, top: int = 8) -> None:
@@ -612,8 +630,7 @@ def _profile(label: str, fn, *args, top: int = 8) -> None:
 # ---------------------------------------------------------------------------
 # serving modes: streaming (host and device state), int8, head fusion.  No
 # kernel of the port lies on these paths (the JAX decode computes its STFT,
-# forward and int8 product in XLA); each is run with every launch count
-# zeroed just before it and read just after, and must launch none.
+# forward and int8 product in XLA).
 # ---------------------------------------------------------------------------
 
 STREAM_TOL = 5e-5  # streaming vs the offline card decode, max |diff| (tests/test_streaming.py)
@@ -628,23 +645,6 @@ QUANT_STREAM_REL = 0.05  # int8 vs float32 stream, relative (tests/test_streamin
 QUANT_STREAM_OF_INT8 = 1e-3
 FUSION_SINGLE_TOL = 1e-6  # weights (1, 0) vs the single-model decode, max |diff|
 FUSION_RTOL, FUSION_ATOL = 1e-4, 1e-5  # fused serving decoder vs the eager fused decode
-
-
-def _launches_total() -> int:
-    """Every launch counter of the port, summed (ops.launch_counts)."""
-    from tpu_sednn_torch.ops import launch_counts
-
-    counts = launch_counts()
-    return sum(sum(v.values()) if isinstance(v, dict) else v for v in counts.values())
-
-
-def _none_launched(path: str) -> int:
-    """The launches since the counts were zeroed (checked to be 0)."""
-    from tpu_sednn_torch.ops import launch_counts
-
-    total = _launches_total()
-    _check(total == 0, f"the {path} path launched a kernel of the port: {launch_counts()}")
-    return total
 
 
 def _serve_clip(sr: int, n: int, seed: int) -> np.ndarray:
@@ -695,9 +695,8 @@ def phase_stream(norm_8k: str, smi: str) -> dict:
     algorithmic latency."""
     from tpu_sednn_torch.enhance import (DeviceStreamingEnhancer, StreamingEnhancer,
                                          enhance_waveform)
-    from tpu_sednn_torch.ops import reset_launch_counts
 
-    res, launched = {}, 0
+    res = {}
     for sr in (8000, 16000):
         mlp, mcfg, ecfg, mean, istd, tn = _serve_mode_model(sr, norm_8k)
         hop, ms_per_sample = ecfg.stft.hop, 1e3 / sr
@@ -709,11 +708,8 @@ def phase_stream(norm_8k: str, smi: str) -> dict:
             for cls in (StreamingEnhancer, DeviceStreamingEnhancer):
                 se = cls(mlp, mcfg, ecfg, mean, istd, target_norm=tn, block_frames=B,
                          device="cuda")
-                reset_launch_counts()  # the streaming path's run starts here
                 got = np.concatenate([se.push(c) for c in _chunked(wav, 5 + B)] + [se.flush()])
                 torch.cuda.synchronize()
-                # and ends here
-                launched += _none_launched(f"streaming ({cls.__name__}, block {B})")
                 err = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
                 _check(err < STREAM_TOL, f"{cls.__name__} block {B} at {sr} Hz vs offline "
                                          f"decode: shape {got.shape} vs {ref.shape}, max err {err}")
@@ -725,7 +721,6 @@ def phase_stream(norm_8k: str, smi: str) -> dict:
             se1, se2 = (DeviceStreamingEnhancer(mlp, mcfg, ecfg, mean, istd, target_norm=tn,
                                                 block_frames=B, device="cuda") for _ in range(2))
             prime = se1._n_prime + 2 * step_in  # primes and leaves whole blocks only
-            reset_launch_counts()
             _check(np.array_equal(se1.push(long[:prime]), se2.push(long[:prime])), "primed pushes")
             blocks = long[prime : prime + n_blocks * step_in].reshape(n_blocks, step_in)
             push_ms, pushed = [], []
@@ -736,7 +731,6 @@ def phase_stream(norm_8k: str, smi: str) -> dict:
             t0 = time.perf_counter()
             scanned = se2.scan_blocks(blocks)
             scan_s = time.perf_counter() - t0
-            launched += _none_launched(f"device streaming (block {B})")
             serr = float(np.abs(scanned.ravel() - np.concatenate(pushed)).max())
             _check(serr <= SCAN_TOL, f"scan_blocks vs push at block {B}, {sr} Hz: max err {serr}")
             # the step alone, CUDA events around each of 64 steps of a primed carry
@@ -773,7 +767,6 @@ def phase_stream(norm_8k: str, smi: str) -> dict:
             _check(out["b8"]["latency_samples"] == 1792, "8 kHz flagship latency at block 8")
         del mlp
         torch.cuda.empty_cache()
-    res["launches"] = launched
     return res
 
 
@@ -805,14 +798,12 @@ def phase_quant(norm_8k: str, smi: str) -> dict:
     from tpu_sednn_torch.model import fold_eval_params, forward_eval
     from tpu_sednn_torch.model.quant import (_int8_matmul, _quantize_rows, forward_eval_int8,
                                              quantize_params_int8)
-    from tpu_sednn_torch.ops import reset_launch_counts
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    res, launched = {}, 0
+    res = {}
     for sr, secs in ((8000, 64.0), (16000, 32.0)):
         mlp, mcfg, ecfg, mean, istd, tn = _serve_mode_model(sr, norm_8k)
         folded, ecf = fold_eval_params(mlp, mcfg)
-        reset_launch_counts()  # the int8 path's runs start here
         qg = quantize_params_int8(folded)
         qc = quantize_params_int8(folded.on("cpu"))
         for name in ("wq", "sw"):
@@ -893,7 +884,6 @@ def phase_quant(norm_8k: str, smi: str) -> dict:
         rate_q, ms_q = _serving_rate(q_dec, wavs, secs)
         rate_f, ms_f = _serving_rate(f32_dec, wavs, secs)
         torch.cuda.synchronize()
-        launched += _none_launched(f"int8 serving ({sr} Hz)")  # and end here
         f32_bytes = _param_bytes(list(folded.w) + list(folded.b))
         q_bytes = _param_bytes(qg.wq + qg.sw + qg.w_f32 + qg.b)
         res[sr] = dict(net=f"{mcfg.layersizes[0]}-2048x3-{mcfg.layersizes[-1]}",
@@ -919,7 +909,6 @@ def phase_quant(norm_8k: str, smi: str) -> dict:
         _profile(f"int8 serving {res[sr]['net']} @ {sr} Hz", q_dec, wavs)
         del wavs, f32_dec, q_dec, mlp, folded, qg
         torch.cuda.empty_cache()
-    res["launches"] = launched
     return res
 
 
@@ -942,11 +931,9 @@ def phase_fusion(norm_8k: str, smi: str) -> dict:
     eager fused decode, and the fused decoder's audio-s/s."""
     from tpu_sednn_torch.enhance import (enhance_waveform, enhance_waveform_fused,
                                          make_fused_serving_decoder, make_serving_decoder)
-    from tpu_sednn_torch.ops import reset_launch_counts
 
     a, b = _fusion_models(norm_8k)
     clip = _serve_clip(8000, 4 * 8000 + 77, 51)
-    reset_launch_counts()  # the fusion path's run starts here
     single = enhance_waveform(a[0], a[1], a[2], clip, a[3], a[4], device="cuda")
     e10 = float(np.abs(enhance_waveform_fused((a, b), clip, (1.0, 0.0), device="cuda")
                        - single).max())
@@ -970,11 +957,10 @@ def phase_fusion(norm_8k: str, smi: str) -> dict:
     wavs = wavs.repeat(batch // 4, 1).cuda()
     rate, ms = _serving_rate(dec, wavs, secs)
     torch.cuda.synchronize()
-    launched = _none_launched("fusion")  # and ends here
     res = dict(nets="1548-2048x3-129 (lps) + 1548-2048x3-129 (psm)", weights=list(w),
                endpoint_eager_max_abs_err=e10, endpoint_serving_max_abs_err=s10,
                serving_vs_eager_max_abs_err=ferr, batch=batch, seconds=secs,
-               audio_s_per_s=rate, ms_per_batch=ms, launches=launched)
+               audio_s_per_s=rate, ms_per_batch=ms)
     print(f"[fusion] two full-width 8 kHz models (lps + psm), weights {w}: (1, 0) vs single "
           f"model eager {e10:.3g} / serving {s10:.3g} (tol {FUSION_SINGLE_TOL:g}); fused serving "
           f"decoder vs eager {ferr:.3g} (rtol {FUSION_RTOL:g}, atol {FUSION_ATOL:g}); "
@@ -1186,6 +1172,160 @@ def _traced_ms(fn, reps: int = 20) -> dict:
         if e.device_type == DeviceType.CUDA and us > 0:
             out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
     return out
+
+
+# the kernels of the port (csrc/), by the names a trace gives them
+PORT_KERNELS = ("bf16_copy_kernel", "dropout_mask_kernel", "f32_fwd_kernel",
+                "input_mask_bits_kernel", "lstm_layer_kernel", "mask_probe_kernel",
+                "philox_words_kernel", "rank_sum_kernel", "sr_round_kernel", "sr_update_kernel",
+                "stft_lps_kernel", "stripe_bwd_kernel", "tc_fwd_kernel", "update_kernel")
+
+
+def _port(**launches) -> dict:
+    """{kernel: launches} over every kernel of the port: those given, the
+    others 0."""
+    _check(set(launches) <= set(PORT_KERNELS), f"not kernels of the port: {sorted(launches)}")
+    return dict(dict.fromkeys(PORT_KERNELS, 0), **launches)
+
+
+def _trace_counts(prof) -> dict:
+    """{kernel name: launches} of a torch.profiler trace, a kernel named
+    without its namespace and template arguments ("void
+    sednn::stripe_bwd_kernel<true, ...>(...)" -> "stripe_bwd_kernel")."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+)[<(]", e.key)
+            name = m.group(1) if m else e.key
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
+def _trace_pad() -> None:
+    """Begins and ends a traced region: waits for the card, then 32 small
+    torch launches and waits again.  The tracer can lose the first and the
+    last records of a trace, all of a trace of a few short launches (on an
+    H100, 8 float32 forwards read 7, 7, 7, 0, 0): these are then the ones
+    lost."""
+    torch.cuda.synchronize()
+    pad = torch.zeros(256, device="cuda")
+    for _ in range(32):
+        pad.add_(1.0)
+    torch.cuda.synchronize()
+
+
+def _traced(fn):
+    """-> (fn()'s value, {kernel: launches} of a torch.profiler trace of the call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _trace_pad()
+        value = fn()
+        _trace_pad()
+    return value, _trace_counts(prof)
+
+
+# The tracer loses records: at times every record of a short trace, and a few
+# of a long one (a few at its end, 7-15 of 1,600 overlapping dependent
+# launches on an H100).  A lost record only lowers a count.
+TRACE_LOSS = 0.02
+
+
+def _reads(got: dict, want: dict) -> bool:
+    """The counts `got` read `want`: a kernel expected absent is absent, and
+    every other at most TRACE_LOSS of its launches short of want (exact
+    below 50 launches).  So a kernel's absence is read only from a trace
+    that holds nearly every launch expected of the others."""
+    return all(got.get(k, 0) == 0 if n == 0 else n - int(TRACE_LOSS * n) <= got.get(k, 0) <= n
+               for k, n in want.items())
+
+
+def _until_counts(run, want, tries: int = 5):
+    """run() -> (value, {kernel: launches}), called again, `tries` times at
+    most, until the counts of want's kernels read want (_reads; want: a
+    dict, or a function of the value that gives one).  -> (the counts of
+    want's kernels, want, the last value)."""
+    for _ in range(tries):
+        value, counts = run()
+        w = want(value) if callable(want) else want
+        got = {k: counts.get(k, 0) for k in w}
+        if got != w:
+            print(f"[trace] {sum(w.values()) - sum(got.values())} of {sum(w.values())} launches "
+                  f"short: {({k: (got[k], n) for k, n in w.items() if got[k] != n})}", flush=True)
+        if _reads(got, w):
+            break
+    return got, w, value
+
+
+def _kernel_counts(fn, want: dict, tries: int = 5):
+    """-> ({kernel: launches} of want's kernels, fn()'s value): one call of
+    fn in this process, traced (_until_counts)."""
+    got, _, value = _until_counts(lambda: _traced(fn), want, tries)
+    return got, value
+
+
+def _traced_on_rank0(fn, want_of, rank: int, group=None, tries: int = 5):
+    """fn() on every rank of a process group, traced on rank 0 and called
+    again on every rank, `tries` times at most, until rank 0's counts of
+    want_of(value)'s kernels read it (_until_counts).  -> (value, rank 0's
+    counts, want; None, None on the other ranks)."""
+    import torch.distributed as dist
+
+    for _ in range(tries):
+        if rank == 0:
+            got, want, value = _until_counts(lambda: _traced(fn), want_of, tries=1)
+        else:
+            got, want, value = None, None, fn()
+        done = torch.tensor([int(rank != 0 or _reads(got, want))])
+        dist.broadcast(done, 0, group=group)
+        if done.item():
+            break
+    return value, got, want
+
+
+def run_traced_module(report: str, module: str, args: list) -> None:
+    """`python -m module args` in this process under torch.profiler; writes
+    the trace's {kernel: launches} (_trace_counts) as JSON to report + "." +
+    the rank (torchrun's RANK, else 0) and exits with the module's code.
+    The phases run a command through it (_traced_command), so that a
+    command's own process reads out which kernels it ran."""
+    import runpy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.argv = [module] + list(args)
+    code = 0
+    cuda = torch.cuda.is_available()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if cuda:
+            _trace_pad()
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code
+        if cuda:
+            _trace_pad()
+    with open(f"{report}.{os.environ.get('RANK', '0')}", "w") as f:
+        json.dump(_trace_counts(prof), f)
+    sys.exit(code)
+
+
+def _traced_command(pre: list, module: str, args: list, report: str, label: str, **run_kw):
+    """-> (subprocess.run of `python -m module args`, the module run by
+    run_traced_module, rank 0's {kernel: launches}); raises if it fails.
+    pre: the launcher (torchrun and its options) or [python]."""
+    script = report + ".py"
+    with open(script, "w") as f:
+        f.write(f"import sys\nsys.path.insert(0, {ROOT!r})\nimport chip_smoke\n"
+                f"chip_smoke.run_traced_module({report!r}, sys.argv[1], sys.argv[2:])\n")
+    proc = subprocess.run(pre + [script, module] + args, capture_output=True, text=True, **run_kw)
+    _check(proc.returncode == 0, f"{label} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    with open(report + ".0") as f:
+        return proc, json.load(f)
 
 
 def _bwd_breakdown(l: int, dedx, x, ws, deltas, b, db, hyp: dict) -> dict:
@@ -1409,338 +1549,11 @@ def _bwd_digests() -> dict:
             if wnt is not None:
                 _hold(g, wnt, f"{label}, {name}", worst, TC_REL_MAX, BWD_DIGEST_REL_FRO)
     torch.cuda.synchronize()
-    print(f"[bwd-times] tensor-core backward at the digests' {len(out)} shapes and forms vs the "
+    print(f"[bwd-digests] tensor-core backward at the digests' {len(out)} shapes and forms vs the "
           f"float64 plain version: max err {worst['rel_max']:.3g} of max|want| (tol {TC_REL_MAX}), "
           f"Frobenius {worst['rel_fro']:.3g} (tol {BWD_DIGEST_REL_FRO}); bfloat16 stores: "
           f"{sr_stats['n_diff']} of {sr_stats['n']} elements differ, worst share "
           f"{sr_stats['share']:.3g} (limit {SR_DIFF_SHARE})", flush=True)
-    return out
-
-
-BWD_PROF_STEPS = 19  # steps of a block whose times a recording library keeps
-
-
-def _bwd_block_profile(gen) -> dict:
-    """Where the tensor-core backward's stripe blocks spend their time, from a
-    package whose fused_mlp library records it: a copy of the kernel whose
-    thread 0 writes, for each block b, at g[64 b + i] its SM (i = 0),
-    %globaltimer at its start (1), before its ring loop (2), after it (3) and
-    at its end (4), its steps (5), and for each of its first BWD_PROF_STEPS
-    steps s the time the producer issued the step's copies (6 + 3 s), the
-    time the compute warps found them landed (+1) and the time they released
-    the slot (+2), which a C entry stripe_bwd_prof(out, n) copies out and
-    stripe_bwd_prof_clear() zeroes.  One fused_bwd_update of each layer shape
-    of the 8 and 16 kHz nets -> the stripe blocks, their steps, and in
-    microseconds (means over blocks): the prologue, the loop, the rest, a
-    step's period, and of a step past the first: the wait for its copies
-    (landed less the release of the step before) and the compute warps' work
-    (release less landed), and the copies' flight (landed less issued).  {}
-    where the library records nothing (the shipped kernel)."""
-    import ctypes
-
-    from tpu_sednn_torch.ops import fused_mlp
-
-    lib = fused_mlp._lib()
-    if not hasattr(lib, "stripe_bwd_prof"):
-        return {}
-    lib.stripe_bwd_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    out = {}
-    for K, N in sorted({(net[l], net[l + 1]) for net in (FLAGSHIP, WIDE) for l in range(4)}):
-        x, dedx = torch.relu(_randn(gen, BUNCH, K)), _randn(gen, BUNCH, N, scale=0.02)
-        w, d = _randn(gen, K, N, scale=0.03), torch.zeros(K, N, device="cuda")
-        b, db = _randn(gen, N, scale=0.1), torch.zeros(N, device="cuda")
-        call = lambda: fused_mlp.fused_bwd_update(dedx, x, w, d, b, db, 0.5, 1e-3, 1.0 / BUNCH,  # noqa: E731
-                                                  0.0, deriv="relu", bf16=True)
-        call()
-        torch.cuda.synchronize()
-        lib.stripe_bwd_prof_clear()
-        call()
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (4096 * 64))()
-        lib.stripe_bwd_prof(ctypes.addressof(buf), 4096)
-        a = np.array(buf, dtype=np.uint64).reshape(-1, 64)
-        a = a[a[:, 5] > 0].astype(np.int64)  # the stripe blocks
-        t0 = a[:, 1].min()
-        us = lambda c: (a[:, c] - t0) / 1e3  # noqa: E731
-        n = a[:, 5]
-        k = int(min(n.min(), BWD_PROF_STEPS))
-        issued, landed, done = (np.stack([us(6 + 3 * i + j) for i in range(k)], 1)
-                                for j in range(3))
-        prev = np.concatenate([us(2)[:, None], done[:, :-1]], 1)
-        wait, work = landed - prev, done - landed
-        out[f"{BUNCH}x{K}x{N}"] = dict(
-            blocks=int(len(a)), sms=int(len(np.unique(a[:, 0]))), steps_mean=float(n.mean()),
-            steps_max=int(n.max()), span_us=float(us(4).max()),
-            prologue_us=float((us(2) - us(1)).mean()), loop_us=float((us(3) - us(2)).mean()),
-            rest_us=float((us(4) - us(3)).mean()),
-            step_us=float(((us(3) - us(2)) / n).mean()),
-            first_wait_us=float(wait[:, 0].mean()), first_work_us=float(work[:, 0].mean()),
-            wait_us=float(wait[:, 1:].mean()) if k > 1 else None,
-            work_us=float(work[:, 1:].mean()) if k > 1 else None,
-            flight_us=float((landed - issued).mean()))
-        print(f"[bwd-times] stripe blocks of {BUNCH}x{K}x{N}: {json.dumps(out[list(out)[-1]])}",
-              flush=True)
-        del w, d
-    return out
-
-
-def bwd_times() -> dict:
-    """Only the backward's device times, for comparing two checkouts in one call
-    (--bwd-times, with --package-root for the other): fused_bwd_update of one
-    bunch's four layers at 8 and 16 kHz in both product forms, and the float32
-    gradient-out backward of a rank's 64 rows of the 8 kHz layers (dedy below
-    the first), each call on the next of three weight sets, by CUDA events; for
-    the tensor-core form also each layer's kernels by name in a traced run
-    (_traced_ms: stripe_bwd_kernel alone, and the cast of dedx to bfloat16
-    where the wrapper makes one); _bwd_block_profile where the package records
-    one; and _bwd_digests."""
-    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_grad_out, fused_bwd_update
-
-    gen = torch.Generator(device="cuda").manual_seed(1313)
-    out = {}
-    for tag, net in (("8k", FLAGSHIP), ("16k", WIDE)):
-        for tc in (False, True):
-            by_layer, kernel, cast = [], [], []
-            for l in range(4):
-                K, N = net[l], net[l + 1]
-                x, dedx = _randn(gen, BUNCH, K), _randn(gen, BUNCH, N, scale=0.02)
-                ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
-                deltas = [torch.zeros(K, N, device="cuda") for _ in range(3)]
-                b, db = _randn(gen, N, scale=0.1), torch.zeros(N, device="cuda")
-                hyp = dict(momentum=0.5, lrate=1e-3, inv_n=1.0 / BUNCH, weightcost=0.0, bf16=tc)
-                call = lambda i: fused_bwd_update(dedx, x, ws[i % 3], deltas[i % 3], b, db,  # noqa: E731
-                                                  **hyp)
-                by_layer.append(_device_ms(call))
-                if tc:
-                    traced = _traced_ms(call)
-                    kernel.append(sum(v for k, v in traced.items() if "stripe_bwd_kernel" in k))
-                    cast.append(sum(v for k, v in traced.items() if "bf16_copy" in k))
-                del ws, deltas
-            out[f"{tag}_{'tc' if tc else 'f32'}"] = dict(ms=sum(by_layer), by_layer=by_layer)
-            if tc:
-                out[f"{tag}_tc"].update(kernel_traced_ms=sum(kernel), kernel_by_layer=kernel,
-                                        cast_traced_ms=sum(cast))
-                print(f"[bwd-times] {tag}_tc traced: stripe_bwd_kernel "
-                      f"{' '.join('%.4f' % t for t in kernel)} ms (sum {sum(kernel):.4f}), the "
-                      f"cast of dedx {' '.join('%.4f' % t for t in cast)}", flush=True)
-            torch.cuda.empty_cache()
-    by_layer = []
-    for l in range(4):
-        K, N, M = FLAGSHIP[l], FLAGSHIP[l + 1], 64
-        dedx, y = _randn(gen, M, N, scale=0.02), torch.relu(_randn(gen, M, K))
-        ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
-        grad, dedy = torch.empty(K * N + N, device="cuda"), torch.empty(M, K, device="cuda")
-        kw = dict(deriv=None if l == 0 else "relu", with_dedy=l > 0, grad=grad,
-                  dedy=None if l == 0 else dedy, bf16=False)
-        by_layer.append(_device_ms(lambda i: fused_bwd_grad_out(dedx, y, ws[i % 3], **kw)))
-    out["dp64_f32_grad_out"] = dict(ms=sum(by_layer), by_layer=by_layer)
-    for k, v in out.items():
-        print(f"[bwd-times] {k}: {v['ms']:.4f} ms (by layer "
-              f"{' '.join('%.4f' % t for t in v['by_layer'])})", flush=True)
-    out["blocks"] = _bwd_block_profile(gen)
-    out["digests"] = _bwd_digests()
-    for k, v in out["digests"].items():
-        print(f"[bwd-times] digest {k}: {v}", flush=True)
-    return out
-
-
-def _fwd_digests() -> dict:
-    """SHA-256 digests of the float32 forward's outputs on seeded inputs, for
-    holding two checkouts bit for bit (fwd_times): fused_linear_act's y (bf16=False)
-    at every layer shape of the 8 and 16 kHz nets and at phase_fused_kernels' ragged
-    shapes, three activations x no mask / Philox masks / explicit masks, float32 and
-    bfloat16 W; and dp_tile_forward's activations and dedx (a rank's 64 rows at
-    both offsets and the whole 128-row tile, both nets, a linear and a sigmoid
-    head, dropout on).  -> {group: hex digest}, each group's inputs seeded on
-    their own."""
-    import ctypes
-    import hashlib
-
-    from tpu_sednn_torch.model.mlp import ModelConfig
-    from tpu_sednn_torch.ops import resident_chunk as rc
-    from tpu_sednn_torch.ops.fused_mlp import fused_linear_act
-    from tpu_sednn_torch.ops.philox import philox_mask
-
-    def digest(tensors) -> str:
-        torch.cuda.synchronize()
-        h = hashlib.sha256()
-        for t in tensors:
-            h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()
-
-    out = {}
-    shapes = sorted({(BUNCH, net[l], net[l + 1]) for net in (FLAGSHIP, WIDE) for l in range(4)})
-    shapes += [(8, 1548, 129), (136, 1548, 129), (136, 100, 37), (24, 2048, 2048),
-               (256, 2048, 2048), (512, 1548, 129)]
-    for n, (B, K, N) in enumerate(shapes):
-        gen = torch.Generator(device="cuda").manual_seed(7100 + n)
-        x, w, b = _randn(gen, B, K), _randn(gen, K, N, scale=0.03), _randn(gen, N, scale=0.1)
-        im = philox_mask(11, B, K, 0.1, device="cuda")
-        om = philox_mask(12, B, N, 0.2, device="cuda")
-        ys = []
-        for wt in (w, w.bfloat16()):
-            for act in ("relu", "sigmoid", "linear"):
-                for kw in ({}, {"in_mask": (11, 0.1), "out_mask": (12, 0.2), "out_scale": 1.25},
-                           {"in_mask": im, "in_scale": 1.0 / 0.9, "out_mask": om}):
-                    ys.append(fused_linear_act(x, wt, b, act, bf16=False, **kw))
-        out[f"fused_linear_act {B}x{K}x{N}"] = digest(ys)
-    for n, (sizes, head, tile) in enumerate((s, h, t) for s in (FLAGSHIP, WIDE)
-                                            for h in ("linear", "sigmoid") for t in (64, 128)):
-        cfg = ModelConfig(layersizes=sizes, output=head, dropout_vis=0.1, dropout_hid=0.2)
-        gen = torch.Generator(device="cuda").manual_seed(7200 + n)
-        ws = [_randn(gen, a, c, scale=0.03) for a, c in zip(sizes[:-1], sizes[1:])]
-        bs = [_randn(gen, c, scale=0.1) for c in sizes[1:]]
-        x, t = _randn(gen, BUNCH, sizes[0]), _randn(gen, BUNCH, sizes[-1])
-        fwd = rc.dp_tile_forward(cfg, tile, BUNCH, False, torch.device("cuda"))
-        tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
-        got = []
-        for row0 in range(0, BUNCH, tile):
-            ys, dedx = fwd(x[row0:row0 + tile].contiguous(), t[row0:row0 + tile].contiguous(),
-                           ws, bs, 31 + n, row0, 2.0 / BUNCH, tallies,
-                           *_dp_input_table(rc, 31 + n, tile, sizes[0], 0.1, row0))
-            got += [y.clone() for y in ys] + [dedx[:tile * sizes[-1]].clone()]
-        out[f"dp_tile_forward {'-'.join(map(str, sizes))} {head} head, {tile} of {BUNCH} rows"] = \
-            digest(got)
-    return out
-
-
-def _dp_input_table(rc, key0: int, tile: int, K: int, omit: float, row0: int) -> tuple:
-    """(the rank's rows of the input-mask table of one tile under key0, at
-    row0) where the package's data-parallel forward reads the input's mask
-    from a table (input_mask_bits takes row0), else () (it draws Philox in
-    the kernel): the extra argument of dp_tile_forward's fwd, so that two
-    checkouts run the same forward."""
-    import inspect
-
-    if "row0" not in inspect.signature(rc.input_mask_bits).parameters:
-        return ()
-    return (rc.input_mask_bits(key0, 1, tile, K, omit, row0=row0)[0],)
-
-
-def _fwd_block_profile(gen) -> dict:
-    """Where a float32 forward's blocks run and for how long, from a package
-    whose fused_mlp library records it (a copy of the kernel that writes, for
-    each block, its SM (%smid) and %globaltimer at its start, after its K
-    loop and at its end into a device array that a C entry f32_fwd_prof(out,
-    n) copies out and f32_fwd_prof_clear() zeroes): one launch of the 8 kHz
-    2048-deep layer and of layer 0 with its input mask, each -> the blocks,
-    the SMs used, how many hold 1, 2, 3 .. blocks, the most blocks an SM runs
-    at once, and the K loop's and the rest's microseconds.  {} where the
-    library records nothing (the shipped kernel)."""
-    import ctypes
-
-    from tpu_sednn_torch.ops import fused_mlp
-
-    lib = fused_mlp._lib()
-    if not hasattr(lib, "f32_fwd_prof"):
-        return {}
-    lib.f32_fwd_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    out = {}
-    for K, N, kw in ((2048, 2048, {}), (1548, 2048, dict(in_mask=(4, 0.1)))):
-        x, w, b = _randn(gen, BUNCH, K), _randn(gen, K, N, scale=0.03), _randn(gen, N, scale=0.1)
-        fused_mlp.fused_linear_act(x, w, b, "relu", bf16=False, **kw)
-        torch.cuda.synchronize()
-        lib.f32_fwd_prof_clear()
-        fused_mlp.fused_linear_act(x, w, b, "relu", bf16=False, **kw)
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (8192 * 4))()
-        lib.f32_fwd_prof(ctypes.addressof(buf), 8192)
-        a = np.array(buf, dtype=np.uint64).reshape(-1, 4)
-        a = a[a[:, 1] > 0]
-        sm, t = a[:, 0].astype(np.int64), (a[:, 1:] - a[:, 1].min()) / 1e3  # us
-        most = 0
-        for s in np.unique(sm):
-            ev = sorted([(v, 1) for v in t[sm == s, 0]] + [(v, -1) for v in t[sm == s, 2]])
-            most = max(most, int(max(np.cumsum([d for _, d in ev]))))
-        per_sm = np.bincount(sm, minlength=torch.cuda.get_device_properties(0).multi_processor_count)
-        out[f"{BUNCH}x{K}x{N}{' masked' if kw else ''}"] = dict(
-            blocks=int(len(a)), sms=int((per_sm > 0).sum()), sms_holding=np.bincount(per_sm).tolist(),
-            most_at_once=most, span_us=float(t[:, 2].max()), loop_us_mean=float((t[:, 1] - t[:, 0]).mean()),
-            loop_us_max=float((t[:, 1] - t[:, 0]).max()), rest_us_mean=float((t[:, 2] - t[:, 1]).mean()),
-            rest_us_max=float((t[:, 2] - t[:, 1]).max()))
-        print(f"[fwd-times] blocks of {BUNCH}x{K}x{N}{' masked' if kw else ''}: "
-              f"{json.dumps(out[list(out)[-1]])}", flush=True)
-    return out
-
-
-def fwd_times() -> dict:
-    """Only the float32 forward, for comparing two checkouts in one call
-    (--fwd-times, with --package-root for the other): fused_linear_act with
-    float32 products (bf16=False) of one bunch at each layer of the 8 and 16 kHz
-    nets with the training path's masks, each call on the next of three weight
-    sets, by CUDA events, beside torch.addmm + act and the bound; the
-    data-parallel forward of a rank's 64 rows planned for the global 128
-    (dp_tile_forward, the whole 8 kHz net); the kernels of an 8 kHz bunch's
-    forward by name in a traced run (_traced_ms: a share, not a time); and
-    _fwd_digests; _fwd_block_profile where the package records one.  Public
-    entry points only (and fused_mlp's library where it records a profile)."""
-    import ctypes
-
-    from tpu_sednn_torch.model.mlp import ModelConfig
-    from tpu_sednn_torch.ops import resident_chunk as rc
-    from tpu_sednn_torch.ops.fused_mlp import fused_linear_act
-
-    gen = torch.Generator(device="cuda").manual_seed(1414)
-    out = {}
-    for tag, net in (("8k", FLAGSHIP), ("16k", WIDE)):
-        by_layer, lib, flops, layers = [], [], 0.0, []
-        for l in range(4):
-            K, N = net[l], net[l + 1]
-            x, b = _randn(gen, BUNCH, K), _randn(gen, N, scale=0.1)
-            ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
-            act = "relu" if l < 3 else "linear"
-            kw = dict(in_mask=(4, 0.1) if l == 0 else None, out_mask=(5, 0.2) if l < 3 else None)
-            by_layer.append(_device_ms(lambda i: fused_linear_act(x, ws[i % 3], b, act, bf16=False,
-                                                                  **kw)))
-            if l == 0:  # what the input mask costs
-                l0_nomask = _device_ms(lambda i: fused_linear_act(x, ws[i % 3], b, act, bf16=False))
-
-            def library(i):
-                y = torch.addmm(b, x, ws[i % 3])
-                return torch.relu(y) if act == "relu" else y
-
-            lib.append(_device_ms(library))
-            flops += 2.0 * BUNCH * K * N
-            layers.append((x, ws, b, act, kw))
-        out[tag] = dict(ms=sum(by_layer), by_layer=by_layer, library_ms=sum(lib),
-                        library_by_layer=lib, bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
-                        bound_by="operations", layer0_without_mask_ms=l0_nomask)
-        if tag == "8k":
-            def bunch(i):
-                for x, ws, b, act, kw in layers:
-                    fused_linear_act(x, ws[i % 3], b, act, bf16=False, **kw)
-
-            out[tag]["traced"] = {k[:80]: v for k, v in _traced_ms(bunch).items()}
-        del layers
-        torch.cuda.empty_cache()
-    cfg = ModelConfig(layersizes=FLAGSHIP, dropout_vis=0.1, dropout_hid=0.2)
-    fwd = rc.dp_tile_forward(cfg, 64, BUNCH, False, torch.device("cuda"))
-    ws = [[_randn(gen, a, c, scale=0.03) for a, c in zip(FLAGSHIP[:-1], FLAGSHIP[1:])]
-          for _ in range(3)]
-    bs = [_randn(gen, c, scale=0.1) for c in FLAGSHIP[1:]]
-    x, t = _randn(gen, 64, FLAGSHIP[0]), _randn(gen, 64, FLAGSHIP[-1])
-    tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
-    bits = _dp_input_table(rc, 9, 64, FLAGSHIP[0], 0.1, 64)
-    out["dp64"] = dict(ms=_device_ms(lambda i: fwd(x, t, ws[i % 3], bs, 9, 64, 2.0 / BUNCH,
-                                                     tallies, *bits)))
-    del ws
-    torch.cuda.empty_cache()
-    for k in ("8k", "16k"):
-        v = out[k]
-        print(f"[fwd-times] {k} f32 fused_linear_act, one bunch's four layers: {v['ms']:.4f} ms "
-              f"(by layer {' '.join('%.4f' % t for t in v['by_layer'])}; layer 0 without its mask "
-              f"{v['layer0_without_mask_ms']:.4f}), {v['ms'] / v['bound_ms']:.2f}"
-              f" x its bound {v['bound_ms']:.4f} ms (operations); torch.addmm+act "
-              f"{v['library_ms']:.4f} (by layer {' '.join('%.4f' % t for t in v['library_by_layer'])})",
-              flush=True)
-    out["blocks"] = _fwd_block_profile(gen)
-    print(f"[fwd-times] 8k kernels traced (ms a bunch): "
-          f"{', '.join(f'{k} {v:.4f}' for k, v in out['8k']['traced'].items())}", flush=True)
-    print(f"[fwd-times] dp_tile_forward, a rank's 64 rows of 128, 1548-2048x3-129: "
-          f"{out['dp64']['ms']:.4f} ms", flush=True)
-    out["digests"] = _fwd_digests()
-    for k, v in out["digests"].items():
-        print(f"[fwd-times] digest {k}: {v}", flush=True)
     return out
 
 
@@ -1756,7 +1569,6 @@ def phase_fused_kernels(gen) -> dict:
     ragged = [(8, 1548, 129), (136, 1548, 129), (136, 100, 37), (24, 2048, 2048),
               (256, 2048, 2048), (512, 1548, 129)]
     fwd_worst, bwd_worst, plain_worst, sr_stats = {}, {}, {}, {}
-    fwd_calls, fwd0 = 0, fused_linear_act.launches
     for B, K, N in layer_shapes + ragged:
         x = _randn(gen, B, K)
         w = _randn(gen, K, N, scale=0.03)
@@ -1769,7 +1581,6 @@ def phase_fused_kernels(gen) -> dict:
                 want = fused_linear_act_reference(x, w, b, act, dtype=f64, bf16=False, **kw)
                 _hold(fused_linear_act(x, w, b, act, bf16=False, **kw), want,
                       f"fused_linear_act {B}x{K}x{N} {act} {sorted(kw)}", fwd_worst)
-                fwd_calls += 1
                 _hold(fused_linear_act_reference(x, w, b, act, bf16=False, **kw), want,
                       f"float32 plain fused_linear_act {B}x{K}x{N}", plain_worst)
         dedx = _randn(gen, B, N, scale=0.02)
@@ -1805,10 +1616,12 @@ def phase_fused_kernels(gen) -> dict:
                 for name, i in (("dedy", 2), ("b", 3), ("delta_b", 4)):
                     _hold(got[i], want[i], f"{label}, {name}", bwd_worst)
         torch.cuda.synchronize()
-    # the float32 forward: one launch a call
-    _check(fused_linear_act.launches - fwd0 == fwd_calls,
-           f"the float32 forward launched {fused_linear_act.launches - fwd0} kernels in "
-           f"{fwd_calls} calls")
+    # the float32 forward: one launch a call (K split within a cluster), masks drawn in it
+    eight = _port(f32_fwd_kernel=8)
+    got, _ = _kernel_counts(lambda: [fused_linear_act(x, w, b, "relu", bf16=False, in_mask=(11, 0.1),
+                                                      out_mask=(12, 0.2)) for _ in range(8)], eight)
+    _check(_reads(got, eight), f"8 float32 forwards {tuple(x.shape)} x {tuple(w.shape)}: {got} in a "
+                               f"trace")
     # above the rows its registers hold, the backward refuses a card tensor (either form)
     from tpu_sednn_torch.ops.fused_mlp import BWD_MAX_ROWS, fused_bwd_grad_out
 
@@ -2161,22 +1974,19 @@ def _phase_mask_table() -> dict:
             _check(all(torch.equal(u, v) for u, v in zip(*outs)),
                    f"layer 0 {BUNCH}x{K}x{N} bf16={tc}: the backward reading a table differs "
                    f"from the Philox draw")
-    # no fallback: a call with input dropout and no table is refused before it launches
+    # no fallback: a call with input dropout and no table is refused
     c_sizes = (ctypes.c_int * 2)(8, 8)
     nulls = (ctypes.c_void_p * 1)(None)
     plan = (ctypes.c_int * 4)(*rc.early_read_plan(1, 1))
-    tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
     err = rc._lib().resident_chunk_train(None, None, 1, 8, 1, c_sizes, 1, nulls, 0, nulls, 0, nulls,
                                          nulls, None, None, 1, 0, mask_threshold(0.1), 0, 1.0, 1.0,
-                                         7, 0.5, 0.1, 0.0, 1, plan, tallies, None)
-    _check(err != 0 and not any(tallies), f"a chunk-trainer call with input dropout and no table: "
-                                          f"error {err}, tallies {list(tallies)}")
+                                         7, 0.5, 0.1, 0.0, 1, plan, None)
+    _check(err != 0, f"a chunk-trainer call with input dropout and no table: error {err}")
     # and so is a data-parallel forward with input dropout and no table
     err_dp = rc._lib().dp_chunk_forward(None, None, 8, 16, c_sizes, 1, nulls, nulls, nulls, None,
                                         1, 0, mask_threshold(0.1), 0, 1.0, 1.0, None, 7, 8, 0.1, 1,
-                                        tallies, None)
-    _check(err_dp != 0 and not any(tallies), f"a data-parallel forward with input dropout and no "
-                                             f"table: error {err_dp}, tallies {list(tallies)}")
+                                        None)
+    _check(err_dp != 0, f"a data-parallel forward with input dropout and no table: error {err_dp}")
     out = {}
     for tag, K in (("8k", FLAGSHIP[0]), ("16k", 3084)):
         ms = _device_ms(lambda i: rc.input_mask_bits(seed + i, n_tiles, BUNCH, K, 0.1))
@@ -2211,9 +2021,7 @@ def _phase_mask_table() -> dict:
                 times_of="one launch of input_mask_bits_kernel drawing the input masks of an "
                          "800-tile chunk-trainer call (8 kHz; at_16k: 16 kHz; dp_rank_of_2: one "
                          "data-parallel rank's 64 rows of each tile); probe: one standalone "
-                         "launch of sample_resident_masks; `launches` counts the draw kernel's "
-                         "launches and the layer kernels' launches that drew Philox masks in the "
-                         "kernel (hidden layers)",
+                         "launch of sample_resident_masks",
                 library_is="torch.rand >= omit over the same elements: not the same bits")
 
 
@@ -2486,25 +2294,15 @@ def phase_resident(gen) -> dict:
     # kernels launched one by one through the standalone wrappers, which never take the
     # attribute (ops.train_step's per-bunch step; for sr_delta the wrappers with the
     # trainer's rounding streams), with the trainer's masks: the same bits, so no launch
-    # of the chain read an operand before it was written (a race would show here); and
-    # the chain's dependent launches counted: every launch of a call but its first
+    # of the chain read an operand before it was written (a race would show here)
     cfg_d = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
     # (and the float32-product chain, bf16=False, against the wrappers' float32 forms)
     for label, kw, steps in (("tensor cores, float32 state", {}, "ops.train_step"),
                              ("tensor cores, sr_delta", dict(sr_delta=True), "fused_linear_act and "
                               "fused_bwd_update with its rounding streams"),
                              ("float32 products", dict(bf16=False), "ops.train_step")):
-        before = dict(rc.kernel_launches)
         chunk_tc = rc.make_resident_train_chunk(cfg_d, opt, **kw)(
             init_train_state(mlp), x[:n_b * BUNCH], t_lin[:n_b * BUNCH], 17, *hyp)
-        n_pdl, n_table, n_in_philox = (rc.kernel_launches[k] - before[k] for k in
-                                       ("pdl", "input_mask_table", "input_mask_philox"))
-        _check(n_pdl == 2 * 4 * n_b - 1, f"{label}: {n_pdl} programmatic dependent launches in a "
-                                          f"call of {n_b} bunches, not {8 * n_b - 1}")
-        # the input masks drawn once, by the draw kernel, and read by layer 0's two kernels
-        _check(n_table == 1 and n_in_philox == 0,
-               f"{label}: {n_table} draw launches, {n_in_philox} layer-0 launches that drew the "
-               f"input mask by Philox in a call (want 1 and 0)")
         st_s = init_train_state(mlp)
         if kw.get("sr_delta"):
             _sr_delta_steps(st_s, x, t_lin, opt, 17, n_b)
@@ -2519,11 +2317,23 @@ def phase_resident(gen) -> dict:
         for a, b in zip(_state_tensors(st_s), _state_tensors(chunk_tc)):
             _check(torch.equal(a, b), f"{label}: the standalone wrappers' steps differ from the "
                                       f"chunk trainer")
-        print(f"[kernel] chunk trainer, {label}: its chain ({n_pdl} programmatic "
-              f"dependent launches in {n_b} bunches; the input masks drawn by {n_table} launch "
-              f"into their bit table, which layer 0 reads) gives the same bits as the standalone "
-              f"wrappers launched one by one ({steps}; explicit masks) over {n_b} bunches",
-              flush=True)
+        print(f"[kernel] chunk trainer, {label}: its chain of programmatic dependent launches "
+              f"gives the same bits as the standalone wrappers launched one by one ({steps}; "
+              f"explicit masks) over {n_b} bunches", flush=True)
+    # the chain writes dedx's bfloat16 copies in its own launches: a traced call holds a
+    # forward of its form and a backward a layer a bunch, one draw of the input masks, and
+    # no cast of dedx (nor any other kernel of the port)
+    L = len(FLAGSHIP) - 1
+    for bf16, fwd in ((True, "tc_fwd_kernel"), (False, "f32_fwd_kernel")):
+        run_d = rc.make_resident_train_chunk(cfg_d, opt, bf16=bf16)
+        want = _port(**{fwd: L * n_b}, stripe_bwd_kernel=L * n_b, input_mask_bits_kernel=1)
+        got, _ = _kernel_counts(lambda: run_d(init_train_state(mlp), x[:n_b * BUNCH],
+                                              t_lin[:n_b * BUNCH], 17, *hyp), want)
+        _check(_reads(got, want), f"the {fwd} chain's traced call: {got}, want {want}")
+    print(f"[kernel] chunk trainer: a traced call of {n_b} bunches runs {L * n_b} forwards of its "
+          f"form (tc_fwd_kernel, f32_fwd_kernel), {L * n_b} stripe_bwd_kernel and one "
+          f"input_mask_bits_kernel, and no bf16_copy_kernel or other kernel of the port (dedx's "
+          f"bfloat16 copies written by the chain's own launches)", flush=True)
     print(f"[kernel] chunk trainer, tensor cores: worst update error of any tensor "
           f"{tc_worst['rel_fro']:.3g} after 3 bunches (tol {TC_THREE_REL_FRO}), "
           f"{tc_worst['one']:.3g} after one (tol {TC_ONE_REL_FRO})", flush=True)
@@ -2640,8 +2450,9 @@ def _chunk_digests(names) -> dict:
     form of CHUNK_DIGEST_FORMS named, on seeded inputs: glorot weights of seed
     5, parity dropout 0.1/0.2, bunches of 128 drawn from a card generator
     seeded per form, dropout seed 3.  Public entry points only, so that
-    another checkout's package gives comparable digests (--mask-times
-    --package-root)."""
+    another checkout's package gives comparable digests (the card tests of
+    tests/test_torch_bf16_dedx.py hold digests recorded at an earlier
+    commit)."""
     from tpu_sednn_torch.model.mlp import ModelConfig, init_params
     from tpu_sednn_torch.ops import resident_chunk as rc
     from tpu_sednn_torch.train.step import OptConfig, init_train_state
@@ -2663,244 +2474,6 @@ def _chunk_digests(names) -> dict:
         del x, t, st
         torch.cuda.empty_cache()
     return out
-
-
-def mask_times() -> dict:
-    """The input mask's share of the chunk trainer, for comparing two checkouts
-    in one call (--mask-times, with --package-root for the other).
-    * layer 0 alone: fused_linear_act (with the hidden layer's out_mask) and
-      fused_bwd_update at 128 x 1548 x 2048 and 128 x 3084 x 2048, tensor-core
-      and float32 products, with no input mask, with the Philox input mask
-      drawn in the kernel, and, where the package has the packed bit table
-      (ops/philox.py:philox_mask_words), with the table's bits (its outputs
-      held bit-equal to the Philox form's); each call on the next of three
-      weight sets, by CUDA events (_device_ms);
-    * the chains a bunch (CUDA events around whole calls, in turns): tensor
-      cores at 8 kHz (100 bunches), float32 products at 8 kHz and tensor
-      cores with sr_delta at 16 kHz (50 bunches), each with the input's
-      dropout 0.1 and 0 (the hidden layers' 0.2 in both); layer 1 alone,
-      which keeps its masks as they were;
-    * the data-parallel trainer at one rank of 2's 64 rows: layer 0 alone
-      (fused_linear_act and the gradient-out backward's first-layer form,
-      1548 x 2048, both product forms) with no input mask, with the Philox
-      mask at row 64 and with the rank's table; its whole forward
-      (dp_tile_forward) with input dropout 0.1 and 0, the package's own way
-      (a table where it takes one); one rank's trainer a bunch (the sum
-      stubbed, 8 bunches a call);
-    * kernel 5 and the plain trainer on its masks (_dropout_mask_times);
-    * the state digests of every form of CHUNK_DIGEST_FORMS, of one call of
-      the data-parallel trainer for each rank of 2 (the sum stubbed, 8
-      bunches, parity dropout 0.1/0.2, both product forms), of the plain
-      trainer on kernel 5's masks, and _fwd_digests."""
-    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
-    from tpu_sednn_torch.ops import philox
-    from tpu_sednn_torch.ops import resident_chunk as rc
-    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_update, fused_linear_act
-    from tpu_sednn_torch.train.step import OptConfig, init_train_state
-
-    has_bits = hasattr(philox, "philox_mask_words")
-    gen = torch.Generator(device="cuda").manual_seed(1515)
-    out = {"layer0": {}, "chains": {}, "has_bits": has_bits}
-    for tag, net in (("8k", FLAGSHIP), ("16k", WIDE)):
-        K, N = net[0], net[1]
-        x, b = _randn(gen, BUNCH, K), _randn(gen, N, scale=0.1)
-        ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
-        deltas = [torch.zeros(K, N, device="cuda") for _ in range(3)]
-        dedx, db = _randn(gen, BUNCH, N, scale=0.02), torch.zeros(N, device="cuda")
-        masks = {"off": None, "philox": (4, 0.1)}
-        if has_bits:
-            masks["bits"] = philox.philox_mask_words(4, BUNCH, K, 0.1, device="cuda")
-            for tc in (True, False):
-                ys = [fused_linear_act(x, ws[0], b, "relu", in_mask=masks[k], out_mask=(5, 0.2),
-                                       bf16=tc) for k in ("philox", "bits")]
-                _check(torch.equal(ys[0], ys[1]), f"{tag} layer 0, bf16={tc}: the bit table's "
-                                                  f"forward differs from the Philox one")
-        for tc in (True, False):
-            row = {}
-            for name, m in masks.items():
-                row[f"fwd_{name}"] = _device_ms(lambda i: fused_linear_act(
-                    x, ws[i % 3], b, "relu", in_mask=m, out_mask=(5, 0.2), bf16=tc))
-                row[f"bwd_{name}"] = _device_ms(lambda i: fused_bwd_update(
-                    dedx, x, ws[i % 3], deltas[i % 3], b, db, 0.5, 1e-3, 1.0 / BUNCH, 0.0,
-                    in_mask=m, bf16=tc))
-            out["layer0"][f"{tag}_{'tc' if tc else 'f32'}"] = row
-            print(f"[mask-times] layer 0 {BUNCH}x{K}x{N} {'tc' if tc else 'f32'}: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + " ms", flush=True)
-        del ws, deltas
-        torch.cuda.empty_cache()
-    # a layer without an input mask (layer 1: 2048 x 2048, the hidden mask in its epilogue),
-    # which a change to layer 0's masking must leave as it was
-    x, b = _randn(gen, BUNCH, 2048), _randn(gen, 2048, scale=0.1)
-    ws = [_randn(gen, 2048, 2048, scale=0.03) for _ in range(3)]
-    for tc in (True, False):
-        out["layer0"][f"8k_{'tc' if tc else 'f32'}"]["fwd_layer1"] = _device_ms(
-            lambda i: fused_linear_act(x, ws[i % 3], b, "relu", out_mask=(6, 0.2), bf16=tc))
-    del ws
-    if has_bits:  # the draw of an 800-tile call's tables
-        out["draw_ms"] = {tag: _device_ms(lambda i: rc.input_mask_bits(9 + i, 800, BUNCH, K, 0.1))
-                          for tag, K in (("8k", FLAGSHIP[0]), ("16k", WIDE[0]))}
-    print(f"[mask-times] layer 1 {BUNCH}x2048x2048 forward: tc "
-          f"{out['layer0']['8k_tc']['fwd_layer1']:.4f}, f32 "
-          f"{out['layer0']['8k_f32']['fwd_layer1']:.4f} ms; the draw of an 800-tile call "
-          f"{out.get('draw_ms')}", flush=True)
-    out["dp2_layer0"], out["dp2_forward"], out["dp2"], out["dp_digests"] = {}, {}, {}, {}
-    # one rank of 2's layer 0 (its 64 rows of 128): the forward (K split for the 64 rows, not
-    # for the global tile as the trainer's) and the gradient-out backward's first-layer form
-    from tpu_sednn_torch.ops.fused_mlp import fused_bwd_grad_out
-
-    M, K, N = BUNCH // 2, FLAGSHIP[0], FLAGSHIP[1]
-    x, b = _randn(gen, M, K), _randn(gen, N, scale=0.1)
-    ws = [_randn(gen, K, N, scale=0.03) for _ in range(3)]
-    dedx, grad = _randn(gen, M, N, scale=0.02), torch.empty(K * N + N, device="cuda")
-    dp_masks = {"off": ({}, {}), "philox": ({"in_mask": (4, 0.1)},
-                                            {"in_mask": (4, 0.1), "mask_row0": M}),
-                "table": ({"in_mask": philox.philox_mask_words(4, M, K, 0.1, row0=M,
-                                                               device="cuda")},) * 2}
-    for tc in (True, False):
-        row = {}
-        for name, (fkw, bkw) in dp_masks.items():
-            row[f"fwd_{name}"] = _device_ms(lambda i: fused_linear_act(
-                x, ws[i % 3], b, "relu", out_mask=(5, 0.2), bf16=tc, **fkw))
-            row[f"bwd_{name}"] = _device_ms(lambda i: fused_bwd_grad_out(
-                dedx, x, ws[i % 3], with_dedy=False, grad=grad, bf16=tc, **bkw))
-        out["dp2_layer0"]["tc" if tc else "f32"] = row
-        print(f"[mask-times] data-parallel layer 0, a rank's {M}x{K}x{N} "
-              f"{'tc' if tc else 'f32'}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
-              + " ms", flush=True)
-    del ws
-    # one rank of 2's whole forward (dp_tile_forward, rank 1's rows at row0 64), input dropout
-    # 0.1 (the package's own way of masking the input) and 0
-    import ctypes
-
-    dws = [[_randn(gen, a, c, scale=0.03) for a, c in zip(FLAGSHIP[:-1], FLAGSHIP[1:])]
-           for _ in range(3)]
-    dbs = [_randn(gen, c, scale=0.1) for c in FLAGSHIP[1:]]
-    xt, tt = _randn(gen, M, FLAGSHIP[0]), _randn(gen, M, FLAGSHIP[-1])
-    tallies = (ctypes.c_longlong * len(rc.kernel_launches))()
-    for tc in (True, False):
-        for vis in (0.1, 0.0):
-            fcfg = ModelConfig(layersizes=FLAGSHIP, dropout_vis=vis, dropout_hid=0.2)
-            fwd = rc.dp_tile_forward(fcfg, M, BUNCH, tc, torch.device("cuda"))
-            bits = _dp_input_table(rc, 9, M, FLAGSHIP[0], vis, M) if vis > 0.0 else ()
-            out["dp2_forward"][f"{'tc' if tc else 'f32'}_vis{vis}"] = _device_ms(
-                lambda i: fwd(xt, tt, dws[i % 3], dbs, 9, M, 2.0 / BUNCH, tallies, *bits))
-    print(f"[mask-times] data-parallel forward, a rank's {M} rows of {BUNCH}, "
-          f"1548-2048x3-129: " + ", ".join(f"{k} {v:.4f}" for k, v in out["dp2_forward"].items())
-          + " ms", flush=True)
-    del dws
-    # one rank of 2's data-parallel trainer (the sum stubbed): the state after one call of 8
-    # bunches (ranks 0 and 1) and a bunch's time (rank 0)
-    from tpu_sednn_torch.parallel import Mesh
-
-    dcfg, dopt, dmlp, dx, dt = _dp_inputs()
-    dx, dt = dx.repeat(3, 1)[:8 * BUNCH].contiguous(), dt.repeat(3, 1)[:8 * BUNCH].contiguous()
-    plain_sum, rc._all_reduce = rc._all_reduce, lambda a, mesh: a
-    try:
-        for tc in (True, False):
-            form = "tc" if tc else "f32"
-            for rank in (1, 0):  # rank 0's run is timed below
-                run = rc.make_dp_resident_train_chunk(
-                    dcfg, dopt, Mesh(2, rank, torch.device("cuda", 0)), bf16=tc)
-                st = init_train_state(dmlp)
-                run(st, dx, dt, 3, 1e-3, 0.5, 0.0)
-                out["dp_digests"][f"dp2_rank{rank}_{form}"] = _state_digest(st)
-            st = init_train_state(dmlp)
-            out["dp2"][form] = _device_ms(
-                lambda i: run(st, dx, dt, 4 + i, 1e-3, 0.5, 0.0), reps=3) / 8
-    finally:
-        rc._all_reduce = plain_sum
-    print(f"[mask-times] one rank of 2's data-parallel trainer a bunch (the sum stubbed): tc "
-          f"{out['dp2']['tc']:.4f}, f32 {out['dp2']['f32']:.4f} ms", flush=True)
-    opt = OptConfig(lrate=1.0, momentum=0.5, weightcost=1e-5, bunchsize=BUNCH)
-    small = (1e-3, 0.5, 0.0)
-    forms = {}
-    for name, sizes, n_t, kw in (("8k_tc", FLAGSHIP, 100, {}),
-                                 ("8k_f32", FLAGSHIP, 50, dict(bf16=False)),
-                                 ("16k_tc_sr_delta", WIDE, 50, dict(sr_delta=True))):
-        xt, tt = _randn(gen, n_t * BUNCH, sizes[0]), _randn(gen, n_t * BUNCH, sizes[-1])
-        for vis in (0.1, 0.0):
-            cfg = ModelConfig(layersizes=sizes, dropout_vis=vis, dropout_hid=0.2)
-            mlp = init_params(torch.Generator().manual_seed(5), cfg, scheme="glorot",
-                              device="cuda")
-            forms[f"{name}_vis{vis}"] = (rc.make_resident_train_chunk(cfg, opt, **kw),
-                                         init_train_state(mlp), xt, tt, n_t)
-    ms = {name: [] for name in forms}
-    for name in list(forms) + list(reversed(forms)):  # in turns
-        run, st, xt, tt, n_t = forms[name]
-        ms[name].append(_time_ms(lambda: run(st, xt, tt, 3, *small), reps=3, warmup=1) / n_t)
-    for name in forms:
-        out["chains"][name] = dict(ms=float(np.mean(ms[name])), ms_runs=ms[name])
-        print(f"[mask-times] chain {name}: {out['chains'][name]['ms']:.4f} ms a bunch "
-              f"({' '.join(f'{v:.4f}' for v in ms[name])})", flush=True)
-    del forms
-    torch.cuda.empty_cache()
-    out.update(_dropout_mask_times())
-    out["chunk_digests"] = _chunk_digests([f[0] for f in CHUNK_DIGEST_FORMS])
-    out["fwd_digests"] = _fwd_digests()
-    for group in ("chunk_digests", "dp_digests", "fwd_digests", "xla_digests"):
-        for k, v in out[group].items():
-            print(f"[mask-times] digest {k}: {v}", flush=True)
-    return out
-
-
-XLA_CHUNK_BUNCHES = 64  # a chunk of the in-memory path's 8192-sample traincache
-XLA_RUNS = 5  # timed calls: the host-driven trainer's time a call spreads by 10-40%
-
-
-def _dropout_mask_times() -> dict:
-    """Kernel 5 for comparing two checkouts (mask_times): a 16 kHz bunch's four
-    masks as four single launches (dropout_mask, either package) and, where
-    the package draws batches (dropout_masks), in one launch, and a group of
-    MASK_GROUP bunches' masks in one; the plain trainer on its masks
-    (engine="xla", dropout_rng="tpu_prng") through one chunk of
-    XLA_CHUNK_BUNCHES bunches at 3084-2048x3-257: ms a bunch and samples/s
-    (CUDA events around whole calls, the host's share in them: the trainer is
-    host-driven), its launches, and the SHA-256 digest of its state after the
-    first call."""
-    import importlib
-
-    from tpu_sednn_torch.model.mlp import ModelConfig, init_params
-    from tpu_sednn_torch.ops import launch_counts
-    from tpu_sednn_torch.train.loop import make_chunk_runner
-    from tpu_sednn_torch.train.step import OptConfig, init_train_state
-
-    dm = importlib.import_module("tpu_sednn_torch.ops.dropout_mask")
-    shapes, omits = [(BUNCH, w) for w in WIDE[:-1]], [0.1, 0.2, 0.2, 0.2]
-    times = dict(four_launches=_device_ms(lambda i: [dm.dropout_mask(4 * i + l, sh, o) for l, (sh, o)
-                                                     in enumerate(zip(shapes, omits))], reps=50))
-    if hasattr(dm, "dropout_masks"):
-        times["one_launch"] = _device_ms(lambda i: dm.dropout_masks(
-            [4 * i + l for l in range(4)], shapes, omits), reps=50)
-        times["group_one_launch"] = _device_ms(lambda i: dm.dropout_masks(*_group_batch(i)),
-                                               reps=20)
-    print("[mask-times] kernel 5, a 16 kHz bunch's four masks: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in times.items()) + " ms", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(1717)
-    cfg = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity",
-                      dropout_rng="tpu_prng")
-    mlp = init_params(torch.Generator().manual_seed(16), cfg, scheme="uniform",
-                      w_range=(-0.03, 0.03), device="cuda")
-    n = XLA_CHUNK_BUNCHES * BUNCH
-    x, t = _randn(gen, n, WIDE[0]), _randn(gen, n, WIDE[-1], scale=0.5)
-    run = make_chunk_runner(cfg, OptConfig(lrate=0.1, momentum=0.5, bunchsize=BUNCH),
-                            engine="xla", device="cuda")
-    st = init_train_state(mlp)
-    before = launch_counts()["dropout_mask"]
-    run(st, x, t, torch.Generator().manual_seed(7), 0.1, 0.5, 0.0)
-    torch.cuda.synchronize()
-    launches = launch_counts()["dropout_mask"] - before
-    _check(all(bool(torch.isfinite(a).all()) for a in _state_tensors(st)),
-           "the plain trainer's state is not finite after a chunk")
-    digest = _state_digest(st)
-    runs = [_time_ms(lambda: run(st, x, t, torch.Generator().manual_seed(8), 0.1, 0.5, 0.0),
-                     reps=1, warmup=0) / XLA_CHUNK_BUNCHES for _ in range(XLA_RUNS)]
-    ms = float(np.median(runs))
-    print(f"[mask-times] engine=xla, dropout_rng=tpu_prng, a chunk of {XLA_CHUNK_BUNCHES} bunches at "
-          f"3084-2048x3-257: {ms:.4f} ms a bunch ({' '.join(f'{v:.4f}' for v in runs)}), "
-          f"{BUNCH / ms * 1e3:.0f} samples/s, {launches} dropout_mask launches", flush=True)
-    return dict(dropout_mask=times, xla_tpu_prng=dict(ms=ms, ms_runs=runs, launches=launches,
-                                                      samples_per_s=BUNCH / ms * 1e3),
-                xla_digests={"xla_tpu_prng_16k": digest})
 
 
 # ---------------------------------------------------------------------------
@@ -3165,40 +2738,44 @@ def _phase_mask_batches(k5_abs: float) -> dict:
     batch of mixed shapes, row0 > 0, omit 0 and 1 and rows past 512; a group
     of MASK_GROUP 16 kHz bunches' masks in one launch equal to as many single
     draws; a batch of more than MAX_MASKS masks split into launches of at
-    most MAX_MASKS; the times of one bunch's four masks and of a group in one
-    launch beside their bounds."""
+    most MAX_MASKS (launches read from traces); the times of one bunch's four
+    masks and of a group in one launch beside their bounds."""
     from tpu_sednn_torch.ops.dropout_mask import (MAX_MASKS, dropout_mask, dropout_masks,
                                                   dropout_masks_reference)
     from tpu_sednn_torch.train.step import MASK_GROUP
 
     def batch_held(batch, label):
+        """The batch bit-equal to the plain version, in one launch a MAX_MASKS masks
+        (traced)."""
         seeds, shapes, omits, row0s = (list(c) for c in zip(*batch))
-        n0 = dropout_mask.launches
-        got = dropout_masks(seeds, shapes, omits, row0s)
-        launches = dropout_mask.launches - n0
+        n_launch = _port(dropout_mask_kernel=-(-len(batch) // MAX_MASKS))
+        launched, got = _kernel_counts(lambda: dropout_masks(seeds, shapes, omits, row0s),
+                                       n_launch)
+        _check(_reads(launched, n_launch), f"dropout_masks ({label}): {launched} in a trace, want "
+                                     f"{n_launch}")
         want = dropout_masks_reference(seeds, shapes, omits, row0s, device="cuda")
         for g, w, (seed, shape, omit, row0) in zip(got, want, batch):
             _check(g.shape == shape and g.dtype == torch.float32 and torch.equal(g, w),
                    f"dropout_masks ({label}): mask {shape} at row0 {row0}, omit {omit}, differs "
                    f"from the plain version")
-        return got, launches
+        return got
 
     # mixed: the four shapes at row0 0 and > 0, omit 0 and 1, rows past 512, D % 4 != 0
     mixed = [(77, (128, 3084), 0.1, 0), (78, (100, 1548), 0.2, 300), (79, (1024, 2048), 0.5, 0),
              (80, (1300, 257), 0.2, 700), (81, (64, 2048), 0.0, 64), (82, (64, 3084), 1.0, 1000),
              (2 ** 32 - 1, (600, 37), 0.3, 511), (-7, (3, 5), 0.2, 509)]
-    got, launches = batch_held(mixed, "mixed")
-    _check(launches == 1 and bool(got[4].all()) and not got[5].any(),
-           f"dropout_masks (mixed): {launches} launches; omit 0 / 1 not all kept / dropped")
+    got = batch_held(mixed, "mixed")
+    _check(bool(got[4].all()) and not got[5].any(),
+           "dropout_masks (mixed): omit 0 / 1 not all kept / dropped")
     for g, (seed, shape, omit, row0) in zip(got, mixed):
         if row0:
             _check(torch.equal(g, dropout_mask(seed, (row0 + shape[0], shape[1]), omit)[row0:]),
                    f"dropout_masks: rows {row0}.. of a {shape} mask are not the full mask's rows")
     # a group of bunches: one launch, equal to the single draws the trainer made before
     seeds, shapes, omits = _group_batch()
-    n0 = dropout_mask.launches
-    group = dropout_masks(seeds, shapes, omits)
-    _check(dropout_mask.launches == n0 + 1, "a group of bunches' masks took more than one launch")
+    one = _port(dropout_mask_kernel=1)
+    launched, group = _kernel_counts(lambda: dropout_masks(seeds, shapes, omits), one)
+    _check(_reads(launched, one), f"a group of bunches' masks: {launched} in a trace")
     for g, seed, shape, omit in zip(group, seeds, shapes, omits):
         _check(torch.equal(g, dropout_mask(seed, shape, omit)),
                f"dropout_masks: a group's mask {shape} differs from its single draw")
@@ -3212,15 +2789,14 @@ def _phase_mask_batches(k5_abs: float) -> dict:
     n_big = 2 * MAX_MASKS + 22
     big = [(5000 + i, (1 + (37 * i) % 700, 1 + (53 * i) % 300), (i % 11) / 10.0, (97 * i) % 900)
            for i in range(n_big)]
-    _, launches = batch_held(big, f"{n_big} masks")
-    _check(launches == -(-n_big // MAX_MASKS),
-           f"dropout_masks: {n_big} masks took {launches} launches, not {-(-n_big // MAX_MASKS)}")
+    batch_held(big, f"{n_big} masks")
     print(f"[kernel] dropout_masks: a batch of {len(mixed)} (the four shapes, row0 up to 1000, "
           f"omit 0 and 1, rows past 512) bit-equal to the plain version in one launch, its row0 "
           f"masks the rows of the full masks; batches of 1.6 and 5.6 million Philox calls at "
           f"ragged widths bit-equal; {len(group)} masks of {MASK_GROUP} 16 kHz bunches in "
-          f"one launch equal to {len(group)} single draws; {n_big} masks in {launches} launches "
-          f"(at most {MAX_MASKS} a launch) bit-equal", flush=True)
+          f"one launch equal to {len(group)} single draws; {n_big} masks in "
+          f"{-(-n_big // MAX_MASKS)} launches (at most {MAX_MASKS} a launch) bit-equal; the "
+          f"launches counted in traces", flush=True)
 
     # times: a 16 kHz bunch's four masks and a group of bunches, one launch each
     b_seeds, b_shapes, b_omits = seeds[:4], shapes[:4], omits[:4]
@@ -3498,11 +3074,13 @@ def phase_resident_wide() -> dict:
         tiled_run = rc.make_resident_train_chunk(cfg_of(), opt, rule="clean", tile_rows=tile, **f32)
 
         def tiled_vs_untiled(x, t):
-            before = rc.kernel_launches["tiled_bwd_update"]
-            tiled = tiled_run(init_train_state(mlp), x, t, 17, *hyp)
-            n_tiled = rc.kernel_launches["tiled_bwd_update"] - before
-            _check(n_tiled == 4 * n_b * (BUNCH // tile) and tiled.step == n_b,
-                   f"tile_rows {tile}: {n_tiled} tiled backward launches, step {tiled.step}")
+            # a forward and an accumulating backward a layer a row tile, traced
+            n = (len(WIDE) - 1) * n_b * (BUNCH // tile)
+            want = _port(f32_fwd_kernel=n, stripe_bwd_kernel=n)
+            got, tiled = _kernel_counts(lambda: tiled_run(init_train_state(mlp), x, t, 17, *hyp),
+                                        want)
+            _check(tiled.step == n_b and _reads(got, want),
+                   f"tile_rows {tile}: step {tiled.step}, traced kernels {got}, want {want}")
             return errs_by_group(tiled, clean_run(init_train_state(mlp), x, t, 17, *hyp))
 
         out[f"tile_rows {tile} vs untiled"], _ = hold(
@@ -3592,7 +3170,6 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     from tpu_sednn_torch.dsp.stft import StftConfig
     from tpu_sednn_torch.io import compute_norm
     from tpu_sednn_torch.model.mlp import MLP, ModelConfig, init_params
-    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
     from tpu_sednn_torch.ops.sr_update import sr_train_step
     from tpu_sednn_torch.ops.stft_lps import stft_lps
     from tpu_sednn_torch.recipes import recipe_opt_schedule
@@ -3600,7 +3177,6 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     from tpu_sednn_torch.train.step import OptConfig, TrainState, init_train_state
     from tpu_sednn_torch.utils.logging import Logger
 
-    reset_launch_counts()  # the path's run starts here (corpus set-up included)
     t0 = time.perf_counter()
     rng = np.random.default_rng(316)
     sr, n_utt, n_cv = 16000, 36, 4
@@ -3621,11 +3197,10 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
               targ_inv_std=t_istd)
     x, t = build_training_arrays(noisy[:-n_cv], clean[:-n_cv], **kw)
     x_cv, t_cv = build_training_arrays(noisy[-n_cv:], clean[-n_cv:], **kw)
-    n_stft = launch_counts()["stft_lps"]
-    _check(x.shape[1] == WIDE[0] and t.shape[1] == WIDE[-1] and x.shape[0] >= 16384
-           and n_stft == n_utt, f"arrays {x.shape} {t.shape}, {n_stft} stft_lps launches")
+    _check(x.shape[1] == WIDE[0] and t.shape[1] == WIDE[-1] and x.shape[0] >= 16384,
+           f"arrays {x.shape} {t.shape}")
     print(f"[arrays] corpus: {n_utt} noisy/clean pairs at 16 kHz featurized on the card "
-          f"({n_stft} stft_lps launches), build_training_arrays -> x {x.shape}, t {t.shape}, CV "
+          f"(stft_lps), build_training_arrays -> x {x.shape}, t {t.shape}, CV "
           f"{x_cv.shape} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity")
@@ -3643,52 +3218,53 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
     quiet = Logger(stream=None)
 
     def epochs(n_epochs, engine, engine_kwargs=None, cfg=cfg, state=None, sched=sched, **kw):
-        """-> (state, CV history, launch counts of this run alone, seconds)."""
-        before = launch_counts()
+        """-> (state, CV history, seconds)."""
         t0 = time.perf_counter()
         st, res = train_epochs_arrays(state or init_train_state(mlp), cfg, sched, x, t, x_cv, t_cv,
                                       n_epochs, seed=3, traincache=traincache, engine=engine,
                                       engine_kwargs=engine_kwargs, logger=quiet, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        after = launch_counts()
-        d = {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
-        d.update({k: after["resident_chunk_kernels"][k] - before["resident_chunk_kernels"][k]
-                  for k in after["resident_chunk_kernels"]})
         _check(all(np.isfinite(r.cv_mse) for r in res), f"{engine} {engine_kwargs}: CV not finite")
-        return st, [r.cv_mse for r in res], d, secs
+        return st, [r.cv_mse for r in res], secs
 
-    def resident_counts(d, n_ep, label, tiles=1):
-        # every launch of a call but its first a programmatic dependent one, either form
-        _check(d["resident_chunk"] == n_ep * n_chunks and d["plain_train_chunk"] == 0
-               and d["fused_bwd_update"] == 4 * n_ep * n_bunches * tiles
-               and d["pdl"] == d["fused_linear_act"] + d["fused_bwd_update"] - d["resident_chunk"]
-               and d["input_mask_table"] == d["resident_chunk"] and d["input_mask_philox"] == 0,
-               f"{label}: {d} for {n_ep} epochs of {n_chunks} chunks, {n_bunches} bunches")
+    L = len(WIDE) - 1
+    n_calls = sum(nb > 0 for nb in chunk_bunches)
+
+    def chunk_kernels(n_ep, fwd, tiles=1):
+        """The port's kernels of n_ep epochs on the chunk trainer: a forward of the form
+        fwd and a backward a layer a row tile, one draw of the input masks a call."""
+        n = L * n_ep * n_bunches * tiles
+        return _port(**{fwd: n}, stripe_bwd_kernel=n, input_mask_bits_kernel=n_ep * n_calls)
+
+    def traced(want, n_epochs, engine, engine_kwargs=None, **kw):
+        """epochs(...) traced: the port's kernels it launched read `want` (_reads)."""
+        got, (st, cv, _) = _kernel_counts(
+            lambda: epochs(n_epochs, engine, engine_kwargs, **kw), want)
+        _check(_reads(got, want), f"{n_epochs} epochs of engine={engine} {engine_kwargs}: the port's "
+                            f"kernels in a trace {got}, want {want}")
+        return st, cv
 
     out = {}
     f32 = dict(bf16=False)  # the float32-product engine, pinned
     # the JAX package's 16 kHz production configuration: engine=auto with sr_delta, which on
     # the card is the chunk trainer with tensor-core products
-    st_sr, cv_sr, d_sr, s_sr = epochs(2, "auto", dict(sr_delta=True))
-    resident_counts(d_sr, 2, "sr_delta, tensor cores")
-    _check(d_sr["sr_bwd_update"] == d_sr["tc_bwd_update"] == d_sr["fused_bwd_update"]
-           and d_sr["tc_linear_act"] == d_sr["fused_linear_act"] and d_sr["bf16_linear_act"] == 0
-           and st_sr.deltas.w[0].dtype == torch.bfloat16 and st_sr.params.w[0].dtype == torch.float32,
-           f"engine=auto sr_delta epochs did not run the tensor-core bfloat16-momentum form: {d_sr}")
+    st_sr, cv_sr, s_sr = epochs(2, "auto", dict(sr_delta=True))
+    _check(st_sr.deltas.w[0].dtype == torch.bfloat16 and st_sr.params.w[0].dtype == torch.float32,
+           "engine=auto sr_delta epochs did not keep a bfloat16 momentum beside float32 weights")
     _check(cv_sr[1] < cv_sr[0], f"sr_delta: CV MSE did not fall: {cv_sr}")
-    st_f, cv_f, d_f, s_f = epochs(2, "resident", f32)
-    resident_counts(d_f, 2, "float32")
-    _check(d_f["sr_bwd_update"] == d_f["tc_bwd_update"] == 0 and cv_f[1] < cv_f[0],
-           f"float32 engine: {cv_f} {d_f}")
+    st_f, cv_f, s_f = epochs(2, "resident", f32)
+    _check(cv_f[1] < cv_f[0], f"float32 engine: {cv_f}")
     # sr_delta again, now that the path is warm (the first run above also paid for the
     # first pinned buffers and workspaces): the host's samples/s of the two forms in turns
-    _, cv_sr2, d_sr2, s_sr2 = epochs(2, "auto", dict(sr_delta=True))
+    _, cv_sr2, s_sr2 = epochs(2, "auto", dict(sr_delta=True))
     _check(cv_sr2 == cv_sr, f"sr_delta run again gives another CV history: {cv_sr2} vs {cv_sr}")
+    # engine=auto on the card is the tensor-core chunk trainer: a traced epoch of it runs
+    # tc_fwd_kernel and stripe_bwd_kernel, and no f32_fwd_kernel and no cast of dedx
+    _, cv_sr1 = traced(chunk_kernels(1, "tc_fwd_kernel"), 1, "auto", dict(sr_delta=True))
+    _check(cv_sr1[0] == cv_sr[0], f"the traced sr_delta epoch's CV {cv_sr1} vs {cv_sr}")
     # the float32-product hold: sr_delta with float32 products against the float32 engine
-    _, cv_srf, d_srf, _ = epochs(2, "resident", dict(sr_delta=True, **f32))
-    _check(d_srf["sr_bwd_update"] == d_srf["fused_bwd_update"] and d_srf["tc_bwd_update"] == 0,
-           f"sr_delta, float32 products: {d_srf}")
+    _, cv_srf = traced(chunk_kernels(2, "f32_fwd_kernel"), 2, "resident", dict(sr_delta=True, **f32))
     frac = abs(cv_srf[1] - cv_f[1]) / cv_f[1]
     frac_tc = abs(cv_sr[1] - cv_f[1]) / cv_f[1]
     _check(frac <= SR_CV_FRACTION and frac_tc <= SR_CV_FRACTION,
@@ -3709,86 +3285,95 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
           f"from the float32 run's (limit {SR_CV_FRACTION})", flush=True)
 
     # the other forms, one epoch each
-    _, cv_ss, d_ss, _ = epochs(1, "resident", dict(sr_state=True, **f32))
-    resident_counts(d_ss, 1, "sr_state")
-    _check(d_ss["bf16_linear_act"] == d_ss["fused_linear_act"] > 0, f"sr_state: {d_ss}")
-    _, cv_sst, d_sst, _ = epochs(1, "resident", dict(sr_state=True))
-    resident_counts(d_sst, 1, "sr_state, tensor cores")
-    _check(d_sst["bf16_linear_act"] == d_sst["tc_linear_act"] == d_sst["fused_linear_act"] > 0
-           and abs(cv_sst[0] - cv_ss[0]) <= SR_CV_FRACTION * cv_ss[0],
-           f"sr_state, tensor cores: CV {cv_sst} vs {cv_ss} with float32 products, {d_sst}")
-    _, cv_sp, d_sp, _ = epochs(1, "resident", dict(hbm_spill=1, **f32))
-    resident_counts(d_sp, 1, "hbm_spill")
+    st_ss, cv_ss = traced(chunk_kernels(1, "f32_fwd_kernel"), 1, "resident",
+                          dict(sr_state=True, **f32))
+    st_sst, cv_sst = traced(chunk_kernels(1, "tc_fwd_kernel"), 1, "resident", dict(sr_state=True))
+    _check(all(st.params.w[0].dtype == st.deltas.w[0].dtype == torch.bfloat16
+               for st in (st_ss, st_sst)), "the sr_state epochs did not keep bfloat16 state")
+    _check(abs(cv_sst[0] - cv_ss[0]) <= SR_CV_FRACTION * cv_ss[0],
+           f"sr_state, tensor cores: CV {cv_sst} vs {cv_ss} with float32 products")
+    _, cv_sp = traced(chunk_kernels(1, "f32_fwd_kernel"), 1, "resident", dict(hbm_spill=1, **f32))
     _check(cv_sp[0] == cv_f[0], f"hbm_spill=1 epoch CV {cv_sp[0]} is not the float32 engine's {cv_f[0]}")
     clean_cfg = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2,
                             dropout_mode="inverted")
-    _, cv_t, d_t, _ = epochs(1, "resident", dict(rule="clean", tile_rows=64, **f32), cfg=clean_cfg,
-                             sched=lambda e: OptConfig(lrate=0.1, momentum=0.5, bunchsize=BUNCH))
-    resident_counts(d_t, 1, "tile_rows", tiles=2)
-    _check(d_t["tiled_bwd_update"] == d_t["fused_bwd_update"], f"tile_rows: {d_t}")
+    _, cv_t = traced(chunk_kernels(1, "f32_fwd_kernel", tiles=BUNCH // 64), 1, "resident",
+                     dict(rule="clean", tile_rows=64, **f32), cfg=clean_cfg,
+                     sched=lambda e: OptConfig(lrate=0.1, momentum=0.5, bunchsize=BUNCH))
     # kernel 5 on its path: the plain trainer with masks from the Philox kernel
     cfg5 = ModelConfig(layersizes=WIDE, dropout_vis=0.1, dropout_hid=0.2, dropout_mode="parity",
                        dropout_rng="tpu_prng")
-    _, cv_x, d_x, s_x = epochs(1, "xla", cfg=cfg5)
-    # the plain trainer draws the masks of MASK_GROUP bunches (4 a bunch) with one launch
-    from tpu_sednn_torch.train.step import MASK_GROUP
-
-    mask_launches = sum(-(-nb // MASK_GROUP) for nb in chunk_bunches)
-    _check(d_x["dropout_mask"] == mask_launches and d_x["dropout_mask_masks"] == 4 * n_bunches
-           and d_x["resident_chunk"] == 0 and d_x["plain_train_chunk"] == n_chunks,
-           f"engine=xla with dropout_rng=tpu_prng: {d_x} for {chunk_bunches} bunches a chunk "
-           f"({mask_launches} dropout_mask launches of {4 * n_bunches} masks expected)")
+    _, cv_x, s_x = epochs(1, "xla", cfg=cfg5)
     # the same trainer with torch.rand masks: only the generator of the masks differs.  After
     # one epoch of 129 bunches the CV error still moves by several percent with the masks'
     # realisation alone (the chunk trainer's epoch above reads 62.5 with its Philox stream,
-    # this trainer 57.4-57.8 with its two), hence 15%
-    _, cv_x3, d_x3, _ = epochs(1, "xla")
-    _check(d_x3["dropout_mask"] == 0 and abs(cv_x[0] - cv_x3[0]) <= 0.15 * cv_x3[0],
+    # this trainer 57.4-57.8 with its two), hence 15%.  The two traced together: the plain
+    # trainer draws a group of MASK_GROUP bunches' masks with one dropout_mask_kernel under
+    # tpu_prng, none under torch.rand, and launches no other kernel of the port
+    from tpu_sednn_torch.train.step import MASK_GROUP
+
+    mask_launches = sum(-(-nb // MASK_GROUP) for nb in chunk_bunches)
+    want = _port(dropout_mask_kernel=mask_launches)
+    got, (_, (_, cv_x3, _)) = _kernel_counts(lambda: (epochs(1, "xla", cfg=cfg5), epochs(1, "xla")),
+                                             want)
+    _check(_reads(got, want), f"engine=xla epochs, tpu_prng then torch.rand masks: the port's kernels "
+                        f"in a trace {got}, want {want}")
+    _check(abs(cv_x[0] - cv_x3[0]) <= 0.15 * cv_x3[0],
            f"engine=xla epoch CV {cv_x[0]} with the Philox masks vs {cv_x3[0]} with torch.rand's")
     out.update(cv_sr_state=cv_ss, cv_sr_state_tc=cv_sst, cv_tile_rows=cv_t, cv_xla=cv_x,
-               cv_xla_threefry=cv_x3,
-               xla_tpu_prng=dict(dropout_mask=d_x["dropout_mask"], masks=d_x["dropout_mask_masks"],
-                                 samples_per_s=x.shape[0] / s_x))
+               cv_xla_threefry=cv_x3, xla_tpu_prng=dict(samples_per_s=x.shape[0] / s_x))
     print(f"[arrays] one epoch each: sr_state CV {cv_ss[0]:.6f} (tensor cores {cv_sst[0]:.6f}, "
           f"limit {SR_CV_FRACTION} apart); hbm_spill=1 {cv_sp[0]:.6f} (the "
           f"float32 engine's, exactly); clean rule tile_rows 64 {cv_t[0]:.6f}; engine=xla with "
-          f"dropout_rng=tpu_prng {cv_x[0]:.6f} ({d_x['dropout_mask']} dropout_mask launches "
-          f"for {d_x['dropout_mask_masks']} masks, "
+          f"dropout_rng=tpu_prng {cv_x[0]:.6f} ({mask_launches} dropout_mask_kernel launches, "
           f"{x.shape[0] / s_x:.0f} samples/s), with torch.rand masks {cv_x3[0]:.6f} (limit: 15% "
           f"apart)", flush=True)
 
+    print(f"[arrays] traced epochs, the port's kernels (_reads): each chunk-trainer form ran "
+          f"{L} forwards of its form and {L} stripe_bwd_kernel a bunch ({L * n_bunches} an "
+          f"epoch; twice that at tile_rows 64, two row tiles a bunch) and one "
+          f"input_mask_bits_kernel a call ({n_calls} an epoch), no other kernel of the port: "
+          f"tc_fwd_kernel for engine=auto sr_delta and tensor-core sr_state, f32_fwd_kernel for "
+          f"sr_delta, sr_state, hbm_spill=1 and tile_rows with float32 products", flush=True)
+
     # kernel 6 on its path: sr_train_step at full width, bfloat16 state
     cfg6 = ModelConfig(layersizes=WIDE, dropout_mode="inverted")
-    st6 = init_train_state(mlp)
-    st6 = TrainState(params=MLP([w.data.bfloat16() for w in st6.params.w],
-                                [b.data.bfloat16() for b in st6.params.b]),
-                     deltas=MLP([d.data.bfloat16() for d in st6.deltas.w],
-                                [d.data.bfloat16() for d in st6.deltas.b]), step=0)
     # the clean rule's step is lrate / 257 on the gradient of (1/128) sum((out - t)^2), the
     # parity rule's (1 - m) * lrate / 128: lrate 0.05 is half the parity runs' step above
     # (0.2, four times it and without dropout, diverges on these correlated inputs)
     opt6 = OptConfig(lrate=0.05, momentum=0.5, weightcost=0.0, bunchsize=BUNCH)
     xd, td = torch.from_numpy(x[:8 * BUNCH]).cuda(), torch.from_numpy(t[:8 * BUNCH]).cuda()
-    before = launch_counts()["sr_momentum_update"]
-    losses = []
-    for step in range(24):
-        i = step % 8
-        st6, loss = sr_train_step(st6, xd[i * BUNCH:(i + 1) * BUNCH], td[i * BUNCH:(i + 1) * BUNCH],
-                                  cfg6, opt6, None, 100 * step)
-        losses.append(float(loss))
-    n_k6 = launch_counts()["sr_momentum_update"] - before
+
+    def steps6():
+        """24 steps from the float32 engine's initial state in bfloat16 -> (state, losses)."""
+        st = init_train_state(mlp)
+        st = TrainState(params=MLP([w.data.bfloat16() for w in st.params.w],
+                                   [b.data.bfloat16() for b in st.params.b]),
+                        deltas=MLP([d.data.bfloat16() for d in st.deltas.w],
+                                   [d.data.bfloat16() for d in st.deltas.b]), step=0)
+        losses = []
+        for step in range(24):
+            i = step % 8
+            st, loss = sr_train_step(st, xd[i * BUNCH:(i + 1) * BUNCH],
+                                     td[i * BUNCH:(i + 1) * BUNCH], cfg6, opt6, None, 100 * step)
+            losses.append(float(loss))
+        return st, losses
+
+    # one sr_update_kernel a tensor a step, and no other kernel of the port
+    want = _port(sr_update_kernel=24 * 2 * L)
+    got, (st6, losses) = _kernel_counts(steps6, want)
     first, last = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
-    _check(n_k6 == 24 * 8 and st6.params.w[0].dtype == torch.bfloat16 and np.isfinite(last)
-           and last < 0.95 * first, f"sr_train_step: {n_k6} launches, loss {first} -> {last}")
+    _check(st6.params.w[0].dtype == torch.bfloat16 and np.isfinite(last)
+           and last < 0.95 * first and _reads(got, want),
+           f"sr_train_step: loss {first} -> {last}, the port's kernels in a trace {got}")
     print(f"[arrays] sr_train_step at full width, bfloat16 state, 24 steps: mean loss of 8 steps "
-          f"{first:.4f} -> {last:.4f}; {n_k6} sr_momentum_update launches", flush=True)
+          f"{first:.4f} -> {last:.4f}; {want['sr_update_kernel']} sr_update_kernel launches (one a "
+          f"tensor a step) and no other kernel of the port in a trace", flush=True)
 
     # kill and resume: two epochs straight (st_f above) against one epoch,
     # checkpoint, a fresh call that restores and runs the second
     ck = os.path.join(tmp, "ckpt16k")
-    _, _, d_k, _ = epochs(1, "resident", f32, ckpt_dir=ck)
-    st_r, cv_r, d_r, _ = epochs(2, "resident", f32, ckpt_dir=ck)
-    resident_counts(d_r, 1, "the resumed call")  # it trained the second epoch only
+    epochs(1, "resident", f32, ckpt_dir=ck)
+    st_r, cv_r, _ = epochs(2, "resident", f32, ckpt_dir=ck)
     _check(len(cv_r) == 2 and cv_r == cv_f, f"resumed CV history {cv_r} vs straight {cv_f}")
     for a, b in zip(_state_tensors(st_r), _state_tensors(st_f)):
         _check(torch.equal(a, b), "kill-and-resume differs from the straight run")
@@ -3804,15 +3389,6 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
           f"epoch equals two epochs straight bit for bit (state and CV history); a bfloat16 "
           f"momentum comes back from its checkpoint unchanged", flush=True)
 
-    total = launch_counts()
-    out["counts"] = {k: v for k, v in total.items() if isinstance(v, int)}
-    out["kernel_counts"] = total["resident_chunk_kernels"]
-    out["by_form"] = dict(sr_delta=d_srf["resident_chunk"],
-                          f32=d_f["resident_chunk"] + d_k["resident_chunk"] + d_r["resident_chunk"],
-                          sr_state=d_ss["resident_chunk"], hbm_spill=d_sp["resident_chunk"],
-                          tile_rows=d_t["resident_chunk"],
-                          tc_sr_delta=d_sr["resident_chunk"] + d_sr2["resident_chunk"],
-                          tc_sr_state=d_sst["resident_chunk"])
     out.update(n_samples=int(x.shape[0]), n_bunches=n_bunches, n_chunks=n_chunks)
     return out
 
@@ -3867,50 +3443,73 @@ def _train_args(tmp, corpus, out, init, train_range, extra):
         + ([f"initwts_file={init}"] if init else []) + extra
 
 
-def _run_train_cli(tmp, args, label):
-    """`python -m tpu_sednn_torch.cli args` -> (CV MSE from the log, launch
-    counters the command reported, wall seconds, log text)."""
-    report = os.path.join(tmp, f"launches_{label}.json")
-    env = dict(os.environ, TPU_SEDNN_TORCH_LAUNCH_REPORT=report)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tpu_sednn_torch.cli"] + args, cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    _check(proc.returncode == 0, f"training command ({label}) failed:\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
-    _check(proc.stdout.strip().endswith("all finish!"), f"({label}) no 'all finish!'")
+def _run_train_cli(tmp, args, label, want=None):
+    """`python -m tpu_sednn_torch.cli args`, traced in its own process
+    (_traced_command) -> (CV MSE from the log, wall seconds, log text).
+    want(log) -> {kernel: launches}: the command's trace must read it (_reads;
+    the command run again, 3 times at most, until it does: _until_counts)."""
     log_path = next(a.split("=", 1)[1] for a in args if a.startswith("log_file="))
-    log = open(log_path).read()
+    report = os.path.join(tmp, "kernels_" + "".join(c if c.isalnum() else "_" for c in label))
+
+    def once():
+        if os.path.exists(log_path):
+            os.remove(log_path)  # the command appends to its log
+        t0 = time.perf_counter()
+        proc, counts = _traced_command([sys.executable], "tpu_sednn_torch.cli", args, report,
+                                       f"training command ({label})", cwd=ROOT, timeout=900)
+        wall = time.perf_counter() - t0
+        _check(proc.stdout.strip().endswith("all finish!"), f"({label}) no 'all finish!'")
+        return (wall, open(log_path).read()), counts
+
+    got, w, (wall, log) = _until_counts(once, (lambda v: want(v[1])) if want else {}, tries=3)
+    _check(_reads(got, w), f"({label}) the port's kernels in the command's trace: {got}, want {w}")
     cv = [float(l.rsplit(":", 1)[1]) for l in log.splitlines()
           if l.startswith("CV over. squared error:")]
     _check(len(cv) == 1 and np.isfinite(cv[0]), f"({label}) CV MSE not finite: {cv}")
-    with open(report) as f:
-        counts = json.load(f)
-    return cv[0], counts, wall, log
+    return cv[0], wall, log
 
 
-def _epoch_in_process(tmp, args, label, engine_kwargs=None):
+def _chunk_sizes(log: str) -> list:
+    """The sample counts of a pfile epoch's chunks, from its log."""
+    return [int(l.split()[-2]) for l in log.splitlines() if l.startswith("Starting chunk")]
+
+
+def _pfile_kernels(sizes: list, fwd: str, dropout: bool = True) -> dict:
+    """The port's kernels of a pfile epoch of chunks of these sizes on the
+    chunk trainer (the 8 kHz net): a forward of the form fwd and a backward
+    a layer a bunch, and with dropout one draw of the input masks a chunk."""
+    n = (len(FLAGSHIP) - 1) * sum(c // BUNCH for c in sizes)
+    return _port(**{fwd: n}, stripe_bwd_kernel=n,
+                 input_mask_bits_kernel=sum(c >= BUNCH for c in sizes) if dropout else 0)
+
+
+def _epoch_in_process(tmp, args, label, engine_kwargs=None, want=None):
     """One epoch of the training command's run_epoch in this process, with the
     chunk trainer pinned to float32 products unless engine_kwargs says
     otherwise (default {"bf16": False}: the command itself has no key for it)
-    -> (CV MSE, launch counts of this run alone)."""
+    -> CV MSE.  want(log) -> {kernel: launches}: the epoch, traced, must
+    read it (_reads; run again, 3 times at most, until it does)."""
     from tpu_sednn_torch.cli import run_epoch
     from tpu_sednn_torch.config import TrainFlags
-    from tpu_sednn_torch.ops import launch_counts
     from tpu_sednn_torch.utils.logging import Logger
 
     flags = TrainFlags.from_argv(args)
-    before = launch_counts()
-    cv = run_epoch(flags, logger=Logger(log_path=flags.log_file, stream=None),
-                   engine_kwargs={"bf16": False} if engine_kwargs is None else engine_kwargs)
-    torch.cuda.synchronize()
-    after = launch_counts()
-    d = {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
-    d["resident_chunk_kernels"] = {k: after["resident_chunk_kernels"][k]
-                                   - before["resident_chunk_kernels"][k]
-                                   for k in after["resident_chunk_kernels"]}
+
+    def once():
+        if os.path.exists(flags.log_file):
+            os.remove(flags.log_file)  # the logger appends
+        cv = run_epoch(flags, logger=Logger(log_path=flags.log_file, stream=None),
+                       engine_kwargs={"bf16": False} if engine_kwargs is None else engine_kwargs)
+        torch.cuda.synchronize()
+        return cv, open(flags.log_file).read()
+
+    if want is None:
+        cv, _ = once()
+    else:
+        got, w, (cv, _) = _until_counts(lambda: _traced(once), lambda v: want(v[1]), tries=3)
+        _check(_reads(got, w), f"({label}) the port's kernels in a trace of the epoch: {got}, want {w}")
     _check(np.isfinite(cv), f"({label}) CV MSE not finite: {cv}")
-    return cv, d
+    return cv
 
 
 # The command's two tensor-core epochs against the same two epochs with float32
@@ -3922,7 +3521,6 @@ TC_CV_FRACTION = 0.02
 
 def phase_train(tmp: str, smi: str) -> dict:
     from tpu_sednn_torch.io import load_wts
-    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
     from tpu_sednn_torch.tools import make_pfile
 
     # corpus: 200 utterances of 10.2 s at 8 kHz, speech-like + coloured noise at
@@ -3931,94 +3529,64 @@ def phase_train(tmp: str, smi: str) -> dict:
     n_utt = 200
     noisy, clean = _corpus_wavs(tmp, n_utt)
     corpus = _corpus_paths(tmp, n_utt)
-    reset_launch_counts()  # the training path's run starts here (corpus set-up included)
     t0 = time.perf_counter()
     n_frames = make_pfile.build_pfile(noisy, corpus["fea"], corpus["norm"], device="cuda")
     # targets normalized by the packer, as make_pfile's docstring says
     make_pfile.build_pfile(clean, corpus["targ"], f"{tmp}/clean.norm", normalize=True,
                            device="cuda")
-    n_stft = launch_counts()["stft_lps"]
-    _check(n_frames >= 120000 and n_stft == 2 * n_utt,
-           f"corpus: {n_frames} frames, {n_stft} stft_lps launches")
+    _check(n_frames >= 120000, f"corpus: {n_frames} frames")
     print(f"[train] corpus: {n_utt} noisy/clean utterance pairs, {n_frames} frames each, LPS "
-          f"pfiles by make_pfile on the card in {time.perf_counter() - t0:.1f} s "
-          f"({n_stft} stft_lps launches)", flush=True)
+          f"pfiles by make_pfile on the card in {time.perf_counter() - t0:.1f} s", flush=True)
 
     do = ["dropoutflag=1", "engine=auto"]
     train_range = f"0-{n_utt - 11}"
-    cv1, c1, wall1, log1 = _run_train_cli(
+    # engine=auto on the card: the tensor-core chunk trainer, each launch of every chunk's
+    # chain in its form (the command's own trace); the float32 runs below, f32_fwd_kernel
+
+    def tc(log):
+        return _pfile_kernels(_chunk_sizes(log), "tc_fwd_kernel")
+
+    def f32(log):
+        return _pfile_kernels(_chunk_sizes(log), "f32_fwd_kernel")
+
+    cv1, wall1, log1 = _run_train_cli(
         tmp, _train_args(tmp, corpus, "mlp.1", "", train_range,
-                         do + ["momentum=0.5", "init_randem_seed=27863875"]), "epoch1")
-    cv2, c2, wall2, log2 = _run_train_cli(
+                         do + ["momentum=0.5", "init_randem_seed=27863875"]), "epoch1", tc)
+    cv2, wall2, log2 = _run_train_cli(
         tmp, _train_args(tmp, corpus, "mlp.2", f"{tmp}/mlp.1.wts", train_range,
-                         do + ["momentum=0.54", "init_randem_seed=27864220"]), "epoch2")
+                         do + ["momentum=0.54", "init_randem_seed=27864220"]), "epoch2", tc)
     ws, bs = load_wts(f"{tmp}/mlp.2.wts", layersizes=list(FLAGSHIP))
     _check([w.shape for w in ws] == [(a, b) for a, b in zip(FLAGSHIP[:-1], FLAGSHIP[1:])]
            and all(np.isfinite(w).all() for w in ws + bs), "mlp.2.wts does not reload")
     _check(cv2 < cv1, f"CV MSE did not fall: {cv1} -> {cv2}")
     # the same two epochs with float32 products, from the same weights and seeds
-    cv1_f, d1_f = _epoch_in_process(tmp, _train_args(
+    cv1_f = _epoch_in_process(tmp, _train_args(
         tmp, corpus, "f32.1", "", train_range, do + ["momentum=0.5", "init_randem_seed=27863875"]),
-        "float32 epoch 1")
-    cv2_f, d2_f = _epoch_in_process(tmp, _train_args(
+        "float32 epoch 1", want=f32)
+    cv2_f = _epoch_in_process(tmp, _train_args(
         tmp, corpus, "f32.2", f"{tmp}/f32.1.wts", train_range,
-        do + ["momentum=0.54", "init_randem_seed=27864220"]), "float32 epoch 2")
+        do + ["momentum=0.54", "init_randem_seed=27864220"]), "float32 epoch 2", want=f32)
     tc_frac = abs(cv2 - cv2_f) / cv2_f
     _check(cv2_f < cv1_f and tc_frac <= TC_CV_FRACTION,
            f"float32 products: CV {cv1_f} -> {cv2_f}; tensor cores {cv2}, {tc_frac:.3g} apart "
            f"(limit {TC_CV_FRACTION})")
     header = next(l for l in log1.splitlines() if l.startswith("Training sentences have"))
     n_chunks, n_samples = int(header.split()[3]), int(header.split()[5])
-    chunk_sizes = sorted(int(l.split()[-2]) for l in log1.splitlines()
-                         if l.startswith("Starting chunk"))
+    chunk_sizes = sorted(_chunk_sizes(log1))
     n_bunches = sum(c // BUNCH for c in chunk_sizes)
     _check(n_chunks >= 2 and chunk_sizes[-1] == 102400 and chunk_sizes[0] % BUNCH != 0,
            f"chunks {chunk_sizes}: want one full chunk of 102400 and a ragged one")
-    for label, c in (("epoch 1", c1), ("epoch 2", c2)):
-        k = c["resident_chunk_kernels"]
-        _check(c["resident_chunk"] == n_chunks and c["plain_train_chunk"] == 0,
-               f"{label}: chunk trainer launched {c['resident_chunk']} times for {n_chunks} "
-               f"chunks, plain trainer {c['plain_train_chunk']} times")
-        # per bunch: 4 tc_fwd_kernel (K split within a cluster: no fwd_sum_kernel)
-        # and 4 stripe_bwd_kernel<true> (dedy summed within a cluster: no reduce_dedy_kernel),
-        # 8 launches; the 3 forwards that write a hidden activation draw its mask by Philox;
-        # each chunk's input masks are drawn by one input_mask_bits_kernel into their bit
-        # table, which the first layer's forward and backward read (no Philox there)
-        _check(k["fused_linear_act"] == 4 * n_bunches
-               and k["fused_bwd_update"] == 4 * n_bunches
-               and k["philox_mask"] == 3 * n_bunches and k["input_mask_table"] == n_chunks
-               and k["input_mask_philox"] == 0,
-               f"{label}: kernel launches {k} for {n_bunches} bunches")
-        # engine=auto on the card: the tensor-core forms, every launch; each chunk's
-        # launches but its first programmatic dependent ones
-        _check(k["tc_linear_act"] == k["fused_linear_act"]
-               and k["tc_bwd_update"] == k["fused_bwd_update"],
-               f"{label}: engine=auto did not run the tensor-core forms: {k}")
-        _check(k["pdl"] == 8 * n_bunches - n_chunks,
-               f"{label}: {k['pdl']} programmatic dependent launches, not 8 x {n_bunches} bunches "
-               f"- {n_chunks} chunks")
-    for label, d in (("float32 epoch 1", d1_f), ("float32 epoch 2", d2_f)):
-        # per bunch: 4 f32_fwd_kernel (K split within a cluster: no fwd_sum_kernel) and 4
-        # stripe_bwd_kernel<false> (dedy summed within a cluster: no reduce_dedy_kernel), 8
-        # launches; each chunk's launches but its first programmatic dependent ones
-        k = d["resident_chunk_kernels"]
-        _check(d["resident_chunk"] == n_chunks and k["fused_bwd_update"] == 4 * n_bunches
-               and k["fused_linear_act"] == 4 * n_bunches
-               and k["tc_linear_act"] == k["tc_bwd_update"] == 0
-               and k["pdl"] == 8 * n_bunches - n_chunks and k["input_mask_table"] == n_chunks
-               and k["input_mask_philox"] == 0,
-               f"{label}: {d} for {n_chunks} chunks, {n_bunches} bunches")
     times = [float(l.split()[3]) for l in (log1 + log2).splitlines()
              if l.startswith("Total cost time:")]
     print(f"[train] python -m tpu_sednn_torch.cli, 1548-2048x3-129, dropout 0.1/0.2, engine=auto "
           f"on {smi}: {n_chunks} chunks {chunk_sizes}, {n_samples} samples, {n_bunches} bunches "
-          f"per epoch, tensor-core products; CV MSE {cv1:.6f} -> {cv2:.6f}; epoch (read, train, CV) "
+          f"per epoch, tensor-core products (tc_fwd_kernel and stripe_bwd_kernel, 4 a bunch each, "
+          f"and one input_mask_bits_kernel a chunk, no other kernel of the port, in each command's "
+          f"trace; the float32 epochs alike with f32_fwd_kernel); CV MSE {cv1:.6f} -> {cv2:.6f}; "
+          f"epoch (read, train, CV) "
           f"{times[0]:.1f} s and {times[1]:.1f} s = {n_samples / times[0]:.0f} and "
           f"{n_samples / times[1]:.0f} samples/s; command wall {wall1:.1f} s and {wall2:.1f} s incl. "
-          f"start-up; chunk trainer launched {c1['resident_chunk']} + {c2['resident_chunk']} times, "
-          f"its kernels {c1['resident_chunk_kernels']['pdl']} + "
-          f"{c2['resident_chunk_kernels']['pdl']} times as programmatic dependent launches, "
-          f"plain trainer 0 times; the same two epochs with float32 products (run_epoch, "
+          f"start-up; the same two epochs with float32 products (run_epoch, "
           f"bf16=False): CV MSE {cv1_f:.6f} -> {cv2_f:.6f}, final CV {tc_frac:.3g} apart (limit "
           f"{TC_CV_FRACTION})", flush=True)
 
@@ -4026,23 +3594,17 @@ def phase_train(tmp: str, smi: str) -> dict:
     # trainer (bf16=False, through run_epoch's engine_kwargs) and the tensor-core one (the
     # command, engine=resident) against engine=xla (plain float32 torch)
     short = ["dropoutflag=0", "momentum=0.5", "init_randem_seed=11"]
-    cv_r, c_r = _epoch_in_process(
+    cv_r = _epoch_in_process(
         tmp, _train_args(tmp, corpus, "res", f"{tmp}/mlp.1.wts", "0-19", short + ["engine=resident"]),
-        "resident, float32 products")
-    cv_t, c_t, _, _ = _run_train_cli(
+        "resident, float32 products",
+        want=lambda log: _pfile_kernels(_chunk_sizes(log), "f32_fwd_kernel", dropout=False))
+    cv_t, _, _ = _run_train_cli(
         tmp, _train_args(tmp, corpus, "res_tc", f"{tmp}/mlp.1.wts", "0-19",
-                         short + ["engine=resident"]), "resident, tensor cores")
-    cv_x, c_x, _, _ = _run_train_cli(
+                         short + ["engine=resident"]), "resident, tensor cores",
+        lambda log: _pfile_kernels(_chunk_sizes(log), "tc_fwd_kernel", dropout=False))
+    cv_x, _, _ = _run_train_cli(
         tmp, _train_args(tmp, corpus, "xla", f"{tmp}/mlp.1.wts", "0-19", short + ["engine=xla"]),
         "xla")
-    k_r, k_t = c_r["resident_chunk_kernels"], c_t["resident_chunk_kernels"]
-    _check(c_r["resident_chunk"] == c_t["resident_chunk"] == 1 and c_r["plain_train_chunk"] == 0
-           and c_t["plain_train_chunk"] == 0 and k_r["tc_bwd_update"] == 0
-           and k_r["pdl"] == k_r["fused_linear_act"] + k_r["fused_bwd_update"] - 1
-           and k_t["tc_bwd_update"] == k_t["fused_bwd_update"] > 0
-           and k_t["pdl"] == k_t["tc_linear_act"] + k_t["tc_bwd_update"] - 1
-           and c_x["resident_chunk"] == 0 and c_x["plain_train_chunk"] == 1,
-           f"engines: resident runs {c_r}, {c_t}, xla run {c_x}")
     w_x, b_x = load_wts(f"{tmp}/xla.wts", layersizes=list(FLAGSHIP))
     w_0, b_0 = load_wts(f"{tmp}/mlp.1.wts", layersizes=list(FLAGSHIP))
 
@@ -4064,28 +3626,14 @@ def phase_train(tmp: str, smi: str) -> dict:
           f"{cv_r:.6f}, engine=xla (plain torch on the card) {cv_x:.6f} (tol 1e-3 relative); the "
           f"epoch's update of every tensor within {upd_fro:.3g} relative Frobenius (tol "
           f"{ENGINE_REL_FRO}: two float32 summation orders, ReLU flips and carried rounding over "
-          f"{k_r['fused_bwd_update'] // 4} bunches); engine=resident with tensor-core products (the "
+          f"the epoch's bunches); engine=resident with tensor-core products (the "
           f"command) CV MSE {cv_t:.6f} (tol {TC_ENGINE_CV} relative), update within {upd_tc:.3g} "
           f"(tol {TC_ENGINE_REL_FRO}: bfloat16 operands against float32 ones)", flush=True)
-    runs = (c1, c2, c_t, c_x, d1_f, d2_f, c_r)
-    train_counts = {k: sum(c[k] for c in runs) for k in
-                    ("resident_chunk", "fused_linear_act", "fused_linear_act_tc",
-                     "fused_bwd_update", "fused_bwd_update_tc", "plain_train_chunk",
-                     "dropout_mask")}
-    kernel_counts = {k: sum(c["resident_chunk_kernels"][k] for c in runs)
-                     for k in c1["resident_chunk_kernels"]}
-    # chunk-trainer calls by product form: tensor cores (the command's engine=auto and
-    # engine=resident) and float32 (run_epoch with bf16=False)
-    by_form = dict(tc=c1["resident_chunk"] + c2["resident_chunk"] + c_t["resident_chunk"],
-                   f32=d1_f["resident_chunk"] + d2_f["resident_chunk"] + c_r["resident_chunk"])
-
     prof = _profile_chunk(corpus, train_range)
     return dict(cv=[cv1, cv2], cv_f32=[cv1_f, cv2_f], tc_cv_fraction=tc_frac,
                 engine_update_off=dict(f32=upd_fro, tc=upd_tc),
                 samples_per_s=[n_samples / t for t in times[:2]],
-                epoch_seconds=times[:2], n_samples=n_samples, n_bunches=n_bunches,
-                stft_launches=n_stft, counts=train_counts, kernel_counts=kernel_counts,
-                by_form=by_form, **prof)
+                epoch_seconds=times[:2], n_samples=n_samples, n_bunches=n_bunches, **prof)
 
 
 def _kernel_spans(prof) -> list:
@@ -4119,7 +3667,7 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     from tpu_sednn_torch.data.rand48 import Rand48
     from tpu_sednn_torch.io import load_norm, read_pfile_info
     from tpu_sednn_torch.model.mlp import init_params
-    from tpu_sednn_torch.ops.resident_chunk import kernel_launches, make_resident_train_chunk
+    from tpu_sednn_torch.ops.resident_chunk import make_resident_train_chunk
     from tpu_sednn_torch.train.loop import _to_device
     from tpu_sednn_torch.train.step import OptConfig, init_train_state
 
@@ -4150,12 +3698,6 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     def fresh():
         return init_train_state(init_params(torch.Generator().manual_seed(0), cfg, device="cuda"))
 
-    def pdl_of(fn):
-        """fn()'s programmatic dependent launches, by the trainer's tally."""
-        before = kernel_launches["pdl"]
-        fn()
-        return kernel_launches["pdl"] - before
-
     state = fresh()
     run(state, x, t, 1, opt.lrate, opt.momentum, opt.weightcost, n_real=8)  # warm-up
     torch.cuda.synchronize()
@@ -4166,13 +3708,10 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
         st = fresh()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        n_pdl = pdl_of(lambda: run(st, x, t, 2, opt.lrate, opt.momentum, opt.weightcost,
-                                   n_real=n_real))
+        run(st, x, t, 2, opt.lrate, opt.momentum, opt.weightcost, n_real=n_real)
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         train_runs.append((time.perf_counter() - t0) * 1e3)
-        _check(n_pdl == 8 * n_real - 1, f"a chunk of {n_real} bunches: {n_pdl} programmatic "
-                                         f"dependent launches, not {8 * n_real - 1}")
         states.append(st)
     for a, b in zip(_state_tensors(states[0]), _state_tensors(states[1])):
         _check(torch.equal(a, b), f"two runs of a chunk of {n_real} bunches from the same state "
@@ -4181,10 +3720,7 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     run_f32, f32_runs = make_resident_train_chunk(cfg, opt, bf16=False), []
     for _ in range(2):
         st = fresh()
-        n_pdl_f32 = pdl_of(lambda: run_f32(st, x, t, 2, opt.lrate, opt.momentum, opt.weightcost,
-                                           n_real=n_real))
-        _check(n_pdl_f32 == 8 * n_real - 1, f"float32 products, a chunk of {n_real} bunches: "
-                                             f"{n_pdl_f32} programmatic dependent launches")
+        run_f32(st, x, t, 2, opt.lrate, opt.momentum, opt.weightcost, n_real=n_real)
         f32_runs.append(st)
     torch.cuda.synchronize()
     for a, b in zip(_state_tensors(f32_runs[0]), _state_tensors(f32_runs[1])):
@@ -4203,25 +3739,22 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # The trace: 200 bunches (1,600 launches).  The tracer can lose a few kernels'
-    # records, so a trace is taken again, five times at most, until it holds every
-    # launch, and the fullest is shown with what it lacks.  With programmatic dependent
-    # launches kernels overlap (a launch's blocks start, and wait, while the launch
-    # before it finishes), so the device is busy for the union of the kernels'
-    # intervals, not for the sum of their times.  A lost record can only hide busy
-    # time: from an incomplete trace the idle shares are upper bounds.
+    # The trace: 200 bunches (1,600 launches of the layer kernels and one of the input
+    # masks' draw).  The tracer can lose a few kernels' records, so a trace is taken
+    # again, five times at most, until it holds every launch, and the fullest is shown
+    # with what it lacks.  With programmatic dependent launches kernels overlap (a
+    # launch's blocks start, and wait, while the launch before it finishes), so the
+    # device is busy for the union of the kernels' intervals, not for the sum of their
+    # times.  A lost record can only hide busy time: from an incomplete trace the idle
+    # shares are upper bounds.
     n_trace, best = 200, None
+    launched = 2 * (len(FLAGSHIP) - 1) * n_trace + 1  # a forward and a backward a layer a bunch
     for attempt in range(5):
-        before = dict(kernel_launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run(state, x, t, 5 + attempt, opt.lrate, opt.momentum, opt.weightcost, n_real=n_trace)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
-        # the kernels launched: the two product kernels and the input masks' draw (the
-        # other keys count subsets of these by form)
-        launched = sum(kernel_launches[k] - before[k] for k in
-                       ("fused_linear_act", "fused_bwd_update", "input_mask_table"))
         spans = _kernel_spans(prof)
         if best is None or len(spans) > len(best[0]):
             kernels = sorted((e for e in prof.key_averages()
@@ -4249,9 +3782,8 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
           f"({100 * h2d_ms / total:.2f}% of the chunk's {total:.0f} ms when nothing overlaps), "
           f"on-device splice {splice_ms:.1f} ms, chunk trainer {train_ms:.1f} ms = "
           f"{train_ms / n_real:.4f} ms per bunch ({' '.join(f'{v:.1f}' for v in train_runs)} ms, two "
-          f"runs from the same state, bit for bit equal; {n_pdl} programmatic dependent launches "
-          f"each; the float32-product chain's two runs bit for bit equal too, {n_pdl_f32} "
-          f"dependent launches each), {n_real * BUNCH / train_ms * 1e3:.0f} samples/s; its "
+          f"runs from the same state, bit for bit equal; the float32-product chain's two runs bit "
+          f"for bit equal too), {n_real * BUNCH / train_ms * 1e3:.0f} samples/s; its "
           f"launches enqueued in "
           f"{enqueue_ms:.1f} ms ({enqueue_ms / n_real:.4f} ms a bunch, held back by CUDA's launch "
           f"queue), the host's own cost {host_ms:.4f} ms a bunch ({n_host} bunches enqueued behind "
@@ -4272,7 +3804,7 @@ def _profile_chunk(corpus: dict, train_range: str) -> dict:
         print(f"[train]   {dev_us(e) / 1e3:8.2f} ms ({100 * dev_us(e) / 1e3 / sum_ms:4.1f}% of the "
               f"sum) x{e.count:<5d} {e.key[:90]}")
     return dict(chunk_ms_per_bunch=train_ms / n_real, chunk_samples_per_s=n_real * BUNCH / train_ms * 1e3,
-                chunk_runs_ms=train_runs, chunk_pdl_launches=n_pdl,
+                chunk_runs_ms=train_runs,
                 enqueue_ms_per_bunch=enqueue_ms / n_real, host_ms_per_bunch=host_ms,
                 h2d_ms=h2d_ms, h2d_share=h2d_ms / total, host_ms=host_read_ms, splice_ms=splice_ms,
                 idle_share=max(traced_ms - busy_ms, 0) / traced_ms if spans else None,
@@ -4349,6 +3881,18 @@ def _state_bytes(state) -> list:
             .hexdigest() for a in _state_tensors(state)]
 
 
+def _dp_kernels_of(n_bunches: int, n_calls: int, tc: bool, L: int = len(FLAGSHIP) - 1) -> dict:
+    """A rank's kernels of the data-parallel chunk trainer, dropout on: a
+    layer a bunch its forward, its gradient-out backward (stripe_bwd_kernel;
+    with tensor cores after a cast of dedx, bf16_copy_kernel), the sum over
+    the ranks (rank_sum_kernel) and the update (update_kernel); one draw of
+    its rows of the input masks a call."""
+    n = L * n_bunches
+    return _port(**{"tc_fwd_kernel" if tc else "f32_fwd_kernel": n}, stripe_bwd_kernel=n,
+                 bf16_copy_kernel=n if tc else 0, rank_sum_kernel=n, update_kernel=n,
+                 input_mask_bits_kernel=n_calls)
+
+
 def dp_worker(rank: int, world: int, workdir: str) -> int:
     """One rank of phase_dp's runs (python3 chip_smoke.py --dp-worker RANK
     WORLD DIR): the DP_CASES on the card, a timed run, and two pfile epochs
@@ -4356,7 +3900,6 @@ def dp_worker(rank: int, world: int, workdir: str) -> int:
     import torch.distributed as dist
 
     from tpu_sednn_torch.data.rand48 import Rand48
-    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
     from tpu_sednn_torch.ops import resident_chunk as rc
     from tpu_sednn_torch.parallel import Mesh, all_reduce
     from tpu_sednn_torch.train.loop import train_epoch_pfile
@@ -4425,20 +3968,24 @@ def dp_worker(rank: int, world: int, workdir: str) -> int:
                                                        zip(FLAGSHIP[:-1], FLAGSHIP[1:])) / 1e6)
     dist.barrier()
     # the pfile epoch on all ranks (train_epoch_pfile, n_data_shards = world): float32
-    # products, and sr_delta with tensor cores; counts zeroed just before each
+    # products, and sr_delta with tensor cores
     cfg_cmd = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
     opt_cmd = OptConfig(lrate=0.1, momentum=0.5, weightcost=0.0, bunchsize=BUNCH)
-    for label, kw in (("f32", {"bf16": False}), ("sr_delta", {"sr_delta": True})):
-        from tpu_sednn_torch.model.mlp import init_params
+    from tpu_sednn_torch.model.mlp import init_params
 
-        st = init_train_state(init_params(torch.Generator().manual_seed(11), cfg_cmd,
-                                          scheme="glorot", device="cuda"))
-        reset_launch_counts()
-        _, res = train_epoch_pfile(st, cfg_cmd, opt_cmd, **job, rand=Rand48(11),
-                                   n_data_shards=world, engine="resident", engine_kwargs=kw)
-        torch.cuda.synchronize()
-        out["epochs"][label] = dict(cv=res.cv_mse, counts=launch_counts(),
-                                    samples=res.train_samples, seconds=res.seconds)
+    for label, kw in (("f32", {"bf16": False}), ("sr_delta", {"sr_delta": True})):
+        def epoch():
+            st = init_train_state(init_params(torch.Generator().manual_seed(11), cfg_cmd,
+                                              scheme="glorot", device="cuda"))
+            _, res = train_epoch_pfile(st, cfg_cmd, opt_cmd, **job, rand=Rand48(11),
+                                       n_data_shards=world, engine="resident", engine_kwargs=kw)
+            torch.cuda.synchronize()
+            return res
+
+        res, got, want = _traced_on_rank0(
+            epoch, lambda res: _dp_kernels_of(res.train_samples // BUNCH, 1, label != "f32"), rank)
+        out["epochs"][label] = dict(cv=res.cv_mse, samples=res.train_samples,
+                                    seconds=res.seconds, kernels=got, want=want)
     dist.barrier()
     if rank == 0:
         with open(os.path.join(workdir, "rank0.json"), "w") as f:
@@ -4458,8 +4005,6 @@ def _dp_kernels(gen) -> dict:
     Philox draw at the rank's rows, the update kernel (float32 and sr_delta
     delta) and rank_sum bit-equal to their plain versions; then times at a
     rank's rows of the flagship layers, beside the bounds."""
-    import ctypes
-
     from tpu_sednn_torch.ops import resident_chunk as rc
     from tpu_sednn_torch.ops.fused_mlp import (dp_update, dp_update_reference, fused_bwd_grad_out,
                                                fused_bwd_grad_out_reference,
@@ -4472,7 +4017,6 @@ def _dp_kernels(gen) -> dict:
     kn = [(FLAGSHIP[l], FLAGSHIP[l + 1]) for l in range(4)]
     cfg = _flagship_cfg(dropout_vis=0.1, dropout_hid=0.2)
     fwd_worst = {False: {}, True: {}}
-    scratch_tallies = (ctypes.c_longlong * len(rc.kernel_launches))()  # not a path's launches
     # rank 1's rows of a bunch of 128 (of 2 ranks: 64, of 4: 32): its rows of the input's
     # mask table, drawn at row0 = M (tile 0 under seed 77: key 77)
     dp_bits = {M: rc.input_mask_bits(77, 1, M, FLAGSHIP[0], 0.1, row0=M)[0] for M in (64, 32)}
@@ -4483,7 +4027,7 @@ def _dp_kernels(gen) -> dict:
         for tc in (False, True):
             tol = (TC_REL_MAX, TC_REL_FRO) if tc else (KERNEL_REL_MAX, KERNEL_REL_FRO)
             fwd = rc.dp_tile_forward(cfg, M, BUNCH, tc, torch.device("cuda", 0))
-            ys, dedx = fwd(x, t, ws1, bs1, 77, M, 2.0 / BUNCH, scratch_tallies, dp_bits[M])
+            ys, dedx = fwd(x, t, ws1, bs1, 77, M, 2.0 / BUNCH, dp_bits[M])
             h = x  # each layer on the kernel's own input
             for l, (K, N) in enumerate(kn):
                 want = fused_linear_act_reference(
@@ -4597,7 +4141,7 @@ def _dp_kernels(gen) -> dict:
         for key, tc in (("fwd", True), ("fwd_f32", False)):
             fwd = rc.dp_tile_forward(cfg, M, BUNCH, tc, torch.device("cuda", 0))
             res[key]["ms"] = _device_ms(lambda i: fwd(x, t, ws[i % 3], bs, 77, M, 2.0 / BUNCH,
-                                                      scratch_tallies, dp_bits[M]))
+                                                      dp_bits[M]))
 
         def library_fwd(i, x_in, wl, bl):
             """The four layers as torch.addmm + act (the yardstick of row 1)."""
@@ -4825,36 +4369,61 @@ def phase_recipe(tmp: str, smi: str) -> dict:
     128, 120 utterances x 6 SNRs x white/pink/babble, 15 epochs, scored on
     the trained families and on factory and siren; then the on-device sample
     builder (data/device_pipeline.py, the STFT kernel) on the recipe's first
-    corpus pairs.  Launch counts run from just before the recipe to just after
-    the builder."""
+    corpus pairs."""
+    from dataclasses import replace
+
     from tpu_sednn_torch.data.device_pipeline import streaming_sample_batches
     from tpu_sednn_torch.data.mixing import synth_corpus
     from tpu_sednn_torch.enhance import enhance_waveform
     from tpu_sednn_torch.model import ModelConfig
-    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
     from tpu_sednn_torch.recipes import load_run_dir
     from tpu_sednn_torch.recipes import multi_condition as tmc
     from tpu_sednn_torch.utils.checkpoint import restore_checkpoint
     from tpu_sednn_torch.utils.logging import Logger
 
-    out_dir = os.path.join(tmp, "recipe")
-    metrics = os.path.join(tmp, "recipe_metrics.jsonl")
-    mc = tmc.MultiConditionConfig(out_dir=out_dir, eval_noise_kinds=RECIPE_EVAL_KINDS)
+    mc = tmc.MultiConditionConfig(out_dir="", eval_noise_kinds=RECIPE_EVAL_KINDS)
     _check(mc.device == "cuda" and mc.hidden == (2048,) * 3 and mc.head == "psm"
            and mc.sample_rate == 8000 and mc.n_epochs == 15 and mc.n_utts == 120,
            f"the recipe's non-small default changed: {mc}")
-    reset_launch_counts()  # the path's run starts here
-    t0 = time.perf_counter()
-    res = tmc.run_multi_condition(mc, logger=Logger(stream=sys.stdout, metrics_path=metrics))
-    wall = time.perf_counter() - t0
-    after_recipe = launch_counts()
+    runs = []
+
+    def once():
+        """The recipe in a fresh run dir (it resumes from a run dir's checkpoint)."""
+        nonlocal mc
+        d = os.path.join(tmp, f"recipe{len(runs)}")
+        mc = replace(mc, out_dir=os.path.join(d, "out"))
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        res = tmc.run_multi_condition(mc, logger=Logger(
+            stream=sys.stdout, log_path=os.path.join(d, "log"),
+            metrics_path=os.path.join(d, "metrics.jsonl")))
+        runs.append(d)
+        return res, time.perf_counter() - t0
+
+    def want(value):
+        """The tensor-core chunk trainer: tc_fwd_kernel and stripe_bwd_kernel a layer a
+        bunch, one input_mask_bits_kernel a chunk, every epoch; no other kernel of the
+        port (the recipe featurizes and decodes by matmuls)."""
+        n = int(next(l for l in open(os.path.join(runs[-1], "log"))
+                     if " train / " in l).split()[1])
+        n_b = mc.n_epochs * (n // mc.bunchsize) * (len(FLAGSHIP) - 1)
+        calls = mc.n_epochs * sum(n - s >= mc.bunchsize for s in range(0, n, mc.traincache))
+        return _port(tc_fwd_kernel=n_b, stripe_bwd_kernel=n_b, input_mask_bits_kernel=calls)
+
+    got, want_k, (res, wall) = _until_counts(lambda: _traced(once), want, tries=3)
+    _check(_reads(got, want_k), f"the recipe's trace: the port's kernels {got}, want {want_k}")
+    out_dir, metrics = mc.out_dir, os.path.join(runs[-1], "metrics.jsonl")
     stages = {r["stage"]: r["seconds"] for r in map(json.loads, open(metrics))
               if r.get("event") == "stage"}
     _check(list(stages) == ["corpus", "featurize", "targets", "train", "eval"],
            f"recipe stages {list(stages)}")
     print(f"[recipe] {wall:.1f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
           + f"; training {res['train_samples_per_sec']:.0f} samples/s (the epoch loop by the "
-          f"host clock, CV included); {smi}", flush=True)
+          f"host clock, CV included; traced, run {len(runs)}); {smi}", flush=True)
+    print(f"[recipe] the trace holds the tensor-core chunk trainer's kernels (_reads) "
+          f"({want_k['tc_fwd_kernel']} tc_fwd_kernel, {want_k['stripe_bwd_kernel']} "
+          f"stripe_bwd_kernel, {want_k['input_mask_bits_kernel']} input_mask_bits_kernel) and no "
+          f"other kernel of the port: no f32_fwd_kernel, no stft_lps_kernel", flush=True)
 
     cv = res["cv_hist"]
     _check(len(cv) == mc.n_epochs and cv[-1] < cv[0], f"recipe CV did not fall: {cv}")
@@ -4900,61 +4469,32 @@ def phase_recipe(tmp: str, smi: str) -> dict:
                                   noise_kinds=mc.noise_kinds)
     pairs = list(zip(noisys, cleans))
     kw = dict(cfg=ecfg.stft, fea_context=mc.fea_context, targ_offset=mc.targ_offset, nat=True)
-    stft_before = launch_counts()["stft_lps"]
     t1 = time.perf_counter()
     card = [(x, t) for x, t in streaming_sample_batches(pairs, mean, istd, device="cuda", **kw)]
     torch.cuda.synchronize()
     builder_s = time.perf_counter() - t1
-    n_stft_builder = launch_counts()["stft_lps"] - stft_before
-    counts = launch_counts()
     t1 = time.perf_counter()
     plain = list(streaming_sample_batches(pairs, mean, istd, device="cpu", **kw))
     plain_s = time.perf_counter() - t1
-    _check(len(card) == len(plain) == n_pairs and n_stft_builder == 2 * n_pairs,
-           f"{len(card)} / {len(plain)} sample blocks, {n_stft_builder} stft_lps launches")
+    _check(len(card) == len(plain) == n_pairs,
+           f"{len(card)} / {len(plain)} sample blocks for {n_pairs} pairs")
     held = _hold_builder(card, plain, pairs, ecfg.stft, istd, mc)
     hx, ht = held["x"], held["t"]
     n_samples = sum(x.shape[0] for x, _ in card)
     print(f"[recipe] on-device sample builder: {n_pairs} corpus pairs -> {n_samples} samples of "
-          f"{card[0][0].shape[1]} + {card[0][1].shape[1]} on the card ({n_stft_builder} stft_lps "
-          f"launches, {builder_s * 1e3:.1f} ms by the host clock; the CPU plain version "
+          f"{card[0][0].shape[1]} + {card[0][1].shape[1]} on the card (stft_lps, "
+          f"{builder_s * 1e3:.1f} ms by the host clock; the CPU plain version "
           f"{plain_s * 1e3:.1f} ms); max |x - plain| {hx['err']:.3g}, {hx['ratio']:.3f} of atol "
           f"1e-4 + rtol 1e-4 + the float32 rounding bound ({hx['beyond_fixed']} elements beyond "
           f"the fixed part alone); max |t - plain| {ht['err']:.3g}, {ht['ratio']:.3f} of atol 2e-2 "
           f"+ rtol 1e-4 + the bound ({ht['beyond_fixed']} beyond the fixed part)", flush=True)
 
-    kc = counts["resident_chunk_kernels"]
-    _check(counts["resident_chunk"] > 0 and kc["tc_linear_act"] > 0 and kc["tc_bwd_update"] > 0
-           and kc["philox_mask"] > 0 and counts["plain_train_chunk"] == 0
-           and kc["input_mask_table"] == counts["resident_chunk"] and kc["input_mask_philox"] == 0
-           and after_recipe["stft_lps"] == 0,
-           f"recipe path launches {counts}")
-    print(f"[recipe] launches: chunk trainer {counts['resident_chunk']} calls (tensor cores; the "
-          f"plain trainer {counts['plain_train_chunk']}), {kc['tc_linear_act']} tc_fwd, "
-          f"{kc['tc_bwd_update']} tc_bwd, {kc['philox_mask']} with masks, {kc['pdl']} dependent; "
-          f"stft_lps {counts['stft_lps']}", flush=True)
-    return dict(counts={k: v for k, v in counts.items() if isinstance(v, int)}, kernel_counts=kc,
-                stages=stages, wall_s=wall, cv_hist=cv, synthetic_0dB=s0,
+    return dict(stages=stages, wall_s=wall, cv_hist=cv, synthetic_0dB=s0,
                 synthetic_5dB=res["eval"]["synthetic_5dB"],
                 noise_generalization={k: gen[k] for k in ("seen", "unseen", "gap")},
                 train_samples_per_sec=res["train_samples_per_sec"],
                 builder=dict(pairs=n_pairs, samples=n_samples, ms=builder_s * 1e3,
                              plain_ms=plain_s * 1e3, held=held))
-
-
-def _dp_mask_counts(c: dict, label: str) -> None:
-    """A data-parallel run with input dropout (rank 0's launch_counts, zeroed
-    just before it) draws its rows of a call's input masks once a call into
-    their table (input_mask_table one a call) and no layer-0 launch draws
-    them by Philox: not the forward, not the gradient-out backward
-    (input_mask_philox, fused_bwd_grad_out_philox 0)."""
-    k = c["resident_chunk_kernels"]
-    _check(k["input_mask_table"] == c["dp_resident_chunk"] == c["input_mask_bits"] > 0
-           and k["input_mask_philox"] == 0 and c["fused_bwd_grad_out_philox"] == 0,
-           f"{label}: {k['input_mask_table']} input-mask draws, {c['input_mask_bits']} launches "
-           f"of the draw, in {c['dp_resident_chunk']} calls; layer-0 launches that drew Philox "
-           f"{k['input_mask_philox']} (the gradient-out backward's "
-           f"{c['fused_bwd_grad_out_philox']})")
 
 
 def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
@@ -5106,21 +4646,19 @@ def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
                                    logger=Logger(stream=None))
         dp = r0["epochs"][label]
         off = abs(dp["cv"] - res.cv_mse) / res.cv_mse
-        c = dp["counts"]
-        n_bunches = c["dp_update"] // 4
-        _check(np.isfinite(dp["cv"]) and off <= frac and c["dp_resident_chunk"] >= 1
-               and n_bunches > 0 and c["fused_bwd_grad_out"] == 4 * n_bunches
-               and c["rank_sum"] == 4 * n_bunches
-               and c["resident_chunk"] == 0 and c["plain_train_chunk"] == 0,
+        _check(np.isfinite(dp["cv"]) and off <= frac and 0 < dp["samples"] <= 102400,
                f"DP pfile epoch ({label}) on {world} ranks: CV {dp['cv']} vs one process "
-               f"{res.cv_mse} ({off:.3g} apart, tol {frac}); counts {c}")
-        _dp_mask_counts(c, f"DP pfile epoch ({label}) on {world} ranks")
-        epochs[label] = dict(cv=dp["cv"], cv_one=res.cv_mse, off=off, counts=c)
-        print(f"[dp] train_epoch_pfile on {world} ranks (sentences 0-1, {n_bunches} bunches), "
+               f"{res.cv_mse} ({off:.3g} apart, tol {frac}), {dp['samples']} samples (one chunk)")
+        _check(_reads(dp["kernels"], dp["want"]), f"DP pfile epoch ({label}): rank 0's trace holds "
+                                            f"{dp['kernels']}, want {dp['want']}")
+        epochs[label] = dict(cv=dp["cv"], cv_one=res.cv_mse, off=off)
+        print(f"[dp] train_epoch_pfile on {world} ranks (sentences 0-1, {dp['samples']} samples), "
               f"{label}: CV {dp['cv']:.6f}, one process {res.cv_mse:.6f} ({off:.3g} apart, tol "
-              f"{frac}); rank 0 launched {c['fused_bwd_grad_out']} gradient-out backwards "
-              f"({c['fused_bwd_grad_out_tc']} tensor-core), {c['dp_update']} updates "
-              f"({c['dp_update_sr']} sr_delta), {c['rank_sum']} sums on the card", flush=True)
+              f"{frac}); rank 0's trace: the DP chunk trainer's kernels (_reads), "
+              f"{dp['want']['update_kernel']} update_kernel, {dp['want']['rank_sum_kernel']} "
+              f"rank_sum_kernel, {dp['want']['stripe_bwd_kernel']} gradient-out stripe_bwd_kernel, "
+              f"{dp['want']['bf16_copy_kernel']} bf16_copy_kernel, no other kernel of the port",
+              flush=True)
     t_b = time.perf_counter() - t0
 
     # (c) the command: torchrun, 2 ranks, gpu_used=2, tensor cores, dropout on, against
@@ -5132,35 +4670,33 @@ def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
         save_wts(init_wts, *params_to_wts(init_params(torch.Generator().manual_seed(5),
                                                       _flagship_cfg(), device="cpu")))
     common = ["dropoutflag=1", "momentum=0.5", "init_randem_seed=11", "engine=auto"]
-    report = os.path.join(tmp, "launches_dp2.json")
     args2 = _train_args(tmp, corpus, "dp2", init_wts, "0-19", common + ["gpu_used=2"])
-    t_cmd = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                           "--nproc_per_node=2", "-m", "tpu_sednn_torch.cli"] + args2, cwd=ROOT,
-                          env=dict(os.environ, TPU_SEDNN_TORCH_LAUNCH_REPORT=report),
-                          capture_output=True, text=True, timeout=900)
-    wall2 = time.perf_counter() - t_cmd
-    _check(proc.returncode == 0, f"torchrun gpu_used=2 failed:\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
-    _check(proc.stdout.count("all finish!") == 1 and "backend gloo" in proc.stderr,
-           "torchrun gpu_used=2: not one 'all finish!' or no gloo backend line")
-    log2 = open(f"{tmp}/dp2.log").read()
+
+    def command():
+        """The command, each rank traced in its own process (_traced_command)."""
+        if os.path.exists(f"{tmp}/dp2.log"):
+            os.remove(f"{tmp}/dp2.log")  # the command appends to its log
+        t_cmd = time.perf_counter()
+        proc, counts = _traced_command(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2"],
+            "tpu_sednn_torch.cli", args2, os.path.join(tmp, "kernels_dp2"), "torchrun gpu_used=2",
+            cwd=ROOT, timeout=900)
+        _check(proc.stdout.count("all finish!") == 1 and "backend gloo" in proc.stderr,
+               "torchrun gpu_used=2: not one 'all finish!' or no gloo backend line")
+        return (time.perf_counter() - t_cmd, open(f"{tmp}/dp2.log").read()), counts
+
+    # rank 0's kernels: the DP chunk trainer with tensor cores, every chunk of the log
+    got2, want2, (wall2, log2) = _until_counts(
+        command, lambda v: _dp_kernels_of(sum(c // BUNCH for c in _chunk_sizes(v[1])),
+                                          sum(c >= BUNCH for c in _chunk_sizes(v[1])), True),
+        tries=3)
+    _check(_reads(got2, want2), f"torchrun gpu_used=2: rank 0's trace holds {got2}, want {want2}")
     cv2 = [float(l.rsplit(":", 1)[1]) for l in log2.splitlines() if l.startswith("CV over.")]
     _check(len(cv2) == 1 and np.isfinite(cv2[0]), f"gpu_used=2: CV lines {cv2}")
-    cv1, c1 = _epoch_in_process(tmp, _train_args(tmp, corpus, "dp1", init_wts, "0-19", common),
-                                "gpu_used=1 twin", engine_kwargs={})
-    c2 = json.load(open(report))
-    chunk_sizes = [int(l.split()[-2]) for l in log2.splitlines() if l.startswith("Starting chunk")]
-    n_bunches = sum(c // BUNCH for c in chunk_sizes)
-    k2 = c2["resident_chunk_kernels"]
-    _check(c2["dp_resident_chunk"] == len(chunk_sizes) and c2["resident_chunk"] == 0
-           and c2["plain_train_chunk"] == 0 and c2["fused_bwd_grad_out_tc"] == 4 * n_bunches
-           and c2["fused_bwd_grad_out"] == 4 * n_bunches and c2["dp_update"] == 4 * n_bunches
-           and c2["rank_sum"] == 4 * n_bunches
-           and k2["tc_linear_act"] == k2["fused_linear_act"] == 4 * n_bunches
-           and k2["fused_bwd_update"] == 0 and c1["resident_chunk"] == len(chunk_sizes),
-           f"gpu_used=2 launches {c2} for {n_bunches} bunches; gpu_used=1 {c1}")
-    _dp_mask_counts(c2, "torchrun gpu_used=2")
+    cv1 = _epoch_in_process(tmp, _train_args(tmp, corpus, "dp1", init_wts, "0-19", common),
+                            "gpu_used=1 twin", engine_kwargs={},
+                            want=lambda log: _pfile_kernels(_chunk_sizes(log), "tc_fwd_kernel"))
+    n_bunches = sum(c // BUNCH for c in _chunk_sizes(log2))
     (w2, b2), (w1, b1), (w0, b0) = (load_wts(f, layersizes=list(FLAGSHIP)) for f in
                                     (f"{tmp}/dp2.wts", f"{tmp}/dp1.wts", init_wts))
     upd = max(float(np.linalg.norm(a - b) / np.linalg.norm(b - c))
@@ -5178,15 +4714,16 @@ def phase_dp(tmp: str, smi: str, train_ran: bool) -> dict:
           f"sentences 0-19: {n_bunches} bunches): CV MSE {cv2[0]:.6f}, gpu_used=1 {cv1:.6f} "
           f"({cv_off:.3g} apart, tol {DP_CV_FRACTION}); the epoch's update within {upd:.3g} "
           f"relative Frobenius (tol {TC_ENGINE_REL_FRO}); epoch {secs[0]:.1f} s by rank 0's clock "
-          f"= {n_samples / secs[0]:.0f} samples/s, command wall {wall2:.1f} s; rank 0 launched "
-          f"{c2['fused_bwd_grad_out_tc']} tensor-core gradient-out backwards, {c2['dp_update']} "
-          f"updates, {c2['rank_sum']} sums on the card, {k2['tc_linear_act']} tensor-core "
-          f"forwards; [dp] phase (a) {t_a:.1f} s, "
+          f"= {n_samples / secs[0]:.0f} samples/s, command wall {wall2:.1f} s (traced); rank 0's "
+          f"trace: the DP chunk trainer's kernels (_reads), {want2['tc_fwd_kernel']} tc_fwd_kernel, "
+          f"{want2['update_kernel']} update_kernel, {want2['rank_sum_kernel']} rank_sum_kernel, "
+          f"no other kernel of the port; [dp] phase (a) "
+          f"{t_a:.1f} s, "
           f"(b) {t_b:.1f} s (the ranks' spawn and runs {t_spawn:.1f} s), (c) {t_c:.1f} s",
           flush=True)
     return dict(kern=kern, alone={f"{w}_{'tc' if tc else 'f32'}": v for (w, tc), v in alone.items()},
                 held=held, timing=timing, epochs=epochs,
-                cmd=dict(cv=cv2[0], cv_one=cv1, cv_off=cv_off, update_off=upd, counts=c2,
+                cmd=dict(cv=cv2[0], cv_one=cv1, cv_off=cv_off, update_off=upd,
                          n_bunches=n_bunches, epoch_s=secs[0], wall_s=wall2),
                 seconds=dict(a=t_a, b=t_b, c=t_c))
 
@@ -5250,7 +4787,6 @@ def tp_worker(rank: int, world: int, workdir: str) -> int:
     import torch.distributed as dist
 
     import tpu_sednn_torch.parallel.mesh as pm
-    from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
     from tpu_sednn_torch.parallel import Mesh, make_auto_sharded_train_chunk, make_mesh
     from tpu_sednn_torch.train.step import init_train_state
 
@@ -5262,7 +4798,7 @@ def tp_worker(rank: int, world: int, workdir: str) -> int:
     meshes = {"1x2": (Mesh(1, 0, dev, n_model=2, model_index=rank, model_group=pair), pair),
               "2x2": (make_mesh(2, 2, devices=[dev]), None)}
     plain_sum, plain_gather = pm.all_reduce, pm.all_gather_cols
-    out = dict(hashes={}, timing={})
+    out = dict(hashes={}, timing={}, kernels={})
 
     def save(st, name):
         out["hashes"][name] = _state_bytes(st)
@@ -5270,16 +4806,19 @@ def tp_worker(rank: int, world: int, workdir: str) -> int:
             torch.save([a.cpu() for a in _state_tensors(st)] + [st.step],
                        os.path.join(workdir, f"{name}.pt"))
 
-    reset_launch_counts()  # the path's runs start here
     for name, sizes, shape, shard in TP_RUNS:
         mesh, barrier_group = meshes[f"{shape[0]}x{shape[1]}"]
         if rank >= shape[0] * shape[1]:
             continue
         cfg, opt, mlp, x, t = _tp_inputs(sizes)
         run = make_auto_sharded_train_chunk(cfg, opt, mesh, shard_model_axis=shard)
-        st = run(init_train_state(mlp), x[:2 * BUNCH], t[:2 * BUNCH],
-                 torch.Generator().manual_seed(TP_SEED), *TP_HYP)
-        torch.cuda.synchronize()
+        # traced on rank 0: the sums and the column gathers on the card, no other kernel
+        want = _port(rank_sum_kernel=_tp_sums_a_chunk(len(sizes) - 1, 2, shape[0], shard))
+        st, got, _ = _traced_on_rank0(
+            lambda: run(init_train_state(mlp), x[:2 * BUNCH], t[:2 * BUNCH],
+                        torch.Generator().manual_seed(TP_SEED), *TP_HYP), want, rank,
+            group=barrier_group)
+        out["kernels"][name] = dict(got=got, want=want)
         save(st, f"{name}_2")
         spent = []
 
@@ -5305,7 +4844,6 @@ def tp_worker(rank: int, world: int, workdir: str) -> int:
         save(st, f"{name}_{TP_BUNCHES}")
         out["timing"][name] = dict(bunch_ms=wall * 1e3 / TP_BUNCHES,
                                    collectives_ms=sum(spent) * 1e3 / TP_BUNCHES)
-    out["counts"] = launch_counts()
     # the deliberately broken run: dedy not summed over "model" (1 x 2, 2 bunches)
     if rank < 2:
         cfg, opt, mlp, x, t = _tp_inputs(TP_SIZES)
@@ -5329,15 +4867,6 @@ def tp_worker(rank: int, world: int, workdir: str) -> int:
         json.dump(out if rank == 0 else dict(hashes=out["hashes"]), f)
     dist.destroy_process_group()
     return 0
-
-
-def _other_launches(counts: dict) -> dict:
-    """Every launch counter but rank_sum's that is not 0: the tensor-parallel
-    and the recipe's data-parallel paths launch no other kernel (the recipe
-    featurizes by matmuls, as the JAX recipe does with its XLA STFT)."""
-    flat = dict(counts, **{f"resident_chunk_kernels.{k}": v
-                           for k, v in counts.get("resident_chunk_kernels", {}).items()})
-    return {k: v for k, v in flat.items() if isinstance(v, int) and v and k != "rank_sum"}
 
 
 def _tp_hold(got: list, want, want64) -> dict:
@@ -5368,7 +4897,7 @@ def phase_tp(tmp: str, smi: str) -> dict:
     each after 2 bunches against the single-process reference_train_chunk on
     the card (rtol 1e-5 / atol 1e-6) and after 16 (the drift printed), every
     rank's state bit-equal, a skipped "model" sum refused, the 129-wide head
-    refused to shard; ms a bunch, the collectives' share, rank_sum launches.
+    refused to shard; ms a bunch, the collectives' share.
     Each element is held against the plain trainer's float32 run or its
     float64 run (TP_TOL's comment says why)."""
     from tpu_sednn_torch.train.step import OptConfig, init_train_state, reference_train_chunk
@@ -5426,16 +4955,14 @@ def phase_tp(tmp: str, smi: str) -> dict:
                        f"TP {key}: off the single-process trainer by {h['max_abs_err']:.3g}: "
                        f"{h['tol_ratio']:.3g} of rtol {TP_TOL[0]} / atol {TP_TOL[1]} against its "
                        f"float32 and float64 runs")
+    for name, k in r0["kernels"].items():
+        _check(_reads(k["got"], k["want"]), f"TP {name}_2: rank 0's trace holds {k['got']}, want "
+                                      f"{k['want']}")
     fault = torch.load(os.path.join(workdir, "fault_no_model_sum.pt"))[:-1]
     f_ratio = _tp_hold(fault, *refs[(TP_SIZES, 2)])["tol_ratio"]
     _check(f_ratio > 1.0, f"TP with the model sum of dedy skipped passes the hold ({f_ratio:.3g})")
     _check(r0["refused"] is not None and "not divisible by mesh model=2" in r0["refused"],
            f"the 129-wide head on 2 model ranks was not refused: {r0['refused']}")
-    counts = r0["counts"]
-    want_sums = sum(_tp_sums_a_chunk(len(s) - 1, n_b, n_data, shard)
-                    for _, s, (n_data, _), shard in TP_RUNS for n_b in (2, TP_BUNCHES))
-    _check(counts["rank_sum"] == want_sums and not _other_launches(counts),
-           f"TP launches on rank 0: rank_sum {counts['rank_sum']}, expected {want_sums}; {counts}")
     timing = r0["timing"]
     print(f"[tp] make_auto_sharded_train_chunk on ranks sharing {smi} (gloo; sums and column "
           f"gathers on the card), parity dropout 0.1/0.2, bunch {BUNCH}: after 2 bunches against "
@@ -5449,7 +4976,10 @@ def phase_tp(tmp: str, smi: str) -> dict:
               f"{n} {held[f'{n}_{TP_BUNCHES}']['update_rel_fro']:.3g} / "
               f"{held[f'{n}_{TP_BUNCHES}']['update_rel_fro_f64']:.3g}" for n, *_ in TP_RUNS)
           + f"; every rank's state bit-equal; refused: the model sum skipped ({f_ratio:.3g} of "
-            f"the limit), the 129-wide head on 2 model ranks", flush=True)
+            f"the limit), the 129-wide head on 2 model ranks; rank 0's trace of each 2-bunch run "
+            f"holds rank_sum_kernel " + ", ".join(
+              f"{n} {k['want']['rank_sum_kernel']}" for n, k in r0["kernels"].items())
+          + " times and no other kernel of the port", flush=True)
     for n, sizes, (n_data, n_model), shard in TP_RUNS:
         v = timing[n]
         print(f"[tp] {n} ({'-'.join(map(str, sizes))}, {'sharded' if shard else 'whole'}): "
@@ -5457,13 +4987,10 @@ def phase_tp(tmp: str, smi: str) -> dict:
               f"{v['collectives_ms']:.3f} ms of it ({v['collectives_ms'] / v['bunch_ms']:.1%}; "
               f"staging copy, synchronise, gloo barrier, rank_sum); the single-process plain "
               f"trainer {single_ms[sizes]:.3f} ms a bunch", flush=True)
-    print(f"[tp] rank 0 launched rank_sum {counts['rank_sum']} times ({want_sums} expected), no "
-          f"other kernel of the port; "
-          f"phase {time.perf_counter() - t0:.1f} s (the ranks' spawn and runs {t_spawn:.1f} s)",
-          flush=True)
+    print(f"[tp] phase {time.perf_counter() - t0:.1f} s (the ranks' spawn and runs "
+          f"{t_spawn:.1f} s)", flush=True)
     return dict(held=held, fault_tol_ratio=f_ratio, timing=timing,
                 single_ms={"-".join(map(str, k)): v for k, v in single_ms.items()},
-                counts={k: v for k, v in counts.items() if isinstance(v, int)},
                 refused=r0["refused"], seconds=time.perf_counter() - t0)
 
 
@@ -5476,33 +5003,42 @@ RECIPE_DP_CV_RTOL = 1e-4
 RECIPE_DP_WTS_FRO = 1e-4
 
 
-def _recipe_command(work: str, sub: str, nproc: int) -> dict:
+def _recipe_command(work: str, sub: str, nproc: int, want) -> dict:
     """python -m tpu_sednn_torch.recipes.multi_condition --small --device
-    cuda, under torchrun with nproc ranks (or alone for 1), in work/sub:
-    -> its wall time, output, stage times, results and launch report."""
-    d = os.path.join(work, sub)
-    os.makedirs(d)
-    report = os.path.join(d, "launches.json")
+    cuda, under torchrun with nproc ranks (or alone for 1), each rank traced
+    in its own process (_traced_command), in a fresh directory work/sub<i>:
+    run again, 3 times at most, until rank 0's trace reads want(result)
+    (_reads, _until_counts).  -> its wall time, output, stage times, results
+    and the kernels it was held to."""
     pre = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
             f"--nproc_per_node={nproc}"] if nproc > 1 else [sys.executable])
-    env = dict(os.environ, TPU_SEDNN_TORCH_LAUNCH_REPORT=report,
+    env = dict(os.environ,
                PYTHONPATH=os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
-    t0 = time.perf_counter()
-    proc = subprocess.run(pre + ["-m", "tpu_sednn_torch.recipes.multi_condition", "--small",
-                                 "--device", "cuda", "--metrics", "m.jsonl"],
-                          cwd=d, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    _check(proc.returncode == 0, f"the recipe on {nproc} rank(s) failed:\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
-    stages = {r["stage"]: r["seconds"] for r in map(json.loads, open(os.path.join(d, "m.jsonl")))
-              if r.get("event") == "stage"}
-    _check(list(stages) == ["corpus", "featurize", "targets", "train", "eval"],
-           f"recipe stages on {nproc} rank(s): {list(stages)}")
-    log = proc.stderr.splitlines()
-    n_train = int(next(l for l in log if " train / " in l).split()[1])
-    return dict(dir=os.path.join(d, "mc_run_small"), wall_s=wall, log=log, stages=stages,
-                n_train=n_train, counts=json.load(open(report)),
-                results=json.load(open(os.path.join(d, "mc_run_small", "results.json"))))
+    runs = []
+
+    def once():
+        d = os.path.join(work, f"{sub}{len(runs)}")
+        os.makedirs(d)
+        runs.append(d)
+        t0 = time.perf_counter()
+        proc, counts = _traced_command(
+            pre, "tpu_sednn_torch.recipes.multi_condition",
+            ["--small", "--device", "cuda", "--metrics", "m.jsonl"], os.path.join(d, "kernels"),
+            f"the recipe on {nproc} rank(s)", cwd=d, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        stages = {r["stage"]: r["seconds"] for r in map(json.loads, open(os.path.join(d, "m.jsonl")))
+                  if r.get("event") == "stage"}
+        _check(list(stages) == ["corpus", "featurize", "targets", "train", "eval"],
+               f"recipe stages on {nproc} rank(s): {list(stages)}")
+        log = proc.stderr.splitlines()
+        n_train = int(next(l for l in log if " train / " in l).split()[1])
+        return dict(dir=os.path.join(d, "mc_run_small"), wall_s=wall, log=log, stages=stages,
+                    n_train=n_train, runs=len(runs),
+                    results=json.load(open(os.path.join(d, "mc_run_small", "results.json")))), counts
+
+    got, w, out = _until_counts(once, want, tries=3)
+    _check(_reads(got, w), f"the recipe on {nproc} rank(s): rank 0's trace holds {got}, want {w}")
+    return dict(out, kernels=w)
 
 
 def _lstm_layer64(proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -5530,12 +5066,14 @@ def _lstm_weights(gen, H: int):
 
 def phase_crn(smi: str) -> dict:
     """Phase 16: the CRN's persistent LSTM kernel, one LSTM layer and a decode call."""
+    import ctypes
+
     from tpu_sednn_torch.dsp.stft import StftConfig
     from tpu_sednn_torch.enhance.decode import make_crn_decoder
     from tpu_sednn_torch.model import crn
     from tpu_sednn_torch.model.crn import CRNConfig, init_crn
-    from tpu_sednn_torch.ops import (launch_counts, lstm_cell_reference, lstm_plan, lstm_steps,
-                                     lstm_steps_reference, reset_launch_counts)
+    from tpu_sednn_torch.ops import (lstm_cell_reference, lstm_plan, lstm_steps,
+                                     lstm_steps_reference)
     from tpu_sednn_torch.ops import lstm_cell
 
     gen = torch.Generator(device="cuda").manual_seed(2201)
@@ -5586,9 +5124,10 @@ def phase_crn(smi: str) -> dict:
         flags = torch.zeros(plan.grid, dtype=torch.int32, device="cuda")
         t0 = time.perf_counter()
         rc = lstm_cell._lib().lstm_steps_f32(
-            proj.data_ptr(), w.data_ptr(), hs.data_ptr(), c.data_ptr(), flags.data_ptr(), 4, 8, 0,
-            8, width, plan.units, plan.col_groups, plan.k_passes, plan.col_passes, plan.ring,
-            plan.grid, plan.smem, torch.cuda.current_stream().cuda_stream)
+            proj.data_ptr(), w.data_ptr(), hs.data_ptr(), c.data_ptr(),
+            ctypes.cast(flags.data_ptr(), ctypes.POINTER(ctypes.c_uint)), 4, 8, 0, 8, width,
+            plan.units, plan.col_groups, plan.k_passes, plan.col_passes, plan.ring, plan.grid,
+            plan.smem, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         return rc, time.perf_counter() - t0
 
@@ -5648,18 +5187,9 @@ def phase_crn(smi: str) -> dict:
     wavs = 0.1 * torch.randn(64, 128000, generator=gen, device="cuda")
     decode(wavs)
     torch.cuda.synchronize()
-    reset_launch_counts()
     enh = decode(wavs)
     torch.cuda.synchronize()
-    counts = launch_counts()
     _check(bool(torch.isfinite(enh).all()) and enh.shape == wavs.shape, "CRN decode output")
-    lstm_keys = ("lstm_steps", "lstm_steps_resident", "lstm_steps_streamed")
-    _check([counts[k] for k in lstm_keys] == [2, 2, 0],
-           f"a decode of 64 x 8 s ran {[counts[k] for k in lstm_keys]} LSTM launches, resident "
-           "and streamed layers (want 2, 2, 0)")
-    others = {k: v for k, v in counts.items() if k not in lstm_keys
-              and (any(v.values()) if isinstance(v, dict) else v)}
-    _check(not others, f"the CRN decode launched other kernels of the port: {others}")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5679,7 +5209,7 @@ def phase_crn(smi: str) -> dict:
     lstm_events = [e for e in inside if "lstm_layer_kernel" in e.name]
     kernel_ms = [(e.time_range.end - e.time_range.start) / 1e3 for e in lstm_events]
     out["decode"] = dict(
-        launches=counts["lstm_steps"], kernels_in_lstm_span=len(inside), kernels_by_name=names,
+        kernels_in_lstm_span=len(inside), kernels_by_name=names,
         lstm_kernel_ms=kernel_ms, stage_ms={k: (v[1] - v[0]) / 1e3 for k, v in spans.items()},
         request_ms=_time_ms(lambda: decode(wavs), reps=5))
     # the span: the two layers' kernels, their two input projections (one GEMM each, no split-K
@@ -5688,6 +5218,9 @@ def phase_crn(smi: str) -> dict:
     _check(len(lstm_events) == 2 and gemms <= 2 and not any("splitK" in k for k in names)
            and len(inside) <= 16,
            f"the recurrence's span holds {len(inside)} kernels: {names}")
+    # the whole decode: one lstm_layer_kernel a layer, no other kernel of the port
+    port = {k: v for k, v in _trace_counts(prof).items() if k in PORT_KERNELS}
+    _check(port == {"lstm_layer_kernel": 2}, f"the decode's kernels of the port: {port}")
     print(f"[crn] {json.dumps(out)}", flush=True)
     print(f"[crn] {smi}", flush=True)
     return out
@@ -5715,18 +5248,20 @@ def phase_recipe_dp(tmp: str, smi: str) -> dict:
 
     t0 = time.perf_counter()
     work = os.path.join(tmp, "recipe_dp")
-    two = _recipe_command(work, "two", 2)
     mc = tmc.command_config(small=True, device="cuda")
+
+    def bunches(n_train):
+        return mc.n_epochs * (n_train // mc.bunchsize)
+
+    # rank 0 of 2: the plain data-parallel trainer, one sum of the gradients over the ranks a
+    # bunch on the card and no other kernel of the port (the recipe featurizes by matmuls)
+    two = _recipe_command(work, "two", 2, lambda r: _port(rank_sum_kernel=bunches(r["n_train"])))
     log = two["log"]
     _check(any("backend gloo" in l for l in log)
            and any("[mc] data-parallel over 2 ranks" in l for l in log)
            and sum("[mc] done" in l for l in log) == 1,
            "torchrun 2 ranks: no gloo line, no data-parallel line, or not one '[mc] done'")
-    n_whole = two["n_train"] - two["n_train"] % mc.bunchsize
-    n_bunches = mc.n_epochs * n_whole // mc.bunchsize
-    c2 = two["counts"]
-    _check(c2["rank_sum"] == n_bunches and not _other_launches(c2),
-           f"recipe on 2 ranks: {n_bunches} bunches, launches {c2}")
+    n_bunches = bunches(two["n_train"])
     files = sorted(os.listdir(two["dir"]))
     _check({"ckpt", "fea.norm", "gv.txt", "mlp.final.wts", "results.json", "run.json"}
            <= set(files), f"the 2-rank run dir holds {files}")
@@ -5765,8 +5300,18 @@ def phase_recipe_dp(tmp: str, smi: str) -> dict:
            f"{RECIPE_DP_CV_RTOL}), weights {wts_off:.3g} apart (tol {RECIPE_DP_WTS_FRO})")
     _check(cv2[-1] < cv2[0], f"recipe on 2 ranks: CV did not fall: {cv2}")
 
-    # the same command on one rank: the tensor-core chunk trainer, for its times
-    cmd1 = _recipe_command(work, "one", 1)
+    # the same command on one rank: the tensor-core chunk trainer, for its times; its trace
+    # holds that trainer's kernels (a forward and a backward a layer a bunch, a draw of the
+    # input masks a chunk) and no other kernel of the port
+    L = len(mc.hidden) + 1
+
+    def chunk_kernels(r):
+        n = r["n_train"]
+        calls = mc.n_epochs * sum(n - s >= mc.bunchsize for s in range(0, n, mc.traincache))
+        return _port(tc_fwd_kernel=L * bunches(n), stripe_bwd_kernel=L * bunches(n),
+                     input_mask_bits_kernel=calls)
+
+    cmd1 = _recipe_command(work, "one", 1, chunk_kernels)
     cv_cmd1 = cmd1["results"]["cv_hist"]
     _check(cv_cmd1[-1] < cv_cmd1[0] and np.isfinite(cv_cmd1).all(),
            f"the recipe on one rank: CV did not fall: {cv_cmd1}")
@@ -5781,9 +5326,13 @@ def phase_recipe_dp(tmp: str, smi: str) -> dict:
           f"process, {one_s:.1f} s): CV history {cv_off:.3g} apart (tol {RECIPE_DP_CV_RTOL}), "
           f"mlp.final.wts {wts_off:.3g} relative Frobenius (tol {RECIPE_DP_WTS_FRO}); rank 0 alone "
           f"logged and wrote the run dir, which reloads through load_run_dir as the last "
-          f"checkpoint; rank 0 launched rank_sum {c2['rank_sum']} times ({n_bunches} bunches) and "
-          f"no other kernel of the port; phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return dict(counts={k: v for k, v in c2.items() if isinstance(v, int)}, n_bunches=n_bunches,
+          f"checkpoint ({n_bunches} bunches); rank 0's trace of the 2-rank run holds "
+          f"{two['kernels']['rank_sum_kernel']} rank_sum_kernel and no other kernel of the port, "
+          f"the 1-rank run's {cmd1['kernels']['tc_fwd_kernel']} tc_fwd_kernel, "
+          f"{cmd1['kernels']['stripe_bwd_kernel']} stripe_bwd_kernel and "
+          f"{cmd1['kernels']['input_mask_bits_kernel']} input_mask_bits_kernel and no other; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(n_bunches=n_bunches,
                 cv_hist=cv2.tolist(), cv_one=cv1.tolist(), cv_off=cv_off, wts_off=wts_off,
                 two=dict(wall_s=two["wall_s"], stages=two["stages"],
                          train_samples_per_sec=two["results"]["train_samples_per_sec"]),
@@ -5792,21 +5341,17 @@ def phase_recipe_dp(tmp: str, smi: str) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
-def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path, tp_sums: int,
-             recipe_dp_sums: int) -> list:
+def _dp_rows(dp: dict) -> list:
     """The `kernels` line's rows of the data-parallel forms: the gradient-out
     backward and the update kernel (times at a rank's 64 rows, 2 ranks, with
     the 32 rows of 4 beside), rank_sum (a bunch's four sums, 2 ranks, 4
-    beside; its launches on the tensor-parallel path and on the recipe's
-    data-parallel branch beside the DP trainer's) and the DP chunk trainer per
-    bunch and rank."""
+    beside) and the DP chunk trainer per bunch and rank."""
     k64, k32, held, timing = dp["kern"][64], dp["kern"][32], dp["held"], dp["timing"]
     replaces = "tpu_sednn/ops/resident_chunk.py:169"
     shape = "a rank's 64 rows of a bunch of 128 (2 ranks) through the four layers of 1548-2048x3-129"
 
-    def row(name, source, launches, timing_of, at32, **more):
-        return dict(name=name, source=source, replaces=replaces, route="cuda", launches=launches,
-                    launches_by_path=by_path(0, 0, train_dp=launches), shape=shape,
+    def row(name, source, timing_of, at32, **more):
+        return dict(name=name, source=source, replaces=replaces, route="cuda", shape=shape,
                     at_32_rows=at32, **more, **timing_of)
 
     def trainer(tc: bool) -> dict:
@@ -5834,48 +5379,39 @@ def _dp_rows(dp: dict, dw: dict, tc_runs: int, f32_runs: int, by_path, tp_sums: 
                              "sums_ms and bunch_ms by the host clock in the ranks' own run "
                              "(the sums on the card: staging copy, barrier, rank_sum)")
 
-    grad_f32 = dw["fused_bwd_grad_out"] - dw["fused_bwd_grad_out_tc"]
-    upd_f32 = dw["dp_update"] - dw["dp_update_sr"]
     s2, s4 = dp["kern"]["rank_sum"][2], dp["kern"]["rank_sum"][4]
     return [
         row("fused_bwd_grad_out_tc", "tpu_sednn_torch/csrc/fused_mlp.cuh",
-            dw["fused_bwd_grad_out_tc"], k64["grad_tc"], k32["grad_tc"],
-            launches_of="stripe_bwd_kernel<true, ...> (tensor-core products) in its gradient-out "
-                        "form (G and gb written, nothing updated; dedy summed in the kernel)"),
-        row("fused_bwd_grad_out", "tpu_sednn_torch/csrc/fused_mlp.cuh", grad_f32,
+            k64["grad_tc"], k32["grad_tc"],
+            kernel="stripe_bwd_kernel<true, ...> (tensor-core products) in its gradient-out "
+                   "form (G and gb written, nothing updated; dedy summed in the kernel)"),
+        row("fused_bwd_grad_out", "tpu_sednn_torch/csrc/fused_mlp.cuh",
             k64["grad_f32"], k32["grad_f32"],
-            launches_of="stripe_bwd_kernel<false, ...> (float32 FMA products) in its "
-                        "gradient-out form, one launch a layer (redesigned PR 13)"),
-        row("dp_update", "tpu_sednn_torch/csrc/fused_mlp.cuh", upd_f32, k64["update"],
-            k32["update"], launches_of="update_kernel on float32 W and delta",
+            kernel="stripe_bwd_kernel<false, ...> (float32 FMA products) in its gradient-out "
+                   "form, one launch a layer"),
+        row("dp_update", "tpu_sednn_torch/csrc/fused_mlp.cuh", k64["update"],
+            k32["update"], kernel="update_kernel on float32 W and delta",
             max_abs_err_is="largest difference read from the plain version (bit-equal held)"),
-        row("dp_update_sr", "tpu_sednn_torch/csrc/fused_mlp.cuh", dw["dp_update_sr"],
+        row("dp_update_sr", "tpu_sednn_torch/csrc/fused_mlp.cuh",
             k64["update_sr"], k32["update_sr"],
-            launches_of="update_kernel on bfloat16 delta (sr_delta), stochastic rounding",
+            kernel="update_kernel on bfloat16 delta (sr_delta), stochastic rounding",
             max_abs_err_is="largest difference read from the plain version with the same bits "
                            "(bit-equal held)"),
         dict(name="rank_sum", source="tpu_sednn_torch/csrc/rank_sum.cu",
              replaces="tpu_sednn/ops/resident_chunk.py:223", route="cuda",
-             launches=dw["rank_sum"] + tp_sums + recipe_dp_sums,
-             launches_by_path=by_path(0, 0, train_dp=dw["rank_sum"], train_tp=tp_sums,
-                                      recipe_dp=recipe_dp_sums),
              shape="the four gradients of 1548-2048x3-129 (K*N + N floats each) of 2 ranks, per "
-                   "bunch", launches_of="sums over ranks sharing the card: a layer's gradient "
-                                        "(train_dp), the gradients, dedy and the column gathers "
-                                        "of the tensor-parallel trainer (train_tp), the plain "
-                                        "data-parallel trainer's gradients (recipe_dp)",
+                   "bunch", kernel="sums over ranks sharing the card: the data-parallel "
+                                   "trainers' gradients, the tensor-parallel trainer's "
+                                   "gradients, dedy and column gathers",
              max_abs_err_is="largest difference read from the plain version (bit-equal held)",
              library_is="torch.sum over the ranks' gradients stacked (n_ranks, K*N + N)",
              at_4_ranks={k: s4[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
              **{k: s2[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                    "max_abs_err")}),
-        row("resident_chunk_dp_tc", "tpu_sednn_torch/csrc/resident_chunk.cu", tc_runs,
-            trainer(True), None,
-            launches_of="data-parallel chunk-trainer runs with tensor-core products (the "
-                        "command's gpu_used=2 and the ranks' sr_delta epoch), rank 0's"),
-        row("resident_chunk_dp", "tpu_sednn_torch/csrc/resident_chunk.cu", f32_runs,
-            trainer(False), None,
-            launches_of="data-parallel chunk-trainer runs with float32 products, rank 0's"),
+        row("resident_chunk_dp_tc", "tpu_sednn_torch/csrc/resident_chunk.cu", trainer(True), None,
+            kernel="the data-parallel chunk trainer with tensor-core products"),
+        row("resident_chunk_dp", "tpu_sednn_torch/csrc/resident_chunk.cu", trainer(False), None,
+            kernel="the data-parallel chunk trainer with float32 products"),
     ]
 
 
@@ -5894,17 +5430,6 @@ def main(argv=None) -> int:
     ap.add_argument("--chain-times", action="store_true",
                     help="only build and time the tensor-core chunk trainer's chain (chain_times; "
                          "prints no final line, exits with 2)")
-    ap.add_argument("--bwd-times", action="store_true",
-                    help="only build and time the backward (bwd_times; prints no final line, "
-                         "exits with 2)")
-    ap.add_argument("--fwd-times", action="store_true",
-                    help="only build, time and digest the float32 forward (fwd_times; prints no "
-                         "final line, exits with 2)")
-    ap.add_argument("--mask-times", action="store_true",
-                    help="only build and time the input mask's share of layer 0 and of the "
-                         "chains, with the chunk trainer's state digests, and the standalone "
-                         "dropout mask with the tpu_prng plain trainer (mask_times; prints no "
-                         "final line, exits with 2)")
     ap.add_argument("--package-root", default="",
                     help="import tpu_sednn_torch from this directory, e.g. an unpacked checkout "
                          "of another commit, to time it with --chain-times beside this one")
@@ -5936,43 +5461,16 @@ def main(argv=None) -> int:
         print(json.dumps({"chain_times": times,
                           "package": os.path.dirname(tpu_sednn_torch.__file__)}))
         return 2
-    if args.bwd_times:
-        import tpu_sednn_torch
-
-        times = bwd_times()
-        print(smi)
-        print(json.dumps({"bwd_times": times,
-                          "package": os.path.dirname(tpu_sednn_torch.__file__)}))
-        return 2
-    if args.fwd_times:
-        import tpu_sednn_torch
-
-        times = fwd_times()
-        print(smi)
-        print(json.dumps({"fwd_times": times,
-                          "package": os.path.dirname(tpu_sednn_torch.__file__)}))
-        return 2
-    if args.mask_times:
-        import tpu_sednn_torch
-
-        times = mask_times()
-        print(smi)
-        print(json.dumps({"mask_times": times,
-                          "package": os.path.dirname(tpu_sednn_torch.__file__)}))
-        return 2
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "serve" in groups:
             kern = phase_kernel_vs_plain(gen)
-            wavs, norm_8k, n_featurizer = phase_featurizer(tmp, np.random.default_rng(7))
-            serving, n_serving = phase_serving(gen, norm_8k, smi)
+            wavs, norm_8k = phase_featurizer(tmp, np.random.default_rng(7))
+            serving = phase_serving(gen, norm_8k, smi)
             modes = dict(stream=phase_stream(norm_8k, smi), quant=phase_quant(norm_8k, smi),
                          fusion=phase_fusion(norm_8k, smi))
             cli = phase_cli(tmp, wavs, norm_8k, smi)
-            # the serving decode computes re/im by matmul for the noisy phase, as
-            # the JAX decode does, so only the featurizer's path runs this kernel
-            _check(n_featurizer > 0, "the featurizer path never launched the stft_lps kernel")
             print(f"[serving] summary {json.dumps(serving)}")
             print(f"[modes] summary {json.dumps(dict(modes, cli=cli))}")
         if "kernels" in groups:
@@ -6006,121 +5504,16 @@ def main(argv=None) -> int:
         print(f"partial run (--only {args.only}): no kernels line, no final line", file=sys.stderr)
         return 2
 
-    kc, tw, tforms = train["kernel_counts"], train["counts"], train["by_form"]
-    for name, n in (("resident_chunk (tensor cores)", tforms["tc"]),
-                    ("resident_chunk (float32 products)", tforms["f32"]),
-                    ("fused_linear_act", kc["fused_linear_act"]),
-                    ("fused_linear_act (tensor cores)", kc["tc_linear_act"]),
-                    ("fused_bwd_update", kc["fused_bwd_update"]),
-                    ("fused_bwd_update (tensor cores)", kc["tc_bwd_update"]),
-                    ("philox_mask", kc["philox_mask"]), ("input_mask_bits", kc["input_mask_table"]),
-                    ("stft_lps", train["stft_launches"])):
-        _check(n > 0, f"the training path never launched the {name} kernel")
-    ac, akc, forms = arrays["counts"], arrays["kernel_counts"], arrays["by_form"]
-    for name, n in (("dropout_mask", ac["dropout_mask"]), ("sr_momentum_update", ac["sr_momentum_update"]),
-                    ("resident_chunk (sr_delta)", forms["sr_delta"]),
-                    ("resident_chunk (sr_state)", forms["sr_state"]),
-                    ("resident_chunk (tile_rows)", forms["tile_rows"]),
-                    ("resident_chunk (hbm_spill)", forms["hbm_spill"]),
-                    ("resident_chunk (float32)", forms["f32"]),
-                    ("resident_chunk (sr_delta, tensor cores)", forms["tc_sr_delta"]),
-                    ("resident_chunk (sr_state, tensor cores)", forms["tc_sr_state"]),
-                    ("fused_linear_act", akc["fused_linear_act"]),
-                    ("fused_linear_act (tensor cores)", akc["tc_linear_act"]),
-                    ("fused_bwd_update", akc["fused_bwd_update"]),
-                    ("fused_bwd_update (tensor cores)", akc["tc_bwd_update"]),
-                    ("philox_mask", akc["philox_mask"]), ("input_mask_bits", akc["input_mask_table"]),
-                    ("stft_lps", ac["stft_lps"])):
-        _check(n > 0, f"the in-memory training path never launched the {name} kernel")
-    # kernel 5 runs on the in-memory path's tpu_prng epoch alone
-    _check(ac["dropout_mask"] == arrays["xla_tpu_prng"]["dropout_mask"]
-           and ac["dropout_mask_masks"] == arrays["xla_tpu_prng"]["masks"] and tw["dropout_mask"] == 0,
-           f"dropout_mask launches: {ac['dropout_mask']} on the in-memory path (its tpu_prng epoch "
-           f"{arrays['xla_tpu_prng']['dropout_mask']}), {tw['dropout_mask']} on the command's")
-    # every launch of a call but its first is a programmatic dependent one, either form
-    calls = sum(forms.values())
-    _check(0 < akc["pdl"] <= akc["fused_linear_act"] + akc["fused_bwd_update"] - calls,
-           f"the in-memory path's programmatic dependent launches: {akc['pdl']} of "
-           f"{akc['fused_linear_act'] + akc['fused_bwd_update']} launches in {calls} calls")
-    # the data-parallel path: the command on 2 ranks and the ranks' pfile epochs (rank 0's
-    # counts, each run's zeroed just before it)
-    dp_runs = dict(cmd=dp["cmd"]["counts"], **{k: e["counts"] for k, e in dp["epochs"].items()})
-    dw = {k: sum(c[k] for c in dp_runs.values()) for k in
-          ("fused_bwd_grad_out", "fused_bwd_grad_out_tc", "fused_bwd_grad_out_dedx_casts",
-           "dp_update", "dp_update_sr", "rank_sum")}
-    # the data-parallel trainer hands its tensor-core backwards float32 dedx: one cast each
-    _check(dw["fused_bwd_grad_out_dedx_casts"] == dw["fused_bwd_grad_out_tc"],
-           f"the data-parallel path's casts of dedx: {dw}")
-    dkc = {k: sum(c["resident_chunk_kernels"][k] for c in dp_runs.values()) for k in kc}
-    dp_tc_runs = dp_runs["cmd"]["dp_resident_chunk"] + dp_runs["sr_delta"]["dp_resident_chunk"]
-    dp_f32_runs = dp_runs["f32"]["dp_resident_chunk"]
-    for name, n in (("fused_bwd_grad_out (tensor cores)", dw["fused_bwd_grad_out_tc"]),
-                    ("fused_bwd_grad_out (float32)",
-                     dw["fused_bwd_grad_out"] - dw["fused_bwd_grad_out_tc"]),
-                    ("dp_update", dw["dp_update"] - dw["dp_update_sr"]),
-                    ("dp_update (sr_delta)", dw["dp_update_sr"]),
-                    ("rank_sum", dw["rank_sum"]),
-                    ("the DP chunk trainer (tensor cores)", dp_tc_runs),
-                    ("the DP chunk trainer (float32 products)", dp_f32_runs),
-                    ("fused_linear_act (tensor cores)", dkc["tc_linear_act"]),
-                    ("fused_linear_act", dkc["fused_linear_act"] - dkc["tc_linear_act"]),
-                    ("philox_mask", dkc["philox_mask"]),
-                    ("input_mask_bits", dkc["input_mask_table"])):
-        _check(n > 0, f"the data-parallel training path never launched the {name} kernel")
-
-    # the recipe's path: the chunk trainer in its tensor-core form and the STFT kernel
-    rc, rkc = recipe["counts"], recipe["kernel_counts"]
-    _check(rc["dropout_mask"] == 0 and all(c["dropout_mask"] == 0 for c in dp_runs.values()),
-           "the recipe's or the data-parallel path launched dropout_mask")
-    for name, n in (("resident_chunk (tensor cores)", rc["resident_chunk"]),
-                    ("fused_linear_act (tensor cores)", rkc["tc_linear_act"]),
-                    ("fused_bwd_update (tensor cores)", rkc["tc_bwd_update"]),
-                    ("philox_mask", rkc["philox_mask"]), ("input_mask_bits", rkc["input_mask_table"]),
-                    ("stft_lps", rc["stft_lps"])):
-        _check(n > 0, f"the recipe path never launched the {name} kernel")
-    _check(rkc["fused_linear_act"] == rkc["tc_linear_act"]
-           and rkc["fused_bwd_update"] == rkc["tc_bwd_update"],
-           f"the recipe path launched float32-product layer kernels: {rkc}")
-
-    # the tensor-parallel and the recipe's data-parallel paths: the sums (and the
-    # tensor-parallel column gathers) on the card, and no other kernel
-    tp_n, rdp = tp["counts"], recipe_dp["counts"]
-    for name, n in (("tensor-parallel training", tp_n["rank_sum"]),
-                    ("the recipe's data-parallel branch", rdp["rank_sum"])):
-        _check(n > 0, f"{name} never launched the rank_sum kernel")
-
-    def by_path(train_n, arrays_n, make_pfile=0, serving=0, train_dp=0, recipe=0, train_tp=0,
-                recipe_dp=0):
-        # the streaming, int8 and fusion paths launch no kernel (checked in their phases)
-        return {"make_pfile": make_pfile, "serving": serving, "train": train_n,
-                "train_arrays": arrays_n, "train_dp": train_dp, "recipe": recipe,
-                "train_tp": train_tp, "recipe_dp": recipe_dp,
-                **{f"serving_{k}": m["launches"] for k, m in modes.items()}}
-
-    def variant(name, form, timing_key, what):
+    def variant(name, timing_key, what):
         return dict(name=f"resident_chunk_{name}", source="tpu_sednn_torch/csrc/resident_chunk.cu",
                     replaces="tpu_sednn/ops/resident_chunk.py:169", route="cuda",
-                    launches=forms[form], launches_by_path=by_path(0, forms[form]),
                     max_abs_err=None if what is None else max(wide["errors"][what]),
                     max_abs_err_is="worst relative Frobenius error of a state tensor's update "
                                    "against its comparison (3 bunches at 3084-2048x3-257)",
                     shape=f"{BUNCH} x 3084-2048x3-257, per bunch", **wide["timing"][timing_key])
 
-    def layer_launches(kernel, wrapper, form):
-        """(train, arrays, train_dp, recipe) launches of kernel 1 or 2 in one product
-        form: the chunk trainers' tallies plus the wrapper's own counts; form "tc" or
-        "f32"."""
-        tc_key = {"fused_linear_act": "tc_linear_act", "fused_bwd_update": "tc_bwd_update"}[kernel]
-        tr_tc, ar_tc = kc[tc_key] + tw[wrapper + "_tc"], akc[tc_key] + ac[wrapper + "_tc"]
-        if form == "tc":
-            return tr_tc, ar_tc, dkc[tc_key], rkc[tc_key]
-        return (kc[kernel] + tw[wrapper] - tr_tc, akc[kernel] + ac[wrapper] - ar_tc,
-                dkc[kernel] - dkc[tc_key], rkc[kernel] - rkc[tc_key])
-
-    def layer_row(name, kernel, form, source, replaces, timing, **more):
-        tr, ar, dpn, rcn = layer_launches(kernel, kernel, form)
-        return dict(name=name, source=source, replaces=replaces, launches=tr + ar + dpn + rcn,
-                    launches_by_path=by_path(tr, ar, train_dp=dpn, recipe=rcn), route="cuda",
+    def layer_row(name, source, replaces, timing, **more):
+        return dict(name=name, source=source, replaces=replaces, route="cuda",
                     shape="one bunch of 128 through the four layers of 1548-2048x3-129",
                     **more, **timing)
 
@@ -6128,110 +5521,74 @@ def main(argv=None) -> int:
     kernels = [
         dict(name="stft_lps", source="tpu_sednn_torch/csrc/stft_lps.cu",
              replaces="tpu_sednn/ops/stft_pallas.py:34",
-             launches=n_featurizer + n_serving + train["stft_launches"] + ac["stft_lps"]
-             + rc["stft_lps"],
-             launches_by_path=by_path(train["stft_launches"], ac["stft_lps"], n_featurizer,
-                                      n_serving, recipe=rc["stft_lps"]),
              max_abs_err=kern["max_abs_err"], tol_ratio=kern["tol_ratio"], ms=t8["ms"],
              plain_ms=t8["plain_ms"], bound_ms=t8["bound_ms"], bound_by=t8["bound_by"],
              library_ms=t8["library_ms"], dft_floor_ms=t8["dft_floor_ms"], shape=t8["shape"],
              at_16k=kern[16000], route="cuda"),
-        layer_row("fused_linear_act", "fused_linear_act", "f32", "tpu_sednn_torch/csrc/fused_mlp.cu",
+        layer_row("fused_linear_act", "tpu_sednn_torch/csrc/fused_mlp.cu",
                   "tpu_sednn/ops/fused_mlp.py:65", fused["fwd"],
-                  launches_of="f32_fwd_kernel (float32 FMA products, bf16=False; on the "
-                              "tensor-core forward's cluster split: one launch a layer, "
-                              "fwd_k_chunk's chunks summed through distributed shared memory in "
-                              "order, bit-equal to the two-launch form); bf16_launches read "
-                              "bfloat16 weights (sr_state, either form)",
+                  kernel="f32_fwd_kernel (float32 FMA products, bf16=False; on the tensor-core "
+                         "forward's cluster split: one launch a layer, fwd_k_chunk's chunks "
+                         "summed through distributed shared memory in order)",
                   dp_forward={M: {k: dp["kern"][M]["fwd_f32"][k] for k in
                                   ("ms", "plain_ms", "bound_ms", "library_ms")} for M in (64, 32)},
-                  bf16_launches=akc["bf16_linear_act"], bf16_storage=sr["bf16_storage"]),
-        layer_row("fused_linear_act_tc", "fused_linear_act", "tc",
-                  "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:65",
-                  tcres["fwd"],
-                  launches_of="tc_fwd_kernel (tensor-core products, bf16=True, mma.sync "
-                              "m16n8k16; K split within a thread-block cluster and summed through "
-                              "distributed shared memory: one launch a layer)",
+                  bf16_storage=sr["bf16_storage"]),
+        layer_row("fused_linear_act_tc", "tpu_sednn_torch/csrc/fused_mlp.cuh",
+                  "tpu_sednn/ops/fused_mlp.py:65", tcres["fwd"],
+                  kernel="tc_fwd_kernel (tensor-core products, bf16=True, mma.sync m16n8k16; K "
+                         "split within a thread-block cluster and summed through distributed "
+                         "shared memory: one launch a layer)",
                   dp_forward={M: {k: dp["kern"][M]["fwd"][k] for k in
                                   ("ms", "plain_ms", "bound_ms", "library_ms")} for M in (64, 32)}),
-        layer_row("fused_bwd_update", "fused_bwd_update", "f32", "tpu_sednn_torch/csrc/fused_mlp.cu",
-                  "tpu_sednn/ops/fused_mlp.py:108", fused["bwd"],
-                  launches_of="stripe_bwd_kernel<false, ...> (float32 FMA products, bf16=False; "
-                              "redesigned PR 13 on the tensor-core form's stripes and cluster: one "
-                              "launch a layer, dedy summed in the kernel); sr_launches stored "
-                              "bfloat16 with stochastic rounding, tiled_launches accumulated a row "
-                              "tile (either form)",
-                  sr_launches=akc["sr_bwd_update"], tiled_launches=akc["tiled_bwd_update"],
-                  library_ms=None),
-        layer_row("fused_bwd_update_tc", "fused_bwd_update", "tc",
-                  "tpu_sednn_torch/csrc/fused_mlp.cuh", "tpu_sednn/ops/fused_mlp.py:108",
-                  tcres["bwd"], library_ms=None,
-                  launches_of="stripe_bwd_kernel<true, ...> (tensor-core products, bf16=True, mma.sync "
-                              "m16n8k16; a block streams a stripe of W's rows over a range of N "
-                              "through a TMA ring fed by a producer warp, applies the update on "
-                              "the unrounded W a chunk at a time, and dedy is summed within a "
-                              "thread-block cluster through distributed shared memory: one "
-                              "launch a layer, no reduce_dedy_kernel)"),
+        layer_row("fused_bwd_update", "tpu_sednn_torch/csrc/fused_mlp.cu",
+                  "tpu_sednn/ops/fused_mlp.py:108", fused["bwd"], library_ms=None,
+                  kernel="stripe_bwd_kernel<false, ...> (float32 FMA products, bf16=False, on the "
+                         "tensor-core form's stripes and cluster: one launch a layer, dedy summed "
+                         "in the kernel)"),
+        layer_row("fused_bwd_update_tc", "tpu_sednn_torch/csrc/fused_mlp.cuh",
+                  "tpu_sednn/ops/fused_mlp.py:108", tcres["bwd"], library_ms=None,
+                  kernel="stripe_bwd_kernel<true, ...> (tensor-core products, bf16=True, mma.sync "
+                         "m16n8k16; a block streams a stripe of W's rows over a range of N "
+                         "through a TMA ring fed by a producer warp, applies the update on the "
+                         "unrounded W a chunk at a time, and dedy is summed within a "
+                         "thread-block cluster through distributed shared memory: one launch a "
+                         "layer)"),
         dict(name="resident_chunk", source="tpu_sednn_torch/csrc/resident_chunk.cu",
              replaces="tpu_sednn/ops/resident_chunk.py:169",
-             launches=tforms["f32"] + forms["f32"],
-             launches_by_path=by_path(tforms["f32"], forms["f32"]),
-             launches_of="chunk-trainer calls with float32 products and state (bf16=False)",
+             kernel="the chunk trainer with float32 products and state (bf16=False)",
              at_16k=wide["timing"]["f32"], **resident[False], route="cuda"),
         dict(name="resident_chunk_tc", source="tpu_sednn_torch/csrc/resident_chunk.cu",
              replaces="tpu_sednn/ops/resident_chunk.py:169",
-             launches=tforms["tc"] + rc["resident_chunk"],
-             launches_by_path=by_path(tforms["tc"], 0, recipe=rc["resident_chunk"]),
-             launches_of="chunk-trainer calls with tensor-core products and float32 state "
-                         "(bf16=True: engine=auto on the card)",
+             kernel="the chunk trainer with tensor-core products and float32 state (bf16=True: "
+                    "engine=auto on the card)",
              at_16k=wide["timing"]["tc_f32"],
              ms_per_bunch_in_a_full_chunk=train["chunk_ms_per_bunch"],
-             pdl_launches=kc["pdl"] + akc["pdl"] + rkc["pdl"],
-             pdl_launches_of="the chain's programmatic dependent launches on the training paths "
-                             "(every launch of a call but its first, either product form)",
              host_ms_per_bunch=train["host_ms_per_bunch"], chain_times=chains, **resident[True],
              route="cuda"),
         dict(name="philox_mask", source="tpu_sednn_torch/csrc/philox.cuh",
              replaces="tpu_sednn/ops/resident_chunk.py:970",
-             launches=sum(c[k] for c in (kc, akc, dkc, rkc)
-                          for k in ("philox_mask", "input_mask_table")),
-             launches_by_path=by_path(*(c["philox_mask"] + c["input_mask_table"] for c in (kc, akc)),
-                                      train_dp=dkc["philox_mask"] + dkc["input_mask_table"],
-                                      recipe=rkc["philox_mask"] + rkc["input_mask_table"]),
              draw_source="tpu_sednn_torch/csrc/resident_chunk.cu:input_mask_bits_kernel",
-             draw_launches_by_path=by_path(kc["input_mask_table"], akc["input_mask_table"],
-                                           train_dp=dkc["input_mask_table"],
-                                           recipe=rkc["input_mask_table"]),
-             input_mask_philox_by_path=by_path(kc["input_mask_philox"], akc["input_mask_philox"],
-                                               train_dp=dkc["input_mask_philox"],
-                                               recipe=rkc["input_mask_philox"]),
              **masks, route="cuda"),
-        variant("sr_delta", "sr_delta", "sr_delta", "sr_delta, parity, dropout 0.1/0.2"),
-        variant("sr_state", "sr_state", "sr_state", "sr_state, parity, dropout 0.1/0.2"),
-        variant("tile_rows", "tile_rows", "tile_rows", "tile_rows 64 vs untiled"),
-        variant("hbm_spill", "hbm_spill", "hbm_spill", None),
-        variant("sr_delta_tc", "tc_sr_delta", "tc_sr_delta",
-                "tensor cores, sr_delta, parity, dropout 0.1/0.2"),
-        variant("sr_state_tc", "tc_sr_state", "tc_sr_state",
-                "tensor cores, sr_state, parity, dropout 0.1/0.2"),
+        variant("sr_delta", "sr_delta", "sr_delta, parity, dropout 0.1/0.2"),
+        variant("sr_state", "sr_state", "sr_state, parity, dropout 0.1/0.2"),
+        variant("tile_rows", "tile_rows", "tile_rows 64 vs untiled"),
+        variant("hbm_spill", "hbm_spill", None),
+        variant("sr_delta_tc", "tc_sr_delta", "tensor cores, sr_delta, parity, dropout 0.1/0.2"),
+        variant("sr_state_tc", "tc_sr_state", "tensor cores, sr_state, parity, dropout 0.1/0.2"),
         dict(name="dropout_mask", source="tpu_sednn_torch/csrc/dropout_mask.cu",
              replaces="tpu_sednn/ops/dropout_pallas.py:29", route="cuda",
-             launches=ac["dropout_mask"], launches_by_path=by_path(0, ac["dropout_mask"]),
-             launches_of="dropout_mask_kernel launches, each a batch of up to 64 masks: on the "
-                         "in-memory path the plain trainer (engine=xla, dropout_rng=tpu_prng) "
-                         "draws 8 bunches' masks a launch",
-             masks_by_path=by_path(0, ac["dropout_mask_masks"]), **sr["k5"]),
+             kernel="dropout_mask_kernel, a batch of up to 64 masks a launch: on the in-memory "
+                    "path the plain trainer (engine=xla, dropout_rng=tpu_prng) draws 8 bunches' "
+                    "masks a batch", **sr["k5"]),
         dict(name="sr_momentum_update", source="tpu_sednn_torch/csrc/sr_update.cu",
-             replaces="tpu_sednn/ops/sr_update.py:29", route="cuda",
-             launches=ac["sr_momentum_update"],
-             launches_by_path=by_path(0, ac["sr_momentum_update"]), **sr["k6"]),
+             replaces="tpu_sednn/ops/sr_update.py:29", route="cuda", **sr["k6"]),
     ]
-    kernels += _dp_rows(dp, dw, dp_tc_runs, dp_f32_runs, by_path, tp_n["rank_sum"],
-                        rdp["rank_sum"])
+    kernels += _dp_rows(dp)
     ly = crn["layer"]
     kernels.append(dict(name="lstm_steps", source="tpu_sednn_torch/csrc/lstm_cell.cu",
-                        replaces=None, route="cuda", launches=crn["decode"]["launches"],
-                        launches_of="one make_crn_decoder call, 64 x 8 s at 16 kHz (one a layer)",
+                        replaces=None, route="cuda",
+                        kernel="lstm_layer_kernel, one launch a layer of make_crn_decoder's "
+                               "two (64 x 8 s at 16 kHz)",
                         max_abs_err=None, max_rel_err=ly["err"],
                         shape="a layer at (64, 1024): its input projection and 799 steps",
                         ms=ly["ms"],
@@ -6246,8 +5603,8 @@ def main(argv=None) -> int:
                  max_abs_err_is="largest absolute difference of a state tensor from the unspilled "
                                 "run, float32 and tensor-core products (3 bunches at "
                                 "3084-2048x3-257)")
-    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms"}
+    keys = {"name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"}
     for k in kernels:
         _check(keys <= set(k), f"kernels line: {k['name']} lacks {keys - set(k)}")
     print(f"[arrays] summary {json.dumps(arrays)}")

@@ -7,23 +7,24 @@ forward in its epilogue, each backward as the dedy it hands on.  The copy's
 rows are padded to 16 bytes (ops/fused_mlp.py:bf16_ld) so that it goes by
 tensor copies at every width, and the chunk trainer's workspace holds two of
 them beside the two float32 dedx buffers.  The standalone wrappers, which hold
-float32 dedx alone, make the copy with one cast launch a call and count it.
+float32 dedx alone, make the copy with one cast launch a call.
 
 On the CPU: the padded stride and the workspace's plan (mirrored here), and
-that the CPU path casts nothing.  On the card (`python -m pytest --noconftest
-tests/test_torch_bf16_dedx.py -q -m card`: tests/conftest.py imports JAX,
-which the card's machine lacks): the backward, standalone in every storage
-form, against the float64 plain version at the tensor-core limits on any card
-and, on a 132-SM H100, standalone and in the chunk trainer's chain, bit-equal to
-the kernel that rounded float32 dedx in each step (its outputs' digests,
-recorded on an H100 SXM); the wrappers' casts; and the workspace's plan against
-the C entry point.  This file imports no JAX."""
+that the CPU path is the plain version, which rounds the operands itself.
+On the card (`python -m pytest --noconftest tests/test_torch_bf16_dedx.py -q
+-m card`: tests/conftest.py imports JAX, which the card's machine lacks):
+the backward, standalone in every storage form, against the float64 plain
+version at the tensor-core limits on any card and, on a 132-SM H100,
+standalone and in the chunk trainer's chain, bit-equal to the kernel that
+rounded float32 dedx in each step (its outputs' digests, recorded on an H100
+SXM); the kernels a traced call runs (the chain no cast, the wrappers one a
+tensor-core call); and the workspace's plan against the C entry point.  This
+file imports no JAX."""
 
 import pytest
 import torch
 
 from tpu_sednn_torch.ops import fused_mlp as fm
-from tpu_sednn_torch.ops import launch_counts, reset_launch_counts
 from tpu_sednn_torch.ops import resident_chunk as rc
 
 WIDTHS = (129, 257, 2048)
@@ -77,18 +78,21 @@ def test_bf16_copy_stride_and_workspace(N, M):
 
 
 def test_wrappers_cast_nothing_on_the_cpu():
-    reset_launch_counts()
+    """On CPU tensors the wrappers are the plain versions, which round
+    float32 dedx as they multiply: no copy of it is made."""
     g = torch.Generator().manual_seed(3)
     M, K, N = 16, 24, 9
     dedx, y = torch.randn(M, N, generator=g) * 0.02, torch.relu(torch.randn(M, K, generator=g))
     w, d = torch.randn(K, N, generator=g) * 0.03, torch.zeros(K, N)
     b, db = torch.zeros(N), torch.zeros(N)
-    fm.fused_bwd_update(dedx, y, w, d, b, db, 0.5, 1.0, 1.0 / M, 0.0, deriv="relu", bf16=True)
-    fm.fused_bwd_grad_out(dedx, y, w, deriv="relu", bf16=True)
-    counts = launch_counts()
-    assert fm.fused_bwd_update.dedx_casts == fm.fused_bwd_grad_out.dedx_casts == 0
-    assert counts["fused_bwd_update_dedx_casts"] == counts["fused_bwd_grad_out_dedx_casts"] == 0
-    assert counts["fused_bwd_update_tc"] == counts["fused_bwd_grad_out_tc"] == 0
+    want = fm.fused_bwd_update_reference(dedx, y, w, d, b, db, 0.5, 1.0, 1.0 / M, 0.0,
+                                         deriv="relu", bf16=True)
+    got = fm.fused_bwd_update(dedx, y, w, d, b, db, 0.5, 1.0, 1.0 / M, 0.0, deriv="relu",
+                              bf16=True)
+    assert all(torch.equal(a, e) for a, e in zip(got, want))
+    want = fm.fused_bwd_grad_out_reference(dedx, y, w, deriv="relu", bf16=True)
+    got = fm.fused_bwd_grad_out(dedx, y, w, deriv="relu", bf16=True)
+    assert all(torch.equal(a, e) for a, e in zip(got, want))
 
 
 # SHA-256 digests of the outputs of the kernel that rounded float32 dedx in
@@ -180,12 +184,19 @@ def test_tc_chain_is_bit_equal_to_the_rounding_kernel(card):
     assert got == {k: ROUNDING_KERNEL_CHUNK_DIGESTS[k] for k in TC_CHUNK_FORMS}
 
 
+def _kernel_counts(card, fn, want: dict) -> dict:
+    """{name: launches of the kernels of that name} in a torch.profiler trace
+    of one call of fn, for the names of `want`: chip_smoke.py's reading,
+    traced again until it reads `want` exactly (a lost record only lowers a
+    count)."""
+    return _chip_smoke(card, digests=False)._kernel_counts(fn, want)[0]
+
+
 @pytest.mark.card
 def test_chain_reads_its_own_copies_and_wrappers_cast_once(card):
     from tpu_sednn_torch.model.mlp import ModelConfig, init_params
     from tpu_sednn_torch.train.step import OptConfig, init_train_state
 
-    reset_launch_counts()
     cfg = ModelConfig(layersizes=(1548, 2048, 2048, 2048, 129), dropout_vis=0.1, dropout_hid=0.2)
     opt = OptConfig(lrate=1e-3, momentum=0.5, weightcost=0.0, bunchsize=128)
     st = init_train_state(init_params(torch.Generator().manual_seed(5), cfg, scheme="glorot",
@@ -193,22 +204,21 @@ def test_chain_reads_its_own_copies_and_wrappers_cast_once(card):
     g = torch.Generator().manual_seed(6)
     x = torch.randn(3 * 128, 1548, generator=g).to(card)
     t = torch.randn(3 * 128, 129, generator=g).to(card)
-    for bf16 in (True, False):
-        rc.make_resident_train_chunk(cfg, opt, bf16=bf16)(st, x, t, 3)
-    torch.cuda.synchronize()
-    k = rc.kernel_launches  # the chain casts nothing: its launches write the copies
-    assert k["tc_bwd_update"] == 12 and k["fused_bwd_update"] == 24
-    assert fm.fused_bwd_update.dedx_casts == fm.fused_bwd_grad_out.dedx_casts == 0
+    for bf16 in (True, False):  # the chain casts nothing: its launches write the copies
+        run = rc.make_resident_train_chunk(cfg, opt, bf16=bf16)
+        want = {"tc_fwd_kernel": 12 if bf16 else 0, "f32_fwd_kernel": 0 if bf16 else 12,
+                "stripe_bwd_kernel": 12, "bf16_copy_kernel": 0}
+        assert _kernel_counts(card, lambda: run(st, x, t, 3), want) == want
     dedx, y = x[:128, :129].contiguous() * 0.01, torch.relu(x[:128, :1548]).contiguous()
     w = torch.randn(1548, 129, generator=g).to(card) * 0.03
     for bf16 in (True, False):  # one cast a tensor-core call, none for float32 products
-        fm.fused_bwd_grad_out(dedx, y, w, with_dedy=False, bf16=bf16)
-        fm.fused_bwd_update(dedx, y, w, torch.zeros_like(w), torch.zeros(129, device=card),
-                            torch.zeros(129, device=card), 0.5, 1.0, 1.0 / 128, 0.0, bf16=bf16)
-        torch.cuda.synchronize()
-        assert fm.fused_bwd_update.dedx_casts == fm.fused_bwd_grad_out.dedx_casts == 1
-    assert fm.fused_bwd_update.tc_launches == 1 and fm.fused_bwd_update.launches == 2
-    assert launch_counts()["fused_bwd_grad_out_dedx_casts"] == 1
+        def calls():
+            fm.fused_bwd_grad_out(dedx, y, w, with_dedy=False, bf16=bf16)
+            fm.fused_bwd_update(dedx, y, w, torch.zeros_like(w), torch.zeros(129, device=card),
+                                torch.zeros(129, device=card), 0.5, 1.0, 1.0 / 128, 0.0, bf16=bf16)
+
+        want = {"stripe_bwd_kernel": 2, "bf16_copy_kernel": 2 if bf16 else 0}
+        assert _kernel_counts(card, calls, want) == want
 
 
 @pytest.mark.card

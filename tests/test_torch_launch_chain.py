@@ -3,7 +3,7 @@
 `ops/resident_chunk.py:early_read_plan` encodes, held against a brute-force
 simulation of the chain's reads and writes, and the C interface that carries
 the plan to the kernels (with the ctypes bindings of every entry point of
-csrc/resident_chunk.cu and csrc/fused_mlp.cu).
+every csrc/*.cu).
 
 The TPU kernel (tpu_sednn/ops/resident_chunk.py:_resident_kernel) trains a
 chunk in one launch and has no chain, so there is no JAX counterpart to hold
@@ -13,6 +13,7 @@ itself runs only on the card (chip_smoke.py holds it there bit for bit)."""
 
 import ctypes
 import re
+from importlib import import_module
 from pathlib import Path
 
 import pytest
@@ -95,13 +96,17 @@ def test_plan_matches_simulated_chain(L, accum, form):
 
 def test_both_product_forms_take_the_plan():
     """The chunk trainer gates no dependent launch on the product form, and the
-    layer launchers count a dependent launch of either form."""
+    layer launchers hand a dependent launch to either form."""
     src = (CSRC / "resident_chunk.cu").read_text()
     assert "const bool pdl = plan != nullptr && !*first;" in src  # a forward
     assert "const bool pdl = plan != nullptr;  // a forward came first" in src  # a backward
     assert "tc && plan" not in src
     fm_src = (CSRC / "fused_mlp.cuh").read_text()
-    assert fm_src.count("launched->pdl += pdl ? 1 : 0;") == 2  # launch_fwd, launch_bwd
+    for form in ("tc", "f32"):  # launch_fwd
+        assert f"launch_{form}_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream)" \
+            in fm_src
+    for tc in ("true", "false"):  # launch_bwd
+        assert re.search(rf"launch_bwd_form<{tc}>\([^;]*\bpdl, early,\s*stream\)", fm_src)
     assert "tc && pdl" not in fm_src
 
 
@@ -151,36 +156,44 @@ def test_plan_refuses_an_empty_chain(L, accum):
 def _ctype(decl: str):
     """The ctypes type of a C parameter or return type of csrc/*.cu."""
     decl = " ".join(decl.replace("*", " * ").split())
-    if decl.endswith("* const *"):
+    if decl.endswith("* const *") or decl.endswith("* *"):
         return ctypes.POINTER(ctypes.c_void_p)
     if decl.endswith("*"):
-        base = decl[:-1].replace("const", "").strip()
+        base = " ".join(decl[:-1].replace("const", "").split())
         return {"int": ctypes.POINTER(ctypes.c_int),
-                "long long": ctypes.POINTER(ctypes.c_longlong)}.get(base, ctypes.c_void_p)
+                "long long": ctypes.POINTER(ctypes.c_longlong),
+                "unsigned": ctypes.POINTER(ctypes.c_uint),
+                "unsigned char": ctypes.c_char_p}.get(base, ctypes.c_void_p)
     return {"int": ctypes.c_int, "unsigned": ctypes.c_uint, "float": ctypes.c_float,
             "long long": ctypes.c_longlong, "void": None}[decl]
 
 
+# the C sources and their bindings: csrc/<name>.cu -> ops/<name>.py's _c_api()
+C_APIS = {name: import_module(f"tpu_sednn_torch.ops.{name}")._c_api()
+          for name in ("resident_chunk", "fused_mlp", "lstm_cell", "stft_lps", "rank_sum",
+                       "dropout_mask", "sr_update")}
+
+
 def _c_api(name: str):
     """(argtypes, restype) the port binds to entry point `name`."""
-    return {**rc._c_api(), **fm._c_api()}[name]
+    return next(api[name] for api in C_APIS.values() if name in api)
 
 
 def _c_signature(name: str):
-    """(restype, [(type, name)]) of the entry point in csrc/resident_chunk.cu
-    or csrc/fused_mlp.cu."""
-    src = (CSRC / ("resident_chunk.cu" if name in rc._c_api() else "fused_mlp.cu")).read_text()
+    """(restype, [(type, name)]) of the entry point in its csrc/<name>.cu."""
+    source = next(src for src, api in C_APIS.items() if name in api)
+    src = (CSRC / f"{source}.cu").read_text()
     m = re.search(r'extern "C" ([\w ]+?) ' + name + r"\(([^)]*)\)", src)
     assert m, name
     params = []
-    for p in m.group(2).split(","):
+    for p in filter(str.strip, m.group(2).split(",")):
         p = " ".join(p.split())
         cut = max(p.rfind(" "), p.rfind("*"))
         params.append((p[:cut + 1].strip(), p[cut + 1:].strip()))
     return m.group(1), params
 
 
-@pytest.mark.parametrize("name", sorted(rc._c_api()) + sorted(fm._c_api()))
+@pytest.mark.parametrize("name", [n for api in C_APIS.values() for n in sorted(api)])
 def test_argtypes_match_the_c_entry_points(name):
     restype, params = _c_signature(name)
     argtypes, want_restype = _c_api(name)
@@ -194,7 +207,7 @@ def test_argtypes_carry_the_plan():
     i = names.index("plan")
     assert " ".join(params[i][0].split()) == "const int*"
     assert rc._c_api()["resident_chunk_train"][0][i] is ctypes.POINTER(ctypes.c_int)
-    assert names[i - 1:i + 2] == ["bf16", "plan", "tallies"]
+    assert names[i - 1:i + 2] == ["bf16", "plan", "stream_"]
 
 
 def test_plan_bits_and_index_match_the_kernels():
@@ -206,17 +219,3 @@ def test_plan_bits_and_index_match_the_kernels():
     src = (CSRC / "resident_chunk.cu").read_text()
     assert "return plan[(direction * L + l) * 2];" in src
     assert rc.plan_index(1, 2, False, 4) == (1 * 4 + 2) * 2
-    assert "pdl" in rc.kernel_launches
-
-
-def test_tally_indices_are_the_kernel_launches_keys():
-    """resident_chunk.cu's enum Tally lists kernel_launches' keys in order,
-    so the C code's tallies land under the keys that name them."""
-    src = (CSRC / "resident_chunk.cu").read_text()
-    m = re.search(r"enum Tally : int \{([^}]*)\}", src)
-    assert m
-    names = [n.strip() for n in m.group(1).split(",")]
-    want = ["k" + "".join(p.capitalize() for p in key.split("_")) for key in rc.kernel_launches]
-    assert names == want + ["kTallies"]
-    used = set(re.findall(r"tallies\[(\w+)\]", src))
-    assert used <= set(want) and "kTallies" not in used

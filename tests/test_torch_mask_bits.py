@@ -203,8 +203,6 @@ def test_the_draw_raises_without_a_card_and_refuses_bad_shapes():
     with pytest.raises(ValueError):
         rc.input_mask_bits(SEED, 2, 0, 33, 0.1, device="cpu")
     assert rc.input_mask_bits(SEED, 0, TILE, 33, 0.1, device="cpu").shape == (0, TILE, 2)
-    assert rc.input_mask_bits.launches == 0  # the CPU runs the plain version
-    assert {"input_mask_table", "input_mask_philox"} <= set(rc.kernel_launches)
 
 
 # The data-parallel trainer's tables: a rank draws its rows of the call's

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_sednn_torch.ops import launch_counts, rank_sum, rank_sum_reference, reset_launch_counts
+from tpu_sednn_torch.ops import rank_sum, rank_sum_reference
 from tpu_sednn_torch.parallel import Mesh, backend_rule, fence, initialize_distributed
 
 
@@ -23,10 +23,8 @@ def test_rank_sum_adds_in_rank_order(n_src):
     for a in srcs[1:]:
         want = want + a  # float32 additions, rank order
     ts = [torch.from_numpy(a) for a in srcs]
-    reset_launch_counts()
     got = rank_sum(ts, torch.empty(1001))
     assert np.array_equal(got.numpy(), want)
-    assert launch_counts()["rank_sum"] == 0  # the CPU runs the plain version
     inplace = ts[0].clone()  # out may be one of the sources
     rank_sum([inplace] + ts[1:], inplace)
     assert np.array_equal(inplace.numpy(), want)

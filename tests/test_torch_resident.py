@@ -59,11 +59,9 @@ def test_resident_matches_jax_resident_kernel(rule, hidden, output, sizes):
     jst = j_make_resident(jm.ModelConfig(**kw), JOpt(**opt), interpret=True, bf16=False, rule=rule)(
         j_init(p), jnp.asarray(x), jnp.asarray(t), jnp.int32(7))
     st0 = init_train_state(mlp)
-    before = rc.make_resident_train_chunk.launches
     st = rc.make_resident_train_chunk(tm.ModelConfig(**kw), OptConfig(**opt), bf16=False, rule=rule)(
         st0, torch.from_numpy(x), torch.from_numpy(t), 7)
     assert st is st0 and st.step == 3  # in place, partial bunch dropped
-    assert rc.make_resident_train_chunk.launches == before  # a CPU state launches no kernel
     _assert_state(st, jst)
 
 
@@ -192,7 +190,7 @@ def test_mask_rate_streams_and_rank_slices(layer, omit, width):
 def test_unported_variants_raise(kwargs):
     """Of the TPU kernel's variants only the data-parallel trainer still
     raises; every single-device one builds a runner, the tensor-core products
-    (bf16=True) included, and a CPU state launches no kernel
+    (bf16=True) included, and each trains a CPU state
     (tests/test_torch_resident_variants.py and tests/test_torch_tensor_core.py
     hold what they compute)."""
     cfg, opt = tm.ModelConfig(layersizes=(16, 16, 16)), OptConfig(bunchsize=16)
@@ -200,11 +198,9 @@ def test_unported_variants_raise(kwargs):
     run = rc.make_resident_train_chunk(cfg, opt, rule=rule, **kwargs)
     assert callable(run)
     if "bf16" in kwargs:
-        before = (rc.make_resident_train_chunk.launches, dict(rc.kernel_launches))
         st = run(init_train_state(tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")),
                  torch.zeros(32, 16), torch.zeros(32, 16), 0)
         assert st.step == 2
-        assert (rc.make_resident_train_chunk.launches, dict(rc.kernel_launches)) == before
 
 
 def test_factory_guards():

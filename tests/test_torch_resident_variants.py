@@ -274,23 +274,18 @@ def test_factory_guards_raise_as_the_jax_factory_does(match, bunch, kw):
 def test_still_unported_and_state_checks():
     """Nothing raises "not yet ported" any more: bf16=True (every storage
     form) and the data-parallel trainer with sr_delta (on one rank) build
-    runners, and the CPU launches no kernel."""
+    runners that train on the CPU."""
     cfg, opt = tm.ModelConfig(layersizes=(16, 16, 16)), OptConfig(bunchsize=16)
     mlp = tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    before = dict(rc.kernel_launches)
     for kw in (dict(), dict(sr_delta=True), dict(sr_state=True), dict(hbm_spill=1)):
         st = rc.make_resident_train_chunk(cfg, opt, bf16=True, **kw)(
             init_train_state(mlp), torch.zeros(16, 16), torch.zeros(16, 16), 0)
         assert st.step == 1
-    assert dict(rc.kernel_launches) == before
     from tpu_sednn_torch.parallel import make_mesh
 
     st = rc.make_dp_resident_train_chunk(cfg, opt, make_mesh(devices=["cpu"]), sr_delta=True)(
         init_train_state(mlp), torch.zeros(16, 16), torch.zeros(16, 16), 0)
     assert st.step == 1 and st.deltas.w[0].dtype == torch.bfloat16
-    assert dict(rc.kernel_launches) == before
-    for name in ("sr_bwd_update", "tiled_bwd_update", "bf16_linear_act"):
-        assert rc.kernel_launches[name] == 0  # the CPU launches no kernel
 
 
 def test_float64_plain_version_keeps_the_rounding_decisions():

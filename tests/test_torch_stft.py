@@ -126,7 +126,6 @@ def test_stft_lps_rejects_bad_input():
         stft_lps(torch.zeros(1000, dtype=torch.float64), cfg)
     with pytest.raises(ValueError):
         stft_lps(torch.zeros(2, 2, 1000), cfg)
-    assert stft_lps.launches == 0  # CPU tensors never launch the kernel
 
 
 def test_cuda_requested_without_cuda_raises(tmp_path):

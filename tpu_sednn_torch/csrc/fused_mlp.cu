@@ -32,15 +32,14 @@ MaskSpec make_mask(int mode, const float* ptr, int ld, unsigned key, unsigned th
 }
 
 // The tensor-core backward's operand for a caller that holds float32 dedx
-// alone: with tc, rne(dedx) into dedx_bf by one launch of bf16_copy_kernel
-// (counted in launched[2]), which copies->dedx then names; without, nothing.
+// alone: with tc, rne(dedx) into dedx_bf by one launch of bf16_copy_kernel,
+// which copies->dedx then names; without, nothing.
 cudaError_t cast_dedx(const float* dedx, void* dedx_bf, int M, int N, bool tc, Bf16Copies* copies,
-                      int* launched, cudaStream_t stream) {
+                      cudaStream_t stream) {
   if (!tc || M <= 0 || N <= 0) return cudaSuccess;
   if (dedx_bf == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = launch_bf16_copy(dedx, (bf16_t*)dedx_bf, M, N, stream);
   if (err != cudaSuccess) return err;
-  launched[2] += 1;
   copies->dedx = (const bf16_t*)dedx_bf;
   return cudaSuccess;
 }
@@ -55,26 +54,22 @@ cudaError_t cast_dedx(const float* dedx, void* dedx_bf, int M, int N, bool tc, B
 // w_bf16 != 0: w is bfloat16 storage, widened as it is loaded; x, b and y are
 // float32.  bf16 != 0: the tensor-core form, products of operands rounded to
 // bfloat16 (to nearest even) summed in float32; else float32 products.
-// Either is one launch.  launched[2] += the launches of tc_fwd_kernel and
-// f32_fwd_kernel.
+// Either is one launch.
 extern "C" int fused_linear_act_f32(const float* x, const void* w, int w_bf16, const float* b,
                                     float* y, int M, int K, int N, int act, int in_mode,
                                     const float* in_ptr, unsigned in_key, unsigned in_thr,
                                     float in_scale, int out_mode, const float* out_ptr,
                                     unsigned out_key, unsigned out_thr, float out_scale,
-                                    int bf16, int* launched, void* stream) {
+                                    int bf16, void* stream) {
   if (act < 0 || act > 2 || in_mode < 0 || in_mode > 3 || out_mode < 0 || out_mode > 2)
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale);
   const MaskSpec om = make_mask(out_mode, out_ptr, N, out_key, out_thr, out_scale);
-  FwdLaunched done;
   const cudaError_t err =
       w_bf16 ? launch_fwd(x, (const bf16_t*)w, b, y, M, K, N, act, im, om, nullptr, nullptr,
-                          nullptr, 0.0f, bf16 != 0, &done, (cudaStream_t)stream)
+                          nullptr, 0.0f, bf16 != 0, (cudaStream_t)stream)
              : launch_fwd(x, (const float*)w, b, y, M, K, N, act, im, om, nullptr, nullptr,
-                          nullptr, 0.0f, bf16 != 0, &done, (cudaStream_t)stream);
-  launched[0] += done.tc;
-  launched[1] += done.f32;
+                          nullptr, 0.0f, bf16 != 0, (cudaStream_t)stream);
   return (int)err;
 }
 
@@ -127,15 +122,12 @@ extern "C" void fused_tc_smem_bytes(int* out) {
 // tensor-core form reads dedx's bfloat16 copy: it is written first into
 // dedx_bf (M rows of bf16_ld(N) bfloat16, 16-byte aligned, the caller's) by
 // one launch of bf16_copy_kernel.
-// launched[3] += the launches of its tensor-core and its float32 form, and
-// of bf16_copy_kernel.
 extern "C" int fused_bwd_update_f32(const float* dedx, void* dedx_bf, const float* yprev, void* w,
                                     int w_bf16, void* delta, int d_bf16, unsigned sr_key,
                                     float* b, float* db, float* dedy, int M, int K, int N,
                                     float mom, float A, float Bc, int in_mode,
                                     const float* in_ptr, unsigned in_key, unsigned in_thr,
-                                    float in_scale, int deriv, int bf16, int* launched,
-                                    void* stream) {
+                                    float in_scale, int deriv, int bf16, void* stream) {
   if (in_mode < 0 || in_mode > 3 || deriv < 0 || deriv > 2 || (w_bf16 && !d_bf16))
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale);
@@ -143,20 +135,17 @@ extern "C" int fused_bwd_update_f32(const float* dedx, void* dedx_bf, const floa
   const bool tc = bf16 != 0;
   cudaStream_t s = (cudaStream_t)stream;
   Bf16Copies copies;
-  cudaError_t err = cast_dedx(dedx, dedx_bf, M, N, tc, &copies, launched, s);
+  cudaError_t err = cast_dedx(dedx, dedx_bf, M, N, tc, &copies, s);
   if (err != cudaSuccess) return (int)err;
-  BwdLaunched done;
   if (w_bf16)
     err = launch_bwd(dedx, copies, yprev, im, (bf16_t*)w, (bf16_t*)delta, b, db, nullptr, dedy,
-                     deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, &done, s);
+                     deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, s);
   else if (d_bf16)
     err = launch_bwd(dedx, copies, yprev, im, (float*)w, (bf16_t*)delta, b, db, nullptr, dedy,
-                     deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, &done, s);
+                     deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, s);
   else
     err = launch_bwd(dedx, copies, yprev, im, (float*)w, (float*)delta, b, db, nullptr, dedy,
-                     deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, &done, s);
-  launched[0] += done.tc;
-  launched[1] += done.f32;
+                     deriv, M, K, N, mom, A, Bc, sr_key, flags, tc, s);
   return (int)err;
 }
 
@@ -164,26 +153,21 @@ extern "C" int fused_bwd_update_f32(const float* dedx, void* dedx_bf, const floa
 // trainer's): g (K*N + N floats) = G = yprev^T @ dedx row-major, then gb =
 // sum_rows(dedx); dedy as above from w, which is only read (float32; not at
 // all without dedy).  The input mask draws rows in_row0.. of its stream (this
-// rank's rows of the global bunch).  Nothing is updated.  dedx_bf and
-// launched as above.
+// rank's rows of the global bunch).  Nothing is updated.  dedx_bf as above.
 extern "C" int fused_bwd_grad_out_f32(const float* dedx, void* dedx_bf, const float* yprev,
                                       const float* w, float* g, float* dedy, int M, int K, int N,
                                       int in_mode, const float* in_ptr, unsigned in_key,
                                       unsigned in_thr, float in_scale, int in_row0, int deriv,
-                                      int bf16, int* launched, void* stream) {
+                                      int bf16, void* stream) {
   if (in_mode < 0 || in_mode > 3 || deriv < 0 || deriv > 2 || g == nullptr)
     return (int)cudaErrorInvalidValue;
   const MaskSpec im = make_mask(in_mode, in_ptr, K, in_key, in_thr, in_scale, in_row0);
   cudaStream_t s = (cudaStream_t)stream;
   Bf16Copies copies;
-  cudaError_t err = cast_dedx(dedx, dedx_bf, M, N, bf16 != 0, &copies, launched, s);
+  const cudaError_t err = cast_dedx(dedx, dedx_bf, M, N, bf16 != 0, &copies, s);
   if (err != cudaSuccess) return (int)err;
-  BwdLaunched done;
-  err = launch_bwd(dedx, copies, yprev, im, (float*)w, (float*)nullptr, nullptr, nullptr, g, dedy,
-                   deriv, M, K, N, 0.0f, 0.0f, 0.0f, 0u, 0, bf16 != 0, &done, s);
-  launched[0] += done.tc;
-  launched[1] += done.f32;
-  return (int)err;
+  return (int)launch_bwd(dedx, copies, yprev, im, (float*)w, (float*)nullptr, nullptr, nullptr, g,
+                         dedy, deriv, M, K, N, 0.0f, 0.0f, 0.0f, 0u, 0, bf16 != 0, s);
 }
 
 // The update from a given gradient g (K*N floats of G, then N of gb):

@@ -1056,13 +1056,6 @@ static cudaError_t f32_fwd_plan(int M, int K, int N, int plan_rows, int out[5]) 
   return err != cudaSuccess ? err : fwd_clusters<false, TW, kF32FwdBN>(out[1], &out[4]);
 }
 
-// The kernels one launch_fwd launched, each counted right after its launch.
-struct FwdLaunched {
-  int tc = 0;   // tc_fwd_kernel
-  int f32 = 0;  // f32_fwd_kernel
-  int pdl = 0;  // either as a programmatic dependent launch
-};
-
 // tc: the tensor-core form (tc_fwd_kernel), else the float32 one
 // (f32_fwd_kernel); either is one launch, K split within a cluster.
 // dedx_bf (with dedx; nullptr: none): rne(dedx) stored beside dedx, rows of
@@ -1072,14 +1065,12 @@ struct FwdLaunched {
 // single-device trainer sums them: each output's sum depends only on the
 // chunk boundaries), else as for M.  pdl, early: a programmatic dependent
 // launch that reads before its wait what `early` names (pdl.cuh).
-// *launched += what was launched.
 template <typename TW>
 inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
-                              bf16_t* dedx_bf, float coef, bool tc, FwdLaunched* launched,
-                              cudaStream_t stream, int plan_rows = 0, bool pdl = false,
-                              int early = 0) {
+                              bf16_t* dedx_bf, float coef, bool tc, cudaStream_t stream,
+                              int plan_rows = 0, bool pdl = false, int early = 0) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (dedx_bf != nullptr && (dedx == nullptr || (reinterpret_cast<uintptr_t>(dedx_bf) & 15u) != 0))
     return cudaErrorInvalidValue;
@@ -1097,14 +1088,8 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
   epi.coef = coef;
   epi.vec_y = vec_ok(y, N) && (dedx == nullptr || vec_ok(dedx, N));
   epi.vec_t = targ != nullptr && vec_ok(targ, N);
-  const cudaError_t err =
-      tc ? launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream)
-         : launch_f32_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
-  if (err == cudaSuccess) {
-    (tc ? launched->tc : launched->f32) += 1;
-    launched->pdl += pdl ? 1 : 0;
-  }
-  return err;
+  return tc ? launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream)
+            : launch_f32_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -2172,13 +2157,6 @@ static cudaError_t launch_bwd_form(const float* dedx, const Bf16Copies& copies,
   }
 }
 
-// The kernels one launch_bwd launched, each counted right after its launch.
-struct BwdLaunched {
-  int tc = 0;   // stripe_bwd_kernel, tensor-core products
-  int f32 = 0;  // stripe_bwd_kernel, float32 FMA products
-  int pdl = 0;  // either form as a programmatic dependent launch
-};
-
 // One launch of stripe_bwd_kernel.  dedy: (M, K), or nullptr when the layer
 // below needs no gradient (the first layer).  tc: the tensor-core products,
 // which read dedx's bfloat16 copy (copies.dedx, (M, bf16_ld(N)), 16-byte
@@ -2187,25 +2165,19 @@ struct BwdLaunched {
 // gradient-out form (W is then only read, and delta, b and db may be
 // nullptr), or nullptr for the in-place update.  At most kBwdMaxRows rows
 // (else cudaErrorInvalidValue).  pdl, early: a programmatic dependent launch
-// (launch_bwd_bk), either form.  *launched += what was launched.
+// (launch_bwd_bk), either form.
 template <typename TW, typename TD>
 inline cudaError_t launch_bwd(const float* dedx, const Bf16Copies& copies, const float* yprev,
                               const MaskSpec& in_mask, TW* w, TD* delta, float* b, float* db,
                               float* gout, float* dedy, int deriv, int M, int K, int N, float mom,
                               float A, float Bc, uint32_t sr_key, int flags, bool tc,
-                              BwdLaunched* launched, cudaStream_t stream, bool pdl = false,
-                              int early = 0) {
+                              cudaStream_t stream, bool pdl = false, int early = 0) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
-  const cudaError_t err =
-      tc ? launch_bwd_form<true>(dedx, copies, yprev, in_mask, w, delta, b, db, gout, dedy,
-                                 deriv, M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream)
-         : launch_bwd_form<false>(dedx, copies, yprev, in_mask, w, delta, b, db, gout, dedy,
-                                  deriv, M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream);
-  if (err == cudaSuccess) {
-    (tc ? launched->tc : launched->f32) += 1;
-    launched->pdl += pdl ? 1 : 0;
-  }
-  return err;
+  return tc ? launch_bwd_form<true>(dedx, copies, yprev, in_mask, w, delta, b, db, gout, dedy,
+                                    deriv, M, K, N, mom, A, Bc, sr_key, flags, pdl, early, stream)
+            : launch_bwd_form<false>(dedx, copies, yprev, in_mask, w, delta, b, db, gout, dedy,
+                                     deriv, M, K, N, mom, A, Bc, sr_key, flags, pdl, early,
+                                     stream);
 }
 
 // dedx's bfloat16 copy for a caller that holds float32 dedx alone (the

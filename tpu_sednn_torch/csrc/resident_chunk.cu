@@ -99,22 +99,6 @@ constexpr unsigned kBunchStride = 7919u;
 constexpr unsigned kLayerStride = 104729u;
 constexpr int kMaxLayers = 16;
 
-// the tallies' indices: ops/resident_chunk.py's kernel_launches keys, in order
-enum Tally : int {
-  kFusedLinearAct,
-  kFusedBwdUpdate,
-  kPhiloxMask,
-  kSrBwdUpdate,
-  kTiledBwdUpdate,
-  kBf16LinearAct,
-  kTcLinearAct,
-  kTcBwdUpdate,
-  kPdl,
-  kInputMaskTable,
-  kInputMaskPhilox,
-  kTallies
-};
-
 // Offsets in floats into the trainer's workspace.  dedx ping-pongs between
 // two float32 buffers (a layer's backward reads one and writes dedy, the next
 // layer's dedx, into the other), and so does its bfloat16 copy, which the
@@ -282,8 +266,7 @@ cudaError_t forward_tile(const float* x, const float* t, int tile, const int* si
                          void* const* w, float* const* b, float* const* y, float* dedx,
                          bf16_t* dedx_bf, int hidden, int output, const MaskSpec& in_mask,
                          unsigned key0, unsigned thr_hid, float scale_hid, int row0, float coef,
-                         int plan_rows,
-                         bool tc, const int* plan, bool* first, long long* tallies,
+                         int plan_rows, bool tc, const int* plan, bool* first,
                          cudaStream_t stream) {
   for (int l = 0; l < L; ++l) {
     const bool last = l == L - 1;
@@ -292,21 +275,13 @@ cudaError_t forward_tile(const float* x, const float* t, int tile, const int* si
             ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid, row0)
             : no_mask();
     const bool pdl = plan != nullptr && !*first;
-    FwdLaunched done;
     const cudaError_t err = launch_fwd(
         l == 0 ? x : y[l - 1], (const TW*)w[l], b[l], y[l], tile, sizes[l], sizes[l + 1],
         last ? output : hidden, l == 0 ? in_mask : no_mask(), out_mask, last ? t : nullptr,
-        last ? dedx : nullptr, last ? dedx_bf : nullptr, coef, tc, &done, stream, plan_rows, pdl,
+        last ? dedx : nullptr, last ? dedx_bf : nullptr, coef, tc, stream, plan_rows, pdl,
         pdl ? early_flags(plan, L, 0, l) : 0);
     if (err != cudaSuccess) return err;
     *first = false;
-    tallies[kPdl] += done.pdl;
-    const int products = done.tc + done.f32;
-    tallies[kFusedLinearAct] += products;
-    tallies[kPhiloxMask] += (l == 0 && in_mask.mode == 2) || out_mask.mode == 2 ? products : 0;
-    tallies[kInputMaskPhilox] += l == 0 && in_mask.mode == 2 ? products : 0;
-    tallies[kBf16LinearAct] += std::is_same<TW, float>::value ? 0 : products;
-    tallies[kTcLinearAct] += done.tc;
   }
   return cudaSuccess;
 }
@@ -316,9 +291,7 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
                 int L, void* const* w, void* const* d, float* const* b, float* const* db,
                 float* work, uint32_t* mask_bits, int hidden, int output, unsigned thr_vis,
                 unsigned thr_hid, float scale_vis, float scale_hid, unsigned seed, float mom,
-                float A, float Bc, bool tc, const int* plan, long long* tallies,
-                cudaStream_t stream) {
-  constexpr bool kSr = !std::is_same<TW, float>::value || !std::is_same<TD, float>::value;
+                float A, float Bc, bool tc, const int* plan, cudaStream_t stream) {
   const Workspace ws = plan_workspace(sizes, L, tile);
   const float coef = 2.0f / (float)(tile * accum);
   float* ys[kMaxLayers];
@@ -332,7 +305,6 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
     const cudaError_t err = launch_input_mask_bits(mask_bits, n_real * accum, tile, 0, sizes[0],
                                                    seed, thr_vis, stream);
     if (err != cudaSuccess) return (int)err;
-    tallies[kInputMaskTable] += 1;
   }
   bool first = true;  // the call's first launch: no programmatic dependent launch
   for (int i = 0; i < n_real; ++i) {
@@ -351,31 +323,22 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
       bf16_t* other_bf = tc ? (bf16_t*)(work + ws.bf_b) : nullptr;
       const cudaError_t ferr = forward_tile<TW>(xi, ti, tile, sizes, L, w, b, ys, dedx, dedx_bf,
                                                 hidden, output, in_mask, key0, thr_hid, scale_hid,
-                                                0, coef, 0, tc, plan, &first, tallies, stream);
+                                                0, coef, 0, tc, plan, &first, stream);
       if (ferr != cudaSuccess) return (int)ferr;
       for (int l = L - 1; l >= 0; --l) {
         const float* yprev = l == 0 ? xi : work + ws.ys[l];
         const unsigned sr_key =
             seed + (unsigned)i * kBunchStride + (unsigned)l * kLayerStride + 1u;
         const bool pdl = plan != nullptr;  // a forward came first
-        BwdLaunched done;
         Bf16Copies copies;
         copies.dedx = dedx_bf;
         copies.dedy = l > 0 ? other_bf : nullptr;
         const cudaError_t err = launch_bwd(
             dedx, copies, yprev, l == 0 ? in_mask : no_mask(), (TW*)w[l], (TD*)d[l], b[l], db[l],
             nullptr, l > 0 ? other : nullptr, hidden, tile,
-            sizes[l], sizes[l + 1], mom, A, Bc, sr_key, flags, tc, &done, stream, pdl,
+            sizes[l], sizes[l + 1], mom, A, Bc, sr_key, flags, tc, stream, pdl,
             pdl ? early_flags(plan, L, 1, l) : 0);
         if (err != cudaSuccess) return (int)err;
-        tallies[kPdl] += done.pdl;
-        const int products = done.tc + done.f32;
-        tallies[kFusedBwdUpdate] += products;
-        tallies[kTcBwdUpdate] += done.tc;
-        tallies[kPhiloxMask] += (l == 0 && in_mask.mode == 2) ? products : 0;
-        tallies[kInputMaskPhilox] += (l == 0 && in_mask.mode == 2) ? products : 0;
-        tallies[kSrBwdUpdate] += kSr ? products : 0;
-        tallies[kTiledBwdUpdate] += accum > 1 ? products : 0;
         float* tmp = dedx;
         dedx = other;
         other = tmp;
@@ -412,17 +375,6 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
 // input_mask_bits_kernel, and the layer-0 kernels of each tile read its rows.
 // Update: delta' = mom*delta - (A*G + Bc*w) with G the gradient of
 // (1/bunch)*sum((out-t)^2).
-// tallies (kTallies of them, enum Tally) += launches of the forward and
-// backward product kernels (either form), the count of the product launches
-// that drew Philox masks in the kernel, backward launches that rounded
-// stochastically, backward launches of row-tiled bunches, forward launches
-// that read bfloat16 weights, forward and backward launches of the
-// tensor-core forms, the programmatic dependent launches among all of them
-// (2 L n_real accum - 1 a call), the launches of input_mask_bits_kernel (one
-// a call with thr_vis), the layer-0 launches that drew the input's mask by
-// Philox in the kernel (0: both trainers read the table), and the
-// tensor-core backward launches whose dedx came from the bfloat16 copy by
-// tensor copies (all of them).
 extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, int tile,
                                     int accum, const int* sizes, int L, void* const* w,
                                     int w_bf16, void* const* d, int d_bf16, float* const* b,
@@ -430,7 +382,7 @@ extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, 
                                     int output, unsigned thr_vis, unsigned thr_hid,
                                     float scale_vis, float scale_hid, unsigned seed, float mom,
                                     float A, float Bc, int bf16, const int* plan,
-                                    long long* tallies, void* stream_) {
+                                    void* stream_) {
   if (L < 1 || L > kMaxLayers || tile <= 0 || accum <= 0 || hidden < 0 || hidden > 2 ||
       output < 0 || output > 2 || (w_bf16 && !d_bf16) || (accum > 1 && d_bf16) ||
       plan == nullptr || (thr_vis && n_real > 0 && mask_bits == nullptr))
@@ -441,14 +393,14 @@ extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, 
   if (w_bf16)
     return train_chunk<bf16_t, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
                                        bits, hidden, output, thr_vis, thr_hid, scale_vis,
-                                       scale_hid, seed, mom, A, Bc, tc, plan, tallies, stream);
+                                       scale_hid, seed, mom, A, Bc, tc, plan, stream);
   if (d_bf16)
     return train_chunk<float, bf16_t>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work,
                                       bits, hidden, output, thr_vis, thr_hid, scale_vis,
-                                      scale_hid, seed, mom, A, Bc, tc, plan, tallies, stream);
+                                      scale_hid, seed, mom, A, Bc, tc, plan, stream);
   return train_chunk<float, float>(x, t, n_real, tile, accum, sizes, L, w, d, b, db, work, bits,
                                    hidden, output, thr_vis, thr_hid, scale_vis, scale_hid, seed,
-                                   mom, A, Bc, tc, plan, tallies, stream);
+                                   mom, A, Bc, tc, plan, stream);
 }
 
 // The data-parallel trainer's forward of one tile: this rank's `tile` rows
@@ -462,8 +414,7 @@ extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, 
 // single-device trainer's bit for bit.  The input's mask is read from
 // mask_bits (tile rows of mask_words(sizes[0]) words: the tile's rows of the
 // table input_mask_bits_u32 draws at row0, mode 3); with thr_vis a nullptr
-// is refused.  Every launch is an ordinary one.  tallies as
-// resident_chunk_train's (its forward entries).  The gradient-out backward
+// is refused.  Every launch is an ordinary one.  The gradient-out backward
 // and the update of each layer are fused_mlp.cu's; the sum between them is
 // the caller's.
 extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int global_tile,
@@ -471,7 +422,7 @@ extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int gl
                                 float* const* y, float* dedx, int hidden, int output,
                                 unsigned thr_vis, unsigned thr_hid, float scale_vis,
                                 float scale_hid, const void* mask_bits, unsigned key0, int row0,
-                                float coef, int bf16, long long* tallies, void* stream) {
+                                float coef, int bf16, void* stream) {
   if (L < 1 || L > kMaxLayers || tile <= 0 || global_tile < tile || row0 < 0 || hidden < 0 ||
       hidden > 2 || output < 0 || output > 2 || (thr_vis && mask_bits == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -481,8 +432,7 @@ extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int gl
   bool first = true;
   const cudaError_t err = forward_tile<float>(
       x, t, tile, sizes, L, w, b, y, dedx, nullptr, hidden, output, in_mask, key0, thr_hid,
-      scale_hid, row0, coef, global_tile, bf16 != 0, nullptr, &first, tallies,
-      (cudaStream_t)stream);
+      scale_hid, row0, coef, global_tile, bf16 != 0, nullptr, &first, (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

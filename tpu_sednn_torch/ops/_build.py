@@ -113,7 +113,12 @@ def build(name: str) -> Path:
     return build_all([name])[name]
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, api: Dict[str, tuple]) -> ctypes.CDLL:
     """Load the library of csrc/<name>.cu, built first if needed (callers
-    keep the handle: ops/<name>.py caches it and declares its argtypes)."""
-    return ctypes.CDLL(str(build(name)))
+    keep the handle: ops/<name>.py caches it).  api: the entry points' name
+    -> (argtypes, restype), ops/<name>.py's _c_api(), declared on the handle."""
+    lib = ctypes.CDLL(str(build(name)))
+    for entry, (argtypes, restype) in api.items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = restype
+    return lib

@@ -23,8 +23,6 @@ differ.
 On `device="cuda"` the wrappers launch the kernel or raise; on "cpu" they run
 the plain versions `dropout_mask_reference` / `dropout_masks_reference`,
 which draw the same bits in integer tensor arithmetic.
-`dropout_mask.launches` counts kernel launches, of either wrapper, and
-`dropout_mask.masks` the masks they wrote.
 """
 
 from __future__ import annotations
@@ -94,15 +92,17 @@ def dropout_masks_reference(seeds: Sequence[int], shapes, omits: Sequence[float]
             for s, d, o, r in zip(seeds, dims, omits, row0s)]
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dropout_mask")
+def _c_api() -> dict:
+    """csrc/dropout_mask.cu's entry point: name -> (argtypes, restype)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     pi, pu = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint)
-    lib.philox_dropout_masks_f32.argtypes = [p, i, ctypes.POINTER(ctypes.c_longlong), pi, pi, pi,
-                                             pu, pu, p]
-    lib.philox_dropout_masks_f32.restype = ctypes.c_int
-    return lib
+    return {"philox_dropout_masks_f32": ([p, i, ctypes.POINTER(ctypes.c_longlong), pi, pi, pi,
+                                          pu, pu, p], i)}
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    return _build.load("dropout_mask", _c_api())
 
 
 def _c_array(ctype, values: list):
@@ -142,8 +142,6 @@ def dropout_masks(seeds: Sequence[int], shapes, omits: Sequence[float],
                 _c_array(ctypes.c_uint, [mask_threshold(float(omits[i])) for i in part]), stream)
             if rc != 0:
                 raise RuntimeError(f"dropout mask kernel launch failed: CUDA error {rc}")
-            dropout_mask.launches += 1
-            dropout_mask.masks += len(part)
     return masks
 
 
@@ -153,7 +151,3 @@ def dropout_mask(seed: int, shape, omit: float,
     seed: any integer, taken mod 2**32 (an int32 seed and its uint32 twin
     give the same mask).  A batch of one: `dropout_masks`."""
     return dropout_masks([seed], [shape], [omit], device=device)[0]
-
-
-dropout_mask.launches = 0
-dropout_mask.masks = 0

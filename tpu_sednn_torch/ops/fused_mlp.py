@@ -49,19 +49,11 @@ stochastic rounding (`sr_seed`: the stream of `csrc/sr_round.cuh`, whose bits
 the plain version draws too); delta alone may be bfloat16 with W float32, and
 W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 `fused_bwd_update` writes W, delta, b and delta_b IN PLACE on both devices
-and returns them.  `<wrapper>.launches` counts launches of the wrapper's
-product kernel (either form), `<wrapper>.tc_launches` those of its
-tensor-core form; each is counted where the C entry point reports the
-launch (one launch a layer in either form).  The tensor-core backward reads
-dedx rounded to bfloat16 (`bf16_ld` a row), which the chunk trainer's
-launches write beside dedx; these wrappers, which hold float32 dedx alone,
-make that copy with one launch of a cast kernel before the backward, counted
-in `<wrapper>.dedx_casts`.
-`fused_bwd_grad_out.philox_launches` counts the launches that drew a (key,
-omit) input mask by Philox in the kernel (the data-parallel trainer gives a
-table: 0 there).  `dp_update.sr_launches` counts the update's launches that
-rounded a bfloat16 delta stochastically.  The float32 forms
-are FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
+and returns them.  The tensor-core backward reads dedx rounded to bfloat16
+(`bf16_ld` a row), which the chunk trainer's launches write beside dedx;
+these wrappers, which hold float32 dedx alone, make that copy with one
+launch of a cast kernel before the backward.  The float32 forms are
+FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
 (csrc/fused_mlp.cuh says why).
 """
 
@@ -224,11 +216,11 @@ def _c_api() -> dict:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     return {
-        "fused_linear_act_f32": ([p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, i, ip,
-                                  p], i),
+        "fused_linear_act_f32": ([p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, i, p],
+                                 i),
         "fused_bwd_update_f32": ([p, p, p, p, i, p, i, u, p, p, p, i, i, i, f, f, f, i, p, u, u,
-                                  f, i, i, ip, p], i),
-        "fused_bwd_grad_out_f32": ([p, p, p, p, p, p, i, i, i, i, p, u, u, f, i, i, i, ip, p], i),
+                                  f, i, i, p], i),
+        "fused_bwd_grad_out_f32": ([p, p, p, p, p, p, i, i, i, i, p, u, u, f, i, i, i, p], i),
         "fused_f32_fwd_plan": ([i, i, i, i, ip], i),
         "fused_bwd_plan": ([i, i, i, i, i, ip], i),
         "fused_tc_smem_bytes": ([ip], None),
@@ -238,11 +230,7 @@ def _c_api() -> dict:
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_mlp")
-    for name, (argtypes, restype) in _c_api().items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = restype
-    return lib
+    return _build.load("fused_mlp", _c_api())
 
 
 def _check(name: str, t: torch.Tensor, shape, device, dtypes=(torch.float32,)) -> None:
@@ -300,15 +288,6 @@ def _check_bwd_rows(rows: int) -> None:
                          f"use row tiles (tile_rows)")
 
 
-def _count(wrapper, launched) -> None:
-    """Add a backward call's launches, as the C entry point reports them:
-    the backward's (either form), its tensor-core form's, and the casts of
-    dedx to its bfloat16 copy."""
-    wrapper.launches += launched[0] + launched[1]
-    wrapper.tc_launches += launched[0]
-    wrapper.dedx_casts += launched[2]
-
-
 def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "linear",
                      in_mask: MaskArg = None, in_scale: float = 1.0,
                      out_mask: MaskArg = None, out_scale: float = 1.0,
@@ -335,21 +314,14 @@ def fused_linear_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str
     im = _mask_args("in_mask", in_mask, in_scale, (B, K), x.device)
     om = _mask_args("out_mask", out_mask, out_scale, (B, N), x.device)
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    launched = (ctypes.c_int * 2)()  # tc_fwd_kernel, f32_fwd_kernel
     with torch.cuda.device(x.device):
         rc = _lib().fused_linear_act_f32(
             x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), b.data_ptr(),
-            y.data_ptr(), B, K, N, ACTS[act], *im[:5], *om[:5], int(bf16), launched,
+            y.data_ptr(), B, K, N, ACTS[act], *im[:5], *om[:5], int(bf16),
             torch.cuda.current_stream(x.device).cuda_stream)
-    fused_linear_act.launches += launched[0] + launched[1]
-    fused_linear_act.tc_launches += launched[0]
     if rc != 0:
         raise RuntimeError(f"fused_linear_act kernel launch failed: CUDA error {rc}")
     return y
-
-
-fused_linear_act.launches = 0
-fused_linear_act.tc_launches = 0
 
 
 def fused_bwd_update(
@@ -419,24 +391,17 @@ def fused_bwd_update(
     im = _mask_args("in_mask", in_mask, in_scale, (B, K), dev)
     dedy = torch.empty((B, K), dtype=torch.float32, device=dev)
     copy = _dedx_copy(dedx, bf16)
-    launched = (ctypes.c_int * 3)()  # stripe_bwd_kernel: tensor-core, float32 form; the cast
     with torch.cuda.device(dev):
         rc = _lib().fused_bwd_update_f32(
             dedx.data_ptr(), None if copy is None else copy.data_ptr(), y_prev.data_ptr(),
             w.data_ptr(), int(w_bf16), delta.data_ptr(),
             int(d_bf16), int(sr_seed or 0) & 0xFFFFFFFF, b.data_ptr(),
             delta_b.data_ptr(), dedy.data_ptr(), B, K, N, float(momentum), c * float(inv_n), c * float(weightcost), *im[:5],
-            ACTS[deriv] if deriv else 0, int(bf16), launched,
+            ACTS[deriv] if deriv else 0, int(bf16),
             torch.cuda.current_stream(dev).cuda_stream)
-    _count(fused_bwd_update, launched)
     if rc != 0:
         raise RuntimeError(f"fused_bwd_update kernel launch failed: CUDA error {rc}")
     return w, delta, dedy, b, delta_b
-
-
-fused_bwd_update.launches = 0
-fused_bwd_update.tc_launches = 0
-fused_bwd_update.dedx_casts = 0
 
 
 def fused_bwd_grad_out(
@@ -498,25 +463,16 @@ def fused_bwd_grad_out(
     else:
         dedy = None
     copy = _dedx_copy(dedx, bf16)
-    launched = (ctypes.c_int * 3)()  # stripe_bwd_kernel: tensor-core, float32 form; the cast
     with torch.cuda.device(dev):
         rc = _lib().fused_bwd_grad_out_f32(
             dedx.data_ptr(), None if copy is None else copy.data_ptr(), y_prev.data_ptr(),
             w.data_ptr(), grad.data_ptr(),
             None if dedy is None else dedy.data_ptr(),
-            B, K, N, *im[:5], int(mask_row0), ACTS[deriv] if deriv else 0, int(bf16), launched,
+            B, K, N, *im[:5], int(mask_row0), ACTS[deriv] if deriv else 0, int(bf16),
             torch.cuda.current_stream(dev).cuda_stream)
-    _count(fused_bwd_grad_out, launched)
-    fused_bwd_grad_out.philox_launches += launched[0] + launched[1] if im[0] == 2 else 0
     if rc != 0:
         raise RuntimeError(f"fused_bwd_grad_out kernel launch failed: CUDA error {rc}")
     return grad, dedy
-
-
-fused_bwd_grad_out.launches = 0
-fused_bwd_grad_out.tc_launches = 0
-fused_bwd_grad_out.dedx_casts = 0
-fused_bwd_grad_out.philox_launches = 0
 
 
 def dp_update(w: torch.Tensor, delta: torch.Tensor, b: torch.Tensor, delta_b: torch.Tensor,
@@ -557,10 +513,4 @@ def dp_update(w: torch.Tensor, delta: torch.Tensor, b: torch.Tensor, delta_b: to
             int(sr_seed or 0) & 0xFFFFFFFF, flags, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dp_update kernel launch failed: CUDA error {rc}")
-    dp_update.launches += 1
-    dp_update.sr_launches += 1 if d_bf16 else 0
     return w, delta, b, delta_b
-
-
-dp_update.launches = 0
-dp_update.sr_launches = 0

@@ -12,11 +12,8 @@ launches on CUDA tensors and runs the plain version, `lstm_steps_reference`
 (the step loop in Python, the cell update `lstm_cell_reference` one torch
 operation at a time in the kernel's order), on CPU tensors.  At T = 1 with
 h[0] = 0 the product adds exact zeros, so the kernel's cell sees the gates
-as given: that is how it is held against `lstm_cell_reference`.
-`lstm_steps.launches` counts the kernel's launches (one a layer wherever a
-layer's rows fit one launch), `lstm_steps.resident_layers` and
-`.streamed_layers` the layers run with W_hh held in registers or streamed
-each step.  The library is its own and is built on first use.
+as given: that is how it is held against `lstm_cell_reference`.  The
+library is its own and is built on first use.
 """
 
 from __future__ import annotations
@@ -95,15 +92,18 @@ def lstm_cell_reference(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor) -
     h.copy_(o * torch.tanh(c))
 
 
+def _c_api() -> dict:
+    """csrc/lstm_cell.cu's entry points: name -> (argtypes, restype)."""
+    p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    return {
+        "lstm_steps_f32": ([p] * 4 + [ctypes.POINTER(ctypes.c_uint)] + [i] * 12 + [p], i),
+        "lstm_card_limits": ([ip, ip], i),
+    }
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("lstm_cell")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_steps_f32.argtypes = [p] * 5 + [i] * 12 + [p]
-    lib.lstm_steps_f32.restype = ctypes.c_int
-    lib.lstm_card_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.lstm_card_limits.restype = ctypes.c_int
-    return lib
+    return _build.load("lstm_cell", _c_api())
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,14 +133,13 @@ def _launch(plan: LstmPlan, proj, w_hh, hs, c) -> None:
     stream = torch.cuda.current_stream(proj.device).cuda_stream
     for i in range(plan.launches):
         row0 = i * plan.rows
-        rc = _lib().lstm_steps_f32(proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-                                   c.data_ptr(), flags[i].data_ptr(), T, B, row0,
-                                   min(plan.rows, B - row0), plan.h, plan.units,
-                                   plan.col_groups, plan.k_passes, plan.col_passes, plan.ring,
-                                   plan.grid, plan.smem, stream)
+        rc = _lib().lstm_steps_f32(
+            proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), c.data_ptr(),
+            ctypes.cast(flags[i].data_ptr(), ctypes.POINTER(ctypes.c_uint)), T, B, row0,
+            min(plan.rows, B - row0), plan.h, plan.units, plan.col_groups, plan.k_passes,
+            plan.col_passes, plan.ring, plan.grid, plan.smem, stream)
         if rc != 0:
             raise RuntimeError(f"lstm_steps failed: CUDA error {rc}")
-        lstm_steps.launches += 1
 
 
 def run_plan(plan: LstmPlan, proj: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
@@ -197,10 +196,3 @@ def lstm_steps(proj: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
     plan = lstm_plan(B, H, *card_limits(dev.index if dev.index is not None
                                         else torch.cuda.current_device()))
     run_plan(plan, proj, w_hh, hs, c)
-    if plan.resident:
-        lstm_steps.resident_layers += 1
-    else:
-        lstm_steps.streamed_layers += 1
-
-
-lstm_steps.launches = lstm_steps.resident_layers = lstm_steps.streamed_layers = 0

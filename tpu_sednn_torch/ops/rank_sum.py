@@ -19,7 +19,7 @@ with this module:
   while a slower rank still reads the last one; `fence` waits for every
   rank's sums (before a rank may exit or free its buffer).
 
-`rank_sum.launches` counts kernel launches.  Nothing is built at import.
+Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -60,23 +60,23 @@ def rank_sum_reference(srcs: Sequence[torch.Tensor], out: torch.Tensor) -> torch
     return out.copy_(acc)
 
 
+def _c_api() -> dict:
+    """csrc/rank_sum.cu's entry points: name -> (argtypes, restype)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pp, cp = ctypes.POINTER(p), ctypes.c_char_p
+    return {
+        "rank_sum_f32": ([pp, i, p, ll, p], i),
+        "rank_sum_handle_bytes": ([], i),
+        "rank_sum_export": ([ll, pp, cp], i),
+        "rank_sum_open": ([cp, pp], i),
+        "rank_sum_close": ([p], i),
+        "rank_sum_free": ([p], i),
+    }
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("rank_sum")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rank_sum_f32.argtypes = [ctypes.POINTER(p), i, p, ll, p]
-    lib.rank_sum_f32.restype = i
-    lib.rank_sum_handle_bytes.argtypes = []
-    lib.rank_sum_handle_bytes.restype = i
-    lib.rank_sum_export.argtypes = [ll, ctypes.POINTER(p), ctypes.c_char_p]
-    lib.rank_sum_export.restype = i
-    lib.rank_sum_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(p)]
-    lib.rank_sum_open.restype = i
-    lib.rank_sum_close.argtypes = [p]
-    lib.rank_sum_close.restype = i
-    lib.rank_sum_free.argtypes = [p]
-    lib.rank_sum_free.restype = i
-    return lib
+    return _build.load("rank_sum", _c_api())
 
 
 def rank_sum(srcs: Sequence[torch.Tensor], out: torch.Tensor) -> torch.Tensor:
@@ -95,11 +95,7 @@ def rank_sum(srcs: Sequence[torch.Tensor], out: torch.Tensor) -> torch.Tensor:
                                  torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rank_sum kernel launch failed: CUDA error {rc}")
-    rank_sum.launches += 1
     return out
-
-
-rank_sum.launches = 0
 
 
 class _Raw:

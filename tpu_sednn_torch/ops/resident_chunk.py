@@ -45,9 +45,7 @@ with the rank_sum kernel (ops/rank_sum.py) where the ranks share one.
 Plain versions, beside the wrappers: `resident_train_chunk_reference` and
 `sample_resident_masks_reference` (bit-equal Philox, so a chunk trained WITH
 dropout, or with stochastic rounding, is comparable between kernel and plain
-version).  `make_resident_train_chunk.launches` counts calls of the C entry
-point, `kernel_launches` the kernel launches it enqueued, by kernel and form;
-`make_dp_resident_train_chunk.launches` the data-parallel runs on a card.
+version).
 """
 
 from __future__ import annotations
@@ -75,34 +73,6 @@ _BUNCH_STRIDE = 7919
 _LAYER_STRIDE = 104729
 
 _mask_threshold = mask_threshold
-
-# kernel launches enqueued by the chunk trainer's C entry point, by kernel:
-# the forward and backward product kernels (either form, one launch a layer),
-# then the count of the product launches that drew dropout bits by Philox in
-# the kernel; then by form: backward launches that stored bfloat16 with
-# stochastic rounding, backward launches of row-tiled bunches, forward
-# launches that read bfloat16 weights;
-# the forward and backward launches of the tensor-core forms (tc_fwd_kernel,
-# stripe_bwd_kernel's tensor-core form), counted in the first two as well; and
-# the programmatic dependent launches (every launch of a call but its first,
-# in either product form: 2 L n_real accum - 1 a call; early_read_plan); the
-# launches of the kernel that draws a call's input masks into their bit table
-# ("input_mask_table", input_mask_bits_kernel: one a call with dropout on the
-# input); and the layer-0 product launches that drew the input's mask by
-# Philox in the kernel ("input_mask_philox": 0 on both trainers, which read
-# the table).  The data-parallel trainer's loop tallies into the same keys:
-# its forward entry (dp_chunk_forward) the forward keys (it launches nothing
-# as a dependent launch), its draw of a call's table "input_mask_table", and
-# the layer-0 gradient-out backwards that drew a (key, omit) mask by Philox
-# (fused_bwd_grad_out.philox_launches) "input_mask_philox"; its backward and
-# update launches are counted by their wrappers (fused_bwd_grad_out,
-# dp_update in ops/fused_mlp.py).  The keys are in the order of
-# csrc/resident_chunk.cu's enum Tally, the indices the C code writes.
-kernel_launches: Dict[str, int] = {"fused_linear_act": 0, "fused_bwd_update": 0,
-                                   "philox_mask": 0, "sr_bwd_update": 0,
-                                   "tiled_bwd_update": 0, "bf16_linear_act": 0,
-                                   "tc_linear_act": 0, "tc_bwd_update": 0, "pdl": 0,
-                                   "input_mask_table": 0, "input_mask_philox": 0}
 
 # early_read_plan's bits (csrc/pdl.cuh): the operand groups a launch of the
 # chain may read before its griddepcontrol.wait
@@ -362,16 +332,16 @@ def _c_api() -> Dict[str, tuple]:
     """csrc/resident_chunk.cu's entry points: name -> (argtypes, restype)."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     ip, pp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-    llp, ll = ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong
+    ll = ctypes.c_longlong
     return {
         "resident_workspace_floats": ([ip, i, i], ll),
         "resident_mask_words": ([i, i, i], ll),
-        # ..., work, mask_bits, ..., bf16, plan (early_read_plan), tallies, stream
+        # ..., work, mask_bits, ..., bf16, plan (early_read_plan), stream
         "resident_chunk_train": ([p, p, i, i, i, ip, i, pp, i, pp, i, pp, pp, p, p, i, i, u, u, f,
-                                  f, u, f, f, f, i, ip, llp, p], i),
+                                  f, u, f, f, f, i, ip, p], i),
         # ..., scale_vis, scale_hid, mask_bits (the tile's rows of the rank's table), key0, ...
         "dp_chunk_forward": ([p, p, i, i, ip, i, pp, pp, pp, p, i, i, u, u, f, f, p, u, i, f, i,
-                              llp, p], i),
+                              p], i),
         "philox_mask_f32": ([p, i, i, i, u, u, f, p], i),
         "input_mask_bits_u32": ([p, i, i, i, i, u, u, p], i),
         "philox_words_u32": ([p, p, i, p], i),
@@ -380,11 +350,7 @@ def _c_api() -> Dict[str, tuple]:
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("resident_chunk")
-    for name, (argtypes, restype) in _c_api().items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = restype
-    return lib
+    return _build.load("resident_chunk", _c_api())
 
 
 def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
@@ -524,7 +490,6 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
         # no span encloses the launches: see utils/profiling.py
         ptrs = [(ctypes.c_void_p * L)(*[a.data_ptr() for a in group]) for group in tensors]
         plan = (ctypes.c_int * (4 * L))(*early_read_plan(L, accum))
-        tallies = (ctypes.c_longlong * len(kernel_launches))()
         with torch.cuda.device(dev):
             rc = lib.resident_chunk_train(
                 in_chunk.data_ptr(), targ_chunk.data_ptr(), nr, tile, accum, c_sizes, L,
@@ -533,20 +498,14 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
                 ACTS[cfg.hidden], ACTS[cfg.output],
                 mask_threshold(omit_vis) if omit_vis > 0.0 else 0,
                 mask_threshold(omit_hid) if omit_hid > 0.0 else 0,
-                scale_vis, scale_hid, int(seed) & 0xFFFFFFFF, *coefs, int(bf16), plan, tallies,
+                scale_vis, scale_hid, int(seed) & 0xFFFFFFFF, *coefs, int(bf16), plan,
                 torch.cuda.current_stream(dev).cuda_stream)
-        for name, n in zip(kernel_launches, tallies):
-            kernel_launches[name] += int(n)
         if rc != 0:
             raise RuntimeError(f"chunk trainer launch failed: CUDA error {rc}")
-        make_resident_train_chunk.launches += 1
         state.step += nr
         return state
 
     return run
-
-
-make_resident_train_chunk.launches = 0
 
 
 def _all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -590,7 +549,7 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
                     device: torch.device):
     """The data-parallel trainer's forward of one tile on the card
     (csrc/resident_chunk.cu:dp_chunk_forward); -> fwd(x, t, ws, bs, key0,
-    row0, coef, tallies, in_bits=None).
+    row0, coef, in_bits=None).
 
     fwd runs this rank's `tile` rows x, t of a global tile of `tile_g` rows
     through the net (float32 weights ws, biases bs) with the input's mask
@@ -601,8 +560,7 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
     tile; -> (ys, dedx): each
     layer's masked activation (the last: the net's output) and dedx =
     coef * (out - t) [* out(1-out) for a sigmoid head], flat, in buffers
-    that the next call overwrites.  The launches are added to `tallies`, a
-    ctypes array laid out as kernel_launches."""
+    that the next call overwrites."""
     sizes = tuple(int(s) for s in cfg.layersizes)
     L = len(sizes) - 1
     lib = _lib()
@@ -616,7 +574,7 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
     thr_vis = mask_threshold(omits[0]) if omits[0] > 0.0 else 0
     thr_hid = mask_threshold(omit_hid) if omit_hid > 0.0 else 0
 
-    def fwd(x, t, ws, bs, key0: int, row0: int, coef: float, tallies,
+    def fwd(x, t, ws, bs, key0: int, row0: int, coef: float,
             in_bits: Optional[torch.Tensor] = None):
         if tuple(x.shape) != (tile, sizes[0]) or tuple(t.shape) != (tile, sizes[-1]):
             raise ValueError(f"a tile's rows: x {tuple(x.shape)}, t {tuple(t.shape)}; expected "
@@ -632,7 +590,7 @@ def dp_tile_forward(cfg: ModelConfig, tile: int, tile_g: int, bf16: bool,
                 x.data_ptr(), t.data_ptr(), tile, tile_g, c_sizes, L, w_ptrs, b_ptrs, y_ptrs,
                 dedx.data_ptr(), ACTS[cfg.hidden], ACTS[cfg.output], thr_vis,
                 thr_hid, scales[0], scale_hid, None if in_bits is None else in_bits.data_ptr(),
-                int(key0) & 0xFFFFFFFF, int(row0), float(coef), int(bf16), tallies,
+                int(key0) & 0xFFFFFFFF, int(row0), float(coef), int(bf16),
                 torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"data-parallel forward launch failed: CUDA error {rc}")
@@ -734,41 +692,31 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
         grad = torch.empty(max(sizes[l] * sizes[l + 1] + sizes[l + 1] for l in range(L)), **f32)
         ws, ds, bs, dbs = (list(state.params.w), list(state.deltas.w), list(state.params.b),
                            list(state.deltas.b))
-        tallies = (ctypes.c_longlong * len(kernel_launches))()
-        table_key, philox_key = (list(kernel_launches).index(k) for k in
-                                 ("input_mask_table", "input_mask_philox"))
-        try:
-            # this rank's rows of the call's input masks, drawn once by an ordinary launch
-            # before the first forward (none without input dropout or without a bunch)
-            bits = (input_mask_bits(seed, nr * accum, tile, sizes[0], omit_vis, row0=row0,
-                                    device=dev) if omit_vis > 0.0 and nr > 0 else None)
-            tallies[table_key] += bits is not None
-            for i in range(nr):
-                for j in range(accum):
-                    gi = i * accum + j
-                    xi, ti = x[gi * tile:(gi + 1) * tile], t[gi * tile:(gi + 1) * tile]
-                    key0 = mask_key(seed, gi, 0)
-                    in_bits = None if bits is None else bits[gi]
-                    ys, dedx = forward(xi, ti, ws, bs, key0, row0, coef, tallies, in_bits)
-                    other = spare
-                    for l in range(L - 1, -1, -1):
-                        K, N = sizes[l], sizes[l + 1]
-                        g = grad[:K * N + N]
-                        drew = fused_bwd_grad_out.philox_launches
-                        fused_bwd_grad_out(
-                            dedx[:tile * N].view(tile, N), xi if l == 0 else ys[l - 1], ws[l],
-                            in_mask=in_bits if l == 0 else None, in_scale=scale_vis,
-                            deriv=cfg.hidden if l > 0 else None, with_dedy=l > 0, bf16=bf16,
-                            grad=g, dedy=other[:tile * K].view(tile, K) if l > 0 else None)
-                        tallies[philox_key] += fused_bwd_grad_out.philox_launches - drew
-                        _all_reduce(g, mesh)
-                        dp_update(ws[l], ds[l], bs[l], dbs[l], g, *coefs,
-                                  sr_seed=sr_key(seed, i, l) if sr_delta else None,
-                                  first=j == 0, apply=j == accum - 1)
-                        dedx, other = other, dedx
-        finally:
-            for name, n in zip(kernel_launches, tallies):
-                kernel_launches[name] += int(n)
+        # this rank's rows of the call's input masks, drawn once by an ordinary launch
+        # before the first forward (none without input dropout or without a bunch)
+        bits = (input_mask_bits(seed, nr * accum, tile, sizes[0], omit_vis, row0=row0,
+                                device=dev) if omit_vis > 0.0 and nr > 0 else None)
+        for i in range(nr):
+            for j in range(accum):
+                gi = i * accum + j
+                xi, ti = x[gi * tile:(gi + 1) * tile], t[gi * tile:(gi + 1) * tile]
+                key0 = mask_key(seed, gi, 0)
+                in_bits = None if bits is None else bits[gi]
+                ys, dedx = forward(xi, ti, ws, bs, key0, row0, coef, in_bits)
+                other = spare
+                for l in range(L - 1, -1, -1):
+                    K, N = sizes[l], sizes[l + 1]
+                    g = grad[:K * N + N]
+                    fused_bwd_grad_out(
+                        dedx[:tile * N].view(tile, N), xi if l == 0 else ys[l - 1], ws[l],
+                        in_mask=in_bits if l == 0 else None, in_scale=scale_vis,
+                        deriv=cfg.hidden if l > 0 else None, with_dedy=l > 0, bf16=bf16,
+                        grad=g, dedy=other[:tile * K].view(tile, K) if l > 0 else None)
+                    _all_reduce(g, mesh)
+                    dp_update(ws[l], ds[l], bs[l], dbs[l], g, *coefs,
+                              sr_seed=sr_key(seed, i, l) if sr_delta else None,
+                              first=j == 0, apply=j == accum - 1)
+                    dedx, other = other, dedx
 
     def run(state: TrainState, in_chunk: torch.Tensor, targ_chunk: torch.Tensor, seed,
             lrate=opt.lrate, momentum=opt.momentum, weightcost=opt.weightcost,
@@ -806,14 +754,10 @@ def make_dp_resident_train_chunk(cfg: ModelConfig, opt: OptConfig, mesh: Mesh,
                 raise ValueError(f"{name}: float32 on {dev} expected; got {a.dtype} on {a.device}")
         run_kernels(state, x.contiguous(), t.contiguous(), nr, int(seed) & 0xFFFFFFFF, coefs)
         fence(mesh)
-        make_dp_resident_train_chunk.launches += 1
         state.step += nr
         return state
 
     return run
-
-
-make_dp_resident_train_chunk.launches = 0
 
 
 def _slice_rows(shape, device_idx: int, n_dev: int) -> Tuple[int, int, int, int]:
@@ -861,11 +805,7 @@ def sample_resident_masks(seed: int, bunch_idx: int, layer_idx: int,
                                     1.0, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"philox mask kernel launch failed: CUDA error {rc}")
-    sample_resident_masks.launches += 1
     return out
-
-
-sample_resident_masks.launches = 0
 
 
 def _check_table_shape(n_tiles: int, tile: int, width: int, row0: int) -> None:
@@ -917,11 +857,7 @@ def input_mask_bits(seed: int, n_tiles: int, tile: int, width: int, omit: float,
                                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"input mask bits kernel launch failed: CUDA error {rc}")
-    input_mask_bits.launches += 1
     return out
-
-
-input_mask_bits.launches = 0
 
 
 def philox_words_on_device(counters_and_keys: torch.Tensor) -> torch.Tensor:

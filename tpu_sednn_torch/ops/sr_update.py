@@ -16,9 +16,8 @@ The JAX package rounds to nearest off the TPU; there the two differ by at
 most one bfloat16 ulp.
 
 On a CUDA tensor `sr_momentum_update` launches the kernel or raises; on a
-CPU tensor it runs the plain version.  `sr_momentum_update.launches` counts
-kernel launches.  Clean-mode only, as in the JAX package: parity mode stays
-float32.
+CPU tensor it runs the plain version.  Clean-mode only, as in the JAX
+package: parity mode stays float32.
 """
 
 from __future__ import annotations
@@ -67,15 +66,18 @@ def sr_momentum_update_reference(w, delta, g, seed: int, momentum: float, lrate:
             sr_to_bf16_reference(nd, bits_d).reshape(shape))
 
 
+def _c_api() -> dict:
+    """csrc/sr_update.cu's entry points: name -> (argtypes, restype)."""
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    return {
+        "sr_momentum_update_bf16": ([p, p, p, i, p, p, i, i, u, f, f, f, p], i),
+        "sr_round_bf16": ([p, ctypes.POINTER(i), p, i, i, u, i, p], i),
+    }
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("sr_update")
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.sr_momentum_update_bf16.argtypes = [p, p, p, i, p, p, i, i, u, f, f, f, p]
-    lib.sr_momentum_update_bf16.restype = ctypes.c_int
-    lib.sr_round_bf16.argtypes = [p, p, p, i, i, u, i, p]
-    lib.sr_round_bf16.restype = ctypes.c_int
-    return lib
+    return _build.load("sr_update", _c_api())
 
 
 def sr_momentum_update(
@@ -115,11 +117,7 @@ def sr_momentum_update(
             float(lrate), float(weightcost), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sr_momentum_update kernel launch failed: CUDA error {rc}")
-    sr_momentum_update.launches += 1
     return w_out, d_out
-
-
-sr_momentum_update.launches = 0
 
 
 def sr_round_on_device(val: torch.Tensor, bits: Optional[torch.Tensor] = None, key: int = 0,
@@ -140,7 +138,8 @@ def sr_round_on_device(val: torch.Tensor, bits: Optional[torch.Tensor] = None, k
         b32 = (bits.to(torch.int64) & 0xFFFF).to(torch.int32).contiguous()
     out = torch.empty(val.shape, dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().sr_round_bf16(val.data_ptr(), None if b32 is None else b32.data_ptr(),
+        rc = _lib().sr_round_bf16(val.data_ptr(), None if b32 is None else
+                                  ctypes.cast(b32.data_ptr(), ctypes.POINTER(ctypes.c_int)),
                                   out.data_ptr(), val.shape[0], val.shape[1],
                                   int(key) & 0xFFFFFFFF, int(shift),
                                   torch.cuda.current_stream(dev).cuda_stream)

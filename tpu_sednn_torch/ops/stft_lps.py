@@ -10,8 +10,6 @@ steps: each lane's radix-2 FFT, twiddles, 32-point FFTs across the warp by
 shuffles, the real split step) fused with the window, the power and the log
 (its source says how it is laid out); `fft_tables` builds the float32 window
 and twiddle tables it reads.
-
-`stft_lps.launches` counts kernel launches; nothing else changes it.
 """
 
 from __future__ import annotations
@@ -82,16 +80,15 @@ def _fft_tables_on(cfg: StftConfig, device: torch.device) -> tuple[torch.Tensor,
     return tuple(torch.from_numpy(a).to(device) for a in fft_tables(cfg))
 
 
+def _c_api() -> dict:
+    """csrc/stft_lps.cu's entry point: name -> (argtypes, restype)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return {"stft_lps_f32": ([p] * 4 + [ll, ll] + [i] * 5 + [p], i)}
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("stft_lps")
-    lib.stft_lps_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.stft_lps_f32.restype = ctypes.c_int
-    return lib
+    return _build.load("stft_lps", _c_api())
 
 
 def stft_lps(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
@@ -118,8 +115,4 @@ def stft_lps(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"stft_lps kernel launch failed: CUDA error {rc}")
-    stft_lps.launches += 1
     return out if x.dim() == 2 else out[0]
-
-
-stft_lps.launches = 0

@@ -30,9 +30,6 @@ package; features, training and decode run on `device`.  On a CUDA device
 (ops/resident_chunk.py: tensor-core products, in-kernel Philox dropout).
 Every random draw of the run sits in one small function of this module
 (`_init_params`, `_epoch_permutation`, `_chunk_rng`), seeded from mc.seed.
-If the environment variable TPU_SEDNN_TORCH_LAUNCH_REPORT names a file, the
-command writes the port's kernel launch counters there as JSON when it ends
-(rank 0's, `ops.launch_counts()`).
 """
 
 from __future__ import annotations
@@ -636,10 +633,6 @@ def main(argv=None) -> int:
     run_multi_condition(mc, Logger(metrics_path=args.metrics, is_host0=rank0))
     if dist.is_initialized():
         dist.destroy_process_group()
-    if rank0:
-        from tpu_sednn_torch.ops import write_launch_report
-
-        write_launch_report()
     return 0
 
 

@@ -188,13 +188,11 @@ def reference_train_chunk(
     dropout_masks[i][l]: optional explicit mask of bunch i, layer l.  Else,
     with dropout and a generator, the masks are drawn MASK_GROUP bunches at
     a time (`grouped_masks`): the masks of a draw bunch by bunch.
-    `reference_train_chunk.calls` counts calls that trained at least a bunch.
     """
     bs = opt.bunchsize
     n_bunches = in_chunk.shape[0] // bs
     if n_bunches == 0:  # chunk smaller than one bunch: all samples dropped
         return state
-    reference_train_chunk.calls += 1
     if dropout_masks is None:
         dropout_masks = grouped_masks(generator, cfg, state, bs, n_bunches, in_chunk.device)
     masks = iter(dropout_masks) if dropout_masks is not None else None
@@ -204,8 +202,6 @@ def reference_train_chunk(
                              inplace=True, dtype=dtype)
     return state
 
-
-reference_train_chunk.calls = 0
 
 # Bunches whose dropout masks one draw covers: with tpu_prng at
 # 3084-2048x3-257, 8 bunches are 32 masks (one launch of at most 64) and
