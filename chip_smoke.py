@@ -1181,17 +1181,27 @@ PORT_KERNELS = ("bf16_copy_kernel", "dropout_mask_kernel", "f32_fwd_kernel",
                 "stft_lps_kernel", "stripe_bwd_kernel", "tc_fwd_kernel", "update_kernel")
 
 
+# Forms of a kernel of the port that a trace counts apart, by a template
+# argument: form -> (kernel, what its name holds after the kernel's).  The
+# tensor-core forward that reads its input's bfloat16 copy
+# (tc_fwd_kernel<TW, BN, unsigned short>: the chunk trainer's layers above
+# the first); tc_fwd_kernel then counts the form that rounds float32 x alone.
+KERNEL_FORMS = {"tc_fwd_kernel_xbf16": ("tc_fwd_kernel", r"<[^()]*, unsigned short>\(")}
+
+
 def _port(**launches) -> dict:
-    """{kernel: launches} over every kernel of the port: those given, the
-    others 0."""
-    _check(set(launches) <= set(PORT_KERNELS), f"not kernels of the port: {sorted(launches)}")
-    return dict(dict.fromkeys(PORT_KERNELS, 0), **launches)
+    """{kernel or form: launches} over every kernel of the port and every
+    form of KERNEL_FORMS: those given, the others 0."""
+    names = PORT_KERNELS + tuple(KERNEL_FORMS)
+    _check(set(launches) <= set(names), f"not kernels of the port: {sorted(launches)}")
+    return dict(dict.fromkeys(names, 0), **launches)
 
 
 def _trace_counts(prof) -> dict:
     """{kernel name: launches} of a torch.profiler trace, a kernel named
     without its namespace and template arguments ("void
-    sednn::stripe_bwd_kernel<true, ...>(...)" -> "stripe_bwd_kernel")."""
+    sednn::stripe_bwd_kernel<true, ...>(...)" -> "stripe_bwd_kernel"), a
+    form of KERNEL_FORMS by the form's name."""
     import re
 
     from torch.autograd import DeviceType
@@ -1201,8 +1211,21 @@ def _trace_counts(prof) -> dict:
         if e.device_type == DeviceType.CUDA:
             m = re.search(r"(\w+)[<(]", e.key)
             name = m.group(1) if m else e.key
+            name = next((form for form, (kernel, args) in KERNEL_FORMS.items()
+                         if kernel == name and re.search(re.escape(kernel) + args, e.key)), name)
             out[name] = out.get(name, 0) + e.count
     return out
+
+
+def _chain_forwards(fwd: str, n_layers: int, n_tiles: int) -> dict:
+    """{kernel or form: launches} of the chunk trainer's forwards over n_tiles
+    row tiles of an n_layers-layer net: f32_fwd_kernel n_layers a tile; with
+    tensor cores (fwd "tc_fwd_kernel") one tc_fwd_kernel a tile, layer 0's,
+    which rounds its float32 input, and n_layers - 1 of the form that reads
+    its input's bfloat16 copy, written by the layer below."""
+    if fwd == "f32_fwd_kernel":
+        return {fwd: n_layers * n_tiles}
+    return {"tc_fwd_kernel": n_tiles, "tc_fwd_kernel_xbf16": (n_layers - 1) * n_tiles}
 
 
 def _trace_pad() -> None:
@@ -1469,6 +1492,69 @@ BWD_DIGEST_GRAD_OUT = ((64, 2048, 2048), (64, 1548, 2048))
 BWD_DIGEST_REL_FRO = 1e-5
 
 
+# The widths and rows at which the tensor-core forward that reads its input's
+# bfloat16 copy is held against the form that rounds float32 x (_fwd_copy_case)
+FWD_COPY_WIDTHS, FWD_COPY_ROWS = (129, 257, 2048), (32, 64, 128)
+
+
+def _fwd_copy_outputs(N: int, M: int, w_bf16: bool, x_copy: bool) -> list:
+    """The chunk trainer's tensor-core forwards standing alone
+    (fused_tc_fwd_copies, no masks) on inputs drawn from a seed of (N, M): a
+    hidden layer 1548 -> N (ReLU) writes y1 and its copy rne(y1); a head
+    N -> N on y1 (linear, with targets) writes y2, rne(y2), dedx and
+    rne(dedx), reading y1's copy (x_copy) or rounding float32 y1; W float32
+    or bfloat16 (w_bf16).  -> [y1, rne(y1), y2, rne(y2), dedx, rne(dedx)], the
+    copies cut to their N columns."""
+    from tpu_sednn_torch.ops.fused_mlp import _lib as fused_lib
+    from tpu_sednn_torch.ops.fused_mlp import bf16_ld
+
+    gen = torch.Generator(device="cuda").manual_seed(1000 * N + M)
+    K = FLAGSHIP[0]
+    x, t = _randn(gen, M, K), _randn(gen, M, N)
+    w1, w2 = _randn(gen, K, N, scale=0.03), _randn(gen, N, N, scale=0.05)
+    if w_bf16:
+        w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    b1, b2 = _randn(gen, N, scale=0.1), _randn(gen, N, scale=0.1)
+    y1, y2, dedx = (torch.empty(M, N, device="cuda") for _ in range(3))
+    y1_bf, y2_bf, dedx_bf = (torch.zeros(M, bf16_ld(N), dtype=torch.bfloat16, device="cuda")
+                             for _ in range(3))
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    def fwd(x_in, x_bf, w, b, y, y_bf, act, targ, d, d_bf):
+        rc = fused_lib().fused_tc_fwd_copies(
+            x_in.data_ptr(), ptr(x_bf), w.data_ptr(), int(w_bf16), b.data_ptr(), y.data_ptr(),
+            ptr(y_bf), M, x_in.shape[1], N, act, ptr(targ), ptr(d), ptr(d_bf), 2.0 / M,
+            torch.cuda.current_stream().cuda_stream)
+        _check(rc == 0, f"fused_tc_fwd_copies {M}x{x_in.shape[1]}x{N}: CUDA error {rc}")
+
+    fwd(x, None, w1, b1, y1, y1_bf, 1, None, None, None)
+    fwd(y1, y1_bf if x_copy else None, w2, b2, y2, y2_bf, 0, t, dedx, dedx_bf)
+    torch.cuda.synchronize()
+    return [y1, y1_bf[:, :N], y2, y2_bf[:, :N], dedx, dedx_bf[:, :N]]
+
+
+def _fwd_copy_case(N: int, M: int, w_bf16: bool) -> None:
+    """Holds the head that reads y1's bfloat16 copy bit-equal to the one that
+    rounds float32 y1 (_fwd_copy_outputs: y2, dedx and their copies; y1 and
+    its copy too), and every copy to torch's rounding of its float32 values;
+    raises on a miss."""
+    names = ("y1", "rne(y1)", "y2", "rne(y2)", "dedx", "rne(dedx)")
+    got, want = (_fwd_copy_outputs(N, M, w_bf16, x_copy) for x_copy in (True, False))
+    label = f"{M}x{N} {'bfloat16' if w_bf16 else 'float32'} W"
+    for name, g, w in zip(names, got, want):
+        bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+        _check(torch.equal(g.view(bits), w.view(bits)),
+               f"{label}: {name} reading y1's copy differs from rounding float32 y1")
+    for i in (0, 2, 4):
+        rounded = got[i].to(torch.bfloat16).view(torch.int16)
+        _check(torch.equal(rounded, got[i + 1].view(torch.int16)),
+               f"{label}: {names[i + 1]} is not {names[i]} rounded to nearest even")
+    _check(bool(torch.isfinite(got[4]).all()) and float(got[0].abs().max()) > 0,
+           f"{label}: the outputs are not finite or all zero")
+
+
 def _bwd_digests() -> dict:
     """SHA-256 digests of the tensor-core backward's outputs on seeded inputs,
     for holding two checkouts bit for bit: fused_bwd_update (bf16=True) at
@@ -1616,6 +1702,13 @@ def phase_fused_kernels(gen) -> dict:
                 for name, i in (("dedy", 2), ("b", 3), ("delta_b", 4)):
                     _hold(got[i], want[i], f"{label}, {name}", bwd_worst)
         torch.cuda.synchronize()
+    # fused_linear_act with tensor cores rounds float32 x: its form, never the one that
+    # reads a bfloat16 copy
+    eight = _port(tc_fwd_kernel=8)
+    got, _ = _kernel_counts(lambda: [fused_linear_act(x, w, b, "relu", in_mask=(11, 0.1))
+                                     for _ in range(8)], eight)
+    _check(_reads(got, eight), f"8 tensor-core forwards {tuple(x.shape)} x {tuple(w.shape)}: {got} "
+                               f"in a trace")
     # the float32 forward: one launch a call (K split within a cluster), masks drawn in it
     eight = _port(f32_fwd_kernel=8)
     got, _ = _kernel_counts(lambda: [fused_linear_act(x, w, b, "relu", bf16=False, in_mask=(11, 0.1),
@@ -1773,6 +1866,20 @@ def phase_tc_kernels(gen) -> dict:
           f"{faults['trunc']:.3g} x (operands truncated, not rounded), at least {TC_FAULT} x "
           f"required", flush=True)
 
+    # the form that reads x's bfloat16 copy (the chunk trainer's layers above the first)
+    # against the form that rounds float32 x, standing alone: the same bits
+    n_copy = 0
+    for N in FWD_COPY_WIDTHS:
+        for M in FWD_COPY_ROWS:
+            for w_bf16 in (False, True):
+                _fwd_copy_case(N, M, w_bf16)
+                n_copy += 1
+    print(f"[kernel] tc_fwd_kernel reading its input's bfloat16 copy (tc_fwd_kernel_xbf16) gives "
+          f"the bits of the form that rounds float32 x: y, rne(y), dedx and rne(dedx) of a head "
+          f"on a ReLU layer, {n_copy} cases (widths {FWD_COPY_WIDTHS}, rows {FWD_COPY_ROWS}, "
+          f"float32 and bfloat16 W); each copy is its float32 values rounded to nearest even",
+          flush=True)
+
     # how the backward lays a layer out on this card, in either product form (bwd_split)
     plans = {}
     rank_rows = [(M, K, N) for M in (64, 32) for _, K, N in layers[:4]]
@@ -1791,22 +1898,25 @@ def phase_tc_kernels(gen) -> dict:
     # whether a block of the chunk trainer's next launch can start beside one of the
     # launch before it (programmatic dependent launches): by shared memory (each block
     # also reserves 1 KB)
-    smem = (ctypes.c_int * 9)()
+    smem = (ctypes.c_int * 11)()
     fused_lib().fused_tc_smem_bytes(smem)
     per_sm = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_multiprocessor", 0)
     pairs = {f"{a} + {b}": smem[i] + smem[j] + 2048 <= per_sm
              for a, b, i, j in (("fwd", "fwd", 1, 1), ("fwd", "bwd", 1, 4), ("bwd", "bwd", 4, 4))}
     print(f"[kernel] dynamic shared memory a block: tc_fwd_kernel {smem[0]} / {smem[1]} bytes (128- "
-          f"/ 64-column slices), stripe_bwd_kernel {smem[2]} / {smem[3]} / {smem[4]} bytes with "
-          f"tensor cores, {smem[5]} / {smem[6]} / {smem[7]} with float32 products (stripes of 64 / "
-          f"32 / 16 rows), f32_fwd_kernel {smem[8]}; an SM holds {per_sm}: the smallest of each "
-          f"pair fit one SM together: {pairs}", flush=True)
+          f"/ 64-column slices, either form of x; the layout of the form that reads x's "
+          f"bfloat16 copy takes {smem[9]} / {smem[10]}), "
+          f"stripe_bwd_kernel {smem[2]} / {smem[3]} / {smem[4]} bytes with tensor cores, "
+          f"{smem[5]} / {smem[6]} / {smem[7]} with float32 products (stripes of 64 / 32 / 16 "
+          f"rows), f32_fwd_kernel {smem[8]}; an SM holds {per_sm}: the smallest of each pair fit "
+          f"one SM together: {pairs}", flush=True)
 
     fwd, bwd = _time_layers(gen, True, worst, worst)
     bwd["plans"] = plans
     bwd["smem_bytes"] = dict(fwd_128=smem[0], fwd_64=smem[1], bwd_64=smem[2], bwd_32=smem[3],
                              bwd_16=smem[4], f32_bwd_64=smem[5], f32_bwd_32=smem[6],
-                             f32_bwd_16=smem[7], f32_fwd=smem[8], per_sm=per_sm,
+                             f32_bwd_16=smem[7], f32_fwd=smem[8], fwd_xbf16_128=smem[9],
+                             fwd_xbf16_64=smem[10], per_sm=per_sm,
                              fit_together=pairs)
     torch.cuda.empty_cache()
     # a generator of its own: the later phases draw the inputs they always drew
@@ -2320,20 +2430,24 @@ def phase_resident(gen) -> dict:
         print(f"[kernel] chunk trainer, {label}: its chain of programmatic dependent launches "
               f"gives the same bits as the standalone wrappers launched one by one ({steps}; "
               f"explicit masks) over {n_b} bunches", flush=True)
-    # the chain writes dedx's bfloat16 copies in its own launches: a traced call holds a
-    # forward of its form and a backward a layer a bunch, one draw of the input masks, and
-    # no cast of dedx (nor any other kernel of the port)
+    # the chain writes dedx's and the hidden layers' bfloat16 copies in its own launches: a
+    # traced call holds a forward of its form and a backward a layer a bunch (the
+    # tensor-core forwards above layer 0 of the form that reads the copy), one draw of the
+    # input masks, and no cast of dedx (nor any other kernel of the port)
     L = len(FLAGSHIP) - 1
     for bf16, fwd in ((True, "tc_fwd_kernel"), (False, "f32_fwd_kernel")):
         run_d = rc.make_resident_train_chunk(cfg_d, opt, bf16=bf16)
-        want = _port(**{fwd: L * n_b}, stripe_bwd_kernel=L * n_b, input_mask_bits_kernel=1)
+        want = _port(**_chain_forwards(fwd, L, n_b), stripe_bwd_kernel=L * n_b,
+                     input_mask_bits_kernel=1)
         got, _ = _kernel_counts(lambda: run_d(init_train_state(mlp), x[:n_b * BUNCH],
                                               t_lin[:n_b * BUNCH], 17, *hyp), want)
         _check(_reads(got, want), f"the {fwd} chain's traced call: {got}, want {want}")
     print(f"[kernel] chunk trainer: a traced call of {n_b} bunches runs {L * n_b} forwards of its "
-          f"form (tc_fwd_kernel, f32_fwd_kernel), {L * n_b} stripe_bwd_kernel and one "
-          f"input_mask_bits_kernel, and no bf16_copy_kernel or other kernel of the port (dedx's "
-          f"bfloat16 copies written by the chain's own launches)", flush=True)
+          f"form (f32_fwd_kernel; with tensor cores {n_b} tc_fwd_kernel and {(L - 1) * n_b} "
+          f"tc_fwd_kernel_xbf16, which reads its input's bfloat16 copy), {L * n_b} "
+          f"stripe_bwd_kernel and one input_mask_bits_kernel, and no bf16_copy_kernel or other "
+          f"kernel of the port (the bfloat16 copies written by the chain's own launches)",
+          flush=True)
     print(f"[kernel] chunk trainer, tensor cores: worst update error of any tensor "
           f"{tc_worst['rel_fro']:.3g} after 3 bunches (tol {TC_THREE_REL_FRO}), "
           f"{tc_worst['one']:.3g} after one (tol {TC_ONE_REL_FRO})", flush=True)
@@ -3233,9 +3347,11 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
 
     def chunk_kernels(n_ep, fwd, tiles=1):
         """The port's kernels of n_ep epochs on the chunk trainer: a forward of the form
-        fwd and a backward a layer a row tile, one draw of the input masks a call."""
+        fwd (_chain_forwards) and a backward a layer a row tile, one draw of the input
+        masks a call."""
         n = L * n_ep * n_bunches * tiles
-        return _port(**{fwd: n}, stripe_bwd_kernel=n, input_mask_bits_kernel=n_ep * n_calls)
+        return _port(**_chain_forwards(fwd, L, n // L), stripe_bwd_kernel=n,
+                     input_mask_bits_kernel=n_ep * n_calls)
 
     def traced(want, n_epochs, engine, engine_kwargs=None, **kw):
         """epochs(...) traced: the port's kernels it launched read `want` (_reads)."""
@@ -3332,7 +3448,8 @@ def phase_train_arrays(tmp: str, smi: str) -> dict:
           f"{L} forwards of its form and {L} stripe_bwd_kernel a bunch ({L * n_bunches} an "
           f"epoch; twice that at tile_rows 64, two row tiles a bunch) and one "
           f"input_mask_bits_kernel a call ({n_calls} an epoch), no other kernel of the port: "
-          f"tc_fwd_kernel for engine=auto sr_delta and tensor-core sr_state, f32_fwd_kernel for "
+          f"tc_fwd_kernel (layer 0) and tc_fwd_kernel_xbf16 (layers 1-{L - 1}) for engine=auto "
+          f"sr_delta and tensor-core sr_state, f32_fwd_kernel for "
           f"sr_delta, sr_state, hbm_spill=1 and tile_rows with float32 products", flush=True)
 
     # kernel 6 on its path: sr_train_step at full width, bfloat16 state
@@ -3476,10 +3593,11 @@ def _chunk_sizes(log: str) -> list:
 
 def _pfile_kernels(sizes: list, fwd: str, dropout: bool = True) -> dict:
     """The port's kernels of a pfile epoch of chunks of these sizes on the
-    chunk trainer (the 8 kHz net): a forward of the form fwd and a backward
-    a layer a bunch, and with dropout one draw of the input masks a chunk."""
-    n = (len(FLAGSHIP) - 1) * sum(c // BUNCH for c in sizes)
-    return _port(**{fwd: n}, stripe_bwd_kernel=n,
+    chunk trainer (the 8 kHz net): a forward of the form fwd (_chain_forwards)
+    and a backward a layer a bunch, and with dropout one draw of the input
+    masks a chunk."""
+    L, n_b = len(FLAGSHIP) - 1, sum(c // BUNCH for c in sizes)
+    return _port(**_chain_forwards(fwd, L, n_b), stripe_bwd_kernel=L * n_b,
                  input_mask_bits_kernel=sum(c >= BUNCH for c in sizes) if dropout else 0)
 
 
@@ -3580,7 +3698,8 @@ def phase_train(tmp: str, smi: str) -> dict:
              if l.startswith("Total cost time:")]
     print(f"[train] python -m tpu_sednn_torch.cli, 1548-2048x3-129, dropout 0.1/0.2, engine=auto "
           f"on {smi}: {n_chunks} chunks {chunk_sizes}, {n_samples} samples, {n_bunches} bunches "
-          f"per epoch, tensor-core products (tc_fwd_kernel and stripe_bwd_kernel, 4 a bunch each, "
+          f"per epoch, tensor-core products (a bunch's 4 forwards, one tc_fwd_kernel and 3 "
+          f"tc_fwd_kernel_xbf16, and 4 stripe_bwd_kernel, "
           f"and one input_mask_bits_kernel a chunk, no other kernel of the port, in each command's "
           f"trace; the float32 epochs alike with f32_fwd_kernel); CV MSE {cv1:.6f} -> {cv2:.6f}; "
           f"epoch (read, train, CV) "
@@ -4401,14 +4520,16 @@ def phase_recipe(tmp: str, smi: str) -> dict:
         return res, time.perf_counter() - t0
 
     def want(value):
-        """The tensor-core chunk trainer: tc_fwd_kernel and stripe_bwd_kernel a layer a
-        bunch, one input_mask_bits_kernel a chunk, every epoch; no other kernel of the
-        port (the recipe featurizes and decodes by matmuls)."""
+        """The tensor-core chunk trainer: a forward (_chain_forwards) and a
+        stripe_bwd_kernel a layer a bunch, one input_mask_bits_kernel a chunk, every
+        epoch; no other kernel of the port (the recipe featurizes and decodes by
+        matmuls)."""
         n = int(next(l for l in open(os.path.join(runs[-1], "log"))
                      if " train / " in l).split()[1])
-        n_b = mc.n_epochs * (n // mc.bunchsize) * (len(FLAGSHIP) - 1)
+        L, n_b = len(FLAGSHIP) - 1, mc.n_epochs * (n // mc.bunchsize)
         calls = mc.n_epochs * sum(n - s >= mc.bunchsize for s in range(0, n, mc.traincache))
-        return _port(tc_fwd_kernel=n_b, stripe_bwd_kernel=n_b, input_mask_bits_kernel=calls)
+        return _port(**_chain_forwards("tc_fwd_kernel", L, n_b), stripe_bwd_kernel=L * n_b,
+                     input_mask_bits_kernel=calls)
 
     got, want_k, (res, wall) = _until_counts(lambda: _traced(once), want, tries=3)
     _check(_reads(got, want_k), f"the recipe's trace: the port's kernels {got}, want {want_k}")
@@ -4421,7 +4542,8 @@ def phase_recipe(tmp: str, smi: str) -> dict:
           + f"; training {res['train_samples_per_sec']:.0f} samples/s (the epoch loop by the "
           f"host clock, CV included; traced, run {len(runs)}); {smi}", flush=True)
     print(f"[recipe] the trace holds the tensor-core chunk trainer's kernels (_reads) "
-          f"({want_k['tc_fwd_kernel']} tc_fwd_kernel, {want_k['stripe_bwd_kernel']} "
+          f"({want_k['tc_fwd_kernel']} tc_fwd_kernel, {want_k['tc_fwd_kernel_xbf16']} "
+          f"tc_fwd_kernel_xbf16, {want_k['stripe_bwd_kernel']} "
           f"stripe_bwd_kernel, {want_k['input_mask_bits_kernel']} input_mask_bits_kernel) and no "
           f"other kernel of the port: no f32_fwd_kernel, no stft_lps_kernel", flush=True)
 
@@ -5308,8 +5430,8 @@ def phase_recipe_dp(tmp: str, smi: str) -> dict:
     def chunk_kernels(r):
         n = r["n_train"]
         calls = mc.n_epochs * sum(n - s >= mc.bunchsize for s in range(0, n, mc.traincache))
-        return _port(tc_fwd_kernel=L * bunches(n), stripe_bwd_kernel=L * bunches(n),
-                     input_mask_bits_kernel=calls)
+        return _port(**_chain_forwards("tc_fwd_kernel", L, bunches(n)),
+                     stripe_bwd_kernel=L * bunches(n), input_mask_bits_kernel=calls)
 
     cmd1 = _recipe_command(work, "one", 1, chunk_kernels)
     cv_cmd1 = cmd1["results"]["cv_hist"]
@@ -5329,6 +5451,7 @@ def phase_recipe_dp(tmp: str, smi: str) -> dict:
           f"checkpoint ({n_bunches} bunches); rank 0's trace of the 2-rank run holds "
           f"{two['kernels']['rank_sum_kernel']} rank_sum_kernel and no other kernel of the port, "
           f"the 1-rank run's {cmd1['kernels']['tc_fwd_kernel']} tc_fwd_kernel, "
+          f"{cmd1['kernels']['tc_fwd_kernel_xbf16']} tc_fwd_kernel_xbf16, "
           f"{cmd1['kernels']['stripe_bwd_kernel']} stripe_bwd_kernel and "
           f"{cmd1['kernels']['input_mask_bits_kernel']} input_mask_bits_kernel and no other; "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)

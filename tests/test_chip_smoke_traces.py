@@ -1,8 +1,10 @@
 """chip_smoke.py's reading of the port's kernels from a torch.profiler trace,
 on the CPU: the kernel names it knows are the sources' kernels, a trace's
-names are read without namespace or template arguments, and a count is read
-again until it holds what was launched, short only by the records the tracer
-loses.  The traces themselves are taken on the card."""
+names are read without namespace or template arguments (but for the forms
+of KERNEL_FORMS: the tensor-core forward that reads its input's bfloat16
+copy), and a count is read again until it holds what was launched, short
+only by the records the tracer loses.  The traces themselves are taken on
+the card."""
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -39,6 +41,16 @@ def test_port_kernels_are_the_sources_kernels():
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float> >(int)",
      "vectorized_elementwise_kernel"),
     ("rank_sum_kernel", "rank_sum_kernel"),
+    ("void sednn::tc_fwd_kernel<float, 128, float>(CUtensorMap_st, CUtensorMap_st, float const*)",
+     "tc_fwd_kernel"),
+    ("void sednn::tc_fwd_kernel<unsigned short, 64, float>(CUtensorMap_st, CUtensorMap_st)",
+     "tc_fwd_kernel"),
+    ("void sednn::tc_fwd_kernel<float, 128, unsigned short>(CUtensorMap_st, CUtensorMap_st, "
+     "unsigned short const*, float const*)", "tc_fwd_kernel_xbf16"),
+    ("void sednn::tc_fwd_kernel<unsigned short, 64, unsigned short>(CUtensorMap_st)",
+     "tc_fwd_kernel_xbf16"),
+    ("void sednn::f32_fwd_kernel<unsigned short, true>(CUtensorMap_st, CUtensorMap_st)",
+     "f32_fwd_kernel"),
 ])
 def test_trace_counts_name_a_kernel_by_its_own_name(key, name):
     got = chip_smoke._trace_counts(_prof((key, 3, DeviceType.CUDA), (key, 2, DeviceType.CUDA),
@@ -46,12 +58,29 @@ def test_trace_counts_name_a_kernel_by_its_own_name(key, name):
     assert got == {name: 5}
 
 
+def test_kernel_forms_are_forms_of_port_kernels():
+    assert all(kernel in chip_smoke.PORT_KERNELS and form not in chip_smoke.PORT_KERNELS
+               for form, (kernel, _) in chip_smoke.KERNEL_FORMS.items())
+
+
 def test_port_counts_every_kernel_and_refuses_others():
     want = chip_smoke._port(update_kernel=4)
-    assert set(want) == set(chip_smoke.PORT_KERNELS)
+    assert set(want) == set(chip_smoke.PORT_KERNELS) | set(chip_smoke.KERNEL_FORMS)
     assert want["update_kernel"] == 4 and sum(want.values()) == 4
     with pytest.raises(RuntimeError):
         chip_smoke._port(reduce_dedy_kernel=1)
+
+
+@pytest.mark.parametrize("fwd, L, n, want", [
+    ("tc_fwd_kernel", 4, 3, {"tc_fwd_kernel": 3, "tc_fwd_kernel_xbf16": 9}),
+    ("tc_fwd_kernel", 1, 5, {"tc_fwd_kernel": 5, "tc_fwd_kernel_xbf16": 0}),
+    ("f32_fwd_kernel", 4, 3, {"f32_fwd_kernel": 12}),
+])
+def test_chain_forwards_split_the_tensor_core_forms(fwd, L, n, want):
+    """The chunk trainer's tensor-core forwards: layer 0 rounds float32 x, the
+    L - 1 above it read their input's copy; the float32 form has one form."""
+    assert chip_smoke._chain_forwards(fwd, L, n) == want
+    assert set(chip_smoke._port(**want)) >= set(want)
 
 
 @pytest.mark.parametrize("got, want, reads", [

@@ -6,8 +6,10 @@ from a copy that the launch which made dedx writes beside it: the head's
 forward in its epilogue, each backward as the dedy it hands on.  The copy's
 rows are padded to 16 bytes (ops/fused_mlp.py:bf16_ld) so that it goes by
 tensor copies at every width, and the chunk trainer's workspace holds two of
-them beside the two float32 dedx buffers.  The standalone wrappers, which hold
-float32 dedx alone, make the copy with one cast launch a call.
+them beside the two float32 dedx buffers, and after them a copy of each
+hidden layer's output, which the next layer's tensor-core forward reads
+(tests/test_torch_bf16_x.py).  The standalone wrappers, which hold float32
+dedx alone, make the copy with one cast launch a call.
 
 On the CPU: the padded stride and the workspace's plan (mirrored here), and
 that the CPU path is the plain version, which rounds the operands itself.
@@ -33,15 +35,22 @@ ROWS = (32, 64, 128, 256, 512)
 
 def _workspace(sizes, bunch):
     """csrc/resident_chunk.cu:plan_workspace, in floats: the layers' stored
-    inputs, the output, the two float32 dedx buffers and the two bfloat16
-    copies."""
+    inputs, the output, the two float32 dedx buffers, their two bfloat16
+    copies, and the bfloat16 copies of the stored inputs (ys_bf[l - 1]: layer
+    l's, l = 1..L-1)."""
     L = len(sizes) - 1
     off, max_w = sum(bunch * s for s in sizes[1:L]) + bunch * sizes[L], max(sizes)
     plan = {"dedx_a": off, "dedx_b": off + bunch * max_w}
     off += 2 * bunch * max_w
     bf_floats = (bunch * fm.bf16_ld(max_w) // 2 + 3) // 4 * 4
     off = (off + 3) // 4 * 4
-    plan.update(bf_a=off, bf_b=off + bf_floats, total=off + 2 * bf_floats)
+    plan.update(bf_a=off, bf_b=off + bf_floats)
+    off += 2 * bf_floats
+    plan["ys_bf"] = []
+    for l in range(1, L):
+        plan["ys_bf"].append(off)
+        off += (bunch * fm.bf16_ld(sizes[l]) // 2 + 3) // 4 * 4
+    plan["total"] = off
     return plan
 
 
@@ -73,8 +82,29 @@ def test_bf16_copy_stride_and_workspace(N, M):
         need = max(M * fm.bf16_ld(w) for w in sizes[1:]) / 2  # floats of the widest copy
         assert ws["bf_a"] % 4 == 0 and ws["bf_b"] % 4 == 0  # 16 bytes into a float32 buffer
         assert ws["bf_a"] >= ws["dedx_b"] + M * max(sizes)
-        assert ws["bf_a"] + need <= ws["bf_b"] and ws["bf_b"] + need <= ws["total"]
-        assert (ws["total"] - ws["bf_a"]) * 4 <= 2 * M * fm.bf16_ld(max(sizes)) * 2 + 32
+        assert ws["bf_a"] + need <= ws["bf_b"] and ws["bf_b"] + need <= ws["ys_bf"][0]
+        assert (ws["ys_bf"][0] - ws["bf_a"]) * 4 <= 2 * M * fm.bf16_ld(max(sizes)) * 2 + 32
+
+
+@pytest.mark.parametrize("M", ROWS)
+@pytest.mark.parametrize("N", WIDTHS)
+def test_y_copies_in_the_workspace(N, M):
+    """Each hidden layer's output has its bfloat16 copy (M x bf16_ld(width)),
+    16-byte aligned, past the dedx copies, the copies apart and within
+    resident_workspace_floats; the float32 buffers' offsets are the parent
+    plan's (the copies come last).  Hidden widths N and 2048, heads N."""
+    for sizes in ((1548, N, 2048, 2048, 129), (3084, 2048, N, 2048, N), (1548, N, N)):
+        ws, L = _workspace(sizes, M), len(sizes) - 1
+        assert len(ws["ys_bf"]) == L - 1
+        bounds = ws["ys_bf"] + [ws["total"]]
+        for l in range(1, L):
+            off = ws["ys_bf"][l - 1]
+            assert off % 4 == 0  # 16 bytes into a float32 buffer
+            assert off + M * fm.bf16_ld(sizes[l]) / 2 <= bounds[l]
+            assert (bounds[l] - off) * 4 <= 2 * M * fm.bf16_ld(sizes[l]) + 12
+        assert ws["ys_bf"][0] >= ws["bf_b"] + M * fm.bf16_ld(max(sizes)) / 2
+        floats = sum(M * s for s in sizes[1:])  # the stored inputs and the output
+        assert ws["dedx_a"] == floats and ws["dedx_b"] == floats + M * max(sizes)
 
 
 def test_wrappers_cast_nothing_on_the_cpu():
@@ -206,8 +236,9 @@ def test_chain_reads_its_own_copies_and_wrappers_cast_once(card):
     t = torch.randn(3 * 128, 129, generator=g).to(card)
     for bf16 in (True, False):  # the chain casts nothing: its launches write the copies
         run = rc.make_resident_train_chunk(cfg, opt, bf16=bf16)
-        want = {"tc_fwd_kernel": 12 if bf16 else 0, "f32_fwd_kernel": 0 if bf16 else 12,
-                "stripe_bwd_kernel": 12, "bf16_copy_kernel": 0}
+        want = {"tc_fwd_kernel": 3 if bf16 else 0, "tc_fwd_kernel_xbf16": 9 if bf16 else 0,
+                "f32_fwd_kernel": 0 if bf16 else 12, "stripe_bwd_kernel": 12,
+                "bf16_copy_kernel": 0}
         assert _kernel_counts(card, lambda: run(st, x, t, 3), want) == want
     dedx, y = x[:128, :129].contiguous() * 0.01, torch.relu(x[:128, :1548]).contiguous()
     w = torch.randn(1548, 129, generator=g).to(card) * 0.03
@@ -228,7 +259,8 @@ def test_workspace_mirror_is_the_c_entry_point(card, N, M):
     import ctypes
 
     lib = rc._lib()
-    for sizes in ((1548, 2048, 2048, 2048, N), (3084, 2048, 2048, 2048, N)):
+    for sizes in ((1548, 2048, 2048, 2048, N), (3084, 2048, 2048, 2048, N),
+                  (1548, N, 2048, 2048, 129), (3084, 2048, N, 2048, N), (1548, N, N)):
         c_sizes = (ctypes.c_int * len(sizes))(*sizes)
         assert lib.resident_workspace_floats(c_sizes, len(sizes) - 1, M) == \
             _workspace(sizes, M)["total"]

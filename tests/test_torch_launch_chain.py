@@ -102,9 +102,9 @@ def test_both_product_forms_take_the_plan():
     assert "const bool pdl = plan != nullptr;  // a forward came first" in src  # a backward
     assert "tc && plan" not in src
     fm_src = (CSRC / "fused_mlp.cuh").read_text()
-    for form in ("tc", "f32"):  # launch_fwd
-        assert f"launch_{form}_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream)" \
-            in fm_src
+    for form in ("tc", "f32"):  # launch_fwd (the tensor-core form also takes x's copy)
+        assert re.search(rf"launch_{form}_fwd\(x, [^;]*\bw, M, K, N, in_mask, epi, plan_rows, "
+                         rf"pdl, early, stream\)", fm_src)
     for tc in ("true", "false"):  # launch_bwd
         assert re.search(rf"launch_bwd_form<{tc}>\([^;]*\bpdl, early,\s*stream\)", fm_src)
     assert "tc && pdl" not in fm_src

@@ -67,9 +67,32 @@ extern "C" int fused_linear_act_f32(const float* x, const void* w, int w_bf16, c
   const MaskSpec om = make_mask(out_mode, out_ptr, N, out_key, out_thr, out_scale);
   const cudaError_t err =
       w_bf16 ? launch_fwd(x, (const bf16_t*)w, b, y, M, K, N, act, im, om, nullptr, nullptr,
-                          nullptr, 0.0f, bf16 != 0, (cudaStream_t)stream)
+                          FwdCopies{}, 0.0f, bf16 != 0, (cudaStream_t)stream)
              : launch_fwd(x, (const float*)w, b, y, M, K, N, act, im, om, nullptr, nullptr,
-                          nullptr, 0.0f, bf16 != 0, (cudaStream_t)stream);
+                          FwdCopies{}, 0.0f, bf16 != 0, (cudaStream_t)stream);
+  return (int)err;
+}
+
+// The tensor-core forward with its bfloat16 copies (FwdCopies; each
+// bf16_ld(width) a row, 16-byte aligned, or nullptr): y (M, N) = act(x (M, K)
+// @ w (K, N) + b), x read from its copy x_bf (rne(x)) where it is given, else
+// rounded from float32 x; rne(y) into y_bf; with targ, dedx = coef * (y -
+// targ) [* y (1 - y) for a sigmoid head] and rne(dedx) into dedx_bf.  No
+// masks.  What the chunk trainer launches for a hidden layer or its head,
+// standing alone, so that the form that reads x's copy can be held against
+// the one that rounds x.
+extern "C" int fused_tc_fwd_copies(const float* x, const void* x_bf, const void* w, int w_bf16,
+                                   const float* b, float* y, void* y_bf, int M, int K, int N,
+                                   int act, const float* targ, float* dedx, void* dedx_bf,
+                                   float coef, void* stream) {
+  if (act < 0 || act > 2 || (targ == nullptr) != (dedx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const FwdCopies copies{(const bf16_t*)x_bf, (bf16_t*)y_bf, (bf16_t*)dedx_bf};
+  const cudaError_t err =
+      w_bf16 ? launch_fwd(x, (const bf16_t*)w, b, y, M, K, N, act, no_mask(), no_mask(), targ,
+                          dedx, copies, coef, true, (cudaStream_t)stream)
+             : launch_fwd(x, (const float*)w, b, y, M, K, N, act, no_mask(), no_mask(), targ,
+                          dedx, copies, coef, true, (cudaStream_t)stream);
   return (int)err;
 }
 
@@ -93,13 +116,15 @@ extern "C" int fused_bwd_plan(int M, int K, int N, int with_dedy, int bf16, int*
 
 // The dynamic shared memory a block of each stripe-and-cluster kernel asks
 // for, in bytes: out[0], out[1] tc_fwd_kernel with 128- and 64-column slices
-// (float32 W); out[2..4] stripe_bwd_kernel's tensor-core form with stripes of
-// 64, 32, 16 rows (float32 W and Delta); out[5..7] its float32 form alike;
-// out[8] f32_fwd_kernel (float32 W).  Whether two such blocks can share an SM
-// follows from these.
+// (float32 W, float32 x); out[2..4] stripe_bwd_kernel's tensor-core form with
+// stripes of 64, 32, 16 rows (float32 W and Delta); out[5..7] its float32
+// form alike; out[8] f32_fwd_kernel (float32 W); out[9], out[10] what the
+// layout of tc_fwd_kernel reading x's bfloat16 copy takes, 128- and
+// 64-column slices (it asks for out[0], out[1]: tc_fwd_smem_bytes).  Whether
+// two such blocks can share an SM follows from these.
 extern "C" void fused_tc_smem_bytes(int* out) {
-  out[0] = (int)sizeof(TcFwdTile<float, 128>::Smem) + 128;
-  out[1] = (int)sizeof(TcFwdTile<float, 64>::Smem) + 128;
+  out[0] = tc_fwd_smem_bytes<float, 128>();
+  out[1] = tc_fwd_smem_bytes<float, 64>();
   out[2] = (int)BwdTile<true, float, float, 64>::kSmemBytes;
   out[3] = (int)BwdTile<true, float, float, 32>::kSmemBytes;
   out[4] = (int)BwdTile<true, float, float, 16>::kSmemBytes;
@@ -107,6 +132,8 @@ extern "C" void fused_tc_smem_bytes(int* out) {
   out[6] = (int)BwdTile<false, float, float, 32>::kSmemBytes;
   out[7] = (int)BwdTile<false, float, float, 16>::kSmemBytes;
   out[8] = (int)F32FwdTile<float>::kSmemBytes;
+  out[9] = TcFwdTile<float, 128, bf16_t>::kSmemBytes;
+  out[10] = TcFwdTile<float, 64, bf16_t>::kSmemBytes;
 }
 
 // In place: delta' = mom*delta - (A*G + Bc*w), w' = w + delta', G = yprev^T @ dedx;

@@ -103,7 +103,9 @@ __device__ inline float act_fn(int act, float z) {
 //   backward needs).  If targ != nullptr also
 //   dedx = coef * (y - targ) [* y * (1 - y) for a sigmoid head].
 // Two forms, each one launch a layer: f32_fwd_kernel (float32 products) and
-// tc_fwd_kernel (tensor-core products), below.
+// tc_fwd_kernel (tensor-core products), below.  The epilogue may store
+// rne(y) and rne(dedx) beside y and dedx (FwdCopies): the tensor-core forward
+// of the next layer and the tensor-core backward read those copies.
 // ---------------------------------------------------------------------------
 
 // What follows the product: bias, activation, the next layer's mask, and the
@@ -115,16 +117,18 @@ struct FwdEpilogue {
   MaskSpec out_mask;
   const float* targ;
   float* dedx;
+  bf16_t* y_bf;     // rne(y) beside it (rows of ld_bf), or nullptr
   bf16_t* dedx_bf;  // rne(dedx) beside it (rows of ld_bf), or nullptr
   int ld_bf;
   float coef;
   bool vec_y, vec_t;
 };
 
-// The row stride, in elements, of the bfloat16 copy of dedx that the
-// tensor-core backward reads (rne(dedx), written by the launch that makes
-// dedx): N padded to a multiple of 8, 16 bytes, so that the copy goes by
-// tensor copies at every N (129 and 257 too).
+// The row stride, in elements, of the bfloat16 copies that the tensor-core
+// kernels read (rne(dedx) for the backward, rne(y) for the next layer's
+// forward, each written by the launch that makes the float32 values): N
+// padded to a multiple of 8, 16 bytes, so that a copy goes by tensor copies at
+// every N (129 and 257 too).
 inline int bf16_ld(int N) { return (N + 7) / 8 * 8; }
 
 // Four float32 values, those at or past column n_valid of them zeroed,
@@ -151,6 +155,8 @@ __device__ inline void fwd_epilogue4(const FwdEpilogue& e, int row, int col, con
     for (int j = 0; j < 4; ++j) v[j] *= mk[j];
   }
   st4(e.y, row, col, e.N, e.M, e.N, e.vec_y, make_float4(v[0], v[1], v[2], v[3]));
+  if (e.y_bf != nullptr && row < e.M)
+    st_copy4(e.y_bf, e.ld_bf, row, col, e.N, make_float4(v[0], v[1], v[2], v[3]));
   if (e.targ != nullptr) {
     const float4 tv = ld4(e.targ, row, col, e.N, e.M, e.N, e.vec_t);
     const float tr[4] = {tv.x, tv.y, tv.z, tv.w};
@@ -220,41 +226,70 @@ inline int fwd_k_chunk(int M, int K, int N, int* n_chunks) {
 //   through registers; so does x if K % 4 != 0;
 // * step s+1 is rounded to bfloat16 (the mask applied first), two values an
 //   instruction (st_cvt4), into one of two tiles while step s is multiplied
-//   from the other: one barrier a step.
+//   from the other: one barrier a step;
+// * x as its bfloat16 copy (TX = bf16_t; FwdCopies::x): where the launch that
+//   made x also stored rne(x) beside it (a hidden layer's input: the epilogue
+//   of the layer below, after its mask), the tensor copy brings that, in
+//   (128, 32) boxes of 64-byte rows with the copy's 64-byte swizzle, and the
+//   products read the ring's box in place (load_a_sw64): no rounding pass over
+//   x, no tile for it, half of x's bytes through L2 and the ring.  The split
+//   of K is the float32-x form's (tc_fwd_k_chunk), and so are W's rounding,
+//   the products' order, the cluster sum and the epilogue: every output is
+//   that form's bit for bit.  An input with a mask (layer 0) comes as float32.
 // Warps: 32 x 32 tiles of the block's (128, BN), each 2 x 4 m16n8k16 tiles
 // (larger warp tiles, fewer warps, were measured slower: the rounding pass
 // and the ldmatrix / mma chains are latency-bound at one block an SM);
 // warps whose rows lie past the tile's skip their work.  Where the time goes
-// (PERF.md): a step's rounding and its products take about as long as each
-// other and the copies rarely keep them waiting; what comes before the loop
-// (the first tiles' latency) and after it (two cluster barriers and the sum
-// through distributed shared memory; one bulk copy between the blocks in
-// place of the remote loads was no faster) costs about as much as the loop
-// at these sizes.
+// (PERF.md; the float32-x form): a step's rounding and its products take
+// about as long as each other and the copies rarely keep them waiting; what
+// comes before the loop (the first tiles' latency) and after it (two cluster
+// barriers and the sum through distributed shared memory; one bulk copy
+// between the blocks in place of the remote loads was no faster) costs about
+// as much as the loop at these sizes.
 constexpr int kTcFwdBM = 128, kTcFwdBK = 32, kTcFwdStages = 4, kTcFwdMaxCluster = 16;
 constexpr int kTcFwdALd = kTcFwdBK + 8;  // bfloat16 row stride of 80 bytes: an odd multiple of
                                          // 16, so ldmatrix's eight rows hit all 32 banks
 
-template <typename TW, int BN>
+// TX: x's storage, float32 or its bfloat16 copy (rne(x)).
+template <typename TW, int BN, typename TX>
 struct TcFwdTile {
+  static constexpr bool kXCopy = std::is_same<TX, bf16_t>::value;  // x comes rounded
   static constexpr int kWM = 32, kWN = 32;  // a warp's tile (see above)
   static constexpr int kWarps = (kTcFwdBM / kWM) * (BN / kWN), kThreads = 32 * kWarps;
   static constexpr int kBLd = BN + 8;  // bfloat16: an odd multiple of 16 bytes
   static constexpr int kPLd = BN + 4;
-  struct alignas(128) Stage {     // the tensor copies' boxes, dense
-    float x[kTcFwdBM][kTcFwdBK];  // x rows of the step, as stored
+  // of the stages: the copy's swizzle repeats every 512 bytes of the ring
+  static constexpr int kAlign = kXCopy ? 1024 : 128;
+  struct alignas(kAlign) Stage {  // the tensor copies' boxes, dense
+    TX x[kTcFwdBM][kTcFwdBK];     // x rows of the step, as stored (x's copy swizzled: sw64)
     TW w[kTcFwdBK][BN];           // W rows of the step, as stored
   };
-  struct alignas(128) Smem {
+  struct NoTile {};
+  struct alignas(kAlign) Smem {
     union {
       Stage ring[kTcFwdStages];
       float part[kTcFwdBM][kPLd];  // the block's partial sums, after the K loop
     } u;
-    bf16_t a[2][kTcFwdBM][kTcFwdALd];  // rne(x * mask), (m, k)
-    bf16_t b[2][kTcFwdBK][kBLd];       // rne(W), (k, n)
-    uint64_t full[kTcFwdStages];       // a ring slot's bulk copies have landed
+    // rne(x * mask), (m, k), where x comes as float32
+    std::conditional_t<kXCopy, NoTile, bf16_t[2][kTcFwdBM][kTcFwdALd]> a;
+    alignas(16) bf16_t b[2][kTcFwdBK][kBLd];  // rne(W), (k, n)
+    uint64_t full[kTcFwdStages];              // a ring slot's bulk copies have landed
   };
+  static constexpr int kSmemBytes = (int)sizeof(Smem) + kAlign;  // + its alignment
 };
+
+// The dynamic shared memory a block of tc_fwd_kernel<TW, BN, ...> asks for in
+// either form of x: the float32-x form's, so that a block of the next launch
+// shares an SM with one of this launch only where it would beside that form.
+// (Asking only what its layout takes, the head's copy form let a block of the
+// backward after it in beside it, and the chain ran 2.7% slower a bunch at
+// 8 kHz and 2.9% at 16 kHz on an H100 SXM than with this.)
+template <typename TW, int BN>
+constexpr int tc_fwd_smem_bytes() {
+  static_assert(TcFwdTile<TW, BN, bf16_t>::kSmemBytes <= TcFwdTile<TW, BN, float>::kSmemBytes,
+                "the copy form's layout fits the float32-x form's request");
+  return TcFwdTile<TW, BN, float>::kSmemBytes;
+}
 
 __device__ inline void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
@@ -351,21 +386,23 @@ __device__ inline void fwd_cluster_sum(const float* part, int ld, int rows, int 
 
 // x_tma / w_tma: the operand goes by tensor copies (tmx, tmw), else by
 // cp.async: 4-byte copies for float32 (x when K % 4 != 0, W when N % 4 != 0),
-// registers for bfloat16 W at an odd N.  early (pdl.cuh): with kEarlyW the
-// W half of the first kTcFwdStages - 1 steps is loaded before
+// registers for bfloat16 W at an odd N.  x's bfloat16 copy (TX = bf16_t)
+// always goes by tensor copies and takes no mask.  early (pdl.cuh): with
+// kEarlyW the W half of the first kTcFwdStages - 1 steps is loaded before
 // griddepcontrol.wait, beside the mbarriers' set-up; x and every store come
 // after it.
-template <typename TW, int BN>
-__global__ void __launch_bounds__(TcFwdTile<TW, BN>::kThreads)
+template <typename TW, int BN, typename TX>
+__global__ void __launch_bounds__(TcFwdTile<TW, BN, TX>::kThreads)
 tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
-              const float* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
+              const TX* __restrict__ x, const TW* __restrict__ w, int M, int K, int N,
               MaskSpec in_mask, FwdEpilogue epi, int k_chunk, bool x_tma, bool w_tma,
               int early) {
-  using T = TcFwdTile<TW, BN>;
+  using T = TcFwdTile<TW, BN, TX>;
+  constexpr bool kXCopy = T::kXCopy;
   constexpr int kThreads = T::kThreads, kS = kTcFwdStages;
   extern __shared__ unsigned char tc_fwd_smem[];
   typename T::Smem& sm = *reinterpret_cast<typename T::Smem*>(
-      (reinterpret_cast<uintptr_t>(tc_fwd_smem) + 127) & ~(uintptr_t)127);
+      (reinterpret_cast<uintptr_t>(tc_fwd_smem) + T::kAlign - 1) & ~(uintptr_t)(T::kAlign - 1));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kTcFwdBM;
   const int rows = min(kTcFwdBM, M - m0);      // the tile's rows
@@ -395,12 +432,14 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
       if (tx) tma_load_2d(&st.x[0][0], &tmx, k0, m0, &sm.full[slot]);
     }
     if (tw && tid == 32) tma_load_2d(&st.w[0][0], &tmw, n0, k0, &sm.full[slot]);
-    if (with_x && !x_tma) {
-      for (int idx = tid; idx < kTcFwdBM * kTcFwdBK; idx += kThreads) {
-        const int row = idx / kTcFwdBK, c = idx % kTcFwdBK;
-        if (row >= rows_pad) continue;
-        const bool in = row < rows && k0 + c < K;
-        cp_async4(&st.x[row][c], in ? x + (long long)(m0 + row) * K + k0 + c : x, in ? 4 : 0);
+    if constexpr (!kXCopy) {
+      if (with_x && !x_tma) {
+        for (int idx = tid; idx < kTcFwdBM * kTcFwdBK; idx += kThreads) {
+          const int row = idx / kTcFwdBK, c = idx % kTcFwdBK;
+          if (row >= rows_pad) continue;
+          const bool in = row < rows && k0 + c < K;
+          cp_async4(&st.x[row][c], in ? x + (long long)(m0 + row) * K + k0 + c : x, in ? 4 : 0);
+        }
       }
     }
     if (with_w && !w_tma) {
@@ -430,7 +469,7 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
   // next step are loaded while this one converts, so that the table's latency
   // hides behind a step's products (loaded further ahead, they ran slower).
   constexpr int kXIters = kTcFwdBM * kTcFwdBK / 4 / kThreads;  // float4s of x a thread converts
-  const bool table = in_mask.mode == 3;
+  const bool table = !kXCopy && in_mask.mode == 3;
   uint32_t words[kXIters];  // the words of the next step to convert
   auto load_words = [&](int step) {
     const int k0 = k_begin + step * kTcFwdBK;
@@ -441,29 +480,32 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
     }
   };
 
-  // the step's operands, rounded: x masked in float32 first
+  // the step's operands, rounded: x masked in float32 first (x's copy comes
+  // rounded, and the products read it in its ring slot)
   auto convert = [&](int slot, int buf, int step) {
     const typename T::Stage& st = sm.u.ring[slot];
-    const int k0 = k_begin + step * kTcFwdBK;
-    uint32_t cur[kXIters];
+    if constexpr (!kXCopy) {
+      const int k0 = k_begin + step * kTcFwdBK;
+      uint32_t cur[kXIters];
 #pragma unroll
-    for (int r = 0; r < kXIters; ++r) cur[r] = words[r];
-    if (table) load_words(step + 1);
+      for (int r = 0; r < kXIters; ++r) cur[r] = words[r];
+      if (table) load_words(step + 1);
 #pragma unroll
-    for (int r = 0; r < kXIters; ++r) {
-      const int idx = tid + r * kThreads, row = idx / (kTcFwdBK / 4);
-      const int c = (idx % (kTcFwdBK / 4)) * 4;
-      if (row >= rows_pad) continue;
-      float4 v = *reinterpret_cast<const float4*>(&st.x[row][c]);
-      if (in_mask.mode != 0 && row < rows && k0 + c < K) {
-        float mk[4];
-        if (table)
-          mask4_word(in_mask, cur[r], k0 + c, K, mk);
-        else
-          mask4(in_mask, m0 + row, k0 + c, K, mk);
-        v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+      for (int r = 0; r < kXIters; ++r) {
+        const int idx = tid + r * kThreads, row = idx / (kTcFwdBK / 4);
+        const int c = (idx % (kTcFwdBK / 4)) * 4;
+        if (row >= rows_pad) continue;
+        float4 v = *reinterpret_cast<const float4*>(&st.x[row][c]);
+        if (in_mask.mode != 0 && row < rows && k0 + c < K) {
+          float mk[4];
+          if (table)
+            mask4_word(in_mask, cur[r], k0 + c, K, mk);
+          else
+            mask4(in_mask, m0 + row, k0 + c, K, mk);
+          v.x *= mk[0]; v.y *= mk[1]; v.z *= mk[2]; v.w *= mk[3];
+        }
+        st_cvt4(&sm.a[buf][row][c], v);
       }
-      st_cvt4(&sm.a[buf][row][c], v);
     }
 #pragma unroll
     for (int r = 0; r < kTcFwdBK * BN / 4 / kThreads; ++r) {
@@ -480,13 +522,19 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
 
-  auto mma_step = [&](int buf) {
+  // step s: W's rounded tile `buf`, x's rounded tile `buf` or its copy in ring slot `slot`
+  auto mma_step = [&](int buf, int slot) {
     if (wm >= rows_pad) return;
 #pragma unroll
     for (int kk = 0; kk < kTcFwdBK; kk += 16) {
       uint32_t a[kWM / 16][4], b[kWN / 16][4];
 #pragma unroll
-      for (int i = 0; i < kWM / 16; ++i) load_a(a[i], &sm.a[buf][wm + 16 * i][kk], kTcFwdALd, lane);
+      for (int i = 0; i < kWM / 16; ++i) {
+        if constexpr (kXCopy)
+          load_a_sw64(a[i], &sm.u.ring[slot].x[0][0], wm + 16 * i, kk, lane);
+        else
+          load_a(a[i], &sm.a[buf][wm + 16 * i][kk], kTcFwdALd, lane);
+      }
 #pragma unroll
       for (int j = 0; j < kWN / 16; ++j)
         load_b_kn(b[j], &sm.b[buf][kk][wn + 16 * j], T::kBLd, lane);
@@ -500,7 +548,8 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
 
   // The pipeline: kS - 1 steps in flight; step s+1 is rounded while step s
   // is multiplied (two bfloat16 buffers), one barrier a step.  Ring slot
-  // (s - 1) % kS is refilled at step s: its rounding was two steps ago.
+  // (s - 1) % kS is refilled at step s: its rounding was two steps ago, and
+  // the products that read x's copy there one step ago.
   // Before the wait: the mbarriers, the tensor maps, and W where the plan
   // allows (uncommitted cp.async copies of it join step 0's group)
   if (any_tma) {
@@ -539,7 +588,7 @@ tc_fwd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
       wait_stage(s + 1);
       convert((s + 1) % kS, (s + 1) & 1, s + 1);
     }
-    mma_step(s & 1);
+    mma_step(s & 1, s % kS);
     __syncthreads();
   }
   if (!all_tma) cp_async_wait<0>();
@@ -835,11 +884,11 @@ constexpr int kTcFwdMaxDevices = 64;
 // be one object for the whole process, a unique symbol shared by every
 // library that includes this header, though each has its own kernel to set
 // up) and per device (a function attribute holds for the current device
-// only): raises the shared memory of tc_fwd_kernel<TW, BN> (kTc) or of
+// only): raises the shared memory of tc_fwd_kernel<TW, BN, TX> (kTc) or of
 // f32_fwd_kernel<TW, kTable> once, and -> how many clusters of `size` blocks
 // along z the card holds at once (cached; cudaErrorInvalidConfiguration where
 // not one such cluster can be placed).
-template <bool kTc, typename TW, int BN, bool kTable = false>
+template <bool kTc, typename TW, int BN, bool kTable = false, typename TX = float>
 static cudaError_t fwd_clusters(int size, int* clusters) {
   static bool attr_set[kTcFwdMaxDevices] = {};
   static int cached[kTcFwdMaxDevices][kTcFwdMaxCluster + 1] = {};
@@ -847,9 +896,9 @@ static cudaError_t fwd_clusters(int size, int* clusters) {
   int threads;
   size_t smem;
   if constexpr (kTc) {
-    kernel = (const void*)tc_fwd_kernel<TW, BN>;
-    threads = TcFwdTile<TW, BN>::kThreads;
-    smem = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
+    kernel = (const void*)tc_fwd_kernel<TW, BN, TX>;
+    threads = TcFwdTile<TW, BN, TX>::kThreads;
+    smem = tc_fwd_smem_bytes<TW, BN>();
   } else {
     kernel = (const void*)f32_fwd_kernel<TW, kTable>;
     threads = kF32FwdThreads;
@@ -897,7 +946,9 @@ static cudaError_t fwd_clusters(int size, int* clusters) {
 // be resident at once (a second wave of clusters would double the time).
 // A function of (M, K, N) and the card alone, and of K, N and the card
 // while M fits one row tile (M <= 128): a data-parallel rank's rows are
-// summed as the single-device trainer sums them.  -> the chunk; *n_chunks.
+// summed as the single-device trainer sums them.  Planned on the float32-x
+// form for both forms of x, so that the form that reads x's bfloat16 copy
+// sums as that one does.  -> the chunk; *n_chunks.
 template <typename TW, int BN>
 static cudaError_t tc_fwd_k_chunk(int M, int K, int N, int* chunk, int* n_chunks) {
   const int tiles = ((N + BN - 1) / BN) * ((M + kTcFwdBM - 1) / kTcFwdBM);
@@ -952,11 +1003,13 @@ static cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, con
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// pdl: a programmatic dependent launch that reads before its wait what
-// `early` names (pdl.cuh).
+// x_bf (nullptr: none): x's bfloat16 copy, read in place of x (bf16_ld(K)
+// a row, 16-byte aligned; the caller passes no mask with it).  pdl: a
+// programmatic dependent launch that reads before its wait what `early`
+// names (pdl.cuh).
 template <typename TW, int BN>
-static cudaError_t launch_tc_fwd_bn(const float* x, const TW* w, int M, int K, int N,
-                                    const MaskSpec& in_mask, const FwdEpilogue& epi,
+static cudaError_t launch_tc_fwd_bn(const float* x, const bf16_t* x_bf, const TW* w, int M, int K,
+                                    int N, const MaskSpec& in_mask, const FwdEpilogue& epi,
                                     int plan_rows, bool pdl, int early, cudaStream_t stream) {
   int k_chunk, n_chunks;
   cudaError_t err =
@@ -964,10 +1017,21 @@ static cudaError_t launch_tc_fwd_bn(const float* x, const TW* w, int M, int K, i
   if (err != cudaSuccess) return err;
   // tensor maps where the rows' stride is a multiple of 16 bytes
   CUtensorMap tmx = {}, tmw = {};
-  const bool x_tma = (reinterpret_cast<uintptr_t>(x) & 15u) == 0 && K % 4 == 0;
+  const bool x_tma =
+      x_bf != nullptr || ((reinterpret_cast<uintptr_t>(x) & 15u) == 0 && K % 4 == 0);
   const bool w_tma = (reinterpret_cast<uintptr_t>(w) & 15u) == 0 &&
                      ((long long)N * (long long)sizeof(TW)) % 16 == 0;
-  if (x_tma) {
+  if (x_bf != nullptr) {
+    // the float32-x form's split: this form asks as much shared memory of as
+    // many threads (tc_fwd_smem_bytes), so its grid is resident wherever that
+    // one's is
+    int fit = 0;
+    err = fwd_clusters<true, TW, BN, false, bf16_t>(n_chunks, &fit);  // its attributes
+    if (err != cudaSuccess) return err;
+    err = tensor_map_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_UINT16, x_bf, M, K, 2, kTcFwdBM, kTcFwdBK,
+                        CU_TENSOR_MAP_SWIZZLE_64B, bf16_ld(K));
+    if (err != cudaSuccess) return err;
+  } else if (x_tma) {
     err = tensor_map_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, M, K, 4, kTcFwdBM, kTcFwdBK);
     if (err != cudaSuccess) return err;
   }
@@ -980,23 +1044,28 @@ static cudaError_t launch_tc_fwd_bn(const float* x, const TW* w, int M, int K, i
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + BN - 1) / BN, (M + kTcFwdBM - 1) / kTcFwdBM, n_chunks);
-  cfg.blockDim = dim3(TcFwdTile<TW, BN>::kThreads);
-  cfg.dynamicSmemBytes = sizeof(typename TcFwdTile<TW, BN>::Smem) + 128;  // + its alignment
+  cfg.blockDim = dim3(TcFwdTile<TW, BN, float>::kThreads);
+  cfg.dynamicSmemBytes = tc_fwd_smem_bytes<TW, BN>();
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
   cfg.attrs = attr;
   cfg.numAttrs = cluster_launch_attrs(attr, 1, n_chunks, pdl);
-  return cudaLaunchKernelEx(&cfg, tc_fwd_kernel<TW, BN>, tmx, tmw, x, w, M, K, N, in_mask, epi,
-                            k_chunk, x_tma, w_tma, early);
+  if (x_bf != nullptr)
+    return cudaLaunchKernelEx(&cfg, tc_fwd_kernel<TW, BN, bf16_t>, tmx, tmw, x_bf, w, M, K, N,
+                              in_mask, epi, k_chunk, x_tma, w_tma, early);
+  return cudaLaunchKernelEx(&cfg, tc_fwd_kernel<TW, BN, float>, tmx, tmw, x, w, M, K, N, in_mask,
+                            epi, k_chunk, x_tma, w_tma, early);
 }
 
 template <typename TW>
-static cudaError_t launch_tc_fwd(const float* x, const TW* w, int M, int K, int N,
-                                 const MaskSpec& in_mask, const FwdEpilogue& epi, int plan_rows,
-                                 bool pdl, int early, cudaStream_t stream) {
+static cudaError_t launch_tc_fwd(const float* x, const bf16_t* x_bf, const TW* w, int M, int K,
+                                 int N, const MaskSpec& in_mask, const FwdEpilogue& epi,
+                                 int plan_rows, bool pdl, int early, cudaStream_t stream) {
   if (tc_fwd_bn(N) == 128)
-    return launch_tc_fwd_bn<TW, 128>(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
-  return launch_tc_fwd_bn<TW, 64>(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
+    return launch_tc_fwd_bn<TW, 128>(x, x_bf, w, M, K, N, in_mask, epi, plan_rows, pdl, early,
+                                     stream);
+  return launch_tc_fwd_bn<TW, 64>(x, x_bf, w, M, K, N, in_mask, epi, plan_rows, pdl, early,
+                                  stream);
 }
 
 // pdl: a programmatic dependent launch that reads before its wait what
@@ -1056,23 +1125,38 @@ static cudaError_t f32_fwd_plan(int M, int K, int N, int plan_rows, int out[5]) 
   return err != cudaSuccess ? err : fwd_clusters<false, TW, kF32FwdBN>(out[1], &out[4]);
 }
 
+// The bfloat16 copies of a forward (bf16_ld rows, 16-byte aligned; nullptr:
+// none): the copy of x that the tensor-core form reads in place of x (rne(x),
+// written by the launch that made x: an input without a mask), and the
+// copies of y and of dedx that the epilogue stores beside them, rne(y) for
+// the next layer's tensor-core forward and rne(dedx) for the tensor-core
+// backward.
+struct FwdCopies {
+  const bf16_t* x = nullptr;
+  bf16_t* y = nullptr;
+  bf16_t* dedx = nullptr;
+};
+
 // tc: the tensor-core form (tc_fwd_kernel), else the float32 one
 // (f32_fwd_kernel); either is one launch, K split within a cluster.
-// dedx_bf (with dedx; nullptr: none): rne(dedx) stored beside dedx, rows of
-// bf16_ld(N) elements, 16-byte aligned: the tensor-core backward's operand.
-// plan_rows > 0: split K as for that many rows (the data-parallel trainer
-// plans for the global tile, so a rank's rows are summed in the order the
-// single-device trainer sums them: each output's sum depends only on the
-// chunk boundaries), else as for M.  pdl, early: a programmatic dependent
-// launch that reads before its wait what `early` names (pdl.cuh).
+// copies: as FwdCopies says; copies.x only in the tensor-core form, without
+// an input mask, copies.dedx only with dedx.  plan_rows > 0: split K as for
+// that many rows (the data-parallel trainer plans for the global tile, so a
+// rank's rows are summed in the order the single-device trainer sums them:
+// each output's sum depends only on the chunk boundaries), else as for M.
+// pdl, early: a programmatic dependent launch that reads before its wait what
+// `early` names (pdl.cuh).
 template <typename TW>
 inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float* y, int M,
                               int K, int N, int act, const MaskSpec& in_mask,
                               const MaskSpec& out_mask, const float* targ, float* dedx,
-                              bf16_t* dedx_bf, float coef, bool tc, cudaStream_t stream,
+                              const FwdCopies& copies, float coef, bool tc, cudaStream_t stream,
                               int plan_rows = 0, bool pdl = false, int early = 0) {
   if (M <= 0 || N <= 0) return cudaSuccess;
-  if (dedx_bf != nullptr && (dedx == nullptr || (reinterpret_cast<uintptr_t>(dedx_bf) & 15u) != 0))
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
+  if ((copies.dedx != nullptr && (dedx == nullptr || !aligned(copies.dedx))) ||
+      !aligned(copies.y) ||
+      (copies.x != nullptr && (!tc || in_mask.mode != 0 || !aligned(copies.x))))
     return cudaErrorInvalidValue;
   FwdEpilogue epi;
   epi.b = b;
@@ -1083,12 +1167,13 @@ inline cudaError_t launch_fwd(const float* x, const TW* w, const float* b, float
   epi.out_mask = out_mask;
   epi.targ = targ;
   epi.dedx = dedx;
-  epi.dedx_bf = dedx_bf;
+  epi.y_bf = copies.y;
+  epi.dedx_bf = copies.dedx;
   epi.ld_bf = bf16_ld(N);
   epi.coef = coef;
   epi.vec_y = vec_ok(y, N) && (dedx == nullptr || vec_ok(dedx, N));
   epi.vec_t = targ != nullptr && vec_ok(targ, N);
-  return tc ? launch_tc_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream)
+  return tc ? launch_tc_fwd(x, copies.x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream)
             : launch_f32_fwd(x, w, M, K, N, in_mask, epi, plan_rows, pdl, early, stream);
 }
 

@@ -132,6 +132,21 @@ __device__ inline void load_a_sw128(uint32_t a[4], const bf16_t* tile, int r0, i
   ldmatrix_x4(a, sw128(tile, r0 + r + (mi & 1) * 8, c0 + (mi >> 1) * 8));
 }
 
+// The same for a tile of 32-element (64-byte) rows stored with the tensor
+// copy's 64-byte swizzle, the tile 512-byte aligned: the 16-byte chunk c / 8
+// of row r lies at chunk (c / 8) ^ ((r / 2) % 4), so that the eight rows of
+// an 8x8 matrix (four pairs of rows, each pair one 128-byte line) lie in
+// eight bank groups.
+__device__ inline const bf16_t* sw64(const bf16_t* tile, int r, int c) {
+  return tile + r * 32 + ((((c >> 3) ^ (r >> 1)) & 3) << 3);
+}
+
+// A stored as it is multiplied (load_a), from a tile of 64-byte rows swizzled so.
+__device__ inline void load_a_sw64(uint32_t a[4], const bf16_t* tile, int r0, int c0, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+  ldmatrix_x4(a, sw64(tile, r0 + r + (mi & 1) * 8, c0 + (mi >> 1) * 8));
+}
+
 // B stored as (k, n) (load_b_kn), from a swizzled tile.
 __device__ inline void load_b_kn_sw128(uint32_t b[4], const bf16_t* tile, int r0, int c0,
                                        int lane) {

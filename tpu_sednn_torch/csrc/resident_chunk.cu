@@ -23,7 +23,10 @@
 // tensor-core products, the epilogue that writes dedx (the head's forward, or
 // the backward of the layer above as dedy) also writes rne(dedx), which the
 // backward's products read by tensor copies; the bias blocks sum the float32
-// dedx.  So a
+// dedx.  Likewise the forward of each hidden layer writes rne(y) beside its
+// masked activation y, and the next layer's forward reads that copy by
+// tensor copies in place of rounding y (layer 0 reads the float32 input and
+// its mask).  So a
 // bunch of L layers is 2L launches in either product form, and the workspace
 // holds no partial sums.  A single stream keeps the two orders the update
 // rule needs: dedy of layer l uses W_l before its update (one kernel does
@@ -36,7 +39,7 @@
 // griddepcontrol.wait the operands that launch does not write, as the plan of
 // ops/resident_chunk.py:early_read_plan names them: the forward of layer
 // l >= 1 its W (the forward of layer 0 follows the backward that just wrote
-// W_0), every backward its W, Delta and yprev.  Only x and dedx (with its
+// W_0), every backward its W, Delta and yprev.  Only x and dedx (each with its
 // bfloat16 copy) come from the launch just before.  The two forms launch the
 // same chain, so one plan serves both.
 //
@@ -103,9 +106,13 @@ constexpr int kMaxLayers = 16;
 // two float32 buffers (a layer's backward reads one and writes dedy, the next
 // layer's dedx, into the other), and so does its bfloat16 copy, which the
 // tensor-core chain writes beside it (rne(dedx), bf16_ld rows) and its
-// backward reads: each copy 16-byte aligned.
+// backward reads.  The stored input of each layer l >= 1 has its bfloat16
+// copy too (rne(y), bf16_ld rows), which the tensor-core chain's forward of
+// layer l reads.  Each copy 16-byte aligned; the float32 chain leaves the
+// copies unused.
 struct Workspace {
-  long long ys[kMaxLayers];  // offset of the stored input of layer l (l >= 1)
+  long long ys[kMaxLayers];     // offset of the stored input of layer l (l >= 1)
+  long long ys_bf[kMaxLayers];  // offset of its bfloat16 copy (l >= 1)
   long long out, dedx_a, dedx_b, bf_a, bf_b, total;
 };
 
@@ -131,6 +138,11 @@ Workspace plan_workspace(const int* sizes, int L, int bunch) {
   off += bf_floats;
   ws.bf_b = off;
   off += bf_floats;
+  ws.ys_bf[0] = -1;
+  for (int l = 1; l < L; ++l) {
+    ws.ys_bf[l] = off;
+    off += ((long long)bunch * bf16_ld(sizes[l]) / 2 + 3) / 4 * 4;
+  }
   ws.total = off;
   return ws;
 }
@@ -252,7 +264,10 @@ inline int early_flags(const int* plan, int L, int direction, int l) {
 // and writes y[l] (the masked activation the next layer and the backward
 // read; y[L-1] is the net's output), and the last layer also writes dedx =
 // coef*(y - t), and with dedx_bf (the tensor-core chain's) rne(dedx) beside
-// it, bf16_ld(sizes[L]) a row.  Dropout: the input's mask in_mask (in both trainers the
+// it, bf16_ld(sizes[L]) a row.  y_bf (the tensor-core chain's; nullptr: none):
+// y_bf[l], l < L - 1, the copy rne(y[l]) (bf16_ld(sizes[l + 1]) a row) that
+// layer l writes beside y[l] and layer l + 1 reads in place of y[l].
+// Dropout: the input's mask in_mask (in both trainers the
 // tile's rows of the call's bit table, mode 3), hidden layer l+1's the stream
 // key0 + (l+1)*kLayerStride drawn in the epilogue of layer l at the rows
 // row0.. of the global tile, so a rank of the data-parallel trainer draws
@@ -263,22 +278,28 @@ inline int early_flags(const int* plan, int L, int direction, int l) {
 // launch).
 template <typename TW>
 cudaError_t forward_tile(const float* x, const float* t, int tile, const int* sizes, int L,
-                         void* const* w, float* const* b, float* const* y, float* dedx,
-                         bf16_t* dedx_bf, int hidden, int output, const MaskSpec& in_mask,
-                         unsigned key0, unsigned thr_hid, float scale_hid, int row0, float coef,
-                         int plan_rows, bool tc, const int* plan, bool* first,
-                         cudaStream_t stream) {
+                         void* const* w, float* const* b, float* const* y,
+                         bf16_t* const* y_bf, float* dedx, bf16_t* dedx_bf, int hidden,
+                         int output, const MaskSpec& in_mask, unsigned key0, unsigned thr_hid,
+                         float scale_hid, int row0, float coef, int plan_rows, bool tc,
+                         const int* plan, bool* first, cudaStream_t stream) {
   for (int l = 0; l < L; ++l) {
     const bool last = l == L - 1;
     const MaskSpec out_mask =
         (!last && thr_hid)
             ? philox_mask(key0 + (unsigned)(l + 1) * kLayerStride, thr_hid, scale_hid, row0)
             : no_mask();
+    FwdCopies copies;
+    if (y_bf != nullptr) {
+      if (l > 0) copies.x = y_bf[l - 1];
+      if (!last) copies.y = y_bf[l];
+    }
+    if (last) copies.dedx = dedx_bf;
     const bool pdl = plan != nullptr && !*first;
     const cudaError_t err = launch_fwd(
         l == 0 ? x : y[l - 1], (const TW*)w[l], b[l], y[l], tile, sizes[l], sizes[l + 1],
         last ? output : hidden, l == 0 ? in_mask : no_mask(), out_mask, last ? t : nullptr,
-        last ? dedx : nullptr, last ? dedx_bf : nullptr, coef, tc, stream, plan_rows, pdl,
+        last ? dedx : nullptr, copies, coef, tc, stream, plan_rows, pdl,
         pdl ? early_flags(plan, L, 0, l) : 0);
     if (err != cudaSuccess) return err;
     *first = false;
@@ -295,7 +316,11 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
   const Workspace ws = plan_workspace(sizes, L, tile);
   const float coef = 2.0f / (float)(tile * accum);
   float* ys[kMaxLayers];
-  for (int l = 0; l < L; ++l) ys[l] = work + (l == L - 1 ? ws.out : ws.ys[l + 1]);
+  bf16_t* ys_bf[kMaxLayers];  // the tensor-core chain's copies of the hidden layers' outputs
+  for (int l = 0; l < L; ++l) {
+    ys[l] = work + (l == L - 1 ? ws.out : ws.ys[l + 1]);
+    ys_bf[l] = l < L - 1 ? (bf16_t*)(work + ws.ys_bf[l + 1]) : nullptr;
+  }
   // The input's masks of every tile of the call, drawn once into mask_bits
   // by an ordinary launch before the chain: the chain's first launch follows
   // it in stream order and every later launch starts after that one, so any
@@ -321,9 +346,10 @@ int train_chunk(const float* x, const float* t, int n_real, int tile, int accum,
       // the tensor-core chain's bfloat16 copies of them, written beside each (none in float32)
       bf16_t* dedx_bf = tc ? (bf16_t*)(work + ws.bf_a) : nullptr;
       bf16_t* other_bf = tc ? (bf16_t*)(work + ws.bf_b) : nullptr;
-      const cudaError_t ferr = forward_tile<TW>(xi, ti, tile, sizes, L, w, b, ys, dedx, dedx_bf,
-                                                hidden, output, in_mask, key0, thr_hid, scale_hid,
-                                                0, coef, 0, tc, plan, &first, stream);
+      const cudaError_t ferr = forward_tile<TW>(xi, ti, tile, sizes, L, w, b, ys,
+                                                tc ? ys_bf : nullptr, dedx, dedx_bf, hidden,
+                                                output, in_mask, key0, thr_hid, scale_hid, 0,
+                                                coef, 0, tc, plan, &first, stream);
       if (ferr != cudaSuccess) return (int)ferr;
       for (int l = L - 1; l >= 0; --l) {
         const float* yprev = l == 0 ? xi : work + ws.ys[l];
@@ -414,7 +440,9 @@ extern "C" int resident_chunk_train(const float* x, const float* t, int n_real, 
 // single-device trainer's bit for bit.  The input's mask is read from
 // mask_bits (tile rows of mask_words(sizes[0]) words: the tile's rows of the
 // table input_mask_bits_u32 draws at row0, mode 3); with thr_vis a nullptr
-// is refused.  Every launch is an ordinary one.  The gradient-out backward
+// is refused.  Every launch is an ordinary one, and the tensor-core form
+// rounds each layer's float32 input (no bfloat16 copies: the layer kernels'
+// own sums, as fused_linear_act's).  The gradient-out backward
 // and the update of each layer are fused_mlp.cu's; the sum between them is
 // the caller's.
 extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int global_tile,
@@ -431,8 +459,9 @@ extern "C" int dp_chunk_forward(const float* x, const float* t, int tile, int gl
               : no_mask();
   bool first = true;
   const cudaError_t err = forward_tile<float>(
-      x, t, tile, sizes, L, w, b, y, dedx, nullptr, hidden, output, in_mask, key0, thr_hid,
-      scale_hid, row0, coef, global_tile, bf16 != 0, nullptr, &first, (cudaStream_t)stream);
+      x, t, tile, sizes, L, w, b, y, nullptr, dedx, nullptr, hidden, output, in_mask, key0,
+      thr_hid, scale_hid, row0, coef, global_tile, bf16 != 0, nullptr, &first,
+      (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

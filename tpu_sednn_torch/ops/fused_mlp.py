@@ -52,7 +52,11 @@ W then takes the unrounded step: the chunk trainer's sr_state and sr_delta.
 and returns them.  The tensor-core backward reads dedx rounded to bfloat16
 (`bf16_ld` a row), which the chunk trainer's launches write beside dedx;
 these wrappers, which hold float32 dedx alone, make that copy with one
-launch of a cast kernel before the backward.  The float32 forms are
+launch of a cast kernel before the backward.  In the chunk trainer the
+tensor-core forward of each hidden layer likewise reads its input's copy,
+rne(y), which the layer below writes beside y; `fused_linear_act` rounds
+float32 x itself (the C entry `fused_tc_fwd_copies` runs the chunk trainer's
+forms standing alone, for the holds).  The float32 forms are
 FMA-bound at the flagship shapes, the tensor-core forms bytes-bound
 (csrc/fused_mlp.cuh says why).
 """
@@ -218,6 +222,7 @@ def _c_api() -> dict:
     return {
         "fused_linear_act_f32": ([p, p, i, p, p, i, i, i, i, i, p, u, u, f, i, p, u, u, f, i, p],
                                  i),
+        "fused_tc_fwd_copies": ([p, p, p, i, p, p, p, i, i, i, i, p, p, p, f, p], i),
         "fused_bwd_update_f32": ([p, p, p, p, i, p, i, u, p, p, p, i, i, i, f, f, f, i, p, u, u,
                                   f, i, i, p], i),
         "fused_bwd_grad_out_f32": ([p, p, p, p, p, p, i, i, i, i, p, u, u, f, i, i, i, p], i),
@@ -261,9 +266,10 @@ def _mask_args(name: str, mask: MaskArg, scale: float, shape, device):
 
 
 def bf16_ld(n: int) -> int:
-    """The row stride, in elements, of dedx's bfloat16 copy, which the
-    tensor-core backward reads by tensor copies (csrc/fused_mlp.cuh:bf16_ld):
-    n padded to a multiple of 8, 16 bytes."""
+    """The row stride, in elements, of the bfloat16 copies the tensor-core
+    kernels read by tensor copies (dedx's for the backward, a hidden layer's
+    output for the next forward; csrc/fused_mlp.cuh:bf16_ld): n padded to a
+    multiple of 8, 16 bytes."""
     return -(-int(n) // 8) * 8
 
 

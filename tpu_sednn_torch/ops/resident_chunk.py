@@ -397,7 +397,10 @@ def make_resident_train_chunk(cfg: ModelConfig, opt: OptConfig,
     bf16: True (the JAX factory's default) rounds both operands of every
     product to bfloat16 and sums in float32, on the tensor cores
     (csrc/fused_mlp.cuh: tc_fwd_kernel, stripe_bwd_kernel); biases, the bias
-    gradient and the update on the unrounded W stay float32.  False: float32
+    gradient and the update on the unrounded W stay float32.  Each rounded
+    operand that one launch makes for the next is stored beside it by that
+    launch (rne(dedx) for the backward, rne(y) of a hidden layer for the next
+    forward), so no launch rounds another's output again.  False: float32
     products.  Either runs with every storage form above.  The data-parallel
     form is `make_dp_resident_train_chunk`.  The TPU kernel's interpret and dedy_full have
     no counterpart (a CPU state takes the plain version; dedy_full names a
